@@ -1,0 +1,399 @@
+"""CLI entry — the reference's ``main.go`` equivalent, for the port.
+
+The engine-run command line of ``python -m distributed_gol_tpu``, flag for
+flag (``-t``, ``-w``, ``-h`` board height, ``-turns``, ``-noVis`` and the
+framework flags), plus ``--device cuda|cpu``.  Flags for what the port does
+not serve yet (meshes, the adaptive kernels, viewers, the supervisor, time
+compression, telemetry endpoints, multi-host) are usage errors that name
+the ROADMAP item.  The engine runs in a worker thread while the main thread
+drains the event stream; the keyboard listener feeds s/p/q/k.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import queue
+import signal
+import sys
+import threading
+from pathlib import Path
+
+from distributed_gol_torch.engine.events import EventQueue, FinalTurnComplete
+from distributed_gol_torch.engine.gol import start
+from distributed_gol_torch.engine.params import Params
+from distributed_gol_torch.engine.session import Session, default_session
+from distributed_gol_torch.models.life import parse_rule
+from distributed_gol_torch.utils.device import resolve_device
+from distributed_gol_torch.viewer.keyboard import keyboard_listener
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="distributed_gol_torch",
+        add_help=False,  # -h is board height, as in the reference CLI
+        description="Game of Life engine on PyTorch and CUDA (port of distributed_gol_tpu)",
+    )
+    ap.add_argument("--help", action="help", help="show this help message")
+    ap.add_argument("-t", type=int, default=8, metavar="THREADS",
+                    help="threads knob (accepted for parity; the device owns its parallelism)")
+    ap.add_argument("-w", type=int, default=512, metavar="WIDTH")
+    ap.add_argument("-h", type=int, default=512, metavar="HEIGHT")
+    ap.add_argument("-turns", type=int, default=10_000_000_000)
+    ap.add_argument("-noVis", action="store_true", dest="no_vis")
+    ap.add_argument("--rule", default="conway", help="conway | highlife | ... | B36/S23")
+    ap.add_argument(
+        "--engine",
+        default="auto",
+        choices=["auto", "roll", "pallas", "packed", "pallas-packed"],
+    )
+    ap.add_argument("--superstep", type=int, default=0,
+                    help="generations per device dispatch (0 = auto)")
+    ap.add_argument("--mesh", default="1x1", metavar="NYxNX",
+                    help="device mesh shape, e.g. 2x4")
+    ap.add_argument("--images-dir", default="images")
+    ap.add_argument("--out-dir", default="out")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="durable 'q'-detach checkpoints live here")
+    ap.add_argument("--ticker", type=float, default=2.0,
+                    help="AliveCellsCount period in seconds")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="where the board lives and the engines run (cuda "
+                         "fails when no CUDA GPU is available)")
+    ap.add_argument("--trace", default=None, metavar="DIR",
+                    help="write a torch.profiler Chrome trace of the run to "
+                         "DIR/trace.json")
+    ap.add_argument("--timing", action="store_true",
+                    help="emit TurnTiming events (per-dispatch gens/sec)")
+    ap.add_argument("--turn-events", default="per-turn",
+                    choices=["per-turn", "batch"],
+                    help="TurnComplete telemetry: reference-exact per-turn "
+                         "events, or one TurnsCompleted(first, last) per "
+                         "dispatch (headless fast path)")
+    ap.add_argument("--window", action="store_true",
+                    help="render in a pixel window (pygame) instead of the "
+                         "terminal — the reference's SDL window experience; "
+                         "needs a display (or SDL_VIDEODRIVER=dummy)")
+    ap.add_argument("--view-mode", default="auto",
+                    choices=["auto", "flips", "frame"],
+                    help="viewer feed: exact per-cell flips or device-pooled "
+                         "frames (auto switches on board size)")
+    ap.add_argument("--frame-max", default="512x512", metavar="HxW",
+                    help="max size of a device-pooled viewer frame")
+    ap.add_argument("--frame-stride", type=int, default=0, metavar="N",
+                    help="frame mode: exact generations per rendered frame "
+                         "(each frame costs one host round-trip; stride N "
+                         "multiplies wall-clock sim speed ~N on high-"
+                         "latency links).  Default 0 = latency-adaptive: "
+                         "the frame-fetch round-trip is measured at "
+                         "viewer start and the stride raised to match on "
+                         "slow links (local links keep a frame per turn)")
+    ap.add_argument("--viewport", default=None, metavar="Y0,X0,HxW",
+                    help="region-of-interest spectator viewport: render "
+                         "only this rect (toroidal anchor; a/d/w/x pan, "
+                         "+/- zoom mid-run).  Frame cost becomes "
+                         "O(viewport), not O(board) — what makes 16384^2+ "
+                         "boards watchable (e.g. 0,0,1024x1024)")
+    ap.add_argument("--frame-deltas", action="store_true", default=None,
+                    dest="frame_deltas",
+                    help="delta-encode frames (changed 8-row bands after "
+                         "a keyframe).  Default: auto — on exactly when "
+                         "--viewport is set")
+    ap.add_argument("--no-frame-deltas", action="store_false",
+                    dest="frame_deltas",
+                    help="force whole-frame FrameReady events even with a "
+                         "viewport")
+    ap.add_argument("--max-dispatch-seconds", type=float, default=0.25,
+                    help="adaptive-superstep target per dispatch; bounds "
+                         "keypress latency at ~2x this value")
+    ap.add_argument("--skip-stable", action="store_true", default=None,
+                    help="activity-adaptive pallas-packed kernel: period-6-"
+                         "stable tiles (ash) skip their generations, exactly "
+                         "(default: auto — ON for headless multi-generation "
+                         "runs of 100k+ turns on boards where it engages)")
+    ap.add_argument("--no-skip-stable", action="store_false", dest="skip_stable",
+                    help="force the adaptive kernel off (see --skip-stable)")
+    ap.add_argument("--skip-tile-cap", type=int, default=0, metavar="ROWS",
+                    help="skip-tile granularity for --skip-stable (multiple "
+                         "of 8). 0 = the measured-optimal default (1024 "
+                         "rows, dominant in every measured regime)")
+    ap.add_argument("--cycle-check", type=int, default=8, metavar="N",
+                    help="probe for whole-board period-6 stability every N "
+                         "headless dispatches; once proved, the remaining "
+                         "turns fast-forward exactly (0 disables)")
+    ap.add_argument("--time-compression", action="store_true",
+                    help="temporal-compression tier (docs/API.md \"Time "
+                         "compression\"): once the board is proved settled, "
+                         "fast-forward through time in ash-period chunks "
+                         "with zero device launches — exact, guarded by an "
+                         "independent-stencil re-derivation; requires a "
+                         "rule with a known ash period (B3/S23, B36/S23)")
+    ap.add_argument("--timecomp-cache-slots", type=int, default=256,
+                    metavar="N",
+                    help="bounded LRU slots for the time-compression ash "
+                         "cache (per-phase alive counts of settled boards)")
+    ap.add_argument("--soup", type=float, default=None, metavar="DENSITY",
+                    help="start from a seeded random soup of this density "
+                         "instead of images/WxH.pgm (huge boards need no "
+                         "input file)")
+    ap.add_argument("--soup-seed", type=int, default=0,
+                    help="RNG seed for --soup (multi-host runs must pass "
+                         "the same seed on every process)")
+    # Fault tolerance (docs/API.md "Fault tolerance").
+    ap.add_argument("--retry-limit", type=int, default=1, metavar="N",
+                    help="retries per failed dispatch from the last good "
+                         "board (0 = every failure terminal; default 1, "
+                         "the reference's single re-queue)")
+    ap.add_argument("--retry-backoff", type=float, default=0.0,
+                    metavar="SECONDS",
+                    help="base of the deterministic exponential backoff "
+                         "between retries (0 = retry immediately)")
+    ap.add_argument("--failure-budget", type=int, default=0, metavar="N",
+                    help="per-run failure cap: past it the next failure is "
+                         "terminal regardless of --retry-limit (0 = unlimited)")
+    ap.add_argument("--dispatch-deadline", type=float, default=0.0,
+                    metavar="SECONDS",
+                    help="dispatch watchdog: a blocking dispatch wait past "
+                         "this deadline aborts the run (sentinel + parked "
+                         "checkpoint) instead of wedging; 0 disables")
+    ap.add_argument("--checkpoint-every-turns", type=int, default=0,
+                    metavar="N",
+                    help="durable periodic checkpoint every N turns "
+                         "(atomic + CRC32 + keep-last-K; pair with "
+                         "--checkpoint-dir to survive the process)")
+    ap.add_argument("--checkpoint-every-seconds", type=float, default=0.0,
+                    metavar="S",
+                    help="wall-clock checkpoint cadence, checked at "
+                         "dispatch boundaries (refused by multi-host runs)")
+    ap.add_argument("--checkpoint-keep", type=int, default=3, metavar="K",
+                    help="keep-last-K rotation for periodic checkpoints")
+    # Resilience (docs/API.md "Resilience").
+    ap.add_argument("--restart-limit", type=int, default=0, metavar="N",
+                    help="rollback-recovery supervisor: survive up to N "
+                         "terminal dispatch failures by restoring the "
+                         "newest checkpoint and resuming (rebuilding the "
+                         "backend, escalating to the ppermute exchange "
+                         "tier from the second restart); 0 = off, every "
+                         "terminal failure aborts as before")
+    ap.add_argument("--restart-window", type=float, default=0.0,
+                    metavar="SECONDS",
+                    help="restart-rate budget: with a window, "
+                         "--restart-limit bounds restarts per trailing "
+                         "window instead of per run (0 = per-run total)")
+    ap.add_argument("--sdc-check-every-turns", type=int, default=0,
+                    metavar="N",
+                    help="SDC sentinel: every N turns cross-check the "
+                         "resolved dispatch against a redundant stripe "
+                         "recompute + popcount fingerprint; a mismatch "
+                         "is terminal (CorruptionDetected) and rolls "
+                         "back under --restart-limit; keep N <= "
+                         "--checkpoint-every-turns; 0 disables")
+    ap.add_argument("--peer-heartbeat", type=float, default=0.0,
+                    metavar="SECONDS",
+                    help="multi-host peer liveness: every rank UDP-pings "
+                         "its peers on this interval so a rank that dies "
+                         "HARD (SIGKILL, machine loss) is detected within "
+                         "~3 intervals and survivors abort resumable "
+                         "(PeerLost) instead of waiting out the dispatch "
+                         "deadline or the coordination service's "
+                         "multi-minute hard-kill; arm uniformly on every "
+                         "rank; 0 = off; ignored on single-host runs")
+    # Observability (docs/API.md "Observability").
+    ap.add_argument("--metrics", action="store_true", default=True,
+                    help="always-on run metrics: counters/gauges/histograms "
+                         "on the dispatch and failure paths, reported in the "
+                         "terminal MetricsReport event (on by default; the "
+                         "clean-path cost is noise)")
+    ap.add_argument("--no-metrics", action="store_false", dest="metrics",
+                    help="disable the metrics registry (see --metrics)")
+    ap.add_argument("--flight-recorder-depth", type=int, default=256,
+                    metavar="N",
+                    help="crash flight recorder: keep the last N structured "
+                         "records (dispatches, retries, watchdog fires, "
+                         "checkpoints) and dump flight-<ts>.json next to the "
+                         "checkpoint dir when a run dies; 0 disables")
+    ap.add_argument("--telemetry-port", type=int, default=None, metavar="PORT",
+                    help="continuous telemetry endpoints for this run "
+                         "/metrics (OpenMetrics) and /healthz "
+                         "(JSON) on PORT (0 = an ephemeral port, published "
+                         "as the telemetry.endpoint info label), served "
+                         "bounded-time from the sampler's latest in-memory "
+                         "sample; needs --metrics (the default)")
+    ap.add_argument("--telemetry-sample-seconds", type=float, default=0.0,
+                    metavar="S",
+                    help="registry sampling cadence for the telemetry "
+                         "plane (0 = off unless --telemetry-port is set, "
+                         "which defaults the cadence to 1s)")
+    # Multi-host: launch the same command on every host (the reference's
+    # hand-launched broker/worker fleet, broker/broker.go:191-205); process
+    # 0 is the controller, the rest are followers.
+    ap.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                    help="multi-host run: distributed coordinator address")
+    ap.add_argument("--num-processes", type=int, default=1)
+    ap.add_argument("--process-id", type=int, default=0)
+    return ap
+
+
+def params_from_args(args) -> Params:
+    ny, _, nx = args.mesh.partition("x")
+    if not (ny.isdigit() and nx.isdigit()):
+        raise ValueError(f"--mesh wants NYxNX (e.g. 2x4), got {args.mesh!r}")
+    fh, _, fw = args.frame_max.partition("x")
+    if not (fh.isdigit() and fw.isdigit()):
+        raise ValueError(f"--frame-max wants HxW (e.g. 512x512), got {args.frame_max!r}")
+    viewport = None
+    if args.viewport is not None:
+        try:
+            y0, x0, size = args.viewport.split(",")
+            vh, _, vw = size.partition("x")
+            viewport = (int(y0), int(x0), int(vh), int(vw))
+        except ValueError:
+            raise ValueError(
+                "--viewport wants Y0,X0,HxW (e.g. 0,0,1024x1024), "
+                f"got {args.viewport!r}"
+            ) from None
+    return Params(
+        turns=args.turns,
+        threads=args.t,
+        image_width=args.w,
+        image_height=args.h,
+        no_vis=args.no_vis,
+        rule=parse_rule(args.rule),
+        superstep=args.superstep,
+        engine=args.engine,
+        mesh_shape=(int(ny), int(nx)),
+        images_dir=args.images_dir,
+        out_dir=args.out_dir,
+        ticker_period=args.ticker,
+        emit_timing=args.timing,
+        turn_events=args.turn_events,
+        view_mode=args.view_mode,
+        frame_max=(int(fh), int(fw)),
+        frame_stride=args.frame_stride,
+        viewport=viewport,
+        frame_deltas=args.frame_deltas,
+        max_dispatch_seconds=args.max_dispatch_seconds,
+        skip_stable=args.skip_stable,
+        skip_tile_cap=args.skip_tile_cap,
+        cycle_check=args.cycle_check,
+        time_compression=args.time_compression,
+        timecomp_cache_slots=args.timecomp_cache_slots,
+        soup_density=args.soup,
+        soup_seed=args.soup_seed,
+        retry_limit=args.retry_limit,
+        retry_backoff_seconds=args.retry_backoff,
+        failure_budget=args.failure_budget,
+        dispatch_deadline_seconds=args.dispatch_deadline,
+        checkpoint_every_turns=args.checkpoint_every_turns,
+        checkpoint_every_seconds=args.checkpoint_every_seconds,
+        checkpoint_keep=args.checkpoint_keep,
+        restart_limit=args.restart_limit,
+        restart_window_seconds=args.restart_window,
+        sdc_check_every_turns=args.sdc_check_every_turns,
+        peer_heartbeat_seconds=args.peer_heartbeat,
+        metrics=args.metrics,
+        flight_recorder_depth=args.flight_recorder_depth,
+        telemetry_sample_seconds=args.telemetry_sample_seconds,
+        device=args.device,
+    )
+
+
+class _GracefulStop:
+    """The preemption latch the controller polls at turn boundaries."""
+
+    requested = False
+
+    def request(self, signum=None, frame=None) -> None:
+        self.requested = True
+
+
+def _drain(events) -> FinalTurnComplete | None:
+    """Drain the stream, printing every event with a non-empty ``str()``
+    (``sdl/loop.go:44-47``); returns the final event."""
+    final = None
+    while True:
+        for e in events.get_many():
+            if e is None:
+                return final
+            if isinstance(e, FinalTurnComplete):
+                final = e
+            s = str(e)
+            if s:
+                print(f"Completed Turns {e.completed_turns:<8}{s}", flush=True)
+
+
+@contextlib.contextmanager
+def _trace(log_dir):
+    """A ``torch.profiler`` capture of the run, written as
+    ``log_dir/trace.json``."""
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield
+    Path(log_dir).mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(Path(log_dir) / "trace.json"))
+
+
+def _refuse_cli_unported(args) -> None:
+    if args.coordinator is not None or args.num_processes != 1:
+        raise NotImplementedError("multi-host runs are not ported yet (ROADMAP A8)")
+    if args.telemetry_port is not None:
+        raise NotImplementedError(
+            "--telemetry-port: the telemetry endpoints are not ported yet (ROADMAP A9)"
+        )
+    if args.window:
+        raise NotImplementedError("--window: the viewers are not ported yet (ROADMAP A10)")
+
+
+def main(argv=None) -> int:
+    ap = build_parser()
+    args = ap.parse_args(sys.argv[1:] if argv is None else argv)
+    try:
+        _refuse_cli_unported(args)
+        params = params_from_args(args)
+    except (ValueError, NotImplementedError) as e:
+        ap.error(str(e))  # clean usage error, exit 2 — not a traceback
+    try:
+        resolve_device(params.device)
+    except RuntimeError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    session = Session(args.checkpoint_dir) if args.checkpoint_dir else default_session()
+
+    events = EventQueue()
+    key_presses: queue.Queue = queue.Queue()
+    stop = threading.Event()
+    restore_tty = keyboard_listener(key_presses, stop)
+    # SIGTERM (a preemption notice) → graceful stop: the engine drains at
+    # the next turn boundary, forces an emergency checkpoint and exits
+    # paused-and-resumable.  Ctrl-C keeps its 'q' detach.
+    graceful = _GracefulStop()
+    previous = signal.signal(signal.SIGTERM, graceful.request)
+    tracer = _trace(args.trace) if args.trace else contextlib.nullcontext()
+    with tracer:
+        engine = start(params, events, key_presses, session, stop=graceful)
+        try:
+            final = _drain(events)
+        except KeyboardInterrupt:
+            key_presses.put("q")  # graceful detach, checkpoint parked on session
+            final = _drain(events)
+        finally:
+            stop.set()
+            signal.signal(signal.SIGTERM, previous)
+            if restore_tty is not None:
+                restore_tty()
+        engine.join(timeout=30)
+    if final is None:
+        # The stream ended without a FinalTurnComplete: the engine died
+        # (its traceback went to stderr).  Scripts must see the failure.
+        print("error: engine terminated without completing", file=sys.stderr)
+        return 1
+    print(f"Final turn {final.completed_turns}: {len(final.alive)} alive")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,285 @@
+"""The packed kernel tier of the port (``ops/cuda_packed.py``) against the
+JAX package's Pallas kernels.
+
+On the CPU the kernel wrappers run their plain versions, and the K2 tiling
+mirror replays the CUDA kernel's exact window decomposition; both are held
+bit for bit against ``distributed_gol_tpu.ops.pallas_packed`` run in
+interpret mode.  Tests marked ``gpu`` hold each CUDA kernel against its
+plain version on the card and skip where there is none.
+
+The JAX package is imported inside the tests that compare with it, so the
+``gpu`` tests also run on a machine without JAX:
+``python -m pytest tests/test_torch_kernels.py -m gpu --noconftest``."""
+
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from distributed_gol_torch.models import life as tlife
+from distributed_gol_torch.ops import cuda_packed, packed as tpacked
+
+# One intra-op thread: the suite runs in parallel worker processes.
+torch.set_num_threads(1)
+
+RULES = ["conway", "highlife"]
+
+
+def random_board(rng: np.random.Generator, h: int, w: int, p: float = 0.3) -> np.ndarray:
+    return np.where(rng.random((h, w)) < p, 255, 0).astype(np.uint8)
+
+
+def words(t: torch.Tensor) -> np.ndarray:
+    return t.numpy().view(np.uint32)
+
+
+@pytest.fixture(scope="module")
+def ref():
+    """The JAX package's modules (the reference)."""
+    import jax.numpy as jnp
+
+    from distributed_gol_tpu.models import life
+    from distributed_gol_tpu.ops import packed, pallas_packed
+
+    return SimpleNamespace(jnp=jnp, life=life, packed=packed, pallas=pallas_packed)
+
+
+# -- the bytes driver against the interpret-mode Pallas driver ---------------
+
+
+@pytest.mark.parametrize("rule", RULES)
+@pytest.mark.parametrize(
+    "shape,turns",
+    [
+        ((512, 512), 30),  # resident on both: _vmem_kernel vs K1
+        ((64, 4096), 20),  # JAX _kernel, full launches + remainder (K1 here)
+        ((64, 4096), 50),
+        ((72, 4096), 50),  # tiled on both: _kernel vs K2
+    ],
+)
+def test_superstep_bytes_matches_pallas(ref, rule, shape, turns):
+    b = random_board(np.random.default_rng(turns + shape[0]), *shape)
+    want = ref.pallas.make_superstep_bytes(ref.life.RULES[rule], interpret=True)(
+        ref.jnp.asarray(b), turns
+    )
+    got = cuda_packed.make_superstep_bytes(tlife.RULES[rule], device="cpu")(b, turns)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_superstep_bytes_zero_turns_is_identity():
+    b = random_board(np.random.default_rng(1), 64, 64)
+    got = cuda_packed.make_superstep_bytes(device="cpu")(b, 0)
+    np.testing.assert_array_equal(got.numpy(), b)
+
+
+def test_resident_plain_matches_vmem_kernel(ref):
+    """K1's plain version on vertical words == the JAX resident kernel's
+    vertical words (the layout K1 takes)."""
+    b = random_board(np.random.default_rng(9), 256, 128)
+    jv = ref.pallas._build_vmem_resident((8, 128), ref.life.HIGHLIFE, 17, True)(
+        ref.packed.pack_vertical(ref.jnp.asarray(b))
+    )
+    tv = cuda_packed.resident_superstep(
+        tpacked.pack_vertical(torch.from_numpy(b)), tlife.HIGHLIFE, 17
+    )
+    np.testing.assert_array_equal(words(tv), np.asarray(jv))
+
+
+# -- the K2 tiling mirror ------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def tiled_board():
+    return random_board(np.random.default_rng(2024), 64, 4096)
+
+
+@pytest.fixture(scope="module")
+def pallas_tiled_runs(ref, tiled_board):
+    """JAX ``_kernel`` (interpret) results for each turn count, computed
+    once: turns -> packed uint32 words."""
+    cache = {}
+
+    def get(turns):
+        if turns not in cache:
+            p = ref.packed.pack(ref.jnp.asarray(tiled_board))
+            cache[turns] = np.asarray(
+                ref.pallas.make_superstep(ref.life.CONWAY, interpret=True)(p, turns)
+            )
+        return cache[turns]
+
+    return get
+
+
+@pytest.mark.parametrize(
+    "t,tile_h,tile_w",
+    [
+        (1, 8, 5), (1, 64, 128),
+        (6, 16, 7), (6, 24, 40),
+        (31, 24, 30), (31, 40, 62),
+        (33, 16, 13), (33, 48, 60),
+    ],
+)
+def test_tiled_mirror_matches_pallas_forced_plans(tiled_board, pallas_tiled_runs, t, tile_h, tile_w):
+    """Multi-tile plans, ragged edge tiles, T across the one-word xpad
+    boundary (31 vs 33), windows taller than the 64-row board, and a
+    remainder launch (turns = 2T + 3)."""
+    turns = 2 * t + 3
+    plan = cuda_packed.TiledPlan(t, tile_h, tile_w, -(-t // 32))
+    p = tpacked.pack(torch.from_numpy(tiled_board))
+    got = cuda_packed.tiled_superstep_mirror(p, tlife.CONWAY, turns, plan)
+    np.testing.assert_array_equal(words(got), pallas_tiled_runs(turns))
+
+
+@pytest.mark.parametrize("shape", [(16, 96), (1, 32), (3, 64), (72, 4096)])
+def test_tiled_mirror_small_and_degenerate_boards(ref, shape):
+    """Boards shorter than their halo (and the degenerate 1- and 3-row
+    tori) with the real plan: the modular gather is the torus."""
+    b = random_board(np.random.default_rng(shape[0]), *shape)
+    p = tpacked.pack(torch.from_numpy(b))
+    turns = 45
+    got = cuda_packed.tiled_superstep_mirror(p, tlife.HIGHLIFE, turns)
+    want = ref.packed.superstep(ref.packed.pack(ref.jnp.asarray(b)), ref.life.HIGHLIFE, turns)
+    np.testing.assert_array_equal(words(got), np.asarray(want))
+
+
+def test_tiled_plan_rejects_short_halo():
+    with pytest.raises(ValueError):
+        cuda_packed.TiledPlan(33, 16, 16, 1)
+
+
+# -- gates and launch plan (pure Python) ---------------------------------------
+
+
+@pytest.mark.parametrize(
+    "shape,kernel",
+    [
+        ((512, 512), "resident"),
+        ((64, 4096), "resident"),  # 32 KB of words: fits one block
+        ((1024, 1024), "resident"),  # 128 KB
+        ((1024, 1792), "resident"),  # 224 KB, the largest square-ish fit
+        ((1024, 2048), "tiled"),  # 256 KB > 227 KB
+        ((3072, 3072), "tiled"),  # in the TPU's resident envelope, not here
+        ((16384, 16384), "tiled"),
+        ((1004, 3072), "tiled"),  # H % 32 != 0
+        ((72, 4096), "tiled"),
+        ((1, 32), "tiled"),
+        ((16, 16), None),  # W % 32 != 0: no packed words, roll runs it
+        ((64, 48), None),
+    ],
+)
+def test_gate_routes_shapes(shape, kernel):
+    assert cuda_packed.kernel_for(shape) == kernel
+
+
+def test_every_pallas_supported_shape_has_a_kernel(ref):
+    """No board that runs a Pallas kernel on the TPU runs plain PyTorch on
+    the card."""
+    for h in (8, 64, 256, 512, 1000, 3072, 16384):
+        for wp in (1, 2, 4, 128, 256, 512):
+            if ref.pallas.supports((h, wp)):
+                assert cuda_packed.kernel_for((h, wp * 32)) is not None
+
+
+def test_tiled_plan_at_the_headline_board():
+    plan = cuda_packed.tiled_plan((16384, 512), 10_000)
+    assert plan.t == cuda_packed.TILED_MAX_T == 32
+    assert plan.xpad == 1 and plan.cols_w <= cuda_packed.TILED_COLS
+    assert plan.smem_bytes <= cuda_packed.SMEM_BYTES
+    ny, nx = plan.grid((16384, 512))
+    assert ny * plan.tile_h >= 16384 and nx * plan.tile_w >= 512
+    assert (ny - 1) * plan.tile_h < 16384 and (nx - 1) * plan.tile_w < 512
+
+
+@pytest.mark.parametrize("turns,depths", [(1, [1]), (32, [32]), (37, [32, 5]), (100, [32, 32, 32, 4])])
+def test_tiled_launch_sequence(turns, depths):
+    launches = cuda_packed.tiled_launches((16384, 512), turns)
+    assert [p.t for p in launches] == depths
+    assert all(p.smem_bytes <= cuda_packed.SMEM_BYTES for p in launches)
+
+
+def test_rule_masks():
+    assert cuda_packed.rule_masks(tlife.CONWAY) == (1 << 3, (1 << 3) | (1 << 4))
+    assert cuda_packed.rule_masks(tlife.SEEDS) == (1 << 2, 0)
+
+
+def test_cpu_wrappers_run_plain_versions_without_counting():
+    cuda_packed.reset_launches()
+    b = random_board(np.random.default_rng(4), 64, 64)
+    p = tpacked.pack(torch.from_numpy(b))
+    got = cuda_packed.tiled_superstep(p, tlife.CONWAY, 40)
+    np.testing.assert_array_equal(words(got), words(tpacked.superstep(p, tlife.CONWAY, 40)))
+    cuda_packed.resident_superstep(tpacked.pack_vertical(torch.from_numpy(b)), tlife.CONWAY, 3)
+    assert cuda_packed.resident_superstep.launches == cuda_packed.tiled_superstep.launches == 0
+
+
+def test_wrappers_reject_bad_words():
+    with pytest.raises(ValueError):
+        cuda_packed.tiled_superstep(torch.zeros((4, 4), dtype=torch.int64), tlife.CONWAY, 1)
+
+
+@pytest.mark.parametrize(
+    "notation,ops",
+    [
+        ("B3/S23", 12),  # t0, t1, t2 and the centre decide it: 10 + 4 // 2
+        ("B36/S23", 12),
+        ("B1357/S1357", 5),  # t0 ^ centre: 2 SHF, h0, t0, one LOP3
+        ("B/S012345678", 0),  # every cell keeps its state
+    ],
+)
+def test_bound_counts_instructions_per_word(notation, ops):
+    """``chip_smoke.py``'s operation bound counts LOP3/SHF instructions."""
+    import chip_smoke
+
+    assert chip_smoke.ops_per_word(tlife.parse_rule(notation)) == ops
+
+
+# -- the CUDA kernels on the card ------------------------------------------
+
+
+@pytest.fixture()
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is False")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rule", RULES)
+@pytest.mark.parametrize("turns", [1, 6, 100])
+def test_gpu_resident_kernel_matches_plain(cuda_device, rule, turns):
+    b = random_board(np.random.default_rng(turns), 512, 512)
+    v = tpacked.pack_vertical(torch.from_numpy(b)).to(cuda_device)
+    before = cuda_packed.resident_superstep.launches
+    got = cuda_packed.resident_superstep(v, tlife.RULES[rule], turns)
+    torch.cuda.synchronize()
+    assert cuda_packed.resident_superstep.launches == before + 1
+    want = cuda_packed.resident_superstep_plain(v, tlife.RULES[rule], turns)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rule", RULES)
+@pytest.mark.parametrize(
+    "shape,turns",
+    [((1024, 2048), 1), ((1024, 2048), 6), ((1024, 2048), 32), ((1024, 2048), 37),
+     ((1004, 3072), 70), ((40, 96), 45), ((1, 32), 9)],
+)
+def test_gpu_tiled_kernel_matches_plain(cuda_device, rule, shape, turns):
+    b = random_board(np.random.default_rng(turns + shape[0]), *shape)
+    p = tpacked.pack(torch.from_numpy(b)).to(cuda_device)
+    got = cuda_packed.tiled_superstep(p, tlife.RULES[rule], turns)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tpacked.superstep(p, tlife.RULES[rule], turns))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,tile_h,tile_w", [(6, 16, 7), (31, 40, 62), (33, 48, 60)])
+def test_gpu_tiled_kernel_forced_plans(cuda_device, t, tile_h, tile_w):
+    b = random_board(np.random.default_rng(t), 200, 4096)
+    p = tpacked.pack(torch.from_numpy(b)).to(cuda_device)
+    plan = cuda_packed.TiledPlan(t, tile_h, tile_w, -(-t // 32))
+    got = cuda_packed.tiled_superstep(p, tlife.CONWAY, 2 * t + 3, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tpacked.superstep(p, tlife.CONWAY, 2 * t + 3))
+    assert torch.equal(got, cuda_packed.tiled_superstep_mirror(p, tlife.CONWAY, 2 * t + 3, plan))

@@ -114,9 +114,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-skip-stable", action="store_false", dest="skip_stable",
                     help="force the adaptive kernel off (see --skip-stable)")
     ap.add_argument("--skip-tile-cap", type=int, default=0, metavar="ROWS",
-                    help="skip-tile granularity for --skip-stable (multiple "
-                         "of 8). 0 = the measured-optimal default (1024 "
-                         "rows, dominant in every measured regime)")
+                    help="stripe-height cap for --skip-stable (multiple "
+                         "of 8). 0 = the port's default "
+                         "(ops/cuda_adaptive.py SKIP_TILE_CAP)")
     ap.add_argument("--cycle-check", type=int, default=8, metavar="N",
                     help="probe for whole-board period-6 stability every N "
                          "headless dispatches; once proved, the remaining "

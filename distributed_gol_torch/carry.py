@@ -5,7 +5,10 @@ uint32 words in the JAX package and int32 tensors holding the same bit
 pattern here; rules travel as their notation.  Checkpoints need nothing
 from this module: ``engine/session.py`` reads and writes the JAX
 package's on-disk format (PGM plus a CRC'd JSON sidecar) byte for byte,
-so a run parked by either package resumes in the other.
+so a run parked by either package resumes in the other.  The adaptive
+(``skip_stable``) tier adds nothing to carry: it keeps no weights, and its
+state (stripe flags, tracked intervals, skip counts) lives only within
+one dispatch, so checkpoints stay byte-compatible.
 """
 
 from __future__ import annotations

@@ -5,11 +5,12 @@ PyTorch counterpart of ``distributed_gol_tpu/engine/backend.py`` for one
 device, with the surface the controller calls on a headless run: board
 placement (``put``/``fetch``/``fetch_many``), the dispatch seam
 (``run_turns_async``: an unsynced superstep plus an unsynced 0-d alive
-count that ``int()`` forces), the SDC probe, and the whole-board cycle
-probes.  Engine selection mirrors the JAX package's ``_resolve_single``
-and ``_ENGINE_RANK``; every engine is bit-identical, so a fallback changes
-speed, never results — and a slower tier than the one asked for is
-warned about, never silent.
+count that ``int()`` forces), the SDC probe, the whole-board cycle
+probes, and the adaptive (``skip_stable``) tier's skip telemetry
+(``skip_fraction``, ``activity_bitmap``).  Engine selection mirrors the
+JAX package's ``_resolve_single`` and ``_ENGINE_RANK``; every engine is
+bit-identical, so a fallback changes speed, never results — and a slower
+tier than the one asked for is warned about, never silent.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 
 from distributed_gol_torch.engine.params import Params
-from distributed_gol_torch.ops import cuda_packed, packed, stencil
+from distributed_gol_torch.ops import cuda_adaptive, cuda_packed, packed, stencil
 from distributed_gol_torch.utils.device import kernels_native, resolve_device
 
 
@@ -54,16 +55,18 @@ class Backend:
         self.engine_used = self._resolve_single(params, shape, self.device)
         self._warn_if_downgraded(params, shape)
         if self.engine_used == "pallas-packed":
-            if params.skip_stable is None and params.skip_stable_requested():
-                if cuda_packed.kernel_for(shape) == "tiled":
-                    warnings.warn(
-                        "skip_stable auto would engage the adaptive kernels for "
-                        f"this {params.turns}-turn run; they are not ported yet "
-                        "(ROADMAP B3/B4), so the plain tiled kernel runs",
-                        RuntimeWarning,
-                        stacklevel=2,
-                    )
-            self._superstep = cuda_packed.make_superstep_bytes(params.rule, self.device)
+            if self._skip_engages(params, shape):
+                # The adaptive tier with live skip telemetry; cap 0 = the
+                # port's default stripe cap.
+                self._skip_cap = params.skip_tile_cap or cuda_adaptive.SKIP_TILE_CAP
+                self._skip_fn = cuda_packed.make_superstep_bytes(
+                    params.rule, self.device, skip_stable=True,
+                    skip_tile_cap=self._skip_cap, with_stats=True,
+                )
+                self._skip_stats = []
+                self._superstep = self._skip_superstep
+            else:
+                self._superstep = cuda_packed.make_superstep_bytes(params.rule, self.device)
         elif self.engine_used == "packed":
             self._superstep = packed.make_superstep(params.rule)
         else:
@@ -81,16 +84,102 @@ class Backend:
         reg = obs_metrics.registry_for(params.metrics)
         self._m_dispatches = reg.counter(f"backend.dispatches.{self.engine_used}")
         reg.info("backend.engine", self.engine_used)
+        if getattr(self, "_skip_fn", None) is not None:
+            reg.gauge_fn("backend.skip_fraction", self.skip_fraction)
+            reg.gauge_fn("backend.active_tiles", self._active_tiles)
+
+    # -- the adaptive (skip_stable) tier ----------------------------------------
+    @staticmethod
+    def _skip_engages(params: Params, shape: tuple[int, int]) -> bool:
+        """Whether the adaptive tier runs this board, as the JAX Backend
+        decides it: ``skip_stable`` requested (auto: long headless runs) on
+        a shape the tier takes — but "auto" never trades the resident
+        kernel (K1) for it, an explicit request on a K1 board warns, and so
+        does a rule whose ash period the stability window cannot cover."""
+        h, w = shape
+        engages = params.skip_stable_requested() and cuda_adaptive.supports((h, w // 32))
+        if engages and cuda_packed.resident_shape(h, w) is not None:
+            if params.skip_stable is None:
+                return False
+            warnings.warn(
+                "skip_stable forces the tiled kernels on a board eligible for the "
+                "resident fast path; unless the board is mostly ash this is slower",
+                stacklevel=3,
+            )
+        if engages and not cuda_adaptive.skip_covers_rule(params.rule):
+            warnings.warn(
+                f"skip_stable engaged for rule {params.rule.notation} whose ash "
+                f"period is {params.rule.ash_period} — the kernels' "
+                f"period-{cuda_adaptive.SKIP_PERIOD} stability window cannot "
+                "cover its settled debris, so stripes are unlikely to ever skip",
+                stacklevel=3,
+            )
+        return engages
+
+    def _skip_superstep(self, board: torch.Tensor, turns: int) -> torch.Tensor:
+        """The adaptive tier with live skip telemetry: each dispatch's
+        (skipped, stripe-launches, activity) is kept, device values unread,
+        for :meth:`skip_fraction` and :meth:`activity_bitmap`."""
+        new_board, skipped, act = self._skip_fn(board, turns)
+        h, w = self.params.image_height, self.params.image_width
+        total = cuda_adaptive.adaptive_tile_launches((h, w // 32), turns, self._skip_cap)
+        if total:
+            self._skip_stats.append((skipped, total, act))
+            del self._skip_stats[:-3]
+        return new_board
+
+    def _device_superstep(self, board: torch.Tensor, turns: int) -> torch.Tensor:
+        """The superstep without the skip-stats bookkeeping: the cycle
+        probes run it, so they never shift which dispatch ``stats[-3]``
+        is."""
+        if getattr(self, "_skip_fn", None) is not None:
+            return self._skip_fn(board, turns)[0]
+        return self._superstep(board, turns)
 
     def skip_fraction(self) -> float | None:
-        """Share of tile launches the adaptive kernels skipped: None, since
-        those kernels are not ported yet (ROADMAP B3/B4)."""
-        return None
+        """The skip fraction of the newest dispatch at least two dispatches
+        old, or None before there is one (or off the adaptive tier).  The
+        numerator is the frontier kernel's skipped stripe-launches plus the
+        probing kernel's stable flags after each launch (elided stripes
+        included); the denominator is the dispatch's stripe-launches.  Only
+        that entry is forced with ``int()``: the pipelined controller keeps
+        at most one dispatch in flight, so reading this never stalls it."""
+        stats = getattr(self, "_skip_stats", None)
+        if not stats or len(stats) < 3:
+            return None
+        skipped, total, _act = stats[-3]
+        return int(skipped) / total
 
     def activity_bitmap(self) -> np.ndarray | None:
-        """Per-stripe activity of the adaptive kernels: None, since those
-        kernels are not ported yet (ROADMAP B3/B4)."""
-        return None
+        """Per-stripe activity of the same dispatch as :meth:`skip_fraction`:
+        a bool vector, one entry per row stripe from the top, True where
+        the stripe saw activity — measured by the frontier kernel (gen T + 6
+        differs from gen T somewhere), conservatively (not proved stable)
+        by the probing kernel.  Period-6 ash reads inactive.  None before
+        there is one, or off the adaptive tier."""
+        stats = getattr(self, "_skip_stats", None)
+        if not stats or len(stats) < 3:
+            return None
+        act = np.asarray(torch.as_tensor(stats[-3][2]).cpu().numpy())
+        if act.size == 0:
+            return None
+        return act > 0
+
+    def _active_tiles(self) -> float | None:
+        """The ``backend.active_tiles`` gauge: True entries of
+        :meth:`activity_bitmap` (None while it is unavailable)."""
+        bm = self.activity_bitmap()
+        if bm is None:
+            return None
+        return float(int(bm.sum()))
+
+    def activity_tile_rows(self) -> int | None:
+        """Board rows per entry of :meth:`activity_bitmap` (None while it is
+        unavailable): the stripes tile the whole board."""
+        bm = self.activity_bitmap()
+        if bm is None:
+            return None
+        return self.params.image_height // len(bm)
 
     # Speed tier of each engine; a capability fallback moves DOWN this
     # ranking, and must not be silent.
@@ -242,13 +331,13 @@ class Backend:
         """Issue (without waiting) the periodicity check: an unsynced 0-d
         bool tensor, true iff advancing ``cycle_period`` generations
         reproduces ``board``; ``bool()`` forces it."""
-        return torch.all(self._superstep(board, self.cycle_period) == board)
+        return torch.all(self._device_superstep(board, self.cycle_period) == board)
 
     def cycle_counts(self, board: torch.Tensor) -> np.ndarray:
         """Alive counts of the cycle phases: entry i is the count after
         i+1 generations from ``board``."""
         counts = []
         for _ in range(self.cycle_period):
-            board = self._superstep(board, 1)
+            board = self._device_superstep(board, 1)
             counts.append(stencil.alive_count(board))
         return torch.stack(counts).cpu().numpy()

@@ -50,13 +50,15 @@ class Params:
     # engines are bit-identical; unsupported shapes fall back (see
     # Backend.engine_used).
     engine: str = "auto"
-    # Activity-adaptive kernels of the JAX package (skip period-6-stable
-    # tiles).  Not ported yet: an explicit True raises; None (auto) would
-    # engage them for headless runs of _SKIP_AUTO_TURNS or more, where the
-    # port runs the plain tiled kernel and warns once.
+    # Activity-adaptive kernel tier (ops/cuda_adaptive.py): skip row
+    # stripes whose neighbourhood is period-6 stable.  Bit-exact; pays off
+    # once a long run has settled into ash.  None = auto: on for headless
+    # runs of _SKIP_AUTO_TURNS or more (never instead of the resident
+    # kernel); the engine must be "pallas-packed" (or "auto" resolving to
+    # it).
     skip_stable: bool | None = None
-    # Skip-tile granularity of the adaptive kernels (multiple of 8; 0 =
-    # auto).  Accepted for parity; unused until those kernels are ported.
+    # Stripe-height cap of the adaptive tier (multiple of 8; 0 = the
+    # port's default, cuda_adaptive.SKIP_TILE_CAP).
     skip_tile_cap: int = 0
     # TurnComplete telemetry policy: "per-turn" (the reference contract —
     # one TurnComplete per generation, ``gol/event.go:53-58``) | "batch"
@@ -434,11 +436,6 @@ class Params:
             raise NotImplementedError(
                 f"mesh_shape {self.mesh_shape}: sharded execution is not "
                 "ported yet (ROADMAP A8); use mesh_shape=(1, 1)"
-            )
-        if self.skip_stable:
-            raise NotImplementedError(
-                "skip_stable=True: the adaptive kernels are not ported yet "
-                "(ROADMAP B3/B4)"
             )
         if self.engine == "pallas":
             raise NotImplementedError(

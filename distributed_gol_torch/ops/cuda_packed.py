@@ -1,7 +1,8 @@
 """The packed engine's hand-written kernel tier on an H100.
 
 Counterpart of ``distributed_gol_tpu/ops/pallas_packed.py`` for the plain
-(non-adaptive) main path.  Two CUDA kernels (``csrc/``), each with a
+(non-adaptive) main path; the adaptive (``skip_stable``) tier is
+``ops/cuda_adaptive.py``.  Two CUDA kernels (``csrc/``), each with a
 wrapper, a launch counter and a plain PyTorch version:
 
 - **K1, resident** (``csrc/resident.cu``; replaces
@@ -111,6 +112,13 @@ class TiledPlan:
         return -(-h // self.tile_h), -(-wp // self.tile_w)
 
 
+def tile_width(wp: int, xpad: int) -> int:
+    """Words per tile: the widest window that fits ``TILED_COLS`` words with
+    an ``xpad``-word border, split evenly over a ``wp``-word board."""
+    nx = -(-wp // (TILED_COLS - 2 * xpad))
+    return -(-wp // nx)
+
+
 def tiled_plan(shape: tuple[int, int], turns: int) -> TiledPlan:
     """K2's plan for a packed (H, wp) board: T = min(turns, 32), so one
     halo word per side; the widest window that fits ``TILED_COLS`` words,
@@ -119,8 +127,7 @@ def tiled_plan(shape: tuple[int, int], turns: int) -> TiledPlan:
     h, wp = shape
     t = max(1, min(turns, TILED_MAX_T))
     xpad = -(-t // WORD)
-    nx = -(-wp // (TILED_COLS - 2 * xpad))
-    tile_w = -(-wp // nx)
+    tile_w = tile_width(wp, xpad)
     max_tile_h = SMEM_BYTES // (2 * 4 * (tile_w + 2 * xpad)) - 2 * t
     ny = -(-h // max_tile_h)
     return TiledPlan(t, -(-h // ny), tile_w, xpad)
@@ -335,22 +342,54 @@ def supports(shape: tuple[int, int]) -> bool:
     return kernel_for(shape) is not None
 
 
-def make_superstep_bytes(rule: LifeRule = CONWAY, device="cuda"):
+def make_superstep_bytes(
+    rule: LifeRule = CONWAY,
+    device="cuda",
+    skip_stable: bool = False,
+    skip_tile_cap: int = 0,
+    with_stats: bool = False,
+    plan=None,
+):
     """``(board_u8, turns) -> board_u8`` engine-layer drop-in: the board
     moves to ``device``, then one packing pass each way around the kernel —
-    K1 boards go straight to the vertical layout."""
+    K1 boards go straight to the vertical layout.
+
+    ``skip_stable`` sends every board the adaptive tier takes
+    (``cuda_adaptive.supports``) through it, K1 boards included, with
+    stripes capped at ``skip_tile_cap`` (0 = the default) or the forced
+    ``plan`` (a ``cuda_adaptive.AdaptivePlan``).  ``with_stats`` returns
+    ``(board_u8, skipped, activity)``; a dispatch with no adaptive launch
+    returns ``(board, 0, empty)``."""
+    from distributed_gol_torch.ops import cuda_adaptive
+
     dev = torch.device(device)
 
-    def run(board, turns: int) -> torch.Tensor:
+    def stats(board):
+        if not with_stats:
+            return board
+        return (
+            board,
+            torch.zeros((), dtype=torch.int32, device=dev),
+            torch.zeros((0,), dtype=torch.int32, device=dev),
+        )
+
+    def run(board, turns: int):
         board = torch.as_tensor(board, device=dev)
         if not turns:
-            return board
-        kernel = kernel_for(tuple(board.shape))
+            return stats(board)
+        h, w = board.shape
+        kernel = kernel_for((h, w))
         if kernel is None:
-            raise ValueError(f"no packed kernel takes a {tuple(board.shape)} board")
+            raise ValueError(f"no packed kernel takes a {(h, w)} board")
+        if skip_stable and cuda_adaptive.supports((h, w // WORD)):
+            p, skipped, act = cuda_adaptive.adaptive_superstep(
+                packed.pack(board), rule, turns, plan, skip_tile_cap
+            )
+            out = packed.unpack(p)
+            return (out, skipped, act) if with_stats else out
         if kernel == "resident":
             v = resident_superstep(packed.pack_vertical(board), rule, turns)
-            return packed.unpack_vertical(v)
-        return packed.unpack(tiled_superstep(packed.pack(board), rule, turns))
+            return stats(packed.unpack_vertical(v))
+        return stats(packed.unpack(tiled_superstep(packed.pack(board), rule, turns)))
 
     return run

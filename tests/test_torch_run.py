@@ -201,7 +201,6 @@ def test_parked_checkpoints_are_byte_identical(tmp_path):
     "kw,item",
     [
         (dict(mesh_shape=(2, 2)), "A8"),
-        (dict(skip_stable=True), "B3/B4"),
         (dict(engine="pallas"), "B5"),
         (dict(time_compression=True), "A7"),
         (dict(restart_limit=1), "A7"),
@@ -224,14 +223,18 @@ def test_cuda_request_without_gpu_raises(tmp_path, monkeypatch):
 
 
 def test_auto_skip_stable_runs_plain_tiled_kernel_and_warns(tmp_path):
+    """Auto ``skip_stable`` on a long tiled run engages the adaptive tier,
+    silently; its telemetry reads None until dispatches have run."""
     from distributed_gol_torch.engine.backend import Backend
 
     p = tgol.Params(turns=10**6, image_height=72, image_width=4096,
                     engine="pallas-packed", device="cpu", out_dir=tmp_path)
-    assert p.skip_stable_requested()
-    with pytest.warns(RuntimeWarning, match="B3/B4"):
+    assert p.skip_stable_requested() and tgol.Params(device="cpu", skip_stable=True)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
         b = Backend(p)
     assert b.engine_used == "pallas-packed"
+    assert b._superstep == b._skip_superstep
     assert b.skip_fraction() is None and b.activity_bitmap() is None
 
 

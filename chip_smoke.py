@@ -1,6 +1,6 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile] [--sweep]
 
 Run from the root of a checkout, on a machine with a CUDA GPU and ``nvcc``.
 It builds the port's kernels from ``distributed_gol_torch/csrc`` (one
@@ -11,23 +11,35 @@ kernels' skip counts and activity too), and drives the main paths through
 and a 16384² soup x 2,000 turns (plus a 'q'-detach and resume of the
 latter), whose final boards must equal an ``engine="packed"`` rerun, and
 a 16384² soup x 100,000 turns, where ``skip_stable`` engages by itself and
-whose final board must equal a ``skip_stable=False`` rerun.  It checks
-that every kernel of each path launched in it, times every kernel against
-its plain version and its bound, and prints one ``{"kernels": [...]}``
-line, the card's name and power limit, and last ``{"ok": true, "device":
-{...}}``.  ``--profile`` adds a ``torch.profiler`` breakdown of the two
-16384² runs; ``--sweep`` times the adaptive tier over launch depths and
-stripe heights (the sweep that chose ``cuda_adaptive.ADAPTIVE_T`` and
-``SKIP_TILE_CAP``).  Every phase raises on failure; without a CUDA GPU it
-exits non-zero before printing any result.
+whose final board must equal a ``skip_stable=False`` rerun.  Then the
+viewer paths, where ``auto`` takes the byte kernel: per-cell flips of the
+512² board x 2, pooled full-board frames of the 16384² soup x 500, a
+1024² viewport of it x 1,000 with delta frames and pan/zoom keys, and the
+CLI's terminal viewer in a subprocess (and, traced, one generation of a
+128² soup, for its count of K6 launches); each final board must equal a
+headless ``engine="packed"`` rerun and each stream must rebuild its final
+view.  It checks that every kernel of each path launched in it, times
+every kernel against its plain version and its bound (and a viewer turn's
+parts at 16384², and K6 beside a byte copy of the board and beside a build
+of K6 without the modulo in its ring index), and prints one
+``{"kernels": [...]}`` line, the card's name and power limit, and last
+``{"ok": true, "device": {...}}``.
+``--profile`` adds a ``torch.profiler`` breakdown of the two headless
+16384² runs and of the three viewer paths; ``--sweep`` times the adaptive
+tier over launch depths and stripe heights (the sweep that chose
+``cuda_adaptive.ADAPTIVE_T`` and ``SKIP_TILE_CAP``).  Every phase raises
+on failure; without a CUDA GPU it exits non-zero before printing any
+result.
 
 It imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
+import os
 import queue
 import subprocess
 import sys
@@ -39,10 +51,12 @@ import numpy as np
 import torch
 
 import distributed_gol_torch as gol
-from distributed_gol_torch.engine import pgm
+from distributed_gol_torch.engine import frames, pgm
+from distributed_gol_torch.engine.backend import Backend
 from distributed_gol_torch.engine.session import Session
 from distributed_gol_torch.models.life import CONWAY, HIGHLIFE, LifeRule
-from distributed_gol_torch.ops import cuda_adaptive, cuda_build, cuda_packed, packed
+from distributed_gol_torch.ops import (
+    cuda_adaptive, cuda_build, cuda_packed, cuda_stencil, packed, stencil)
 from distributed_gol_torch.utils.soup import random_soup
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
@@ -76,6 +90,11 @@ KERNELS = {
         source="distributed_gol_torch/csrc/frontier.cu",
         replaces="distributed_gol_tpu/ops/pallas_packed.py:1368 _kernel_frontier_mega",
     ),
+    "stencil": dict(
+        route="cuda",
+        source="distributed_gol_torch/csrc/stencil.cu",
+        replaces="distributed_gol_tpu/ops/pallas_stencil.py:88 _stencil_kernel",
+    ),
 }
 WRAPPERS = {
     "resident": cuda_packed.resident_superstep,
@@ -83,9 +102,17 @@ WRAPPERS = {
     "tiled_skip": cuda_adaptive.tiled_skip_superstep,
     "probing": cuda_adaptive.probing_superstep,
     "frontier": cuda_adaptive.frontier_superstep,
+    "stencil": cuda_stencil.stencil_step,
 }
 ADAPTIVE = ("tiled_skip", "probing", "frontier")
 LONG_TURNS = 100_000  # the auto skip_stable threshold (Params._SKIP_AUTO_TURNS)
+STENCIL_ODD = (1004, 3076)  # W % 128 != 0 and H % 8 != 0: refused by the TPU gate
+VIEWPORT = (8000, 8000, 1024, 1024)  # the viewport path's starting rect
+# Depth of the two per-cell flip paths (512²: the run and the CLI).  Each
+# CellFlipped event costs the host of an H100 machine about 20 µs while
+# the stream is consumed (PERF.md), and the seeded board and its first 2
+# generations emit 243,954 of them.
+FLIP_TURNS = 2
 
 
 def log(msg: str) -> None:
@@ -147,6 +174,57 @@ def bound_ms(words: int, gens: int, launches: int, rule: LifeRule, int_rate: flo
     if t_ops >= t_bytes:
         return t_ops * 1e3, "operations"
     return t_bytes * 1e3, "bytes"
+
+
+# Integer instructions K6 spends per cell, counted from csrc/stencil.cu
+# (loads, stores and address arithmetic not counted): per 4-cell word, 3
+# IADD3 for the three-row sums of the word and of its west and east cells,
+# 3 shifts and 1 OR for the column neighbours, 1 IADD3 for the 9-cell total
+# (8 per word, 2 per cell); per cell, 8 for the rule: extract the total and
+# the alive bit, select the mask, shift it by the total, take bit 0, scale
+# to 0/255, place and merge the byte.
+STENCIL_OPS_PER_CELL = 10
+
+
+def stencil_bound_ms(h: int, w: int, int_rate: float):
+    """K6's least time for one generation of an H x W board: one read and
+    one write of the board (2·H·W bytes) over the memory rate, against
+    ``STENCIL_OPS_PER_CELL`` integer instructions per cell over the int32
+    rate; the larger, and which."""
+    t_bytes = 2 * h * w / HBM_BYTES_PER_S
+    t_ops = h * w * STENCIL_OPS_PER_CELL / int_rate
+    if t_ops >= t_bytes:
+        return t_ops * 1e3, "operations"
+    return t_bytes * 1e3, "bytes"
+
+
+# K6's ring index, and the same with a subtraction for the modulo: exact
+# while every index stays below twice the board's side, as at 16384².
+WRAP_MOD = "(i >= n ? i % n : i)"
+WRAP_SUB = "(i >= n ? i - n : i)"
+
+
+def build_kernels() -> Path:
+    """Build every kernel from source, and with them (one more ``nvcc``,
+    started first) a copy of ``csrc/stencil.cu`` whose ``wrap`` subtracts
+    instead of taking ``%``, into ``build/kernels/``; returns the path of
+    that wrap-free K6's library."""
+    src = (cuda_build.CSRC / "stencil.cu").read_text()
+    if src.count(WRAP_MOD) != 1:
+        raise AssertionError("csrc/stencil.cu has no single wrap() modulo for the witness to edit")
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = cuda_build.BUILD_DIR / "stencil_wrap_free.cu"
+    cu.write_text(src.replace(WRAP_MOD, WRAP_SUB))
+    lib = cu.with_suffix(".so")
+    cmd = [cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(lib), str(cu)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        cuda_build.build(*KERNELS)
+    finally:
+        out_log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"the wrap-free K6 build failed:\n{out_log}")
+    return lib
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -216,9 +294,31 @@ def check_tiled(device, errs: dict) -> None:
             log(f"K2 {shape[0]}x{shape[1]} x {turns} {rule.notation}: identical")
 
 
+def check_stencil(device, errs: dict) -> None:
+    """K6 against its plain version: 512² and 16384², 1 and 8 generations,
+    Conway and HighLife, and a shape only the port's gate takes."""
+    for shape, depths in [((512, 512), (1, 8)), ((BIG, BIG), (1, 8)), (STENCIL_ODD, (8,))]:
+        b = board(*shape, 17, device)
+        before = b.clone()
+        for rule in RULES:
+            want = b
+            for turns in range(1, max(depths) + 1):
+                want = cuda_stencil.stencil_step_plain(want, rule)
+                if turns not in depths:
+                    continue
+                got = cuda_stencil.make_superstep(rule)(b, turns)
+                torch.cuda.synchronize()
+                errs["stencil"] = max(errs["stencil"], max_abs_err(got, want))
+                if not torch.equal(got, want) or not torch.equal(b, before):
+                    raise AssertionError(f"K6 != plain (or its input written) at {shape} x "
+                                         f"{turns} under {rule.notation}")
+                log(f"K6 {shape[0]}x{shape[1]} x {turns} {rule.notation}: identical")
+
+
 def reset_launches() -> None:
     cuda_packed.reset_launches()
     cuda_adaptive.reset_launches()
+    cuda_stencil.reset_launches()
 
 
 def launch_counts() -> dict:
@@ -278,123 +378,273 @@ def check_adaptive(errs: dict, boards: dict) -> None:
 
 
 class KeysAfter(queue.Queue):
-    """A key queue that receives ``keys`` once the controller has polled it
-    ``polls`` times: a keypress that lands mid-run, at a dispatch boundary."""
+    """A key queue fed by the controller's own polling: ``schedule`` maps
+    the n-th poll (``empty`` or ``get``) to the keys that arrive then — a
+    keypress that lands mid-run, at a dispatch boundary."""
 
-    def __init__(self, polls: int, keys: str):
+    def __init__(self, schedule: dict):
         super().__init__()
-        self._polls, self._keys = polls, keys
+        self._schedule, self._polls = dict(schedule), 0
+
+    def _tick(self) -> None:
+        self._polls += 1
+        for k in self._schedule.pop(self._polls, ""):
+            self.put(k)
 
     def empty(self) -> bool:
-        self._polls -= 1
-        if self._polls == 0:
-            for k in self._keys:
-                self.put(k)
+        self._tick()
         return super().empty()
 
+    def get(self, block=True, timeout=None):
+        self._tick()
+        return super().get(block, timeout)
 
-def run_main_path(params: gol.Params, keys=None, session=None):
-    """One ``gol.run``; returns (events, final PGM bytes or None, seconds)."""
-    events: queue.Queue = queue.Queue()
+
+class Sink:
+    """Consumes a run's stream as it is produced, keeping only what the
+    checks need: the MetricsReport snapshot, the final event, the turn of
+    a 'q' detach, the counts of turns, frames and flips, the flips XOR-ed
+    into a shadow board of ``shape`` (flip runs), and the view rebuilt
+    from keyframes and deltas with its rect and pooling factors (frame
+    runs)."""
+
+    def __init__(self, shape=None):
+        self.shadow = None if shape is None else np.zeros(shape, np.uint8)
+        self.report = self.final = self.view = self.rect = self.factors = None
+        self.quit_turn = None
+        self.turns = self.frames = self.deltas = self.flips = 0
+
+    def loop_seconds(self) -> float:
+        """Wall-clock the run spent in its dispatch loop (issue to
+        resolve), from the run's own MetricsReport."""
+        return self.report["histograms"]["controller.dispatch_seconds"]["sum"]
+
+    def __call__(self, e) -> None:
+        kind = type(e)
+        if kind is gol.CellFlipped:
+            self.shadow[e.cell.y, e.cell.x] ^= 1
+            self.flips += 1
+        elif kind is gol.TurnComplete:
+            self.turns += 1
+        elif kind is gol.TurnsCompleted:
+            self.turns += e.turns
+        elif kind is gol.FrameReady:
+            # A copy: deltas apply in place, and the producer keeps the
+            # delivered keyframe as its delta base.
+            self.view = np.array(e.frame, dtype=np.uint8, copy=True)
+            self.rect, self.factors = e.rect, e.factors
+            self.frames += 1
+        elif kind is gol.FrameDelta:
+            frames.apply_bands(self.view, e.bands)
+            self.rect, self.factors = e.rect, e.factors
+            self.frames += 1
+            self.deltas += 1
+        elif (kind is gol.StateChange and e.new_state == gol.State.QUITTING
+              and self.quit_turn is None):
+            self.quit_turn = e.completed_turns
+        elif kind is gol.MetricsReport:
+            self.report = e.snapshot
+        elif kind is gol.FinalTurnComplete:
+            self.final = e
+
+
+def stream_run(params: gol.Params, sink: Sink, keys=None, session=None):
+    """One ``gol.run`` on the engine thread while this thread consumes the
+    stream as it is produced, as the CLI does; returns (seconds, final PGM
+    bytes or None)."""
+    events = gol.EventQueue()
     t0 = time.perf_counter()
-    gol.run(params, events, keys, session)
+    engine = gol.start(params, events, keys, session)
+    done = False
+    while not done:
+        for e in events.get_many(timeout=300):
+            if e is None:
+                done = True
+                break
+            sink(e)
     seconds = time.perf_counter() - t0
-    out = []
-    while (e := events.get(timeout=60)) is not None:
-        out.append(e)
+    engine.join(timeout=60)
     final = params.out_dir / f"{params.final_output_name}.pgm"
-    return out, (final.read_bytes() if final.is_file() else None), seconds
+    return seconds, (final.read_bytes() if final.is_file() else None)
 
 
-def engine_of(events) -> str:
-    (report,) = [e for e in events if isinstance(e, gol.MetricsReport)]
-    return report.snapshot["info"]["backend.engine"]
-
-
-def final_alive(events) -> int:
-    (final,) = [e for e in events if isinstance(e, gol.FinalTurnComplete)]
-    return len(final.alive)
-
-
-def dispatch_seconds(events) -> float:
-    """Wall-clock the run spent in its dispatch loop (issue to resolve),
-    from the run's own MetricsReport."""
-    (report,) = [e for e in events if isinstance(e, gol.MetricsReport)]
-    return report.snapshot["histograms"]["controller.dispatch_seconds"]["sum"]
-
-
-def metrics_report(events):
-    (report,) = [e for e in events if isinstance(e, gol.MetricsReport)]
-    return report.snapshot
-
-
-def drive(name: str, params: gol.Params, kernels: tuple, launches: dict, reference: dict) -> dict:
+def drive(name: str, params: gol.Params, kernels: tuple, launches: dict, reference: dict,
+          engine: str = "pallas-packed", keys=None, shadow=None):
     """Drive one main path through the kernels, with every launch count set
     to 0 just before and read just after, then once more with the
-    ``reference`` overrides (``engine="packed"``, or ``skip_stable=False``);
-    the final boards and alive counts must agree.  Returns the kernel
-    run's end-to-end numbers."""
+    ``reference`` overrides (``engine="packed"``, ``skip_stable=False``, or
+    headless); the final boards and alive counts must agree, and the path
+    must have run on ``engine``.  Both streams are consumed as they are
+    produced (``Sink``; ``shadow`` is the board shape of a flip run).
+    Returns (the kernel run's end-to-end numbers, its sink)."""
+    sink = Sink(shadow)
     reset_launches()
-    events, final, seconds = run_main_path(params)
+    seconds, final = stream_run(params, sink, keys)
     counts = launch_counts()
     for k in kernels:
-        launches[k] = counts[k]
-    log(f"{name}: {seconds:.3f} s, launches {counts}, engine {engine_of(events)}")
-    if engine_of(events) != "pallas-packed":
-        raise AssertionError(f"{name}: engine_used {engine_of(events)!r}, not pallas-packed")
+        launches[k] += counts[k]
+    got = sink.report["info"]["backend.engine"]
+    log(f"{name}: {seconds:.3f} s, launches {counts}, engine {got}")
+    if got != engine:
+        raise AssertionError(f"{name}: engine_used {got!r}, not {engine}")
     for k in kernels:
         if counts[k] == 0:
             raise AssertionError(f"{name}: the {k} kernel never launched")
     ref_params = dataclasses.replace(params, out_dir=params.out_dir / "reference", **reference)
-    ref_events, ref_final, ref_seconds = run_main_path(ref_params)
-    if final is None or final != ref_final or final_alive(events) != final_alive(ref_events):
+    ref = Sink()
+    ref_seconds, ref_final = stream_run(ref_params, ref)
+    if final is None or final != ref_final or len(sink.final.alive) != len(ref.final.alive):
         raise AssertionError(f"{name}: final board differs from the {reference} run")
-    log(f"{name}: final board and alive count ({final_alive(events)}) equal the {reference} "
+    log(f"{name}: final board and alive count ({len(sink.final.alive)}) equal the {reference} "
         f"run ({ref_seconds:.3f} s)")
-    loop = dispatch_seconds(events)
+    loop = sink.loop_seconds()
     out = dict(seconds=seconds, gens_per_s=params.turns / seconds, dispatch_loop_s=loop,
                dispatch_loop_gens_per_s=params.turns / loop if loop else None,
-               launches=counts, reference=dict(overrides=reference, seconds=ref_seconds,
-                                                gens_per_s=params.turns / ref_seconds,
-                                                dispatch_loop_s=dispatch_seconds(ref_events)))
-    gauges = metrics_report(events)["gauges"]
+               launches=counts, reference=dict(
+                   overrides=reference, seconds=ref_seconds, gens_per_s=params.turns / ref_seconds,
+                   dispatch_loop_s=ref.loop_seconds()))
+    gauges = sink.report["gauges"]
     if "backend.skip_fraction" in gauges:
         out.update(skip_fraction=gauges["backend.skip_fraction"],
                    active_stripes=gauges.get("backend.active_tiles"))
-    return out
+    if not params.no_vis:
+        out.update(frames=sink.frames, frames_per_s=sink.frames / seconds, deltas=sink.deltas,
+                   flips=sink.flips, flips_per_s=sink.flips / seconds)
+        print(f"viewer path {name}: {seconds:.3f} s, {params.turns / seconds:.1f} gens/s, "
+              f"{sink.frames / seconds:.1f} frames/s ({sink.frames} frames, {sink.deltas} "
+              f"deltas), {sink.flips} flips, K6 launches {counts['stencil']}", flush=True)
+    return out, sink
+
+
+def final_board(params: gol.Params, device) -> torch.Tensor:
+    return torch.from_numpy(pgm.read_pgm(params.out_dir / f"{params.final_output_name}.pgm")).to(device)
+
+
+def viewer_paths(images: Path, tmp: Path, launches: dict, device) -> dict:
+    """Phase 3's viewer paths: ``no_vis=False`` under ``engine="auto"``,
+    which takes the byte kernel (K6) for per-turn dispatches on the card.
+    Each final board must equal a headless ``engine="packed"`` rerun, and
+    each stream must rebuild its final view."""
+    headless = dict(engine="packed", no_vis=True)
+    e2e = {}
+    flips = gol.Params(turns=FLIP_TURNS, images_dir=images, out_dir=tmp / "flips", no_vis=False,
+                       ticker_period=3600)
+    if not flips.wants_flips():
+        raise AssertionError("a 512^2 viewer run is not fed per-cell flips")
+    e2e[f"flips_512x512x{FLIP_TURNS}"], sink = drive(
+        f"flips 512^2 x {FLIP_TURNS}", flips, ("stencil",), launches, headless, engine="pallas",
+        shadow=(512, 512))
+    want = np.zeros((512, 512), np.uint8)
+    for c in sink.final.alive:
+        want[c.y, c.x] = 1
+    if not np.array_equal(sink.shadow, want):
+        raise AssertionError("the flips' shadow board differs from FinalTurnComplete.alive")
+    log(f"flips: the shadow board of {sink.flips} CellFlipped events equals the final alive set")
+    alive_512 = len(sink.final.alive)
+
+    frame_p = gol.Params(turns=500, image_width=BIG, image_height=BIG, soup_density=0.3,
+                         soup_seed=7, no_vis=False, out_dir=tmp / "frames", ticker_period=3600)
+    if not frame_p.wants_frames():
+        raise AssertionError(f"a {BIG}^2 viewer run is not fed frames")
+    e2e[f"frames_{BIG}x{BIG}x500"], sink = drive(f"frames {BIG}^2 x 500", frame_p, ("stencil",),
+                                                 launches, headless, engine="pallas")
+    want = stencil.frame_pool(final_board(frame_p, device), *sink.factors).cpu().numpy()
+    if not np.array_equal(sink.view, want):
+        raise AssertionError("the last frame differs from frame_pool of the final board")
+    log(f"frames: the last of {sink.frames} frames equals frame_pool{sink.factors} of the final board")
+
+    roi = dataclasses.replace(frame_p, turns=1000, viewport=VIEWPORT, out_dir=tmp / "viewport")
+    keys = KeysAfter({250: "d", 500: "+", 750: "-"})
+    e2e[f"viewport_{BIG}x{BIG}x1000"], sink = drive(
+        f"viewport {BIG}^2 x 1000", roi, ("stencil",), launches, headless, engine="pallas",
+        keys=keys)
+    crop = stencil.viewport(final_board(roi, device), *sink.rect)
+    want = stencil.frame_pool(crop, *sink.factors).cpu().numpy()
+    if sink.rect == VIEWPORT or not np.array_equal(sink.view, want):
+        raise AssertionError(f"the viewport stream's rebuilt view at {sink.rect} differs from the "
+                             "pooled crop of the final board (or the keys never moved it)")
+    log(f"viewport: {sink.frames} frames ({sink.deltas} deltas) rebuild the pooled crop "
+        f"{sink.factors} of the final board at the final rect {sink.rect}")
+    e2e[f"cli_512x512x{FLIP_TURNS}"] = cli_path(tmp, FLIP_TURNS, alive_512)
+    return e2e
+
+
+def cli_run(tmp: Path, side: int, turns: int, alive: int, *extra: str):
+    """``python -m distributed_gol_torch`` on the ``side``² soup (density
+    0.3, seed 7), ``turns`` generations, the terminal viewer's stdout
+    captured; it must exit 0 with ``alive`` in its final line.  Returns
+    (seconds with process start, stdout)."""
+    root = Path(__file__).resolve().parent
+    cmd = [sys.executable, "-m", "distributed_gol_torch", "-w", str(side), "-h", str(side),
+           "-turns", str(turns), "--soup", "0.3", "--soup-seed", "7", *extra]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(root), *filter(None, [os.environ.get("PYTHONPATH")])]))
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"the CLI {extra} exited {r.returncode}: {r.stderr[-3000:]}")
+    last = r.stdout.splitlines()[-1]
+    if last != f"Final turn {turns}: {alive} alive":
+        raise AssertionError(f"the CLI ended {last!r}, not 'Final turn {turns}: {alive} alive'")
+    return seconds, r.stdout
+
+
+def cli_path(tmp: Path, turns: int, alive: int) -> dict:
+    """The CLI as users run it — the terminal viewer in a subprocess — on
+    the flips path's 512² board and depth, untraced; then, for the count
+    of K6 launches a subprocess makes, one generation of a 128² soup with
+    a profiler trace (``--trace``), held against the NumPy oracle."""
+    seconds, stdout = cli_run(tmp, 512, turns, alive)
+    trace, small = tmp / "cli_trace", 128
+    small_alive = int((numpy_life(random_soup(small, small, 0.3, 7), 1, CONWAY) == 255).sum())
+    traced_seconds, _ = cli_run(tmp, small, 1, small_alive, "--trace", str(trace))
+    kernels = [e for e in json.loads((trace / "trace.json").read_text()).get("traceEvents", [])
+               if e.get("cat") == "kernel"]
+    k6 = sum("stencil_kernel" in e.get("name", "") for e in kernels)
+    if k6 != 1:
+        raise AssertionError(f"the CLI's trace of one generation shows {k6} K6 launches among "
+                             f"{len(kernels)} kernels")
+    print(f"viewer path CLI 512^2 x {turns} (terminal viewer): {seconds:.3f} s with process "
+          f"start, {turns / seconds:.2f} gens/s, {len(stdout)} bytes of terminal output; "
+          f"K6 launches {k6} in a traced {small}^2 x 1 run ({traced_seconds:.3f} s)", flush=True)
+    return dict(seconds=seconds, gens_per_s=turns / seconds, stdout_bytes=len(stdout),
+                last_line=stdout.splitlines()[-1], traced=dict(
+                    side=small, turns=1, seconds=traced_seconds, k6_launches=k6))
 
 
 def detach_and_resume(params: gol.Params, straight: bytes, tmp: Path) -> None:
     """'q' mid-run parks a checkpoint on a durable session; a second run
     resumes it to the straight run's final board."""
-    session = Session(tmp / "ckpt")
-    events, final, _ = run_main_path(params, KeysAfter(3, "q"), session)
-    quit_turns = [e.completed_turns for e in events if isinstance(e, gol.StateChange)
-                  and e.new_state == gol.State.QUITTING]
-    if final is not None or not quit_turns or not 0 < quit_turns[0] < params.turns:
-        raise AssertionError(f"detach did not land mid-run: {quit_turns}")
-    resumed = Session(tmp / "ckpt")
-    _, final, _ = run_main_path(params, None, resumed)
+    detached = Sink()
+    _, final = stream_run(params, detached, KeysAfter({3: "q"}), Session(tmp / "ckpt"))
+    turn = detached.quit_turn
+    if final is not None or turn is None or not 0 < turn < params.turns:
+        raise AssertionError(f"detach did not land mid-run: quit at turn {turn}")
+    _, final = stream_run(params, Sink(), None, Session(tmp / "ckpt"))
     if final != straight:
         raise AssertionError("the resumed run's final board differs from the straight run")
-    log(f"detach at turn {quit_turns[0]} and resume: final board equals the straight run")
+    log(f"detach at turn {turn} and resume: final board equals the straight run")
 
 
-def profile_run(turns: int) -> dict:
-    """Where the time of a 16384² main-path run goes: the seeded soup's
-    generation on the host, then the whole ``gol.run`` under
+def profile_run(turns: int, side: int = BIG, **viewer) -> dict:
+    """Where the time of a main-path run on the ``side``² soup goes: the
+    seeded soup's generation on the host, then the whole run under
     ``torch.profiler`` (device time by kernel, and the device's busy share
-    of the run's wall-clock)."""
+    of the run's wall-clock), its stream consumed as it is produced.
+    ``viewer`` holds the Params of a viewer path (``no_vis=False``, ...);
+    without it the run is headless with batch turn events."""
     t0 = time.perf_counter()
-    random_soup(BIG, BIG, 0.3, 7)
+    random_soup(side, side, 0.3, 7)
     soup_s = time.perf_counter() - t0
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent) as tmp:
-        params = gol.Params(turns=turns, image_width=BIG, image_height=BIG, soup_density=0.3,
-                            soup_seed=7, turn_events="batch", out_dir=Path(tmp),
-                            ticker_period=3600)
+        params = gol.Params(turns=turns, image_width=side, image_height=side, soup_density=0.3,
+                            soup_seed=7, out_dir=Path(tmp), ticker_period=3600,
+                            **(viewer or dict(turn_events="batch")))
+        sink = Sink((side, side) if params.wants_flips() else None)
         with torch.profiler.profile(activities=acts) as prof:
-            events, _, wall = run_main_path(params)
+            wall, _ = stream_run(params, sink)
     rows = []
     for a in prof.key_averages():
         # Kernel and copy rows only: a host op's row repeats its kernels'
@@ -409,7 +659,8 @@ def profile_run(turns: int) -> dict:
     rows.sort(reverse=True)
     busy_s = sum(r[0] for r in rows) / 1e6
     return dict(
-        turns=turns, wall_s=wall, soup_host_s=soup_s, dispatch_loop_s=dispatch_seconds(events),
+        side=side, turns=turns, viewer=viewer, wall_s=wall, soup_host_s=soup_s,
+        dispatch_loop_s=sink.loop_seconds(),
         device_busy_s=busy_s, device_idle_share=1 - busy_s / wall,
         top_device=[dict(name=k[:80], device_ms=us / 1e3, calls=n) for us, k, n in rows[:12]],
     )
@@ -476,6 +727,93 @@ def time_adaptive(boards: dict, int_rate: float) -> dict:
     return dict(plan=dataclasses.asdict(plan), boards=out)
 
 
+def host_ms(fn, reps: int, warm: bool = True) -> float:
+    """Mean ms of ``fn()`` on the host clock, after a warm-up call unless
+    ``warm`` is False; ``fn`` ends in a host copy, which waits for the
+    device."""
+    if warm:
+        fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def time_viewer_turn(b: torch.Tensor) -> dict:
+    """Where one per-turn viewer dispatch of the 16384² board ``b`` goes:
+    each device part (CUDA events), each host copy (host clock), and each
+    Backend viewer method whole (host clock: step + view + count +
+    bit-pack + copies + the host's unpacking)."""
+    be = Backend(gol.Params(image_width=BIG, image_height=BIG, no_vis=False, engine="pallas"))
+    nb = be._device_superstep(b, 1)
+    fy, fx = be.params.frame_factors()
+    y0, x0, vh, vw = VIEWPORT
+    vfy, vfx = be.params.factors_for(vh, vw)
+    pooled, mask = stencil.frame_pool(nb, fy, fx), stencil.flip_mask(b, nb)
+    count, frame_bits, mask_bits = (stencil.alive_count(nb), stencil.packbits(pooled),
+                                    stencil.packbits(mask))
+    out = dict(
+        frame_factors=[fy, fx], viewport=list(VIEWPORT), viewport_factors=[vfy, vfx],
+        step_ms=cuda_ms(lambda: be._device_superstep(b, 1), 20),
+        alive_count_ms=cuda_ms(lambda: stencil.alive_count(nb), 20),
+        frame_pool_ms=cuda_ms(lambda: stencil.frame_pool(nb, fy, fx), 20),
+        packbits_frame_ms=cuda_ms(lambda: stencil.packbits(pooled), 20),
+        viewport_pool_ms=cuda_ms(
+            lambda: stencil.frame_pool(stencil.viewport(nb, y0, x0, vh, vw), vfy, vfx), 20),
+        flip_mask_ms=cuda_ms(lambda: stencil.flip_mask(b, nb), 20),
+        packbits_mask_ms=cuda_ms(lambda: stencil.packbits(mask), 5),
+        count_copy_ms=host_ms(lambda: count.cpu(), 50),
+        frame_bits_copy_ms=host_ms(lambda: frame_bits.cpu(), 50),
+        mask_bits_copy_ms=host_ms(lambda: mask_bits.cpu(), 5),
+        run_turn_with_frame_ms=host_ms(lambda: be.run_turn_with_frame(b, fy, fx), 10),
+        run_turn_with_viewport_ms=host_ms(
+            lambda: be.run_turn_with_viewport(b, VIEWPORT, vfy, vfx), 10),
+        # Its parts are warm already, and one call unpacks the flips of a
+        # whole fresh soup on the host.
+        run_turn_with_flips_ms=host_ms(lambda: be.run_turn_with_flips(b), 1, warm=False),
+    )
+    log(f"a viewer turn at {BIG}^2: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in out.items() if k.endswith("_ms")))
+    return out
+
+
+def k6_witnesses(b: torch.Tensor, wrap_free_lib: Path) -> dict:
+    """Two witnesses of what limits K6 on the 16384² board ``b``, each
+    timed with CUDA events beside K6 itself: a byte copy of the board
+    (``out.copy_(b)``: the same 2·H·W bytes, no arithmetic), and K6 built
+    with ``wrap`` free of ``%`` (``build_kernels``), held bit for bit
+    against K6's plain version first."""
+    lib = ctypes.CDLL(str(wrap_free_lib))
+    h, w = b.shape
+    born, surv = cuda_packed.rule_masks(CONWAY)
+    out = torch.empty_like(b)
+
+    def wrap_free():
+        err = lib.gol_stencil_launch(ctypes.c_void_p(b.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+                                     h, w, ctypes.c_uint(born), ctypes.c_uint(surv),
+                                     cuda_packed._stream(b))
+        if err:
+            raise RuntimeError(f"the wrap-free K6 launch failed: cudaError {err}")
+
+    wrap_free()
+    torch.cuda.synchronize()
+    if not torch.equal(out, cuda_stencil.stencil_step_plain(b, CONWAY)):
+        raise AssertionError("the wrap-free K6 differs from K6's plain version at 16384^2")
+    k6_out = torch.empty_like(b)
+    res = dict(
+        shape=[h, w],
+        k6_ms=cuda_ms(lambda: cuda_stencil.stencil_step(b, CONWAY, out=k6_out), 50),
+        wrap_free_k6_ms=cuda_ms(wrap_free, 50),
+        copy_ms=cuda_ms(lambda: out.copy_(b), 50),
+    )
+    res["copy_bytes_per_s"] = 2 * h * w / (res["copy_ms"] / 1e3)
+    res["k6_bytes_per_s"] = 2 * h * w / (res["k6_ms"] / 1e3)
+    log(f"K6 witnesses at {h}x{w}: K6 {res['k6_ms']:.4f} ms, wrap-free K6 "
+        f"{res['wrap_free_k6_ms']:.4f} ms, byte copy {res['copy_ms']:.4f} ms "
+        f"({res['copy_bytes_per_s'] / 1e12:.3f} TB/s; K6 {res['k6_bytes_per_s'] / 1e12:.3f} TB/s)")
+    return res
+
+
 def with_gliders(p: torch.Tensor, n: int = 16) -> torch.Tensor:
     """``p`` with ``n`` gliders ORed in at seeded places: residual
     activity on settled ash."""
@@ -514,8 +852,9 @@ def sweep(boards: dict, tmp: Path) -> dict:
             params = gol.Params(turns=LONG_TURNS, image_width=BIG, image_height=BIG,
                                 soup_density=0.3, soup_seed=7, turn_events="batch",
                                 out_dir=tmp / f"sweep_{t}_{cap}", ticker_period=3600)
-            events, _, seconds = run_main_path(params)
-            loop = dispatch_seconds(events)
+            sink = Sink()
+            seconds, _ = stream_run(params, sink)
+            loop = sink.loop_seconds()
             runs.append(dict(t=t, stripe_cap=cap, seconds=seconds, gens_per_s=LONG_TURNS / seconds,
                              dispatch_loop_s=loop, dispatch_loop_gens_per_s=LONG_TURNS / loop))
             log(f"sweep main path {runs[-1]}")
@@ -528,14 +867,16 @@ def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA GPU (torch.cuda.is_available() is False)")
         return 1
+    started = time.perf_counter()
     device = torch.device("cuda", 0)
     card = nvidia_smi("name,power.limit")
     name = torch.cuda.get_device_name(0)
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    # Phase 1: build every kernel from source, in parallel.
+    # Phase 1: build every kernel from source, in parallel (and the
+    # wrap-free K6 of phase 4's witness).
     t0 = time.perf_counter()
-    cuda_build.build(*KERNELS)
+    wrap_free = build_kernels()
     log(f"built {list(KERNELS)} in {time.perf_counter() - t0:.1f} s")
     for k in KERNELS:
         for line in cuda_build.build_log(k).splitlines():
@@ -552,6 +893,7 @@ def main() -> int:
     check_tiled(device, errs)
     boards = {"fresh": packed.pack(board(BIG, BIG, 13, device)), "settled": settled_board(device)}
     check_adaptive(errs, boards)
+    check_stencil(device, errs)
 
     # Phase 3: the main paths, with every count set to 0 just before each run.
     launches = {k: 0 for k in KERNELS}
@@ -563,24 +905,25 @@ def main() -> int:
         packed_ref = dict(engine="packed")
         default = gol.Params(images_dir=images, out_dir=tmp / "default", ticker_period=3600)
         e2e = {"default_512x512x100": drive("default 512^2 x 100", default, ("resident",),
-                                            launches, packed_ref)}
+                                            launches, packed_ref)[0]}
         big = gol.Params(turns=2000, image_width=BIG, image_height=BIG, soup_density=0.3,
                          soup_seed=7, turn_events="batch", out_dir=tmp / "big",
                          ticker_period=3600)
         e2e[f"soup_{BIG}x{BIG}x2000"] = drive(f"{BIG}^2 x 2000", big, ("tiled",), launches,
-                                              packed_ref)
+                                              packed_ref)[0]
         straight = (big.out_dir / f"{big.final_output_name}.pgm").read_bytes()
         detach_and_resume(dataclasses.replace(big, out_dir=tmp / "detach"), straight, tmp)
         long = dataclasses.replace(big, turns=LONG_TURNS, out_dir=tmp / "long")
         if not long.skip_stable_requested():
             raise AssertionError("auto skip_stable does not engage at the long run")
         e2e[f"soup_{BIG}x{BIG}x{LONG_TURNS}"] = run_long = drive(
-            f"{BIG}^2 x {LONG_TURNS}", long, ADAPTIVE, launches, dict(skip_stable=False))
+            f"{BIG}^2 x {LONG_TURNS}", long, ADAPTIVE, launches, dict(skip_stable=False))[0]
         if run_long.get("skip_fraction") is None:
             raise AssertionError("skip_fraction() is None at the end of the long run")
         log(f"{BIG}^2 x {LONG_TURNS}: {run_long['gens_per_s']:.1f} gens/s run, "
             f"{run_long['dispatch_loop_gens_per_s']:.1f} gens/s dispatch loop, final skip "
             f"fraction {run_long['skip_fraction']}, launches {run_long['launches']}")
+        e2e.update(viewer_paths(images, tmp, launches, device))
 
     # Phase 4: time each kernel at the main path's shapes.
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -601,9 +944,23 @@ def main() -> int:
             bound=bound_ms(p.numel(), t_big, 1, CONWAY, int_rate),
         ),
     }
+    # K6 at the viewer paths' shapes, one generation a launch into a
+    # preallocated buffer (as a superstep's ping-pong does); 16384² leads.
+    k6, soups = {}, {n: board(n, n, 23, device) for n in (BIG, 512)}
+    for n, b in soups.items():
+        out = torch.empty((n, n), dtype=torch.uint8, device=device)
+        k6[n] = dict(ms=cuda_ms(lambda: cuda_stencil.stencil_step(b, CONWAY, out=out), 50),
+                     plain_ms=cuda_ms(lambda: cuda_stencil.stencil_step_plain(b, CONWAY), 5),
+                     bound=stencil_bound_ms(n, n, int_rate))
+    timings["stencil"] = dict(k6[BIG], extra=dict(shape=[BIG, BIG], at_512=dict(
+        ms=k6[512]["ms"], plain_ms=k6[512]["plain_ms"], bound_ms=k6[512]["bound"][0],
+        bound_by=k6[512]["bound"][1])))
     log(f"timed K1 at 512^2 x 50 gens (one launch), K2 at {BIG}^2 x {t_big} gens "
-        f"(one launch); int32 rate {int_rate / 1e12:.2f} Tops/s ({sms} SMs, {clock_mhz} MHz); "
-        f"card {card}")
+        f"(one launch), K6 one generation at {BIG}^2 ({k6[BIG]['ms']:.4f} ms, bound "
+        f"{k6[BIG]['bound'][0]:.4f} by {k6[BIG]['bound'][1]}) and 512^2 ({k6[512]['ms']:.4f} ms); "
+        f"int32 rate {int_rate / 1e12:.2f} Tops/s ({sms} SMs, {clock_mhz} MHz); card {card}")
+    witness = k6_witnesses(soups[BIG], wrap_free)
+    e2e[f"viewer_turn_{BIG}"] = time_viewer_turn(soups[BIG])
     boards["dead"] = torch.zeros_like(boards["fresh"])
     adaptive = time_adaptive(boards, int_rate)
     for k in ADAPTIVE:
@@ -627,12 +984,16 @@ def main() -> int:
             **tm.get("extra", {}),
         ))
     print(json.dumps({"end_to_end": e2e, "card": card}))
+    print(json.dumps({"k6_witness": witness, "card": card}))
     if "--sweep" in sys.argv[1:]:
         with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent) as tmp:
             print(json.dumps({"sweep": sweep(boards, Path(tmp)), "card": card}))
     if "--profile" in sys.argv[1:]:
-        for turns in (2000, LONG_TURNS):
-            print(json.dumps({"profile": profile_run(turns), "card": card}))
+        runs = [(2000, BIG, {}), (LONG_TURNS, BIG, {}), (FLIP_TURNS, 512, dict(no_vis=False)),
+                (500, BIG, dict(no_vis=False)), (1000, BIG, dict(no_vis=False, viewport=VIEWPORT))]
+        for turns, side, viewer in runs:
+            print(json.dumps({"profile": profile_run(turns, side, **viewer), "card": card}))
+    log(f"chip_smoke: {time.perf_counter() - started:.1f} s in all, kernel builds included")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

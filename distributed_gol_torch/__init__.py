@@ -7,8 +7,8 @@ packed engine's kernels written by hand in CUDA for Hopper
 JAX package's.  This package imports neither ``jax`` nor
 ``distributed_gol_tpu``.
 
-Public API (the JAX package's, for the headless single-device path):
-:class:`Params` (with ``device``, default "cuda"), :func:`run`,
+Public API (the JAX package's, for the single-device paths, headless and
+viewer): :class:`Params` (with ``device``, default "cuda"), :func:`run`,
 :func:`start`, the event types, and :class:`Cell`.
 """
 
@@ -16,12 +16,16 @@ from distributed_gol_torch.utils.cell import Cell
 from distributed_gol_torch.engine.params import Params
 from distributed_gol_torch.engine.events import (
     AliveCellsCount,
+    CellFlipped,
+    CellsFlipped,
     CheckpointSaved,
     CycleDetected,
     DispatchError,
     Event,
     EventQueue,
     FinalTurnComplete,
+    FrameDelta,
+    FrameReady,
     ImageOutputComplete,
     MetricsReport,
     State,
@@ -39,6 +43,8 @@ from distributed_gol_torch.engine.gol import run, start
 __all__ = [
     "AliveCellsCount",
     "Cell",
+    "CellFlipped",
+    "CellsFlipped",
     "CheckpointSaved",
     "CorruptionDetected",
     "CycleDetected",
@@ -47,6 +53,8 @@ __all__ = [
     "Event",
     "EventQueue",
     "FinalTurnComplete",
+    "FrameDelta",
+    "FrameReady",
     "ImageOutputComplete",
     "MetricsReport",
     "Params",

@@ -3,10 +3,12 @@
 The engine-run command line of ``python -m distributed_gol_tpu``, flag for
 flag (``-t``, ``-w``, ``-h`` board height, ``-turns``, ``-noVis`` and the
 framework flags), plus ``--device cuda|cpu``.  Flags for what the port does
-not serve yet (meshes, the adaptive kernels, viewers, the supervisor, time
-compression, telemetry endpoints, multi-host) are usage errors that name
-the ROADMAP item.  The engine runs in a worker thread while the main thread
-drains the event stream; the keyboard listener feeds s/p/q/k.
+not serve yet (meshes, the supervisor, time compression, telemetry
+endpoints, multi-host) are usage errors that name the ROADMAP item.  The
+engine runs in a worker thread while the main thread runs the viewer: the
+terminal renderer by default, the pygame window with ``--window``, a
+headless drain with ``-noVis``; the keyboard listener feeds s/p/q/k (and
+the viewport's pan/zoom keys).
 """
 
 from __future__ import annotations
@@ -19,13 +21,14 @@ import sys
 import threading
 from pathlib import Path
 
-from distributed_gol_torch.engine.events import EventQueue, FinalTurnComplete
+from distributed_gol_torch.engine.events import EventQueue
 from distributed_gol_torch.engine.gol import start
 from distributed_gol_torch.engine.params import Params
 from distributed_gol_torch.engine.session import Session, default_session
 from distributed_gol_torch.models.life import parse_rule
 from distributed_gol_torch.utils.device import resolve_device
 from distributed_gol_torch.viewer.keyboard import keyboard_listener
+from distributed_gol_torch.viewer.loop import run_headless, run_terminal
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -307,21 +310,6 @@ class _GracefulStop:
         self.requested = True
 
 
-def _drain(events) -> FinalTurnComplete | None:
-    """Drain the stream, printing every event with a non-empty ``str()``
-    (``sdl/loop.go:44-47``); returns the final event."""
-    final = None
-    while True:
-        for e in events.get_many():
-            if e is None:
-                return final
-            if isinstance(e, FinalTurnComplete):
-                final = e
-            s = str(e)
-            if s:
-                print(f"Completed Turns {e.completed_turns:<8}{s}", flush=True)
-
-
 @contextlib.contextmanager
 def _trace(log_dir):
     """A ``torch.profiler`` capture of the run, written as
@@ -344,8 +332,6 @@ def _refuse_cli_unported(args) -> None:
         raise NotImplementedError(
             "--telemetry-port: the telemetry endpoints are not ported yet (ROADMAP A9)"
         )
-    if args.window:
-        raise NotImplementedError("--window: the viewers are not ported yet (ROADMAP A10)")
 
 
 def main(argv=None) -> int:
@@ -376,10 +362,17 @@ def main(argv=None) -> int:
     with tracer:
         engine = start(params, events, key_presses, session, stop=graceful)
         try:
-            final = _drain(events)
+            if params.no_vis:
+                final = run_headless(params, events)
+            elif args.window:
+                from distributed_gol_torch.viewer.window import run_window
+
+                final = run_window(params, events, key_presses)
+            else:
+                final = run_terminal(params, events)
         except KeyboardInterrupt:
             key_presses.put("q")  # graceful detach, checkpoint parked on session
-            final = _drain(events)
+            final = run_headless(params, events)
         finally:
             stop.set()
             signal.signal(signal.SIGTERM, previous)

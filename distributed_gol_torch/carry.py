@@ -8,7 +8,10 @@ package's on-disk format (PGM plus a CRC'd JSON sidecar) byte for byte,
 so a run parked by either package resumes in the other.  The adaptive
 (``skip_stable``) tier adds nothing to carry: it keeps no weights, and its
 state (stripe flags, tracked intervals, skip counts) lives only within
-one dispatch, so checkpoints stay byte-compatible.
+one dispatch, so checkpoints stay byte-compatible.  The byte engine
+(``engine="pallas"``) and the viewer path carry nothing new either: boards
+are uint8 in both packages, and frames and delta bands are host numpy
+arrays in both.
 """
 
 from __future__ import annotations

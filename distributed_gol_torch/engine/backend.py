@@ -2,12 +2,14 @@
 engine that advances it.
 
 PyTorch counterpart of ``distributed_gol_tpu/engine/backend.py`` for one
-device, with the surface the controller calls on a headless run: board
-placement (``put``/``fetch``/``fetch_many``), the dispatch seam
-(``run_turns_async``: an unsynced superstep plus an unsynced 0-d alive
-count that ``int()`` forces), the SDC probe, the whole-board cycle
-probes, and the adaptive (``skip_stable``) tier's skip telemetry
-(``skip_fraction``, ``activity_bitmap``).  Engine selection mirrors the
+device, with the surface the controller calls: board placement
+(``put``/``fetch``/``fetch_many``), the dispatch seam (``run_turns_async``:
+an unsynced superstep plus an unsynced 0-d alive count that ``int()``
+forces), the per-turn viewer dispatches (``run_turn_with_flips``,
+``run_turn_with_frame``, ``run_turn_with_viewport``, ``fetch_viewport``,
+``probe_frame_fetch``), the SDC probe, the whole-board cycle probes, and
+the adaptive (``skip_stable``) tier's skip telemetry (``skip_fraction``,
+``activity_bitmap``).  Engine selection mirrors the
 JAX package's ``_resolve_single`` and ``_ENGINE_RANK``; every engine is
 bit-identical, so a fallback changes speed, never results — and a slower
 tier than the one asked for is warned about, never silent.
@@ -21,7 +23,7 @@ import numpy as np
 import torch
 
 from distributed_gol_torch.engine.params import Params
-from distributed_gol_torch.ops import cuda_adaptive, cuda_packed, packed, stencil
+from distributed_gol_torch.ops import cuda_adaptive, cuda_packed, cuda_stencil, packed, stencil
 from distributed_gol_torch.utils.device import kernels_native, resolve_device
 
 
@@ -42,8 +44,10 @@ class Backend:
 
     ``params.engine`` requests an engine; ``self.engine_used`` records what
     actually runs after capability fallbacks (the packed engines need
-    W % 32 == 0).  "auto" takes the hand-written kernels on a CUDA device
-    of compute capability 9.0 and the plain packed engine elsewhere."""
+    W % 32 == 0, the byte kernel W % 4 == 0).  "auto" takes the
+    hand-written kernels on a CUDA device of compute capability 9.0 — the
+    packed tier for multi-generation dispatches, the byte kernel (K6) for
+    per-turn ones — and the plain engines elsewhere."""
 
     sharded_tier = None  # single device: no halo-exchange tier
 
@@ -69,6 +73,8 @@ class Backend:
                 self._superstep = cuda_packed.make_superstep_bytes(params.rule, self.device)
         elif self.engine_used == "packed":
             self._superstep = packed.make_superstep(params.rule)
+        elif self.engine_used == "pallas":
+            self._superstep = cuda_stencil.make_superstep(params.rule)
         else:
             self._superstep = lambda b, k: stencil.superstep(b, self.table, k)
         self._init_metrics(params)
@@ -84,6 +90,9 @@ class Backend:
         reg = obs_metrics.registry_for(params.metrics)
         self._m_dispatches = reg.counter(f"backend.dispatches.{self.engine_used}")
         reg.info("backend.engine", self.engine_used)
+        # One bump per viewport device program dispatched
+        # (fetch_viewport / run_turn_with_viewport).
+        self._m_viewport_fetches = reg.counter("backend.viewport_fetches")
         if getattr(self, "_skip_fn", None) is not None:
             reg.gauge_fn("backend.skip_fraction", self.skip_fraction)
             reg.gauge_fn("backend.active_tiles", self._active_tiles)
@@ -211,23 +220,33 @@ class Backend:
 
     @staticmethod
     def _resolve_single(params: Params, shape: tuple[int, int], device) -> str:
-        """Requested engine -> the engine that runs.  Explicit
-        "pallas-packed" is honoured on every device (the wrappers run their
-        plain versions on a CPU tensor); "auto" upgrades to the kernels only
-        on a CUDA device of compute capability 9.0."""
+        """Requested engine -> the engine that runs, capability-gated and
+        always ending at the roll stencil.  Explicit "pallas-packed" and
+        "pallas" are honoured on every device (the wrappers run their plain
+        versions on a CPU tensor); "auto" upgrades to the kernels only on a
+        CUDA device of compute capability 9.0."""
         if params.engine == "roll":
             return "roll"
-        # The byte drivers pack and unpack around every dispatch, which
-        # only pays over multi-generation supersteps: per-turn dispatches
-        # take the roll stencil under "auto".
-        per_turn = params.runtime_superstep() == 1
-        if packed.supports(shape) and not (params.engine == "auto" and per_turn):
-            want = params.engine == "pallas-packed" or (
-                params.engine == "auto" and kernels_native(device)
-            )
-            if want and cuda_packed.supports(shape):
-                return "pallas-packed"
-            return "packed"
+        if params.engine in ("packed", "pallas-packed", "auto"):
+            # The byte drivers pack and unpack around every dispatch, which
+            # only pays over multi-generation supersteps: per-turn
+            # dispatches (the viewers) skip the packed engines under "auto".
+            per_turn = params.runtime_superstep() == 1
+            if packed.supports(shape) and not (params.engine == "auto" and per_turn):
+                want = params.engine == "pallas-packed" or (
+                    params.engine == "auto" and kernels_native(device)
+                )
+                if want and cuda_packed.supports(shape):
+                    return "pallas-packed"
+                return "packed"
+            if params.engine in ("packed", "pallas-packed"):
+                return "roll"
+        # engine == "pallas", or "auto" per-turn or on a width no packed
+        # engine takes.
+        if cuda_stencil.supports(shape) and (
+            params.engine == "pallas" or kernels_native(device)
+        ):
+            return "pallas"
         return "roll"
 
     # -- board placement -------------------------------------------------------
@@ -239,8 +258,94 @@ class Backend:
         return board.cpu().numpy()
 
     def fetch_many(self, *arrays):
-        """Several device values to numpy (scalars as 0-d arrays)."""
+        """Several device values to numpy (scalars as 0-d arrays), one copy
+        to the host each."""
         return [np.asarray(a.cpu().numpy()) for a in arrays]
+
+    # -- per-turn viewer dispatches ----------------------------------------------
+    # Each is one synchronous dispatch: the generations, then the view (flip
+    # mask, pooled frame or viewport crop), the alive count and a bit-pack
+    # on the device, so only the packed view and the count cross to the
+    # host.  They go through ``_device_superstep``, never the skip-stats
+    # bookkeeping.
+
+    @staticmethod
+    def normalize_rect(rect, h: int, w: int) -> tuple[int, int, int, int]:
+        """Validate and canonicalise a viewport rect ``(y0, x0, vh, vw)``:
+        anchors wrap onto the torus (any int is legal), sizes must fit the
+        board."""
+        y0, x0, vh, vw = (int(v) for v in rect)
+        if not (1 <= vh <= h and 1 <= vw <= w):
+            raise ValueError(
+                f"viewport {vh}x{vw} does not fit board {w}x{h} "
+                "(sizes must be within the board; the rect may wrap, "
+                "its extent may not exceed the torus)"
+            )
+        return y0 % h, x0 % w, vh, vw
+
+    @staticmethod
+    def _unpack(bits: np.ndarray, cols: int) -> np.ndarray:
+        """A fetched bit-packed view as uint8 {0, 255} cells."""
+        return np.unpackbits(bits, axis=-1, count=cols) * np.uint8(255)
+
+    def fetch_viewport(self, board: torch.Tensor, rect) -> np.ndarray:
+        """Only the rect ``(y0, x0, vh, vw)`` of the board (toroidal wrap
+        included) as a uint8 (vh, vw) array: the crop is bit-packed on the
+        device, so ``ceil(vw/8)·vh`` bytes cross to the host."""
+        h, w = self.params.image_height, self.params.image_width
+        y0, x0, vh, vw = self.normalize_rect(rect, h, w)
+        self._m_viewport_fetches.inc()
+        bits = self.fetch(stencil.packbits(stencil.viewport(board, y0, x0, vh, vw)))
+        return self._unpack(bits, vw)
+
+    def run_turn_with_flips(
+        self, board: torch.Tensor
+    ) -> tuple[torch.Tensor, int, np.ndarray]:
+        """One generation, returning (board, alive count, (n, 2) array of
+        the flipped cells' (y, x)).  The diff is taken on the device
+        (``stencil.flip_mask``) and bit-packed; the host unpacks it."""
+        new_board = self._device_superstep(board, 1)
+        bits = stencil.packbits(stencil.flip_mask(board, new_board))
+        count, bits = self.fetch_many(stencil.alive_count(new_board), bits)
+        ys, xs = np.nonzero(np.unpackbits(bits, axis=-1, count=self.params.image_width))
+        return new_board, int(count), np.stack([ys, xs], axis=1)
+
+    def run_turn_with_frame(
+        self, board: torch.Tensor, fy: int, fx: int, turns: int = 1
+    ) -> tuple[torch.Tensor, int, np.ndarray]:
+        """``turns`` generations (the frame stride), returning (board, alive
+        count, the last generation max-pooled by (fy, fx) on the device)."""
+        new_board = self._device_superstep(board, turns)
+        bits = stencil.packbits(stencil.frame_pool(new_board, fy, fx))
+        count, bits = self.fetch_many(stencil.alive_count(new_board), bits)
+        return new_board, int(count), self._unpack(bits, -(-self.params.image_width // fx))
+
+    def run_turn_with_viewport(
+        self, board: torch.Tensor, rect, fy: int, fx: int, turns: int = 1
+    ) -> tuple[torch.Tensor, int, np.ndarray]:
+        """The viewport form of :meth:`run_turn_with_frame`: the pooled
+        frame covers only the rect ``(y0, x0, vh, vw)``, so a frame's cost
+        scales with the viewport, not the board."""
+        h, w = self.params.image_height, self.params.image_width
+        y0, x0, vh, vw = self.normalize_rect(rect, h, w)
+        self._m_viewport_fetches.inc()
+        new_board = self._device_superstep(board, turns)
+        pooled = stencil.frame_pool(stencil.viewport(new_board, y0, x0, vh, vw), fy, fx)
+        count, bits = self.fetch_many(stencil.alive_count(new_board), stencil.packbits(pooled))
+        return new_board, int(count), self._unpack(bits, -(-vw // fx))
+
+    def probe_frame_fetch(self, board: torch.Tensor, fy: int, fx: int, rect=None) -> None:
+        """One frame fetch without advancing the simulation: the pool (of
+        the viewport ``rect`` when given), count, bit-pack and host copy of
+        :meth:`run_turn_with_frame` / :meth:`run_turn_with_viewport`, minus
+        the generations.  The controller times it to size the frame
+        stride."""
+        view = board
+        if rect is not None:
+            h, w = self.params.image_height, self.params.image_width
+            y0, x0, vh, vw = self.normalize_rect(rect, h, w)
+            view = stencil.viewport(board, y0, x0, vh, vw)
+        self.fetch_many(stencil.alive_count(board), stencil.packbits(stencil.frame_pool(view, fy, fx)))
 
     # -- compute ---------------------------------------------------------------
     def run_turns_async(

@@ -1,12 +1,14 @@
 """The run controller: orchestration of a whole simulation.
 
-The headless controller of ``distributed_gol_tpu/engine/controller.py``,
-carried over with its contracts: load (or resume) a board, drive
+The controller of ``distributed_gol_tpu/engine/controller.py`` for one
+device, carried over with its contracts: load (or resume) a board, drive
 generations through the Backend seam, emit the event stream, honour
 s/p/q/k keypresses, snapshot PGMs, and shut down cleanly — plus the
-pipelined dispatch loop, cycle fast-forward, retry/watchdog, periodic
-checkpoints, the SDC sentinel and graceful preemption.  The viewer loops
-are not ported yet (``Params`` refuses viewer modes).
+pipelined headless dispatch loop, cycle fast-forward, retry/watchdog,
+periodic checkpoints, the SDC sentinel and graceful preemption, and the
+per-turn viewer loop: exact flips, device-pooled frames, and a viewport
+with delta-encoded frames and pan/zoom keys.  The serving plane's frame
+fan-out (``frame_plane``) is not ported yet.
 
 - The per-turn RPC round-trip (``gol/distributor.go:48-66``) becomes a
   device superstep: N generations per dispatch.
@@ -28,16 +30,21 @@ import time
 from typing import Optional
 
 import numpy as np
+import torch
 
 from distributed_gol_torch.engine import pgm
 from distributed_gol_torch.engine.backend import Backend
 from distributed_gol_torch.engine.events import (
     AliveCellsCount,
+    CellFlipped,
+    CellsFlipped,
     CheckpointSaved,
     CycleDetected,
     DispatchError,
     EventQueue,
     FinalTurnComplete,
+    FrameDelta,
+    FrameReady,
     ImageOutputComplete,
     MetricsReport,
     State,
@@ -51,7 +58,7 @@ from distributed_gol_torch.obs import flight as flight_lib
 from distributed_gol_torch.obs import metrics as metrics_lib
 from distributed_gol_torch.obs import spans
 from distributed_gol_torch.obs import tracing
-from distributed_gol_torch.utils.cell import AliveCells
+from distributed_gol_torch.utils.cell import AliveCells, Cell
 
 
 # Forces every dispatch to resolve before the next is issued — an A/B
@@ -276,6 +283,22 @@ class Controller:
         self.key_presses = key_presses
         self.session = session if session is not None else default_session()
         self.backend = backend if backend is not None else Backend(params)
+        # -- the viewport viewer --
+        # Live viewport rect [y0, x0, vh, vw] (mutated by pan/zoom keys)
+        # or None = whole-board frames, and the delta encoder's state.
+        self._rect = (
+            None
+            if params.viewport is None
+            else list(
+                Backend.normalize_rect(
+                    params.viewport, params.image_height, params.image_width
+                )
+            )
+        )
+        self._deltas_on = params.frame_deltas_enabled()
+        self._last_frame = None
+        self._frame_keyframe = True
+        self._rect_resized = False
         # "completed" | "detached" ('q') | "killed" ('k') | "preempted"
         # (graceful stop: SIGTERM/SIGINT → emergency checkpoint → exit
         # paused-and-resumable)
@@ -327,6 +350,13 @@ class Controller:
             qsize=qsize,
             tenant=params.tenant,
             trace=self.trace,
+        )
+        # Time-to-first-frame SLI: request start → first rendered frame,
+        # per tenant (traced frame-mode runs).
+        self._h_ttff = self.metrics.histogram(
+            metrics_lib.labelled(
+                "sli.time_to_first_frame_seconds", params.tenant
+            )
         )
         self._m_pipeline_overlap = self.metrics.counter(
             "controller.pipeline_overlap"
@@ -404,6 +434,17 @@ class Controller:
             for t in range(first, last + 1):
                 self.events.put(TurnComplete(t))
 
+    def _emit_flips(self, turn: int, coords: np.ndarray):
+        """coords: (n, 2) array of (y, x).  Per-cell events preserve the
+        reference contract (``gol/event.go:48-58``); the batch form is the
+        cheap framework extension."""
+        pairs = coords.tolist()  # Python ints: ~2x faster than numpy rows
+        if self.params.flip_events == "batch":
+            self._emit(CellsFlipped(turn, tuple(Cell(x, y) for y, x in pairs)))
+        else:
+            for y, x in pairs:
+                self._emit(CellFlipped(turn, Cell(x, y)))
+
     # -- keypresses (gol/distributor.go:105-151) -------------------------------
     def _write_pgm(self, path, board_np):
         """File-output seam: multi-host runs override this so only the
@@ -450,6 +491,43 @@ class Controller:
             self._emit(StateChange(turn, State.QUITTING))
             self.session.quit()
             self._outcome = "killed"
+        elif self._rect is not None and key in self._VIEWPORT_KEYS:
+            self._pan_zoom(key)
+
+    # Viewport pan/zoom keys: a/d/w/x pan left/right/up/down by half a
+    # viewport; '+'/'=' zoom in (halve the rect about its centre), '-'
+    # zoom out (double, clamped to the board).  Chosen to avoid the
+    # reference's s/p/q/k; ignored on non-viewport runs.
+    _VIEWPORT_KEYS = frozenset("adwx+=-")
+    _VIEWPORT_MIN = 16  # smallest zoomed-in rect side, cells
+
+    def _pan_zoom(self, key: str):
+        """Mutate the live viewport rect; the next frame re-keyframes
+        (and, on a zoom, flags the resize so the auto-stride policy can
+        re-probe a materially different fetch)."""
+        h, w = self.params.image_height, self.params.image_width
+        y0, x0, vh, vw = self._rect
+        if key in "adwx":
+            dy = {"w": -vh // 2, "x": vh // 2}.get(key, 0)
+            dx = {"a": -vw // 2, "d": vw // 2}.get(key, 0)
+            y0, x0 = (y0 + dy) % h, (x0 + dx) % w
+        else:
+            cy, cx = y0 + vh // 2, x0 + vw // 2
+            if key == "-":
+                nvh, nvw = min(2 * vh, h), min(2 * vw, w)
+            else:
+                # Zoom-in floor: the smaller of _VIEWPORT_MIN, the board
+                # side, and the CURRENT size — so '+' never grows a rect
+                # and never exceeds a small board.
+                nvh = max(min(self._VIEWPORT_MIN, h, vh), vh // 2)
+                nvw = max(min(self._VIEWPORT_MIN, w, vw), vw // 2)
+            if (nvh, nvw) == (vh, vw):
+                return
+            vh, vw = nvh, nvw
+            y0, x0 = (cy - vh // 2) % h, (cx - vw // 2) % w
+            self._rect_resized = True
+        self._rect = [y0, x0, vh, vw]
+        self._frame_keyframe = True
 
     def _poll_keys(self, board, turn: int):
         """Drain pending keys; while paused, block here (stepping stops, the
@@ -1046,17 +1124,254 @@ class Controller:
         self._saved_ckpt_turn = start_turn - 1 if self._resumed else start_turn
         self._last_ckpt_time = time.monotonic()
         self._last_sdc_turn = start_turn
+        viewer = p.wants_flips() or p.wants_frames()
+
+        # Initial flips: one per alive cell of the *actual* starting world
+        # (the reference emits them from the freshly loaded PGM even when it
+        # then resumes from a checkpoint, desyncing viewers; deliberate fix).
+        if p.wants_flips():
+            ys, xs = np.nonzero(board_np)
+            self._emit_flips(start_turn, np.stack([ys, xs], axis=1))
+        elif p.wants_frames():
+            # The starting frame, through the same pooling op every later
+            # frame uses (on the host: the board is not placed yet).
+            from distributed_gol_torch.ops import stencil
+
+            fy, fx = p.frame_factors()
+            src, rect = board_np, None
+            if self._rect is not None:
+                # Viewport viewer: the starting KEYFRAME covers the
+                # viewport only — a host-side toroidal crop of the loaded
+                # world, with the device path's wrap semantics.
+                y0, x0, vh, vw = self._rect
+                rows = (np.arange(vh) + y0) % p.image_height
+                cols = (np.arange(vw) + x0) % p.image_width
+                src = board_np[rows[:, None], cols[None, :]]
+                rect = tuple(self._rect)
+            pooled = stencil.frame_pool(torch.from_numpy(np.array(src)), fy, fx).numpy()
+            self._emit(FrameReady(start_turn, pooled, (fy, fx), rect=rect))
+
         board = self.backend.put(board_np)
         state = _TickerState(start_turn, int(np.count_nonzero(board_np)))
         ticker = _Ticker(p.ticker_period, self.events, state)
         ticker.start()
         try:
-            board, turn = self._headless_loop(board, start_turn, state)
+            if viewer:
+                board, turn = self._viewer_loop(board, start_turn, state)
+            else:
+                board, turn = self._headless_loop(board, start_turn, state)
         finally:
             ticker.stop()
             ticker.join()
 
         self._finalize(board, turn)
+
+    def _viewer_loop(self, board, turn: int, state: _TickerState):
+        """Per-turn visible stepping, synchronous — a viewer wants the
+        freshest turn, not pipelined throughput.  Flips mode is exactly
+        per-turn (the reference contract needs every diff); frame mode
+        advances ``Params.frame_stride`` exact generations per rendered
+        frame, with the TurnComplete stream staying dense and each frame
+        delivered before its own turn's TurnComplete.
+
+        Latency-adaptive stride (``frame_stride == 0``, the default): the
+        frame-fetch round-trip is measured at viewer start (the pool +
+        transfer probe, no simulation), the first two stride-1 dispatches
+        warm up and time one generation, and the effective stride is then
+        raised so a slow link stops rate-limiting the simulation
+        (``_auto_frame_stride``).  An explicit ``frame_stride`` always
+        wins; local links keep the frame-per-turn cadence either way."""
+        p = self.params
+        wants_flips = p.wants_flips()
+        fy, fx = p.frame_factors()
+        roi = self._rect is not None and not wants_flips
+        rect = tuple(self._rect) if roi else None
+        stride = p.runtime_superstep()  # 1 for flips; frame_stride for frames
+        auto_stride = not wants_flips and p.frame_stride == 0 and turn < p.turns
+        rtt = (
+            self._measure_frame_rtt(board, fy, fx, turn, rect=rect)
+            if auto_stride
+            else 0.0
+        )
+        probed_area = rect[2] * rect[3] if roi else 0
+        self.frame_stride_effective = stride
+        warm_frames = 0
+        while turn < p.turns:
+            if self._stop_now():
+                self._preempt_exit(board, turn)
+                break
+            self._poll_keys(board, turn)
+            if self._outcome != "completed":
+                break
+            if self._stop_seen:
+                # A stop observed inside the paused keys loop preempts at
+                # the turn the user froze.
+                self._preempt_exit(board, turn)
+                break
+            t0 = time.perf_counter()
+            board_in = board
+            if wants_flips:
+                k = 1
+                board, count, coords = self._dispatch(
+                    lambda: self.backend.run_turn_with_flips(board),
+                    board,
+                    turn,
+                )
+                turn += 1
+                state.set(turn, count)
+                self._emit_flips(turn, coords)
+            else:
+                if roi:
+                    # The live rect: pan/zoom keys mutate it between
+                    # dispatches; a zoom also changes the pool factors.
+                    rect = tuple(self._rect)
+                    fy, fx = self._roi_factors(rect)
+                    if self._rect_resized:
+                        self._rect_resized = False
+                        area = rect[2] * rect[3]
+                        # Re-probe on a MATERIAL size change (>= 2x either
+                        # way): the stride must be sized from the fetch the
+                        # viewer pays now, and a re-warm re-times one
+                        # generation at the new rect.
+                        if auto_stride and not (
+                            probed_area // 2 < area < probed_area * 2
+                        ):
+                            rtt = self._measure_frame_rtt(
+                                board, fy, fx, turn, rect=rect
+                            )
+                            probed_area = area
+                            stride = 1
+                            warm_frames = 0
+                            self.frame_stride_effective = stride
+                k = min(stride, p.turns - turn)
+                t_disp = time.perf_counter()
+                if roi:
+                    step_rect = rect
+                    board, count, frame = self._dispatch(
+                        lambda: self.backend.run_turn_with_viewport(
+                            board, step_rect, fy, fx, k
+                        ),
+                        board,
+                        turn,
+                    )
+                else:
+                    board, count, frame = self._dispatch(
+                        lambda: self.backend.run_turn_with_frame(
+                            board, fy, fx, k
+                        ),
+                        board,
+                        turn,
+                    )
+                if auto_stride and stride == 1:
+                    # Dispatch 1 pays the one-time set-up — warm only;
+                    # dispatch 2 times one true (generation + fetch) and
+                    # fixes the stride for the rest of the run.
+                    warm_frames += 1
+                    if warm_frames == 2:
+                        stride = self._auto_frame_stride(
+                            rtt, time.perf_counter() - t_disp
+                        )
+                        self.frame_stride_effective = stride
+                self._emit_turns(turn + 1, turn + k - 1)
+                turn += k
+                state.set(turn, count)
+                self._emit_frame(turn, frame, (fy, fx), rect)
+            self._emit(TurnComplete(turn))
+            # The unified per-dispatch record, shared with the pipelined
+            # headless path (DispatchRecorder).
+            self._dispatch_rec.record(turn, k, time.perf_counter() - t0)
+            self._guard_boundary(board_in, board, turn, k, count)
+        return board, turn
+
+    def _roi_factors(self, rect) -> tuple[int, int]:
+        """(fy, fx) pooling factors for the LIVE viewport rect — the
+        dynamic-zoom form of ``Params.frame_factors`` (which only knows
+        the starting viewport)."""
+        return self.params.factors_for(rect[2], rect[3])
+
+    def _mark_first_frame(self) -> None:
+        """Time-to-first-frame SLI: observed once per traced request, at
+        the first frame emitted to the viewer stream."""
+        if self.trace is not None:
+            first = self.trace.mark("first_frame")
+            if first is not None:
+                self._h_ttff.observe(first)
+
+    def _emit_frame(self, turn: int, frame, factors, rect):
+        """Emit one rendered frame: a FrameReady keyframe when the delta
+        protocol is off, not yet anchored, or just re-anchored (first
+        frame, pan/zoom, shape change); else the changed-band FrameDelta
+        against the last delivered frame (``engine/frames.py``)."""
+        self._mark_first_frame()
+        if not self._deltas_on:
+            self._emit(FrameReady(turn, frame, factors, rect=rect))
+            return
+        from distributed_gol_torch.engine import frames as frames_lib
+
+        last = self._last_frame
+        self._last_frame = frame
+        if (
+            last is None
+            or self._frame_keyframe
+            or last.shape != frame.shape
+        ):
+            self._frame_keyframe = False
+            self._emit(FrameReady(turn, frame, factors, rect=rect))
+            return
+        bands = frames_lib.delta_bands(last, frame)
+        self._emit(FrameDelta(turn, bands=bands, factors=factors, rect=rect))
+
+    def _measure_frame_rtt(
+        self,
+        board,
+        fy: int,
+        fx: int,
+        turn: int = 0,
+        probes: int = 3,
+        rect=None,
+    ) -> float:
+        """Median round-trip of one frame fetch (pool + count + bit-pack
+        + host transfer, no simulation — ``Backend.probe_frame_fetch``),
+        first call excluded (one-time set-up).  With ``rect`` the probe
+        runs the VIEWPORT fetch path, so the auto-stride policy is sized
+        from what a viewport viewer actually pays.  Device work goes
+        through the standard dispatch contract (watchdog + retry);
+        ``turn`` is the run's TRUE current turn — a terminal probe failure
+        parks the board as a checkpoint at that turn."""
+        probe = lambda: self.backend.probe_frame_fetch(  # noqa: E731
+            board, fy, fx, rect=rect
+        )
+        self._dispatch(probe, board, turn)  # warm-up
+        times = []
+        for _ in range(max(1, probes)):
+            t0 = time.perf_counter()
+            self._dispatch(probe, board, turn)
+            times.append(time.perf_counter() - t0)
+        return sorted(times)[len(times) // 2]
+
+    # Auto-stride engages above this measured per-frame round-trip: below
+    # it the link is effectively local and the reference-faithful
+    # frame-per-turn cadence costs nothing worth trading away.
+    _STRIDE_RTT_ENGAGE = 0.02
+    # ...and the raised stride is bounded: even a free generation never
+    # strides past 256 turns per frame (the screen still updates at the
+    # link's fps; the bound keeps keypress latency and the TurnComplete
+    # emission chunk sane).
+    _STRIDE_MAX = 256
+
+    @classmethod
+    def _auto_frame_stride(cls, rtt: float, dispatch_s: float) -> int:
+        """The latency-adaptive stride policy: with ``rtt`` the measured
+        per-frame fetch round-trip and ``dispatch_s`` one warm stride-1
+        frame dispatch (= one generation + one fetch), pick
+        ``stride ≈ rtt / t_gen`` — device time per dispatch then matches
+        the fetch time, so the fetch overhead drops from ~100% of
+        wall-clock to ~50% while frames keep arriving at the link's
+        natural fps.  Local links (rtt < 20 ms) keep stride 1."""
+        if rtt < cls._STRIDE_RTT_ENGAGE:
+            return 1
+        t_gen = max(dispatch_s - rtt, rtt / cls._STRIDE_MAX, 1e-4)
+        return max(1, min(cls._STRIDE_MAX, round(rtt / t_gen)))
 
     def _headless_loop(self, board, turn: int, state: _TickerState):
         """Headless stepping: multi-generation supersteps, **pipelined** —

@@ -41,14 +41,15 @@ class Params:
     # overshooting dispatch) plus queue latency.  Explicit superstep > 0
     # opts out of the bound — the user chose their granularity.
     max_dispatch_seconds: float = 0.25
-    # "roll" (torch.roll stencil, always correct) | "packed" (bit-packed
-    # SWAR, 32 cells/word) | "pallas-packed" (the packed engine's
-    # hand-written CUDA kernel tier, ops/cuda_packed.py; on a CPU device
-    # its plain PyTorch version) | "auto" (best available for the board
-    # and device: the kernels only on a CUDA device of compute capability
-    # 9.0).  "pallas" (the TPU byte kernel) is not ported yet.  All
-    # engines are bit-identical; unsupported shapes fall back (see
-    # Backend.engine_used).
+    # "roll" (torch.roll stencil, always correct) | "pallas" (the byte
+    # kernel, one CUDA launch per generation, ops/cuda_stencil.py) |
+    # "packed" (bit-packed SWAR, 32 cells/word) | "pallas-packed" (the
+    # packed engine's hand-written CUDA kernel tier, ops/cuda_packed.py) |
+    # "auto" (best available for the board and device: the kernels only on
+    # a CUDA device of compute capability 9.0, the byte kernel for
+    # per-turn viewer runs).  On a CPU device the kernel engines run their
+    # plain PyTorch versions.  All engines are bit-identical; unsupported
+    # shapes fall back (see Backend.engine_used).
     engine: str = "auto"
     # Activity-adaptive kernel tier (ops/cuda_adaptive.py): skip row
     # stripes whose neighbourhood is period-6 stable.  Bit-exact; pays off
@@ -437,10 +438,6 @@ class Params:
                 f"mesh_shape {self.mesh_shape}: sharded execution is not "
                 "ported yet (ROADMAP A8); use mesh_shape=(1, 1)"
             )
-        if self.engine == "pallas":
-            raise NotImplementedError(
-                "engine='pallas': the byte kernel is not ported yet (ROADMAP B5)"
-            )
         if self.time_compression:
             raise NotImplementedError(
                 "time_compression=True is not ported yet (ROADMAP A7)"
@@ -453,11 +450,6 @@ class Params:
             raise NotImplementedError(
                 "telemetry_sample_seconds > 0: the telemetry sampler is not "
                 "ported yet (ROADMAP A7)"
-            )
-        if not self.no_vis or self.wants_flips() or self.wants_frames():
-            raise NotImplementedError(
-                "viewer modes (no_vis=False, or per-turn flip events) are not "
-                "ported yet (ROADMAP A10); run headless"
             )
 
     # Filename conventions are part of the reference contract:

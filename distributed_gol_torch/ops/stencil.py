@@ -96,3 +96,20 @@ def flip_mask(prev: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
     """Cells that changed between two boards, as a uint8 0/1 mask."""
     return (prev ^ new) & 1
 
+
+# Weight of each of the 8 cells of a packed byte, first cell highest.
+_BIT_WEIGHTS = (128, 64, 32, 16, 8, 4, 2, 1)
+
+
+def packbits(x: torch.Tensor) -> torch.Tensor:
+    """``numpy.packbits(x != 0, axis=-1)`` (and ``jnp.packbits``): 8 cells
+    per uint8 along the last axis, the first cell in the most significant
+    bit, the last byte zero-padded when the length is not a multiple of 8.
+    ``numpy.unpackbits(..., axis=-1, count=n)`` inverts it."""
+    bits = (x != 0).to(torch.uint8)
+    pad = -bits.shape[-1] % 8
+    if pad:
+        bits = torch.nn.functional.pad(bits, (0, pad))
+    bits = bits.reshape(*bits.shape[:-1], -1, 8)
+    weights = torch.tensor(_BIT_WEIGHTS, dtype=torch.uint8, device=x.device)
+    return (bits * weights).sum(dim=-1, dtype=torch.uint8)

@@ -201,11 +201,8 @@ def test_parked_checkpoints_are_byte_identical(tmp_path):
     "kw,item",
     [
         (dict(mesh_shape=(2, 2)), "A8"),
-        (dict(engine="pallas"), "B5"),
         (dict(time_compression=True), "A7"),
         (dict(restart_limit=1), "A7"),
-        (dict(no_vis=False), "A10"),
-        (dict(flip_events="cell"), "A10"),
         (dict(telemetry_sample_seconds=1.0), "A7"),
     ],
 )

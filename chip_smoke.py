@@ -18,11 +18,18 @@ viewer paths, where ``auto`` takes the byte kernel: per-cell flips of the
 CLI's terminal viewer in a subprocess (and, traced, one generation of a
 128² soup, for its count of K6 launches); each final board must equal a
 headless ``engine="packed"`` rerun and each stream must rebuild its final
-view.  It checks that every kernel of each path launched in it, times
-every kernel against its plain version and its bound (and a viewer turn's
-parts at 16384², and K6 beside a byte copy of the board and beside a build
-of K6 without the modulo in its ring index), and prints one
-``{"kernels": [...]}`` line, the card's name and power limit, and last
+view.  Then the serving paths, through ``ServePlane`` in process: (a) 16
+tenants of 512² x 10,000 turns, ``batched=True``, superstep 64 (K7), (b)
+the same pod unbatched (K1 per tenant), (c) 4 tenants of 4096² x 10,000,
+``batched=True``, superstep 192 (K8, the last dispatch's tail on K3 and
+K2), and the ``serve`` CLI in a subprocess (4 tenants of 512² x 2,000,
+``--batched``); every tenant's final PGM must equal a solo
+``engine="pallas-packed"`` rerun.  It checks that every kernel of each
+path launched in it, times every kernel against its plain version and its
+bound (and a viewer turn's parts at 16384², K6 beside a byte copy of the
+board and beside a build of K6 without the modulo in its ring index, and
+K7 beside 16 sequential K1 launches), and prints one ``{"kernels": [...]}``
+line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.
 ``--profile`` adds a ``torch.profiler`` breakdown of the two headless
 16384² runs and of the three viewer paths; ``--sweep`` times the adaptive
@@ -47,6 +54,8 @@ import tempfile
 import time
 from pathlib import Path
 
+import zlib
+
 import numpy as np
 import torch
 
@@ -54,6 +63,8 @@ import distributed_gol_torch as gol
 from distributed_gol_torch.engine import frames, pgm
 from distributed_gol_torch.engine.backend import Backend
 from distributed_gol_torch.engine.session import Session
+from distributed_gol_torch.obs import metrics
+from distributed_gol_torch.serve import ServeConfig, ServePlane
 from distributed_gol_torch.models.life import CONWAY, HIGHLIFE, LifeRule
 from distributed_gol_torch.ops import (
     cuda_adaptive, cuda_build, cuda_packed, cuda_stencil, packed, stencil)
@@ -95,6 +106,17 @@ KERNELS = {
         source="distributed_gol_torch/csrc/stencil.cu",
         replaces="distributed_gol_tpu/ops/pallas_stencil.py:88 _stencil_kernel",
     ),
+    "resident_batched": dict(
+        route="cuda",
+        source="distributed_gol_torch/csrc/resident.cu",
+        replaces="distributed_gol_tpu/ops/pallas_packed.py:393 _vmem_kernel_batched",
+    ),
+    "frontier_batched": dict(
+        route="cuda",
+        source="distributed_gol_torch/csrc/frontier.cu",
+        replaces="distributed_gol_tpu/ops/pallas_packed.py:1368 _kernel_frontier_mega "
+                 "(nboards > 1 form)",
+    ),
 }
 WRAPPERS = {
     "resident": cuda_packed.resident_superstep,
@@ -103,6 +125,8 @@ WRAPPERS = {
     "probing": cuda_adaptive.probing_superstep,
     "frontier": cuda_adaptive.frontier_superstep,
     "stencil": cuda_stencil.stencil_step,
+    "resident_batched": cuda_packed.resident_superstep_batched,
+    "frontier_batched": cuda_adaptive.frontier_superstep_batched,
 }
 ADAPTIVE = ("tiled_skip", "probing", "frontier")
 LONG_TURNS = 100_000  # the auto skip_stable threshold (Params._SKIP_AUTO_TURNS)
@@ -113,6 +137,10 @@ VIEWPORT = (8000, 8000, 1024, 1024)  # the viewport path's starting rect
 # the stream is consumed (PERF.md), and the seeded board and its first 2
 # generations emit 243,954 of them.
 FLIP_TURNS = 2
+# The serving pods: (tenants, side, turns, superstep).
+POD_K7 = (16, 512, 10_000, 64)
+POD_K8 = (4, 4096, 10_000, 192)
+CLI_POD = (4, 512, 2_000, 64)
 
 
 def log(msg: str) -> None:
@@ -219,7 +247,7 @@ def build_kernels() -> Path:
     cmd = [cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(lib), str(cu)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     try:
-        cuda_build.build(*KERNELS)
+        cuda_build.build(*cuda_build.KERNELS)
     finally:
         out_log, _ = proc.communicate()
     if proc.returncode != 0:
@@ -313,6 +341,82 @@ def check_stencil(device, errs: dict) -> None:
                     raise AssertionError(f"K6 != plain (or its input written) at {shape} x "
                                          f"{turns} under {rule.notation}")
                 log(f"K6 {shape[0]}x{shape[1]} x {turns} {rule.notation}: identical")
+
+
+def soup_stack(nb: int, side: int, seed: int, device) -> torch.Tensor:
+    """A (nb, side, side) stack of soups (density 0.3, seeds seed..)."""
+    return torch.stack([board(side, side, seed + i, device) for i in range(nb)])
+
+
+def check_resident_batched(device, errs: dict) -> None:
+    """K7 against its plain version at the serving pod's 16 x 512² and at
+    3 x 1024 x 1792 (the edge of the 227 KB gate), 1, 9 and 64
+    generations under both rules; slot 0 against K1 too."""
+    for nb, h, w in ((16, 512, 512), (3, 1024, 1792)):
+        if cuda_packed.resident_shape(h, w) is None:
+            raise AssertionError(f"{h}x{w} is outside K7's gate")
+        v = packed.pack_vertical(torch.stack([board(h, w, 31 + i, device) for i in range(nb)]))
+        v = v.contiguous()
+        for rule in RULES:
+            for turns in (1, 9, 64):
+                got = cuda_packed.resident_superstep_batched(v, rule, turns)
+                want = cuda_packed.resident_superstep_batched_plain(v, rule, turns)
+                solo = cuda_packed.resident_superstep(v[0].contiguous(), rule, turns)
+                torch.cuda.synchronize()
+                errs["resident_batched"] = max(errs["resident_batched"], max_abs_err(got, want))
+                if not torch.equal(got, want) or not torch.equal(got[0], solo):
+                    raise AssertionError(f"K7 != plain (or K1) at {nb} x {h}x{w} x {turns} "
+                                         f"under {rule.notation}")
+            log(f"K7 {nb} x {h}x{w} x {{1, 9, 64}} {rule.notation}: identical (slot 0 = K1)")
+
+
+def seam_stack(side: int, device) -> torch.Tensor:
+    """The cross-board seam case: board 0 holds two gliders crossing its
+    own row wrap and a block, board 1 is dead, board 2 a soup.  A board
+    axis that leaked across the seam would let board 0's edge stripes read
+    board 1's "no activity" and skip."""
+    b0 = np.zeros((side, side), np.uint8)
+    for y, x in ((side - 3, 100), (side - 4, 2000)):
+        for dy, dx in ((0, 1), (1, 2), (2, 0), (2, 1), (2, 2)):
+            b0[(y + dy) % side, x + dx] = 255
+    b0[side // 2 : side // 2 + 2, 50:52] = 255
+    stack = np.stack([b0, np.zeros_like(b0), random_soup(side, side, 0.3, 41)])
+    return torch.from_numpy(stack).to(device)
+
+
+def check_frontier_batched(device, errs: dict) -> dict:
+    """K8 against its plain version over one canonical chunk (8 launches)
+    of 4 x 4096², fresh and settled (each soup after ``LONG_TURNS``
+    generations of K2), and on the seam stack: boards, per-board skip
+    counts and activity, under both rules; and K8 with one board against
+    K5.  Returns the packed stacks (phase 4 times them)."""
+    side, nb = POD_K8[1], POD_K8[0]
+    plan = cuda_adaptive.adaptive_plan((side, side // 32), 10**6)
+    fresh = packed.pack(soup_stack(nb, side, 51, device)).contiguous()
+    settled = torch.stack([cuda_packed.tiled_superstep(b.contiguous(), CONWAY, LONG_TURNS)
+                           for b in fresh])
+    stacks = {"fresh": fresh, "settled": settled,
+              "seam": packed.pack(seam_stack(side, device)).contiguous()}
+    for rule in RULES:
+        for name, st in stacks.items():
+            got, sk, act = cuda_adaptive.frontier_superstep_batched(st, rule, plan, 8)
+            want, wsk, wact = cuda_adaptive.frontier_superstep_batched_mirror(st, rule, plan, 8)
+            torch.cuda.synchronize()
+            errs["frontier_batched"] = max(errs["frontier_batched"], max_abs_err(got, want))
+            if not (torch.equal(got, want) and torch.equal(sk, wsk) and torch.equal(act, wact)):
+                raise AssertionError(f"K8 != plain on the {name} stack under {rule.notation}: "
+                                     f"skipped {sk.tolist()} vs {wsk.tolist()}")
+            if name == "seam" and not torch.equal(got, packed.superstep(st, rule, 8 * plan.t)):
+                raise AssertionError("K8's seam stack differs from the plain packed engine")
+            log(f"K8 {st.shape[0]} x {side}^2 x 8 launches ({plan}) {name} {rule.notation}: "
+                f"identical, skipped {sk.tolist()}, active stripes {int((act > 0).sum())}")
+        one = cuda_adaptive.frontier_superstep_batched(fresh[:1].contiguous(), rule, plan, 8)
+        k5 = cuda_adaptive.frontier_superstep(fresh[0].contiguous(), rule, plan, 8)
+        if not (torch.equal(one[0][0], k5[0]) and int(one[1][0]) == int(k5[1])
+                and torch.equal(one[2], k5[2])):
+            raise AssertionError(f"K8 with one board != K5 under {rule.notation}")
+    log("K8 with one board: equals K5 (board, skip count, activity)")
+    return {"fresh": fresh, "settled": settled}
 
 
 def reset_launches() -> None:
@@ -627,6 +731,142 @@ def detach_and_resume(params: gol.Params, straight: bytes, tmp: Path) -> None:
     log(f"detach at turn {turn} and resume: final board equals the straight run")
 
 
+def solo_rerun(params: gol.Params, out_dir: Path) -> bytes:
+    """A tenant's run outside the pod, solo on the already-built packed
+    kernels (``engine="pallas-packed"``, ``skip_stable=False``): its final
+    PGM is what the pod's tenant must equal."""
+    ref = dataclasses.replace(params, tenant=None, engine="pallas-packed", skip_stable=False,
+                              superstep=0, out_dir=out_dir)
+    _, final = stream_run(ref, Sink())
+    if final is None:
+        raise AssertionError(f"the solo rerun of {params.tenant} wrote no final PGM")
+    return final
+
+
+def pod_path(name: str, shape: tuple, batched: bool, kernels: tuple, launches: dict,
+             tmp: Path) -> dict:
+    """One serving pod through ``ServePlane`` in process: ``shape`` =
+    (tenants, side, turns, superstep) soups (density 0.3, seed 100 + i),
+    every launch count set to 0 just before and read just after.  Every
+    tenant must complete with the final PGM of its solo rerun; each of
+    ``kernels`` must have launched; a batched pod must show no failed
+    batched launch and no eviction.  Returns the pod's numbers."""
+    nt, side, turns, superstep = shape
+    params = [gol.Params(turns=turns, image_width=side, image_height=side, soup_density=0.3,
+                         soup_seed=100 + i, superstep=superstep, turn_events="batch",
+                         ticker_period=3600, out_dir=tmp / name / f"t{i}") for i in range(nt)]
+    config = ServeConfig(max_sessions=nt, batched=batched, max_total_cells=nt * side * side)
+    before = metrics.REGISTRY.snapshot()
+    reset_launches()
+    t0 = time.perf_counter()
+    with ServePlane(config) as plane:
+        handles = [plane.submit(f"t{i}", p) for i, p in enumerate(params)]
+        if not plane.wait_idle(timeout=900):
+            raise AssertionError(f"pod {name}: tenants still resident after 900 s")
+        wall = time.perf_counter() - t0
+        health = plane.health()
+    counts = launch_counts()
+    counters = metrics.REGISTRY.snapshot().delta(before).to_dict()["counters"]
+    for k in kernels:
+        launches[k] += counts[k]
+        if counts[k] == 0:
+            raise AssertionError(f"pod {name}: the {k} kernel never launched")
+    for h in handles:
+        if h.status != "completed":
+            raise AssertionError(f"pod {name}: tenant {h.tenant} ended {h.status} ({h.error})")
+    failures = counters.get("serve.batched_launch_failures", 0)
+    evictions = counters.get("serve.cohort_evictions", 0)
+    if failures or evictions:
+        raise AssertionError(f"pod {name}: {failures} batched-launch failures, "
+                             f"{evictions} cohort evictions")
+    for i, (h, p) in enumerate(zip(handles, params)):
+        got = (p.out_dir / f"{p.final_output_name}.pgm").read_bytes()
+        if got != solo_rerun(p, tmp / name / f"solo{i}"):
+            raise AssertionError(f"pod {name}: tenant {h.tenant}'s final PGM differs from its "
+                                 "solo rerun")
+    supersteps = -(-turns // superstep)
+    rates = sorted(turns / h.duration for h in handles)
+    boards, rounds = counters.get("serve.batched_boards", 0), counters.get("serve.batched_launches", 0)
+    out = dict(
+        tenants=nt, side=side, turns=turns, superstep=superstep, batched=batched, wall_s=wall,
+        aggregate_gens_per_s=nt * turns / wall, median_tenant_gens_per_s=rates[len(rates) // 2],
+        launches={k: counts[k] for k in WRAPPERS if counts[k]},
+        launches_per_superstep={k: counts[k] / supersteps for k in kernels},
+        batched_rounds=rounds, batched_boards=boards,
+        mean_cohort_size=boards / rounds if rounds else None,
+        batched_launch_failures=failures, cohort_evictions=evictions,
+        batched_engine=next((k.rsplit(".", 1)[1] for k in counters
+                             if k.startswith("backend.batched_dispatches.")), None),
+    )
+    if batched and out["batched_engine"] != "pallas-packed":
+        raise AssertionError(f"pod {name}: batched engine {out['batched_engine']!r}, "
+                             f"not pallas-packed ({health['batched_launches']} launches)")
+    print(f"serving pod {name}: {nt} x {side}^2 x {turns}, superstep {superstep}, "
+          f"batched={batched}: {wall:.3f} s, {out['aggregate_gens_per_s']:.1f} gens/s aggregate, "
+          f"median tenant {out['median_tenant_gens_per_s']:.1f} gens/s, launches per superstep "
+          f"{out['launches_per_superstep']}, mean cohort size {out['mean_cohort_size']}, "
+          f"launches {out['launches']}", flush=True)
+    return out
+
+
+def serve_cli_path(tmp: Path) -> dict:
+    """The ``serve`` CLI as an operator runs it, in a subprocess: 4
+    tenants of 512² x 2,000, ``--batched --superstep 64``; it must exit 0
+    with a receipt of every tenant completed, and each tenant's PGM must
+    equal its solo rerun."""
+    nt, side, turns, superstep = CLI_POD
+    root = Path(__file__).resolve().parent
+    names = [f"cli{i}" for i in range(nt)]
+    cmd = [sys.executable, "-m", "distributed_gol_torch", "serve", "--batched",
+           "--superstep", str(superstep), "--checkpoint-root", str(tmp / "pod"),
+           "--max-sessions", str(nt)]
+    for n in names:
+        cmd += ["--tenant", f"{n}:{side}x{side}x{turns}"]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(root), *filter(None, [os.environ.get("PYTHONPATH")])]))
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"the serve CLI exited {r.returncode}: {r.stderr[-3000:]}")
+    receipt = json.loads(r.stdout.strip().splitlines()[-1])
+    statuses = {t: v["status"] for t, v in receipt["sessions"].items()}
+    if statuses != {n: "completed" for n in names}:
+        raise AssertionError(f"the serve CLI's receipt: {statuses}")
+    health = receipt["health"]
+    if not health["batched_boards"] or health["cohort_evictions"]:
+        raise AssertionError(f"the serve CLI's pod did not batch cleanly: {health}")
+    for n in names:
+        p = gol.Params(turns=turns, image_width=side, image_height=side, soup_density=0.3,
+                       soup_seed=zlib.crc32(n.encode()) & 0x7FFFFFFF, out_dir=tmp / "rerun" / n,
+                       ticker_period=3600)
+        got = (tmp / "pod" / n / f"{p.final_output_name}.pgm").read_bytes()
+        if got != solo_rerun(p, tmp / "rerun" / n):
+            raise AssertionError(f"the serve CLI's tenant {n} differs from its solo rerun")
+    print(f"serving pod CLI {nt} x {side}^2 x {turns} --batched: {seconds:.3f} s with process "
+          f"start, {health['batched_launches']} batched launches carrying "
+          f"{health['batched_boards']} boards", flush=True)
+    return dict(seconds=seconds, tenants=nt, side=side, turns=turns,
+                batched_launches=health["batched_launches"],
+                batched_boards=health["batched_boards"])
+
+
+def serving_paths(tmp: Path, launches: dict) -> dict:
+    """Phase 3's serving paths: the K7 pod batched and unbatched, the K8
+    pod, and the ``serve`` CLI."""
+    e2e = {}
+    nt, side, turns, step = POD_K7
+    e2e[f"pod_a_{nt}x{side}^2x{turns}_batched"] = pod_path(
+        "a", POD_K7, True, ("resident_batched",), launches, tmp)
+    e2e[f"pod_b_{nt}x{side}^2x{turns}_solo"] = pod_path(
+        "b", POD_K7, False, ("resident",), launches, tmp)
+    nt, side, turns, step = POD_K8
+    e2e[f"pod_c_{nt}x{side}^2x{turns}_batched"] = pod_path(
+        "c", POD_K8, True, ("frontier_batched",), launches, tmp)
+    e2e["serve_cli"] = serve_cli_path(tmp)
+    return e2e
+
+
 def profile_run(turns: int, side: int = BIG, **viewer) -> dict:
     """Where the time of a main-path run on the ``side``² soup goes: the
     seeded soup's generation on the host, then the whole run under
@@ -725,6 +965,54 @@ def time_adaptive(boards: dict, int_rate: float) -> dict:
                         f"{row[k]['computed_stripes_per_launch']:.2f} of {grid} stripes computed)"
                         for k in ADAPTIVE))
     return dict(plan=dataclasses.asdict(plan), boards=out)
+
+
+def time_batched(k8_stacks: dict, int_rate: float) -> dict:
+    """K7 and K8 at the serving pods' shapes.  K7: one launch of 16 x 512²
+    x 64 generations (a superstep of pod a) beside 16 sequential K1
+    launches of the same boards (what the unbatched pod b launches per
+    superstep), its plain version, and its bound over all 16 boards.  K8:
+    one chunk of 8 launches of 4 x 4096² (a superstep of pod c) on the
+    fresh and the settled stack, per launch, with the bound of the work
+    that chunk's data needs (the stripes it computed, T + 6 generations
+    each)."""
+    nt, side, _, step = POD_K7
+    v = packed.pack_vertical(soup_stack(nt, side, 61, torch.device("cuda", 0))).contiguous()
+    k1_sequential = cuda_ms(lambda: [cuda_packed.resident_superstep(b, CONWAY, step)
+                                     for b in v], 5)
+    k7 = dict(
+        ms=cuda_ms(lambda: cuda_packed.resident_superstep_batched(v, CONWAY, step), 20),
+        plain_ms=cuda_ms(lambda: cuda_packed.resident_superstep_batched_plain(v, CONWAY, step), 2),
+        bound=bound_ms(v.numel(), step, 1, CONWAY, int_rate),
+        extra=dict(shape=[nt, side, side], gens=step, k1_sequential_ms=k1_sequential),
+    )
+    log(f"K7 {nt} x {side}^2 x {step} gens: {k7['ms']:.4f} ms in one launch, {nt} x K1 "
+        f"{k1_sequential:.4f} ms, plain {k7['plain_ms']:.3f} ms, bound "
+        f"{k7['bound'][0]:.5f} ms by {k7['bound'][1]}")
+    nb, side = POD_K8[0], POD_K8[1]
+    plan = cuda_adaptive.adaptive_plan((side, side // 32), 10**6)
+    grid = plan.grid(side)
+    stripe_words = plan.stripe_h * side // 32
+    rows = {}
+    for name, st in k8_stacks.items():
+        _, sk, _ = cuda_adaptive.frontier_superstep_batched(st, CONWAY, plan, 8)
+        computed = (8 * nb * grid - int(sk.sum())) / 8
+        b_ms, b_by = work_bound_ms(computed * stripe_words, computed * stripe_words,
+                                   plan.t + 6, CONWAY, int_rate)
+        rows[name] = dict(
+            ms=cuda_ms(lambda: cuda_adaptive.frontier_superstep_batched(st, CONWAY, plan, 8), 3) / 8,
+            plain_ms=cuda_ms(lambda: cuda_adaptive.frontier_superstep_batched_mirror(
+                st, CONWAY, plan, 8), 1) / 8,
+            computed_stripes_per_launch=computed, bound_ms=b_ms, bound_by=b_by)
+        log(f"K8 {nb} x {side}^2, {plan}, {name}: {rows[name]['ms']:.4f} ms per launch "
+            f"(plain {rows[name]['plain_ms']:.3f}, bound {b_ms:.4f} by {b_by}, "
+            f"{computed:.2f} of {nb * grid} stripes computed)")
+    fresh = rows["fresh"]
+    k8 = dict(ms=fresh["ms"], plain_ms=fresh["plain_ms"],
+              bound=(fresh["bound_ms"], fresh["bound_by"]),
+              extra=dict(board="fresh", shape=[nb, side, side], plan=dataclasses.asdict(plan),
+                         per_board=rows))
+    return {"resident_batched": k7, "frontier_batched": k8}
 
 
 def host_ms(fn, reps: int, warm: bool = True) -> float:
@@ -878,7 +1166,7 @@ def main() -> int:
     t0 = time.perf_counter()
     wrap_free = build_kernels()
     log(f"built {list(KERNELS)} in {time.perf_counter() - t0:.1f} s")
-    for k in KERNELS:
+    for k in cuda_build.KERNELS:
         for line in cuda_build.build_log(k).splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  {k}: {line.strip()}")
@@ -894,6 +1182,8 @@ def main() -> int:
     boards = {"fresh": packed.pack(board(BIG, BIG, 13, device)), "settled": settled_board(device)}
     check_adaptive(errs, boards)
     check_stencil(device, errs)
+    check_resident_batched(device, errs)
+    k8_stacks = check_frontier_batched(device, errs)
 
     # Phase 3: the main paths, with every count set to 0 just before each run.
     launches = {k: 0 for k in KERNELS}
@@ -924,6 +1214,7 @@ def main() -> int:
             f"{run_long['dispatch_loop_gens_per_s']:.1f} gens/s dispatch loop, final skip "
             f"fraction {run_long['skip_fraction']}, launches {run_long['launches']}")
         e2e.update(viewer_paths(images, tmp, launches, device))
+        e2e.update(serving_paths(tmp, launches))
 
     # Phase 4: time each kernel at the main path's shapes.
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -959,6 +1250,7 @@ def main() -> int:
         f"(one launch), K6 one generation at {BIG}^2 ({k6[BIG]['ms']:.4f} ms, bound "
         f"{k6[BIG]['bound'][0]:.4f} by {k6[BIG]['bound'][1]}) and 512^2 ({k6[512]['ms']:.4f} ms); "
         f"int32 rate {int_rate / 1e12:.2f} Tops/s ({sms} SMs, {clock_mhz} MHz); card {card}")
+    timings.update(time_batched(k8_stacks, int_rate))
     witness = k6_witnesses(soups[BIG], wrap_free)
     e2e[f"viewer_turn_{BIG}"] = time_viewer_turn(soups[BIG])
     boards["dead"] = torch.zeros_like(boards["fresh"])

@@ -9,6 +9,13 @@ engine runs in a worker thread while the main thread runs the viewer: the
 terminal renderer by default, the pygame window with ``--window``, a
 headless drain with ``-noVis``; the keyboard listener feeds s/p/q/k (and
 the viewport's pan/zoom keys).
+
+``python -m distributed_gol_torch serve ...`` runs one serving pod
+(``serve/plane.py``): scripted ``--tenant NAME:WxHxTURNS`` sessions and
+re-adopted parked ones, ``--batched`` to share launches across same-shape
+tenants, with ``--device`` as above.  The gateway, telemetry endpoints
+and the ``broker``, ``relay`` and ``collector`` subcommands are not
+ported yet (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from distributed_gol_torch.engine.events import EventQueue
 from distributed_gol_torch.engine.gol import start
 from distributed_gol_torch.engine.params import Params
 from distributed_gol_torch.engine.session import Session, default_session
+from distributed_gol_torch.engine.supervisor import GracefulStop
 from distributed_gol_torch.models.life import parse_rule
 from distributed_gol_torch.utils.device import resolve_device
 from distributed_gol_torch.viewer.keyboard import keyboard_listener
@@ -301,15 +309,6 @@ def params_from_args(args) -> Params:
     )
 
 
-class _GracefulStop:
-    """The preemption latch the controller polls at turn boundaries."""
-
-    requested = False
-
-    def request(self, signum=None, frame=None) -> None:
-        self.requested = True
-
-
 @contextlib.contextmanager
 def _trace(log_dir):
     """A ``torch.profiler`` capture of the run, written as
@@ -334,9 +333,262 @@ def _refuse_cli_unported(args) -> None:
         )
 
 
+def build_serve_parser() -> argparse.ArgumentParser:
+    """The ``serve`` subcommand: run one pod of the multi-tenant serving
+    plane — scripted tenants and/or re-adopted parked ones — until every
+    session reaches a terminal state or a SIGTERM drains the pod."""
+    ap = argparse.ArgumentParser(
+        prog="distributed_gol_torch serve",
+        description="multi-tenant serving pod: admission control, "
+        "per-session fault isolation, graceful SIGTERM drain",
+    )
+    ap.add_argument("--tenant", action="append", default=[],
+                    metavar="NAME:WxHxTURNS",
+                    help="submit one tenant session (repeatable), e.g. "
+                    "alice:512x512x10000; each gets a seeded soup board "
+                    "(seed derived from the name) and its own scoped "
+                    "checkpoint dir under --checkpoint-root")
+    ap.add_argument("--checkpoint-root", default=None, metavar="DIR",
+                    help="per-tenant checkpoint directories live under "
+                    "DIR/<tenant>; required for drain durability and "
+                    "--readopt")
+    ap.add_argument("--readopt", action="store_true",
+                    help="re-adopt every parked (resumable) tenant found "
+                    "under --checkpoint-root — the restarted-pod half of "
+                    "the drain contract; each resumes toward --turns")
+    ap.add_argument("--turns", type=int, default=10_000,
+                    help="turn target for re-adopted tenants (a resumed "
+                    "run continues from its checkpoint turn toward this)")
+    ap.add_argument("--max-sessions", type=int, default=4,
+                    help="resident session budget (concurrent runs)")
+    ap.add_argument("--max-queued", type=int, default=8,
+                    help="bounded admission wait queue; submissions past "
+                    "it are shed with AdmissionRejected")
+    ap.add_argument("--max-cells", type=int, default=2**24,
+                    help="per-session board budget in cells")
+    ap.add_argument("--max-total-cells", type=int, default=2**26,
+                    help="pod-wide cell budget (0 = unbounded)")
+    ap.add_argument("--deadline", type=float, default=0.0,
+                    help="dispatch watchdog deadline stamped on every "
+                    "session (0 = off): a wedged tenant aborts itself "
+                    "instead of pinning a pod worker")
+    ap.add_argument("--soup", type=float, default=0.3,
+                    help="soup density for scripted tenant boards")
+    ap.add_argument("--engine", default="auto",
+                    choices=["auto", "roll", "pallas", "packed", "pallas-packed"])
+    ap.add_argument("--superstep", type=int, default=0,
+                    help="generations per dispatch (0 = auto)")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="where the boards live and the engines run (cuda "
+                         "fails when no CUDA GPU is available)")
+    ap.add_argument("--checkpoint-every-turns", type=int, default=0,
+                    help="periodic durable checkpoint cadence per session")
+    ap.add_argument("--restart-limit", type=int, default=0,
+                    help="per-session rollback-recovery supervisor budget "
+                    "(not ported yet: only 0 is accepted)")
+    ap.add_argument("--sdc-check-every-turns", type=int, default=0,
+                    help="per-session SDC sentinel cadence")
+    ap.add_argument("--drain-timeout", type=float, default=60.0,
+                    help="seconds a SIGTERM drain waits for resident "
+                    "sessions to emergency-checkpoint")
+    ap.add_argument("--batched", action="store_true",
+                    help="coalesce resident same-shape/same-rule tenants "
+                    "into shared launch cohorts: one batched device launch "
+                    "per superstep advances every cohort member — pair "
+                    "with an explicit --superstep so tenants share a "
+                    "dispatch schedule")
+    ap.add_argument("--gateway-port", type=int, default=None, metavar="PORT",
+                    help="the HTTP/WebSocket gateway (not ported yet)")
+    ap.add_argument("--telemetry-port", type=int, default=None,
+                    metavar="PORT",
+                    help="/metrics, /healthz and /slo endpoints (not ported yet)")
+    ap.add_argument("--telemetry-sample-seconds", type=float, default=1.0,
+                    help="pod registry sampling cadence (the staleness "
+                    "bound of health responses); 0 disables the "
+                    "sampler and every health() takes a direct snapshot")
+    ap.add_argument("--slo-latency", type=float, default=0.0,
+                    metavar="SECONDS",
+                    help="per-tenant latency SLO: the configured "
+                    "percentile of dispatches must resolve within "
+                    "SECONDS (0 = no latency objective)")
+    ap.add_argument("--slo-latency-percentile", type=float, default=0.99)
+    ap.add_argument("--slo-error-rate", type=float, default=0.0,
+                    metavar="FRACTION",
+                    help="per-tenant error-rate SLO: at most FRACTION of "
+                    "dispatch attempts may fail (0 = no error objective)")
+    ap.add_argument("--slo-fast-window", type=float, default=60.0,
+                    metavar="SECONDS")
+    ap.add_argument("--slo-slow-window", type=float, default=300.0,
+                    metavar="SECONDS")
+    ap.add_argument("--slo-burn-threshold", type=float, default=2.0,
+                    help="burn-rate alert threshold: page when BOTH "
+                    "windows burn the error budget faster than this "
+                    "multiple of the sustainable pace")
+    ap.add_argument("--slo-queue-wait", type=float, default=0.0,
+                    metavar="SECONDS",
+                    help="queue-wait SLO (0 = off): the latency percentile "
+                    "of admissions must start within this many seconds "
+                    "of submit")
+    ap.add_argument("--trace-sample-rate", type=float, default=1.0,
+                    metavar="RATE",
+                    help="head-sampling rate in [0, 1]: fraction of "
+                    "request traces retained (error traces are "
+                    "tail-retained regardless)")
+    ap.add_argument("--trace-ring-depth", type=int, default=256,
+                    help="finished-trace ring depth")
+    return ap
+
+
+def _parse_tenant_spec(spec: str) -> tuple[str, int, int, int]:
+    name, sep, geo = spec.partition(":")
+    parts = geo.split("x")
+    if not sep or not name or len(parts) != 3 or not all(p.isdigit() for p in parts):
+        raise ValueError(
+            f"--tenant wants NAME:WxHxTURNS (e.g. alice:512x512x10000), "
+            f"got {spec!r}"
+        )
+    w, h, turns = (int(p) for p in parts)
+    return name, w, h, turns
+
+
+def _refuse_serve_unported(args) -> None:
+    if args.gateway_port is not None:
+        raise NotImplementedError(
+            "--gateway-port: the network gateway is not ported yet (ROADMAP A9)"
+        )
+    if args.telemetry_port is not None:
+        raise NotImplementedError(
+            "--telemetry-port: the telemetry endpoints are not ported yet (ROADMAP A9)"
+        )
+    if args.restart_limit > 0:
+        raise NotImplementedError(
+            "--restart-limit > 0: the supervisor is not ported yet (ROADMAP A7)"
+        )
+
+
+def serve_main(argv) -> int:
+    import json
+    import zlib
+
+    from distributed_gol_torch.serve import AdmissionRejected, ServeConfig, ServePlane
+
+    ap = build_serve_parser()
+    args = ap.parse_args(argv)
+    try:
+        _refuse_serve_unported(args)
+        specs = [_parse_tenant_spec(s) for s in args.tenant]
+    except (ValueError, NotImplementedError) as e:
+        ap.error(str(e))
+    if not specs and not args.readopt:
+        ap.error("nothing to serve: pass --tenant and/or --readopt")
+    if args.readopt and not args.checkpoint_root:
+        ap.error("--readopt needs --checkpoint-root")
+    try:
+        resolve_device(args.device)
+    except RuntimeError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+
+    try:
+        config = ServeConfig(
+            max_sessions=args.max_sessions,
+            max_queued=args.max_queued,
+            max_cells_per_session=args.max_cells,
+            max_total_cells=args.max_total_cells,
+            default_deadline_seconds=args.deadline,
+            drain_timeout_seconds=args.drain_timeout,
+            batched=args.batched,
+            telemetry_sample_seconds=args.telemetry_sample_seconds,
+            slo_latency_seconds=args.slo_latency,
+            slo_latency_percentile=args.slo_latency_percentile,
+            slo_error_rate=args.slo_error_rate,
+            slo_fast_window_seconds=args.slo_fast_window,
+            slo_slow_window_seconds=args.slo_slow_window,
+            slo_burn_threshold=args.slo_burn_threshold,
+            slo_queue_wait_seconds=args.slo_queue_wait,
+            trace_sample_rate=args.trace_sample_rate,
+            trace_ring_depth=args.trace_ring_depth,
+        )
+    except ValueError as e:
+        ap.error(str(e))
+
+    def tenant_params(name: str, w: int, h: int, turns: int) -> Params:
+        return Params(
+            turns=turns,
+            image_width=w,
+            image_height=h,
+            engine=args.engine,
+            superstep=args.superstep,
+            soup_density=args.soup,
+            soup_seed=zlib.crc32(name.encode()) & 0x7FFFFFFF,
+            out_dir=Path(args.checkpoint_root or "out") / name,
+            checkpoint_every_turns=args.checkpoint_every_turns,
+            restart_limit=args.restart_limit,
+            sdc_check_every_turns=args.sdc_check_every_turns,
+            turn_events="batch",
+            device=args.device,
+        )
+
+    plane = ServePlane(config, checkpoint_root=args.checkpoint_root)
+    try:
+        restore = plane.install()  # SIGTERM -> drain
+    except ValueError:
+        # Embedded use (serve_main on a non-main thread — tests, a
+        # supervising harness): no signal routing; drain arrives
+        # programmatically instead.
+        def restore() -> None:
+            pass
+    handles = []
+    try:
+        if args.readopt:
+            for name, info in plane.resumable_tenants().items():
+                shape = info.get("shape")
+                # Old sidecars may lack the shape field: without it the
+                # Params cannot be rebuilt, so skip that one tenant rather
+                # than crash the whole restarted pod.
+                if not isinstance(shape, (list, tuple)) or len(shape) != 2:
+                    print(f"cannot re-adopt {name}: checkpoint sidecar "
+                          f"has no board shape", file=sys.stderr)
+                    continue
+                h, w = shape
+                specs.append((name, w, h, max(args.turns, info["turn"])))
+                print(f"re-adopting {name}: turn {info['turn']}, {w}x{h}",
+                      file=sys.stderr)
+        for name, w, h, turns in specs:
+            try:
+                handles.append(plane.submit(name, tenant_params(name, w, h, turns)))
+            except AdmissionRejected as e:
+                print(f"tenant {name} shed: {e}", file=sys.stderr)
+        for handle in handles:
+            handle.wait()
+        summary = plane.drain()  # no-op when every session already ended
+        print(json.dumps({"health": plane.health(), "sessions": summary}))
+    finally:
+        restore()
+        plane.close()
+    bad = [h for h in handles if h.status == "failed"]
+    return 1 if bad else 0
+
+
+#: Subcommands of the JAX package's CLI the port does not serve yet.
+_UNPORTED_SUBCOMMANDS = {
+    "broker": "the federation broker",
+    "relay": "the spectator relay",
+    "collector": "the fleet collector",
+}
+
+
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] == "serve":
+        return serve_main(argv[1:])
+    if argv and argv[0] in _UNPORTED_SUBCOMMANDS:
+        print(f"distributed_gol_torch {argv[0]}: error: "
+              f"{_UNPORTED_SUBCOMMANDS[argv[0]]} is not ported yet (ROADMAP A9)",
+              file=sys.stderr)
+        return 2
     ap = build_parser()
-    args = ap.parse_args(sys.argv[1:] if argv is None else argv)
+    args = ap.parse_args(argv)
     try:
         _refuse_cli_unported(args)
         params = params_from_args(args)
@@ -356,8 +608,8 @@ def main(argv=None) -> int:
     # SIGTERM (a preemption notice) → graceful stop: the engine drains at
     # the next turn boundary, forces an emergency checkpoint and exits
     # paused-and-resumable.  Ctrl-C keeps its 'q' detach.
-    graceful = _GracefulStop()
-    previous = signal.signal(signal.SIGTERM, graceful.request)
+    graceful = GracefulStop()
+    restore_signals = graceful.install((signal.SIGTERM,))
     tracer = _trace(args.trace) if args.trace else contextlib.nullcontext()
     with tracer:
         engine = start(params, events, key_presses, session, stop=graceful)
@@ -375,7 +627,7 @@ def main(argv=None) -> int:
             final = run_headless(params, events)
         finally:
             stop.set()
-            signal.signal(signal.SIGTERM, previous)
+            restore_signals()
             if restore_tty is not None:
                 restore_tty()
         engine.join(timeout=30)

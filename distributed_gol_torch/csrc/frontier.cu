@@ -42,6 +42,19 @@
 //
 // What bounds it: integer operations on the stripes that hit (T + 6
 // generations of their windows); a settled board costs two small launches.
+//
+// K8: the batched form (gol_frontier_batched_launch).  Replaces the
+// nboards > 1 form of _kernel_frontier_mega (its leading grid axis over
+// boards stacked along the row axis, driven by _run_tiled_batched): a
+// contiguous stack of B same-shape boards, blockIdx.z the board.  Every
+// array gains the board axis, indexed board-globally as the JAX kernel's
+// gi = b * grid + i: state int32[2][5][B * grid], rowflag int32[B * H],
+// skipped int32[B] (one count per board), act int32[B * grid].  Each board
+// is its own torus: block (., ., b) offsets its board pointers and row
+// flags by b boards, so the window gather (modulo H), the neighbour
+// stripes (i +- 1 mod grid) and the interval placement across the wrap
+// all stay inside board b; a dead board beside a live one is never read.
+// K5 is this kernel with B = 1.
 
 #include "window.cuh"
 
@@ -60,14 +73,22 @@ frontier_kernel(const uint32_t* __restrict__ rd, uint32_t* __restrict__ wr,
     extern __shared__ uint32_t smem[];
     __shared__ int decision[3];  // hit, measure rows lo, hi
     const int grid = h / stripe_h;
+    // Board b of the stack: its words, its row flags, its skip count; its
+    // stripes' state at board-global index b * grid + i.
+    const int board = blockIdx.z;
+    const int total = gridDim.z * grid;
+    rd += static_cast<size_t>(board) * h * wp;
+    wr += static_cast<size_t>(board) * h * wp;
+    rowflag += static_cast<size_t>(board) * h;
+    skipped += board;
     const int y0 = blockIdx.y * tile_h;
     const int x0 = blockIdx.x * tile_w;
     const int i = y0 / stripe_h;
     const int c_lo = i * stripe_h;
     const int c_hi = c_lo + stripe_h - 1;
     const int t6 = turns + kSkipPeriod;
-    const int* prev = state + (1 - parity) * kFields * grid;
-    int* cur = state + parity * kFields * grid;
+    const int* prev = state + (1 - parity) * kFields * total + board * grid;
+    int* cur = state + parity * kFields * total + board * grid;
     const bool leader = thread_id() == 0 && blockIdx.x == 0 && y0 == c_lo;
 
     if (thread_id() == 0) {
@@ -84,8 +105,8 @@ frontier_kernel(const uint32_t* __restrict__ rd, uint32_t* __restrict__ wr,
                 const int j = wrap(i + slot, grid);
                 const int off = (i + slot - j) * stripe_h;
                 for (int k = 0; k < 2; ++k) {
-                    const int lo = prev[(2 * k) * grid + j] + off;
-                    const int hi = prev[(2 * k + 1) * grid + j] + off;
+                    const int lo = prev[(2 * k) * total + j] + off;
+                    const int hi = prev[(2 * k + 1) * total + j] + off;
                     if (lo > hi) continue;
                     if (lo - kSkipPeriod <= w_hi && hi + kSkipPeriod >= w_lo) hit = 1;
                     const int clo = max(lo, c_lo - t6);
@@ -106,12 +127,12 @@ frontier_kernel(const uint32_t* __restrict__ rd, uint32_t* __restrict__ wr,
     if (!decision[0]) {
         if (leader) {
             atomicAdd(skipped, 1);
-            cur[4 * grid + i] = 0;
+            cur[4 * total + i] = 0;
         }
-        if (prev[4 * grid + i]) copy_tile(rd, wr, h, wp, y0, x0, tile_h, tile_w);
+        if (prev[4 * total + i]) copy_tile(rd, wr, h, wp, y0, x0, tile_h, tile_w);
         return;
     }
-    if (leader) cur[4 * grid + i] = 1;
+    if (leader) cur[4 * total + i] = 1;
 
     const Window w{tile_h + 2 * halo, tile_w + 2 * xpad, y0 - halo, x0 - xpad};
     uint32_t* a = smem;
@@ -137,12 +158,16 @@ frontier_kernel(const uint32_t* __restrict__ rd, uint32_t* __restrict__ wr,
     }
 }
 
+// One block per stripe of every board: block gi = b * grid + i.
 __global__ void frontier_finalize(int* __restrict__ state, int* __restrict__ rowflag,
-                                  int* __restrict__ act, int stripe_h, int grid, int parity) {
+                                  int* __restrict__ act, int h, int stripe_h, int grid,
+                                  int parity) {
     __shared__ int lo, hi, hi0, lo1;
-    const int i = blockIdx.x;
-    const int c_lo = i * stripe_h;
-    int* cur = state + parity * kFields * grid;
+    const int gi = blockIdx.x;
+    const int total = gridDim.x;
+    const int c_lo = (gi % grid) * stripe_h;  // board rows of board gi / grid
+    rowflag += static_cast<size_t>(gi / grid) * h;
+    int* cur = state + parity * kFields * total;
     if (threadIdx.x == 0) {
         lo = kEmpty;
         hi = -kEmpty;
@@ -159,10 +184,10 @@ __global__ void frontier_finalize(int* __restrict__ state, int* __restrict__ row
     __syncthreads();
     if (lo > hi) {
         if (threadIdx.x == 0) {
-            cur[0 * grid + i] = kEmpty;
-            cur[1 * grid + i] = -1;
-            cur[2 * grid + i] = kEmpty;
-            cur[3 * grid + i] = -1;
+            cur[0 * total + gi] = kEmpty;
+            cur[1 * total + gi] = -1;
+            cur[2 * total + gi] = kEmpty;
+            cur[3 * total + gi] = -1;
         }
         return;
     }
@@ -180,41 +205,45 @@ __global__ void frontier_finalize(int* __restrict__ state, int* __restrict__ row
     __syncthreads();
     if (threadIdx.x == 0) {
         const bool one = lo1 > hi;  // nothing above the split
-        cur[0 * grid + i] = lo;
-        cur[1 * grid + i] = one ? hi : hi0;
-        cur[2 * grid + i] = one ? kEmpty : lo1;
-        cur[3 * grid + i] = one ? -1 : hi;
-        act[i] += 1;
+        cur[0 * total + gi] = lo;
+        cur[1 * total + gi] = one ? hi : hi0;
+        cur[2 * total + gi] = one ? kEmpty : lo1;
+        cur[3 * total + gi] = one ? -1 : hi;
+        act[gi] += 1;
     }
 }
 
 }  // namespace
 
-extern "C" int gol_frontier_launch(const void* rd, void* wr, void* state, void* rowflag,
-                                   void* skipped, void* act, int h, int wp, int turns,
-                                   int stripe_h, int tile_h, int tile_w, int xpad, int halo,
-                                   int parity, int first, unsigned born, unsigned surv,
-                                   void* stream) {
-    if (h < 1 || wp < 1 || turns < kSkipPeriod || turns % kSkipPeriod || stripe_h < 1 ||
-        h % stripe_h || tile_h < 1 || stripe_h % tile_h || tile_w < 1 ||
-        halo < turns + kSkipPeriod || xpad * 32 < turns + kSkipPeriod ||
-        tile_w + 2 * xpad > kCols || (parity != 0 && parity != 1)) {
+// K8: a contiguous stack of nb boards of (h, wp) words, blockIdx.z the
+// board; K5 is the stack of one board.
+extern "C" int gol_frontier_batched_launch(const void* rd, void* wr, void* state, void* rowflag,
+                                           void* skipped, void* act, int nb, int h, int wp,
+                                           int turns, int stripe_h, int tile_h, int tile_w,
+                                           int xpad, int halo, int parity, int first,
+                                           unsigned born, unsigned surv, void* stream) {
+    if (nb < 1 || nb > 65535 || h < 1 || wp < 1 || turns < kSkipPeriod ||
+        turns % kSkipPeriod || stripe_h < 1 || h % stripe_h || tile_h < 1 ||
+        stripe_h % tile_h || tile_w < 1 || halo < turns + kSkipPeriod ||
+        xpad * 32 < turns + kSkipPeriod || tile_w + 2 * xpad > kCols ||
+        (parity != 0 && parity != 1)) {
         return cudaErrorInvalidValue;
     }
     const long long smem = window_smem(tile_h + 2 * halo, tile_w + 2 * xpad);
     cudaError_t err = allow_smem(frontier_kernel, smem);
     if (err != cudaSuccess) return err;
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const dim3 grid((wp + tile_w - 1) / tile_w, h / tile_h);
+    const dim3 grid((wp + tile_w - 1) / tile_w, h / tile_h, nb);
     frontier_kernel<<<grid, dim3(kCols, kSegs), static_cast<size_t>(smem), s>>>(
         static_cast<const uint32_t*>(rd), static_cast<uint32_t*>(wr), static_cast<int*>(state),
         static_cast<int*>(rowflag), static_cast<int*>(skipped), h, wp, turns, stripe_h, tile_h,
         tile_w, xpad, halo, parity, first, born, surv);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    frontier_finalize<<<h / stripe_h, 256, 0, s>>>(static_cast<int*>(state),
-                                                  static_cast<int*>(rowflag),
-                                                  static_cast<int*>(act), stripe_h,
-                                                  h / stripe_h, parity);
+    frontier_finalize<<<nb * (h / stripe_h), 256, 0, s>>>(static_cast<int*>(state),
+                                                          static_cast<int*>(rowflag),
+                                                          static_cast<int*>(act), h, stripe_h,
+                                                          h / stripe_h, parity);
     return cudaGetLastError();
 }
+

@@ -3,6 +3,15 @@
 // _gen_vertical): every generation of a whole vertically packed board in
 // one launch, the board held in one block's shared memory.
 //
+// K7: its batched form.  Replaces
+// pallas_packed.py::_vmem_kernel_batched (built by
+// _build_vmem_resident_batched): a contiguous (B, H/32, W) stack of B
+// same-shape boards, one block per board (gridDim.x = B).  Block b offsets
+// its pointers by b boards and runs K1's body on board b alone, so each
+// board is its own torus (the rotates never leave it).  This is the
+// serving plane's cohort launch: 16 tenants of 512^2 occupy 16 SMs in one
+// launch where K1 would take 16 launches of one SM each.
+//
 // Layout: (H/32, W) words, bit k of word (wy, x) = cell (32*wy + k, x) —
 // the JAX package's pack_vertical layout.  Vertical neighbours are an
 // in-word shift with a carry from the word row above or below, horizontal
@@ -16,7 +25,10 @@
 // shared memory: each thread computes its new words into registers, then
 // __syncthreads, writes them back, and __syncthreads again.  Spreading the
 // board over a cluster (distributed shared memory) is the redesign that
-// would use more SMs.
+// would use more SMs.  K7 is bound the same way per board; B boards use
+// B SMs (two blocks of 1024 threads fit one SM when their boards fit its
+// shared memory together), so a stack of up to 132 boards costs about one
+// board's time.
 
 #include <cuda_runtime.h>
 
@@ -44,6 +56,9 @@ resident_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out, int
                 int turns, uint32_t born, uint32_t surv) {
     extern __shared__ uint32_t board[];
     const int n = hw * w;
+    // K7: block b holds board b of the stack (K1 launches one block).
+    in += static_cast<size_t>(blockIdx.x) * n;
+    out += static_cast<size_t>(blockIdx.x) * n;
     for (int i = threadIdx.x; i < n; i += kThreads) board[i] = in[i];
     __syncthreads();
     for (int t = 0; t < turns; ++t) {
@@ -83,32 +98,35 @@ resident_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out, int
 }
 
 template <int NW>
-cudaError_t launch(const uint32_t* in, uint32_t* out, int hw, int w, int turns, uint32_t born,
-                   uint32_t surv, cudaStream_t stream) {
+cudaError_t launch(const uint32_t* in, uint32_t* out, int nb, int hw, int w, int turns,
+                   uint32_t born, uint32_t surv, cudaStream_t stream) {
     const int smem = hw * w * static_cast<int>(sizeof(uint32_t));
     cudaError_t err = cudaFuncSetAttribute(resident_kernel<NW>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    resident_kernel<NW><<<1, kThreads, smem, stream>>>(in, out, hw, w, turns, born, surv);
+    resident_kernel<NW><<<nb, kThreads, smem, stream>>>(in, out, hw, w, turns, born, surv);
     return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int gol_resident_launch(const void* in, void* out, int hw, int w, int turns,
-                                   unsigned born, unsigned surv, void* stream) {
+// K7: a contiguous stack of nb boards of (hw, w) words, one block each; K1
+// is the stack of one board.
+extern "C" int gol_resident_batched_launch(const void* in, void* out, int nb, int hw, int w,
+                                           int turns, unsigned born, unsigned surv,
+                                           void* stream) {
     const auto* src = static_cast<const uint32_t*>(in);
     auto* dst = static_cast<uint32_t*>(out);
     auto s = static_cast<cudaStream_t>(stream);
-    if (hw < 1 || w < 1 || turns < 1) return cudaErrorInvalidValue;
+    if (nb < 1 || nb > 65535 || hw < 1 || w < 1 || turns < 1) return cudaErrorInvalidValue;
     const int per_thread = (hw * w + kThreads - 1) / kThreads;
-    if (per_thread <= 1) return launch<1>(src, dst, hw, w, turns, born, surv, s);
-    if (per_thread <= 2) return launch<2>(src, dst, hw, w, turns, born, surv, s);
-    if (per_thread <= 4) return launch<4>(src, dst, hw, w, turns, born, surv, s);
-    if (per_thread <= 8) return launch<8>(src, dst, hw, w, turns, born, surv, s);
-    if (per_thread <= 16) return launch<16>(src, dst, hw, w, turns, born, surv, s);
-    if (per_thread <= 32) return launch<32>(src, dst, hw, w, turns, born, surv, s);
-    if (per_thread <= 64) return launch<64>(src, dst, hw, w, turns, born, surv, s);
+    if (per_thread <= 1) return launch<1>(src, dst, nb, hw, w, turns, born, surv, s);
+    if (per_thread <= 2) return launch<2>(src, dst, nb, hw, w, turns, born, surv, s);
+    if (per_thread <= 4) return launch<4>(src, dst, nb, hw, w, turns, born, surv, s);
+    if (per_thread <= 8) return launch<8>(src, dst, nb, hw, w, turns, born, surv, s);
+    if (per_thread <= 16) return launch<16>(src, dst, nb, hw, w, turns, born, surv, s);
+    if (per_thread <= 32) return launch<32>(src, dst, nb, hw, w, turns, born, surv, s);
+    if (per_thread <= 64) return launch<64>(src, dst, nb, hw, w, turns, born, surv, s);
     return cudaErrorInvalidValue;
 }
 

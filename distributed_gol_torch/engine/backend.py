@@ -13,10 +13,14 @@ the adaptive (``skip_stable``) tier's skip telemetry (``skip_fraction``,
 JAX package's ``_resolve_single`` and ``_ENGINE_RANK``; every engine is
 bit-identical, so a fallback changes speed, never results — and a slower
 tier than the one asked for is warned about, never silent.
+
+:class:`BatchedBackend` is the board-stack form behind the same seam: B
+same-shape boards per dispatch, the serving plane's cohort launch.
 """
 
 from __future__ import annotations
 
+import threading
 import warnings
 
 import numpy as np
@@ -219,6 +223,18 @@ class Backend:
         )
 
     @staticmethod
+    def _packed_kernel_upgrade(params: Params, device, supports_fn) -> bool:
+        """Whether the packed engine upgrades to its hand-written kernel
+        form: explicit "pallas-packed" on every device (the wrappers run
+        their plain versions on a CPU tensor), "auto" only on a CUDA device
+        of compute capability 9.0; and then only where ``supports_fn()``,
+        the kernel's gate, takes the board."""
+        want = params.engine == "pallas-packed" or (
+            params.engine == "auto" and kernels_native(device)
+        )
+        return want and supports_fn()
+
+    @staticmethod
     def _resolve_single(params: Params, shape: tuple[int, int], device) -> str:
         """Requested engine -> the engine that runs, capability-gated and
         always ending at the roll stencil.  Explicit "pallas-packed" and
@@ -233,10 +249,9 @@ class Backend:
             # dispatches (the viewers) skip the packed engines under "auto".
             per_turn = params.runtime_superstep() == 1
             if packed.supports(shape) and not (params.engine == "auto" and per_turn):
-                want = params.engine == "pallas-packed" or (
-                    params.engine == "auto" and kernels_native(device)
-                )
-                if want and cuda_packed.supports(shape):
+                if Backend._packed_kernel_upgrade(
+                    params, device, lambda: cuda_packed.supports(shape)
+                ):
                     return "pallas-packed"
                 return "packed"
             if params.engine in ("packed", "pallas-packed"):
@@ -446,3 +461,162 @@ class Backend:
             board = self._device_superstep(board, 1)
             counts.append(stencil.alive_count(board))
         return torch.stack(counts).cpu().numpy()
+
+
+class _SharedCounts:
+    """One host copy for a whole cohort round's count vector: the first
+    member to force its count resolves all of them (idempotent, double-
+    checked under a lock), so a 16-member round pays one device sync
+    instead of sixteen.  Slots are ``__int__``-protocol objects, what the
+    controller's count forcing already speaks at the dispatch seam."""
+
+    __slots__ = ("_counts", "_values", "_lock")
+
+    def __init__(self, counts: torch.Tensor):
+        self._counts = counts
+        self._values = None
+        self._lock = threading.Lock()
+
+    def resolve(self) -> list[int]:
+        if self._values is None:
+            with self._lock:
+                if self._values is None:
+                    self._values = [int(v) for v in self._counts.cpu().tolist()]
+                    self._counts = None  # free the device vector
+        return self._values
+
+
+class _SlotCount:
+    """One board's alive count inside a :class:`_SharedCounts` round."""
+
+    __slots__ = ("_shared", "_i")
+
+    def __init__(self, shared: _SharedCounts, i: int):
+        self._shared = shared
+        self._i = i
+
+    def __int__(self) -> int:
+        return self._shared.resolve()[self._i]
+
+
+class BatchedBackend:
+    """One engine for B same-shape boards: the board-stack analogue of
+    :class:`Backend` behind the same dispatch seam.
+    ``run_turns_async(stack, turns)`` advances a (B, H, W) uint8 stack and
+    returns it with a per-board alive-count vector; :meth:`run_boards` is
+    the list-in/list-out form the serving plane's coalescer launches
+    through: one stack, one batched dispatch, per-slot views out, and one
+    count vector that the first ``int()`` fetches for the whole round.
+
+    Engine forms, ranked as :class:`Backend` ranks them per slot:
+    ``pallas-packed`` = the batched kernels (K7 for boards of one block's
+    shared memory, K8 for tiled boards with a frontier plan:
+    ``cuda_adaptive.batched_supports``), ``packed`` = the plain batched SWAR
+    engine, ``roll`` = the stencil per slot.  Every form is bit-identical
+    per slot to B independent runs, so cohorts regroup freely.  Single
+    device by design: batching amortises per-launch overhead of small
+    boards."""
+
+    def __init__(self, params: Params):
+        if params.mesh_shape != (1, 1):
+            raise NotImplementedError(
+                "BatchedBackend is single-device: batch small boards, "
+                "shard big ones (mesh_shape must be (1, 1))"
+            )
+        self.params = params
+        self.device = resolve_device(params.device)
+        self.table = stencil.rule_table(params.rule, self.device)
+        shape = (params.image_height, params.image_width)
+        self.engine_used = self._resolve(params, shape, self.device)
+        if self.engine_used == "pallas-packed":
+            self._stack_fn = cuda_packed.make_batched_superstep_bytes(
+                params.rule, self.device, params.skip_tile_cap
+            )
+        elif self.engine_used == "packed":
+            self._stack_fn = packed.make_batched_superstep(params.rule)
+        else:
+            self._stack_fn = self._roll_stack
+        self._init_metrics(params)
+
+    def _roll_stack(self, stack: torch.Tensor, turns: int):
+        out = torch.stack([stencil.superstep(b, self.table, turns) for b in stack])
+        return out, self._counts(out)
+
+    @staticmethod
+    def _counts(stack: torch.Tensor) -> torch.Tensor:
+        """Per-board alive counts of a uint8 stack (unsynced int64)."""
+        return torch.sum(stack & 1, dim=(1, 2), dtype=torch.int64)
+
+    @staticmethod
+    def _resolve(params: Params, shape: tuple[int, int], device) -> str:
+        """Requested engine -> the batched form that runs: the solo ranking
+        without the per-turn viewer carve-outs (a stack is headless by
+        construction); "pallas" has no batched byte-kernel form and takes
+        the packed tier."""
+        if params.engine == "roll":
+            return "roll"
+        if packed.supports(shape):
+            if Backend._packed_kernel_upgrade(
+                params, device,
+                lambda: cuda_adaptive.batched_supports((shape[0], shape[1] // 32)),
+            ):
+                return "pallas-packed"
+            return "packed"
+        return "roll"
+
+    def _init_metrics(self, params: Params):
+        from distributed_gol_torch.obs import metrics as obs_metrics
+
+        reg = obs_metrics.registry_for(params.metrics)
+        # One bump per batched dispatch however many boards rode it (the
+        # coalescer's serve.batched_boards counter carries the cohort
+        # sizes).
+        self._m_dispatches = reg.counter(f"backend.batched_dispatches.{self.engine_used}")
+        reg.info("backend.batched_engine", self.engine_used)
+
+    # -- board placement ---------------------------------------------------------
+    def put(self, stack: np.ndarray) -> torch.Tensor:
+        """(B, H, W) uint8 stack onto the device."""
+        return torch.from_numpy(np.ascontiguousarray(stack, dtype=np.uint8)).to(self.device)
+
+    def fetch(self, stack: torch.Tensor) -> np.ndarray:
+        return stack.cpu().numpy()
+
+    # -- compute -----------------------------------------------------------------
+    def run_turns_async(self, stack: torch.Tensor, turns: int):
+        """Issue ``turns`` generations of every board of the stack as one
+        dispatch, unsynced; returns (stack, per-board alive counts)."""
+        self._m_dispatches.inc()
+        return self._stack_fn(stack, turns)
+
+    def run_turns(self, stack: torch.Tensor, turns: int) -> tuple[torch.Tensor, np.ndarray]:
+        new_stack, counts = self.run_turns_async(stack, turns)
+        return new_stack, counts.cpu().numpy()
+
+    def run_boards(self, boards, turns: int):
+        """Advance B same-shape boards ``turns`` generations in one dispatch;
+        returns (list of boards, list of per-board count scalars) in input
+        order.  The boards are views of one output stack, which nothing
+        writes again (the next round stacks them into a fresh tensor); each
+        tenant's controller forces its own count exactly as on a solo
+        backend, and the first to do so fetches the whole vector."""
+        self._m_dispatches.inc()
+        out, counts = self._stack_fn(torch.stack(list(boards)), turns)
+        shared = _SharedCounts(counts)
+        return list(out.unbind(0)), [_SlotCount(shared, i) for i in range(len(boards))]
+
+    def count(self, stack: torch.Tensor) -> np.ndarray:
+        """Per-board alive counts of a stack, synchronised."""
+        return self._counts(stack).cpu().numpy()
+
+    def fetch_viewport(self, stack: torch.Tensor, rect) -> np.ndarray:
+        """The batched form of :meth:`Backend.fetch_viewport`: the rect of
+        every board of the (B, H, W) stack, cropped and bit-packed on the
+        device in one pass, as a uint8 (B, vh, vw) array."""
+        h, w = self.params.image_height, self.params.image_width
+        y0, x0, vh, vw = Backend.normalize_rect(rect, h, w)
+        dev = stack.device
+        rows = torch.remainder(y0 + torch.arange(vh, device=dev), h)
+        cols = torch.remainder(x0 + torch.arange(vw, device=dev), w)
+        sub = stack.index_select(1, rows).index_select(2, cols)
+        return Backend._unpack(self.fetch(stencil.packbits(sub)), vw)

@@ -20,6 +20,13 @@ with a wrapper, a launch counter and a plain PyTorch version:
   ``_kernel_frontier_mega``): the tracked-interval skip/compute/measure
   state machine, one CUDA launch per generation launch, state on the
   device.  Plain version: :func:`frontier_launch_mirror`.
+- **K8, frontier batched** (``csrc/frontier.cu``,
+  ``gol_frontier_batched_launch``; replaces the ``nboards > 1`` form of
+  ``_kernel_frontier_mega``): K5 over a (B, H, wp) stack, each board its
+  own torus, with a skip count per board.  Plain version:
+  :func:`frontier_superstep_batched_mirror`.  :func:`run_tiled_batched`
+  is ``_run_tiled_batched``: the canonical chunks of a dispatch on K8, the
+  rest per slot on the solo kernels.
 
 The mirrors replay the stripe decomposition, the decision regions and the
 state machine (and the kernels' ping-pong buffer protocol), so they give
@@ -435,52 +442,105 @@ def frontier_superstep_mirror(
     return cur, skipped, act
 
 
+def _frontier_chunk(
+    stack: torch.Tensor, rule: LifeRule, plan: AdaptivePlan, nlaunch: int, wrapper
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One chunk of ``nlaunch`` frontier launches on a CUDA (B, H, wp)
+    stack (K5 is the stack of one board), each counted on
+    ``wrapper.launches``; returns (stack, int32[B] skipped, int32[B * grid]
+    activity), all left on the device — nothing is read back between
+    launches.  The launches ping-pong between two fresh stacks; the input
+    is never written."""
+    nb, h, wp = stack.shape
+    grid = plan.grid(h)
+    tiles = stripe_tiles((h, wp), plan.stripe_h, plan.t + SKIP_PERIOD)
+    lib, launch = _launcher(
+        "frontier", "gol_frontier_batched_launch", [_P] * 6 + [_I] * 11 + [_U, _U, _P])
+    born, surv = rule_masks(rule)
+    dev = stack.device
+    state = torch.empty((2, 5, nb * grid), dtype=torch.int32, device=dev)
+    rowflag = torch.zeros((nb * h,), dtype=torch.int32, device=dev)
+    skipped = torch.zeros((nb,), dtype=torch.int32, device=dev)
+    act = torch.zeros((nb * grid,), dtype=torch.int32, device=dev)
+    bufs = (torch.empty_like(stack), torch.empty_like(stack))
+    cur = stack
+    for k in range(nlaunch):
+        dst = bufs[k % 2]
+        err = launch(
+            cur.data_ptr(), dst.data_ptr(), state.data_ptr(), rowflag.data_ptr(),
+            skipped.data_ptr(), act.data_ptr(), nb, h, wp, plan.t, plan.stripe_h, tiles.tile_h,
+            tiles.tile_w, tiles.xpad, tiles.t, k % 2, int(k == 0), born, surv, _stream(stack),
+        )
+        cuda_build.check(lib, err, "frontier")
+        wrapper.launches += 1
+        cur = dst
+    return cur, skipped, act
+
+
 def frontier_superstep(
     p: torch.Tensor, rule: LifeRule, plan: AdaptivePlan, nlaunch: int
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K5: one chunk of ``nlaunch`` frontier launches of ``plan.t``
     generations, launch 0 forced full; returns (board, skipped, activity),
-    all left on the device — nothing is read back between launches.  The
-    launches ping-pong between two fresh buffers; the input is never
-    written.  CPU tensors run :func:`frontier_superstep_mirror`."""
+    all left on the device.  The input is never written.  CPU tensors run
+    :func:`frontier_superstep_mirror`."""
     _check_words(p)
     if not plan.frontier:
         raise ValueError(f"plan {plan} has no frontier form")
     if p.device.type == "cpu":
         return frontier_superstep_mirror(p, rule, plan, nlaunch)
-    h, wp = p.shape
-    grid = plan.grid(h)
-    tiles = stripe_tiles((h, wp), plan.stripe_h, plan.t + SKIP_PERIOD)
-    lib, launch = _launcher("frontier", "gol_frontier_launch", [_P] * 6 + [_I] * 10 + [_U, _U, _P])
-    born, surv = rule_masks(rule)
-    dev = p.device
-    state = torch.empty((2, 5, grid), dtype=torch.int32, device=dev)
-    rowflag = torch.zeros((h,), dtype=torch.int32, device=dev)
-    skipped = torch.zeros((1,), dtype=torch.int32, device=dev)
-    act = torch.zeros((grid,), dtype=torch.int32, device=dev)
-    bufs = (torch.empty_like(p), torch.empty_like(p))
-    cur = p
-    for k in range(nlaunch):
-        dst = bufs[k % 2]
-        err = launch(
-            cur.data_ptr(), dst.data_ptr(), state.data_ptr(), rowflag.data_ptr(),
-            skipped.data_ptr(), act.data_ptr(), h, wp, plan.t, plan.stripe_h, tiles.tile_h,
-            tiles.tile_w, tiles.xpad, tiles.t, k % 2, int(k == 0), born, surv, _stream(p),
-        )
-        cuda_build.check(lib, err, "frontier")
-        frontier_superstep.launches += 1
-        cur = dst
-    return cur, skipped.reshape(()), act
+    cur, skipped, act = _frontier_chunk(p[None], rule, plan, nlaunch, frontier_superstep)
+    return cur[0], skipped.reshape(()), act
 
 
 frontier_superstep.launches = 0
 
 
+# -- K8: the batched frontier kernel --------------------------------------------
+
+
+def frontier_superstep_batched_mirror(
+    stack: torch.Tensor, rule: LifeRule, plan: AdaptivePlan, nlaunch: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of K8: one chunk of :func:`frontier_superstep_mirror`
+    on each board of a (B, H, wp) stack, each its own torus.  Returns
+    (stack, int32[B] skipped per board, int32[B * grid] activity, board b's
+    stripes at b * grid + i)."""
+    outs = [frontier_superstep_mirror(board, rule, plan, nlaunch) for board in stack]
+    return (
+        torch.stack([o[0] for o in outs]),
+        torch.stack([o[1] for o in outs]),
+        torch.cat([o[2] for o in outs]),
+    )
+
+
+def frontier_superstep_batched(
+    stack: torch.Tensor, rule: LifeRule, plan: AdaptivePlan, nlaunch: int
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K8: one chunk of ``nlaunch`` frontier launches of ``plan.t``
+    generations on every board of a (B, H, wp) stack, launch 0 forced full
+    for every board; returns (stack, int32[B] skipped per board,
+    int32[B * grid] activity), all left on the device.  One CUDA launch
+    (and its finalize) per generation launch covers all B boards; with
+    B = 1 it computes exactly K5.  CPU tensors run
+    :func:`frontier_superstep_batched_mirror`."""
+    _check_words(stack, 3)
+    if not plan.frontier:
+        raise ValueError(f"plan {plan} has no frontier form")
+    if stack.device.type == "cpu":
+        return frontier_superstep_batched_mirror(stack, rule, plan, nlaunch)
+    return _frontier_chunk(stack, rule, plan, nlaunch, frontier_superstep_batched)
+
+
+frontier_superstep_batched.launches = 0
+
+
 def reset_launches() -> None:
-    """Set the three kernels' launch counters to 0."""
+    """Set the four kernels' launch counters to 0."""
     tiled_skip_superstep.launches = 0
     probing_superstep.launches = 0
     frontier_superstep.launches = 0
+    frontier_superstep_batched.launches = 0
 
 
 # -- the dispatch driver -------------------------------------------------------
@@ -536,3 +596,53 @@ def adaptive_superstep_mirror(
         plan = adaptive_plan(tuple(p.shape), turns, cap)
     return _drive(p, rule, turns, plan, frontier_superstep_mirror, probing_superstep_mirror,
                   tiled_skip_superstep_plain, cuda_packed.tiled_superstep_plain)
+
+
+# -- the batched dispatch ----------------------------------------------------------
+
+
+def batched_supports(shape: tuple[int, int]) -> bool:
+    """Whether a batched kernel takes per-board packed (H, wp) shape: K7
+    (the board fits one block's shared memory, as for K1) or K8 (the
+    adaptive tier hosts a frontier plan for it).  The port's own gates:
+    the TPU's resident gate (H % 256 == 0 and a VMEM budget,
+    ``pallas_packed.batched_supports``) does not carry over."""
+    h, wp = shape
+    if wp < 1:
+        return False
+    if cuda_packed.resident_shape(h, wp * WORD) is not None:
+        return True
+    plan = adaptive_plan(shape, 10**6) if supports(shape) else None
+    return plan is not None and plan.frontier
+
+
+def run_tiled_batched(
+    stack: torch.Tensor,
+    rule: LifeRule,
+    turns: int,
+    plan: AdaptivePlan | None = None,
+    cap: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``_run_tiled_batched``: ``turns`` generations of a (B, H, wp) packed
+    stack.  With a frontier plan the canonical chunks run on K8, all
+    boards in one launch each; the rest (the loose launches and the
+    remainder, fewer than min(_NLAUNCH_CANON) launches) runs per slot
+    through :func:`adaptive_superstep`'s split on the solo kernels (K4, K3,
+    K2).  Returns (stack, int32[B] skipped per board, counting the chunks'
+    skips only, as the JAX package does).  ``plan`` forces the geometry
+    (None: :func:`adaptive_plan` with ``cap``).  On the CPU the wrappers
+    run their plain versions."""
+    nb, h, wp = stack.shape
+    if plan is None:
+        plan = adaptive_plan((h, wp), turns, cap)
+    skipped = torch.zeros((nb,), dtype=torch.int32, device=stack.device)
+    tail = turns
+    if plan is not None and plan.frontier:
+        chunks, _ = _nlaunch_chunks(turns // plan.t)
+        for c in chunks:
+            stack, sk, _act = frontier_superstep_batched(stack, rule, plan, c)
+            skipped = skipped + sk
+        tail = turns - sum(chunks) * plan.t
+    if tail:
+        stack = torch.stack([adaptive_superstep(board, rule, tail, plan)[0] for board in stack])
+    return stack, skipped

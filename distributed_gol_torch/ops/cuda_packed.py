@@ -2,7 +2,7 @@
 
 Counterpart of ``distributed_gol_tpu/ops/pallas_packed.py`` for the plain
 (non-adaptive) main path; the adaptive (``skip_stable``) tier is
-``ops/cuda_adaptive.py``.  Two CUDA kernels (``csrc/``), each with a
+``ops/cuda_adaptive.py``.  Three CUDA kernels (``csrc/``), each with a
 wrapper, a launch counter and a plain PyTorch version:
 
 - **K1, resident** (``csrc/resident.cu``; replaces
@@ -14,6 +14,13 @@ wrapper, a launch counter and a plain PyTorch version:
   in its ``skip_stable=False`` form): T generations per launch on 2-D
   tiles with a T-row and ``xpad``-word halo gathered modulo the board, so
   every H and every W % 32 == 0 qualifies.  Plan: :func:`tiled_plan`.
+- **K7, resident batched** (``csrc/resident.cu``,
+  ``gol_resident_batched_launch``; replaces
+  ``pallas_packed.py::_vmem_kernel_batched``): a (B, H/32, W) stack of
+  same-shape boards, one block per board.  Gate: :func:`resident_shape`
+  per board, as K1's.  :func:`make_batched_superstep_bytes` is the
+  serving plane's batched engine over K7 and the batched frontier kernel
+  (K8, ``ops/cuda_adaptive.py``).
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor
 it launches the kernel or raises — it never falls back.  Each wrapper
@@ -151,18 +158,19 @@ def tiled_launches(
 
 
 def _gen_vertical(a: torch.Tensor, rule: LifeRule) -> torch.Tensor:
-    """One generation of a whole vertically packed board; both wraps are
-    exact.  Plain version of one K1 generation."""
-    up = torch.roll(a, 1, 0)  # word row above, wrapping: carries for bit 0
-    dn = torch.roll(a, -1, 0)
+    """One generation of a whole vertically packed board (or of each board
+    of a (B, H/32, W) stack); both wraps are exact.  Plain version of one
+    K1 (and K7) generation."""
+    up = torch.roll(a, 1, -2)  # word row above, wrapping: carries for bit 0
+    dn = torch.roll(a, -1, -2)
     north = (a << 1) | _shr(up, 31)
     south = _shr(a, 1) | (dn << 31)
     v0 = a ^ north ^ south
     v1 = _maj(a, north, south)
 
     def hsum(v):
-        west = torch.roll(v, 1, 1)  # one cell column per word here
-        east = torch.roll(v, -1, 1)
+        west = torch.roll(v, 1, -1)  # one cell column per word here
+        east = torch.roll(v, -1, -1)
         return v ^ west ^ east, _maj(v, west, east)
 
     s0, c0 = hsum(v0)
@@ -177,6 +185,15 @@ def resident_superstep_plain(v: torch.Tensor, rule: LifeRule, turns: int) -> tor
     for _ in range(turns):
         v = _gen_vertical(v, rule)
     return v
+
+
+def resident_superstep_batched_plain(
+    v: torch.Tensor, rule: LifeRule, turns: int
+) -> torch.Tensor:
+    """Plain version of K7: ``turns`` generations of each board of a
+    vertically packed (B, H/32, W) stack, per slot (the rotates of
+    :func:`_gen_vertical` stay inside each board)."""
+    return resident_superstep_plain(v, rule, turns)
 
 
 def tiled_superstep_plain(p: torch.Tensor, rule: LifeRule, turns: int) -> torch.Tensor:
@@ -254,10 +271,12 @@ def tiled_superstep_mirror(
 # -- the kernel wrappers ------------------------------------------------------
 
 
-def _check_words(t: torch.Tensor) -> None:
-    if t.dtype != torch.int32 or t.dim() != 2 or not t.is_contiguous():
+def _check_words(t: torch.Tensor, ndim: int = 2) -> None:
+    """Raise unless ``t`` is a contiguous int32 tensor of ``ndim``
+    dimensions (a board, or with 3 a (B, H, W) stack) on the CPU or CUDA."""
+    if t.dtype != torch.int32 or t.dim() != ndim or not t.is_contiguous():
         raise ValueError(
-            f"packed words must be a contiguous 2-D int32 tensor, got "
+            f"packed words must be a contiguous {ndim}-D int32 tensor, got "
             f"{t.dtype} {tuple(t.shape)}"
         )
     if t.device.type not in ("cpu", "cuda"):
@@ -268,6 +287,24 @@ def _stream(t: torch.Tensor):
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
+def _resident_launch(v: torch.Tensor, rule: LifeRule, turns: int) -> torch.Tensor:
+    """One launch of the resident kernel on a CUDA (B, H/32, W) stack, one
+    block per board (K1 is the stack of one board); a fresh output."""
+    nb, hw, w = v.shape
+    if resident_shape(hw * WORD, w) is None:
+        raise ValueError(f"packed board {hw}x{w} does not fit the resident kernel")
+    lib = cuda_build.load("resident")
+    fn = lib.gol_resident_batched_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4 + [
+        ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.empty_like(v)
+    born, surv = rule_masks(rule)
+    err = fn(v.data_ptr(), out.data_ptr(), nb, hw, w, turns, born, surv, _stream(v))
+    cuda_build.check(lib, err, "resident")
+    return out
+
+
 def resident_superstep(v: torch.Tensor, rule: LifeRule, turns: int) -> torch.Tensor:
     """K1: ``turns`` generations of a vertically packed (H/32, W) board in
     one launch.  CPU tensors run :func:`resident_superstep_plain`."""
@@ -276,22 +313,29 @@ def resident_superstep(v: torch.Tensor, rule: LifeRule, turns: int) -> torch.Ten
         return v
     if v.device.type == "cpu":
         return resident_superstep_plain(v, rule, turns)
-    hw, w = v.shape
-    if resident_shape(hw * WORD, w) is None:
-        raise ValueError(f"packed board {hw}x{w} does not fit the resident kernel")
-    lib = cuda_build.load("resident")
-    out = torch.empty_like(v)
-    born, surv = rule_masks(rule)
-    err = lib.gol_resident_launch(
-        ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-        hw, w, turns, ctypes.c_uint(born), ctypes.c_uint(surv), _stream(v),
-    )
-    cuda_build.check(lib, err, "resident")
+    out = _resident_launch(v[None], rule, turns)[0]
     resident_superstep.launches += 1
     return out
 
 
 resident_superstep.launches = 0
+
+
+def resident_superstep_batched(v: torch.Tensor, rule: LifeRule, turns: int) -> torch.Tensor:
+    """K7: ``turns`` generations of every board of a vertically packed
+    (B, H/32, W) stack in one launch, one block per board.  CPU tensors run
+    :func:`resident_superstep_batched_plain`.  The input is never written."""
+    _check_words(v, 3)
+    if turns == 0:
+        return v
+    if v.device.type == "cpu":
+        return resident_superstep_batched_plain(v, rule, turns)
+    out = _resident_launch(v, rule, turns)
+    resident_superstep_batched.launches += 1
+    return out
+
+
+resident_superstep_batched.launches = 0
 
 
 def tiled_superstep(
@@ -332,9 +376,10 @@ tiled_superstep.launches = 0
 
 
 def reset_launches() -> None:
-    """Set both kernels' launch counters to 0."""
+    """Set the three kernels' launch counters to 0."""
     resident_superstep.launches = 0
     tiled_superstep.launches = 0
+    resident_superstep_batched.launches = 0
 
 
 def supports(shape: tuple[int, int]) -> bool:
@@ -391,5 +436,37 @@ def make_superstep_bytes(
             v = resident_superstep(packed.pack_vertical(board), rule, turns)
             return stats(packed.unpack_vertical(v))
         return stats(packed.unpack(tiled_superstep(packed.pack(board), rule, turns)))
+
+    return run
+
+
+def make_batched_superstep_bytes(rule: LifeRule = CONWAY, device="cuda", skip_tile_cap: int = 0):
+    """``(stack_u8 (B, H, W), turns) -> (stack_u8, counts (B,))``: the
+    batched engine-layer drop-in, B same-shape boards per dispatch, split
+    as ``pallas_packed.make_batched_superstep_bytes`` splits it.  A board K7
+    takes (:func:`resident_shape`) runs the whole dispatch in one K7 launch,
+    its counts taken on the vertical stack (the popcount does not depend on
+    the packing); a board of the adaptive tier runs its canonical frontier
+    chunks on K8 and the rest of the dispatch per slot on the solo kernels
+    (``cuda_adaptive.run_tiled_batched``, stripes capped at
+    ``skip_tile_cap``, 0 = the default); any other board the plain batched
+    engine (``packed.batched_superstep``).  On the CPU the wrappers run
+    their plain versions.  The stack moves to ``device``."""
+    from distributed_gol_torch.ops import cuda_adaptive
+
+    dev = torch.device(device)
+
+    def run(stack, turns: int):
+        stack = torch.as_tensor(stack, device=dev)
+        _, h, w = stack.shape
+        if turns and resident_shape(h, w) is not None:
+            v = resident_superstep_batched(packed.pack_vertical(stack).contiguous(), rule, turns)
+            return packed.unpack_vertical(v), packed.batched_alive_counts(v)
+        p = packed.pack(stack).contiguous()
+        if turns and cuda_adaptive.supports((h, w // WORD)):
+            p, _ = cuda_adaptive.run_tiled_batched(p, rule, turns, cap=skip_tile_cap)
+        elif turns:
+            p = packed.batched_superstep(p, rule, turns)
+        return packed.unpack(p), packed.batched_alive_counts(p)
 
     return run

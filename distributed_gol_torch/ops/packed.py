@@ -5,7 +5,9 @@ per word (bit ``k`` of ``packed[y, wx]`` is the cell at ``(y, 32*wx + k)``,
 LSB first), the Moore-neighbourhood sum as bit-plane full adders, and the
 B/S rule applied directly on the 9-cell total planes.  It is the plain
 version of both hand-written kernels (``ops/cuda_packed.py``) and the
-``packed`` engine of the Backend.
+``packed`` engine of the Backend.  Every function takes a board or a
+``(B, H, Wp)`` stack of same-shape boards: the rolls run along the last two
+axes, so each board of a stack is its own torus (the batched forms).
 
 Words are int32 tensors holding the uint32 bit pattern: this PyTorch
 build has no ``<<``, ``>>`` or ``~`` on ``torch.uint32`` on the CPU, and
@@ -49,41 +51,42 @@ def _weights(device) -> torch.Tensor:
 
 
 def pack(board: torch.Tensor) -> torch.Tensor:
-    """uint8 {0,255} board (H, W) → int32 words (H, W // 32); only the LSB
-    of each byte is read."""
-    h, w = board.shape
+    """uint8 {0,255} board (..., H, W) → int32 words (..., H, W // 32);
+    only the LSB of each byte is read."""
+    *lead, h, w = board.shape
     if w % WORD:
         raise ValueError(f"width {w} not a multiple of {WORD}")
-    bits = (board & 1).to(torch.int64).reshape(h, w // WORD, WORD)
+    bits = (board & 1).to(torch.int64).reshape(*lead, h, w // WORD, WORD)
     return _to_words((bits * _weights(board.device)).sum(dim=-1))
 
 
 def unpack(packed: torch.Tensor) -> torch.Tensor:
-    """int32 words (H, Wp) → uint8 {0,255} board (H, 32 * Wp)."""
-    h, wp = packed.shape
+    """int32 words (..., H, Wp) → uint8 {0,255} board (..., H, 32 * Wp)."""
+    *lead, h, wp = packed.shape
     shifts = torch.arange(WORD, dtype=torch.int32, device=packed.device)
     # The arithmetic shift only smears copies of bit 31 above bit 31 - k;
     # the & 1 reads bit k exactly.
-    bits = (packed[:, :, None] >> shifts) & 1
-    return (bits.to(torch.uint8) * 255).reshape(h, wp * WORD)
+    bits = (packed[..., None] >> shifts) & 1
+    return (bits.to(torch.uint8) * 255).reshape(*lead, h, wp * WORD)
 
 
 def pack_vertical(board: torch.Tensor) -> torch.Tensor:
-    """uint8 {0,255} board (H, W) → int32 words (H // 32, W), bit ``k`` of
-    word (wy, x) = cell (32*wy + k, x) — the resident kernel's layout."""
-    h, w = board.shape
+    """uint8 {0,255} board (..., H, W) → int32 words (..., H // 32, W),
+    bit ``k`` of word (wy, x) = cell (32*wy + k, x) — the resident
+    kernel's layout."""
+    *lead, h, w = board.shape
     if h % WORD:
         raise ValueError(f"height {h} not a multiple of {WORD}")
-    bits = (board & 1).to(torch.int64).reshape(h // WORD, WORD, w)
-    return _to_words((bits * _weights(board.device)[:, None]).sum(dim=1))
+    bits = (board & 1).to(torch.int64).reshape(*lead, h // WORD, WORD, w)
+    return _to_words((bits * _weights(board.device)[:, None]).sum(dim=-2))
 
 
 def unpack_vertical(packed_v: torch.Tensor) -> torch.Tensor:
-    """int32 words (H // 32, W) → uint8 {0,255} board (H, W)."""
-    hw, w = packed_v.shape
+    """int32 words (..., H // 32, W) → uint8 {0,255} board (..., H, W)."""
+    *lead, hw, w = packed_v.shape
     shifts = torch.arange(WORD, dtype=torch.int32, device=packed_v.device)
-    bits = (packed_v[:, None, :] >> shifts[:, None]) & 1
-    return (bits.to(torch.uint8) * 255).reshape(hw * WORD, w)
+    bits = (packed_v[..., :, None, :] >> shifts[:, None]) & 1
+    return (bits.to(torch.uint8) * 255).reshape(*lead, hw * WORD, w)
 
 
 # -- the adder network --------------------------------------------------------
@@ -96,12 +99,12 @@ def _maj(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 
 def _west(a: torch.Tensor) -> torch.Tensor:
     """Plane whose bit at cell x holds the bit at x-1 (torus wrap)."""
-    return (a << 1) | _shr(torch.roll(a, 1, 1), 31)
+    return (a << 1) | _shr(torch.roll(a, 1, -1), 31)
 
 
 def _east(a: torch.Tensor) -> torch.Tensor:
     """Plane whose bit at cell x holds the bit at x+1 (torus wrap)."""
-    return _shr(a, 1) | (torch.roll(a, -1, 1) << 31)
+    return _shr(a, 1) | (torch.roll(a, -1, -1) << 31)
 
 
 def total_planes(a: torch.Tensor):
@@ -112,10 +115,10 @@ def total_planes(a: torch.Tensor):
     e = _east(a)
     h0 = a ^ w ^ e
     h1 = _maj(a, w, e)
-    n0 = torch.roll(h0, 1, 0)
-    s0 = torch.roll(h0, -1, 0)
-    n1 = torch.roll(h1, 1, 0)
-    s1 = torch.roll(h1, -1, 0)
+    n0 = torch.roll(h0, 1, -2)
+    s0 = torch.roll(h0, -1, -2)
+    n1 = torch.roll(h1, 1, -2)
+    s1 = torch.roll(h1, -1, -2)
     t0 = h0 ^ n0 ^ s0
     c = _maj(h0, n0, s0)
     p1 = h1 ^ n1 ^ s1
@@ -194,5 +197,51 @@ def make_superstep(rule: LifeRule = CONWAY):
 
     def run(board: torch.Tensor, turns: int) -> torch.Tensor:
         return unpack(superstep(pack(board), rule, turns))
+
+    return run
+
+
+# -- batched forms: a leading board axis --------------------------------------
+#
+# One dispatch advances B independent same-shape boards, each its own torus
+# (the rolls above act on the last two axes only).  This is the portable
+# form of the serving plane's cohort launch and, on the CPU, the plain
+# version of the batched kernels (ops/cuda_packed.py, ops/cuda_adaptive.py).
+
+
+def batched_superstep(stack: torch.Tensor, rule: LifeRule, turns: int) -> torch.Tensor:
+    """``turns`` generations of a (B, H, Wp) packed stack in one dispatch,
+    each slot an independent torus."""
+    return superstep(stack, rule, turns)
+
+
+def _needs_wide_counts(ncells: int) -> bool:
+    """Boards whose alive population could exceed 2^31 (>= 46341² dense)."""
+    return ncells >= 2**31
+
+
+def count_dtype(ncells: int) -> torch.dtype:
+    """The JAX package's accumulator policy for a board of ``ncells``
+    cells: int32, and int64 only where the count could pass 2^31."""
+    return torch.int64 if _needs_wide_counts(ncells) else torch.int32
+
+
+def batched_alive_counts(stack: torch.Tensor) -> torch.Tensor:
+    """Per-board alive counts of a (B, H, Wp) packed stack (or of a
+    vertically packed one: the popcount does not depend on the packing),
+    an unsynced length-B vector of :func:`count_dtype`."""
+    ncells = stack.shape[-2] * stack.shape[-1] * WORD
+    return popcount(stack).sum(dim=(-2, -1)).to(count_dtype(ncells))
+
+
+def make_batched_superstep(rule: LifeRule = CONWAY):
+    """``(stack_u8 (B, H, W), turns) -> (stack_u8, counts (B,))``: pack,
+    all generations, unpack and the per-board counts."""
+
+    def run(stack: torch.Tensor, turns: int):
+        p = pack(stack)
+        if turns:
+            p = batched_superstep(p, rule, turns)
+        return unpack(p), batched_alive_counts(p)
 
     return run

@@ -53,6 +53,9 @@ def test_every_module_imports_with_jax_blocked():
         for p in PORT.rglob("*.py")
     )
     mods = [m.removesuffix(".__init__") for m in mods]
+    # The serving plane and the CLI (its ``serve`` subcommand) included.
+    assert {"distributed_gol_torch.serve", "distributed_gol_torch.serve.plane",
+            "distributed_gol_torch.__main__"} <= set(mods)
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"

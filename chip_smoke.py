@@ -24,16 +24,24 @@ the same pod unbatched (K1 per tenant), (c) 4 tenants of 4096² x 10,000,
 ``batched=True``, superstep 192 (K8, the last dispatch's tail on K3 and
 K2), and the ``serve`` CLI in a subprocess (4 tenants of 512² x 2,000,
 ``--batched``); every tenant's final PGM must equal a solo
-``engine="pallas-packed"`` rerun.  It checks that every kernel of each
-path launched in it, times every kernel against its plain version and its
-bound (and a viewer turn's parts at 16384², K6 beside a byte copy of the
-board and beside a build of K6 without the modulo in its ring index, and
-K7 beside 16 sequential K1 launches), and prints one ``{"kernels": [...]}``
-line, the card's name and power limit, and last
-``{"ok": true, "device": {...}}``.
-``--profile`` adds a ``torch.profiler`` breakdown of the two headless
-16384² runs and of the three viewer paths; ``--sweep`` times the adaptive
-tier over launch depths and stripe heights (the sweep that chose
+``engine="pallas-packed"`` rerun.  Then the sharded paths on virtual
+meshes of the one card (``Backend(params, devices=[cuda:0] * n)``): the
+16384² soup x 2,000 on (4, 1) (plus a 'q'-detach and resume) and on
+(2, 2), the default 512² x 100 on (8, 1), each under ``auto`` on K9 and
+equal to its single-device run, and ``engine="packed"`` on (2, 1) at
+4096² x 100, equal to a single-device rerun without a K9 launch.  It
+checks that every kernel of each path launched in it, times every kernel
+against its plain version and its bound (and a viewer turn's parts at
+16384², K6 beside a byte copy of the board and beside a build of K6
+without the modulo in its ring index, K7 beside 16 sequential K1
+launches, and K9 on a (4, 1) strip and a (2, 2) tile beside K2 on the
+whole board and beside the halo exchange), and prints one
+``{"kernels": [...]}`` line, the card's name and power limit, and last
+``{"ok": true, "device": {...}}``.  ``--profile`` adds a
+``torch.profiler`` breakdown of the two headless 16384² runs, of the
+three viewer paths and of the sharded (4, 1) run (with the exchange's
+memcpy time per launch); ``--sweep`` times the adaptive tier over launch
+depths and stripe heights (the sweep that chose
 ``cuda_adaptive.ADAPTIVE_T`` and ``SKIP_TILE_CAP``).  Every phase raises
 on failure; without a CUDA GPU it exits non-zero before printing any
 result.
@@ -68,6 +76,7 @@ from distributed_gol_torch.serve import ServeConfig, ServePlane
 from distributed_gol_torch.models.life import CONWAY, HIGHLIFE, LifeRule
 from distributed_gol_torch.ops import (
     cuda_adaptive, cuda_build, cuda_packed, cuda_stencil, packed, stencil)
+from distributed_gol_torch.parallel import cuda_halo, halo, mesh as mesh_lib
 from distributed_gol_torch.utils.soup import random_soup
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
@@ -117,6 +126,11 @@ KERNELS = {
         replaces="distributed_gol_tpu/ops/pallas_packed.py:1368 _kernel_frontier_mega "
                  "(nboards > 1 form)",
     ),
+    "ext": dict(
+        route="cuda",
+        source="distributed_gol_torch/csrc/ext.cu",
+        replaces="distributed_gol_tpu/parallel/pallas_halo.py:149 _ext_kernel",
+    ),
 }
 WRAPPERS = {
     "resident": cuda_packed.resident_superstep,
@@ -127,6 +141,7 @@ WRAPPERS = {
     "stencil": cuda_stencil.stencil_step,
     "resident_batched": cuda_packed.resident_superstep_batched,
     "frontier_batched": cuda_adaptive.frontier_superstep_batched,
+    "ext": cuda_halo.ext_launch,
 }
 ADAPTIVE = ("tiled_skip", "probing", "frontier")
 LONG_TURNS = 100_000  # the auto skip_stable threshold (Params._SKIP_AUTO_TURNS)
@@ -141,6 +156,16 @@ FLIP_TURNS = 2
 POD_K7 = (16, 512, 10_000, 64)
 POD_K8 = (4, 4096, 10_000, 192)
 CLI_POD = (4, 512, 2_000, 64)
+# The sharded runs' meshes, virtual on the one card: (a) the 16384² soup
+# on row strips, (b) on 2-D tiles, (c) the default 512² run, (d) the
+# packed word-halo engine at 4096².
+MESH_A, MESH_B, MESH_C, MESH_D = (4, 1), (2, 2), (8, 1), (2, 1)
+PACKED_SIDE = 4096
+
+
+def virtual(mesh_shape: tuple, device) -> list:
+    """A virtual mesh's device list: every shard on ``device``."""
+    return [device] * (mesh_shape[0] * mesh_shape[1])
 
 
 def log(msg: str) -> None:
@@ -193,15 +218,36 @@ def ops_per_word(rule: LifeRule) -> int:
     return best
 
 
+def larger_ms(t_bytes: float, t_ops: float):
+    """(ms, "bytes" or "operations"): the larger of a byte time and an
+    operation time in seconds, and which it is."""
+    if t_ops >= t_bytes:
+        return t_ops * 1e3, "operations"
+    return t_bytes * 1e3, "bytes"
+
+
 def bound_ms(words: int, gens: int, launches: int, rule: LifeRule, int_rate: float):
     """The least time the card could take: the larger of the bytes (one
     read and one write of the packed board per launch) over the memory
     rate and the instructions (``ops_per_word``) over the int32 rate."""
-    t_bytes = launches * 2 * words * 4 / HBM_BYTES_PER_S
-    t_ops = words * gens * ops_per_word(rule) / int_rate
-    if t_ops >= t_bytes:
-        return t_ops * 1e3, "operations"
-    return t_bytes * 1e3, "bytes"
+    return larger_ms(launches * 2 * words * 4 / HBM_BYTES_PER_S,
+                     words * gens * ops_per_word(rule) / int_rate)
+
+
+def ext_bound_ms(strip: tuple[int, int], t: int, pad: int, xpad: int, rule: LifeRule,
+                 int_rate: float):
+    """K9's least time for one T-generation launch on an (h_loc, wpl)
+    centre: only the centre's light cone is work.  Generation k (1..T)
+    needs the centre plus T - k rows on each side and, on a 2-D mesh
+    (``xpad`` > 0), ceil((T - k) / 32) words on each side (a row mesh's
+    columns wrap: wpl words); ``ops_per_word`` instructions a word over the
+    int32 rate, against one read of the (h_loc + 2·pad, wpl + 2·xpad)
+    extended block and one write of the centre over the memory rate."""
+    h_loc, wpl = strip
+    words = sum((h_loc + 2 * (t - k)) * (wpl + (2 * -(-(t - k) // 32) if xpad else 0))
+                for k in range(1, t + 1))
+    moved = (h_loc + 2 * pad) * (wpl + 2 * xpad) + h_loc * wpl
+    return larger_ms(moved * 4 / HBM_BYTES_PER_S, words * ops_per_word(rule) / int_rate)
 
 
 # Integer instructions K6 spends per cell, counted from csrc/stencil.cu
@@ -219,11 +265,7 @@ def stencil_bound_ms(h: int, w: int, int_rate: float):
     one write of the board (2·H·W bytes) over the memory rate, against
     ``STENCIL_OPS_PER_CELL`` integer instructions per cell over the int32
     rate; the larger, and which."""
-    t_bytes = 2 * h * w / HBM_BYTES_PER_S
-    t_ops = h * w * STENCIL_OPS_PER_CELL / int_rate
-    if t_ops >= t_bytes:
-        return t_ops * 1e3, "operations"
-    return t_bytes * 1e3, "bytes"
+    return larger_ms(2 * h * w / HBM_BYTES_PER_S, h * w * STENCIL_OPS_PER_CELL / int_rate)
 
 
 # K6's ring index, and the same with a subtraction for the modulo: exact
@@ -423,6 +465,7 @@ def reset_launches() -> None:
     cuda_packed.reset_launches()
     cuda_adaptive.reset_launches()
     cuda_stencil.reset_launches()
+    cuda_halo.reset_launches()
 
 
 def launch_counts() -> dict:
@@ -476,6 +519,42 @@ def check_adaptive(errs: dict, boards: dict) -> None:
             if not torch.equal(got, want) or int(sk) != int(wsk) or not torch.equal(act, wact):
                 raise AssertionError(f"K4 x 8 launches != plain, {name}, {rule.notation}")
             log(f"K3 x {{6, 12, 18, 24}} and K4 x 8 launches, {name} {rule.notation}: identical")
+
+
+def check_ext(device, errs: dict) -> dict:
+    """K9 against its plain version, tolerance 0, at the sharded runs'
+    shapes: the 16384² soup (density 0.3, seed 7) split (4, 1) and (2, 2)
+    on a virtual mesh, every shard's extended block through one full launch
+    and one remainder launch, under both rules; then the whole sharded
+    superstep (two full launches and a remainder) against K2 on the whole
+    board.  Returns each mesh's (sharded board, full-launch plan)."""
+    p = packed.pack(board(BIG, BIG, 7, device))
+    cases = {}
+    for mesh_shape in (MESH_A, MESH_B):
+        m = mesh_lib.make_mesh(mesh_shape, virtual(mesh_shape, device))
+        sb = halo.board_sharding(m).shard(p)
+        full = cuda_halo.launch_plan(sb.shard_shape, mesh_shape, 10**6)[0]
+        rem = cuda_halo.launch_plan(sb.shard_shape, mesh_shape, full.t + 13)[-1]
+        for plan in (full, rem):
+            exts = [e for row in halo.extend(sb, plan.pad, plan.xpad) for e in row]
+            for rule in RULES:
+                for e in exts:
+                    got = cuda_halo.ext_launch(e, rule, plan.t, plan.pad, plan.xpad)
+                    want = cuda_halo.ext_launch_plain(e, rule, plan.t, plan.pad, plan.xpad)
+                    torch.cuda.synchronize()
+                    errs["ext"] = max(errs["ext"], max_abs_err(got, want))
+                    if not torch.equal(got, want):
+                        raise AssertionError(f"K9 != plain on {mesh_shape}, {plan}, {rule.notation}")
+                log(f"K9 {mesh_shape} shards {sb.shard_shape} x {plan.t} (pad {plan.pad}, xpad "
+                    f"{plan.xpad}, {plan.tiles}, grid {plan.grid(sb.shard_shape)}) "
+                    f"{rule.notation}: identical on all {len(exts)} shards")
+        turns = 2 * full.t + 13
+        got = cuda_halo.make_superstep(m, CONWAY)(sb, turns).gather()
+        if not torch.equal(got, cuda_packed.tiled_superstep(p, CONWAY, turns)):
+            raise AssertionError(f"the sharded superstep on {mesh_shape} differs from K2")
+        log(f"sharded superstep {mesh_shape} x {turns}: equals K2 on the whole board")
+        cases[mesh_shape] = (sb, full)
+    return cases
 
 
 # -- phase 3: the main path ----------------------------------------------------
@@ -552,13 +631,15 @@ class Sink:
             self.final = e
 
 
-def stream_run(params: gol.Params, sink: Sink, keys=None, session=None):
+def stream_run(params: gol.Params, sink: Sink, keys=None, session=None, devices=None):
     """One ``gol.run`` on the engine thread while this thread consumes the
     stream as it is produced, as the CLI does; returns (seconds, final PGM
-    bytes or None)."""
+    bytes or None).  ``devices`` places the board (a virtual mesh): the run
+    gets ``backend=Backend(params, devices)``."""
     events = gol.EventQueue()
     t0 = time.perf_counter()
-    engine = gol.start(params, events, keys, session)
+    backend = Backend(params, devices) if devices else None
+    engine = gol.start(params, events, keys, session, backend)
     done = False
     while not done:
         for e in events.get_many(timeout=300):
@@ -572,18 +653,21 @@ def stream_run(params: gol.Params, sink: Sink, keys=None, session=None):
     return seconds, (final.read_bytes() if final.is_file() else None)
 
 
-def drive(name: str, params: gol.Params, kernels: tuple, launches: dict, reference: dict,
-          engine: str = "pallas-packed", keys=None, shadow=None):
+def drive(name: str, params: gol.Params, kernels: tuple, launches: dict, reference,
+          engine: str = "pallas-packed", keys=None, shadow=None, devices=None):
     """Drive one main path through the kernels, with every launch count set
     to 0 just before and read just after, then once more with the
-    ``reference`` overrides (``engine="packed"``, ``skip_stable=False``, or
-    headless); the final boards and alive counts must agree, and the path
-    must have run on ``engine``.  Both streams are consumed as they are
-    produced (``Sink``; ``shadow`` is the board shape of a flip run).
-    Returns (the kernel run's end-to-end numbers, its sink)."""
+    ``reference`` overrides (``engine="packed"``, ``skip_stable=False``,
+    headless, or single-device); the final boards and alive counts must
+    agree, and the path must have run on ``engine``.  A ``reference`` of
+    bytes is the final PGM the run must write, from a run made before.
+    Both streams are consumed as they are produced (``Sink``; ``shadow``
+    is the board shape of a flip run); ``devices`` places the kernel run's
+    board (a virtual mesh).  Returns (the kernel run's end-to-end numbers,
+    its sink)."""
     sink = Sink(shadow)
     reset_launches()
-    seconds, final = stream_run(params, sink, keys)
+    seconds, final = stream_run(params, sink, keys, devices=devices)
     counts = launch_counts()
     for k in kernels:
         launches[k] += counts[k]
@@ -594,6 +678,13 @@ def drive(name: str, params: gol.Params, kernels: tuple, launches: dict, referen
     for k in kernels:
         if counts[k] == 0:
             raise AssertionError(f"{name}: the {k} kernel never launched")
+    if isinstance(reference, bytes):
+        if final != reference:
+            raise AssertionError(f"{name}: final board differs from the single-device run's")
+        log(f"{name}: final board equals the single-device run's")
+        return dict(seconds=seconds, gens_per_s=params.turns / seconds, launches=counts,
+                    dispatch_loop_s=sink.loop_seconds(),
+                    reference="the single-device run's final PGM"), sink
     ref_params = dataclasses.replace(params, out_dir=params.out_dir / "reference", **reference)
     ref = Sink()
     ref_seconds, ref_final = stream_run(ref_params, ref)
@@ -717,15 +808,16 @@ def cli_path(tmp: Path, turns: int, alive: int) -> dict:
                     side=small, turns=1, seconds=traced_seconds, k6_launches=k6))
 
 
-def detach_and_resume(params: gol.Params, straight: bytes, tmp: Path) -> None:
+def detach_and_resume(params: gol.Params, straight: bytes, tmp: Path, devices=None) -> None:
     """'q' mid-run parks a checkpoint on a durable session; a second run
-    resumes it to the straight run's final board."""
-    detached = Sink()
-    _, final = stream_run(params, detached, KeysAfter({3: "q"}), Session(tmp / "ckpt"))
+    resumes it to the straight run's final board (``devices``: both runs
+    on that virtual mesh)."""
+    detached, ckpt = Sink(), tmp / f"ckpt_{params.out_dir.name}"
+    _, final = stream_run(params, detached, KeysAfter({3: "q"}), Session(ckpt), devices)
     turn = detached.quit_turn
     if final is not None or turn is None or not 0 < turn < params.turns:
         raise AssertionError(f"detach did not land mid-run: quit at turn {turn}")
-    _, final = stream_run(params, Sink(), None, Session(tmp / "ckpt"))
+    _, final = stream_run(params, Sink(), None, Session(ckpt), devices)
     if final != straight:
         raise AssertionError("the resumed run's final board differs from the straight run")
     log(f"detach at turn {turn} and resume: final board equals the straight run")
@@ -851,6 +943,50 @@ def serve_cli_path(tmp: Path) -> dict:
                 batched_boards=health["batched_boards"])
 
 
+def sharded_paths(tmp: Path, straight: bytes, launches: dict, device) -> dict:
+    """Phase 3's sharded paths, each on a virtual mesh of the one card
+    through ``gol.run(..., backend=Backend(params, devices))``: (a) the
+    16384² soup x 2,000 on (4, 1), batch turn events, and a 'q'-detach and
+    resume of it; (b) the same on (2, 2); (c) the default 512² x 100 on
+    (8, 1).  Each runs ``auto``, must report ``pallas-packed`` on the
+    ``ppermute`` tier, launch K9 and write the single-device run's PGM.
+    (d) ``engine="packed"`` on (2, 1) at 4096² x 100 must launch no K9 and
+    equal a single-device rerun."""
+    e2e = {}
+    big = gol.Params(turns=2000, image_width=BIG, image_height=BIG, soup_density=0.3,
+                     soup_seed=7, turn_events="batch", ticker_period=3600, out_dir=tmp)
+    default_pgm = (tmp / "default" / "512x512x100.pgm").read_bytes()
+    runs = [("a", dataclasses.replace(big, mesh_shape=MESH_A), straight),
+            ("b", dataclasses.replace(big, mesh_shape=MESH_B), straight),
+            ("c", gol.Params(images_dir=tmp / "images", ticker_period=3600, out_dir=tmp,
+                             mesh_shape=MESH_C), default_pgm)]
+    for tag, params, want in runs:
+        params = dataclasses.replace(params, out_dir=tmp / f"sharded_{tag}")
+        ny, nx = params.mesh_shape
+        name = (f"sharded ({tag}) {params.image_width}^2 x {params.turns} on {ny}x{nx}")
+        out, sink = drive(name, params, ("ext",), launches, want,
+                          devices=virtual(params.mesh_shape, device))
+        tier = sink.report["info"].get("backend.sharded_tier")
+        if tier != "ppermute":
+            raise AssertionError(f"{name}: backend.sharded_tier {tier!r}, not 'ppermute'")
+        e2e[f"sharded_{tag}_{params.image_width}^2x{params.turns}_{ny}x{nx}"] = out
+        print(f"sharded path {name}: {out['seconds']:.3f} s, {out['gens_per_s']:.1f} gens/s, "
+              f"dispatch loop {out['dispatch_loop_s']:.3f} s, K9 launches "
+              f"{out['launches']['ext']}", flush=True)
+    detach_and_resume(dataclasses.replace(big, mesh_shape=MESH_A, out_dir=tmp / "sharded_q"),
+                      straight, tmp, virtual(MESH_A, device))
+    pk = gol.Params(turns=100, image_width=PACKED_SIDE, image_height=PACKED_SIDE,
+                    soup_density=0.3, soup_seed=7, turn_events="batch", ticker_period=3600,
+                    engine="packed", mesh_shape=MESH_D, out_dir=tmp / "sharded_d")
+    name = f"sharded (d) {PACKED_SIDE}^2 x 100 packed on 2x1"
+    out, _ = drive(name, pk, (), launches, dict(mesh_shape=(1, 1)), engine="packed",
+                   devices=virtual(MESH_D, device))
+    if out["launches"]["ext"]:
+        raise AssertionError(f"{name}: K9 launched {out['launches']['ext']} times")
+    e2e[f"sharded_d_{PACKED_SIDE}^2x100_2x1_packed"] = out
+    return e2e
+
+
 def serving_paths(tmp: Path, launches: dict) -> dict:
     """Phase 3's serving paths: the K7 pod batched and unbatched, the K8
     pod, and the ``serve`` CLI."""
@@ -867,24 +1003,33 @@ def serving_paths(tmp: Path, launches: dict) -> dict:
     return e2e
 
 
-def profile_run(turns: int, side: int = BIG, **viewer) -> dict:
+def profile_run(turns: int, side: int = BIG, devices=None, **viewer) -> dict:
     """Where the time of a main-path run on the ``side``² soup goes: the
     seeded soup's generation on the host, then the whole run under
     ``torch.profiler`` (device time by kernel, and the device's busy share
     of the run's wall-clock), its stream consumed as it is produced.
-    ``viewer`` holds the Params of a viewer path (``no_vis=False``, ...);
-    without it the run is headless with batch turn events."""
+    ``viewer`` holds the Params of a viewer path (``no_vis=False``, ...)
+    or a ``mesh_shape`` (run on the virtual mesh ``devices``); a headless
+    run has batch turn events.  A sharded run also reports the device
+    time per sharded launch (one K9 launch per shard) of its device-to-
+    device memcpys: on a row mesh these are the halo exchange's copies and
+    nothing else (``halo.extend`` copies contiguous row blocks; packing and
+    the gather run as kernels or host copies)."""
     t0 = time.perf_counter()
     random_soup(side, side, 0.3, 7)
     soup_s = time.perf_counter() - t0
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent) as tmp:
+        opts = dict(viewer)
+        if opts.get("no_vis", True):
+            opts.setdefault("turn_events", "batch")
         params = gol.Params(turns=turns, image_width=side, image_height=side, soup_density=0.3,
-                            soup_seed=7, out_dir=Path(tmp), ticker_period=3600,
-                            **(viewer or dict(turn_events="batch")))
+                            soup_seed=7, out_dir=Path(tmp), ticker_period=3600, **opts)
         sink = Sink((side, side) if params.wants_flips() else None)
+        reset_launches()
         with torch.profiler.profile(activities=acts) as prof:
-            wall, _ = stream_run(params, sink)
+            wall, _ = stream_run(params, sink, devices=devices)
+        k9 = cuda_halo.ext_launch.launches
     rows = []
     for a in prof.key_averages():
         # Kernel and copy rows only: a host op's row repeats its kernels'
@@ -898,12 +1043,21 @@ def profile_run(turns: int, side: int = BIG, **viewer) -> dict:
             rows.append((dev_us, a.key, a.count))
     rows.sort(reverse=True)
     busy_s = sum(r[0] for r in rows) / 1e6
-    return dict(
-        side=side, turns=turns, viewer=viewer, wall_s=wall, soup_host_s=soup_s,
-        dispatch_loop_s=sink.loop_seconds(),
+    out = dict(
+        side=side, turns=turns, viewer={k: v for k, v in viewer.items() if k != "mesh_shape"},
+        wall_s=wall, soup_host_s=soup_s, dispatch_loop_s=sink.loop_seconds(),
         device_busy_s=busy_s, device_idle_share=1 - busy_s / wall,
         top_device=[dict(name=k[:80], device_ms=us / 1e3, calls=n) for us, k, n in rows[:12]],
     )
+    if devices:
+        dtod = [(us, n) for us, k, n in rows if k.startswith("Memcpy DtoD")]
+        launches = k9 / len(devices)
+        exchange_ms = sum(us for us, _ in dtod) / 1e3
+        out.update(mesh_shape=list(viewer["mesh_shape"]), k9_launches=k9,
+                   sharded_launches=launches, exchange_copies=sum(n for _, n in dtod),
+                   exchange_device_ms=exchange_ms,
+                   exchange_device_ms_per_launch=exchange_ms / launches if k9 else None)
+    return out
 
 
 # -- phase 4: times and bounds -------------------------------------------------
@@ -916,11 +1070,8 @@ def work_bound_ms(words_moved: float, words_computed: float, gens: int, rule: Li
     (``ops_per_word`` instructions each) over the int32 rate, against one
     read and one write of the ``words_moved`` words it must move over the
     memory rate."""
-    t_bytes = 2 * words_moved * 4 / HBM_BYTES_PER_S
-    t_ops = words_computed * gens * ops_per_word(rule) / int_rate
-    if t_ops >= t_bytes:
-        return t_ops * 1e3, "operations"
-    return t_bytes * 1e3, "bytes"
+    return larger_ms(2 * words_moved * 4 / HBM_BYTES_PER_S,
+                     words_computed * gens * ops_per_word(rule) / int_rate)
 
 
 def time_adaptive(boards: dict, int_rate: float) -> dict:
@@ -1013,6 +1164,42 @@ def time_batched(k8_stacks: dict, int_rate: float) -> dict:
               extra=dict(board="fresh", shape=[nb, side, side], plan=dataclasses.asdict(plan),
                          per_board=rows))
     return {"resident_batched": k7, "frontier_batched": k8}
+
+
+def time_ext(cases: dict, int_rate: float) -> dict:
+    """K9 per launch on one shard of the 16384² soup split (4, 1) and
+    (2, 2), at the full launch depth, beside one K2 launch of the whole
+    board at the same T, its plain version and its bound over the centre's
+    light cone (``ext_bound_ms``); the exchange alone (``halo.extend``)
+    and a whole sharded launch (exchange plus one K9 per shard) per
+    launch.  CUDA events."""
+    rows = {}
+    for mesh_shape, (sb, plan) in cases.items():
+        e0 = halo.extend(sb, plan.pad, plan.xpad)[0][0]
+        whole = sb.gather()
+        step = cuda_halo.make_superstep(sb.mesh, CONWAY)
+        b_ms, b_by = ext_bound_ms(sb.shard_shape, plan.t, plan.pad, plan.xpad, CONWAY, int_rate)
+        row = dict(
+            shard=list(sb.shard_shape), extended=list(e0.shape), t=plan.t, pad=plan.pad,
+            xpad=plan.xpad, tiles=dataclasses.asdict(plan.tiles),
+            grid=list(plan.grid(sb.shard_shape)), halo_bytes=plan.halo_bytes(sb.shard_shape),
+            ms=cuda_ms(lambda: cuda_halo.ext_launch(e0, CONWAY, plan.t, plan.pad, plan.xpad), 20),
+            plain_ms=cuda_ms(lambda: cuda_halo.ext_launch_plain(
+                e0, CONWAY, plan.t, plan.pad, plan.xpad), 2),
+            bound_ms=b_ms, bound_by=b_by,
+            exchange_ms=cuda_ms(lambda: halo.extend(sb, plan.pad, plan.xpad), 20),
+            sharded_launch_ms=cuda_ms(lambda: step(sb, plan.t), 10),
+            k2_whole_board_ms=cuda_ms(lambda: cuda_packed.tiled_superstep(whole, CONWAY, plan.t), 10),
+        )
+        rows[f"{mesh_shape[0]}x{mesh_shape[1]}"] = row
+        log(f"K9 {mesh_shape} shard {sb.shard_shape} x {plan.t}: {row['ms']:.4f} ms per shard "
+            f"launch (plain {row['plain_ms']:.3f}, bound {b_ms:.4f} by {b_by}); exchange "
+            f"{row['exchange_ms']:.4f} ms ({row['halo_bytes']} halo bytes a shard); sharded "
+            f"launch {row['sharded_launch_ms']:.4f} ms vs K2 on the whole board "
+            f"{row['k2_whole_board_ms']:.4f} ms")
+    lead = rows[f"{MESH_A[0]}x{MESH_A[1]}"]
+    return dict(ms=lead["ms"], plain_ms=lead["plain_ms"], bound=(lead["bound_ms"], lead["bound_by"]),
+                extra=dict(shape=lead["extended"], per_mesh=rows))
 
 
 def host_ms(fn, reps: int, warm: bool = True) -> float:
@@ -1184,6 +1371,7 @@ def main() -> int:
     check_stencil(device, errs)
     check_resident_batched(device, errs)
     k8_stacks = check_frontier_batched(device, errs)
+    ext_cases = check_ext(device, errs)
 
     # Phase 3: the main paths, with every count set to 0 just before each run.
     launches = {k: 0 for k in KERNELS}
@@ -1215,6 +1403,11 @@ def main() -> int:
             f"fraction {run_long['skip_fraction']}, launches {run_long['launches']}")
         e2e.update(viewer_paths(images, tmp, launches, device))
         e2e.update(serving_paths(tmp, launches))
+        e2e.update(sharded_paths(tmp, straight, launches, device))
+        a = next(v for k, v in e2e.items() if k.startswith("sharded_a_"))
+        log(f"sharded (a) on {MESH_A}: {a['gens_per_s']:.1f} gens/s, K9 launches "
+            f"{a['launches']['ext']}; single-device {BIG}^2 x 2000: "
+            f"{e2e[f'soup_{BIG}x{BIG}x2000']['gens_per_s']:.1f} gens/s")
 
     # Phase 4: time each kernel at the main path's shapes.
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1251,6 +1444,7 @@ def main() -> int:
         f"{k6[BIG]['bound'][0]:.4f} by {k6[BIG]['bound'][1]}) and 512^2 ({k6[512]['ms']:.4f} ms); "
         f"int32 rate {int_rate / 1e12:.2f} Tops/s ({sms} SMs, {clock_mhz} MHz); card {card}")
     timings.update(time_batched(k8_stacks, int_rate))
+    timings["ext"] = time_ext(ext_cases, int_rate)
     witness = k6_witnesses(soups[BIG], wrap_free)
     e2e[f"viewer_turn_{BIG}"] = time_viewer_turn(soups[BIG])
     boards["dead"] = torch.zeros_like(boards["fresh"])
@@ -1285,6 +1479,8 @@ def main() -> int:
                 (500, BIG, dict(no_vis=False)), (1000, BIG, dict(no_vis=False, viewport=VIEWPORT))]
         for turns, side, viewer in runs:
             print(json.dumps({"profile": profile_run(turns, side, **viewer), "card": card}))
+        print(json.dumps({"profile": profile_run(2000, BIG, virtual(MESH_A, device),
+                                                 mesh_shape=MESH_A), "card": card}))
     log(f"chip_smoke: {time.perf_counter() - started:.1f} s in all, kernel builds included")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -2,9 +2,12 @@
 
 The engine-run command line of ``python -m distributed_gol_tpu``, flag for
 flag (``-t``, ``-w``, ``-h`` board height, ``-turns``, ``-noVis`` and the
-framework flags), plus ``--device cuda|cpu``.  Flags for what the port does
-not serve yet (meshes, the supervisor, time compression, telemetry
-endpoints, multi-host) are usage errors that name the ROADMAP item.  The
+framework flags), plus ``--device cuda|cpu``.  ``--mesh NYxNX`` shards the
+board over a mesh of that many CUDA devices (``--device cpu``: shards on
+the CPU), headless.  Flags for what the port does not serve yet (the
+supervisor, time compression, telemetry endpoints, multi-host runs, a
+viewer or ``--skip-stable`` on a mesh) are usage errors that name the
+ROADMAP item.  The
 engine runs in a worker thread while the main thread runs the viewer: the
 terminal renderer by default, the pygame window with ``--window``, a
 headless drain with ``-noVis``; the keyboard listener feeds s/p/q/k (and
@@ -326,7 +329,10 @@ def _trace(log_dir):
 
 def _refuse_cli_unported(args) -> None:
     if args.coordinator is not None or args.num_processes != 1:
-        raise NotImplementedError("multi-host runs are not ported yet (ROADMAP A8)")
+        raise NotImplementedError(
+            "multi-host runs (--coordinator, --num-processes: process-spanning "
+            "meshes) are not ported yet (ROADMAP A8, parallel/multihost.py)"
+        )
     if args.telemetry_port is not None:
         raise NotImplementedError(
             "--telemetry-port: the telemetry endpoints are not ported yet (ROADMAP A9)"

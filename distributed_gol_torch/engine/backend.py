@@ -10,9 +10,18 @@ forces), the per-turn viewer dispatches (``run_turn_with_flips``,
 ``probe_frame_fetch``), the SDC probe, the whole-board cycle probes, and
 the adaptive (``skip_stable``) tier's skip telemetry (``skip_fraction``,
 ``activity_bitmap``).  Engine selection mirrors the
-JAX package's ``_resolve_single`` and ``_ENGINE_RANK``; every engine is
-bit-identical, so a fallback changes speed, never results — and a slower
-tier than the one asked for is warned about, never silent.
+JAX package's ``_resolve_single``, ``_resolve_sharded`` and
+``_ENGINE_RANK``; every engine is bit-identical, so a fallback changes
+speed, never results — and a slower tier than the one asked for is warned
+about, never silent.
+
+On a mesh (``Params.mesh_shape != (1, 1)``) the board is a
+``parallel.halo.ShardedBoard``, one uint8 shard per mesh device, and the
+same surface serves it: ``put`` scatters, ``fetch`` gathers, the alive
+count is the sum of the shards' counts, and the engines are the sharded
+roll (``parallel/halo.py``), packed (``parallel/packed_halo.py``) and
+temporally blocked K9 (``parallel/cuda_halo.py``) forms.  The controller
+never touches the board itself, only these methods.
 
 :class:`BatchedBackend` is the board-stack form behind the same seam: B
 same-shape boards per dispatch, the serving plane's cohort launch.
@@ -28,19 +37,29 @@ import torch
 
 from distributed_gol_torch.engine.params import Params
 from distributed_gol_torch.ops import cuda_adaptive, cuda_packed, cuda_stencil, packed, stencil
+from distributed_gol_torch.parallel import cuda_halo, halo, packed_halo
+from distributed_gol_torch.parallel import mesh as mesh_lib
 from distributed_gol_torch.utils.device import kernels_native, resolve_device
 
 
-def _board_fingerprint(bo: torch.Tensor) -> torch.Tensor:
+def _board_fingerprint(bo: torch.Tensor, y0: int = 0, x0: int = 0) -> torch.Tensor:
     """Position-weighted rolling hash of a board (mod 2^32) — the JAX
     package's SDC fingerprint, computed in int64 and reduced mod 2^32 so
-    the two packages agree on every board."""
+    the two packages agree on every board.  ``bo`` may be the block at
+    (y0, x0) of a larger board: the hash is a sum of per-cell terms, so
+    the blocks' hashes add up to the board's."""
     hh, ww = bo.shape
     dev = bo.device
-    wy = (torch.arange(hh, dtype=torch.int64, device=dev) * 2654435761) & 0xFFFFFFFF
-    wx = (torch.arange(ww, dtype=torch.int64, device=dev) * 2246822519) & 0xFFFFFFFF
+    wy = ((torch.arange(hh, dtype=torch.int64, device=dev) + y0) * 2654435761) & 0xFFFFFFFF
+    wx = ((torch.arange(ww, dtype=torch.int64, device=dev) + x0) * 2246822519) & 0xFFFFFFFF
     bits = (bo != 0).to(torch.int64)
     return torch.sum(bits * (wy[:, None] ^ wx[None, :])) & 0xFFFFFFFF
+
+
+def _alive_count(board) -> torch.Tensor:
+    """Unsynced alive count of a board or a sharded board (the sum of its
+    shards' counts, on the first shard's device)."""
+    return halo.as_board(board).reduce(lambda t, y0, x0: stencil.alive_count(t))
 
 
 class Backend:
@@ -51,17 +70,50 @@ class Backend:
     W % 32 == 0, the byte kernel W % 4 == 0).  "auto" takes the
     hand-written kernels on a CUDA device of compute capability 9.0 — the
     packed tier for multi-generation dispatches, the byte kernel (K6) for
-    per-turn ones — and the plain engines elsewhere."""
+    per-turn ones — and the plain engines elsewhere.
 
-    sharded_tier = None  # single device: no halo-exchange tier
+    ``devices`` places the board: on one device its first entry, on a mesh
+    the mesh's devices in row-major order (a device may repeat: a virtual
+    mesh, all shards on one card).  None takes the device of
+    ``params.device``, or on a mesh the healthy CUDA devices
+    (``parallel.mesh.make_mesh``, which raises when there are too few) —
+    or, with ``device="cpu"``, the CPU for every shard."""
 
-    def __init__(self, params: Params):
+    # The halo-exchange tier of the sharded pallas-packed engine and the
+    # policy that picked it (None off that engine and mesh).
+    sharded_tier = None
+    sharded_tier_policy = None
+
+    def __init__(self, params: Params, devices=None):
         self.params = params
         self.device = resolve_device(params.device)
-        self.table = stencil.rule_table(params.rule, self.device)
+        if devices:
+            devices = [torch.device(d) for d in devices]
+            if any(d.type != self.device.type for d in devices):
+                raise ValueError(
+                    f"devices {[str(d) for d in devices]} are not all of the "
+                    f"requested device type {params.device!r}"
+                )
+            self.device = devices[0]
         shape = (params.image_height, params.image_width)
+        ny, nx = params.mesh_shape
+        if shape[0] % ny or shape[1] % nx:
+            raise ValueError(
+                f"mesh {params.mesh_shape} does not divide board {shape[0]}x{shape[1]}"
+            )
+        if params.engine == "pallas" and (ny, nx) != (1, 1):
+            raise NotImplementedError(
+                "engine='pallas' is single-device for now; sharded meshes use "
+                "engine='pallas-packed', 'packed', or 'roll'"
+            )
+        self.mesh = None
+        if (ny, nx) != (1, 1):
+            self._init_sharded(params, shape, devices)
+            return
+        self.devices = [self.device]
+        self.table = stencil.rule_table(params.rule, self.device)
         self.engine_used = self._resolve_single(params, shape, self.device)
-        self._warn_if_downgraded(params, shape)
+        self._warn_if_downgraded(params, shape, (1, 1))
         if self.engine_used == "pallas-packed":
             if self._skip_engages(params, shape):
                 # The adaptive tier with live skip telemetry; cap 0 = the
@@ -83,8 +135,43 @@ class Backend:
             self._superstep = lambda b, k: stencil.superstep(b, self.table, k)
         self._init_metrics(params)
 
+    def _init_sharded(self, params: Params, shape: tuple[int, int], devices) -> None:
+        """The sharded branch: a mesh over ``devices`` (see the class
+        docstring), the board split over it, and the sharded form of the
+        engine that runs."""
+        mesh_shape = params.mesh_shape
+        if devices is None and self.device.type == "cpu":
+            devices = [self.device] * (mesh_shape[0] * mesh_shape[1])
+        self.mesh = mesh_lib.make_mesh(mesh_shape, devices)
+        self.devices = self.mesh.flat
+        self.device = self.devices[0]
+        self._sharding = halo.board_sharding(self.mesh)
+        self.table = stencil.rule_table(params.rule, self.device)
+        self.engine_used = self._resolve_sharded(params, shape, mesh_shape, self.device)
+        self._warn_if_downgraded(params, shape, mesh_shape)
+        if self.engine_used == "pallas-packed":
+            # T-deep halos: one exchange a launch buys T generations.  The
+            # port has the exchange by tensor copies only (the TPU's
+            # in-kernel tier rides the adaptive frontier kernel, B8-B12);
+            # a skip_stable request raises there, naming them.
+            self.sharded_tier = "ppermute"
+            self.sharded_tier_policy = (
+                "plain (non-adaptive) path: the in-kernel tier rides the "
+                "frontier kernel, which needs skip_stable"
+            )
+            self._superstep = cuda_halo.make_superstep_bytes(
+                self.mesh, params.rule, skip_stable=params.skip_stable_requested()
+            )
+        elif self.engine_used == "packed":
+            self._superstep = packed_halo.make_superstep_bytes(self.mesh, params.rule)
+        else:
+            roll = halo.sharded_superstep(self.mesh)
+            self._superstep = lambda b, k: roll(b, self.table, k)
+        self._init_metrics(params)
+
     def _init_metrics(self, params: Params):
-        """A dispatch counter bumped on the seam and the engine label."""
+        """A dispatch counter bumped on the seam, the engine label and, on a
+        mesh's pallas-packed engine, the exchange tier and its policy."""
         from distributed_gol_torch.obs import metrics as obs_metrics
 
         # Run-scoped reset on the real registry, whatever this run's
@@ -94,6 +181,9 @@ class Backend:
         reg = obs_metrics.registry_for(params.metrics)
         self._m_dispatches = reg.counter(f"backend.dispatches.{self.engine_used}")
         reg.info("backend.engine", self.engine_used)
+        if self.sharded_tier is not None:
+            reg.info("backend.sharded_tier", self.sharded_tier)
+            reg.info("backend.sharded_tier_policy", self.sharded_tier_policy)
         # One bump per viewport device program dispatched
         # (fetch_viewport / run_turn_with_viewport).
         self._m_viewport_fetches = reg.counter("backend.viewport_fetches")
@@ -198,15 +288,21 @@ class Backend:
     # ranking, and must not be silent.
     _ENGINE_RANK = {"roll": 0, "pallas": 1, "packed": 2, "pallas-packed": 3}
 
-    def _warn_if_downgraded(self, params: Params, shape):
+    def _warn_if_downgraded(self, params: Params, shape, mesh_shape):
         """Warn whenever the engine that runs is a slower tier than the one
         requested (explicit engine) or the one "auto" aims for.  Choices
-        "auto" makes by policy (roll for per-turn dispatches and for widths
-        no packed engine takes) stay silent."""
+        "auto" makes by policy (roll for per-turn dispatches, for widths no
+        packed engine takes and for shards narrower than one word; packed
+        off the card) stay silent."""
+        ny, nx = mesh_shape
         if params.engine == "auto":
-            if params.runtime_superstep() == 1 or shape[1] % 32:
+            if params.runtime_superstep() == 1 or shape[1] % 32 or shape[1] // nx < 32:
                 return
-            preferred = "pallas-packed" if kernels_native(self.device) else "packed"
+            preferred = "packed"
+            if kernels_native(self.device) and (
+                nx == 1 or cuda_halo.supports((shape[0], shape[1] // 32), mesh_shape)
+            ):
+                preferred = "pallas-packed"
             if self._ENGINE_RANK[self.engine_used] >= self._ENGINE_RANK[preferred]:
                 return
             requested = f"auto (prefers '{preferred}' here)"
@@ -214,16 +310,21 @@ class Backend:
             if self.engine_used == params.engine:
                 return
             requested = f"'{params.engine}'"
+        if (ny, nx) == (1, 1):
+            where, why = f"{self.device}", "(bit-identical but a slower tier)"
+        else:
+            where = f"mesh {ny}x{nx}"
+            why = ("(bit-identical but a slower tier — see the README engine x "
+                   "mesh capability matrix)")
         warnings.warn(
-            f"engine {requested} cannot run {shape[1]}x{shape[0]} on "
-            f"{self.device}; falling back to '{self.engine_used}' "
-            "(bit-identical but a slower tier)",
+            f"engine {requested} cannot run {shape[1]}x{shape[0]} on {where}; "
+            f"falling back to '{self.engine_used}' {why}",
             RuntimeWarning,
             stacklevel=3,
         )
 
     @staticmethod
-    def _packed_kernel_upgrade(params: Params, device, supports_fn) -> bool:
+    def _packed_kernel_upgrade(params: Params, device, supports_fn=lambda: True) -> bool:
         """Whether the packed engine upgrades to its hand-written kernel
         form: explicit "pallas-packed" on every device (the wrappers run
         their plain versions on a CPU tensor), "auto" only on a CUDA device
@@ -264,18 +365,43 @@ class Backend:
             return "pallas"
         return "roll"
 
-    # -- board placement -------------------------------------------------------
-    def put(self, board: np.ndarray) -> torch.Tensor:
-        board = np.ascontiguousarray(board, dtype=np.uint8)
-        return torch.from_numpy(board).to(self.device)
+    @staticmethod
+    def _resolve_sharded(
+        params: Params, shape: tuple[int, int], mesh_shape: tuple[int, int], device
+    ) -> str:
+        """Requested engine -> the engine that runs on a mesh: K9's
+        temporally blocked form ("pallas-packed"; "auto" only on a CUDA
+        device of compute capability 9.0), then the per-turn packed
+        word-halo engine, then roll — all bit-identical."""
+        if params.engine == "roll":
+            return "roll"
+        # Per-turn dispatches never amortise packing or temporal blocking.
+        if params.engine == "auto" and params.runtime_superstep() == 1:
+            return "roll"
+        if not packed_halo.supports(shape, mesh_shape):
+            return "roll"
+        # K9's gate (cuda_halo.supports) takes every board the word-halo
+        # engine takes.
+        if Backend._packed_kernel_upgrade(params, device):
+            return "pallas-packed"
+        return "packed"
 
-    def fetch(self, board: torch.Tensor) -> np.ndarray:
-        return board.cpu().numpy()
+    # -- board placement -------------------------------------------------------
+    def put(self, board: np.ndarray):
+        """The host board onto the device, or split over the mesh."""
+        t = torch.from_numpy(np.ascontiguousarray(board, dtype=np.uint8))
+        if self.mesh is not None:
+            return self._sharding.shard(t)
+        return t.to(self.device)
+
+    def fetch(self, board) -> np.ndarray:
+        """The whole board on the host (a sharded board gathered)."""
+        return halo.as_board(board).gather("cpu").numpy()
 
     def fetch_many(self, *arrays):
         """Several device values to numpy (scalars as 0-d arrays), one copy
         to the host each."""
-        return [np.asarray(a.cpu().numpy()) for a in arrays]
+        return [np.asarray(self.fetch(a)) for a in arrays]
 
     # -- per-turn viewer dispatches ----------------------------------------------
     # Each is one synchronous dispatch: the generations, then the view (flip
@@ -372,9 +498,9 @@ class Backend:
         before forcing this one's count with ``int()``."""
         self._m_dispatches.inc()
         if turns == 0:
-            return board, stencil.alive_count(board)
+            return board, _alive_count(board)
         new_board = self._superstep(board, turns)
-        return new_board, stencil.alive_count(new_board)
+        return new_board, _alive_count(new_board)
 
     def run_turns(self, board: torch.Tensor, turns: int) -> tuple[torch.Tensor, int]:
         """Advance ``turns`` generations; returns (board, alive count after
@@ -382,8 +508,8 @@ class Backend:
         new_board, count = self.run_turns_async(board, turns)
         return new_board, int(count)
 
-    def count(self, board: torch.Tensor) -> int:
-        return int(stencil.alive_count(board))
+    def count(self, board) -> int:
+        return int(_alive_count(board))
 
     # -- SDC sentinel probe (Params.sdc_check_every_turns) ---------------------
     # Sampled-stripe height of the redundant recompute on the roll stencil,
@@ -414,27 +540,27 @@ class Backend:
         at ``y0`` (toroidal window, exact by light-cone containment) through
         the roll stencil reproduces ``board_out`` there; vacuously True with
         ``stripe=False``.  ``popcount``: alive count of ``board_out``.
-        ``fingerprint``: its rolling hash."""
-        pop = stencil.alive_count(board_out)
-        fp = _board_fingerprint(board_out)
+        ``fingerprint``: its rolling hash.  On a mesh the popcount and the
+        fingerprint are sums of per-shard terms, and only the stripe's
+        window rows are copied onto the first shard's device."""
+        board_in, board_out = halo.as_board(board_in), halo.as_board(board_out)
+        pop = _alive_count(board_out)
+        fp = board_out.reduce(_board_fingerprint) & 0xFFFFFFFF
         if not stripe:
             return True, int(pop), int(fp)
         h = self.params.image_height
         rows = min(h, self._SDC_STRIPE_ROWS)
         pad = turns
         window_rows = min(h, rows + 2 * pad)
-        shift = pad - y0
         # Window rows y0-pad .. y0-pad+window_rows-1 (toroidal).  After
         # ``turns`` toroidal steps rows pad..pad+rows-1 are exact: the
         # window's own wrap is outside their light cone, or the window IS
         # the whole rolled board, whose wrap is the true torus.
-        win = torch.roll(board_in, shift, 0)[:window_rows]
-        stepped = stencil.superstep(win, self.table, turns)
-        want = torch.roll(board_out, shift, 0)
+        stepped = stencil.superstep(board_in.rows(y0 - pad, window_rows), self.table, turns)
         if window_rows == h:
-            ok = torch.equal(stepped, want)
+            ok = torch.equal(stepped, board_out.rows(y0 - pad, h))
         else:
-            ok = torch.equal(stepped[pad : pad + rows], want[pad : pad + rows])
+            ok = torch.equal(stepped[pad : pad + rows], board_out.rows(y0, rows))
         return bool(ok), int(pop), int(fp)
 
     # -- whole-board cycle detection (Params.cycle_check) ----------------------
@@ -451,7 +577,7 @@ class Backend:
         """Issue (without waiting) the periodicity check: an unsynced 0-d
         bool tensor, true iff advancing ``cycle_period`` generations
         reproduces ``board``; ``bool()`` forces it."""
-        return torch.all(self._device_superstep(board, self.cycle_period) == board)
+        return halo.as_board(self._device_superstep(board, self.cycle_period)).equal(board)
 
     def cycle_counts(self, board: torch.Tensor) -> np.ndarray:
         """Alive counts of the cycle phases: entry i is the count after
@@ -459,7 +585,7 @@ class Backend:
         counts = []
         for _ in range(self.cycle_period):
             board = self._device_superstep(board, 1)
-            counts.append(stencil.alive_count(board))
+            counts.append(_alive_count(board))
         return torch.stack(counts).cpu().numpy()
 
 

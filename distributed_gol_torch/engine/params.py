@@ -434,10 +434,25 @@ class Params:
         """Raise for the requests this port does not serve yet, naming the
         ROADMAP item that brings each."""
         if self.mesh_shape != (1, 1):
-            raise NotImplementedError(
-                f"mesh_shape {self.mesh_shape}: sharded execution is not "
-                "ported yet (ROADMAP A8); use mesh_shape=(1, 1)"
+            # The sharded path runs headless with skip_stable off.  The
+            # adaptive tier would engage on pallas-packed (explicitly, or
+            # under "auto" on the card) whenever skip_stable is requested;
+            # refuse that rather than switch silently to the plain path.
+            kernel_tier = self.engine == "pallas-packed" or (
+                self.engine == "auto" and self.device == "cuda"
             )
+            if kernel_tier and self.skip_stable_requested():
+                raise NotImplementedError(
+                    f"mesh_shape {self.mesh_shape} with skip_stable: the sharded "
+                    "adaptive tier is not ported yet (ROADMAP B8-B12); pass "
+                    "skip_stable=False (--no-skip-stable) or mesh_shape=(1, 1)"
+                )
+            if not self.no_vis:
+                raise NotImplementedError(
+                    f"mesh_shape {self.mesh_shape} with a viewer (no_vis=False): "
+                    "the viewer paths on a mesh are not ported yet (ROADMAP A11); "
+                    "run headless or on mesh_shape=(1, 1)"
+                )
         if self.time_compression:
             raise NotImplementedError(
                 "time_compression=True is not ported yet (ROADMAP A7)"

@@ -39,6 +39,18 @@ def test_cli_without_gpu_names_it_and_fails(tmp_path):
 
 
 def test_cli_refuses_unported_flags(tmp_path):
-    r = cli("distributed_gol_torch", *ARGS, "--device", "cpu", "--mesh", "2x2", cwd=tmp_path)
+    r = cli("distributed_gol_torch", *ARGS, "--device", "cpu", "--num-processes", "2",
+            cwd=tmp_path)
     assert r.returncode == 2
     assert "ROADMAP A8" in r.stderr
+
+
+def test_cli_mesh_pgm_matches_jax_cli(tmp_path):
+    t = cli("distributed_gol_torch", *ARGS, "--device", "cpu", "--mesh", "2x2",
+            "--out-dir", "t", cwd=tmp_path)
+    j = cli("distributed_gol_tpu", *ARGS, "--mesh", "2x2", "--out-dir", "j", cwd=tmp_path)
+    assert t.returncode == 0, t.stderr
+    assert j.returncode == 0, j.stderr
+    name = "64x64x100.pgm"
+    assert (tmp_path / "t" / name).read_bytes() == (tmp_path / "j" / name).read_bytes()
+    assert t.stdout.splitlines()[-1] == j.stdout.splitlines()[-1]

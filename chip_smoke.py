@@ -29,18 +29,28 @@ meshes of the one card (``Backend(params, devices=[cuda:0] * n)``): the
 16384² soup x 2,000 on (4, 1) (plus a 'q'-detach and resume) and on
 (2, 2), the default 512² x 100 on (8, 1), each under ``auto`` on K9 and
 equal to its single-device run, and ``engine="packed"`` on (2, 1) at
-4096² x 100, equal to a single-device rerun without a K9 launch.  It
+4096² x 100, equal to a single-device rerun without a K9 launch.  Then
+the ``skip_stable`` runs on row meshes (the adaptive strip tier, K10-K12,
+first held bit for bit against their plain versions on (4, 1) strips of
+the 16384² soup, skip counts and activity too, and K10 and K9 on path
+(f)'s (8, 1) strips at every depth that path launches): (e) the 16384² soup x
+100,000 on (4, 1) under auto (K12, with K10 and K9 for the remainders),
+equal to the single-device 100,000-turn PGM; (f) 520 x 512 x 3,000 on
+(8, 1), whose strips have no adaptive plan (K10 on every launch), equal to
+a single-device rerun; (g) the soup x 2,000 on (4, 1) at a stripe cap of
+16 (K11), equal to the single-device 2,000-turn PGM.  It
 checks that every kernel of each path launched in it, times every kernel
 against its plain version and its bound (and a viewer turn's parts at
 16384², K6 beside a byte copy of the board and beside a build of K6
 without the modulo in its ring index, K7 beside 16 sequential K1
 launches, and K9 on a (4, 1) strip and a (2, 2) tile beside K2 on the
-whole board and beside the halo exchange), and prints one
+whole board and beside the halo exchange, and K10-K12 on a (4, 1) strip
+beside their plain versions), and prints one
 ``{"kernels": [...]}`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  ``--profile`` adds a
 ``torch.profiler`` breakdown of the two headless 16384² runs, of the
-three viewer paths and of the sharded (4, 1) run (with the exchange's
-memcpy time per launch); ``--sweep`` times the adaptive tier over launch
+three viewer paths, of the sharded (4, 1) run and of strip path (e)
+(with the exchange's memcpy time per launch); ``--sweep`` times the adaptive tier over launch
 depths and stripe heights (the sweep that chose
 ``cuda_adaptive.ADAPTIVE_T`` and ``SKIP_TILE_CAP``).  Every phase raises
 on failure; without a CUDA GPU it exits non-zero before printing any
@@ -51,6 +61,7 @@ It imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import json
@@ -131,6 +142,21 @@ KERNELS = {
         source="distributed_gol_torch/csrc/ext.cu",
         replaces="distributed_gol_tpu/parallel/pallas_halo.py:149 _ext_kernel",
     ),
+    "ext_skip": dict(
+        route="cuda",
+        source="distributed_gol_torch/csrc/ext.cu",
+        replaces="distributed_gol_tpu/parallel/pallas_halo.py:149 _ext_kernel (skip_stable=True form)",
+    ),
+    "strip_probing": dict(
+        route="cuda",
+        source="distributed_gol_torch/csrc/probing.cu",
+        replaces="distributed_gol_tpu/parallel/pallas_halo.py:181 _ext_kernel_adaptive",
+    ),
+    "strip_frontier": dict(
+        route="cuda",
+        source="distributed_gol_torch/csrc/frontier.cu",
+        replaces="distributed_gol_tpu/parallel/pallas_halo.py:287 _ext_kernel_frontier",
+    ),
 }
 WRAPPERS = {
     "resident": cuda_packed.resident_superstep,
@@ -142,8 +168,12 @@ WRAPPERS = {
     "resident_batched": cuda_packed.resident_superstep_batched,
     "frontier_batched": cuda_adaptive.frontier_superstep_batched,
     "ext": cuda_halo.ext_launch,
+    "ext_skip": cuda_halo.ext_skip_launch,
+    "strip_probing": cuda_halo.strip_probing_launch,
+    "strip_frontier": cuda_halo.strip_frontier_launch,
 }
 ADAPTIVE = ("tiled_skip", "probing", "frontier")
+STRIPS = ("ext_skip", "strip_probing", "strip_frontier")
 LONG_TURNS = 100_000  # the auto skip_stable threshold (Params._SKIP_AUTO_TURNS)
 STENCIL_ODD = (1004, 3076)  # W % 128 != 0 and H % 8 != 0: refused by the TPU gate
 VIEWPORT = (8000, 8000, 1024, 1024)  # the viewport path's starting rect
@@ -161,6 +191,16 @@ CLI_POD = (4, 512, 2_000, 64)
 # packed word-halo engine at 4096².
 MESH_A, MESH_B, MESH_C, MESH_D = (4, 1), (2, 2), (8, 1), (2, 1)
 PACKED_SIDE = 4096
+# The skip_stable runs on row meshes: (e) the 16384² soup x 100,000 on
+# (4, 1) under auto (K12, the remainders on K10 and K9); (f) 520 x 512 x
+# 3,000 on (8, 1), whose 65-row strips have no multiple-of-8 stripe and so
+# no adaptive plan (K10 carries every full launch; a 512² board's 64-row
+# strips host a frontier plan at the port's plan); (g) the soup x 2,000 on
+# (4, 1) at a stripe cap of 16, which leaves a strip 16-row stripes, T =
+# 12 and no frontier plan (K11).
+MESH_E, MESH_F = (4, 1), (8, 1)
+PLAN_LESS = (520, 512, 3_000)
+PROBE_CAP = 16
 
 
 def virtual(mesh_shape: tuple, device) -> list:
@@ -557,6 +597,160 @@ def check_ext(device, errs: dict) -> dict:
     return cases
 
 
+def seam_gliders(p: torch.Tensor) -> torch.Tensor:
+    """``p`` with a glider ORed in just above each strip seam of a (4, 1)
+    split and above the torus wrap, heading down across it."""
+    b = packed.unpack(p).cpu().numpy()
+    glider = np.array([[0, 255, 0], [0, 0, 255], [255, 255, 255]], dtype=np.uint8)
+    for k in range(1, MESH_E[0] + 1):
+        y, x = k * BIG // MESH_E[0] - 5, k * BIG // 8
+        b[y - 3 : y + 6, x - 3 : x + 6] = 0
+        b[y : y + 3, x : x + 3] |= glider
+    return packed.pack(torch.from_numpy(b).to(p.device))
+
+
+def check_strip_launches(sb, rule: LifeRule, errs: dict, plans, name: str) -> None:
+    """K12 and K11 against their plain versions launch by launch: three
+    launches of each on the four strips of ``sb`` (both parities), each
+    launch's strip and its K12 state (row intervals and computed flags) or
+    K11 bitmap recorded and compared, tolerance 0."""
+    strips = [row[0] for row in sb.shards]
+    for plan, kernel, seq in ((plans[0], "strip_frontier", cuda_halo.frontier_launches),
+                              (plans[1], "strip_probing", cuda_halo.probing_launches)):
+        runs = []
+        for fn in (WRAPPERS[kernel], getattr(cuda_halo, f"{kernel}_launch_plain")):
+            seen = []
+
+            def record(*args, _fn=fn, _seen=seen):
+                out = _fn(*args)
+                flags = args[5].cur if isinstance(args[5], cuda_halo.FrontierState) else args[5]
+                _seen.append((out.clone(), flags.clone()))
+                return out
+
+            seq(strips, rule, plan, 3, record)
+            runs.append(seen)
+        torch.cuda.synchronize()
+        for (board, flags), (want_board, want_flags) in zip(*runs):
+            err = max(max_abs_err(board, want_board), max_abs_err(flags, want_flags))
+            errs[kernel] = max(errs[kernel], err)
+            if err:
+                raise AssertionError(f"{kernel} != plain launch by launch ({plan}) on the {name} "
+                                     f"strips under {rule.notation}")
+    log(f"K12 and K11 x 3 launches on the 4 {name} strips {rule.notation}: identical strips, "
+        f"intervals and bitmaps at every launch")
+
+
+@contextlib.contextmanager
+def plain_strip_kernels():
+    """The strip tier's four wrappers (K9-K12) replaced by their plain
+    versions while the block runs: a whole ``make_superstep`` dispatch on
+    the card through no kernel, the yardstick of the dispatch check."""
+    names = ("ext_launch", "ext_skip_launch", "strip_probing_launch", "strip_frontier_launch")
+    saved = {n: getattr(cuda_halo, n) for n in names}
+    for n in names:
+        setattr(cuda_halo, n, getattr(cuda_halo, f"{n}_plain"))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(cuda_halo, n, fn)
+
+
+def check_strips(device, errs: dict, boards: dict) -> dict:
+    """K10, K11 and K12 against their plain versions, tolerance 0, on the
+    16384² soup split (4, 1) on a virtual mesh: fresh, settled (after
+    ``LONG_TURNS`` generations) and settled with a glider crossing each
+    strip seam.  Whole ``skip_stable`` dispatches of the strip tier, both
+    rules: 9·t - 5 turns at the port's plan (8 K12 launches a strip, so
+    both launch parities, then a K10 remainder of t - 6 and a K9 of 1) and
+    4·t - 5 at ``PROBE_CAP`` (3 K11 launches a strip), each against the
+    same dispatch through the plain versions on the card
+    (``plain_strip_kernels``): boards, skip counts and activity;
+    then K12 and K11 launch by launch (``check_strip_launches``), and K10
+    alone at depths 6 to 30 on every strip's extended block.
+    Returns the sharded boards (phase 4 times them)."""
+    m = mesh_lib.make_mesh(MESH_E, virtual(MESH_E, device))
+    sharding = halo.board_sharding(m)
+    strip = (BIG // MESH_E[0], BIG // 32)
+    fplan = cuda_halo.adaptive_strip_plan(strip, 10**6)
+    pplan = cuda_halo.adaptive_strip_plan(strip, 10**6, PROBE_CAP)
+    if not fplan.frontier or pplan.frontier:
+        raise AssertionError(f"strip plans {fplan}, {pplan}: not a frontier and a probing plan")
+    cases = {name: sharding.shard(p) for name, p in (
+        ("fresh", boards["fresh"]), ("settled", boards["settled"]),
+        ("seam", seam_gliders(boards["settled"])))}
+    for rule in RULES:
+        for name, sb in cases.items():
+            for plan, cap, kernel, n in ((fplan, 0, "strip_frontier", 8),
+                                         (pplan, PROBE_CAP, "strip_probing", 3)):
+                turns = plan.t * (n + 1) - 5  # n full launches, then K10 and K9
+                reset_launches()
+                got, sk, act = cuda_halo.make_superstep(m, rule, True, cap, True)(sb, turns)
+                torch.cuda.synchronize()
+                counts = {k: WRAPPERS[k].launches for k in (kernel, "ext_skip", "ext")}
+                want_counts = {kernel: 4 * n, "ext_skip": 4, "ext": 4}
+                if counts != want_counts:
+                    raise AssertionError(f"strip dispatch launched {counts}, not {want_counts}")
+                with plain_strip_kernels():
+                    want, wsk, wact = cuda_halo.make_superstep(m, rule, True, cap, True)(
+                        sb, turns)
+                torch.cuda.synchronize()
+                err = max(max_abs_err(a, b) for a, b in zip(got.flat, want.flat))
+                for k in (kernel, "ext_skip", "ext"):
+                    errs[k] = max(errs[k], err)
+                if err or int(sk) != int(wsk) or not torch.equal(act, wact):
+                    raise AssertionError(f"strip dispatch != plain ({plan}) on the {name} board "
+                                         f"under {rule.notation}: skipped {int(sk)} vs {int(wsk)}")
+                total = cuda_halo.adaptive_strip_launches((BIG, BIG // 32), MESH_E, turns, cap)
+                log(f"K{12 if plan.frontier else 11}+K10+K9 {MESH_E} {BIG}^2 x {turns} ({plan}) "
+                    f"{name} {rule.notation}: identical, skipped {int(sk)} of {total}, "
+                    f"active stripes {int((act > 0).sum())}")
+            check_strip_launches(sb, rule, errs, (fplan, pplan), name)
+            for t in (6, 12, 18, 24, 30):
+                for e in (e for row in halo.extend(sb, t, 0) for e in row):
+                    got = cuda_halo.ext_skip_launch(e, rule, t, t, 0)
+                    want = cuda_halo.ext_skip_launch_plain(e, rule, t, t, 0)
+                    errs["ext_skip"] = max(errs["ext_skip"], max_abs_err(got, want))
+                    if not torch.equal(got, want):
+                        raise AssertionError(f"K10 != plain at {t} turns, {name}, {rule.notation}")
+            log(f"K10 x {{6, 12, 18, 24, 30}} on the 4 {name} strips {rule.notation}: identical")
+    return cases
+
+
+def check_plan_less(device, errs: dict) -> halo.ShardedBoard:
+    """K10 and K9 against their plain versions, tolerance 0, at path (f)'s
+    shapes: the ``PLAN_LESS`` soup split ``MESH_F`` on a virtual mesh,
+    fresh and after the path's turns, both rules, on every strip's
+    extended block at each depth the path launches: K10 from 6 to the
+    full launches' T (``skip_launch_depth``) in steps of 6 (the full
+    launches of shorter dispatches and the rem6 remainders), K9 from 1
+    to 5 (the remainders' tail).  Returns the fresh sharded board (phase
+    4 times K10 on it)."""
+    h, w, turns = PLAN_LESS
+    m = mesh_lib.make_mesh(MESH_F, virtual(MESH_F, device))
+    strip = (h // MESH_F[0], w // 32)
+    t_full, skip = cuda_halo.skip_launch_depth(strip, turns)
+    if cuda_halo.adaptive_strip_plan(strip, turns) is not None or not skip:
+        raise AssertionError(f"path (f)'s {strip} strips have an adaptive plan or no K10 launch")
+    fresh = halo.board_sharding(m).shard(packed.pack(board(h, w, 7, device)))
+    cases = {"fresh": fresh, "settled": cuda_halo.make_superstep(m, CONWAY, True)(fresh, turns)}
+    depths = [(t, cuda_halo.ext_launch, cuda_halo.ext_launch_plain, "ext") for t in range(1, 6)]
+    depths += [(t, cuda_halo.ext_skip_launch, cuda_halo.ext_skip_launch_plain, "ext_skip")
+               for t in range(6, t_full + 1, 6)]
+    for rule in RULES:
+        for name, sb in cases.items():
+            for t, fn, plain, k in depths:
+                for e in (e for row in halo.extend(sb, t, 0) for e in row):
+                    got, want = fn(e, rule, t, t, 0), plain(e, rule, t, t, 0)
+                    errs[k] = max(errs[k], max_abs_err(got, want))
+                    if not torch.equal(got, want):
+                        raise AssertionError(f"{k} != plain at {t} turns on path (f)'s {name} "
+                                             f"strips under {rule.notation}")
+            log(f"K10 x {{6..{t_full}}} and K9 x {{1..5}} on the {MESH_F[0]} {name} "
+                f"{strip[0]}x{strip[1]}-word strips of {h}x{w} {rule.notation}: identical")
+    return fresh
+
+
 # -- phase 3: the main path ----------------------------------------------------
 
 
@@ -682,9 +876,11 @@ def drive(name: str, params: gol.Params, kernels: tuple, launches: dict, referen
         if final != reference:
             raise AssertionError(f"{name}: final board differs from the single-device run's")
         log(f"{name}: final board equals the single-device run's")
-        return dict(seconds=seconds, gens_per_s=params.turns / seconds, launches=counts,
-                    dispatch_loop_s=sink.loop_seconds(),
-                    reference="the single-device run's final PGM"), sink
+        out = dict(seconds=seconds, gens_per_s=params.turns / seconds, launches=counts,
+                   dispatch_loop_s=sink.loop_seconds(),
+                   reference="the single-device run's final PGM")
+        out.update(skip_gauges(sink))
+        return out, sink
     ref_params = dataclasses.replace(params, out_dir=params.out_dir / "reference", **reference)
     ref = Sink()
     ref_seconds, ref_final = stream_run(ref_params, ref)
@@ -698,10 +894,7 @@ def drive(name: str, params: gol.Params, kernels: tuple, launches: dict, referen
                launches=counts, reference=dict(
                    overrides=reference, seconds=ref_seconds, gens_per_s=params.turns / ref_seconds,
                    dispatch_loop_s=ref.loop_seconds()))
-    gauges = sink.report["gauges"]
-    if "backend.skip_fraction" in gauges:
-        out.update(skip_fraction=gauges["backend.skip_fraction"],
-                   active_stripes=gauges.get("backend.active_tiles"))
+    out.update(skip_gauges(sink))
     if not params.no_vis:
         out.update(frames=sink.frames, frames_per_s=sink.frames / seconds, deltas=sink.deltas,
                    flips=sink.flips, flips_per_s=sink.flips / seconds)
@@ -709,6 +902,16 @@ def drive(name: str, params: gol.Params, kernels: tuple, launches: dict, referen
               f"{sink.frames / seconds:.1f} frames/s ({sink.frames} frames, {sink.deltas} "
               f"deltas), {sink.flips} flips, K6 launches {counts['stencil']}", flush=True)
     return out, sink
+
+
+def skip_gauges(sink: Sink) -> dict:
+    """A run's final skip fraction and active stripes, where it ran the
+    adaptive tier."""
+    gauges = sink.report["gauges"]
+    if "backend.skip_fraction" not in gauges:
+        return {}
+    return dict(skip_fraction=gauges["backend.skip_fraction"],
+                active_stripes=gauges.get("backend.active_tiles"))
 
 
 def final_board(params: gol.Params, device) -> torch.Tensor:
@@ -987,6 +1190,54 @@ def sharded_paths(tmp: Path, straight: bytes, launches: dict, device) -> dict:
     return e2e
 
 
+def strip_paths(tmp: Path, long_pgm: bytes, straight: bytes, launches: dict, device) -> dict:
+    """Phase 3's ``skip_stable`` runs on row meshes, each on a virtual mesh
+    of the one card: (e) the 16384² soup x 100,000 on (4, 1) under auto,
+    equal to the single-device run's PGM; (f) ``PLAN_LESS`` on (8, 1),
+    ``skip_stable=True``, equal to a single-device rerun; (g) the soup x
+    2,000 on (4, 1) at ``PROBE_CAP``, equal to the single-device 2,000-turn
+    PGM.  Each must report ``pallas-packed`` on the ``ppermute`` tier and
+    launch its kernel: (e) K12, (f) K10 and no K11 or K12, (g) K11; the
+    remainders' K10 and K9 launches are counted where they ran."""
+    e2e = {}
+    soup = dict(image_width=BIG, image_height=BIG, soup_density=0.3, soup_seed=7,
+                turn_events="batch", ticker_period=3600)
+    h, w, turns = PLAN_LESS
+    runs = [
+        ("e", gol.Params(turns=LONG_TURNS, mesh_shape=MESH_E, out_dir=tmp / "strips_e", **soup),
+         ("strip_frontier",), long_pgm),
+        ("f", gol.Params(turns=turns, image_height=h, image_width=w, soup_density=0.3,
+                         soup_seed=7, turn_events="batch", ticker_period=3600, skip_stable=True,
+                         mesh_shape=MESH_F, out_dir=tmp / "strips_f"),
+         ("ext_skip",), dict(mesh_shape=(1, 1), skip_stable=False)),
+        ("g", gol.Params(turns=2000, skip_stable=True, skip_tile_cap=PROBE_CAP,
+                         mesh_shape=MESH_E, out_dir=tmp / "strips_g", **soup),
+         ("strip_probing",), straight),
+    ]
+    for tag, params, kernels, want in runs:
+        if not params.skip_stable_requested():
+            raise AssertionError(f"skip_stable is not requested on path ({tag})")
+        ny, nx = params.mesh_shape
+        name = f"strips ({tag}) {params.image_height}x{params.image_width} x {params.turns} on {ny}x{nx}"
+        out, sink = drive(name, params, kernels, launches, want,
+                          devices=virtual(params.mesh_shape, device))
+        for k in ("ext", *STRIPS):  # the remainders' launches count too
+            if k not in kernels:
+                launches[k] += out["launches"][k]
+        tier = sink.report["info"].get("backend.sharded_tier")
+        if tier != "ppermute":
+            raise AssertionError(f"{name}: backend.sharded_tier {tier!r}, not 'ppermute'")
+        if tag == "f" and (out["launches"]["strip_probing"] or out["launches"]["strip_frontier"]):
+            raise AssertionError(f"{name}: a strip without a plan launched K11 or K12")
+        out["sharded_tier_policy"] = sink.report["info"].get("backend.sharded_tier_policy")
+        e2e[f"strips_{tag}_{params.image_height}x{params.image_width}x{params.turns}_{ny}x{nx}"] = out
+        print(f"strip path {name}: {out['seconds']:.3f} s, {out['gens_per_s']:.1f} gens/s, "
+              f"dispatch loop {out['dispatch_loop_s']:.3f} s, skip fraction "
+              f"{out.get('skip_fraction')}, launches "
+              f"{ {k: out['launches'][k] for k in ('ext', *STRIPS)} }", flush=True)
+    return e2e
+
+
 def serving_paths(tmp: Path, launches: dict) -> dict:
     """Phase 3's serving paths: the K7 pod batched and unbatched, the K8
     pod, and the ``serve`` CLI."""
@@ -1010,11 +1261,14 @@ def profile_run(turns: int, side: int = BIG, devices=None, **viewer) -> dict:
     of the run's wall-clock), its stream consumed as it is produced.
     ``viewer`` holds the Params of a viewer path (``no_vis=False``, ...)
     or a ``mesh_shape`` (run on the virtual mesh ``devices``); a headless
-    run has batch turn events.  A sharded run also reports the device
-    time per sharded launch (one K9 launch per shard) of its device-to-
-    device memcpys: on a row mesh these are the halo exchange's copies and
-    nothing else (``halo.extend`` copies contiguous row blocks; packing and
-    the gather run as kernels or host copies)."""
+    run has batch turn events.  ``loop_idle_share_at_least`` bounds the
+    device's idle share of the dispatch loop from below: all of the run's
+    device time, loop or not, over the loop's seconds.  A sharded run also
+    reports its K9-K12 launches and the device time per sharded launch
+    (one launch per shard) of its device-to-device memcpys: on a row mesh
+    these are the halo exchange's copies and nothing else
+    (``halo.extend`` copies contiguous row blocks; packing and the gather
+    run as kernels or host copies)."""
     t0 = time.perf_counter()
     random_soup(side, side, 0.3, 7)
     soup_s = time.perf_counter() - t0
@@ -1029,7 +1283,7 @@ def profile_run(turns: int, side: int = BIG, devices=None, **viewer) -> dict:
         reset_launches()
         with torch.profiler.profile(activities=acts) as prof:
             wall, _ = stream_run(params, sink, devices=devices)
-        k9 = cuda_halo.ext_launch.launches
+        halo_launches = {k: WRAPPERS[k].launches for k in ("ext", *STRIPS)}
     rows = []
     for a in prof.key_averages():
         # Kernel and copy rows only: a host op's row repeats its kernels'
@@ -1047,16 +1301,19 @@ def profile_run(turns: int, side: int = BIG, devices=None, **viewer) -> dict:
         side=side, turns=turns, viewer={k: v for k, v in viewer.items() if k != "mesh_shape"},
         wall_s=wall, soup_host_s=soup_s, dispatch_loop_s=sink.loop_seconds(),
         device_busy_s=busy_s, device_idle_share=1 - busy_s / wall,
-        top_device=[dict(name=k[:80], device_ms=us / 1e3, calls=n) for us, k, n in rows[:12]],
+        loop_idle_share_at_least=1 - busy_s / sink.loop_seconds(),
+        top_device=[dict(name=k[:80], device_ms=us / 1e3, calls=n, ms_per_call=us / 1e3 / n)
+                    for us, k, n in rows[:12]],
     )
     if devices:
         dtod = [(us, n) for us, k, n in rows if k.startswith("Memcpy DtoD")]
-        launches = k9 / len(devices)
+        total = sum(halo_launches.values())
+        launches = total / len(devices)
         exchange_ms = sum(us for us, _ in dtod) / 1e3
-        out.update(mesh_shape=list(viewer["mesh_shape"]), k9_launches=k9,
+        out.update(mesh_shape=list(viewer["mesh_shape"]), launches=halo_launches,
                    sharded_launches=launches, exchange_copies=sum(n for _, n in dtod),
                    exchange_device_ms=exchange_ms,
-                   exchange_device_ms_per_launch=exchange_ms / launches if k9 else None)
+                   exchange_device_ms_per_launch=exchange_ms / launches if total else None)
     return out
 
 
@@ -1200,6 +1457,102 @@ def time_ext(cases: dict, int_rate: float) -> dict:
     lead = rows[f"{MESH_A[0]}x{MESH_A[1]}"]
     return dict(ms=lead["ms"], plain_ms=lead["plain_ms"], bound=(lead["bound_ms"], lead["bound_by"]),
                 extra=dict(shape=lead["extended"], per_mesh=rows))
+
+
+def timed(fn, spans: list):
+    """``fn`` with a pair of CUDA events recorded around every call, into
+    ``spans``."""
+
+    def call(*args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args, **kwargs)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    return call
+
+
+def span_ms(spans: list) -> float:
+    """Mean ms of the calls ``timed`` recorded."""
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in spans) / len(spans)
+
+
+def time_strips(cases: dict, int_rate: float) -> dict:
+    """Per-launch times of K10, K11 and K12 on the (4, 1) strips of the
+    16384² soup, fresh and settled, each call between CUDA events inside
+    the strip tier's own launch sequence (so every launch sees the
+    exchange's inputs), beside the plain versions the same way, with each
+    launch's bound from its own skip telemetry: K12 over 64 launches a
+    strip and K11 over 8 from a zero bitmap (each moves and computes only
+    the stripes it computes, T + 6 and T generations); K10 one launch of
+    18 generations (a remainder depth of path (e)) on strip 0's extended
+    block, its computed share the stripes K11's first launch does not
+    prove stable, of the centre's light cone (``ext_bound_ms``' count);
+    it reads the block and writes the centre; then K10 at path (f)'s
+    shape (strip 0's block of ``cases["plan_less"]``, the fresh soup, at
+    the full launches' T; bound as K9's, every tile computing)."""
+    strip = (BIG // MESH_E[0], BIG // 32)
+    fplan = cuda_halo.adaptive_strip_plan(strip, 10**6)
+    pplan = cuda_halo.adaptive_strip_plan(strip, 10**6, PROBE_CAP)
+    ny = MESH_E[0]
+    out = {}
+    for name in ("fresh", "settled"):
+        sb = cases[name]
+        strips = [row[0] for row in sb.shards]
+        row = {}
+        for kernel, plan, seq, n, gens in (
+                ("strip_frontier", fplan, cuda_halo.frontier_launches, 64, fplan.t + 6),
+                ("strip_probing", pplan, cuda_halo.probing_launches, 8, pplan.t)):
+            seq(strips, CONWAY, plan, 2)  # warm-up
+            spans, plain = [], []
+            _, sk, _ = seq(strips, CONWAY, plan, n, timed(WRAPPERS[kernel], spans))
+            seq(strips, CONWAY, plan, 2, timed(getattr(cuda_halo, f"{kernel}_launch_plain"), plain))
+            grid = plan.grid(strip[0])
+            computed = (n * ny * grid - int(sk)) / (n * ny)
+            words = computed * plan.stripe_h * strip[1]
+            b_ms, b_by = work_bound_ms(words, words, gens, CONWAY, int_rate)
+            row[kernel] = dict(ms=span_ms(spans), plain_ms=span_ms(plain), plan=str(plan),
+                               computed_stripes_per_launch=computed, stripes=grid,
+                               bound_ms=b_ms, bound_by=b_by)
+        t = 18
+        e = halo.extend(sb, t, 0)[0][0]
+        _, sk1, _ = cuda_halo.probing_launches(strips, CONWAY, pplan, 1)
+        grid = pplan.grid(strip[0])
+        share = (ny * grid - int(sk1)) / (ny * grid)
+        h_loc, wpl = strip
+        cone = sum(h_loc + 2 * (t - k) for k in range(1, t + 1)) * wpl
+        moved = (h_loc + 2 * t) * wpl + h_loc * wpl
+        b_ms, b_by = larger_ms(moved * 4 / HBM_BYTES_PER_S,
+                               share * cone * ops_per_word(CONWAY) / int_rate)
+        row["ext_skip"] = dict(
+            ms=cuda_ms(lambda: cuda_halo.ext_skip_launch(e, CONWAY, t, t, 0), 20),
+            plain_ms=cuda_ms(lambda: cuda_halo.ext_skip_launch_plain(e, CONWAY, t, t, 0), 2),
+            t=t, computed_share=share, bound_ms=b_ms, bound_by=b_by,
+            ext_same_t_ms=cuda_ms(lambda: cuda_halo.ext_launch(e, CONWAY, t, t, 0), 20))
+        out[name] = row
+        log(f"{name} strips of {MESH_E}: " + "; ".join(
+            f"{k} {row[k]['ms']:.4f} ms (plain {row[k]['plain_ms']:.3f}, bound "
+            f"{row[k]['bound_ms']:.4f} by {row[k]['bound_by']})" for k in STRIPS)
+            + f"; K9 at T = {t} {row['ext_skip']['ext_same_t_ms']:.4f} ms")
+    h, w, turns = PLAN_LESS
+    t = cuda_halo.skip_launch_depth((h // MESH_F[0], w // 32), turns)[0]
+    e = halo.extend(cases["plan_less"], t, 0)[0][0]
+    b_ms, b_by = ext_bound_ms((h // MESH_F[0], w // 32), t, t, 0, CONWAY, int_rate)
+    path_f = dict(shape=list(e.shape), t=t, bound_ms=b_ms, bound_by=b_by,
+                  ms=cuda_ms(lambda: cuda_halo.ext_skip_launch(e, CONWAY, t, t, 0), 50),
+                  plain_ms=cuda_ms(lambda: cuda_halo.ext_skip_launch_plain(e, CONWAY, t, t, 0), 5))
+    log(f"K10 at path (f)'s {tuple(e.shape)} block, T = {t}: {path_f['ms']:.4f} ms "
+        f"(plain {path_f['plain_ms']:.3f}, bound {b_ms:.5f} by {b_by})")
+    timings = {k: dict(ms=out["fresh"][k]["ms"], plain_ms=out["fresh"][k]["plain_ms"],
+                       bound=(out["fresh"][k]["bound_ms"], out["fresh"][k]["bound_by"]),
+                       extra=dict(board="fresh", shape=list(strip), per_board={
+                           name: row[k] for name, row in out.items()}))
+               for k in STRIPS}
+    timings["ext_skip"]["extra"]["path_f"] = path_f
+    return timings
 
 
 def host_ms(fn, reps: int, warm: bool = True) -> float:
@@ -1372,6 +1725,8 @@ def main() -> int:
     check_resident_batched(device, errs)
     k8_stacks = check_frontier_batched(device, errs)
     ext_cases = check_ext(device, errs)
+    strip_cases = check_strips(device, errs, boards)
+    strip_cases["plan_less"] = check_plan_less(device, errs)
 
     # Phase 3: the main paths, with every count set to 0 just before each run.
     launches = {k: 0 for k in KERNELS}
@@ -1408,6 +1763,14 @@ def main() -> int:
         log(f"sharded (a) on {MESH_A}: {a['gens_per_s']:.1f} gens/s, K9 launches "
             f"{a['launches']['ext']}; single-device {BIG}^2 x 2000: "
             f"{e2e[f'soup_{BIG}x{BIG}x2000']['gens_per_s']:.1f} gens/s")
+        long_pgm = (long.out_dir / f"{long.final_output_name}.pgm").read_bytes()
+        e2e.update(strip_paths(tmp, long_pgm, straight, launches, device))
+        e = next(v for k, v in e2e.items() if k.startswith("strips_e_"))
+        print(f"strip path (e) on {MESH_E}: {e['gens_per_s']:.1f} gens/s, dispatch loop "
+              f"{e['dispatch_loop_s']:.3f} s, skip fraction {e.get('skip_fraction')}; "
+              f"single-device {BIG}^2 x {LONG_TURNS}: {run_long['gens_per_s']:.1f} gens/s, "
+              f"dispatch loop {run_long['dispatch_loop_s']:.3f} s, skip fraction "
+              f"{run_long.get('skip_fraction')}", flush=True)
 
     # Phase 4: time each kernel at the main path's shapes.
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1445,6 +1808,7 @@ def main() -> int:
         f"int32 rate {int_rate / 1e12:.2f} Tops/s ({sms} SMs, {clock_mhz} MHz); card {card}")
     timings.update(time_batched(k8_stacks, int_rate))
     timings["ext"] = time_ext(ext_cases, int_rate)
+    timings.update(time_strips(strip_cases, int_rate))
     witness = k6_witnesses(soups[BIG], wrap_free)
     e2e[f"viewer_turn_{BIG}"] = time_viewer_turn(soups[BIG])
     boards["dead"] = torch.zeros_like(boards["fresh"])
@@ -1481,6 +1845,8 @@ def main() -> int:
             print(json.dumps({"profile": profile_run(turns, side, **viewer), "card": card}))
         print(json.dumps({"profile": profile_run(2000, BIG, virtual(MESH_A, device),
                                                  mesh_shape=MESH_A), "card": card}))
+        print(json.dumps({"profile": profile_run(LONG_TURNS, BIG, virtual(MESH_E, device),
+                                                 mesh_shape=MESH_E), "card": card}))
     log(f"chip_smoke: {time.perf_counter() - started:.1f} s in all, kernel builds included")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -9,7 +9,7 @@ JAX package's.  This package imports neither ``jax`` nor
 
 Public API (the JAX package's, for the single-device paths, headless and
 viewer): :class:`Params` (with ``device``, default "cuda"), :func:`run`,
-:func:`start`, the event types, and :class:`Cell`.
+:func:`start`, the event types, :class:`Cell` and :class:`GracefulStop`.
 """
 
 from distributed_gol_torch.utils.cell import Cell
@@ -39,6 +39,7 @@ from distributed_gol_torch.engine.controller import (
     DispatchTimeout,
 )
 from distributed_gol_torch.engine.gol import run, start
+from distributed_gol_torch.engine.supervisor import GracefulStop
 
 __all__ = [
     "AliveCellsCount",
@@ -55,6 +56,7 @@ __all__ = [
     "FinalTurnComplete",
     "FrameDelta",
     "FrameReady",
+    "GracefulStop",
     "ImageOutputComplete",
     "MetricsReport",
     "Params",

@@ -405,6 +405,35 @@ def build_serve_parser() -> argparse.ArgumentParser:
                     "dispatch schedule")
     ap.add_argument("--gateway-port", type=int, default=None, metavar="PORT",
                     help="the HTTP/WebSocket gateway (not ported yet)")
+    # The gateway's bind address and wire hardening: carried into
+    # ServeConfig as the JAX package does; they act only with
+    # --gateway-port.
+    ap.add_argument("--gateway-host", default="127.0.0.1",
+                    help="gateway bind address (0.0.0.0 for off-host "
+                    "controllers/spectators)")
+    ap.add_argument("--wire-read-timeout", type=float, default=30.0,
+                    metavar="SECONDS",
+                    help="per-connection read deadline on the gateway: "
+                    "a request trickling slower than this is answered "
+                    "408 and reaped (0 = off)")
+    ap.add_argument("--wire-body-cap", type=int, default=1 << 26,
+                    metavar="BYTES",
+                    help="request-body Content-Length bound; past it "
+                    "the answer is 413, never a buffered read")
+    ap.add_argument("--wire-max-connections", type=int, default=0,
+                    metavar="N",
+                    help="concurrent-connection bound on the gateway; "
+                    "past it a new connection gets a raw 503 (0 = "
+                    "unbounded)")
+    ap.add_argument("--ws-keepalive", type=float, default=0.0,
+                    metavar="SECONDS",
+                    help="WebSocket ping/pong keepalive interval on the "
+                    "gateway's legs: a peer silent for 3 consecutive "
+                    "intervals is dropped (0 = off)")
+    ap.add_argument("--ws-max-frame", type=int, default=1 << 20,
+                    metavar="BYTES",
+                    help="inbound WebSocket frame cap; an over-length "
+                    "declaration is a protocol error, not an allocation")
     ap.add_argument("--telemetry-port", type=int, default=None,
                     metavar="PORT",
                     help="/metrics, /healthz and /slo endpoints (not ported yet)")
@@ -490,12 +519,6 @@ def serve_main(argv) -> int:
     if args.readopt and not args.checkpoint_root:
         ap.error("--readopt needs --checkpoint-root")
     try:
-        resolve_device(args.device)
-    except RuntimeError as e:
-        print(f"error: {e}", file=sys.stderr)
-        return 1
-
-    try:
         config = ServeConfig(
             max_sessions=args.max_sessions,
             max_queued=args.max_queued,
@@ -514,9 +537,19 @@ def serve_main(argv) -> int:
             slo_queue_wait_seconds=args.slo_queue_wait,
             trace_sample_rate=args.trace_sample_rate,
             trace_ring_depth=args.trace_ring_depth,
+            wire_read_timeout_seconds=args.wire_read_timeout,
+            wire_body_cap_bytes=args.wire_body_cap,
+            wire_max_connections=args.wire_max_connections,
+            ws_keepalive_seconds=args.ws_keepalive,
+            ws_max_frame_bytes=args.ws_max_frame,
         )
     except ValueError as e:
         ap.error(str(e))
+    try:
+        resolve_device(args.device)
+    except RuntimeError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
 
     def tenant_params(name: str, w: int, h: int, turns: int) -> Params:
         return Params(

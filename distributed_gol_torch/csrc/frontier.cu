@@ -55,6 +55,21 @@
 // stripes (i +- 1 mod grid) and the interval placement across the wrap
 // all stay inside board b; a dead board beside a live one is never read.
 // K5 is this kernel with B = 1.
+//
+// K12: the frontier strip launch (gol_strip_frontier_launch).  Replaces
+// distributed_gol_tpu/parallel/pallas_halo.py::_ext_kernel_frontier, the
+// launch a skip_stable dispatch on a row mesh runs for every full launch
+// where the strip has a frontier plan.  K5 on one strip, state in the
+// strip's row frame: stripes 0 and grid - 1 take their outer neighbours'
+// intervals from an extended array that the exchange fills from the
+// neighbour strips' edge stripes (shifted by -/+ h_loc, so nothing wraps
+// inside the strip); a window's rows outside the strip come from the
+// north and south buffers (window.cuh::StripSource); the first launch of
+// a dispatch starts from full intervals, as the JAX make_superstep does.
+// The decision (decide), the tile's compute and measure (frontier_tile)
+// and the finalize are K5's.  Like K5 it keeps no column interval: the JAX
+// kernel's (cl, ch) only narrows its column tier, and neither the skip
+// decision nor the activity reads it.
 
 #include "window.cuh"
 
@@ -64,6 +79,114 @@ using namespace gol;
 
 constexpr int kEmpty = 1 << 30;  // pallas_packed._EMPTY_LO
 constexpr int kFields = 5;       // lo0, hi0, lo1, hi1, computed
+
+// Stripe i's neighbourhood on a whole board: the previous launch's
+// intervals of stripes i - 1, i and i + 1 (modulo grid), placed in stripe
+// i's row frame across the torus wrap.
+struct TorusIntervals {
+    const int* prev;  // the previous parity's state of this board
+    int total, grid, stripe_h, i;
+    __device__ void get(int slot, int k, int& lo, int& hi) const {
+        const int j = wrap(i + slot, grid);
+        const int off = (i + slot - j) * stripe_h;
+        lo = prev[(2 * k) * total + j] + off;
+        hi = prev[(2 * k + 1) * total + j] + off;
+    }
+};
+
+// Stripe i's neighbourhood on a strip of a row mesh (K12): an extended
+// array of grid + 2 entries per field, the neighbour strips' edge stripes
+// at both ends, already placed in this strip's row frame by the exchange.
+struct StripIntervals {
+    const int* ext;  // int32[4][grid + 2]: lo0, hi0, lo1, hi1
+    int stride, i;   // stride = grid + 2
+    __device__ void get(int slot, int k, int& lo, int& hi) const {
+        lo = ext[(2 * k) * stride + i + 1 + slot];
+        hi = ext[(2 * k + 1) * stride + i + 1 + slot];
+    }
+};
+
+// _hit_union for stripe rows [c_lo, c_hi], by one thread: `decision` gets
+// hit and the measure rows [lo, hi]; `first` forces hit and the maximal
+// union (launch 0 of a chunk).
+template <class Intervals>
+__device__ void decide(int* decision, const Intervals& iv, int c_lo, int c_hi, int t6,
+                       int pad_f, int first) {
+    int hit = first;
+    int u_lo = c_lo - t6;
+    int u_hi = c_hi + t6;
+    if (!first) {
+        const int w_lo = c_lo - pad_f;
+        const int w_hi = c_hi + pad_f;
+        u_lo = kEmpty;
+        u_hi = -kEmpty;
+        for (int slot = -1; slot <= 1; ++slot) {
+            for (int k = 0; k < 2; ++k) {
+                int lo, hi;
+                iv.get(slot, k, lo, hi);
+                if (lo > hi) continue;
+                if (lo - kSkipPeriod <= w_hi && hi + kSkipPeriod >= w_lo) hit = 1;
+                const int clo = max(lo, c_lo - t6);
+                const int chi = min(hi, c_hi + t6);
+                if (clo <= chi) {
+                    u_lo = min(u_lo, clo);
+                    u_hi = max(u_hi, chi);
+                }
+            }
+        }
+    }
+    decision[0] = hit;
+    decision[1] = max(u_lo - t6, c_lo);
+    decision[2] = min(u_hi + t6, c_hi);
+}
+
+// One tile of a frontier launch after its stripe's decision: a stripe
+// that does not hit counts one skip and copies its centre from `rd` to
+// `wr` if it computed last launch; one that hits steps the window from
+// `src` (a halo-row halo, xpad-word columns) T generations, stores the
+// gen-T centre in `wr`, steps 6 more and flags the measure rows where
+// gen T + 6 differs.  The leader (one thread of the stripe) keeps the
+// skip count and the stripe's computed flag `*computed`.
+template <class Source>
+__device__ void frontier_tile(uint32_t* smem, const int* decision, const Source& src,
+                              const uint32_t* __restrict__ rd, uint32_t* __restrict__ wr,
+                              int* __restrict__ rowflag, int* skipped, int* computed,
+                              int computed_before, bool leader, int h, int wp, int turns,
+                              int tile_h, int tile_w, int xpad, int halo, int y0, int x0,
+                              uint32_t born, uint32_t surv) {
+    if (!decision[0]) {
+        if (leader) {
+            atomicAdd(skipped, 1);
+            *computed = 0;
+        }
+        if (computed_before) copy_tile(rd, wr, h, wp, y0, x0, tile_h, tile_w);
+        return;
+    }
+    if (leader) *computed = 1;
+
+    const Window w{tile_h + 2 * halo, tile_w + 2 * xpad, y0 - halo, x0 - xpad};
+    uint32_t* a = smem;
+    uint32_t* b = smem + w.rows * w.cols;
+    load_window(src, a, w);
+    uint32_t* res = advance(a, b, w, turns, born, surv);
+    store_centre(res, wr, h, wp, w, halo, xpad, y0, x0, tile_h, tile_w);
+    __syncthreads();  // the gen-T centre in `wr` is what the measure reads
+    res = advance(res, res == a ? b : a, w, kSkipPeriod, born, surv);
+
+    // Measure: one warp per row, a flag per row that differs anywhere in
+    // this tile's centre words.
+    const int lane = thread_id() % 32;
+    const int r_lo = max(decision[1], y0);
+    const int r_hi = min(decision[2], y0 + tile_h - 1);
+    for (int r = r_lo + thread_id() / 32; r <= r_hi; r += kThreads / 32) {
+        const uint32_t* row = res + (r - y0 + halo) * w.cols + xpad;
+        uint32_t diff = 0u;
+        for (int c = lane; c < tile_w && x0 + c < wp; c += 32) {
+            diff |= row[c] ^ wr[static_cast<size_t>(r) * wp + x0 + c];
+        }
+        if (__any_sync(0xffffffffu, diff != 0u) && lane == 0) rowflag[r] = 1;
+    }
+}
 
 __global__ void __launch_bounds__(kThreads)
 frontier_kernel(const uint32_t* __restrict__ rd, uint32_t* __restrict__ wr,
@@ -85,77 +208,51 @@ frontier_kernel(const uint32_t* __restrict__ rd, uint32_t* __restrict__ wr,
     const int x0 = blockIdx.x * tile_w;
     const int i = y0 / stripe_h;
     const int c_lo = i * stripe_h;
-    const int c_hi = c_lo + stripe_h - 1;
     const int t6 = turns + kSkipPeriod;
     const int* prev = state + (1 - parity) * kFields * total + board * grid;
     int* cur = state + parity * kFields * total + board * grid;
     const bool leader = thread_id() == 0 && blockIdx.x == 0 && y0 == c_lo;
 
     if (thread_id() == 0) {
-        int hit = first;
-        int u_lo = c_lo - t6;
-        int u_hi = c_hi + t6;
-        if (!first) {
-            const int pad_f = (t6 + 7) / 8 * 8;
-            const int w_lo = c_lo - pad_f;
-            const int w_hi = c_hi + pad_f;
-            u_lo = kEmpty;
-            u_hi = -kEmpty;
-            for (int slot = -1; slot <= 1; ++slot) {
-                const int j = wrap(i + slot, grid);
-                const int off = (i + slot - j) * stripe_h;
-                for (int k = 0; k < 2; ++k) {
-                    const int lo = prev[(2 * k) * total + j] + off;
-                    const int hi = prev[(2 * k + 1) * total + j] + off;
-                    if (lo > hi) continue;
-                    if (lo - kSkipPeriod <= w_hi && hi + kSkipPeriod >= w_lo) hit = 1;
-                    const int clo = max(lo, c_lo - t6);
-                    const int chi = min(hi, c_hi + t6);
-                    if (clo <= chi) {
-                        u_lo = min(u_lo, clo);
-                        u_hi = max(u_hi, chi);
-                    }
-                }
-            }
-        }
-        decision[0] = hit;
-        decision[1] = max(u_lo - t6, c_lo);
-        decision[2] = min(u_hi + t6, c_hi);
+        decide(decision, TorusIntervals{prev, total, grid, stripe_h, i}, c_lo,
+               c_lo + stripe_h - 1, t6, (t6 + 7) / 8 * 8, first);
     }
     __syncthreads();
+    frontier_tile(smem, decision, BoardSource{rd, h, wp}, rd, wr, rowflag, skipped,
+                  &cur[4 * total + i], prev[4 * total + i], leader, h, wp, turns, tile_h, tile_w,
+                  xpad, halo, y0, x0, born, surv);
+}
 
-    if (!decision[0]) {
-        if (leader) {
-            atomicAdd(skipped, 1);
-            cur[4 * total + i] = 0;
-        }
-        if (prev[4 * total + i]) copy_tile(rd, wr, h, wp, y0, x0, tile_h, tile_w);
-        return;
+// K12: one frontier launch on one strip of a row mesh.  `prev_ext` holds
+// the previous launch's row intervals of this strip's stripes with the
+// neighbour strips' edge stripes at both ends (int32[4][grid + 2], in
+// this strip's row frame), `prev_computed` its computed flags
+// (int32[grid]); `cur` (int32[5][grid]) gets this launch's.  The window's
+// rows outside the strip come from `north` and `south` (n rows each).
+__global__ void __launch_bounds__(kThreads)
+strip_frontier_kernel(const uint32_t* __restrict__ local, const uint32_t* __restrict__ north,
+                      const uint32_t* __restrict__ south, uint32_t* __restrict__ wr,
+                      const int* __restrict__ prev_ext, const int* __restrict__ prev_computed,
+                      int* __restrict__ cur, int* __restrict__ rowflag, int* __restrict__ skipped,
+                      int h, int wp, int n, int turns, int stripe_h, int tile_h, int tile_w,
+                      int xpad, int halo, int pad_f, uint32_t born, uint32_t surv) {
+    extern __shared__ uint32_t smem[];
+    __shared__ int decision[3];  // hit, measure rows lo, hi
+    const int grid = h / stripe_h;
+    const int y0 = blockIdx.y * tile_h;
+    const int x0 = blockIdx.x * tile_w;
+    const int i = y0 / stripe_h;
+    const int c_lo = i * stripe_h;
+    const bool leader = thread_id() == 0 && blockIdx.x == 0 && y0 == c_lo;
+
+    if (thread_id() == 0) {
+        decide(decision, StripIntervals{prev_ext, grid + 2, i}, c_lo, c_lo + stripe_h - 1,
+               turns + kSkipPeriod, pad_f, 0);
     }
-    if (leader) cur[4 * total + i] = 1;
-
-    const Window w{tile_h + 2 * halo, tile_w + 2 * xpad, y0 - halo, x0 - xpad};
-    uint32_t* a = smem;
-    uint32_t* b = smem + w.rows * w.cols;
-    load_window(rd, a, h, wp, w);
-    uint32_t* res = advance(a, b, w, turns, born, surv);
-    store_centre(res, wr, h, wp, w, halo, xpad, y0, x0, tile_h, tile_w);
-    __syncthreads();  // the gen-T centre in `wr` is what the measure reads
-    res = advance(res, res == a ? b : a, w, kSkipPeriod, born, surv);
-
-    // Measure: one warp per row, a flag per row that differs anywhere in
-    // this tile's centre words.
-    const int lane = thread_id() % 32;
-    const int r_lo = max(decision[1], y0);
-    const int r_hi = min(decision[2], y0 + tile_h - 1);
-    for (int r = r_lo + thread_id() / 32; r <= r_hi; r += kThreads / 32) {
-        const uint32_t* row = res + (r - y0 + halo) * w.cols + xpad;
-        uint32_t diff = 0u;
-        for (int c = lane; c < tile_w && x0 + c < wp; c += 32) {
-            diff |= row[c] ^ wr[static_cast<size_t>(r) * wp + x0 + c];
-        }
-        if (__any_sync(0xffffffffu, diff != 0u) && lane == 0) rowflag[r] = 1;
-    }
+    __syncthreads();
+    frontier_tile(smem, decision, StripSource{local, north, south, h, wp, n}, local, wr, rowflag,
+                  skipped, &cur[4 * grid + i], prev_computed[i], leader, h, wp, turns, tile_h,
+                  tile_w, xpad, halo, y0, x0, born, surv);
 }
 
 // One block per stripe of every board: block gi = b * grid + i.
@@ -247,3 +344,41 @@ extern "C" int gol_frontier_batched_launch(const void* rd, void* wr, void* state
     return cudaGetLastError();
 }
 
+// K12: the caller builds `prev_ext` (the exchange) and zeroes `rowflag`
+// once; the launch's decision reach is pad_f (the JAX plan's
+// round8(T + 6)), its window halo `halo` >= T + 6, within the neighbour
+// buffers (halo <= n).  `skipped` (int32[1]) and `act` (int32[grid])
+// accumulate over the launches of a dispatch.
+extern "C" int gol_strip_frontier_launch(const void* local, const void* north, const void* south,
+                                         void* wr, const void* prev_ext,
+                                         const void* prev_computed, void* cur, void* rowflag,
+                                         void* skipped, void* act, int h, int wp, int n,
+                                         int turns, int stripe_h, int tile_h, int tile_w,
+                                         int xpad, int halo, int pad_f, unsigned born,
+                                         unsigned surv, void* stream) {
+    if (h < 1 || wp < 1 || turns < kSkipPeriod || turns % kSkipPeriod || stripe_h < 1 ||
+        h % stripe_h || tile_h < 1 || stripe_h % tile_h || tile_w < 1 ||
+        halo < turns + kSkipPeriod || halo > n || pad_f < turns + kSkipPeriod ||
+        xpad * 32 < turns + kSkipPeriod || tile_w + 2 * xpad > kCols) {
+        return cudaErrorInvalidValue;
+    }
+    const long long smem = window_smem(tile_h + 2 * halo, tile_w + 2 * xpad);
+    cudaError_t err = allow_smem(strip_frontier_kernel, smem);
+    if (err != cudaSuccess) return err;
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const dim3 grid((wp + tile_w - 1) / tile_w, h / tile_h);
+    strip_frontier_kernel<<<grid, dim3(kCols, kSegs), static_cast<size_t>(smem), s>>>(
+        static_cast<const uint32_t*>(local), static_cast<const uint32_t*>(north),
+        static_cast<const uint32_t*>(south), static_cast<uint32_t*>(wr),
+        static_cast<const int*>(prev_ext), static_cast<const int*>(prev_computed),
+        static_cast<int*>(cur), static_cast<int*>(rowflag), static_cast<int*>(skipped), h, wp, n,
+        turns, stripe_h, tile_h, tile_w, xpad, halo, pad_f, born, surv);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    // The state of one strip is one "board" of grid stripes at parity 0.
+    frontier_finalize<<<h / stripe_h, 256, 0, s>>>(static_cast<int*>(cur),
+                                                   static_cast<int*>(rowflag),
+                                                   static_cast<int*>(act), h, stripe_h,
+                                                   h / stripe_h, 0);
+    return cudaGetLastError();
+}

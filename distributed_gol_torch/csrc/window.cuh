@@ -1,6 +1,7 @@
 // Shared device code of the tiled kernels (K2 tiled.cu, K3 tiled_skip.cu,
-// K4 probing.cu, K5 frontier.cu): a window of the horizontally packed
-// board in shared memory, stepped generation by generation.
+// K4 and K11 probing.cu, K5, K8 and K12 frontier.cu, K9 and K10 ext.cu): a
+// window of the horizontally packed board in shared memory, stepped
+// generation by generation.
 //
 // Layout: the horizontally packed board (H, W/32), bit k of word (y, wx) =
 // cell (y, 32*wx + k) — the JAX package's pack layout.
@@ -47,16 +48,52 @@ __device__ __forceinline__ uint32_t board_word(const uint32_t* b, int h, int wp,
     return b[static_cast<size_t>(wrap(y, h)) * wp + wrap(x, wp)];
 }
 
-// Gather the window from the board into `win`.
-__device__ void load_window(const uint32_t* __restrict__ in, uint32_t* win, int h, int wp,
-                            const Window& w) {
+// Where a window's words come from.  A source maps a word's unwrapped
+// (row, word column) to the word; the window code below takes any source.
+//
+// BoardSource: the whole torus, rows modulo h and words modulo wp.
+struct BoardSource {
+    const uint32_t* b;
+    int h, wp;
+    __device__ __forceinline__ uint32_t operator()(int y, int x) const {
+        return board_word(b, h, wp, y, x);
+    }
+};
+
+// StripSource: one row strip of a row mesh (h rows of the board's full
+// width wp) with its neighbours' boundary rows in separate buffers of n
+// rows each: row y < 0 is north[n + y] (north's last row borders the
+// strip's first), row y >= h is south[y - h]; words modulo wp, since the
+// strip spans the board's width.  Rows stay within [-n, h + n).
+struct StripSource {
+    const uint32_t* local;
+    const uint32_t* north;
+    const uint32_t* south;
+    int h, wp, n;
+    __device__ __forceinline__ uint32_t operator()(int y, int x) const {
+        const uint32_t* row = y < 0    ? north + static_cast<size_t>(n + y) * wp
+                              : y >= h ? south + static_cast<size_t>(y - h) * wp
+                                       : local + static_cast<size_t>(y) * wp;
+        return row[wrap(x, wp)];
+    }
+};
+
+// Gather the window from `src` into `win`.
+template <class Source>
+__device__ void load_window(const Source& src, uint32_t* win, const Window& w) {
     const int n = w.rows * w.cols;
     for (int i = thread_id(); i < n; i += kThreads) {
         const int r = i / w.cols;
         const int c = i - r * w.cols;
-        win[i] = board_word(in, h, wp, w.top + r, w.left + c);
+        win[i] = src(w.top + r, w.left + c);
     }
     __syncthreads();
+}
+
+// Gather the window from the board into `win`.
+__device__ void load_window(const uint32_t* __restrict__ in, uint32_t* win, int h, int wp,
+                            const Window& w) {
+    load_window(BoardSource{in, h, wp}, win, w);
 }
 
 // Word (r, c) of the window and the 2-bit horizontal sum of its cell with
@@ -116,14 +153,14 @@ __device__ uint32_t* advance(uint32_t* src, uint32_t* dst, const Window& w, int 
 }
 
 // The skip proof's test: whether the window `win`, kSkipPeriod generations
-// on, equals the board `in` it was loaded from on the window's inner
+// on, equals the source `src` it was loaded from on the window's inner
 // region — rows and cells at least kSkipPeriod from the window's edge,
 // where the gen-6 state is exact.  If it does, the board is period-6
 // stable there, and by induction the window's cells at least T rows and T
 // cells from its edge hold their gen-0 value at every generation T that
 // is a multiple of 6.  The same value in every thread.
-__device__ bool inner_stable(const uint32_t* win, const uint32_t* __restrict__ in, int h, int wp,
-                             const Window& w) {
+template <class Source>
+__device__ bool inner_stable(const uint32_t* win, const Source& src, const Window& w) {
     const int r0 = kSkipPeriod;
     const int n = (w.rows - 2 * kSkipPeriod) * w.cols;
     uint32_t diff = 0u;
@@ -133,9 +170,14 @@ __device__ bool inner_stable(const uint32_t* win, const uint32_t* __restrict__ i
         uint32_t mask = 0xffffffffu;
         if (c == 0) mask &= 0xffffffc0u;           // cells 0..5 of the window row
         if (c == w.cols - 1) mask &= 0x03ffffffu;  // its last six cells
-        diff |= (win[r * w.cols + c] ^ board_word(in, h, wp, w.top + r, w.left + c)) & mask;
+        diff |= (win[r * w.cols + c] ^ src(w.top + r, w.left + c)) & mask;
     }
     return __syncthreads_or(diff != 0u) == 0;
+}
+
+__device__ bool inner_stable(const uint32_t* win, const uint32_t* __restrict__ in, int h, int wp,
+                             const Window& w) {
+    return inner_stable(win, BoardSource{in, h, wp}, w);
 }
 
 // Write the window's centre — rows [halo, halo + tile_h), words

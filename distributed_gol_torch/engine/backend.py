@@ -20,7 +20,9 @@ On a mesh (``Params.mesh_shape != (1, 1)``) the board is a
 same surface serves it: ``put`` scatters, ``fetch`` gathers, the alive
 count is the sum of the shards' counts, and the engines are the sharded
 roll (``parallel/halo.py``), packed (``parallel/packed_halo.py``) and
-temporally blocked K9 (``parallel/cuda_halo.py``) forms.  The controller
+temporally blocked (``parallel/cuda_halo.py``: K9, and with
+``skip_stable`` on a row mesh the adaptive strip kernels K10-K12, with the
+same skip telemetry over the whole mesh) forms.  The controller
 never touches the board itself, only these methods.
 
 :class:`BatchedBackend` is the board-stack form behind the same seam: B
@@ -150,18 +152,31 @@ class Backend:
         self.engine_used = self._resolve_sharded(params, shape, mesh_shape, self.device)
         self._warn_if_downgraded(params, shape, mesh_shape)
         if self.engine_used == "pallas-packed":
-            # T-deep halos: one exchange a launch buys T generations.  The
-            # port has the exchange by tensor copies only (the TPU's
-            # in-kernel tier rides the adaptive frontier kernel, B8-B12);
-            # a skip_stable request raises there, naming them.
+            # T-deep halos: one exchange a launch buys T generations, by
+            # tensor copies (the TPU's in-kernel exchange tier, ROADMAP
+            # B10, is not ported).  skip_stable runs the adaptive strip
+            # tier on a row mesh with live skip telemetry (a 2-D mesh
+            # raises, naming B11); cap 0 = the port's default stripe cap.
             self.sharded_tier = "ppermute"
-            self.sharded_tier_policy = (
-                "plain (non-adaptive) path: the in-kernel tier rides the "
-                "frontier kernel, which needs skip_stable"
-            )
-            self._superstep = cuda_halo.make_superstep_bytes(
-                self.mesh, params.rule, skip_stable=params.skip_stable_requested()
-            )
+            if params.skip_stable_requested():
+                ny, nx = mesh_shape
+                self._skip_cap = params.skip_tile_cap or cuda_adaptive.SKIP_TILE_CAP
+                _, self.sharded_tier_policy = cuda_halo.tier_policy(
+                    self.mesh, strip=(shape[0] // ny, shape[1] // 32 // nx),
+                    tile_cap=self._skip_cap,
+                )
+                self._skip_fn = cuda_halo.make_superstep_bytes(
+                    self.mesh, params.rule, skip_stable=True, skip_tile_cap=self._skip_cap,
+                    with_stats=True,
+                )
+                self._skip_stats = []
+                self._superstep = self._skip_superstep
+            else:
+                self.sharded_tier_policy = (
+                    "plain (non-adaptive) path: the in-kernel tier rides the "
+                    "frontier kernel, which needs skip_stable"
+                )
+                self._superstep = cuda_halo.make_superstep_bytes(self.mesh, params.rule)
         elif self.engine_used == "packed":
             self._superstep = packed_halo.make_superstep_bytes(self.mesh, params.rule)
         else:
@@ -222,10 +237,16 @@ class Backend:
     def _skip_superstep(self, board: torch.Tensor, turns: int) -> torch.Tensor:
         """The adaptive tier with live skip telemetry: each dispatch's
         (skipped, stripe-launches, activity) is kept, device values unread,
-        for :meth:`skip_fraction` and :meth:`activity_bitmap`."""
+        for :meth:`skip_fraction` and :meth:`activity_bitmap`.  On a mesh
+        the stripe-launches and the activity span every strip, top to
+        bottom."""
         new_board, skipped, act = self._skip_fn(board, turns)
         h, w = self.params.image_height, self.params.image_width
-        total = cuda_adaptive.adaptive_tile_launches((h, w // 32), turns, self._skip_cap)
+        if self.mesh is not None:
+            total = cuda_halo.adaptive_strip_launches(
+                (h, w // 32), self.params.mesh_shape, turns, self._skip_cap)
+        else:
+            total = cuda_adaptive.adaptive_tile_launches((h, w // 32), turns, self._skip_cap)
         if total:
             self._skip_stats.append((skipped, total, act))
             del self._skip_stats[:-3]

@@ -434,18 +434,20 @@ class Params:
         """Raise for the requests this port does not serve yet, naming the
         ROADMAP item that brings each."""
         if self.mesh_shape != (1, 1):
-            # The sharded path runs headless with skip_stable off.  The
-            # adaptive tier would engage on pallas-packed (explicitly, or
-            # under "auto" on the card) whenever skip_stable is requested;
-            # refuse that rather than switch silently to the plain path.
+            # The sharded path runs headless.  On a 2-D mesh the adaptive
+            # tier would engage on pallas-packed (explicitly, or under
+            # "auto" on the card) whenever skip_stable is requested; refuse
+            # that rather than switch silently to the plain path.  Row
+            # meshes run the adaptive strip tier.
             kernel_tier = self.engine == "pallas-packed" or (
                 self.engine == "auto" and self.device == "cuda"
             )
-            if kernel_tier and self.skip_stable_requested():
+            if kernel_tier and self.skip_stable_requested() and self.mesh_shape[1] > 1:
                 raise NotImplementedError(
-                    f"mesh_shape {self.mesh_shape} with skip_stable: the sharded "
-                    "adaptive tier is not ported yet (ROADMAP B8-B12); pass "
-                    "skip_stable=False (--no-skip-stable) or mesh_shape=(1, 1)"
+                    f"mesh_shape {self.mesh_shape} with skip_stable: the 2-D adaptive "
+                    "tier is not ported yet (ROADMAP B11, with B7's 2-D skip form; "
+                    "row meshes (ny, 1) run the strip tier, B8 and B9); pass "
+                    "skip_stable=False (--no-skip-stable) or a row mesh"
                 )
             if not self.no_vis:
                 raise NotImplementedError(

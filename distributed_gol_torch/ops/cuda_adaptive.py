@@ -351,6 +351,47 @@ probing_superstep.launches = 0
 # -- K5: the frontier kernel ---------------------------------------------------
 
 
+def hit_union(ivals, c_lo: torch.Tensor, c_hi: torch.Tensor, plan: AdaptivePlan):
+    """``_hit_union`` for every stripe at once: ``ivals`` are the (lo, hi)
+    int tensors of the intervals of each stripe's neighbourhood, placed in
+    its row frame.  Returns (hit, measure lo, measure hi) per stripe."""
+    t6 = plan.t + SKIP_PERIOD
+    w_lo, w_hi = c_lo - plan.pad_f, c_hi + plan.pad_f
+    hit = torch.zeros(c_lo.shape, dtype=torch.bool, device=c_lo.device)
+    u_lo = torch.full_like(c_lo, _EMPTY_LO)
+    u_hi = torch.full_like(c_lo, -_EMPTY_LO)
+    for lo, hi in ivals:
+        nonempty = lo <= hi
+        hit |= nonempty & (lo - SKIP_PERIOD <= w_hi) & (hi + SKIP_PERIOD >= w_lo)
+        clo = torch.maximum(lo, c_lo - t6)
+        chi = torch.minimum(hi, c_hi + t6)
+        keep = nonempty & (clo <= chi)
+        u_lo = torch.where(keep, torch.minimum(u_lo, clo), u_lo)
+        u_hi = torch.where(keep, torch.maximum(u_hi, chi), u_hi)
+    return hit, torch.maximum(u_lo - t6, c_lo), torch.minimum(u_hi + t6, c_hi)
+
+
+def measure2(hot: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """``_measure2`` per stripe: the (grid, stripe_h) ``hot`` rows (gen
+    T + 6 differs from gen T in the measure region) at their ``rows``, as
+    the two intervals (lo0, hi0, lo1, hi1), a (4, grid) tensor: the
+    stripe-wide span split at its midpoint; empty = (_EMPTY_LO, -1)."""
+    big = torch.full_like(rows, _EMPTY_LO)
+    lo = torch.where(hot, rows, big).amin(dim=1)
+    hi = torch.where(hot, rows, -big).amax(dim=1)
+    split = torch.div(lo + hi, 2, rounding_mode="floor")[:, None]
+    hi0 = torch.where(hot & (rows <= split), rows, -big).amax(dim=1)
+    lo1 = torch.where(hot & (rows > split), rows, big).amin(dim=1)
+    empty = lo > hi
+    one = empty | (lo1 > hi)
+    return torch.stack([
+        torch.where(empty, _EMPTY_LO, lo),
+        torch.where(empty, -1, torch.where(lo1 > hi, hi, hi0)),
+        torch.where(one, _EMPTY_LO, lo1),
+        torch.where(one, -1, hi),
+    ])
+
+
 def frontier_launch_mirror(
     r: torch.Tensor,
     w: torch.Tensor,
@@ -374,51 +415,24 @@ def frontier_launch_mirror(
     c_hi = c_lo + sh - 1
     if state is None:
         hit = torch.ones(grid, dtype=torch.bool, device=dev)
-        u_lo, u_hi = c_lo - t6, c_hi + t6
+        m_lo, m_hi = c_lo, c_hi
     else:
-        # _hit_union over the neighbours' intervals, placed in this
-        # stripe's frame across the torus wrap.
-        w_lo, w_hi = c_lo - plan.pad_f, c_hi + plan.pad_f
-        hit = torch.zeros(grid, dtype=torch.bool, device=dev)
-        u_lo = torch.full_like(c_lo, _EMPTY_LO)
-        u_hi = torch.full_like(c_lo, -_EMPTY_LO)
+        # The neighbours' intervals, placed in this stripe's frame across
+        # the torus wrap.
+        ivals = []
         for slot in (-1, 0, 1):
             j = torch.remainder(idx + slot, grid)
             off = (idx + slot - j) * sh
-            for k in (0, 1):
-                lo, hi = state[2 * k][j] + off, state[2 * k + 1][j] + off
-                nonempty = lo <= hi
-                hit |= nonempty & (lo - SKIP_PERIOD <= w_hi) & (hi + SKIP_PERIOD >= w_lo)
-                clo = torch.maximum(lo, c_lo - t6)
-                chi = torch.minimum(hi, c_hi + t6)
-                keep = nonempty & (clo <= chi)
-                u_lo = torch.where(keep, torch.minimum(u_lo, clo), u_lo)
-                u_hi = torch.where(keep, torch.maximum(u_hi, chi), u_hi)
-    m_lo = torch.maximum(u_lo - t6, c_lo)
-    m_hi = torch.minimum(u_hi + t6, c_hi)
+            ivals += [(state[2 * k][j] + off, state[2 * k + 1][j] + off) for k in (0, 1)]
+        hit, m_lo, m_hi = hit_union(ivals, c_lo, c_hi, plan)
 
     g_t = packed.superstep(r, rule, plan.t)
     g_t6 = packed.superstep(g_t, rule, SKIP_PERIOD)
     rows = torch.arange(h, device=dev)
     of = rows // sh
     hot = (g_t6 != g_t).any(dim=1) & hit[of] & (rows >= m_lo[of]) & (rows <= m_hi[of])
-    # _measure2: the stripe-wide span, split at its midpoint.
-    hot, rows = hot.view(grid, sh), rows.view(grid, sh)
-    big = torch.full_like(rows, _EMPTY_LO)
-    lo = torch.where(hot, rows, big).amin(dim=1)
-    hi = torch.where(hot, rows, -big).amax(dim=1)
-    split = torch.div(lo + hi, 2, rounding_mode="floor")[:, None]
-    hi0 = torch.where(hot & (rows <= split), rows, -big).amax(dim=1)
-    lo1 = torch.where(hot & (rows > split), rows, big).amin(dim=1)
-    empty = lo > hi
-    one = empty | (lo1 > hi)
-    new_state = torch.stack([
-        torch.where(empty, _EMPTY_LO, lo),
-        torch.where(empty, -1, torch.where(lo1 > hi, hi, hi0)),
-        torch.where(one, _EMPTY_LO, lo1),
-        torch.where(one, -1, hi),
-        hit.to(torch.int64),
-    ])
+    new_state = torch.cat([measure2(hot.view(grid, sh), rows.view(grid, sh)),
+                           hit.to(torch.int64)[None]])
     copy = ~hit & (state[4].bool() if state is not None else hit)
     out = torch.where(hit[of, None], g_t, torch.where(copy[of, None], r, w))
     act = (new_state[0] <= new_state[1]).to(torch.int32)

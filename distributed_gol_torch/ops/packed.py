@@ -192,11 +192,35 @@ def superstep(a: torch.Tensor, rule: LifeRule, turns: int) -> torch.Tensor:
     return a
 
 
+def steps_with_counts(a: torch.Tensor, rule: LifeRule, turns: int):
+    """``turns`` generations -> (packed board, per-turn alive counts of
+    :func:`count_dtype`): ``counts[i]`` is the count after generation
+    ``i + 1``."""
+    dtype = count_dtype(a.numel() * WORD)
+    counts = []
+    for _ in range(turns):
+        a = step(a, rule)
+        counts.append(alive_count(a).to(dtype))
+    if not counts:
+        return a, torch.zeros(0, dtype=dtype, device=a.device)
+    return a, torch.stack(counts)
+
+
 def make_superstep(rule: LifeRule = CONWAY):
     """``(board_u8, turns) -> board_u8`` with all generations packed."""
 
     def run(board: torch.Tensor, turns: int) -> torch.Tensor:
         return unpack(superstep(pack(board), rule, turns))
+
+    return run
+
+
+def make_steps_with_counts(rule: LifeRule = CONWAY):
+    """``(board_u8, turns) -> (board_u8, per-turn counts)``."""
+
+    def run(board: torch.Tensor, turns: int):
+        final, counts = steps_with_counts(pack(board), rule, turns)
+        return unpack(final), counts
 
     return run
 

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from distributed_gol_torch.models.life import LifeRule
+from distributed_gol_torch.models.life import CONWAY, LifeRule
 
 
 def rule_table(rule: LifeRule, device) -> torch.Tensor:
@@ -95,6 +95,20 @@ def viewport(board: torch.Tensor, y0: int, x0: int, vh: int, vw: int) -> torch.T
 def flip_mask(prev: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
     """Cells that changed between two boards, as a uint8 0/1 mask."""
     return (prev ^ new) & 1
+
+
+def make_step_fn(rule: LifeRule = CONWAY):
+    """A one-generation function specialised to ``rule``: ``board ->
+    board``, with the rule table made once per device."""
+    tables: dict = {}
+
+    def fn(board: torch.Tensor) -> torch.Tensor:
+        table = tables.get(board.device)
+        if table is None:
+            table = tables[board.device] = rule_table(rule, board.device)
+        return step(board, table)
+
+    return fn
 
 
 # Weight of each of the 8 cells of a packed byte, first cell highest.

@@ -22,7 +22,9 @@ is single-controller SPMD: one process, a ``Mesh``, ``shard_map`` and
 Nothing here writes a shard it has read: every generation or launch
 builds fresh extended blocks and fresh output shards, so shards that share
 one device and one stream (a virtual mesh) always exchange halos of the
-same generation.
+same generation.  :func:`edge_rows` is the exchange without extended
+blocks, for the adaptive strip kernels: their launches write buffers of
+two launches ago, never the strips the exchange handed out.
 
 The roll forms (:func:`sharded_step`, :func:`sharded_superstep`,
 :func:`sharded_steps_with_counts`) advance a {0,255} uint8 board one
@@ -216,6 +218,21 @@ def extend(board: ShardedBoard, pad: int, xpad: int) -> list[list[torch.Tensor]]
             for iy in range(ny):
                 ext[iy][d][:, xpad + w :].copy_(ext[iy][s][:, xpad : 2 * xpad])
     return ext
+
+
+def edge_rows(strips: list[torch.Tensor], n: int) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """The row exchange of a row mesh without the extended blocks: for
+    each strip (top to bottom), ``(north, south)`` — its north
+    neighbour's last ``n`` rows and its south neighbour's first ``n``,
+    on its own device (a self-send when there is one strip: the torus
+    wrap).  A neighbour on the same device gives a view, on another a
+    copy; the strips' kernels read them and write other buffers."""
+    ny = len(strips)
+    h = strips[0].shape[0]
+    if not 1 <= n <= h:
+        raise ValueError(f"an exchange of {n} rows does not fit a strip of {h}")
+    return [(strips[(i - 1) % ny][-n:].to(t.device), strips[(i + 1) % ny][:n].to(t.device))
+            for i, t in enumerate(strips)]
 
 
 def _exchange_and_extend(board: ShardedBoard) -> list[list[torch.Tensor]]:

@@ -1,0 +1,442 @@
+"""The adaptive strip kernels of the port (``parallel/cuda_halo.py``: K10,
+K11, K12) against the JAX package's, launch by launch.
+
+On the CPU the wrappers run their plain versions.  The JAX side runs its
+Pallas kernels in interpret mode, made by the same functions that make
+them for its ``make_superstep``: ``_build_ext_launch(..., skip_stable=True)`` (``_ext_kernel``'s skip
+form), ``_build_ext_launch_adaptive`` (``_ext_kernel_adaptive``) and
+``_build_ext_launch_frontier`` (``_ext_kernel_frontier``).  Both get the
+same seeded strip, neighbour rows, bitmaps or interval arrays and the
+same buffer of two launches ago; boards, bitmaps and row intervals must
+be equal, tolerance 0.  K12 keeps no column interval: its JAX counterpart
+is fed the column intervals its own previous launch measured, and the
+boards, skip flags and row intervals still agree.  Tests marked ``gpu``
+hold the CUDA kernels against their plain versions on the card.
+
+The JAX package is imported inside the tests that compare with it:
+``python -m pytest tests/test_torch_strip_kernels.py -m gpu --noconftest``
+runs the card's tests on a machine without JAX."""
+
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from distributed_gol_torch.models import life as tlife
+from distributed_gol_torch.ops import cuda_adaptive
+from distributed_gol_torch.parallel import cuda_halo
+
+# One intra-op thread: the suite runs in parallel worker processes.
+torch.set_num_threads(1)
+
+GLIDER = np.array([[0, 1, 0], [0, 0, 1], [1, 1, 1]], dtype=bool)  # heads down-right
+BLOCK = np.ones((2, 2), dtype=bool)
+BOARDS = ["ash", "glider_north", "glider_south", "pulsar", "soup"]
+
+
+def _pulsar() -> np.ndarray:
+    p = np.zeros((13, 13), dtype=bool)
+    for c in (2, 3, 4, 8, 9, 10):
+        for r in (0, 5, 7, 12):
+            p[r, c] = p[c, r] = True
+    return p
+
+
+def _put(b: np.ndarray, cells: np.ndarray, y: int, x: int) -> None:
+    ys, xs = np.nonzero(cells)
+    b[(ys + y) % b.shape[0], (xs + x) % b.shape[1]] = True
+
+
+def column(kind: str, n: int, h: int, w: int, stripe: int) -> np.ndarray:
+    """A (n + h + n, w) cell column: the north neighbour's last n rows, the
+    strip's h rows, the south neighbour's first n rows.  "ash": blocks
+    everywhere; "glider_north": ash and a glider in the north rows heading
+    into the strip; "glider_south": one in the strip's last rows heading
+    out of it; "pulsar": period-3 pulsars on the top seam and on a stripe
+    seam; "soup": density 0.3."""
+    rows = n + h + n
+    if kind == "soup":
+        return np.random.default_rng(h + w + n).random((rows, w)) < 0.3
+    b = np.zeros((rows, w), dtype=bool)
+    for y in range(3, rows - 3, 11):
+        for x in range(5 + (y % 3) * 7, w - 3, 37):
+            _put(b, BLOCK, y, x)
+    if kind == "glider_north":
+        b[n - 8 : n, :16] = False
+        _put(b, GLIDER, n - 6, 3)
+    elif kind == "glider_south":
+        b[n + h - 8 : n + h, 40:56] = False
+        _put(b, GLIDER, n + h - 5, 43)
+    elif kind == "pulsar":
+        for y0, x0 in ((n - 6, 20), (n + stripe - 6, 70)):
+            b[y0 - 2 : y0 + 15, x0 - 2 : x0 + 15] = False
+            _put(b, _pulsar(), y0, x0)
+    return b
+
+
+def pack_words(cells: np.ndarray) -> np.ndarray:
+    """(rows, w) bool -> (rows, w / 32) uint32, the packed layout."""
+    bits = cells.reshape(cells.shape[0], -1, 32).astype(np.uint64)
+    return (bits << np.arange(32, dtype=np.uint64)).sum(axis=2).astype(np.uint32)
+
+
+def split(words: np.ndarray, n: int):
+    """(north, local, south) of a packed column."""
+    return words[:n], words[n:-n], words[-n:]
+
+
+def t32(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int32).copy())
+
+
+def u32(t: torch.Tensor) -> np.ndarray:
+    return t.numpy().view(np.uint32)
+
+
+@pytest.fixture(scope="module")
+def ref():
+    """The JAX package's modules (the reference)."""
+    import jax.numpy as jnp
+
+    from distributed_gol_tpu.models import life
+    from distributed_gol_tpu.ops import pallas_packed
+    from distributed_gol_tpu.parallel import pallas_halo
+
+    return SimpleNamespace(jnp=jnp, life=life, pp=pallas_packed, ph=pallas_halo)
+
+
+# -- K10: the skip form of K9 ----------------------------------------------------
+
+
+@pytest.mark.parametrize("rule", ["conway", "highlife"])
+@pytest.mark.parametrize("kind", BOARDS)
+@pytest.mark.parametrize("strip,turns", [((32, 4), 6), ((48, 4), 18), ((64, 8), 24)])
+def test_k10_plain_and_mirror_match_interpret_ext_kernel(ref, rule, kind, strip, turns):
+    """The extended block at the JAX plan's pad = round8(T); the port's
+    plain version and its window mirror (K10's per-tile probe) give the
+    JAX skip-form kernel's centre."""
+    h_loc, wp = strip
+    pad = -(-turns // 8) * 8
+    ext = pack_words(column(kind, pad, h_loc, wp * 32, 16))
+    call = ref.ph._build_ext_launch(strip, ref.life.RULES[rule], turns, True, True, None)
+    want = np.asarray(call(ref.jnp.asarray(ext)))
+    got = cuda_halo.ext_skip_launch(t32(ext), tlife.RULES[rule], turns, pad, 0)
+    assert np.array_equal(u32(got), want)
+    mirror = cuda_halo.ext_skip_launch_mirror(t32(ext), tlife.RULES[rule], turns, pad, 0)
+    assert np.array_equal(u32(mirror), want)
+    if kind == "ash":
+        assert np.array_equal(want, ext[pad:-pad])
+
+
+def test_k10_mirror_copies_a_stable_tile_and_computes_an_active_one():
+    """Tiles of 32 rows x 2 words over ash, one with a glider: the
+    mirror's decision is per tile, and each tile's centre is exact."""
+    col = column("ash", 12, 64, 128, 16)
+    _put(col, GLIDER, 60, 40)
+    ext = t32(pack_words(col))
+    tiles = cuda_halo.TiledPlan(12, 32, 2, 1)
+    got = cuda_halo.ext_skip_launch_mirror(ext, tlife.CONWAY, 12, 12, 0, tiles)
+    assert torch.equal(got, cuda_halo.ext_launch_plain(ext, tlife.CONWAY, 12, 12, 0))
+
+
+def test_k10_refuses_a_depth_off_the_period():
+    ext = torch.zeros((40, 4), dtype=torch.int32)
+    for turns in (5, 7, 0):
+        with pytest.raises(ValueError, match="multiple of 6"):
+            cuda_halo.ext_skip_launch(ext, tlife.CONWAY, turns, 12, 0)
+
+
+# -- K11: the probing strip launch -------------------------------------------------
+
+# (strip in packed words, T): the JAX plan's 16-row tiles at cap 16.
+K11_CASES = [((64, 4), 6), ((64, 4), 12)]
+
+
+def k11_both(ref, rule, local, north, south, dst, prev_ext, plan, tile_cap):
+    """One K11 launch in both packages: (JAX board, JAX bitmap, port
+    board, port bitmap)."""
+    call = ref.ph._build_ext_launch_adaptive(local.shape, ref.life.RULES[rule], plan.t, True,
+                                             tile_cap)
+    jnp = ref.jnp
+    jb, jst = call(jnp.asarray(prev_ext, dtype=jnp.int32), jnp.asarray(local),
+                   jnp.asarray(north), jnp.asarray(south), jnp.asarray(dst))
+    st = torch.ones(plan.grid(local.shape[0]), dtype=torch.int32)
+    got = cuda_halo.strip_probing_launch(t32(local), t32(north), t32(south), t32(dst),
+                                         torch.from_numpy(prev_ext.astype(np.int32)), st,
+                                         tlife.RULES[rule], plan)
+    return np.asarray(jb), np.asarray(jst), u32(got), st.numpy()
+
+
+@pytest.mark.parametrize("rule", ["conway", "highlife"])
+@pytest.mark.parametrize("kind", BOARDS)
+@pytest.mark.parametrize("strip,turns", K11_CASES)
+def test_k11_plain_matches_interpret_kernel_over_two_launches(ref, rule, kind, strip, turns):
+    """Two launches of the ping-pong protocol (both parities): the first
+    from a zero bitmap into a zeroed buffer, the second from its bitmap
+    (neighbour flags 1) into the input's buffer.  Boards and bitmaps are
+    equal after each."""
+    h_loc, wp = strip
+    tile_cap = 16
+    tile_h = ref.ph._strip_plan_tile(strip, turns, tile_cap)
+    plan = cuda_adaptive.AdaptivePlan(turns, tile_h, False)
+    north, local, south = split(pack_words(column(kind, plan.pad, h_loc, wp * 32, tile_h)),
+                                plan.pad)
+    grid = plan.grid(h_loc)
+    bufs = [np.zeros_like(local), local.copy()]
+    prev = np.zeros(grid + 2, np.int32)
+    cur = local
+    for k in range(2):
+        jb, jst, tb, tst = k11_both(ref, rule, cur, north, south, bufs[k % 2], prev, plan,
+                                    tile_cap)
+        assert np.array_equal(tb, jb) and np.array_equal(tst, jst), f"launch {k}"
+        bufs[k % 2], cur = jb, jb
+        prev = np.concatenate([[1], jst, [1]]).astype(np.int32)
+    if kind == "ash" or (kind == "pulsar" and rule == "conway"):
+        assert jst.all()  # proved stable: Conway's pulsar is period 3
+
+
+@pytest.mark.parametrize("flags", ["all", "none", "north-edge", "south-edge", "middle"])
+def test_k11_elision_reads_the_neighbour_flags(ref, flags):
+    """An all-ash strip whose buffer of two launches ago differs from it:
+    a stripe elides (keeps the buffer's rows) exactly where it and both
+    neighbours, across the seams too, were stable."""
+    strip, turns, tile_cap = (64, 4), 6, 16
+    plan = cuda_adaptive.AdaptivePlan(turns, ref.ph._strip_plan_tile(strip, turns, tile_cap),
+                                      False)
+    north, local, south = split(pack_words(column("ash", plan.pad, 64, 128, 16)), plan.pad)
+    dst = pack_words(column("soup", 0, 64, 128, 16)[:64])
+    prev = np.ones(plan.grid(64) + 2, np.int32)
+    prev[{"all": [], "none": slice(None), "north-edge": [0], "south-edge": [-1],
+          "middle": [2]}[flags]] = 0
+    jb, jst, tb, tst = k11_both(ref, "conway", local, north, south, dst, prev, plan, tile_cap)
+    assert np.array_equal(tb, jb) and np.array_equal(tst, jst)
+    assert jst.all()
+    elided = prev[:-2] & prev[1:-1] & prev[2:]
+    rows_kept = np.repeat(elided.astype(bool), plan.stripe_h)
+    assert np.array_equal(tb[rows_kept], dst[rows_kept])
+    assert np.array_equal(tb[~rows_kept], local[~rows_kept])
+
+
+# -- K12: the frontier strip launch --------------------------------------------------
+
+EMPTY = cuda_adaptive._EMPTY_LO
+
+
+def k12_both(ref, rule, local, north, south, dst, ps, jivals, plan, tile_cap):
+    """One K12 launch in both packages from the JAX interval arrays
+    ``jivals`` (six int32[grid + 2]: lo0, hi0, lo1, hi1, clo, chi); the
+    port gets the four row arrays.  Returns the JAX outputs (board, st,
+    six interval arrays) and the port's (board, state)."""
+    jnp = ref.jnp
+    call = ref.ph._build_ext_launch_frontier(local.shape, ref.life.RULES[rule], plan.t, True,
+                                             tile_cap)
+    out = call(jnp.asarray(ps, dtype=jnp.int32), *[jnp.asarray(a, dtype=jnp.int32) for a in jivals],
+               jnp.asarray(local), jnp.asarray(north), jnp.asarray(south), jnp.asarray(dst))
+    out = [np.asarray(o) for o in out]
+    grid = plan.grid(local.shape[0])
+    state = cuda_halo.FrontierState.start(local.shape[0], plan, "cpu")
+    state.prev[4] = torch.from_numpy(1 - ps.astype(np.int32))
+    prev_ext = torch.from_numpy(np.stack(jivals[:4]).astype(np.int32))
+    got = cuda_halo.strip_frontier_launch(t32(local), t32(north), t32(south), t32(dst), prev_ext,
+                                          state, tlife.RULES[rule], plan)
+    assert state.act.shape == (grid,)
+    return out, u32(got), state
+
+
+def full_intervals(grid: int, stripe: int, wp: int, h_loc: int) -> list:
+    """The starting intervals of the JAX package's make_superstep,
+    extended with the neighbour strips' (full too, shifted by -/+ h_loc)."""
+    lo = np.arange(-1, grid + 1) * stripe
+    return [lo, lo + stripe - 1, np.full(grid + 2, EMPTY), np.full(grid + 2, -1),
+            np.zeros(grid + 2), np.full(grid + 2, wp - 1)]
+
+
+def assert_k12_equal(out, tb, state):
+    jb, jst = out[0], out[1]
+    assert np.array_equal(tb, jb)
+    assert np.array_equal(1 - state.cur[4].numpy(), jst)
+    assert np.array_equal(state.cur[:4].numpy(), np.stack(out[2:6]))
+
+
+@pytest.mark.parametrize("rule", ["conway", "highlife"])
+@pytest.mark.parametrize("kind", BOARDS)
+@pytest.mark.parametrize("strip,turns", [((512, 4), 18), ((512, 4), 12)])
+def test_k12_plain_matches_interpret_kernel_over_two_launches(ref, rule, kind, strip, turns):
+    """Launch 1 from full intervals into a zeroed buffer, launch 2 from the
+    intervals launch 1 measured (each package its own; the JAX package's
+    with its column interval), the neighbours' edge stripes empty on the
+    north and live on the south.  Boards, skip flags and row intervals are
+    equal after each launch, and activity follows the row intervals."""
+    h_loc, wp = strip
+    tile_cap = 256
+    tile_h = ref.ph._strip_plan_tile(strip, turns, tile_cap)
+    pad_f = ref.ph._frontier_plan(strip, turns, tile_cap)[0]
+    plan = cuda_adaptive.AdaptivePlan(turns, tile_h, True)
+    assert plan.pad_f == pad_f
+    north, local, south = split(pack_words(column(kind, pad_f, h_loc, wp * 32, tile_h)), pad_f)
+    grid = plan.grid(h_loc)
+    ivals = full_intervals(grid, tile_h, wp, h_loc)
+    out, tb, state = k12_both(ref, rule, local, north, south, np.zeros_like(local),
+                              np.zeros(grid, np.int32), ivals, plan, tile_cap)
+    assert_k12_equal(out, tb, state)
+    # Launch 2: the north neighbour's edge stripe quiet, the south's live
+    # on its first rows (+h_loc in this strip's frame).
+    edge_n = [EMPTY, -1, EMPTY, -1, EMPTY, -1]
+    edge_s = [h_loc + 2, h_loc + 9, EMPTY, -1, 0, wp - 1]
+    jivals = [np.concatenate([[edge_n[k]], out[2 + k], [edge_s[k]]]) for k in range(6)]
+    out2, tb2, state2 = k12_both(ref, rule, out[0], north, south, local, out[1], jivals, plan,
+                                 tile_cap)
+    assert_k12_equal(out2, tb2, state2)
+    act = (state2.cur[0] <= state2.cur[1]).numpy()
+    assert np.array_equal(state2.act.numpy(), act.astype(np.int32))
+    assert np.array_equal(act, (out2[2] <= out2[3]) | (out2[4] <= out2[5]))
+    if kind == "ash":  # only the south neighbour's activity reaches a stripe
+        assert out2[1].tolist() == [1] * (grid - 1) + [0] and not act.any()
+
+
+@pytest.mark.parametrize("case", ["empty-beside-live", "live-north-only", "all-empty"])
+def test_k12_empty_intervals_stay_empty(ref, case):
+    """An empty interval next to a live one, across each seam: the skip
+    decision and the clamped union see only the live one."""
+    strip, turns, tile_cap = (512, 4), 18, 256
+    plan = cuda_adaptive.AdaptivePlan(turns, 256, True)
+    north, local, south = split(pack_words(column("glider_north", 24, 512, 128, 256)), 24)
+    e = [EMPTY, -1]
+    rows = {
+        "empty-beside-live": [[-20, -5] + e, e + e, [100, 120] + e, e + e],
+        "live-north-only": [[-3, -1] + e, e + e, e + e, e + e],
+        "all-empty": [e + e] * 4,
+    }[case]
+    jivals = [np.array([r[k] for r in rows]) for k in range(4)]
+    live = np.array([r[0] <= r[1] for r in rows])
+    jivals += [np.where(live, 0, EMPTY), np.where(live, 3, -1)]
+    dst = pack_words(column("soup", 0, 512, 128, 256)[:512])
+    out, tb, state = k12_both(ref, "conway", local, north, south, dst,
+                              np.array([1, 0], np.int32), jivals, plan, tile_cap)
+    assert_k12_equal(out, tb, state)
+
+
+@pytest.mark.parametrize("kind", ["glider_north", "soup"])
+def test_k12_without_the_column_interval_on_the_column_tier(ref, kind):
+    """512 words wide: the JAX kernel's column tier (a 256-word window)
+    engages from its column intervals; the port, which keeps none, gives
+    the same board, skip flags and row intervals over two launches."""
+    strip, turns, tile_cap = (512, 512), 18, 256
+    tile_h = ref.ph._strip_plan_tile(strip, turns, tile_cap)
+    assert ref.ph._frontier_plan(strip, turns, tile_cap)[2] == 256
+    plan = cuda_adaptive.AdaptivePlan(turns, tile_h, True)
+    col = column("ash", 24, 512, 512 * 32, tile_h)
+    if kind == "soup":
+        _put(col, np.random.default_rng(3).random((40, 40)) < 0.35, 300, 9000)
+    else:
+        _put(col, GLIDER, 24 + 100, 5000)
+    north, local, south = split(pack_words(col), 24)
+    grid = plan.grid(512)
+    out, tb, state = k12_both(ref, "conway", local, north, south, np.zeros_like(local),
+                              np.zeros(grid, np.int32), full_intervals(grid, tile_h, 512, 512),
+                              plan, tile_cap)
+    assert_k12_equal(out, tb, state)
+    e = [EMPTY, -1, EMPTY, -1, EMPTY, -1]
+    jivals = [np.concatenate([[e[k]], out[2 + k], [e[k]]]) for k in range(6)]
+    assert any(lo <= hi < 511 for lo, hi in zip(out[6], out[7]))  # a narrow column interval
+    out2, tb2, state2 = k12_both(ref, "conway", out[0], north, south, local, out[1], jivals, plan,
+                                 tile_cap)
+    assert_k12_equal(out2, tb2, state2)
+
+
+# -- the exchange --------------------------------------------------------------------
+
+
+def test_interval_exchange_shifts_into_the_strip_frame_and_keeps_empty_empty():
+    """(2, 1): both neighbours are the other strip, each side its own
+    edge stripe; rows shift by -/+ h_loc, and an empty interval (lo > hi)
+    stays empty."""
+    s0 = torch.tensor([[0, 10], [5, 12], [EMPTY, EMPTY], [-1, -1], [1, 1]], dtype=torch.int32)
+    s1 = torch.tensor([[EMPTY, 3], [-1, 7], [EMPTY, EMPTY], [-1, -1], [0, 1]], dtype=torch.int32)
+    ext = cuda_halo.edge_intervals([s0, s1], 16)
+    assert ext[0][:, 0].tolist() == [3 - 16, 7 - 16, EMPTY - 16, -17]
+    assert ext[0][:, -1].tolist() == [EMPTY + 16, -1 + 16, EMPTY + 16, 15]
+    assert ext[1][:, 0].tolist() == [10 - 16, 12 - 16, EMPTY - 16, -17]
+    assert ext[1][:, -1].tolist() == [16, 21, EMPTY + 16, 15]
+    for src, e in ((s0, ext[0]), (s1, ext[1])):
+        assert torch.equal(e[:, 1:-1], src[:4])
+    for e in ext:
+        empty = e[0::2] > e[1::2]
+        assert empty[1].all()  # every interval 1 above is empty
+    assert bool(ext[0][0, -1] > ext[0][1, -1])  # s1's empty first stripe, shifted
+
+
+def test_flag_and_row_exchange_on_two_strips():
+    from distributed_gol_torch.parallel import halo
+
+    a = torch.arange(8 * 2, dtype=torch.int32).view(8, 2)
+    b = 100 + a
+    (na, sa), (nb, sb) = halo.edge_rows([a, b], 3)
+    assert torch.equal(na, b[-3:]) and torch.equal(sa, b[:3])
+    assert torch.equal(nb, a[-3:]) and torch.equal(sb, a[:3])
+    fa, fb = torch.tensor([1, 0, 1], dtype=torch.int32), torch.tensor([0, 1, 1], dtype=torch.int32)
+    ea, eb = cuda_halo.edge_flags([fa, fb])
+    assert ea.tolist() == [1, 1, 0, 1, 0] and eb.tolist() == [1, 0, 1, 1, 1]
+
+
+# -- the kernels on the card -----------------------------------------------------
+
+
+@pytest.fixture()
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is False")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", BOARDS)
+@pytest.mark.parametrize("strip,turns", [((256, 64), 24), ((100, 17), 6), ((33, 3), 12)])
+def test_gpu_k10_matches_plain(cuda_device, kind, strip, turns):
+    h_loc, wp = strip
+    ext = t32(pack_words(column(kind, turns, h_loc, wp * 32, 16)))
+    want = cuda_halo.ext_skip_launch_plain(ext, tlife.CONWAY, turns, turns, 0)
+    got = cuda_halo.ext_skip_launch(ext.to(cuda_device), tlife.CONWAY, turns, turns, 0)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", BOARDS)
+@pytest.mark.parametrize("stripe,turns", [(16, 12), (8, 6), (64, 24)])
+def test_gpu_k11_matches_plain(cuda_device, kind, stripe, turns):
+    plan = cuda_adaptive.AdaptivePlan(turns, stripe, False)
+    north, local, south = split(pack_words(column(kind, plan.pad, 128, 2048, stripe)), plan.pad)
+    dst = pack_words(column("soup", 0, 128, 2048, stripe)[:128])
+    prev = torch.from_numpy(np.random.default_rng(1).integers(0, 2, plan.grid(128) + 2)
+                            .astype(np.int32))
+    outs = []
+    for dev in ("cpu", cuda_device):
+        st = torch.ones(plan.grid(128), dtype=torch.int32, device=dev)
+        got = cuda_halo.strip_probing_launch(
+            t32(local).to(dev), t32(north).to(dev), t32(south).to(dev), t32(dst).to(dev),
+            prev.to(dev), st, tlife.CONWAY, plan)
+        outs.append((got.cpu(), st.cpu()))
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", BOARDS)
+def test_gpu_k12_matches_plain_over_three_launches(cuda_device, kind):
+    plan = cuda_adaptive.AdaptivePlan(24, 64, True)
+    h_loc = 256
+    north, local, south = split(pack_words(column(kind, 32, h_loc, 2048, 64)), 32)
+    results = []
+    for dev in ("cpu", cuda_device):
+        state = cuda_halo.FrontierState.start(h_loc, plan, dev)
+        bufs = [torch.zeros_like(t32(local)).to(dev), torch.zeros_like(t32(local)).to(dev)]
+        cur = t32(local).to(dev)
+        n, s = t32(north).to(dev), t32(south).to(dev)
+        for k in range(3):
+            ext = cuda_halo.edge_intervals([state.prev], h_loc)[0]
+            cur = cuda_halo.strip_frontier_launch(cur, n, s, bufs[k % 2], ext, state,
+                                                  tlife.CONWAY, plan)
+            state.advance()
+        results.append((cur.cpu(), state.prev.cpu(), state.skipped.cpu(), state.act.cpu()))
+    for a, b in zip(*results):
+        assert torch.equal(a, b)

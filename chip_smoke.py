@@ -38,18 +38,31 @@ the 16384² soup, skip counts and activity too, and K10 and K9 on path
 equal to the single-device 100,000-turn PGM; (f) 520 x 512 x 3,000 on
 (8, 1), whose strips have no adaptive plan (K10 on every launch), equal to
 a single-device rerun; (g) the soup x 2,000 on (4, 1) at a stripe cap of
-16 (K11), equal to the single-device 2,000-turn PGM.  It
+16 (K11), equal to the single-device 2,000-turn PGM.  Then the
+``skip_stable`` runs on 2-D meshes (the adaptive tile tier, K13 and K10
+at xpad > 0, first held bit for bit against their plain versions on
+(2, 2) and (2, 4) tiles of the 16384² soup, fresh, settled and with
+gliders across the seams and a corner, skip counts and activity grids
+too, and K10 and K9 on path (i)'s (4, 2) tiles at every depth that path
+launches): (h) the 16384² soup x 100,000 on (2, 2) under auto (K13, with
+K10 and K9 for the remainders), equal to the single-device 100,000-turn
+PGM, and again with ``skip_stable=False`` (K9 alone); (i) 520 x 1024 x
+3,000 on (4, 2), whose tiles have no adaptive plan (K10 at xpad 1 on
+every launch), equal to a single-device rerun; (j) the soup x 2,000 on
+(2, 4) at a stripe cap of 16 (K13), equal to the single-device
+2,000-turn PGM.  It
 checks that every kernel of each path launched in it, times every kernel
 against its plain version and its bound (and a viewer turn's parts at
 16384², K6 beside a byte copy of the board and beside a build of K6
 without the modulo in its ring index, K7 beside 16 sequential K1
 launches, and K9 on a (4, 1) strip and a (2, 2) tile beside K2 on the
-whole board and beside the halo exchange, and K10-K12 on a (4, 1) strip
-beside their plain versions), and prints one
+whole board and beside the halo exchange, K10-K12 on a (4, 1) strip
+and K13 and K10 on a (2, 2) tile beside their plain versions), and
+prints one
 ``{"kernels": [...]}`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  ``--profile`` adds a
 ``torch.profiler`` breakdown of the two headless 16384² runs, of the
-three viewer paths, of the sharded (4, 1) run and of strip path (e)
+three viewer paths, of the sharded (4, 1) run and of paths (e) and (h)
 (with the exchange's memcpy time per launch); ``--sweep`` times the adaptive tier over launch
 depths and stripe heights (the sweep that chose
 ``cuda_adaptive.ADAPTIVE_T`` and ``SKIP_TILE_CAP``).  Every phase raises
@@ -157,6 +170,11 @@ KERNELS = {
         source="distributed_gol_torch/csrc/frontier.cu",
         replaces="distributed_gol_tpu/parallel/pallas_halo.py:287 _ext_kernel_frontier",
     ),
+    "tile_probing": dict(
+        route="cuda",
+        source="distributed_gol_torch/csrc/probing.cu",
+        replaces="distributed_gol_tpu/parallel/pallas_halo.py:1104 _ext_kernel_adaptive_2d",
+    ),
 }
 WRAPPERS = {
     "resident": cuda_packed.resident_superstep,
@@ -171,9 +189,11 @@ WRAPPERS = {
     "ext_skip": cuda_halo.ext_skip_launch,
     "strip_probing": cuda_halo.strip_probing_launch,
     "strip_frontier": cuda_halo.strip_frontier_launch,
+    "tile_probing": cuda_halo.tile_probing_launch,
 }
 ADAPTIVE = ("tiled_skip", "probing", "frontier")
 STRIPS = ("ext_skip", "strip_probing", "strip_frontier")
+HALO = ("ext", *STRIPS, "tile_probing")  # the sharded drivers' kernels
 LONG_TURNS = 100_000  # the auto skip_stable threshold (Params._SKIP_AUTO_TURNS)
 STENCIL_ODD = (1004, 3076)  # W % 128 != 0 and H % 8 != 0: refused by the TPU gate
 VIEWPORT = (8000, 8000, 1024, 1024)  # the viewport path's starting rect
@@ -201,6 +221,13 @@ PACKED_SIDE = 4096
 MESH_E, MESH_F = (4, 1), (8, 1)
 PLAN_LESS = (520, 512, 3_000)
 PROBE_CAP = 16
+# The skip_stable runs on 2-D meshes: (h) the 16384² soup x 100,000 on
+# (2, 2) under auto (K13, the remainders on K10 and K9 at xpad 1); (i) 520
+# x 1024 x 3,000 on (4, 2), whose 130-row tiles have no multiple-of-8
+# stripe (K10 at xpad 1 on every launch, no K13); (j) the soup x 2,000 on
+# (2, 4) at ``PROBE_CAP`` (16-row stripes, T = 12: K13).
+MESH_H, MESH_I, MESH_J = (2, 2), (4, 2), (2, 4)
+TILE_PLAN_LESS = (520, 1024, 3_000)
 
 
 def virtual(mesh_shape: tuple, device) -> list:
@@ -275,19 +302,38 @@ def bound_ms(words: int, gens: int, launches: int, rule: LifeRule, int_rate: flo
 
 
 def ext_bound_ms(strip: tuple[int, int], t: int, pad: int, xpad: int, rule: LifeRule,
-                 int_rate: float):
+                 int_rate: float, share: float = 1.0):
     """K9's least time for one T-generation launch on an (h_loc, wpl)
     centre: only the centre's light cone is work.  Generation k (1..T)
     needs the centre plus T - k rows on each side and, on a 2-D mesh
     (``xpad`` > 0), ceil((T - k) / 32) words on each side (a row mesh's
     columns wrap: wpl words); ``ops_per_word`` instructions a word over the
-    int32 rate, against one read of the (h_loc + 2·pad, wpl + 2·xpad)
-    extended block and one write of the centre over the memory rate."""
+    int32 rate, scaled by the ``share`` of the centre that must compute
+    (K10: ``k10_share``), against one read of the (h_loc + 2·pad,
+    wpl + 2·xpad) extended block and one write of the centre over the
+    memory rate."""
     h_loc, wpl = strip
     words = sum((h_loc + 2 * (t - k)) * (wpl + (2 * -(-(t - k) // 32) if xpad else 0))
                 for k in range(1, t + 1))
     moved = (h_loc + 2 * pad) * (wpl + 2 * xpad) + h_loc * wpl
-    return larger_ms(moved * 4 / HBM_BYTES_PER_S, words * ops_per_word(rule) / int_rate)
+    return larger_ms(moved * 4 / HBM_BYTES_PER_S, share * words * ops_per_word(rule) / int_rate)
+
+
+def k10_share(ext: torch.Tensor, strip: tuple[int, int], t: int, xpad: int):
+    """(share, stable tiles) of a K10 launch of ``t`` generations on the
+    extended block ``ext`` of an (h_loc, wpl) centre: the centre words of
+    K10's own tiles whose skip proof fails (``ext_skip_stable_tiles``, the
+    kernel's arithmetic in PyTorch) over all the centre's words, and the
+    (tile rows, tile columns) grid of 1 where the proof holds."""
+    stable = cuda_halo.ext_skip_stable_tiles(ext, CONWAY, t, t, xpad).cpu()
+    tiles = cuda_halo.ext_tiles(strip, t)
+    h_loc, wpl = strip
+    rows = torch.tensor([min(tiles.tile_h, h_loc - i * tiles.tile_h)
+                         for i in range(stable.shape[0])])
+    cols = torch.tensor([min(tiles.tile_w, wpl - j * tiles.tile_w)
+                         for j in range(stable.shape[1])])
+    share = int((rows[:, None] * cols[None, :])[~stable].sum()) / (h_loc * wpl)
+    return share, stable.int().tolist()
 
 
 # Integer instructions K6 spends per cell, counted from csrc/stencil.cu
@@ -642,10 +688,11 @@ def check_strip_launches(sb, rule: LifeRule, errs: dict, plans, name: str) -> No
 
 @contextlib.contextmanager
 def plain_strip_kernels():
-    """The strip tier's four wrappers (K9-K12) replaced by their plain
+    """The sharded tiers' five wrappers (K9-K13) replaced by their plain
     versions while the block runs: a whole ``make_superstep`` dispatch on
     the card through no kernel, the yardstick of the dispatch check."""
-    names = ("ext_launch", "ext_skip_launch", "strip_probing_launch", "strip_frontier_launch")
+    names = ("ext_launch", "ext_skip_launch", "strip_probing_launch", "strip_frontier_launch",
+             "tile_probing_launch")
     saved = {n: getattr(cuda_halo, n) for n in names}
     for n in names:
         setattr(cuda_halo, n, getattr(cuda_halo, f"{n}_plain"))
@@ -717,21 +764,26 @@ def check_strips(device, errs: dict, boards: dict) -> dict:
     return cases
 
 
-def check_plan_less(device, errs: dict) -> halo.ShardedBoard:
-    """K10 and K9 against their plain versions, tolerance 0, at path (f)'s
-    shapes: the ``PLAN_LESS`` soup split ``MESH_F`` on a virtual mesh,
-    fresh and after the path's turns, both rules, on every strip's
-    extended block at each depth the path launches: K10 from 6 to the
-    full launches' T (``skip_launch_depth``) in steps of 6 (the full
-    launches of shorter dispatches and the rem6 remainders), K9 from 1
-    to 5 (the remainders' tail).  Returns the fresh sharded board (phase
-    4 times K10 on it)."""
-    h, w, turns = PLAN_LESS
-    m = mesh_lib.make_mesh(MESH_F, virtual(MESH_F, device))
-    strip = (h // MESH_F[0], w // 32)
-    t_full, skip = cuda_halo.skip_launch_depth(strip, turns)
-    if cuda_halo.adaptive_strip_plan(strip, turns) is not None or not skip:
-        raise AssertionError(f"path (f)'s {strip} strips have an adaptive plan or no K10 launch")
+def check_plan_less(device, errs: dict, dims: tuple, mesh_shape: tuple, tag: str
+                    ) -> halo.ShardedBoard:
+    """K10 and K9 against their plain versions, tolerance 0, at the shapes
+    of path (f) (``PLAN_LESS`` on ``MESH_F``) or (i) (``TILE_PLAN_LESS`` on
+    ``MESH_I``): the soup of ``dims`` split ``mesh_shape`` on a virtual
+    mesh, fresh and after the path's turns, both rules, on every shard's
+    extended block at each depth the path launches: K10 from 6 to the full
+    launches' T (``skip_launch_depth``) in steps of 6 (the full launches
+    of shorter dispatches and the rem6 remainders), K9 from 1 to 5 (the
+    remainders' tail), each with the path's x-halo (ceil(T / 32) words on
+    a 2-D mesh, none on a row mesh).  Returns the fresh sharded board
+    (phase 4 times K10 on it)."""
+    h, w, turns = dims
+    m = mesh_lib.make_mesh(mesh_shape, virtual(mesh_shape, device))
+    shard = (h // mesh_shape[0], w // 32 // mesh_shape[1])
+    two_d = mesh_shape[1] > 1
+    t_full, skip = cuda_halo.skip_launch_depth(shard, turns)
+    plan = (cuda_halo.adaptive_tile_plan if two_d else cuda_halo.adaptive_strip_plan)(shard, turns)
+    if plan is not None or not skip:
+        raise AssertionError(f"path ({tag})'s {shard} shards have an adaptive plan or no K10 launch")
     fresh = halo.board_sharding(m).shard(packed.pack(board(h, w, 7, device)))
     cases = {"fresh": fresh, "settled": cuda_halo.make_superstep(m, CONWAY, True)(fresh, turns)}
     depths = [(t, cuda_halo.ext_launch, cuda_halo.ext_launch_plain, "ext") for t in range(1, 6)]
@@ -740,15 +792,129 @@ def check_plan_less(device, errs: dict) -> halo.ShardedBoard:
     for rule in RULES:
         for name, sb in cases.items():
             for t, fn, plain, k in depths:
-                for e in (e for row in halo.extend(sb, t, 0) for e in row):
-                    got, want = fn(e, rule, t, t, 0), plain(e, rule, t, t, 0)
+                xpad = -(-t // 32) if two_d else 0
+                for e in (e for row in halo.extend(sb, t, xpad) for e in row):
+                    got, want = fn(e, rule, t, t, xpad), plain(e, rule, t, t, xpad)
                     errs[k] = max(errs[k], max_abs_err(got, want))
                     if not torch.equal(got, want):
-                        raise AssertionError(f"{k} != plain at {t} turns on path (f)'s {name} "
-                                             f"strips under {rule.notation}")
-            log(f"K10 x {{6..{t_full}}} and K9 x {{1..5}} on the {MESH_F[0]} {name} "
-                f"{strip[0]}x{strip[1]}-word strips of {h}x{w} {rule.notation}: identical")
+                        raise AssertionError(f"{k} != plain at {t} turns (xpad {xpad}) on path "
+                                             f"({tag})'s {name} shards under {rule.notation}")
+            log(f"K10 x {{6..{t_full}}} and K9 x {{1..5}} on the {mesh_shape} {name} "
+                f"{shard[0]}x{shard[1]}-word shards of {h}x{w} {rule.notation}: identical")
     return fresh
+
+
+def tile_seam_gliders(p: torch.Tensor) -> torch.Tensor:
+    """``p`` with gliders ORed in on the seams of a (2, 2) split, each
+    heading down and right across it: one across the row seam, one across
+    the column seam, one across the corner where the four tiles meet, and
+    one across the torus corner."""
+    b = packed.unpack(p).cpu().numpy()
+    glider = np.array([[0, 255, 0], [0, 0, 255], [255, 255, 255]], dtype=np.uint8)
+    half = BIG // 2
+    for y, x in ((half - 5, BIG // 4), (BIG // 4, half - 5), (half - 5, half - 5),
+                 (BIG - 5, BIG - 5)):
+        b[y - 3 : y + 6, x - 3 : x + 6] = 0
+        b[y : y + 3, x : x + 3] |= glider
+    return packed.pack(torch.from_numpy(b).to(p.device))
+
+
+def check_tile_launches(sb, rule: LifeRule, errs: dict, plan, xpad: int, name: str) -> None:
+    """K13 against its plain version launch by launch: three launches on
+    every tile of ``sb`` (both parities of the buffer), each launch's tile
+    and stable flags recorded and compared, tolerance 0."""
+    runs = []
+    for fn in (WRAPPERS["tile_probing"], cuda_halo.tile_probing_launch_plain):
+        seen = []
+
+        def record(*args, _fn=fn, _seen=seen):
+            out = _fn(*args)
+            _seen.append((out.clone(), args[3].clone()))
+            return out
+
+        cuda_halo.tile_probing_launches(sb, rule, plan, xpad, 3, record)
+        runs.append(seen)
+    torch.cuda.synchronize()
+    for (tile, flags), (want_tile, want_flags) in zip(*runs):
+        err = max(max_abs_err(tile, want_tile), max_abs_err(flags, want_flags))
+        errs["tile_probing"] = max(errs["tile_probing"], err)
+        if err:
+            raise AssertionError(f"K13 != plain launch by launch ({plan}) on the {name} tiles "
+                                 f"under {rule.notation}")
+
+
+def check_tiles(device, errs: dict, boards: dict) -> dict:
+    """K13 and K10 at xpad > 0 against their plain versions, tolerance 0,
+    on the 16384² soup split ``MESH_H`` (paths (h) and (j)'s shapes split
+    ``MESH_J`` too) on a virtual mesh: fresh, settled (after
+    ``LONG_TURNS`` generations) and settled with gliders across the row
+    seam, the column seam and a corner (``tile_seam_gliders``).  Whole
+    ``skip_stable`` dispatches of the tile tier, both rules: on
+    ``MESH_H`` 9·t - 5 turns at the port's plan (8 K13 launches a tile,
+    both parities of the buffer, then a K10 remainder of t - 6 and a K9
+    of 1, at xpad 1), and on both meshes 4·t - 5 at ``PROBE_CAP`` (3 K13
+    launches a tile, then K10 at 6 and K9 at 1), each against the same
+    dispatch through the plain versions on the card: boards, skip counts
+    and (stripe, x-tile) activity; then K13 launch by launch
+    (``check_tile_launches``), and on ``MESH_H`` K10 alone at depths 6 to
+    30 on every tile's extended block (pad = T, xpad = ceil(T / 32)).
+    Returns the ``MESH_H`` sharded boards (phase 4 times them)."""
+    boards = {"fresh": boards["fresh"], "settled": boards["settled"],
+              "seam": tile_seam_gliders(boards["settled"])}
+    sharded = {}
+    for mesh_shape, caps in ((MESH_H, (0, PROBE_CAP)), (MESH_J, (PROBE_CAP,))):
+        m = mesh_lib.make_mesh(mesh_shape, virtual(mesh_shape, device))
+        sharding = halo.board_sharding(m)
+        ntiles = mesh_shape[0] * mesh_shape[1]
+        tile = (BIG // mesh_shape[0], BIG // 32 // mesh_shape[1])
+        plans = [cuda_halo.adaptive_tile_plan(tile, 10**6, cap) + (cap,) for cap in caps]
+        cases = {name: sharding.shard(p) for name, p in boards.items()}
+        for rule in RULES:
+            for name, sb in cases.items():
+                for plan, xpad, cap in plans:
+                    n = 8 if cap == 0 else 3
+                    turns = plan.t * (n + 1) - 5  # n full launches, then K10 and K9
+                    reset_launches()
+                    got, sk, act = cuda_halo.make_superstep(m, rule, True, cap, True)(sb, turns)
+                    torch.cuda.synchronize()
+                    counts = {k: WRAPPERS[k].launches for k in ("tile_probing", "ext_skip", "ext")}
+                    want_counts = {"tile_probing": ntiles * n, "ext_skip": ntiles, "ext": ntiles}
+                    if counts != want_counts:
+                        raise AssertionError(f"tile dispatch launched {counts}, not {want_counts}")
+                    with plain_strip_kernels():
+                        want, wsk, wact = cuda_halo.make_superstep(m, rule, True, cap, True)(
+                            sb, turns)
+                    torch.cuda.synchronize()
+                    err = max(max_abs_err(a, b) for a, b in zip(got.flat, want.flat))
+                    for k in ("tile_probing", "ext_skip", "ext"):
+                        errs[k] = max(errs[k], err)
+                    if err or int(sk) != int(wsk) or not torch.equal(act, wact):
+                        raise AssertionError(
+                            f"tile dispatch != plain ({plan}) on the {mesh_shape} {name} board "
+                            f"under {rule.notation}: skipped {int(sk)} vs {int(wsk)}")
+                    total = cuda_halo.adaptive_strip_launches((BIG, BIG // 32), mesh_shape,
+                                                              turns, cap)
+                    log(f"K13+K10+K9 {mesh_shape} {BIG}^2 x {turns} ({plan}, xpad {xpad}) "
+                        f"{name} {rule.notation}: identical, skipped {int(sk)} of {total}, "
+                        f"active cells {int((act > 0).sum())} of {act.numel()}")
+                    check_tile_launches(sb, rule, errs, plan, xpad, name)
+                if mesh_shape != MESH_H:
+                    log(f"K13 x 3 launches on the {ntiles} {name} tiles of {mesh_shape} "
+                        f"{rule.notation}: identical")
+                    continue
+                for t in (6, 12, 18, 24, 30):
+                    xpad = -(-t // 32)
+                    for e in (e for row in halo.extend(sb, t, xpad) for e in row):
+                        got = cuda_halo.ext_skip_launch(e, rule, t, t, xpad)
+                        want = cuda_halo.ext_skip_launch_plain(e, rule, t, t, xpad)
+                        errs["ext_skip"] = max(errs["ext_skip"], max_abs_err(got, want))
+                        if not torch.equal(got, want):
+                            raise AssertionError(f"K10 != plain at {t} turns, xpad {xpad}, "
+                                                 f"{name} tiles, {rule.notation}")
+                log(f"K13 x 3 launches and K10 x {{6, 12, 18, 24, 30}} (xpad 1) on the "
+                    f"{ntiles} {name} tiles of {mesh_shape} {rule.notation}: identical")
+        sharded[mesh_shape] = cases
+    return sharded[MESH_H]
 
 
 # -- phase 3: the main path ----------------------------------------------------
@@ -1238,6 +1404,68 @@ def strip_paths(tmp: Path, long_pgm: bytes, straight: bytes, launches: dict, dev
     return e2e
 
 
+def tile_paths(tmp: Path, long_pgm: bytes, straight: bytes, launches: dict, device) -> dict:
+    """Phase 3's ``skip_stable`` runs on 2-D meshes, each on a virtual
+    mesh of the one card: (h) the 16384² soup x 100,000 on ``MESH_H``
+    under auto, equal to the single-device run's PGM; (i)
+    ``TILE_PLAN_LESS`` on ``MESH_I``, ``skip_stable=True``, equal to a
+    single-device rerun; (j) the soup x 2,000 on ``MESH_J`` at
+    ``PROBE_CAP``, equal to the single-device 2,000-turn PGM.  Each must
+    report ``pallas-packed`` on the ``ppermute`` tier; (h) and (j) must
+    launch K13, (i) K10 and no K13; the remainders' K10 and K9 launches
+    are counted where they ran.  Then (h)'s board on ``MESH_H`` with
+    ``skip_stable=False``, K9 alone, equal to the same PGM."""
+    e2e = {}
+    soup = dict(image_width=BIG, image_height=BIG, soup_density=0.3, soup_seed=7,
+                turn_events="batch", ticker_period=3600)
+    h, w, turns = TILE_PLAN_LESS
+    runs = [
+        ("h", gol.Params(turns=LONG_TURNS, mesh_shape=MESH_H, out_dir=tmp / "tiles_h", **soup),
+         ("tile_probing",), long_pgm),
+        ("i", gol.Params(turns=turns, image_height=h, image_width=w, soup_density=0.3,
+                         soup_seed=7, turn_events="batch", ticker_period=3600, skip_stable=True,
+                         mesh_shape=MESH_I, out_dir=tmp / "tiles_i"),
+         ("ext_skip",), dict(mesh_shape=(1, 1), skip_stable=False)),
+        ("j", gol.Params(turns=2000, skip_stable=True, skip_tile_cap=PROBE_CAP,
+                         mesh_shape=MESH_J, out_dir=tmp / "tiles_j", **soup),
+         ("tile_probing",), straight),
+    ]
+    for tag, params, kernels, want in runs:
+        if not params.skip_stable_requested():
+            raise AssertionError(f"skip_stable is not requested on path ({tag})")
+        ny, nx = params.mesh_shape
+        name = f"tiles ({tag}) {params.image_height}x{params.image_width} x {params.turns} on {ny}x{nx}"
+        out, sink = drive(name, params, kernels, launches, want,
+                          devices=virtual(params.mesh_shape, device))
+        for k in ("ext", "ext_skip"):  # the remainders' launches count too
+            if k not in kernels:
+                launches[k] += out["launches"][k]
+        tier = sink.report["info"].get("backend.sharded_tier")
+        if tier != "ppermute":
+            raise AssertionError(f"{name}: backend.sharded_tier {tier!r}, not 'ppermute'")
+        if tag == "i" and out["launches"]["tile_probing"]:
+            raise AssertionError(f"{name}: a tile without a plan launched K13")
+        out["sharded_tier_policy"] = sink.report["info"].get("backend.sharded_tier_policy")
+        e2e[f"tiles_{tag}_{params.image_height}x{params.image_width}x{params.turns}_{ny}x{nx}"] = out
+        print(f"tile path {name}: {out['seconds']:.3f} s, {out['gens_per_s']:.1f} gens/s, "
+              f"dispatch loop {out['dispatch_loop_s']:.3f} s, skip fraction "
+              f"{out.get('skip_fraction')}, active stripes {out.get('active_stripes')}, "
+              f"launches { {k: out['launches'][k] for k in ('ext', 'ext_skip', 'tile_probing')} }",
+              flush=True)
+    # (h) again without skip_stable (K9 alone): what auto's tile tier
+    # costs or saves on a 2-D mesh.
+    params = gol.Params(turns=LONG_TURNS, mesh_shape=MESH_H, skip_stable=False,
+                        out_dir=tmp / "tiles_h_k9", **soup)
+    name = f"tiles (h) {BIG}x{BIG} x {LONG_TURNS} on {MESH_H[0]}x{MESH_H[1]}, skip_stable=False"
+    out, _ = drive(name, params, ("ext",), launches, long_pgm, devices=virtual(MESH_H, device))
+    if out["launches"]["tile_probing"] or out["launches"]["ext_skip"]:
+        raise AssertionError(f"{name}: launched a skip_stable kernel")
+    e2e[f"tiles_h_{BIG}x{BIG}x{LONG_TURNS}_{MESH_H[0]}x{MESH_H[1]}_no_skip"] = out
+    print(f"tile path {name}: {out['seconds']:.3f} s, {out['gens_per_s']:.1f} gens/s, dispatch "
+          f"loop {out['dispatch_loop_s']:.3f} s, K9 launches {out['launches']['ext']}", flush=True)
+    return e2e
+
+
 def serving_paths(tmp: Path, launches: dict) -> dict:
     """Phase 3's serving paths: the K7 pod batched and unbatched, the K8
     pod, and the ``serve`` CLI."""
@@ -1264,7 +1492,7 @@ def profile_run(turns: int, side: int = BIG, devices=None, **viewer) -> dict:
     run has batch turn events.  ``loop_idle_share_at_least`` bounds the
     device's idle share of the dispatch loop from below: all of the run's
     device time, loop or not, over the loop's seconds.  A sharded run also
-    reports its K9-K12 launches and the device time per sharded launch
+    reports its K9-K13 launches and the device time per sharded launch
     (one launch per shard) of its device-to-device memcpys: on a row mesh
     these are the halo exchange's copies and nothing else
     (``halo.extend`` copies contiguous row blocks; packing and the gather
@@ -1283,7 +1511,7 @@ def profile_run(turns: int, side: int = BIG, devices=None, **viewer) -> dict:
         reset_launches()
         with torch.profiler.profile(activities=acts) as prof:
             wall, _ = stream_run(params, sink, devices=devices)
-        halo_launches = {k: WRAPPERS[k].launches for k in ("ext", *STRIPS)}
+        halo_launches = {k: WRAPPERS[k].launches for k in HALO}
     rows = []
     for a in prof.key_averages():
         # Kernel and copy rows only: a host op's row repeats its kernels'
@@ -1489,9 +1717,9 @@ def time_strips(cases: dict, int_rate: float) -> dict:
     strip and K11 over 8 from a zero bitmap (each moves and computes only
     the stripes it computes, T + 6 and T generations); K10 one launch of
     18 generations (a remainder depth of path (e)) on strip 0's extended
-    block, its computed share the stripes K11's first launch does not
-    prove stable, of the centre's light cone (``ext_bound_ms``' count);
-    it reads the block and writes the centre; then K10 at path (f)'s
+    block, its computed share that of K10's own tiles whose skip proof
+    fails (``k10_share``), of the centre's light cone (``ext_bound_ms``'
+    count); it reads the block and writes the centre; then K10 at path (f)'s
     shape (strip 0's block of ``cases["plan_less"]``, the fresh soup, at
     the full launches' T; bound as K9's, every tile computing)."""
     strip = (BIG // MESH_E[0], BIG // 32)
@@ -1519,24 +1747,19 @@ def time_strips(cases: dict, int_rate: float) -> dict:
                                bound_ms=b_ms, bound_by=b_by)
         t = 18
         e = halo.extend(sb, t, 0)[0][0]
-        _, sk1, _ = cuda_halo.probing_launches(strips, CONWAY, pplan, 1)
-        grid = pplan.grid(strip[0])
-        share = (ny * grid - int(sk1)) / (ny * grid)
-        h_loc, wpl = strip
-        cone = sum(h_loc + 2 * (t - k) for k in range(1, t + 1)) * wpl
-        moved = (h_loc + 2 * t) * wpl + h_loc * wpl
-        b_ms, b_by = larger_ms(moved * 4 / HBM_BYTES_PER_S,
-                               share * cone * ops_per_word(CONWAY) / int_rate)
+        share, stable = k10_share(e, strip, t, 0)
+        b_ms, b_by = ext_bound_ms(strip, t, t, 0, CONWAY, int_rate, share)
         row["ext_skip"] = dict(
             ms=cuda_ms(lambda: cuda_halo.ext_skip_launch(e, CONWAY, t, t, 0), 20),
             plain_ms=cuda_ms(lambda: cuda_halo.ext_skip_launch_plain(e, CONWAY, t, t, 0), 2),
-            t=t, computed_share=share, bound_ms=b_ms, bound_by=b_by,
+            t=t, computed_share=share, stable_tiles=stable, bound_ms=b_ms, bound_by=b_by,
             ext_same_t_ms=cuda_ms(lambda: cuda_halo.ext_launch(e, CONWAY, t, t, 0), 20))
         out[name] = row
         log(f"{name} strips of {MESH_E}: " + "; ".join(
             f"{k} {row[k]['ms']:.4f} ms (plain {row[k]['plain_ms']:.3f}, bound "
             f"{row[k]['bound_ms']:.4f} by {row[k]['bound_by']})" for k in STRIPS)
-            + f"; K9 at T = {t} {row['ext_skip']['ext_same_t_ms']:.4f} ms")
+            + f"; K9 at T = {t} {row['ext_skip']['ext_same_t_ms']:.4f} ms; K10 computed share "
+            f"{share:.4f}, stable tiles {stable}")
     h, w, turns = PLAN_LESS
     t = cuda_halo.skip_launch_depth((h // MESH_F[0], w // 32), turns)[0]
     e = halo.extend(cases["plan_less"], t, 0)[0][0]
@@ -1553,6 +1776,77 @@ def time_strips(cases: dict, int_rate: float) -> dict:
                for k in STRIPS}
     timings["ext_skip"]["extra"]["path_f"] = path_f
     return timings
+
+
+def time_tiles(cases: dict, int_rate: float) -> dict:
+    """Per-launch times of K13 and of K10 at xpad > 0 on the (2, 2) tiles
+    of the 16384² soup, fresh and settled.  K13 at the port's plan (the
+    plan of path (h)), each call between CUDA events inside the tile
+    tier's own launch sequence (so every launch sees the exchange's
+    inputs), 8 launches a tile from a zero bitmap, beside its plain
+    version the same way; its bound is the work of the stripes it
+    computed (its own skip telemetry), T generations of the stripes'
+    centre words, each read and written once.  K10 one launch of 18
+    generations at xpad 1 on tile (0, 0)'s extended block, beside K9 at
+    the same T and its plain version; its bound is ``ext_bound_ms``' light
+    cone scaled by the share of K10's own tiles whose skip proof fails
+    (``k10_share``), against the block's read and the centre's write."""
+    tile = (BIG // MESH_H[0], BIG // 32 // MESH_H[1])
+    plan, xpad = cuda_halo.adaptive_tile_plan(tile, 10**6)
+    cells = MESH_H[0] * MESH_H[1] * plan.grid(tile[0])
+    out = {}
+    for name in ("fresh", "settled"):
+        sb = cases[name]
+        cuda_halo.tile_probing_launches(sb, CONWAY, plan, xpad, 2)  # warm-up
+        spans, plain = [], []
+        n = 8
+        _, sk, _ = cuda_halo.tile_probing_launches(
+            sb, CONWAY, plan, xpad, n, timed(WRAPPERS["tile_probing"], spans))
+        cuda_halo.tile_probing_launches(sb, CONWAY, plan, xpad, 2,
+                                        timed(cuda_halo.tile_probing_launch_plain, plain))
+        computed = (n * cells - int(sk)) / (n * MESH_H[0] * MESH_H[1])
+        words = computed * plan.stripe_h * tile[1]
+        b_ms, b_by = work_bound_ms(words, words, plan.t, CONWAY, int_rate)
+        row = {"tile_probing": dict(ms=span_ms(spans), plain_ms=span_ms(plain), plan=str(plan),
+                                    xpad=xpad, computed_stripes_per_launch=computed,
+                                    stripes=plan.grid(tile[0]), bound_ms=b_ms, bound_by=b_by)}
+        t, xw = 18, 1
+        e = halo.extend(sb, t, xw)[0][0]
+        share, stable = k10_share(e, tile, t, xw)
+        b_ms, b_by = ext_bound_ms(tile, t, t, xw, CONWAY, int_rate, share)
+        row["ext_skip"] = dict(
+            ms=cuda_ms(lambda: cuda_halo.ext_skip_launch(e, CONWAY, t, t, xw), 20),
+            plain_ms=cuda_ms(lambda: cuda_halo.ext_skip_launch_plain(e, CONWAY, t, t, xw), 2),
+            t=t, xpad=xw, shape=list(e.shape), computed_share=share, stable_tiles=stable,
+            bound_ms=b_ms, bound_by=b_by,
+            ext_same_t_ms=cuda_ms(lambda: cuda_halo.ext_launch(e, CONWAY, t, t, xw), 20))
+        out[name] = row
+        log(f"{name} tiles of {MESH_H}: " + "; ".join(
+            f"{k} {row[k]['ms']:.4f} ms (plain {row[k]['plain_ms']:.3f}, bound "
+            f"{row[k]['bound_ms']:.4f} by {row[k]['bound_by']})" for k in ("tile_probing", "ext_skip"))
+            + f"; K9 at T = {t} {row['ext_skip']['ext_same_t_ms']:.4f} ms; K13 computed "
+            f"{row['tile_probing']['computed_stripes_per_launch']:.2f} of {plan.grid(tile[0])} "
+            f"stripes a tile launch; K10 computed share {share:.4f}, stable tiles {stable}")
+    h, w, turns = TILE_PLAN_LESS
+    strip = (h // MESH_I[0], w // 32 // MESH_I[1])
+    t = cuda_halo.skip_launch_depth(strip, turns)[0]
+    xw = -(-t // 32)
+    e = halo.extend(cases["plan_less"], t, xw)[0][0]
+    b_ms, b_by = ext_bound_ms(strip, t, t, xw, CONWAY, int_rate)
+    path_i = dict(shape=list(e.shape), t=t, xpad=xw, bound_ms=b_ms, bound_by=b_by,
+                  ms=cuda_ms(lambda: cuda_halo.ext_skip_launch(e, CONWAY, t, t, xw), 50),
+                  plain_ms=cuda_ms(lambda: cuda_halo.ext_skip_launch_plain(e, CONWAY, t, t, xw), 5))
+    log(f"K10 at path (i)'s {tuple(e.shape)} block, T = {t}, xpad {xw}: {path_i['ms']:.4f} ms "
+        f"(plain {path_i['plain_ms']:.3f}, bound {b_ms:.5f} by {b_by})")
+    fresh = out["fresh"]["tile_probing"]
+    return dict(
+        tile_probing=dict(ms=fresh["ms"], plain_ms=fresh["plain_ms"],
+                          bound=(fresh["bound_ms"], fresh["bound_by"]),
+                          extra=dict(board="fresh", shape=list(tile), per_board={
+                              name: row["tile_probing"] for name, row in out.items()})),
+        ext_skip_2d=dict(per_board={name: row["ext_skip"] for name, row in out.items()},
+                         path_i=path_i),
+    )
 
 
 def host_ms(fn, reps: int, warm: bool = True) -> float:
@@ -1726,7 +2020,9 @@ def main() -> int:
     k8_stacks = check_frontier_batched(device, errs)
     ext_cases = check_ext(device, errs)
     strip_cases = check_strips(device, errs, boards)
-    strip_cases["plan_less"] = check_plan_less(device, errs)
+    strip_cases["plan_less"] = check_plan_less(device, errs, PLAN_LESS, MESH_F, "f")
+    tile_cases = check_tiles(device, errs, boards)
+    tile_cases["plan_less"] = check_plan_less(device, errs, TILE_PLAN_LESS, MESH_I, "i")
 
     # Phase 3: the main paths, with every count set to 0 just before each run.
     launches = {k: 0 for k in KERNELS}
@@ -1771,6 +2067,12 @@ def main() -> int:
               f"single-device {BIG}^2 x {LONG_TURNS}: {run_long['gens_per_s']:.1f} gens/s, "
               f"dispatch loop {run_long['dispatch_loop_s']:.3f} s, skip fraction "
               f"{run_long.get('skip_fraction')}", flush=True)
+        e2e.update(tile_paths(tmp, long_pgm, straight, launches, device))
+        hh = next(v for k, v in e2e.items() if k.startswith("tiles_h_"))
+        print(f"tile path (h) on {MESH_H}: {hh['gens_per_s']:.1f} gens/s, dispatch loop "
+              f"{hh['dispatch_loop_s']:.3f} s, skip fraction {hh.get('skip_fraction')}; strip "
+              f"path (e) on {MESH_E}: {e['gens_per_s']:.1f} gens/s; single-device "
+              f"{run_long['gens_per_s']:.1f} gens/s", flush=True)
 
     # Phase 4: time each kernel at the main path's shapes.
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1809,6 +2111,9 @@ def main() -> int:
     timings.update(time_batched(k8_stacks, int_rate))
     timings["ext"] = time_ext(ext_cases, int_rate)
     timings.update(time_strips(strip_cases, int_rate))
+    tiles = time_tiles(tile_cases, int_rate)
+    timings["tile_probing"] = tiles["tile_probing"]
+    timings["ext_skip"]["extra"]["tile_2d"] = tiles["ext_skip_2d"]
     witness = k6_witnesses(soups[BIG], wrap_free)
     e2e[f"viewer_turn_{BIG}"] = time_viewer_turn(soups[BIG])
     boards["dead"] = torch.zeros_like(boards["fresh"])
@@ -1847,6 +2152,8 @@ def main() -> int:
                                                  mesh_shape=MESH_A), "card": card}))
         print(json.dumps({"profile": profile_run(LONG_TURNS, BIG, virtual(MESH_E, device),
                                                  mesh_shape=MESH_E), "card": card}))
+        print(json.dumps({"profile": profile_run(LONG_TURNS, BIG, virtual(MESH_H, device),
+                                                 mesh_shape=MESH_H), "card": card}))
     log(f"chip_smoke: {time.perf_counter() - started:.1f} s in all, kernel builds included")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -4,10 +4,10 @@ The engine-run command line of ``python -m distributed_gol_tpu``, flag for
 flag (``-t``, ``-w``, ``-h`` board height, ``-turns``, ``-noVis`` and the
 framework flags), plus ``--device cuda|cpu``.  ``--mesh NYxNX`` shards the
 board over a mesh of that many CUDA devices (``--device cpu``: shards on
-the CPU), headless.  Flags for what the port does not serve yet (the
-supervisor, time compression, telemetry endpoints, multi-host runs, a
-viewer or ``--skip-stable`` on a mesh) are usage errors that name the
-ROADMAP item.  The
+the CPU), headless, ``--skip-stable`` included.  Flags for what the port
+does not serve yet (the supervisor, time compression, telemetry
+endpoints, multi-host runs, a viewer on a mesh) are usage errors that
+name the ROADMAP item.  The
 engine runs in a worker thread while the main thread runs the viewer: the
 terminal renderer by default, the pygame window with ``--window``, a
 headless drain with ``-noVis``; the keyboard listener feeds s/p/q/k (and

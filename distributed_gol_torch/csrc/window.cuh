@@ -1,5 +1,5 @@
 // Shared device code of the tiled kernels (K2 tiled.cu, K3 tiled_skip.cu,
-// K4 and K11 probing.cu, K5, K8 and K12 frontier.cu, K9 and K10 ext.cu): a
+// K4, K11 and K13 probing.cu, K5, K8 and K12 frontier.cu, K9 and K10 ext.cu): a
 // window of the horizontally packed board in shared memory, stepped
 // generation by generation.
 //

@@ -21,8 +21,9 @@ same surface serves it: ``put`` scatters, ``fetch`` gathers, the alive
 count is the sum of the shards' counts, and the engines are the sharded
 roll (``parallel/halo.py``), packed (``parallel/packed_halo.py``) and
 temporally blocked (``parallel/cuda_halo.py``: K9, and with
-``skip_stable`` on a row mesh the adaptive strip kernels K10-K12, with the
-same skip telemetry over the whole mesh) forms.  The controller
+``skip_stable`` the adaptive kernels K10-K12 on a row mesh and K10 and
+K13 on a 2-D mesh, with the same skip telemetry over the whole mesh)
+forms.  The controller
 never touches the board itself, only these methods.
 
 :class:`BatchedBackend` is the board-stack form behind the same seam: B
@@ -153,10 +154,11 @@ class Backend:
         self._warn_if_downgraded(params, shape, mesh_shape)
         if self.engine_used == "pallas-packed":
             # T-deep halos: one exchange a launch buys T generations, by
-            # tensor copies (the TPU's in-kernel exchange tier, ROADMAP
-            # B10, is not ported).  skip_stable runs the adaptive strip
-            # tier on a row mesh with live skip telemetry (a 2-D mesh
-            # raises, naming B11); cap 0 = the port's default stripe cap.
+            # tensor copies (the TPU's in-kernel exchange tiers, ROADMAP
+            # B10 and B12, are not ported).  skip_stable runs the adaptive
+            # strip tier on a row mesh and the adaptive tile tier on a 2-D
+            # mesh, with live skip telemetry; cap 0 = the port's default
+            # stripe cap.
             self.sharded_tier = "ppermute"
             if params.skip_stable_requested():
                 ny, nx = mesh_shape
@@ -238,8 +240,8 @@ class Backend:
         """The adaptive tier with live skip telemetry: each dispatch's
         (skipped, stripe-launches, activity) is kept, device values unread,
         for :meth:`skip_fraction` and :meth:`activity_bitmap`.  On a mesh
-        the stripe-launches and the activity span every strip, top to
-        bottom."""
+        the stripe-launches and the activity span every shard: the strips
+        top to bottom, on a 2-D mesh every (stripe, x-tile) cell."""
         new_board, skipped, act = self._skip_fn(board, turns)
         h, w = self.params.image_height, self.params.image_width
         if self.mesh is not None:
@@ -279,14 +281,18 @@ class Backend:
         a bool vector, one entry per row stripe from the top, True where
         the stripe saw activity — measured by the frontier kernel (gen T + 6
         differs from gen T somewhere), conservatively (not proved stable)
-        by the probing kernel.  Period-6 ash reads inactive.  None before
-        there is one, or off the adaptive tier."""
+        by the probing kernel.  Period-6 ash reads inactive.  A 2-D mesh
+        records the (ny·grid, nx) grid of (stripe, x-tile) cells; its
+        bitmap is the any-over-x, a stripe active where any of its tiles
+        was.  None before there is one, or off the adaptive tier."""
         stats = getattr(self, "_skip_stats", None)
         if not stats or len(stats) < 3:
             return None
         act = np.asarray(torch.as_tensor(stats[-3][2]).cpu().numpy())
         if act.size == 0:
             return None
+        if act.ndim == 2:
+            return (act > 0).any(axis=1)
         return act > 0
 
     def _active_tiles(self) -> float | None:

@@ -167,14 +167,29 @@ def stripe_height(h: int, cap: int = 0) -> int | None:
     return best
 
 
+def fit_probe_halo(t: int, stripe_h: int) -> int:
+    """The launch depth ``t`` (a multiple of 6) lowered in steps of 6 until
+    the probe halo round8(T) fits in one stripe of ``stripe_h`` rows (at
+    least 8): the JAX plan's rule (``_tile_for_pad``: pad <= tile_h).  A
+    stripe's elision reads only its neighbours' flags (three on a board or
+    a strip, nine on a 2-D tile), so no window may reach further than the
+    adjacent stripes."""
+    while _round8(t) > stripe_h:
+        t -= SKIP_PERIOD
+    return t
+
+
 def adaptive_plan(shape: tuple[int, int], turns: int, cap: int = 0) -> AdaptivePlan | None:
     """The port's plan for a ``turns``-generation dispatch of a packed
     (H, wp) board, or None when it runs no adaptive launch (fewer than 6
-    turns, or no stripe height)."""
+    turns, or no stripe height): T = min(24, turns) rounded down to a
+    multiple of 6, then lowered until its probe halo fits a stripe
+    (:func:`fit_probe_halo`)."""
     stripe_h = stripe_height(shape[0], cap) if supports(shape) else None
     t, adaptive = skip_plan(min(ADAPTIVE_T, turns))
     if not adaptive or stripe_h is None:
         return None
+    t = fit_probe_halo(t, stripe_h)
     return AdaptivePlan(t, stripe_h, frontier=_round8(t + SKIP_PERIOD) <= stripe_h)
 
 

@@ -48,9 +48,22 @@ the counterpart of ``make_superstep(skip_stable=True)``'s ppermute form:
   into its row frame (K12).  Each strip keeps two buffers, and a launch
   writes the one of two launches ago (write elision).
 
-A 2-D mesh with ``skip_stable`` raises (ROADMAP B11).  The in-kernel
-exchange tier is not ported (ROADMAP B10): the tier is always
-"ppermute".
+``skip_stable`` on a 2-D mesh (``(ny, nx)``, nx > 1) runs the adaptive
+tile tier, the counterpart of ``make_superstep``'s ``_run_2d`` on its
+ppermute tier:
+
+- :func:`adaptive_tile_plan` is its one plan decision: the strip plan at
+  the tile's height, and an x-halo of ``xpad`` = ceil((T + 6) / 32) words
+  (:func:`probe_xpad`).
+- The full launches run K13 (``csrc/probing.cu``,
+  :func:`tile_probing_launch`; replaces ``_ext_kernel_adaptive_2d``) on
+  each tile pre-extended by ``halo.extend`` (rows, then columns, so the
+  corners ride along), with the 3x3 elision of :func:`tile_elision`; a
+  tile with no plan runs K10 on every launch.  The remainders run K10
+  and K9 at ``xpad`` = ceil(T / 32), as on a row mesh.
+
+The in-kernel exchange tiers are not ported (ROADMAP B10 on a row mesh,
+B12 on a 2-D mesh): the tier is always "ppermute".
 """
 
 from __future__ import annotations
@@ -64,8 +77,7 @@ import torch
 from distributed_gol_torch.models.life import CONWAY, LifeRule
 from distributed_gol_torch.ops import cuda_adaptive, cuda_build, cuda_packed, packed
 from distributed_gol_torch.ops.cuda_adaptive import (
-    _EMPTY_LO, _I, _P, _U, SKIP_PERIOD, AdaptivePlan, _adaptive_eligible, _launcher, _round8,
-    skip_plan)
+    _EMPTY_LO, _I, _P, _U, SKIP_PERIOD, AdaptivePlan, _adaptive_eligible, _launcher, skip_plan)
 from distributed_gol_torch.ops.cuda_packed import (
     SMEM_BYTES, TILED_COLS, TILED_MAX_T, TiledPlan, _check_words, _stream, rule_masks)
 from distributed_gol_torch.ops.packed import WORD
@@ -153,27 +165,43 @@ def launch_plan(
 # -- the adaptive strip plan (pure Python) ----------------------------------------
 
 
-def adaptive_strip_plan(
-    strip: tuple[int, int], turns: int, cap: int = 0
-) -> AdaptivePlan | None:
-    """The plan of a ``skip_stable`` dispatch of ``turns`` generations on a
-    packed (h_loc, wp) strip, the counterpart of ``_adaptive_strip_plan``
-    (and of ``_strip_plan_tile``: the stripes are the plan's): the port's
-    own ``cuda_adaptive.adaptive_plan`` on the strip, its launch depth T
-    lowered in steps of 6 until the probe halo round8(T) fits in one
-    stripe — K11's elision reads only the adjacent stripes' flags, so a
-    window must not reach further, and the halo then lies within the
-    adjacent strip too.  None when the strip has no adaptive plan (no
-    multiple-of-8 stripe height within ``cap``, or fewer than 6 turns).
-    The one decision of :func:`make_superstep`, the skip fraction's
-    denominator and the tier record."""
-    plan = cuda_adaptive.adaptive_plan(strip, turns, cap)
-    if plan is None:
+# The plan of a ``skip_stable`` dispatch on a packed (h_loc, wp) strip, the
+# counterpart of ``_adaptive_strip_plan`` (and of ``_strip_plan_tile``: the
+# stripes are the plan's): the port's one plan rule, whose probe halo
+# round8(T) fits in one stripe, so the halo lies within the adjacent strip
+# too.  The one decision of :func:`make_superstep`, the skip fraction's
+# denominator and the tier record on a row mesh; tests replace it to put
+# the port on the JAX plan.
+adaptive_strip_plan = cuda_adaptive.adaptive_plan
+
+
+def probe_xpad(t: int) -> int:
+    """Words of x-halo a side for a probing launch of ``t`` generations on
+    a 2-D tile: the fewest with T + 6 <= 32·xpad, the JAX plan's x-depth
+    rule (``_x_depth_cap``).  K13's windows read the extended tile's
+    columns modulo its width, as the JAX kernel's lane rotate does; that
+    wrap puts wrong cells at the extended tile's x edges, which spread one
+    cell a generation, so T generations and the probe's 6 must stay
+    within the halo for the probe to see only what the JAX kernel sees
+    and for the centre to be exact."""
+    return -(-(t + SKIP_PERIOD) // WORD)
+
+
+def adaptive_tile_plan(
+    tile: tuple[int, int], turns: int, cap: int = 0
+) -> tuple[AdaptivePlan, int] | None:
+    """(plan, xpad) of a ``skip_stable`` dispatch of ``turns`` generations
+    on a packed (h_loc, wpl) tile of a 2-D mesh, the counterpart of
+    ``_adaptive_plan_2d`` with ``_plan_tile_2d`` and ``_xpad_words``: the
+    strip plan at the tile's height (:func:`adaptive_strip_plan`) and
+    :func:`probe_xpad` of its depth.  None when the tile has no adaptive
+    plan, or its width is below the x-halo.  The one decision of the 2-D
+    branch of :func:`make_superstep`, its skip fraction's denominator and
+    its tier record."""
+    plan = adaptive_strip_plan(tile, turns, cap)
+    if plan is None or probe_xpad(plan.t) > tile[1]:
         return None
-    t = plan.t
-    while _round8(t) > plan.stripe_h:
-        t -= SKIP_PERIOD
-    return AdaptivePlan(t, plan.stripe_h, _round8(t + SKIP_PERIOD) <= plan.stripe_h)
+    return plan, probe_xpad(plan.t)
 
 
 def skip_launch_depth(strip: tuple[int, int], turns: int) -> tuple[int, bool]:
@@ -188,17 +216,23 @@ def adaptive_strip_launches(
     pshape: tuple[int, int], mesh_shape: tuple[int, int], turns: int, cap: int = 0
 ) -> int:
     """How many stripe-launches an adaptive dispatch of ``turns``
-    generations performs across all strips of a row mesh: the skip
-    fraction's denominator, from the plan the dispatch runs (the
-    remainder launches are excluded, as in the JAX package's
-    ``adaptive_strip_launches``).  0 off a row mesh or without a plan."""
+    generations performs across all strips of a row mesh, or all
+    (stripe, x-tile) cells of a 2-D mesh: the skip fraction's denominator,
+    from the plan the dispatch runs (the remainder launches are excluded,
+    as in the JAX package's ``adaptive_strip_launches``).  0 without a
+    plan."""
     ny, nx = mesh_shape
-    if nx != 1 or not supports(pshape, mesh_shape):
+    if not supports(pshape, mesh_shape):
         return 0
-    plan = adaptive_strip_plan((pshape[0] // ny, pshape[1]), turns, cap)
+    h_loc = pshape[0] // ny
+    if nx > 1:
+        tp = adaptive_tile_plan((h_loc, pshape[1] // nx), turns, cap)
+        plan = tp[0] if tp else None
+    else:
+        plan = adaptive_strip_plan((h_loc, pshape[1]), turns, cap)
     if plan is None:
         return 0
-    return (turns // plan.t) * ny * plan.grid(pshape[0] // ny)
+    return (turns // plan.t) * ny * nx * plan.grid(h_loc)
 
 
 # The JAX package's reason for its ppermute tier on a mesh of several
@@ -216,14 +250,20 @@ def tier_policy(mesh: Mesh, strip: tuple[int, int] | None = None, tile_cap: int 
                 ) -> tuple[bool, str]:
     """Whether a ``skip_stable`` run on ``mesh`` takes the in-kernel
     exchange tier, with the reason when it does not; the counterpart of
-    ``ici_tier_policy``, whose reasons it copies.  The in-kernel tier is
-    not ported (ROADMAP B10), so the answer is always False: a strip with
-    no frontier plan says so, as the JAX package does; then ``DGOL_ICI=0``;
-    then a mesh of CPU shards gives the JAX package's interpret-mode
-    reason, and a mesh on the card says that the tier is not ported."""
+    ``ici_tier_policy``, whose reasons it copies.  The in-kernel tiers are
+    not ported (ROADMAP B10 on a row mesh, B12 on a 2-D mesh), so the
+    answer is always False: a strip or tile with no frontier plan says so,
+    as the JAX package does (on a 2-D mesh the plan of
+    :func:`adaptive_tile_plan`, whose x-halo always covers T + 6: the
+    geometry the 2-D megakernel will ride); then ``DGOL_ICI=0``; then a
+    mesh of CPU shards gives the JAX package's interpret-mode reason, and
+    a mesh on the card says that the tier is not ported."""
     ny, nx = mesh.shape["y"], mesh.shape["x"]
     if strip is not None:
-        plan = adaptive_strip_plan(strip, 10**6, tile_cap) if nx == 1 else None
+        if nx == 1:
+            plan = adaptive_strip_plan(strip, 10**6, tile_cap)
+        else:
+            plan = (adaptive_tile_plan(strip, 10**6, tile_cap) or (None,))[0]
         if plan is None or not plan.frontier:
             return False, (
                 f"no frontier plan for tile {strip} on ({ny}, {nx}): the "
@@ -234,6 +274,11 @@ def tier_policy(mesh: Mesh, strip: tuple[int, int] | None = None, tile_cap: int 
         return False, "forced-ppermute (DGOL_ICI=0)"
     if ny * nx > 1 and all(d.type == "cpu" for d in mesh.flat):
         return False, INTERPRET_REASON
+    if nx > 1:
+        return False, (
+            "in-kernel exchange tier not ported (ROADMAP B12): the ppermute "
+            "tile form runs, its exchange by tensor copies"
+        )
     return False, (
         "in-kernel exchange tier not ported (ROADMAP B10): the ppermute "
         "strip form runs, its exchange by tensor copies"
@@ -369,16 +414,14 @@ def ext_skip_launch_plain(
     return ext_launch_plain(ext, rule, turns, pad, xpad)
 
 
-def ext_skip_launch_mirror(
-    ext: torch.Tensor, rule: LifeRule, turns: int, pad: int, xpad: int,
-    tiles: TiledPlan | None = None,
-) -> torch.Tensor:
-    """K10's arithmetic in PyTorch: K9's windows, each stepped 6
+def _ext_skip_probe(ext: torch.Tensor, rule: LifeRule, turns: int, pad: int, xpad: int,
+                    tiles: TiledPlan | None):
+    """K10's skip proof in PyTorch: K9's windows, each stepped 6
     generations and compared with itself at generation 0 on its inner
-    region (rows and cells at least 6 from its edge); a window that agrees
-    keeps its input centre, any other steps on to ``turns``."""
+    region (rows and cells at least 6 from its edge).  Returns (windows at
+    generation 0, at generation 6, bool (ny, nx) stable, tiles, centre)."""
     _check_skip_turns(turns)
-    win0, tiles, grid, centre = _ext_windows(ext, turns, pad, xpad, tiles)
+    win0, tiles, _, centre = _ext_windows(ext, turns, pad, xpad, tiles)
     win = win0
     for _ in range(SKIP_PERIOD):
         win = cuda_packed._window_gen(win, rule)
@@ -387,6 +430,26 @@ def ext_skip_launch_mirror(
     mask[0] &= _FIRST_WORD_INNER
     mask[-1] &= _LAST_WORD_INNER
     stable = ((diff & mask) == 0).flatten(2).all(dim=2)
+    return win0, win, stable, tiles, centre
+
+
+def ext_skip_stable_tiles(
+    ext: torch.Tensor, rule: LifeRule, turns: int, pad: int, xpad: int
+) -> torch.Tensor:
+    """bool (tile rows, tile columns): the tiles of a K10 launch whose skip
+    proof holds, which keep their input centre instead of computing (the
+    work a launch on this block needs, for its bound)."""
+    return _ext_skip_probe(ext, rule, turns, pad, xpad, None)[2]
+
+
+def ext_skip_launch_mirror(
+    ext: torch.Tensor, rule: LifeRule, turns: int, pad: int, xpad: int,
+    tiles: TiledPlan | None = None,
+) -> torch.Tensor:
+    """K10's arithmetic in PyTorch: K9's windows through the skip proof; a
+    window that holds it keeps its input centre, any other steps on to
+    ``turns``."""
+    win0, win, stable, tiles, centre = _ext_skip_probe(ext, rule, turns, pad, xpad, tiles)
     for _ in range(turns - SKIP_PERIOD):
         win = cuda_packed._window_gen(win, rule)
     win = torch.where(stable[:, :, None, None], win0, win)
@@ -628,12 +691,150 @@ def strip_frontier_launch(
 strip_frontier_launch.launches = 0
 
 
+# -- K13: the probing tile launch ---------------------------------------------------
+
+
+def _check_tile(ext: torch.Tensor, elig: torch.Tensor, dst: torch.Tensor, st: torch.Tensor,
+                plan: AdaptivePlan, xpad: int) -> tuple[int, int]:
+    """(h_loc, wpl) of a K13 launch's pre-extended tile, after checking the
+    launch: int32 words on one device, a centre of whole stripes whose
+    probe halo fits one stripe, an x-halo within the tile holding T + 6
+    cells, a write buffer of the centre's shape that is not the input,
+    and bitmaps of one entry a stripe."""
+    for t, ndim in ((ext, 2), (elig, 1), (dst, 2), (st, 1)):
+        _check_words(t, ndim)
+        if t.device != ext.device:
+            raise ValueError("a tile launch's tensors must share one device")
+    h_loc, wpl = ext.shape[0] - 2 * plan.pad, ext.shape[1] - 2 * xpad
+    if (h_loc < 1 or wpl < 1 or h_loc % plan.stripe_h or plan.pad > plan.stripe_h
+            or not 1 <= xpad <= wpl or plan.t + SKIP_PERIOD > WORD * xpad):
+        raise ValueError(f"plan {plan} with xpad {xpad} does not fit the extended tile "
+                         f"{tuple(ext.shape)}: need whole stripes of at least round8(T) rows "
+                         "and 1 <= xpad <= wpl with T + 6 <= 32 * xpad")
+    grid = plan.grid(h_loc)
+    if dst.shape != (h_loc, wpl) or elig.shape != (grid,) or st.shape != (grid,):
+        raise ValueError(f"tile {h_loc}x{wpl} with {grid} stripes: write buffer "
+                         f"{tuple(dst.shape)}, bitmaps {tuple(elig.shape)}, {tuple(st.shape)}")
+    if dst.data_ptr() == ext.data_ptr():
+        raise ValueError("a tile launch cannot write the block it reads")
+    return h_loc, wpl
+
+
+def tile_probing_launch_plain(
+    ext: torch.Tensor, elig: torch.Tensor, dst: torch.Tensor, st: torch.Tensor, rule: LifeRule,
+    plan: AdaptivePlan, xpad: int,
+) -> torch.Tensor:
+    """Plain version of K13 (``_ext_kernel_adaptive_2d``) on one tile:
+    ``ext`` is the tile pre-extended by pad = round8(T) rows and ``xpad``
+    words a side.  Stripe i elides when ``elig[i]`` is 1, leaving its rows
+    of ``dst`` (the tile of two launches ago) as they are; otherwise its
+    window (extended rows [i·stripe_h, i·stripe_h + stripe_h + 2·pad), the
+    whole extended width, columns wrapping modulo it as the JAX kernel's
+    lane rotate does) is stepped 6 generations and compared with itself
+    on rows [6, stripe_h + 2·pad - 6) and every column; a stable stripe
+    writes its input centre, any other its gen-T centre.  Writes ``dst``
+    and this launch's bitmap ``st``; returns ``dst``."""
+    h, wpl = _check_tile(ext, elig, dst, st, plan, xpad)
+    sh, pad = plan.stripe_h, plan.pad
+    dev = ext.device
+    g6 = packed.superstep(ext, rule, SKIP_PERIOD)
+    moved = (g6 != ext).any(dim=1)
+    probe_rows = (torch.arange(plan.grid(h), device=dev)[:, None] * sh + SKIP_PERIOD
+                  + torch.arange(sh + 2 * pad - 2 * SKIP_PERIOD, device=dev)[None, :])
+    stable = ~moved[probe_rows].any(dim=1)
+    centre = (slice(pad, pad + h), slice(xpad, xpad + wpl))
+    g_t = packed.superstep(g6, rule, plan.t - SKIP_PERIOD)[centre]
+    elide = elig.bool()
+    of = torch.arange(h, device=dev) // sh
+    dst.copy_(torch.where(elide[of, None], dst,
+                          torch.where(stable[of, None], ext[centre], g_t)))
+    st.copy_((elide | stable).to(torch.int32))
+    return dst
+
+
+def tile_probing_launch_mirror(
+    ext: torch.Tensor, elig: torch.Tensor, dst: torch.Tensor, st: torch.Tensor, rule: LifeRule,
+    plan: AdaptivePlan, xpad: int, tiles: TiledPlan | None = None,
+) -> torch.Tensor:
+    """K13's window decomposition in PyTorch: K4's blocks
+    (``cuda_adaptive.stripe_tiles`` over the extended width; ``tiles``
+    forces them) tile the extended tile's centre rows and its whole
+    width; each window (the block with pad rows and ``tiles.xpad`` words
+    a side, columns modulo the extended width, zero past its edges) is
+    stepped 6 generations and compared with its input on its inner region
+    (rows and cells at least 6 from its edge); a block that agrees keeps
+    its input, any other steps on to T, and only centre columns are
+    stored.  A stripe's flag is the AND of its blocks'; an eligible stripe
+    does nothing.  Writes ``dst`` and ``st``; returns ``dst``."""
+    h, wpl = _check_tile(ext, elig, dst, st, plan, xpad)
+    pad, wpe = plan.pad, wpl + 2 * xpad
+    tiles = tiles or cuda_adaptive.stripe_tiles((h, wpe), plan.stripe_h, pad)
+    xw = tiles.xpad
+    dev = ext.device
+    ny, nx = h // tiles.tile_h, -(-wpe // tiles.tile_w)
+    rows = (torch.arange(ny, device=dev)[:, None] * tiles.tile_h
+            + torch.arange(tiles.tile_h + 2 * pad, device=dev))
+    cols = torch.remainder(torch.arange(nx, device=dev)[:, None] * tiles.tile_w - xw
+                           + torch.arange(tiles.tile_w + 2 * xw, device=dev), wpe)
+    win0 = ext[rows[:, None, :, None], cols[None, :, None, :]]
+    win = win0
+    for _ in range(SKIP_PERIOD):
+        win = cuda_packed._window_gen(win, rule)
+    diff = (win ^ win0)[:, :, SKIP_PERIOD : win.shape[2] - SKIP_PERIOD]
+    mask = torch.full(diff.shape[-1:], -1, dtype=torch.int32, device=dev)
+    mask[0] &= _FIRST_WORD_INNER
+    mask[-1] &= _LAST_WORD_INNER
+    block_stable = ((diff & mask) == 0).flatten(2).all(dim=2)
+    for _ in range(plan.t - SKIP_PERIOD):
+        win = cuda_packed._window_gen(win, rule)
+    win = torch.where(block_stable[:, :, None, None], win0, win)
+    c = win[:, :, pad : pad + tiles.tile_h, xw : xw + tiles.tile_w]
+    out = c.permute(0, 2, 1, 3).reshape(ny * tiles.tile_h, nx * tiles.tile_w)[:, xpad : xpad + wpl]
+    stable = block_stable.view(plan.grid(h), -1).all(dim=1)
+    elide = elig.bool()
+    of = torch.arange(h, device=dev) // plan.stripe_h
+    dst.copy_(torch.where(elide[of, None], dst, out))
+    st.copy_((elide | stable).to(torch.int32))
+    return dst
+
+
+def tile_probing_launch(
+    ext: torch.Tensor, elig: torch.Tensor, dst: torch.Tensor, st: torch.Tensor, rule: LifeRule,
+    plan: AdaptivePlan, xpad: int,
+) -> torch.Tensor:
+    """K13: one probing launch of ``plan.t`` generations on a tile of a
+    2-D mesh, pre-extended by pad = round8(T) rows and ``xpad`` words a
+    side (``halo.extend``), writing ``dst`` (the tile's buffer of two
+    launches ago) and the int32[grid] bitmap ``st`` (all ones on entry);
+    returns ``dst``.  ``elig`` (int32[grid]) is this launch's elision, the
+    3x3 conjunction of :func:`tile_elision`.  A CPU tensor runs
+    :func:`tile_probing_launch_plain`; a CUDA tensor launches K13 or
+    raises."""
+    h_loc, wpl = _check_tile(ext, elig, dst, st, plan, xpad)
+    if ext.device.type == "cpu":
+        return tile_probing_launch_plain(ext, elig, dst, st, rule, plan, xpad)
+    tiles = cuda_adaptive.stripe_tiles((h_loc, wpl + 2 * xpad), plan.stripe_h, plan.pad)
+    lib, launch = _launcher("probing", "gol_tile_probing_launch",
+                            [_P] * 4 + [_I] * 9 + [_U, _U, _P])
+    born, surv = rule_masks(rule)
+    err = launch(ext.data_ptr(), dst.data_ptr(), elig.data_ptr(), st.data_ptr(), h_loc, wpl,
+                 xpad, plan.t, plan.stripe_h, tiles.tile_h, tiles.tile_w, tiles.xpad, plan.pad,
+                 born, surv, _stream(ext))
+    cuda_build.check(lib, err, "tile_probing")
+    tile_probing_launch.launches += 1
+    return dst
+
+
+tile_probing_launch.launches = 0
+
+
 def reset_launches() -> None:
-    """Set the launch counters of K9, K10, K11 and K12 to 0."""
+    """Set the launch counters of K9, K10, K11, K12 and K13 to 0."""
     ext_launch.launches = 0
     ext_skip_launch.launches = 0
     strip_probing_launch.launches = 0
     strip_frontier_launch.launches = 0
+    tile_probing_launch.launches = 0
 
 
 # -- the drivers ------------------------------------------------------------------
@@ -708,20 +909,68 @@ def frontier_launches(strips, rule, plan, nlaunch, launch=None):
             torch.cat([st.act.to(dev) for st in states]))
 
 
+def tile_elision(flags: list[list[torch.Tensor]]) -> list[list[torch.Tensor]]:
+    """The flag exchange of K13 on an (ny, nx) grid of tiles' bitmaps:
+    each tile's bitmap extended with its y-neighbours' edge flags
+    (:func:`edge_flags` down each mesh column), the vertical triple AND,
+    then the AND with both x-neighbours' triples, whose edge flags bring
+    the corners (``make_superstep``'s ``step`` in the JAX package).  Each
+    result (int32[grid], 1 where the stripe and its eight neighbours were
+    stable) lies on its tile's device.  On a torus axis of 1 or 2 tiles a
+    neighbour is the tile itself or the same tile on both sides."""
+    ny, nx = len(flags), len(flags[0])
+    cols = [edge_flags([flags[iy][ix] for iy in range(ny)]) for ix in range(nx)]
+    v3 = [[e[:-2] & e[1:-1] & e[2:] for e in (cols[ix][iy] for ix in range(nx))]
+          for iy in range(ny)]
+    return [[v & v3[iy][(ix - 1) % nx].to(v.device) & v3[iy][(ix + 1) % nx].to(v.device)
+             for ix, v in enumerate(row)] for iy, row in enumerate(v3)]
+
+
+def tile_probing_launches(board: ShardedBoard, rule, plan: AdaptivePlan, xpad: int,
+                          nlaunch: int, launch=None):
+    """``nlaunch`` K13 launches on every tile of a 2-D mesh from a zero
+    bitmap (launch 0 probes every stripe), each launch one exchange
+    (``halo.extend`` by round8(T) rows and ``xpad`` words) and one launch a
+    tile writing its buffer of two launches ago (the second starts as a
+    copy of the input, which is never written).  Returns (board, skipped,
+    activity): the stable flags after each launch summed over every
+    (stripe, x-tile) cell, and int32 (ny·grid, nx), the launches each cell
+    was not proved stable, stripes top to bottom and tiles left to right
+    (the JAX package's 2-D activity grid).  ``launch`` replaces the
+    wrapper (:func:`tile_probing_launch_plain`: the plain dispatch on any
+    device)."""
+    launch = launch or tile_probing_launch
+    grid = plan.grid(board.shard_shape[0])
+    flags, bufs = [], []
+    for row in board.shards:
+        flags.append([torch.ones((nlaunch + 1, grid), dtype=torch.int32, device=t.device)
+                      for t in row])
+        bufs.append([(torch.empty_like(t), t.clone()) for t in row])
+    for row in flags:
+        for f in row:
+            f[0] = 0
+    for k in range(nlaunch):
+        exts = extend(board, plan.pad, xpad)
+        elig = tile_elision([[f[k] for f in row] for row in flags])
+        board = ShardedBoard(board.mesh, [
+            [launch(e, el, b[k % 2], f[k + 1], rule, plan, xpad)
+             for e, el, b, f in zip(*cells)]
+            for cells in zip(exts, elig, bufs, flags)
+        ])
+    stats = [[cuda_adaptive._probing_stats(f[1:]) for f in row] for row in flags]
+    dev = stats[0][0][1].device
+    act = torch.stack([torch.cat([row[ix][1].to(dev) for row in stats])
+                       for ix in range(len(stats[0]))], dim=1)
+    return board, psum(sk for row in stats for sk, _ in row), act
+
+
 def _ext_step(board: ShardedBoard, rule: LifeRule, turns: int, launch) -> ShardedBoard:
-    """One exchange of ``turns`` rows and one ``launch`` (K9 or K10, or a
-    plain version) per strip of a row mesh."""
-    return ShardedBoard(board.mesh, [[launch(e, rule, turns, turns, 0) for e in row]
-                                     for row in extend(board, turns, 0)])
-
-
-def _refuse_2d_skip_stable(mesh_shape: tuple[int, int]) -> None:
-    if mesh_shape[1] > 1:
-        raise NotImplementedError(
-            f"skip_stable on the 2-D mesh {mesh_shape}: the 2-D adaptive tier "
-            "(ROADMAP B11, with B7's 2-D skip form) is not ported yet; row "
-            "meshes (ny, 1) run the strip tier (B8, B9)"
-        )
+    """One exchange of ``turns`` rows (and on a 2-D mesh ceil(turns / 32)
+    word columns) and one ``launch`` (K9 or K10, or a plain version) per
+    shard."""
+    xpad = -(-turns // WORD) if len(board.shards[0]) > 1 else 0
+    return ShardedBoard(board.mesh, [[launch(e, rule, turns, turns, xpad) for e in row]
+                                     for row in extend(board, turns, xpad)])
 
 
 def make_superstep(mesh: Mesh, rule: LifeRule = CONWAY, skip_stable: bool = False,
@@ -735,18 +984,20 @@ def make_superstep(mesh: Mesh, rule: LifeRule = CONWAY, skip_stable: bool = Fals
     ``_extend_tile_2d``) plus one K9 launch per shard into a fresh output
     shard.
 
-    With ``skip_stable`` (row meshes only; ``skip_tile_cap`` bounds the
-    stripe height, 0 = the port's default): the full launches of
-    :func:`adaptive_strip_plan` on K12 or K11 (K10 on a strip with no
+    With ``skip_stable`` (``skip_tile_cap`` bounds the stripe height, 0 =
+    the port's default): on a row mesh the full launches of
+    :func:`adaptive_strip_plan` on K12 or K11, on a 2-D mesh those of
+    :func:`adaptive_tile_plan` on K13 (K10 on a strip or tile with no
     plan), then one K10 launch for the period-multiple part of the
     remainder and one K9 launch for the rest.  ``skipped`` (an int32 0-d
     tensor) counts the stripe-launches skipped or proved stable over all
-    strips, and ``activity`` (int32[ny·grid], top to bottom; empty when no
-    adaptive launch ran) the launches each stripe was active, as the JAX
-    package's ``with_stats`` does."""
+    shards, and ``activity`` the launches each stripe was active, as the
+    JAX package's ``with_stats`` does: int32[ny·grid] top to bottom on a
+    row mesh, the (ny·grid, nx) grid of (stripe, x-tile) cells on a 2-D
+    mesh, empty when no adaptive launch ran."""
     mesh_shape = (mesh.shape["y"], mesh.shape["x"])
-    if skip_stable:
-        _refuse_2d_skip_stable(mesh_shape)
+
+    two_d = mesh_shape[1] > 1
 
     def k9_only(board: ShardedBoard, turns: int) -> ShardedBoard:
         for plan in launch_plan(board.shard_shape, mesh_shape, turns):
@@ -758,12 +1009,18 @@ def make_superstep(mesh: Mesh, rule: LifeRule = CONWAY, skip_stable: bool = Fals
 
     def adaptive(board: ShardedBoard, turns: int):
         skipped, act = _no_stats(board)
-        plan = adaptive_strip_plan(board.shard_shape, turns, skip_tile_cap)
+        if two_d:
+            plan, xpad = adaptive_tile_plan(board.shard_shape, turns, skip_tile_cap) or (None, 0)
+        else:
+            plan = adaptive_strip_plan(board.shard_shape, turns, skip_tile_cap)
         if plan is None:
             t, skip = skip_launch_depth(board.shard_shape, turns)
             full, rem = divmod(turns, t)
             for _ in range(full):
                 board = _ext_step(board, rule, t, ext_skip_launch if skip else ext_launch)
+        elif two_d:
+            full, rem = divmod(turns, plan.t)
+            board, skipped, act = tile_probing_launches(board, rule, plan, xpad, full)
         else:
             full, rem = divmod(turns, plan.t)
             strips = [row[0] for row in board.shards]

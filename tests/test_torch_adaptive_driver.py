@@ -109,7 +109,7 @@ def test_superstep_bytes_with_stats():
     [
         ((16384, 512), 10**5, 0, cuda_adaptive.AdaptivePlan(
             cuda_adaptive.ADAPTIVE_T, cuda_adaptive.SKIP_TILE_CAP, True)),
-        ((64, 128), 211, 16, cuda_adaptive.AdaptivePlan(cuda_adaptive.ADAPTIVE_T, 16, False)),
+        ((64, 128), 211, 16, cuda_adaptive.AdaptivePlan(12, 16, False)),
         ((72, 128), 12, 0, cuda_adaptive.AdaptivePlan(12, 72, True)),
         ((1000, 96), 6, 0, cuda_adaptive.AdaptivePlan(6, 200, True)),
         ((64, 128), 5, 0, None),
@@ -121,6 +121,32 @@ def test_adaptive_plan(shape, turns, cap, plan):
     if plan is not None:
         assert shape[0] % plan.stripe_h == 0 and plan.stripe_h % 8 == 0
         assert plan.stripe_h <= (cap or cuda_adaptive.SKIP_TILE_CAP)
+
+
+@pytest.mark.parametrize("cap", [0, 8, 16, 256])
+def test_every_plan_keeps_its_probe_halo_within_a_stripe(cap):
+    """The one plan rule of K4, K11 and K13 (the JAX plan's pad <= tile_h):
+    round8(T) <= stripe_h for every plan of a board, a strip and a 2-D
+    tile, at every height from 8 to 4096 rows; T is the deepest multiple
+    of 6 (up to 24) that fits (so never 18: round8(18) = 24 fits 24), and
+    the 2-D plan's x-halo holds T + 6.  The strip plan is the same
+    function as the board's."""
+    from distributed_gol_torch.parallel import cuda_halo
+
+    assert cuda_halo.adaptive_strip_plan is cuda_adaptive.adaptive_plan
+    seen = set()
+    for h in range(8, 4097):
+        tile = cuda_halo.adaptive_tile_plan((h, 4), 10**6, cap)
+        plans = [cuda_adaptive.adaptive_plan((h, 4), 10**6, cap), tile[0] if tile else None]
+        assert len(set(plans)) == 1 and (plans[0] is None) == (h % 8 != 0)
+        plan = plans[0]
+        if plan is None:
+            continue
+        assert cuda_adaptive._round8(plan.t) <= plan.stripe_h
+        assert plan.t == min(cuda_adaptive.ADAPTIVE_T, plan.stripe_h // 6 * 6)
+        assert tile[1] * 32 >= plan.t + cuda_adaptive.SKIP_PERIOD
+        seen.add(plan.t)
+    assert seen == {8: {6}, 16: {6, 12}}.get(cap, {6, 12, 24})
 
 
 @pytest.mark.parametrize(

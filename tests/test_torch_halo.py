@@ -312,10 +312,18 @@ def test_k9_bound_counts_only_the_centres_light_cone(strip, t, xpad):
 
 
 def test_skip_stable_on_a_mesh_names_its_roadmap_item():
-    """Row meshes run the adaptive strip tier; a 2-D mesh still raises."""
-    with pytest.raises(NotImplementedError, match="B11"):
-        cuda_halo.make_superstep(cpu_mesh((2, 2)), tlife.CONWAY, skip_stable=True)
-    cuda_halo.make_superstep(cpu_mesh((2, 1)), tlife.CONWAY, skip_stable=True)
+    """Row meshes run the adaptive strip tier and 2-D meshes the adaptive
+    tile tier: a (2, 2) dispatch with skip_stable equals the (2, 1) one."""
+    from distributed_gol_torch.utils.soup import random_soup
+
+    p = tpacked.pack(torch.from_numpy(random_soup(64, 128, 0.3, 7)))
+    out = []
+    for shape in ((2, 2), (2, 1)):
+        m = cpu_mesh(shape)
+        step = cuda_halo.make_superstep(m, tlife.CONWAY, skip_stable=True, skip_tile_cap=16)
+        out.append(step(halo.board_sharding(m).shard(p), 41).gather())
+    assert torch.equal(out[0], out[1])
+    assert torch.equal(out[0], tpacked.superstep(p, tlife.CONWAY, 41))
 
 
 # -- mesh arithmetic ------------------------------------------------------------

@@ -200,8 +200,6 @@ def test_parked_checkpoints_are_byte_identical(tmp_path):
 @pytest.mark.parametrize(
     "kw,item",
     [
-        (dict(mesh_shape=(2, 2), skip_stable=True, engine="pallas-packed"), "B8"),
-        (dict(mesh_shape=(2, 2), skip_stable=True, engine="pallas-packed"), "B11"),
         (dict(time_compression=True), "A7"),
         (dict(restart_limit=1), "A7"),
         (dict(telemetry_sample_seconds=1.0), "A7"),

@@ -33,9 +33,14 @@ equal to its single-device run, and ``engine="packed"`` on (2, 1) at
 the ``skip_stable`` runs on row meshes (the adaptive strip tier, K10-K12,
 first held bit for bit against their plain versions on (4, 1) strips of
 the 16384² soup, skip counts and activity too, and K10 and K9 on path
-(f)'s (8, 1) strips at every depth that path launches): (e) the 16384² soup x
-100,000 on (4, 1) under auto (K12, with K10 and K9 for the remainders),
-equal to the single-device 100,000-turn PGM; (f) 520 x 512 x 3,000 on
+(f)'s (8, 1) strips at every depth that path launches; and the in-kernel
+tier's K14, held to its plain version on the soup split (4, 1), (2, 1)
+and (1, 1), fresh, settled and with gliders across every seam, in chunks
+of 8 and 64 launches, and to K5 on the whole board): (e) the 16384² soup x
+100,000 on (4, 1) under auto (the in-kernel tier: K14 chunks, K11 for the
+loose tails, K10 and K9 for the remainders), equal to the single-device
+100,000-turn PGM; (k) the same with ``DGOL_ICI=0``, on the ppermute tier
+(K12), equal to the same PGM; (f) 520 x 512 x 3,000 on
 (8, 1), whose strips have no adaptive plan (K10 on every launch), equal to
 a single-device rerun; (g) the soup x 2,000 on (4, 1) at a stripe cap of
 16 (K11), equal to the single-device 2,000-turn PGM.  Then the
@@ -57,7 +62,9 @@ against its plain version and its bound (and a viewer turn's parts at
 without the modulo in its ring index, K7 beside 16 sequential K1
 launches, and K9 on a (4, 1) strip and a (2, 2) tile beside K2 on the
 whole board and beside the halo exchange, K10-K12 on a (4, 1) strip
-and K13 and K10 on a (2, 2) tile beside their plain versions), and
+and K13 and K10 on a (2, 2) tile beside their plain versions, and K14 a
+launch over the (4, 1) strips beside the ppermute tier's launch and K5
+on the whole board), and
 prints one
 ``{"kernels": [...]}`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  ``--profile`` adds a
@@ -77,6 +84,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import functools
 import json
 import os
 import queue
@@ -175,6 +183,11 @@ KERNELS = {
         source="distributed_gol_torch/csrc/probing.cu",
         replaces="distributed_gol_tpu/parallel/pallas_halo.py:1104 _ext_kernel_adaptive_2d",
     ),
+    "strip_mega": dict(
+        route="cuda",
+        source="distributed_gol_torch/csrc/frontier.cu",
+        replaces="distributed_gol_tpu/parallel/pallas_halo.py:454 _kernel_frontier_mega_strip",
+    ),
 }
 WRAPPERS = {
     "resident": cuda_packed.resident_superstep,
@@ -190,10 +203,11 @@ WRAPPERS = {
     "strip_probing": cuda_halo.strip_probing_launch,
     "strip_frontier": cuda_halo.strip_frontier_launch,
     "tile_probing": cuda_halo.tile_probing_launch,
+    "strip_mega": cuda_halo.strip_mega_launch,
 }
 ADAPTIVE = ("tiled_skip", "probing", "frontier")
 STRIPS = ("ext_skip", "strip_probing", "strip_frontier")
-HALO = ("ext", *STRIPS, "tile_probing")  # the sharded drivers' kernels
+HALO = ("ext", *STRIPS, "tile_probing", "strip_mega")  # the sharded forms' kernels
 LONG_TURNS = 100_000  # the auto skip_stable threshold (Params._SKIP_AUTO_TURNS)
 STENCIL_ODD = (1004, 3076)  # W % 128 != 0 and H % 8 != 0: refused by the TPU gate
 VIEWPORT = (8000, 8000, 1024, 1024)  # the viewport path's starting rect
@@ -212,13 +226,18 @@ CLI_POD = (4, 512, 2_000, 64)
 MESH_A, MESH_B, MESH_C, MESH_D = (4, 1), (2, 2), (8, 1), (2, 1)
 PACKED_SIDE = 4096
 # The skip_stable runs on row meshes: (e) the 16384² soup x 100,000 on
-# (4, 1) under auto (K12, the remainders on K10 and K9); (f) 520 x 512 x
+# (4, 1) under auto (the in-kernel tier: K14 chunks, K11 for the loose
+# tails, the remainders on K10 and K9), and (k) the same with DGOL_ICI=0
+# (the ppermute tier: K12); (f) 520 x 512 x
 # 3,000 on (8, 1), whose 65-row strips have no multiple-of-8 stripe and so
 # no adaptive plan (K10 carries every full launch; a 512² board's 64-row
 # strips host a frontier plan at the port's plan); (g) the soup x 2,000 on
 # (4, 1) at a stripe cap of 16, which leaves a strip 16-row stripes, T =
 # 12 and no frontier plan (K11).
 MESH_E, MESH_F = (4, 1), (8, 1)
+# K14's checks: the 16384² soup split (4, 1), (2, 1) (north and south the
+# same strip) and (1, 1) (the strip its own neighbour).
+MEGA_MESHES = (MESH_E, (2, 1), (1, 1))
 PLAN_LESS = (520, 512, 3_000)
 PROBE_CAP = 16
 # The skip_stable runs on 2-D meshes: (h) the 16384² soup x 100,000 on
@@ -659,10 +678,13 @@ def check_strip_launches(sb, rule: LifeRule, errs: dict, plans, name: str) -> No
     """K12 and K11 against their plain versions launch by launch: three
     launches of each on the four strips of ``sb`` (both parities), each
     launch's strip and its K12 state (row intervals and computed flags) or
-    K11 bitmap recorded and compared, tolerance 0."""
+    K11 bitmap recorded and compared, tolerance 0.  K12 runs at the
+    frontier plan ``plans[0]``, K11 at the probing plan ``plans[1]`` and at
+    the frontier plan too (the in-kernel tier's loose tail, path (e))."""
     strips = [row[0] for row in sb.shards]
     for plan, kernel, seq in ((plans[0], "strip_frontier", cuda_halo.frontier_launches),
-                              (plans[1], "strip_probing", cuda_halo.probing_launches)):
+                              (plans[1], "strip_probing", cuda_halo.probing_launches),
+                              (plans[0], "strip_probing", cuda_halo.probing_launches)):
         runs = []
         for fn in (WRAPPERS[kernel], getattr(cuda_halo, f"{kernel}_launch_plain")):
             seen = []
@@ -682,20 +704,22 @@ def check_strip_launches(sb, rule: LifeRule, errs: dict, plans, name: str) -> No
             if err:
                 raise AssertionError(f"{kernel} != plain launch by launch ({plan}) on the {name} "
                                      f"strips under {rule.notation}")
-    log(f"K12 and K11 x 3 launches on the 4 {name} strips {rule.notation}: identical strips, "
-        f"intervals and bitmaps at every launch")
+    log(f"K12, and K11 at both plans, x 3 launches on the 4 {name} strips {rule.notation}: "
+        f"identical strips, intervals and bitmaps at every launch")
 
 
 @contextlib.contextmanager
 def plain_strip_kernels():
-    """The sharded tiers' five wrappers (K9-K13) replaced by their plain
+    """The sharded tiers' six wrappers (K9-K14) replaced by their plain
     versions while the block runs: a whole ``make_superstep`` dispatch on
     the card through no kernel, the yardstick of the dispatch check."""
     names = ("ext_launch", "ext_skip_launch", "strip_probing_launch", "strip_frontier_launch",
              "tile_probing_launch")
-    saved = {n: getattr(cuda_halo, n) for n in names}
+    saved = {n: getattr(cuda_halo, n) for n in (*names, "strip_mega_launches")}
     for n in names:
         setattr(cuda_halo, n, getattr(cuda_halo, f"{n}_plain"))
+    # K14's chunk builds its launcher itself unless asked for the plain one.
+    cuda_halo.strip_mega_launches = functools.partial(saved["strip_mega_launches"], plain=True)
     try:
         yield
     finally:
@@ -704,13 +728,18 @@ def plain_strip_kernels():
 
 
 def check_strips(device, errs: dict, boards: dict) -> dict:
-    """K10, K11 and K12 against their plain versions, tolerance 0, on the
-    16384² soup split (4, 1) on a virtual mesh: fresh, settled (after
+    """K10, K11, K12 and K14 against their plain versions, tolerance 0, on
+    the 16384² soup split (4, 1) on a virtual mesh: fresh, settled (after
     ``LONG_TURNS`` generations) and settled with a glider crossing each
     strip seam.  Whole ``skip_stable`` dispatches of the strip tier, both
-    rules: 9·t - 5 turns at the port's plan (8 K12 launches a strip, so
-    both launch parities, then a K10 remainder of t - 6 and a K9 of 1) and
-    4·t - 5 at ``PROBE_CAP`` (3 K11 launches a strip), each against the
+    rules: 9·t - 5 turns at the port's plan on the ppermute tier (8 K12
+    launches a strip, so both launch parities, then a K10 remainder of
+    t - 6 and a K9 of 1) and on the in-kernel tier (one 8-launch K14
+    chunk, then the same remainders), 13·t - 5 on the in-kernel tier (the
+    8-launch chunk, a loose tail of 4 K11 launches a strip from a zero
+    bitmap, then the remainders: path (e)'s tail, its skip count and
+    activity summed over chunk and tail), and 4·t - 5 at ``PROBE_CAP`` (3
+    K11 launches a strip), each against the
     same dispatch through the plain versions on the card
     (``plain_strip_kernels``): boards, skip counts and activity;
     then K12 and K11 launch by launch (``check_strip_launches``), and K10
@@ -726,30 +755,41 @@ def check_strips(device, errs: dict, boards: dict) -> dict:
     cases = {name: sharding.shard(p) for name, p in (
         ("fresh", boards["fresh"]), ("settled", boards["settled"]),
         ("seam", seam_gliders(boards["settled"])))}
+    tag = {"strip_frontier": "K12", "strip_mega": "K14", "strip_probing": "K11"}
     for rule in RULES:
         for name, sb in cases.items():
-            for plan, cap, kernel, n in ((fplan, 0, "strip_frontier", 8),
-                                         (pplan, PROBE_CAP, "strip_probing", 3)):
+            # The frontier plan on both tiers (in_kernel=False: K12 with
+            # the exchange between launches; the policy's default on one
+            # card: one 8-launch K14 chunk, and with 12 launches a 4-launch
+            # K11 tail after it), the probing plan on K11.
+            for plan, cap, n, in_kernel, want_counts in (
+                    (fplan, 0, 8, False, {"strip_frontier": 32}),
+                    (fplan, 0, 8, None, {"strip_mega": 8, "strip_probing": 0}),
+                    (fplan, 0, 12, None, {"strip_mega": 8, "strip_probing": 16}),
+                    (pplan, PROBE_CAP, 3, None, {"strip_probing": 12})):
                 turns = plan.t * (n + 1) - 5  # n full launches, then K10 and K9
+                want_counts = {**want_counts, "ext_skip": 4, "ext": 4}
                 reset_launches()
-                got, sk, act = cuda_halo.make_superstep(m, rule, True, cap, True)(sb, turns)
+                got, sk, act = cuda_halo.make_superstep(m, rule, True, cap, True, in_kernel)(
+                    sb, turns)
                 torch.cuda.synchronize()
-                counts = {k: WRAPPERS[k].launches for k in (kernel, "ext_skip", "ext")}
-                want_counts = {kernel: 4 * n, "ext_skip": 4, "ext": 4}
+                counts = {k: WRAPPERS[k].launches for k in want_counts}
                 if counts != want_counts:
                     raise AssertionError(f"strip dispatch launched {counts}, not {want_counts}")
                 with plain_strip_kernels():
-                    want, wsk, wact = cuda_halo.make_superstep(m, rule, True, cap, True)(
-                        sb, turns)
+                    want, wsk, wact = cuda_halo.make_superstep(m, rule, True, cap, True,
+                                                               in_kernel)(sb, turns)
                 torch.cuda.synchronize()
                 err = max(max_abs_err(a, b) for a, b in zip(got.flat, want.flat))
-                for k in (kernel, "ext_skip", "ext"):
-                    errs[k] = max(errs[k], err)
+                for k, v in want_counts.items():
+                    if v:
+                        errs[k] = max(errs[k], err)
                 if err or int(sk) != int(wsk) or not torch.equal(act, wact):
                     raise AssertionError(f"strip dispatch != plain ({plan}) on the {name} board "
                                          f"under {rule.notation}: skipped {int(sk)} vs {int(wsk)}")
                 total = cuda_halo.adaptive_strip_launches((BIG, BIG // 32), MESH_E, turns, cap)
-                log(f"K{12 if plan.frontier else 11}+K10+K9 {MESH_E} {BIG}^2 x {turns} ({plan}) "
+                tags = "+".join(tag[k] for k, v in want_counts.items() if v and k in tag)
+                log(f"{tags}+K10+K9 {MESH_E} {BIG}^2 x {turns} ({plan}) "
                     f"{name} {rule.notation}: identical, skipped {int(sk)} of {total}, "
                     f"active stripes {int((act > 0).sum())}")
             check_strip_launches(sb, rule, errs, (fplan, pplan), name)
@@ -761,6 +801,95 @@ def check_strips(device, errs: dict, boards: dict) -> dict:
                     if not torch.equal(got, want):
                         raise AssertionError(f"K10 != plain at {t} turns, {name}, {rule.notation}")
             log(f"K10 x {{6, 12, 18, 24, 30}} on the 4 {name} strips {rule.notation}: identical")
+    return cases
+
+
+def mega_chunks_equal(got, want, n: int) -> int:
+    """Max abs error between two K14 chunks' (strips, MeshState): strips,
+    the final launch's state, skip counts and activity; the row flags of
+    ``got`` must be zero again (K14 clears them every launch)."""
+    (g, gst), (w, wst) = got, want
+    last = (n - 1) % 2
+    err = max([max_abs_err(a, b) for a, b in zip(g, w)]
+              + [max_abs_err(gst.state[last], wst.state[last]),
+                 max_abs_err(gst.skipped, wst.skipped), max_abs_err(gst.act, wst.act)])
+    if int(gst.rowflag.abs().sum()):
+        raise AssertionError("K14 left row flags set after its launch")
+    return err
+
+
+def check_strip_mega(device, errs: dict, boards: dict) -> dict:
+    """K14 against its plain version, tolerance 0, on the 16384² soup split
+    ``MEGA_MESHES`` on virtual meshes of the card ((4, 1); (2, 1), whose
+    north and south neighbours are one strip; (1, 1), the strip its own
+    neighbour): fresh, settled (after ``LONG_TURNS`` generations) and
+    settled with a glider across every strip seam and the torus wrap
+    (``seam_gliders``).  Chunks of 8 launches under both rules and of 64
+    under Conway (and HighLife on (4, 1)): the chunk on the card (its
+    launcher once, one wrapper call a launch) against the plain chunk on
+    the card, in strips, final state, skip counts and activity; then three
+    launches of that chunk against the plain chunk launch by launch (strips
+    and the whole state after each).  On (4, 1), a K14 chunk of 8 and of
+    64 must also equal one K5 chunk (``cuda_adaptive.frontier_superstep``)
+    on the whole board at the strip plan's stripes: on one card the two
+    compute the same function (board, skip count, activity).  Returns the
+    (4, 1) strips by board (phase 4 times them)."""
+    plan = cuda_halo.adaptive_strip_plan((BIG // MESH_E[0], BIG // 32), 10**6)
+    whole = {"fresh": boards["fresh"], "settled": boards["settled"],
+             "seam": seam_gliders(boards["settled"])}
+    cases = {}
+    for mesh_shape in MEGA_MESHES:
+        ny = mesh_shape[0]
+        strip_plan = cuda_halo.adaptive_strip_plan((BIG // ny, BIG // 32), 10**6)
+        if strip_plan != plan or not plan.frontier:
+            raise AssertionError(f"the {mesh_shape} strips do not share the frontier plan {plan}")
+        runs = [(CONWAY, 8), (HIGHLIFE, 8), (CONWAY, 64)]
+        if mesh_shape == MESH_E:
+            runs.append((HIGHLIFE, 64))
+        for name, p in whole.items():
+            strips = list(p.chunk(ny))
+            for rule, n in runs:
+                reset_launches()
+                got = cuda_halo.strip_mega_launches(strips, rule, plan, n)
+                torch.cuda.synchronize()
+                if WRAPPERS["strip_mega"].launches != n:
+                    raise AssertionError(f"a {n}-launch chunk launched K14 "
+                                         f"{WRAPPERS['strip_mega'].launches} times")
+                want = cuda_halo.strip_mega_launches(strips, rule, plan, n, plain=True)
+                err = mega_chunks_equal(got, want, n)
+                errs["strip_mega"] = max(errs["strip_mega"], err)
+                if err:
+                    raise AssertionError(f"K14 != plain, {n} launches on the {mesh_shape} {name} "
+                                         f"strips under {rule.notation}")
+                log(f"K14 {mesh_shape} {name} x {n} launches ({plan}) {rule.notation}: identical, "
+                    f"skipped {got[1].skipped.tolist()} of {n * plan.grid(BIG // ny)} a strip, "
+                    f"active stripes {int((got[1].act > 0).sum())}")
+            seen = {}
+            for on_plain in (False, True):
+                def record(out, st, _seen=seen.setdefault(on_plain, [])):
+                    _seen.append(([t.clone() for t in out], st.state.clone()))
+
+                cuda_halo.strip_mega_launches(strips, CONWAY, plan, 3, on_plain, record)
+            for (a, sa), (b, sb) in zip(*seen.values()):
+                err = max([max_abs_err(x, y) for x, y in zip(a, b)] + [max_abs_err(sa, sb)])
+                errs["strip_mega"] = max(errs["strip_mega"], err)
+                if err:
+                    raise AssertionError(f"K14 != plain launch by launch on the {mesh_shape} "
+                                         f"{name} strips")
+            log(f"K14 {mesh_shape} {name}: the chunk equals the plain chunk launch by "
+                "launch (3 launches, strips and state)")
+            if mesh_shape != MESH_E:
+                continue
+            for n in (8, 64):
+                got, st = cuda_halo.strip_mega_launches(strips, CONWAY, plan, n)
+                k5, sk, act = cuda_adaptive.frontier_superstep(p, CONWAY, plan, n)
+                err = max(max_abs_err(torch.cat(got), k5), max_abs_err(st.act, act),
+                          abs(int(st.skipped.sum()) - int(sk)))
+                errs["strip_mega"] = max(errs["strip_mega"], err)
+                if err:
+                    raise AssertionError(f"K14 != K5 on the whole board, {n} launches, {name}")
+            log(f"K14 {mesh_shape} {name}: chunks of 8 and 64 equal K5 on the whole board")
+            cases[name] = strips
     return cases
 
 
@@ -1356,51 +1485,80 @@ def sharded_paths(tmp: Path, straight: bytes, launches: dict, device) -> dict:
     return e2e
 
 
+@contextlib.contextmanager
+def dgol_ici(value):
+    """``DGOL_ICI`` set to ``value`` (None: unset) while the block runs,
+    then restored."""
+    saved = os.environ.pop("DGOL_ICI", None)
+    if value is not None:
+        os.environ["DGOL_ICI"] = value
+    try:
+        yield
+    finally:
+        os.environ.pop("DGOL_ICI", None)
+        if saved is not None:
+            os.environ["DGOL_ICI"] = saved
+
+
 def strip_paths(tmp: Path, long_pgm: bytes, straight: bytes, launches: dict, device) -> dict:
     """Phase 3's ``skip_stable`` runs on row meshes, each on a virtual mesh
     of the one card: (e) the 16384² soup x 100,000 on (4, 1) under auto,
-    equal to the single-device run's PGM; (f) ``PLAN_LESS`` on (8, 1),
-    ``skip_stable=True``, equal to a single-device rerun; (g) the soup x
-    2,000 on (4, 1) at ``PROBE_CAP``, equal to the single-device 2,000-turn
-    PGM.  Each must report ``pallas-packed`` on the ``ppermute`` tier and
-    launch its kernel: (e) K12, (f) K10 and no K11 or K12, (g) K11; the
-    remainders' K10 and K9 launches are counted where they ran."""
+    equal to the single-device run's PGM, on the in-kernel tier; (k) the
+    same with ``DGOL_ICI=0`` (set around the run), on the ppermute tier;
+    (f) ``PLAN_LESS`` on (8, 1), ``skip_stable=True``, equal to a
+    single-device rerun; (g) the soup x 2,000 on (4, 1) at ``PROBE_CAP``,
+    equal to the single-device 2,000-turn PGM.  Each must report
+    ``pallas-packed``, its tier and its policy, and launch its kernel: (e)
+    K14 and no K12, (k) K12 and no K14, (f) K10 and no K11, K12 or K14,
+    (g) K11; the loose tails' K11 and the remainders' K10 and K9 launches
+    are counted where they ran."""
     e2e = {}
     soup = dict(image_width=BIG, image_height=BIG, soup_density=0.3, soup_seed=7,
                 turn_events="batch", ticker_period=3600)
     h, w, turns = PLAN_LESS
+    no_plan = "no frontier plan"
+    long = gol.Params(turns=LONG_TURNS, mesh_shape=MESH_E, out_dir=tmp / "strips_e", **soup)
     runs = [
-        ("e", gol.Params(turns=LONG_TURNS, mesh_shape=MESH_E, out_dir=tmp / "strips_e", **soup),
-         ("strip_frontier",), long_pgm),
+        ("e", long, ("strip_mega",), long_pgm, None, "ici-megakernel", "in-kernel"),
+        ("k", dataclasses.replace(long, out_dir=tmp / "strips_k"), ("strip_frontier",), long_pgm,
+         "0", "ppermute", "forced-ppermute (DGOL_ICI=0)"),
         ("f", gol.Params(turns=turns, image_height=h, image_width=w, soup_density=0.3,
                          soup_seed=7, turn_events="batch", ticker_period=3600, skip_stable=True,
                          mesh_shape=MESH_F, out_dir=tmp / "strips_f"),
-         ("ext_skip",), dict(mesh_shape=(1, 1), skip_stable=False)),
+         ("ext_skip",), dict(mesh_shape=(1, 1), skip_stable=False), None, "ppermute", no_plan),
         ("g", gol.Params(turns=2000, skip_stable=True, skip_tile_cap=PROBE_CAP,
                          mesh_shape=MESH_E, out_dir=tmp / "strips_g", **soup),
-         ("strip_probing",), straight),
+         ("strip_probing",), straight, None, "ppermute", no_plan),
     ]
-    for tag, params, kernels, want in runs:
+    forbidden = {"e": ("strip_frontier",), "k": ("strip_mega",),
+                 "f": ("strip_probing", "strip_frontier", "strip_mega"), "g": ("strip_mega",)}
+    for tag, params, kernels, want, ici, tier_want, policy_want in runs:
         if not params.skip_stable_requested():
             raise AssertionError(f"skip_stable is not requested on path ({tag})")
         ny, nx = params.mesh_shape
         name = f"strips ({tag}) {params.image_height}x{params.image_width} x {params.turns} on {ny}x{nx}"
-        out, sink = drive(name, params, kernels, launches, want,
-                          devices=virtual(params.mesh_shape, device))
-        for k in ("ext", *STRIPS):  # the remainders' launches count too
+        if ici is not None:
+            name += f", DGOL_ICI={ici}"
+        with dgol_ici(ici):
+            out, sink = drive(name, params, kernels, launches, want,
+                              devices=virtual(params.mesh_shape, device))
+        for k in ("ext", *STRIPS, "strip_mega"):  # the tails' launches count too
             if k not in kernels:
                 launches[k] += out["launches"][k]
         tier = sink.report["info"].get("backend.sharded_tier")
-        if tier != "ppermute":
-            raise AssertionError(f"{name}: backend.sharded_tier {tier!r}, not 'ppermute'")
-        if tag == "f" and (out["launches"]["strip_probing"] or out["launches"]["strip_frontier"]):
-            raise AssertionError(f"{name}: a strip without a plan launched K11 or K12")
-        out["sharded_tier_policy"] = sink.report["info"].get("backend.sharded_tier_policy")
+        policy = sink.report["info"].get("backend.sharded_tier_policy")
+        if tier != tier_want or not policy.startswith(policy_want):
+            raise AssertionError(f"{name}: backend.sharded_tier {tier!r} ({policy!r}), not "
+                                 f"{tier_want!r} ({policy_want!r}...)")
+        ran = [k for k in forbidden[tag] if out["launches"][k]]
+        if ran:
+            raise AssertionError(f"{name}: launched {ran}")
+        out["sharded_tier"], out["sharded_tier_policy"] = tier, policy
         e2e[f"strips_{tag}_{params.image_height}x{params.image_width}x{params.turns}_{ny}x{nx}"] = out
         print(f"strip path {name}: {out['seconds']:.3f} s, {out['gens_per_s']:.1f} gens/s, "
-              f"dispatch loop {out['dispatch_loop_s']:.3f} s, skip fraction "
+              f"dispatch loop {out['dispatch_loop_s']:.3f} s, tier {tier}, skip fraction "
               f"{out.get('skip_fraction')}, launches "
-              f"{ {k: out['launches'][k] for k in ('ext', *STRIPS)} }", flush=True)
+              f"{ {k: out['launches'][k] for k in ('ext', *STRIPS, 'strip_mega')} }", flush=True)
     return e2e
 
 
@@ -1411,7 +1569,8 @@ def tile_paths(tmp: Path, long_pgm: bytes, straight: bytes, launches: dict, devi
     ``TILE_PLAN_LESS`` on ``MESH_I``, ``skip_stable=True``, equal to a
     single-device rerun; (j) the soup x 2,000 on ``MESH_J`` at
     ``PROBE_CAP``, equal to the single-device 2,000-turn PGM.  Each must
-    report ``pallas-packed`` on the ``ppermute`` tier; (h) and (j) must
+    report ``pallas-packed`` on the ``ppermute`` tier ((h) with the policy
+    naming ROADMAP B12: no in-kernel tier on a 2-D mesh); (h) and (j) must
     launch K13, (i) K10 and no K13; the remainders' K10 and K9 launches
     are counted where they ran.  Then (h)'s board on ``MESH_H`` with
     ``skip_stable=False``, K9 alone, equal to the same PGM."""
@@ -1446,6 +1605,9 @@ def tile_paths(tmp: Path, long_pgm: bytes, straight: bytes, launches: dict, devi
         if tag == "i" and out["launches"]["tile_probing"]:
             raise AssertionError(f"{name}: a tile without a plan launched K13")
         out["sharded_tier_policy"] = sink.report["info"].get("backend.sharded_tier_policy")
+        if tag == "h" and "ROADMAP B12" not in out["sharded_tier_policy"]:
+            raise AssertionError(f"{name}: the tier policy does not name B12: "
+                                 f"{out['sharded_tier_policy']!r}")
         e2e[f"tiles_{tag}_{params.image_height}x{params.image_width}x{params.turns}_{ny}x{nx}"] = out
         print(f"tile path {name}: {out['seconds']:.3f} s, {out['gens_per_s']:.1f} gens/s, "
               f"dispatch loop {out['dispatch_loop_s']:.3f} s, skip fraction "
@@ -1490,8 +1652,11 @@ def profile_run(turns: int, side: int = BIG, devices=None, **viewer) -> dict:
     ``viewer`` holds the Params of a viewer path (``no_vis=False``, ...)
     or a ``mesh_shape`` (run on the virtual mesh ``devices``); a headless
     run has batch turn events.  ``loop_idle_share_at_least`` bounds the
-    device's idle share of the dispatch loop from below: all of the run's
-    device time, loop or not, over the loop's seconds.  A sharded run also
+    device's idle share of the dispatch loop from below (all of the run's
+    device time, loop or not, over the loop's seconds), and
+    ``loop_busy_share_at_least`` its busy share: the device time of the
+    port's own kernels, which run only inside dispatches, over the loop's
+    seconds.  A sharded run also
     reports its K9-K13 launches and the device time per sharded launch
     (one launch per shard) of its device-to-device memcpys: on a row mesh
     these are the halo exchange's copies and nothing else
@@ -1525,18 +1690,23 @@ def profile_run(turns: int, side: int = BIG, devices=None, **viewer) -> dict:
             rows.append((dev_us, a.key, a.count))
     rows.sort(reverse=True)
     busy_s = sum(r[0] for r in rows) / 1e6
+    # The port's own kernels (csrc/, all in an anonymous namespace) run
+    # only inside dispatches, so their device time is loop time.
+    kernel_s = sum(us for us, k, _ in rows if k.startswith("(anonymous namespace)::")) / 1e6
     out = dict(
         side=side, turns=turns, viewer={k: v for k, v in viewer.items() if k != "mesh_shape"},
         wall_s=wall, soup_host_s=soup_s, dispatch_loop_s=sink.loop_seconds(),
         device_busy_s=busy_s, device_idle_share=1 - busy_s / wall,
         loop_idle_share_at_least=1 - busy_s / sink.loop_seconds(),
+        kernel_device_s=kernel_s, loop_busy_share_at_least=kernel_s / sink.loop_seconds(),
         top_device=[dict(name=k[:80], device_ms=us / 1e3, calls=n, ms_per_call=us / 1e3 / n)
                     for us, k, n in rows[:12]],
     )
     if devices:
         dtod = [(us, n) for us, k, n in rows if k.startswith("Memcpy DtoD")]
         total = sum(halo_launches.values())
-        launches = total / len(devices)
+        # K14 covers every shard in one launch; the others one shard each.
+        launches = (total - halo_launches["strip_mega"]) / len(devices) + halo_launches["strip_mega"]
         exchange_ms = sum(us for us, _ in dtod) / 1e3
         out.update(mesh_shape=list(viewer["mesh_shape"]), launches=halo_launches,
                    sharded_launches=launches, exchange_copies=sum(n for _, n in dtod),
@@ -1715,7 +1885,9 @@ def time_strips(cases: dict, int_rate: float) -> dict:
     exchange's inputs), beside the plain versions the same way, with each
     launch's bound from its own skip telemetry: K12 over 64 launches a
     strip and K11 over 8 from a zero bitmap (each moves and computes only
-    the stripes it computes, T + 6 and T generations); K10 one launch of
+    the stripes it computes, T + 6 and T generations), K11 at the probing
+    plan and at the frontier plan (the in-kernel tier's loose tail on path
+    (e), recorded as ``path_e_tail``); K10 one launch of
     18 generations (a remainder depth of path (e)) on strip 0's extended
     block, its computed share that of K10's own tiles whose skip proof
     fails (``k10_share``), of the centre's light cone (``ext_bound_ms``'
@@ -1731,9 +1903,11 @@ def time_strips(cases: dict, int_rate: float) -> dict:
         sb = cases[name]
         strips = [row[0] for row in sb.shards]
         row = {}
-        for kernel, plan, seq, n, gens in (
-                ("strip_frontier", fplan, cuda_halo.frontier_launches, 64, fplan.t + 6),
-                ("strip_probing", pplan, cuda_halo.probing_launches, 8, pplan.t)):
+        for key, kernel, plan, seq, n, gens in (
+                ("strip_frontier", "strip_frontier", fplan, cuda_halo.frontier_launches, 64,
+                 fplan.t + 6),
+                ("strip_probing", "strip_probing", pplan, cuda_halo.probing_launches, 8, pplan.t),
+                ("path_e_tail", "strip_probing", fplan, cuda_halo.probing_launches, 8, fplan.t)):
             seq(strips, CONWAY, plan, 2)  # warm-up
             spans, plain = [], []
             _, sk, _ = seq(strips, CONWAY, plan, n, timed(WRAPPERS[kernel], spans))
@@ -1742,7 +1916,7 @@ def time_strips(cases: dict, int_rate: float) -> dict:
             computed = (n * ny * grid - int(sk)) / (n * ny)
             words = computed * plan.stripe_h * strip[1]
             b_ms, b_by = work_bound_ms(words, words, gens, CONWAY, int_rate)
-            row[kernel] = dict(ms=span_ms(spans), plain_ms=span_ms(plain), plan=str(plan),
+            row[key] = dict(ms=span_ms(spans), plain_ms=span_ms(plain), plan=str(plan),
                                computed_stripes_per_launch=computed, stripes=grid,
                                bound_ms=b_ms, bound_by=b_by)
         t = 18
@@ -1757,7 +1931,7 @@ def time_strips(cases: dict, int_rate: float) -> dict:
         out[name] = row
         log(f"{name} strips of {MESH_E}: " + "; ".join(
             f"{k} {row[k]['ms']:.4f} ms (plain {row[k]['plain_ms']:.3f}, bound "
-            f"{row[k]['bound_ms']:.4f} by {row[k]['bound_by']})" for k in STRIPS)
+            f"{row[k]['bound_ms']:.4f} by {row[k]['bound_by']})" for k in (*STRIPS, "path_e_tail"))
             + f"; K9 at T = {t} {row['ext_skip']['ext_same_t_ms']:.4f} ms; K10 computed share "
             f"{share:.4f}, stable tiles {stable}")
     h, w, turns = PLAN_LESS
@@ -1775,7 +1949,51 @@ def time_strips(cases: dict, int_rate: float) -> dict:
                            name: row[k] for name, row in out.items()}))
                for k in STRIPS}
     timings["ext_skip"]["extra"]["path_f"] = path_f
+    timings["strip_probing"]["extra"]["path_e_tail"] = {
+        name: row["path_e_tail"] for name, row in out.items()}
     return timings
+
+
+def time_strip_mega(cases: dict, int_rate: float) -> dict:
+    """K14 per launch on the (4, 1) strips of the 16384² soup, fresh and
+    settled: one 64-launch chunk on the card (its pointer tables, then one
+    call a launch) between CUDA events, over 64, beside, in the same call
+    and the same way, the ppermute tier's 64 launches (four K12 launches a
+    mesh launch, with the row and interval exchange between launches:
+    ``frontier_launches``), one K5 chunk of 64 on the whole board at the
+    strip plan's stripes, and the plain chunk over 2 launches.  The bound
+    is the work of the stripes K14 computed (its own skip count): T + 6
+    generations of their words, each read and written once."""
+    strip = (BIG // MESH_E[0], BIG // 32)
+    plan = cuda_halo.adaptive_strip_plan(strip, 10**6)
+    ny, grid = MESH_E[0], plan.grid(strip[0])
+    rows = {}
+    for name in ("fresh", "settled"):
+        strips = cases[name]
+        whole = torch.cat(strips)
+        _, st = cuda_halo.strip_mega_launches(strips, CONWAY, plan, 64)
+        computed = (64 * ny * grid - int(st.skipped.sum())) / 64
+        words = computed * plan.stripe_h * strip[1]
+        b_ms, b_by = work_bound_ms(words, words, plan.t + 6, CONWAY, int_rate)
+        rows[name] = dict(
+            ms=cuda_ms(lambda: cuda_halo.strip_mega_launches(strips, CONWAY, plan, 64), 3) / 64,
+            plain_ms=cuda_ms(lambda: cuda_halo.strip_mega_launches(
+                strips, CONWAY, plan, 2, plain=True), 1) / 2,
+            k12_mesh_launch_ms=cuda_ms(
+                lambda: cuda_halo.frontier_launches(strips, CONWAY, plan, 64), 3) / 64,
+            k5_whole_board_ms=cuda_ms(
+                lambda: cuda_adaptive.frontier_superstep(whole, CONWAY, plan, 64), 3) / 64,
+            plan=str(plan), computed_stripes_per_launch=computed, stripes=ny * grid,
+            bound_ms=b_ms, bound_by=b_by)
+        r = rows[name]
+        log(f"K14 {name} strips of {MESH_E}, {plan}: {r['ms']:.4f} ms a launch over all "
+            f"{ny} strips (plain {r['plain_ms']:.3f}, bound {b_ms:.5f} by {b_by}, {computed:.2f} "
+            f"of {ny * grid} stripes computed); the ppermute tier (4 K12 and the exchange) "
+            f"{r['k12_mesh_launch_ms']:.4f} ms; K5 on the whole board {r['k5_whole_board_ms']:.4f} ms")
+    fresh = rows["fresh"]
+    return dict(ms=fresh["ms"], plain_ms=fresh["plain_ms"],
+                bound=(fresh["bound_ms"], fresh["bound_by"]),
+                extra=dict(board="fresh", shape=[ny, *strip], per_board=rows))
 
 
 def time_tiles(cases: dict, int_rate: float) -> dict:
@@ -2021,6 +2239,7 @@ def main() -> int:
     ext_cases = check_ext(device, errs)
     strip_cases = check_strips(device, errs, boards)
     strip_cases["plan_less"] = check_plan_less(device, errs, PLAN_LESS, MESH_F, "f")
+    mega_cases = check_strip_mega(device, errs, boards)
     tile_cases = check_tiles(device, errs, boards)
     tile_cases["plan_less"] = check_plan_less(device, errs, TILE_PLAN_LESS, MESH_I, "i")
 
@@ -2062,10 +2281,14 @@ def main() -> int:
         long_pgm = (long.out_dir / f"{long.final_output_name}.pgm").read_bytes()
         e2e.update(strip_paths(tmp, long_pgm, straight, launches, device))
         e = next(v for k, v in e2e.items() if k.startswith("strips_e_"))
-        print(f"strip path (e) on {MESH_E}: {e['gens_per_s']:.1f} gens/s, dispatch loop "
-              f"{e['dispatch_loop_s']:.3f} s, skip fraction {e.get('skip_fraction')}; "
-              f"single-device {BIG}^2 x {LONG_TURNS}: {run_long['gens_per_s']:.1f} gens/s, "
-              f"dispatch loop {run_long['dispatch_loop_s']:.3f} s, skip fraction "
+        k = next(v for k, v in e2e.items() if k.startswith("strips_k_"))
+        print(f"strip path (e) on {MESH_E}, in-kernel tier: {e['gens_per_s']:.1f} gens/s, "
+              f"dispatch loop {e['dispatch_loop_s']:.3f} s, skip fraction "
+              f"{e.get('skip_fraction')}; (k), ppermute tier: {k['gens_per_s']:.1f} gens/s, "
+              f"dispatch loop {k['dispatch_loop_s']:.3f} s, skip fraction "
+              f"{k.get('skip_fraction')}; single-device {BIG}^2 x {LONG_TURNS}: "
+              f"{run_long['gens_per_s']:.1f} gens/s, dispatch loop "
+              f"{run_long['dispatch_loop_s']:.3f} s, skip fraction "
               f"{run_long.get('skip_fraction')}", flush=True)
         e2e.update(tile_paths(tmp, long_pgm, straight, launches, device))
         hh = next(v for k, v in e2e.items() if k.startswith("tiles_h_"))
@@ -2111,6 +2334,7 @@ def main() -> int:
     timings.update(time_batched(k8_stacks, int_rate))
     timings["ext"] = time_ext(ext_cases, int_rate)
     timings.update(time_strips(strip_cases, int_rate))
+    timings["strip_mega"] = time_strip_mega(mega_cases, int_rate)
     tiles = time_tiles(tile_cases, int_rate)
     timings["tile_probing"] = tiles["tile_probing"]
     timings["ext_skip"]["extra"]["tile_2d"] = tiles["ext_skip_2d"]

@@ -70,6 +70,28 @@
 // and the finalize are K5's.  Like K5 it keeps no column interval: the JAX
 // kernel's (cl, ch) only narrows its column tier, and neither the skip
 // decision nor the activity reads it.
+//
+// K14: the strip megakernel (gol_strip_mega_launch).  Replaces
+// distributed_gol_tpu/parallel/pallas_halo.py::_kernel_frontier_mega_strip,
+// the in-kernel exchange tier of a skip_stable dispatch on a row mesh: on
+// a TPU one pallas_call per device runs a chunk of launches, shipping
+// round8(T + 6) boundary rows and its edge stripes' intervals to both
+// y-neighbours between launches by remote DMA.  Here every strip of the
+// mesh lies on this card, so a launch is one CUDA launch over every strip
+// (blockIdx.z the strip) and the exchange happens inside it: a window's
+// rows past its strip's edge are read straight from the neighbour strip's
+// read buffer (window.cuh::StripSource, north and south the neighbours'
+// whole buffers), and an edge stripe takes its outer neighbour's
+// intervals from the neighbour strip's entries of the one shared state
+// array, shifted by -/+ h_loc into its own row frame (MeshIntervals).
+// Stream order between the chained launches stands in for the TPU
+// kernel's semaphores and entry barrier, the two write buffers for its
+// parity slots.  Device tables give each strip's read and write buffer;
+// every array gains the strip axis as K8's gains the board axis (state
+// int32[2][5][ny * grid], rowflag int32[ny * h_loc], skipped int32[ny],
+// act int32[ny * grid]), so K8's finalize serves unchanged.  With ny = 1
+// the strip is its own neighbour: the JAX package's loopback build.  What
+// bounds it is K5's: integer operations on the stripes that hit.
 
 #include "window.cuh"
 
@@ -103,6 +125,32 @@ struct StripIntervals {
     __device__ void get(int slot, int k, int& lo, int& hi) const {
         lo = ext[(2 * k) * stride + i + 1 + slot];
         hi = ext[(2 * k + 1) * stride + i + 1 + slot];
+    }
+};
+
+// Stripe i of strip s of a row mesh whose strips share one state array
+// (K14): a neighbour past the strip's edge is the last stripe of strip
+// s - 1 or the first of strip s + 1 (modulo ny), whose intervals, in
+// that strip's row frame, move by -/+ h_loc into strip s's.  An empty
+// interval stays empty: both ends move together.
+struct MeshIntervals {
+    const int* prev;  // the previous parity's state of every strip
+    int total, grid, ny, h_loc, s, i;
+    __device__ void get(int slot, int k, int& lo, int& hi) const {
+        int j = i + slot;
+        int t = s;
+        int off = 0;
+        if (j < 0) {
+            j = grid - 1;
+            t = wrap(s - 1, ny);
+            off = -h_loc;
+        } else if (j >= grid) {
+            j = 0;
+            t = wrap(s + 1, ny);
+            off = h_loc;
+        }
+        lo = prev[(2 * k) * total + t * grid + j] + off;
+        hi = prev[(2 * k + 1) * total + t * grid + j] + off;
     }
 };
 
@@ -255,6 +303,46 @@ strip_frontier_kernel(const uint32_t* __restrict__ local, const uint32_t* __rest
                   tile_w, xpad, halo, y0, x0, born, surv);
 }
 
+// K14: one launch over every strip of a row mesh, blockIdx.z the strip.
+// `rd_tab` and `wr_tab` (ny entries each) give the strips' read and write
+// buffers; the window's rows past strip s's edge come from the read
+// buffers of strips s - 1 and s + 1 (h rows each, halo <= h).  `first`
+// forces every stripe to hit with the maximal union (launch 0 of a chunk).
+__global__ void __launch_bounds__(kThreads)
+strip_mega_kernel(const uint32_t* const* __restrict__ rd_tab, uint32_t* const* __restrict__ wr_tab,
+                  int* __restrict__ state, int* __restrict__ rowflag, int* __restrict__ skipped,
+                  int ny, int h, int wp, int turns, int stripe_h, int tile_h, int tile_w,
+                  int xpad, int halo, int pad_f, int parity, int first, uint32_t born,
+                  uint32_t surv) {
+    extern __shared__ uint32_t smem[];
+    __shared__ int decision[3];  // hit, measure rows lo, hi
+    const int grid = h / stripe_h;
+    const int s = blockIdx.z;
+    const int total = ny * grid;
+    const uint32_t* rd = rd_tab[s];
+    uint32_t* wr = wr_tab[s];
+    const StripSource src{rd, rd_tab[wrap(s - 1, ny)], rd_tab[wrap(s + 1, ny)], h, wp, h};
+    rowflag += static_cast<size_t>(s) * h;
+    skipped += s;
+    const int y0 = blockIdx.y * tile_h;
+    const int x0 = blockIdx.x * tile_w;
+    const int i = y0 / stripe_h;
+    const int c_lo = i * stripe_h;
+    const int* prev = state + (1 - parity) * kFields * total;
+    int* cur = state + parity * kFields * total;
+    const int gi = s * grid + i;
+    const bool leader = thread_id() == 0 && blockIdx.x == 0 && y0 == c_lo;
+
+    if (thread_id() == 0) {
+        decide(decision, MeshIntervals{prev, total, grid, ny, h, s, i}, c_lo, c_lo + stripe_h - 1,
+               turns + kSkipPeriod, pad_f, first);
+    }
+    __syncthreads();
+    frontier_tile(smem, decision, src, rd, wr, rowflag, skipped, &cur[4 * total + gi],
+                  prev[4 * total + gi], leader, h, wp, turns, tile_h, tile_w, xpad, halo, y0, x0,
+                  born, surv);
+}
+
 // One block per stripe of every board: block gi = b * grid + i.
 __global__ void frontier_finalize(int* __restrict__ state, int* __restrict__ rowflag,
                                   int* __restrict__ act, int h, int stripe_h, int grid,
@@ -380,5 +468,41 @@ extern "C" int gol_strip_frontier_launch(const void* local, const void* north, c
                                                    static_cast<int*>(rowflag),
                                                    static_cast<int*>(act), h, stripe_h,
                                                    h / stripe_h, 0);
+    return cudaGetLastError();
+}
+
+// K14: `rd_tab` and `wr_tab` are device arrays of ny buffer pointers (no
+// write buffer is a read buffer); `state` (int32[2][5][ny * grid]),
+// `rowflag` (int32[ny * h], zero between launches), `skipped` (int32[ny])
+// and `act` (int32[ny * grid]) persist over a chunk.  The window's halo
+// (>= T + 6) and the decision's reach pad_f (the JAX plan's round8(T + 6))
+// must fit one stripe, so nothing past the adjacent strip is read.
+extern "C" int gol_strip_mega_launch(const void* rd_tab, const void* wr_tab, void* state,
+                                     void* rowflag, void* skipped, void* act, int ny, int h,
+                                     int wp, int turns, int stripe_h, int tile_h, int tile_w,
+                                     int xpad, int halo, int pad_f, int parity, int first,
+                                     unsigned born, unsigned surv, void* stream) {
+    if (ny < 1 || ny > 65535 || h < 1 || wp < 1 || turns < kSkipPeriod || turns % kSkipPeriod ||
+        stripe_h < 1 || h % stripe_h || tile_h < 1 || stripe_h % tile_h || tile_w < 1 ||
+        halo < turns + kSkipPeriod || pad_f < halo || pad_f > stripe_h ||
+        xpad * 32 < turns + kSkipPeriod || tile_w + 2 * xpad > kCols ||
+        (parity != 0 && parity != 1) || (first != 0 && first != 1)) {
+        return cudaErrorInvalidValue;
+    }
+    const long long smem = window_smem(tile_h + 2 * halo, tile_w + 2 * xpad);
+    cudaError_t err = allow_smem(strip_mega_kernel, smem);
+    if (err != cudaSuccess) return err;
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const int grid = h / stripe_h;
+    const dim3 blocks((wp + tile_w - 1) / tile_w, h / tile_h, ny);
+    strip_mega_kernel<<<blocks, dim3(kCols, kSegs), static_cast<size_t>(smem), s>>>(
+        static_cast<const uint32_t* const*>(rd_tab), static_cast<uint32_t* const*>(wr_tab),
+        static_cast<int*>(state), static_cast<int*>(rowflag), static_cast<int*>(skipped), ny, h,
+        wp, turns, stripe_h, tile_h, tile_w, xpad, halo, pad_f, parity, first, born, surv);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    frontier_finalize<<<ny * grid, 256, 0, s>>>(static_cast<int*>(state),
+                                                static_cast<int*>(rowflag),
+                                                static_cast<int*>(act), h, stripe_h, grid, parity);
     return cudaGetLastError();
 }

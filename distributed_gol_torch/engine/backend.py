@@ -21,8 +21,8 @@ same surface serves it: ``put`` scatters, ``fetch`` gathers, the alive
 count is the sum of the shards' counts, and the engines are the sharded
 roll (``parallel/halo.py``), packed (``parallel/packed_halo.py``) and
 temporally blocked (``parallel/cuda_halo.py``: K9, and with
-``skip_stable`` the adaptive kernels K10-K12 on a row mesh and K10 and
-K13 on a 2-D mesh, with the same skip telemetry over the whole mesh)
+``skip_stable`` the adaptive kernels K10-K12 and K14 on a row mesh and K10
+and K13 on a 2-D mesh, with the same skip telemetry over the whole mesh)
 forms.  The controller
 never touches the board itself, only these methods.
 
@@ -80,14 +80,19 @@ class Backend:
     mesh, all shards on one card).  None takes the device of
     ``params.device``, or on a mesh the healthy CUDA devices
     (``parallel.mesh.make_mesh``, which raises when there are too few) —
-    or, with ``device="cpu"``, the CPU for every shard."""
+    or, with ``device="cpu"``, the CPU for every shard.
+
+    ``in_kernel=False`` forces the ppermute exchange tier of a sharded
+    ``skip_stable`` run (``DGOL_ICI=0`` is the CLI's spelling of it);
+    ``True`` outranks the environment switch but no capability
+    (``parallel.cuda_halo.tier_policy``)."""
 
     # The halo-exchange tier of the sharded pallas-packed engine and the
     # policy that picked it (None off that engine and mesh).
     sharded_tier = None
     sharded_tier_policy = None
 
-    def __init__(self, params: Params, devices=None):
+    def __init__(self, params: Params, devices=None, in_kernel: bool | None = None):
         self.params = params
         self.device = resolve_device(params.device)
         if devices:
@@ -111,7 +116,7 @@ class Backend:
             )
         self.mesh = None
         if (ny, nx) != (1, 1):
-            self._init_sharded(params, shape, devices)
+            self._init_sharded(params, shape, devices, in_kernel)
             return
         self.devices = [self.device]
         self.table = stencil.rule_table(params.rule, self.device)
@@ -138,7 +143,8 @@ class Backend:
             self._superstep = lambda b, k: stencil.superstep(b, self.table, k)
         self._init_metrics(params)
 
-    def _init_sharded(self, params: Params, shape: tuple[int, int], devices) -> None:
+    def _init_sharded(self, params: Params, shape: tuple[int, int], devices,
+                      in_kernel: bool | None) -> None:
         """The sharded branch: a mesh over ``devices`` (see the class
         docstring), the board split over it, and the sharded form of the
         engine that runs."""
@@ -154,22 +160,28 @@ class Backend:
         self._warn_if_downgraded(params, shape, mesh_shape)
         if self.engine_used == "pallas-packed":
             # T-deep halos: one exchange a launch buys T generations, by
-            # tensor copies (the TPU's in-kernel exchange tiers, ROADMAP
-            # B10 and B12, are not ported).  skip_stable runs the adaptive
-            # strip tier on a row mesh and the adaptive tile tier on a 2-D
-            # mesh, with live skip telemetry; cap 0 = the port's default
-            # stripe cap.
+            # tensor copies.  skip_stable runs the adaptive strip tier on a
+            # row mesh and the adaptive tile tier on a 2-D mesh, with live
+            # skip telemetry; cap 0 = the port's default stripe cap.  On a
+            # row mesh whose strips share one card the policy may pick the
+            # in-kernel exchange tier (K14 chunks); when it does not, the
+            # ppermute form is a policy outcome, recorded here and never
+            # warned about: both tiers give the same boards.  The policy
+            # is asked once, here: its answer goes down to the engine as
+            # in_kernel, so the tier that runs is the tier recorded.
             self.sharded_tier = "ppermute"
             if params.skip_stable_requested():
                 ny, nx = mesh_shape
                 self._skip_cap = params.skip_tile_cap or cuda_adaptive.SKIP_TILE_CAP
-                _, self.sharded_tier_policy = cuda_halo.tier_policy(
+                use_ici, self.sharded_tier_policy = cuda_halo.tier_policy(
                     self.mesh, strip=(shape[0] // ny, shape[1] // 32 // nx),
-                    tile_cap=self._skip_cap,
+                    tile_cap=self._skip_cap, in_kernel=in_kernel,
                 )
+                if use_ici:
+                    self.sharded_tier = "ici-megakernel"
                 self._skip_fn = cuda_halo.make_superstep_bytes(
                     self.mesh, params.rule, skip_stable=True, skip_tile_cap=self._skip_cap,
-                    with_stats=True,
+                    with_stats=True, in_kernel=use_ici,
                 )
                 self._skip_stats = []
                 self._superstep = self._skip_superstep

@@ -62,8 +62,17 @@ ppermute tier:
   tile with no plan runs K10 on every launch.  The remainders run K10
   and K9 at ``xpad`` = ceil(T / 32), as on a row mesh.
 
-The in-kernel exchange tiers are not ported (ROADMAP B10 on a row mesh,
-B12 on a 2-D mesh): the tier is always "ppermute".
+``skip_stable`` on a row mesh whose strips all lie on one device takes
+the in-kernel exchange tier where :func:`tier_policy` allows it (the
+counterpart of ``make_superstep``'s in-kernel branch and of
+``_kernel_frontier_mega_strip``): the full launches run in canonical
+chunks (``_nlaunch_chunks``), each launch one K14 launch over every strip
+(``csrc/frontier.cu``, :func:`strip_mega_launches`), whose windows read
+the neighbour strips' rows and whose edge stripes read the neighbours'
+intervals in place, with no exchange between launches; the loose tail
+runs K11 from a zero bitmap, the remainders K10 and K9.  The in-kernel
+tier of a 2-D mesh (ROADMAP B12) and the peer form for strips on several
+devices (B10p) are not ported: those meshes take the ppermute forms.
 """
 
 from __future__ import annotations
@@ -246,19 +255,25 @@ INTERPRET_REASON = (
 )
 
 
-def tier_policy(mesh: Mesh, strip: tuple[int, int] | None = None, tile_cap: int = 0
-                ) -> tuple[bool, str]:
+def tier_policy(mesh: Mesh, strip: tuple[int, int] | None = None, tile_cap: int = 0,
+                in_kernel: bool | None = None) -> tuple[bool, str]:
     """Whether a ``skip_stable`` run on ``mesh`` takes the in-kernel
     exchange tier, with the reason when it does not; the counterpart of
-    ``ici_tier_policy``, whose reasons it copies.  The in-kernel tiers are
-    not ported (ROADMAP B10 on a row mesh, B12 on a 2-D mesh), so the
-    answer is always False: a strip or tile with no frontier plan says so,
-    as the JAX package does (on a 2-D mesh the plan of
-    :func:`adaptive_tile_plan`, whose x-halo always covers T + 6: the
-    geometry the 2-D megakernel will ride); then ``DGOL_ICI=0``; then a
-    mesh of CPU shards gives the JAX package's interpret-mode reason, and
-    a mesh on the card says that the tier is not ported."""
+    ``ici_tier_policy``, whose order of checks and reasons it copies.
+    ``in_kernel=False`` forces the ppermute form; ``in_kernel=True``
+    outranks ``DGOL_ICI=0`` but no capability.  ``strip`` (the shard's
+    packed (h_loc, wpl), with ``tile_cap``) also checks that the shard
+    hosts a frontier plan (on a 2-D mesh the plan of
+    :func:`adaptive_tile_plan`, the geometry the 2-D megakernel will
+    ride).  A mesh of several CPU shards gives the JAX package's
+    interpret-mode reason, so the two packages' CPU records agree.  Then
+    the port's own limits: a 2-D mesh (ROADMAP B12), and strips on
+    several CUDA devices (B10p: the peer form is not ported).  Every other
+    mesh takes the tier: a (1, 1) mesh on any device (the loopback form)
+    and a row mesh whose shards share one card."""
     ny, nx = mesh.shape["y"], mesh.shape["x"]
+    if in_kernel is False:
+        return False, "forced-ppermute (in_kernel=False)"
     if strip is not None:
         if nx == 1:
             plan = adaptive_strip_plan(strip, 10**6, tile_cap)
@@ -270,7 +285,7 @@ def tier_policy(mesh: Mesh, strip: tuple[int, int] | None = None, tile_cap: int 
                 "in-kernel tier rides the frontier megakernel (ppermute "
                 "probing/plain forms run instead)"
             )
-    if os.environ.get("DGOL_ICI", "").lower() in ("0", "off", "false"):
+    if in_kernel is not True and os.environ.get("DGOL_ICI", "").lower() in ("0", "off", "false"):
         return False, "forced-ppermute (DGOL_ICI=0)"
     if ny * nx > 1 and all(d.type == "cpu" for d in mesh.flat):
         return False, INTERPRET_REASON
@@ -279,10 +294,15 @@ def tier_policy(mesh: Mesh, strip: tuple[int, int] | None = None, tile_cap: int 
             "in-kernel exchange tier not ported (ROADMAP B12): the ppermute "
             "tile form runs, its exchange by tensor copies"
         )
-    return False, (
-        "in-kernel exchange tier not ported (ROADMAP B10): the ppermute "
-        "strip form runs, its exchange by tensor copies"
-    )
+    cards = {(d.type, d.index or 0) for d in mesh.flat}
+    if len(cards) > 1:
+        return False, (
+            "the in-kernel tier's peer form is not ported (ROADMAP B10p): "
+            f"strips on {len(cards)} devices need peer copies and a "
+            "cross-device barrier between launches; the ppermute strip form "
+            "runs, its exchange by tensor copies"
+        )
+    return True, "in-kernel"
 
 
 # -- K9 and its plain versions --------------------------------------------------
@@ -828,13 +848,220 @@ def tile_probing_launch(
 tile_probing_launch.launches = 0
 
 
+# -- K14: the strip megakernel -------------------------------------------------------
+
+
+@dataclasses.dataclass
+class MeshState:
+    """The frontier state of every strip of a row mesh over one chunk of
+    K14 launches, on the strips' device: int32 (2, 5, ny·grid) by launch
+    parity (rows lo0, hi0, lo1, hi1 in each strip's row frame, and whether
+    the stripe computed; stripe i of strip s at s·grid + i), the kernel's
+    row flags (int32[ny·h_loc], zero between launches), and the skip count
+    of each strip (int32[ny]) and the activity of each stripe
+    (int32[ny·grid]) accumulated over the chunk."""
+
+    state: torch.Tensor
+    rowflag: torch.Tensor
+    skipped: torch.Tensor
+    act: torch.Tensor
+
+    @classmethod
+    def start(cls, ny: int, h_loc: int, plan: AdaptivePlan, device) -> "MeshState":
+        """The state before a chunk's first launch, which forces every
+        stripe to compute and so reads none of it."""
+        total = ny * plan.grid(h_loc)
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=torch.int32, device=device)
+
+        return cls(zeros(2, 5, total), zeros(ny * h_loc), zeros(ny), zeros(total))
+
+
+def _check_mega(reads, writes, st: MeshState, plan: AdaptivePlan) -> tuple[int, int]:
+    """(ny, h_loc) of a K14 launch, after checking it: one write buffer a
+    strip, all contiguous int32 words of one shape on one device, no
+    buffer written twice or both read and written, a frontier plan of
+    whole stripes whose decision reach round8(T + 6) fits one stripe (so
+    no window or decision reaches past the adjacent strip), and state of
+    the mesh's size."""
+    ny = len(reads)
+    if ny < 1 or len(writes) != ny:
+        raise ValueError(f"a mesh launch needs one write buffer a strip: {ny} strips, "
+                         f"{len(writes)} buffers")
+    shape, dev = reads[0].shape, reads[0].device
+    for t in (*reads, *writes):
+        _check_words(t)
+        if t.shape != shape or t.device != dev:
+            raise ValueError("a mesh launch's strips and buffers must share one shape and device")
+    out = {t.data_ptr() for t in writes}
+    if len(out) != ny or out & {t.data_ptr() for t in reads}:
+        raise ValueError("a mesh launch writes each buffer once and no strip it reads")
+    h = shape[0]
+    if not plan.frontier or h % plan.stripe_h or plan.pad_f > plan.stripe_h:
+        raise ValueError(f"plan {plan} has no frontier form within one stripe of a strip of "
+                         f"{h} rows: K14 reads no further than the adjacent strip")
+    total = ny * plan.grid(h)
+    if (st.state.shape != (2, 5, total) or st.rowflag.shape != (ny * h,)
+            or st.skipped.shape != (ny,) or st.act.shape != (total,)):
+        raise ValueError(f"mesh state {tuple(st.state.shape)} for {ny} strips of "
+                         f"{plan.grid(h)} stripes")
+    return ny, h
+
+
+def strip_mega_launch_plain(reads, writes, st: MeshState, rule: LifeRule, plan: AdaptivePlan,
+                            parity: int, first: bool):
+    """Plain version of K14 (one launch of ``_kernel_frontier_mega_strip``
+    over every strip of a row mesh, ``reads`` top to bottom): stripe i of
+    strip s decides with ``_hit_union`` over the previous parity's row
+    intervals of stripes i - 1, i and i + 1, read straight from the shared
+    state (past the strip's edge the neighbour strip's edge stripe, moved
+    by -/+ h_loc into this strip's frame), or with ``first`` (launch 0 of a
+    chunk) hits with the maximal union; a stripe that hits computes T
+    generations of its window (the strip with T + 6 rows of the
+    neighbour strips' read buffers) and measures gen T + 6 against gen T
+    on its measure rows (``_measure2``); one that does not copies its
+    input into ``writes[s]`` if it computed last launch.  Writes
+    ``writes`` and ``st.state[parity]``, adds to ``st.skipped`` and
+    ``st.act``; returns ``writes``."""
+    ny, h = _check_mega(reads, writes, st, plan)
+    sh, grid = plan.stripe_h, plan.grid(h)
+    total = ny * grid
+    dev = reads[0].device
+    halo = plan.t + SKIP_PERIOD
+    g = torch.arange(total, device=dev)
+    c_lo = g % grid * sh
+    c_hi = c_lo + sh - 1
+    prev = st.state[1 - parity].to(torch.int64)
+    if first:
+        hit = torch.ones(total, dtype=torch.bool, device=dev)
+        m_lo, m_hi = c_lo, c_hi
+    else:
+        ivals = []
+        for slot in (-1, 0, 1):
+            j = g + slot
+            # The neighbour's strip less this stripe's, in rows.
+            off = (torch.div(j, grid, rounding_mode="floor") - g // grid) * h
+            j = torch.remainder(j, total)
+            ivals += [(prev[2 * k][j] + off, prev[2 * k + 1][j] + off) for k in (0, 1)]
+        hit, m_lo, m_hi = cuda_adaptive.hit_union(ivals, c_lo, c_hi, plan)
+    copy = ~hit & prev[4].bool()
+    rows = torch.arange(h, device=dev)
+    of = rows // sh
+    outs, hots = [], []
+    for s, local in enumerate(reads):
+        e = torch.cat([reads[(s - 1) % ny][h - halo :], local, reads[(s + 1) % ny][:halo]])
+        g_t = packed.superstep(e, rule, plan.t)
+        g_t6 = packed.superstep(g_t, rule, SKIP_PERIOD)[halo : halo + h]
+        g_t = g_t[halo : halo + h]
+        mine = slice(s * grid, (s + 1) * grid)
+        hit_s = hit[mine][of]
+        hots.append(((g_t6 != g_t).any(dim=1) & hit_s & (rows >= m_lo[mine][of])
+                     & (rows <= m_hi[mine][of])).view(grid, sh))
+        outs.append(torch.where(hit_s[:, None], g_t,
+                                torch.where(copy[mine][of, None], local, writes[s])))
+    intervals = cuda_adaptive.measure2(torch.cat(hots), rows.view(grid, sh).repeat(ny, 1))
+    for w, o in zip(writes, outs):
+        w.copy_(o)
+    st.state[parity].copy_(torch.cat([intervals, hit[None].to(intervals.dtype)]))
+    st.skipped += (~hit).view(ny, grid).sum(dim=1).to(torch.int32)
+    st.act += (intervals[0] <= intervals[1]).to(torch.int32)
+    return writes
+
+
+def _k14(sets, rule: LifeRule, plan: AdaptivePlan):
+    """``(reads, writes, st, parity, first)`` -> one K14 launch on the
+    strips' device and current stream, ``reads`` and ``writes`` two of
+    ``sets`` (lists of buffers of one shape, one a strip, top to bottom),
+    whose device pointer tables (int64[ny] each) are built here once,
+    copied without a wait from pinned memory, and live as long as the
+    launcher (freed, the allocator could hand their memory to a tensor
+    made between two launches); counted on ``strip_mega_launch.launches``."""
+    like = sets[0][0]
+    h, wp = like.shape
+    tabs = torch.tensor([[t.data_ptr() for t in bufs] for bufs in sets],
+                        dtype=torch.int64).pin_memory().to(like.device, non_blocking=True)
+    row = {tuple(t.data_ptr() for t in bufs): tab for bufs, tab in zip(sets, tabs)}
+    tiles = cuda_adaptive.stripe_tiles((h, wp), plan.stripe_h, plan.t + SKIP_PERIOD)
+    lib, launch = _launcher("frontier", "gol_strip_mega_launch",
+                            [_P] * 6 + [_I] * 12 + [_U, _U, _P])
+    born, surv = rule_masks(rule)
+    stream = _stream(like)
+
+    def k14(reads, writes, st: MeshState, parity: int, first: bool) -> None:
+        rd, wr = (row[tuple(t.data_ptr() for t in bufs)].data_ptr() for bufs in (reads, writes))
+        err = launch(rd, wr, st.state.data_ptr(), st.rowflag.data_ptr(), st.skipped.data_ptr(),
+                     st.act.data_ptr(), len(reads), h, wp, plan.t, plan.stripe_h, tiles.tile_h,
+                     tiles.tile_w, tiles.xpad, tiles.t, plan.pad_f, parity, int(first), born,
+                     surv, stream)
+        cuda_build.check(lib, err, "strip_mega")
+        strip_mega_launch.launches += 1
+
+    return k14
+
+
+def strip_mega_launch(reads, writes, st: MeshState, rule: LifeRule, plan: AdaptivePlan,
+                      parity: int, first: bool, k14=None):
+    """K14: one launch of ``plan.t`` generations over every strip of a row
+    mesh whose strips share one device (``reads`` top to bottom), writing
+    ``writes`` (each strip's buffer of two launches ago) and
+    ``st.state[parity]`` and accumulating ``st.skipped`` and ``st.act``;
+    returns ``writes``.  ``first`` marks launch 0 of a chunk.  ``k14`` is a
+    chunk's launcher (:func:`_k14`, its buffer sets holding ``reads`` and
+    ``writes``, the launch checked with the chunk); without it the launch
+    is checked here, CPU tensors run :func:`strip_mega_launch_plain` and
+    CUDA tensors launch K14 or raise."""
+    if k14 is None:
+        _check_mega(reads, writes, st, plan)
+        if reads[0].device.type == "cpu":
+            return strip_mega_launch_plain(reads, writes, st, rule, plan, parity, first)
+        k14 = _k14([reads, writes], rule, plan)
+    k14(reads, writes, st, parity, first)
+    return writes
+
+
+strip_mega_launch.launches = 0
+
+
+def strip_mega_launches(strips, rule: LifeRule, plan: AdaptivePlan, nlaunch: int,
+                        plain: bool = False, each=None):
+    """One chunk of the in-kernel tier: ``nlaunch`` K14 launches over
+    every strip of a row mesh whose strips share one device, from a
+    restarted state (launch 0 forces every stripe to compute), each launch
+    writing the strips' buffers of two launches ago (two fresh buffers a
+    strip; the input is never written).  Returns (strips,
+    :class:`MeshState`): the chunk's final state, its skip count per strip
+    and its activity per stripe, all left on the device.  On the card the
+    chunk is checked and its launcher (:func:`_k14`: the pointer tables)
+    built once, then each launch is one wrapper call, nothing read back
+    between launches.  ``plain`` runs :func:`strip_mega_launch_plain`
+    instead (on the CPU the wrapper runs it anyway); ``each(strips, st)``
+    is called after every launch (the launch-by-launch check)."""
+    ny, h = len(strips), strips[0].shape[0]
+    dev = strips[0].device
+    st = MeshState.start(ny, h, plan, dev)
+    bufs = [[torch.empty_like(t) for t in strips] for _ in range(2)]
+    k14 = None
+    if dev.type == "cuda" and not plain:
+        _check_mega(strips, bufs[0], st, plan)
+        k14 = _k14([strips, *bufs], rule, plan)
+    cur = strips
+    for k in range(nlaunch):
+        args = (cur, bufs[k % 2], st, rule, plan, k % 2, k == 0)
+        cur = strip_mega_launch_plain(*args) if plain else strip_mega_launch(*args, k14)
+        if each is not None:
+            each(cur, st)
+    return cur, st
+
+
 def reset_launches() -> None:
-    """Set the launch counters of K9, K10, K11, K12 and K13 to 0."""
+    """Set the launch counters of K9, K10, K11, K12, K13 and K14 to 0."""
     ext_launch.launches = 0
     ext_skip_launch.launches = 0
     strip_probing_launch.launches = 0
     strip_frontier_launch.launches = 0
     tile_probing_launch.launches = 0
+    strip_mega_launch.launches = 0
 
 
 # -- the drivers ------------------------------------------------------------------
@@ -909,6 +1136,27 @@ def frontier_launches(strips, rule, plan, nlaunch, launch=None):
             torch.cat([st.act.to(dev) for st in states]))
 
 
+def mega_launches(strips, rule, plan: AdaptivePlan, full: int):
+    """The ``full`` launches of a dispatch on the in-kernel tier, split as
+    the JAX package's in-kernel branch splits them: the canonical chunks
+    (``_nlaunch_chunks``) on K14 (:func:`strip_mega_launches`), the loose
+    tail of fewer than 8 launches on K11 from a zero bitmap
+    (:func:`probing_launches`).  Returns (strips, skipped, activity), the
+    chunks' and the tail's summed."""
+    chunks, loose = cuda_adaptive._nlaunch_chunks(full)
+    dev = strips[0].device
+    skipped = torch.zeros((), dtype=torch.int32, device=dev)
+    act = torch.zeros((len(strips) * plan.grid(strips[0].shape[0]),), dtype=torch.int32,
+                      device=dev)
+    for c in chunks:
+        strips, st = strip_mega_launches(strips, rule, plan, c)
+        skipped, act = skipped + st.skipped.sum().to(torch.int32), act + st.act
+    if loose:
+        strips, sk, a = probing_launches(strips, rule, plan, loose)
+        skipped, act = skipped + sk, act + a
+    return strips, skipped, act
+
+
 def tile_elision(flags: list[list[torch.Tensor]]) -> list[list[torch.Tensor]]:
     """The flag exchange of K13 on an (ny, nx) grid of tiles' bitmaps:
     each tile's bitmap extended with its y-neighbours' edge flags
@@ -974,7 +1222,8 @@ def _ext_step(board: ShardedBoard, rule: LifeRule, turns: int, launch) -> Sharde
 
 
 def make_superstep(mesh: Mesh, rule: LifeRule = CONWAY, skip_stable: bool = False,
-                   skip_tile_cap: int = 0, with_stats: bool = False):
+                   skip_tile_cap: int = 0, with_stats: bool = False,
+                   in_kernel: bool | None = None):
     """``(packed ShardedBoard, turns) -> packed ShardedBoard`` on the mesh;
     with ``with_stats``, ``(board, skipped, activity)``.
 
@@ -986,7 +1235,10 @@ def make_superstep(mesh: Mesh, rule: LifeRule = CONWAY, skip_stable: bool = Fals
 
     With ``skip_stable`` (``skip_tile_cap`` bounds the stripe height, 0 =
     the port's default): on a row mesh the full launches of
-    :func:`adaptive_strip_plan` on K12 or K11, on a 2-D mesh those of
+    :func:`adaptive_strip_plan` on the in-kernel tier where the plan has a
+    frontier form and :func:`tier_policy` (with ``in_kernel``) allows it
+    (:func:`mega_launches`: K14 chunks, a K11 tail), else on K12 or K11
+    with the exchange between launches; on a 2-D mesh those of
     :func:`adaptive_tile_plan` on K13 (K10 on a strip or tile with no
     plan), then one K10 launch for the period-multiple part of the
     remainder and one K9 launch for the rest.  ``skipped`` (an int32 0-d
@@ -996,8 +1248,8 @@ def make_superstep(mesh: Mesh, rule: LifeRule = CONWAY, skip_stable: bool = Fals
     row mesh, the (ny·grid, nx) grid of (stripe, x-tile) cells on a 2-D
     mesh, empty when no adaptive launch ran."""
     mesh_shape = (mesh.shape["y"], mesh.shape["x"])
-
     two_d = mesh_shape[1] > 1
+    in_kernel_tier = skip_stable and tier_policy(mesh, in_kernel=in_kernel)[0]
 
     def k9_only(board: ShardedBoard, turns: int) -> ShardedBoard:
         for plan in launch_plan(board.shard_shape, mesh_shape, turns):
@@ -1024,7 +1276,9 @@ def make_superstep(mesh: Mesh, rule: LifeRule = CONWAY, skip_stable: bool = Fals
         else:
             full, rem = divmod(turns, plan.t)
             strips = [row[0] for row in board.shards]
-            if plan.frontier:
+            if plan.frontier and in_kernel_tier:
+                strips, skipped, act = mega_launches(strips, rule, plan, full)
+            elif plan.frontier:
                 strips, skipped, act = frontier_launches(strips, rule, plan, full)
             else:
                 strips, skipped, act = probing_launches(strips, rule, plan, full)
@@ -1054,12 +1308,13 @@ def _no_stats(board: ShardedBoard) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def make_superstep_bytes(mesh: Mesh, rule: LifeRule = CONWAY, skip_stable: bool = False,
-                         skip_tile_cap: int = 0, with_stats: bool = False):
+                         skip_tile_cap: int = 0, with_stats: bool = False,
+                         in_kernel: bool | None = None):
     """``(uint8 ShardedBoard, turns) -> uint8 ShardedBoard`` (with
     ``with_stats``, plus the skip count and the activity of
     :func:`make_superstep`): each shard packed and unpacked on its own
     device around :func:`make_superstep`."""
-    inner = make_superstep(mesh, rule, skip_stable, skip_tile_cap, with_stats)
+    inner = make_superstep(mesh, rule, skip_stable, skip_tile_cap, with_stats, in_kernel)
 
     def run(board: ShardedBoard, turns: int):
         if not turns:

@@ -49,22 +49,27 @@ at xpad > 0, first held bit for bit against their plain versions on
 (2, 2) and (2, 4) tiles of the 16384² soup, fresh, settled and with
 gliders across the seams and a corner, skip counts and activity grids
 too, and K10 and K9 on path (i)'s (4, 2) tiles at every depth that path
-launches): (h) the 16384² soup x 100,000 on (2, 2) under auto (K13, with
-K10 and K9 for the remainders), equal to the single-device 100,000-turn
-PGM, and again with ``skip_stable=False`` (K9 alone); (i) 520 x 1024 x
-3,000 on (4, 2), whose tiles have no adaptive plan (K10 at xpad 1 on
-every launch), equal to a single-device rerun; (j) the soup x 2,000 on
-(2, 4) at a stripe cap of 16 (K13), equal to the single-device
-2,000-turn PGM.  It
+launches; and the in-kernel tier's K15, held to its plain version on the
+soup split (2, 2), (2, 4) and (1, 2), fresh, settled and with the seam
+and corner gliders, in chunks of 8 and 64 launches and launch by launch,
+and in whole dispatches with a K13 tail): (h) the 16384² soup x 100,000
+on (2, 2) under auto (the in-kernel tier: K15 chunks, K13 for the loose
+tails, K10 and K9 for the remainders), equal to the single-device
+100,000-turn PGM; (l) the same with ``DGOL_ICI=0``, on the ppermute tier
+(K13), equal to the same PGM; (h) again with ``skip_stable=False`` (K9
+alone); (i) 520 x 1024 x 3,000 on (4, 2), whose tiles have no adaptive
+plan (K10 at xpad 1 on every launch), equal to a single-device rerun;
+(j) the soup x 2,000 on (2, 4) at a stripe cap of 16 (K13), equal to the
+single-device 2,000-turn PGM.  It
 checks that every kernel of each path launched in it, times every kernel
 against its plain version and its bound (and a viewer turn's parts at
 16384², K6 beside a byte copy of the board and beside a build of K6
 without the modulo in its ring index, K7 beside 16 sequential K1
 launches, and K9 on a (4, 1) strip and a (2, 2) tile beside K2 on the
 whole board and beside the halo exchange, K10-K12 on a (4, 1) strip
-and K13 and K10 on a (2, 2) tile beside their plain versions, and K14 a
-launch over the (4, 1) strips beside the ppermute tier's launch and K5
-on the whole board), and
+and K13 and K10 on a (2, 2) tile beside their plain versions, K14 a
+launch over the (4, 1) strips and K15 a launch over the (2, 2) tiles,
+each beside its ppermute tier's launch and K5 on the whole board), and
 prints one
 ``{"kernels": [...]}`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  ``--profile`` adds a
@@ -188,6 +193,11 @@ KERNELS = {
         source="distributed_gol_torch/csrc/frontier.cu",
         replaces="distributed_gol_tpu/parallel/pallas_halo.py:454 _kernel_frontier_mega_strip",
     ),
+    "tile_mega": dict(
+        route="cuda",
+        source="distributed_gol_torch/csrc/frontier.cu",
+        replaces="distributed_gol_tpu/parallel/pallas_halo.py:1208 _kernel_frontier_mega_2d",
+    ),
 }
 WRAPPERS = {
     "resident": cuda_packed.resident_superstep,
@@ -204,10 +214,11 @@ WRAPPERS = {
     "strip_frontier": cuda_halo.strip_frontier_launch,
     "tile_probing": cuda_halo.tile_probing_launch,
     "strip_mega": cuda_halo.strip_mega_launch,
+    "tile_mega": cuda_halo.tile_mega_launch,
 }
 ADAPTIVE = ("tiled_skip", "probing", "frontier")
 STRIPS = ("ext_skip", "strip_probing", "strip_frontier")
-HALO = ("ext", *STRIPS, "tile_probing", "strip_mega")  # the sharded forms' kernels
+HALO = ("ext", *STRIPS, "tile_probing", "strip_mega", "tile_mega")  # the sharded forms' kernels
 LONG_TURNS = 100_000  # the auto skip_stable threshold (Params._SKIP_AUTO_TURNS)
 STENCIL_ODD = (1004, 3076)  # W % 128 != 0 and H % 8 != 0: refused by the TPU gate
 VIEWPORT = (8000, 8000, 1024, 1024)  # the viewport path's starting rect
@@ -241,12 +252,17 @@ MEGA_MESHES = (MESH_E, (2, 1), (1, 1))
 PLAN_LESS = (520, 512, 3_000)
 PROBE_CAP = 16
 # The skip_stable runs on 2-D meshes: (h) the 16384² soup x 100,000 on
-# (2, 2) under auto (K13, the remainders on K10 and K9 at xpad 1); (i) 520
-# x 1024 x 3,000 on (4, 2), whose 130-row tiles have no multiple-of-8
-# stripe (K10 at xpad 1 on every launch, no K13); (j) the soup x 2,000 on
-# (2, 4) at ``PROBE_CAP`` (16-row stripes, T = 12: K13).
+# (2, 2) under auto (the in-kernel tier: K15 chunks, K13 for the loose
+# tails, the remainders on K10 and K9 at xpad 1), and (l) the same with
+# DGOL_ICI=0 (the ppermute tier: K13); (i) 520 x 1024 x 3,000 on (4, 2),
+# whose 130-row tiles have no multiple-of-8 stripe (K10 at xpad 1 on
+# every launch, no K13); (j) the soup x 2,000 on (2, 4) at ``PROBE_CAP``
+# (16-row stripes, T = 12: K13).
 MESH_H, MESH_I, MESH_J = (2, 2), (4, 2), (2, 4)
 TILE_PLAN_LESS = (520, 1024, 3_000)
+# K15's checks: the 16384² soup split (2, 2), (2, 4) and (1, 2) (north and
+# south the tile itself, west and east one tile).
+TILE_MEGA_MESHES = (MESH_H, MESH_J, (1, 2))
 
 
 def virtual(mesh_shape: tuple, device) -> list:
@@ -710,16 +726,19 @@ def check_strip_launches(sb, rule: LifeRule, errs: dict, plans, name: str) -> No
 
 @contextlib.contextmanager
 def plain_strip_kernels():
-    """The sharded tiers' six wrappers (K9-K14) replaced by their plain
+    """The sharded tiers' seven wrappers (K9-K15) replaced by their plain
     versions while the block runs: a whole ``make_superstep`` dispatch on
     the card through no kernel, the yardstick of the dispatch check."""
     names = ("ext_launch", "ext_skip_launch", "strip_probing_launch", "strip_frontier_launch",
              "tile_probing_launch")
-    saved = {n: getattr(cuda_halo, n) for n in (*names, "strip_mega_launches")}
+    chunks = ("strip_mega_launches", "tile_mega_launches")
+    saved = {n: getattr(cuda_halo, n) for n in (*names, *chunks)}
     for n in names:
         setattr(cuda_halo, n, getattr(cuda_halo, f"{n}_plain"))
-    # K14's chunk builds its launcher itself unless asked for the plain one.
-    cuda_halo.strip_mega_launches = functools.partial(saved["strip_mega_launches"], plain=True)
+    # K14's and K15's chunks build their launchers themselves unless asked
+    # for the plain ones.
+    for n in chunks:
+        setattr(cuda_halo, n, functools.partial(saved[n], plain=True))
     try:
         yield
     finally:
@@ -805,17 +824,63 @@ def check_strips(device, errs: dict, boards: dict) -> dict:
 
 
 def mega_chunks_equal(got, want, n: int) -> int:
-    """Max abs error between two K14 chunks' (strips, MeshState): strips,
-    the final launch's state, skip counts and activity; the row flags of
-    ``got`` must be zero again (K14 clears them every launch)."""
+    """Max abs error between two K14 or K15 chunks' (shards, MeshState):
+    shards, the final launch's state, skip counts and activity; the row
+    flags of ``got`` must be zero again (the kernel clears them every
+    launch)."""
     (g, gst), (w, wst) = got, want
     last = (n - 1) % 2
     err = max([max_abs_err(a, b) for a, b in zip(g, w)]
               + [max_abs_err(gst.state[last], wst.state[last]),
                  max_abs_err(gst.skipped, wst.skipped), max_abs_err(gst.act, wst.act)])
     if int(gst.rowflag.abs().sum()):
-        raise AssertionError("K14 left row flags set after its launch")
+        raise AssertionError("a mesh megakernel left row flags set after its launch")
     return err
+
+
+def flat(shards) -> list:
+    """A mesh's shards in row-major order: strips as they are, rows of
+    tiles flattened."""
+    return [t for r in shards for t in r] if isinstance(shards[0], list) else list(shards)
+
+
+def check_mega_chunks(key: str, chunk, shards, plan, runs, errs: dict, where: str) -> None:
+    """K14 or K15 (``key``: "strip_mega" or "tile_mega", ``chunk`` its
+    chunk function) against its plain version, tolerance 0, on ``shards``
+    (``where`` names them in the log): for each (rule, n) of ``runs`` the
+    n-launch chunk on the card (its launcher once, one wrapper call a
+    launch, exactly n launches counted) against the plain chunk on the
+    card, in shards, final state, skip counts and activity; then three
+    launches against the plain chunk launch by launch (shards and the
+    whole state after each, through ``each``)."""
+    tag = {"strip_mega": "K14", "tile_mega": "K15"}[key]
+    for rule, n in runs:
+        reset_launches()
+        got = chunk(shards, rule, plan, n)
+        torch.cuda.synchronize()
+        if WRAPPERS[key].launches != n:
+            raise AssertionError(f"a {n}-launch chunk launched {tag} {WRAPPERS[key].launches} times")
+        want = chunk(shards, rule, plan, n, plain=True)
+        err = mega_chunks_equal((flat(got[0]), got[1]), (flat(want[0]), want[1]), n)
+        errs[key] = max(errs[key], err)
+        if err:
+            raise AssertionError(f"{tag} != plain, {n} launches on {where} under {rule.notation}")
+        log(f"{tag} {where} x {n} launches ({plan}) {rule.notation}: identical, skipped "
+            f"{got[1].skipped.tolist()} of {n * plan.grid(flat(shards)[0].shape[0])} a shard, "
+            f"active stripes {int((got[1].act > 0).sum())}")
+    seen = {}
+    for on_plain in (False, True):
+        def record(out, st, _seen=seen.setdefault(on_plain, [])):
+            _seen.append(([t.clone() for t in flat(out)], st.state.clone()))
+
+        chunk(shards, CONWAY, plan, 3, on_plain, record)
+    for (a, sa), (b, sb) in zip(*seen.values()):
+        err = max([max_abs_err(x, y) for x, y in zip(a, b)] + [max_abs_err(sa, sb)])
+        errs[key] = max(errs[key], err)
+        if err:
+            raise AssertionError(f"{tag} != plain launch by launch on {where}")
+    log(f"{tag} {where}: the chunk equals the plain chunk launch by launch (3 launches, "
+        "shards and state)")
 
 
 def check_strip_mega(device, errs: dict, boards: dict) -> dict:
@@ -824,12 +889,9 @@ def check_strip_mega(device, errs: dict, boards: dict) -> dict:
     north and south neighbours are one strip; (1, 1), the strip its own
     neighbour): fresh, settled (after ``LONG_TURNS`` generations) and
     settled with a glider across every strip seam and the torus wrap
-    (``seam_gliders``).  Chunks of 8 launches under both rules and of 64
-    under Conway (and HighLife on (4, 1)): the chunk on the card (its
-    launcher once, one wrapper call a launch) against the plain chunk on
-    the card, in strips, final state, skip counts and activity; then three
-    launches of that chunk against the plain chunk launch by launch (strips
-    and the whole state after each).  On (4, 1), a K14 chunk of 8 and of
+    (``seam_gliders``), through ``check_mega_chunks``: chunks of 8
+    launches under both rules and of 64 under Conway (and HighLife on
+    (4, 1)), then launch by launch.  On (4, 1), a K14 chunk of 8 and of
     64 must also equal one K5 chunk (``cuda_adaptive.frontier_superstep``)
     on the whole board at the strip plan's stripes: on one card the two
     compute the same function (board, skip count, activity).  Returns the
@@ -848,36 +910,8 @@ def check_strip_mega(device, errs: dict, boards: dict) -> dict:
             runs.append((HIGHLIFE, 64))
         for name, p in whole.items():
             strips = list(p.chunk(ny))
-            for rule, n in runs:
-                reset_launches()
-                got = cuda_halo.strip_mega_launches(strips, rule, plan, n)
-                torch.cuda.synchronize()
-                if WRAPPERS["strip_mega"].launches != n:
-                    raise AssertionError(f"a {n}-launch chunk launched K14 "
-                                         f"{WRAPPERS['strip_mega'].launches} times")
-                want = cuda_halo.strip_mega_launches(strips, rule, plan, n, plain=True)
-                err = mega_chunks_equal(got, want, n)
-                errs["strip_mega"] = max(errs["strip_mega"], err)
-                if err:
-                    raise AssertionError(f"K14 != plain, {n} launches on the {mesh_shape} {name} "
-                                         f"strips under {rule.notation}")
-                log(f"K14 {mesh_shape} {name} x {n} launches ({plan}) {rule.notation}: identical, "
-                    f"skipped {got[1].skipped.tolist()} of {n * plan.grid(BIG // ny)} a strip, "
-                    f"active stripes {int((got[1].act > 0).sum())}")
-            seen = {}
-            for on_plain in (False, True):
-                def record(out, st, _seen=seen.setdefault(on_plain, [])):
-                    _seen.append(([t.clone() for t in out], st.state.clone()))
-
-                cuda_halo.strip_mega_launches(strips, CONWAY, plan, 3, on_plain, record)
-            for (a, sa), (b, sb) in zip(*seen.values()):
-                err = max([max_abs_err(x, y) for x, y in zip(a, b)] + [max_abs_err(sa, sb)])
-                errs["strip_mega"] = max(errs["strip_mega"], err)
-                if err:
-                    raise AssertionError(f"K14 != plain launch by launch on the {mesh_shape} "
-                                         f"{name} strips")
-            log(f"K14 {mesh_shape} {name}: the chunk equals the plain chunk launch by "
-                "launch (3 launches, strips and state)")
+            check_mega_chunks("strip_mega", cuda_halo.strip_mega_launches, strips, plan, runs,
+                              errs, f"the {mesh_shape} {name} strips")
             if mesh_shape != MESH_E:
                 continue
             for n in (8, 64):
@@ -972,60 +1006,79 @@ def check_tile_launches(sb, rule: LifeRule, errs: dict, plan, xpad: int, name: s
                                  f"under {rule.notation}")
 
 
+def tile_boards(boards: dict) -> dict:
+    """The boards of the 2-D checks (``check_tiles``, ``check_tile_mega``):
+    the fresh and settled 16384² soups, and the settled one with gliders
+    across the seams of a (2, 2) split (``tile_seam_gliders``)."""
+    return {"fresh": boards["fresh"], "settled": boards["settled"],
+            "seam": tile_seam_gliders(boards["settled"])}
+
+
 def check_tiles(device, errs: dict, boards: dict) -> dict:
-    """K13 and K10 at xpad > 0 against their plain versions, tolerance 0,
-    on the 16384² soup split ``MESH_H`` (paths (h) and (j)'s shapes split
-    ``MESH_J`` too) on a virtual mesh: fresh, settled (after
-    ``LONG_TURNS`` generations) and settled with gliders across the row
-    seam, the column seam and a corner (``tile_seam_gliders``).  Whole
-    ``skip_stable`` dispatches of the tile tier, both rules: on
-    ``MESH_H`` 9·t - 5 turns at the port's plan (8 K13 launches a tile,
-    both parities of the buffer, then a K10 remainder of t - 6 and a K9
-    of 1, at xpad 1), and on both meshes 4·t - 5 at ``PROBE_CAP`` (3 K13
-    launches a tile, then K10 at 6 and K9 at 1), each against the same
-    dispatch through the plain versions on the card: boards, skip counts
-    and (stripe, x-tile) activity; then K13 launch by launch
+    """K13, K15 and K10 at xpad > 0 against their plain versions, tolerance
+    0, on ``tile_boards`` split ``MESH_H`` (paths (h) and (j)'s shapes
+    split ``MESH_J`` too) on a virtual mesh.  Whole ``skip_stable``
+    dispatches of the 2-D tiers, both rules: on ``MESH_H`` at the port's
+    plan 9·t - 5 turns on the ppermute tier (``in_kernel=False``: 8 K13
+    launches a tile, both parities of the buffer, then a K10 remainder of
+    t - 6 and a K9 of 1, at xpad 1), and 13·t - 5 on the in-kernel tier
+    (one 8-launch K15 chunk, a loose tail of 4 K13 launches a tile from a
+    zero bitmap, then the same remainders: path (h)'s tail, its skip
+    count and activity summed over chunk and tail); on both meshes 4·t - 5 at
+    ``PROBE_CAP`` (3 K13 launches a tile, then K10 at 6 and K9 at 1).  Each
+    against the same dispatch through the plain versions on the card
+    (``plain_strip_kernels``): boards, skip counts and (stripe, x-tile)
+    activity, with the launch counts asserted; then K13 launch by launch
     (``check_tile_launches``), and on ``MESH_H`` K10 alone at depths 6 to
     30 on every tile's extended block (pad = T, xpad = ceil(T / 32)).
     Returns the ``MESH_H`` sharded boards (phase 4 times them)."""
-    boards = {"fresh": boards["fresh"], "settled": boards["settled"],
-              "seam": tile_seam_gliders(boards["settled"])}
     sharded = {}
+    tag = {"tile_probing": "K13", "tile_mega": "K15"}
     for mesh_shape, caps in ((MESH_H, (0, PROBE_CAP)), (MESH_J, (PROBE_CAP,))):
         m = mesh_lib.make_mesh(mesh_shape, virtual(mesh_shape, device))
         sharding = halo.board_sharding(m)
         ntiles = mesh_shape[0] * mesh_shape[1]
         tile = (BIG // mesh_shape[0], BIG // 32 // mesh_shape[1])
-        plans = [cuda_halo.adaptive_tile_plan(tile, 10**6, cap) + (cap,) for cap in caps]
+        runs = []
+        for cap in caps:
+            plan, xpad = cuda_halo.adaptive_tile_plan(tile, 10**6, cap)
+            if cap:
+                runs.append((plan, xpad, cap, 3, None, {"tile_probing": ntiles * 3}))
+                continue
+            runs += [(plan, xpad, cap, 8, False, {"tile_probing": ntiles * 8, "tile_mega": 0}),
+                     (plan, xpad, cap, 12, None, {"tile_mega": 8, "tile_probing": ntiles * 4})]
         cases = {name: sharding.shard(p) for name, p in boards.items()}
         for rule in RULES:
             for name, sb in cases.items():
-                for plan, xpad, cap in plans:
-                    n = 8 if cap == 0 else 3
+                for plan, xpad, cap, n, in_kernel, want_counts in runs:
                     turns = plan.t * (n + 1) - 5  # n full launches, then K10 and K9
+                    want_counts = {**want_counts, "ext_skip": ntiles, "ext": ntiles}
                     reset_launches()
-                    got, sk, act = cuda_halo.make_superstep(m, rule, True, cap, True)(sb, turns)
+                    got, sk, act = cuda_halo.make_superstep(m, rule, True, cap, True, in_kernel)(
+                        sb, turns)
                     torch.cuda.synchronize()
-                    counts = {k: WRAPPERS[k].launches for k in ("tile_probing", "ext_skip", "ext")}
-                    want_counts = {"tile_probing": ntiles * n, "ext_skip": ntiles, "ext": ntiles}
+                    counts = {k: WRAPPERS[k].launches for k in want_counts}
                     if counts != want_counts:
                         raise AssertionError(f"tile dispatch launched {counts}, not {want_counts}")
                     with plain_strip_kernels():
-                        want, wsk, wact = cuda_halo.make_superstep(m, rule, True, cap, True)(
-                            sb, turns)
+                        want, wsk, wact = cuda_halo.make_superstep(m, rule, True, cap, True,
+                                                                   in_kernel)(sb, turns)
                     torch.cuda.synchronize()
                     err = max(max_abs_err(a, b) for a, b in zip(got.flat, want.flat))
-                    for k in ("tile_probing", "ext_skip", "ext"):
-                        errs[k] = max(errs[k], err)
+                    for k, v in want_counts.items():
+                        if v:
+                            errs[k] = max(errs[k], err)
                     if err or int(sk) != int(wsk) or not torch.equal(act, wact):
                         raise AssertionError(
                             f"tile dispatch != plain ({plan}) on the {mesh_shape} {name} board "
                             f"under {rule.notation}: skipped {int(sk)} vs {int(wsk)}")
                     total = cuda_halo.adaptive_strip_launches((BIG, BIG // 32), mesh_shape,
                                                               turns, cap)
-                    log(f"K13+K10+K9 {mesh_shape} {BIG}^2 x {turns} ({plan}, xpad {xpad}) "
+                    tags = "+".join(tag[k] for k, v in want_counts.items() if v and k in tag)
+                    log(f"{tags}+K10+K9 {mesh_shape} {BIG}^2 x {turns} ({plan}, xpad {xpad}) "
                         f"{name} {rule.notation}: identical, skipped {int(sk)} of {total}, "
                         f"active cells {int((act > 0).sum())} of {act.numel()}")
+                for plan, xpad in {(r[0], r[1]) for r in runs}:
                     check_tile_launches(sb, rule, errs, plan, xpad, name)
                 if mesh_shape != MESH_H:
                     log(f"K13 x 3 launches on the {ntiles} {name} tiles of {mesh_shape} "
@@ -1044,6 +1097,33 @@ def check_tiles(device, errs: dict, boards: dict) -> dict:
                     f"{ntiles} {name} tiles of {mesh_shape} {rule.notation}: identical")
         sharded[mesh_shape] = cases
     return sharded[MESH_H]
+
+
+def check_tile_mega(errs: dict, boards: dict) -> dict:
+    """K15 against its plain version, tolerance 0, on ``tile_boards`` split
+    ``TILE_MEGA_MESHES`` on virtual meshes of the card ((2, 2); (2, 4);
+    (1, 2), whose N and S neighbours are the tile itself and whose W and E
+    neighbours are one tile), through ``check_mega_chunks``: chunks of 8
+    launches under both rules, and on (2, 2) of 64 under both, then
+    launch by launch.  Returns the (2, 2) tiles by board (phase 4 times
+    them)."""
+    cases = {}
+    for mesh_shape in TILE_MEGA_MESHES:
+        ny, nx = mesh_shape
+        tile = (BIG // ny, BIG // 32 // nx)
+        plan = cuda_halo.adaptive_tile_plan(tile, 10**6)[0]
+        if not plan.frontier:
+            raise AssertionError(f"the {mesh_shape} tiles have no frontier plan ({plan})")
+        runs = [(CONWAY, 8), (HIGHLIFE, 8)]
+        if mesh_shape == MESH_H:
+            runs += [(CONWAY, 64), (HIGHLIFE, 64)]
+        for name, p in boards.items():
+            tiles = [[t.contiguous() for t in r.chunk(nx, dim=1)] for r in p.chunk(ny)]
+            check_mega_chunks("tile_mega", cuda_halo.tile_mega_launches, tiles, plan, runs,
+                              errs, f"the {mesh_shape} {name} tiles")
+            if mesh_shape == MESH_H:
+                cases[name] = tiles
+    return cases
 
 
 # -- phase 3: the main path ----------------------------------------------------
@@ -1565,54 +1645,72 @@ def strip_paths(tmp: Path, long_pgm: bytes, straight: bytes, launches: dict, dev
 def tile_paths(tmp: Path, long_pgm: bytes, straight: bytes, launches: dict, device) -> dict:
     """Phase 3's ``skip_stable`` runs on 2-D meshes, each on a virtual
     mesh of the one card: (h) the 16384² soup x 100,000 on ``MESH_H``
-    under auto, equal to the single-device run's PGM; (i)
-    ``TILE_PLAN_LESS`` on ``MESH_I``, ``skip_stable=True``, equal to a
-    single-device rerun; (j) the soup x 2,000 on ``MESH_J`` at
-    ``PROBE_CAP``, equal to the single-device 2,000-turn PGM.  Each must
-    report ``pallas-packed`` on the ``ppermute`` tier ((h) with the policy
-    naming ROADMAP B12: no in-kernel tier on a 2-D mesh); (h) and (j) must
-    launch K13, (i) K10 and no K13; the remainders' K10 and K9 launches
-    are counted where they ran.  Then (h)'s board on ``MESH_H`` with
-    ``skip_stable=False``, K9 alone, equal to the same PGM."""
+    under auto, equal to the single-device run's PGM, on the in-kernel
+    tier; (l) the same with ``DGOL_ICI=0`` (set around the run), on the
+    ppermute tier; (i) ``TILE_PLAN_LESS`` on ``MESH_I``,
+    ``skip_stable=True``, equal to a single-device rerun; (j) the soup x
+    2,000 on ``MESH_J`` at ``PROBE_CAP``, equal to the single-device
+    2,000-turn PGM.  Each must report ``pallas-packed``, its tier and its
+    policy ((i) and (j): "no frontier plan"), and launch its kernel: (h)
+    K15 (K13 only in the loose tails), (l) K13 and no K15, (i) K10 and no
+    K13 or K15, (j) K13 and no K15; the tails' K13 and the remainders' K10
+    and K9 launches are counted where they ran.  Then (h)'s board on
+    ``MESH_H`` with ``skip_stable=False``, K9 alone, equal to the same
+    PGM."""
     e2e = {}
     soup = dict(image_width=BIG, image_height=BIG, soup_density=0.3, soup_seed=7,
                 turn_events="batch", ticker_period=3600)
     h, w, turns = TILE_PLAN_LESS
+    no_plan = "no frontier plan"
+    long = gol.Params(turns=LONG_TURNS, mesh_shape=MESH_H, out_dir=tmp / "tiles_h", **soup)
     runs = [
-        ("h", gol.Params(turns=LONG_TURNS, mesh_shape=MESH_H, out_dir=tmp / "tiles_h", **soup),
-         ("tile_probing",), long_pgm),
+        ("h", long, ("tile_mega",), long_pgm, None, "ici-megakernel", "in-kernel"),
+        ("l", dataclasses.replace(long, out_dir=tmp / "tiles_l"), ("tile_probing",), long_pgm,
+         "0", "ppermute", "forced-ppermute (DGOL_ICI=0)"),
         ("i", gol.Params(turns=turns, image_height=h, image_width=w, soup_density=0.3,
                          soup_seed=7, turn_events="batch", ticker_period=3600, skip_stable=True,
                          mesh_shape=MESH_I, out_dir=tmp / "tiles_i"),
-         ("ext_skip",), dict(mesh_shape=(1, 1), skip_stable=False)),
+         ("ext_skip",), dict(mesh_shape=(1, 1), skip_stable=False), None, "ppermute", no_plan),
         ("j", gol.Params(turns=2000, skip_stable=True, skip_tile_cap=PROBE_CAP,
                          mesh_shape=MESH_J, out_dir=tmp / "tiles_j", **soup),
-         ("tile_probing",), straight),
+         ("tile_probing",), straight, None, "ppermute", no_plan),
     ]
-    for tag, params, kernels, want in runs:
+    forbidden = {"h": (), "l": ("tile_mega",), "i": ("tile_probing", "tile_mega"),
+                 "j": ("tile_mega",)}
+    for tag, params, kernels, want, ici, tier_want, policy_want in runs:
         if not params.skip_stable_requested():
             raise AssertionError(f"skip_stable is not requested on path ({tag})")
         ny, nx = params.mesh_shape
         name = f"tiles ({tag}) {params.image_height}x{params.image_width} x {params.turns} on {ny}x{nx}"
-        out, sink = drive(name, params, kernels, launches, want,
-                          devices=virtual(params.mesh_shape, device))
-        for k in ("ext", "ext_skip"):  # the remainders' launches count too
+        if ici is not None:
+            name += f", DGOL_ICI={ici}"
+        with dgol_ici(ici):
+            out, sink = drive(name, params, kernels, launches, want,
+                              devices=virtual(params.mesh_shape, device))
+        for k in ("ext", "ext_skip", "tile_probing", "tile_mega"):  # tails and remainders too
             if k not in kernels:
                 launches[k] += out["launches"][k]
         tier = sink.report["info"].get("backend.sharded_tier")
-        if tier != "ppermute":
-            raise AssertionError(f"{name}: backend.sharded_tier {tier!r}, not 'ppermute'")
-        if tag == "i" and out["launches"]["tile_probing"]:
-            raise AssertionError(f"{name}: a tile without a plan launched K13")
-        out["sharded_tier_policy"] = sink.report["info"].get("backend.sharded_tier_policy")
-        if tag == "h" and "ROADMAP B12" not in out["sharded_tier_policy"]:
-            raise AssertionError(f"{name}: the tier policy does not name B12: "
-                                 f"{out['sharded_tier_policy']!r}")
+        policy = sink.report["info"].get("backend.sharded_tier_policy")
+        if tier != tier_want or not policy.startswith(policy_want):
+            raise AssertionError(f"{name}: backend.sharded_tier {tier!r} ({policy!r}), not "
+                                 f"{tier_want!r} ({policy_want!r}...)")
+        ran = [k for k in forbidden[tag] if out["launches"][k]]
+        if ran:
+            raise AssertionError(f"{name}: launched {ran}")
+        if tag == "h":
+            # K13 only in loose tails: fewer than 8 launches a tile a dispatch.
+            dispatches = sink.report["counters"]["backend.dispatches.pallas-packed"]
+            k13, ntiles = out["launches"]["tile_probing"], ny * nx
+            if k13 % ntiles or k13 > 7 * ntiles * dispatches:
+                raise AssertionError(f"{name}: {k13} K13 launches in {dispatches} dispatches "
+                                     "are more than the loose tails'")
+        out["sharded_tier"], out["sharded_tier_policy"] = tier, policy
         e2e[f"tiles_{tag}_{params.image_height}x{params.image_width}x{params.turns}_{ny}x{nx}"] = out
         print(f"tile path {name}: {out['seconds']:.3f} s, {out['gens_per_s']:.1f} gens/s, "
-              f"dispatch loop {out['dispatch_loop_s']:.3f} s, skip fraction "
-              f"{out.get('skip_fraction')}, active stripes {out.get('active_stripes')}, "
-              f"launches { {k: out['launches'][k] for k in ('ext', 'ext_skip', 'tile_probing')} }",
+              f"dispatch loop {out['dispatch_loop_s']:.3f} s, tier {tier}, skip fraction "
+              f"{out.get('skip_fraction')}, active stripes {out.get('active_stripes')}, launches "
+              f"{ {k: out['launches'][k] for k in ('ext', 'ext_skip', 'tile_probing', 'tile_mega')} }",
               flush=True)
     # (h) again without skip_stable (K9 alone): what auto's tile tier
     # costs or saves on a 2-D mesh.
@@ -1657,7 +1755,7 @@ def profile_run(turns: int, side: int = BIG, devices=None, **viewer) -> dict:
     ``loop_busy_share_at_least`` its busy share: the device time of the
     port's own kernels, which run only inside dispatches, over the loop's
     seconds.  A sharded run also
-    reports its K9-K13 launches and the device time per sharded launch
+    reports its K9-K15 launches and the device time per sharded launch
     (one launch per shard) of its device-to-device memcpys: on a row mesh
     these are the halo exchange's copies and nothing else
     (``halo.extend`` copies contiguous row blocks; packing and the gather
@@ -1705,8 +1803,9 @@ def profile_run(turns: int, side: int = BIG, devices=None, **viewer) -> dict:
     if devices:
         dtod = [(us, n) for us, k, n in rows if k.startswith("Memcpy DtoD")]
         total = sum(halo_launches.values())
-        # K14 covers every shard in one launch; the others one shard each.
-        launches = (total - halo_launches["strip_mega"]) / len(devices) + halo_launches["strip_mega"]
+        # K14 and K15 cover every shard in one launch; the others one shard each.
+        mega = halo_launches["strip_mega"] + halo_launches["tile_mega"]
+        launches = (total - mega) / len(devices) + mega
         exchange_ms = sum(us for us, _ in dtod) / 1e3
         out.update(mesh_shape=list(viewer["mesh_shape"]), launches=halo_launches,
                    sharded_launches=launches, exchange_copies=sum(n for _, n in dtod),
@@ -1996,6 +2095,52 @@ def time_strip_mega(cases: dict, int_rate: float) -> dict:
                 extra=dict(board="fresh", shape=[ny, *strip], per_board=rows))
 
 
+def time_tile_mega(cases: dict, sharded: dict, int_rate: float) -> dict:
+    """K15 per launch over the four (2, 2) tiles of the 16384² soup, fresh
+    and settled: one 64-launch chunk on the card (its pointer tables, then
+    one call a launch) between CUDA events, over 64, beside, in the same
+    call and the same way, the ppermute tier's 64 launches (four K13
+    launches a mesh launch from a zero bitmap, with the exchange and the
+    3x3 elision between launches: ``tile_probing_launches`` on the same
+    tiles, ``sharded``), one K5 chunk of 64 on the whole board at the tile
+    plan's stripes, and the plain chunk over 2 launches.  The bound is the
+    work of the stripes K15 computed (its own skip count, the forced edge
+    stripes included): T + 6 generations of their words, each read and
+    written once."""
+    ny, nx = MESH_H
+    tile = (BIG // ny, BIG // 32 // nx)
+    plan, xpad = cuda_halo.adaptive_tile_plan(tile, 10**6)
+    cells = ny * nx * plan.grid(tile[0])
+    rows = {}
+    for name in ("fresh", "settled"):
+        tiles, sb = cases[name], sharded[name]
+        whole = torch.cat([torch.cat(r, dim=1) for r in tiles])
+        _, st = cuda_halo.tile_mega_launches(tiles, CONWAY, plan, 64)
+        computed = (64 * cells - int(st.skipped.sum())) / 64
+        words = computed * plan.stripe_h * tile[1]
+        b_ms, b_by = work_bound_ms(words, words, plan.t + 6, CONWAY, int_rate)
+        rows[name] = dict(
+            ms=cuda_ms(lambda: cuda_halo.tile_mega_launches(tiles, CONWAY, plan, 64), 3) / 64,
+            plain_ms=cuda_ms(lambda: cuda_halo.tile_mega_launches(
+                tiles, CONWAY, plan, 2, plain=True), 1) / 2,
+            k13_mesh_launch_ms=cuda_ms(
+                lambda: cuda_halo.tile_probing_launches(sb, CONWAY, plan, xpad, 64), 3) / 64,
+            k5_whole_board_ms=cuda_ms(
+                lambda: cuda_adaptive.frontier_superstep(whole, CONWAY, plan, 64), 3) / 64,
+            plan=str(plan), computed_stripes_per_launch=computed, stripes=cells,
+            bound_ms=b_ms, bound_by=b_by)
+        r = rows[name]
+        log(f"K15 {name} tiles of {MESH_H}, {plan}: {r['ms']:.4f} ms a launch over all "
+            f"{ny * nx} tiles (plain {r['plain_ms']:.3f}, bound {b_ms:.5f} by {b_by}, "
+            f"{computed:.2f} of {cells} stripes computed); the ppermute tier (4 K13 and the "
+            f"exchange) {r['k13_mesh_launch_ms']:.4f} ms; K5 on the whole board "
+            f"{r['k5_whole_board_ms']:.4f} ms")
+    fresh = rows["fresh"]
+    return dict(ms=fresh["ms"], plain_ms=fresh["plain_ms"],
+                bound=(fresh["bound_ms"], fresh["bound_by"]),
+                extra=dict(board="fresh", shape=[ny, nx, *tile], per_board=rows))
+
+
 def time_tiles(cases: dict, int_rate: float) -> dict:
     """Per-launch times of K13 and of K10 at xpad > 0 on the (2, 2) tiles
     of the 16384² soup, fresh and settled.  K13 at the port's plan (the
@@ -2240,8 +2385,10 @@ def main() -> int:
     strip_cases = check_strips(device, errs, boards)
     strip_cases["plan_less"] = check_plan_less(device, errs, PLAN_LESS, MESH_F, "f")
     mega_cases = check_strip_mega(device, errs, boards)
-    tile_cases = check_tiles(device, errs, boards)
+    tiled = tile_boards(boards)
+    tile_cases = check_tiles(device, errs, tiled)
     tile_cases["plan_less"] = check_plan_less(device, errs, TILE_PLAN_LESS, MESH_I, "i")
+    tile_mega_cases = check_tile_mega(errs, tiled)
 
     # Phase 3: the main paths, with every count set to 0 just before each run.
     launches = {k: 0 for k in KERNELS}
@@ -2292,10 +2439,13 @@ def main() -> int:
               f"{run_long.get('skip_fraction')}", flush=True)
         e2e.update(tile_paths(tmp, long_pgm, straight, launches, device))
         hh = next(v for k, v in e2e.items() if k.startswith("tiles_h_"))
-        print(f"tile path (h) on {MESH_H}: {hh['gens_per_s']:.1f} gens/s, dispatch loop "
-              f"{hh['dispatch_loop_s']:.3f} s, skip fraction {hh.get('skip_fraction')}; strip "
-              f"path (e) on {MESH_E}: {e['gens_per_s']:.1f} gens/s; single-device "
-              f"{run_long['gens_per_s']:.1f} gens/s", flush=True)
+        ll = next(v for k, v in e2e.items() if k.startswith("tiles_l_"))
+        print(f"tile path (h) on {MESH_H}, in-kernel tier: {hh['gens_per_s']:.1f} gens/s, "
+              f"dispatch loop {hh['dispatch_loop_s']:.3f} s, skip fraction "
+              f"{hh.get('skip_fraction')}; (l), ppermute tier: {ll['gens_per_s']:.1f} gens/s, "
+              f"dispatch loop {ll['dispatch_loop_s']:.3f} s, skip fraction "
+              f"{ll.get('skip_fraction')}; strip path (e) on {MESH_E}: {e['gens_per_s']:.1f} "
+              f"gens/s; single-device {run_long['gens_per_s']:.1f} gens/s", flush=True)
 
     # Phase 4: time each kernel at the main path's shapes.
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -2335,6 +2485,7 @@ def main() -> int:
     timings["ext"] = time_ext(ext_cases, int_rate)
     timings.update(time_strips(strip_cases, int_rate))
     timings["strip_mega"] = time_strip_mega(mega_cases, int_rate)
+    timings["tile_mega"] = time_tile_mega(tile_mega_cases, tile_cases, int_rate)
     tiles = time_tiles(tile_cases, int_rate)
     timings["tile_probing"] = tiles["tile_probing"]
     timings["ext_skip"]["extra"]["tile_2d"] = tiles["ext_skip_2d"]

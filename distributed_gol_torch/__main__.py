@@ -5,8 +5,9 @@ flag (``-t``, ``-w``, ``-h`` board height, ``-turns``, ``-noVis`` and the
 framework flags), plus ``--device cuda|cpu``.  ``--mesh NYxNX`` shards the
 board over a mesh of that many CUDA devices (``--device cpu``: shards on
 the CPU), headless, ``--skip-stable`` included; with ``--skip-stable``
-(or ``auto`` on runs of 100,000 turns or more) a row mesh whose strips
-share one card takes the in-kernel exchange tier (K14), and the
+(or ``auto`` on runs of 100,000 turns or more) a mesh whose strips or
+tiles share one card takes the in-kernel exchange tier (K14 on a row
+mesh, K15 on a 2-D mesh), and the
 environment variable ``DGOL_ICI=0`` forces the ppermute tier instead, as
 in the JAX package.  Flags for what the port
 does not serve yet (the supervisor, time compression, telemetry

@@ -92,6 +92,23 @@
 // act int32[ny * grid]), so K8's finalize serves unchanged.  With ny = 1
 // the strip is its own neighbour: the JAX package's loopback build.  What
 // bounds it is K5's: integer operations on the stripes that hit.
+//
+// K15: the 2-D megakernel (gol_tile_mega_launch).  Replaces
+// distributed_gol_tpu/parallel/pallas_halo.py::_kernel_frontier_mega_2d,
+// the in-kernel exchange tier of a skip_stable dispatch on an (ny, nx)
+// mesh, whose TPU form ships N/S rows, E/W word columns, four corner
+// blocks and both x-neighbours' interval state over ten remote-DMA
+// channels every launch.  Here every tile lies on this card: one CUDA
+// launch covers every tile (blockIdx.z = dy * nx + dx), a window reads
+// whatever it needs past its tile's edges straight from the neighbour
+// tiles' read buffers, corners included (window.cuh::MeshTileSource), and
+// a stripe decides from nine tracked states in the shared state array
+// (TileIntervals: its own stripes i - 1..i + 1 clamped, and those of the W
+// and E tiles).  As in the JAX kernel, no y-neighbour state is read: a
+// tile's first and last stripes are forced to compute every launch.  The
+// arrays gain the tile axis as K14's gain the strip axis, so K8's finalize
+// serves unchanged.  What bounds it is K5's work; on settled boards the
+// forced edge stripes set its floor: one block's whole window a launch.
 
 #include "window.cuh"
 
@@ -105,10 +122,15 @@ constexpr int kFields = 5;       // lo0, hi0, lo1, hi1, computed
 // Stripe i's neighbourhood on a whole board: the previous launch's
 // intervals of stripes i - 1, i and i + 1 (modulo grid), placed in stripe
 // i's row frame across the torus wrap.
+//
+// Each neighbourhood lists kSize stripes; get(n, k, ...) gives interval k
+// (0 or 1) of its stripe n, placed in stripe i's row frame.
 struct TorusIntervals {
+    static constexpr int kSize = 3;
     const int* prev;  // the previous parity's state of this board
     int total, grid, stripe_h, i;
-    __device__ void get(int slot, int k, int& lo, int& hi) const {
+    __device__ void get(int n, int k, int& lo, int& hi) const {
+        const int slot = n - 1;
         const int j = wrap(i + slot, grid);
         const int off = (i + slot - j) * stripe_h;
         lo = prev[(2 * k) * total + j] + off;
@@ -120,11 +142,12 @@ struct TorusIntervals {
 // array of grid + 2 entries per field, the neighbour strips' edge stripes
 // at both ends, already placed in this strip's row frame by the exchange.
 struct StripIntervals {
+    static constexpr int kSize = 3;
     const int* ext;  // int32[4][grid + 2]: lo0, hi0, lo1, hi1
     int stride, i;   // stride = grid + 2
-    __device__ void get(int slot, int k, int& lo, int& hi) const {
-        lo = ext[(2 * k) * stride + i + 1 + slot];
-        hi = ext[(2 * k + 1) * stride + i + 1 + slot];
+    __device__ void get(int n, int k, int& lo, int& hi) const {
+        lo = ext[(2 * k) * stride + i + n];
+        hi = ext[(2 * k + 1) * stride + i + n];
     }
 };
 
@@ -134,10 +157,11 @@ struct StripIntervals {
 // that strip's row frame, move by -/+ h_loc into strip s's.  An empty
 // interval stays empty: both ends move together.
 struct MeshIntervals {
+    static constexpr int kSize = 3;
     const int* prev;  // the previous parity's state of every strip
     int total, grid, ny, h_loc, s, i;
-    __device__ void get(int slot, int k, int& lo, int& hi) const {
-        int j = i + slot;
+    __device__ void get(int n, int k, int& lo, int& hi) const {
+        int j = i + n - 1;
         int t = s;
         int off = 0;
         if (j < 0) {
@@ -154,9 +178,27 @@ struct MeshIntervals {
     }
 };
 
-// _hit_union for stripe rows [c_lo, c_hi], by one thread: `decision` gets
-// hit and the measure rows [lo, hi]; `first` forces hit and the maximal
-// union (launch 0 of a chunk).
+// Stripe i of tile (dy, dx) of a 2-D mesh whose tiles share one state
+// array (K15): its own stripes i - 1, i and i + 1, clamped to
+// [0, grid - 1] (not wrapped: the tile's edge stripes always compute), and
+// the same three stripes of the W and E tiles (modulo nx), whose row
+// frames are this tile's, so nothing moves (_kernel_frontier_mega_2d).
+struct TileIntervals {
+    static constexpr int kSize = 9;
+    const int* prev;  // the previous parity's state of every tile
+    int total, grid, nx, dy, dx, i;
+    __device__ void get(int n, int k, int& lo, int& hi) const {
+        const int t = dy * nx + wrap(dx + n / 3 - 1, nx);  // W, own, E
+        const int j = min(max(i + n % 3 - 1, 0), grid - 1);
+        lo = prev[(2 * k) * total + t * grid + j];
+        hi = prev[(2 * k + 1) * total + t * grid + j];
+    }
+};
+
+// _hit_union for stripe rows [c_lo, c_hi] over the neighbourhood `iv`, by
+// one thread: `decision` gets hit and the measure rows [lo, hi]; `first`
+// forces hit and the maximal union (launch 0 of a chunk, and K15's edge
+// stripes).
 template <class Intervals>
 __device__ void decide(int* decision, const Intervals& iv, int c_lo, int c_hi, int t6,
                        int pad_f, int first) {
@@ -168,10 +210,10 @@ __device__ void decide(int* decision, const Intervals& iv, int c_lo, int c_hi, i
         const int w_hi = c_hi + pad_f;
         u_lo = kEmpty;
         u_hi = -kEmpty;
-        for (int slot = -1; slot <= 1; ++slot) {
+        for (int n = 0; n < Intervals::kSize; ++n) {
             for (int k = 0; k < 2; ++k) {
                 int lo, hi;
-                iv.get(slot, k, lo, hi);
+                iv.get(n, k, lo, hi);
                 if (lo > hi) continue;
                 if (lo - kSkipPeriod <= w_hi && hi + kSkipPeriod >= w_lo) hit = 1;
                 const int clo = max(lo, c_lo - t6);
@@ -343,6 +385,50 @@ strip_mega_kernel(const uint32_t* const* __restrict__ rd_tab, uint32_t* const* _
                   born, surv);
 }
 
+// K15: one launch over every tile of a 2-D mesh, blockIdx.z = dy * nx +
+// dx.  `rd_tab` and `wr_tab` (ny * nx entries each, row-major) give the
+// tiles' read and write buffers; the window's rows and words past tile
+// (dy, dx)'s edges come from the neighbour tiles' read buffers
+// (MeshTileSource; halo <= h, xpad <= wp).  Stripes 0 and grid - 1 are
+// forced like launch 0: every launch computes them.
+__global__ void __launch_bounds__(kThreads)
+tile_mega_kernel(const uint32_t* const* __restrict__ rd_tab, uint32_t* const* __restrict__ wr_tab,
+                 int* __restrict__ state, int* __restrict__ rowflag, int* __restrict__ skipped,
+                 int ny, int nx, int h, int wp, int turns, int stripe_h, int tile_h, int tile_w,
+                 int xpad, int halo, int pad_f, int parity, int first, uint32_t born,
+                 uint32_t surv) {
+    extern __shared__ uint32_t smem[];
+    __shared__ int decision[3];  // hit, measure rows lo, hi
+    const int grid = h / stripe_h;
+    const int v = blockIdx.z;
+    const int dy = v / nx;
+    const int dx = v - dy * nx;
+    const int total = ny * nx * grid;
+    const uint32_t* rd = rd_tab[v];
+    uint32_t* wr = wr_tab[v];
+    const MeshTileSource src{rd_tab, ny, nx, dy, dx, h, wp};
+    rowflag += static_cast<size_t>(v) * h;
+    skipped += v;
+    const int y0 = blockIdx.y * tile_h;
+    const int x0 = blockIdx.x * tile_w;
+    const int i = y0 / stripe_h;
+    const int c_lo = i * stripe_h;
+    const int* prev = state + (1 - parity) * kFields * total;
+    int* cur = state + parity * kFields * total;
+    const int gi = v * grid + i;
+    const bool leader = thread_id() == 0 && blockIdx.x == 0 && y0 == c_lo;
+
+    if (thread_id() == 0) {
+        decide(decision, TileIntervals{prev, total, grid, nx, dy, dx, i}, c_lo,
+               c_lo + stripe_h - 1, turns + kSkipPeriod, pad_f,
+               first | (i == 0) | (i == grid - 1));
+    }
+    __syncthreads();
+    frontier_tile(smem, decision, src, rd, wr, rowflag, skipped, &cur[4 * total + gi],
+                  prev[4 * total + gi], leader, h, wp, turns, tile_h, tile_w, xpad, halo, y0, x0,
+                  born, surv);
+}
+
 // One block per stripe of every board: block gi = b * grid + i.
 __global__ void frontier_finalize(int* __restrict__ state, int* __restrict__ rowflag,
                                   int* __restrict__ act, int h, int stripe_h, int grid,
@@ -504,5 +590,45 @@ extern "C" int gol_strip_mega_launch(const void* rd_tab, const void* wr_tab, voi
     frontier_finalize<<<ny * grid, 256, 0, s>>>(static_cast<int*>(state),
                                                 static_cast<int*>(rowflag),
                                                 static_cast<int*>(act), h, stripe_h, grid, parity);
+    return cudaGetLastError();
+}
+
+// K15: `rd_tab` and `wr_tab` are device arrays of ny * nx tile buffer
+// pointers, row-major (no write buffer is a read buffer); `state`
+// (int32[2][5][ny * nx * grid]), `rowflag` (int32[ny * nx * h], zero
+// between launches), `skipped` (int32[ny * nx]) and `act`
+// (int32[ny * nx * grid]) persist over a chunk, indexed tile-major.  The
+// window's row halo (>= T + 6) and the decision's reach pad_f must fit one
+// stripe and its word halo one tile, so nothing past the adjacent tiles is
+// read.
+extern "C" int gol_tile_mega_launch(const void* rd_tab, const void* wr_tab, void* state,
+                                    void* rowflag, void* skipped, void* act, int ny, int nx,
+                                    int h, int wp, int turns, int stripe_h, int tile_h,
+                                    int tile_w, int xpad, int halo, int pad_f, int parity,
+                                    int first, unsigned born, unsigned surv, void* stream) {
+    if (ny < 1 || nx < 1 || ny * nx > 65535 || h < 1 || wp < 1 || turns < kSkipPeriod ||
+        turns % kSkipPeriod || stripe_h < 1 || h % stripe_h || tile_h < 1 ||
+        stripe_h % tile_h || tile_w < 1 || halo < turns + kSkipPeriod || pad_f < halo ||
+        pad_f > stripe_h || xpad * 32 < turns + kSkipPeriod || xpad > wp ||
+        tile_w + 2 * xpad > kCols || (parity != 0 && parity != 1) ||
+        (first != 0 && first != 1)) {
+        return cudaErrorInvalidValue;
+    }
+    const long long smem = window_smem(tile_h + 2 * halo, tile_w + 2 * xpad);
+    cudaError_t err = allow_smem(tile_mega_kernel, smem);
+    if (err != cudaSuccess) return err;
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const int grid = h / stripe_h;
+    const dim3 blocks((wp + tile_w - 1) / tile_w, h / tile_h, ny * nx);
+    tile_mega_kernel<<<blocks, dim3(kCols, kSegs), static_cast<size_t>(smem), s>>>(
+        static_cast<const uint32_t* const*>(rd_tab), static_cast<uint32_t* const*>(wr_tab),
+        static_cast<int*>(state), static_cast<int*>(rowflag), static_cast<int*>(skipped), ny, nx,
+        h, wp, turns, stripe_h, tile_h, tile_w, xpad, halo, pad_f, parity, first, born, surv);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    frontier_finalize<<<ny * nx * grid, 256, 0, s>>>(static_cast<int*>(state),
+                                                     static_cast<int*>(rowflag),
+                                                     static_cast<int*>(act), h, stripe_h, grid,
+                                                     parity);
     return cudaGetLastError();
 }

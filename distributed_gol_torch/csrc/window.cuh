@@ -1,5 +1,6 @@
 // Shared device code of the tiled kernels (K2 tiled.cu, K3 tiled_skip.cu,
-// K4, K11 and K13 probing.cu, K5, K8 and K12 frontier.cu, K9 and K10 ext.cu): a
+// K4, K11 and K13 probing.cu, K5, K8, K12, K14 and K15 frontier.cu, K9 and
+// K10 ext.cu): a
 // window of the horizontally packed board in shared memory, stepped
 // generation by generation.
 //
@@ -75,6 +76,23 @@ struct StripSource {
                               : y >= h ? south + static_cast<size_t>(y - h) * wp
                                        : local + static_cast<size_t>(y) * wp;
         return row[wrap(x, wp)];
+    }
+};
+
+// MeshTileSource: tile (dy, dx) of an (ny, nx) mesh of (h, wp)-word tiles
+// whose read buffers are listed in `tab` (tile (ty, tx) at ty * nx + tx):
+// the word at unwrapped (y, x) lies in tile ((dy + floor(y / h)) mod ny,
+// (dx + floor(x / wp)) mod nx), so the N/S rows, the E/W columns and the
+// corners all come from the neighbour tiles with no special case.  Rows
+// stay within [-h, 2h) and words within [-wp, 2wp).
+struct MeshTileSource {
+    const uint32_t* const* tab;
+    int ny, nx, dy, dx, h, wp;
+    __device__ __forceinline__ uint32_t operator()(int y, int x) const {
+        const int sy = y < 0 ? -1 : y >= h ? 1 : 0;
+        const int sx = x < 0 ? -1 : x >= wp ? 1 : 0;
+        const uint32_t* t = tab[wrap(dy + sy, ny) * nx + wrap(dx + sx, nx)];
+        return t[static_cast<size_t>(y - sy * h) * wp + (x - sx * wp)];
     }
 };
 

@@ -21,9 +21,9 @@ same surface serves it: ``put`` scatters, ``fetch`` gathers, the alive
 count is the sum of the shards' counts, and the engines are the sharded
 roll (``parallel/halo.py``), packed (``parallel/packed_halo.py``) and
 temporally blocked (``parallel/cuda_halo.py``: K9, and with
-``skip_stable`` the adaptive kernels K10-K12 and K14 on a row mesh and K10
-and K13 on a 2-D mesh, with the same skip telemetry over the whole mesh)
-forms.  The controller
+``skip_stable`` the adaptive kernels K10-K12 and K14 on a row mesh and K10,
+K13 and K15 on a 2-D mesh, with the same skip telemetry over the whole
+mesh) forms.  The controller
 never touches the board itself, only these methods.
 
 :class:`BatchedBackend` is the board-stack form behind the same seam: B
@@ -163,12 +163,13 @@ class Backend:
             # tensor copies.  skip_stable runs the adaptive strip tier on a
             # row mesh and the adaptive tile tier on a 2-D mesh, with live
             # skip telemetry; cap 0 = the port's default stripe cap.  On a
-            # row mesh whose strips share one card the policy may pick the
-            # in-kernel exchange tier (K14 chunks); when it does not, the
-            # ppermute form is a policy outcome, recorded here and never
-            # warned about: both tiers give the same boards.  The policy
-            # is asked once, here: its answer goes down to the engine as
-            # in_kernel, so the tier that runs is the tier recorded.
+            # mesh whose strips or tiles share one card the policy may
+            # pick the in-kernel exchange tier (K14 or K15 chunks); when
+            # it does not, the ppermute form is a policy outcome, recorded
+            # here and never warned about: both tiers give the same
+            # boards.  The policy is asked once, here: its answer goes
+            # down to the engine as in_kernel, so the tier that runs is
+            # the tier recorded.
             self.sharded_tier = "ppermute"
             if params.skip_stable_requested():
                 ny, nx = mesh_shape

@@ -70,9 +70,15 @@ chunks (``_nlaunch_chunks``), each launch one K14 launch over every strip
 (``csrc/frontier.cu``, :func:`strip_mega_launches`), whose windows read
 the neighbour strips' rows and whose edge stripes read the neighbours'
 intervals in place, with no exchange between launches; the loose tail
-runs K11 from a zero bitmap, the remainders K10 and K9.  The in-kernel
-tier of a 2-D mesh (ROADMAP B12) and the peer form for strips on several
-devices (B10p) are not ported: those meshes take the ppermute forms.
+runs K11 from a zero bitmap, the remainders K10 and K9.  A 2-D mesh whose
+tiles share one device takes the same tier (the counterpart of
+``_kernel_frontier_mega_2d``): canonical chunks of K15 launches over every
+tile (:func:`tile_mega_chunks`), whose windows read the neighbour tiles'
+rows, words and corners and whose stripes decide from their own and both
+x-neighbours' intervals, the edge stripes computing every launch; a K13
+loose tail; :func:`make_superstep_virtual_2d` runs it on a whole board.
+The peer form for shards on several devices (ROADMAP B10p) is not
+ported: those meshes take the ppermute forms.
 """
 
 from __future__ import annotations
@@ -267,10 +273,10 @@ def tier_policy(mesh: Mesh, strip: tuple[int, int] | None = None, tile_cap: int 
     :func:`adaptive_tile_plan`, the geometry the 2-D megakernel will
     ride).  A mesh of several CPU shards gives the JAX package's
     interpret-mode reason, so the two packages' CPU records agree.  Then
-    the port's own limits: a 2-D mesh (ROADMAP B12), and strips on
-    several CUDA devices (B10p: the peer form is not ported).  Every other
-    mesh takes the tier: a (1, 1) mesh on any device (the loopback form)
-    and a row mesh whose shards share one card."""
+    the port's own limit: strips or tiles on several CUDA devices (B10p:
+    the peer form is not ported).  Every other mesh takes the tier: a
+    (1, 1) mesh on any device (the loopback form) and a row or 2-D mesh
+    whose shards share one card."""
     ny, nx = mesh.shape["y"], mesh.shape["x"]
     if in_kernel is False:
         return False, "forced-ppermute (in_kernel=False)"
@@ -289,17 +295,13 @@ def tier_policy(mesh: Mesh, strip: tuple[int, int] | None = None, tile_cap: int 
         return False, "forced-ppermute (DGOL_ICI=0)"
     if ny * nx > 1 and all(d.type == "cpu" for d in mesh.flat):
         return False, INTERPRET_REASON
-    if nx > 1:
-        return False, (
-            "in-kernel exchange tier not ported (ROADMAP B12): the ppermute "
-            "tile form runs, its exchange by tensor copies"
-        )
     cards = {(d.type, d.index or 0) for d in mesh.flat}
     if len(cards) > 1:
+        shards, form = ("tiles", "tile") if nx > 1 else ("strips", "strip")
         return False, (
             "the in-kernel tier's peer form is not ported (ROADMAP B10p): "
-            f"strips on {len(cards)} devices need peer copies and a "
-            "cross-device barrier between launches; the ppermute strip form "
+            f"{shards} on {len(cards)} devices need peer copies and a "
+            f"cross-device barrier between launches; the ppermute {form} form "
             "runs, its exchange by tensor copies"
         )
     return True, "in-kernel"
@@ -853,13 +855,14 @@ tile_probing_launch.launches = 0
 
 @dataclasses.dataclass
 class MeshState:
-    """The frontier state of every strip of a row mesh over one chunk of
-    K14 launches, on the strips' device: int32 (2, 5, ny·grid) by launch
-    parity (rows lo0, hi0, lo1, hi1 in each strip's row frame, and whether
-    the stripe computed; stripe i of strip s at s·grid + i), the kernel's
-    row flags (int32[ny·h_loc], zero between launches), and the skip count
-    of each strip (int32[ny]) and the activity of each stripe
-    (int32[ny·grid]) accumulated over the chunk."""
+    """The frontier state of every shard of a mesh (the strips of a row
+    mesh, K14, or the tiles of a 2-D mesh, K15, row-major) over one chunk
+    of launches, on the shards' device: int32 (2, 5, n·grid) by launch
+    parity (rows lo0, hi0, lo1, hi1 in each shard's row frame, and whether
+    the stripe computed; stripe i of shard s at s·grid + i), the kernel's
+    row flags (int32[n·h_loc], zero between launches), and the skip count
+    of each shard (int32[n]) and the activity of each stripe
+    (int32[n·grid]) accumulated over the chunk."""
 
     state: torch.Tensor
     rowflag: torch.Tensor
@@ -867,15 +870,15 @@ class MeshState:
     act: torch.Tensor
 
     @classmethod
-    def start(cls, ny: int, h_loc: int, plan: AdaptivePlan, device) -> "MeshState":
-        """The state before a chunk's first launch, which forces every
-        stripe to compute and so reads none of it."""
-        total = ny * plan.grid(h_loc)
+    def start(cls, n: int, h_loc: int, plan: AdaptivePlan, device) -> "MeshState":
+        """The state of ``n`` shards before a chunk's first launch, which
+        forces every stripe to compute and so reads none of it."""
+        total = n * plan.grid(h_loc)
 
         def zeros(*shape):
             return torch.zeros(shape, dtype=torch.int32, device=device)
 
-        return cls(zeros(2, 5, total), zeros(ny * h_loc), zeros(ny), zeros(total))
+        return cls(zeros(2, 5, total), zeros(n * h_loc), zeros(n), zeros(total))
 
 
 def _check_mega(reads, writes, st: MeshState, plan: AdaptivePlan) -> tuple[int, int]:
@@ -1054,14 +1057,222 @@ def strip_mega_launches(strips, rule: LifeRule, plan: AdaptivePlan, nlaunch: int
     return cur, st
 
 
+# -- K15: the 2-D megakernel ---------------------------------------------------------
+
+
+def _check_tile_mega(reads, writes, st: MeshState, plan: AdaptivePlan) -> tuple[int, int, int, int]:
+    """(ny, nx, h_loc, wpl) of a K15 launch, after checking it: ``reads``
+    and ``writes`` are rows of tiles, one write buffer a tile, all
+    contiguous int32 words of one shape on one device, no buffer written
+    twice or both read and written, a frontier plan of whole stripes whose
+    decision reach round8(T + 6) fits one stripe (so no window or decision
+    reaches past the adjacent tiles), T + 6 <= 32·wpl (the window's word
+    halo within the adjacent tiles), and state of the mesh's size."""
+    ny = len(reads)
+    nx = len(reads[0]) if ny else 0
+    if ny < 1 or nx < 1 or any(len(r) != nx for r in reads) or [len(r) for r in writes] != [nx] * ny:
+        raise ValueError("a 2-D mesh launch needs rows of tiles and one write buffer a tile")
+    flat_r = [t for r in reads for t in r]
+    flat_w = [t for r in writes for t in r]
+    shape, dev = flat_r[0].shape, flat_r[0].device
+    for t in (*flat_r, *flat_w):
+        _check_words(t)
+        if t.shape != shape or t.device != dev:
+            raise ValueError("a 2-D mesh launch's tiles and buffers must share one shape and device")
+    out = {t.data_ptr() for t in flat_w}
+    if len(out) != ny * nx or out & {t.data_ptr() for t in flat_r}:
+        raise ValueError("a 2-D mesh launch writes each buffer once and no tile it reads")
+    h, wpl = shape
+    if (not plan.frontier or h % plan.stripe_h or plan.pad_f > plan.stripe_h
+            or plan.t + SKIP_PERIOD > WORD * wpl):
+        raise ValueError(f"plan {plan} has no frontier form within one stripe and one tile of "
+                         f"{h}x{wpl} words: K15 reads no further than the adjacent tiles")
+    total = ny * nx * plan.grid(h)
+    if (st.state.shape != (2, 5, total) or st.rowflag.shape != (ny * nx * h,)
+            or st.skipped.shape != (ny * nx,) or st.act.shape != (total,)):
+        raise ValueError(f"mesh state {tuple(st.state.shape)} for {ny}x{nx} tiles of "
+                         f"{plan.grid(h)} stripes")
+    return ny, nx, h, wpl
+
+
+def _tile_window(tiles, dy: int, dx: int, halo: int, xw: int) -> torch.Tensor:
+    """Tile (dy, dx) of a torus of tiles with ``halo`` rows and ``xw``
+    words of its neighbours on each side, the corners from the diagonal
+    tiles."""
+    ny, nx = len(tiles), len(tiles[0])
+    h, w = tiles[0][0].shape
+    band = [torch.cat([r[(dx - 1) % nx][:, w - xw :], r[dx], r[(dx + 1) % nx][:, :xw]], dim=1)
+            for r in (tiles[(dy + sy) % ny] for sy in (-1, 0, 1))]
+    return torch.cat([band[0][h - halo :], band[1], band[2][:halo]])
+
+
+def tile_mega_launch_plain(reads, writes, st: MeshState, rule: LifeRule, plan: AdaptivePlan,
+                           parity: int, first: bool):
+    """Plain version of K15 (one launch of ``_kernel_frontier_mega_2d``
+    over every tile of a 2-D mesh, ``reads`` as rows of tiles): stripe i
+    of tile (dy, dx) decides with ``_hit_union`` over the previous
+    parity's row intervals of nine stripes, read straight from the shared
+    state: its own stripes i - 1, i and i + 1 clamped to [0, grid - 1],
+    and the same stripes of the W and E tiles (whose row frames are its
+    own); the edge stripes (i = 0, grid - 1), and every stripe with
+    ``first`` (launch 0 of a chunk), hit with the maximal union.  A stripe
+    that hits computes T generations of its window (the tile with T + 6
+    rows and ceil((T + 6) / 32) words of the neighbour tiles' read
+    buffers, corners included) and measures gen T + 6 against gen T on
+    its measure rows (``_measure2``); one that does not copies its input
+    into ``writes`` if it computed last launch.  Writes ``writes`` and
+    ``st.state[parity]``, adds to ``st.skipped`` and ``st.act``; returns
+    ``writes``."""
+    ny, nx, h, wpl = _check_tile_mega(reads, writes, st, plan)
+    sh, grid = plan.stripe_h, plan.grid(h)
+    total = ny * nx * grid
+    dev = reads[0][0].device
+    halo = plan.t + SKIP_PERIOD
+    xw = -(-halo // WORD)
+    g = torch.arange(total, device=dev)
+    v, i = g // grid, g % grid
+    dy, dx = v // nx, v % nx
+    c_lo = i * sh
+    c_hi = c_lo + sh - 1
+    prev = st.state[1 - parity].to(torch.int64)
+    ivals = []
+    for tx in ((dx - 1) % nx, dx, (dx + 1) % nx):
+        for slot in (-1, 0, 1):
+            j = (dy * nx + tx) * grid + (i + slot).clamp(0, grid - 1)
+            ivals += [(prev[2 * k][j], prev[2 * k + 1][j]) for k in (0, 1)]
+    hit, m_lo, m_hi = cuda_adaptive.hit_union(ivals, c_lo, c_hi, plan)
+    forced = (i == 0) | (i == grid - 1) | first
+    hit |= forced
+    m_lo, m_hi = torch.where(forced, c_lo, m_lo), torch.where(forced, c_hi, m_hi)
+    copy = ~hit & prev[4].bool()
+    rows = torch.arange(h, device=dev)
+    of = rows // sh
+    outs, hots = [], []
+    for ty in range(ny):
+        for tx in range(nx):
+            e = _tile_window(reads, ty, tx, halo, xw)
+            centre = (slice(halo, halo + h), slice(xw, xw + wpl))
+            g_t = packed.superstep(e, rule, plan.t)
+            g_t6 = packed.superstep(g_t, rule, SKIP_PERIOD)[centre]
+            g_t = g_t[centre]
+            mine = slice((ty * nx + tx) * grid, (ty * nx + tx + 1) * grid)
+            hit_s = hit[mine][of]
+            hots.append(((g_t6 != g_t).any(dim=1) & hit_s & (rows >= m_lo[mine][of])
+                         & (rows <= m_hi[mine][of])).view(grid, sh))
+            outs.append(torch.where(hit_s[:, None], g_t, torch.where(
+                copy[mine][of, None], reads[ty][tx], writes[ty][tx])))
+    intervals = cuda_adaptive.measure2(torch.cat(hots), rows.view(grid, sh).repeat(ny * nx, 1))
+    for w, o in zip((t for r in writes for t in r), outs):
+        w.copy_(o)
+    st.state[parity].copy_(torch.cat([intervals, hit[None].to(intervals.dtype)]))
+    st.skipped += (~hit).view(ny * nx, grid).sum(dim=1).to(torch.int32)
+    st.act += (intervals[0] <= intervals[1]).to(torch.int32)
+    return writes
+
+
+def _k15(sets, rule: LifeRule, plan: AdaptivePlan):
+    """``(reads, writes, st, parity, first)`` -> one K15 launch on the
+    tiles' device and current stream, ``reads`` and ``writes`` two of
+    ``sets`` (rows of tiles of one shape), whose device pointer tables
+    (int64[ny·nx] each, row-major) are built here once, copied without a
+    wait from pinned memory, and live as long as the launcher (as
+    :func:`_k14`'s); counted on ``tile_mega_launch.launches``."""
+    like = sets[0][0][0]
+    ny, nx = len(sets[0]), len(sets[0][0])
+    h, wpl = like.shape
+
+    def key(bufs):
+        return tuple(t.data_ptr() for r in bufs for t in r)
+
+    tabs = torch.tensor([key(bufs) for bufs in sets],
+                        dtype=torch.int64).pin_memory().to(like.device, non_blocking=True)
+    row = {key(bufs): tab for bufs, tab in zip(sets, tabs)}
+    tiles = cuda_adaptive.stripe_tiles((h, wpl), plan.stripe_h, plan.t + SKIP_PERIOD)
+    lib, launch = _launcher("frontier", "gol_tile_mega_launch",
+                            [_P] * 6 + [_I] * 13 + [_U, _U, _P])
+    born, surv = rule_masks(rule)
+    stream = _stream(like)
+
+    def k15(reads, writes, st: MeshState, parity: int, first: bool) -> None:
+        rd, wr = (row[key(bufs)].data_ptr() for bufs in (reads, writes))
+        err = launch(rd, wr, st.state.data_ptr(), st.rowflag.data_ptr(), st.skipped.data_ptr(),
+                     st.act.data_ptr(), ny, nx, h, wpl, plan.t, plan.stripe_h, tiles.tile_h,
+                     tiles.tile_w, tiles.xpad, tiles.t, plan.pad_f, parity, int(first), born,
+                     surv, stream)
+        cuda_build.check(lib, err, "tile_mega")
+        tile_mega_launch.launches += 1
+
+    return k15
+
+
+def tile_mega_launch(reads, writes, st: MeshState, rule: LifeRule, plan: AdaptivePlan,
+                     parity: int, first: bool, k15=None):
+    """K15: one launch of ``plan.t`` generations over every tile of a 2-D
+    mesh whose tiles share one device (``reads`` as rows of tiles),
+    writing ``writes`` (each tile's buffer of two launches ago) and
+    ``st.state[parity]`` and accumulating ``st.skipped`` and ``st.act``;
+    returns ``writes``.  ``first`` marks launch 0 of a chunk.  ``k15`` is a
+    chunk's launcher (:func:`_k15`); without it the launch is checked
+    here, CPU tensors run :func:`tile_mega_launch_plain` and CUDA tensors
+    launch K15 or raise."""
+    if k15 is None:
+        _check_tile_mega(reads, writes, st, plan)
+        if reads[0][0].device.type == "cpu":
+            return tile_mega_launch_plain(reads, writes, st, rule, plan, parity, first)
+        k15 = _k15([reads, writes], rule, plan)
+    k15(reads, writes, st, parity, first)
+    return writes
+
+
+tile_mega_launch.launches = 0
+
+
+def tile_mega_launches(tiles, rule: LifeRule, plan: AdaptivePlan, nlaunch: int,
+                       plain: bool = False, each=None):
+    """One chunk of the in-kernel tier on a 2-D mesh: ``nlaunch`` K15
+    launches over every tile (``tiles``: rows of tiles on one device),
+    from a restarted state, each launch writing the tiles' buffers of two
+    launches ago (two fresh buffers a tile; the input is never written).
+    Returns (tiles, :class:`MeshState`): the chunk's final tiles, state,
+    skip count per tile and activity per stripe (tile-major), all left on
+    the device.  On the card the chunk is checked and its launcher
+    (:func:`_k15`) built once, then each launch is one wrapper call.
+    ``plain`` runs :func:`tile_mega_launch_plain` instead (on the CPU the
+    wrapper runs it anyway); ``each(tiles, st)`` is called after every
+    launch (the launch-by-launch check)."""
+    ny, nx = len(tiles), len(tiles[0])
+    dev = tiles[0][0].device
+    st = MeshState.start(ny * nx, tiles[0][0].shape[0], plan, dev)
+    bufs = [[[torch.empty_like(t) for t in r] for r in tiles] for _ in range(2)]
+    k15 = None
+    if dev.type == "cuda" and not plain:
+        _check_tile_mega(tiles, bufs[0], st, plan)
+        k15 = _k15([tiles, *bufs], rule, plan)
+    cur = tiles
+    for k in range(nlaunch):
+        args = (cur, bufs[k % 2], st, rule, plan, k % 2, k == 0)
+        cur = tile_mega_launch_plain(*args) if plain else tile_mega_launch(*args, k15)
+        if each is not None:
+            each(cur, st)
+    return cur, st
+
+
+def tile_activity(act: torch.Tensor, ny: int, nx: int) -> torch.Tensor:
+    """A chunk's tile-major per-stripe activity (int32[ny·nx·grid]) as the
+    (ny·grid, nx) grid of (stripe, x-tile) cells, stripes top to bottom
+    and tiles left to right (the JAX package's 2-D activity)."""
+    return act.view(ny, nx, -1).permute(0, 2, 1).reshape(-1, nx)
+
+
 def reset_launches() -> None:
-    """Set the launch counters of K9, K10, K11, K12, K13 and K14 to 0."""
+    """Set the launch counters of K9-K15 to 0."""
     ext_launch.launches = 0
     ext_skip_launch.launches = 0
     strip_probing_launch.launches = 0
     strip_frontier_launch.launches = 0
     tile_probing_launch.launches = 0
     strip_mega_launch.launches = 0
+    tile_mega_launch.launches = 0
 
 
 # -- the drivers ------------------------------------------------------------------
@@ -1212,6 +1423,29 @@ def tile_probing_launches(board: ShardedBoard, rule, plan: AdaptivePlan, xpad: i
     return board, psum(sk for row in stats for sk, _ in row), act
 
 
+def tile_mega_chunks(board: ShardedBoard, rule, plan: AdaptivePlan, xpad: int, full: int):
+    """The ``full`` launches of a dispatch on the in-kernel tier of a 2-D
+    mesh, split as the JAX package's in-kernel branch splits them: the
+    canonical chunks (``_nlaunch_chunks``) on K15
+    (:func:`tile_mega_launches`), the loose tail of fewer than 8 launches
+    on K13 from a zero bitmap (:func:`tile_probing_launches`, ``xpad`` its
+    x-halo).  Returns (board, skipped, activity), the chunks' and the
+    tail's summed, the activity as the (ny·grid, nx) grid."""
+    chunks, loose = cuda_adaptive._nlaunch_chunks(full)
+    ny, nx = len(board.shards), len(board.shards[0])
+    dev = board.shards[0][0].device
+    skipped = torch.zeros((), dtype=torch.int32, device=dev)
+    act = torch.zeros((ny * plan.grid(board.shard_shape[0]), nx), dtype=torch.int32, device=dev)
+    for c in chunks:
+        tiles, st = tile_mega_launches(board.shards, rule, plan, c)
+        board = ShardedBoard(board.mesh, tiles)
+        skipped, act = skipped + st.skipped.sum().to(torch.int32), act + tile_activity(st.act, ny, nx)
+    if loose:
+        board, sk, a = tile_probing_launches(board, rule, plan, xpad, loose)
+        skipped, act = skipped + sk, act + a
+    return board, skipped, act
+
+
 def _ext_step(board: ShardedBoard, rule: LifeRule, turns: int, launch) -> ShardedBoard:
     """One exchange of ``turns`` rows (and on a 2-D mesh ceil(turns / 32)
     word columns) and one ``launch`` (K9 or K10, or a plain version) per
@@ -1239,9 +1473,10 @@ def make_superstep(mesh: Mesh, rule: LifeRule = CONWAY, skip_stable: bool = Fals
     frontier form and :func:`tier_policy` (with ``in_kernel``) allows it
     (:func:`mega_launches`: K14 chunks, a K11 tail), else on K12 or K11
     with the exchange between launches; on a 2-D mesh those of
-    :func:`adaptive_tile_plan` on K13 (K10 on a strip or tile with no
-    plan), then one K10 launch for the period-multiple part of the
-    remainder and one K9 launch for the rest.  ``skipped`` (an int32 0-d
+    :func:`adaptive_tile_plan` on the in-kernel tier under the same two
+    conditions (:func:`tile_mega_chunks`: K15 chunks, a K13 tail), else on
+    K13 (K10 on a strip or tile with no plan), then one K10 launch for the
+    period-multiple part of the remainder and one K9 launch for the rest.  ``skipped`` (an int32 0-d
     tensor) counts the stripe-launches skipped or proved stable over all
     shards, and ``activity`` the launches each stripe was active, as the
     JAX package's ``with_stats`` does: int32[ny·grid] top to bottom on a
@@ -1272,7 +1507,10 @@ def make_superstep(mesh: Mesh, rule: LifeRule = CONWAY, skip_stable: bool = Fals
                 board = _ext_step(board, rule, t, ext_skip_launch if skip else ext_launch)
         elif two_d:
             full, rem = divmod(turns, plan.t)
-            board, skipped, act = tile_probing_launches(board, rule, plan, xpad, full)
+            if plan.frontier and in_kernel_tier:
+                board, skipped, act = tile_mega_chunks(board, rule, plan, xpad, full)
+            else:
+                board, skipped, act = tile_probing_launches(board, rule, plan, xpad, full)
         else:
             full, rem = divmod(turns, plan.t)
             strips = [row[0] for row in board.shards]
@@ -1323,5 +1561,45 @@ def make_superstep_bytes(mesh: Mesh, rule: LifeRule = CONWAY, skip_stable: bool 
         if with_stats:
             return (out[0].map(packed.unpack), *out[1:])
         return out.map(packed.unpack)
+
+    return run
+
+
+def make_superstep_virtual_2d(mesh_shape: tuple[int, int], rule: LifeRule = CONWAY,
+                              skip_tile_cap: int = 0, with_stats: bool = False):
+    """``(packed board, turns) -> packed board`` (with ``with_stats``,
+    ``(board, skipped, activity)``): the in-kernel tier of an (ny, nx)
+    mesh run on a whole packed board on one device, the counterpart of
+    ``pallas_halo.make_superstep_virtual_2d``.  The board is cut into its
+    (ny, nx) tiles; the full launches of :func:`adaptive_tile_plan` run
+    in canonical chunks on K15 (:func:`tile_mega_launches`; its plain
+    version on the CPU), and the loose tail and the remainder on
+    ``packed.superstep``, as the JAX build's do, so ``skipped`` and the
+    (ny·grid, nx) ``activity`` cover the chunks alone.  Raises where the
+    tile has no frontier plan."""
+    ny, nx = mesh_shape
+
+    def run(p: torch.Tensor, turns: int):
+        h, wp = p.shape
+        if h % ny or wp % nx:
+            raise ValueError(f"board {tuple(p.shape)} does not divide {mesh_shape}")
+        tile = (h // ny, wp // nx)
+        plan = (adaptive_tile_plan(tile, turns, skip_tile_cap) or (None,))[0]
+        if plan is None or not plan.frontier:
+            raise ValueError(f"no 2-D frontier plan for {tuple(p.shape)} on mesh {mesh_shape}")
+        full, rem = divmod(turns, plan.t)
+        chunks, loose = cuda_adaptive._nlaunch_chunks(full)
+        skipped = torch.zeros((), dtype=torch.int32, device=p.device)
+        act = torch.zeros((ny * plan.grid(tile[0]), nx), dtype=torch.int32, device=p.device)
+        tiles = [[t.contiguous() for t in r.chunk(nx, dim=1)] for r in p.chunk(ny)]
+        for c in chunks:
+            tiles, st = tile_mega_launches(tiles, rule, plan, c)
+            skipped, act = skipped + st.skipped.sum().to(torch.int32), act + tile_activity(
+                st.act, ny, nx)
+        board = torch.cat([torch.cat(r, dim=1) for r in tiles])
+        tail = loose * plan.t + rem
+        if tail:
+            board = packed.superstep(board, rule, tail)
+        return (board, skipped, act) if with_stats else board
 
     return run

@@ -214,7 +214,7 @@ def card(*indices):
     ((4, 1), card(0, 0, 0, 0), dict(in_kernel=True), "false", "in-kernel"),
     ((2, 1), card(0, 1), {}, None, "ROADMAP B10p"),
     ((4, 1), card(0, 1, 0, 1), dict(in_kernel=True), None, "strips on 2 devices"),
-    ((2, 2), card(0, 0, 0, 0), {}, None, "ROADMAP B12"),
+    ((2, 2), card(0, 0, 0, 0), {}, None, "in-kernel"),
     ((4, 1), card(0, 0, 0, 0), dict(strip=(64, 4), tile_cap=16), None, "no frontier plan"),
     ((4, 1), card(0, 0, 0, 0), dict(strip=(64, 4), tile_cap=16, in_kernel=False), None,
      "forced-ppermute (in_kernel=False)"),
@@ -226,9 +226,9 @@ def card(*indices):
 def test_policy_table(monkeypatch, shape, devices, kw, env, want):
     """The port's order of checks, on device descriptors (no card needed):
     ``in_kernel=False``, then the shard's frontier plan, then
-    ``DGOL_ICI=0`` (which ``in_kernel=True`` outranks), then CPU shards,
-    a 2-D mesh (B12) and strips on several cards (B10p); a row mesh on one
-    card takes the tier."""
+    ``DGOL_ICI=0`` (which ``in_kernel=True`` outranks), then CPU shards
+    and shards on several cards (B10p); a row or 2-D mesh on one card
+    takes the tier."""
     if env is None:
         monkeypatch.delenv("DGOL_ICI", raising=False)
     else:

@@ -378,15 +378,16 @@ def test_gpu_k10_at_xpad_matches_plain(cuda_device, kind, tile, turns):
 @pytest.mark.gpu
 @pytest.mark.parametrize("mesh_shape", [(2, 2), (2, 4)])
 def test_gpu_tile_dispatch_matches_plain(cuda_device, mesh_shape):
-    """A whole skip_stable dispatch on a 2-D mesh (K13 launches, then K10
-    and K9) on the card against the same dispatch on the CPU: boards,
-    skip counts and activity grids."""
+    """A whole skip_stable dispatch on a 2-D mesh on the ppermute tier
+    (``in_kernel=False``: K13 launches, then K10 and K9) on the card
+    against the same dispatch on the CPU: boards, skip counts and activity
+    grids."""
     cells = mesh_board("glider_corner", (128, 8), mesh_shape)
     p = tpacked.pack(torch.from_numpy(cells.astype(np.uint8) * 255))
     out = []
     for dev in ("cpu", cuda_device):
         m = tmesh.make_mesh(mesh_shape, [torch.device(dev)] * (mesh_shape[0] * mesh_shape[1]))
-        b, sk, act = cuda_halo.make_superstep(m, tlife.CONWAY, True, 32, True)(
+        b, sk, act = cuda_halo.make_superstep(m, tlife.CONWAY, True, 32, True, False)(
             halo.board_sharding(m).shard(p.to(dev)), 9 * 24 - 5)
         out.append((b.gather().cpu(), int(sk), act.cpu()))
     assert torch.equal(out[0][0], out[1][0]) and out[0][1] == out[1][1]

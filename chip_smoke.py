@@ -69,10 +69,16 @@ launches, and K9 on a (4, 1) strip and a (2, 2) tile beside K2 on the
 whole board and beside the halo exchange, K10-K12 on a (4, 1) strip
 and K13 and K10 on a (2, 2) tile beside their plain versions, K14 a
 launch over the (4, 1) strips and K15 a launch over the (2, 2) tiles,
-each beside its ppermute tier's launch and K5 on the whole board), and
+each beside its ppermute tier's launch and K5 on the whole board; K9,
+K13 and their controls K2, K4, K5 and K10 as the median and spread of 5
+event-timed batches, K13 also back to back), and
 prints one
 ``{"kernels": [...]}`` line, the card's name and power limit, and last
-``{"ok": true, "device": {...}}``.  ``--profile`` adds a
+``{"ok": true, "device": {...}}``.  The build fails the run if K9 or K13
+(``csrc/regwin.cuh``) spills a register (``-Xptxas -v``), and K9 and K13
+are held at every depth 1-32, under a third rule that takes their
+generic instantiation, and at paths (c), (f), (i) and (j)'s shapes.
+``--profile`` adds a
 ``torch.profiler`` breakdown of the two headless 16384² runs, of the
 three viewer paths, of the sharded (4, 1) run and of paths (e) and (h)
 (with the exchange's memcpy time per launch); ``--sweep`` times the adaptive tier over launch
@@ -93,6 +99,7 @@ import functools
 import json
 import os
 import queue
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -110,7 +117,7 @@ from distributed_gol_torch.engine.backend import Backend
 from distributed_gol_torch.engine.session import Session
 from distributed_gol_torch.obs import metrics
 from distributed_gol_torch.serve import ServeConfig, ServePlane
-from distributed_gol_torch.models.life import CONWAY, HIGHLIFE, LifeRule
+from distributed_gol_torch.models.life import CONWAY, DAY_AND_NIGHT, HIGHLIFE, LifeRule
 from distributed_gol_torch.ops import (
     cuda_adaptive, cuda_build, cuda_packed, cuda_stencil, packed, stencil)
 from distributed_gol_torch.parallel import cuda_halo, halo, mesh as mesh_lib
@@ -119,6 +126,14 @@ from distributed_gol_torch.utils.soup import random_soup
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 INT32_LANES_PER_SM = 64  # Hopper: 64 INT32 lanes per SM per clock
 RULES = (CONWAY, HIGHLIFE)
+# K9's and K13's checks add a rule that takes their generic instantiation
+# (the other two are compiled in: regwin.cuh::by_rule).
+REG_RULES = (*RULES, DAY_AND_NIGHT)
+# Event-timed batches behind the median and spread of the K9 and K13 rows
+# and of their controls (K2, K4, K5, K10).
+BATCHES = 5
+# The kernels of regwin.cuh, which must build without spills.
+REG_KERNELS = ("ext_reg_kernel", "tile_probing_reg_kernel")
 BIG = 16384
 TILED_ODD = (1004, 3072)  # H % 8 != 0 and W/32 % 128 != 0: refused by the TPU gate
 KERNELS = {
@@ -431,6 +446,58 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def spread(per_call: list) -> dict:
+    """The median, min and max of per-call times, and the times."""
+    return dict(median=statistics.median(per_call), min=min(per_call), max=max(per_call),
+                batches=per_call)
+
+
+def per_launch(times: dict, n: int) -> dict:
+    """``spread`` of calls of ``n`` launches each, per launch."""
+    return spread([t / n for t in times["batches"]])
+
+
+def cuda_ms_spread(fn, reps: int, batches: int = BATCHES) -> dict:
+    """ms per call of ``fn()`` over ``batches`` batches of ``reps`` calls,
+    each batch between CUDA events, after warm-up: ``spread``."""
+    fn()
+    torch.cuda.synchronize()
+    per = []
+    for _ in range(batches):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        per.append(start.elapsed_time(end) / reps)
+    return spread(per)
+
+
+def reg_build_report(log_text: str) -> dict:
+    """Registers, spill stores and loads, and shared memory of each
+    ``REG_KERNELS`` instantiation, from a build's ``-Xptxas -v`` output;
+    raises if one spills or is missing."""
+    report, entry = {}, None
+    for line in log_text.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            entry = name if any(k in name for k in REG_KERNELS) else None
+            if entry:
+                report[entry] = dict(line=line.strip())
+        elif entry and ("spill" in line or "registers" in line):
+            report[entry]["line"] += " " + line.strip()
+            if "spill" in line:
+                stores, loads = (int(line.split()[i]) for i in (4, 8))
+                report[entry].update(spill_stores=stores, spill_loads=loads)
+            if "registers" in line:
+                report[entry]["registers"] = int(line.split("Used ")[1].split()[0])
+    if not report or any(r.get("spill_stores", 1) or r.get("spill_loads", 1)
+                         for r in report.values()):
+        raise AssertionError(f"a register-resident kernel spills or was not built: {report}")
+    return report
+
+
 def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> int:
     return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
 
@@ -646,29 +713,45 @@ def check_ext(device, errs: dict) -> dict:
     """K9 against its plain version, tolerance 0, at the sharded runs'
     shapes: the 16384² soup (density 0.3, seed 7) split (4, 1) and (2, 2)
     on a virtual mesh, every shard's extended block through one full launch
-    and one remainder launch, under both rules; then the whole sharded
-    superstep (two full launches and a remainder) against K2 on the whole
-    board.  Returns each mesh's (sharded board, full-launch plan)."""
+    and one remainder launch under ``REG_RULES`` (B3/S23 and B36/S23 in
+    their compile-time instantiations, Day & Night in the generic one), and
+    shard (0, 0)'s at every depth from 1 to 32 (every remainder); path
+    (c)'s 512² board on (8, 1) (64-row shards, shorter than one block's
+    window), full and remainder launches; then the whole sharded superstep
+    (two full launches and a remainder) against K2 on the whole board.
+    Returns each 16384² mesh's (sharded board, full-launch plan)."""
     p = packed.pack(board(BIG, BIG, 7, device))
+    sms = cuda_halo.device_sms(device)
     cases = {}
-    for mesh_shape in (MESH_A, MESH_B):
+
+    def same(e, rule, t, pad, xpad, where):
+        got = cuda_halo.ext_launch(e, rule, t, pad, xpad)
+        want = cuda_halo.ext_launch_plain(e, rule, t, pad, xpad)
+        torch.cuda.synchronize()
+        errs["ext"] = max(errs["ext"], max_abs_err(got, want))
+        if not torch.equal(got, want):
+            raise AssertionError(f"K9 != plain on {where}, T = {t}, xpad {xpad}, {rule.notation}")
+
+    for mesh_shape, side in ((MESH_A, BIG), (MESH_B, BIG), (MESH_C, 512)):
         m = mesh_lib.make_mesh(mesh_shape, virtual(mesh_shape, device))
-        sb = halo.board_sharding(m).shard(p)
+        whole = p if side == BIG else packed.pack(board(side, side, 7, device))
+        sb = halo.board_sharding(m).shard(whole)
         full = cuda_halo.launch_plan(sb.shard_shape, mesh_shape, 10**6)[0]
         rem = cuda_halo.launch_plan(sb.shard_shape, mesh_shape, full.t + 13)[-1]
         for plan in (full, rem):
             exts = [e for row in halo.extend(sb, plan.pad, plan.xpad) for e in row]
-            for rule in RULES:
+            for rule in REG_RULES:
                 for e in exts:
-                    got = cuda_halo.ext_launch(e, rule, plan.t, plan.pad, plan.xpad)
-                    want = cuda_halo.ext_launch_plain(e, rule, plan.t, plan.pad, plan.xpad)
-                    torch.cuda.synchronize()
-                    errs["ext"] = max(errs["ext"], max_abs_err(got, want))
-                    if not torch.equal(got, want):
-                        raise AssertionError(f"K9 != plain on {mesh_shape}, {plan}, {rule.notation}")
+                    same(e, rule, plan.t, plan.pad, plan.xpad, f"{mesh_shape} shards")
                 log(f"K9 {mesh_shape} shards {sb.shard_shape} x {plan.t} (pad {plan.pad}, xpad "
-                    f"{plan.xpad}, {plan.tiles}, grid {plan.grid(sb.shard_shape)}) "
+                    f"{plan.xpad}, {cuda_halo.ext_reg_plan(sb.shard_shape, plan.t, sms)}) "
                     f"{rule.notation}: identical on all {len(exts)} shards")
+        if side != BIG:
+            continue
+        for t in range(1, 33):
+            xpad = -(-t // 32) if mesh_shape[1] > 1 else 0
+            same(halo.extend(sb, t, xpad)[0][0], CONWAY, t, t, xpad, f"{mesh_shape} shard (0, 0)")
+        log(f"K9 {mesh_shape} shard (0, 0) x {{1..32}} {CONWAY.notation}: identical")
         turns = 2 * full.t + 13
         got = cuda_halo.make_superstep(m, CONWAY)(sb, turns).gather()
         if not torch.equal(got, cuda_packed.tiled_superstep(p, CONWAY, turns)):
@@ -932,8 +1015,8 @@ def check_plan_less(device, errs: dict, dims: tuple, mesh_shape: tuple, tag: str
     """K10 and K9 against their plain versions, tolerance 0, at the shapes
     of path (f) (``PLAN_LESS`` on ``MESH_F``) or (i) (``TILE_PLAN_LESS`` on
     ``MESH_I``): the soup of ``dims`` split ``mesh_shape`` on a virtual
-    mesh, fresh and after the path's turns, both rules, on every shard's
-    extended block at each depth the path launches: K10 from 6 to the full
+    mesh, fresh and after the path's turns, under ``REG_RULES``, on every
+    shard's extended block at each depth the path launches: K10 from 6 to the full
     launches' T (``skip_launch_depth``) in steps of 6 (the full launches
     of shorter dispatches and the rem6 remainders), K9 from 1 to 5 (the
     remainders' tail), each with the path's x-halo (ceil(T / 32) words on
@@ -952,7 +1035,7 @@ def check_plan_less(device, errs: dict, dims: tuple, mesh_shape: tuple, tag: str
     depths = [(t, cuda_halo.ext_launch, cuda_halo.ext_launch_plain, "ext") for t in range(1, 6)]
     depths += [(t, cuda_halo.ext_skip_launch, cuda_halo.ext_skip_launch_plain, "ext_skip")
                for t in range(6, t_full + 1, 6)]
-    for rule in RULES:
+    for rule in REG_RULES:
         for name, sb in cases.items():
             for t, fn, plain, k in depths:
                 xpad = -(-t // 32) if two_d else 0
@@ -1029,7 +1112,8 @@ def check_tiles(device, errs: dict, boards: dict) -> dict:
     against the same dispatch through the plain versions on the card
     (``plain_strip_kernels``): boards, skip counts and (stripe, x-tile)
     activity, with the launch counts asserted; then K13 launch by launch
-    (``check_tile_launches``), and on ``MESH_H`` K10 alone at depths 6 to
+    (``check_tile_launches``; Day & Night too, K13's generic
+    instantiation), and on ``MESH_H`` K10 alone at depths 6 to
     30 on every tile's extended block (pad = T, xpad = ceil(T / 32)).
     Returns the ``MESH_H`` sharded boards (phase 4 times them)."""
     sharded = {}
@@ -1080,6 +1164,8 @@ def check_tiles(device, errs: dict, boards: dict) -> dict:
                         f"active cells {int((act > 0).sum())} of {act.numel()}")
                 for plan, xpad in {(r[0], r[1]) for r in runs}:
                     check_tile_launches(sb, rule, errs, plan, xpad, name)
+                    if rule is CONWAY:  # K13's generic instantiation
+                        check_tile_launches(sb, DAY_AND_NIGHT, errs, plan, xpad, name)
                 if mesh_shape != MESH_H:
                     log(f"K13 x 3 launches on the {ntiles} {name} tiles of {mesh_shape} "
                         f"{rule.notation}: identical")
@@ -1829,8 +1915,9 @@ def work_bound_ms(words_moved: float, words_computed: float, gens: int, rule: Li
 
 
 def time_adaptive(boards: dict, int_rate: float) -> dict:
-    """Per-launch times of K3, K4 and K5 at 16384² on each board, beside
-    K2 at the same T and the plain versions, with each launch's bound from
+    """Per-launch times of K3, K4 and K5 at 16384² on each board (K4's and
+    K5's the median and spread of ``BATCHES`` batches), beside K2 at the
+    same T and the plain versions, with each launch's bound from
     its own skip telemetry: K5 over a 64-launch chunk, K4 over 8 launches
     from a zero bitmap (both move only the stripes they compute), K3 one
     launch (it writes the whole board; its computed stripes are those K4's
@@ -1853,12 +1940,16 @@ def time_adaptive(boards: dict, int_rate: float) -> dict:
                 ms=cuda_ms(lambda: cuda_adaptive.tiled_skip_superstep(p, CONWAY, plan.t), 10),
                 plain_ms=cuda_ms(lambda: cuda_adaptive.tiled_skip_superstep_plain(p, CONWAY, plan.t), 2)),
             "probing": dict(
-                ms=cuda_ms(lambda: cuda_adaptive.probing_superstep(p, CONWAY, plan, 8), 5) / 8,
+                ms_spread=per_launch(cuda_ms_spread(
+                    lambda: cuda_adaptive.probing_superstep(p, CONWAY, plan, 8), 5), 8),
                 plain_ms=cuda_ms(lambda: cuda_adaptive.probing_superstep_mirror(p, CONWAY, plan, 8), 1) / 8),
             "frontier": dict(
-                ms=cuda_ms(lambda: cuda_adaptive.frontier_superstep(p, CONWAY, plan, 64), 3) / 64,
+                ms_spread=per_launch(cuda_ms_spread(
+                    lambda: cuda_adaptive.frontier_superstep(p, CONWAY, plan, 64), 3), 64),
                 plain_ms=cuda_ms(lambda: cuda_adaptive.frontier_superstep_mirror(p, CONWAY, plan, 64), 1) / 64),
         }
+        for k in ("probing", "frontier"):
+            row[k]["ms"] = row[k]["ms_spread"]["median"]
         for k in ADAPTIVE:
             moved = p.numel() if k == "tiled_skip" else computed[k] * stripe_words
             b_ms, b_by = work_bound_ms(moved, computed[k] * stripe_words, gens[k], CONWAY, int_rate)
@@ -1922,22 +2013,28 @@ def time_batched(k8_stacks: dict, int_rate: float) -> dict:
 
 def time_ext(cases: dict, int_rate: float) -> dict:
     """K9 per launch on one shard of the 16384² soup split (4, 1) and
-    (2, 2), at the full launch depth, beside one K2 launch of the whole
-    board at the same T, its plain version and its bound over the centre's
-    light cone (``ext_bound_ms``); the exchange alone (``halo.extend``)
-    and a whole sharded launch (exchange plus one K9 per shard) per
-    launch.  CUDA events."""
+    (2, 2), at the full launch depth (the median and spread of ``BATCHES``
+    batches), with its blocks (``ext_reg_plan``: grid, threads, occupancy,
+    fill, row-generations a block), beside one K2 launch of the whole board
+    at the same T, its plain version and its bound over the centre's light
+    cone (``ext_bound_ms``); the exchange alone (``halo.extend``) and a
+    whole sharded launch (exchange plus one K9 per shard) per launch.  CUDA
+    events."""
     rows = {}
     for mesh_shape, (sb, plan) in cases.items():
         e0 = halo.extend(sb, plan.pad, plan.xpad)[0][0]
         whole = sb.gather()
         step = cuda_halo.make_superstep(sb.mesh, CONWAY)
         b_ms, b_by = ext_bound_ms(sb.shard_shape, plan.t, plan.pad, plan.xpad, CONWAY, int_rate)
+        blocks = cuda_halo.ext_reg_plan(sb.shard_shape, plan.t, cuda_halo.device_sms(e0.device))
+        k9 = cuda_ms_spread(lambda: cuda_halo.ext_launch(e0, CONWAY, plan.t, plan.pad, plan.xpad),
+                            20)
         row = dict(
             shard=list(sb.shard_shape), extended=list(e0.shape), t=plan.t, pad=plan.pad,
-            xpad=plan.xpad, tiles=dataclasses.asdict(plan.tiles),
-            grid=list(plan.grid(sb.shard_shape)), halo_bytes=plan.halo_bytes(sb.shard_shape),
-            ms=cuda_ms(lambda: cuda_halo.ext_launch(e0, CONWAY, plan.t, plan.pad, plan.xpad), 20),
+            xpad=plan.xpad, blocks=dataclasses.asdict(blocks), threads=blocks.threads,
+            occupancy=blocks.occupancy, fill=blocks.fill(cuda_halo.device_sms(e0.device)),
+            block_row_gens=blocks.work(), halo_bytes=plan.halo_bytes(sb.shard_shape),
+            ms=k9["median"], ms_spread=k9,
             plain_ms=cuda_ms(lambda: cuda_halo.ext_launch_plain(
                 e0, CONWAY, plan.t, plan.pad, plan.xpad), 2),
             bound_ms=b_ms, bound_by=b_by,
@@ -1947,13 +2044,15 @@ def time_ext(cases: dict, int_rate: float) -> dict:
         )
         rows[f"{mesh_shape[0]}x{mesh_shape[1]}"] = row
         log(f"K9 {mesh_shape} shard {sb.shard_shape} x {plan.t}: {row['ms']:.4f} ms per shard "
-            f"launch (plain {row['plain_ms']:.3f}, bound {b_ms:.4f} by {b_by}); exchange "
+            f"launch (median of {BATCHES}, {k9['min']:.4f}-{k9['max']:.4f}; {blocks}, fill "
+            f"{row['fill']:.3f}; plain {row['plain_ms']:.3f}, bound {b_ms:.4f} by {b_by}); "
+            f"exchange "
             f"{row['exchange_ms']:.4f} ms ({row['halo_bytes']} halo bytes a shard); sharded "
             f"launch {row['sharded_launch_ms']:.4f} ms vs K2 on the whole board "
             f"{row['k2_whole_board_ms']:.4f} ms")
     lead = rows[f"{MESH_A[0]}x{MESH_A[1]}"]
     return dict(ms=lead["ms"], plain_ms=lead["plain_ms"], bound=(lead["bound_ms"], lead["bound_by"]),
-                extra=dict(shape=lead["extended"], per_mesh=rows))
+                extra=dict(shape=lead["extended"], ms_spread=lead["ms_spread"], per_mesh=rows))
 
 
 def timed(fn, spans: list):
@@ -2022,8 +2121,9 @@ def time_strips(cases: dict, int_rate: float) -> dict:
         e = halo.extend(sb, t, 0)[0][0]
         share, stable = k10_share(e, strip, t, 0)
         b_ms, b_by = ext_bound_ms(strip, t, t, 0, CONWAY, int_rate, share)
+        k10 = cuda_ms_spread(lambda: cuda_halo.ext_skip_launch(e, CONWAY, t, t, 0), 20)
         row["ext_skip"] = dict(
-            ms=cuda_ms(lambda: cuda_halo.ext_skip_launch(e, CONWAY, t, t, 0), 20),
+            ms=k10["median"], ms_spread=k10,
             plain_ms=cuda_ms(lambda: cuda_halo.ext_skip_launch_plain(e, CONWAY, t, t, 0), 2),
             t=t, computed_share=share, stable_tiles=stable, bound_ms=b_ms, bound_by=b_by,
             ext_same_t_ms=cuda_ms(lambda: cuda_halo.ext_launch(e, CONWAY, t, t, 0), 20))
@@ -2146,7 +2246,9 @@ def time_tiles(cases: dict, int_rate: float) -> dict:
     of the 16384² soup, fresh and settled.  K13 at the port's plan (the
     plan of path (h)), each call between CUDA events inside the tile
     tier's own launch sequence (so every launch sees the exchange's
-    inputs), 8 launches a tile from a zero bitmap, beside its plain
+    inputs), 8 launches a tile from a zero bitmap, the median and spread
+    of ``BATCHES`` such sequences, and back to back on tile (0, 0) from a
+    zero bitmap (the device's time without the host's), beside its plain
     version the same way; its bound is the work of the stripes it
     computed (its own skip telemetry), T generations of the stripes'
     centre words, each read and written once.  K10 one launch of 18
@@ -2157,28 +2259,42 @@ def time_tiles(cases: dict, int_rate: float) -> dict:
     tile = (BIG // MESH_H[0], BIG // 32 // MESH_H[1])
     plan, xpad = cuda_halo.adaptive_tile_plan(tile, 10**6)
     cells = MESH_H[0] * MESH_H[1] * plan.grid(tile[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = cuda_halo.tile_reg_plan(plan, tile, xpad, sms)
     out = {}
     for name in ("fresh", "settled"):
         sb = cases[name]
         cuda_halo.tile_probing_launches(sb, CONWAY, plan, xpad, 2)  # warm-up
-        spans, plain = [], []
+        per, plain = [], []
         n = 8
-        _, sk, _ = cuda_halo.tile_probing_launches(
-            sb, CONWAY, plan, xpad, n, timed(WRAPPERS["tile_probing"], spans))
+        for _ in range(BATCHES):
+            spans = []
+            _, sk, _ = cuda_halo.tile_probing_launches(
+                sb, CONWAY, plan, xpad, n, timed(WRAPPERS["tile_probing"], spans))
+            per.append(span_ms(spans))
+        k13 = spread(per)
         cuda_halo.tile_probing_launches(sb, CONWAY, plan, xpad, 2,
                                         timed(cuda_halo.tile_probing_launch_plain, plain))
+        e = halo.extend(sb, plan.pad, xpad)[0][0]
+        elig = torch.zeros(plan.grid(tile[0]), dtype=torch.int32, device=e.device)
+        st, dst = torch.ones_like(elig), torch.empty(tile, dtype=torch.int32, device=e.device)
+        alone = cuda_ms_spread(lambda: cuda_halo.tile_probing_launch(e, elig, dst, st, CONWAY,
+                                                                     plan, xpad), 20)
         computed = (n * cells - int(sk)) / (n * MESH_H[0] * MESH_H[1])
         words = computed * plan.stripe_h * tile[1]
         b_ms, b_by = work_bound_ms(words, words, plan.t, CONWAY, int_rate)
-        row = {"tile_probing": dict(ms=span_ms(spans), plain_ms=span_ms(plain), plan=str(plan),
-                                    xpad=xpad, computed_stripes_per_launch=computed,
+        row = {"tile_probing": dict(ms=k13["median"], ms_spread=k13, back_to_back=alone,
+                                    plain_ms=span_ms(plain), plan=str(plan), xpad=xpad,
+                                    blocks=dataclasses.asdict(blocks), fill=blocks.fill(sms),
+                                    computed_stripes_per_launch=computed,
                                     stripes=plan.grid(tile[0]), bound_ms=b_ms, bound_by=b_by)}
         t, xw = 18, 1
         e = halo.extend(sb, t, xw)[0][0]
         share, stable = k10_share(e, tile, t, xw)
         b_ms, b_by = ext_bound_ms(tile, t, t, xw, CONWAY, int_rate, share)
+        k10 = cuda_ms_spread(lambda: cuda_halo.ext_skip_launch(e, CONWAY, t, t, xw), 20)
         row["ext_skip"] = dict(
-            ms=cuda_ms(lambda: cuda_halo.ext_skip_launch(e, CONWAY, t, t, xw), 20),
+            ms=k10["median"], ms_spread=k10,
             plain_ms=cuda_ms(lambda: cuda_halo.ext_skip_launch_plain(e, CONWAY, t, t, xw), 2),
             t=t, xpad=xw, shape=list(e.shape), computed_share=share, stable_tiles=stable,
             bound_ms=b_ms, bound_by=b_by,
@@ -2187,6 +2303,8 @@ def time_tiles(cases: dict, int_rate: float) -> dict:
         log(f"{name} tiles of {MESH_H}: " + "; ".join(
             f"{k} {row[k]['ms']:.4f} ms (plain {row[k]['plain_ms']:.3f}, bound "
             f"{row[k]['bound_ms']:.4f} by {row[k]['bound_by']})" for k in ("tile_probing", "ext_skip"))
+            + f"; K13 median of {BATCHES} {k13['min']:.4f}-{k13['max']:.4f}, back to back "
+            f"{alone['median']:.4f} ({blocks}, fill {blocks.fill(sms):.3f})"
             + f"; K9 at T = {t} {row['ext_skip']['ext_same_t_ms']:.4f} ms; K13 computed "
             f"{row['tile_probing']['computed_stripes_per_launch']:.2f} of {plan.grid(tile[0])} "
             f"stripes a tile launch; K10 computed share {share:.4f}, stable tiles {stable}")
@@ -2367,6 +2485,9 @@ def main() -> int:
         for line in cuda_build.build_log(k).splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  {k}: {line.strip()}")
+    reg_build = {k: reg_build_report(cuda_build.build_log(k)) for k in ("ext", "probing")}
+    log(f"K9 and K13 (regwin.cuh) build without spills: "
+        f"{ {k: [r['registers'] for r in v.values()] for k, v in reg_build.items()} } registers")
     plan = cuda_packed.tiled_plan((BIG, BIG // 32), 10**6)
     log(f"dynamic shared memory: resident {512 // 32 * 512 * 4} B per block at 512^2 "
         f"(1 block of 1024 threads); tiled {plan.smem_bytes} B per block at {BIG}^2 "
@@ -2461,7 +2582,9 @@ def main() -> int:
             bound=bound_ms(v.numel(), 50, 1, CONWAY, int_rate),
         ),
         "tiled": dict(
-            ms=cuda_ms(lambda: cuda_packed.tiled_superstep(p, CONWAY, t_big), 10),
+            ms=(k2 := cuda_ms_spread(lambda: cuda_packed.tiled_superstep(p, CONWAY, t_big), 10))[
+                "median"],
+            extra=dict(ms_spread=k2),
             plain_ms=cuda_ms(lambda: cuda_packed.tiled_superstep_plain(p, CONWAY, t_big), 2),
             bound=bound_ms(p.numel(), t_big, 1, CONWAY, int_rate),
         ),
@@ -2488,6 +2611,8 @@ def main() -> int:
     timings["tile_mega"] = time_tile_mega(tile_mega_cases, tile_cases, int_rate)
     tiles = time_tiles(tile_cases, int_rate)
     timings["tile_probing"] = tiles["tile_probing"]
+    timings["ext"]["extra"]["build"] = reg_build["ext"]
+    timings["tile_probing"]["extra"]["build"] = reg_build["probing"]
     timings["ext_skip"]["extra"]["tile_2d"] = tiles["ext_skip_2d"]
     witness = k6_witnesses(soups[BIG], wrap_free)
     e2e[f"viewer_turn_{BIG}"] = time_viewer_turn(soups[BIG])

@@ -7,31 +7,44 @@
 // (h_loc + 2*pad) x (wpl + 2*xpad), whose pad rows and xpad word columns
 // were copied from the neighbour shards (parallel/halo.py::extend).  One
 // launch advances it T <= pad generations and writes the (h_loc, wpl)
-// centre into a fresh output; the input is never written.
+// centre into a fresh output; the input is never written.  Rows never
+// wrap: the pad rows ARE the neighbours' rows.  Columns wrap modulo wpl
+// only on a row mesh (xpad == 0), where the strip spans the board's width
+// and the wrap is the exact torus; on a 2-D mesh the exchanged columns
+// carry the x-halo (xpad >= ceil(T / 32)) and words outside the block read
+// as zero, as they do past a ragged last tile.
 //
-// The tiling is K2's (tiled.cu): each block owns a tile_h x tile_w tile of
-// the centre and steps a (tile_h + 2T) x (tile_w + 2*xw) window in shared
-// memory, xw = ceil(T / 32), with window.cuh's advance.  Only the load
-// differs.  Rows never wrap: the pad rows ARE the neighbours' rows, and
-// pad >= T.  Columns wrap modulo wpl only on a row mesh (xpad == 0), where
-// the strip spans the board's width and the wrap is the exact torus; on a
-// 2-D mesh the exchanged columns carry the x-halo (xpad >= xw) and nothing
-// wraps.  Window words outside the extended block (past a ragged last
-// tile) read as zero: they lie more than T rows or cells from every cell
-// the block stores.  K9 tiles the centre only; it is not K2 run on the
-// extended block, which would add a second halo around every tile.
+// What bounds it on an H100: integer operations.  A launch reads the
+// extended block once and writes the centre once, while each of its T
+// generations costs ~12 instructions a word (chip_smoke.py::ops_per_word),
+// so at T = 32 the operations outweigh the bytes by an order of magnitude.
+// Its least time is the centre's light cone over the SMs' int32 rate.
 //
-// What bounds it on an H100: integer operations, as for K2.  A launch reads
-// the extended block once and writes the centre once, while each of its T
-// generations costs ~12 instructions per word (chip_smoke.py::ops_per_word);
-// at T = 32 the operations outweigh the bytes by an order of magnitude, so
-// the shared memory goes to depth.
+// The design (regwin.cuh), one part for each factor between the first
+// port's time and that bound:
+// - The generation loop: a block is `warps` warps stacked over one
+//   32-word window column, each thread one column's run of 32 rows in
+//   registers; neighbour words come from the adjacent lanes by shuffle,
+//   only a run's edge rows cross warps (through shared memory, one
+//   barrier a generation), and the rule is a template argument (B3/S23
+//   and B36/S23 at compile time; any other rule through AnyRule).
+// - The grid: blocks hold no window in shared memory, so several share
+//   an SM (at most 512 threads and 64 registers a thread), and the plan
+//   (parallel/cuda_halo.py::ext_reg_plan) picks the block height whose
+//   grid fills the card's SMs in the fewest, fullest waves.
+// - The redundant work: a warp's 32 - 2*border middle words are centre
+//   (border = ceil(T / 32), so a launch of at most 32 generations
+//   computes 32 words for 30), a block's window is its tile plus T rows a
+//   side, and each run steps only the chunks of 8 rows that meet the
+//   light cone of generation g (the tile plus T - g rows a side).
 //
 // K10: the skip_stable form of the same kernel (gol_ext_skip_launch).
 // Replaces _ext_kernel built with skip_stable=True (_advance_window's
 // _probe_window), which make_superstep runs for the period-multiple part
 // of a skip_stable dispatch's remainder and for the full launches of a
-// strip with no adaptive plan.  K9's window and load plus K3's probe
+// strip with no adaptive plan.  The first K9 design's window (K2's tiling,
+// cuda_halo.ext_tiles: a tile_h x tile_w tile stepped in shared memory by
+// window.cuh::advance, the ExtSource load) plus K3's probe
 // (tiled_skip.cu, window.cuh::inner_stable): 6 generations, then the
 // window's inner region against the block it was loaded from; a tile that
 // proves period-6 stable copies its input centre through, any other goes
@@ -40,6 +53,7 @@
 // strip (6 more generations where the probe fails), the block's read and
 // the centre's write on a settled one.
 
+#include "regwin.cuh"
 #include "window.cuh"
 
 namespace {
@@ -59,19 +73,40 @@ struct ExtSource {
     }
 };
 
-__global__ void __launch_bounds__(kThreads)
-ext_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out, int h_loc, int wpl,
-           int pad, int xpad, int turns, int tile_h, int tile_w, int xw, uint32_t born,
-           uint32_t surv) {
-    extern __shared__ uint32_t smem[];
+// K9: one block per (row tile, column group) of the centre; its window
+// is warps * 32 rows (the tile and `turns` rows a side matter) by 32
+// words, `border` of them a side outside the group's centre.
+template <class Rule>
+__global__ void __launch_bounds__(reg::kMaxThreads, 2)
+ext_reg_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out, int h_loc, int wpl,
+               int pad, int xpad, int turns, int tile_h, int border, Rule rule) {
+    __shared__ reg::Edges edges;
+    const reg::Run run = reg::Run::make(tile_h + 2 * turns, turns, turns, 0);
     const int y0 = blockIdx.y * tile_h;
-    const int x0 = blockIdx.x * tile_w;
-    // Window word (0, 0) in the extended block's coordinates.
-    const Window w{tile_h + 2 * turns, tile_w + 2 * xw, pad + y0 - turns, xpad + x0 - xw};
-    uint32_t* a = smem;
-    load_window(ExtSource{in, h_loc + 2 * pad, wpl + 2 * xpad, xpad == 0}, a, w);
-    const uint32_t* res = advance(a, a + w.rows * w.cols, w, turns, born, surv);
-    store_centre(res, out, h_loc, wpl, w, turns, xw, y0, x0, tile_h, tile_w);
+    const int x0 = blockIdx.x * (reg::kLanes - 2 * border);
+    // This lane's word column of the extended block (ExtSource's wrap and
+    // bounds, taken once), and its window row 0.
+    const int cols_in = wpl + 2 * xpad;
+    const int rows_in = h_loc + 2 * pad;
+    int col = xpad + x0 - border + run.lane;
+    if (xpad == 0) col = wrap(col, cols_in);
+    const bool col_in = col >= 0 && col < cols_in;
+    const int top = pad + y0 - turns;
+    uint32_t s[reg::kRun];
+    reg::load(s, run, [&](int r) {
+        const int y = top + r;
+        return col_in && y >= 0 && y < rows_in ? in[static_cast<size_t>(y) * cols_in + col] : 0u;
+    });
+    reg::advance(s, edges, run, 1, turns, rule);
+    const int gx = x0 + run.lane - border;
+    const bool centre = run.lane >= border && run.lane < reg::kLanes - border && gx < wpl;
+#pragma unroll
+    for (int i = 0; i < reg::kRun; ++i) {
+        const int r = run.row(i) - turns;
+        if (centre && r >= 0 && r < tile_h && y0 + r < h_loc) {
+            out[static_cast<size_t>(y0 + r) * wpl + gx] = s[i];
+        }
+    }
 }
 
 // K10: K9 with K3's probe.  The window is K9's; after 6 generations its
@@ -110,8 +145,8 @@ ext_skip_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out, int
     store_centre(res, out, h_loc, wpl, w, turns, xw, y0, x0, tile_h, tile_w);
 }
 
-// The checks and the launch shared by K9 and K10: one block per tile, two
-// window buffers of shared memory each.
+// K10's checks and launch: one block per tile, two window buffers of
+// shared memory each.
 template <typename Kernel>
 int launch_ext(Kernel kernel, const void* in, void* out, int h_loc, int wpl, int pad, int xpad,
                int turns, int tile_h, int tile_w, unsigned born, unsigned surv, void* stream) {
@@ -133,11 +168,28 @@ int launch_ext(Kernel kernel, const void* in, void* out, int h_loc, int wpl, int
 
 }  // namespace
 
+// K9: `tile_h` centre rows a block, `warps` warps of 32 rows holding its
+// window (tile_h + 2 * turns rows), columns in groups of 32 - 2 * border
+// centre words (turns <= 32 * border); `variant` picks the rule's
+// instantiation (regwin.cuh::by_rule).
 extern "C" int gol_ext_launch(const void* in, void* out, int h_loc, int wpl, int pad, int xpad,
-                              int turns, int tile_h, int tile_w, unsigned born, unsigned surv,
-                              void* stream) {
-    return launch_ext(ext_kernel, in, out, h_loc, wpl, pad, xpad, turns, tile_h, tile_w, born,
-                      surv, stream);
+                              int turns, int tile_h, int warps, int border, int variant,
+                              unsigned born, unsigned surv, void* stream) {
+    if (h_loc < 1 || wpl < 1 || turns < 1 || turns > pad || xpad < 0 ||
+        (xpad > 0 && 32 * xpad < turns) || tile_h < 1 || warps < 1 ||
+        warps > reg::kMaxWarps || warps * reg::kRun < tile_h + 2 * turns || border < 1 ||
+        32 * border < turns || 2 * border >= reg::kLanes) {
+        return cudaErrorInvalidValue;
+    }
+    const int centre = reg::kLanes - 2 * border;
+    const dim3 grid((wpl + centre - 1) / centre, (h_loc + tile_h - 1) / tile_h);
+    const dim3 block(reg::kLanes, warps);
+    return reg::by_rule(variant, born, surv, [&](auto rule) {
+        ext_reg_kernel<decltype(rule)><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out), h_loc, wpl, pad, xpad,
+            turns, tile_h, border, rule);
+        return static_cast<int>(cudaGetLastError());
+    });
 }
 
 // K10: turns must be a positive multiple of kSkipPeriod.

@@ -52,13 +52,35 @@
 // steps each stripe's whole extended window with its lane rotate
 // wrapping modulo the extended width wpe = wpl + 2*xpad, and its probe
 // compares every column, the wrapped halo columns included.  K13 does the
-// same with K4's tiles: they cover the extended width, read columns
-// modulo wpe (TileSource), and their inner regions together are the JAX
-// probe's region, so the flags agree with the JAX kernel's.  Only the
-// centre columns are stored (TileSink): with T + 6 <= 32*xpad the wrap's
-// error never reaches them.  The write elision is K11's: `out` is the
-// tile's buffer of two launches ago.
+// same block by block: blocks cover the extended width, read columns
+// modulo wpe, and their inner regions together are the JAX
+// probe's region, so the flags agree with the JAX kernel's (a stripe's
+// flag is the AND of its blocks' probes).  Only the centre columns are
+// stored: with T + 6 <= 32*xpad the wrap's error never reaches them.  The
+// write elision is K11's: `out` is the tile's buffer of two launches ago.
+//
+// What bounds it on an H100: integer operations on the stripes it
+// computes (6 + T generations where the probe fails, 6 where it passes),
+// nothing on the stripes it elides; a settled launch, whose stripes at
+// the wrap still fail the probe, lasts as long as its slowest block.
+//
+// Its design (regwin.cuh), for each factor between the first port's time
+// and that bound:
+// - The generation loop: a block is `warps` warps stacked over one
+//   32-word window column, each thread a run of 32 rows in registers;
+//   neighbour words by shuffle, only run edges through shared memory, one
+//   barrier a generation, the rule a template argument (B3/S23 and
+//   B36/S23 at compile time, any other through AnyRule).
+// - The grid: several blocks share an SM (at most 512 threads, 64
+//   registers a thread), and the plan (ops/cuda_adaptive.py::
+//   stripe_reg_plan) splits each stripe into the blocks whose grid fills
+//   the card's SMs in the fewest, fullest waves; shorter blocks also
+//   shorten a settled launch, which waits for its slowest block.
+// - The redundant work: 30 of a warp's 32 words are centre, and after the
+//   probe (which needs the whole window at generation 6) each run steps
+//   only the chunks of 8 rows within T - g rows of the block's tile.
 
+#include "regwin.cuh"
 #include "window.cuh"
 
 namespace {
@@ -78,50 +100,6 @@ struct BoardSink {
     __device__ void store(const uint32_t* win, const Window& w, int pad, int xpad, int y0, int x0,
                           int tile_h, int tile_w) const {
         store_centre(win, out, h, wp, w, pad, xpad, y0, x0, tile_h, tile_w);
-    }
-};
-
-// K13's source: the pre-extended tile, (h_loc + 2*pad) x wpe words, with
-// centre row y at extended row y + pad and word columns modulo wpe (the
-// JAX kernel's lane rotate).  Windows stay within its rows.
-struct TileSource {
-    const uint32_t* ext;
-    int wpe, pad;
-    __device__ __forceinline__ uint32_t operator()(int y, int x) const {
-        return ext[static_cast<size_t>(y + pad) * wpe + wrap(x, wpe)];
-    }
-};
-
-// K13's sink: tile columns are extended columns; only those in the centre
-// [xpad, xpad + wpl) are stored, at column x - xpad of the (h_loc, wpl)
-// `out`.  A proved tile copies them from the extended tile.
-struct TileSink {
-    const uint32_t* ext;
-    uint32_t* out;
-    int h_loc, wpl, wpe, pad, xpad;
-    __device__ void copy(int y0, int x0, int tile_h, int tile_w) const {
-        for (int i = thread_id(); i < tile_h * tile_w; i += kThreads) {
-            const int r = i / tile_w;
-            const int c = i - r * tile_w;
-            const int gy = y0 + r;
-            const int gx = x0 + c - xpad;
-            if (gy < h_loc && gx >= 0 && gx < wpl) {
-                out[static_cast<size_t>(gy) * wpl + gx] =
-                    ext[static_cast<size_t>(gy + pad) * wpe + x0 + c];
-            }
-        }
-    }
-    __device__ void store(const uint32_t* win, const Window& w, int halo, int xw, int y0, int x0,
-                          int tile_h, int tile_w) const {
-        for (int i = thread_id(); i < tile_h * tile_w; i += kThreads) {
-            const int r = i / tile_w;
-            const int c = i - r * tile_w;
-            const int gy = y0 + r;
-            const int gx = x0 + c - xpad;
-            if (gy < h_loc && gx >= 0 && gx < wpl) {
-                out[static_cast<size_t>(gy) * wpl + gx] = win[(r + halo) * w.cols + c + xw];
-            }
-        }
     }
 };
 
@@ -184,24 +162,48 @@ strip_probing_kernel(const uint32_t* __restrict__ local, const uint32_t* __restr
                &st[i], turns, tile_h, tile_w, xpad, pad, y0, x0, born, surv);
 }
 
-// K13: one tile of a 2-D mesh.  `ext` is the pre-extended tile,
-// (h_loc + 2*pad) x (wpl + 2*xpad) words; `elig` this launch's elision
-// flags (grid entries, the 3x3 conjunction); blocks tile the extended
-// width, tile_w words with an xw-word window border (xw >= 1, so the
-// tiles' inner regions cover every column).
-__global__ void __launch_bounds__(kThreads)
-tile_probing_kernel(const uint32_t* __restrict__ ext, uint32_t* __restrict__ out,
-                    const int* __restrict__ elig, int* __restrict__ st, int h_loc, int wpl,
-                    int xpad, int turns, int stripe_h, int tile_h, int tile_w, int xw, int pad,
-                    uint32_t born, uint32_t surv) {
-    extern __shared__ uint32_t smem[];
+// K13: one block per (row tile of a stripe, column group) of the
+// pre-extended tile `ext`, (h_loc + 2*pad) x wpe words, wpe = wpl +
+// 2*xpad: its window is warps * 32 rows from extended row y0 (the tile's
+// rows and pad rows a side matter) by the 32 extended columns from x0 - 1
+// modulo wpe, of which the middle 30 are the group's.  `elig` holds this
+// launch's elision flags (one a stripe, the 3x3 conjunction).  Each
+// thread keeps its run at generation 0 in shared memory for the probe
+// (reg::keep), which so reads no global memory again.  A block whose probe
+// passes keeps its window at generation 6, whose inner region (the stored
+// centre included) equals its input.
+template <class Rule>
+__global__ void __launch_bounds__(reg::kMaxThreads, 2)
+tile_probing_reg_kernel(const uint32_t* __restrict__ ext, uint32_t* __restrict__ out,
+                        const int* __restrict__ elig, int* __restrict__ st, int h_loc, int wpl,
+                        int xpad, int turns, int stripe_h, int tile_h, int pad, Rule rule) {
+    __shared__ reg::Edges edges;
+    extern __shared__ uint32_t kept[];  // the window at generation 0 (reg::keep)
     const int y0 = blockIdx.y * tile_h;
-    const int x0 = blockIdx.x * tile_w;
-    const int i = y0 / stripe_h;
-    if (elig[i]) return;  // elided: st[i] stays 1
+    if (elig[y0 / stripe_h]) return;  // elided: its flag stays 1
+    const reg::Run run = reg::Run::make(tile_h + 2 * pad, pad, turns, kSkipPeriod);
     const int wpe = wpl + 2 * xpad;
-    probe_tile(smem, TileSource{ext, wpe, pad}, TileSink{ext, out, h_loc, wpl, wpe, pad, xpad},
-               &st[i], turns, tile_h, tile_w, xw, pad, y0, x0, born, surv);
+    // This lane's extended column, modulo the extended width (the JAX
+    // kernel's lane rotate), taken once: window row r is extended row
+    // y0 + r.  The column itself is read anew for the store.
+    const int colw = wrap(reg::block_x() * (reg::kLanes - 2) - 1 + run.lane, wpe);
+    uint32_t s[reg::kRun];
+    reg::load(s, run, [&](int r) { return ext[static_cast<size_t>(y0 + r) * wpe + colw]; });
+    reg::keep(s, run, kept);
+    reg::advance(s, edges, run, 1, kSkipPeriod, rule);
+    if (!reg::inner_stable(s, run, [&](int r) { return kept[r * reg::kLanes + run.lane]; })) {
+        if (run.lane == 0 && run.warp == 0) st[reg::block_y() * tile_h / stripe_h] = 0;
+        reg::advance(s, edges, run, kSkipPeriod + 1, turns, rule);
+    }
+    const int col = reg::block_x() * (reg::kLanes - 2) - 1 + run.lane;
+    const int gx = col - xpad;
+    const bool centre = run.lane >= 1 && run.lane < reg::kLanes - 1 && col < wpe && gx >= 0 &&
+                        gx < wpl;
+#pragma unroll
+    for (int k = 0; k < reg::kRun; ++k) {
+        const int r = run.row(k) - pad;
+        if (centre && r >= 0 && r < tile_h) out[static_cast<size_t>(y0 + r) * wpl + gx] = s[k];
+    }
 }
 
 bool bad_probing_plan(int h, int wp, int turns, int stripe_h, int tile_h, int tile_w, int xpad,
@@ -265,25 +267,32 @@ extern "C" int gol_strip_probing_launch(const void* local, const void* north, co
 // rows as they are), `st` set to all ones by the caller.  The probe halo
 // lies within one stripe (pad <= stripe_h: the 3x3 elision reads only the
 // adjacent stripes' flags) and within the x-halo with the probe's reach
-// (turns + 6 <= 32 * xpad, the JAX plan's x-depth rule).
+// (turns + 6 <= 32 * xpad, the JAX plan's x-depth rule); a block is
+// `tile_h` rows of one stripe and `warps` warps of 32 rows hold its window
+// (tile_h + 2 * pad rows); `variant` picks the rule's instantiation
+// (regwin.cuh::by_rule).
 extern "C" int gol_tile_probing_launch(const void* ext, void* out, const void* elig, void* st,
                                        int h_loc, int wpl, int xpad, int turns, int stripe_h,
-                                       int tile_h, int tile_w, int xw, int pad, unsigned born,
-                                       unsigned surv, void* stream) {
-    if (bad_probing_plan(h_loc, wpl + 2 * xpad, turns, stripe_h, tile_h, tile_w, xw, pad) ||
-        pad > stripe_h || xpad < 1 || xpad > wpl || turns + kSkipPeriod > 32 * xpad) {
+                                       int tile_h, int warps, int pad, int variant,
+                                       unsigned born, unsigned surv, void* stream) {
+    if (h_loc < 1 || wpl < 1 || turns < kSkipPeriod || turns % kSkipPeriod || turns > 32 ||
+        stripe_h < 1 || h_loc % stripe_h || tile_h < 1 || stripe_h % tile_h || pad < turns ||
+        pad > stripe_h || xpad < 1 || xpad > wpl || turns + kSkipPeriod > 32 * xpad ||
+        warps < 1 || warps > reg::kMaxWarps || warps * reg::kRun < tile_h + 2 * pad) {
         return cudaErrorInvalidValue;
     }
-    const long long smem = window_smem(tile_h + 2 * pad, tile_w + 2 * xw);
-    cudaError_t err = allow_smem(tile_probing_kernel, smem);
-    if (err != cudaSuccess) return err;
     const int wpe = wpl + 2 * xpad;
-    const dim3 grid((wpe + tile_w - 1) / tile_w, h_loc / tile_h);
-    const dim3 block(kCols, kSegs);
-    tile_probing_kernel<<<grid, block, static_cast<size_t>(smem),
-                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(ext), static_cast<uint32_t*>(out),
-        static_cast<const int*>(elig), static_cast<int*>(st), h_loc, wpl, xpad, turns, stripe_h,
-        tile_h, tile_w, xw, pad, born, surv);
-    return cudaGetLastError();
+    const dim3 grid((wpe + reg::kLanes - 3) / (reg::kLanes - 2), h_loc / tile_h);
+    const dim3 block(reg::kLanes, warps);
+    const long long smem = 4LL * warps * reg::kRun * reg::kLanes;  // reg::keep's words
+    return reg::by_rule(variant, born, surv, [&](auto rule) {
+        const auto kernel = tile_probing_reg_kernel<decltype(rule)>;
+        const cudaError_t err = allow_smem(kernel, smem);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        kernel<<<grid, block, static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const uint32_t*>(ext), static_cast<uint32_t*>(out),
+            static_cast<const int*>(elig), static_cast<int*>(st), h_loc, wpl, xpad, turns,
+            stripe_h, tile_h, pad, rule);
+        return static_cast<int>(cudaGetLastError());
+    });
 }

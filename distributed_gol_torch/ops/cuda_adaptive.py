@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import torch
 
@@ -218,6 +219,158 @@ def stripe_tiles(shape: tuple[int, int], stripe_h: int, halo: int) -> cuda_packe
             if tiles.smem_bytes <= SMEM_BYTES:
                 return tiles
     raise ValueError(f"no stripe tiling of {shape} with a {halo}-row halo fits shared memory")
+
+
+# -- the register-resident plans of K9 and K13 (csrc/regwin.cuh) ------------------
+
+#: Word columns of one warp's window, rows one thread holds in registers,
+#: rows of the light-cone trimming's unit, and the most warps a block
+#: stacks (``regwin.cuh``: kLanes, kRun, kChunk, kMaxWarps).
+REG_LANES, REG_RUN, REG_CHUNK, REG_MAX_WARPS = 32, 32, 8, 16
+#: Warps one SM holds at the kernels' register cap: 65,536 registers over
+#: 64 a thread (``__launch_bounds__(512, 2)``) and 32 threads a warp; and
+#: the most blocks an SM holds (Hopper).
+REG_WARPS_PER_SM, REG_BLOCKS_PER_SM = 32, 32
+#: Static shared memory of a block: the run edges' exchange (``reg::Edges``:
+#: two parities x 16 warps x two rows x 32 words).  An SM's shared memory,
+#: of which the card reserves 1 KiB a block (Hopper).
+REG_EDGE_BYTES = 2 * REG_MAX_WARPS * 2 * REG_LANES * 4
+REG_SMEM_PER_SM, REG_SMEM_RESERVED = 228 * 1024, 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class RegPlan:
+    """One launch of K9 or K13 on register-resident runs: ``grid`` =
+    (row blocks, column groups) blocks of ``warps`` warps stacked, each warp
+    a run of ``REG_RUN`` rows of one ``REG_LANES``-word window column whose
+    middle ``centre`` words (``border`` a side outside them) belong to the
+    block.  A block's window starts ``halo`` rows above its tile of
+    ``tile_h`` centre rows; ``t`` generations, the window probed after
+    ``probe`` of them (K13: 6; K9: 0, no probe).  Generation g computes the
+    light cone (:meth:`cone`), each run rounding its share out to whole
+    ``REG_CHUNK``-row chunks (:meth:`live`)."""
+
+    t: int
+    halo: int
+    tile_h: int
+    warps: int
+    grid: tuple[int, int]
+    border: int = 1
+    probe: int = 0
+
+    def __post_init__(self):
+        if not (1 <= self.t <= WORD * self.border and self.halo >= self.t and self.tile_h >= 1
+                and 1 <= self.warps <= REG_MAX_WARPS and self.rows <= self.warps * REG_RUN
+                and 1 <= self.border and self.centre >= 2):
+            raise ValueError(f"invalid register plan {self}")
+
+    @property
+    def centre(self) -> int:
+        """Centre words of a warp's window."""
+        return REG_LANES - 2 * self.border
+
+    @property
+    def rows(self) -> int:
+        """Window rows that matter: the tile and ``halo`` rows a side."""
+        return self.tile_h + 2 * self.halo
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1]
+
+    @property
+    def threads(self) -> int:
+        return REG_LANES * self.warps
+
+    @property
+    def smem_bytes(self) -> int:
+        """Shared memory of a block: the edge exchange, and where it probes
+        (K13) every thread's run at generation 0 (``reg::keep``)."""
+        return REG_EDGE_BYTES + (self.warps * REG_RUN * REG_LANES * 4 if self.probe else 0)
+
+    @property
+    def occupancy(self) -> int:
+        """Blocks one SM holds at once: its registers, its shared memory and
+        its block cap allow so many."""
+        return min(REG_WARPS_PER_SM // self.warps, REG_BLOCKS_PER_SM,
+                   REG_SMEM_PER_SM // (self.smem_bytes + REG_SMEM_RESERVED))
+
+    def waves(self, sms: int) -> int:
+        """Blocks the busiest of ``sms`` SMs runs: a block keeps an SM's
+        integer pipes busy, so an SM's time is its blocks' work, whether
+        they share it (up to :attr:`occupancy` at once) or follow."""
+        return -(-self.blocks // sms)
+
+    def fill(self, sms: int) -> float:
+        """The share of ``sms`` SMs' time over :meth:`waves` blocks each
+        that holds a block."""
+        return self.blocks / (self.waves(sms) * sms)
+
+    def cone(self, g: int) -> tuple[int, int]:
+        """Window rows [lo, hi) whose state at generation g (1..t) the
+        launch needs: every row but g a side until the probe, then the tile
+        and t - g rows a side."""
+        d = g if g <= self.probe else self.halo - self.t + g
+        return d, self.rows - d
+
+    def live(self, g: int, warp: int) -> tuple[int, int]:
+        """The rows [lo, hi) of ``warp``'s run that generation g steps: its
+        share of :meth:`cone`, out to whole chunks (lo == hi: none)."""
+        lo, hi = self.cone(g)
+        top = warp * REG_RUN
+        lo, hi = max(lo - top, 0), min(hi - top, REG_RUN)
+        if lo >= hi:
+            return 0, 0
+        return lo // REG_CHUNK * REG_CHUNK, min(-(-hi // REG_CHUNK) * REG_CHUNK, REG_RUN)
+
+    def live_rows(self, device=None) -> torch.Tensor:
+        """bool (t, warps·REG_RUN): whether generation g (row g - 1) steps
+        window row r."""
+        live = torch.zeros((self.t, self.warps * REG_RUN), dtype=torch.bool)
+        for g in range(1, self.t + 1):
+            for w in range(self.warps):
+                lo, hi = self.live(g, w)
+                live[g - 1, w * REG_RUN + lo : w * REG_RUN + hi] = True
+        return live.to(device)
+
+    def work(self) -> int:
+        """Row-generations one block steps (each REG_LANES words)."""
+        return sum(hi - lo for g in range(1, self.t + 1) for w in range(self.warps)
+                   for lo, hi in [self.live(g, w)])
+
+    def cost(self, sms: int) -> float:
+        """The plan's time in row-generations of the busiest SM, where an SM
+        whose resident blocks hold fewer than 4 warps (one a scheduler) runs
+        at that share of its rate."""
+        warps = self.warps * min(self.waves(sms), self.occupancy)
+        return self.waves(sms) * self.work() * 4 / min(4, warps)
+
+
+def best_reg_plan(candidates, sms: int) -> RegPlan:
+    """The candidate plan of least :meth:`RegPlan.cost` on ``sms`` SMs; on a
+    tie, the one of fewer blocks."""
+    return min(candidates, key=lambda p: (p.cost(sms), p.blocks))
+
+
+@functools.lru_cache(maxsize=256)
+def stripe_reg_plan(shape: tuple[int, int], stripe_h: int, pad: int, t: int,
+                    sms: int) -> RegPlan:
+    """K13's blocks for a launch of ``t`` generations (probe at 6) on a
+    pre-extended tile whose centre rows and extended width are ``shape`` =
+    (h_loc, wpe), in stripes of ``stripe_h`` rows with a ``pad``-row halo:
+    column groups of 30 extended words, and the row tile, a divisor of the
+    stripe (a stripe's blocks decide its flag together), whose grid has the
+    least :meth:`RegPlan.cost` on ``sms`` SMs."""
+    h, wpe = shape
+    cols = -(-wpe // (REG_LANES - 2))
+    plans = []
+    for tile_h in range(1, stripe_h + 1):
+        warps = -(-(tile_h + 2 * pad) // REG_RUN)
+        if stripe_h % tile_h == 0 and warps <= REG_MAX_WARPS:
+            plans.append(RegPlan(t, pad, tile_h, warps, (h // tile_h, cols), 1, SKIP_PERIOD))
+    if not plans:
+        raise ValueError(f"no K13 block for a {pad}-row halo")
+    return best_reg_plan(plans, sms)
 
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint

@@ -18,13 +18,15 @@ Communication per generation drops T-fold against the per-turn engines
   rows (``pallas_halo.py:117-146``).
 - :func:`launch_plan` is the port's own plan: T = min(turns, 32,
   h_loc), pad = T, xpad = ceil(T / 32) on a 2-D mesh and 0 on a row
-  mesh, then one remainder launch; K9's tiles are K2's
-  (``ops/cuda_packed.py``), sized for shared memory.  The TPU's
+  mesh, then one remainder launch; K9's blocks are
+  :func:`ext_reg_plan`'s (register-resident runs, ``csrc/regwin.cuh``),
+  sized to fill the device's SMs.  The TPU's
   ``launch_turns``, ``_tile_for_pad``, ``_LAUNCH_COST`` and
   ``_xpad_words`` are v5e ratios and are not carried over.
 - :func:`ext_launch` is K9's wrapper with its launch counter; a CPU tensor
   runs :func:`ext_launch_plain`, a CUDA tensor launches K9 or raises.
-  :func:`ext_launch_mirror` replays K9's window decomposition in PyTorch.
+  :func:`ext_launch_mirror` replays K9's decomposition in PyTorch
+  (blocks, runs, light-cone trimming).
 
 ``skip_stable`` on a row mesh (``(ny, 1)``) runs the adaptive strip tier,
 the counterpart of ``make_superstep(skip_stable=True)``'s ppermute form:
@@ -83,16 +85,19 @@ ported: those meshes take the ppermute forms.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
+import functools
 import os
 
 import torch
 
-from distributed_gol_torch.models.life import CONWAY, LifeRule
+from distributed_gol_torch.models.life import CONWAY, HIGHLIFE, LifeRule
 from distributed_gol_torch.ops import cuda_adaptive, cuda_build, cuda_packed, packed
 from distributed_gol_torch.ops.cuda_adaptive import (
-    _EMPTY_LO, _I, _P, _U, SKIP_PERIOD, AdaptivePlan, _adaptive_eligible, _launcher, skip_plan)
+    _EMPTY_LO, _I, _P, _U, REG_LANES, REG_MAX_WARPS, REG_RUN, SKIP_PERIOD, AdaptivePlan,
+    RegPlan, _adaptive_eligible, _launcher, best_reg_plan, skip_plan)
 from distributed_gol_torch.ops.cuda_packed import (
     SMEM_BYTES, TILED_COLS, TILED_MAX_T, TiledPlan, _check_words, _stream, rule_masks)
 from distributed_gol_torch.ops.packed import WORD
@@ -116,7 +121,7 @@ def supports(pshape: tuple[int, int], mesh_shape: tuple[int, int]) -> bool:
 
 
 def ext_tiles(strip: tuple[int, int], t: int) -> TiledPlan:
-    """K9's tiling of an (h_loc, wpl) centre for a T-generation launch: K2's
+    """K10's tiling of an (h_loc, wpl) centre for a T-generation launch: K2's
     rule — the widest window of at most ``TILED_COLS`` words with an
     xw = ceil(T / 32)-word border, split evenly over the width, then the
     tallest tile whose two window buffers fit ``SMEM_BYTES``, split evenly
@@ -124,29 +129,84 @@ def ext_tiles(strip: tuple[int, int], t: int) -> TiledPlan:
     h_loc, wpl = strip
     xw = -(-t // WORD)
     if 2 * xw >= TILED_COLS:
-        raise ValueError(f"no K9 window for {t} generations")
+        raise ValueError(f"no K10 window for {t} generations")
     tile_w = cuda_packed.tile_width(wpl, xw)
     max_tile_h = SMEM_BYTES // (2 * 4 * (tile_w + 2 * xw)) - 2 * t
     if max_tile_h < 1:
-        raise ValueError(f"no K9 window for {t} generations: shared memory")
+        raise ValueError(f"no K10 window for {t} generations: shared memory")
     ny = -(-h_loc // max_tile_h)
     return TiledPlan(t, -(-h_loc // ny), tile_w, xw)
+
+
+#: SMs of an NVIDIA H100 SXM: the card the plans are made for where no
+#: device is at hand (the mirrors on the CPU, the tests).
+H100_SMS = 132
+
+
+@functools.lru_cache(maxsize=256)
+def ext_reg_plan(strip: tuple[int, int], t: int, sms: int) -> RegPlan:
+    """K9's blocks for a ``t``-generation launch on an (h_loc, wpl) centre
+    (``csrc/regwin.cuh``): column groups of 32 - 2·border centre words,
+    border = ceil(T / 32); for each block height of 1 to ``REG_MAX_WARPS``
+    warps, the tallest tile it holds (window rows = the tile and T a side),
+    evened over the centre's rows; of those, the grid of least
+    :meth:`RegPlan.cost` on ``sms`` SMs: the fewest, fullest waves of the
+    least work."""
+    h_loc, wpl = strip
+    border = -(-t // WORD)
+    if t < 1 or 2 * border >= REG_LANES:
+        raise ValueError(f"no K9 window for {t} generations")
+    cols = -(-wpl // (REG_LANES - 2 * border))
+    plans = []
+    for warps in range(1, REG_MAX_WARPS + 1):
+        tallest = warps * REG_RUN - 2 * t
+        if tallest < 1:
+            continue
+        nrb = -(-h_loc // tallest)
+        tile_h = -(-h_loc // nrb)
+        plans.append(RegPlan(t, t, tile_h, -(-(tile_h + 2 * t) // REG_RUN), (nrb, cols), border))
+    if not plans:
+        raise ValueError(f"no K9 window for {t} generations: {REG_MAX_WARPS} warps of "
+                         f"{REG_RUN} rows")
+    return best_reg_plan(plans, sms)
+
+
+@functools.lru_cache(maxsize=16)
+def device_sms(device: torch.device) -> int:
+    """The SM count of a CUDA device (``multi_processor_count``)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+#: The rule instantiations of K9 and K13 (``regwin.cuh::by_rule``): B3/S23
+#: and B36/S23 evaluated at compile time, every other rule by its masks at
+#: run time ("generic").
+REG_RULES = ("generic", "conway", "highlife")
+
+
+@functools.lru_cache(maxsize=64)
+def reg_rule(rule: LifeRule) -> tuple[int, int, int]:
+    """(born, surv, instantiation) of ``rule`` for K9 and K13: its masks,
+    and the index in :data:`REG_RULES` of the instantiation they select."""
+    masks = rule_masks(rule)
+    return (*masks, {rule_masks(CONWAY): 1, rule_masks(HIGHLIFE): 2}.get(masks, 0))
+
+
+@functools.lru_cache(maxsize=2)
+def _reg_launcher(kernel: str, symbol: str, pointers: int):
+    """K9's or K13's launch function, its C signature declared once:
+    ``pointers`` pointers, nine ints, the rule masks and the stream."""
+    return _launcher(kernel, symbol, [_P] * pointers + [_I] * 9 + [_U, _U, _P])
 
 
 @dataclasses.dataclass(frozen=True)
 class ExtPlan:
     """One sharded launch: an exchange of ``pad`` rows and ``xpad`` word
     columns per side, then K9 advancing each extended shard ``t``
-    generations on ``tiles``."""
+    generations (its blocks: :func:`ext_reg_plan`)."""
 
     t: int
     pad: int
     xpad: int
-    tiles: TiledPlan
-
-    def grid(self, strip: tuple[int, int]) -> tuple[int, int]:
-        """(tile rows, tile columns) of one shard's K9 launch."""
-        return self.tiles.grid(strip)
 
     def halo_bytes(self, strip: tuple[int, int]) -> int:
         """Bytes one shard receives in the exchange: its pad rows and its
@@ -155,8 +215,8 @@ class ExtPlan:
         return 4 * (2 * self.pad * wpl + 2 * self.xpad * (h_loc + 2 * self.pad))
 
 
-def _plan_for(strip: tuple[int, int], nx: int, t: int) -> ExtPlan:
-    return ExtPlan(t, t, -(-t // WORD) if nx > 1 else 0, ext_tiles(strip, t))
+def _plan_for(nx: int, t: int) -> ExtPlan:
+    return ExtPlan(t, t, -(-t // WORD) if nx > 1 else 0)
 
 
 def launch_plan(
@@ -171,9 +231,9 @@ def launch_plan(
     nx = mesh_shape[1]
     t = max(1, min(turns, EXT_MAX_T, strip[0]))
     full, rem = divmod(turns, t)
-    launches = [_plan_for(strip, nx, t)] * full
+    launches = [_plan_for(nx, t)] * full
     if rem:
-        launches.append(_plan_for(strip, nx, rem))
+        launches.append(_plan_for(nx, rem))
     return launches
 
 
@@ -336,9 +396,10 @@ def ext_launch_plain(
 
 def _ext_windows(ext: torch.Tensor, turns: int, pad: int, xpad: int,
                  tiles: TiledPlan | None):
-    """Every K9 tile's window gathered as ``load_ext_window`` does (rows as
-    they are, columns modulo the width when xpad = 0, zero outside the
-    block): (windows (ny, nx, rows, cols), tiles, (ny, nx), (h_loc, wpl))."""
+    """Every K10 tile's window (:func:`ext_tiles`) gathered as ext.cu's
+    ``ExtSource`` reads it (rows as they are, columns modulo the width when
+    xpad = 0, zero outside the block): (windows (ny, nx, rows, cols),
+    tiles, (ny, nx), (h_loc, wpl))."""
     h_loc, wpl = _centre(ext, turns, pad, xpad)
     tiles = tiles or ext_tiles((h_loc, wpl), turns)
     xw = tiles.xpad
@@ -368,19 +429,85 @@ def _stitch(win: torch.Tensor, turns: int, tiles: TiledPlan, centre: tuple[int, 
     return out[: centre[0], : centre[1]].contiguous()
 
 
+def _run_gen(win: torch.Tensor, rule: LifeRule) -> torch.Tensor:
+    """One generation of register-resident windows (..., rows, 32): each
+    window's columns wrap within it (a warp's lanes, ``regwin.cuh::hsum``),
+    rows past it read as zero."""
+    west, east = packed._west(win), packed._east(win)
+    h0 = win ^ west ^ east
+    h1 = packed._maj(win, west, east)
+    n0, s0 = cuda_packed._shift(h0, -2, 1), cuda_packed._shift(h0, -2, -1)
+    n1, s1 = cuda_packed._shift(h1, -2, 1), cuda_packed._shift(h1, -2, -1)
+    t0 = h0 ^ n0 ^ s0
+    c = packed._maj(h0, n0, s0)
+    p1 = h1 ^ n1 ^ s1
+    q = packed._maj(h1, n1, s1)
+    k = p1 & c
+    return packed.apply_rule_planes((t0, p1 ^ c, q ^ k, q & k), win, rule)
+
+
+def _reg_steps(win: torch.Tensor, rule: LifeRule, plan: RegPlan, gens, frozen=None):
+    """Generations ``gens`` of every block's window (nby, nbx, warps·32, 32),
+    each stepping only the rows :meth:`RegPlan.live` steps; the blocks
+    where ``frozen`` (bool (nby, nbx)) is set keep their state."""
+    live = plan.live_rows(win.device)
+    for g in gens:
+        step = live[g - 1][:, None]
+        if frozen is not None:
+            step = step & ~frozen[:, :, None, None]
+        win = torch.where(step, _run_gen(win, rule), win)
+    return win
+
+
+def _reg_windows(src: torch.Tensor, plan: RegPlan, top: int, left: int, wrap_cols: bool):
+    """Every block's window from ``src``: block (by, bx) reads rows
+    ``top`` + by·tile_h + [0, warps·32) and columns ``left`` + bx·centre +
+    [0, 32), the columns modulo the width when ``wrap_cols``; zero outside
+    ``src`` and past the window's :attr:`RegPlan.rows`."""
+    nby, nbx = plan.grid
+    rows_in, cols_in = src.shape
+    dev = src.device
+    r = torch.arange(plan.warps * REG_RUN, device=dev)
+    rows = top + torch.arange(nby, device=dev)[:, None] * plan.tile_h + r
+    cols = (left + torch.arange(nbx, device=dev)[:, None] * plan.centre
+            + torch.arange(REG_LANES, device=dev))
+    if wrap_cols:
+        cols = torch.remainder(cols, cols_in)
+    row_ok = (rows >= 0) & (rows < rows_in) & (r < plan.rows)
+    col_ok = (cols >= 0) & (cols < cols_in)
+    win = src[rows.clamp(0, rows_in - 1)[:, None, :, None],
+              cols.clamp(0, cols_in - 1)[None, :, None, :]]
+    return win * (row_ok[:, None, :, None] & col_ok[None, :, None, :])
+
+
+def _reg_stitch(win: torch.Tensor, plan: RegPlan) -> torch.Tensor:
+    """Every block's centre (rows ``halo`` .. ``halo`` + tile_h, its
+    ``centre`` middle words) side by side: (nby·tile_h, nbx·centre)."""
+    nby, nbx = plan.grid
+    c = win[:, :, plan.halo : plan.halo + plan.tile_h, plan.border : REG_LANES - plan.border]
+    return c.permute(0, 2, 1, 3).reshape(nby * plan.tile_h, nbx * plan.centre)
+
+
 def ext_launch_mirror(
     ext: torch.Tensor, rule: LifeRule, turns: int, pad: int, xpad: int,
-    tiles: TiledPlan | None = None,
+    plan: RegPlan | None = None,
 ) -> torch.Tensor:
-    """K9's exact window decomposition in PyTorch: every tile's window
-    gathered as ``load_ext_window`` does (rows as they are, columns modulo
-    the width when xpad = 0, zero outside the block), stepped with
-    zero-filled window edges, its centre stored.  ``tiles`` forces the
-    tiling (tests); None takes :func:`ext_tiles`."""
-    win, tiles, _, centre = _ext_windows(ext, turns, pad, xpad, tiles)
-    for _ in range(turns):
-        win = cuda_packed._window_gen(win, rule)
-    return _stitch(win, turns, tiles, centre)
+    """K9's decomposition in PyTorch: the blocks of ``plan`` (None: the
+    :func:`ext_reg_plan` of an H100), each window (warps·32 rows from T
+    rows above its tile, 32 words from ``border`` left of its column group;
+    rows as they are, columns modulo the width when xpad = 0, zero outside
+    the block and past the window) stepped T generations with its columns
+    wrapping within it and only the rows each run's light cone steps
+    (:meth:`RegPlan.live`), its centre stored."""
+    h_loc, wpl = _centre(ext, turns, pad, xpad)
+    plan = plan or ext_reg_plan((h_loc, wpl), turns, H100_SMS)
+    if (plan.t, plan.halo) != (turns, turns) or plan.grid[0] * plan.tile_h < h_loc \
+            or plan.grid[1] * plan.centre < wpl:
+        raise ValueError(f"plan {plan} does not cover a {turns}-generation launch on "
+                         f"{h_loc}x{wpl}")
+    win = _reg_windows(ext, plan, pad - turns, xpad - plan.border, xpad == 0)
+    win = _reg_steps(win, rule, plan, range(1, turns + 1))
+    return _reg_stitch(win, plan)[:h_loc, :wpl].contiguous()
 
 
 def ext_launch(
@@ -389,27 +516,28 @@ def ext_launch(
     """K9: ``turns`` generations of a halo-extended (h_loc + 2·pad,
     wpl + 2·xpad) block of packed words, returning its (h_loc, wpl) centre
     in a fresh tensor; the input is never written.  A CPU tensor runs
-    :func:`ext_launch_plain`; a CUDA tensor launches K9 or raises."""
+    :func:`ext_launch_plain`; a CUDA tensor launches K9 on the blocks of
+    :func:`ext_reg_plan` for its device's SMs, in the rule's instantiation
+    (counted in ``ext_launch.rules``), or raises."""
     _check_words(ext)
     h_loc, wpl = _centre(ext, turns, pad, xpad)
     if ext.device.type == "cpu":
         return ext_launch_plain(ext, rule, turns, pad, xpad)
-    tiles = ext_tiles((h_loc, wpl), turns)
-    lib = cuda_build.load("ext")
-    born, surv = rule_masks(rule)
+    plan = ext_reg_plan((h_loc, wpl), turns, device_sms(ext.device))
+    lib, launch = _reg_launcher("ext", "gol_ext_launch", 2)
+    born, surv, variant = reg_rule(rule)
     out = torch.empty((h_loc, wpl), dtype=torch.int32, device=ext.device)
     with torch.cuda.device(ext.device):
-        err = lib.gol_ext_launch(
-            ctypes.c_void_p(ext.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-            h_loc, wpl, pad, xpad, turns, tiles.tile_h, tiles.tile_w,
-            ctypes.c_uint(born), ctypes.c_uint(surv), _stream(ext),
-        )
+        err = launch(ext.data_ptr(), out.data_ptr(), h_loc, wpl, pad, xpad, turns, plan.tile_h,
+                     plan.warps, plan.border, variant, born, surv, _stream(ext))
     cuda_build.check(lib, err, "ext")
     ext_launch.launches += 1
+    ext_launch.rules[REG_RULES[variant]] += 1
     return out
 
 
 ext_launch.launches = 0
+ext_launch.rules = collections.Counter()
 
 
 # -- K10: the skip form of K9 ------------------------------------------------------
@@ -438,10 +566,11 @@ def ext_skip_launch_plain(
 
 def _ext_skip_probe(ext: torch.Tensor, rule: LifeRule, turns: int, pad: int, xpad: int,
                     tiles: TiledPlan | None):
-    """K10's skip proof in PyTorch: K9's windows, each stepped 6
-    generations and compared with itself at generation 0 on its inner
-    region (rows and cells at least 6 from its edge).  Returns (windows at
-    generation 0, at generation 6, bool (ny, nx) stable, tiles, centre)."""
+    """K10's skip proof in PyTorch: its windows (:func:`ext_tiles`), each
+    stepped 6 generations and compared with itself at generation 0 on its
+    inner region (rows and cells at least 6 from its edge).  Returns
+    (windows at generation 0, at generation 6, bool (ny, nx) stable, tiles,
+    centre)."""
     _check_skip_turns(turns)
     win0, tiles, _, centre = _ext_windows(ext, turns, pad, xpad, tiles)
     win = win0
@@ -468,7 +597,7 @@ def ext_skip_launch_mirror(
     ext: torch.Tensor, rule: LifeRule, turns: int, pad: int, xpad: int,
     tiles: TiledPlan | None = None,
 ) -> torch.Tensor:
-    """K10's arithmetic in PyTorch: K9's windows through the skip proof; a
+    """K10's arithmetic in PyTorch: its windows through the skip proof; a
     window that holds it keeps its input centre, any other steps on to
     ``turns``."""
     win0, win, stable, tiles, centre = _ext_skip_probe(ext, rule, turns, pad, xpad, tiles)
@@ -481,8 +610,9 @@ def ext_skip_launch_mirror(
 def ext_skip_launch(
     ext: torch.Tensor, rule: LifeRule, turns: int, pad: int, xpad: int
 ) -> torch.Tensor:
-    """K10: K9's launch with the skip proof, ``turns`` a positive multiple
-    of 6; returns the centre in a fresh tensor, the input never written.
+    """K10: the skip proof on :func:`ext_tiles`' windows, ``turns`` a
+    positive multiple of 6; returns the centre in a fresh tensor, the
+    input never written.
     A CPU tensor runs :func:`ext_skip_launch_plain`; a CUDA tensor
     launches K10 or raises."""
     _check_words(ext)
@@ -774,47 +904,50 @@ def tile_probing_launch_plain(
     return dst
 
 
+def tile_reg_plan(plan: AdaptivePlan, tile: tuple[int, int], xpad: int, sms: int) -> RegPlan:
+    """K13's blocks for a launch of ``plan`` on an (h_loc, wpl) tile with an
+    ``xpad``-word x-halo: :func:`cuda_adaptive.stripe_reg_plan` over the
+    extended width."""
+    return cuda_adaptive.stripe_reg_plan((tile[0], tile[1] + 2 * xpad), plan.stripe_h, plan.pad,
+                                         plan.t, sms)
+
+
 def tile_probing_launch_mirror(
     ext: torch.Tensor, elig: torch.Tensor, dst: torch.Tensor, st: torch.Tensor, rule: LifeRule,
-    plan: AdaptivePlan, xpad: int, tiles: TiledPlan | None = None,
+    plan: AdaptivePlan, xpad: int, blocks: RegPlan | None = None,
 ) -> torch.Tensor:
-    """K13's window decomposition in PyTorch: K4's blocks
-    (``cuda_adaptive.stripe_tiles`` over the extended width; ``tiles``
-    forces them) tile the extended tile's centre rows and its whole
-    width; each window (the block with pad rows and ``tiles.xpad`` words
-    a side, columns modulo the extended width, zero past its edges) is
-    stepped 6 generations and compared with its input on its inner region
-    (rows and cells at least 6 from its edge); a block that agrees keeps
-    its input, any other steps on to T, and only centre columns are
-    stored.  A stripe's flag is the AND of its blocks'; an eligible stripe
-    does nothing.  Writes ``dst`` and ``st``; returns ``dst``."""
+    """K13's decomposition in PyTorch: the blocks of ``blocks`` (None: the
+    :func:`tile_reg_plan` of an H100) tile the extended tile's centre rows,
+    ``tile_h`` rows of one stripe each, and its whole width in groups of 30
+    words; each window (warps·32 rows from pad rows above its tile, 32
+    words from one left of its group, columns modulo the extended width,
+    zero past the window) is stepped 6 generations (every row it needs) and
+    its inner region (rows and cells at least 6 from its edge) compared
+    with its input; a block that agrees keeps its generation-6 state, any
+    other steps on to T, only the rows of its light cone
+    (:meth:`RegPlan.live`).  Only centre columns are stored.  A stripe's
+    flag is the AND of its blocks'; an eligible stripe does nothing.
+    Writes ``dst`` and ``st``; returns ``dst``."""
     h, wpl = _check_tile(ext, elig, dst, st, plan, xpad)
     pad, wpe = plan.pad, wpl + 2 * xpad
-    tiles = tiles or cuda_adaptive.stripe_tiles((h, wpe), plan.stripe_h, pad)
-    xw = tiles.xpad
-    dev = ext.device
-    ny, nx = h // tiles.tile_h, -(-wpe // tiles.tile_w)
-    rows = (torch.arange(ny, device=dev)[:, None] * tiles.tile_h
-            + torch.arange(tiles.tile_h + 2 * pad, device=dev))
-    cols = torch.remainder(torch.arange(nx, device=dev)[:, None] * tiles.tile_w - xw
-                           + torch.arange(tiles.tile_w + 2 * xw, device=dev), wpe)
-    win0 = ext[rows[:, None, :, None], cols[None, :, None, :]]
-    win = win0
-    for _ in range(SKIP_PERIOD):
-        win = cuda_packed._window_gen(win, rule)
-    diff = (win ^ win0)[:, :, SKIP_PERIOD : win.shape[2] - SKIP_PERIOD]
-    mask = torch.full(diff.shape[-1:], -1, dtype=torch.int32, device=dev)
+    blocks = blocks or tile_reg_plan(plan, (h, wpl), xpad, H100_SMS)
+    nby, nbx = blocks.grid
+    if ((blocks.t, blocks.halo, blocks.probe, blocks.border) != (plan.t, pad, SKIP_PERIOD, 1)
+            or plan.stripe_h % blocks.tile_h or nby * blocks.tile_h != h
+            or nbx * blocks.centre < wpe):
+        raise ValueError(f"blocks {blocks} do not cover {plan} on an extended {h}x{wpe} tile")
+    win0 = _reg_windows(ext, blocks, 0, -1, True)
+    win = _reg_steps(win0, rule, blocks, range(1, SKIP_PERIOD + 1))
+    diff = (win ^ win0)[:, :, SKIP_PERIOD : blocks.rows - SKIP_PERIOD]
+    mask = torch.full(diff.shape[-1:], -1, dtype=torch.int32, device=ext.device)
     mask[0] &= _FIRST_WORD_INNER
     mask[-1] &= _LAST_WORD_INNER
     block_stable = ((diff & mask) == 0).flatten(2).all(dim=2)
-    for _ in range(plan.t - SKIP_PERIOD):
-        win = cuda_packed._window_gen(win, rule)
-    win = torch.where(block_stable[:, :, None, None], win0, win)
-    c = win[:, :, pad : pad + tiles.tile_h, xw : xw + tiles.tile_w]
-    out = c.permute(0, 2, 1, 3).reshape(ny * tiles.tile_h, nx * tiles.tile_w)[:, xpad : xpad + wpl]
+    win = _reg_steps(win, rule, blocks, range(SKIP_PERIOD + 1, plan.t + 1), block_stable)
+    out = _reg_stitch(win, blocks)[:, xpad : xpad + wpl]
     stable = block_stable.view(plan.grid(h), -1).all(dim=1)
     elide = elig.bool()
-    of = torch.arange(h, device=dev) // plan.stripe_h
+    of = torch.arange(h, device=ext.device) // plan.stripe_h
     dst.copy_(torch.where(elide[of, None], dst, out))
     st.copy_((elide | stable).to(torch.int32))
     return dst
@@ -830,24 +963,26 @@ def tile_probing_launch(
     launches ago) and the int32[grid] bitmap ``st`` (all ones on entry);
     returns ``dst``.  ``elig`` (int32[grid]) is this launch's elision, the
     3x3 conjunction of :func:`tile_elision`.  A CPU tensor runs
-    :func:`tile_probing_launch_plain`; a CUDA tensor launches K13 or
-    raises."""
+    :func:`tile_probing_launch_plain`; a CUDA tensor launches K13 on the
+    blocks of :func:`tile_reg_plan` for its device's SMs, in the rule's
+    instantiation (counted in ``tile_probing_launch.rules``), or raises."""
     h_loc, wpl = _check_tile(ext, elig, dst, st, plan, xpad)
     if ext.device.type == "cpu":
         return tile_probing_launch_plain(ext, elig, dst, st, rule, plan, xpad)
-    tiles = cuda_adaptive.stripe_tiles((h_loc, wpl + 2 * xpad), plan.stripe_h, plan.pad)
-    lib, launch = _launcher("probing", "gol_tile_probing_launch",
-                            [_P] * 4 + [_I] * 9 + [_U, _U, _P])
-    born, surv = rule_masks(rule)
+    blocks = tile_reg_plan(plan, (h_loc, wpl), xpad, device_sms(ext.device))
+    lib, launch = _reg_launcher("probing", "gol_tile_probing_launch", 4)
+    born, surv, variant = reg_rule(rule)
     err = launch(ext.data_ptr(), dst.data_ptr(), elig.data_ptr(), st.data_ptr(), h_loc, wpl,
-                 xpad, plan.t, plan.stripe_h, tiles.tile_h, tiles.tile_w, tiles.xpad, plan.pad,
+                 xpad, plan.t, plan.stripe_h, blocks.tile_h, blocks.warps, plan.pad, variant,
                  born, surv, _stream(ext))
     cuda_build.check(lib, err, "tile_probing")
     tile_probing_launch.launches += 1
+    tile_probing_launch.rules[REG_RULES[variant]] += 1
     return dst
 
 
 tile_probing_launch.launches = 0
+tile_probing_launch.rules = collections.Counter()
 
 
 # -- K14: the strip megakernel -------------------------------------------------------
@@ -1265,8 +1400,11 @@ def tile_activity(act: torch.Tensor, ny: int, nx: int) -> torch.Tensor:
 
 
 def reset_launches() -> None:
-    """Set the launch counters of K9-K15 to 0."""
+    """Set the launch counters of K9-K15 to 0, and K9's and K13's counts by
+    rule instantiation."""
     ext_launch.launches = 0
+    ext_launch.rules.clear()
+    tile_probing_launch.rules.clear()
     ext_skip_launch.launches = 0
     strip_probing_launch.launches = 0
     strip_frontier_launch.launches = 0

@@ -21,7 +21,7 @@ import pytest
 import torch
 
 from distributed_gol_torch.models import life as tlife
-from distributed_gol_torch.ops import cuda_packed, packed as tpacked, stencil as tstencil
+from distributed_gol_torch.ops import cuda_adaptive, packed as tpacked, stencil as tstencil
 from distributed_gol_torch.parallel import cuda_halo, halo, mesh as tmesh, packed_halo
 
 # One intra-op thread: the suite runs in parallel worker processes.
@@ -80,13 +80,15 @@ def ref():
     [
         ((32, 4), 0, 1), ((32, 4), 0, 3), ((32, 4), 0, 13), ((32, 4), 0, 32),
         ((24, 2), 1, 1), ((24, 2), 1, 5), ((24, 2), 1, 19), ((32, 3), 2, 26),
+        ((40, 33), 1, 16), ((32, 61), 0, 32), ((24, 62), 2, 7), ((16, 31), 0, 1),
     ],
 )
 def test_ext_plain_matches_interpret_ext_kernel(ref, rule, strip, xpad, turns):
     """The same extended input, built with the JAX plan's pad = round8(T)
     and the given xpad, through ``_build_ext_launch`` and through K9's
-    plain version and its window mirror; the turns below a full launch are
-    the remainder launches."""
+    plain version and its decomposition mirror; the turns below a full
+    launch are the remainder launches, and shards wider than one column
+    group (30 words) end in a ragged group."""
     h_loc, wp = strip
     pad = -(-turns // 8) * 8
     ext = random_words(np.random.default_rng(turns + xpad), h_loc + 2 * pad, wp + 2 * xpad)
@@ -99,18 +101,109 @@ def test_ext_plain_matches_interpret_ext_kernel(ref, rule, strip, xpad, turns):
     assert np.array_equal(mirror.numpy().view(np.uint32), want)
 
 
+def forced_ext_plan(h_loc: int, wpl: int, turns: int, tile_h: int, extra: int = 0):
+    """K9's blocks forced to ``tile_h`` centre rows, ``extra`` warps more
+    than the window needs."""
+    border = -(-turns // 32)
+    warps = -(-(tile_h + 2 * turns) // 32) + extra
+    return cuda_adaptive.RegPlan(turns, turns, tile_h, warps,
+                                 (-(-h_loc // tile_h), -(-wpl // (32 - 2 * border))), border)
+
+
 @pytest.mark.parametrize("xpad", [0, 1, 2])
-@pytest.mark.parametrize("turns", [1, 7, 16])
+@pytest.mark.parametrize("turns", [1, 7, 16, 32])
 @pytest.mark.parametrize("tile_h,tile_w", [(5, 3), (11, 4), (40, 62)])
 def test_ext_mirror_forced_tiles(xpad, turns, tile_h, tile_w):
-    """K9's window decomposition with ragged tiles (zero past the block,
-    columns wrapped only when xpad = 0) equals the plain version."""
+    """K9's decomposition with forced blocks of ``tile_h`` centre rows on a
+    37-row shard ``tile_w`` words wide (a ragged last block and column
+    group, zero past the block, columns wrapped only when xpad = 0, one warp
+    more than the window needs where tile_h is odd) equals the plain
+    version."""
     pad = turns + 2
     ext = torch.from_numpy(random_words(np.random.default_rng(tile_h), 37 + 2 * pad,
-                                        7 + 2 * xpad).view(np.int32))
-    tiles = cuda_packed.TiledPlan(turns, tile_h, tile_w - 2 * (-(-turns // 32)), -(-turns // 32))
-    got = cuda_halo.ext_launch_mirror(ext, tlife.HIGHLIFE, turns, pad, xpad, tiles)
+                                        tile_w + 2 * xpad).view(np.int32))
+    plan = forced_ext_plan(37, tile_w, turns, tile_h, tile_h % 2)
+    got = cuda_halo.ext_launch_mirror(ext, tlife.HIGHLIFE, turns, pad, xpad, plan)
     assert torch.equal(got, cuda_halo.ext_launch_plain(ext, tlife.HIGHLIFE, turns, pad, xpad))
+
+
+def test_ext_mirror_refuses_blocks_that_miss_the_centre():
+    ext = torch.zeros((37 + 2 * 9, 7), dtype=torch.int32)
+    with pytest.raises(ValueError, match="does not cover"):
+        cuda_halo.ext_launch_mirror(ext, tlife.CONWAY, 9, 9, 0, forced_ext_plan(30, 7, 9, 10))
+
+
+# Shard shapes (h_loc, wpl) from one word to the 16384² soup's (4, 1) and
+# (2, 2) shards (8192 x 512 words: a (2, 1) split), with ragged widths.
+PLAN_SHAPES = [(1, 1), (3, 2), (64, 16), (65, 16), (130, 16), (190, 18), (1000, 61),
+               (4096, 512), (8192, 256), (8192, 512)]
+
+
+@pytest.mark.parametrize("strip", PLAN_SHAPES)
+@pytest.mark.parametrize("turns", [1, 5, 6, 13, 24, 31, 32])
+def test_ext_reg_plan_stores_every_centre_word_once(strip, turns):
+    """K9's plan on 132 SMs: its blocks' centres (``tile_h`` rows by
+    ``centre`` words, cut at the shard's edge) cover the shard with no
+    block empty, so every centre word is stored by exactly one block; the
+    window holds the tile and T rows a side, and its last generation's
+    cone is exactly the tile."""
+    plan = cuda_halo.ext_reg_plan(strip, turns, 132)
+    h_loc, wpl = strip
+    (nby, nbx), tile_h, centre = plan.grid, plan.tile_h, plan.centre
+    assert (nby - 1) * tile_h < h_loc <= nby * tile_h
+    assert (nbx - 1) * centre < wpl <= nbx * centre
+    if h_loc * wpl <= 4096:
+        count = np.zeros((nby * tile_h, nbx * centre), np.int64)
+        for by in range(nby):
+            for bx in range(nbx):
+                count[by * tile_h : (by + 1) * tile_h, bx * centre : (bx + 1) * centre] += 1
+        assert (count[:h_loc, :wpl] == 1).all()
+    assert plan.t == plan.halo == turns and plan.border == 1 and plan.centre == 30
+    assert plan.rows == tile_h + 2 * turns <= plan.warps * 32
+    assert plan.cone(turns) == (turns, turns + tile_h)
+
+
+@pytest.mark.parametrize("strip", PLAN_SHAPES)
+@pytest.mark.parametrize("turns", [1, 16, 32])
+def test_ext_reg_plan_fits_hopper(strip, turns):
+    """Threads, registers and shared memory of K9's blocks within an H100
+    SM's: at most 512 threads (``__launch_bounds__(512, 2)``, so at most 64
+    registers a thread), the SM's 65,536 registers shared by the blocks it
+    holds at once, and the edge exchange's 8 KiB of static shared memory
+    (two parities x 16 warps x two rows x 32 words), and the 1 KiB the card
+    reserves, times those blocks within its 228 KiB."""
+    plan = cuda_halo.ext_reg_plan(strip, turns, 132)
+    assert 32 <= plan.threads <= 512 and plan.threads % 32 == 0
+    assert plan.occupancy >= 2 and plan.occupancy * plan.threads * 64 <= 65536
+    assert plan.occupancy <= 32 and plan.occupancy * plan.threads <= 2048
+    assert plan.smem_bytes == 8192 and plan.occupancy * (plan.smem_bytes + 1024) <= 228 * 1024
+    assert plan.grid[1] <= 2**31 - 1 and plan.grid[0] <= 65535
+
+
+@pytest.mark.parametrize("strip,turns,fill", [((4096, 512), 32, 1.0), ((8192, 256), 32, 0.98)])
+def test_ext_reg_plan_fills_the_card_at_16384(strip, turns, fill):
+    """The 16384² soup's (4, 1) and (2, 2) shards at the full launch depth
+    on 132 SMs: every SM holds its share of the plan's blocks at once (no
+    more blocks than its occupancy) and runs all but a stated share of the busiest SM's
+    blocks; the first port's grid (``ext_tiles``, one 1,024-thread block a
+    SM) held 90 blocks."""
+    plan = cuda_halo.ext_reg_plan(strip, turns, 132)
+    assert plan.waves(132) <= plan.occupancy
+    assert plan.fill(132) >= fill
+    assert plan.fill(132) == plan.blocks / (plan.waves(132) * 132)
+    assert cuda_halo.ext_tiles(strip, turns).grid(strip) in ((10, 9), (18, 5))
+
+
+@pytest.mark.parametrize("rule,variant", [("conway", "conway"), ("highlife", "highlife"),
+                                          ("day-and-night", "generic"), ("seeds", "generic"),
+                                          ("life-without-death", "generic")])
+def test_reg_rule_picks_the_instantiation_by_masks(rule, variant):
+    """B3/S23 and B36/S23 take their compile-time instantiations of K9 and
+    K13, every other rule (and a B/S spelling of another) the generic one;
+    the choice follows the masks, not the name."""
+    assert cuda_halo.REG_RULES[cuda_halo.reg_rule(tlife.RULES[rule])[2]] == variant
+    assert cuda_halo.reg_rule(tlife.parse_rule("B3/S23"))[2] == 1
+    assert cuda_halo.reg_rule(tlife.parse_rule("B36/S23"))[2] == 2
 
 
 def test_ext_launch_refuses_a_halo_too_shallow():
@@ -385,11 +478,16 @@ def cuda_device():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("rule", ["conway", "highlife"])
+@pytest.mark.parametrize("rule", ["conway", "highlife", "day-and-night"])
 @pytest.mark.parametrize(
     "strip,pad,xpad,turns",
     [((256, 64), 32, 0, 32), ((256, 64), 32, 0, 5), ((100, 17), 9, 1, 9),
-     ((1000, 128), 20, 1, 20), ((7, 3), 40, 2, 40), ((1, 1), 1, 0, 1)],
+     ((1000, 128), 20, 1, 20), ((7, 3), 40, 2, 40), ((1, 1), 1, 0, 1),
+     # shards shorter than one run or one block: path (c)'s 512² on (8, 1),
+     # path (f)'s 65-row strips, path (i)'s 130-row tiles
+     ((64, 16), 32, 0, 32), ((65, 16), 5, 0, 5), ((130, 16), 5, 1, 5),
+     # widths off the warp's 30 centre words, a deeper pad than T
+     ((300, 61), 24, 0, 17), ((97, 95), 32, 1, 31), ((4096, 512), 32, 0, 32)],
 )
 def test_gpu_ext_kernel_matches_plain(cuda_device, rule, strip, pad, xpad, turns):
     h_loc, wpl = strip
@@ -413,3 +511,42 @@ def test_gpu_virtual_mesh_matches_single_device(cuda_device, mesh_shape):
     got = cuda_halo.make_superstep(m, tlife.CONWAY)(halo.board_sharding(m).shard(p), 77)
     torch.cuda.synchronize()
     assert torch.equal(got.gather(), tpacked.superstep(p, tlife.CONWAY, 77))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("xpad", [0, 1])
+@pytest.mark.parametrize("turns", range(1, 33))
+def test_gpu_ext_kernel_matches_plain_at_every_depth(cuda_device, xpad, turns):
+    """K9 at every launch depth (the remainders' included) on a ragged
+    shard, 97 rows by 61 words, against its plain version."""
+    ext = torch.from_numpy(random_words(np.random.default_rng(turns), 97 + 2 * turns,
+                                        61 + 2 * xpad).view(np.int32)).to(cuda_device)
+    got = cuda_halo.ext_launch(ext, tlife.CONWAY, turns, turns, xpad)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cuda_halo.ext_launch_plain(ext, tlife.CONWAY, turns, turns, xpad))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rule,variant", [("conway", "conway"), ("highlife", "highlife"),
+                                          ("day-and-night", "generic"), ("seeds", "generic")])
+def test_gpu_rules_reach_their_instantiation(cuda_device, rule, variant):
+    """Each rule's K9 and K13 launches run the instantiation meant for it
+    (the launchers' counts by instantiation), and each equals its plain
+    version."""
+    from distributed_gol_torch.ops.cuda_adaptive import AdaptivePlan
+
+    r = tlife.RULES[rule]
+    cuda_halo.reset_launches()
+    ext = torch.from_numpy(random_words(np.random.default_rng(4), 64 + 2 * 16, 40)
+                           .view(np.int32)).to(cuda_device)
+    got = cuda_halo.ext_launch(ext, r, 12, 16, 1)
+    assert torch.equal(got, cuda_halo.ext_launch_plain(ext, r, 12, 16, 1))
+    plan = AdaptivePlan(12, 16, False)
+    outs = []
+    for launch in (cuda_halo.tile_probing_launch, cuda_halo.tile_probing_launch_plain):
+        dst = torch.zeros((64, 38), dtype=torch.int32, device=cuda_device)
+        st = torch.ones(4, dtype=torch.int32, device=cuda_device)
+        outs.append((launch(ext, torch.zeros_like(st), dst, st, r, plan, 1), st))
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+    assert dict(cuda_halo.ext_launch.rules) == {variant: 1}
+    assert dict(cuda_halo.tile_probing_launch.rules) == {variant: 1}

@@ -209,6 +209,120 @@ def test_k13_probe_reads_the_wrapped_halo_columns(ref):
         assert np.array_equal(tb, jb) and np.array_equal(tst, jst)
 
 
+def forced_blocks(plan, tile, xpad, tile_h, extra=0):
+    """K13's blocks forced to ``tile_h`` rows of a stripe, ``extra`` warps
+    more than the window needs."""
+    wpe = tile[1] + 2 * xpad
+    warps = -(-(tile_h + 2 * plan.pad) // 32) + extra
+    return cuda_adaptive.RegPlan(plan.t, plan.pad, tile_h, warps,
+                                 (tile[0] // tile_h, -(-wpe // 30)), 1, 6)
+
+
+@pytest.mark.parametrize("kind", BOARDS)
+@pytest.mark.parametrize("tile,turns,stripe,xpad,tile_h,extra", [
+    ((32, 2), 6, 16, 1, 16, 0), ((32, 2), 6, 16, 1, 8, 1), ((64, 31), 12, 32, 1, 4, 0),
+    ((64, 61), 24, 32, 1, 16, 0), ((48, 3), 6, 24, 3, 3, 2)])
+def test_k13_mirror_with_forced_blocks_matches_plain(kind, tile, turns, stripe, xpad, tile_h,
+                                                     extra):
+    """K13's decomposition with a stripe split into blocks of ``tile_h``
+    rows (a stripe's flag the AND of its blocks' probes), extended widths
+    of one to three column groups with a ragged last one, and windows
+    taller than they need, over two launches of the ping-pong protocol:
+    boards, flags and activity equal the plain version's."""
+    plan = cuda_adaptive.AdaptivePlan(turns, stripe, False)
+    blocks = forced_blocks(plan, tile, xpad, tile_h, extra)
+    ext0 = t32(extended_tile(mesh_board(kind, tile), (2, 2), plan.pad, xpad, at=(1, 1)))
+    centre = (slice(plan.pad, plan.pad + tile[0]), slice(xpad, xpad + tile[1]))
+    runs = []
+    for k13 in (lambda *a: cuda_halo.tile_probing_launch_mirror(*a, blocks),
+                cuda_halo.tile_probing_launch_plain):
+        ext, elig = ext0, torch.zeros(plan.grid(tile[0]), dtype=torch.int32)
+        bufs = [torch.zeros(tile, dtype=torch.int32), ext[centre].clone()]
+        seen = []
+        for k in range(2):
+            st = torch.ones_like(elig)
+            out = k13(ext, elig, bufs[k % 2], st, tlife.CONWAY, plan, xpad)
+            seen.append((out.clone(), st.clone(), 1 - st))
+            ext = ext.clone()
+            ext[centre] = out
+            f = torch.cat([st.new_ones(1), st, st.new_ones(1)])
+            elig = f[:-2] & f[1:-1] & f[2:]
+        runs.append(seen)
+    for got, want in zip(*runs):
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_k13_mirror_refuses_blocks_across_stripes():
+    plan = cuda_adaptive.AdaptivePlan(6, 16, False)
+    ext = torch.zeros((32 + 16, 4), dtype=torch.int32)
+    dst, elig, st = torch.zeros((32, 2), dtype=torch.int32), torch.zeros(2, dtype=torch.int32), \
+        torch.ones(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="do not cover"):
+        cuda_halo.tile_probing_launch_mirror(ext, elig, dst, st, tlife.CONWAY, plan, 1,
+                                             forced_blocks(plan, (32, 2), 1, 32))
+
+
+# Pre-extended tile shapes (h_loc, wpe) from one stripe to the 16384² soup's
+# (2, 2) and (2, 4) tiles, with their stripe plans (stripe_h, pad, T).
+TILE_PLANS = [((8, 3), 8, 8, 6), ((16, 31), 16, 16, 12), ((64, 61), 32, 24, 18),
+              ((256, 66), 64, 24, 24), ((520, 20), 8, 8, 6), ((8192, 258), 256, 24, 24),
+              ((8192, 130), 16, 16, 12), ((8192, 514), 256, 32, 30), ((4096, 258), 1024, 32, 30)]
+
+
+@pytest.mark.parametrize("shape,stripe_h,pad,turns", TILE_PLANS)
+def test_stripe_reg_plan_stores_every_centre_word_once(shape, stripe_h, pad, turns):
+    """K13's plan on 132 SMs: blocks of a divisor of the stripe, so none
+    straddles two stripes; their tiles cover the centre rows and their
+    column groups the extended width with no block empty, so every word
+    is probed and stored by exactly one block; the window holds the tile
+    and pad rows a side; the probe sees every window row at generation 6
+    and the last generation's cone is the tile (or holds it, at T = 6), each generation's inside
+    the one before with a row a side."""
+    plan = cuda_adaptive.stripe_reg_plan(shape, stripe_h, pad, turns, 132)
+    h, wpe = shape
+    nby, nbx = plan.grid
+    assert stripe_h % plan.tile_h == 0 and nby * plan.tile_h == h
+    assert (nbx - 1) * 30 < wpe <= nbx * 30 and plan.centre == 30
+    assert plan.rows == plan.tile_h + 2 * pad <= plan.warps * 32
+    assert plan.cone(6) == (6, plan.rows - 6) and plan.probe == 6
+    lo, hi = plan.cone(turns)
+    if turns > 6:
+        assert (lo, hi) == (pad, pad + plan.tile_h)
+    else:
+        assert lo <= pad < pad + plan.tile_h <= hi
+    # each generation's cone lies, with a row a side, in the one before
+    assert all(plan.cone(g + 1)[0] >= plan.cone(g)[0] + 1 for g in range(1, turns))
+
+
+@pytest.mark.parametrize("shape,stripe_h,pad,turns", TILE_PLANS)
+def test_stripe_reg_plan_fits_hopper(shape, stripe_h, pad, turns):
+    """Threads, registers and shared memory of K13's blocks within an H100
+    SM's (as K9's: at most 512 threads and 64 registers a thread, the
+    blocks an SM holds at once within its 65,536 registers; 8 KiB of edge
+    exchange, 4 KiB a warp for the probe's generation-0 copy and the 1 KiB
+    the card reserves, the blocks an SM holds at once within its 228
+    KiB)."""
+    plan = cuda_adaptive.stripe_reg_plan(shape, stripe_h, pad, turns, 132)
+    assert 32 <= plan.threads <= 512
+    assert plan.occupancy >= 2 and plan.occupancy * plan.threads * 64 <= 65536
+    assert plan.smem_bytes == 8192 + plan.warps * 4096 <= 227 * 1024
+    assert plan.occupancy * (plan.smem_bytes + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("shape,stripe_h,fill", [((8192, 258), 256, 0.87), ((8192, 130), 16, 0.96)])
+def test_stripe_reg_plan_fills_the_card_at_16384(shape, stripe_h, fill):
+    """Path (h)/(l)'s (2, 2) tile at T = 24 on 256-row stripes and path
+    (j)'s (2, 4) tile at T = 12 on 16-row stripes, on 132 SMs: the plan
+    states its fill, the share of the busiest SM's block rounds that hold a
+    block; the first port's grid held 160 blocks of 1,024 threads (two
+    rounds of 132, one block a SM) on (h)'s tile."""
+    pad = 24 if stripe_h == 256 else 16
+    turns = 24 if stripe_h == 256 else 12
+    plan = cuda_adaptive.stripe_reg_plan(shape, stripe_h, pad, turns, 132)
+    assert plan.fill(132) >= fill
+    assert plan.fill(132) == plan.blocks / (plan.waves(132) * 132)
+
+
 def test_k13_refuses_a_plan_that_does_not_fit():
     ext = torch.zeros((16 + 2 * 8, 4 + 2), dtype=torch.int32)
     dst, elig, st = torch.zeros((16, 4), dtype=torch.int32), torch.zeros(2, dtype=torch.int32), \
@@ -334,14 +448,19 @@ def cuda_device():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("rule", ["conway", "highlife", "day-and-night"])
 @pytest.mark.parametrize("kind", BOARDS)
 @pytest.mark.parametrize("tile,turns,stripe,xpad", [((256, 64), 24, 64, 1), ((96, 3), 6, 8, 3),
-                                                    ((128, 131), 12, 16, 1)])
-def test_gpu_k13_matches_plain(cuda_device, kind, tile, turns, stripe, xpad):
+                                                    ((128, 131), 12, 16, 1),
+                                                    ((512, 61), 24, 256, 1), ((64, 29), 24, 32, 2),
+                                                    ((32, 16), 12, 16, 1)])
+def test_gpu_k13_matches_plain(cuda_device, rule, kind, tile, turns, stripe, xpad):
     """K13 against its plain version over two launches on tile (1, 0) of a
     (2, 2) mesh, elision flags from the first: windows several blocks wide
-    (a ragged last block past the extended width) and a narrow tile whose
-    windows wrap onto themselves."""
+    (a ragged last block past the extended width), a narrow tile whose
+    windows wrap onto themselves, path (h)'s 256-row stripes, a 2-word x-halo and
+    path (j)'s 16-row stripes at T = 12; under both compile-time rules and
+    one through the generic instantiation."""
     plan = cuda_adaptive.AdaptivePlan(turns, stripe, False)
     ext0 = t32(extended_tile(mesh_board(kind, tile), (2, 2), plan.pad, xpad, at=(1, 0)))
     centre = (slice(plan.pad, plan.pad + tile[0]), slice(xpad, xpad + tile[1]))
@@ -352,8 +471,8 @@ def test_gpu_k13_matches_plain(cuda_device, kind, tile, turns, stripe, xpad):
         seen = []
         for k in range(2):
             st = torch.ones_like(elig)
-            out = cuda_halo.tile_probing_launch(ext, elig, bufs[k % 2], st, tlife.CONWAY, plan,
-                                                xpad)
+            out = cuda_halo.tile_probing_launch(ext, elig, bufs[k % 2], st, tlife.RULES[rule],
+                                                plan, xpad)
             seen.append((out.cpu().clone(), st.cpu()))
             ext = ext.clone()
             ext[centre] = out

@@ -1,0 +1,250 @@
+"""Time K9 and K13 of a checkout of the PyTorch port on one CUDA card.
+
+    python3 tools/regwin_ab.py [--root DIR] [--label NAME] [--out FILE]
+
+Imports ``distributed_gol_torch`` from ``--root`` (default: the checkout
+holding this script), builds its ``ext`` and ``probing`` kernels there, and
+times K9 (``cuda_halo.ext_launch``) and K13 (``cuda_halo.tile_probing_launch``)
+through their wrappers, whose signatures every slice of the port shares, at
+the shapes the main paths give them: the 16384² soup (density 0.3, seed 7)
+split (4, 1) and (2, 2) at the full depth of 32 generations and at the
+remainder depths 5 and 18; path (c)'s 512² board on (8, 1); path (f)'s
+520 x 512 board on (8, 1) and path (i)'s 520 x 1024 board on (4, 2) at
+depth 5; K13 on the (2, 2) tiles at the port's plan (T = 24, 256-row
+stripes) and on path (j)'s (2, 4) tiles at a stripe cap of 16 (T = 12),
+fresh (seed 13) and settled (seed 7 after 100,000 generations).  Each time
+is the median, min and max of 5 event-timed batches: K9 20 back-to-back
+launches on shard (0, 0)'s extended block; K13 both back to back on tile
+(0, 0) (elision flags 0, so every stripe probes) and, as ``PERF.md``'s
+rows before this script were taken, each launch between CUDA events inside
+the tile tier's own sequence of 8 launches a tile.  Where a launch is
+shorter than its wrapper's host time, back-to-back batches time the host;
+``device_ms`` is the kernel's own time from ``torch.profiler`` (20
+launches).  Prints one JSON object with the card's name and power limit.
+
+To compare two commits on one card, unpack the parent into a directory
+that ``.gitignore`` lists and run parent, this, this, parent in one call.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+BIG = 16384
+BATCHES = 5
+
+
+def spread(per: list) -> dict:
+    return dict(median=statistics.median(per), min=min(per), max=max(per), batches=per)
+
+
+def batches(fn, reps: int) -> dict:
+    """ms per call of ``fn()``: ``BATCHES`` batches of ``reps`` calls, each
+    between CUDA events, after a warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    per = []
+    for _ in range(BATCHES):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        per.append(start.elapsed_time(end) / reps)
+    return spread(per)
+
+
+def device_ms(fn, reps: int, kernel) -> float:
+    """Device ms per launch of the kernels whose name ``kernel(name)``
+    accepts: the median of ``BATCHES`` batches of ``reps`` calls of
+    ``fn()``, each under ``torch.profiler`` (the kernel's own time,
+    without the host's)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    per = []
+    for _ in range(BATCHES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us, count = 0.0, 0
+        for a in prof.key_averages():
+            if kernel(a.key):
+                t = getattr(a, "self_device_time_total", None)
+                us += t if t is not None else a.self_cuda_time_total
+                count += a.count
+        per.append(us / count / 1e3 if count else float("nan"))
+    return statistics.median(per)
+
+
+def sweep(cuda_halo, halo, shards, big, boards, rule) -> dict:
+    """K9 on the (4, 1) and (2, 2) shards at 32 generations, and K13 on the
+    (2, 2) tile fresh and settled, at every block height the plans weigh
+    (``ext_reg_plan``'s tallest tile for 1 to 16 warps; each divisor of
+    K13's stripe), each forced in place of the plan the wrapper would take:
+    the plan's cost on 132 SMs beside the kernel's device ms."""
+    from distributed_gol_torch.ops.cuda_adaptive import REG_MAX_WARPS, REG_RUN, RegPlan
+
+    rows = []
+    chosen, chosen_tile = cuda_halo.ext_reg_plan, cuda_halo.tile_reg_plan
+    try:
+        for mesh_shape in ((4, 1), (2, 2)):
+            sb = shards(big, mesh_shape)
+            xpad = 1 if mesh_shape[1] > 1 else 0
+            e = halo.extend(sb, 32, xpad)[0][0]
+            for warps in range(3, REG_MAX_WARPS + 1):
+                h_loc, wpl = sb.shard_shape
+                nrb = -(-h_loc // (warps * REG_RUN - 64))
+                tile_h = -(-h_loc // nrb)
+                plan = RegPlan(32, 32, tile_h, -(-(tile_h + 64) // REG_RUN), (nrb, -(-wpl // 30)))
+                cuda_halo.ext_reg_plan = lambda *a, _p=plan: _p
+                rows.append(dict(kernel="K9", mesh=list(mesh_shape), plan=str(plan),
+                                 cost=plan.cost(132), fill=plan.fill(132),
+                                 chosen=plan == chosen(sb.shard_shape, 32, 132),
+                                 device_ms=device_ms(
+                                     lambda: cuda_halo.ext_launch(e, rule, 32, 32, xpad), 20,
+                                     lambda k: "ext_" in k)))
+        cuda_halo.ext_reg_plan = chosen
+        tile = (BIG // 2, BIG // 64)
+        aplan, xpad = cuda_halo.adaptive_tile_plan(tile, 10**6)
+        for name, p in boards.items():
+            e = halo.extend(shards(p, (2, 2)), aplan.pad, xpad)[0][0]
+            grid = aplan.grid(tile[0])
+            elig = torch.zeros(grid, dtype=torch.int32, device=e.device)
+            st = torch.ones(grid, dtype=torch.int32, device=e.device)
+            dst = torch.empty(tile, dtype=torch.int32, device=e.device)
+            best = chosen_tile(aplan, tile, xpad, 132)
+            for tile_h in [d for d in range(8, aplan.stripe_h + 1) if aplan.stripe_h % d == 0]:
+                plan = RegPlan(aplan.t, aplan.pad, tile_h, -(-(tile_h + 2 * aplan.pad) // REG_RUN),
+                               (tile[0] // tile_h, -(-(tile[1] + 2 * xpad) // 30)), 1, 6)
+                if plan.warps > REG_MAX_WARPS:
+                    continue
+                cuda_halo.tile_reg_plan = lambda *a, _p=plan: _p
+                rows.append(dict(kernel="K13", board=name, plan=str(plan), cost=plan.cost(132),
+                                 fill=plan.fill(132), chosen=plan == best,
+                                 device_ms=device_ms(
+                                     lambda: cuda_halo.tile_probing_launch(e, elig, dst, st, rule,
+                                                                           aplan, xpad),
+                                     20, lambda k: "tile_probing" in k)))
+    finally:
+        cuda_halo.ext_reg_plan, cuda_halo.tile_reg_plan = chosen, chosen_tile
+    return rows
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
+    ap.add_argument("--label", default="")
+    ap.add_argument("--out", default="")
+    ap.add_argument("--sweep", action="store_true",
+                    help="also time K9 and K13 at every block height the plans weigh")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("regwin_ab: no CUDA GPU", file=sys.stderr)
+        return 1
+    root = Path(args.root).resolve()
+    sys.path.insert(0, str(root))
+    from distributed_gol_torch.models.life import CONWAY
+    from distributed_gol_torch.ops import cuda_build, cuda_packed, packed
+    from distributed_gol_torch.parallel import cuda_halo, halo, mesh as mesh_lib
+    from distributed_gol_torch.utils.soup import random_soup
+
+    dev = torch.device("cuda", 0)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    t0 = time.perf_counter()
+    cuda_build.build("ext", "probing", "tiled")
+
+    def soup(h, w, seed):
+        return packed.pack(torch.from_numpy(random_soup(h, w, 0.3, seed)).to(dev))
+
+    def shards(p, mesh_shape):
+        m = mesh_lib.make_mesh(mesh_shape, [dev] * (mesh_shape[0] * mesh_shape[1]))
+        return halo.board_sharding(m).shard(p)
+
+    out = dict(label=args.label, root=str(root), card=card, k9={}, k13={})
+    big = soup(BIG, BIG, 7)
+    cases = [("4x1", big, (4, 1), (32, 18, 5)), ("2x2", big, (2, 2), (32, 18, 5)),
+             ("c_8x1_512", soup(512, 512, 7), (8, 1), (32,)),
+             ("f_8x1_520x512", soup(520, 512, 7), (8, 1), (5,)),
+             ("i_4x2_520x1024", soup(520, 1024, 7), (4, 2), (5,))]
+    for name, p, mesh_shape, depths in cases:
+        sb = shards(p, mesh_shape)
+        for t in depths:
+            xpad = -(-t // 32) if mesh_shape[1] > 1 else 0
+            e = halo.extend(sb, t, xpad)[0][0]
+            def k9(e=e, t=t, xpad=xpad):
+                return cuda_halo.ext_launch(e, CONWAY, t, t, xpad)
+
+            out["k9"][f"{name}_t{t}"] = dict(
+                shape=list(e.shape), t=t, xpad=xpad, **batches(k9, 20),
+                device_ms=device_ms(k9, 20, lambda k: "ext_" in k and "skip" not in k))
+
+    # Made once (100,000 generations of K2) and kept beside this script's
+    # checkout's builds for the next run.
+    settled_path = Path(__file__).resolve().parents[1] / "build" / "regwin_ab_settled.pt"
+    if settled_path.is_file():
+        settled = torch.load(settled_path).to(dev)
+    else:
+        settled = cuda_packed.tiled_superstep(big, CONWAY, 100_000)
+        settled_path.parent.mkdir(parents=True, exist_ok=True)
+        torch.save(settled.cpu(), settled_path)
+    boards = {"fresh": soup(BIG, BIG, 13), "settled": settled}
+    for mesh_shape, cap in (((2, 2), 0), ((2, 4), 16)):
+        tile = (BIG // mesh_shape[0], BIG // 32 // mesh_shape[1])
+        plan, xpad = cuda_halo.adaptive_tile_plan(tile, 10**6, cap)
+        for name, p in boards.items():
+            sb = shards(p, mesh_shape)
+            e = halo.extend(sb, plan.pad, xpad)[0][0]
+            grid = plan.grid(tile[0])
+            elig = torch.zeros(grid, dtype=torch.int32, device=dev)
+            st = torch.ones(grid, dtype=torch.int32, device=dev)
+            dst = torch.empty(tile, dtype=torch.int32, device=dev)
+            def k13(e=e, elig=elig, dst=dst, st=st, plan=plan, xpad=xpad):
+                return cuda_halo.tile_probing_launch(e, elig, dst, st, CONWAY, plan, xpad)
+
+            alone = batches(k13, 20)
+            alone["device_ms"] = device_ms(k13, 20, lambda k: "tile_probing" in k)
+            cuda_halo.tile_probing_launches(sb, CONWAY, plan, xpad, 2)  # warm-up
+            per = []
+            for _ in range(BATCHES):
+                spans = []
+
+                def timed(*a, _spans=spans):
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    r = cuda_halo.tile_probing_launch(*a)
+                    end.record()
+                    _spans.append((start, end))
+                    return r
+
+                cuda_halo.tile_probing_launches(sb, CONWAY, plan, xpad, 8, timed)
+                torch.cuda.synchronize()
+                per.append(sum(s.elapsed_time(f) for s, f in spans) / len(spans))
+            out["k13"][f"{mesh_shape[0]}x{mesh_shape[1]}_{name}"] = dict(
+                plan=str(plan), xpad=xpad, alone=alone, in_sequence=spread(per))
+    if args.sweep:
+        out["sweep"] = sweep(cuda_halo, halo, shards, big, boards, CONWAY)
+    out["seconds"] = time.perf_counter() - t0
+    line = json.dumps(out)
+    print(line)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(line + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,143 @@
+"""Count the SASS instructions of the generation loops of K9, K13 and K10.
+
+    python3 tools/sass_loop_count.py [--sass-dir DIR]
+
+Builds the port's ``ext`` and ``probing`` kernels (``ops/cuda_build.py``),
+disassembles them with ``cuobjdump -sass`` (the CUDA toolkit's, beside
+``nvcc``) and prints one JSON object: for the B3/S23 instantiations of K9
+(``ext_reg_kernel``) and K13 (``tile_probing_reg_kernel``), their
+generation loop (the backward branch whose body holds the generation's
+``BAR.SYNC``: one generation of a 32-row run, every chunk stepped), and for
+K10 (``ext_skip_kernel``, which keeps ``window.cuh::advance``, K9's and
+K13's loop before their redesign) its row loop (the innermost backward
+branch whose body reads and writes shared memory: a window row).  Each loop's
+static instruction count, its count per row (the new loop steps 32 rows,
+the old one row an iteration), and its opcodes.  The old loop evaluates
+the rule at run time, each total's term behind a branch on the rule's
+masks; ``branch_blocks`` lists the sizes of the blocks its predicated
+forward branches skip (the terms a rule does not use, and a bounds test),
+so a rule's path through it is shorter than its static count.
+``--sass-dir`` also writes the disassembly there.
+
+Run on a machine with the CUDA toolkit (the card's).
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+from distributed_gol_torch.ops import cuda_build  # noqa: E402
+
+INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]\s+)?([A-Z0-9_.]+)([^;]*);")
+CONWAY = "FixedRuleILj8ELj24E"  # FixedRule<8, 24>: B3/S23's masks
+RUN_ROWS = 32
+
+
+def functions(sass: str) -> dict:
+    """{mangled name: [(address, opcode, operands)]} of a cuobjdump listing;
+    a predicated instruction's opcode carries its predicate ("@P0 BRA")."""
+    out, name = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ")[1].strip()
+            out[name] = []
+        elif name:
+            m = INSTR.search(line)
+            if m:
+                pred = f"{m.group(2).strip()} " if m.group(2) else ""
+                out[name].append((int(m.group(1), 16), pred + m.group(3), m.group(4)))
+    return out
+
+
+def loops(code: list) -> list:
+    """[(start, end)] address ranges of every backward branch's body."""
+    found = []
+    for addr, op, args in code:
+        op = op.split()[-1]
+        if op.startswith("BRA") and not op.startswith("BRA.DIV"):
+            target = int(re.findall(r"0x([0-9a-f]+)", args)[-1], 16)
+            if target <= addr:
+                found.append((target, addr))
+    return found
+
+
+def body(code: list, span: tuple) -> list:
+    return [(a, op, args) for a, op, args in code if span[0] <= a <= span[1]]
+
+
+def summary(code: list, span: tuple, rows: int) -> dict:
+    ins = body(code, span)
+    ops = collections.Counter(op.split()[-1].split(".")[0] for _, op, _ in ins)
+    return dict(loop=[hex(span[0]), hex(span[1])], static=len(ins), rows=rows,
+                per_row=len(ins) / rows, opcodes=dict(ops.most_common()))
+
+
+def generation_loop(code: list) -> tuple:
+    """The first backward branch whose body holds a BAR.SYNC."""
+    for span in sorted(loops(code)):
+        if any(op.split()[-1].startswith("BAR.SYNC") for _, op, _ in body(code, span)):
+            return span
+    raise ValueError("no generation loop")
+
+
+def row_loop(code: list) -> tuple:
+    """The smallest backward branch whose body reads (LDS) and writes (STS)
+    shared memory and holds no barrier: ``advance``'s row loop, not the
+    window's load."""
+    def has(span, prefix):
+        return any(op.split()[-1].startswith(prefix) for _, op, _ in body(code, span))
+
+    spans = [s for s in loops(code) if has(s, "LDS") and has(s, "STS") and not has(s, "BAR")]
+    return min(spans, key=lambda s: s[1] - s[0])
+
+
+def branch_blocks(code: list, span: tuple) -> list:
+    """Sizes of the blocks that predicated forward branches inside a loop
+    body skip."""
+    ins = body(code, span)
+    sizes = []
+    for addr, op, args in ins:
+        if op.startswith("@") and op.split()[-1] == "BRA":
+            target = int(re.findall(r"0x([0-9a-f]+)", args)[-1], 16)
+            if addr < target <= span[1]:
+                sizes.append(sum(1 for a, _, _ in ins if addr < a < target))
+    return sizes
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--sass-dir", default="")
+    args = ap.parse_args()
+    cuda_build.build("ext", "probing")
+    cuobjdump = str(Path(cuda_build.nvcc()).parent / "cuobjdump")
+    out = {}
+    for lib in ("ext", "probing"):
+        sass = subprocess.run([cuobjdump, "-sass", str(cuda_build.library_path(lib))],
+                              capture_output=True, text=True, check=True).stdout
+        if args.sass_dir:
+            Path(args.sass_dir).mkdir(parents=True, exist_ok=True)
+            (Path(args.sass_dir) / f"{lib}.sass").write_text(sass)
+        for name, code in functions(sass).items():
+            if CONWAY in name and "ext_reg_kernel" in name:
+                out["K9"] = summary(code, generation_loop(code), RUN_ROWS)
+            elif CONWAY in name and "tile_probing_reg_kernel" in name:
+                out["K13"] = summary(code, generation_loop(code), RUN_ROWS)
+            elif "ext_skip_kernel" in name:
+                span = row_loop(code)
+                row = summary(code, span, 1)
+                row["branch_blocks"] = branch_blocks(code, span)
+                out["K10"] = row
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -70,18 +70,24 @@ whole board and beside the halo exchange, K10-K12 on a (4, 1) strip
 and K13 and K10 on a (2, 2) tile beside their plain versions, K14 a
 launch over the (4, 1) strips and K15 a launch over the (2, 2) tiles,
 each beside its ppermute tier's launch and K5 on the whole board; K9,
-K13 and their controls K2, K4, K5 and K10 as the median and spread of 5
-event-timed batches, K13 also back to back), and
+K12, K13, K15 and their controls K2, K4, K5, K8, K10 and K14 as the
+median and spread of 5 event-timed batches, K13 also back to back), and
 prints one
 ``{"kernels": [...]}`` line, the card's name and power limit, and last
-``{"ok": true, "device": {...}}``.  The build fails the run if K9 or K13
-(``csrc/regwin.cuh``) spills a register (``-Xptxas -v``), and K9 and K13
-are held at every depth 1-32, under a third rule that takes their
-generic instantiation, and at paths (c), (f), (i) and (j)'s shapes.
+``{"ok": true, "device": {...}}``.  The build fails the run if K9, K12,
+K13 or K15 (``csrc/regwin.cuh``) spills a register (``-Xptxas -v``); K9
+and K13 are held at every depth 1-32, under a third rule that takes their
+generic instantiation, and at paths (c), (f), (i) and (j)'s shapes; K12
+launch by launch also at path (g)'s frontier plan (T = 6 on 16-row
+stripes) and under the third rule, and K15 under it too and against its
+mirror on the card (``cuda_halo.tile_mega_launch_mirror``: its blocks
+and the edge stripes it elides, which the bound of K15's settled launch
+leaves out).
 ``--profile`` adds a
 ``torch.profiler`` breakdown of the two headless 16384² runs, of the
-three viewer paths, of the sharded (4, 1) run and of paths (e) and (h)
-(with the exchange's memcpy time per launch); ``--sweep`` times the adaptive tier over launch
+three viewer paths, of the sharded (4, 1) run and of paths (e), (k) and
+(h) (with the exchange's memcpy time per launch, and each of the port's
+kernels launch by launch: ``launch_times``); ``--sweep`` times the adaptive tier over launch
 depths and stripe heights (the sweep that chose
 ``cuda_adaptive.ADAPTIVE_T`` and ``SKIP_TILE_CAP``).  Every phase raises
 on failure; without a CUDA GPU it exits non-zero before printing any
@@ -92,6 +98,7 @@ It imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import dataclasses
@@ -133,7 +140,8 @@ REG_RULES = (*RULES, DAY_AND_NIGHT)
 # and of their controls (K2, K4, K5, K10).
 BATCHES = 5
 # The kernels of regwin.cuh, which must build without spills.
-REG_KERNELS = ("ext_reg_kernel", "tile_probing_reg_kernel")
+REG_KERNELS = ("ext_reg_kernel", "tile_probing_reg_kernel", "strip_frontier_reg_kernel",
+               "tile_mega_reg_kernel")
 BIG = 16384
 TILED_ODD = (1004, 3072)  # H % 8 != 0 and W/32 % 128 != 0: refused by the TPU gate
 KERNELS = {
@@ -778,12 +786,18 @@ def check_strip_launches(sb, rule: LifeRule, errs: dict, plans, name: str) -> No
     launches of each on the four strips of ``sb`` (both parities), each
     launch's strip and its K12 state (row intervals and computed flags) or
     K11 bitmap recorded and compared, tolerance 0.  K12 runs at the
-    frontier plan ``plans[0]``, K11 at the probing plan ``plans[1]`` and at
-    the frontier plan too (the in-kernel tier's loose tail, path (e))."""
+    frontier plan ``plans[0]`` and at ``plans[2]`` where given (path (g)'s
+    frontier plan: T = 6 on 16-row stripes), K11 at the probing plan
+    ``plans[1]`` where given and at the frontier plan too (the in-kernel
+    tier's loose tail, path (e))."""
     strips = [row[0] for row in sb.shards]
-    for plan, kernel, seq in ((plans[0], "strip_frontier", cuda_halo.frontier_launches),
-                              (plans[1], "strip_probing", cuda_halo.probing_launches),
-                              (plans[0], "strip_probing", cuda_halo.probing_launches)):
+    checks = [(plans[0], "strip_frontier", cuda_halo.frontier_launches)]
+    if len(plans) > 1:
+        checks += [(plans[1], "strip_probing", cuda_halo.probing_launches),
+                   (plans[0], "strip_probing", cuda_halo.probing_launches)]
+    if len(plans) > 2:
+        checks.append((plans[2], "strip_frontier", cuda_halo.frontier_launches))
+    for plan, kernel, seq in checks:
         runs = []
         for fn in (WRAPPERS[kernel], getattr(cuda_halo, f"{kernel}_launch_plain")):
             seen = []
@@ -803,8 +817,9 @@ def check_strip_launches(sb, rule: LifeRule, errs: dict, plans, name: str) -> No
             if err:
                 raise AssertionError(f"{kernel} != plain launch by launch ({plan}) on the {name} "
                                      f"strips under {rule.notation}")
-    log(f"K12, and K11 at both plans, x 3 launches on the 4 {name} strips {rule.notation}: "
-        f"identical strips, intervals and bitmaps at every launch")
+    log(f"{', '.join(f'{WRAPPERS[k].__name__} at {p}' for p, k, _ in checks)} x 3 launches on "
+        f"the 4 {name} strips {rule.notation}: identical strips, intervals and bitmaps at every "
+        "launch")
 
 
 @contextlib.contextmanager
@@ -852,8 +867,12 @@ def check_strips(device, errs: dict, boards: dict) -> dict:
     strip = (BIG // MESH_E[0], BIG // 32)
     fplan = cuda_halo.adaptive_strip_plan(strip, 10**6)
     pplan = cuda_halo.adaptive_strip_plan(strip, 10**6, PROBE_CAP)
-    if not fplan.frontier or pplan.frontier:
-        raise AssertionError(f"strip plans {fplan}, {pplan}: not a frontier and a probing plan")
+    # Path (g)'s dispatches of 6 to 11 turns: T = 6 fits a frontier form on
+    # its 16-row stripes.
+    gplan = cuda_halo.adaptive_strip_plan(strip, 6, PROBE_CAP)
+    if not fplan.frontier or pplan.frontier or not gplan.frontier:
+        raise AssertionError(f"strip plans {fplan}, {pplan}, {gplan}: not a frontier, a probing "
+                             "and a frontier plan")
     cases = {name: sharding.shard(p) for name, p in (
         ("fresh", boards["fresh"]), ("settled", boards["settled"]),
         ("seam", seam_gliders(boards["settled"])))}
@@ -894,7 +913,7 @@ def check_strips(device, errs: dict, boards: dict) -> dict:
                 log(f"{tags}+K10+K9 {MESH_E} {BIG}^2 x {turns} ({plan}) "
                     f"{name} {rule.notation}: identical, skipped {int(sk)} of {total}, "
                     f"active stripes {int((act > 0).sum())}")
-            check_strip_launches(sb, rule, errs, (fplan, pplan), name)
+            check_strip_launches(sb, rule, errs, (fplan, pplan, gplan), name)
             for t in (6, 12, 18, 24, 30):
                 for e in (e for row in halo.extend(sb, t, 0) for e in row):
                     got = cuda_halo.ext_skip_launch(e, rule, t, t, 0)
@@ -903,6 +922,13 @@ def check_strips(device, errs: dict, boards: dict) -> dict:
                     if not torch.equal(got, want):
                         raise AssertionError(f"K10 != plain at {t} turns, {name}, {rule.notation}")
             log(f"K10 x {{6, 12, 18, 24, 30}} on the 4 {name} strips {rule.notation}: identical")
+    # K12's generic instantiation (Day & Night), launch by launch.
+    cuda_halo.strip_frontier_launch.rules.clear()
+    for name, sb in cases.items():
+        check_strip_launches(sb, DAY_AND_NIGHT, errs, (fplan,), name)
+    if not cuda_halo.strip_frontier_launch.rules["generic"]:
+        raise AssertionError(f"K12's generic instantiation did not run: "
+                             f"{dict(cuda_halo.strip_frontier_launch.rules)}")
     return cases
 
 
@@ -932,8 +958,9 @@ def check_mega_chunks(key: str, chunk, shards, plan, runs, errs: dict, where: st
     chunk function) against its plain version, tolerance 0, on ``shards``
     (``where`` names them in the log): for each (rule, n) of ``runs`` the
     n-launch chunk on the card (its launcher once, one wrapper call a
-    launch, exactly n launches counted) against the plain chunk on the
-    card, in shards, final state, skip counts and activity; then three
+    launch, exactly n launches counted, K15's in the rule's instantiation)
+    against the plain chunk on the card, in shards, final state, skip
+    counts and activity; then three
     launches against the plain chunk launch by launch (shards and the
     whole state after each, through ``each``)."""
     tag = {"strip_mega": "K14", "tile_mega": "K15"}[key]
@@ -943,6 +970,9 @@ def check_mega_chunks(key: str, chunk, shards, plan, runs, errs: dict, where: st
         torch.cuda.synchronize()
         if WRAPPERS[key].launches != n:
             raise AssertionError(f"a {n}-launch chunk launched {tag} {WRAPPERS[key].launches} times")
+        rules = getattr(WRAPPERS[key], "rules", None)  # K15's instantiations
+        if rules is not None and rules[cuda_halo.REG_RULES[cuda_halo.reg_rule(rule)[2]]] != n:
+            raise AssertionError(f"{tag} under {rule.notation} ran {dict(rules)}")
         want = chunk(shards, rule, plan, n, plain=True)
         err = mega_chunks_equal((flat(got[0]), got[1]), (flat(want[0]), want[1]), n)
         errs[key] = max(errs[key], err)
@@ -1190,9 +1220,12 @@ def check_tile_mega(errs: dict, boards: dict) -> dict:
     ``TILE_MEGA_MESHES`` on virtual meshes of the card ((2, 2); (2, 4);
     (1, 2), whose N and S neighbours are the tile itself and whose W and E
     neighbours are one tile), through ``check_mega_chunks``: chunks of 8
-    launches under both rules, and on (2, 2) of 64 under both, then
-    launch by launch.  Returns the (2, 2) tiles by board (phase 4 times
-    them)."""
+    launches under both rules and Day & Night (K15's generic
+    instantiation, which must have run), and on (2, 2) of 64 under both,
+    then launch by launch.  On (2, 2) the 8-launch chunk must also equal
+    K15's mirror run on the card (its blocks and its elision of edge
+    stripes replayed in PyTorch), whose elided stripes are logged.
+    Returns the (2, 2) tiles by board (phase 4 times them)."""
     cases = {}
     for mesh_shape in TILE_MEGA_MESHES:
         ny, nx = mesh_shape
@@ -1200,15 +1233,24 @@ def check_tile_mega(errs: dict, boards: dict) -> dict:
         plan = cuda_halo.adaptive_tile_plan(tile, 10**6)[0]
         if not plan.frontier:
             raise AssertionError(f"the {mesh_shape} tiles have no frontier plan ({plan})")
-        runs = [(CONWAY, 8), (HIGHLIFE, 8)]
+        runs = [(CONWAY, 8), (HIGHLIFE, 8), (DAY_AND_NIGHT, 8)]
         if mesh_shape == MESH_H:
             runs += [(CONWAY, 64), (HIGHLIFE, 64)]
         for name, p in boards.items():
             tiles = [[t.contiguous() for t in r.chunk(nx, dim=1)] for r in p.chunk(ny)]
             check_mega_chunks("tile_mega", cuda_halo.tile_mega_launches, tiles, plan, runs,
                               errs, f"the {mesh_shape} {name} tiles")
-            if mesh_shape == MESH_H:
-                cases[name] = tiles
+            if mesh_shape != MESH_H:
+                continue
+            cases[name] = tiles
+            got = cuda_halo.tile_mega_launches(tiles, CONWAY, plan, 8)
+            out, st, elided = mirror_chunk(tiles, plan, 8)
+            err = mega_chunks_equal((flat(got[0]), got[1]), (flat(out), st), 8)
+            errs["tile_mega"] = max(errs["tile_mega"], err)
+            if err:
+                raise AssertionError(f"K15 != its mirror on the {mesh_shape} {name} tiles")
+            log(f"K15 {mesh_shape} {name}: the 8-launch chunk equals its mirror on the card, "
+                f"which elided {elided} edge stripes of {8 * ny * nx * 2}")
     return cases
 
 
@@ -1873,18 +1915,23 @@ def profile_run(turns: int, side: int = BIG, devices=None, **viewer) -> dict:
         if dev_us > 0:
             rows.append((dev_us, a.key, a.count))
     rows.sort(reverse=True)
+    kernel_times = launch_times(prof, sink.loop_seconds())
     busy_s = sum(r[0] for r in rows) / 1e6
-    # The port's own kernels (csrc/, all in an anonymous namespace) run
-    # only inside dispatches, so their device time is loop time.
-    kernel_s = sum(us for us, k, _ in rows if k.startswith("(anonymous namespace)::")) / 1e6
+    # The port's own kernels (csrc/, all in an anonymous namespace; a
+    # template's name starts with its return type) run only inside
+    # dispatches, so their device time is loop time.
+    kernel_s = sum(us for us, k, _ in rows if "(anonymous namespace)::" in k
+                   and "at::native" not in k) / 1e6
     out = dict(
         side=side, turns=turns, viewer={k: v for k, v in viewer.items() if k != "mesh_shape"},
         wall_s=wall, soup_host_s=soup_s, dispatch_loop_s=sink.loop_seconds(),
         device_busy_s=busy_s, device_idle_share=1 - busy_s / wall,
         loop_idle_share_at_least=1 - busy_s / sink.loop_seconds(),
         kernel_device_s=kernel_s, loop_busy_share_at_least=kernel_s / sink.loop_seconds(),
-        top_device=[dict(name=k[:80], device_ms=us / 1e3, calls=n, ms_per_call=us / 1e3 / n)
+        top_device=[dict(name=k[:80], device_ms=us / 1e3, calls=n, ms_per_call=us / 1e3 / n,
+                         loop_share=us / 1e6 / sink.loop_seconds())
                     for us, k, n in rows[:12]],
+        port_kernels=kernel_times,
     )
     if devices:
         dtod = [(us, n) for us, k, n in rows if k.startswith("Memcpy DtoD")]
@@ -1896,7 +1943,38 @@ def profile_run(turns: int, side: int = BIG, devices=None, **viewer) -> dict:
         out.update(mesh_shape=list(viewer["mesh_shape"]), launches=halo_launches,
                    sharded_launches=launches, exchange_copies=sum(n for _, n in dtod),
                    exchange_device_ms=exchange_ms,
-                   exchange_device_ms_per_launch=exchange_ms / launches if total else None)
+                   exchange_device_ms_per_launch=exchange_ms / launches if total else None,
+                   loop_ms_per_launch=sink.loop_seconds() * 1e3 / launches if total else None)
+    return out
+
+
+# Launches of a traced run whose device times stand for a fresh board (the
+# run's first) and a settled one (its last, before the cycle check
+# fast-forwards).
+FIRST_LAUNCHES, LAST_LAUNCHES = 8, 256
+
+
+def launch_times(prof, loop_s: float) -> dict:
+    """Each of the port's kernels (``csrc/``, anonymous namespace) in a
+    trace, launch by launch: its launches, device ms in all and their
+    share of the dispatch loop's ``loop_s``, the median, 10th and 90th
+    percentile and largest device ms a launch, and the mean of its first
+    ``FIRST_LAUNCHES`` (the fresh soup) and last ``LAST_LAUNCHES`` launches
+    (settled), in start order."""
+    times = collections.defaultdict(list)
+    for e in prof.events():
+        if ("CUDA" in str(e.device_type) and "(anonymous namespace)::" in e.name
+                and "at::native" not in e.name):
+            times[e.name.split("(anonymous namespace)::")[1].split("<")[0].split("(")[0]].append(
+                (e.time_range.start, e.time_range.elapsed_us() / 1e3))
+    out = {}
+    for name, seq in times.items():
+        ms = [t for _, t in sorted(seq)]
+        q = statistics.quantiles(ms, n=10) if len(ms) > 1 else ms * 9
+        out[name] = dict(launches=len(ms), device_ms=sum(ms), loop_share=sum(ms) / 1e3 / loop_s,
+                         median_ms=statistics.median(ms), p10_ms=q[0], p90_ms=q[-1],
+                         max_ms=max(ms), first_ms=statistics.mean(ms[:FIRST_LAUNCHES]),
+                         last_ms=statistics.mean(ms[-LAST_LAUNCHES:]))
     return out
 
 
@@ -1969,8 +2047,9 @@ def time_batched(k8_stacks: dict, int_rate: float) -> dict:
     launches of the same boards (what the unbatched pod b launches per
     superstep), its plain version, and its bound over all 16 boards.  K8:
     one chunk of 8 launches of 4 x 4096² (a superstep of pod c) on the
-    fresh and the settled stack, per launch, with the bound of the work
-    that chunk's data needs (the stripes it computed, T + 6 generations
+    fresh and the settled stack, per launch (the median and spread of
+    ``BATCHES`` batches of 3 chunks), with the bound of the work that
+    chunk's data needs (the stripes it computed, T + 6 generations
     each)."""
     nt, side, _, step = POD_K7
     v = packed.pack_vertical(soup_stack(nt, side, 61, torch.device("cuda", 0))).contiguous()
@@ -1995,8 +2074,10 @@ def time_batched(k8_stacks: dict, int_rate: float) -> dict:
         computed = (8 * nb * grid - int(sk.sum())) / 8
         b_ms, b_by = work_bound_ms(computed * stripe_words, computed * stripe_words,
                                    plan.t + 6, CONWAY, int_rate)
+        spread_ms = per_launch(cuda_ms_spread(
+            lambda: cuda_adaptive.frontier_superstep_batched(st, CONWAY, plan, 8), 3), 8)
         rows[name] = dict(
-            ms=cuda_ms(lambda: cuda_adaptive.frontier_superstep_batched(st, CONWAY, plan, 8), 3) / 8,
+            ms=spread_ms["median"], ms_spread=spread_ms,
             plain_ms=cuda_ms(lambda: cuda_adaptive.frontier_superstep_batched_mirror(
                 st, CONWAY, plan, 8), 1) / 8,
             computed_stripes_per_launch=computed, bound_ms=b_ms, bound_by=b_by)
@@ -2080,7 +2161,8 @@ def time_strips(cases: dict, int_rate: float) -> dict:
     """Per-launch times of K10, K11 and K12 on the (4, 1) strips of the
     16384² soup, fresh and settled, each call between CUDA events inside
     the strip tier's own launch sequence (so every launch sees the
-    exchange's inputs), beside the plain versions the same way, with each
+    exchange's inputs; the median and spread of ``BATCHES`` sequences),
+    beside the plain versions the same way, with each
     launch's bound from its own skip telemetry: K12 over 64 launches a
     strip and K11 over 8 from a zero bitmap (each moves and computes only
     the stripes it computes, T + 6 and T generations), K11 at the probing
@@ -2107,16 +2189,20 @@ def time_strips(cases: dict, int_rate: float) -> dict:
                 ("strip_probing", "strip_probing", pplan, cuda_halo.probing_launches, 8, pplan.t),
                 ("path_e_tail", "strip_probing", fplan, cuda_halo.probing_launches, 8, fplan.t)):
             seq(strips, CONWAY, plan, 2)  # warm-up
-            spans, plain = [], []
-            _, sk, _ = seq(strips, CONWAY, plan, n, timed(WRAPPERS[kernel], spans))
+            per, plain = [], []
+            for _ in range(BATCHES):
+                spans = []
+                _, sk, _ = seq(strips, CONWAY, plan, n, timed(WRAPPERS[kernel], spans))
+                per.append(span_ms(spans))
             seq(strips, CONWAY, plan, 2, timed(getattr(cuda_halo, f"{kernel}_launch_plain"), plain))
             grid = plan.grid(strip[0])
             computed = (n * ny * grid - int(sk)) / (n * ny)
             words = computed * plan.stripe_h * strip[1]
             b_ms, b_by = work_bound_ms(words, words, gens, CONWAY, int_rate)
-            row[key] = dict(ms=span_ms(spans), plain_ms=span_ms(plain), plan=str(plan),
-                               computed_stripes_per_launch=computed, stripes=grid,
-                               bound_ms=b_ms, bound_by=b_by)
+            row[key] = dict(ms=statistics.median(per), ms_spread=spread(per),
+                            plain_ms=span_ms(plain), plan=str(plan),
+                            computed_stripes_per_launch=computed, stripes=grid,
+                            bound_ms=b_ms, bound_by=b_by)
         t = 18
         e = halo.extend(sb, t, 0)[0][0]
         share, stable = k10_share(e, strip, t, 0)
@@ -2155,7 +2241,8 @@ def time_strips(cases: dict, int_rate: float) -> dict:
 
 def time_strip_mega(cases: dict, int_rate: float) -> dict:
     """K14 per launch on the (4, 1) strips of the 16384² soup, fresh and
-    settled: one 64-launch chunk on the card (its pointer tables, then one
+    settled (the median and spread of ``BATCHES`` batches of 3 chunks):
+    one 64-launch chunk on the card (its pointer tables, then one
     call a launch) between CUDA events, over 64, beside, in the same call
     and the same way, the ppermute tier's 64 launches (four K12 launches a
     mesh launch, with the row and interval exchange between launches:
@@ -2174,8 +2261,10 @@ def time_strip_mega(cases: dict, int_rate: float) -> dict:
         computed = (64 * ny * grid - int(st.skipped.sum())) / 64
         words = computed * plan.stripe_h * strip[1]
         b_ms, b_by = work_bound_ms(words, words, plan.t + 6, CONWAY, int_rate)
+        spread_ms = per_launch(cuda_ms_spread(
+            lambda: cuda_halo.strip_mega_launches(strips, CONWAY, plan, 64), 3), 64)
         rows[name] = dict(
-            ms=cuda_ms(lambda: cuda_halo.strip_mega_launches(strips, CONWAY, plan, 64), 3) / 64,
+            ms=spread_ms["median"], ms_spread=spread_ms,
             plain_ms=cuda_ms(lambda: cuda_halo.strip_mega_launches(
                 strips, CONWAY, plan, 2, plain=True), 1) / 2,
             k12_mesh_launch_ms=cuda_ms(
@@ -2195,18 +2284,34 @@ def time_strip_mega(cases: dict, int_rate: float) -> dict:
                 extra=dict(board="fresh", shape=[ny, *strip], per_board=rows))
 
 
+def mirror_chunk(tiles, plan, n: int, rule: LifeRule = CONWAY):
+    """An ``n``-launch K15 chunk on ``tiles`` through K15's mirror
+    (``cuda_halo.tile_mega_launch_mirror``, which replays the kernel's
+    blocks and decisions in PyTorch, here on the card) in place of the
+    plain version: (tiles, state, the edge stripes it elided)."""
+    saved = cuda_halo.tile_mega_launch_plain
+    before = cuda_halo.tile_mega_launch_mirror.elided
+    cuda_halo.tile_mega_launch_plain = cuda_halo.tile_mega_launch_mirror
+    try:
+        out, st = cuda_halo.tile_mega_launches(tiles, rule, plan, n, plain=True)
+    finally:
+        cuda_halo.tile_mega_launch_plain = saved
+    return out, st, cuda_halo.tile_mega_launch_mirror.elided - before
+
+
 def time_tile_mega(cases: dict, sharded: dict, int_rate: float) -> dict:
     """K15 per launch over the four (2, 2) tiles of the 16384² soup, fresh
     and settled: one 64-launch chunk on the card (its pointer tables, then
-    one call a launch) between CUDA events, over 64, beside, in the same
+    one call a launch) between CUDA events, over 64, the median and spread
+    of ``BATCHES`` batches of 3 chunks, beside, in the same
     call and the same way, the ppermute tier's 64 launches (four K13
     launches a mesh launch from a zero bitmap, with the exchange and the
     3x3 elision between launches: ``tile_probing_launches`` on the same
     tiles, ``sharded``), one K5 chunk of 64 on the whole board at the tile
     plan's stripes, and the plain chunk over 2 launches.  The bound is the
-    work of the stripes K15 computed (its own skip count, the forced edge
-    stripes included): T + 6 generations of their words, each read and
-    written once."""
+    work of the stripes K15 computed (its own skip count less the edge
+    stripes it elided, which the mirror counts: ``mirror_chunk``): T + 6
+    generations of their words, each read and written once."""
     ny, nx = MESH_H
     tile = (BIG // ny, BIG // 32 // nx)
     plan, xpad = cuda_halo.adaptive_tile_plan(tile, 10**6)
@@ -2216,11 +2321,15 @@ def time_tile_mega(cases: dict, sharded: dict, int_rate: float) -> dict:
         tiles, sb = cases[name], sharded[name]
         whole = torch.cat([torch.cat(r, dim=1) for r in tiles])
         _, st = cuda_halo.tile_mega_launches(tiles, CONWAY, plan, 64)
-        computed = (64 * cells - int(st.skipped.sum())) / 64
+        elided = mirror_chunk(tiles, plan, 64)[2]
+        computed = (64 * cells - int(st.skipped.sum()) - elided) / 64
         words = computed * plan.stripe_h * tile[1]
         b_ms, b_by = work_bound_ms(words, words, plan.t + 6, CONWAY, int_rate)
+        spread_ms = per_launch(cuda_ms_spread(
+            lambda: cuda_halo.tile_mega_launches(tiles, CONWAY, plan, 64), 3), 64)
         rows[name] = dict(
-            ms=cuda_ms(lambda: cuda_halo.tile_mega_launches(tiles, CONWAY, plan, 64), 3) / 64,
+            ms=spread_ms["median"], ms_spread=spread_ms,
+            elided_edge_stripes_per_launch=elided / 64,
             plain_ms=cuda_ms(lambda: cuda_halo.tile_mega_launches(
                 tiles, CONWAY, plan, 2, plain=True), 1) / 2,
             k13_mesh_launch_ms=cuda_ms(
@@ -2231,9 +2340,10 @@ def time_tile_mega(cases: dict, sharded: dict, int_rate: float) -> dict:
             bound_ms=b_ms, bound_by=b_by)
         r = rows[name]
         log(f"K15 {name} tiles of {MESH_H}, {plan}: {r['ms']:.4f} ms a launch over all "
-            f"{ny * nx} tiles (plain {r['plain_ms']:.3f}, bound {b_ms:.5f} by {b_by}, "
-            f"{computed:.2f} of {cells} stripes computed); the ppermute tier (4 K13 and the "
-            f"exchange) {r['k13_mesh_launch_ms']:.4f} ms; K5 on the whole board "
+            f"{ny * nx} tiles ({spread_ms['min']:.4f}-{spread_ms['max']:.4f}; plain "
+            f"{r['plain_ms']:.3f}, bound {b_ms:.5f} by {b_by}, {computed:.2f} of {cells} "
+            f"stripes computed, {elided / 64:.2f} edge stripes elided); the ppermute tier (4 K13 "
+            f"and the exchange) {r['k13_mesh_launch_ms']:.4f} ms; K5 on the whole board "
             f"{r['k5_whole_board_ms']:.4f} ms")
     fresh = rows["fresh"]
     return dict(ms=fresh["ms"], plain_ms=fresh["plain_ms"],
@@ -2485,8 +2595,9 @@ def main() -> int:
         for line in cuda_build.build_log(k).splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  {k}: {line.strip()}")
-    reg_build = {k: reg_build_report(cuda_build.build_log(k)) for k in ("ext", "probing")}
-    log(f"K9 and K13 (regwin.cuh) build without spills: "
+    reg_build = {k: reg_build_report(cuda_build.build_log(k))
+                 for k in ("ext", "probing", "frontier")}
+    log(f"K9, K12, K13 and K15 (regwin.cuh) build without spills: "
         f"{ {k: [r['registers'] for r in v.values()] for k, v in reg_build.items()} } registers")
     plan = cuda_packed.tiled_plan((BIG, BIG // 32), 10**6)
     log(f"dynamic shared memory: resident {512 // 32 * 512 * 4} B per block at 512^2 "
@@ -2613,6 +2724,8 @@ def main() -> int:
     timings["tile_probing"] = tiles["tile_probing"]
     timings["ext"]["extra"]["build"] = reg_build["ext"]
     timings["tile_probing"]["extra"]["build"] = reg_build["probing"]
+    for k in ("strip_frontier", "tile_mega"):
+        timings[k]["extra"]["build"] = {n: r for n, r in reg_build["frontier"].items() if k in n}
     timings["ext_skip"]["extra"]["tile_2d"] = tiles["ext_skip_2d"]
     witness = k6_witnesses(soups[BIG], wrap_free)
     e2e[f"viewer_turn_{BIG}"] = time_viewer_turn(soups[BIG])
@@ -2652,6 +2765,9 @@ def main() -> int:
                                                  mesh_shape=MESH_A), "card": card}))
         print(json.dumps({"profile": profile_run(LONG_TURNS, BIG, virtual(MESH_E, device),
                                                  mesh_shape=MESH_E), "card": card}))
+        with dgol_ici("0"):  # path (k): K12 with the exchange between launches
+            print(json.dumps({"profile": profile_run(LONG_TURNS, BIG, virtual(MESH_E, device),
+                                                     mesh_shape=MESH_E), "card": card}))
         print(json.dumps({"profile": profile_run(LONG_TURNS, BIG, virtual(MESH_H, device),
                                                  mesh_shape=MESH_H), "card": card}))
     log(f"chip_smoke: {time.perf_counter() - started:.1f} s in all, kernel builds included")

@@ -66,10 +66,10 @@
 // inside the strip); a window's rows outside the strip come from the
 // north and south buffers (window.cuh::StripSource); the first launch of
 // a dispatch starts from full intervals, as the JAX make_superstep does.
-// The decision (decide), the tile's compute and measure (frontier_tile)
-// and the finalize are K5's.  Like K5 it keeps no column interval: the JAX
-// kernel's (cl, ch) only narrows its column tier, and neither the skip
-// decision nor the activity reads it.
+// The decision (decide) and the finalize are K5's; the window is
+// register-resident (regwin.cuh, below).  Like K5 it keeps no column
+// interval: the JAX kernel's (cl, ch) only narrows its column tier, and
+// neither the skip decision nor the activity reads it.
 //
 // K14: the strip megakernel (gol_strip_mega_launch).  Replaces
 // distributed_gol_tpu/parallel/pallas_halo.py::_kernel_frontier_mega_strip,
@@ -103,13 +103,37 @@
 // whatever it needs past its tile's edges straight from the neighbour
 // tiles' read buffers, corners included (window.cuh::MeshTileSource), and
 // a stripe decides from nine tracked states in the shared state array
-// (TileIntervals: its own stripes i - 1..i + 1 clamped, and those of the W
-// and E tiles).  As in the JAX kernel, no y-neighbour state is read: a
-// tile's first and last stripes are forced to compute every launch.  The
-// arrays gain the tile axis as K14's gain the strip axis, so K8's finalize
-// serves unchanged.  What bounds it is K5's work; on settled boards the
-// forced edge stripes set its floor: one block's whole window a launch.
+// (TorusTileIntervals: its own stripes i - 1..i + 1 and those of the W and
+// E tiles).  The arrays gain the tile axis as K14's gain the strip axis,
+// so K8's finalize serves unchanged.
+//
+// The JAX kernel forces a tile's first and last stripes to compute every
+// launch, since its y-neighbours' interval state never crosses the wire.
+// Here that state lies in the same array, so an edge stripe also decides:
+// its neighbours past the tile's edge are the N (or S) tile row's edge
+// stripes, moved into its row frame, which makes its nine the 3x3-tile
+// neighbourhood.  An edge stripe that hits computes with the maximal
+// measure region, as the JAX kernel's forced one; one that does not is
+// proved stable, so its gen-T and gen-(T + 6) rows equal its input and the
+// JAX kernel's measure of it is empty: it computes nothing, writes empty
+// intervals (its rows stay unflagged) and, to keep the skip count, the
+// activity and the state the JAX kernel's, counts as computed (it copies
+// its centre as a stripe that computed last launch must).  Launch 0 of a
+// chunk still forces every stripe.
+//
+// K12 and K15 step their windows in registers (regwin.cuh's frontier
+// window): a block is `warps` warps over a tile of `tile_h` rows of one
+// stripe (a divisor of it) with T + 6 rows a side, and one 32-word column
+// group whose middle 30 words are its centre (T + 6 <= 30 < 32: one border
+// word a side holds the lanes' wrap error).  It steps T generations,
+// stores its gen-T centre and keeps it in shared memory, steps 6 more and
+// flags its measure rows; each run steps only the chunks of the light cone
+// of generation T + 6 on the centre.  The plan
+// (ops/cuda_adaptive.py::frontier_reg_plan) picks the block height.  What
+// bounds it is K5's work, and on settled boards the blocks of the few
+// stripes that hit.
 
+#include "regwin.cuh"
 #include "window.cuh"
 
 namespace {
@@ -179,26 +203,40 @@ struct MeshIntervals {
 };
 
 // Stripe i of tile (dy, dx) of a 2-D mesh whose tiles share one state
-// array (K15): its own stripes i - 1, i and i + 1, clamped to
-// [0, grid - 1] (not wrapped: the tile's edge stripes always compute), and
-// the same three stripes of the W and E tiles (modulo nx), whose row
-// frames are this tile's, so nothing moves (_kernel_frontier_mega_2d).
-struct TileIntervals {
+// array (K15): its own stripes i - 1, i and i + 1 and the same three of
+// the W and E tiles (modulo nx), whose row frames are this tile's; a
+// neighbour past the tile's edge is the last stripe of the tile row above
+// or the first of the row below (modulo ny), moved by -/+ h into this
+// tile's frame as MeshIntervals moves a strip's.  An interior stripe's
+// nine are _kernel_frontier_mega_2d's; an edge stripe's are its 3x3-tile
+// neighbourhood.
+struct TorusTileIntervals {
     static constexpr int kSize = 9;
     const int* prev;  // the previous parity's state of every tile
-    int total, grid, nx, dy, dx, i;
+    int total, grid, ny, nx, h, dy, dx, i;
     __device__ void get(int n, int k, int& lo, int& hi) const {
-        const int t = dy * nx + wrap(dx + n / 3 - 1, nx);  // W, own, E
-        const int j = min(max(i + n % 3 - 1, 0), grid - 1);
-        lo = prev[(2 * k) * total + t * grid + j];
-        hi = prev[(2 * k + 1) * total + t * grid + j];
+        const int tx = wrap(dx + n / 3 - 1, nx);  // W, own, E
+        int j = i + n % 3 - 1;
+        int ty = dy;
+        int off = 0;
+        if (j < 0) {
+            j = grid - 1;
+            ty = wrap(dy - 1, ny);
+            off = -h;
+        } else if (j >= grid) {
+            j = 0;
+            ty = wrap(dy + 1, ny);
+            off = h;
+        }
+        const int at = (ty * nx + tx) * grid + j;
+        lo = prev[(2 * k) * total + at] + off;
+        hi = prev[(2 * k + 1) * total + at] + off;
     }
 };
 
 // _hit_union for stripe rows [c_lo, c_hi] over the neighbourhood `iv`, by
 // one thread: `decision` gets hit and the measure rows [lo, hi]; `first`
-// forces hit and the maximal union (launch 0 of a chunk, and K15's edge
-// stripes).
+// forces hit and the maximal union (launch 0 of a chunk).
 template <class Intervals>
 __device__ void decide(int* decision, const Intervals& iv, int c_lo, int c_hi, int t6,
                        int pad_f, int first) {
@@ -313,36 +351,99 @@ frontier_kernel(const uint32_t* __restrict__ rd, uint32_t* __restrict__ wr,
                   xpad, halo, y0, x0, born, surv);
 }
 
-// K12: one frontier launch on one strip of a row mesh.  `prev_ext` holds
-// the previous launch's row intervals of this strip's stripes with the
-// neighbour strips' edge stripes at both ends (int32[4][grid + 2], in
-// this strip's row frame), `prev_computed` its computed flags
-// (int32[grid]); `cur` (int32[5][grid]) gets this launch's.  The window's
-// rows outside the strip come from `north` and `south` (n rows each).
-__global__ void __launch_bounds__(kThreads)
-strip_frontier_kernel(const uint32_t* __restrict__ local, const uint32_t* __restrict__ north,
-                      const uint32_t* __restrict__ south, uint32_t* __restrict__ wr,
-                      const int* __restrict__ prev_ext, const int* __restrict__ prev_computed,
-                      int* __restrict__ cur, int* __restrict__ rowflag, int* __restrict__ skipped,
-                      int h, int wp, int n, int turns, int stripe_h, int tile_h, int tile_w,
-                      int xpad, int halo, int pad_f, uint32_t born, uint32_t surv) {
-    extern __shared__ uint32_t smem[];
-    __shared__ int decision[3];  // hit, measure rows lo, hi
+// A frontier block on the register-resident window after its stripe's
+// decision (decision[0]: 0 skip, 1 compute, 2 an edge stripe proved
+// stable, K15: counted computed, not computed).  The leader (one thread
+// of the stripe) keeps the skip count and the computed flag `*computed`;
+// a block that does not compute copies its centre from `rd` to `wr` if
+// the stripe computed last launch.  Whether the block computes.
+__device__ bool reg_begin(const int* decision, bool leader, int* skipped, int* computed,
+                          int computed_before, const uint32_t* __restrict__ rd,
+                          uint32_t* __restrict__ wr, int wp, int y0, int x0, int tile_h) {
+    const int d = decision[0];
+    if (leader) {
+        if (d == 0) atomicAdd(skipped, 1);
+        *computed = d != 0;
+    }
+    if (d == 1) return true;
+    if (computed_before) reg::copy_centre(rd, wr, wp, y0, x0, tile_h);
+    return false;
+}
+
+// The window's rows and generations: a tile of `tile_h` rows with
+// T + 6 rows a side, stepped T + 6 generations, its cone every row but g
+// a side at generation g.
+__device__ __forceinline__ reg::Run reg_run(int turns, int tile_h) {
+    const int halo = turns + kSkipPeriod;
+    return reg::Run::make(tile_h + 2 * halo, halo, halo, 0);
+}
+
+// The block's T + 6 generations after its load: T, the gen-T centre kept
+// (reg::keep) and stored by `store(s)`, 6 more, then `measure(s)`.  The
+// two callbacks find the block's place anew (reg::block_x, ...), so that
+// nothing computed before the loops holds a register through them.
+template <class Rule, class Store, class Measure>
+__device__ __forceinline__ void reg_steps(uint32_t (&s)[reg::kRun], reg::Edges& edges,
+                                          uint32_t* kept, const reg::Run& run, int turns,
+                                          const Rule& rule, const Store& store,
+                                          const Measure& measure) {
+    reg::advance(s, edges, run, 1, turns, rule);
+    reg::keep(s, run, kept);
+    store(s);
+    reg::advance(s, edges, run, turns + 1, turns + kSkipPeriod, rule);
+    measure(s);
+}
+
+// K12: one frontier launch on one strip of a row mesh, one block per
+// (row tile of a stripe, column group of 30 words).  `prev_ext` holds the
+// previous launch's row intervals of this strip's stripes with the
+// neighbour strips' edge stripes at both ends (int32[4][grid + 2], in this
+// strip's row frame), `prev_computed` its computed flags (int32[grid]);
+// `cur` (int32[5][grid]) gets this launch's.  The window's rows outside
+// the strip come from `north` and `south` (n rows each).
+template <class Rule>
+__global__ void __launch_bounds__(reg::kMaxThreads, reg::FrontierBlocks<Rule>::value)
+strip_frontier_reg_kernel(const uint32_t* __restrict__ local, const uint32_t* __restrict__ north,
+                          const uint32_t* __restrict__ south, uint32_t* __restrict__ wr,
+                          const int* __restrict__ prev_ext, const int* __restrict__ prev_computed,
+                          int* __restrict__ cur, int* __restrict__ rowflag,
+                          int* __restrict__ skipped, int h, int wp, int n, int turns,
+                          int stripe_h, int tile_h, int pad_f, Rule rule) {
+    __shared__ reg::Edges edges;
+    __shared__ int decision[3];  // 0 skip / 1 compute, measure rows lo, hi
+    extern __shared__ uint32_t kept[];  // the window at gen T (reg::keep)
     const int grid = h / stripe_h;
     const int y0 = blockIdx.y * tile_h;
-    const int x0 = blockIdx.x * tile_w;
+    const int x0 = blockIdx.x * (reg::kLanes - 2);
     const int i = y0 / stripe_h;
     const int c_lo = i * stripe_h;
-    const bool leader = thread_id() == 0 && blockIdx.x == 0 && y0 == c_lo;
-
-    if (thread_id() == 0) {
+    const bool lead = threadIdx.x == 0 && threadIdx.y == 0;
+    if (lead) {
         decide(decision, StripIntervals{prev_ext, grid + 2, i}, c_lo, c_lo + stripe_h - 1,
                turns + kSkipPeriod, pad_f, 0);
     }
     __syncthreads();
-    frontier_tile(smem, decision, StripSource{local, north, south, h, wp, n}, local, wr, rowflag,
-                  skipped, &cur[4 * grid + i], prev_computed[i], leader, h, wp, turns, tile_h,
-                  tile_w, xpad, halo, y0, x0, born, surv);
+    if (!reg_begin(decision, lead && blockIdx.x == 0 && y0 == c_lo, skipped, &cur[4 * grid + i],
+                   prev_computed[i], local, wr, wp, y0, x0, tile_h)) {
+        return;
+    }
+    const reg::Run run = reg_run(turns, tile_h);
+    uint32_t s[reg::kRun];
+    const reg::Column col =
+        reg::column(StripSource{local, north, south, h, wp, n}, x0 - 1 + run.lane);
+    const int top = y0 - run.halo;
+    reg::load(s, run, [&](int r) { return col(top + r); });
+    const int lanes = reg::kLanes - 2;
+    reg_steps(
+        s, edges, kept, run, turns, rule,
+        [&](const uint32_t(&v)[reg::kRun]) {
+            reg::store_centre(v, run, wr, wp, reg::block_y() * tile_h, reg::block_x() * lanes,
+                              tile_h);
+        },
+        [&](const uint32_t(&v)[reg::kRun]) {
+            reg::flag_changed(v, run, kept, rowflag, wp, reg::block_y() * tile_h,
+                              reg::block_x() * lanes, tile_h, decision[1], decision[2]);
+        });
 }
 
 // K14: one launch over every strip of a row mesh, blockIdx.z the strip.
@@ -386,47 +487,74 @@ strip_mega_kernel(const uint32_t* const* __restrict__ rd_tab, uint32_t* const* _
 }
 
 // K15: one launch over every tile of a 2-D mesh, blockIdx.z = dy * nx +
-// dx.  `rd_tab` and `wr_tab` (ny * nx entries each, row-major) give the
-// tiles' read and write buffers; the window's rows and words past tile
-// (dy, dx)'s edges come from the neighbour tiles' read buffers
-// (MeshTileSource; halo <= h, xpad <= wp).  Stripes 0 and grid - 1 are
-// forced like launch 0: every launch computes them.
-__global__ void __launch_bounds__(kThreads)
-tile_mega_kernel(const uint32_t* const* __restrict__ rd_tab, uint32_t* const* __restrict__ wr_tab,
-                 int* __restrict__ state, int* __restrict__ rowflag, int* __restrict__ skipped,
-                 int ny, int nx, int h, int wp, int turns, int stripe_h, int tile_h, int tile_w,
-                 int xpad, int halo, int pad_f, int parity, int first, uint32_t born,
-                 uint32_t surv) {
-    extern __shared__ uint32_t smem[];
-    __shared__ int decision[3];  // hit, measure rows lo, hi
+// dx, blockIdx.y the row tile of a stripe and blockIdx.x the column group
+// of 30 words.  `rd_tab` and `wr_tab` (ny * nx entries each, row-major)
+// give the tiles' read and write buffers; the window's rows and words past
+// tile (dy, dx)'s edges come from the neighbour tiles' read buffers
+// (reg::column of a MeshTileSource; the halo <= h).  `first` forces every
+// stripe to hit with the maximal union (launch 0 of a chunk); otherwise
+// an edge stripe computes with the maximal union if its 3x3-tile
+// neighbourhood hits, and is elided if not.
+template <class Rule>
+__global__ void __launch_bounds__(reg::kMaxThreads, reg::FrontierBlocks<Rule>::value)
+tile_mega_reg_kernel(const uint32_t* const* __restrict__ rd_tab,
+                     uint32_t* const* __restrict__ wr_tab, int* __restrict__ state,
+                     int* __restrict__ rowflag, int* __restrict__ skipped, int ny, int nx, int h,
+                     int wp, int turns, int stripe_h, int tile_h, int pad_f, int parity, int first,
+                     Rule rule) {
+    __shared__ reg::Edges edges;
+    __shared__ int decision[3];  // 0 skip / 1 compute / 2 elided, measure rows lo, hi
+    extern __shared__ uint32_t kept[];  // the window at gen T (reg::keep)
     const int grid = h / stripe_h;
     const int v = blockIdx.z;
     const int dy = v / nx;
     const int dx = v - dy * nx;
     const int total = ny * nx * grid;
-    const uint32_t* rd = rd_tab[v];
-    uint32_t* wr = wr_tab[v];
-    const MeshTileSource src{rd_tab, ny, nx, dy, dx, h, wp};
-    rowflag += static_cast<size_t>(v) * h;
-    skipped += v;
     const int y0 = blockIdx.y * tile_h;
-    const int x0 = blockIdx.x * tile_w;
+    const int x0 = blockIdx.x * (reg::kLanes - 2);
     const int i = y0 / stripe_h;
     const int c_lo = i * stripe_h;
     const int* prev = state + (1 - parity) * kFields * total;
     int* cur = state + parity * kFields * total;
     const int gi = v * grid + i;
-    const bool leader = thread_id() == 0 && blockIdx.x == 0 && y0 == c_lo;
-
-    if (thread_id() == 0) {
-        decide(decision, TileIntervals{prev, total, grid, nx, dy, dx, i}, c_lo,
-               c_lo + stripe_h - 1, turns + kSkipPeriod, pad_f,
-               first | (i == 0) | (i == grid - 1));
+    const bool lead = threadIdx.x == 0 && threadIdx.y == 0;
+    if (lead) {
+        const int c_hi = c_lo + stripe_h - 1;
+        decide(decision, TorusTileIntervals{prev, total, grid, ny, nx, h, dy, dx, i}, c_lo, c_hi,
+               turns + kSkipPeriod, pad_f, first);
+        if (!first && (i == 0 || i == grid - 1)) {
+            if (decision[0]) {
+                decision[1] = c_lo;
+                decision[2] = c_hi;
+            } else {
+                decision[0] = 2;
+            }
+        }
     }
     __syncthreads();
-    frontier_tile(smem, decision, src, rd, wr, rowflag, skipped, &cur[4 * total + gi],
-                  prev[4 * total + gi], leader, h, wp, turns, tile_h, tile_w, xpad, halo, y0, x0,
-                  born, surv);
+    if (!reg_begin(decision, lead && blockIdx.x == 0 && y0 == c_lo, skipped + v,
+                   &cur[4 * total + gi], prev[4 * total + gi], rd_tab[v], wr_tab[v], wp, y0, x0,
+                   tile_h)) {
+        return;
+    }
+    const reg::Run run = reg_run(turns, tile_h);
+    uint32_t s[reg::kRun];
+    const reg::Column col =
+        reg::column(MeshTileSource{rd_tab, ny, nx, dy, dx, h, wp}, x0 - 1 + run.lane);
+    const int top = y0 - run.halo;
+    reg::load(s, run, [&](int r) { return col(top + r); });
+    const int lanes = reg::kLanes - 2;
+    reg_steps(
+        s, edges, kept, run, turns, rule,
+        [&](const uint32_t(&w)[reg::kRun]) {
+            reg::store_centre(w, run, wr_tab[reg::block_z()], wp, reg::block_y() * tile_h,
+                              reg::block_x() * lanes, tile_h);
+        },
+        [&](const uint32_t(&w)[reg::kRun]) {
+            reg::flag_changed(w, run, kept, rowflag + static_cast<size_t>(reg::block_z()) * h, wp,
+                              reg::block_y() * tile_h, reg::block_x() * lanes, tile_h,
+                              decision[1], decision[2]);
+        });
 }
 
 // One block per stripe of every board: block gi = b * grid + i.
@@ -518,36 +646,62 @@ extern "C" int gol_frontier_batched_launch(const void* rd, void* wr, void* state
     return cudaGetLastError();
 }
 
+namespace {
+
+// The checks K12's and K15's register-resident blocks share: a launch
+// of T (a multiple of 6) + 6 <= 30 generations, whole stripes of whole
+// row tiles, `warps` warps holding a tile's window (tile_h + 2 (T + 6)
+// rows), and a decision reach pad_f >= T + 6.
+bool bad_reg_frontier(int h, int wp, int turns, int stripe_h, int tile_h, int warps, int pad_f) {
+    const int halo = turns + kSkipPeriod;
+    return h < 1 || wp < 1 || turns < kSkipPeriod || turns % kSkipPeriod ||
+           halo > reg::kLanes - 2 || stripe_h < 1 || h % stripe_h || tile_h < 1 ||
+           stripe_h % tile_h || warps < 1 || warps > reg::kMaxWarps ||
+           warps * reg::kRun < tile_h + 2 * halo || pad_f < halo;
+}
+
+// Launch a register-resident frontier kernel's instantiation `kernel` on
+// `grid` blocks of `warps` warps, with its reg::keep buffer allowed.
+template <typename Kernel, typename... Args>
+int launch_reg(Kernel kernel, dim3 grid, int warps, cudaStream_t stream, Args... args) {
+    const long long smem = 4LL * warps * reg::kRun * reg::kLanes;  // reg::keep's words
+    const cudaError_t err = allow_smem(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, dim3(reg::kLanes, warps), static_cast<size_t>(smem), stream>>>(args...);
+    return cudaGetLastError();
+}
+
+}  // namespace
+
 // K12: the caller builds `prev_ext` (the exchange) and zeroes `rowflag`
 // once; the launch's decision reach is pad_f (the JAX plan's
-// round8(T + 6)), its window halo `halo` >= T + 6, within the neighbour
-// buffers (halo <= n).  `skipped` (int32[1]) and `act` (int32[grid])
-// accumulate over the launches of a dispatch.
+// round8(T + 6)), its window halo T + 6, within the neighbour buffers
+// (T + 6 <= n).  A block is `tile_h` rows of a stripe and `warps` warps;
+// `variant` picks the rule's instantiation (regwin.cuh::by_rule).
+// `skipped` (int32[1]) and `act` (int32[grid]) accumulate over the
+// launches of a dispatch.
 extern "C" int gol_strip_frontier_launch(const void* local, const void* north, const void* south,
                                          void* wr, const void* prev_ext,
                                          const void* prev_computed, void* cur, void* rowflag,
                                          void* skipped, void* act, int h, int wp, int n,
-                                         int turns, int stripe_h, int tile_h, int tile_w,
-                                         int xpad, int halo, int pad_f, unsigned born,
-                                         unsigned surv, void* stream) {
-    if (h < 1 || wp < 1 || turns < kSkipPeriod || turns % kSkipPeriod || stripe_h < 1 ||
-        h % stripe_h || tile_h < 1 || stripe_h % tile_h || tile_w < 1 ||
-        halo < turns + kSkipPeriod || halo > n || pad_f < turns + kSkipPeriod ||
-        xpad * 32 < turns + kSkipPeriod || tile_w + 2 * xpad > kCols) {
+                                         int turns, int stripe_h, int tile_h, int warps,
+                                         int pad_f, int variant, unsigned born, unsigned surv,
+                                         void* stream) {
+    if (bad_reg_frontier(h, wp, turns, stripe_h, tile_h, warps, pad_f) ||
+        turns + kSkipPeriod > n) {
         return cudaErrorInvalidValue;
     }
-    const long long smem = window_smem(tile_h + 2 * halo, tile_w + 2 * xpad);
-    cudaError_t err = allow_smem(strip_frontier_kernel, smem);
-    if (err != cudaSuccess) return err;
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const dim3 grid((wp + tile_w - 1) / tile_w, h / tile_h);
-    strip_frontier_kernel<<<grid, dim3(kCols, kSegs), static_cast<size_t>(smem), s>>>(
-        static_cast<const uint32_t*>(local), static_cast<const uint32_t*>(north),
-        static_cast<const uint32_t*>(south), static_cast<uint32_t*>(wr),
-        static_cast<const int*>(prev_ext), static_cast<const int*>(prev_computed),
-        static_cast<int*>(cur), static_cast<int*>(rowflag), static_cast<int*>(skipped), h, wp, n,
-        turns, stripe_h, tile_h, tile_w, xpad, halo, pad_f, born, surv);
-    err = cudaGetLastError();
+    const dim3 grid((wp + reg::kLanes - 3) / (reg::kLanes - 2), h / tile_h);
+    const int err = reg::by_rule(variant, born, surv, [&](auto rule) {
+        return launch_reg(strip_frontier_reg_kernel<decltype(rule)>, grid, warps, s,
+                          static_cast<const uint32_t*>(local), static_cast<const uint32_t*>(north),
+                          static_cast<const uint32_t*>(south), static_cast<uint32_t*>(wr),
+                          static_cast<const int*>(prev_ext),
+                          static_cast<const int*>(prev_computed), static_cast<int*>(cur),
+                          static_cast<int*>(rowflag), static_cast<int*>(skipped), h, wp, n, turns,
+                          stripe_h, tile_h, pad_f, rule);
+    });
     if (err != cudaSuccess) return err;
     // The state of one strip is one "board" of grid stripes at parity 0.
     frontier_finalize<<<h / stripe_h, 256, 0, s>>>(static_cast<int*>(cur),
@@ -598,33 +752,30 @@ extern "C" int gol_strip_mega_launch(const void* rd_tab, const void* wr_tab, voi
 // (int32[2][5][ny * nx * grid]), `rowflag` (int32[ny * nx * h], zero
 // between launches), `skipped` (int32[ny * nx]) and `act`
 // (int32[ny * nx * grid]) persist over a chunk, indexed tile-major.  The
-// window's row halo (>= T + 6) and the decision's reach pad_f must fit one
-// stripe and its word halo one tile, so nothing past the adjacent tiles is
-// read.
+// decision's reach pad_f (>= the window's row halo T + 6) must fit one
+// stripe, so nothing past the adjacent tiles' rows is read; a block is
+// `tile_h` rows of a stripe and `warps` warps; `variant` picks the rule's
+// instantiation (regwin.cuh::by_rule).
 extern "C" int gol_tile_mega_launch(const void* rd_tab, const void* wr_tab, void* state,
                                     void* rowflag, void* skipped, void* act, int ny, int nx,
-                                    int h, int wp, int turns, int stripe_h, int tile_h,
-                                    int tile_w, int xpad, int halo, int pad_f, int parity,
-                                    int first, unsigned born, unsigned surv, void* stream) {
-    if (ny < 1 || nx < 1 || ny * nx > 65535 || h < 1 || wp < 1 || turns < kSkipPeriod ||
-        turns % kSkipPeriod || stripe_h < 1 || h % stripe_h || tile_h < 1 ||
-        stripe_h % tile_h || tile_w < 1 || halo < turns + kSkipPeriod || pad_f < halo ||
-        pad_f > stripe_h || xpad * 32 < turns + kSkipPeriod || xpad > wp ||
-        tile_w + 2 * xpad > kCols || (parity != 0 && parity != 1) ||
-        (first != 0 && first != 1)) {
+                                    int h, int wp, int turns, int stripe_h, int tile_h, int warps,
+                                    int pad_f, int parity, int first, int variant, unsigned born,
+                                    unsigned surv, void* stream) {
+    if (ny < 1 || nx < 1 || ny * nx > 65535 ||
+        bad_reg_frontier(h, wp, turns, stripe_h, tile_h, warps, pad_f) || pad_f > stripe_h ||
+        (parity != 0 && parity != 1) || (first != 0 && first != 1)) {
         return cudaErrorInvalidValue;
     }
-    const long long smem = window_smem(tile_h + 2 * halo, tile_w + 2 * xpad);
-    cudaError_t err = allow_smem(tile_mega_kernel, smem);
-    if (err != cudaSuccess) return err;
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int grid = h / stripe_h;
-    const dim3 blocks((wp + tile_w - 1) / tile_w, h / tile_h, ny * nx);
-    tile_mega_kernel<<<blocks, dim3(kCols, kSegs), static_cast<size_t>(smem), s>>>(
-        static_cast<const uint32_t* const*>(rd_tab), static_cast<uint32_t* const*>(wr_tab),
-        static_cast<int*>(state), static_cast<int*>(rowflag), static_cast<int*>(skipped), ny, nx,
-        h, wp, turns, stripe_h, tile_h, tile_w, xpad, halo, pad_f, parity, first, born, surv);
-    err = cudaGetLastError();
+    const dim3 blocks((wp + reg::kLanes - 3) / (reg::kLanes - 2), h / tile_h, ny * nx);
+    const int err = reg::by_rule(variant, born, surv, [&](auto rule) {
+        return launch_reg(tile_mega_reg_kernel<decltype(rule)>, blocks, warps, s,
+                          static_cast<const uint32_t* const*>(rd_tab),
+                          static_cast<uint32_t* const*>(wr_tab), static_cast<int*>(state),
+                          static_cast<int*>(rowflag), static_cast<int*>(skipped), ny, nx, h, wp,
+                          turns, stripe_h, tile_h, pad_f, parity, first, rule);
+    });
     if (err != cudaSuccess) return err;
     frontier_finalize<<<ny * nx * grid, 256, 0, s>>>(static_cast<int*>(state),
                                                      static_cast<int*>(rowflag),

@@ -1,7 +1,8 @@
 // Register-resident windows: the generation loop of K9 (ext.cu,
-// ext_reg_kernel) and K13 (probing.cu, tile_probing_reg_kernel), designed
-// for Hopper.  Only those two kernels include this header; every other
-// kernel steps its window in shared memory with window.cuh::advance.
+// ext_reg_kernel), K13 (probing.cu, tile_probing_reg_kernel) and K12 and
+// K15 (frontier.cu, strip_frontier_reg_kernel and tile_mega_reg_kernel),
+// designed for Hopper.  Every other kernel steps its window in shared
+// memory with window.cuh::advance.
 //
 // Layout (window.cuh's): bit k of a packed word holds cell 32*x + k of its
 // row, so a cell's west neighbour is the next lower bit.
@@ -119,6 +120,20 @@ struct FixedRule {
 
 using Conway = FixedRule<kConwayBorn, kConwaySurv>;
 using Highlife = FixedRule<kHighlifeBorn, kHighlifeSurv>;
+
+// Blocks of kMaxThreads an SM must hold at once (__launch_bounds__'s
+// second argument) for a frontier kernel's (K12, K15) instantiation: two,
+// so 64 registers a thread, for the compiled-in rules; one for AnyRule,
+// whose run-time masks and the frontier window's gen-T bookkeeping need
+// more than 64 (ptxas spilled them there).
+template <class Rule>
+struct FrontierBlocks {
+    static constexpr int value = 2;
+};
+template <>
+struct FrontierBlocks<AnyRule> {
+    static constexpr int value = 1;
+};
 
 // Where a block stands: its warp and lane, and the cone's parameters.
 // Window rows [0, rows) matter; the centre starts `halo` rows down; the
@@ -252,6 +267,13 @@ __device__ __forceinline__ int block_x() {
     return x;
 }
 
+// blockIdx.z, the same way.
+__device__ __forceinline__ int block_z() {
+    int z;
+    asm volatile("mov.u32 %0, %%ctaid.z;" : "=r"(z));
+    return z;
+}
+
 // Fill the registers: window row i of this run from `load(row)`, zero
 // past the window's rows.
 template <class Load>
@@ -285,6 +307,107 @@ __device__ bool inner_stable(const uint32_t (&s)[kRun], const Run& run, const Lo
         if (r >= kSkipPeriod && r < run.rows - kSkipPeriod) diff |= (s[i] ^ from(r)) & mask;
     }
     return __syncthreads_or(diff != 0u) == 0;
+}
+
+// -- The frontier window (K12 and K15) -------------------------------------------
+//
+// A frontier block's window is its tile of `tile_h` centre rows with
+// T + 6 rows a side (a Run of T + 6 generations whose cone is every row
+// but g a side at generation g), and 32 word columns from one left of its
+// 30 centre words.  It steps T generations, stores the gen-T centre and
+// keeps gen T (reg::keep), steps 6 more and flags the centre rows where
+// gen T + 6 differs from gen T.
+
+// One word column of a window source (window.cuh's StripSource or
+// MeshTileSource) as a run reads it: row y's word, for y in [-nh, h + nh),
+// from the buffer above the middle one (y < 0), the middle one, or the
+// one below (y >= h); `stride` words a row.
+struct Column {
+    const uint32_t* north;
+    const uint32_t* mid;
+    const uint32_t* south;
+    int h, nh, stride;
+    __device__ __forceinline__ uint32_t operator()(int y) const {
+        return y < 0    ? north[static_cast<size_t>(nh + y) * stride]
+               : y >= h ? south[static_cast<size_t>(y - h) * stride]
+                        : mid[static_cast<size_t>(y) * stride];
+    }
+};
+
+// Word column x (unwrapped) of a strip of a row mesh: the strip spans
+// the board's width, so x wraps modulo it.
+__device__ __forceinline__ Column column(const StripSource& src, int x) {
+    const int c = wrap(x, src.wp);
+    return Column{src.north + c, src.local + c, src.south + c, src.h, src.n, src.wp};
+}
+
+// Word column x (unwrapped, in tile (dy, dx)'s frame) of a 2-D mesh of
+// tiles on one torus: x may lie any number of tiles away (a window is 32
+// words, a tile may be narrower), rows come from the tile row above, this
+// one and the one below.
+__device__ __forceinline__ Column column(const MeshTileSource& src, int x) {
+    const int sx = x >= 0 ? x / src.wp : -((src.wp - 1 - x) / src.wp);  // floor(x / wp)
+    const int tx = wrap(src.dx + sx, src.nx);
+    const int c = x - sx * src.wp;
+    const auto tile = [&](int sy) { return src.tab[wrap(src.dy + sy, src.ny) * src.nx + tx] + c; };
+    return Column{tile(-1), tile(0), tile(1), src.h, src.h, src.wp};
+}
+
+// Whether this lane holds one of the block's centre words (lanes 1..30,
+// inside the board's wp words), and its word column gx.
+__device__ __forceinline__ bool centre_lane(const Run& run, int x0, int wp, int& gx) {
+    gx = x0 - 1 + run.lane;
+    return run.lane >= 1 && run.lane < kLanes - 1 && gx < wp;
+}
+
+// Store the block's centre (window rows [halo, halo + tile_h), centre
+// lanes) at rows y0.. of `out` (wp words a row).
+__device__ __forceinline__ void store_centre(const uint32_t (&s)[kRun], const Run& run,
+                                             uint32_t* __restrict__ out, int wp, int y0, int x0,
+                                             int tile_h) {
+    int gx;
+    const bool centre = centre_lane(run, x0, wp, gx);
+#pragma unroll
+    for (int i = 0; i < kRun; ++i) {
+        const int r = run.row(i) - run.halo;
+        if (centre && r >= 0 && r < tile_h) out[static_cast<size_t>(y0 + r) * wp + gx] = s[i];
+    }
+}
+
+// Copy the block's centre words from `rd` to `wr` (tile_h rows from y0),
+// as the whole block: a stripe that does not compute.
+__device__ __forceinline__ void copy_centre(const uint32_t* __restrict__ rd,
+                                            uint32_t* __restrict__ wr, int wp, int y0, int x0,
+                                            int tile_h) {
+    const int gx = x0 - 1 + static_cast<int>(threadIdx.x);
+    if (threadIdx.x < 1 || threadIdx.x >= kLanes - 1 || gx >= wp) return;
+    for (int r = threadIdx.y; r < tile_h; r += blockDim.y) {
+        const size_t at = static_cast<size_t>(y0 + r) * wp + gx;
+        wr[at] = rd[at];
+    }
+}
+
+// The measure: set rowflag[y] for each centre row y of the block in
+// [m_lo, m_hi] where the registers (gen T + 6) differ from `kept` (gen T,
+// reg::keep) in a centre word.  Each lane gathers its own 32 rows as bits,
+// the warp ORs them, and lane l reports the warp's row l.  A row that
+// several column groups flag is stored 1 by each.
+__device__ __forceinline__ void flag_changed(const uint32_t (&s)[kRun], const Run& run,
+                                             const uint32_t* kept, int* __restrict__ rowflag,
+                                             int wp, int y0, int x0, int tile_h, int m_lo,
+                                             int m_hi) {
+    int gx;
+    const bool centre = centre_lane(run, x0, wp, gx);
+    uint32_t bits = 0u;
+#pragma unroll
+    for (int i = 0; i < kRun; ++i) {
+        if (centre && s[i] != kept[run.row(i) * kLanes + run.lane]) bits |= 1u << i;
+    }
+    bits = __reduce_or_sync(kFull, bits);
+    const int y = y0 + run.row(run.lane) - run.halo;
+    if ((bits >> run.lane) & 1u && y >= max(m_lo, y0) && y <= min(m_hi, y0 + tile_h - 1)) {
+        rowflag[y] = 1;
+    }
 }
 
 // Launch one of the three instantiations of `Kernel<Rule>` as `variant`

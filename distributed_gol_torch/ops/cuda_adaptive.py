@@ -221,7 +221,7 @@ def stripe_tiles(shape: tuple[int, int], stripe_h: int, halo: int) -> cuda_packe
     raise ValueError(f"no stripe tiling of {shape} with a {halo}-row halo fits shared memory")
 
 
-# -- the register-resident plans of K9 and K13 (csrc/regwin.cuh) ------------------
+# -- the register-resident plans of K9, K12, K13 and K15 (csrc/regwin.cuh) --------
 
 #: Word columns of one warp's window, rows one thread holds in registers,
 #: rows of the light-cone trimming's unit, and the most warps a block
@@ -246,8 +246,10 @@ class RegPlan:
     middle ``centre`` words (``border`` a side outside them) belong to the
     block.  A block's window starts ``halo`` rows above its tile of
     ``tile_h`` centre rows; ``t`` generations, the window probed after
-    ``probe`` of them (K13: 6; K9: 0, no probe).  Generation g computes the
-    light cone (:meth:`cone`), each run rounding its share out to whole
+    ``probe`` of them (K13: 6; K9: 0, no probe); ``keep``: each thread
+    keeps its run of one generation in shared memory (K12 and K15: gen T,
+    the measure's comparand).  Generation g computes the light cone
+    (:meth:`cone`), each run rounding its share out to whole
     ``REG_CHUNK``-row chunks (:meth:`live`)."""
 
     t: int
@@ -257,6 +259,7 @@ class RegPlan:
     grid: tuple[int, int]
     border: int = 1
     probe: int = 0
+    keep: bool = False
 
     def __post_init__(self):
         if not (1 <= self.t <= WORD * self.border and self.halo >= self.t and self.tile_h >= 1
@@ -285,8 +288,10 @@ class RegPlan:
     @property
     def smem_bytes(self) -> int:
         """Shared memory of a block: the edge exchange, and where it probes
-        (K13) every thread's run at generation 0 (``reg::keep``)."""
-        return REG_EDGE_BYTES + (self.warps * REG_RUN * REG_LANES * 4 if self.probe else 0)
+        or keeps a generation (K12, K13, K15) every thread's run
+        (``reg::keep``)."""
+        kept = self.probe or self.keep
+        return REG_EDGE_BYTES + (self.warps * REG_RUN * REG_LANES * 4 if kept else 0)
 
     @property
     def occupancy(self) -> int:
@@ -352,25 +357,48 @@ def best_reg_plan(candidates, sms: int) -> RegPlan:
     return min(candidates, key=lambda p: (p.cost(sms), p.blocks))
 
 
+def _stripe_reg_plan(shape: tuple[int, int], stripe_h: int, t: int, halo: int, sms: int,
+                     **kw) -> RegPlan:
+    """The blocks of a register-resident stripe kernel (K12, K13, K15) on
+    ``shape`` = (rows, wp) words in stripes of ``stripe_h`` rows: column
+    groups of 30 words, a window of the tile and ``halo`` rows a side, and
+    the row tile, a divisor of the stripe (a stripe's blocks decide or
+    measure it together), whose grid has the least :meth:`RegPlan.cost`
+    on ``sms`` SMs; ``kw`` the plan's probe or keep."""
+    h, wp = shape
+    cols = -(-wp // (REG_LANES - 2))
+    plans = [RegPlan(t, halo, tile_h, -(-(tile_h + 2 * halo) // REG_RUN), (h // tile_h, cols),
+                     **kw)
+             for tile_h in range(1, stripe_h + 1)
+             if stripe_h % tile_h == 0 and tile_h + 2 * halo <= REG_MAX_WARPS * REG_RUN]
+    if not plans:
+        raise ValueError(f"no register-resident block for a {halo}-row halo")
+    return best_reg_plan(plans, sms)
+
+
 @functools.lru_cache(maxsize=256)
 def stripe_reg_plan(shape: tuple[int, int], stripe_h: int, pad: int, t: int,
                     sms: int) -> RegPlan:
     """K13's blocks for a launch of ``t`` generations (probe at 6) on a
     pre-extended tile whose centre rows and extended width are ``shape`` =
-    (h_loc, wpe), in stripes of ``stripe_h`` rows with a ``pad``-row halo:
-    column groups of 30 extended words, and the row tile, a divisor of the
-    stripe (a stripe's blocks decide its flag together), whose grid has the
-    least :meth:`RegPlan.cost` on ``sms`` SMs."""
-    h, wpe = shape
-    cols = -(-wpe // (REG_LANES - 2))
-    plans = []
-    for tile_h in range(1, stripe_h + 1):
-        warps = -(-(tile_h + 2 * pad) // REG_RUN)
-        if stripe_h % tile_h == 0 and warps <= REG_MAX_WARPS:
-            plans.append(RegPlan(t, pad, tile_h, warps, (h // tile_h, cols), 1, SKIP_PERIOD))
-    if not plans:
-        raise ValueError(f"no K13 block for a {pad}-row halo")
-    return best_reg_plan(plans, sms)
+    (h_loc, wpe), in stripes of ``stripe_h`` rows with a ``pad``-row halo
+    (:func:`_stripe_reg_plan`)."""
+    return _stripe_reg_plan(shape, stripe_h, t, pad, sms, probe=SKIP_PERIOD)
+
+
+@functools.lru_cache(maxsize=256)
+def frontier_reg_plan(shape: tuple[int, int], stripe_h: int, t: int, sms: int) -> RegPlan:
+    """K12's and K15's blocks for a frontier launch of ``t`` generations on
+    ``shape`` = (rows, wp) packed words in stripes of ``stripe_h`` rows
+    (K15: every tile's rows, stacked): ``t`` + 6 generations stepped (the
+    measure compares gen t + 6 with gen t) on a window of the tile and
+    ``t`` + 6 rows a side, one border word a side (t + 6 <= 32), each
+    thread keeping gen t in shared memory (:func:`_stripe_reg_plan`).  The
+    fresh cost decides settled launches too: there a launch's time is its
+    many idle blocks' decisions, which shorter tiles multiply, more than
+    the few stripes that compute (``tools/regwin_ab.py --sweep-frontier``
+    on an H100 measures each block height)."""
+    return _stripe_reg_plan(shape, stripe_h, t + SKIP_PERIOD, t + SKIP_PERIOD, sms, keep=True)
 
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint

@@ -77,8 +77,13 @@ tiles share one device takes the same tier (the counterpart of
 ``_kernel_frontier_mega_2d``): canonical chunks of K15 launches over every
 tile (:func:`tile_mega_chunks`), whose windows read the neighbour tiles'
 rows, words and corners and whose stripes decide from their own and both
-x-neighbours' intervals, the edge stripes computing every launch; a K13
-loose tail; :func:`make_superstep_virtual_2d` runs it on a whole board.
+x-neighbours' intervals, the edge stripes from their 3x3-tile
+neighbourhood (the JAX kernel forces them; one proved stable is elided,
+counted as computed); a K13 loose tail; :func:`make_superstep_virtual_2d`
+runs it on a whole board.  K12 and K15 step register-resident windows
+(``csrc/regwin.cuh``) on the blocks of ``cuda_adaptive.frontier_reg_plan``;
+:func:`strip_frontier_launch_mirror` and :func:`tile_mega_launch_mirror`
+replay those blocks, and K15's elision, in PyTorch.
 The peer form for shards on several devices (ROADMAP B10p) is not
 ported: those meshes take the ppermute forms.
 """
@@ -97,7 +102,7 @@ from distributed_gol_torch.models.life import CONWAY, HIGHLIFE, LifeRule
 from distributed_gol_torch.ops import cuda_adaptive, cuda_build, cuda_packed, packed
 from distributed_gol_torch.ops.cuda_adaptive import (
     _EMPTY_LO, _I, _P, _U, REG_LANES, REG_MAX_WARPS, REG_RUN, SKIP_PERIOD, AdaptivePlan,
-    RegPlan, _adaptive_eligible, _launcher, best_reg_plan, skip_plan)
+    RegPlan, _adaptive_eligible, _launcher, best_reg_plan, frontier_reg_plan, skip_plan)
 from distributed_gol_torch.ops.cuda_packed import (
     SMEM_BYTES, TILED_COLS, TILED_MAX_T, TiledPlan, _check_words, _stream, rule_masks)
 from distributed_gol_torch.ops.packed import WORD
@@ -191,11 +196,12 @@ def reg_rule(rule: LifeRule) -> tuple[int, int, int]:
     return (*masks, {rule_masks(CONWAY): 1, rule_masks(HIGHLIFE): 2}.get(masks, 0))
 
 
-@functools.lru_cache(maxsize=2)
-def _reg_launcher(kernel: str, symbol: str, pointers: int):
-    """K9's or K13's launch function, its C signature declared once:
-    ``pointers`` pointers, nine ints, the rule masks and the stream."""
-    return _launcher(kernel, symbol, [_P] * pointers + [_I] * 9 + [_U, _U, _P])
+@functools.lru_cache(maxsize=8)
+def _reg_launcher(kernel: str, symbol: str, pointers: int, ints: int = 9):
+    """The launch function of K9, K12, K13 or K15, its C signature
+    declared once: ``pointers`` pointers, ``ints`` ints, the rule masks and
+    the stream."""
+    return _launcher(kernel, symbol, [_P] * pointers + [_I] * ints + [_U, _U, _P])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -764,6 +770,37 @@ class FrontierState:
         self.prev, self.cur = self.cur, self.prev
 
 
+def _strip_frontier(local, north, south, dst, prev_ext, state: FrontierState, plan: AdaptivePlan,
+                    advance) -> torch.Tensor:
+    """One K12 launch's decision, measure and bookkeeping in PyTorch, its
+    generations from ``advance(e, hit)``: (gen T, gen T + 6) of the
+    strip's rows, from ``e``, the strip with T + 6 rows of ``north`` and
+    ``south`` a side (the rows of stripes that do not ``hit`` unused)."""
+    h = local.shape[0]
+    sh = plan.stripe_h
+    grid = plan.grid(h)
+    dev = local.device
+    halo = plan.t + SKIP_PERIOD
+    idx = torch.arange(grid, device=dev)
+    c_lo = idx * sh
+    c_hi = c_lo + sh - 1
+    ext = prev_ext.to(torch.int64)
+    ivals = [(ext[2 * k][idx + 1 + slot], ext[2 * k + 1][idx + 1 + slot])
+             for slot in (-1, 0, 1) for k in (0, 1)]
+    hit, m_lo, m_hi = cuda_adaptive.hit_union(ivals, c_lo, c_hi, plan)
+    g_t, g_t6 = advance(_extended(local, north, south, halo), hit)
+    rows = torch.arange(h, device=dev)
+    of = rows // sh
+    hot = (g_t6 != g_t).any(dim=1) & hit[of] & (rows >= m_lo[of]) & (rows <= m_hi[of])
+    intervals = cuda_adaptive.measure2(hot.view(grid, sh), rows.view(grid, sh))
+    copy = ~hit & state.prev[4].bool()
+    dst.copy_(torch.where(hit[of, None], g_t, torch.where(copy[of, None], local, dst)))
+    state.cur.copy_(torch.cat([intervals, hit[None].to(intervals.dtype)]))
+    state.skipped += (~hit).sum().to(torch.int32)
+    state.act += (intervals[0] <= intervals[1]).to(torch.int32)
+    return dst
+
+
 def strip_frontier_launch_plain(
     local: torch.Tensor, north: torch.Tensor, south: torch.Tensor, dst: torch.Tensor,
     prev_ext: torch.Tensor, state: FrontierState, rule: LifeRule, plan: AdaptivePlan,
@@ -778,32 +815,68 @@ def strip_frontier_launch_plain(
     input into ``dst`` if it computed last launch.  Writes ``dst`` and
     ``state.cur``, adds to ``state.skipped`` and ``state.act``; returns
     ``dst``."""
-    h = local.shape[0]
-    sh = plan.stripe_h
-    grid = plan.grid(h)
-    dev = local.device
+    halo, h = plan.t + SKIP_PERIOD, local.shape[0]
+
+    def advance(e, _hit):
+        g_t = packed.superstep(e, rule, plan.t)
+        return g_t[halo : halo + h], packed.superstep(g_t, rule, SKIP_PERIOD)[halo : halo + h]
+
+    return _strip_frontier(local, north, south, dst, prev_ext, state, plan, advance)
+
+
+def _frontier_blocks(src: torch.Tensor, rule: LifeRule, blocks: RegPlan, t: int,
+                     centre: tuple[int, int], computes: torch.Tensor):
+    """K12's and K15's blocks (``csrc/regwin.cuh``'s frontier window) in
+    PyTorch: ``src`` is the strip or tile with T + 6 rows a side and the
+    words of its torus from one left of its first column group to one
+    right of its last; the window of every block of a stripe that
+    ``computes`` (bool, one a stripe) — warps·32 rows from its tile's row
+    less T + 6, 32 words from one left of its group, zero past the window —
+    steps T generations and then 6 more, each only the rows of its run's
+    light cone (:meth:`RegPlan.live`).  Returns (gen T, gen T + 6) of the
+    ``centre`` = (h, wp) words, zero on the stripes that do not compute."""
+    h, wp = centre
+    win = _reg_windows(src, blocks, 0, 0, False)
+    rows = computes.repeat_interleave(win.shape[0] // computes.numel())
+    out = torch.zeros((2, *win.shape), dtype=win.dtype, device=win.device)
+    if rows.any():
+        part = _reg_steps(win[rows], rule, blocks, range(1, t + 1))
+        out[0][rows] = part
+        out[1][rows] = _reg_steps(part, rule, blocks, range(t + 1, t + SKIP_PERIOD + 1))
+    return _reg_stitch(out[0], blocks)[:h, :wp], _reg_stitch(out[1], blocks)[:h, :wp]
+
+
+def _check_frontier_blocks(blocks: RegPlan, plan: AdaptivePlan, shape: tuple[int, int]) -> None:
+    """Raise unless ``blocks`` are frontier blocks of ``plan`` that cover
+    ``shape`` = (rows, wp) words: T + 6 generations and rows a side, a
+    row tile that divides the stripe, every row and every word."""
     halo = plan.t + SKIP_PERIOD
-    idx = torch.arange(grid, device=dev)
-    c_lo = idx * sh
-    c_hi = c_lo + sh - 1
-    ext = prev_ext.to(torch.int64)
-    ivals = [(ext[2 * k][idx + 1 + slot], ext[2 * k + 1][idx + 1 + slot])
-             for slot in (-1, 0, 1) for k in (0, 1)]
-    hit, m_lo, m_hi = cuda_adaptive.hit_union(ivals, c_lo, c_hi, plan)
-    e = _extended(local, north, south, halo)
-    g_t = packed.superstep(e, rule, plan.t)
-    g_t6 = packed.superstep(g_t, rule, SKIP_PERIOD)[halo : halo + h]
-    g_t = g_t[halo : halo + h]
-    rows = torch.arange(h, device=dev)
-    of = rows // sh
-    hot = (g_t6 != g_t).any(dim=1) & hit[of] & (rows >= m_lo[of]) & (rows <= m_hi[of])
-    intervals = cuda_adaptive.measure2(hot.view(grid, sh), rows.view(grid, sh))
-    copy = ~hit & state.prev[4].bool()
-    dst.copy_(torch.where(hit[of, None], g_t, torch.where(copy[of, None], local, dst)))
-    state.cur.copy_(torch.cat([intervals, hit[None].to(intervals.dtype)]))
-    state.skipped += (~hit).sum().to(torch.int32)
-    state.act += (intervals[0] <= intervals[1]).to(torch.int32)
-    return dst
+    nby, nbx = blocks.grid
+    if ((blocks.t, blocks.halo, blocks.border, blocks.probe) != (halo, halo, 1, 0)
+            or plan.stripe_h % blocks.tile_h or nby * blocks.tile_h != shape[0]
+            or nbx * blocks.centre < shape[1]):
+        raise ValueError(f"blocks {blocks} do not cover {plan} on {shape[0]}x{shape[1]} words")
+
+
+def strip_frontier_launch_mirror(
+    local: torch.Tensor, north: torch.Tensor, south: torch.Tensor, dst: torch.Tensor,
+    prev_ext: torch.Tensor, state: FrontierState, rule: LifeRule, plan: AdaptivePlan,
+    blocks: RegPlan | None = None,
+) -> torch.Tensor:
+    """K12's decomposition in PyTorch: the decision and bookkeeping of
+    :func:`strip_frontier_launch_plain`, the generations on the blocks of
+    ``blocks`` (None: the :func:`frontier_reg_plan` of an H100) through
+    :func:`_frontier_blocks`, the strip's words wrapping modulo its
+    width."""
+    h, wp = local.shape
+    blocks = blocks or frontier_reg_plan((h, wp), plan.stripe_h, plan.t, H100_SMS)
+    _check_frontier_blocks(blocks, plan, (h, wp))
+    cols = torch.remainder(torch.arange(blocks.grid[1] * blocks.centre + 2) - 1, wp)
+
+    def advance(e, hit):
+        return _frontier_blocks(e[:, cols.to(e.device)], rule, blocks, plan.t, (h, wp), hit)
+
+    return _strip_frontier(local, north, south, dst, prev_ext, state, plan, advance)
 
 
 def strip_frontier_launch(
@@ -815,7 +888,9 @@ def strip_frontier_launch(
     ``state.cur``, accumulating ``state.skipped`` and ``state.act``;
     returns ``dst``.  ``north``/``south`` hold at least T + 6 neighbour
     rows.  A CPU tensor runs :func:`strip_frontier_launch_plain`; a CUDA
-    tensor launches K12 or raises."""
+    tensor launches K12 on the blocks of :func:`frontier_reg_plan` for its
+    device's SMs, in the rule's instantiation (counted in
+    ``strip_frontier_launch.rules``), or raises."""
     h, wp = local.shape
     grid = plan.grid(h)
     _check_strip(local, north, south, dst, plan.t + SKIP_PERIOD)
@@ -826,21 +901,22 @@ def strip_frontier_launch(
                          f"for {grid} stripes")
     if local.device.type == "cpu":
         return strip_frontier_launch_plain(local, north, south, dst, prev_ext, state, rule, plan)
-    tiles = cuda_adaptive.stripe_tiles((h, wp), plan.stripe_h, plan.t + SKIP_PERIOD)
-    lib, launch = _launcher("frontier", "gol_strip_frontier_launch",
-                            [_P] * 10 + [_I] * 10 + [_U, _U, _P])
-    born, surv = rule_masks(rule)
+    blocks = frontier_reg_plan((h, wp), plan.stripe_h, plan.t, device_sms(local.device))
+    lib, launch = _reg_launcher("frontier", "gol_strip_frontier_launch", 10)
+    born, surv, variant = reg_rule(rule)
     err = launch(local.data_ptr(), north.data_ptr(), south.data_ptr(), dst.data_ptr(),
                  prev_ext.data_ptr(), state.prev[4].data_ptr(), state.cur.data_ptr(),
                  state.rowflag.data_ptr(), state.skipped.data_ptr(), state.act.data_ptr(),
-                 h, wp, north.shape[0], plan.t, plan.stripe_h, tiles.tile_h, tiles.tile_w,
-                 tiles.xpad, tiles.t, plan.pad_f, born, surv, _stream(local))
+                 h, wp, north.shape[0], plan.t, plan.stripe_h, blocks.tile_h, blocks.warps,
+                 plan.pad_f, variant, born, surv, _stream(local))
     cuda_build.check(lib, err, "strip_frontier")
     strip_frontier_launch.launches += 1
+    strip_frontier_launch.rules[REG_RULES[variant]] += 1
     return dst
 
 
 strip_frontier_launch.launches = 0
+strip_frontier_launch.rules = collections.Counter()
 
 
 # -- K13: the probing tile launch ---------------------------------------------------
@@ -1241,29 +1317,22 @@ def _tile_window(tiles, dy: int, dx: int, halo: int, xw: int) -> torch.Tensor:
     return torch.cat([band[0][h - halo :], band[1], band[2][:halo]])
 
 
-def tile_mega_launch_plain(reads, writes, st: MeshState, rule: LifeRule, plan: AdaptivePlan,
-                           parity: int, first: bool):
-    """Plain version of K15 (one launch of ``_kernel_frontier_mega_2d``
-    over every tile of a 2-D mesh, ``reads`` as rows of tiles): stripe i
-    of tile (dy, dx) decides with ``_hit_union`` over the previous
-    parity's row intervals of nine stripes, read straight from the shared
-    state: its own stripes i - 1, i and i + 1 clamped to [0, grid - 1],
-    and the same stripes of the W and E tiles (whose row frames are its
-    own); the edge stripes (i = 0, grid - 1), and every stripe with
-    ``first`` (launch 0 of a chunk), hit with the maximal union.  A stripe
-    that hits computes T generations of its window (the tile with T + 6
-    rows and ceil((T + 6) / 32) words of the neighbour tiles' read
-    buffers, corners included) and measures gen T + 6 against gen T on
-    its measure rows (``_measure2``); one that does not copies its input
-    into ``writes`` if it computed last launch.  Writes ``writes`` and
-    ``st.state[parity]``, adds to ``st.skipped`` and ``st.act``; returns
-    ``writes``."""
+def _tile_mega(reads, writes, st: MeshState, plan: AdaptivePlan, parity: int, first: bool,
+               advance, elide: bool):
+    """One K15 launch's decisions, measure and bookkeeping in PyTorch, each
+    tile's generations from ``advance(ty, tx, computes)``: (gen T,
+    gen T + 6) of tile (ty, tx), whose stripes that do not ``compute``
+    (bool, one a stripe) are unused.  Every stripe's nine neighbours are its own stripes
+    i - 1..i + 1 and those of the W and E tiles, past the tile's edge the
+    N or S tile row's edge stripe moved by -/+ h_loc (for an interior
+    stripe the JAX kernel's nine).  The edge stripes hit with the maximal
+    union; with ``elide``, an edge stripe whose neighbours do not hit is
+    elided instead: counted computed, not computed, its intervals empty.
+    Returns the elided stripes (bool, tile-major)."""
     ny, nx, h, wpl = _check_tile_mega(reads, writes, st, plan)
     sh, grid = plan.stripe_h, plan.grid(h)
     total = ny * nx * grid
     dev = reads[0][0].device
-    halo = plan.t + SKIP_PERIOD
-    xw = -(-halo // WORD)
     g = torch.arange(total, device=dev)
     v, i = g // grid, g % grid
     dy, dx = v // nx, v % nx
@@ -1273,36 +1342,103 @@ def tile_mega_launch_plain(reads, writes, st: MeshState, rule: LifeRule, plan: A
     ivals = []
     for tx in ((dx - 1) % nx, dx, (dx + 1) % nx):
         for slot in (-1, 0, 1):
-            j = (dy * nx + tx) * grid + (i + slot).clamp(0, grid - 1)
-            ivals += [(prev[2 * k][j], prev[2 * k + 1][j]) for k in (0, 1)]
+            j = i + slot
+            shift = torch.div(j, grid, rounding_mode="floor")  # -1 above the tile, 1 below
+            at = (((dy + shift) % ny) * nx + tx) * grid + torch.remainder(j, grid)
+            ivals += [(prev[2 * k][at] + shift * h, prev[2 * k + 1][at] + shift * h)
+                      for k in (0, 1)]
     hit, m_lo, m_hi = cuda_adaptive.hit_union(ivals, c_lo, c_hi, plan)
-    forced = (i == 0) | (i == grid - 1) | first
-    hit |= forced
+    edge = (i == 0) | (i == grid - 1)
+    elided = edge & ~hit if elide and not first else torch.zeros_like(edge)
+    forced = edge | first
+    counted = hit | forced
+    computes = counted & ~elided
     m_lo, m_hi = torch.where(forced, c_lo, m_lo), torch.where(forced, c_hi, m_hi)
-    copy = ~hit & prev[4].bool()
+    copy = ~computes & prev[4].bool()
     rows = torch.arange(h, device=dev)
     of = rows // sh
     outs, hots = [], []
     for ty in range(ny):
         for tx in range(nx):
-            e = _tile_window(reads, ty, tx, halo, xw)
-            centre = (slice(halo, halo + h), slice(xw, xw + wpl))
-            g_t = packed.superstep(e, rule, plan.t)
-            g_t6 = packed.superstep(g_t, rule, SKIP_PERIOD)[centre]
-            g_t = g_t[centre]
             mine = slice((ty * nx + tx) * grid, (ty * nx + tx + 1) * grid)
-            hit_s = hit[mine][of]
-            hots.append(((g_t6 != g_t).any(dim=1) & hit_s & (rows >= m_lo[mine][of])
+            g_t, g_t6 = advance(ty, tx, computes[mine])
+            comp = computes[mine][of]
+            hots.append(((g_t6 != g_t).any(dim=1) & comp & (rows >= m_lo[mine][of])
                          & (rows <= m_hi[mine][of])).view(grid, sh))
-            outs.append(torch.where(hit_s[:, None], g_t, torch.where(
+            outs.append(torch.where(comp[:, None], g_t, torch.where(
                 copy[mine][of, None], reads[ty][tx], writes[ty][tx])))
     intervals = cuda_adaptive.measure2(torch.cat(hots), rows.view(grid, sh).repeat(ny * nx, 1))
     for w, o in zip((t for r in writes for t in r), outs):
         w.copy_(o)
-    st.state[parity].copy_(torch.cat([intervals, hit[None].to(intervals.dtype)]))
-    st.skipped += (~hit).view(ny * nx, grid).sum(dim=1).to(torch.int32)
+    st.state[parity].copy_(torch.cat([intervals, counted[None].to(intervals.dtype)]))
+    st.skipped += (~counted).view(ny * nx, grid).sum(dim=1).to(torch.int32)
     st.act += (intervals[0] <= intervals[1]).to(torch.int32)
+    return elided
+
+
+def tile_mega_launch_plain(reads, writes, st: MeshState, rule: LifeRule, plan: AdaptivePlan,
+                           parity: int, first: bool):
+    """Plain version of K15 (one launch of ``_kernel_frontier_mega_2d``
+    over every tile of a 2-D mesh, ``reads`` as rows of tiles): stripe i
+    of tile (dy, dx) decides with ``_hit_union`` over the previous
+    parity's row intervals of nine stripes, read straight from the shared
+    state: its own stripes i - 1, i and i + 1 and the same stripes of the
+    W and E tiles (whose row frames are its own); the edge stripes (i = 0,
+    grid - 1), and every stripe with ``first`` (launch 0 of a chunk), hit
+    with the maximal union, as the JAX kernel forces them.  A stripe that
+    hits computes T generations of its window (the tile with T + 6 rows
+    and ceil((T + 6) / 32) words of the neighbour tiles' read buffers,
+    corners included) and measures gen T + 6 against gen T on its measure
+    rows (``_measure2``); one that does not copies its input into
+    ``writes`` if it computed last launch.  Writes ``writes`` and
+    ``st.state[parity]``, adds to ``st.skipped`` and ``st.act``; returns
+    ``writes``."""
+    halo = plan.t + SKIP_PERIOD
+    xw = -(-halo // WORD)
+    h, wpl = reads[0][0].shape
+    centre = (slice(halo, halo + h), slice(xw, xw + wpl))
+
+    def advance(ty, tx, _computes):
+        g_t = packed.superstep(_tile_window(reads, ty, tx, halo, xw), rule, plan.t)
+        return g_t[centre], packed.superstep(g_t, rule, SKIP_PERIOD)[centre]
+
+    _tile_mega(reads, writes, st, plan, parity, first, advance, False)
     return writes
+
+
+def tile_mega_launch_mirror(reads, writes, st: MeshState, rule: LifeRule, plan: AdaptivePlan,
+                            parity: int, first: bool, blocks: RegPlan | None = None):
+    """K15's decomposition in PyTorch: the blocks of ``blocks`` (None: the
+    :func:`frontier_reg_plan` of an H100 for the stacked tiles) through
+    :func:`_frontier_blocks`, each tile's window from the tiles' torus,
+    and the kernel's decisions: an edge stripe decides from its 3x3-tile
+    neighbourhood and is elided where that proves it stable (counted in
+    ``tile_mega_launch_mirror.elided``; the last launch's elided stripes,
+    tile-major, in ``.last_elided``), every other decision as
+    :func:`tile_mega_launch_plain`'s.  Writes what the plain version
+    writes; returns ``writes``."""
+    ny, nx, h, wpl = _check_tile_mega(reads, writes, st, plan)
+    blocks = blocks or frontier_reg_plan((ny * nx * h, wpl), plan.stripe_h, plan.t, H100_SMS)
+    _check_frontier_blocks(blocks, plan, (ny * nx * h, wpl))
+    blocks = dataclasses.replace(blocks, grid=(h // blocks.tile_h, blocks.grid[1]))
+    whole = torch.cat([torch.cat(r, dim=1) for r in reads])
+    halo, dev = plan.t + SKIP_PERIOD, whole.device
+    rows = torch.arange(h + 2 * halo, device=dev) - halo
+    cols = torch.arange(blocks.grid[1] * blocks.centre + 2, device=dev) - 1
+
+    def advance(ty, tx, computes):
+        src = whole[torch.remainder(ty * h + rows, ny * h)][:, torch.remainder(
+            tx * wpl + cols, nx * wpl)]
+        return _frontier_blocks(src, rule, blocks, plan.t, (h, wpl), computes)
+
+    elided = _tile_mega(reads, writes, st, plan, parity, first, advance, True)
+    tile_mega_launch_mirror.elided += int(elided.sum())
+    tile_mega_launch_mirror.last_elided = elided
+    return writes
+
+
+tile_mega_launch_mirror.elided = 0
+tile_mega_launch_mirror.last_elided = None
 
 
 def _k15(sets, rule: LifeRule, plan: AdaptivePlan):
@@ -1311,7 +1447,9 @@ def _k15(sets, rule: LifeRule, plan: AdaptivePlan):
     ``sets`` (rows of tiles of one shape), whose device pointer tables
     (int64[ny·nx] each, row-major) are built here once, copied without a
     wait from pinned memory, and live as long as the launcher (as
-    :func:`_k14`'s); counted on ``tile_mega_launch.launches``."""
+    :func:`_k14`'s); its blocks :func:`frontier_reg_plan`'s for the
+    stacked tiles on the device's SMs, in the rule's instantiation;
+    counted on ``tile_mega_launch.launches`` and ``.rules``."""
     like = sets[0][0][0]
     ny, nx = len(sets[0]), len(sets[0][0])
     h, wpl = like.shape
@@ -1322,20 +1460,19 @@ def _k15(sets, rule: LifeRule, plan: AdaptivePlan):
     tabs = torch.tensor([key(bufs) for bufs in sets],
                         dtype=torch.int64).pin_memory().to(like.device, non_blocking=True)
     row = {key(bufs): tab for bufs, tab in zip(sets, tabs)}
-    tiles = cuda_adaptive.stripe_tiles((h, wpl), plan.stripe_h, plan.t + SKIP_PERIOD)
-    lib, launch = _launcher("frontier", "gol_tile_mega_launch",
-                            [_P] * 6 + [_I] * 13 + [_U, _U, _P])
-    born, surv = rule_masks(rule)
+    blocks = frontier_reg_plan((ny * nx * h, wpl), plan.stripe_h, plan.t, device_sms(like.device))
+    lib, launch = _reg_launcher("frontier", "gol_tile_mega_launch", 6, 12)
+    born, surv, variant = reg_rule(rule)
     stream = _stream(like)
 
     def k15(reads, writes, st: MeshState, parity: int, first: bool) -> None:
         rd, wr = (row[key(bufs)].data_ptr() for bufs in (reads, writes))
         err = launch(rd, wr, st.state.data_ptr(), st.rowflag.data_ptr(), st.skipped.data_ptr(),
-                     st.act.data_ptr(), ny, nx, h, wpl, plan.t, plan.stripe_h, tiles.tile_h,
-                     tiles.tile_w, tiles.xpad, tiles.t, plan.pad_f, parity, int(first), born,
-                     surv, stream)
+                     st.act.data_ptr(), ny, nx, h, wpl, plan.t, plan.stripe_h, blocks.tile_h,
+                     blocks.warps, plan.pad_f, parity, int(first), variant, born, surv, stream)
         cuda_build.check(lib, err, "tile_mega")
         tile_mega_launch.launches += 1
+        tile_mega_launch.rules[REG_RULES[variant]] += 1
 
     return k15
 
@@ -1360,6 +1497,7 @@ def tile_mega_launch(reads, writes, st: MeshState, rule: LifeRule, plan: Adaptiv
 
 
 tile_mega_launch.launches = 0
+tile_mega_launch.rules = collections.Counter()
 
 
 def tile_mega_launches(tiles, rule: LifeRule, plan: AdaptivePlan, nlaunch: int,
@@ -1400,11 +1538,13 @@ def tile_activity(act: torch.Tensor, ny: int, nx: int) -> torch.Tensor:
 
 
 def reset_launches() -> None:
-    """Set the launch counters of K9-K15 to 0, and K9's and K13's counts by
-    rule instantiation."""
+    """Set the launch counters of K9-K15 to 0, and the counts by rule
+    instantiation of K9, K12, K13 and K15."""
     ext_launch.launches = 0
     ext_launch.rules.clear()
     tile_probing_launch.rules.clear()
+    strip_frontier_launch.rules.clear()
+    tile_mega_launch.rules.clear()
     ext_skip_launch.launches = 0
     strip_probing_launch.launches = 0
     strip_frontier_launch.launches = 0

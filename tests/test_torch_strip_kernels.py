@@ -223,11 +223,14 @@ def test_k11_elision_reads_the_neighbour_flags(ref, flags):
 EMPTY = cuda_adaptive._EMPTY_LO
 
 
-def k12_both(ref, rule, local, north, south, dst, ps, jivals, plan, tile_cap):
+def k12_both(ref, rule, local, north, south, dst, ps, jivals, plan, tile_cap,
+             launch=cuda_halo.strip_frontier_launch):
     """One K12 launch in both packages from the JAX interval arrays
     ``jivals`` (six int32[grid + 2]: lo0, hi0, lo1, hi1, clo, chi); the
-    port gets the four row arrays.  Returns the JAX outputs (board, st,
-    six interval arrays) and the port's (board, state)."""
+    port gets the four row arrays, through ``launch`` (the wrapper, whose
+    CPU path is the plain version, or the mirror).  Returns the JAX
+    outputs (board, st, six interval arrays) and the port's (board,
+    state)."""
     jnp = ref.jnp
     call = ref.ph._build_ext_launch_frontier(local.shape, ref.life.RULES[rule], plan.t, True,
                                              tile_cap)
@@ -238,8 +241,8 @@ def k12_both(ref, rule, local, north, south, dst, ps, jivals, plan, tile_cap):
     state = cuda_halo.FrontierState.start(local.shape[0], plan, "cpu")
     state.prev[4] = torch.from_numpy(1 - ps.astype(np.int32))
     prev_ext = torch.from_numpy(np.stack(jivals[:4]).astype(np.int32))
-    got = cuda_halo.strip_frontier_launch(t32(local), t32(north), t32(south), t32(dst), prev_ext,
-                                          state, tlife.RULES[rule], plan)
+    got = launch(t32(local), t32(north), t32(south), t32(dst), prev_ext, state,
+                 tlife.RULES[rule], plan)
     assert state.act.shape == (grid,)
     return out, u32(got), state
 
@@ -259,15 +262,13 @@ def assert_k12_equal(out, tb, state):
     assert np.array_equal(state.cur[:4].numpy(), np.stack(out[2:6]))
 
 
-@pytest.mark.parametrize("rule", ["conway", "highlife"])
-@pytest.mark.parametrize("kind", BOARDS)
-@pytest.mark.parametrize("strip,turns", [((512, 4), 18), ((512, 4), 12)])
-def test_k12_plain_matches_interpret_kernel_over_two_launches(ref, rule, kind, strip, turns):
+def k12_two_launches(ref, rule, kind, strip, turns, launch=cuda_halo.strip_frontier_launch):
     """Launch 1 from full intervals into a zeroed buffer, launch 2 from the
     intervals launch 1 measured (each package its own; the JAX package's
     with its column interval), the neighbours' edge stripes empty on the
-    north and live on the south.  Boards, skip flags and row intervals are
-    equal after each launch, and activity follows the row intervals."""
+    north and live on the south, the port's through ``launch``.  Boards,
+    skip flags and row intervals are equal after each launch, and activity
+    follows the row intervals."""
     h_loc, wp = strip
     tile_cap = 256
     tile_h = ref.ph._strip_plan_tile(strip, turns, tile_cap)
@@ -278,7 +279,7 @@ def test_k12_plain_matches_interpret_kernel_over_two_launches(ref, rule, kind, s
     grid = plan.grid(h_loc)
     ivals = full_intervals(grid, tile_h, wp, h_loc)
     out, tb, state = k12_both(ref, rule, local, north, south, np.zeros_like(local),
-                              np.zeros(grid, np.int32), ivals, plan, tile_cap)
+                              np.zeros(grid, np.int32), ivals, plan, tile_cap, launch)
     assert_k12_equal(out, tb, state)
     # Launch 2: the north neighbour's edge stripe quiet, the south's live
     # on its first rows (+h_loc in this strip's frame).
@@ -286,13 +287,75 @@ def test_k12_plain_matches_interpret_kernel_over_two_launches(ref, rule, kind, s
     edge_s = [h_loc + 2, h_loc + 9, EMPTY, -1, 0, wp - 1]
     jivals = [np.concatenate([[edge_n[k]], out[2 + k], [edge_s[k]]]) for k in range(6)]
     out2, tb2, state2 = k12_both(ref, rule, out[0], north, south, local, out[1], jivals, plan,
-                                 tile_cap)
+                                 tile_cap, launch)
     assert_k12_equal(out2, tb2, state2)
     act = (state2.cur[0] <= state2.cur[1]).numpy()
     assert np.array_equal(state2.act.numpy(), act.astype(np.int32))
     assert np.array_equal(act, (out2[2] <= out2[3]) | (out2[4] <= out2[5]))
     if kind == "ash":  # only the south neighbour's activity reaches a stripe
         assert out2[1].tolist() == [1] * (grid - 1) + [0] and not act.any()
+
+
+@pytest.mark.parametrize("rule", ["conway", "highlife"])
+@pytest.mark.parametrize("kind", BOARDS)
+@pytest.mark.parametrize("strip,turns", [((512, 4), 18), ((512, 4), 12)])
+def test_k12_plain_matches_interpret_kernel_over_two_launches(ref, rule, kind, strip, turns):
+    """``k12_two_launches`` on the wrapper (its plain version on the CPU)."""
+    k12_two_launches(ref, rule, kind, strip, turns)
+
+
+@pytest.mark.parametrize("rule", ["conway", "highlife"])
+@pytest.mark.parametrize("kind", BOARDS)
+@pytest.mark.parametrize("strip,turns", [((512, 4), 18), ((512, 4), 12)])
+def test_k12_mirror_matches_interpret_kernel_over_two_launches(ref, rule, kind, strip, turns):
+    """``k12_two_launches`` on K12's mirror (``strip_frontier_launch_mirror``:
+    the kernel's register-resident blocks of 30 words, its row tiles and
+    light cone, at the plan of an H100)."""
+    k12_two_launches(ref, rule, kind, strip, turns, cuda_halo.strip_frontier_launch_mirror)
+
+
+def k12_sequence(launch, local, north, south, plan, rule, n: int, device="cpu"):
+    """``n`` K12 launches through ``launch`` on one strip whose neighbours
+    are ``north`` and ``south`` (each launch's exchange from its own state,
+    both neighbours' edge stripes the strip's own), from full intervals:
+    each launch's (strip, state), then the skip count and activity."""
+    h_loc = local.shape[0]
+    state = cuda_halo.FrontierState.start(h_loc, plan, device)
+    bufs = [torch.zeros_like(local).to(device), torch.zeros_like(local).to(device)]
+    cur, n_, s_ = local.to(device), north.to(device), south.to(device)
+    seen = []
+    for k in range(n):
+        ext = cuda_halo.edge_intervals([state.prev], h_loc)[0]
+        cur = launch(cur, n_, s_, bufs[k % 2], ext, state, rule, plan)
+        seen.append((cur.cpu().clone(), state.cur.cpu().clone()))
+        state.advance()
+    return seen, state.skipped.cpu(), state.act.cpu()
+
+
+K12_PLANS = {"T24-s64": cuda_adaptive.AdaptivePlan(24, 64, True),
+             "T18-s32": cuda_adaptive.AdaptivePlan(18, 32, True),
+             "T6-s16": cuda_adaptive.AdaptivePlan(6, 16, True)}
+
+
+@pytest.mark.parametrize("plan", list(K12_PLANS.values()), ids=list(K12_PLANS))
+@pytest.mark.parametrize("kind", BOARDS)
+@pytest.mark.parametrize("rule", ["conway", "highlife", "day-and-night"])
+def test_k12_mirror_matches_plain_over_four_launches(rule, kind, plan):
+    """K12's mirror against the plain version over four launches on a
+    256 x 2-word strip (a ragged column group: 64 words in groups of 30,
+    and a narrow one: 2 words), tolerance 0: each launch's strip and whole
+    state, then the skip count and activity; under both compiled-in rules
+    and one that takes the generic instantiation."""
+    r = tlife.RULES[rule]
+    for wp in (64, 2):
+        north, local, south = (t32(a) for a in split(
+            pack_words(column(kind, 32, 256, wp * 32, plan.stripe_h)), 32))
+        plain = k12_sequence(cuda_halo.strip_frontier_launch_plain, local, north, south, plan, r, 4)
+        mirror = k12_sequence(cuda_halo.strip_frontier_launch_mirror, local, north, south, plan,
+                              r, 4)
+        for (a, sa), (b, sb) in zip(plain[0], mirror[0]):
+            assert torch.equal(a, b) and torch.equal(sa, sb)
+        assert torch.equal(plain[1], mirror[1]) and torch.equal(plain[2], mirror[2])
 
 
 @pytest.mark.parametrize("case", ["empty-beside-live", "live-north-only", "all-empty"])
@@ -418,6 +481,27 @@ def test_gpu_k11_matches_plain(cuda_device, kind, stripe, turns):
             prev.to(dev), st, tlife.CONWAY, plan)
         outs.append((got.cpu(), st.cpu()))
     assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plan", list(K12_PLANS.values()), ids=list(K12_PLANS))
+@pytest.mark.parametrize("kind", BOARDS)
+@pytest.mark.parametrize("rule", ["conway", "highlife", "day-and-night"])
+def test_gpu_k12_matches_plain_launch_by_launch(cuda_device, rule, kind, plan):
+    """K12 on the card against its plain version on the CPU over four
+    launches (``k12_sequence``), on a ragged 64-word strip and a 2-word
+    one: each launch's strip and whole state, the skip count and activity;
+    every rule instantiation."""
+    r = tlife.RULES[rule]
+    for wp in (64, 2):
+        north, local, south = (t32(a) for a in split(
+            pack_words(column(kind, 32, 256, wp * 32, plan.stripe_h)), 32))
+        want = k12_sequence(cuda_halo.strip_frontier_launch, local, north, south, plan, r, 4)
+        got = k12_sequence(cuda_halo.strip_frontier_launch, local, north, south, plan, r, 4,
+                           cuda_device)
+        for (a, sa), (b, sb) in zip(got[0], want[0]):
+            assert torch.equal(a, b) and torch.equal(sa, sb)
+        assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
 
 
 @pytest.mark.gpu

@@ -33,13 +33,14 @@ from distributed_gol_torch.ops import cuda_adaptive
 from distributed_gol_torch.ops import packed as tpacked
 from distributed_gol_torch.parallel import cuda_halo, halo
 from distributed_gol_torch.parallel import mesh as tmesh
-from test_torch_tile_kernels import mesh_board  # tests/ is on the path under pytest
+from test_torch_tile_kernels import GLIDER_SE, _put, mesh_board  # tests/ is on the path
 
 # One intra-op thread: the suite runs in parallel worker processes.
 torch.set_num_threads(1)
 
 CPU = torch.device("cpu")
 MESHES = [(2, 2), (2, 4), (4, 2), (1, 2)]
+PLAIN_K15 = cuda_halo.tile_mega_launch_plain
 TURNS = [8 * 18, 8 * 18 + 2 * 18 + 7]
 
 
@@ -299,6 +300,226 @@ def test_activity_grid_order():
                 assert grid2[dy * grid + i, dx] == (dy * nx + dx) * grid + i
 
 
+# -- K15's mirror: the kernel's blocks and its edge-stripe elision --------------------------
+
+
+@pytest.fixture()
+def k15_mirror(monkeypatch):
+    """The K15 wrapper's CPU path on K15's mirror
+    (``tile_mega_launch_mirror``: the kernel's blocks, light cone and
+    edge-stripe elision) in place of the plain version; the mirror's
+    elision count starts at 0."""
+    monkeypatch.setattr(cuda_halo, "tile_mega_launch_plain", cuda_halo.tile_mega_launch_mirror)
+    monkeypatch.setattr(cuda_halo.tile_mega_launch_mirror, "elided", 0)
+
+
+@pytest.mark.parametrize("turns", TURNS, ids=["one-chunk", "chunk-tail-remainder"])
+@pytest.mark.parametrize("mesh_shape", MESHES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_virtual_mirror_matches_jax(jax_virtual, jax_plan, k15_mirror, mesh_shape, turns):
+    """``test_virtual_matches_jax`` with K15's mirror in the chunk: board,
+    skip count and (ny·grid, nx) activity equal the JAX virtual build's,
+    although the mirror elides the edge stripes the JAX kernel forces
+    wherever their 3x3-tile neighbourhood is quiet."""
+    got = port_virtual(mesh2d_board(), mesh_shape, turns)
+    want = jax_virtual("mesh2d", mesh_shape, turns)
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1] == want[1]
+    np.testing.assert_array_equal(got[2], want[2])
+    assert cuda_halo.tile_mega_launch_mirror.elided > 0
+
+
+def chunk_through(fn, tiles, rule, plan, nlaunch, monkeypatch):
+    """An ``nlaunch`` K15 chunk with ``fn`` as the wrapper's CPU path,
+    recorded launch by launch: [(tiles, state, skipped, activity)]."""
+    monkeypatch.setattr(cuda_halo, "tile_mega_launch_plain", fn)
+    seen = []
+    cuda_halo.tile_mega_launches(tiles, rule, plan, nlaunch, each=lambda out, st: seen.append((
+        [t.clone() for r in out for t in r], st.state.clone(), st.skipped.clone(),
+        st.act.clone())))
+    return seen
+
+
+MIRROR_CASES = [(rule, mesh_shape) for rule in ("conway", "highlife")
+                for mesh_shape in ((2, 2), (1, 2), (2, 4))] + [("day-and-night", (2, 2))]
+
+
+@pytest.mark.parametrize("plan", list(TILE_PLANS.values()), ids=list(TILE_PLANS))
+@pytest.mark.parametrize("kind", ["soup", "settled", "glider_corner"])
+@pytest.mark.parametrize("rule,mesh_shape", MIRROR_CASES,
+                         ids=[f"{r}-{m[0]}x{m[1]}" for r, m in MIRROR_CASES])
+def test_mirror_matches_plain_launch_by_launch(monkeypatch, rule, mesh_shape, kind, plan):
+    """K15's mirror against the plain version over an 8-launch chunk of
+    128 x 4-word tiles, launch by launch: tiles, the whole state (row
+    intervals and computed flags), skip counts and activity, tolerance 0,
+    under both compiled-in rules and one that takes the generic
+    instantiation."""
+    r = tlife.RULES[rule]
+    p = packed_of(mesh_board(kind, (128, 4), mesh_shape).astype(np.uint8) * 255)
+    plain = chunk_through(cuda_halo.tile_mega_launch_plain, tiles_of(p, mesh_shape), r, plan, 8,
+                          monkeypatch)
+    mirror = chunk_through(cuda_halo.tile_mega_launch_mirror, tiles_of(p, mesh_shape), r, plan,
+                           8, monkeypatch)
+    assert len(plain) == len(mirror) == 8
+    for a, b in zip(plain, mirror):
+        assert all(torch.equal(x, y) for x, y in zip(a[0], b[0]))
+        assert all(torch.equal(x, y) for x, y in zip(a[1:], b[1:]))
+
+
+def still_lifes_and_blinkers(rows: int, cols: int) -> np.ndarray:
+    """Blocks and blinkers (period 2) spread over a (rows, cols) board,
+    every one at least five cells from the rows and columns that are
+    multiples of 64 (the seams of the tiles below)."""
+    b = np.zeros((rows, cols), dtype=bool)
+    for y in range(6, rows - 6, 13):
+        if not 5 <= y % 64 <= 58:
+            continue
+        for x in range(6, cols - 6, 17):
+            if not 5 <= x % 64 <= 56:
+                continue
+            if (x // 4) % 2:
+                b[y : y + 2, x : x + 2] = True  # block
+            else:
+                b[y, x : x + 3] = True  # blinker
+    return b
+
+
+def jax_chunk(ref, cells: np.ndarray, mesh_shape, rule: str, t: int, cap: int, nlaunch: int):
+    """One ``nlaunch``-launch chunk of the JAX 2-D megakernel's virtual
+    build (``_build_dispatch_frontier_2d``, interpret mode) at launch depth
+    ``t`` and stripe cap ``cap`` on the whole board, as
+    ``make_superstep_virtual_2d`` runs a chunk: (packed board, skipped,
+    (ny·grid, nx) activity)."""
+    ny, nx = mesh_shape
+    jnp = ref.jnp
+    p = jnp.asarray(np.asarray(ref.packed.pack(jnp.asarray(cells.astype(np.uint8) * 255))))
+    strip = (p.shape[0] // ny, p.shape[1] // nx)
+    grid = strip[0] // ref.ph._plan_2d(strip, t, cap, True)[4]
+    call = ref.ph._build_dispatch_frontier_2d(strip, mesh_shape, ref.life.RULES[rule], t, nlaunch,
+                                              True, cap, False)
+    na, nb, sk, act = call(p, jnp.zeros_like(p))
+    board = nb if nlaunch % 2 else na
+    act = np.asarray(act).reshape(ny, nx, grid).transpose(0, 2, 1).reshape(ny * grid, nx)
+    return np.asarray(board).view(np.int32), int(sk[0]), act
+
+
+def port_chunk(cells: np.ndarray, mesh_shape, rule: str, plan, nlaunch: int, each=None):
+    """The port's K15 chunk on the board's tiles: (packed board, skipped,
+    (ny·grid, nx) activity)."""
+    p = packed_of(cells.astype(np.uint8) * 255)
+    tiles, st = cuda_halo.tile_mega_launches(tiles_of(p, mesh_shape), tlife.RULES[rule], plan,
+                                             nlaunch, each=each)
+    return (whole(tiles).numpy(), int(st.skipped.sum()),
+            cuda_halo.tile_activity(st.act, *mesh_shape).numpy())
+
+
+# The JAX 2-D megakernel's plan at a stripe cap of 256 and T = 6 on 1024 x
+# 2-word tiles: four 256-row stripes a tile (its shortest frontier
+# stripes: its plan declines shorter ones), and the port's shortest
+# frontier stripes, 16 rows at T = 6.
+JAX_EDGE_PLAN = cuda_adaptive.AdaptivePlan(6, 256, True)
+EDGE_PLAN = cuda_adaptive.AdaptivePlan(6, 16, True)
+
+
+def assert_same(got, want):
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1] == want[1]
+    np.testing.assert_array_equal(got[2], want[2])
+
+
+def test_elision_on_settled_tiles_keeps_the_jax_counts(ref, monkeypatch, k15_mirror):
+    """Still lifes and blinkers on (2, 2) tiles of 1024 x 2 words with
+    256-row stripes (T = 6): after launch 0 every stripe is quiet, so the
+    mirror elides both edge stripes of every tile on launches 1-7, while
+    board, skip count (the interior stripes) and activity equal the JAX
+    kernel's, which computes them, and the plain version's."""
+    cells = still_lifes_and_blinkers(2048, 128)
+    assert ref.ph._plan_2d((1024, 2), 6, 256, True)[4] == JAX_EDGE_PLAN.stripe_h
+    got = port_chunk(cells, (2, 2), "conway", JAX_EDGE_PLAN, 8)
+    assert_same(got, jax_chunk(ref, cells, (2, 2), "conway", 6, 256, 8))
+    assert got[1] == 7 * 4 * 2 and cuda_halo.tile_mega_launch_mirror.elided == 7 * 4 * 2
+    monkeypatch.setattr(cuda_halo, "tile_mega_launch_plain", PLAIN_K15)
+    assert_same(port_chunk(cells, (2, 2), "conway", JAX_EDGE_PLAN, 8), got)
+
+
+@pytest.mark.parametrize("rule", ["conway", "highlife", "day-and-night"])
+def test_elision_on_64_row_tiles_keeps_the_plain_counts(monkeypatch, k15_mirror, rule):
+    """The same on (2, 2) 64-row tiles with 16-row stripes (T = 6), where
+    the JAX package builds no 2-D megakernel: the mirror elides both edge
+    stripes of every tile on launches 1-7, and board, skip count and
+    activity equal the plain version's (the JAX kernel's decisions)."""
+    cells = still_lifes_and_blinkers(128, 256)
+    got = port_chunk(cells, (2, 2), rule, EDGE_PLAN, 8)
+    assert cuda_halo.tile_mega_launch_mirror.elided == 7 * 4 * 2
+    monkeypatch.setattr(cuda_halo, "tile_mega_launch_plain", PLAIN_K15)
+    want = port_chunk(cells, (2, 2), rule, EDGE_PLAN, 8)
+    assert_same(got, want)
+    assert want[1] == 7 * 4 * 2
+
+
+CORNER_CASES = {"jax-256-row-stripes": ((1024, 2), JAX_EDGE_PLAN),
+                "16-row-stripes": ((64, 4), EDGE_PLAN)}
+
+
+def corner_glider(tile: tuple[int, int], mesh_shape) -> np.ndarray:
+    """A board of (h, wpl)-word tiles with one glider and nothing else,
+    eight cells up and left of tile (0, 0)'s bottom-right corner, heading
+    for tile (1, 1) across that corner."""
+    h, wpl = tile
+    b = np.zeros((mesh_shape[0] * h, mesh_shape[1] * wpl * 32), dtype=bool)
+    _put(b, GLIDER_SE, h - 8, wpl * 32 - 8)
+    return b
+
+
+@pytest.mark.parametrize("case", list(CORNER_CASES), ids=list(CORNER_CASES))
+@pytest.mark.parametrize("rule", ["conway", "highlife"])
+def test_corner_glider_makes_the_diagonal_tile_compute_its_edge(ref, monkeypatch, k15_mirror,
+                                                              rule, case):
+    """A lone glider near the bottom-right corner of tile (0, 0) of a
+    (2, 4) mesh, T = 6: from launch 1 on, stripe 0 of tile (1, 1), which it
+    will enter across the corner, finds activity in its 3x3-tile
+    neighbourhood only in the NW tile's last stripe, and computes, while
+    quiet edge stripes elsewhere are elided.
+    Board, skip count and activity equal the plain version's, and at the
+    JAX plan's stripes the JAX kernel's."""
+    tile, plan = CORNER_CASES[case]
+    cells = corner_glider(tile, (2, 4))
+    grid = plan.grid(tile[0])
+    elided = []
+    got = port_chunk(cells, (2, 4), rule, plan, 8, each=lambda out, st: elided.append(
+        cuda_halo.tile_mega_launch_mirror.last_elided.view(8, grid).clone()))
+    if plan is JAX_EDGE_PLAN:
+        assert_same(got, jax_chunk(ref, cells, (2, 4), rule, 6, 256, 8))
+    monkeypatch.setattr(cuda_halo, "tile_mega_launch_plain", PLAIN_K15)
+    assert_same(port_chunk(cells, (2, 4), rule, plan, 8), got)
+    assert not any(bool(e[4 + 1, 0]) for e in elided[1:])  # tile (1, 1), stripe 0
+    assert all(e.any() for e in elided[1:])
+
+
+def test_frontier_reg_plan_takes_the_least_fresh_cost():
+    """``frontier_reg_plan``: column groups of 30 words, the row tile a
+    divisor of the stripe whose window (the tile and T + 6 rows a side)
+    fits its warps, each thread keeping gen T in shared memory, and of the
+    candidates the least ``RegPlan.cost`` on 132 SMs: path (h)'s four
+    stacked 8192 x 256-word tiles take 256-row tiles of 10 warps, path
+    (k)'s 4096 x 512-word strip 128-row tiles of 6."""
+    plan = cuda_adaptive.frontier_reg_plan
+    h = plan((4 * 8192, 256), 256, 24, 132)
+    k = plan((4096, 512), 256, 24, 132)
+    assert (h.tile_h, h.warps, h.grid, h.t, h.halo, h.keep) == (256, 10, (128, 9), 30, 30, True)
+    assert (k.tile_h, k.warps, k.grid) == (128, 6, (32, 18))
+    assert h.smem_bytes == cuda_adaptive.REG_EDGE_BYTES + 10 * 32 * 32 * 4
+    for shape, stripe, t in (((256, 4), 32, 18), ((64, 2), 16, 6), ((4096, 512), 16, 6)):
+        p = plan(shape, stripe, t, 132)
+        assert stripe % p.tile_h == 0 and p.warps * 32 >= p.tile_h + 2 * (t + 6)
+        assert p.grid == (shape[0] // p.tile_h, -(-shape[1] // 30))
+        others = [cuda_adaptive.RegPlan(t + 6, t + 6, d, -(-(d + 2 * t + 12) // 32),
+                                        (shape[0] // d, p.grid[1]), keep=True)
+                  for d in range(1, stripe + 1) if stripe % d == 0 and d + 2 * t + 12 <= 512]
+        assert p.cost(132) == min(o.cost(132) for o in others)
+    with pytest.raises(ValueError):
+        plan((256, 4), 32, 30, 132)  # T + 6 = 36 > one border word
+
+
 # -- the sharded dispatch ------------------------------------------------------------------
 
 
@@ -481,7 +702,7 @@ def assert_same_chunk(a, b):
 @pytest.mark.parametrize("plan", list(TILE_PLANS.values()), ids=list(TILE_PLANS))
 @pytest.mark.parametrize("kind", ["soup", "settled", "glider_corner"])
 @pytest.mark.parametrize("mesh_shape", [(2, 2), (2, 4), (1, 2)], ids=["2x2", "2x4", "1x2"])
-@pytest.mark.parametrize("rule", ["conway", "highlife"])
+@pytest.mark.parametrize("rule", ["conway", "highlife", "day-and-night"])
 def test_gpu_k15_matches_plain(cuda_device, rule, mesh_shape, kind, plan):
     """The chunk on the card (its launcher once, one wrapper call a
     launch) against the plain chunk on the card and on the CPU: tiles,
@@ -498,6 +719,31 @@ def test_gpu_k15_matches_plain(cuda_device, rule, mesh_shape, kind, plan):
     for key, ts in (("card", on_card), ("cpu", tiles)):
         seen[key] = []
         chunk_on(ts, plan, r, 8, each=lambda out, st, _s=seen[key]: _s.append(
+            ([t.to(CPU, copy=True) for row in out for t in row], st.state.to(CPU, copy=True))))
+    for (a, sa), (b, sb) in zip(seen["card"], seen["cpu"]):
+        assert all(torch.equal(x, y) for x, y in zip(a, b)) and torch.equal(sa, sb)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["settled-16-row-stripes", "corner-glider"])
+def test_gpu_k15_matches_its_mirror_where_it_elides(cuda_device, monkeypatch, case):
+    """K15 on the card against its mirror on the CPU where edge stripes are
+    elided: still lifes and blinkers on 64-row tiles with 16-row stripes,
+    and the lone corner glider on (2, 4) 64 x 4-word tiles; tiles and
+    state launch by launch."""
+    cells, mesh_shape = ((still_lifes_and_blinkers(128, 256), (2, 2))
+                         if case.startswith("settled") else
+                         (corner_glider((64, 4), (2, 4)), (2, 4)))
+    p = packed_of(cells.astype(np.uint8) * 255)
+    tiles = tiles_of(p, mesh_shape)
+    on_card = [[t.to(cuda_device) for t in row] for row in tiles]
+    seen = {}
+    for key, ts in (("card", on_card), ("cpu", tiles)):
+        if key == "cpu":
+            monkeypatch.setattr(cuda_halo, "tile_mega_launch_plain",
+                                cuda_halo.tile_mega_launch_mirror)
+        seen[key] = []
+        chunk_on(ts, EDGE_PLAN, tlife.CONWAY, 8, each=lambda out, st, _s=seen[key]: _s.append(
             ([t.to(CPU, copy=True) for row in out for t in row], st.state.to(CPU, copy=True))))
     for (a, sa), (b, sb) in zip(seen["card"], seen["cpu"]):
         assert all(torch.equal(x, y) for x, y in zip(a, b)) and torch.equal(sa, sb)

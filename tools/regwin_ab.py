@@ -1,9 +1,11 @@
-"""Time K9 and K13 of a checkout of the PyTorch port on one CUDA card.
+"""Time K9, K12, K13 and K15 of a checkout of the PyTorch port on one CUDA card.
 
     python3 tools/regwin_ab.py [--root DIR] [--label NAME] [--out FILE]
+                               [--sweep | --sweep-frontier]
 
 Imports ``distributed_gol_torch`` from ``--root`` (default: the checkout
-holding this script), builds its ``ext`` and ``probing`` kernels there, and
+holding this script), builds its ``ext``, ``probing``, ``tiled`` and
+``frontier`` kernels there, and
 times K9 (``cuda_halo.ext_launch``) and K13 (``cuda_halo.tile_probing_launch``)
 through their wrappers, whose signatures every slice of the port shares, at
 the shapes the main paths give them: the 16384² soup (density 0.3, seed 7)
@@ -20,7 +22,16 @@ rows before this script were taken, each launch between CUDA events inside
 the tile tier's own sequence of 8 launches a tile.  Where a launch is
 shorter than its wrapper's host time, back-to-back batches time the host;
 ``device_ms`` is the kernel's own time from ``torch.profiler`` (20
-launches).  Prints one JSON object with the card's name and power limit.
+launches).  K15 (``cuda_halo.tile_mega_launches``) on the same (2, 2)
+tiles and K12 (``cuda_halo.strip_frontier_launch``, driven by
+``cuda_halo.frontier_launches`` with its exchange) on the (4, 1) strips
+at the port's plan (T = 24, 256-row stripes), fresh and settled, each a
+chunk or sequence of 64 launches: the median and spread of 5 event-timed
+batches per launch (the host's calls and, for K12, the exchange
+included), and each kernel's device ms per launch from ``torch.profiler``
+(the frontier kernel and its finalize apart), and the SASS of their
+loops (``frontier_sass``).  Prints one JSON object with the card's name
+and power limit.
 
 To compare two commits on one card, unpack the parent into a directory
 that ``.gitignore`` lists and run parent, this, this, parent in one call.
@@ -88,6 +99,88 @@ def device_ms(fn, reps: int, kernel) -> float:
     return statistics.median(per)
 
 
+def device_ms_by_kernel(fn, kernels: dict, per: int) -> dict:
+    """Device ms per launch of each of ``kernels`` (name -> test of a
+    kernel's name) over one call of ``fn()`` of ``per`` launches, under
+    ``torch.profiler``: the median of ``BATCHES`` calls, after a warm-up
+    call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    per_kernel = {k: [] for k in kernels}
+    for _ in range(BATCHES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        for k, test in kernels.items():
+            us = 0.0
+            for a in prof.key_averages():
+                if test(a.key):
+                    t = getattr(a, "self_device_time_total", None)
+                    us += t if t is not None else a.self_cuda_time_total
+            per_kernel[k].append(us / per / 1e3)
+    return {k: statistics.median(v) for k, v in per_kernel.items()}
+
+
+FRONTIER_KERNELS = {"frontier": lambda k: ("tile_mega" in k or "strip_frontier" in k),
+                    "finalize": lambda k: "frontier_finalize" in k}
+
+
+def time_frontier(cuda_halo, shards, boards, rule) -> dict:
+    """K15 over the (2, 2) tiles and K12 on the (4, 1) strips of each
+    board at the port's plan, 64 launches a call: per launch, the median
+    and spread of ``BATCHES`` event-timed calls and the device ms of the
+    frontier kernel and of its finalize."""
+    out = {}
+    for key, mesh_shape in (("k15", (2, 2)), ("k12", (4, 1))):
+        tile = (BIG // mesh_shape[0], BIG // 32 // mesh_shape[1])
+        if key == "k15":
+            plan = cuda_halo.adaptive_tile_plan(tile, 10**6)[0]
+        else:
+            plan = cuda_halo.adaptive_strip_plan(tile, 10**6)
+        for name, p in boards.items():
+            sb = shards(p, mesh_shape)
+            if key == "k15":
+                def fn(sb=sb, plan=plan):
+                    return cuda_halo.tile_mega_launches(sb.shards, rule, plan, 64)
+                per = 64
+            else:
+                strips = [row[0] for row in sb.shards]
+
+                def fn(strips=strips, plan=plan):
+                    return cuda_halo.frontier_launches(strips, rule, plan, 64)
+                per = 64 * len(strips)
+            timed = batches(fn, 1)
+            out[f"{key}_{name}"] = dict(
+                plan=str(plan), ms_per_launch=spread([t / per for t in timed["batches"]]),
+                device_ms=device_ms_by_kernel(fn, FRONTIER_KERNELS, per))
+    return out
+
+
+def frontier_sass(cuda_build) -> dict:
+    """The SASS of K12's and K15's loops in this checkout's ``frontier``
+    build (``cuobjdump -sass``, read by ``tools/sass_loop_count.py``'s
+    functions): for a register-resident kernel (``*_reg_kernel``, B3/S23)
+    its generation loop (a 32-row run), for a shared-memory one its row
+    loop (``window.cuh::advance``); each loop's instructions in all and a
+    row, and its opcodes."""
+    sys.path.insert(1, str(Path(__file__).resolve().parent))
+    import sass_loop_count as slc
+
+    cuobjdump = str(Path(cuda_build.nvcc()).parent / "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(cuda_build.library_path("frontier"))],
+                          capture_output=True, text=True, check=True).stdout
+    out = {}
+    for name, code in slc.functions(sass).items():
+        for key, kernel in (("K12", "strip_frontier"), ("K15", "tile_mega")):
+            if f"{kernel}_reg_kernel" in name and slc.CONWAY in name:
+                out[key] = slc.summary(code, slc.generation_loop(code), slc.RUN_ROWS)
+            elif f"{kernel}_kernel" in name:
+                out[key] = slc.summary(code, slc.row_loop(code), 1)
+    return out
+
+
 def sweep(cuda_halo, halo, shards, big, boards, rule) -> dict:
     """K9 on the (4, 1) and (2, 2) shards at 32 generations, and K13 on the
     (2, 2) tile fresh and settled, at every block height the plans weigh
@@ -139,6 +232,55 @@ def sweep(cuda_halo, halo, shards, big, boards, rule) -> dict:
                                      20, lambda k: "tile_probing" in k)))
     finally:
         cuda_halo.ext_reg_plan, cuda_halo.tile_reg_plan = chosen, chosen_tile
+    rows += sweep_frontier(cuda_halo, shards, boards, rule)
+    return rows
+
+
+def sweep_frontier(cuda_halo, shards, boards, rule) -> list:
+    """K15 on the (2, 2) tiles and K12 on the (4, 1) strips, fresh and
+    settled, at every row tile ``frontier_reg_plan`` weighs (each divisor
+    of the stripe whose window fits 16 warps), each forced in place of its
+    pick: the plan's cost on 132 SMs beside the frontier kernel's device
+    ms per launch over 64 launches."""
+    from distributed_gol_torch.ops.cuda_adaptive import REG_MAX_WARPS, REG_RUN, RegPlan
+
+    chosen = cuda_halo.frontier_reg_plan
+    rows = []
+    try:
+        for key, mesh_shape in (("K15", (2, 2)), ("K12", (4, 1))):
+            ny, nx = mesh_shape
+            tile = (BIG // ny, BIG // 32 // nx)
+            if key == "K15":
+                plan = cuda_halo.adaptive_tile_plan(tile, 10**6)[0]
+                stacked = (ny * nx * tile[0], tile[1])
+            else:
+                plan = cuda_halo.adaptive_strip_plan(tile, 10**6)
+                stacked = tile
+            best = chosen(stacked, plan.stripe_h, plan.t, 132)
+            halo = plan.t + 6
+            for tile_h in [d for d in range(8, plan.stripe_h + 1) if plan.stripe_h % d == 0]:
+                warps = -(-(tile_h + 2 * halo) // REG_RUN)
+                if warps > REG_MAX_WARPS:
+                    continue
+                forced = RegPlan(halo, halo, tile_h, warps,
+                                 (stacked[0] // tile_h, -(-tile[1] // 30)), keep=True)
+                cuda_halo.frontier_reg_plan = lambda *a, _p=forced: _p
+                for name, p in boards.items():
+                    sb = shards(p, mesh_shape)
+                    strips = [row[0] for row in sb.shards]
+                    if key == "K15":
+                        def fn(sb=sb):
+                            return cuda_halo.tile_mega_launches(sb.shards, rule, plan, 64)
+                        per = 64
+                    else:
+                        def fn(strips=strips):
+                            return cuda_halo.frontier_launches(strips, rule, plan, 64)
+                        per = 64 * len(strips)
+                    rows.append(dict(kernel=key, board=name, plan=str(forced),
+                                     cost=forced.cost(132), chosen=forced == best,
+                                     device_ms=device_ms_by_kernel(fn, FRONTIER_KERNELS, per)))
+    finally:
+        cuda_halo.frontier_reg_plan = chosen
     return rows
 
 
@@ -148,7 +290,10 @@ def main() -> int:
     ap.add_argument("--label", default="")
     ap.add_argument("--out", default="")
     ap.add_argument("--sweep", action="store_true",
-                    help="also time K9 and K13 at every block height the plans weigh")
+                    help="also time K9, K12, K13 and K15 at every block height the plans "
+                         "weigh")
+    ap.add_argument("--sweep-frontier", action="store_true",
+                    help="also time K12 and K15 at every block height their plan weighs")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("regwin_ab: no CUDA GPU", file=sys.stderr)
@@ -164,7 +309,7 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     t0 = time.perf_counter()
-    cuda_build.build("ext", "probing", "tiled")
+    cuda_build.build("ext", "probing", "tiled", "frontier")
 
     def soup(h, w, seed):
         return packed.pack(torch.from_numpy(random_soup(h, w, 0.3, seed)).to(dev))
@@ -235,8 +380,12 @@ def main() -> int:
                 per.append(sum(s.elapsed_time(f) for s, f in spans) / len(spans))
             out["k13"][f"{mesh_shape[0]}x{mesh_shape[1]}_{name}"] = dict(
                 plan=str(plan), xpad=xpad, alone=alone, in_sequence=spread(per))
+    out["frontier"] = time_frontier(cuda_halo, shards, boards, CONWAY)
+    out["frontier_sass"] = frontier_sass(cuda_build)
     if args.sweep:
         out["sweep"] = sweep(cuda_halo, halo, shards, big, boards, CONWAY)
+    elif args.sweep_frontier:
+        out["sweep"] = sweep_frontier(cuda_halo, shards, boards, CONWAY)
     out["seconds"] = time.perf_counter() - t0
     line = json.dumps(out)
     print(line)

@@ -74,15 +74,18 @@ K12, K13, K15 and their controls K2, K4, K5, K8, K10 and K14 as the
 median and spread of 5 event-timed batches, K13 also back to back), and
 prints one
 ``{"kernels": [...]}`` line, the card's name and power limit, and last
-``{"ok": true, "device": {...}}``.  The build fails the run if K9, K12,
-K13 or K15 (``csrc/regwin.cuh``) spills a register (``-Xptxas -v``); K9
-and K13 are held at every depth 1-32, under a third rule that takes their
-generic instantiation, and at paths (c), (f), (i) and (j)'s shapes; K12
-launch by launch also at path (g)'s frontier plan (T = 6 on 16-row
-stripes) and under the third rule, and K15 under it too and against its
-mirror on the card (``cuda_halo.tile_mega_launch_mirror``: its blocks
-and the edge stripes it elides, which the bound of K15's settled launch
-leaves out).
+``{"ok": true, "device": {...}}``.  The build fails the run if K5/K8,
+K9, K12, K13, K14 or K15 (``csrc/regwin.cuh``) spills a register
+(``-Xptxas -v``); K9 and K13 are held at every depth 1-32, under a third
+rule that takes their generic instantiation, and at paths (c), (f), (i)
+and (j)'s shapes; K12 launch by launch also at path (g)'s frontier plan
+(T = 6 on 16-row stripes) and under the third rule, and K15 under it too
+and against its mirror on the card (``cuda_halo.tile_mega_launch_mirror``:
+its blocks and the edge stripes it elides, which the bound of K15's
+settled launch leaves out); K5, K8 and K14 under the third rule too and
+against their block mirrors on the card
+(``cuda_adaptive.frontier_launch_reg_mirror``,
+``frontier_batched_reg_mirror``, ``cuda_halo.strip_mega_launch_mirror``).
 ``--profile`` adds a
 ``torch.profiler`` breakdown of the two headless 16384² runs, of the
 three viewer paths, of the sharded (4, 1) run and of paths (e), (k) and
@@ -140,8 +143,15 @@ REG_RULES = (*RULES, DAY_AND_NIGHT)
 # and of their controls (K2, K4, K5, K10).
 BATCHES = 5
 # The kernels of regwin.cuh, which must build without spills.
-REG_KERNELS = ("ext_reg_kernel", "tile_probing_reg_kernel", "strip_frontier_reg_kernel",
-               "tile_mega_reg_kernel")
+REG_KERNELS = ("ext_reg_kernel", "tile_probing_reg_kernel", "frontier_reg_kernel",
+               "strip_frontier_reg_kernel", "strip_mega_reg_kernel", "tile_mega_reg_kernel")
+# The register-resident kernel of each frontier wrapper, as its mangled
+# name spells it (length, then name: "frontier_reg_kernel" alone is also
+# the tail of "strip_frontier_reg_kernel").
+FRONTIER_REG = {k: f"{len(n)}{n}" for k, n in (
+    ("frontier", "frontier_reg_kernel"), ("frontier_batched", "frontier_reg_kernel"),
+    ("strip_frontier", "strip_frontier_reg_kernel"), ("strip_mega", "strip_mega_reg_kernel"),
+    ("tile_mega", "tile_mega_reg_kernel"))}
 BIG = 16384
 TILED_ODD = (1004, 3072)  # H % 8 != 0 and W/32 % 128 != 0: refused by the TPU gate
 KERNELS = {
@@ -626,8 +636,11 @@ def check_frontier_batched(device, errs: dict) -> dict:
     """K8 against its plain version over one canonical chunk (8 launches)
     of 4 x 4096², fresh and settled (each soup after ``LONG_TURNS``
     generations of K2), and on the seam stack: boards, per-board skip
-    counts and activity, under both rules; and K8 with one board against
-    K5.  Returns the packed stacks (phase 4 times them)."""
+    counts and activity, under ``REG_RULES`` (Day & Night takes the
+    generic instantiation; each rule's launches counted in its own), and
+    against K8's block mirror on the card (``frontier_batched_reg_mirror``
+    at the card's blocks); and K8 with one board against K5.  Returns the
+    packed stacks (phase 4 times them)."""
     side, nb = POD_K8[1], POD_K8[0]
     plan = cuda_adaptive.adaptive_plan((side, side // 32), 10**6)
     fresh = packed.pack(soup_stack(nb, side, 51, device)).contiguous()
@@ -635,19 +648,30 @@ def check_frontier_batched(device, errs: dict) -> dict:
                            for b in fresh])
     stacks = {"fresh": fresh, "settled": settled,
               "seam": packed.pack(seam_stack(side, device)).contiguous()}
-    for rule in RULES:
+    sms = cuda_adaptive.device_sms(device)
+    for rule in REG_RULES:
         for name, st in stacks.items():
+            reset_launches()
             got, sk, act = cuda_adaptive.frontier_superstep_batched(st, rule, plan, 8)
             want, wsk, wact = cuda_adaptive.frontier_superstep_batched_mirror(st, rule, plan, 8)
+            blk = cuda_adaptive.frontier_batched_reg_mirror(st, rule, plan, 8, sms)
             torch.cuda.synchronize()
-            errs["frontier_batched"] = max(errs["frontier_batched"], max_abs_err(got, want))
+            if cuda_adaptive.frontier_superstep_batched.rules != {instantiation(rule): 8}:
+                raise AssertionError(f"K8 under {rule.notation} ran "
+                                     f"{dict(cuda_adaptive.frontier_superstep_batched.rules)}")
+            err = max(max_abs_err(got, want), max_abs_err(got, blk[0]))
+            errs["frontier_batched"] = max(errs["frontier_batched"], err)
             if not (torch.equal(got, want) and torch.equal(sk, wsk) and torch.equal(act, wact)):
                 raise AssertionError(f"K8 != plain on the {name} stack under {rule.notation}: "
                                      f"skipped {sk.tolist()} vs {wsk.tolist()}")
+            if err or not (torch.equal(sk, blk[1]) and torch.equal(act, blk[2])):
+                raise AssertionError(f"K8 != its block mirror on the {name} stack under "
+                                     f"{rule.notation}")
             if name == "seam" and not torch.equal(got, packed.superstep(st, rule, 8 * plan.t)):
                 raise AssertionError("K8's seam stack differs from the plain packed engine")
             log(f"K8 {st.shape[0]} x {side}^2 x 8 launches ({plan}) {name} {rule.notation}: "
-                f"identical, skipped {sk.tolist()}, active stripes {int((act > 0).sum())}")
+                f"identical to the plain version and the block mirror, skipped {sk.tolist()}, "
+                f"active stripes {int((act > 0).sum())}")
         one = cuda_adaptive.frontier_superstep_batched(fresh[:1].contiguous(), rule, plan, 8)
         k5 = cuda_adaptive.frontier_superstep(fresh[0].contiguous(), rule, plan, 8)
         if not (torch.equal(one[0][0], k5[0]) and int(one[1][0]) == int(k5[1])
@@ -680,7 +704,10 @@ def check_adaptive(errs: dict, boards: dict) -> None:
     count and per-stripe activity, on each board under both rules, through
     one dispatch of t·(512 + 3) + 13 turns (a 512-launch frontier chunk, a
     3-launch probing tail, a skip launch and a plain remainder), then K3
-    alone at every launch depth and K4 alone over 8 launches."""
+    alone at every launch depth and K4 alone over 8 launches; then K5
+    alone over 8 launches on each board under ``REG_RULES`` (Day & Night
+    takes its generic instantiation) against its plain version and its
+    block mirror on the card (``check_k5_blocks``)."""
     plan = cuda_adaptive.adaptive_plan((BIG, BIG // 32), 10**6)
     turns = plan.t * (512 + 3) + 13
     want_counts = {"frontier": 512, "probing": 3, "tiled_skip": 1}
@@ -715,6 +742,43 @@ def check_adaptive(errs: dict, boards: dict) -> None:
             if not torch.equal(got, want) or int(sk) != int(wsk) or not torch.equal(act, wact):
                 raise AssertionError(f"K4 x 8 launches != plain, {name}, {rule.notation}")
             log(f"K3 x {{6, 12, 18, 24}} and K4 x 8 launches, {name} {rule.notation}: identical")
+    check_k5_blocks(errs, boards, plan)
+
+
+def instantiation(rule: LifeRule) -> str:
+    """The register-resident kernels' instantiation ``rule`` takes."""
+    return cuda_adaptive.REG_RULES[cuda_adaptive.reg_rule(rule)[2]]
+
+
+def check_k5_blocks(errs: dict, boards: dict, plan) -> None:
+    """K5 over one chunk of 8 launches on each board under ``REG_RULES``,
+    each launch counted in the rule's instantiation, against its plain
+    version and against its block mirror run on the card at the card's
+    blocks (``cuda_adaptive.frontier_launch_reg_mirror``): board, skip
+    count and activity, tolerance 0."""
+    device = boards["fresh"].device
+    blocks = cuda_adaptive.frontier_blocks((BIG, BIG // 32), plan, 1,
+                                           cuda_adaptive.device_sms(device))
+    mirror = functools.partial(cuda_adaptive.frontier_launch_reg_mirror, blocks=blocks)
+    for rule in REG_RULES:
+        for name, p in boards.items():
+            reset_launches()
+            got = cuda_adaptive.frontier_superstep(p, rule, plan, 8)
+            torch.cuda.synchronize()
+            if cuda_adaptive.frontier_superstep.rules != {instantiation(rule): 8}:
+                raise AssertionError(f"K5 under {rule.notation} ran "
+                                     f"{dict(cuda_adaptive.frontier_superstep.rules)}")
+            for what, want in (("plain", cuda_adaptive.frontier_superstep_mirror(p, rule, plan, 8)),
+                               ("block mirror", cuda_adaptive.frontier_superstep_mirror(
+                                   p, rule, plan, 8, mirror))):
+                err = max(max_abs_err(a, b) for a, b in zip(got, want))
+                errs["frontier"] = max(errs["frontier"], err)
+                if err:
+                    raise AssertionError(f"K5 x 8 != its {what} on the {name} board under "
+                                         f"{rule.notation}")
+            log(f"K5 {BIG}^2 x 8 launches ({blocks}) {name} {rule.notation} "
+                f"({instantiation(rule)}): identical to the plain version and the block mirror, "
+                f"skipped {int(got[1])}")
 
 
 def check_ext(device, errs: dict) -> dict:
@@ -958,7 +1022,8 @@ def check_mega_chunks(key: str, chunk, shards, plan, runs, errs: dict, where: st
     chunk function) against its plain version, tolerance 0, on ``shards``
     (``where`` names them in the log): for each (rule, n) of ``runs`` the
     n-launch chunk on the card (its launcher once, one wrapper call a
-    launch, exactly n launches counted, K15's in the rule's instantiation)
+    launch, exactly n launches counted, K14's and K15's in the rule's
+    instantiation)
     against the plain chunk on the card, in shards, final state, skip
     counts and activity; then three
     launches against the plain chunk launch by launch (shards and the
@@ -970,8 +1035,8 @@ def check_mega_chunks(key: str, chunk, shards, plan, runs, errs: dict, where: st
         torch.cuda.synchronize()
         if WRAPPERS[key].launches != n:
             raise AssertionError(f"a {n}-launch chunk launched {tag} {WRAPPERS[key].launches} times")
-        rules = getattr(WRAPPERS[key], "rules", None)  # K15's instantiations
-        if rules is not None and rules[cuda_halo.REG_RULES[cuda_halo.reg_rule(rule)[2]]] != n:
+        rules = WRAPPERS[key].rules  # K14's and K15's instantiations
+        if rules != {instantiation(rule): n}:
             raise AssertionError(f"{tag} under {rule.notation} ran {dict(rules)}")
         want = chunk(shards, rule, plan, n, plain=True)
         err = mega_chunks_equal((flat(got[0]), got[1]), (flat(want[0]), want[1]), n)
@@ -1003,12 +1068,15 @@ def check_strip_mega(device, errs: dict, boards: dict) -> dict:
     neighbour): fresh, settled (after ``LONG_TURNS`` generations) and
     settled with a glider across every strip seam and the torus wrap
     (``seam_gliders``), through ``check_mega_chunks``: chunks of 8
-    launches under both rules and of 64 under Conway (and HighLife on
-    (4, 1)), then launch by launch.  On (4, 1), a K14 chunk of 8 and of
-    64 must also equal one K5 chunk (``cuda_adaptive.frontier_superstep``)
-    on the whole board at the strip plan's stripes: on one card the two
-    compute the same function (board, skip count, activity).  Returns the
-    (4, 1) strips by board (phase 4 times them)."""
+    launches under both rules and Day & Night (K14's generic
+    instantiation, which must have run) and of 64 under Conway (and
+    HighLife on (4, 1)), then launch by launch; and the 8-launch chunk
+    against K14's block mirror run on the card (``strip_mirror_chunk``).
+    On (4, 1), a K14 chunk of 8 and of 64 must also equal one K5 chunk
+    (``cuda_adaptive.frontier_superstep``) on the whole board at the strip
+    plan's stripes: on one card the two compute the same function (board,
+    skip count, activity).  Returns the (4, 1) strips by board (phase 4
+    times them)."""
     plan = cuda_halo.adaptive_strip_plan((BIG // MESH_E[0], BIG // 32), 10**6)
     whole = {"fresh": boards["fresh"], "settled": boards["settled"],
              "seam": seam_gliders(boards["settled"])}
@@ -1018,13 +1086,19 @@ def check_strip_mega(device, errs: dict, boards: dict) -> dict:
         strip_plan = cuda_halo.adaptive_strip_plan((BIG // ny, BIG // 32), 10**6)
         if strip_plan != plan or not plan.frontier:
             raise AssertionError(f"the {mesh_shape} strips do not share the frontier plan {plan}")
-        runs = [(CONWAY, 8), (HIGHLIFE, 8), (CONWAY, 64)]
+        runs = [(CONWAY, 8), (HIGHLIFE, 8), (DAY_AND_NIGHT, 8), (CONWAY, 64)]
         if mesh_shape == MESH_E:
             runs.append((HIGHLIFE, 64))
         for name, p in whole.items():
             strips = list(p.chunk(ny))
             check_mega_chunks("strip_mega", cuda_halo.strip_mega_launches, strips, plan, runs,
                               errs, f"the {mesh_shape} {name} strips")
+            got = cuda_halo.strip_mega_launches(strips, CONWAY, plan, 8)
+            err = mega_chunks_equal(got, strip_mirror_chunk(strips, plan, 8), 8)
+            errs["strip_mega"] = max(errs["strip_mega"], err)
+            if err:
+                raise AssertionError(f"K14 != its block mirror on the {mesh_shape} {name} strips")
+            log(f"K14 {mesh_shape} {name}: the 8-launch chunk equals its block mirror on the card")
             if mesh_shape != MESH_E:
                 continue
             for n in (8, 64):
@@ -1957,10 +2031,12 @@ FIRST_LAUNCHES, LAST_LAUNCHES = 8, 256
 def launch_times(prof, loop_s: float) -> dict:
     """Each of the port's kernels (``csrc/``, anonymous namespace) in a
     trace, launch by launch: its launches, device ms in all and their
-    share of the dispatch loop's ``loop_s``, the median, 10th and 90th
-    percentile and largest device ms a launch, and the mean of its first
+    share of the dispatch loop's ``loop_s``, the mean, median, 10th and
+    90th percentile and largest device ms a launch, the mean of its first
     ``FIRST_LAUNCHES`` (the fresh soup) and last ``LAST_LAUNCHES`` launches
-    (settled), in start order."""
+    (settled), in start order, and its heavy launches (at least half the
+    largest: a frontier kernel's forced launch 0 of each chunk and the
+    fresh soup's launches), their count and device ms."""
     times = collections.defaultdict(list)
     for e in prof.events():
         if ("CUDA" in str(e.device_type) and "(anonymous namespace)::" in e.name
@@ -1971,10 +2047,13 @@ def launch_times(prof, loop_s: float) -> dict:
     for name, seq in times.items():
         ms = [t for _, t in sorted(seq)]
         q = statistics.quantiles(ms, n=10) if len(ms) > 1 else ms * 9
+        heavy = [t for t in ms if t >= max(ms) / 2]
         out[name] = dict(launches=len(ms), device_ms=sum(ms), loop_share=sum(ms) / 1e3 / loop_s,
-                         median_ms=statistics.median(ms), p10_ms=q[0], p90_ms=q[-1],
-                         max_ms=max(ms), first_ms=statistics.mean(ms[:FIRST_LAUNCHES]),
-                         last_ms=statistics.mean(ms[-LAST_LAUNCHES:]))
+                         mean_ms=statistics.mean(ms), median_ms=statistics.median(ms),
+                         p10_ms=q[0], p90_ms=q[-1], max_ms=max(ms),
+                         first_ms=statistics.mean(ms[:FIRST_LAUNCHES]),
+                         last_ms=statistics.mean(ms[-LAST_LAUNCHES:]),
+                         heavy_launches=len(heavy), heavy_device_ms=sum(heavy))
     return out
 
 
@@ -2282,6 +2361,21 @@ def time_strip_mega(cases: dict, int_rate: float) -> dict:
     return dict(ms=fresh["ms"], plain_ms=fresh["plain_ms"],
                 bound=(fresh["bound_ms"], fresh["bound_by"]),
                 extra=dict(board="fresh", shape=[ny, *strip], per_board=rows))
+
+
+def strip_mirror_chunk(strips, plan, n: int, rule: LifeRule = CONWAY):
+    """An ``n``-launch K14 chunk on ``strips`` through K14's block mirror
+    (``cuda_halo.strip_mega_launch_mirror`` at the card's blocks, here on
+    the card) in place of the plain version: (strips, state)."""
+    blocks = cuda_adaptive.frontier_blocks(tuple(strips[0].shape), plan, len(strips),
+                                           cuda_adaptive.device_sms(strips[0].device))
+    saved = cuda_halo.strip_mega_launch_plain
+    cuda_halo.strip_mega_launch_plain = functools.partial(cuda_halo.strip_mega_launch_mirror,
+                                                          blocks=blocks)
+    try:
+        return cuda_halo.strip_mega_launches(strips, rule, plan, n, plain=True)
+    finally:
+        cuda_halo.strip_mega_launch_plain = saved
 
 
 def mirror_chunk(tiles, plan, n: int, rule: LifeRule = CONWAY):
@@ -2597,7 +2691,7 @@ def main() -> int:
                 log(f"  {k}: {line.strip()}")
     reg_build = {k: reg_build_report(cuda_build.build_log(k))
                  for k in ("ext", "probing", "frontier")}
-    log(f"K9, K12, K13 and K15 (regwin.cuh) build without spills: "
+    log(f"K5/K8, K9 and K12-K15 (regwin.cuh) build without spills: "
         f"{ {k: [r['registers'] for r in v.values()] for k, v in reg_build.items()} } registers")
     plan = cuda_packed.tiled_plan((BIG, BIG // 32), 10**6)
     log(f"dynamic shared memory: resident {512 // 32 * 512 * 4} B per block at 512^2 "
@@ -2724,8 +2818,6 @@ def main() -> int:
     timings["tile_probing"] = tiles["tile_probing"]
     timings["ext"]["extra"]["build"] = reg_build["ext"]
     timings["tile_probing"]["extra"]["build"] = reg_build["probing"]
-    for k in ("strip_frontier", "tile_mega"):
-        timings[k]["extra"]["build"] = {n: r for n, r in reg_build["frontier"].items() if k in n}
     timings["ext_skip"]["extra"]["tile_2d"] = tiles["ext_skip_2d"]
     witness = k6_witnesses(soups[BIG], wrap_free)
     e2e[f"viewer_turn_{BIG}"] = time_viewer_turn(soups[BIG])
@@ -2742,6 +2834,9 @@ def main() -> int:
                               tiled_same_t_ms={name: row["tiled_same_t_ms"]
                                                for name, row in adaptive["boards"].items()}))
 
+    for k, mangled in FRONTIER_REG.items():
+        timings[k].setdefault("extra", {})["build"] = {
+            n: r for n, r in reg_build["frontier"].items() if mangled in n}
     kernels = []
     for k, meta in KERNELS.items():
         tm = timings[k]

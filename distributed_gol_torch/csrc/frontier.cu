@@ -1,12 +1,17 @@
-// K5: the frontier kernel.  Replaces
-// distributed_gol_tpu/ops/pallas_packed.py::_kernel_frontier_mega (its
-// decisions _hit_union, its measure _measure2), the kernel _run_tiled runs
-// for whole chunks of launches of a skip_stable dispatch.
+// The frontier kernels: K5 and K8 (gol_frontier_batched_launch), K12
+// (gol_strip_frontier_launch), K14 (gol_strip_mega_launch) and K15
+// (gol_tile_mega_launch).  Each replaces a Pallas kernel of the JAX
+// package that runs the tracked-interval skip/compute/measure state
+// machine of a skip_stable dispatch, and each steps its windows in
+// registers (regwin.cuh's frontier window, below).
 //
-// The TPU kernel runs a chunk of launches as one pallas_call with the
-// per-stripe state in SMEM.  Here one launch (T generations, T a multiple
-// of 6, T + 6 <= 32) is two CUDA kernels chained on the stream, and the
-// state lives in device memory, so there is no host round trip between
+// K5: replaces distributed_gol_tpu/ops/pallas_packed.py::
+// _kernel_frontier_mega (its decisions _hit_union, its measure _measure2),
+// the kernel _run_tiled runs for whole chunks of launches.  The TPU kernel
+// runs a chunk of launches as one pallas_call with the per-stripe state
+// in SMEM.  Here one launch (T generations, T a multiple of 6,
+// T + 6 <= 30) is two CUDA kernels chained on the stream, and the state
+// lives in device memory, so there is no host round trip between
 // launches:
 //
 //   state  int32[2][5][grid]: per launch parity, the two tracked row
@@ -17,46 +22,43 @@
 //   skipped int32[1], act int32[grid]: the skip count and the per-stripe
 //          activity, accumulated over the chunk.
 //
-// frontier_kernel, one block per tile (row sub-tiles of a stripe x word
-// columns with a one-word column halo):
+// frontier_reg_kernel, one block per (row tile of a stripe, column group
+// of 30 words):
 // - reads the neighbour stripes' intervals from the previous parity,
 //   placed in this stripe's row frame across the torus wrap, and decides
 //   `hit` and the clamped union exactly as _hit_union does, with the JAX
-//   kernel's pad_f = round8(T + 6); launch 0 of a chunk forces hit and the
-//   maximal union;
+//   kernel's reach pad_f = round8(T + 6); launch 0 of a chunk forces hit
+//   and the maximal union;
 // - a stripe that does not hit counts one skip, and copies its centre from
 //   the read buffer to the write buffer if it computed last launch (the
 //   write buffer holds the state of two launches ago; a stripe that also
 //   skipped last launch has nothing to do);
-// - a stripe that hits loads a window with a T + 6 row halo, computes T
-//   generations, writes the gen-T centre, computes 6 more and flags the
-//   rows of its measure region (the JAX m_lo..m_hi, in the centre) where
-//   gen T + 6 differs from gen T.  The TPU kernel's row, column and
-//   rectangle tiers only narrow what it computes; cells in their validity
-//   regions are the true state, so computing the whole window gives the
-//   same board and the same measure.
+// - a stripe that hits loads its window (T + 6 rows a side, rows wrapping
+//   around the board: reg::column of a BoardSource), steps T generations,
+//   writes the gen-T centre, steps 6 more and flags the rows of its
+//   measure region (the JAX m_lo..m_hi, in the centre) where gen T + 6
+//   differs from gen T.  The TPU kernel's row, column and rectangle tiers
+//   only narrow what it computes; cells in their validity regions are the
+//   true state, so computing the whole window gives the same board and
+//   the same measure.
 // frontier_finalize, one block per stripe: turns the stripe's row flags
 // into the two intervals of _measure2 (split at the midpoint of the
 // stripe-wide span), counts the stripe active when the first is nonempty,
 // and clears the flags.
 //
-// What bounds it: integer operations on the stripes that hit (T + 6
-// generations of their windows); a settled board costs two small launches.
-//
-// K8: the batched form (gol_frontier_batched_launch).  Replaces the
+// K8: the same kernel on a contiguous stack of B same-shape boards, the
 // nboards > 1 form of _kernel_frontier_mega (its leading grid axis over
-// boards stacked along the row axis, driven by _run_tiled_batched): a
-// contiguous stack of B same-shape boards, blockIdx.z the board.  Every
-// array gains the board axis, indexed board-globally as the JAX kernel's
-// gi = b * grid + i: state int32[2][5][B * grid], rowflag int32[B * H],
-// skipped int32[B] (one count per board), act int32[B * grid].  Each board
-// is its own torus: block (., ., b) offsets its board pointers and row
-// flags by b boards, so the window gather (modulo H), the neighbour
-// stripes (i +- 1 mod grid) and the interval placement across the wrap
-// all stay inside board b; a dead board beside a live one is never read.
-// K5 is this kernel with B = 1.
+// boards stacked along the row axis, driven by _run_tiled_batched),
+// blockIdx.z the board.  Every array gains the board axis, indexed
+// board-globally as the JAX kernel's gi = b * grid + i: state
+// int32[2][5][B * grid], rowflag int32[B * H], skipped int32[B] (one count
+// per board), act int32[B * grid].  Each board is its own torus: block
+// (., ., b) reads board b's words (its column wraps within the board), its
+// neighbour stripes i +- 1 mod grid and its interval placement across the
+// wrap all stay inside board b; a dead board beside a live one is never
+// read.  K5 is this kernel with B = 1.
 //
-// K12: the frontier strip launch (gol_strip_frontier_launch).  Replaces
+// K12: the frontier strip launch.  Replaces
 // distributed_gol_tpu/parallel/pallas_halo.py::_ext_kernel_frontier, the
 // launch a skip_stable dispatch on a row mesh runs for every full launch
 // where the strip has a frontier plan.  K5 on one strip, state in the
@@ -66,12 +68,11 @@
 // inside the strip); a window's rows outside the strip come from the
 // north and south buffers (window.cuh::StripSource); the first launch of
 // a dispatch starts from full intervals, as the JAX make_superstep does.
-// The decision (decide) and the finalize are K5's; the window is
-// register-resident (regwin.cuh, below).  Like K5 it keeps no column
-// interval: the JAX kernel's (cl, ch) only narrows its column tier, and
-// neither the skip decision nor the activity reads it.
+// Like K5 it keeps no column interval: the JAX kernel's (cl, ch) only
+// narrows its column tier, and neither the skip decision nor the activity
+// reads it.
 //
-// K14: the strip megakernel (gol_strip_mega_launch).  Replaces
+// K14: the strip megakernel.  Replaces
 // distributed_gol_tpu/parallel/pallas_halo.py::_kernel_frontier_mega_strip,
 // the in-kernel exchange tier of a skip_stable dispatch on a row mesh: on
 // a TPU one pallas_call per device runs a chunk of launches, shipping
@@ -90,10 +91,9 @@
 // every array gains the strip axis as K8's gains the board axis (state
 // int32[2][5][ny * grid], rowflag int32[ny * h_loc], skipped int32[ny],
 // act int32[ny * grid]), so K8's finalize serves unchanged.  With ny = 1
-// the strip is its own neighbour: the JAX package's loopback build.  What
-// bounds it is K5's: integer operations on the stripes that hit.
+// the strip is its own neighbour: the JAX package's loopback build.
 //
-// K15: the 2-D megakernel (gol_tile_mega_launch).  Replaces
+// K15: the 2-D megakernel.  Replaces
 // distributed_gol_tpu/parallel/pallas_halo.py::_kernel_frontier_mega_2d,
 // the in-kernel exchange tier of a skip_stable dispatch on an (ny, nx)
 // mesh, whose TPU form ships N/S rows, E/W word columns, four corner
@@ -119,19 +119,23 @@
 // intervals (its rows stay unflagged) and, to keep the skip count, the
 // activity and the state the JAX kernel's, counts as computed (it copies
 // its centre as a stripe that computed last launch must).  Launch 0 of a
-// chunk still forces every stripe.
+// chunk still forces every stripe.  K14 never forced its edge stripes, so
+// it has no such elision.
 //
-// K12 and K15 step their windows in registers (regwin.cuh's frontier
-// window): a block is `warps` warps over a tile of `tile_h` rows of one
-// stripe (a divisor of it) with T + 6 rows a side, and one 32-word column
-// group whose middle 30 words are its centre (T + 6 <= 30 < 32: one border
-// word a side holds the lanes' wrap error).  It steps T generations,
-// stores its gen-T centre and keeps it in shared memory, steps 6 more and
-// flags its measure rows; each run steps only the chunks of the light cone
-// of generation T + 6 on the centre.  The plan
-// (ops/cuda_adaptive.py::frontier_reg_plan) picks the block height.  What
-// bounds it is K5's work, and on settled boards the blocks of the few
-// stripes that hit.
+// The window (regwin.cuh): a block is `warps` warps over a tile of
+// `tile_h` rows of one stripe (a divisor of it) with T + 6 rows a side,
+// and one 32-word column group whose middle 30 words are its centre
+// (T + 6 <= 30 < 32: one border word a side holds the lanes' wrap error,
+// and a board narrower than 30 words wraps inside the group, its copies
+// past wp never stored or measured).  It steps T generations, stores its
+// gen-T centre and keeps it in shared memory, steps 6 more and flags its
+// measure rows; each run steps only the chunks of the light cone of
+// generation T + 6 on the centre.  The plan
+// (ops/cuda_adaptive.py::frontier_blocks: frontier_reg_plan on every
+// shard's rows stacked) picks the block height.  What bounds a launch:
+// integer operations on the stripes that hit (T + 6 generations of their
+// words); on a settled board, the decisions of the many blocks that do
+// not compute and the few stripes that do.
 
 #include "regwin.cuh"
 #include "window.cuh"
@@ -268,89 +272,6 @@ __device__ void decide(int* decision, const Intervals& iv, int c_lo, int c_hi, i
     decision[2] = min(u_hi + t6, c_hi);
 }
 
-// One tile of a frontier launch after its stripe's decision: a stripe
-// that does not hit counts one skip and copies its centre from `rd` to
-// `wr` if it computed last launch; one that hits steps the window from
-// `src` (a halo-row halo, xpad-word columns) T generations, stores the
-// gen-T centre in `wr`, steps 6 more and flags the measure rows where
-// gen T + 6 differs.  The leader (one thread of the stripe) keeps the
-// skip count and the stripe's computed flag `*computed`.
-template <class Source>
-__device__ void frontier_tile(uint32_t* smem, const int* decision, const Source& src,
-                              const uint32_t* __restrict__ rd, uint32_t* __restrict__ wr,
-                              int* __restrict__ rowflag, int* skipped, int* computed,
-                              int computed_before, bool leader, int h, int wp, int turns,
-                              int tile_h, int tile_w, int xpad, int halo, int y0, int x0,
-                              uint32_t born, uint32_t surv) {
-    if (!decision[0]) {
-        if (leader) {
-            atomicAdd(skipped, 1);
-            *computed = 0;
-        }
-        if (computed_before) copy_tile(rd, wr, h, wp, y0, x0, tile_h, tile_w);
-        return;
-    }
-    if (leader) *computed = 1;
-
-    const Window w{tile_h + 2 * halo, tile_w + 2 * xpad, y0 - halo, x0 - xpad};
-    uint32_t* a = smem;
-    uint32_t* b = smem + w.rows * w.cols;
-    load_window(src, a, w);
-    uint32_t* res = advance(a, b, w, turns, born, surv);
-    store_centre(res, wr, h, wp, w, halo, xpad, y0, x0, tile_h, tile_w);
-    __syncthreads();  // the gen-T centre in `wr` is what the measure reads
-    res = advance(res, res == a ? b : a, w, kSkipPeriod, born, surv);
-
-    // Measure: one warp per row, a flag per row that differs anywhere in
-    // this tile's centre words.
-    const int lane = thread_id() % 32;
-    const int r_lo = max(decision[1], y0);
-    const int r_hi = min(decision[2], y0 + tile_h - 1);
-    for (int r = r_lo + thread_id() / 32; r <= r_hi; r += kThreads / 32) {
-        const uint32_t* row = res + (r - y0 + halo) * w.cols + xpad;
-        uint32_t diff = 0u;
-        for (int c = lane; c < tile_w && x0 + c < wp; c += 32) {
-            diff |= row[c] ^ wr[static_cast<size_t>(r) * wp + x0 + c];
-        }
-        if (__any_sync(0xffffffffu, diff != 0u) && lane == 0) rowflag[r] = 1;
-    }
-}
-
-__global__ void __launch_bounds__(kThreads)
-frontier_kernel(const uint32_t* __restrict__ rd, uint32_t* __restrict__ wr,
-                int* __restrict__ state, int* __restrict__ rowflag, int* __restrict__ skipped,
-                int h, int wp, int turns, int stripe_h, int tile_h, int tile_w, int xpad,
-                int halo, int parity, int first, uint32_t born, uint32_t surv) {
-    extern __shared__ uint32_t smem[];
-    __shared__ int decision[3];  // hit, measure rows lo, hi
-    const int grid = h / stripe_h;
-    // Board b of the stack: its words, its row flags, its skip count; its
-    // stripes' state at board-global index b * grid + i.
-    const int board = blockIdx.z;
-    const int total = gridDim.z * grid;
-    rd += static_cast<size_t>(board) * h * wp;
-    wr += static_cast<size_t>(board) * h * wp;
-    rowflag += static_cast<size_t>(board) * h;
-    skipped += board;
-    const int y0 = blockIdx.y * tile_h;
-    const int x0 = blockIdx.x * tile_w;
-    const int i = y0 / stripe_h;
-    const int c_lo = i * stripe_h;
-    const int t6 = turns + kSkipPeriod;
-    const int* prev = state + (1 - parity) * kFields * total + board * grid;
-    int* cur = state + parity * kFields * total + board * grid;
-    const bool leader = thread_id() == 0 && blockIdx.x == 0 && y0 == c_lo;
-
-    if (thread_id() == 0) {
-        decide(decision, TorusIntervals{prev, total, grid, stripe_h, i}, c_lo,
-               c_lo + stripe_h - 1, t6, (t6 + 7) / 8 * 8, first);
-    }
-    __syncthreads();
-    frontier_tile(smem, decision, BoardSource{rd, h, wp}, rd, wr, rowflag, skipped,
-                  &cur[4 * total + i], prev[4 * total + i], leader, h, wp, turns, tile_h, tile_w,
-                  xpad, halo, y0, x0, born, surv);
-}
-
 // A frontier block on the register-resident window after its stripe's
 // decision (decision[0]: 0 skip, 1 compute, 2 an edge stripe proved
 // stable, K15: counted computed, not computed).  The leader (one thread
@@ -392,6 +313,62 @@ __device__ __forceinline__ void reg_steps(uint32_t (&s)[reg::kRun], reg::Edges& 
     store(s);
     reg::advance(s, edges, run, turns + 1, turns + kSkipPeriod, rule);
     measure(s);
+}
+
+// K5 and K8: one frontier launch over a contiguous stack of boards of
+// (h, wp) words, blockIdx.z the board, blockIdx.y the row tile of a
+// stripe and blockIdx.x the column group of 30 words.  Board b's stripes
+// keep their state at b * grid + i; `first` forces every stripe to hit
+// with the maximal union (launch 0 of a chunk).  The window's rows wrap
+// around board b alone (reg::column of a BoardSource; the halo <= h).
+template <class Rule>
+__global__ void __launch_bounds__(reg::kMaxThreads, reg::FrontierBlocks<Rule>::value)
+frontier_reg_kernel(const uint32_t* __restrict__ rd, uint32_t* __restrict__ wr,
+                    int* __restrict__ state, int* __restrict__ rowflag, int* __restrict__ skipped,
+                    int h, int wp, int turns, int stripe_h, int tile_h, int pad_f, int parity,
+                    int first, Rule rule) {
+    __shared__ reg::Edges edges;
+    __shared__ int decision[3];  // 0 skip / 1 compute, measure rows lo, hi
+    extern __shared__ uint32_t kept[];  // the window at gen T (reg::keep)
+    const int grid = h / stripe_h;
+    const int board = blockIdx.z;
+    const int total = gridDim.z * grid;
+    const size_t words = static_cast<size_t>(h) * wp;
+    const uint32_t* b = rd + board * words;
+    const int y0 = blockIdx.y * tile_h;
+    const int x0 = blockIdx.x * (reg::kLanes - 2);
+    const int i = y0 / stripe_h;
+    const int c_lo = i * stripe_h;
+    const int* prev = state + (1 - parity) * kFields * total + board * grid;
+    int* cur = state + parity * kFields * total + board * grid;
+    const bool lead = threadIdx.x == 0 && threadIdx.y == 0;
+    if (lead) {
+        decide(decision, TorusIntervals{prev, total, grid, stripe_h, i}, c_lo,
+               c_lo + stripe_h - 1, turns + kSkipPeriod, pad_f, first);
+    }
+    __syncthreads();
+    if (!reg_begin(decision, lead && blockIdx.x == 0 && y0 == c_lo, skipped + board,
+                   &cur[4 * total + i], prev[4 * total + i], b, wr + board * words, wp, y0, x0,
+                   tile_h)) {
+        return;
+    }
+    const reg::Run run = reg_run(turns, tile_h);
+    uint32_t s[reg::kRun];
+    const reg::Column col = reg::column(BoardSource{b, h, wp}, x0 - 1 + run.lane);
+    const int top = y0 - run.halo;
+    reg::load(s, run, [&](int r) { return col(top + r); });
+    const int lanes = reg::kLanes - 2;
+    reg_steps(
+        s, edges, kept, run, turns, rule,
+        [&](const uint32_t(&v)[reg::kRun]) {
+            reg::store_centre(v, run, wr + static_cast<size_t>(reg::block_z()) * h * wp, wp,
+                              reg::block_y() * tile_h, reg::block_x() * lanes, tile_h);
+        },
+        [&](const uint32_t(&v)[reg::kRun]) {
+            reg::flag_changed(v, run, kept, rowflag + static_cast<size_t>(reg::block_z()) * h, wp,
+                              reg::block_y() * tile_h, reg::block_x() * lanes, tile_h,
+                              decision[1], decision[2]);
+        });
 }
 
 // K12: one frontier launch on one strip of a row mesh, one block per
@@ -446,44 +423,65 @@ strip_frontier_reg_kernel(const uint32_t* __restrict__ local, const uint32_t* __
         });
 }
 
-// K14: one launch over every strip of a row mesh, blockIdx.z the strip.
-// `rd_tab` and `wr_tab` (ny entries each) give the strips' read and write
-// buffers; the window's rows past strip s's edge come from the read
-// buffers of strips s - 1 and s + 1 (h rows each, halo <= h).  `first`
-// forces every stripe to hit with the maximal union (launch 0 of a chunk).
-__global__ void __launch_bounds__(kThreads)
-strip_mega_kernel(const uint32_t* const* __restrict__ rd_tab, uint32_t* const* __restrict__ wr_tab,
-                  int* __restrict__ state, int* __restrict__ rowflag, int* __restrict__ skipped,
-                  int ny, int h, int wp, int turns, int stripe_h, int tile_h, int tile_w,
-                  int xpad, int halo, int pad_f, int parity, int first, uint32_t born,
-                  uint32_t surv) {
-    extern __shared__ uint32_t smem[];
-    __shared__ int decision[3];  // hit, measure rows lo, hi
+// K14: one launch over every strip of a row mesh, blockIdx.z the strip,
+// blockIdx.y the row tile of a stripe and blockIdx.x the column group of
+// 30 words.  `rd_tab` and `wr_tab` (ny entries each) give the strips'
+// read and write buffers; the window's rows past strip s's edge come from
+// the read buffers of strips s - 1 and s + 1 (reg::column of a
+// StripSource whose north and south are those whole buffers; the halo
+// <= h).  `first` forces every stripe to hit with the maximal union
+// (launch 0 of a chunk).
+template <class Rule>
+__global__ void __launch_bounds__(reg::kMaxThreads, reg::FrontierBlocks<Rule>::value)
+strip_mega_reg_kernel(const uint32_t* const* __restrict__ rd_tab,
+                      uint32_t* const* __restrict__ wr_tab, int* __restrict__ state,
+                      int* __restrict__ rowflag, int* __restrict__ skipped, int ny, int h, int wp,
+                      int turns, int stripe_h, int tile_h, int pad_f, int parity, int first,
+                      Rule rule) {
+    __shared__ reg::Edges edges;
+    __shared__ int decision[3];  // 0 skip / 1 compute, measure rows lo, hi
+    extern __shared__ uint32_t kept[];  // the window at gen T (reg::keep)
     const int grid = h / stripe_h;
-    const int s = blockIdx.z;
+    const int strip = blockIdx.z;
     const int total = ny * grid;
-    const uint32_t* rd = rd_tab[s];
-    uint32_t* wr = wr_tab[s];
-    const StripSource src{rd, rd_tab[wrap(s - 1, ny)], rd_tab[wrap(s + 1, ny)], h, wp, h};
-    rowflag += static_cast<size_t>(s) * h;
-    skipped += s;
     const int y0 = blockIdx.y * tile_h;
-    const int x0 = blockIdx.x * tile_w;
+    const int x0 = blockIdx.x * (reg::kLanes - 2);
     const int i = y0 / stripe_h;
     const int c_lo = i * stripe_h;
     const int* prev = state + (1 - parity) * kFields * total;
     int* cur = state + parity * kFields * total;
-    const int gi = s * grid + i;
-    const bool leader = thread_id() == 0 && blockIdx.x == 0 && y0 == c_lo;
-
-    if (thread_id() == 0) {
-        decide(decision, MeshIntervals{prev, total, grid, ny, h, s, i}, c_lo, c_lo + stripe_h - 1,
-               turns + kSkipPeriod, pad_f, first);
+    const int gi = strip * grid + i;
+    const bool lead = threadIdx.x == 0 && threadIdx.y == 0;
+    if (lead) {
+        decide(decision, MeshIntervals{prev, total, grid, ny, h, strip, i}, c_lo,
+               c_lo + stripe_h - 1, turns + kSkipPeriod, pad_f, first);
     }
     __syncthreads();
-    frontier_tile(smem, decision, src, rd, wr, rowflag, skipped, &cur[4 * total + gi],
-                  prev[4 * total + gi], leader, h, wp, turns, tile_h, tile_w, xpad, halo, y0, x0,
-                  born, surv);
+    if (!reg_begin(decision, lead && blockIdx.x == 0 && y0 == c_lo, skipped + strip,
+                   &cur[4 * total + gi], prev[4 * total + gi], rd_tab[strip], wr_tab[strip], wp,
+                   y0, x0, tile_h)) {
+        return;
+    }
+    const reg::Run run = reg_run(turns, tile_h);
+    uint32_t s[reg::kRun];
+    const reg::Column col = reg::column(
+        StripSource{rd_tab[strip], rd_tab[wrap(strip - 1, ny)], rd_tab[wrap(strip + 1, ny)], h,
+                    wp, h},
+        x0 - 1 + run.lane);
+    const int top = y0 - run.halo;
+    reg::load(s, run, [&](int r) { return col(top + r); });
+    const int lanes = reg::kLanes - 2;
+    reg_steps(
+        s, edges, kept, run, turns, rule,
+        [&](const uint32_t(&v)[reg::kRun]) {
+            reg::store_centre(v, run, wr_tab[reg::block_z()], wp, reg::block_y() * tile_h,
+                              reg::block_x() * lanes, tile_h);
+        },
+        [&](const uint32_t(&v)[reg::kRun]) {
+            reg::flag_changed(v, run, kept, rowflag + static_cast<size_t>(reg::block_z()) * h, wp,
+                              reg::block_y() * tile_h, reg::block_x() * lanes, tile_h,
+                              decision[1], decision[2]);
+        });
 }
 
 // K15: one launch over every tile of a 2-D mesh, blockIdx.z = dy * nx +
@@ -612,43 +610,7 @@ __global__ void frontier_finalize(int* __restrict__ state, int* __restrict__ row
     }
 }
 
-}  // namespace
-
-// K8: a contiguous stack of nb boards of (h, wp) words, blockIdx.z the
-// board; K5 is the stack of one board.
-extern "C" int gol_frontier_batched_launch(const void* rd, void* wr, void* state, void* rowflag,
-                                           void* skipped, void* act, int nb, int h, int wp,
-                                           int turns, int stripe_h, int tile_h, int tile_w,
-                                           int xpad, int halo, int parity, int first,
-                                           unsigned born, unsigned surv, void* stream) {
-    if (nb < 1 || nb > 65535 || h < 1 || wp < 1 || turns < kSkipPeriod ||
-        turns % kSkipPeriod || stripe_h < 1 || h % stripe_h || tile_h < 1 ||
-        stripe_h % tile_h || tile_w < 1 || halo < turns + kSkipPeriod ||
-        xpad * 32 < turns + kSkipPeriod || tile_w + 2 * xpad > kCols ||
-        (parity != 0 && parity != 1)) {
-        return cudaErrorInvalidValue;
-    }
-    const long long smem = window_smem(tile_h + 2 * halo, tile_w + 2 * xpad);
-    cudaError_t err = allow_smem(frontier_kernel, smem);
-    if (err != cudaSuccess) return err;
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const dim3 grid((wp + tile_w - 1) / tile_w, h / tile_h, nb);
-    frontier_kernel<<<grid, dim3(kCols, kSegs), static_cast<size_t>(smem), s>>>(
-        static_cast<const uint32_t*>(rd), static_cast<uint32_t*>(wr), static_cast<int*>(state),
-        static_cast<int*>(rowflag), static_cast<int*>(skipped), h, wp, turns, stripe_h, tile_h,
-        tile_w, xpad, halo, parity, first, born, surv);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    frontier_finalize<<<nb * (h / stripe_h), 256, 0, s>>>(static_cast<int*>(state),
-                                                          static_cast<int*>(rowflag),
-                                                          static_cast<int*>(act), h, stripe_h,
-                                                          h / stripe_h, parity);
-    return cudaGetLastError();
-}
-
-namespace {
-
-// The checks K12's and K15's register-resident blocks share: a launch
+// The checks every register-resident frontier launch shares: a launch
 // of T (a multiple of 6) + 6 <= 30 generations, whole stripes of whole
 // row tiles, `warps` warps holding a tile's window (tile_h + 2 (T + 6)
 // rows), and a decision reach pad_f >= T + 6.
@@ -658,6 +620,12 @@ bool bad_reg_frontier(int h, int wp, int turns, int stripe_h, int tile_h, int wa
            halo > reg::kLanes - 2 || stripe_h < 1 || h % stripe_h || tile_h < 1 ||
            stripe_h % tile_h || warps < 1 || warps > reg::kMaxWarps ||
            warps * reg::kRun < tile_h + 2 * halo || pad_f < halo;
+}
+
+// The blocks of a frontier launch over n shards of (h, wp) words: column
+// groups of 30 words, row tiles of tile_h rows, blockIdx.z the shard.
+dim3 reg_grid(int wp, int h, int tile_h, int n) {
+    return dim3((wp + reg::kLanes - 3) / (reg::kLanes - 2), h / tile_h, n);
 }
 
 // Launch a register-resident frontier kernel's instantiation `kernel` on
@@ -671,7 +639,48 @@ int launch_reg(Kernel kernel, dim3 grid, int warps, cudaStream_t stream, Args...
     return cudaGetLastError();
 }
 
+// After a frontier kernel: frontier_finalize over the `stripes` stripes
+// of every shard of h rows, on the state of parity `parity`.
+int finalize(void* state, void* rowflag, void* act, int stripes, int h, int stripe_h, int parity,
+             cudaStream_t stream) {
+    frontier_finalize<<<stripes, 256, 0, stream>>>(static_cast<int*>(state),
+                                                    static_cast<int*>(rowflag),
+                                                    static_cast<int*>(act), h, stripe_h,
+                                                    h / stripe_h, parity);
+    return cudaGetLastError();
+}
+
 }  // namespace
+
+// K5 and K8: a contiguous stack of nb boards of (h, wp) words, blockIdx.z
+// the board (K5 is the stack of one board); `state`
+// (int32[2][5][nb * grid]), `rowflag` (int32[nb * h], zero between
+// launches), `skipped` (int32[nb]) and `act` (int32[nb * grid]) persist
+// over a chunk.  The decision's reach pad_f (>= the window's row halo
+// T + 6) must fit one stripe, so a window wraps around its board once at
+// most; a block is `tile_h` rows of a stripe and `warps` warps; `variant`
+// picks the rule's instantiation (regwin.cuh::by_rule).
+extern "C" int gol_frontier_batched_launch(const void* rd, void* wr, void* state, void* rowflag,
+                                           void* skipped, void* act, int nb, int h, int wp,
+                                           int turns, int stripe_h, int tile_h, int warps,
+                                           int pad_f, int parity, int first, int variant,
+                                           unsigned born, unsigned surv, void* stream) {
+    if (nb < 1 || nb > 65535 || bad_reg_frontier(h, wp, turns, stripe_h, tile_h, warps, pad_f) ||
+        pad_f > stripe_h || turns + kSkipPeriod > h || (parity != 0 && parity != 1) ||
+        (first != 0 && first != 1)) {
+        return cudaErrorInvalidValue;
+    }
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const int err = reg::by_rule(variant, born, surv, [&](auto rule) {
+        return launch_reg(frontier_reg_kernel<decltype(rule)>, reg_grid(wp, h, tile_h, nb), warps,
+                          s, static_cast<const uint32_t*>(rd), static_cast<uint32_t*>(wr),
+                          static_cast<int*>(state), static_cast<int*>(rowflag),
+                          static_cast<int*>(skipped), h, wp, turns, stripe_h, tile_h, pad_f,
+                          parity, first, rule);
+    });
+    if (err != cudaSuccess) return err;
+    return finalize(state, rowflag, act, nb * (h / stripe_h), h, stripe_h, parity, s);
+}
 
 // K12: the caller builds `prev_ext` (the exchange) and zeroes `rowflag`
 // once; the launch's decision reach is pad_f (the JAX plan's
@@ -692,59 +701,47 @@ extern "C" int gol_strip_frontier_launch(const void* local, const void* north, c
         return cudaErrorInvalidValue;
     }
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const dim3 grid((wp + reg::kLanes - 3) / (reg::kLanes - 2), h / tile_h);
     const int err = reg::by_rule(variant, born, surv, [&](auto rule) {
-        return launch_reg(strip_frontier_reg_kernel<decltype(rule)>, grid, warps, s,
-                          static_cast<const uint32_t*>(local), static_cast<const uint32_t*>(north),
-                          static_cast<const uint32_t*>(south), static_cast<uint32_t*>(wr),
-                          static_cast<const int*>(prev_ext),
+        return launch_reg(strip_frontier_reg_kernel<decltype(rule)>, reg_grid(wp, h, tile_h, 1),
+                          warps, s, static_cast<const uint32_t*>(local),
+                          static_cast<const uint32_t*>(north), static_cast<const uint32_t*>(south),
+                          static_cast<uint32_t*>(wr), static_cast<const int*>(prev_ext),
                           static_cast<const int*>(prev_computed), static_cast<int*>(cur),
                           static_cast<int*>(rowflag), static_cast<int*>(skipped), h, wp, n, turns,
                           stripe_h, tile_h, pad_f, rule);
     });
     if (err != cudaSuccess) return err;
     // The state of one strip is one "board" of grid stripes at parity 0.
-    frontier_finalize<<<h / stripe_h, 256, 0, s>>>(static_cast<int*>(cur),
-                                                   static_cast<int*>(rowflag),
-                                                   static_cast<int*>(act), h, stripe_h,
-                                                   h / stripe_h, 0);
-    return cudaGetLastError();
+    return finalize(cur, rowflag, act, h / stripe_h, h, stripe_h, 0, s);
 }
 
 // K14: `rd_tab` and `wr_tab` are device arrays of ny buffer pointers (no
 // write buffer is a read buffer); `state` (int32[2][5][ny * grid]),
 // `rowflag` (int32[ny * h], zero between launches), `skipped` (int32[ny])
-// and `act` (int32[ny * grid]) persist over a chunk.  The window's halo
-// (>= T + 6) and the decision's reach pad_f (the JAX plan's round8(T + 6))
-// must fit one stripe, so nothing past the adjacent strip is read.
+// and `act` (int32[ny * grid]) persist over a chunk.  The decision's
+// reach pad_f (the JAX plan's round8(T + 6), >= the window's row halo
+// T + 6) must fit one stripe, so nothing past the adjacent strip is read;
+// a block is `tile_h` rows of a stripe and `warps` warps; `variant` picks
+// the rule's instantiation (regwin.cuh::by_rule).
 extern "C" int gol_strip_mega_launch(const void* rd_tab, const void* wr_tab, void* state,
                                      void* rowflag, void* skipped, void* act, int ny, int h,
-                                     int wp, int turns, int stripe_h, int tile_h, int tile_w,
-                                     int xpad, int halo, int pad_f, int parity, int first,
-                                     unsigned born, unsigned surv, void* stream) {
-    if (ny < 1 || ny > 65535 || h < 1 || wp < 1 || turns < kSkipPeriod || turns % kSkipPeriod ||
-        stripe_h < 1 || h % stripe_h || tile_h < 1 || stripe_h % tile_h || tile_w < 1 ||
-        halo < turns + kSkipPeriod || pad_f < halo || pad_f > stripe_h ||
-        xpad * 32 < turns + kSkipPeriod || tile_w + 2 * xpad > kCols ||
-        (parity != 0 && parity != 1) || (first != 0 && first != 1)) {
+                                     int wp, int turns, int stripe_h, int tile_h, int warps,
+                                     int pad_f, int parity, int first, int variant, unsigned born,
+                                     unsigned surv, void* stream) {
+    if (ny < 1 || ny > 65535 || bad_reg_frontier(h, wp, turns, stripe_h, tile_h, warps, pad_f) ||
+        pad_f > stripe_h || (parity != 0 && parity != 1) || (first != 0 && first != 1)) {
         return cudaErrorInvalidValue;
     }
-    const long long smem = window_smem(tile_h + 2 * halo, tile_w + 2 * xpad);
-    cudaError_t err = allow_smem(strip_mega_kernel, smem);
-    if (err != cudaSuccess) return err;
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const int grid = h / stripe_h;
-    const dim3 blocks((wp + tile_w - 1) / tile_w, h / tile_h, ny);
-    strip_mega_kernel<<<blocks, dim3(kCols, kSegs), static_cast<size_t>(smem), s>>>(
-        static_cast<const uint32_t* const*>(rd_tab), static_cast<uint32_t* const*>(wr_tab),
-        static_cast<int*>(state), static_cast<int*>(rowflag), static_cast<int*>(skipped), ny, h,
-        wp, turns, stripe_h, tile_h, tile_w, xpad, halo, pad_f, parity, first, born, surv);
-    err = cudaGetLastError();
+    const int err = reg::by_rule(variant, born, surv, [&](auto rule) {
+        return launch_reg(strip_mega_reg_kernel<decltype(rule)>, reg_grid(wp, h, tile_h, ny),
+                          warps, s, static_cast<const uint32_t* const*>(rd_tab),
+                          static_cast<uint32_t* const*>(wr_tab), static_cast<int*>(state),
+                          static_cast<int*>(rowflag), static_cast<int*>(skipped), ny, h, wp, turns,
+                          stripe_h, tile_h, pad_f, parity, first, rule);
+    });
     if (err != cudaSuccess) return err;
-    frontier_finalize<<<ny * grid, 256, 0, s>>>(static_cast<int*>(state),
-                                                static_cast<int*>(rowflag),
-                                                static_cast<int*>(act), h, stripe_h, grid, parity);
-    return cudaGetLastError();
+    return finalize(state, rowflag, act, ny * (h / stripe_h), h, stripe_h, parity, s);
 }
 
 // K15: `rd_tab` and `wr_tab` are device arrays of ny * nx tile buffer
@@ -767,19 +764,13 @@ extern "C" int gol_tile_mega_launch(const void* rd_tab, const void* wr_tab, void
         return cudaErrorInvalidValue;
     }
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const int grid = h / stripe_h;
-    const dim3 blocks((wp + reg::kLanes - 3) / (reg::kLanes - 2), h / tile_h, ny * nx);
     const int err = reg::by_rule(variant, born, surv, [&](auto rule) {
-        return launch_reg(tile_mega_reg_kernel<decltype(rule)>, blocks, warps, s,
-                          static_cast<const uint32_t* const*>(rd_tab),
+        return launch_reg(tile_mega_reg_kernel<decltype(rule)>, reg_grid(wp, h, tile_h, ny * nx),
+                          warps, s, static_cast<const uint32_t* const*>(rd_tab),
                           static_cast<uint32_t* const*>(wr_tab), static_cast<int*>(state),
                           static_cast<int*>(rowflag), static_cast<int*>(skipped), ny, nx, h, wp,
                           turns, stripe_h, tile_h, pad_f, parity, first, rule);
     });
     if (err != cudaSuccess) return err;
-    frontier_finalize<<<ny * nx * grid, 256, 0, s>>>(static_cast<int*>(state),
-                                                     static_cast<int*>(rowflag),
-                                                     static_cast<int*>(act), h, stripe_h, grid,
-                                                     parity);
-    return cudaGetLastError();
+    return finalize(state, rowflag, act, ny * nx * (h / stripe_h), h, stripe_h, parity, s);
 }

@@ -1,8 +1,9 @@
 // Register-resident windows: the generation loop of K9 (ext.cu,
-// ext_reg_kernel), K13 (probing.cu, tile_probing_reg_kernel) and K12 and
-// K15 (frontier.cu, strip_frontier_reg_kernel and tile_mega_reg_kernel),
-// designed for Hopper.  Every other kernel steps its window in shared
-// memory with window.cuh::advance.
+// ext_reg_kernel), K13 (probing.cu, tile_probing_reg_kernel) and the
+// frontier kernels K5, K8, K12, K14 and K15 (frontier.cu,
+// frontier_reg_kernel, strip_frontier_reg_kernel, strip_mega_reg_kernel
+// and tile_mega_reg_kernel), designed for Hopper.  Every other kernel
+// steps its window in shared memory with window.cuh::advance.
 //
 // Layout (window.cuh's): bit k of a packed word holds cell 32*x + k of its
 // row, so a cell's west neighbour is the next lower bit.
@@ -122,7 +123,8 @@ using Conway = FixedRule<kConwayBorn, kConwaySurv>;
 using Highlife = FixedRule<kHighlifeBorn, kHighlifeSurv>;
 
 // Blocks of kMaxThreads an SM must hold at once (__launch_bounds__'s
-// second argument) for a frontier kernel's (K12, K15) instantiation: two,
+// second argument) for a frontier kernel's (K5/K8, K12, K14, K15)
+// instantiation: two,
 // so 64 registers a thread, for the compiled-in rules; one for AnyRule,
 // whose run-time masks and the frontier window's gen-T bookkeeping need
 // more than 64 (ptxas spilled them there).
@@ -309,7 +311,7 @@ __device__ bool inner_stable(const uint32_t (&s)[kRun], const Run& run, const Lo
     return __syncthreads_or(diff != 0u) == 0;
 }
 
-// -- The frontier window (K12 and K15) -------------------------------------------
+// -- The frontier window (K5/K8, K12, K14 and K15) ---------------------------------
 //
 // A frontier block's window is its tile of `tile_h` centre rows with
 // T + 6 rows a side (a Run of T + 6 generations whose cone is every row
@@ -318,10 +320,10 @@ __device__ bool inner_stable(const uint32_t (&s)[kRun], const Run& run, const Lo
 // keeps gen T (reg::keep), steps 6 more and flags the centre rows where
 // gen T + 6 differs from gen T.
 
-// One word column of a window source (window.cuh's StripSource or
-// MeshTileSource) as a run reads it: row y's word, for y in [-nh, h + nh),
-// from the buffer above the middle one (y < 0), the middle one, or the
-// one below (y >= h); `stride` words a row.
+// One word column of a window source (window.cuh's BoardSource,
+// StripSource or MeshTileSource) as a run reads it: row y's word, for y
+// in [-nh, h + nh), from the buffer above the middle one (y < 0), the
+// middle one, or the one below (y >= h); `stride` words a row.
 struct Column {
     const uint32_t* north;
     const uint32_t* mid;
@@ -333,6 +335,15 @@ struct Column {
                         : mid[static_cast<size_t>(y) * stride];
     }
 };
+
+// Word column x (unwrapped) of a whole board, a torus of h rows: rows
+// past its edges wrap around the board itself, once (the window's halo
+// T + 6 <= h), and x wraps modulo wp.  A stack's board b is the source
+// whose `b` points b boards on, so its rows never reach another board.
+__device__ __forceinline__ Column column(const BoardSource& src, int x) {
+    const uint32_t* c = src.b + wrap(x, src.wp);
+    return Column{c, c, c, src.h, src.h, src.wp};
+}
 
 // Word column x (unwrapped) of a strip of a row mesh: the strip spans
 // the board's width, so x wraps modulo it.

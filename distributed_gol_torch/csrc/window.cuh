@@ -1,8 +1,8 @@
 // Shared device code of the tiled kernels (K2 tiled.cu, K3 tiled_skip.cu,
-// K4, K11 and K13 probing.cu, K5, K8, K12, K14 and K15 frontier.cu, K9 and
-// K10 ext.cu): a
-// window of the horizontally packed board in shared memory, stepped
-// generation by generation.
+// K4 and K11 probing.cu, K10 ext.cu): a window of the horizontally packed
+// board in shared memory, stepped generation by generation.  Its window
+// sources and `wrap` also serve the register-resident kernels of
+// regwin.cuh (K5/K8, K9, K12-K15).
 //
 // Layout: the horizontally packed board (H, W/32), bit k of word (y, wx) =
 // cell (y, 32*wx + k) — the JAX package's pack layout.

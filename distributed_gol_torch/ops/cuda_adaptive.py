@@ -19,13 +19,17 @@ with a wrapper, a launch counter and a plain PyTorch version:
 - **K5, frontier** (``csrc/frontier.cu``; replaces
   ``_kernel_frontier_mega``): the tracked-interval skip/compute/measure
   state machine, one CUDA launch per generation launch, state on the
-  device.  Plain version: :func:`frontier_launch_mirror`.
+  device, its windows register-resident (``csrc/regwin.cuh``) on the
+  blocks of :func:`frontier_blocks`.  Plain version:
+  :func:`frontier_launch_mirror`; :func:`frontier_launch_reg_mirror`
+  replays its blocks.
 - **K8, frontier batched** (``csrc/frontier.cu``,
   ``gol_frontier_batched_launch``; replaces the ``nboards > 1`` form of
   ``_kernel_frontier_mega``): K5 over a (B, H, wp) stack, each board its
   own torus, with a skip count per board.  Plain version:
-  :func:`frontier_superstep_batched_mirror`.  :func:`run_tiled_batched`
-  is ``_run_tiled_batched``: the canonical chunks of a dispatch on K8, the
+  :func:`frontier_superstep_batched_mirror`; :func:`frontier_batched_reg_mirror`
+  replays its blocks.  :func:`run_tiled_batched` is
+  ``_run_tiled_batched``: the canonical chunks of a dispatch on K8, the
   rest per slot on the solo kernels.
 
 The mirrors replay the stripe decomposition, the decision regions and the
@@ -45,13 +49,14 @@ buffers), so checkpoints carry nothing new.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import functools
 
 import torch
 
-from distributed_gol_torch.models.life import LifeRule
+from distributed_gol_torch.models.life import CONWAY, HIGHLIFE, LifeRule
 from distributed_gol_torch.ops import cuda_build, cuda_packed, packed
 from distributed_gol_torch.ops.cuda_packed import (
     SMEM_BYTES, TILED_COLS, _check_words, _stream, rule_masks,
@@ -221,7 +226,7 @@ def stripe_tiles(shape: tuple[int, int], stripe_h: int, halo: int) -> cuda_packe
     raise ValueError(f"no stripe tiling of {shape} with a {halo}-row halo fits shared memory")
 
 
-# -- the register-resident plans of K9, K12, K13 and K15 (csrc/regwin.cuh) --------
+# -- the register-resident plans of K5/K8 and K9-K15 (csrc/regwin.cuh) ------------
 
 #: Word columns of one warp's window, rows one thread holds in registers,
 #: rows of the light-cone trimming's unit, and the most warps a block
@@ -388,9 +393,10 @@ def stripe_reg_plan(shape: tuple[int, int], stripe_h: int, pad: int, t: int,
 
 @functools.lru_cache(maxsize=256)
 def frontier_reg_plan(shape: tuple[int, int], stripe_h: int, t: int, sms: int) -> RegPlan:
-    """K12's and K15's blocks for a frontier launch of ``t`` generations on
-    ``shape`` = (rows, wp) packed words in stripes of ``stripe_h`` rows
-    (K15: every tile's rows, stacked): ``t`` + 6 generations stepped (the
+    """The frontier kernels' blocks (K5/K8, K12, K14, K15) for a launch of
+    ``t`` generations on ``shape`` = (rows, wp) packed words in stripes of
+    ``stripe_h`` rows (K8, K14 and K15: every shard's rows, stacked:
+    :func:`frontier_blocks`): ``t`` + 6 generations stepped (the
     measure compares gen t + 6 with gen t) on a window of the tile and
     ``t`` + 6 rows a side, one border word a side (t + 6 <= 32), each
     thread keeping gen t in shared memory (:func:`_stripe_reg_plan`).  The
@@ -399,6 +405,125 @@ def frontier_reg_plan(shape: tuple[int, int], stripe_h: int, t: int, sms: int) -
     the few stripes that compute (``tools/regwin_ab.py --sweep-frontier``
     on an H100 measures each block height)."""
     return _stripe_reg_plan(shape, stripe_h, t + SKIP_PERIOD, t + SKIP_PERIOD, sms, keep=True)
+
+
+#: SMs of an NVIDIA H100 SXM: the card the plans are made for where no
+#: device is at hand (the mirrors on the CPU, the tests).
+H100_SMS = 132
+
+
+@functools.lru_cache(maxsize=16)
+def device_sms(device: torch.device) -> int:
+    """The SM count of a CUDA device (``multi_processor_count``)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=256)
+def frontier_blocks(shape: tuple[int, int], plan: AdaptivePlan, shards: int = 1,
+                    sms: int = H100_SMS) -> RegPlan:
+    """The blocks of one shard of a register-resident frontier launch over
+    ``shards`` shards of ``shape`` = (h, wp) words (K5: one board; K8: the
+    boards of a stack; K14: the strips of a row mesh), each shard its own
+    blockIdx.z: :func:`frontier_reg_plan` on every shard's rows stacked
+    (the launch's blocks share the card's ``sms`` SMs), its grid's rows
+    taken back to one shard's."""
+    h, wp = shape
+    blocks = frontier_reg_plan((shards * h, wp), plan.stripe_h, plan.t, sms)
+    return dataclasses.replace(blocks, grid=(h // blocks.tile_h, blocks.grid[1]))
+
+
+def _run_gen(win: torch.Tensor, rule: LifeRule) -> torch.Tensor:
+    """One generation of register-resident windows (..., rows, 32): each
+    window's columns wrap within it (a warp's lanes, ``regwin.cuh::hsum``),
+    rows past it read as zero."""
+    west, east = packed._west(win), packed._east(win)
+    h0 = win ^ west ^ east
+    h1 = packed._maj(win, west, east)
+    n0, s0 = cuda_packed._shift(h0, -2, 1), cuda_packed._shift(h0, -2, -1)
+    n1, s1 = cuda_packed._shift(h1, -2, 1), cuda_packed._shift(h1, -2, -1)
+    t0 = h0 ^ n0 ^ s0
+    c = packed._maj(h0, n0, s0)
+    p1 = h1 ^ n1 ^ s1
+    q = packed._maj(h1, n1, s1)
+    k = p1 & c
+    return packed.apply_rule_planes((t0, p1 ^ c, q ^ k, q & k), win, rule)
+
+
+def _reg_steps(win: torch.Tensor, rule: LifeRule, plan: RegPlan, gens, frozen=None):
+    """Generations ``gens`` of every block's window (nby, nbx, warps·32, 32),
+    each stepping only the rows :meth:`RegPlan.live` steps; the blocks
+    where ``frozen`` (bool (nby, nbx)) is set keep their state."""
+    live = plan.live_rows(win.device)
+    for g in gens:
+        step = live[g - 1][:, None]
+        if frozen is not None:
+            step = step & ~frozen[:, :, None, None]
+        win = torch.where(step, _run_gen(win, rule), win)
+    return win
+
+
+def _reg_windows(src: torch.Tensor, plan: RegPlan, top: int, left: int, wrap_cols: bool):
+    """Every block's window from ``src``: block (by, bx) reads rows
+    ``top`` + by·tile_h + [0, warps·32) and columns ``left`` + bx·centre +
+    [0, 32), the columns modulo the width when ``wrap_cols``; zero outside
+    ``src`` and past the window's :attr:`RegPlan.rows`."""
+    nby, nbx = plan.grid
+    rows_in, cols_in = src.shape
+    dev = src.device
+    r = torch.arange(plan.warps * REG_RUN, device=dev)
+    rows = top + torch.arange(nby, device=dev)[:, None] * plan.tile_h + r
+    cols = (left + torch.arange(nbx, device=dev)[:, None] * plan.centre
+            + torch.arange(REG_LANES, device=dev))
+    if wrap_cols:
+        cols = torch.remainder(cols, cols_in)
+    row_ok = (rows >= 0) & (rows < rows_in) & (r < plan.rows)
+    col_ok = (cols >= 0) & (cols < cols_in)
+    win = src[rows.clamp(0, rows_in - 1)[:, None, :, None],
+              cols.clamp(0, cols_in - 1)[None, :, None, :]]
+    return win * (row_ok[:, None, :, None] & col_ok[None, :, None, :])
+
+
+def _reg_stitch(win: torch.Tensor, plan: RegPlan) -> torch.Tensor:
+    """Every block's centre (rows ``halo`` .. ``halo`` + tile_h, its
+    ``centre`` middle words) side by side: (nby·tile_h, nbx·centre)."""
+    nby, nbx = plan.grid
+    c = win[:, :, plan.halo : plan.halo + plan.tile_h, plan.border : REG_LANES - plan.border]
+    return c.permute(0, 2, 1, 3).reshape(nby * plan.tile_h, nbx * plan.centre)
+
+
+def _frontier_blocks(src: torch.Tensor, rule: LifeRule, blocks: RegPlan, t: int,
+                     centre: tuple[int, int], computes: torch.Tensor):
+    """The frontier kernels' blocks (K5/K8, K12, K14, K15:
+    ``csrc/regwin.cuh``'s frontier window) in PyTorch: ``src`` is the
+    board, strip or tile with T + 6 rows a side and the
+    words of its torus from one left of its first column group to one
+    right of its last; the window of every block of a stripe that
+    ``computes`` (bool, one a stripe) — warps·32 rows from its tile's row
+    less T + 6, 32 words from one left of its group, zero past the window —
+    steps T generations and then 6 more, each only the rows of its run's
+    light cone (:meth:`RegPlan.live`).  Returns (gen T, gen T + 6) of the
+    ``centre`` = (h, wp) words, zero on the stripes that do not compute."""
+    h, wp = centre
+    win = _reg_windows(src, blocks, 0, 0, False)
+    rows = computes.repeat_interleave(win.shape[0] // computes.numel())
+    out = torch.zeros((2, *win.shape), dtype=win.dtype, device=win.device)
+    if rows.any():
+        part = _reg_steps(win[rows], rule, blocks, range(1, t + 1))
+        out[0][rows] = part
+        out[1][rows] = _reg_steps(part, rule, blocks, range(t + 1, t + SKIP_PERIOD + 1))
+    return _reg_stitch(out[0], blocks)[:h, :wp], _reg_stitch(out[1], blocks)[:h, :wp]
+
+
+def _check_frontier_blocks(blocks: RegPlan, plan: AdaptivePlan, shape: tuple[int, int]) -> None:
+    """Raise unless ``blocks`` are frontier blocks of ``plan`` that cover
+    ``shape`` = (rows, wp) words: T + 6 generations and rows a side, a
+    row tile that divides the stripe, every row and every word."""
+    halo = plan.t + SKIP_PERIOD
+    nby, nbx = blocks.grid
+    if ((blocks.t, blocks.halo, blocks.border, blocks.probe) != (halo, halo, 1, 0)
+            or plan.stripe_h % blocks.tile_h or nby * blocks.tile_h != shape[0]
+            or nbx * blocks.centre < shape[1]):
+        raise ValueError(f"blocks {blocks} do not cover {plan} on {shape[0]}x{shape[1]} words")
 
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
@@ -413,6 +538,29 @@ def _launcher(kernel: str, symbol: str, argtypes: list) -> tuple[ctypes.CDLL, ob
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return lib, fn
+
+
+#: The rule instantiations of the register-resident kernels (K5/K8, K9,
+#: K12-K15; ``regwin.cuh::by_rule``): B3/S23 and B36/S23 evaluated at
+#: compile time, every other rule by its masks at run time ("generic").
+REG_RULES = ("generic", "conway", "highlife")
+
+
+@functools.lru_cache(maxsize=64)
+def reg_rule(rule: LifeRule) -> tuple[int, int, int]:
+    """(born, surv, instantiation) of ``rule`` for a register-resident
+    kernel: its masks, and the index in :data:`REG_RULES` of the
+    instantiation they select."""
+    masks = rule_masks(rule)
+    return (*masks, {rule_masks(CONWAY): 1, rule_masks(HIGHLIFE): 2}.get(masks, 0))
+
+
+@functools.lru_cache(maxsize=8)
+def _reg_launcher(kernel: str, symbol: str, pointers: int, ints: int = 9):
+    """The launch function of a register-resident kernel, its C
+    signature declared once: ``pointers`` pointers, ``ints`` ints, the rule masks and
+    the stream."""
+    return _launcher(kernel, symbol, [_P] * pointers + [_I] * ints + [_U, _U, _P])
 
 
 # -- K3: the skip form of the tiled kernel --------------------------------------
@@ -588,24 +736,16 @@ def measure2(hot: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     ])
 
 
-def frontier_launch_mirror(
-    r: torch.Tensor,
-    w: torch.Tensor,
-    rule: LifeRule,
-    plan: AdaptivePlan,
-    state: torch.Tensor | None,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain version of one K5 launch (one grid row of
-    ``_kernel_frontier_mega``): board ``r`` in, ``w`` the buffer it writes
-    (the board of two launches ago), ``state`` the previous launch's int64
-    (5, stripes) state — rows lo0, hi0, lo1, hi1, computed — or None on
-    launch 0 of a chunk, which forces every stripe to compute.  Returns
-    (written buffer, new state, skips, per-stripe activity)."""
+def _frontier_launch(r: torch.Tensor, w: torch.Tensor, plan: AdaptivePlan,
+                     state: torch.Tensor | None, advance):
+    """One K5 launch's decision, measure and bookkeeping in PyTorch, its
+    generations from ``advance(hit)``: (gen T, gen T + 6) of the board,
+    the rows of stripes that do not ``hit`` unused.  Returns (written
+    buffer, new state, skips, per-stripe activity)."""
     h = r.shape[0]
     sh = plan.stripe_h
     grid = plan.grid(h)
     dev = r.device
-    t6 = plan.t + SKIP_PERIOD
     idx = torch.arange(grid, device=dev)
     c_lo = idx * sh
     c_hi = c_lo + sh - 1
@@ -622,8 +762,7 @@ def frontier_launch_mirror(
             ivals += [(state[2 * k][j] + off, state[2 * k + 1][j] + off) for k in (0, 1)]
         hit, m_lo, m_hi = hit_union(ivals, c_lo, c_hi, plan)
 
-    g_t = packed.superstep(r, rule, plan.t)
-    g_t6 = packed.superstep(g_t, rule, SKIP_PERIOD)
+    g_t, g_t6 = advance(hit)
     rows = torch.arange(h, device=dev)
     of = rows // sh
     hot = (g_t6 != g_t).any(dim=1) & hit[of] & (rows >= m_lo[of]) & (rows <= m_hi[of])
@@ -635,18 +774,68 @@ def frontier_launch_mirror(
     return out, new_state, (~hit).sum().to(torch.int32), act
 
 
+def frontier_launch_mirror(
+    r: torch.Tensor,
+    w: torch.Tensor,
+    rule: LifeRule,
+    plan: AdaptivePlan,
+    state: torch.Tensor | None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of one K5 launch (one grid row of
+    ``_kernel_frontier_mega``): board ``r`` in, ``w`` the buffer it writes
+    (the board of two launches ago), ``state`` the previous launch's int64
+    (5, stripes) state — rows lo0, hi0, lo1, hi1, computed — or None on
+    launch 0 of a chunk, which forces every stripe to compute.  Returns
+    (written buffer, new state, skips, per-stripe activity)."""
+
+    def advance(_hit):
+        g_t = packed.superstep(r, rule, plan.t)
+        return g_t, packed.superstep(g_t, rule, SKIP_PERIOD)
+
+    return _frontier_launch(r, w, plan, state, advance)
+
+
+def frontier_launch_reg_mirror(
+    r: torch.Tensor,
+    w: torch.Tensor,
+    rule: LifeRule,
+    plan: AdaptivePlan,
+    state: torch.Tensor | None,
+    blocks: RegPlan | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K5's decomposition in PyTorch: the decisions and bookkeeping of
+    :func:`frontier_launch_mirror`, the generations on the blocks of
+    ``blocks`` (None: the :func:`frontier_blocks` of an H100) through
+    :func:`_frontier_blocks`, each window's rows wrapping around the board
+    (``reg::column`` of a ``BoardSource``) and its words modulo its
+    width.  K8 runs it a board at a time, at its stack's blocks."""
+    h, wp = r.shape
+    blocks = blocks or frontier_blocks((h, wp), plan)
+    _check_frontier_blocks(blocks, plan, (h, wp))
+    halo, dev = plan.t + SKIP_PERIOD, r.device
+    rows = torch.remainder(torch.arange(h + 2 * halo, device=dev) - halo, h)
+    cols = torch.remainder(torch.arange(blocks.grid[1] * blocks.centre + 2, device=dev) - 1, wp)
+
+    def advance(hit):
+        return _frontier_blocks(r[rows][:, cols], rule, blocks, plan.t, (h, wp), hit)
+
+    return _frontier_launch(r, w, plan, state, advance)
+
+
 def frontier_superstep_mirror(
-    p: torch.Tensor, rule: LifeRule, plan: AdaptivePlan, nlaunch: int
+    p: torch.Tensor, rule: LifeRule, plan: AdaptivePlan, nlaunch: int,
+    launch=frontier_launch_mirror,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One chunk of ``nlaunch`` launches of :func:`frontier_launch_mirror`
-    on K5's buffer protocol.  Returns (board, skipped, activity)."""
+    """One chunk of ``nlaunch`` launches of ``launch`` (the plain version,
+    or :func:`frontier_launch_reg_mirror`) on K5's buffer protocol.
+    Returns (board, skipped, activity)."""
     bufs = [torch.zeros_like(p), torch.zeros_like(p)]
     skipped = torch.zeros((), dtype=torch.int32, device=p.device)
     act = torch.zeros((plan.grid(p.shape[0]),), dtype=torch.int32, device=p.device)
     state = None
     cur = p
     for k in range(nlaunch):
-        cur, state, sk, a = frontier_launch_mirror(cur, bufs[k % 2], rule, plan, state)
+        cur, state, sk, a = launch(cur, bufs[k % 2], rule, plan, state)
         bufs[k % 2] = cur
         skipped, act = skipped + sk, act + a
     return cur, skipped, act
@@ -656,33 +845,36 @@ def _frontier_chunk(
     stack: torch.Tensor, rule: LifeRule, plan: AdaptivePlan, nlaunch: int, wrapper
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One chunk of ``nlaunch`` frontier launches on a CUDA (B, H, wp)
-    stack (K5 is the stack of one board), each counted on
-    ``wrapper.launches``; returns (stack, int32[B] skipped, int32[B * grid]
+    stack (K5 is the stack of one board) on the blocks of
+    :func:`frontier_blocks` for the stack and its device's SMs, in the
+    rule's instantiation, each counted on ``wrapper.launches`` and
+    ``wrapper.rules``; returns (stack, int32[B] skipped, int32[B * grid]
     activity), all left on the device — nothing is read back between
     launches.  The launches ping-pong between two fresh stacks; the input
     is never written."""
     nb, h, wp = stack.shape
     grid = plan.grid(h)
-    tiles = stripe_tiles((h, wp), plan.stripe_h, plan.t + SKIP_PERIOD)
-    lib, launch = _launcher(
-        "frontier", "gol_frontier_batched_launch", [_P] * 6 + [_I] * 11 + [_U, _U, _P])
-    born, surv = rule_masks(rule)
     dev = stack.device
+    blocks = frontier_blocks((h, wp), plan, nb, device_sms(dev))
+    lib, launch = _reg_launcher("frontier", "gol_frontier_batched_launch", 6, 11)
+    born, surv, variant = reg_rule(rule)
     state = torch.empty((2, 5, nb * grid), dtype=torch.int32, device=dev)
     rowflag = torch.zeros((nb * h,), dtype=torch.int32, device=dev)
     skipped = torch.zeros((nb,), dtype=torch.int32, device=dev)
     act = torch.zeros((nb * grid,), dtype=torch.int32, device=dev)
     bufs = (torch.empty_like(stack), torch.empty_like(stack))
+    stream = _stream(stack)
     cur = stack
     for k in range(nlaunch):
         dst = bufs[k % 2]
         err = launch(
             cur.data_ptr(), dst.data_ptr(), state.data_ptr(), rowflag.data_ptr(),
-            skipped.data_ptr(), act.data_ptr(), nb, h, wp, plan.t, plan.stripe_h, tiles.tile_h,
-            tiles.tile_w, tiles.xpad, tiles.t, k % 2, int(k == 0), born, surv, _stream(stack),
+            skipped.data_ptr(), act.data_ptr(), nb, h, wp, plan.t, plan.stripe_h, blocks.tile_h,
+            blocks.warps, plan.pad_f, k % 2, int(k == 0), variant, born, surv, stream,
         )
         cuda_build.check(lib, err, "frontier")
         wrapper.launches += 1
+        wrapper.rules[REG_RULES[variant]] += 1
         cur = dst
     return cur, skipped, act
 
@@ -693,7 +885,8 @@ def frontier_superstep(
     """K5: one chunk of ``nlaunch`` frontier launches of ``plan.t``
     generations, launch 0 forced full; returns (board, skipped, activity),
     all left on the device.  The input is never written.  CPU tensors run
-    :func:`frontier_superstep_mirror`."""
+    :func:`frontier_superstep_mirror`; a CUDA tensor launches K5 (counted
+    by rule instantiation in ``frontier_superstep.rules``) or raises."""
     _check_words(p)
     if not plan.frontier:
         raise ValueError(f"plan {plan} has no frontier form")
@@ -704,24 +897,37 @@ def frontier_superstep(
 
 
 frontier_superstep.launches = 0
+frontier_superstep.rules = collections.Counter()
 
 
 # -- K8: the batched frontier kernel --------------------------------------------
 
 
 def frontier_superstep_batched_mirror(
-    stack: torch.Tensor, rule: LifeRule, plan: AdaptivePlan, nlaunch: int
+    stack: torch.Tensor, rule: LifeRule, plan: AdaptivePlan, nlaunch: int,
+    launch=frontier_launch_mirror,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of K8: one chunk of :func:`frontier_superstep_mirror`
     on each board of a (B, H, wp) stack, each its own torus.  Returns
     (stack, int32[B] skipped per board, int32[B * grid] activity, board b's
     stripes at b * grid + i)."""
-    outs = [frontier_superstep_mirror(board, rule, plan, nlaunch) for board in stack]
+    outs = [frontier_superstep_mirror(board, rule, plan, nlaunch, launch) for board in stack]
     return (
         torch.stack([o[0] for o in outs]),
         torch.stack([o[1] for o in outs]),
         torch.cat([o[2] for o in outs]),
     )
+
+
+def frontier_batched_reg_mirror(
+    stack: torch.Tensor, rule: LifeRule, plan: AdaptivePlan, nlaunch: int, sms: int = H100_SMS
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K8's decomposition in PyTorch: :func:`frontier_superstep_batched_mirror`
+    on :func:`frontier_launch_reg_mirror` at the blocks K8 takes for the
+    whole stack on ``sms`` SMs (:func:`frontier_blocks`)."""
+    blocks = frontier_blocks(tuple(stack.shape[1:]), plan, stack.shape[0], sms)
+    return frontier_superstep_batched_mirror(
+        stack, rule, plan, nlaunch, functools.partial(frontier_launch_reg_mirror, blocks=blocks))
 
 
 def frontier_superstep_batched(
@@ -733,7 +939,9 @@ def frontier_superstep_batched(
     int32[B * grid] activity), all left on the device.  One CUDA launch
     (and its finalize) per generation launch covers all B boards; with
     B = 1 it computes exactly K5.  CPU tensors run
-    :func:`frontier_superstep_batched_mirror`."""
+    :func:`frontier_superstep_batched_mirror`; a CUDA tensor launches K8
+    (counted by rule instantiation in ``frontier_superstep_batched.rules``)
+    or raises."""
     _check_words(stack, 3)
     if not plan.frontier:
         raise ValueError(f"plan {plan} has no frontier form")
@@ -743,14 +951,18 @@ def frontier_superstep_batched(
 
 
 frontier_superstep_batched.launches = 0
+frontier_superstep_batched.rules = collections.Counter()
 
 
 def reset_launches() -> None:
-    """Set the four kernels' launch counters to 0."""
+    """Set the four kernels' launch counters to 0, and the counts by rule
+    instantiation of K5 and K8."""
     tiled_skip_superstep.launches = 0
     probing_superstep.launches = 0
     frontier_superstep.launches = 0
     frontier_superstep_batched.launches = 0
+    frontier_superstep.rules.clear()
+    frontier_superstep_batched.rules.clear()
 
 
 # -- the dispatch driver -------------------------------------------------------

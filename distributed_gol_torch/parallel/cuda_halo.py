@@ -80,9 +80,10 @@ rows, words and corners and whose stripes decide from their own and both
 x-neighbours' intervals, the edge stripes from their 3x3-tile
 neighbourhood (the JAX kernel forces them; one proved stable is elided,
 counted as computed); a K13 loose tail; :func:`make_superstep_virtual_2d`
-runs it on a whole board.  K12 and K15 step register-resident windows
-(``csrc/regwin.cuh``) on the blocks of ``cuda_adaptive.frontier_reg_plan``;
-:func:`strip_frontier_launch_mirror` and :func:`tile_mega_launch_mirror`
+runs it on a whole board.  K12, K14 and K15 step register-resident
+windows (``csrc/regwin.cuh``) on the blocks of
+``cuda_adaptive.frontier_blocks``; :func:`strip_frontier_launch_mirror`,
+:func:`strip_mega_launch_mirror` and :func:`tile_mega_launch_mirror`
 replay those blocks, and K15's elision, in PyTorch.
 The peer form for shards on several devices (ROADMAP B10p) is not
 ported: those meshes take the ppermute forms.
@@ -91,18 +92,19 @@ ported: those meshes take the ppermute forms.
 from __future__ import annotations
 
 import collections
-import ctypes
 import dataclasses
 import functools
 import os
 
 import torch
 
-from distributed_gol_torch.models.life import CONWAY, HIGHLIFE, LifeRule
+from distributed_gol_torch.models.life import CONWAY, LifeRule
 from distributed_gol_torch.ops import cuda_adaptive, cuda_build, cuda_packed, packed
 from distributed_gol_torch.ops.cuda_adaptive import (
-    _EMPTY_LO, _I, _P, _U, REG_LANES, REG_MAX_WARPS, REG_RUN, SKIP_PERIOD, AdaptivePlan,
-    RegPlan, _adaptive_eligible, _launcher, best_reg_plan, frontier_reg_plan, skip_plan)
+    _EMPTY_LO, _I, _P, _U, H100_SMS, REG_LANES, REG_MAX_WARPS, REG_RULES, REG_RUN, SKIP_PERIOD,
+    AdaptivePlan, RegPlan, _adaptive_eligible, _check_frontier_blocks, _frontier_blocks,
+    _launcher, _reg_launcher, _reg_steps, _reg_stitch, _reg_windows, best_reg_plan, device_sms,
+    frontier_blocks, reg_rule, skip_plan)
 from distributed_gol_torch.ops.cuda_packed import (
     SMEM_BYTES, TILED_COLS, TILED_MAX_T, TiledPlan, _check_words, _stream, rule_masks)
 from distributed_gol_torch.ops.packed import WORD
@@ -143,11 +145,6 @@ def ext_tiles(strip: tuple[int, int], t: int) -> TiledPlan:
     return TiledPlan(t, -(-h_loc // ny), tile_w, xw)
 
 
-#: SMs of an NVIDIA H100 SXM: the card the plans are made for where no
-#: device is at hand (the mirrors on the CPU, the tests).
-H100_SMS = 132
-
-
 @functools.lru_cache(maxsize=256)
 def ext_reg_plan(strip: tuple[int, int], t: int, sms: int) -> RegPlan:
     """K9's blocks for a ``t``-generation launch on an (h_loc, wpl) centre
@@ -174,34 +171,6 @@ def ext_reg_plan(strip: tuple[int, int], t: int, sms: int) -> RegPlan:
         raise ValueError(f"no K9 window for {t} generations: {REG_MAX_WARPS} warps of "
                          f"{REG_RUN} rows")
     return best_reg_plan(plans, sms)
-
-
-@functools.lru_cache(maxsize=16)
-def device_sms(device: torch.device) -> int:
-    """The SM count of a CUDA device (``multi_processor_count``)."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-#: The rule instantiations of K9 and K13 (``regwin.cuh::by_rule``): B3/S23
-#: and B36/S23 evaluated at compile time, every other rule by its masks at
-#: run time ("generic").
-REG_RULES = ("generic", "conway", "highlife")
-
-
-@functools.lru_cache(maxsize=64)
-def reg_rule(rule: LifeRule) -> tuple[int, int, int]:
-    """(born, surv, instantiation) of ``rule`` for K9 and K13: its masks,
-    and the index in :data:`REG_RULES` of the instantiation they select."""
-    masks = rule_masks(rule)
-    return (*masks, {rule_masks(CONWAY): 1, rule_masks(HIGHLIFE): 2}.get(masks, 0))
-
-
-@functools.lru_cache(maxsize=8)
-def _reg_launcher(kernel: str, symbol: str, pointers: int, ints: int = 9):
-    """The launch function of K9, K12, K13 or K15, its C signature
-    declared once: ``pointers`` pointers, ``ints`` ints, the rule masks and
-    the stream."""
-    return _launcher(kernel, symbol, [_P] * pointers + [_I] * ints + [_U, _U, _P])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -433,65 +402,6 @@ def _stitch(win: torch.Tensor, turns: int, tiles: TiledPlan, centre: tuple[int, 
     c = win[:, :, turns : turns + tiles.tile_h, tiles.xpad : tiles.xpad + tiles.tile_w]
     out = c.permute(0, 2, 1, 3).reshape(ny * tiles.tile_h, nx * tiles.tile_w)
     return out[: centre[0], : centre[1]].contiguous()
-
-
-def _run_gen(win: torch.Tensor, rule: LifeRule) -> torch.Tensor:
-    """One generation of register-resident windows (..., rows, 32): each
-    window's columns wrap within it (a warp's lanes, ``regwin.cuh::hsum``),
-    rows past it read as zero."""
-    west, east = packed._west(win), packed._east(win)
-    h0 = win ^ west ^ east
-    h1 = packed._maj(win, west, east)
-    n0, s0 = cuda_packed._shift(h0, -2, 1), cuda_packed._shift(h0, -2, -1)
-    n1, s1 = cuda_packed._shift(h1, -2, 1), cuda_packed._shift(h1, -2, -1)
-    t0 = h0 ^ n0 ^ s0
-    c = packed._maj(h0, n0, s0)
-    p1 = h1 ^ n1 ^ s1
-    q = packed._maj(h1, n1, s1)
-    k = p1 & c
-    return packed.apply_rule_planes((t0, p1 ^ c, q ^ k, q & k), win, rule)
-
-
-def _reg_steps(win: torch.Tensor, rule: LifeRule, plan: RegPlan, gens, frozen=None):
-    """Generations ``gens`` of every block's window (nby, nbx, warps·32, 32),
-    each stepping only the rows :meth:`RegPlan.live` steps; the blocks
-    where ``frozen`` (bool (nby, nbx)) is set keep their state."""
-    live = plan.live_rows(win.device)
-    for g in gens:
-        step = live[g - 1][:, None]
-        if frozen is not None:
-            step = step & ~frozen[:, :, None, None]
-        win = torch.where(step, _run_gen(win, rule), win)
-    return win
-
-
-def _reg_windows(src: torch.Tensor, plan: RegPlan, top: int, left: int, wrap_cols: bool):
-    """Every block's window from ``src``: block (by, bx) reads rows
-    ``top`` + by·tile_h + [0, warps·32) and columns ``left`` + bx·centre +
-    [0, 32), the columns modulo the width when ``wrap_cols``; zero outside
-    ``src`` and past the window's :attr:`RegPlan.rows`."""
-    nby, nbx = plan.grid
-    rows_in, cols_in = src.shape
-    dev = src.device
-    r = torch.arange(plan.warps * REG_RUN, device=dev)
-    rows = top + torch.arange(nby, device=dev)[:, None] * plan.tile_h + r
-    cols = (left + torch.arange(nbx, device=dev)[:, None] * plan.centre
-            + torch.arange(REG_LANES, device=dev))
-    if wrap_cols:
-        cols = torch.remainder(cols, cols_in)
-    row_ok = (rows >= 0) & (rows < rows_in) & (r < plan.rows)
-    col_ok = (cols >= 0) & (cols < cols_in)
-    win = src[rows.clamp(0, rows_in - 1)[:, None, :, None],
-              cols.clamp(0, cols_in - 1)[None, :, None, :]]
-    return win * (row_ok[:, None, :, None] & col_ok[None, :, None, :])
-
-
-def _reg_stitch(win: torch.Tensor, plan: RegPlan) -> torch.Tensor:
-    """Every block's centre (rows ``halo`` .. ``halo`` + tile_h, its
-    ``centre`` middle words) side by side: (nby·tile_h, nbx·centre)."""
-    nby, nbx = plan.grid
-    c = win[:, :, plan.halo : plan.halo + plan.tile_h, plan.border : REG_LANES - plan.border]
-    return c.permute(0, 2, 1, 3).reshape(nby * plan.tile_h, nbx * plan.centre)
 
 
 def ext_launch_mirror(
@@ -824,40 +734,6 @@ def strip_frontier_launch_plain(
     return _strip_frontier(local, north, south, dst, prev_ext, state, plan, advance)
 
 
-def _frontier_blocks(src: torch.Tensor, rule: LifeRule, blocks: RegPlan, t: int,
-                     centre: tuple[int, int], computes: torch.Tensor):
-    """K12's and K15's blocks (``csrc/regwin.cuh``'s frontier window) in
-    PyTorch: ``src`` is the strip or tile with T + 6 rows a side and the
-    words of its torus from one left of its first column group to one
-    right of its last; the window of every block of a stripe that
-    ``computes`` (bool, one a stripe) — warps·32 rows from its tile's row
-    less T + 6, 32 words from one left of its group, zero past the window —
-    steps T generations and then 6 more, each only the rows of its run's
-    light cone (:meth:`RegPlan.live`).  Returns (gen T, gen T + 6) of the
-    ``centre`` = (h, wp) words, zero on the stripes that do not compute."""
-    h, wp = centre
-    win = _reg_windows(src, blocks, 0, 0, False)
-    rows = computes.repeat_interleave(win.shape[0] // computes.numel())
-    out = torch.zeros((2, *win.shape), dtype=win.dtype, device=win.device)
-    if rows.any():
-        part = _reg_steps(win[rows], rule, blocks, range(1, t + 1))
-        out[0][rows] = part
-        out[1][rows] = _reg_steps(part, rule, blocks, range(t + 1, t + SKIP_PERIOD + 1))
-    return _reg_stitch(out[0], blocks)[:h, :wp], _reg_stitch(out[1], blocks)[:h, :wp]
-
-
-def _check_frontier_blocks(blocks: RegPlan, plan: AdaptivePlan, shape: tuple[int, int]) -> None:
-    """Raise unless ``blocks`` are frontier blocks of ``plan`` that cover
-    ``shape`` = (rows, wp) words: T + 6 generations and rows a side, a
-    row tile that divides the stripe, every row and every word."""
-    halo = plan.t + SKIP_PERIOD
-    nby, nbx = blocks.grid
-    if ((blocks.t, blocks.halo, blocks.border, blocks.probe) != (halo, halo, 1, 0)
-            or plan.stripe_h % blocks.tile_h or nby * blocks.tile_h != shape[0]
-            or nbx * blocks.centre < shape[1]):
-        raise ValueError(f"blocks {blocks} do not cover {plan} on {shape[0]}x{shape[1]} words")
-
-
 def strip_frontier_launch_mirror(
     local: torch.Tensor, north: torch.Tensor, south: torch.Tensor, dst: torch.Tensor,
     prev_ext: torch.Tensor, state: FrontierState, rule: LifeRule, plan: AdaptivePlan,
@@ -865,11 +741,11 @@ def strip_frontier_launch_mirror(
 ) -> torch.Tensor:
     """K12's decomposition in PyTorch: the decision and bookkeeping of
     :func:`strip_frontier_launch_plain`, the generations on the blocks of
-    ``blocks`` (None: the :func:`frontier_reg_plan` of an H100) through
+    ``blocks`` (None: the ``frontier_blocks`` of an H100) through
     :func:`_frontier_blocks`, the strip's words wrapping modulo its
     width."""
     h, wp = local.shape
-    blocks = blocks or frontier_reg_plan((h, wp), plan.stripe_h, plan.t, H100_SMS)
+    blocks = blocks or frontier_blocks((h, wp), plan)
     _check_frontier_blocks(blocks, plan, (h, wp))
     cols = torch.remainder(torch.arange(blocks.grid[1] * blocks.centre + 2) - 1, wp)
 
@@ -888,7 +764,7 @@ def strip_frontier_launch(
     ``state.cur``, accumulating ``state.skipped`` and ``state.act``;
     returns ``dst``.  ``north``/``south`` hold at least T + 6 neighbour
     rows.  A CPU tensor runs :func:`strip_frontier_launch_plain`; a CUDA
-    tensor launches K12 on the blocks of :func:`frontier_reg_plan` for its
+    tensor launches K12 on the blocks of ``frontier_blocks`` for its
     device's SMs, in the rule's instantiation (counted in
     ``strip_frontier_launch.rules``), or raises."""
     h, wp = local.shape
@@ -901,7 +777,7 @@ def strip_frontier_launch(
                          f"for {grid} stripes")
     if local.device.type == "cpu":
         return strip_frontier_launch_plain(local, north, south, dst, prev_ext, state, rule, plan)
-    blocks = frontier_reg_plan((h, wp), plan.stripe_h, plan.t, device_sms(local.device))
+    blocks = frontier_blocks((h, wp), plan, 1, device_sms(local.device))
     lib, launch = _reg_launcher("frontier", "gol_strip_frontier_launch", 10)
     born, surv, variant = reg_rule(rule)
     err = launch(local.data_ptr(), north.data_ptr(), south.data_ptr(), dst.data_ptr(),
@@ -1123,21 +999,13 @@ def _check_mega(reads, writes, st: MeshState, plan: AdaptivePlan) -> tuple[int, 
     return ny, h
 
 
-def strip_mega_launch_plain(reads, writes, st: MeshState, rule: LifeRule, plan: AdaptivePlan,
-                            parity: int, first: bool):
-    """Plain version of K14 (one launch of ``_kernel_frontier_mega_strip``
-    over every strip of a row mesh, ``reads`` top to bottom): stripe i of
-    strip s decides with ``_hit_union`` over the previous parity's row
-    intervals of stripes i - 1, i and i + 1, read straight from the shared
-    state (past the strip's edge the neighbour strip's edge stripe, moved
-    by -/+ h_loc into this strip's frame), or with ``first`` (launch 0 of a
-    chunk) hits with the maximal union; a stripe that hits computes T
-    generations of its window (the strip with T + 6 rows of the
-    neighbour strips' read buffers) and measures gen T + 6 against gen T
-    on its measure rows (``_measure2``); one that does not copies its
-    input into ``writes[s]`` if it computed last launch.  Writes
-    ``writes`` and ``st.state[parity]``, adds to ``st.skipped`` and
-    ``st.act``; returns ``writes``."""
+def _strip_mega(reads, writes, st: MeshState, plan: AdaptivePlan, parity: int, first: bool,
+                advance):
+    """One K14 launch's decisions, measure and bookkeeping in PyTorch, each
+    strip's generations from ``advance(e, hit)``: (gen T, gen T + 6) of the
+    strip's rows, from ``e``, the strip with T + 6 rows of the neighbour
+    strips' read buffers a side (the rows of its stripes that do not
+    ``hit`` unused)."""
     ny, h = _check_mega(reads, writes, st, plan)
     sh, grid = plan.stripe_h, plan.grid(h)
     total = ny * grid
@@ -1164,11 +1032,9 @@ def strip_mega_launch_plain(reads, writes, st: MeshState, rule: LifeRule, plan: 
     of = rows // sh
     outs, hots = [], []
     for s, local in enumerate(reads):
-        e = torch.cat([reads[(s - 1) % ny][h - halo :], local, reads[(s + 1) % ny][:halo]])
-        g_t = packed.superstep(e, rule, plan.t)
-        g_t6 = packed.superstep(g_t, rule, SKIP_PERIOD)[halo : halo + h]
-        g_t = g_t[halo : halo + h]
         mine = slice(s * grid, (s + 1) * grid)
+        e = torch.cat([reads[(s - 1) % ny][h - halo :], local, reads[(s + 1) % ny][:halo]])
+        g_t, g_t6 = advance(e, hit[mine])
         hit_s = hit[mine][of]
         hots.append(((g_t6 != g_t).any(dim=1) & hit_s & (rows >= m_lo[mine][of])
                      & (rows <= m_hi[mine][of])).view(grid, sh))
@@ -1183,6 +1049,50 @@ def strip_mega_launch_plain(reads, writes, st: MeshState, rule: LifeRule, plan: 
     return writes
 
 
+def strip_mega_launch_plain(reads, writes, st: MeshState, rule: LifeRule, plan: AdaptivePlan,
+                            parity: int, first: bool):
+    """Plain version of K14 (one launch of ``_kernel_frontier_mega_strip``
+    over every strip of a row mesh, ``reads`` top to bottom): stripe i of
+    strip s decides with ``_hit_union`` over the previous parity's row
+    intervals of stripes i - 1, i and i + 1, read straight from the shared
+    state (past the strip's edge the neighbour strip's edge stripe, moved
+    by -/+ h_loc into this strip's frame), or with ``first`` (launch 0 of a
+    chunk) hits with the maximal union; a stripe that hits computes T
+    generations of its window (the strip with T + 6 rows of the
+    neighbour strips' read buffers) and measures gen T + 6 against gen T
+    on its measure rows (``_measure2``); one that does not copies its
+    input into ``writes[s]`` if it computed last launch.  Writes
+    ``writes`` and ``st.state[parity]``, adds to ``st.skipped`` and
+    ``st.act``; returns ``writes``."""
+    halo, h = plan.t + SKIP_PERIOD, reads[0].shape[0]
+
+    def advance(e, _hit):
+        g_t = packed.superstep(e, rule, plan.t)
+        return g_t[halo : halo + h], packed.superstep(g_t, rule, SKIP_PERIOD)[halo : halo + h]
+
+    return _strip_mega(reads, writes, st, plan, parity, first, advance)
+
+
+def strip_mega_launch_mirror(reads, writes, st: MeshState, rule: LifeRule, plan: AdaptivePlan,
+                             parity: int, first: bool, blocks: RegPlan | None = None):
+    """K14's decomposition in PyTorch: the decisions and bookkeeping of
+    :func:`strip_mega_launch_plain`, each strip's generations on the blocks
+    of ``blocks`` (one strip's; None: the ``frontier_blocks`` of an H100
+    for all the strips) through ``_frontier_blocks``, the strip's words
+    wrapping modulo its width.  Writes what the plain version writes;
+    returns ``writes``."""
+    ny, h = _check_mega(reads, writes, st, plan)
+    wp = reads[0].shape[1]
+    blocks = blocks or frontier_blocks((h, wp), plan, ny)
+    _check_frontier_blocks(blocks, plan, (h, wp))
+    cols = torch.remainder(torch.arange(blocks.grid[1] * blocks.centre + 2) - 1, wp)
+
+    def advance(e, hit):
+        return _frontier_blocks(e[:, cols.to(e.device)], rule, blocks, plan.t, (h, wp), hit)
+
+    return _strip_mega(reads, writes, st, plan, parity, first, advance)
+
+
 def _k14(sets, rule: LifeRule, plan: AdaptivePlan):
     """``(reads, writes, st, parity, first)`` -> one K14 launch on the
     strips' device and current stream, ``reads`` and ``writes`` two of
@@ -1190,26 +1100,27 @@ def _k14(sets, rule: LifeRule, plan: AdaptivePlan):
     whose device pointer tables (int64[ny] each) are built here once,
     copied without a wait from pinned memory, and live as long as the
     launcher (freed, the allocator could hand their memory to a tensor
-    made between two launches); counted on ``strip_mega_launch.launches``."""
+    made between two launches); its blocks ``frontier_blocks``'s for all
+    the strips on the device's SMs, in the rule's instantiation; counted
+    on ``strip_mega_launch.launches`` and ``.rules``."""
     like = sets[0][0]
-    h, wp = like.shape
+    ny, (h, wp) = len(sets[0]), like.shape
     tabs = torch.tensor([[t.data_ptr() for t in bufs] for bufs in sets],
                         dtype=torch.int64).pin_memory().to(like.device, non_blocking=True)
     row = {tuple(t.data_ptr() for t in bufs): tab for bufs, tab in zip(sets, tabs)}
-    tiles = cuda_adaptive.stripe_tiles((h, wp), plan.stripe_h, plan.t + SKIP_PERIOD)
-    lib, launch = _launcher("frontier", "gol_strip_mega_launch",
-                            [_P] * 6 + [_I] * 12 + [_U, _U, _P])
-    born, surv = rule_masks(rule)
+    blocks = frontier_blocks((h, wp), plan, ny, device_sms(like.device))
+    lib, launch = _reg_launcher("frontier", "gol_strip_mega_launch", 6, 11)
+    born, surv, variant = reg_rule(rule)
     stream = _stream(like)
 
     def k14(reads, writes, st: MeshState, parity: int, first: bool) -> None:
         rd, wr = (row[tuple(t.data_ptr() for t in bufs)].data_ptr() for bufs in (reads, writes))
         err = launch(rd, wr, st.state.data_ptr(), st.rowflag.data_ptr(), st.skipped.data_ptr(),
-                     st.act.data_ptr(), len(reads), h, wp, plan.t, plan.stripe_h, tiles.tile_h,
-                     tiles.tile_w, tiles.xpad, tiles.t, plan.pad_f, parity, int(first), born,
-                     surv, stream)
+                     st.act.data_ptr(), len(reads), h, wp, plan.t, plan.stripe_h, blocks.tile_h,
+                     blocks.warps, plan.pad_f, parity, int(first), variant, born, surv, stream)
         cuda_build.check(lib, err, "strip_mega")
         strip_mega_launch.launches += 1
+        strip_mega_launch.rules[REG_RULES[variant]] += 1
 
     return k14
 
@@ -1235,6 +1146,7 @@ def strip_mega_launch(reads, writes, st: MeshState, rule: LifeRule, plan: Adapti
 
 
 strip_mega_launch.launches = 0
+strip_mega_launch.rules = collections.Counter()
 
 
 def strip_mega_launches(strips, rule: LifeRule, plan: AdaptivePlan, nlaunch: int,
@@ -1408,8 +1320,8 @@ def tile_mega_launch_plain(reads, writes, st: MeshState, rule: LifeRule, plan: A
 
 def tile_mega_launch_mirror(reads, writes, st: MeshState, rule: LifeRule, plan: AdaptivePlan,
                             parity: int, first: bool, blocks: RegPlan | None = None):
-    """K15's decomposition in PyTorch: the blocks of ``blocks`` (None: the
-    :func:`frontier_reg_plan` of an H100 for the stacked tiles) through
+    """K15's decomposition in PyTorch: the blocks of ``blocks`` (one
+    tile's; None: the ``frontier_blocks`` of an H100 for all the tiles) through
     :func:`_frontier_blocks`, each tile's window from the tiles' torus,
     and the kernel's decisions: an edge stripe decides from its 3x3-tile
     neighbourhood and is elided where that proves it stable (counted in
@@ -1418,9 +1330,8 @@ def tile_mega_launch_mirror(reads, writes, st: MeshState, rule: LifeRule, plan: 
     :func:`tile_mega_launch_plain`'s.  Writes what the plain version
     writes; returns ``writes``."""
     ny, nx, h, wpl = _check_tile_mega(reads, writes, st, plan)
-    blocks = blocks or frontier_reg_plan((ny * nx * h, wpl), plan.stripe_h, plan.t, H100_SMS)
-    _check_frontier_blocks(blocks, plan, (ny * nx * h, wpl))
-    blocks = dataclasses.replace(blocks, grid=(h // blocks.tile_h, blocks.grid[1]))
+    blocks = blocks or frontier_blocks((h, wpl), plan, ny * nx)
+    _check_frontier_blocks(blocks, plan, (h, wpl))
     whole = torch.cat([torch.cat(r, dim=1) for r in reads])
     halo, dev = plan.t + SKIP_PERIOD, whole.device
     rows = torch.arange(h + 2 * halo, device=dev) - halo
@@ -1447,9 +1358,9 @@ def _k15(sets, rule: LifeRule, plan: AdaptivePlan):
     ``sets`` (rows of tiles of one shape), whose device pointer tables
     (int64[ny·nx] each, row-major) are built here once, copied without a
     wait from pinned memory, and live as long as the launcher (as
-    :func:`_k14`'s); its blocks :func:`frontier_reg_plan`'s for the
-    stacked tiles on the device's SMs, in the rule's instantiation;
-    counted on ``tile_mega_launch.launches`` and ``.rules``."""
+    :func:`_k14`'s); its blocks ``frontier_blocks``' for all the tiles
+    on the device's SMs, in the rule's instantiation; counted on
+    ``tile_mega_launch.launches`` and ``.rules``."""
     like = sets[0][0][0]
     ny, nx = len(sets[0]), len(sets[0][0])
     h, wpl = like.shape
@@ -1460,7 +1371,7 @@ def _k15(sets, rule: LifeRule, plan: AdaptivePlan):
     tabs = torch.tensor([key(bufs) for bufs in sets],
                         dtype=torch.int64).pin_memory().to(like.device, non_blocking=True)
     row = {key(bufs): tab for bufs, tab in zip(sets, tabs)}
-    blocks = frontier_reg_plan((ny * nx * h, wpl), plan.stripe_h, plan.t, device_sms(like.device))
+    blocks = frontier_blocks((h, wpl), plan, ny * nx, device_sms(like.device))
     lib, launch = _reg_launcher("frontier", "gol_tile_mega_launch", 6, 12)
     born, surv, variant = reg_rule(rule)
     stream = _stream(like)
@@ -1539,11 +1450,12 @@ def tile_activity(act: torch.Tensor, ny: int, nx: int) -> torch.Tensor:
 
 def reset_launches() -> None:
     """Set the launch counters of K9-K15 to 0, and the counts by rule
-    instantiation of K9, K12, K13 and K15."""
+    instantiation of K9, K12, K13, K14 and K15."""
     ext_launch.launches = 0
     ext_launch.rules.clear()
     tile_probing_launch.rules.clear()
     strip_frontier_launch.rules.clear()
+    strip_mega_launch.rules.clear()
     tile_mega_launch.rules.clear()
     ext_skip_launch.launches = 0
     strip_probing_launch.launches = 0

@@ -14,6 +14,7 @@ The JAX package is imported inside the tests that compare with it, so the
 ``gpu`` tests also run on a machine without JAX:
 ``python -m pytest tests/test_torch_adaptive.py -m gpu --noconftest``."""
 
+import functools
 from types import SimpleNamespace
 
 import numpy as np
@@ -21,7 +22,7 @@ import pytest
 import torch
 
 from distributed_gol_torch.models import life as tlife
-from distributed_gol_torch.ops import cuda_adaptive, packed as tpacked
+from distributed_gol_torch.ops import cuda_adaptive, cuda_packed, packed as tpacked
 
 # One intra-op thread: the suite runs in parallel worker processes.
 torch.set_num_threads(1)
@@ -156,6 +157,29 @@ def test_mirror_matches_pallas_at_jax_plan(ref, jax_runs, path, kind, rule):
         assert jsk > 0  # the boards exercise skipping, not only computing
 
 
+@pytest.mark.parametrize("rule", RULES)
+@pytest.mark.parametrize("kind", BOARDS)
+def test_block_mirror_matches_pallas_at_jax_plan(ref, jax_runs, kind, rule):
+    """K5's block mirror (``frontier_launch_reg_mirror``: the register-
+    resident kernel's blocks, light cone and column groups) in place of
+    the plain version in the frontier path's dispatch, at the JAX plan:
+    board, skip count and activity of ``_kernel_frontier_mega`` in
+    interpret mode, tolerance 0."""
+    (h, w), cap = PATHS["frontier"]
+    turns, _ = path_turns(ref, "frontier")
+    plan = jax_plan(ref, (h, w // 32), turns, cap)
+    b, jb, jsk, jact = jax_runs("frontier", kind, rule)
+    p = tpacked.pack(torch.from_numpy(b))
+    frontier = functools.partial(cuda_adaptive.frontier_superstep_mirror,
+                                 launch=cuda_adaptive.frontier_launch_reg_mirror)
+    got, sk, act = cuda_adaptive._drive(
+        p, tlife.RULES[rule], turns, plan, frontier, cuda_adaptive.probing_superstep_mirror,
+        cuda_adaptive.tiled_skip_superstep_plain, cuda_packed.tiled_superstep_plain)
+    np.testing.assert_array_equal(words(got), jb)
+    assert int(sk) == jsk
+    np.testing.assert_array_equal(act.numpy(), jact)
+
+
 def test_jax_plans_are_the_stated_ones(ref):
     frontier_turns, _ = path_turns(ref, "frontier")
     probing_turns, _ = path_turns(ref, "probing")
@@ -224,18 +248,24 @@ def test_gpu_tiled_skip_kernel_matches_plain(cuda_device, rule, turns):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("rule", RULES)
+@pytest.mark.parametrize("rule", [*RULES, "day-and-night"])
 @pytest.mark.parametrize("kind", BOARDS)
 @pytest.mark.parametrize(
     "shape,plan",
     [((2048, 4096), cuda_adaptive.AdaptivePlan(18, 256, True)),
      ((64, 4096), cuda_adaptive.AdaptivePlan(6, 16, False)),
      ((1024, 2048), cuda_adaptive.AdaptivePlan(24, 512, True)),
-     ((64, 96), cuda_adaptive.AdaptivePlan(12, 64, True))],
+     ((64, 96), cuda_adaptive.AdaptivePlan(12, 64, True)),
+     ((128, 2112), cuda_adaptive.AdaptivePlan(6, 16, True))],
 )
 def test_gpu_adaptive_kernels_match_mirror(cuda_device, rule, kind, shape, plan):
     """K4 and K5 (and K3 and K2 in the remainder) against the plain
-    versions: board, skip count and activity."""
+    versions: board, skip count and activity, on boards of 128, 64, 3
+    (narrower than K5's 30-word column group) and 66 words (a ragged
+    last group), under both compiled-in rules and one that takes K5's
+    generic instantiation; then K5 alone over 4 launches against its
+    block mirror at the card's blocks (``frontier_launch_reg_mirror``),
+    its launches counted in the rule's instantiation."""
     b = make_board(kind, *shape, plan.stripe_h)
     p = tpacked.pack(torch.from_numpy(b)).to(cuda_device)
     turns = plan.t * (8 + 3) + 13
@@ -251,3 +281,14 @@ def test_gpu_adaptive_kernels_match_mirror(cuda_device, rule, kind, shape, plan)
     assert torch.equal(got, want)
     assert int(sk) == int(wsk)
     assert torch.equal(act, wact)
+    if not plan.frontier:
+        return
+    blocks = cuda_adaptive.frontier_blocks(tuple(p.shape), plan, 1,
+                                           cuda_adaptive.device_sms(cuda_device))
+    instantiation = cuda_adaptive.REG_RULES[cuda_adaptive.reg_rule(tlife.RULES[rule])[2]]
+    cuda_adaptive.reset_launches()
+    got = cuda_adaptive.frontier_superstep(p, tlife.RULES[rule], plan, 4)
+    want = cuda_adaptive.frontier_superstep_mirror(p, tlife.RULES[rule], plan, 4, functools.partial(
+        cuda_adaptive.frontier_launch_reg_mirror, blocks=blocks))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert cuda_adaptive.frontier_superstep.rules == {instantiation: 4}

@@ -402,19 +402,33 @@ def test_gpu_k7_matches_plain(cuda_device, rule, shape):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kind", ["identity", "seam", "soup"])
+@pytest.mark.parametrize("kind", ["identity", "seam", "soup", "narrow"])
 def test_gpu_k8_matches_plain(cuda_device, kind):
+    """K8 over 8 launches against its plain version and its block mirror
+    (``frontier_batched_reg_mirror`` at the card's blocks) under B3/S23,
+    B36/S23 and Day & Night (the generic instantiation), each rule's
+    launches counted in its instantiation; with one board it equals K5.
+    "narrow" is the soup 64 cells (2 words, less than one 30-word column
+    group) wide."""
     stack = {"identity": np.stack([identity_board(HN, WN, s) for s in range(3)]),
              "seam": seam_stack(HN, WN),
-             "soup": np.stack([soup(HN, WN, s) for s in range(3)])}[kind]
+             "soup": np.stack([soup(HN, WN, s) for s in range(3)]),
+             "narrow": np.stack([soup(HN, 64, s) for s in range(3)])}[kind]
     tp = tpacked.pack(torch.from_numpy(stack)).to(cuda_device)
-    plan = cuda_adaptive.adaptive_plan((HN, WN // 32), 10**6)
-    got = cuda_adaptive.frontier_superstep_batched(tp, tlife.CONWAY, plan, 8)
-    want = cuda_adaptive.frontier_superstep_batched_mirror(tp, tlife.CONWAY, plan, 8)
-    torch.cuda.synchronize()
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
-    one = cuda_adaptive.frontier_superstep_batched(tp[:1].contiguous(), tlife.CONWAY, plan, 8)
-    k5 = cuda_adaptive.frontier_superstep(tp[0].contiguous(), tlife.CONWAY, plan, 8)
-    assert torch.equal(one[0][0], k5[0]) and int(one[1][0]) == int(k5[1])
-    assert torch.equal(one[2], k5[2])
+    plan = cuda_adaptive.adaptive_plan(tuple(tp.shape[1:]), 10**6)
+    sms = cuda_adaptive.device_sms(cuda_device)
+    for rule in ("conway", "highlife", "day-and-night"):
+        r = tlife.RULES[rule]
+        cuda_adaptive.reset_launches()
+        got = cuda_adaptive.frontier_superstep_batched(tp, r, plan, 8)
+        want = cuda_adaptive.frontier_superstep_batched_mirror(tp, r, plan, 8)
+        blocks = cuda_adaptive.frontier_batched_reg_mirror(tp, r, plan, 8, sms)
+        torch.cuda.synchronize()
+        for g, w, b in zip(got, want, blocks):
+            assert torch.equal(g, w) and torch.equal(g, b)
+        variant = cuda_adaptive.REG_RULES[cuda_adaptive.reg_rule(r)[2]]
+        assert cuda_adaptive.frontier_superstep_batched.rules == {variant: 8}
+        one = cuda_adaptive.frontier_superstep_batched(tp[:1].contiguous(), r, plan, 8)
+        k5 = cuda_adaptive.frontier_superstep(tp[0].contiguous(), r, plan, 8)
+        assert torch.equal(one[0][0], k5[0]) and int(one[1][0]) == int(k5[1])
+        assert torch.equal(one[2], k5[2])

@@ -264,6 +264,28 @@ def test_loopback_matches_jax(ref, jax_strip_plan, plain_calls, turns):
         assert got[1] > 0  # ash stripes skipped inside the chunk
 
 
+@pytest.mark.parametrize("turns", [8 * 18, 12 * 18 + 7])
+def test_block_mirror_loopback_matches_jax(ref, jax_strip_plan, monkeypatch, turns):
+    """K14's block mirror (``strip_mega_launch_mirror``: the register-
+    resident kernel's blocks, light cone and column groups) in place of
+    the plain version in the (1, 1) dispatch, at the JAX plan: board,
+    skip count and activity of the JAX loopback tier, tolerance 0."""
+    calls = []
+
+    def mirror(*a, **kw):
+        calls.append(1)
+        return cuda_halo.strip_mega_launch_mirror(*a, **kw)
+
+    monkeypatch.setattr(cuda_halo, "strip_mega_launch_plain", mirror)
+    b = ici_board()
+    got = run11(b, turns)
+    want = jax_run11(ref, b, turns)
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1] == want[1]
+    np.testing.assert_array_equal(got[2], want[2])
+    assert len(calls) == 8
+
+
 def test_in_kernel_false_runs_the_ppermute_form(ref, jax_strip_plan, plain_calls):
     """``in_kernel=False`` on the (1, 1) mesh takes K12 with its exchange
     between launches, the board of the in-kernel tier, and the JAX
@@ -511,18 +533,30 @@ def test_gpu_k14_matches_plain_on_identical_strips(cuda_device, ny, h, plan, nla
 @pytest.mark.gpu
 @pytest.mark.parametrize("plan", list(PLANS.values()), ids=list(PLANS))
 @pytest.mark.parametrize("ny", [1, 2, 3, 4])
-@pytest.mark.parametrize("rule", ["conway", "highlife"])
-def test_gpu_k14_matches_plain_on_soups(cuda_device, rule, ny, plan):
+@pytest.mark.parametrize("rule", ["conway", "highlife", "day-and-night"])
+def test_gpu_k14_matches_plain_on_soups(cuda_device, monkeypatch, rule, ny, plan):
     """The chunk on the card (its launcher once, one wrapper call a
-    launch) against the plain chunk, on the card and on the CPU: boards,
-    final state, skip counts and activity, and strips and state launch by
-    launch."""
+    launch, each launch counted in the rule's instantiation) against the
+    plain chunk, on the card and on the CPU, and against its block mirror
+    on the card (``strip_mega_launch_mirror`` at the card's blocks):
+    boards, final state, skip counts and activity, and strips and state
+    launch by launch; the strips are 4 words wide (narrower than one
+    30-word column group)."""
     r = tlife.RULES[rule]
     strips = strips_of(seam_soup(ny, 64), ny)
     on_card = [t.to(cuda_device) for t in strips]
     want = chunk_on(strips, plan, r, 8)
+    cuda_halo.reset_launches()
     assert_same_chunk(chunk_on(on_card, plan, r, 8), want)
+    variant = cuda_halo.REG_RULES[cuda_halo.reg_rule(r)[2]]
+    assert cuda_halo.strip_mega_launch.rules == {variant: 8}
     assert_same_chunk(chunk_on(on_card, plan, r, 8, plain=True), want)
+    blocks = cuda_adaptive.frontier_blocks(tuple(strips[0].shape), plan, ny,
+                                           cuda_adaptive.device_sms(cuda_device))
+    with monkeypatch.context() as m:
+        m.setattr(cuda_halo, "strip_mega_launch_plain", functools.partial(
+            cuda_halo.strip_mega_launch_mirror, blocks=blocks))
+        assert_same_chunk(chunk_on(on_card, plan, r, 8, plain=True), want)
     for (a, sa), (b, sb) in zip(launch_by_launch(on_card, plan, r, 8),
                                 launch_by_launch(strips, plan, r, 8)):
         assert all(torch.equal(x, y) for x, y in zip(a, b)) and torch.equal(sa, sb)

@@ -1,4 +1,4 @@
-"""Time K9, K12, K13 and K15 of a checkout of the PyTorch port on one CUDA card.
+"""Time K9 and the frontier kernels of a checkout of the PyTorch port on one CUDA card.
 
     python3 tools/regwin_ab.py [--root DIR] [--label NAME] [--out FILE]
                                [--sweep | --sweep-frontier]
@@ -22,16 +22,23 @@ rows before this script were taken, each launch between CUDA events inside
 the tile tier's own sequence of 8 launches a tile.  Where a launch is
 shorter than its wrapper's host time, back-to-back batches time the host;
 ``device_ms`` is the kernel's own time from ``torch.profiler`` (20
-launches).  K15 (``cuda_halo.tile_mega_launches``) on the same (2, 2)
-tiles and K12 (``cuda_halo.strip_frontier_launch``, driven by
-``cuda_halo.frontier_launches`` with its exchange) on the (4, 1) strips
-at the port's plan (T = 24, 256-row stripes), fresh and settled, each a
-chunk or sequence of 64 launches: the median and spread of 5 event-timed
-batches per launch (the host's calls and, for K12, the exchange
-included), and each kernel's device ms per launch from ``torch.profiler``
-(the frontier kernel and its finalize apart), and the SASS of their
-loops (``frontier_sass``).  Prints one JSON object with the card's name
-and power limit.
+launches).  The frontier kernels through the wrappers every slice
+shares, at the port's plan, fresh and settled (``frontier_cases``): K15
+(``cuda_halo.tile_mega_launches``) over the same (2, 2) tiles, K12
+(``cuda_halo.strip_frontier_launch``, driven by
+``cuda_halo.frontier_launches`` with its exchange) and K14
+(``cuda_halo.strip_mega_launches``) on the (4, 1) strips, K5
+(``cuda_adaptive.frontier_superstep``) on the whole 16384² board, each a
+chunk or sequence of 64 launches, and K8
+(``frontier_superstep_batched``) on serving path (c)'s stack of four
+4096² soups (seeds 51-54; settled: each after 100,000 generations of
+K2), chunks of 8: the median and spread of 5 event-timed batches per
+launch (the host's calls and, for K12, the exchange included), each
+kernel's device ms per launch from ``torch.profiler`` (the frontier
+kernel and its finalize apart), and the SASS of their loops
+(``frontier_sass``).  ``--sweep-frontier`` times each at every row tile
+its plan weighs.  Prints one JSON object with the card's name and power
+limit.
 
 To compare two commits on one card, unpack the parent into a directory
 that ``.gitignore`` lists and run parent, this, this, parent in one call.
@@ -40,6 +47,7 @@ that ``.gitignore`` lists and run parent, this, this, parent in one call.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -123,43 +131,71 @@ def device_ms_by_kernel(fn, kernels: dict, per: int) -> dict:
     return {k: statistics.median(v) for k, v in per_kernel.items()}
 
 
-FRONTIER_KERNELS = {"frontier": lambda k: ("tile_mega" in k or "strip_frontier" in k),
-                    "finalize": lambda k: "frontier_finalize" in k}
+def kernels(*names: str) -> dict:
+    """Profiler tests of a frontier kernel (any of ``names``: the
+    register-resident form and the shared-memory one before it) and of
+    its finalize."""
+    return {"frontier": lambda k: any(f"::{n}" in k for n in names),
+            "finalize": lambda k: "frontier_finalize" in k}
 
 
-def time_frontier(cuda_halo, shards, boards, rule) -> dict:
-    """K15 over the (2, 2) tiles and K12 on the (4, 1) strips of each
-    board at the port's plan, 64 launches a call: per launch, the median
-    and spread of ``BATCHES`` event-timed calls and the device ms of the
-    frontier kernel and of its finalize."""
+POD_C = (4, 4096)  # serving path (c): tenants, side
+
+
+def pod_stack(packed_soup, seed: int) -> torch.Tensor:
+    """Serving path (c)'s stack: four 4096² soups, seeds ``seed``.."""
+    return torch.stack([packed_soup(POD_C[1], POD_C[1], seed + i) for i in range(POD_C[0])])
+
+
+def frontier_cases(cuda_adaptive, cuda_halo, shards, boards, pods, rule):
+    """The frontier kernels at the main paths' shapes and the port's plan,
+    on each board: (key, plan, one shard's shape and the shards one launch
+    covers, a call of 64 launches (K8: 8), launches a call, profiler
+    tests).  K15 over the (2, 2) tiles, K12 on the (4, 1) strips (a call is
+    64 rounds of 4 strip launches with the exchange), K5 on the whole
+    board, K14 over the (4, 1) strips, K8 on pod (c)'s stacks."""
+    out = []
+    tile = (BIG // 2, BIG // 64)
+    strip = (BIG // 4, BIG // 32)
+    pod = (POD_C[1], POD_C[1] // 32)
+    plan15 = cuda_halo.adaptive_tile_plan(tile, 10**6)[0]
+    plan12 = plan14 = cuda_halo.adaptive_strip_plan(strip, 10**6)
+    plan5 = cuda_adaptive.adaptive_plan((BIG, BIG // 32), 10**6)
+    plan8 = cuda_adaptive.adaptive_plan(pod, 10**6)
+    for name, p in boards.items():
+        tiles = shards(p, (2, 2)).shards
+        strips = [row[0] for row in shards(p, (4, 1)).shards]
+        out += [
+            (f"k15_{name}", plan15, tile, 4, lambda tiles=tiles: cuda_halo.tile_mega_launches(
+                tiles, rule, plan15, 64), 64, kernels("tile_mega_reg_kernel")),
+            (f"k12_{name}", plan12, strip, 1, lambda strips=strips: cuda_halo.frontier_launches(
+                strips, rule, plan12, 64), 64 * 4, kernels("strip_frontier_reg_kernel")),
+            (f"k5_{name}", plan5, (BIG, BIG // 32), 1, lambda p=p: cuda_adaptive.frontier_superstep(
+                p, rule, plan5, 64), 64, kernels("frontier_reg_kernel", "frontier_kernel")),
+            (f"k14_{name}", plan14, strip, 4, lambda strips=strips: cuda_halo.strip_mega_launches(
+                strips, rule, plan14, 64), 64, kernels("strip_mega_reg_kernel", "strip_mega_kernel")),
+        ]
+    for name, st in pods.items():
+        out.append((f"k8_{name}", plan8, pod, POD_C[0], lambda st=st:
+                    cuda_adaptive.frontier_superstep_batched(st, rule, plan8, 8), 8,
+                    kernels("frontier_reg_kernel", "frontier_kernel")))
+    return out
+
+
+def time_frontier(cases) -> dict:
+    """Each of ``frontier_cases``: per launch, the median and spread of
+    ``BATCHES`` event-timed calls, and the device ms of the frontier kernel
+    and of its finalize."""
     out = {}
-    for key, mesh_shape in (("k15", (2, 2)), ("k12", (4, 1))):
-        tile = (BIG // mesh_shape[0], BIG // 32 // mesh_shape[1])
-        if key == "k15":
-            plan = cuda_halo.adaptive_tile_plan(tile, 10**6)[0]
-        else:
-            plan = cuda_halo.adaptive_strip_plan(tile, 10**6)
-        for name, p in boards.items():
-            sb = shards(p, mesh_shape)
-            if key == "k15":
-                def fn(sb=sb, plan=plan):
-                    return cuda_halo.tile_mega_launches(sb.shards, rule, plan, 64)
-                per = 64
-            else:
-                strips = [row[0] for row in sb.shards]
-
-                def fn(strips=strips, plan=plan):
-                    return cuda_halo.frontier_launches(strips, rule, plan, 64)
-                per = 64 * len(strips)
-            timed = batches(fn, 1)
-            out[f"{key}_{name}"] = dict(
-                plan=str(plan), ms_per_launch=spread([t / per for t in timed["batches"]]),
-                device_ms=device_ms_by_kernel(fn, FRONTIER_KERNELS, per))
+    for key, plan, _shape, _n, fn, per, tests in cases:
+        timed = batches(fn, 1)
+        out[key] = dict(plan=str(plan), ms_per_launch=spread([t / per for t in timed["batches"]]),
+                        device_ms=device_ms_by_kernel(fn, tests, per))
     return out
 
 
 def frontier_sass(cuda_build) -> dict:
-    """The SASS of K12's and K15's loops in this checkout's ``frontier``
+    """The SASS of K5's, K12's, K14's and K15's loops in this checkout's ``frontier``
     build (``cuobjdump -sass``, read by ``tools/sass_loop_count.py``'s
     functions): for a register-resident kernel (``*_reg_kernel``, B3/S23)
     its generation loop (a 32-row run), for a shared-memory one its row
@@ -173,10 +209,14 @@ def frontier_sass(cuda_build) -> dict:
                           capture_output=True, text=True, check=True).stdout
     out = {}
     for name, code in slc.functions(sass).items():
-        for key, kernel in (("K12", "strip_frontier"), ("K15", "tile_mega")):
-            if f"{kernel}_reg_kernel" in name and slc.CONWAY in name:
+        for key, kernel in (("K12", "strip_frontier"), ("K15", "tile_mega"), ("K5", "frontier"),
+                            ("K14", "strip_mega")):
+            # The mangled name spells each name's length first: "frontier"
+            # alone is the tail of "strip_frontier".
+            reg, old = f"{kernel}_reg_kernel", f"{kernel}_kernel"
+            if f"{len(reg)}{reg}" in name and slc.CONWAY in name:
                 out[key] = slc.summary(code, slc.generation_loop(code), slc.RUN_ROWS)
-            elif f"{kernel}_kernel" in name:
+            elif f"{len(old)}{old}" in name:
                 out[key] = slc.summary(code, slc.row_loop(code), 1)
     return out
 
@@ -186,7 +226,8 @@ def sweep(cuda_halo, halo, shards, big, boards, rule) -> dict:
     (2, 2) tile fresh and settled, at every block height the plans weigh
     (``ext_reg_plan``'s tallest tile for 1 to 16 warps; each divisor of
     K13's stripe), each forced in place of the plan the wrapper would take:
-    the plan's cost on 132 SMs beside the kernel's device ms."""
+    the plan's cost on 132 SMs beside the kernel's device ms (the frontier
+    kernels: ``sweep_frontier``)."""
     from distributed_gol_torch.ops.cuda_adaptive import REG_MAX_WARPS, REG_RUN, RegPlan
 
     rows = []
@@ -232,55 +273,39 @@ def sweep(cuda_halo, halo, shards, big, boards, rule) -> dict:
                                      20, lambda k: "tile_probing" in k)))
     finally:
         cuda_halo.ext_reg_plan, cuda_halo.tile_reg_plan = chosen, chosen_tile
-    rows += sweep_frontier(cuda_halo, shards, boards, rule)
     return rows
 
 
-def sweep_frontier(cuda_halo, shards, boards, rule) -> list:
-    """K15 on the (2, 2) tiles and K12 on the (4, 1) strips, fresh and
-    settled, at every row tile ``frontier_reg_plan`` weighs (each divisor
-    of the stripe whose window fits 16 warps), each forced in place of its
-    pick: the plan's cost on 132 SMs beside the frontier kernel's device
-    ms per launch over 64 launches."""
+def sweep_frontier(cuda_halo, cases) -> list:
+    """Each of ``frontier_cases`` at every row tile of 8 rows or more that
+    divides the stripe and whose window fits 16 warps, each forced in
+    place of ``cuda_adaptive.frontier_blocks``' pick: the cost on 132 SMs
+    of the plan of all the shards a launch covers, beside the frontier
+    kernel's and the finalize's device ms a launch."""
+    from distributed_gol_torch.ops import cuda_adaptive
     from distributed_gol_torch.ops.cuda_adaptive import REG_MAX_WARPS, REG_RUN, RegPlan
 
-    chosen = cuda_halo.frontier_reg_plan
+    chosen = cuda_adaptive.frontier_blocks
     rows = []
     try:
-        for key, mesh_shape in (("K15", (2, 2)), ("K12", (4, 1))):
-            ny, nx = mesh_shape
-            tile = (BIG // ny, BIG // 32 // nx)
-            if key == "K15":
-                plan = cuda_halo.adaptive_tile_plan(tile, 10**6)[0]
-                stacked = (ny * nx * tile[0], tile[1])
-            else:
-                plan = cuda_halo.adaptive_strip_plan(tile, 10**6)
-                stacked = tile
-            best = chosen(stacked, plan.stripe_h, plan.t, 132)
+        for key, plan, shape, n, fn, per, tests in cases:
+            best = chosen(shape, plan, n, 132)
             halo = plan.t + 6
             for tile_h in [d for d in range(8, plan.stripe_h + 1) if plan.stripe_h % d == 0]:
                 warps = -(-(tile_h + 2 * halo) // REG_RUN)
                 if warps > REG_MAX_WARPS:
                     continue
-                forced = RegPlan(halo, halo, tile_h, warps,
-                                 (stacked[0] // tile_h, -(-tile[1] // 30)), keep=True)
-                cuda_halo.frontier_reg_plan = lambda *a, _p=forced: _p
-                for name, p in boards.items():
-                    sb = shards(p, mesh_shape)
-                    strips = [row[0] for row in sb.shards]
-                    if key == "K15":
-                        def fn(sb=sb):
-                            return cuda_halo.tile_mega_launches(sb.shards, rule, plan, 64)
-                        per = 64
-                    else:
-                        def fn(strips=strips):
-                            return cuda_halo.frontier_launches(strips, rule, plan, 64)
-                        per = 64 * len(strips)
-                    rows.append(dict(kernel=key, board=name, plan=str(forced),
-                                     cost=forced.cost(132), chosen=forced == best,
-                                     device_ms=device_ms_by_kernel(fn, FRONTIER_KERNELS, per)))
+                forced = RegPlan(halo, halo, tile_h, warps, (shape[0] // tile_h, -(-shape[1] // 30)),
+                                 keep=True)
+                stacked = dataclasses.replace(forced, grid=(n * forced.grid[0], forced.grid[1]))
+                cuda_adaptive.frontier_blocks = cuda_halo.frontier_blocks = (
+                    lambda *a, _p=forced: _p)
+                kernel, board = key.split("_", 1)
+                rows.append(dict(kernel=kernel.upper(), board=board, plan=str(forced),
+                                 cost=stacked.cost(132), chosen=forced == best,
+                                 device_ms=device_ms_by_kernel(fn, tests, per)))
     finally:
-        cuda_halo.frontier_reg_plan = chosen
+        cuda_adaptive.frontier_blocks = cuda_halo.frontier_blocks = chosen
     return rows
 
 
@@ -290,10 +315,11 @@ def main() -> int:
     ap.add_argument("--label", default="")
     ap.add_argument("--out", default="")
     ap.add_argument("--sweep", action="store_true",
-                    help="also time K9, K12, K13 and K15 at every block height the plans "
-                         "weigh")
+                    help="also time K9, K13 and the frontier kernels at every block "
+                         "height the plans weigh")
     ap.add_argument("--sweep-frontier", action="store_true",
-                    help="also time K12 and K15 at every block height their plan weighs")
+                    help="also time K15, K12, K5, K14 and K8 at every block height their "
+                         "plan weighs")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("regwin_ab: no CUDA GPU", file=sys.stderr)
@@ -301,7 +327,7 @@ def main() -> int:
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
     from distributed_gol_torch.models.life import CONWAY
-    from distributed_gol_torch.ops import cuda_build, cuda_packed, packed
+    from distributed_gol_torch.ops import cuda_adaptive, cuda_build, cuda_packed, packed
     from distributed_gol_torch.parallel import cuda_halo, halo, mesh as mesh_lib
     from distributed_gol_torch.utils.soup import random_soup
 
@@ -380,12 +406,22 @@ def main() -> int:
                 per.append(sum(s.elapsed_time(f) for s, f in spans) / len(spans))
             out["k13"][f"{mesh_shape[0]}x{mesh_shape[1]}_{name}"] = dict(
                 plan=str(plan), xpad=xpad, alone=alone, in_sequence=spread(per))
-    out["frontier"] = time_frontier(cuda_halo, shards, boards, CONWAY)
+    pods = {"fresh": pod_stack(soup, 51)}
+    pod_path = settled_path.with_name("regwin_ab_pod_settled.pt")
+    if pod_path.is_file():
+        pods["settled"] = torch.load(pod_path).to(dev)
+    else:
+        pods["settled"] = torch.stack([cuda_packed.tiled_superstep(b.contiguous(), CONWAY, 100_000)
+                                       for b in pods["fresh"]])
+        torch.save(pods["settled"].cpu(), pod_path)
+    frontier = frontier_cases(cuda_adaptive, cuda_halo, shards, boards, pods, CONWAY)
+    out["frontier"] = time_frontier(frontier)
     out["frontier_sass"] = frontier_sass(cuda_build)
     if args.sweep:
-        out["sweep"] = sweep(cuda_halo, halo, shards, big, boards, CONWAY)
+        out["sweep"] = sweep(cuda_halo, halo, shards, big, boards, CONWAY) + sweep_frontier(
+            cuda_halo, frontier)
     elif args.sweep_frontier:
-        out["sweep"] = sweep_frontier(cuda_halo, shards, boards, CONWAY)
+        out["sweep"] = sweep_frontier(cuda_halo, frontier)
     out["seconds"] = time.perf_counter() - t0
     line = json.dumps(out)
     print(line)

@@ -142,9 +142,17 @@ REG_RULES = (*RULES, DAY_AND_NIGHT)
 # Event-timed batches behind the median and spread of the K9 and K13 rows
 # and of their controls (K2, K4, K5, K10).
 BATCHES = 5
-# The kernels of regwin.cuh, which must build without spills.
-REG_KERNELS = ("ext_reg_kernel", "tile_probing_reg_kernel", "frontier_reg_kernel",
-               "strip_frontier_reg_kernel", "strip_mega_reg_kernel", "tile_mega_reg_kernel")
+# The kernels of regwin.cuh, and K1's register kernel, which must build
+# without spills.
+REG_KERNELS = ("ext_reg_kernel", "ext_skip_reg_kernel", "tile_probing_reg_kernel",
+               "frontier_reg_kernel", "strip_frontier_reg_kernel", "strip_mega_reg_kernel",
+               "tile_mega_reg_kernel", "resident_reg_kernel")
+# K1's boards beside the main path's 512²: (H, W) cells at the gate's
+# ragged and extreme shapes (one word row 32, 96 and 58,112 wide, three
+# word rows, 40 word rows of 32 columns, 1,816 of them, 64², a serving
+# pod's 1024 x 1792), each held to its plain version.
+K1_SHAPES = ((32, 32), (32, 96), (96, 64), (1280, 32), (64, 64), (1024, 1792), (32, 58112),
+             (32 * 1816, 32))
 # The register-resident kernel of each frontier wrapper, as its mangled
 # name spells it (length, then name: "frontier_reg_kernel" alone is also
 # the tail of "strip_frontier_reg_kernel").
@@ -387,21 +395,35 @@ def ext_bound_ms(strip: tuple[int, int], t: int, pad: int, xpad: int, rule: Life
     return larger_ms(moved * 4 / HBM_BYTES_PER_S, share * words * ops_per_word(rule) / int_rate)
 
 
+def k10_yardstick(strip: tuple[int, int], t: int) -> cuda_adaptive.RegPlan:
+    """The tiling K10's bound reads its share of work from, the same
+    whatever blocks the kernel runs: the (h_loc, wpl) centre in tiles of 32
+    rows (fewer on a shorter centre) by 30 words, each probed on its window
+    of ``t`` rows and one word a side, the last row and column of tiles
+    shifted to end at the centre's edge (``cuda_halo.ext_skip_origins``)."""
+    h_loc, wpl = strip
+    tile_h = min(32, h_loc)
+    return cuda_adaptive.RegPlan(t, t, tile_h, -(-(tile_h + 2 * t) // 32),
+                                 (-(-h_loc // tile_h), -(-wpl // 30)), 1, cuda_adaptive.SKIP_PERIOD)
+
+
 def k10_share(ext: torch.Tensor, strip: tuple[int, int], t: int, xpad: int):
     """(share, stable tiles) of a K10 launch of ``t`` generations on the
     extended block ``ext`` of an (h_loc, wpl) centre: the centre words of
-    K10's own tiles whose skip proof fails (``ext_skip_stable_tiles``, the
-    kernel's arithmetic in PyTorch) over all the centre's words, and the
-    (tile rows, tile columns) grid of 1 where the proof holds."""
-    stable = cuda_halo.ext_skip_stable_tiles(ext, CONWAY, t, t, xpad).cpu()
-    tiles = cuda_halo.ext_tiles(strip, t)
+    the yardstick's tiles (``k10_yardstick``) whose skip proof fails
+    (``ext_skip_stable_tiles``, the proof in PyTorch) over all the centre's
+    words, and the count of tiles and of tiles where the proof holds."""
+    plan = k10_yardstick(strip, t)
+    stable = cuda_halo.ext_skip_stable_tiles(ext, CONWAY, t, t, xpad, plan).cpu()
+    ys, xs = cuda_halo.ext_skip_origins(plan, strip)
     h_loc, wpl = strip
-    rows = torch.tensor([min(tiles.tile_h, h_loc - i * tiles.tile_h)
-                         for i in range(stable.shape[0])])
-    cols = torch.tensor([min(tiles.tile_w, wpl - j * tiles.tile_w)
-                         for j in range(stable.shape[1])])
-    share = int((rows[:, None] * cols[None, :])[~stable].sum()) / (h_loc * wpl)
-    return share, stable.int().tolist()
+    work = torch.zeros(strip, dtype=torch.bool)
+    for i, y in enumerate(ys):
+        for j, x in enumerate(xs):
+            if not stable[i, j]:
+                work[y : y + plan.tile_h, x : x + plan.centre] = True
+    share = int(work.sum()) / (h_loc * wpl)
+    return share, dict(tiles=stable.numel(), stable=int(stable.sum()))
 
 
 # Integer instructions K6 spends per cell, counted from csrc/stencil.cu
@@ -537,7 +559,16 @@ def numpy_life(b: np.ndarray, turns: int, rule: LifeRule) -> np.ndarray:
 
 
 def check_resident(device, errs: dict) -> None:
-    for rule in RULES:
+    """K1 against its plain version, tolerance 0: 512² (a cluster of
+    several CTAs) at 1 to 1,000 generations under ``REG_RULES`` (each
+    launch counted in its rule's instantiation) and against its block
+    mirror on the card, then ``K1_SHAPES`` at 1, 9 and 50 generations;
+    then the default run's board against the NumPy oracle."""
+    cuda_packed.resident_superstep.rules.clear()
+    plan = cuda_packed.resident_reg_plan(16, 512)
+    if plan.cluster < 2:
+        raise AssertionError(f"K1's plan for 512^2 is one CTA ({plan}), not a cluster")
+    for rule in REG_RULES:
         v = packed.pack_vertical(board(512, 512, 11, device))
         for turns in (1, 6, 100, 1000):
             got = cuda_packed.resident_superstep(v, rule, turns)
@@ -547,7 +578,26 @@ def check_resident(device, errs: dict) -> None:
             errs["resident"] = max(errs["resident"], err)
             if not torch.equal(got, want):
                 raise AssertionError(f"K1 != plain at 512^2 x {turns} under {rule.notation}")
-            log(f"K1 512^2 x {turns} {rule.notation}: identical")
+        mirror = cuda_packed.resident_superstep_mirror(v, rule, 50)
+        if not torch.equal(cuda_packed.resident_superstep(v, rule, 50), mirror):
+            raise AssertionError(f"K1 != its block mirror at 512^2 x 50 under {rule.notation}")
+        log(f"K1 512^2 x {{1, 6, 100, 1000}} {rule.notation} ({plan}): identical to plain, "
+            f"and to the block mirror at 50")
+    if set(cuda_packed.resident_superstep.rules) != set(cuda_adaptive.REG_RULES):
+        raise AssertionError(f"K1 ran {dict(cuda_packed.resident_superstep.rules)}, not every "
+                             "instantiation")
+    for h, w in K1_SHAPES:
+        v = packed.pack_vertical(board(h, w, h + w, device))
+        for rule in REG_RULES:
+            for turns in (1, 9, 50):
+                got = cuda_packed.resident_superstep(v, rule, turns)
+                want = cuda_packed.resident_superstep_plain(v, rule, turns)
+                errs["resident"] = max(errs["resident"], max_abs_err(got, want))
+                if not torch.equal(got, want):
+                    raise AssertionError(f"K1 != plain at {h}x{w} x {turns} under "
+                                         f"{rule.notation}")
+        log(f"K1 {h}x{w} x {{1, 9, 50}} under {len(REG_RULES)} rules "
+            f"({cuda_packed.resident_reg_plan(h // 32, w)}): identical")
     b = board(512, 512, 12, device)
     got = cuda_packed.make_superstep_bytes(CONWAY, device)(b, 100).cpu().numpy()
     if not np.array_equal(got, numpy_life(b.cpu().numpy(), 100, CONWAY)):
@@ -908,6 +958,23 @@ def plain_strip_kernels():
             setattr(cuda_halo, n, fn)
 
 
+def check_k10_settled(e: torch.Tensor, t: int, xpad: int, where: str) -> dict:
+    """K10 on a settled shard's extended block ``e``: its block map from
+    the skip proof in PyTorch (``ext_skip_stable_tiles``) must be all true,
+    the launch must compute no block (its own flags,
+    ``ext_skip_launch.last_stable``, all 1) and copy its centre (the output
+    equals the block's centre).  Returns the counts."""
+    stable = cuda_halo.ext_skip_stable_tiles(e, CONWAY, t, t, xpad)
+    got = cuda_halo.ext_skip_launch(e, CONWAY, t, t, xpad)
+    flags = cuda_halo.ext_skip_launch.last_stable
+    centre = e[t:-t, xpad : e.shape[1] - xpad] if xpad else e[t:-t]
+    out = dict(blocks=stable.numel(), stable_map=int(stable.sum()),
+               computed=int((flags == 0).sum()), copied=bool(torch.equal(got, centre)))
+    if not (stable.all() and out["computed"] == 0 and out["copied"]):
+        raise AssertionError(f"K10 on the settled {where} at T = {t}: {out}")
+    return out
+
+
 def check_strips(device, errs: dict, boards: dict) -> dict:
     """K10, K11, K12 and K14 against their plain versions, tolerance 0, on
     the 16384² soup split (4, 1) on a virtual mesh: fresh, settled (after
@@ -986,6 +1053,9 @@ def check_strips(device, errs: dict, boards: dict) -> dict:
                     if not torch.equal(got, want):
                         raise AssertionError(f"K10 != plain at {t} turns, {name}, {rule.notation}")
             log(f"K10 x {{6, 12, 18, 24, 30}} on the 4 {name} strips {rule.notation}: identical")
+            if name == "settled" and rule is CONWAY:
+                e = halo.extend(sb, 18, 0)[0][0]
+                log(f"K10 on settled strip 0 at T = 18: {check_k10_settled(e, 18, 0, 'strip 0')}")
     # K12's generic instantiation (Day & Night), launch by launch.
     cuda_halo.strip_frontier_launch.rules.clear()
     for name, sb in cases.items():
@@ -1139,6 +1209,7 @@ def check_plan_less(device, errs: dict, dims: tuple, mesh_shape: tuple, tag: str
     depths = [(t, cuda_halo.ext_launch, cuda_halo.ext_launch_plain, "ext") for t in range(1, 6)]
     depths += [(t, cuda_halo.ext_skip_launch, cuda_halo.ext_skip_launch_plain, "ext_skip")
                for t in range(6, t_full + 1, 6)]
+    cuda_halo.ext_skip_launch.rules.clear()
     for rule in REG_RULES:
         for name, sb in cases.items():
             for t, fn, plain, k in depths:
@@ -1151,6 +1222,9 @@ def check_plan_less(device, errs: dict, dims: tuple, mesh_shape: tuple, tag: str
                                              f"({tag})'s {name} shards under {rule.notation}")
             log(f"K10 x {{6..{t_full}}} and K9 x {{1..5}} on the {mesh_shape} {name} "
                 f"{shard[0]}x{shard[1]}-word shards of {h}x{w} {rule.notation}: identical")
+    if set(cuda_halo.ext_skip_launch.rules) != set(cuda_adaptive.REG_RULES):
+        raise AssertionError(f"K10 ran {dict(cuda_halo.ext_skip_launch.rules)}, not every "
+                             "instantiation")
     return fresh
 
 
@@ -1285,6 +1359,10 @@ def check_tiles(device, errs: dict, boards: dict) -> dict:
                                                  f"{name} tiles, {rule.notation}")
                 log(f"K13 x 3 launches and K10 x {{6, 12, 18, 24, 30}} (xpad 1) on the "
                     f"{ntiles} {name} tiles of {mesh_shape} {rule.notation}: identical")
+                if name == "settled" and rule is CONWAY:
+                    e = halo.extend(sb, 18, 1)[0][0]
+                    log(f"K10 on settled tile (0, 0) at T = 18, xpad 1: "
+                        f"{check_k10_settled(e, 18, 1, 'tile (0, 0)')}")
         sharded[mesh_shape] = cases
     return sharded[MESH_H]
 
@@ -2132,16 +2210,18 @@ def time_batched(k8_stacks: dict, int_rate: float) -> dict:
     each)."""
     nt, side, _, step = POD_K7
     v = packed.pack_vertical(soup_stack(nt, side, 61, torch.device("cuda", 0))).contiguous()
-    k1_sequential = cuda_ms(lambda: [cuda_packed.resident_superstep(b, CONWAY, step)
-                                     for b in v], 5)
+    k1_sequential = cuda_ms_spread(lambda: [cuda_packed.resident_superstep(b, CONWAY, step)
+                                            for b in v], 5)
+    k7_ms = cuda_ms_spread(lambda: cuda_packed.resident_superstep_batched(v, CONWAY, step), 20)
     k7 = dict(
-        ms=cuda_ms(lambda: cuda_packed.resident_superstep_batched(v, CONWAY, step), 20),
+        ms=k7_ms["median"],
         plain_ms=cuda_ms(lambda: cuda_packed.resident_superstep_batched_plain(v, CONWAY, step), 2),
         bound=bound_ms(v.numel(), step, 1, CONWAY, int_rate),
-        extra=dict(shape=[nt, side, side], gens=step, k1_sequential_ms=k1_sequential),
+        extra=dict(shape=[nt, side, side], gens=step, ms_spread=k7_ms,
+                   k1_sequential_ms=k1_sequential["median"], k1_sequential_spread=k1_sequential),
     )
     log(f"K7 {nt} x {side}^2 x {step} gens: {k7['ms']:.4f} ms in one launch, {nt} x K1 "
-        f"{k1_sequential:.4f} ms, plain {k7['plain_ms']:.3f} ms, bound "
+        f"{k1_sequential['median']:.4f} ms, plain {k7['plain_ms']:.3f} ms, bound "
         f"{k7['bound'][0]:.5f} ms by {k7['bound'][1]}")
     nb, side = POD_K8[0], POD_K8[1]
     plan = cuda_adaptive.adaptive_plan((side, side // 32), 10**6)
@@ -2257,6 +2337,7 @@ def time_strips(cases: dict, int_rate: float) -> dict:
     fplan = cuda_halo.adaptive_strip_plan(strip, 10**6)
     pplan = cuda_halo.adaptive_strip_plan(strip, 10**6, PROBE_CAP)
     ny = MESH_E[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = {}
     for name in ("fresh", "settled"):
         sb = cases[name]
@@ -2287,23 +2368,28 @@ def time_strips(cases: dict, int_rate: float) -> dict:
         share, stable = k10_share(e, strip, t, 0)
         b_ms, b_by = ext_bound_ms(strip, t, t, 0, CONWAY, int_rate, share)
         k10 = cuda_ms_spread(lambda: cuda_halo.ext_skip_launch(e, CONWAY, t, t, 0), 20)
+        flags = cuda_halo.ext_skip_launch.last_stable
         row["ext_skip"] = dict(
             ms=k10["median"], ms_spread=k10,
             plain_ms=cuda_ms(lambda: cuda_halo.ext_skip_launch_plain(e, CONWAY, t, t, 0), 2),
-            t=t, computed_share=share, stable_tiles=stable, bound_ms=b_ms, bound_by=b_by,
+            t=t, computed_share=share, yardstick_tiles=stable, bound_ms=b_ms, bound_by=b_by,
+            blocks=dataclasses.asdict(cuda_halo.ext_skip_plan(strip, t, sms)),
+            blocks_computed=int((flags == 0).sum()),
             ext_same_t_ms=cuda_ms(lambda: cuda_halo.ext_launch(e, CONWAY, t, t, 0), 20))
         out[name] = row
         log(f"{name} strips of {MESH_E}: " + "; ".join(
             f"{k} {row[k]['ms']:.4f} ms (plain {row[k]['plain_ms']:.3f}, bound "
             f"{row[k]['bound_ms']:.4f} by {row[k]['bound_by']})" for k in (*STRIPS, "path_e_tail"))
             + f"; K9 at T = {t} {row['ext_skip']['ext_same_t_ms']:.4f} ms; K10 computed share "
-            f"{share:.4f}, stable tiles {stable}")
+            f"{share:.4f} (yardstick {stable}), blocks computed "
+            f"{row['ext_skip']['blocks_computed']} of {flags.numel()}")
     h, w, turns = PLAN_LESS
     t = cuda_halo.skip_launch_depth((h // MESH_F[0], w // 32), turns)[0]
     e = halo.extend(cases["plan_less"], t, 0)[0][0]
     b_ms, b_by = ext_bound_ms((h // MESH_F[0], w // 32), t, t, 0, CONWAY, int_rate)
-    path_f = dict(shape=list(e.shape), t=t, bound_ms=b_ms, bound_by=b_by,
-                  ms=cuda_ms(lambda: cuda_halo.ext_skip_launch(e, CONWAY, t, t, 0), 50),
+    k10 = cuda_ms_spread(lambda: cuda_halo.ext_skip_launch(e, CONWAY, t, t, 0), 50)
+    path_f = dict(shape=list(e.shape), t=t, bound_ms=b_ms, bound_by=b_by, ms=k10["median"],
+                  ms_spread=k10,
                   plain_ms=cuda_ms(lambda: cuda_halo.ext_skip_launch_plain(e, CONWAY, t, t, 0), 5))
     log(f"K10 at path (f)'s {tuple(e.shape)} block, T = {t}: {path_f['ms']:.4f} ms "
         f"(plain {path_f['plain_ms']:.3f}, bound {b_ms:.5f} by {b_by})")
@@ -2497,11 +2583,13 @@ def time_tiles(cases: dict, int_rate: float) -> dict:
         share, stable = k10_share(e, tile, t, xw)
         b_ms, b_by = ext_bound_ms(tile, t, t, xw, CONWAY, int_rate, share)
         k10 = cuda_ms_spread(lambda: cuda_halo.ext_skip_launch(e, CONWAY, t, t, xw), 20)
+        flags = cuda_halo.ext_skip_launch.last_stable
         row["ext_skip"] = dict(
             ms=k10["median"], ms_spread=k10,
             plain_ms=cuda_ms(lambda: cuda_halo.ext_skip_launch_plain(e, CONWAY, t, t, xw), 2),
-            t=t, xpad=xw, shape=list(e.shape), computed_share=share, stable_tiles=stable,
-            bound_ms=b_ms, bound_by=b_by,
+            t=t, xpad=xw, shape=list(e.shape), computed_share=share, yardstick_tiles=stable,
+            blocks=dataclasses.asdict(cuda_halo.ext_skip_plan(tile, t, sms)),
+            blocks_computed=int((flags == 0).sum()), bound_ms=b_ms, bound_by=b_by,
             ext_same_t_ms=cuda_ms(lambda: cuda_halo.ext_launch(e, CONWAY, t, t, xw), 20))
         out[name] = row
         log(f"{name} tiles of {MESH_H}: " + "; ".join(
@@ -2511,15 +2599,17 @@ def time_tiles(cases: dict, int_rate: float) -> dict:
             f"{alone['median']:.4f} ({blocks}, fill {blocks.fill(sms):.3f})"
             + f"; K9 at T = {t} {row['ext_skip']['ext_same_t_ms']:.4f} ms; K13 computed "
             f"{row['tile_probing']['computed_stripes_per_launch']:.2f} of {plan.grid(tile[0])} "
-            f"stripes a tile launch; K10 computed share {share:.4f}, stable tiles {stable}")
+            f"stripes a tile launch; K10 computed share {share:.4f} (yardstick {stable}), "
+            f"blocks computed {row['ext_skip']['blocks_computed']} of {flags.numel()}")
     h, w, turns = TILE_PLAN_LESS
     strip = (h // MESH_I[0], w // 32 // MESH_I[1])
     t = cuda_halo.skip_launch_depth(strip, turns)[0]
     xw = -(-t // 32)
     e = halo.extend(cases["plan_less"], t, xw)[0][0]
     b_ms, b_by = ext_bound_ms(strip, t, t, xw, CONWAY, int_rate)
+    k10 = cuda_ms_spread(lambda: cuda_halo.ext_skip_launch(e, CONWAY, t, t, xw), 50)
     path_i = dict(shape=list(e.shape), t=t, xpad=xw, bound_ms=b_ms, bound_by=b_by,
-                  ms=cuda_ms(lambda: cuda_halo.ext_skip_launch(e, CONWAY, t, t, xw), 50),
+                  ms=k10["median"], ms_spread=k10,
                   plain_ms=cuda_ms(lambda: cuda_halo.ext_skip_launch_plain(e, CONWAY, t, t, xw), 5))
     log(f"K10 at path (i)'s {tuple(e.shape)} block, T = {t}, xpad {xw}: {path_i['ms']:.4f} ms "
         f"(plain {path_i['plain_ms']:.3f}, bound {b_ms:.5f} by {b_by})")
@@ -2690,13 +2780,15 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  {k}: {line.strip()}")
     reg_build = {k: reg_build_report(cuda_build.build_log(k))
-                 for k in ("ext", "probing", "frontier")}
-    log(f"K5/K8, K9 and K12-K15 (regwin.cuh) build without spills: "
+                 for k in ("ext", "probing", "frontier", "resident")}
+    log(f"K1, K5/K8, K9, K10 and K12-K15 build without spills: "
         f"{ {k: [r['registers'] for r in v.values()] for k, v in reg_build.items()} } registers")
     plan = cuda_packed.tiled_plan((BIG, BIG // 32), 10**6)
-    log(f"dynamic shared memory: resident {512 // 32 * 512 * 4} B per block at 512^2 "
-        f"(1 block of 1024 threads); tiled {plan.smem_bytes} B per block at {BIG}^2 "
-        f"({plan}, grid {plan.grid((BIG, BIG // 32))}, 64x16 threads)")
+    k1_plan = cuda_packed.resident_reg_plan(16, 512)
+    log(f"dynamic shared memory: resident {k1_plan.smem_bytes} B per CTA at 512^2 "
+        f"({k1_plan}); resident_batched {512 // 32 * 512 * 4} B per board; tiled "
+        f"{plan.smem_bytes} B per block at {BIG}^2 ({plan}, grid "
+        f"{plan.grid((BIG, BIG // 32))}, 64x16 threads)")
 
     # Phase 2: each kernel against its plain version, bit for bit.
     errs = {k: 0 for k in KERNELS}
@@ -2782,9 +2874,13 @@ def main() -> int:
     t_big = cuda_packed.tiled_plan(tuple(p.shape), 10**6).t
     timings = {
         "resident": dict(
-            ms=cuda_ms(lambda: cuda_packed.resident_superstep(v, CONWAY, 50), 20),
+            ms=(k1 := cuda_ms_spread(lambda: cuda_packed.resident_superstep(v, CONWAY, 50),
+                                     20))["median"],
             plain_ms=cuda_ms(lambda: cuda_packed.resident_superstep_plain(v, CONWAY, 50), 3),
             bound=bound_ms(v.numel(), 50, 1, CONWAY, int_rate),
+            extra=dict(ms_spread=k1, plan=dataclasses.asdict(k1_plan), bound_one_sm_ms=bound_ms(
+                v.numel(), 50, 1, CONWAY, int_rate / sms)[0], bound_one_cluster_ms=bound_ms(
+                v.numel(), 50, 1, CONWAY, int_rate / sms * k1_plan.cluster)[0]),
         ),
         "tiled": dict(
             ms=(k2 := cuda_ms_spread(lambda: cuda_packed.tiled_superstep(p, CONWAY, t_big), 10))[
@@ -2816,7 +2912,11 @@ def main() -> int:
     timings["tile_mega"] = time_tile_mega(tile_mega_cases, tile_cases, int_rate)
     tiles = time_tiles(tile_cases, int_rate)
     timings["tile_probing"] = tiles["tile_probing"]
-    timings["ext"]["extra"]["build"] = reg_build["ext"]
+    timings["ext"]["extra"]["build"] = {n: r for n, r in reg_build["ext"].items()
+                                        if "ext_reg_kernel" in n}
+    timings["ext_skip"]["extra"]["build"] = {n: r for n, r in reg_build["ext"].items()
+                                             if "ext_skip_reg_kernel" in n}
+    timings["resident"]["extra"]["build"] = reg_build["resident"]
     timings["tile_probing"]["extra"]["build"] = reg_build["probing"]
     timings["ext_skip"]["extra"]["tile_2d"] = tiles["ext_skip_2d"]
     witness = k6_witnesses(soups[BIG], wrap_free)

@@ -5,11 +5,14 @@ Counterpart of ``distributed_gol_tpu/ops/pallas_packed.py`` for the plain
 ``ops/cuda_adaptive.py``.  Three CUDA kernels (``csrc/``), each with a
 wrapper, a launch counter and a plain PyTorch version:
 
-- **K1, resident** (``csrc/resident.cu``; replaces
-  ``pallas_packed.py::_vmem_kernel``): the whole vertically packed board
-  in one block's shared memory for all generations of a superstep.
-  Gate: :func:`resident_shape` — the board must fit the 227 KB of dynamic
-  shared memory a Hopper block may hold (512² is 32 KB).
+- **K1, resident** (``csrc/resident.cu``, ``gol_resident_reg_launch``;
+  replaces ``pallas_packed.py::_vmem_kernel``): the whole vertically
+  packed board in registers across a thread-block cluster for all
+  generations of a superstep, one column run a thread.  Gate:
+  :func:`resident_shape` — the board must fit the 227 KB of dynamic
+  shared memory a Hopper block may hold (512² is 32 KB), as K7's does.
+  Plan: :func:`resident_reg_plan`; :func:`resident_superstep_mirror`
+  replays its sub-runs and exchange in PyTorch.
 - **K2, tiled** (``csrc/tiled.cu``; replaces ``pallas_packed.py::_kernel``
   in its ``skip_stable=False`` form): T generations per launch on 2-D
   tiles with a T-row and ``xpad``-word halo gathered modulo the board, so
@@ -17,8 +20,9 @@ wrapper, a launch counter and a plain PyTorch version:
 - **K7, resident batched** (``csrc/resident.cu``,
   ``gol_resident_batched_launch``; replaces
   ``pallas_packed.py::_vmem_kernel_batched``): a (B, H/32, W) stack of
-  same-shape boards, one block per board.  Gate: :func:`resident_shape`
-  per board, as K1's.  :func:`make_batched_superstep_bytes` is the
+  same-shape boards, one block per board, each in its block's shared
+  memory (the first port's K1 body).  Gate: :func:`resident_shape` per
+  board.  :func:`make_batched_superstep_bytes` is the
   serving plane's batched engine over K7 and the batched frontier kernel
   (K8, ``ops/cuda_adaptive.py``).
 
@@ -36,8 +40,10 @@ the gates and the plan here are sized for Hopper's shared memory.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
+import functools
 
 import torch
 
@@ -84,6 +90,122 @@ def kernel_for(shape: tuple[int, int]) -> str | None:
     if not packed.supports(shape) or h <= 0:
         return None
     return "resident" if resident_shape(h, w) is not None else "tiled"
+
+
+#: K1's instantiations (``csrc/resident.cu``): a sub-run's registers H
+#: (8 or 2), each with 32 / H sub-runs a thread.
+RESIDENT_RUNS = (8, 2)
+#: Most centre columns of a warp (lanes 1..30; lanes 0 and q + 1 are halo),
+#: most warps of a CTA (512 threads, so a thread may hold 128 registers:
+#: at 1,024 threads and 64 the sub-runs' bookkeeping spilled) and most CTAs
+#: of a cluster (16 needs the card's non-portable cluster size).
+RESIDENT_GROUP, RESIDENT_MAX_WARPS, RESIDENT_MAX_CLUSTER = 30, 16, 16
+#: The plan's price of a generation, in SM cycles: a warp-row (12 integer
+#: instructions at 2 warp-instructions a cycle, ``chip_smoke.py::
+#: ops_per_word``; the 4 shuffles issue on their own pipe), one more on a
+#: ragged run's row (its bounds), a sub-run's exchange (its table reads,
+#: edge stores, ballots and halo loads), and the barrier of one CTA, of a
+#: portable cluster (up to 8 CTAs) and of a larger one.  Sized from the
+#: card's rates, not measured; ``tools/regwin_ab.py --sweep`` times every
+#: cluster size the plan weighs.
+_ROW_CYCLES, _RAGGED_ROW_CYCLES, _SUBRUN_CYCLES = 6.0, 1.0, 40.0
+_BARRIER_CYCLES = (60.0, 400.0, 800.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class ResidentPlan:
+    """One K1 launch on a vertically packed (hw, w) board ``shape``: the
+    board's columns evened over ``groups`` = ceil(w / 30) column groups, its
+    word rows cut into runs of ``rh`` rows (the last may hold fewer), one
+    sub-run a (run, group); a warp holds ``vs`` sub-runs of at most
+    ``h_run`` rows (the instantiation), a CTA ``wpc`` warps, the cluster
+    ``cluster`` CTAs, each holding sub-runs."""
+
+    shape: tuple[int, int]
+    h_run: int
+    rh: int
+    vs: int
+    wpc: int
+    cluster: int
+
+    def __post_init__(self):
+        hw, w = self.shape
+        if not (hw >= 1 and w >= WORD and w % WORD == 0 and self.h_run in RESIDENT_RUNS
+                and 1 <= self.rh <= self.h_run and 1 <= self.vs <= WORD // self.h_run
+                and 1 <= self.wpc <= RESIDENT_MAX_WARPS
+                and 1 <= self.cluster <= RESIDENT_MAX_CLUSTER
+                and self.cluster * self.spc >= self.nsub > (self.cluster - 1) * self.spc):
+            raise ValueError(f"invalid resident plan {self}")
+
+    @property
+    def groups(self) -> int:
+        return -(-self.shape[1] // RESIDENT_GROUP)
+
+    @property
+    def runs(self) -> int:
+        return -(-self.shape[0] // self.rh)
+
+    @property
+    def nsub(self) -> int:
+        return self.groups * self.runs
+
+    @property
+    def spc(self) -> int:
+        """Sub-runs a CTA holds (its last ones may lie past the board)."""
+        return self.wpc * self.vs
+
+    @property
+    def ragged(self) -> bool:
+        """Whether some run holds fewer than ``h_run`` rows: the
+        instantiation that bounds its rows at run time."""
+        return self.rh != self.h_run or self.shape[0] % self.rh != 0
+
+    @property
+    def smem_bytes(self) -> int:
+        """A CTA's shared memory: two parities of its sub-runs' slots (two
+        edge columns and two ballots each) and its sub-runs' table."""
+        return 4 * self.spc * (2 * (2 * self.h_run + 2) + 12)
+
+    def cost(self) -> float:
+        """SM cycles of one generation on the busiest SM: its warp-rows and
+        sub-run exchanges at the share of its 4 schedulers its warps fill,
+        then the barrier."""
+        rows = self.wpc * self.vs * self.rh
+        row = _ROW_CYCLES + (_RAGGED_ROW_CYCLES if self.ragged else 0.0)
+        fill = 4 / min(4, self.wpc)
+        barrier = _BARRIER_CYCLES[(self.cluster > 1) + (self.cluster > 8)]
+        return (rows * row + self.spc * _SUBRUN_CYCLES) * fill + barrier
+
+
+def resident_reg_candidates(hw: int, w: int) -> list[ResidentPlan]:
+    """Every K1 plan :func:`resident_reg_plan` weighs for a packed (hw, w)
+    board: each instantiation, each run height of a power of two up to it
+    (or the board's height), each count of sub-runs a warp, and each
+    cluster size that leaves no CTA empty and at most ``RESIDENT_MAX_WARPS``
+    warps a CTA."""
+    plans = []
+    for h_run in RESIDENT_RUNS:
+        for rh in sorted({min(d, hw) for d in (1, 2, 4, 8, 16, 32) if d <= h_run}):
+            groups, runs = -(-w // RESIDENT_GROUP), -(-hw // rh)
+            for vs in range(1, WORD // h_run + 1):
+                warps = -(-groups * runs // vs)
+                for cluster in range(1, RESIDENT_MAX_CLUSTER + 1):
+                    wpc = -(-warps // cluster)
+                    if wpc <= RESIDENT_MAX_WARPS and (cluster - 1) * wpc < warps:
+                        plans.append(ResidentPlan((hw, w), h_run, rh, vs, wpc, cluster))
+    return plans
+
+
+@functools.lru_cache(maxsize=256)
+def resident_reg_plan(hw: int, w: int) -> ResidentPlan:
+    """K1's plan for a packed (hw, w) board that :func:`resident_shape`
+    takes: of :func:`resident_reg_candidates`, the least
+    :meth:`ResidentPlan.cost`, then the fewest CTAs, then the fewest warps.
+    Raises for a board the gate refuses."""
+    if resident_shape(hw * WORD, w) is None:
+        raise ValueError(f"packed board {hw}x{w} does not fit the resident kernel")
+    return min(resident_reg_candidates(hw, w),
+               key=lambda p: (p.cost(), p.cluster, p.wpc * p.cluster))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -187,6 +309,75 @@ def resident_superstep_plain(v: torch.Tensor, rule: LifeRule, turns: int) -> tor
     return v
 
 
+def resident_superstep_mirror(
+    v: torch.Tensor, rule: LifeRule, turns: int, plan: ResidentPlan | None = None
+) -> torch.Tensor:
+    """K1's decomposition in PyTorch: the sub-runs of ``plan`` (None:
+    :func:`resident_reg_plan`), each a warp's 32 lanes of ``h_run`` rows
+    whose lanes 1..q hold its group's columns and lanes 0 and q + 1 the
+    halo columns; every generation each sub-run publishes its first and
+    last centre columns and the ballots of its first row's bit 0 and its
+    last row's bit 31, then refreshes its halo lanes from its west and east
+    neighbours' edges, takes its carries from the runs above and below (a
+    halo lane's from the diagonal runs, at its column's lane there), and
+    steps its rows with the lanes wrapping within the warp."""
+    hw, w = v.shape
+    plan = plan or resident_reg_plan(hw, w)
+    if plan.shape != (hw, w):
+        raise ValueError(f"plan {plan} is not for a {hw}x{w} board")
+    ng, rh, h = plan.groups, plan.rh, plan.h_run
+    dev = v.device
+    gy = torch.arange(plan.runs, device=dev).repeat_interleave(ng)
+    gx = torch.arange(ng, device=dev).repeat(plan.runs)
+    first = gx * w // ng
+    q = (gx + 1) * w // ng - first
+    rows = torch.clamp(hw - gy * rh, max=rh)
+    lanes = torch.arange(WORD, device=dev)
+    cols = torch.remainder(first[:, None] - 1 + lanes, w)  # (nsub, 32)
+    r = gy[:, None] * rh + torch.arange(h, device=dev)  # (nsub, h)
+    live = torch.arange(h, device=dev) < rows[:, None]
+
+    def at(dy: int, dx: int) -> torch.Tensor:
+        return torch.remainder(gy + dy, plan.runs) * ng + torch.remainder(gx + dx, ng)
+
+    west, east, north, south = at(0, -1), at(0, 1), at(-1, 0), at(1, 0)
+    nw, ne, sw, se = at(-1, -1), at(-1, 1), at(1, -1), at(1, 1)
+    u = torch.arange(plan.nsub, device=dev)
+    last = rows - 1
+    s = v[r.clamp(max=hw - 1)[:, :, None], cols[:, None, :]] * live[:, :, None]
+    for _ in range(turns):
+        edge_w, edge_e = s[:, :, 1], s[u, :, q]  # (nsub, h): lanes 1 and q
+        top, bot = s[:, 0, :] & 1, _shr(s[u, last, :], 31)  # (nsub, 32): the ballots
+        s = s.clone()
+        s[:, :, 0] = torch.where(live, edge_e[west], s[:, :, 0])
+        s[u, :, q + 1] = torch.where(live, edge_w[east], s[u, :, q + 1])
+        up, dn = bot[north].clone(), top[south].clone()
+        up[:, 0], dn[:, 0] = bot[nw, q[west]], top[sw, q[west]]
+        up[u, q + 1], dn[u, q + 1] = bot[ne, 1], top[se, 1]
+        prev = torch.cat([(up << 31)[:, None, :], s[:, :-1, :]], dim=1)
+        below = torch.cat([s[:, 1:, :], torch.zeros_like(s[:, :1, :])], dim=1)
+        below[u, last] = dn
+        nrt = (s << 1) | _shr(prev, 31)
+        sth = _shr(s, 1) | (below << 31)
+        v0, v1 = s ^ nrt ^ sth, _maj(s, nrt, sth)
+
+        def hsum(x):
+            xw, xe = torch.roll(x, 1, -1), torch.roll(x, -1, -1)  # the warp's lanes wrap
+            return x ^ xw ^ xe, _maj(x, xw, xe)
+
+        s0, c0 = hsum(v0)
+        s1, c1 = hsum(v1)
+        k = c0 & s1
+        nxt = apply_rule_planes((s0, c0 ^ s1, c1 ^ k, c1 & k), s, rule)
+        s = torch.where(live[:, :, None], nxt, s)
+    out = torch.empty_like(v)
+    keep = live[:, :, None] & (lanes >= 1) & (lanes <= q[:, None, None])
+    rr = r[:, :, None].expand_as(s)
+    cc = cols[:, None, :].expand_as(s)
+    out[rr[keep], cc[keep]] = s[keep]
+    return out
+
+
 def resident_superstep_batched_plain(
     v: torch.Tensor, rule: LifeRule, turns: int
 ) -> torch.Tensor:
@@ -287,9 +478,9 @@ def _stream(t: torch.Tensor):
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def _resident_launch(v: torch.Tensor, rule: LifeRule, turns: int) -> torch.Tensor:
-    """One launch of the resident kernel on a CUDA (B, H/32, W) stack, one
-    block per board (K1 is the stack of one board); a fresh output."""
+def _resident_batched_launch(v: torch.Tensor, rule: LifeRule, turns: int) -> torch.Tensor:
+    """One launch of K7 on a CUDA (B, H/32, W) stack, one block per board;
+    a fresh output."""
     nb, hw, w = v.shape
     if resident_shape(hw * WORD, w) is None:
         raise ValueError(f"packed board {hw}x{w} does not fit the resident kernel")
@@ -301,24 +492,48 @@ def _resident_launch(v: torch.Tensor, rule: LifeRule, turns: int) -> torch.Tenso
     out = torch.empty_like(v)
     born, surv = rule_masks(rule)
     err = fn(v.data_ptr(), out.data_ptr(), nb, hw, w, turns, born, surv, _stream(v))
-    cuda_build.check(lib, err, "resident")
+    cuda_build.check(lib, err, "resident_batched")
     return out
+
+
+def _resident_reg_launch(v: torch.Tensor, rule: LifeRule, turns: int) -> tuple[torch.Tensor, str]:
+    """One launch of K1 on a CUDA (H/32, W) board on the cluster of
+    :func:`resident_reg_plan`; (a fresh output, the name of the rule's
+    instantiation).  A cluster the card cannot schedule raises, naming its
+    shape."""
+    from distributed_gol_torch.ops.cuda_adaptive import REG_RULES, _reg_launcher, reg_rule
+
+    hw, w = v.shape
+    plan = resident_reg_plan(hw, w)
+    lib, launch = _reg_launcher("resident", "gol_resident_reg_launch", 2, 10)
+    out = torch.empty_like(v)
+    born, surv, variant = reg_rule(rule)
+    with torch.cuda.device(v.device):
+        err = launch(v.data_ptr(), out.data_ptr(), hw, w, turns, plan.h_run, int(plan.ragged),
+                     plan.rh, plan.vs, plan.wpc, plan.cluster, variant, born, surv, _stream(v))
+    cuda_build.check(lib, err, f"resident (a cluster of {plan.cluster} CTAs of {plan.wpc} "
+                               f"warps on a {hw}x{w}-word board)")
+    return out, REG_RULES[variant]
 
 
 def resident_superstep(v: torch.Tensor, rule: LifeRule, turns: int) -> torch.Tensor:
     """K1: ``turns`` generations of a vertically packed (H/32, W) board in
-    one launch.  CPU tensors run :func:`resident_superstep_plain`."""
+    one launch on the cluster of :func:`resident_reg_plan`, in the rule's
+    instantiation (counted in ``resident_superstep.rules``).  CPU tensors
+    run :func:`resident_superstep_plain`; the input is never written."""
     _check_words(v)
     if turns == 0:
         return v
     if v.device.type == "cpu":
         return resident_superstep_plain(v, rule, turns)
-    out = _resident_launch(v[None], rule, turns)[0]
+    out, instantiation = _resident_reg_launch(v, rule, turns)
     resident_superstep.launches += 1
+    resident_superstep.rules[instantiation] += 1
     return out
 
 
 resident_superstep.launches = 0
+resident_superstep.rules = collections.Counter()
 
 
 def resident_superstep_batched(v: torch.Tensor, rule: LifeRule, turns: int) -> torch.Tensor:
@@ -330,7 +545,7 @@ def resident_superstep_batched(v: torch.Tensor, rule: LifeRule, turns: int) -> t
         return v
     if v.device.type == "cpu":
         return resident_superstep_batched_plain(v, rule, turns)
-    out = _resident_launch(v, rule, turns)
+    out = _resident_batched_launch(v, rule, turns)
     resident_superstep_batched.launches += 1
     return out
 

@@ -106,7 +106,7 @@ from distributed_gol_torch.ops.cuda_adaptive import (
     _launcher, _reg_launcher, _reg_steps, _reg_stitch, _reg_windows, best_reg_plan, device_sms,
     frontier_blocks, reg_rule, skip_plan)
 from distributed_gol_torch.ops.cuda_packed import (
-    SMEM_BYTES, TILED_COLS, TILED_MAX_T, TiledPlan, _check_words, _stream, rule_masks)
+    TILED_MAX_T, _check_words, _stream, rule_masks)
 from distributed_gol_torch.ops.packed import WORD
 from distributed_gol_torch.parallel.halo import ShardedBoard, edge_rows, extend, psum
 from distributed_gol_torch.parallel.mesh import Mesh
@@ -125,24 +125,6 @@ def supports(pshape: tuple[int, int], mesh_shape: tuple[int, int]) -> bool:
 
 
 # -- the plan (pure Python) ---------------------------------------------------
-
-
-def ext_tiles(strip: tuple[int, int], t: int) -> TiledPlan:
-    """K10's tiling of an (h_loc, wpl) centre for a T-generation launch: K2's
-    rule — the widest window of at most ``TILED_COLS`` words with an
-    xw = ceil(T / 32)-word border, split evenly over the width, then the
-    tallest tile whose two window buffers fit ``SMEM_BYTES``, split evenly
-    over the height.  ``TiledPlan.xpad`` is the window's border xw."""
-    h_loc, wpl = strip
-    xw = -(-t // WORD)
-    if 2 * xw >= TILED_COLS:
-        raise ValueError(f"no K10 window for {t} generations")
-    tile_w = cuda_packed.tile_width(wpl, xw)
-    max_tile_h = SMEM_BYTES // (2 * 4 * (tile_w + 2 * xw)) - 2 * t
-    if max_tile_h < 1:
-        raise ValueError(f"no K10 window for {t} generations: shared memory")
-    ny = -(-h_loc // max_tile_h)
-    return TiledPlan(t, -(-h_loc // ny), tile_w, xw)
 
 
 @functools.lru_cache(maxsize=256)
@@ -171,6 +153,48 @@ def ext_reg_plan(strip: tuple[int, int], t: int, sms: int) -> RegPlan:
         raise ValueError(f"no K9 window for {t} generations: {REG_MAX_WARPS} warps of "
                          f"{REG_RUN} rows")
     return best_reg_plan(plans, sms)
+
+
+@functools.lru_cache(maxsize=256)
+def ext_skip_plan(strip: tuple[int, int], t: int, sms: int) -> RegPlan:
+    """K10's blocks for a ``t``-generation launch (a multiple of 6) on an
+    (h_loc, wpl) centre: K9's (:func:`ext_reg_plan`) with the probe after 6
+    generations, for each block height of 1 to ``REG_MAX_WARPS`` warps the
+    tallest tile it holds, no taller than the centre, evened over its rows;
+    of those the grid of least :meth:`RegPlan.cost` on ``sms`` SMs.  The
+    kernel shifts the last row tile up and the last column group left to
+    end at the centre's edge (:func:`ext_skip_origins`), so no window reads
+    past the extended block where the block is a window wide."""
+    h_loc, wpl = strip
+    border = -(-t // WORD)
+    if t < SKIP_PERIOD or t % SKIP_PERIOD or 2 * border >= REG_LANES:
+        raise ValueError(f"no K10 window for {t} generations")
+    cols = -(-wpl // (REG_LANES - 2 * border))
+    plans = set()
+    for warps in range(1, REG_MAX_WARPS + 1):
+        tallest = min(warps * REG_RUN - 2 * t, h_loc)
+        if tallest < 1:
+            continue
+        tile_h = -(-h_loc // -(-h_loc // tallest))
+        plans.add(RegPlan(t, t, tile_h, -(-(tile_h + 2 * t) // REG_RUN),
+                          (-(-h_loc // tile_h), cols), border, SKIP_PERIOD))
+    if not plans:
+        raise ValueError(f"no K10 window for {t} generations: {REG_MAX_WARPS} warps of "
+                         f"{REG_RUN} rows")
+    return best_reg_plan(sorted(plans, key=lambda p: p.tile_h), sms)
+
+
+def ext_skip_origins(plan: RegPlan, strip: tuple[int, int]) -> tuple[list[int], list[int]]:
+    """(first centre row of each row tile, first centre word of each
+    column group) of a K10 launch of ``plan`` on an (h_loc, wpl) centre:
+    tile after tile, the last shifted to end at the centre's edge (a
+    centre narrower than a group has one group, from word 0)."""
+    h_loc, wpl = strip
+    if plan.tile_h > h_loc:
+        raise ValueError(f"plan {plan} has tiles taller than the {h_loc}-row centre")
+    ys = [min(by * plan.tile_h, h_loc - plan.tile_h) for by in range(plan.grid[0])]
+    xs = [min(bx * plan.centre, max(wpl - plan.centre, 0)) for bx in range(plan.grid[1])]
+    return ys, xs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -369,41 +393,6 @@ def ext_launch_plain(
     return out[pad : pad + h_loc, xpad : xpad + wpl].contiguous()
 
 
-def _ext_windows(ext: torch.Tensor, turns: int, pad: int, xpad: int,
-                 tiles: TiledPlan | None):
-    """Every K10 tile's window (:func:`ext_tiles`) gathered as ext.cu's
-    ``ExtSource`` reads it (rows as they are, columns modulo the width when
-    xpad = 0, zero outside the block): (windows (ny, nx, rows, cols),
-    tiles, (ny, nx), (h_loc, wpl))."""
-    h_loc, wpl = _centre(ext, turns, pad, xpad)
-    tiles = tiles or ext_tiles((h_loc, wpl), turns)
-    xw = tiles.xpad
-    rows_in, cols_in = ext.shape
-    ny, nx = tiles.grid((h_loc, wpl))
-    dev = ext.device
-    rows = (pad - turns + torch.arange(ny, device=dev)[:, None] * tiles.tile_h
-            + torch.arange(tiles.tile_h + 2 * turns, device=dev))
-    cols = (xpad - xw + torch.arange(nx, device=dev)[:, None] * tiles.tile_w
-            + torch.arange(tiles.tile_w + 2 * xw, device=dev))
-    if xpad == 0:
-        cols = torch.remainder(cols, cols_in)
-    row_ok = (rows >= 0) & (rows < rows_in)
-    col_ok = (cols >= 0) & (cols < cols_in)
-    win = ext[rows.clamp(0, rows_in - 1)[:, None, :, None],
-              cols.clamp(0, cols_in - 1)[None, :, None, :]]
-    win = win * (row_ok[:, None, :, None] & col_ok[None, :, None, :])
-    return win, tiles, (ny, nx), (h_loc, wpl)
-
-
-def _stitch(win: torch.Tensor, turns: int, tiles: TiledPlan, centre: tuple[int, int]):
-    """The (h_loc, wpl) centre from every tile's window at generation
-    ``turns``."""
-    ny, nx = win.shape[:2]
-    c = win[:, :, turns : turns + tiles.tile_h, tiles.xpad : tiles.xpad + tiles.tile_w]
-    out = c.permute(0, 2, 1, 3).reshape(ny * tiles.tile_h, nx * tiles.tile_w)
-    return out[: centre[0], : centre[1]].contiguous()
-
-
 def ext_launch_mirror(
     ext: torch.Tensor, rule: LifeRule, turns: int, pad: int, xpad: int,
     plan: RegPlan | None = None,
@@ -480,75 +469,120 @@ def ext_skip_launch_plain(
     return ext_launch_plain(ext, rule, turns, pad, xpad)
 
 
-def _ext_skip_probe(ext: torch.Tensor, rule: LifeRule, turns: int, pad: int, xpad: int,
-                    tiles: TiledPlan | None):
-    """K10's skip proof in PyTorch: its windows (:func:`ext_tiles`), each
-    stepped 6 generations and compared with itself at generation 0 on its
-    inner region (rows and cells at least 6 from its edge).  Returns
-    (windows at generation 0, at generation 6, bool (ny, nx) stable, tiles,
-    centre)."""
+def _ext_skip_blocks(ext: torch.Tensor, rule: LifeRule, turns: int, pad: int, xpad: int,
+                     plan: RegPlan | None):
+    """K10's blocks through the skip proof in PyTorch: each window of
+    ``plan`` (None: :func:`ext_skip_plan` on an H100) at the origins of
+    :func:`ext_skip_origins` (rows as they are, columns modulo the width
+    when xpad = 0, zero outside the block and past the window), stepped 6
+    generations (:meth:`RegPlan.live`) and compared with itself at
+    generation 0 on its inner region: rows at least 6 from its edge, cells
+    at least 6 from its x edge and, at xpad > 0, from the block's.
+    Returns (windows at generation 6, bool (nby, nbx) stable, plan,
+    origins)."""
     _check_skip_turns(turns)
-    win0, tiles, _, centre = _ext_windows(ext, turns, pad, xpad, tiles)
-    win = win0
-    for _ in range(SKIP_PERIOD):
-        win = cuda_packed._window_gen(win, rule)
-    diff = (win ^ win0)[:, :, SKIP_PERIOD : win.shape[2] - SKIP_PERIOD]
-    mask = torch.full(diff.shape[-1:], -1, dtype=torch.int32, device=ext.device)
-    mask[0] &= _FIRST_WORD_INNER
-    mask[-1] &= _LAST_WORD_INNER
-    stable = ((diff & mask) == 0).flatten(2).all(dim=2)
-    return win0, win, stable, tiles, centre
+    h_loc, wpl = _centre(ext, turns, pad, xpad)
+    plan = plan or ext_skip_plan((h_loc, wpl), turns, H100_SMS)
+    if ((plan.t, plan.halo, plan.probe) != (turns, turns, SKIP_PERIOD)
+            or (xpad and plan.border > xpad) or plan.grid[0] * plan.tile_h < h_loc
+            or plan.grid[1] * plan.centre < wpl):
+        raise ValueError(f"plan {plan} is not a K10 launch of {turns} generations on "
+                         f"{h_loc}x{wpl} at xpad {xpad}")
+    ys, xs = ext_skip_origins(plan, (h_loc, wpl))
+    rows_in, cols_in = ext.shape
+    dev = ext.device
+    r = torch.arange(plan.warps * REG_RUN, device=dev)
+    rows = pad - turns + torch.tensor(ys, device=dev)[:, None] + r
+    cols = (xpad - plan.border + torch.tensor(xs, device=dev)[:, None]
+            + torch.arange(REG_LANES, device=dev))
+    if xpad == 0:
+        cols = torch.remainder(cols, cols_in)
+    row_ok = (rows >= 0) & (rows < rows_in) & (r < plan.rows)
+    col_ok = (cols >= 0) & (cols < cols_in)
+    win0 = ext[rows.clamp(0, rows_in - 1)[:, None, :, None],
+               cols.clamp(0, cols_in - 1)[None, :, None, :]]
+    win0 = win0 * (row_ok[:, None, :, None] & col_ok[None, :, None, :])
+    win = _reg_steps(win0, rule, plan, range(1, SKIP_PERIOD + 1))
+    mask = torch.full(cols.shape, -1, dtype=torch.int32, device=dev)
+    mask[:, 0] &= _FIRST_WORD_INNER
+    mask[:, -1] &= _LAST_WORD_INNER
+    if xpad:
+        mask = torch.where(col_ok, mask, 0)
+        mask = torch.where(cols == 0, mask & _FIRST_WORD_INNER, mask)
+        mask = torch.where(cols == cols_in - 1, mask & _LAST_WORD_INNER, mask)
+    diff = (win ^ win0)[:, :, SKIP_PERIOD : plan.rows - SKIP_PERIOD] & mask[None, :, None, :]
+    stable = (diff == 0).flatten(2).all(dim=2)
+    return win, stable, plan, (ys, xs)
 
 
 def ext_skip_stable_tiles(
-    ext: torch.Tensor, rule: LifeRule, turns: int, pad: int, xpad: int
+    ext: torch.Tensor, rule: LifeRule, turns: int, pad: int, xpad: int,
+    plan: RegPlan | None = None,
 ) -> torch.Tensor:
-    """bool (tile rows, tile columns): the tiles of a K10 launch whose skip
-    proof holds, which keep their input centre instead of computing (the
-    work a launch on this block needs, for its bound)."""
-    return _ext_skip_probe(ext, rule, turns, pad, xpad, None)[2]
+    """bool (row tiles, column groups): the blocks of a K10 launch of
+    ``plan`` (None: :func:`ext_skip_plan` on an H100) whose skip proof
+    holds, which compute no generation past the probe."""
+    return _ext_skip_blocks(ext, rule, turns, pad, xpad, plan)[1]
 
 
 def ext_skip_launch_mirror(
     ext: torch.Tensor, rule: LifeRule, turns: int, pad: int, xpad: int,
-    tiles: TiledPlan | None = None,
+    plan: RegPlan | None = None,
 ) -> torch.Tensor:
-    """K10's arithmetic in PyTorch: its windows through the skip proof; a
-    window that holds it keeps its input centre, any other steps on to
-    ``turns``."""
-    win0, win, stable, tiles, centre = _ext_skip_probe(ext, rule, turns, pad, xpad, tiles)
-    for _ in range(turns - SKIP_PERIOD):
-        win = cuda_packed._window_gen(win, rule)
-    win = torch.where(stable[:, :, None, None], win0, win)
-    return _stitch(win, turns, tiles, centre)
+    """K10's decomposition in PyTorch: its blocks through the skip proof
+    (:func:`ext_skip_stable_tiles`); a block that holds it keeps its window
+    at generation 6, any other steps on to ``turns``; each block's centre
+    is stored at its origin, the overlaps of the shifted last tiles
+    written twice."""
+    win, stable, plan, (ys, xs) = _ext_skip_blocks(ext, rule, turns, pad, xpad, plan)
+    win = _reg_steps(win, rule, plan, range(SKIP_PERIOD + 1, turns + 1), frozen=stable)
+    h_loc, wpl = ext.shape[0] - 2 * pad, ext.shape[1] - 2 * xpad
+    dev = ext.device
+    centre = win[:, :, turns : turns + plan.tile_h, plan.border : REG_LANES - plan.border]
+    rows = torch.tensor(ys, device=dev)[:, None] + torch.arange(plan.tile_h, device=dev)
+    cols = torch.tensor(xs, device=dev)[:, None] + torch.arange(plan.centre, device=dev)
+    rr = rows[:, None, :, None].expand_as(centre)
+    cc = cols[None, :, None, :].expand_as(centre)
+    keep = cc < wpl
+    out = torch.empty((h_loc, wpl), dtype=ext.dtype, device=dev)
+    out[rr[keep], cc[keep]] = centre[keep]
+    return out
 
 
 def ext_skip_launch(
     ext: torch.Tensor, rule: LifeRule, turns: int, pad: int, xpad: int
 ) -> torch.Tensor:
-    """K10: the skip proof on :func:`ext_tiles`' windows, ``turns`` a
-    positive multiple of 6; returns the centre in a fresh tensor, the
-    input never written.
-    A CPU tensor runs :func:`ext_skip_launch_plain`; a CUDA tensor
-    launches K10 or raises."""
+    """K10: the skip proof on the blocks of :func:`ext_skip_plan` for the
+    device's SMs, ``turns`` a positive multiple of 6; returns the centre in
+    a fresh tensor, the input never written.  A CPU tensor runs
+    :func:`ext_skip_launch_plain`; a CUDA tensor launches K10 in the rule's
+    instantiation (counted in ``ext_skip_launch.rules``) or raises, and
+    leaves the blocks' decisions (int (row tiles, column groups), 1 where
+    the proof held) in ``ext_skip_launch.last_stable``."""
     _check_words(ext)
     _check_skip_turns(turns)
     h_loc, wpl = _centre(ext, turns, pad, xpad)
     if ext.device.type == "cpu":
         return ext_skip_launch_plain(ext, rule, turns, pad, xpad)
-    tiles = ext_tiles((h_loc, wpl), turns)
-    lib, launch = _launcher("ext", "gol_ext_skip_launch", [_P, _P] + [_I] * 7 + [_U, _U, _P])
-    born, surv = rule_masks(rule)
+    plan = ext_skip_plan((h_loc, wpl), turns, device_sms(ext.device))
+    lib, launch = _reg_launcher("ext", "gol_ext_skip_launch", 3)
+    born, surv, variant = reg_rule(rule)
     out = torch.empty((h_loc, wpl), dtype=torch.int32, device=ext.device)
+    stable = torch.empty(plan.grid, dtype=torch.int32, device=ext.device)
     with torch.cuda.device(ext.device):
-        err = launch(ext.data_ptr(), out.data_ptr(), h_loc, wpl, pad, xpad, turns,
-                     tiles.tile_h, tiles.tile_w, born, surv, _stream(ext))
+        err = launch(ext.data_ptr(), out.data_ptr(), stable.data_ptr(), h_loc, wpl, pad, xpad,
+                     turns, plan.tile_h, plan.warps, plan.border, variant, born, surv,
+                     _stream(ext))
     cuda_build.check(lib, err, "ext_skip")
     ext_skip_launch.launches += 1
+    ext_skip_launch.rules[REG_RULES[variant]] += 1
+    ext_skip_launch.last_stable = stable
     return out
 
 
 ext_skip_launch.launches = 0
+ext_skip_launch.rules = collections.Counter()
+ext_skip_launch.last_stable = None
 
 
 def _check_strip(local: torch.Tensor, north: torch.Tensor, south: torch.Tensor,

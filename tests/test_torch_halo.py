@@ -185,13 +185,40 @@ def test_ext_reg_plan_fills_the_card_at_16384(strip, turns, fill):
     """The 16384² soup's (4, 1) and (2, 2) shards at the full launch depth
     on 132 SMs: every SM holds its share of the plan's blocks at once (no
     more blocks than its occupancy) and runs all but a stated share of the busiest SM's
-    blocks; the first port's grid (``ext_tiles``, one 1,024-thread block a
-    SM) held 90 blocks."""
+    blocks."""
     plan = cuda_halo.ext_reg_plan(strip, turns, 132)
     assert plan.waves(132) <= plan.occupancy
     assert plan.fill(132) >= fill
     assert plan.fill(132) == plan.blocks / (plan.waves(132) * 132)
-    assert cuda_halo.ext_tiles(strip, turns).grid(strip) in ((10, 9), (18, 5))
+
+
+@pytest.mark.parametrize("strip,turns,xpad,fill", [
+    ((4096, 512), 18, 0, 1.0), ((8192, 256), 18, 1, 0.98), ((4096, 512), 30, 0, 0.95),
+    ((65, 16), 30, 0, 0.0), ((130, 16), 30, 1, 0.0), ((100, 17), 6, 1, 0.0)])
+def test_ext_skip_plan_ends_at_the_block_edge(strip, turns, xpad, fill):
+    """K10's blocks (``ext_skip_plan``): K9's blocks with the probe, the
+    16384² soup's (4, 1) and (2, 2) shards filling the card; on every shape
+    the row tiles and column groups cover each centre word, the last of
+    each ends at the centre's edge, and every window's rows lie inside the
+    extended block (on a 2-D tile its columns too, where the centre is a
+    group wide)."""
+    h_loc, wpl = strip
+    plan = cuda_halo.ext_skip_plan(strip, turns, 132)
+    assert (plan.t, plan.halo, plan.probe, plan.border) == (turns, turns, 6, 1)
+    assert plan.fill(132) >= fill and plan.waves(132) <= max(plan.occupancy, 1)
+    ys, xs = cuda_halo.ext_skip_origins(plan, strip)
+    rows = np.zeros(h_loc, dtype=int)
+    cols = np.zeros(wpl, dtype=int)
+    for y in ys:
+        rows[y : y + plan.tile_h] += 1
+        assert 0 <= (h_loc + 2 * turns) - (y + plan.tile_h + 2 * turns) and y >= 0
+    for x in xs:
+        cols[x : x + plan.centre] += 1
+        if xpad and wpl >= plan.centre:  # a row mesh's columns wrap: the torus
+            assert x - plan.border + xpad >= 0 and x + plan.centre + plan.border <= wpl + 2 * xpad
+    assert rows.min() >= 1 and cols.min() >= 1
+    assert ys[-1] + plan.tile_h == h_loc
+    assert xs[-1] + min(plan.centre, wpl) == wpl
 
 
 @pytest.mark.parametrize("rule,variant", [("conway", "conway"), ("highlife", "highlife"),

@@ -130,14 +130,69 @@ def test_k10_plain_and_mirror_match_interpret_ext_kernel(ref, rule, kind, strip,
 
 
 def test_k10_mirror_copies_a_stable_tile_and_computes_an_active_one():
-    """Tiles of 32 rows x 2 words over ash, one with a glider: the
-    mirror's decision is per tile, and each tile's centre is exact."""
+    """Blocks of 32 rows over ash, one with a glider: the mirror's
+    decision is per block, and each block's centre is exact."""
     col = column("ash", 12, 64, 128, 16)
     _put(col, GLIDER, 60, 40)
     ext = t32(pack_words(col))
-    tiles = cuda_halo.TiledPlan(12, 32, 2, 1)
-    got = cuda_halo.ext_skip_launch_mirror(ext, tlife.CONWAY, 12, 12, 0, tiles)
+    plan = cuda_adaptive.RegPlan(12, 12, 32, 2, (2, 1), 1, 6)
+    got = cuda_halo.ext_skip_launch_mirror(ext, tlife.CONWAY, 12, 12, 0, plan)
     assert torch.equal(got, cuda_halo.ext_launch_plain(ext, tlife.CONWAY, 12, 12, 0))
+    assert cuda_halo.ext_skip_stable_tiles(ext, tlife.CONWAY, 12, 12, 0, plan).tolist() == [
+        [True], [False]]
+
+
+@pytest.mark.parametrize("strip,turns", [((100, 40), 18), ((65, 16), 30), ((37, 70), 12)])
+def test_k10_every_block_of_a_ragged_strip_on_ash_proves_stable(strip, turns):
+    """Strips whose rows and words no block height or column group divides
+    (the last row tile and column group shifted to end at the strip's
+    edge, so no window reads past the extended block): on ash every block
+    of the plan proves stable and the launch keeps its centre."""
+    h_loc, wp = strip
+    ext = t32(pack_words(column("ash", turns, h_loc, wp * 32, 16)))
+    plan = cuda_halo.ext_skip_plan(strip, turns, 132)
+    ys, xs = cuda_halo.ext_skip_origins(plan, strip)
+    assert ys[-1] + plan.tile_h == h_loc and (wp < plan.centre or xs[-1] + plan.centre == wp)
+    assert plan.grid[0] * plan.tile_h > h_loc or plan.grid[1] * plan.centre > wp
+    assert cuda_halo.ext_skip_stable_tiles(ext, tlife.CONWAY, turns, turns, 0).all()
+    got = cuda_halo.ext_skip_launch_mirror(ext, tlife.CONWAY, turns, turns, 0)
+    assert torch.equal(got, ext[turns:-turns])
+
+
+def test_k10_a_glider_beside_the_last_block_edge_makes_only_that_block_compute():
+    """Ash on a 100-row strip cut into 30-row tiles, a glider in the south
+    neighbour's rows just past the strip's last row: only the last row
+    tile (shifted to end at the strip's edge, its window reaching those
+    rows) fails the proof, and every block's centre is exact."""
+    h_loc, wp, turns = 100, 4, 12
+    col = column("ash", turns, h_loc, wp * 32, 16)
+    col[turns + h_loc - 1 : turns + h_loc + 9, 30:50] = False
+    _put(col, GLIDER, turns + h_loc + 2, 36)  # in the rows just past the strip
+    ext = t32(pack_words(col))
+    plan = cuda_adaptive.RegPlan(turns, turns, 30, 2, (4, 1), 1, 6)
+    assert cuda_halo.ext_skip_origins(plan, (h_loc, wp))[0] == [0, 30, 60, 70]
+    stable = cuda_halo.ext_skip_stable_tiles(ext, tlife.CONWAY, turns, turns, 0, plan)
+    assert stable.tolist() == [[True], [True], [True], [False]]
+    got = cuda_halo.ext_skip_launch_mirror(ext, tlife.CONWAY, turns, turns, 0, plan)
+    assert torch.equal(got, cuda_halo.ext_launch_plain(ext, tlife.CONWAY, turns, turns, 0))
+
+
+@pytest.mark.parametrize("strip,turns", [((48, 4), 18), ((65, 16), 30), ((100, 40), 6)])
+@pytest.mark.parametrize("tile_h,cols", [(7, 1), (16, 2), (None, None)])
+def test_k10_mirror_with_forced_blocks_matches_plain(strip, turns, tile_h, cols):
+    """Forced block heights (the last tile shifted) and the plan's own, on
+    soups: the mirror equals the plain version."""
+    h_loc, wp = strip
+    ext = t32(pack_words(column("soup", turns, h_loc, wp * 32, 16)))
+    plan = None
+    if tile_h is not None:
+        tile_h = min(tile_h, h_loc)
+        plan = cuda_adaptive.RegPlan(turns, turns, tile_h, -(-(tile_h + 2 * turns) // 32),
+                                     (-(-h_loc // tile_h), -(-wp // 30)), 1, 6)
+    for rule in (tlife.CONWAY, tlife.HIGHLIFE):
+        want = cuda_halo.ext_skip_launch_plain(ext, rule, turns, turns, 0)
+        got = cuda_halo.ext_skip_launch_mirror(ext, rule, turns, turns, 0, plan)
+        assert torch.equal(got, want)
 
 
 def test_k10_refuses_a_depth_off_the_period():

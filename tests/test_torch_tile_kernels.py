@@ -372,14 +372,35 @@ def test_k10_at_xpad_matches_interpret_ext_kernel(ref, rule, kind, tile, turns):
 
 @pytest.mark.parametrize("kind", ["ash", "glider_x"])
 def test_k10_stable_tiles_are_the_tiles_its_skip_proof_holds_on(kind):
-    """``ext_skip_stable_tiles`` (the K10 tiles that keep their input
-    centre: the work a launch needs, for its bound) on a (2, 2) tile that
-    K10 covers with three tiles at xpad 1: on ash every tile holds the
-    proof; with a glider at the tile's right edge the last does not."""
+    """``ext_skip_stable_tiles`` (the K10 blocks that keep their input
+    centre: the work a launch needs, for its bound) on a (2, 2) tile of 160
+    words at xpad 1, whose six column groups end at the tile's edge: on ash
+    every block holds the proof; with a glider at the tile's right edge
+    the groups it reaches do not (the last one, shifted to end at the
+    edge, among them)."""
     ext = t32(extended_tile(mesh_board(kind, (32, 160)), (2, 2), 12, 1))
-    assert cuda_halo.ext_tiles((32, 160), 12).grid((32, 160)) == (1, 3)
+    plan = cuda_halo.ext_skip_plan((32, 160), 12, 132)
+    assert plan.grid[1] == 6
+    assert cuda_halo.ext_skip_origins(plan, (32, 160))[1] == [0, 30, 60, 90, 120, 130]
     stable = cuda_halo.ext_skip_stable_tiles(ext, tlife.CONWAY, 12, 12, 1)
-    assert stable.tolist() == [[True, True, kind == "ash"]]
+    assert stable.shape == plan.grid
+    if kind == "ash":
+        assert stable.all()
+    else:
+        assert stable[:, :4].all() and not stable[:, -1].any()
+
+
+@pytest.mark.parametrize("tile,turns", [((100, 17), 6), ((130, 16), 30), ((70, 45), 18)])
+def test_k10_every_block_of_a_ragged_tile_on_ash_proves_stable(tile, turns):
+    """Ragged 2-D tiles at xpad 1 (rows and words no block divides; 16
+    and 17 words narrower than a column group, whose window reads past
+    the extended width and whose probe leaves out the cells next to the
+    block's edge): on ash every block proves stable, and the launch keeps
+    the tile's centre."""
+    ext = t32(extended_tile(mesh_board("ash", tile), (2, 2), turns, 1))
+    assert cuda_halo.ext_skip_stable_tiles(ext, tlife.CONWAY, turns, turns, 1).all()
+    got = cuda_halo.ext_skip_launch_mirror(ext, tlife.CONWAY, turns, turns, 1)
+    assert np.array_equal(u32(got), u32(ext)[turns:-turns, 1:-1])
 
 
 @pytest.mark.parametrize("mesh_shape", [(1, 1), (1, 2), (2, 1), (2, 2), (3, 3), (2, 4), (4, 2)])

@@ -1,11 +1,11 @@
-"""Time K9 and the frontier kernels of a checkout of the PyTorch port on one CUDA card.
+"""Time K1, K9, K10 and the frontier kernels of a checkout of the PyTorch port on one CUDA card.
 
     python3 tools/regwin_ab.py [--root DIR] [--label NAME] [--out FILE]
                                [--sweep | --sweep-frontier]
 
 Imports ``distributed_gol_torch`` from ``--root`` (default: the checkout
-holding this script), builds its ``ext``, ``probing``, ``tiled`` and
-``frontier`` kernels there, and
+holding this script), builds its ``resident``, ``ext``, ``probing``,
+``tiled`` and ``frontier`` kernels there, and
 times K9 (``cuda_halo.ext_launch``) and K13 (``cuda_halo.tile_probing_launch``)
 through their wrappers, whose signatures every slice of the port shares, at
 the shapes the main paths give them: the 16384² soup (density 0.3, seed 7)
@@ -36,9 +36,20 @@ K2), chunks of 8: the median and spread of 5 event-timed batches per
 launch (the host's calls and, for K12, the exchange included), each
 kernel's device ms per launch from ``torch.profiler`` (the frontier
 kernel and its finalize apart), and the SASS of their loops
-(``frontier_sass``).  ``--sweep-frontier`` times each at every row tile
-its plan weighs.  Prints one JSON object with the card's name and power
-limit.
+(``frontier_sass``).  K1 (``cuda_packed.resident_superstep``) on a 512²
+soup x 50 generations and 16 sequential launches of 16 512² soups x 64
+(serving pod b's superstep), beside K7 (``resident_superstep_batched``)
+on the same stack; K10 (``cuda_halo.ext_skip_launch``) at 18 generations
+on the (4, 1) strip and the (2, 2) tile of the 16384² soup (xpad 1),
+fresh and settled, and at 30 generations on path (f)'s (8, 1) and path
+(i)'s (4, 2) shards of 520 x 512 and 520 x 1024 soups; each the median
+and spread of 5 batches and its device ms, and the SASS of K1's and
+K10's loops (``resident_ext_sass``).  ``--sweep-frontier`` times each
+frontier kernel at every row tile its plan weighs; ``--sweep`` also times
+K1 at 512² at each cluster size its plan weighs (the cheapest plan of
+each; the exchange is every generation) and K10 at every block height of
+its plan, on a checkout that has those plans.  Prints one JSON object with
+the card's name and power limit.
 
 To compare two commits on one card, unpack the parent into a directory
 that ``.gitignore`` lists and run parent, this, this, parent in one call.
@@ -221,6 +232,129 @@ def frontier_sass(cuda_build) -> dict:
     return out
 
 
+def time_k1(cuda_packed, packed, soup, rule) -> dict:
+    """K1 at 512² x 50 and 16 sequential launches of 16 512² soups x 64,
+    K7 on the same stack: median and spread of ``BATCHES`` batches, and
+    device ms a launch."""
+    v = packed.pack_vertical(soup(512, 512, 21, vertical=True))
+    stack = packed.pack_vertical(torch.stack([soup(512, 512, 61 + i, vertical=True)
+                                              for i in range(16)])).contiguous()
+
+    def k1():
+        return cuda_packed.resident_superstep(v, rule, 50)
+
+    def sixteen():
+        return [cuda_packed.resident_superstep(b, rule, 64) for b in stack]
+
+    def k7():
+        return cuda_packed.resident_superstep_batched(stack, rule, 64)
+
+    resident = (lambda k: "resident" in k and "batched" not in k)
+    out = dict(
+        k1_512_x50=dict(**batches(k1, 20), device_ms=device_ms(k1, 20, resident)),
+        k1_16x512_x64_sequential=dict(**batches(sixteen, 5),
+                                      device_ms_per_launch=device_ms(sixteen, 5, resident)),
+        k7_16x512_x64=dict(**batches(k7, 20), device_ms=device_ms(k7, 20, resident)))
+    plan = getattr(cuda_packed, "resident_reg_plan", None)
+    if plan is not None:
+        out["plan"] = str(plan(16, 512))
+    return out
+
+
+def k10_cases(halo, shards, big, boards, soup) -> list:
+    """K10's shapes: (key, extended block, T, xpad)."""
+    cases = []
+    for name, p in boards.items():
+        cases.append((f"4x1_{name}", halo.extend(shards(p, (4, 1)), 18, 0)[0][0], 18, 0))
+        cases.append((f"2x2_{name}", halo.extend(shards(p, (2, 2)), 18, 1)[0][0], 18, 1))
+    cases.append(("f_8x1_520x512", halo.extend(shards(soup(520, 512, 7), (8, 1)), 30, 0)[0][0],
+                  30, 0))
+    cases.append(("i_4x2_520x1024", halo.extend(shards(soup(520, 1024, 7), (4, 2)), 30, 1)[0][0],
+                  30, 1))
+    return cases
+
+
+def time_k10(cuda_halo, cases, rule) -> dict:
+    """K10 on each of ``k10_cases``: median and spread of ``BATCHES``
+    batches of 20 launches, and device ms a launch."""
+    out = {}
+    for key, e, t, xpad in cases:
+        def k10(e=e, t=t, xpad=xpad):
+            return cuda_halo.ext_skip_launch(e, rule, t, t, xpad)
+
+        out[key] = dict(shape=list(e.shape), t=t, xpad=xpad, **batches(k10, 20),
+                        device_ms=device_ms(k10, 20, lambda k: "ext_skip" in k))
+        stable = getattr(cuda_halo.ext_skip_launch, "last_stable", None)
+        if stable is not None:
+            out[key]["blocks"] = stable.numel()
+            out[key]["blocks_computed"] = int((stable == 0).sum())
+    return out
+
+
+def resident_ext_sass(cuda_build) -> dict:
+    """The SASS of K1's and K10's loops in this checkout's ``resident``
+    and ``ext`` builds, B3/S23 (``tools/sass_loop_count.py::kernel_loops``:
+    K1's generation loop for each instantiation, K10's first, or in the
+    first port's K10 its shared-memory row loop)."""
+    sys.path.insert(1, str(Path(__file__).resolve().parent))
+    import sass_loop_count as slc
+
+    return {k: v for k, v in slc.kernel_loops(cuda_build, ("resident", "ext")).items()
+            if k.startswith(("K1_", "K10"))}
+
+
+def sweep_k1_k10(cuda_packed, cuda_halo, packed, soup, cases, rule) -> list:
+    """K1 at 512² x 50 at each cluster size and instantiation its plan
+    weighs (the cheapest candidate of each pair, forced in place of
+    ``resident_reg_plan``), and K10
+    on each of ``cases`` at every block height ``ext_skip_plan`` weighs
+    (the tallest tile of 1 to 16 warps), each beside its cost."""
+    from distributed_gol_torch.ops.cuda_adaptive import REG_MAX_WARPS, REG_RUN, RegPlan
+
+    rows = []
+    v = packed.pack_vertical(soup(512, 512, 21, vertical=True))
+    chosen, chosen_k10 = cuda_packed.resident_reg_plan, cuda_halo.ext_skip_plan
+    best = {}
+    for p in cuda_packed.resident_reg_candidates(16, 512):
+        key = (p.cluster, p.h_run)
+        if key not in best or p.cost() < best[key].cost():
+            best[key] = p
+    try:
+        for (cluster, _), plan in sorted(best.items()):
+            cuda_packed.resident_reg_plan = lambda *a, _p=plan: _p
+            try:
+                ms = device_ms(lambda: cuda_packed.resident_superstep(v, rule, 50), 20,
+                               lambda k: "resident" in k)
+            except RuntimeError as exc:  # a cluster the card cannot schedule
+                ms = f"refused: {exc}"
+            rows.append(dict(kernel="K1", board="512x512", turns=50, cluster=cluster,
+                             plan=str(plan), cost=plan.cost(), exchange_every=1,
+                             chosen=plan == chosen(16, 512), device_ms=ms))
+        cuda_packed.resident_reg_plan = chosen
+        for key, e, t, xpad in cases:
+            strip = (e.shape[0] - 2 * t, e.shape[1] - 2 * xpad)
+            pick = chosen_k10(strip, t, 132)
+            seen = set()
+            for warps in range(1, REG_MAX_WARPS + 1):
+                tile_h = min(warps * REG_RUN - 2 * t, strip[0])
+                if tile_h < 1:
+                    continue
+                tile_h = -(-strip[0] // -(-strip[0] // tile_h))
+                plan = RegPlan(t, t, tile_h, -(-(tile_h + 2 * t) // REG_RUN),
+                               (-(-strip[0] // tile_h), -(-strip[1] // 30)), 1, 6)
+                if plan in seen:
+                    continue
+                seen.add(plan)
+                cuda_halo.ext_skip_plan = lambda *a, _p=plan: _p
+                rows.append(dict(kernel="K10", case=key, plan=str(plan), cost=plan.cost(132),
+                                 chosen=plan == pick, device_ms=device_ms(
+                                     lambda: cuda_halo.ext_skip_launch(e, rule, t, t, xpad), 20,
+                                     lambda k: "ext_skip" in k)))
+    finally:
+        cuda_packed.resident_reg_plan, cuda_halo.ext_skip_plan = chosen, chosen_k10
+    return rows
+
+
 def sweep(cuda_halo, halo, shards, big, boards, rule) -> dict:
     """K9 on the (4, 1) and (2, 2) shards at 32 generations, and K13 on the
     (2, 2) tile fresh and settled, at every block height the plans weigh
@@ -315,8 +449,8 @@ def main() -> int:
     ap.add_argument("--label", default="")
     ap.add_argument("--out", default="")
     ap.add_argument("--sweep", action="store_true",
-                    help="also time K9, K13 and the frontier kernels at every block "
-                         "height the plans weigh")
+                    help="also time K9, K10, K13 and the frontier kernels at every block "
+                         "height the plans weigh, and K1 at every cluster size")
     ap.add_argument("--sweep-frontier", action="store_true",
                     help="also time K15, K12, K5, K14 and K8 at every block height their "
                          "plan weighs")
@@ -335,10 +469,11 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     t0 = time.perf_counter()
-    cuda_build.build("ext", "probing", "tiled", "frontier")
+    cuda_build.build("resident", "ext", "probing", "tiled", "frontier")
 
-    def soup(h, w, seed):
-        return packed.pack(torch.from_numpy(random_soup(h, w, 0.3, seed)).to(dev))
+    def soup(h, w, seed, vertical=False):
+        b = torch.from_numpy(random_soup(h, w, 0.3, seed)).to(dev)
+        return b if vertical else packed.pack(b)
 
     def shards(p, mesh_shape):
         m = mesh_lib.make_mesh(mesh_shape, [dev] * (mesh_shape[0] * mesh_shape[1]))
@@ -417,9 +552,15 @@ def main() -> int:
     frontier = frontier_cases(cuda_adaptive, cuda_halo, shards, boards, pods, CONWAY)
     out["frontier"] = time_frontier(frontier)
     out["frontier_sass"] = frontier_sass(cuda_build)
+    out["k1"] = time_k1(cuda_packed, packed, soup, CONWAY)
+    k10 = k10_cases(halo, shards, big, boards, soup)
+    out["k10"] = time_k10(cuda_halo, k10, CONWAY)
+    out["resident_ext_sass"] = resident_ext_sass(cuda_build)
     if args.sweep:
         out["sweep"] = sweep(cuda_halo, halo, shards, big, boards, CONWAY) + sweep_frontier(
             cuda_halo, frontier)
+        if hasattr(cuda_packed, "resident_reg_plan"):
+            out["sweep"] += sweep_k1_k10(cuda_packed, cuda_halo, packed, soup, k10, CONWAY)
     elif args.sweep_frontier:
         out["sweep"] = sweep_frontier(cuda_halo, frontier)
     out["seconds"] = time.perf_counter() - t0

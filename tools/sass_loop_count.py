@@ -1,23 +1,28 @@
-"""Count the SASS instructions of the generation loops of K9, K13 and K10.
+"""Count the SASS instructions of the generation loops of K1, K9, K10 and K13.
 
     python3 tools/sass_loop_count.py [--sass-dir DIR]
 
-Builds the port's ``ext`` and ``probing`` kernels (``ops/cuda_build.py``),
-disassembles them with ``cuobjdump -sass`` (the CUDA toolkit's, beside
-``nvcc``) and prints one JSON object: for the B3/S23 instantiations of K9
-(``ext_reg_kernel``) and K13 (``tile_probing_reg_kernel``), their
+Builds the port's ``resident``, ``ext`` and ``probing`` kernels
+(``ops/cuda_build.py``), disassembles them with ``cuobjdump -sass`` (the
+CUDA toolkit's, beside ``nvcc``) and prints one JSON object: for the
+B3/S23 instantiations of K9 (``ext_reg_kernel``), K10
+(``ext_skip_reg_kernel``) and K13 (``tile_probing_reg_kernel``), their
 generation loop (the backward branch whose body holds the generation's
-``BAR.SYNC``: one generation of a 32-row run, every chunk stepped), and for
-K10 (``ext_skip_kernel``, which keeps ``window.cuh::advance``, K9's and
-K13's loop before their redesign) its row loop (the innermost backward
-branch whose body reads and writes shared memory: a window row).  Each loop's
-static instruction count, its count per row (the new loop steps 32 rows,
-the old one row an iteration), and its opcodes.  The old loop evaluates
-the rule at run time, each total's term behind a branch on the rule's
-masks; ``branch_blocks`` lists the sizes of the blocks its predicated
-forward branches skip (the terms a rule does not use, and a bounds test),
-so a rule's path through it is shorter than its static count.
-``--sass-dir`` also writes the disassembly there.
+``BAR.SYNC``: one generation of a 32-row run, every chunk stepped; K10's
+first, the 6 generations before its probe); for K1
+(``resident_reg_kernel``) each B3/S23 instantiation's generation loop (one
+generation of every sub-run a warp holds: 32 rows of registers, the
+exchange included; a row is one word of each of the warp's 32 lanes, 30 of
+them centre); and for the shared-memory form of K10 that came before
+(``ext_skip_kernel``, ``window.cuh::advance``), where a build has it, its
+row loop (the innermost backward branch whose body reads and writes shared
+memory: a window row).  Each loop's static instruction count, its count per
+row, and its opcodes.  The old loop evaluates the rule at run time, each
+total's term behind a branch on the rule's masks; ``branch_blocks`` lists
+the sizes of the blocks its predicated forward branches skip (the terms a
+rule does not use, and a bounds test), so a rule's path through it is
+shorter than its static count.  ``--sass-dir`` also writes the disassembly
+there.
 
 Run on a machine with the CUDA toolkit (the card's).
 """
@@ -112,22 +117,28 @@ def branch_blocks(code: list, span: tuple) -> list:
     return sizes
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--sass-dir", default="")
-    args = ap.parse_args()
-    cuda_build.build("ext", "probing")
-    cuobjdump = str(Path(cuda_build.nvcc()).parent / "cuobjdump")
+def kernel_loops(build, libs, sass_dir: str = "") -> dict:
+    """The loops of K1, K9, K10 and K13 in the kernels ``libs`` of the
+    build module ``build`` (``ops/cuda_build.py`` of a checkout, built
+    already), disassembled with ``cuobjdump -sass``; ``sass_dir`` also
+    keeps the disassembly."""
+    cuobjdump = str(Path(build.nvcc()).parent / "cuobjdump")
     out = {}
-    for lib in ("ext", "probing"):
-        sass = subprocess.run([cuobjdump, "-sass", str(cuda_build.library_path(lib))],
+    for lib in libs:
+        sass = subprocess.run([cuobjdump, "-sass", str(build.library_path(lib))],
                               capture_output=True, text=True, check=True).stdout
-        if args.sass_dir:
-            Path(args.sass_dir).mkdir(parents=True, exist_ok=True)
-            (Path(args.sass_dir) / f"{lib}.sass").write_text(sass)
+        if sass_dir:
+            Path(sass_dir).mkdir(parents=True, exist_ok=True)
+            (Path(sass_dir) / f"{lib}.sass").write_text(sass)
         for name, code in functions(sass).items():
             if CONWAY in name and "ext_reg_kernel" in name:
                 out["K9"] = summary(code, generation_loop(code), RUN_ROWS)
+            elif CONWAY in name and "ext_skip_reg_kernel" in name:
+                out["K10"] = summary(code, generation_loop(code), RUN_ROWS)
+            elif CONWAY in name and "resident_reg_kernel" in name:
+                h, ragged = re.search(r"resident_reg_kernelILi(\d+)ELb(\d)E", name).groups()
+                out[f"K1_h{h}{'_ragged' if ragged == '1' else ''}"] = summary(
+                    code, generation_loop(code), RUN_ROWS)
             elif CONWAY in name and "tile_probing_reg_kernel" in name:
                 out["K13"] = summary(code, generation_loop(code), RUN_ROWS)
             elif "ext_skip_kernel" in name:
@@ -135,7 +146,16 @@ def main() -> int:
                 row = summary(code, span, 1)
                 row["branch_blocks"] = branch_blocks(code, span)
                 out["K10"] = row
-    print(json.dumps(out))
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--sass-dir", default="")
+    args = ap.parse_args()
+    libs = ("resident", "ext", "probing")
+    cuda_build.build(*libs)
+    print(json.dumps(kernel_loops(cuda_build, libs, args.sass_dir)))
     return 0
 
 

@@ -63,8 +63,8 @@ plan (K10 at xpad 1 on every launch), equal to a single-device rerun;
 single-device 2,000-turn PGM.  It
 checks that every kernel of each path launched in it, times every kernel
 against its plain version and its bound (and a viewer turn's parts at
-16384², K6 beside a byte copy of the board and beside a build of K6
-without the modulo in its ring index, K7 beside 16 sequential K1
+16384², K6 with and without its count beside a byte copy of the board,
+K7 beside 16 sequential K1
 launches, and K9 on a (4, 1) strip and a (2, 2) tile beside K2 on the
 whole board and beside the halo exchange, K10-K12 on a (4, 1) strip
 and K13 and K10 on a (2, 2) tile beside their plain versions, K14 a
@@ -74,9 +74,14 @@ K12, K13, K15 and their controls K2, K4, K5, K8, K10 and K14 as the
 median and spread of 5 event-timed batches, K13 also back to back), and
 prints one
 ``{"kernels": [...]}`` line, the card's name and power limit, and last
-``{"ok": true, "device": {...}}``.  The build fails the run if K5/K8,
-K9, K12, K13, K14 or K15 (``csrc/regwin.cuh``) spills a register
-(``-Xptxas -v``); K9 and K13 are held at every depth 1-32, under a third
+``{"ok": true, "device": {...}}``.  The build fails the run if K1, K5/K8,
+K6, K9-K15 (``csrc/regwin.cuh``, K1's and K6's kernels) spills a register
+(``-Xptxas -v``).  K6 and its count are held to its plain version at 512²,
+16384² and the gate's odd shapes under three rules, and the viewer paths
+must take each turn's count from K6 (no separate sum of the board); K11
+is held to its block mirror on the card at paths (g)'s and (e)'s tail
+plans, and its settled launch must elide every stripe.  K9 and K13 are
+held at every depth 1-32, under a third
 rule that takes their generic instantiation, and at paths (c), (f), (i)
 and (j)'s shapes; K12 launch by launch also at path (g)'s frontier plan
 (T = 6 on 16-row stripes) and under the third rule, and K15 under it too
@@ -142,11 +147,12 @@ REG_RULES = (*RULES, DAY_AND_NIGHT)
 # Event-timed batches behind the median and spread of the K9 and K13 rows
 # and of their controls (K2, K4, K5, K10).
 BATCHES = 5
-# The kernels of regwin.cuh, and K1's register kernel, which must build
+# The kernels of regwin.cuh, K1's register kernel and K6, which must build
 # without spills.
 REG_KERNELS = ("ext_reg_kernel", "ext_skip_reg_kernel", "tile_probing_reg_kernel",
-               "frontier_reg_kernel", "strip_frontier_reg_kernel", "strip_mega_reg_kernel",
-               "tile_mega_reg_kernel", "resident_reg_kernel")
+               "strip_probing_reg_kernel", "frontier_reg_kernel", "strip_frontier_reg_kernel",
+               "strip_mega_reg_kernel", "tile_mega_reg_kernel", "resident_reg_kernel",
+               "stencil_kernel")
 # K1's boards beside the main path's 512²: (H, W) cells at the gate's
 # ragged and extreme shapes (one word row 32, 96 and 58,112 wide, three
 # word rows, 40 word rows of 32 columns, 1,816 of them, 64², a serving
@@ -262,6 +268,10 @@ STRIPS = ("ext_skip", "strip_probing", "strip_frontier")
 HALO = ("ext", *STRIPS, "tile_probing", "strip_mega", "tile_mega")  # the sharded forms' kernels
 LONG_TURNS = 100_000  # the auto skip_stable threshold (Params._SKIP_AUTO_TURNS)
 STENCIL_ODD = (1004, 3076)  # W % 128 != 0 and H % 8 != 0: refused by the TPU gate
+# K6's odd shapes beside the main path's: refused by the TPU gate, with
+# W % 16 != 0 (the 4-cell instantiation), one row, a board narrower than a
+# warp's 30 centre words, and a ragged last run and column group.
+STENCIL_SHAPES = (STENCIL_ODD, (1, 4), (3, 100), (7, 20), (1, 48), (33, 132), (130, 4096))
 VIEWPORT = (8000, 8000, 1024, 1024)  # the viewport path's starting rect
 # Depth of the two per-cell flip paths (512²: the run and the CLI).  Each
 # CellFlipped event costs the host of an H100 machine about 20 µs while
@@ -427,13 +437,13 @@ def k10_share(ext: torch.Tensor, strip: tuple[int, int], t: int, xpad: int):
 
 
 # Integer instructions K6 spends per cell, counted from csrc/stencil.cu
-# (loads, stores and address arithmetic not counted): per 4-cell word, 3
-# IADD3 for the three-row sums of the word and of its west and east cells,
-# 3 shifts and 1 OR for the column neighbours, 1 IADD3 for the 9-cell total
-# (8 per word, 2 per cell); per cell, 8 for the rule: extract the total and
-# the alive bit, select the mask, shift it by the total, take bit 0, scale
-# to 0/255, place and merge the byte.
-STENCIL_OPS_PER_CELL = 10
+# (shuffles, loads, stores and addresses not counted): per 4-cell word, 1
+# LOP3 for the alive bits, 1 IADD3 for the 3-row sum, 2 SHF funnel shifts
+# for the west and east bytes, 2 for the live neighbours (IADD3, and the
+# centre's subtraction), 3 for B3/S23's byte compare ((n | a) ^ 3 in a
+# LOP3, the IADD and LOP3 of the zero-byte test), 1 SHF and 1 IMAD for the
+# 0/255 bytes and 1 IADD for the count: 12 a word, 3 a cell.
+STENCIL_OPS_PER_CELL = 3
 
 
 def stencil_bound_ms(h: int, w: int, int_rate: float):
@@ -444,33 +454,10 @@ def stencil_bound_ms(h: int, w: int, int_rate: float):
     return larger_ms(2 * h * w / HBM_BYTES_PER_S, h * w * STENCIL_OPS_PER_CELL / int_rate)
 
 
-# K6's ring index, and the same with a subtraction for the modulo: exact
-# while every index stays below twice the board's side, as at 16384².
-WRAP_MOD = "(i >= n ? i % n : i)"
-WRAP_SUB = "(i >= n ? i - n : i)"
-
-
-def build_kernels() -> Path:
-    """Build every kernel from source, and with them (one more ``nvcc``,
-    started first) a copy of ``csrc/stencil.cu`` whose ``wrap`` subtracts
-    instead of taking ``%``, into ``build/kernels/``; returns the path of
-    that wrap-free K6's library."""
-    src = (cuda_build.CSRC / "stencil.cu").read_text()
-    if src.count(WRAP_MOD) != 1:
-        raise AssertionError("csrc/stencil.cu has no single wrap() modulo for the witness to edit")
-    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = cuda_build.BUILD_DIR / "stencil_wrap_free.cu"
-    cu.write_text(src.replace(WRAP_MOD, WRAP_SUB))
-    lib = cu.with_suffix(".so")
-    cmd = [cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(lib), str(cu)]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    try:
-        cuda_build.build(*cuda_build.KERNELS)
-    finally:
-        out_log, _ = proc.communicate()
-    if proc.returncode != 0:
-        raise RuntimeError(f"the wrap-free K6 build failed:\n{out_log}")
-    return lib
+def build_kernels() -> None:
+    """Build every kernel from source into ``build/kernels/``, one ``nvcc``
+    per source, all started together."""
+    cuda_build.build(*cuda_build.KERNELS)
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -621,24 +608,46 @@ def check_tiled(device, errs: dict) -> None:
 
 
 def check_stencil(device, errs: dict) -> None:
-    """K6 against its plain version: 512² and 16384², 1 and 8 generations,
-    Conway and HighLife, and a shape only the port's gate takes."""
-    for shape, depths in [((512, 512), (1, 8)), ((BIG, BIG), (1, 8)), (STENCIL_ODD, (8,))]:
+    """K6 and its count against its plain version, tolerance 0: 512² and
+    16384² under ``REG_RULES`` (B3/S23 and B36/S23 compiled in, Day & Night
+    by its masks; each launch counted in its rule's instantiation), and the
+    gate's odd shapes (``STENCIL_SHAPES``: one row, odd heights, W % 16 != 0
+    on the 4-cell instantiation, boards narrower than a warp) under
+    B3/S23 and Day & Night.  Each over 8 generations of
+    ``make_steps_with_counts`` (every launch's own count), the superstep at
+    1 and 8, and the counted superstep at 8 (its last launch's count); the
+    input never written."""
+    cuda_stencil.stencil_step.rules.clear()
+    for shape in ((512, 512), (BIG, BIG), *STENCIL_SHAPES):
         b = board(*shape, 17, device)
         before = b.clone()
-        for rule in RULES:
-            want = b
-            for turns in range(1, max(depths) + 1):
-                want = cuda_stencil.stencil_step_plain(want, rule)
-                if turns not in depths:
-                    continue
-                got = cuda_stencil.make_superstep(rule)(b, turns)
-                torch.cuda.synchronize()
-                errs["stencil"] = max(errs["stencil"], max_abs_err(got, want))
-                if not torch.equal(got, want) or not torch.equal(b, before):
-                    raise AssertionError(f"K6 != plain (or its input written) at {shape} x "
-                                         f"{turns} under {rule.notation}")
-                log(f"K6 {shape[0]}x{shape[1]} x {turns} {rule.notation}: identical")
+        rules = REG_RULES if shape[0] == shape[1] else (CONWAY, DAY_AND_NIGHT)
+        for rule in rules:
+            want, want_counts, at = b, [], {}
+            for turns in range(1, 9):
+                c = torch.zeros((), dtype=torch.int64, device=device)
+                want = cuda_stencil.stencil_step_plain(want, rule, c)
+                want_counts.append(int(c))
+                at[turns] = want
+            got, counts = cuda_stencil.make_steps_with_counts(rule)(b, 8)
+            one = cuda_stencil.make_superstep(rule)(b, 1)
+            counted, last = cuda_stencil.make_counted_superstep(rule)(b, 8)
+            torch.cuda.synchronize()
+            err = max(max_abs_err(got, at[8]), max_abs_err(one, at[1]),
+                      max_abs_err(counted, at[8]),
+                      max(abs(int(x) - y) for x, y in zip(counts.cpu(), want_counts)),
+                      abs(int(last) - want_counts[-1]))
+            errs["stencil"] = max(errs["stencil"], err)
+            if err or not torch.equal(b, before) or want_counts[-1] != int((at[8] & 1).sum()):
+                raise AssertionError(f"K6 != plain (or its count, or its input written) at "
+                                     f"{shape} under {rule.notation}: error {err}")
+            log(f"K6 {shape[0]}x{shape[1]} x {{1, 8}} {rule.notation} "
+                f"({cuda_stencil.words_per_thread(b) * 4} cells a thread, runs of "
+                f"{cuda_stencil.RUN_ROWS} rows): "
+                f"identical boards and counts (last {want_counts[-1]})")
+    if set(cuda_stencil.stencil_step.rules) != set(cuda_adaptive.REG_RULES):
+        raise AssertionError(f"K6 ran {dict(cuda_stencil.stencil_step.rules)}, not every "
+                             "instantiation")
 
 
 def soup_stack(nb: int, side: int, seed: int, device) -> torch.Tensor:
@@ -1056,14 +1065,91 @@ def check_strips(device, errs: dict, boards: dict) -> dict:
             if name == "settled" and rule is CONWAY:
                 e = halo.extend(sb, 18, 0)[0][0]
                 log(f"K10 on settled strip 0 at T = 18: {check_k10_settled(e, 18, 0, 'strip 0')}")
-    # K12's generic instantiation (Day & Night), launch by launch.
+    # K12's and K11's generic instantiations (Day & Night), launch by launch.
     cuda_halo.strip_frontier_launch.rules.clear()
+    cuda_halo.strip_probing_launch.rules.clear()
     for name, sb in cases.items():
-        check_strip_launches(sb, DAY_AND_NIGHT, errs, (fplan,), name)
-    if not cuda_halo.strip_frontier_launch.rules["generic"]:
-        raise AssertionError(f"K12's generic instantiation did not run: "
-                             f"{dict(cuda_halo.strip_frontier_launch.rules)}")
+        check_strip_launches(sb, DAY_AND_NIGHT, errs, (fplan, pplan), name)
+    for kernel in ("strip_frontier", "strip_probing"):
+        if not WRAPPERS[kernel].rules["generic"]:
+            raise AssertionError(f"{kernel}'s generic instantiation did not run: "
+                                 f"{dict(WRAPPERS[kernel].rules)}")
+    cases["k11_settled"] = check_k11_blocks(cases, (pplan, fplan), errs)
     return cases
+
+
+def check_k11_blocks(cases: dict, plans, errs: dict) -> dict:
+    """K11 against its block mirror run on the card at the card's blocks
+    (``cuda_halo.strip_probing_launch_mirror`` on ``strip_reg_plan``), three
+    launches on the four (4, 1) strips of the fresh and settled boards from
+    a zero bitmap, at path (g)'s plan and (e)'s loose-tail plan (``plans``),
+    both rules: each launch's strips and bitmaps, tolerance 0.  Then, at
+    each plan on the settled strips (``check_k11_settled``), every stripe
+    elides.  Returns the settled launches' counts."""
+    strip = tuple(cases["fresh"].shards[0][0].shape)
+    sms = cuda_adaptive.device_sms(cases["fresh"].shards[0][0].device)
+    settled = {}
+    for plan in plans:
+        blocks = cuda_halo.strip_reg_plan(plan, strip, sms)
+        mirror = functools.partial(cuda_halo.strip_probing_launch_mirror, blocks=blocks)
+        for rule in RULES:
+            for name in ("fresh", "settled"):
+                strips = [row[0] for row in cases[name].shards]
+                runs = []
+                for fn in (cuda_halo.strip_probing_launch, mirror):
+                    seen = []
+
+                    def record(*args, _fn=fn, _seen=seen):
+                        out = _fn(*args)
+                        _seen.append((out.clone(), args[5].clone()))
+                        return out
+
+                    cuda_halo.probing_launches(strips, rule, plan, 3, record)
+                    runs.append(seen)
+                torch.cuda.synchronize()
+                for (b, f), (wb, wf) in zip(*runs):
+                    err = max(max_abs_err(b, wb), max_abs_err(f, wf))
+                    errs["strip_probing"] = max(errs["strip_probing"], err)
+                    if err:
+                        raise AssertionError(f"K11 != its block mirror ({plan}, {blocks}) on the "
+                                             f"{name} strips under {rule.notation}")
+        log(f"K11 x 3 launches at {plan} ({blocks}) on the fresh and settled strips, "
+            f"{len(RULES)} rules: identical to the block mirror")
+        settled[str(plan)] = check_k11_settled([row[0] for row in cases["settled"].shards], plan)
+    return settled
+
+
+def check_k11_settled(strips: list, plan) -> dict:
+    """K11 on the settled (4, 1) strips at ``plan``: a launch from a zero
+    bitmap must prove every stripe stable, and the next, whose stripes and
+    neighbours' edge flags are then all 1, must elide every stripe: write
+    nothing (each strip's buffer keeps the sentinel it was given) and
+    report every stripe stable.  Returns the counts."""
+    grid = plan.grid(strips[0].shape[0])
+    rows = halo.edge_rows(strips, plan.pad)
+    dev = strips[0].device
+    flags = []
+    for s, (n, so) in zip(strips, rows):
+        st = torch.ones(grid, dtype=torch.int32, device=dev)
+        cuda_halo.strip_probing_launch(s, n, so, torch.empty_like(s),
+                                       torch.zeros(grid + 2, dtype=torch.int32, device=dev), st,
+                                       CONWAY, plan)
+        flags.append(st)
+    proved = sum(int(f.sum()) for f in flags)
+    kept = stable = 0
+    for s, (n, so), ext in zip(strips, rows, cuda_halo.edge_flags(flags)):
+        dst = torch.full_like(s, 7)
+        st = torch.ones(grid, dtype=torch.int32, device=dev)
+        cuda_halo.strip_probing_launch(s, n, so, dst, ext, st, CONWAY, plan)
+        kept += int((dst == 7).all(dim=1).sum())
+        stable += int(st.sum())
+    out = dict(stripes=grid * len(strips), proved_at_launch_0=proved, elided_stable=stable,
+               rows_untouched=kept, rows=sum(s.shape[0] for s in strips))
+    if not (proved == stable == out["stripes"] and kept == out["rows"]):
+        raise AssertionError(f"K11's settled launch at {plan} computed a stripe: {out}")
+    log(f"K11 at {plan} on the settled strips: launch 0 proved all {proved} stripes, launch 1 "
+        f"elided every one (all {kept} rows untouched)")
+    return out
 
 
 def mega_chunks_equal(got, want, n: int) -> int:
@@ -1513,10 +1599,12 @@ def drive(name: str, params: gol.Params, kernels: tuple, launches: dict, referen
     Both streams are consumed as they are produced (``Sink``; ``shadow``
     is the board shape of a flip run); ``devices`` places the kernel run's
     board (a virtual mesh).  Returns (the kernel run's end-to-end numbers,
-    its sink)."""
+    its sink); ``board_sums`` counts the kernel run's separate sums of a
+    board (``stencil.alive_count``)."""
     sink = Sink(shadow)
     reset_launches()
-    seconds, final = stream_run(params, sink, keys, devices=devices)
+    with board_sums() as sums:
+        seconds, final = stream_run(params, sink, keys, devices=devices)
     counts = launch_counts()
     for k in kernels:
         launches[k] += counts[k]
@@ -1532,7 +1620,7 @@ def drive(name: str, params: gol.Params, kernels: tuple, launches: dict, referen
             raise AssertionError(f"{name}: final board differs from the single-device run's")
         log(f"{name}: final board equals the single-device run's")
         out = dict(seconds=seconds, gens_per_s=params.turns / seconds, launches=counts,
-                   dispatch_loop_s=sink.loop_seconds(),
+                   dispatch_loop_s=sink.loop_seconds(), board_sums=sums[0],
                    reference="the single-device run's final PGM")
         out.update(skip_gauges(sink))
         return out, sink
@@ -1546,7 +1634,7 @@ def drive(name: str, params: gol.Params, kernels: tuple, launches: dict, referen
     loop = sink.loop_seconds()
     out = dict(seconds=seconds, gens_per_s=params.turns / seconds, dispatch_loop_s=loop,
                dispatch_loop_gens_per_s=params.turns / loop if loop else None,
-               launches=counts, reference=dict(
+               launches=counts, board_sums=sums[0], reference=dict(
                    overrides=reference, seconds=ref_seconds, gens_per_s=params.turns / ref_seconds,
                    dispatch_loop_s=ref.loop_seconds()))
     out.update(skip_gauges(sink))
@@ -1573,20 +1661,48 @@ def final_board(params: gol.Params, device) -> torch.Tensor:
     return torch.from_numpy(pgm.read_pgm(params.out_dir / f"{params.final_output_name}.pgm")).to(device)
 
 
+@contextlib.contextmanager
+def board_sums():
+    """Count the calls of ``stencil.alive_count`` (a separate sum of a
+    board) while the block runs: ``yield``s a one-entry list."""
+    calls, saved = [0], stencil.alive_count
+
+    def counted(b):
+        calls[0] += 1
+        return saved(b)
+
+    stencil.alive_count = counted
+    try:
+        yield calls
+    finally:
+        stencil.alive_count = saved
+
+
+def viewer_drive(name: str, params: gol.Params, launches: dict, reference, **kw):
+    """``drive`` of a viewer path on K6, which must take each turn's alive
+    count from K6's epilogue: the run may make no separate sum of the
+    board (``board_sums``)."""
+    out, sink = drive(name, params, ("stencil",), launches, reference, engine="pallas", **kw)
+    if out["board_sums"]:
+        raise AssertionError(f"{name}: {out['board_sums']} separate sums of the board on K6's "
+                             "path")
+    return out, sink
+
+
 def viewer_paths(images: Path, tmp: Path, launches: dict, device) -> dict:
     """Phase 3's viewer paths: ``no_vis=False`` under ``engine="auto"``,
-    which takes the byte kernel (K6) for per-turn dispatches on the card.
-    Each final board must equal a headless ``engine="packed"`` rerun, and
-    each stream must rebuild its final view."""
+    which takes the byte kernel (K6) for per-turn dispatches on the card,
+    and its count (``viewer_drive``).  Each final board must equal a
+    headless ``engine="packed"`` rerun, and each stream must rebuild its
+    final view."""
     headless = dict(engine="packed", no_vis=True)
     e2e = {}
     flips = gol.Params(turns=FLIP_TURNS, images_dir=images, out_dir=tmp / "flips", no_vis=False,
                        ticker_period=3600)
     if not flips.wants_flips():
         raise AssertionError("a 512^2 viewer run is not fed per-cell flips")
-    e2e[f"flips_512x512x{FLIP_TURNS}"], sink = drive(
-        f"flips 512^2 x {FLIP_TURNS}", flips, ("stencil",), launches, headless, engine="pallas",
-        shadow=(512, 512))
+    e2e[f"flips_512x512x{FLIP_TURNS}"], sink = viewer_drive(
+        f"flips 512^2 x {FLIP_TURNS}", flips, launches, headless, shadow=(512, 512))
     want = np.zeros((512, 512), np.uint8)
     for c in sink.final.alive:
         want[c.y, c.x] = 1
@@ -1599,8 +1715,8 @@ def viewer_paths(images: Path, tmp: Path, launches: dict, device) -> dict:
                          soup_seed=7, no_vis=False, out_dir=tmp / "frames", ticker_period=3600)
     if not frame_p.wants_frames():
         raise AssertionError(f"a {BIG}^2 viewer run is not fed frames")
-    e2e[f"frames_{BIG}x{BIG}x500"], sink = drive(f"frames {BIG}^2 x 500", frame_p, ("stencil",),
-                                                 launches, headless, engine="pallas")
+    e2e[f"frames_{BIG}x{BIG}x500"], sink = viewer_drive(f"frames {BIG}^2 x 500", frame_p,
+                                                        launches, headless)
     want = stencil.frame_pool(final_board(frame_p, device), *sink.factors).cpu().numpy()
     if not np.array_equal(sink.view, want):
         raise AssertionError("the last frame differs from frame_pool of the final board")
@@ -1608,9 +1724,8 @@ def viewer_paths(images: Path, tmp: Path, launches: dict, device) -> dict:
 
     roi = dataclasses.replace(frame_p, turns=1000, viewport=VIEWPORT, out_dir=tmp / "viewport")
     keys = KeysAfter({250: "d", 500: "+", 750: "-"})
-    e2e[f"viewport_{BIG}x{BIG}x1000"], sink = drive(
-        f"viewport {BIG}^2 x 1000", roi, ("stencil",), launches, headless, engine="pallas",
-        keys=keys)
+    e2e[f"viewport_{BIG}x{BIG}x1000"], sink = viewer_drive(
+        f"viewport {BIG}^2 x 1000", roi, launches, headless, keys=keys)
     crop = stencil.viewport(final_board(roi, device), *sink.rect)
     want = stencil.frame_pool(crop, *sink.factors).cpu().numpy()
     if sink.rect == VIEWPORT or not np.array_equal(sink.view, want):
@@ -2401,6 +2516,7 @@ def time_strips(cases: dict, int_rate: float) -> dict:
     timings["ext_skip"]["extra"]["path_f"] = path_f
     timings["strip_probing"]["extra"]["path_e_tail"] = {
         name: row["path_e_tail"] for name, row in out.items()}
+    timings["strip_probing"]["extra"]["settled_elision"] = cases["k11_settled"]
     return timings
 
 
@@ -2638,9 +2754,11 @@ def host_ms(fn, reps: int, warm: bool = True) -> float:
 
 def time_viewer_turn(b: torch.Tensor) -> dict:
     """Where one per-turn viewer dispatch of the 16384² board ``b`` goes:
-    each device part (CUDA events), each host copy (host clock), and each
-    Backend viewer method whole (host clock: step + view + count +
-    bit-pack + copies + the host's unpacking)."""
+    each device part (CUDA events: the step alone, the step with K6's
+    count, which a viewer turn runs, and the separate sum of the board it
+    replaced), each host copy (host clock), and each Backend viewer method
+    whole (host clock: step and count + view + bit-pack + copies + the
+    host's unpacking), and the frame probe."""
     be = Backend(gol.Params(image_width=BIG, image_height=BIG, no_vis=False, engine="pallas"))
     nb = be._device_superstep(b, 1)
     fy, fx = be.params.frame_factors()
@@ -2652,7 +2770,8 @@ def time_viewer_turn(b: torch.Tensor) -> dict:
     out = dict(
         frame_factors=[fy, fx], viewport=list(VIEWPORT), viewport_factors=[vfy, vfx],
         step_ms=cuda_ms(lambda: be._device_superstep(b, 1), 20),
-        alive_count_ms=cuda_ms(lambda: stencil.alive_count(nb), 20),
+        counted_step_ms=cuda_ms(lambda: be._counted_superstep(b, 1), 20),
+        separate_sum_ms=cuda_ms(lambda: stencil.alive_count(nb), 20),
         frame_pool_ms=cuda_ms(lambda: stencil.frame_pool(nb, fy, fx), 20),
         packbits_frame_ms=cuda_ms(lambda: stencil.packbits(pooled), 20),
         viewport_pool_ms=cuda_ms(
@@ -2665,6 +2784,7 @@ def time_viewer_turn(b: torch.Tensor) -> dict:
         run_turn_with_frame_ms=host_ms(lambda: be.run_turn_with_frame(b, fy, fx), 10),
         run_turn_with_viewport_ms=host_ms(
             lambda: be.run_turn_with_viewport(b, VIEWPORT, vfy, vfx), 10),
+        probe_frame_fetch_ms=host_ms(lambda: be.probe_frame_fetch(b, fy, fx), 10),
         # Its parts are warm already, and one call unpacks the flips of a
         # whole fresh soup on the host.
         run_turn_with_flips_ms=host_ms(lambda: be.run_turn_with_flips(b), 1, warm=False),
@@ -2674,39 +2794,24 @@ def time_viewer_turn(b: torch.Tensor) -> dict:
     return out
 
 
-def k6_witnesses(b: torch.Tensor, wrap_free_lib: Path) -> dict:
-    """Two witnesses of what limits K6 on the 16384² board ``b``, each
-    timed with CUDA events beside K6 itself: a byte copy of the board
-    (``out.copy_(b)``: the same 2·H·W bytes, no arithmetic), and K6 built
-    with ``wrap`` free of ``%`` (``build_kernels``), held bit for bit
-    against K6's plain version first."""
-    lib = ctypes.CDLL(str(wrap_free_lib))
+def k6_copy_witness(b: torch.Tensor) -> dict:
+    """K6's yardstick on the 16384² board ``b``: a byte copy of the board
+    (``out.copy_(b)``: the same 2·H·W bytes, no arithmetic), timed with
+    CUDA events beside K6 itself, without and with its count."""
     h, w = b.shape
-    born, surv = cuda_packed.rule_masks(CONWAY)
-    out = torch.empty_like(b)
-
-    def wrap_free():
-        err = lib.gol_stencil_launch(ctypes.c_void_p(b.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-                                     h, w, ctypes.c_uint(born), ctypes.c_uint(surv),
-                                     cuda_packed._stream(b))
-        if err:
-            raise RuntimeError(f"the wrap-free K6 launch failed: cudaError {err}")
-
-    wrap_free()
-    torch.cuda.synchronize()
-    if not torch.equal(out, cuda_stencil.stencil_step_plain(b, CONWAY)):
-        raise AssertionError("the wrap-free K6 differs from K6's plain version at 16384^2")
-    k6_out = torch.empty_like(b)
+    out, k6_out = torch.empty_like(b), torch.empty_like(b)
+    count = torch.zeros((), dtype=torch.int64, device=b.device)
     res = dict(
         shape=[h, w],
         k6_ms=cuda_ms(lambda: cuda_stencil.stencil_step(b, CONWAY, out=k6_out), 50),
-        wrap_free_k6_ms=cuda_ms(wrap_free, 50),
+        k6_counted_ms=cuda_ms(
+            lambda: cuda_stencil.stencil_step(b, CONWAY, out=k6_out, count=count), 50),
         copy_ms=cuda_ms(lambda: out.copy_(b), 50),
     )
     res["copy_bytes_per_s"] = 2 * h * w / (res["copy_ms"] / 1e3)
     res["k6_bytes_per_s"] = 2 * h * w / (res["k6_ms"] / 1e3)
-    log(f"K6 witnesses at {h}x{w}: K6 {res['k6_ms']:.4f} ms, wrap-free K6 "
-        f"{res['wrap_free_k6_ms']:.4f} ms, byte copy {res['copy_ms']:.4f} ms "
+    log(f"K6 beside a byte copy at {h}x{w}: K6 {res['k6_ms']:.4f} ms, counted "
+        f"{res['k6_counted_ms']:.4f} ms, byte copy {res['copy_ms']:.4f} ms "
         f"({res['copy_bytes_per_s'] / 1e12:.3f} TB/s; K6 {res['k6_bytes_per_s'] / 1e12:.3f} TB/s)")
     return res
 
@@ -2770,18 +2875,17 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    # Phase 1: build every kernel from source, in parallel (and the
-    # wrap-free K6 of phase 4's witness).
+    # Phase 1: build every kernel from source, in parallel.
     t0 = time.perf_counter()
-    wrap_free = build_kernels()
+    build_kernels()
     log(f"built {list(KERNELS)} in {time.perf_counter() - t0:.1f} s")
     for k in cuda_build.KERNELS:
         for line in cuda_build.build_log(k).splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  {k}: {line.strip()}")
     reg_build = {k: reg_build_report(cuda_build.build_log(k))
-                 for k in ("ext", "probing", "frontier", "resident")}
-    log(f"K1, K5/K8, K9, K10 and K12-K15 build without spills: "
+                 for k in ("ext", "probing", "frontier", "resident", "stencil")}
+    log(f"K1, K5/K8, K6 and K9-K15 build without spills: "
         f"{ {k: [r['registers'] for r in v.values()] for k, v in reg_build.items()} } registers")
     plan = cuda_packed.tiled_plan((BIG, BIG // 32), 10**6)
     k1_plan = cuda_packed.resident_reg_plan(16, 512)
@@ -2891,19 +2995,32 @@ def main() -> int:
         ),
     }
     # K6 at the viewer paths' shapes, one generation a launch into a
-    # preallocated buffer (as a superstep's ping-pong does); 16384² leads.
+    # preallocated buffer (as a superstep's ping-pong does), without and
+    # with its count (a viewer turn's last launch); 16384² leads.
     k6, soups = {}, {n: board(n, n, 23, device) for n in (BIG, 512)}
     for n, b in soups.items():
         out = torch.empty((n, n), dtype=torch.uint8, device=device)
-        k6[n] = dict(ms=cuda_ms(lambda: cuda_stencil.stencil_step(b, CONWAY, out=out), 50),
+        count = torch.zeros((), dtype=torch.int64, device=device)
+        spread_ms = cuda_ms_spread(lambda: cuda_stencil.stencil_step(b, CONWAY, out=out), 50)
+        k6[n] = dict(ms=spread_ms["median"], ms_spread=spread_ms,
+                     counted_ms=cuda_ms_spread(lambda: cuda_stencil.stencil_step(
+                         b, CONWAY, out=out, count=count), 50),
                      plain_ms=cuda_ms(lambda: cuda_stencil.stencil_step_plain(b, CONWAY), 5),
+                     run_rows=cuda_stencil.RUN_ROWS,
                      bound=stencil_bound_ms(n, n, int_rate))
-    timings["stencil"] = dict(k6[BIG], extra=dict(shape=[BIG, BIG], at_512=dict(
-        ms=k6[512]["ms"], plain_ms=k6[512]["plain_ms"], bound_ms=k6[512]["bound"][0],
-        bound_by=k6[512]["bound"][1])))
+    timings["stencil"] = dict(
+        ms=k6[BIG]["ms"], plain_ms=k6[BIG]["plain_ms"], bound=k6[BIG]["bound"],
+        extra=dict(shape=[BIG, BIG], ms_spread=k6[BIG]["ms_spread"],
+                   counted_ms=k6[BIG]["counted_ms"], run_rows=k6[BIG]["run_rows"],
+                   at_512=dict(ms=k6[512]["ms"], ms_spread=k6[512]["ms_spread"],
+                               counted_ms=k6[512]["counted_ms"], plain_ms=k6[512]["plain_ms"],
+                               run_rows=k6[512]["run_rows"], bound_ms=k6[512]["bound"][0],
+                               bound_by=k6[512]["bound"][1])))
     log(f"timed K1 at 512^2 x 50 gens (one launch), K2 at {BIG}^2 x {t_big} gens "
-        f"(one launch), K6 one generation at {BIG}^2 ({k6[BIG]['ms']:.4f} ms, bound "
-        f"{k6[BIG]['bound'][0]:.4f} by {k6[BIG]['bound'][1]}) and 512^2 ({k6[512]['ms']:.4f} ms); "
+        f"(one launch), K6 one generation at {BIG}^2 ({k6[BIG]['ms']:.4f} ms, "
+        f"{k6[BIG]['ms_spread']['min']:.4f}-{k6[BIG]['ms_spread']['max']:.4f}; counted "
+        f"{k6[BIG]['counted_ms']['median']:.4f}; bound {k6[BIG]['bound'][0]:.4f} by "
+        f"{k6[BIG]['bound'][1]}) and 512^2 ({k6[512]['ms']:.4f} ms); "
         f"int32 rate {int_rate / 1e12:.2f} Tops/s ({sms} SMs, {clock_mhz} MHz); card {card}")
     timings.update(time_batched(k8_stacks, int_rate))
     timings["ext"] = time_ext(ext_cases, int_rate)
@@ -2917,9 +3034,13 @@ def main() -> int:
     timings["ext_skip"]["extra"]["build"] = {n: r for n, r in reg_build["ext"].items()
                                              if "ext_skip_reg_kernel" in n}
     timings["resident"]["extra"]["build"] = reg_build["resident"]
-    timings["tile_probing"]["extra"]["build"] = reg_build["probing"]
+    timings["tile_probing"]["extra"]["build"] = {
+        n: r for n, r in reg_build["probing"].items() if "tile_probing_reg_kernel" in n}
+    timings["strip_probing"]["extra"]["build"] = {
+        n: r for n, r in reg_build["probing"].items() if "strip_probing_reg_kernel" in n}
+    timings["stencil"]["extra"]["build"] = reg_build["stencil"]
     timings["ext_skip"]["extra"]["tile_2d"] = tiles["ext_skip_2d"]
-    witness = k6_witnesses(soups[BIG], wrap_free)
+    witness = k6_copy_witness(soups[BIG])
     e2e[f"viewer_turn_{BIG}"] = time_viewer_turn(soups[BIG])
     boards["dead"] = torch.zeros_like(boards["fresh"])
     adaptive = time_adaptive(boards, int_rate)
@@ -2947,7 +3068,7 @@ def main() -> int:
             **tm.get("extra", {}),
         ))
     print(json.dumps({"end_to_end": e2e, "card": card}))
-    print(json.dumps({"k6_witness": witness, "card": card}))
+    print(json.dumps({"k6_copy_witness": witness, "card": card}))
     if "--sweep" in sys.argv[1:]:
         with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent) as tmp:
             print(json.dumps({"sweep": sweep(boards, Path(tmp)), "card": card}))

@@ -91,6 +91,9 @@ class Backend:
     # policy that picked it (None off that engine and mesh).
     sharded_tier = None
     sharded_tier_policy = None
+    # The pallas engine's counted superstep (K6 counts the board its last
+    # launch writes; cuda_stencil.make_counted_superstep); None elsewhere.
+    _counted = None
 
     def __init__(self, params: Params, devices=None, in_kernel: bool | None = None):
         self.params = params
@@ -139,6 +142,7 @@ class Backend:
             self._superstep = packed.make_superstep(params.rule)
         elif self.engine_used == "pallas":
             self._superstep = cuda_stencil.make_superstep(params.rule)
+            self._counted = cuda_stencil.make_counted_superstep(params.rule)
         else:
             self._superstep = lambda b, k: stencil.superstep(b, self.table, k)
         self._init_metrics(params)
@@ -479,15 +483,33 @@ class Backend:
         bits = self.fetch(stencil.packbits(stencil.viewport(board, y0, x0, vh, vw)))
         return self._unpack(bits, vw)
 
+    def _counted_superstep(self, board: torch.Tensor, turns: int):
+        """(board after ``turns`` generations, its unsynced alive count):
+        on the pallas engine K6 counts the board its last launch writes,
+        elsewhere the count is a separate sum of the board."""
+        if self._counted is not None:
+            return self._counted(board, turns)
+        new_board = self._device_superstep(board, turns)
+        return new_board, stencil.alive_count(new_board)
+
+    def _fetch_count(self, board: torch.Tensor) -> torch.Tensor:
+        """The device count a viewer turn fetches beside its view, without
+        a turn: on the pallas engine an int64 scalar as K6's counter is
+        (made and fetched, no sum of the board, which the turn no longer
+        runs), elsewhere the board's alive count."""
+        if self._counted is not None:
+            return torch.zeros((), dtype=torch.int64, device=board.device)
+        return stencil.alive_count(board)
+
     def run_turn_with_flips(
         self, board: torch.Tensor
     ) -> tuple[torch.Tensor, int, np.ndarray]:
         """One generation, returning (board, alive count, (n, 2) array of
         the flipped cells' (y, x)).  The diff is taken on the device
         (``stencil.flip_mask``) and bit-packed; the host unpacks it."""
-        new_board = self._device_superstep(board, 1)
+        new_board, count = self._counted_superstep(board, 1)
         bits = stencil.packbits(stencil.flip_mask(board, new_board))
-        count, bits = self.fetch_many(stencil.alive_count(new_board), bits)
+        count, bits = self.fetch_many(count, bits)
         ys, xs = np.nonzero(np.unpackbits(bits, axis=-1, count=self.params.image_width))
         return new_board, int(count), np.stack([ys, xs], axis=1)
 
@@ -496,9 +518,9 @@ class Backend:
     ) -> tuple[torch.Tensor, int, np.ndarray]:
         """``turns`` generations (the frame stride), returning (board, alive
         count, the last generation max-pooled by (fy, fx) on the device)."""
-        new_board = self._device_superstep(board, turns)
+        new_board, count = self._counted_superstep(board, turns)
         bits = stencil.packbits(stencil.frame_pool(new_board, fy, fx))
-        count, bits = self.fetch_many(stencil.alive_count(new_board), bits)
+        count, bits = self.fetch_many(count, bits)
         return new_board, int(count), self._unpack(bits, -(-self.params.image_width // fx))
 
     def run_turn_with_viewport(
@@ -510,23 +532,25 @@ class Backend:
         h, w = self.params.image_height, self.params.image_width
         y0, x0, vh, vw = self.normalize_rect(rect, h, w)
         self._m_viewport_fetches.inc()
-        new_board = self._device_superstep(board, turns)
+        new_board, count = self._counted_superstep(board, turns)
         pooled = stencil.frame_pool(stencil.viewport(new_board, y0, x0, vh, vw), fy, fx)
-        count, bits = self.fetch_many(stencil.alive_count(new_board), stencil.packbits(pooled))
+        count, bits = self.fetch_many(count, stencil.packbits(pooled))
         return new_board, int(count), self._unpack(bits, -(-vw // fx))
 
     def probe_frame_fetch(self, board: torch.Tensor, fy: int, fx: int, rect=None) -> None:
         """One frame fetch without advancing the simulation: the pool (of
         the viewport ``rect`` when given), count, bit-pack and host copy of
         :meth:`run_turn_with_frame` / :meth:`run_turn_with_viewport`, minus
-        the generations.  The controller times it to size the frame
-        stride."""
+        the generations (on the pallas engine, whose count comes from K6,
+        minus the count's work too: ``_fetch_count``).  The controller
+        times it to size the frame stride."""
         view = board
         if rect is not None:
             h, w = self.params.image_height, self.params.image_width
             y0, x0, vh, vw = self.normalize_rect(rect, h, w)
             view = stencil.viewport(board, y0, x0, vh, vw)
-        self.fetch_many(stencil.alive_count(board), stencil.packbits(stencil.frame_pool(view, fy, fx)))
+        self.fetch_many(self._fetch_count(board),
+                        stencil.packbits(stencil.frame_pool(view, fy, fx)))
 
     # -- compute ---------------------------------------------------------------
     def run_turns_async(

@@ -363,32 +363,42 @@ def best_reg_plan(candidates, sms: int) -> RegPlan:
 
 
 def _stripe_reg_plan(shape: tuple[int, int], stripe_h: int, t: int, halo: int, sms: int,
-                     **kw) -> RegPlan:
-    """The blocks of a register-resident stripe kernel (K12, K13, K15) on
-    ``shape`` = (rows, wp) words in stripes of ``stripe_h`` rows: column
+                     stripes: int = 1, **kw) -> RegPlan:
+    """The blocks of a register-resident stripe kernel (K11, K12, K13, K15)
+    on ``shape`` = (rows, wp) words in stripes of ``stripe_h`` rows: column
     groups of 30 words, a window of the tile and ``halo`` rows a side, and
     the row tile, a divisor of the stripe (a stripe's blocks decide or
-    measure it together), whose grid has the least :meth:`RegPlan.cost`
-    on ``sms`` SMs; ``kw`` the plan's probe or keep."""
+    measure it together) or, up to ``stripes`` stripes, a run of whole
+    stripes that divides the rows (each decided on its own), whose grid has
+    the least :meth:`RegPlan.cost` on ``sms`` SMs; ``kw`` the plan's probe
+    or keep."""
     h, wp = shape
     cols = -(-wp // (REG_LANES - 2))
+    tiles = [d for d in range(1, stripe_h + 1) if stripe_h % d == 0]
+    tiles += [k * stripe_h for k in range(2, stripes + 1) if h % (k * stripe_h) == 0]
     plans = [RegPlan(t, halo, tile_h, -(-(tile_h + 2 * halo) // REG_RUN), (h // tile_h, cols),
                      **kw)
-             for tile_h in range(1, stripe_h + 1)
-             if stripe_h % tile_h == 0 and tile_h + 2 * halo <= REG_MAX_WARPS * REG_RUN]
+             for tile_h in tiles if tile_h + 2 * halo <= REG_MAX_WARPS * REG_RUN]
     if not plans:
         raise ValueError(f"no register-resident block for a {halo}-row halo")
     return best_reg_plan(plans, sms)
 
 
+#: Stripes one register probing block may span (``probing.cu``: a probe's
+#: bits, one a stripe).
+REG_PROBE_STRIPES = 32
+
+
 @functools.lru_cache(maxsize=256)
 def stripe_reg_plan(shape: tuple[int, int], stripe_h: int, pad: int, t: int,
-                    sms: int) -> RegPlan:
-    """K13's blocks for a launch of ``t`` generations (probe at 6) on a
-    pre-extended tile whose centre rows and extended width are ``shape`` =
-    (h_loc, wpe), in stripes of ``stripe_h`` rows with a ``pad``-row halo
-    (:func:`_stripe_reg_plan`)."""
-    return _stripe_reg_plan(shape, stripe_h, t, pad, sms, probe=SKIP_PERIOD)
+                    sms: int, stripes: int = 1) -> RegPlan:
+    """The blocks of the register probing kernels (K13; K11 with
+    ``stripes`` = ``REG_PROBE_STRIPES``) for a launch of ``t`` generations
+    (probe at 6) on ``shape`` = (rows, width) words (K13: a pre-extended
+    tile's centre rows and extended width), in stripes of ``stripe_h`` rows
+    with a ``pad``-row halo, a block spanning up to ``stripes`` whole
+    stripes (:func:`_stripe_reg_plan`)."""
+    return _stripe_reg_plan(shape, stripe_h, t, pad, sms, stripes, probe=SKIP_PERIOD)
 
 
 @functools.lru_cache(maxsize=256)

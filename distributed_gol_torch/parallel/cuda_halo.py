@@ -84,7 +84,11 @@ runs it on a whole board.  K12, K14 and K15 step register-resident
 windows (``csrc/regwin.cuh``) on the blocks of
 ``cuda_adaptive.frontier_blocks``; :func:`strip_frontier_launch_mirror`,
 :func:`strip_mega_launch_mirror` and :func:`tile_mega_launch_mirror`
-replay those blocks, and K15's elision, in PyTorch.
+replay those blocks, and K15's elision, in PyTorch.  K13 and K11 share one
+register probing block (``csrc/probing.cu::probe_reg_block``) on the
+blocks of ``cuda_adaptive.stripe_reg_plan`` (:func:`tile_reg_plan`,
+:func:`strip_reg_plan`); :func:`tile_probing_launch_mirror` and
+:func:`strip_probing_launch_mirror` replay them (:func:`_probing_blocks`).
 The peer form for shards on several devices (ROADMAP B10p) is not
 ported: those meshes take the ppermute forms.
 """
@@ -101,12 +105,11 @@ import torch
 from distributed_gol_torch.models.life import CONWAY, LifeRule
 from distributed_gol_torch.ops import cuda_adaptive, cuda_build, cuda_packed, packed
 from distributed_gol_torch.ops.cuda_adaptive import (
-    _EMPTY_LO, _I, _P, _U, H100_SMS, REG_LANES, REG_MAX_WARPS, REG_RULES, REG_RUN, SKIP_PERIOD,
+    _EMPTY_LO, H100_SMS, REG_LANES, REG_MAX_WARPS, REG_RULES, REG_RUN, SKIP_PERIOD,
     AdaptivePlan, RegPlan, _adaptive_eligible, _check_frontier_blocks, _frontier_blocks,
-    _launcher, _reg_launcher, _reg_steps, _reg_stitch, _reg_windows, best_reg_plan, device_sms,
+    _reg_launcher, _reg_steps, _reg_stitch, _reg_windows, best_reg_plan, device_sms,
     frontier_blocks, reg_rule, skip_plan)
-from distributed_gol_torch.ops.cuda_packed import (
-    TILED_MAX_T, _check_words, _stream, rule_masks)
+from distributed_gol_torch.ops.cuda_packed import TILED_MAX_T, _check_words, _stream
 from distributed_gol_torch.ops.packed import WORD
 from distributed_gol_torch.parallel.halo import ShardedBoard, edge_rows, extend, psum
 from distributed_gol_torch.parallel.mesh import Mesh
@@ -612,6 +615,29 @@ def _extended(local: torch.Tensor, north: torch.Tensor, south: torch.Tensor,
 # -- K11: the probing strip launch --------------------------------------------------
 
 
+def _check_strip_probing(local: torch.Tensor, north: torch.Tensor, south: torch.Tensor,
+                         dst: torch.Tensor, prev_ext: torch.Tensor, st: torch.Tensor,
+                         plan: AdaptivePlan) -> None:
+    """Raise unless a K11 launch of ``plan`` fits the strip: whole stripes
+    of at least round8(T) rows, that many neighbour rows, and bitmaps of
+    grid + 2 and grid entries."""
+    h = local.shape[0]
+    grid = plan.grid(h)
+    _check_strip(local, north, south, dst, plan.pad)
+    if plan.pad > plan.stripe_h or h % plan.stripe_h:
+        raise ValueError(f"plan {plan} does not fit a strip of {h} rows")
+    if prev_ext.shape != (grid + 2,) or st.shape != (grid,):
+        raise ValueError(f"bitmaps {tuple(prev_ext.shape)}, {tuple(st.shape)} for {grid} stripes")
+
+
+def _elide(prev_ext: torch.Tensor) -> torch.Tensor:
+    """K11's elision: stripe i elides where entries i, i + 1 and i + 2 of
+    the previous bitmap extended with the neighbour strips' edge flags are
+    all 1."""
+    was = prev_ext.bool()
+    return was[:-2] & was[1:-1] & was[2:]
+
+
 def strip_probing_launch_plain(
     local: torch.Tensor, north: torch.Tensor, south: torch.Tensor, dst: torch.Tensor,
     prev_ext: torch.Tensor, st: torch.Tensor, rule: LifeRule, plan: AdaptivePlan,
@@ -629,8 +655,7 @@ def strip_probing_launch_plain(
     sh, pad = plan.stripe_h, plan.pad
     grid = plan.grid(h)
     dev = local.device
-    was = prev_ext.bool()
-    elide = was[:-2] & was[1:-1] & was[2:]
+    elide = _elide(prev_ext)
     e = _extended(local, north, south, pad)
     g6 = packed.superstep(e, rule, SKIP_PERIOD)
     moved = (g6 != e).any(dim=1)
@@ -640,6 +665,41 @@ def strip_probing_launch_plain(
     g_t = packed.superstep(g6, rule, plan.t - SKIP_PERIOD)[pad : pad + h]
     of = torch.arange(h, device=dev) // sh
     dst.copy_(torch.where(elide[of, None], dst, torch.where(stable[of, None], local, g_t)))
+    st.copy_((elide | stable).to(torch.int32))
+    return dst
+
+
+def strip_reg_plan(plan: AdaptivePlan, strip: tuple[int, int], sms: int) -> RegPlan:
+    """K11's blocks for a launch of ``plan`` on an (h, wp) strip:
+    :func:`cuda_adaptive.stripe_reg_plan` over the strip's width (no
+    x-halo: its columns wrap modulo wp), a block within one stripe or
+    spanning up to ``REG_PROBE_STRIPES`` whole ones: path (g)'s 16-row
+    stripes with a 16-row halo take 8 a block, whose 160-row window
+    steps 14 rows for each of its 128 where a stripe's own 48-row window
+    steps 29 for each of its 16."""
+    return cuda_adaptive.stripe_reg_plan(strip, plan.stripe_h, plan.pad, plan.t, sms,
+                                         cuda_adaptive.REG_PROBE_STRIPES)
+
+
+def strip_probing_launch_mirror(
+    local: torch.Tensor, north: torch.Tensor, south: torch.Tensor, dst: torch.Tensor,
+    prev_ext: torch.Tensor, st: torch.Tensor, rule: LifeRule, plan: AdaptivePlan,
+    blocks: RegPlan | None = None,
+) -> torch.Tensor:
+    """K11's decomposition in PyTorch: K13's blocks (:func:`_probing_blocks`)
+    on the strip with round8(T) rows of ``north`` and ``south`` a side and
+    no x-halo, its columns wrapping modulo wp (the true torus), on the
+    blocks of ``blocks`` (None: the :func:`strip_reg_plan` of an H100); the
+    elision of :func:`strip_probing_launch_plain`.  Writes ``dst`` and
+    ``st``; returns ``dst``."""
+    _check_strip_probing(local, north, south, dst, prev_ext, st, plan)
+    h, wp = local.shape
+    blocks = blocks or strip_reg_plan(plan, (h, wp), H100_SMS)
+    elide = _elide(prev_ext)
+    out, stable = _probing_blocks(_extended(local, north, south, plan.pad), rule, plan, 0, blocks,
+                                  elide)
+    of = torch.arange(h, device=local.device) // plan.stripe_h
+    dst.copy_(torch.where(elide[of, None], dst, out))
     st.copy_((elide | stable).to(torch.int32))
     return dst
 
@@ -654,31 +714,29 @@ def strip_probing_launch(
     ``north``/``south`` hold at least round8(T) neighbour rows, and
     ``prev_ext`` is the previous bitmap extended with the neighbours' edge
     flags (int32[grid + 2]).  A CPU tensor runs
-    :func:`strip_probing_launch_plain`; a CUDA tensor launches K11 or
+    :func:`strip_probing_launch_plain`; a CUDA tensor launches K11 on the
+    blocks of :func:`strip_reg_plan` for its device's SMs, in the rule's
+    instantiation (counted in ``strip_probing_launch.rules``), or
     raises."""
-    h, wp = local.shape
-    grid = plan.grid(h)
-    _check_strip(local, north, south, dst, plan.pad)
-    if plan.pad > plan.stripe_h or h % plan.stripe_h:
-        raise ValueError(f"plan {plan} does not fit a strip of {h} rows")
-    if prev_ext.shape != (grid + 2,) or st.shape != (grid,):
-        raise ValueError(f"bitmaps {tuple(prev_ext.shape)}, {tuple(st.shape)} for {grid} stripes")
+    _check_strip_probing(local, north, south, dst, prev_ext, st, plan)
     if local.device.type == "cpu":
         return strip_probing_launch_plain(local, north, south, dst, prev_ext, st, rule, plan)
-    tiles = cuda_adaptive.stripe_tiles((h, wp), plan.stripe_h, plan.pad)
-    lib, launch = _launcher("probing", "gol_strip_probing_launch",
-                            [_P] * 6 + [_I] * 9 + [_U, _U, _P])
-    born, surv = rule_masks(rule)
+    h, wp = local.shape
+    blocks = strip_reg_plan(plan, (h, wp), device_sms(local.device))
+    lib, launch = _reg_launcher("probing", "gol_strip_probing_launch", 6)
+    born, surv, variant = reg_rule(rule)
     err = launch(local.data_ptr(), north.data_ptr(), south.data_ptr(), dst.data_ptr(),
                  prev_ext.data_ptr(), st.data_ptr(), h, wp, north.shape[0], plan.t,
-                 plan.stripe_h, tiles.tile_h, tiles.tile_w, tiles.xpad, tiles.t, born, surv,
+                 plan.stripe_h, blocks.tile_h, blocks.warps, plan.pad, variant, born, surv,
                  _stream(local))
     cuda_build.check(lib, err, "strip_probing")
     strip_probing_launch.launches += 1
+    strip_probing_launch.rules[REG_RULES[variant]] += 1
     return dst
 
 
 strip_probing_launch.launches = 0
+strip_probing_launch.rules = collections.Counter()
 
 
 # -- K12: the frontier strip launch -------------------------------------------------
@@ -898,41 +956,71 @@ def tile_reg_plan(plan: AdaptivePlan, tile: tuple[int, int], xpad: int, sms: int
                                          plan.t, sms)
 
 
+def _probing_blocks(ext: torch.Tensor, rule: LifeRule, plan: AdaptivePlan, xpad: int,
+                    blocks: RegPlan, elide: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The register probing blocks of K13 and K11 in PyTorch on ``ext``, a
+    centre of whole stripes with pad = round8(T) rows and ``xpad`` words
+    (K11: 0) a side: the blocks of ``blocks`` tile its centre rows,
+    ``tile_h`` rows each (a divisor of a stripe, or whole stripes), and
+    its whole width in groups of 30 words; each window (warps·32 rows from
+    pad rows above its tile, 32 words from one left of its group, columns
+    modulo the width, zero past the window) is stepped 6 generations
+    (every row it needs) and compared with its input on each of its
+    stripes' regions (a block within a stripe: its inner region, rows and
+    cells at least 6 from its edge; a block of several stripes: each
+    stripe's rows [6, stripe_h + 2·pad - 6) of its own window, cells at
+    least 6 from the x edge); a block whose stripes that compute (not
+    ``elide``) all agree keeps its generation-6 state, any other steps on
+    to T, only the rows of its light cone (:meth:`RegPlan.live`).  Returns
+    (the blocks' centre words inside the centre columns: (h, wpl), bool
+    per stripe: the AND of its blocks' probes)."""
+    pad, sh = plan.pad, plan.stripe_h
+    h, wpl = ext.shape[0] - 2 * pad, ext.shape[1] - 2 * xpad
+    wpe = wpl + 2 * xpad
+    nby, nbx = blocks.grid
+    if ((blocks.t, blocks.halo, blocks.probe, blocks.border) != (plan.t, pad, SKIP_PERIOD, 1)
+            or (sh % blocks.tile_h and blocks.tile_h % sh)
+            or blocks.tile_h // sh > cuda_adaptive.REG_PROBE_STRIPES
+            or nby * blocks.tile_h != h or nbx * blocks.centre < wpe):
+        raise ValueError(f"blocks {blocks} do not cover {plan} on an extended {h}x{wpe} tile")
+    dev = ext.device
+    win0 = _reg_windows(ext, blocks, 0, -1, True)
+    win = _reg_steps(win0, rule, blocks, range(1, SKIP_PERIOD + 1))
+    mask = torch.full(win.shape[-1:], -1, dtype=torch.int32, device=dev)
+    mask[0] &= _FIRST_WORD_INNER
+    mask[-1] &= _LAST_WORD_INNER
+    changed = ((win ^ win0) & mask).ne(0).any(dim=3)  # (nby, nbx, window rows)
+    ns, span = max(blocks.tile_h // sh, 1), min(blocks.tile_h, sh)
+    lo = torch.arange(ns, device=dev)[:, None] * span + SKIP_PERIOD
+    r = torch.arange(changed.shape[2], device=dev)
+    region = (r >= lo) & (r < lo + span + 2 * pad - 2 * SKIP_PERIOD)  # (ns, window rows)
+    unstable = (changed[:, :, None, :] & region).any(dim=3)  # (nby, nbx, ns)
+    stripe = ((torch.arange(nby, device=dev) * blocks.tile_h // sh)[:, None]
+              + torch.arange(ns, device=dev))  # (nby, ns)
+    failed = torch.zeros(plan.grid(h), dtype=torch.int32, device=dev)
+    failed.index_add_(0, stripe.flatten(), unstable.any(dim=1).flatten().to(torch.int32))
+    step = (unstable & ~elide[stripe][:, None, :]).any(dim=2)
+    win = _reg_steps(win, rule, blocks, range(SKIP_PERIOD + 1, plan.t + 1), ~step)
+    out = _reg_stitch(win, blocks)[:, xpad : xpad + wpl]
+    return out, failed == 0
+
+
 def tile_probing_launch_mirror(
     ext: torch.Tensor, elig: torch.Tensor, dst: torch.Tensor, st: torch.Tensor, rule: LifeRule,
     plan: AdaptivePlan, xpad: int, blocks: RegPlan | None = None,
 ) -> torch.Tensor:
-    """K13's decomposition in PyTorch: the blocks of ``blocks`` (None: the
-    :func:`tile_reg_plan` of an H100) tile the extended tile's centre rows,
-    ``tile_h`` rows of one stripe each, and its whole width in groups of 30
-    words; each window (warps·32 rows from pad rows above its tile, 32
-    words from one left of its group, columns modulo the extended width,
-    zero past the window) is stepped 6 generations (every row it needs) and
-    its inner region (rows and cells at least 6 from its edge) compared
-    with its input; a block that agrees keeps its generation-6 state, any
-    other steps on to T, only the rows of its light cone
-    (:meth:`RegPlan.live`).  Only centre columns are stored.  A stripe's
-    flag is the AND of its blocks'; an eligible stripe does nothing.
-    Writes ``dst`` and ``st``; returns ``dst``."""
+    """K13's decomposition in PyTorch: :func:`_probing_blocks` on the
+    extended tile at the blocks of ``blocks`` (None: the
+    :func:`tile_reg_plan` of an H100), whose column groups cover the whole
+    extended width, columns modulo it; only centre columns are stored.  An
+    eligible stripe does nothing.  Writes ``dst`` and ``st``; returns
+    ``dst``."""
     h, wpl = _check_tile(ext, elig, dst, st, plan, xpad)
-    pad, wpe = plan.pad, wpl + 2 * xpad
     blocks = blocks or tile_reg_plan(plan, (h, wpl), xpad, H100_SMS)
-    nby, nbx = blocks.grid
-    if ((blocks.t, blocks.halo, blocks.probe, blocks.border) != (plan.t, pad, SKIP_PERIOD, 1)
-            or plan.stripe_h % blocks.tile_h or nby * blocks.tile_h != h
-            or nbx * blocks.centre < wpe):
-        raise ValueError(f"blocks {blocks} do not cover {plan} on an extended {h}x{wpe} tile")
-    win0 = _reg_windows(ext, blocks, 0, -1, True)
-    win = _reg_steps(win0, rule, blocks, range(1, SKIP_PERIOD + 1))
-    diff = (win ^ win0)[:, :, SKIP_PERIOD : blocks.rows - SKIP_PERIOD]
-    mask = torch.full(diff.shape[-1:], -1, dtype=torch.int32, device=ext.device)
-    mask[0] &= _FIRST_WORD_INNER
-    mask[-1] &= _LAST_WORD_INNER
-    block_stable = ((diff & mask) == 0).flatten(2).all(dim=2)
-    win = _reg_steps(win, rule, blocks, range(SKIP_PERIOD + 1, plan.t + 1), block_stable)
-    out = _reg_stitch(win, blocks)[:, xpad : xpad + wpl]
-    stable = block_stable.view(plan.grid(h), -1).all(dim=1)
+    if blocks.tile_h > plan.stripe_h:  # K13's blocks lie within a stripe
+        raise ValueError(f"blocks {blocks} do not cover {plan} stripe by stripe")
     elide = elig.bool()
+    out, stable = _probing_blocks(ext, rule, plan, xpad, blocks, elide)
     of = torch.arange(h, device=ext.device) // plan.stripe_h
     dst.copy_(torch.where(elide[of, None], dst, out))
     st.copy_((elide | stable).to(torch.int32))

@@ -10,8 +10,13 @@ same seeded strip, neighbour rows, bitmaps or interval arrays and the
 same buffer of two launches ago; boards, bitmaps and row intervals must
 be equal, tolerance 0.  K12 keeps no column interval: its JAX counterpart
 is fed the column intervals its own previous launch measured, and the
-boards, skip flags and row intervals still agree.  Tests marked ``gpu``
-hold the CUDA kernels against their plain versions on the card.
+boards, skip flags and row intervals still agree.  The block mirrors of
+K10, K11 and K12 (``ext_skip_launch_mirror``,
+``strip_probing_launch_mirror``, ``strip_frontier_launch_mirror``: the
+register-resident blocks, runs and light cone of the kernels) are held to
+the same JAX kernels and to the plain versions, at the plans of an H100
+and at forced block heights.  Tests marked ``gpu`` hold the CUDA kernels
+against their plain versions (and K11 against its mirror) on the card.
 
 The JAX package is imported inside the tests that compare with it:
 ``python -m pytest tests/test_torch_strip_kernels.py -m gpu --noconftest``
@@ -204,33 +209,52 @@ def test_k10_refuses_a_depth_off_the_period():
 
 # -- K11: the probing strip launch -------------------------------------------------
 
-# (strip in packed words, T): the JAX plan's 16-row tiles at cap 16.
-K11_CASES = [((64, 4), 6), ((64, 4), 12)]
+# (strip in packed words, T): the JAX plan's 16-row tiles at cap 16; strips
+# narrower than one window (4 and 1 words: a 32-word window wraps onto
+# itself) and one of two column groups (31 words).
+K11_CASES = [((64, 4), 6), ((64, 4), 12), ((64, 1), 6), ((32, 31), 12)]
+
+
+def stripe_blocks(plan, strip, k: int):
+    """K11's blocks forced to ``k`` whole stripes each (the strip's rows a
+    multiple of k stripes)."""
+    tile_h = k * plan.stripe_h
+    return cuda_adaptive.RegPlan(plan.t, plan.pad, tile_h, -(-(tile_h + 2 * plan.pad) // 32),
+                                 (strip[0] // tile_h, -(-strip[1] // 30)), 1, 6)
 
 
 def k11_both(ref, rule, local, north, south, dst, prev_ext, plan, tile_cap):
-    """One K11 launch in both packages: (JAX board, JAX bitmap, port
-    board, port bitmap)."""
+    """One K11 launch in the JAX package and in the port, through the
+    wrapper (its plain version on the CPU), K11's block mirror at the plan
+    of an H100, and the mirror on blocks of two whole stripes: (JAX board,
+    JAX bitmap, [(port board, port bitmap)] for each)."""
     call = ref.ph._build_ext_launch_adaptive(local.shape, ref.life.RULES[rule], plan.t, True,
                                              tile_cap)
     jnp = ref.jnp
     jb, jst = call(jnp.asarray(prev_ext, dtype=jnp.int32), jnp.asarray(local),
                    jnp.asarray(north), jnp.asarray(south), jnp.asarray(dst))
-    st = torch.ones(plan.grid(local.shape[0]), dtype=torch.int32)
-    got = cuda_halo.strip_probing_launch(t32(local), t32(north), t32(south), t32(dst),
-                                         torch.from_numpy(prev_ext.astype(np.int32)), st,
-                                         tlife.RULES[rule], plan)
-    return np.asarray(jb), np.asarray(jst), u32(got), st.numpy()
+    two = stripe_blocks(plan, local.shape, 2)
+    ports = []
+    for launch in (cuda_halo.strip_probing_launch, cuda_halo.strip_probing_launch_mirror,
+                   lambda *a: cuda_halo.strip_probing_launch_mirror(*a, two)):
+        st = torch.ones(plan.grid(local.shape[0]), dtype=torch.int32)
+        got = launch(t32(local), t32(north), t32(south), t32(dst),
+                     torch.from_numpy(prev_ext.astype(np.int32)), st, tlife.RULES[rule], plan)
+        ports.append((u32(got), st.numpy()))
+    return np.asarray(jb), np.asarray(jst), ports
 
 
-@pytest.mark.parametrize("rule", ["conway", "highlife"])
+@pytest.mark.parametrize("rule", ["conway", "highlife", "day-and-night"])
 @pytest.mark.parametrize("kind", BOARDS)
 @pytest.mark.parametrize("strip,turns", K11_CASES)
 def test_k11_plain_matches_interpret_kernel_over_two_launches(ref, rule, kind, strip, turns):
     """Two launches of the ping-pong protocol (both parities): the first
     from a zero bitmap into a zeroed buffer, the second from its bitmap
-    (neighbour flags 1) into the input's buffer.  Boards and bitmaps are
-    equal after each."""
+    (neighbour flags 1) into the input's buffer.  Boards and bitmaps of
+    the plain version and of the block mirror (the kernel's blocks of 30
+    words, columns wrapping modulo the strip's width, its light cone;
+    within a stripe and across two, each stripe probed on its own region)
+    are equal to the JAX kernel's after each."""
     h_loc, wp = strip
     tile_cap = 16
     tile_h = ref.ph._strip_plan_tile(strip, turns, tile_cap)
@@ -242,13 +266,154 @@ def test_k11_plain_matches_interpret_kernel_over_two_launches(ref, rule, kind, s
     prev = np.zeros(grid + 2, np.int32)
     cur = local
     for k in range(2):
-        jb, jst, tb, tst = k11_both(ref, rule, cur, north, south, bufs[k % 2], prev, plan,
-                                    tile_cap)
-        assert np.array_equal(tb, jb) and np.array_equal(tst, jst), f"launch {k}"
+        jb, jst, ports = k11_both(ref, rule, cur, north, south, bufs[k % 2], prev, plan, tile_cap)
+        for name, (tb, tst) in zip(("plain", "mirror", "two-stripe mirror"), ports):
+            assert np.array_equal(tb, jb) and np.array_equal(tst, jst), f"{name}, launch {k}"
         bufs[k % 2], cur = jb, jb
         prev = np.concatenate([[1], jst, [1]]).astype(np.int32)
-    if kind == "ash" or (kind == "pulsar" and rule == "conway"):
+    if kind == "ash" or (kind == "pulsar" and rule == "conway" and wp > 1):
         assert jst.all()  # proved stable: Conway's pulsar is period 3
+
+
+@pytest.mark.parametrize("wp", [1, 2, 3])
+@pytest.mark.parametrize("shape", ["block", "glider"])
+def test_k11_narrow_strip_probes_the_torus_across_its_wrap(ref, wp, shape):
+    """A strip narrower than one window whose only cells straddle its x
+    wrap: a block there is still on the torus (the stripe is proved
+    stable), a glider is not; the window that wraps onto itself sees what
+    the JAX probe's lane rotate sees, the seam's error kept to the
+    window's edge words."""
+    strip, turns, tile_cap = (64, wp), 12, 16
+    plan = cuda_adaptive.AdaptivePlan(turns, ref.ph._strip_plan_tile(strip, turns, tile_cap),
+                                      False)
+    cells = np.zeros((64 + 2 * plan.pad, wp * 32), dtype=bool)
+    w = wp * 32
+    y = plan.pad + 20  # in stripe 1
+    _put(cells, BLOCK if shape == "block" else GLIDER, y, w - 1)
+    north, local, south = split(pack_words(cells), plan.pad)
+    jb, jst, ports = k11_both(ref, "conway", local, north, south, np.zeros_like(local),
+                              np.zeros(plan.grid(64) + 2, np.int32), plan, tile_cap)
+    if shape == "block":
+        assert jst.all()
+    else:  # the stripe that holds it, and those whose windows reach it
+        assert jst[1] == 0 and jst[-1] == 1
+    for tb, tst in ports:
+        assert np.array_equal(tb, jb) and np.array_equal(tst, jst)
+
+
+def k11_sequence(launch, local, north, south, plan, rule, n: int, flags, device="cpu"):
+    """``n`` K11 launches through ``launch`` on one strip, each from the
+    previous launch's bitmap with the neighbour strips' edge flags
+    ``flags`` (north, south) at its ends, into the buffer of two launches
+    ago: each launch's (strip, bitmap)."""
+    h_loc = local.shape[0]
+    grid = plan.grid(h_loc)
+    bufs = [torch.zeros_like(local).to(device), local.clone().to(device)]
+    cur, n_, s_ = local.to(device), north.to(device), south.to(device)
+    st = torch.zeros(grid, dtype=torch.int32, device=device)
+    seen = []
+    for k in range(n):
+        prev = torch.cat([st.new_tensor([flags[0]]), st, st.new_tensor([flags[1]])])
+        st = torch.ones(grid, dtype=torch.int32, device=device)
+        cur = launch(cur, n_, s_, bufs[k % 2], prev, st, rule, plan)
+        bufs[k % 2] = cur
+        seen.append((cur.cpu().clone(), st.cpu().clone()))
+    return seen
+
+
+@pytest.mark.parametrize("kind", BOARDS)
+@pytest.mark.parametrize("wp,plan,tile_h,extra", [
+    (4, cuda_adaptive.AdaptivePlan(12, 16, False), 8, 0),
+    (31, cuda_adaptive.AdaptivePlan(12, 16, False), 16, 1),
+    (1, cuda_adaptive.AdaptivePlan(6, 8, False), 4, 0),
+    (61, cuda_adaptive.AdaptivePlan(24, 32, False), 32, 0),
+    (2, cuda_adaptive.AdaptivePlan(18, 24, False), 3, 2),
+    (4, cuda_adaptive.AdaptivePlan(12, 16, False), 32, 0),
+    (31, cuda_adaptive.AdaptivePlan(6, 8, False), 32, 0),
+    (2, cuda_adaptive.AdaptivePlan(12, 16, False), 64, 1)])
+def test_k11_mirror_with_forced_blocks_matches_plain(kind, wp, plan, tile_h, extra):
+    """K11's decomposition with a stripe split into blocks of ``tile_h``
+    rows (a stripe's flag the AND of its blocks' probes) or blocks of two
+    to four whole stripes (each stripe probed on its own region), one to
+    three column groups with a ragged last one, windows taller than they
+    need, over three launches whose elision reads the neighbour strips'
+    edge flags (north stable, south not, then both), so that blocks hold
+    stripes that elide beside stripes that compute: each launch's strip
+    and bitmap equal the plain version's, under a compiled-in rule and a
+    generic one."""
+    h_loc = 4 * plan.stripe_h
+    blocks = cuda_adaptive.RegPlan(plan.t, plan.pad, tile_h,
+                                   -(-(tile_h + 2 * plan.pad) // 32) + extra,
+                                   (h_loc // tile_h, -(-wp // 30)), 1, 6)
+    north, local, south = (t32(a) for a in split(
+        pack_words(column(kind, plan.pad, h_loc, wp * 32, plan.stripe_h)), plan.pad))
+    for rule in (tlife.CONWAY, tlife.DAY_AND_NIGHT):
+        for flags in ((1, 0), (1, 1)):
+            want = k11_sequence(cuda_halo.strip_probing_launch_plain, local, north, south, plan,
+                                rule, 3, flags)
+            got = k11_sequence(lambda *a: cuda_halo.strip_probing_launch_mirror(*a, blocks),
+                               local, north, south, plan, rule, 3, flags)
+            for (a, sa), (b, sb) in zip(got, want):
+                assert torch.equal(a, b) and torch.equal(sa, sb)
+
+
+def test_k11_mirror_refuses_blocks_that_do_not_cover_the_strip():
+    """A row tile that neither divides a stripe nor holds whole stripes."""
+    plan = cuda_adaptive.AdaptivePlan(6, 16, False)
+    local, north, south = (torch.zeros(s, dtype=torch.int32) for s in ((48, 4), (8, 4), (8, 4)))
+    st, prev = torch.ones(3, dtype=torch.int32), torch.zeros(5, dtype=torch.int32)
+    across = cuda_adaptive.RegPlan(6, 8, 24, 2, (2, 1), 1, 6)  # a stripe and a half a block
+    with pytest.raises(ValueError, match="do not cover"):
+        cuda_halo.strip_probing_launch_mirror(local, north, south, torch.zeros_like(local), prev,
+                                              st, tlife.CONWAY, plan, across)
+
+
+# (h, wp) strips with their stripe plans (stripe_h, pad, T): the JAX
+# interpret plans above, path (g)'s (4, 1) strip at cap 16, path (e)'s
+# loose tail on 256-row stripes, and narrow and ragged strips.
+STRIP_PLANS = [((64, 4), 16, 8, 6), ((64, 1), 16, 16, 12), ((32, 31), 16, 16, 12),
+               ((4096, 512), 16, 16, 12), ((4096, 512), 256, 24, 24), ((520, 17), 8, 8, 6),
+               ((2048, 2), 64, 24, 18)]
+
+
+@pytest.mark.parametrize("shape,stripe_h,pad,turns", STRIP_PLANS)
+def test_strip_reg_plan_stores_every_centre_word_once(shape, stripe_h, pad, turns):
+    """K11's plan on 132 SMs: ``stripe_reg_plan`` over the strip's width,
+    blocks of a divisor of a stripe or of whole stripes (none holds part of
+    one stripe and part of another; path (g)'s plan takes 8) that cover
+    the strip's rows, and column groups of 30 words that cover its
+    width with no group empty, so every word is probed and stored by
+    exactly one block; the window holds the tile and pad rows a side; the
+    probe sees every window row at generation 6 and the last generation's
+    cone is the tile (or holds it, at T = 6)."""
+    plan = cuda_halo.strip_reg_plan(cuda_adaptive.AdaptivePlan(turns, stripe_h, False), shape, 132)
+    assert plan == cuda_adaptive.stripe_reg_plan(shape, stripe_h, pad, turns, 132,
+                                                 cuda_adaptive.REG_PROBE_STRIPES)
+    h, wp = shape
+    nby, nbx = plan.grid
+    assert (stripe_h % plan.tile_h == 0 or plan.tile_h % stripe_h == 0) and nby * plan.tile_h == h
+    assert plan.tile_h // stripe_h <= 32
+    assert (nbx - 1) * 30 < wp <= nbx * 30 and plan.centre == 30
+    assert plan.rows == plan.tile_h + 2 * pad <= plan.warps * 32
+    assert plan.cone(6) == (6, plan.rows - 6) and plan.probe == 6
+    lo, hi = plan.cone(turns)
+    if turns > 6:
+        assert (lo, hi) == (pad, pad + plan.tile_h)
+    else:
+        assert lo <= pad < pad + plan.tile_h <= hi
+
+
+@pytest.mark.parametrize("shape,stripe_h,pad,turns", STRIP_PLANS)
+def test_strip_reg_plan_fits_hopper(shape, stripe_h, pad, turns):
+    """Threads, registers and shared memory of K11's blocks within an H100
+    SM's: at most 512 threads and 64 registers a thread, two blocks at
+    once within 65,536 registers, the edge exchange and the probe's
+    generation-0 copy within 227 KiB a block and the SM's 228 KiB."""
+    plan = cuda_halo.strip_reg_plan(cuda_adaptive.AdaptivePlan(turns, stripe_h, False), shape, 132)
+    assert 32 <= plan.threads <= 512
+    assert plan.occupancy >= 2 and plan.occupancy * plan.threads * 64 <= 65536
+    assert plan.smem_bytes == 8192 + plan.warps * 4096 <= 227 * 1024
+    assert plan.occupancy * (plan.smem_bytes + 1024) <= 228 * 1024
 
 
 @pytest.mark.parametrize("flags", ["all", "none", "north-edge", "south-edge", "middle"])
@@ -264,13 +429,14 @@ def test_k11_elision_reads_the_neighbour_flags(ref, flags):
     prev = np.ones(plan.grid(64) + 2, np.int32)
     prev[{"all": [], "none": slice(None), "north-edge": [0], "south-edge": [-1],
           "middle": [2]}[flags]] = 0
-    jb, jst, tb, tst = k11_both(ref, "conway", local, north, south, dst, prev, plan, tile_cap)
-    assert np.array_equal(tb, jb) and np.array_equal(tst, jst)
+    jb, jst, ports = k11_both(ref, "conway", local, north, south, dst, prev, plan, tile_cap)
     assert jst.all()
     elided = prev[:-2] & prev[1:-1] & prev[2:]
     rows_kept = np.repeat(elided.astype(bool), plan.stripe_h)
-    assert np.array_equal(tb[rows_kept], dst[rows_kept])
-    assert np.array_equal(tb[~rows_kept], local[~rows_kept])
+    for tb, tst in ports:
+        assert np.array_equal(tb, jb) and np.array_equal(tst, jst)
+        assert np.array_equal(tb[rows_kept], dst[rows_kept])
+        assert np.array_equal(tb[~rows_kept], local[~rows_kept])
 
 
 # -- K12: the frontier strip launch --------------------------------------------------
@@ -520,22 +686,53 @@ def test_gpu_k10_matches_plain(cuda_device, kind, strip, turns):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("rule", ["conway", "highlife", "day-and-night"])
 @pytest.mark.parametrize("kind", BOARDS)
 @pytest.mark.parametrize("stripe,turns", [(16, 12), (8, 6), (64, 24)])
-def test_gpu_k11_matches_plain(cuda_device, kind, stripe, turns):
+@pytest.mark.parametrize("wp", [64, 4, 1])
+def test_gpu_k11_matches_plain(cuda_device, rule, kind, stripe, turns, wp):
+    """K11 on the card against its plain version and its block mirror on
+    the CPU (at the card's blocks), from a random extended bitmap into a
+    soup buffer: board and bitmap; strips of two column groups and
+    narrower than one window; each launch counted in its rule's
+    instantiation."""
     plan = cuda_adaptive.AdaptivePlan(turns, stripe, False)
-    north, local, south = split(pack_words(column(kind, plan.pad, 128, 2048, stripe)), plan.pad)
-    dst = pack_words(column("soup", 0, 128, 2048, stripe)[:128])
+    r = tlife.RULES[rule]
+    north, local, south = split(pack_words(column(kind, plan.pad, 128, wp * 32, stripe)), plan.pad)
+    dst = pack_words(column("soup", 0, 128, wp * 32, stripe)[:128])
     prev = torch.from_numpy(np.random.default_rng(1).integers(0, 2, plan.grid(128) + 2)
                             .astype(np.int32))
+    blocks = cuda_halo.strip_reg_plan(plan, (128, wp), cuda_adaptive.device_sms(cuda_device))
     outs = []
-    for dev in ("cpu", cuda_device):
+    cuda_halo.strip_probing_launch.rules.clear()
+    for launch, dev in ((cuda_halo.strip_probing_launch, "cpu"),
+                        (lambda *a: cuda_halo.strip_probing_launch_mirror(*a, blocks), "cpu"),
+                        (cuda_halo.strip_probing_launch, cuda_device)):
         st = torch.ones(plan.grid(128), dtype=torch.int32, device=dev)
-        got = cuda_halo.strip_probing_launch(
-            t32(local).to(dev), t32(north).to(dev), t32(south).to(dev), t32(dst).to(dev),
-            prev.to(dev), st, tlife.CONWAY, plan)
+        got = launch(t32(local).to(dev), t32(north).to(dev), t32(south).to(dev), t32(dst).to(dev),
+                     prev.to(dev), st, r, plan)
         outs.append((got.cpu(), st.cpu()))
-    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+    for got, st in outs[1:]:
+        assert torch.equal(got, outs[0][0]) and torch.equal(st, outs[0][1])
+    want = {"conway": "conway", "highlife": "highlife"}.get(rule, "generic")
+    assert cuda_halo.strip_probing_launch.rules == {want: 1}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wp", [512, 3])
+def test_gpu_k11_settled_launch_elides_every_stripe(cuda_device, wp):
+    """A launch whose every stripe and both neighbours' edge flags were
+    stable writes nothing (its buffer keeps a board it never saw) and
+    reports every stripe stable."""
+    plan = cuda_adaptive.AdaptivePlan(12, 16, False)
+    north, local, south = (t32(a).to(cuda_device) for a in split(
+        pack_words(column("soup", plan.pad, 256, wp * 32, 16)), plan.pad))
+    dst = torch.full_like(local, 7)
+    prev = torch.ones(plan.grid(256) + 2, dtype=torch.int32, device=cuda_device)
+    st = torch.ones(plan.grid(256), dtype=torch.int32, device=cuda_device)
+    cuda_halo.strip_probing_launch(local, north, south, dst, prev, st, tlife.CONWAY, plan)
+    torch.cuda.synchronize()
+    assert bool((dst == 7).all()) and bool(st.all())
 
 
 @pytest.mark.gpu

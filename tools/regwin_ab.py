@@ -1,6 +1,6 @@
-"""Time K1, K9, K10 and the frontier kernels of a checkout of the PyTorch port on one CUDA card.
+"""Time K1, K6, K9-K11, K13 and the frontier kernels of a checkout of the PyTorch port on one CUDA card.
 
-    python3 tools/regwin_ab.py [--root DIR] [--label NAME] [--out FILE]
+    python3 tools/regwin_ab.py [--root DIR] [--label NAME] [--out FILE] [--paths]
                                [--sweep | --sweep-frontier]
 
 Imports ``distributed_gol_torch`` from ``--root`` (default: the checkout
@@ -44,12 +44,22 @@ on the (4, 1) strip and the (2, 2) tile of the 16384² soup (xpad 1),
 fresh and settled, and at 30 generations on path (f)'s (8, 1) and path
 (i)'s (4, 2) shards of 520 x 512 and 520 x 1024 soups; each the median
 and spread of 5 batches and its device ms, and the SASS of K1's and
-K10's loops (``resident_ext_sass``).  ``--sweep-frontier`` times each
-frontier kernel at every row tile its plan weighs; ``--sweep`` also times
-K1 at 512² at each cluster size its plan weighs (the cheapest plan of
-each; the exchange is every generation) and K10 at every block height of
-its plan, on a checkout that has those plans.  Prints one JSON object with
-the card's name and power limit.
+K10's loops (``resident_ext_sass``).  K6 (``cuda_stencil.stencil_step``)
+one generation of 16384² and 512² byte soups beside a byte copy of the
+board, and with its count where the checkout's K6 counts (``time_k6``);
+K11 (``cuda_halo.strip_probing_launch``) on the (4, 1) strips of the
+fresh and settled boards at path (g)'s plan and path (e)'s loose-tail plan,
+8 launches from a zero bitmap (``time_k11``); K4
+(``cuda_adaptive.probing_superstep``) on the 16384² boards as their
+control (``time_k4``); and the SASS of K6's, K11's and K13's loops
+(``probing_stencil_sass``).  ``--sweep-frontier`` times each frontier
+kernel at every row tile its plan weighs; ``--sweep`` also times K1 at
+512² at each cluster size its plan weighs (the cheapest plan of each; the
+exchange is every generation) and K10 at every block height of its plan,
+and K6 at every run height and K11 at every block height
+(``sweep_k6_k11``), on a checkout that has those plans.  ``--paths`` also
+runs the frames viewer, path (g) and path (e) end to end (``time_paths``).
+Prints one JSON object with the card's name and power limit.
 
 To compare two commits on one card, unpack the parent into a directory
 that ``.gitignore`` lists and run parent, this, this, parent in one call.
@@ -355,6 +365,212 @@ def sweep_k1_k10(cuda_packed, cuda_halo, packed, soup, cases, rule) -> list:
     return rows
 
 
+def time_k6(cuda_stencil, byte_soup, rule) -> dict:
+    """K6 (``cuda_stencil.stencil_step``, one generation into a second
+    buffer) on byte soups of 16384² and 512² (seed 23), beside a byte copy
+    of the board (the same 2·H·W bytes) and, where the checkout's K6
+    counts, K6 with its count: the median and spread of ``BATCHES``
+    batches of 20 launches and device ms a launch."""
+    import inspect
+
+    counts = "count" in inspect.signature(cuda_stencil.stencil_step).parameters
+    out = {}
+    for n in (BIG, 512):
+        b = byte_soup(n, n, 23)
+        dst, copy_dst = torch.empty_like(b), torch.empty_like(b)
+        count = torch.zeros((), dtype=torch.int64, device=b.device)
+
+        def k6(b=b, dst=dst):
+            return cuda_stencil.stencil_step(b, rule, out=dst)
+
+        def copy(b=b, copy_dst=copy_dst):
+            return copy_dst.copy_(b)
+
+        row = dict(k6=dict(**batches(k6, 20), device_ms=device_ms(
+                       k6, 20, lambda k: "stencil_kernel" in k)),
+                   copy=dict(**batches(copy, 20), device_ms=device_ms(
+                       copy, 20, lambda k: "Memcpy" in k or "copy" in k.lower())))
+        if counts:
+            def counted(b=b, dst=dst, count=count):
+                return cuda_stencil.stencil_step(b, rule, out=dst, count=count)
+
+            row["k6_counted"] = dict(**batches(counted, 20), device_ms=device_ms(
+                counted, 20, lambda k: "stencil_kernel" in k))
+            row["run_rows"] = cuda_stencil.RUN_ROWS
+        out[f"{n}x{n}"] = row
+    return out
+
+
+def k11_plans(cuda_halo):
+    """K11's plans on path (e)'s and (g)'s (4, 1) strips of the 16384²
+    board: (g)'s (a stripe cap of 16: T = 12 on 16-row stripes) and (e)'s
+    loose tail (the port's plan, T = 24 on 256-row stripes)."""
+    strip = (BIG // 4, BIG // 32)
+    return strip, {"g": cuda_halo.adaptive_strip_plan(strip, 10**6, 16),
+                   "e_tail": cuda_halo.adaptive_strip_plan(strip, 10**6)}
+
+
+def time_k11(cuda_halo, shards, boards, rule) -> dict:
+    """K11 (``cuda_halo.strip_probing_launch``) on the (4, 1) strips of the
+    fresh and settled 16384² boards at both of ``k11_plans``, driven by
+    ``cuda_halo.probing_launches`` (8 launches a strip from a zero bitmap,
+    the exchange between launches): each launch between CUDA events, the
+    median and spread of ``BATCHES`` sequences of its mean, and the device
+    ms a launch (the first launch probes every stripe; on the settled
+    board every later one elides all)."""
+    _, plans = k11_plans(cuda_halo)
+    out = {}
+    for key, plan in plans.items():
+        for name, p in boards.items():
+            strips = [row[0] for row in shards(p, (4, 1)).shards]
+            cuda_halo.probing_launches(strips, rule, plan, 2)  # warm-up
+            per = []
+            for _ in range(BATCHES):
+                spans = []
+
+                def timed(*a, _spans=spans):
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    r = cuda_halo.strip_probing_launch(*a)
+                    end.record()
+                    _spans.append((start, end))
+                    return r
+
+                cuda_halo.probing_launches(strips, rule, plan, 8, timed)
+                torch.cuda.synchronize()
+                per.append(sum(s.elapsed_time(f) for s, f in spans) / len(spans))
+            seq = (lambda strips=strips, plan=plan:
+                   cuda_halo.probing_launches(strips, rule, plan, 8))
+            out[f"{key}_{name}"] = dict(plan=str(plan), in_sequence=spread(per),
+                                        device_ms=device_ms(seq, 1, lambda k: "strip_probing" in k))
+    return out
+
+
+def time_k4(cuda_adaptive, boards, rule) -> dict:
+    """K4 (``cuda_adaptive.probing_superstep``, the control beside K11) on
+    the 16384² boards at the port's plan, 8 launches from a zero bitmap:
+    median and spread of ``BATCHES`` batches, per launch, and device ms a
+    launch."""
+    plan = cuda_adaptive.adaptive_plan((BIG, BIG // 32), 10**6)
+    out = {}
+    for name, p in boards.items():
+        def k4(p=p):
+            return cuda_adaptive.probing_superstep(p, rule, plan, 8)
+
+        timed = batches(k4, 1)
+        out[name] = dict(plan=str(plan), ms_per_launch=spread([t / 8 for t in timed["batches"]]),
+                         device_ms=device_ms(k4, 1, lambda k: "::probing_kernel" in k))
+    return out
+
+
+def probing_stencil_sass(cuda_build) -> dict:
+    """The SASS of K6's, K11's and K13's loops in this checkout's
+    ``stencil`` and ``probing`` builds (``tools/sass_loop_count.py``)."""
+    sys.path.insert(1, str(Path(__file__).resolve().parent))
+    import sass_loop_count as slc
+
+    return {k: v for k, v in slc.kernel_loops(cuda_build, ("stencil", "probing")).items()
+            if k.startswith(("K6", "K11", "K13"))}
+
+
+def sweep_k6_k11(cuda_stencil, cuda_halo, shards, boards, byte_soup, rule) -> list:
+    """K6 at 16384² and 512² at every run height from 4 to 128 rows
+    (forced in place of ``cuda_stencil.RUN_ROWS``), and K11 at both of
+    ``k11_plans`` on the fresh and settled (4, 1) strips at every block
+    height whose window fits 16 warps, a divisor of the stripe or up to 32
+    whole stripes that divide the strip (forced in place of
+    ``cuda_halo.strip_reg_plan``): device ms a launch, beside the plan's
+    pick."""
+    from distributed_gol_torch.ops.cuda_adaptive import REG_MAX_WARPS, REG_RUN, RegPlan
+
+    rows = []
+    chosen_run, chosen_k11 = cuda_stencil.RUN_ROWS, cuda_halo.strip_reg_plan
+    try:
+        for n in (BIG, 512):
+            b = byte_soup(n, n, 23)
+            dst = torch.empty_like(b)
+            for run in (4, 8, 16, 32, 64, 128):
+                cuda_stencil.RUN_ROWS = run
+                rows.append(dict(kernel="K6", board=f"{n}x{n}", run_rows=run,
+                                 chosen=run == chosen_run, device_ms=device_ms(
+                                     lambda: cuda_stencil.stencil_step(b, rule, out=dst), 20,
+                                     lambda k: "stencil_kernel" in k)))
+        cuda_stencil.RUN_ROWS = chosen_run
+        strip, plans = k11_plans(cuda_halo)
+        for key, plan in plans.items():
+            best = chosen_k11(plan, strip, 132)
+            tiles = [d for d in range(1, plan.stripe_h + 1) if plan.stripe_h % d == 0]
+            tiles += [k * plan.stripe_h for k in range(2, 33) if strip[0] % (k * plan.stripe_h) == 0]
+            for name, p in boards.items():
+                strips = [row[0] for row in shards(p, (4, 1)).shards]
+                for tile_h in tiles:
+                    warps = -(-(tile_h + 2 * plan.pad) // REG_RUN)
+                    if warps > REG_MAX_WARPS:
+                        continue
+                    forced = RegPlan(plan.t, plan.pad, tile_h, warps,
+                                     (strip[0] // tile_h, -(-strip[1] // 30)), 1, 6)
+                    cuda_halo.strip_reg_plan = lambda *a, _p=forced: _p
+                    rows.append(dict(kernel="K11", plan=key, board=name, blocks=str(forced),
+                                     cost=forced.cost(132), chosen=forced == best,
+                                     device_ms=device_ms(
+                                         lambda: cuda_halo.probing_launches(strips, rule, plan, 8),
+                                         1, lambda k: "strip_probing" in k)))
+    finally:
+        cuda_stencil.RUN_ROWS, cuda_halo.strip_reg_plan = chosen_run, chosen_k11
+    return rows
+
+
+def time_paths(dev) -> dict:
+    """The main paths K6 and K11 carry, each through ``gol.run`` of the
+    checkout on the card with its stream consumed as it is produced, on
+    the 16384² soup (density 0.3, seed 7): the frames viewer x 500 (K6 a
+    turn), path (g) (x 2,000 on (4, 1) virtual strips at a stripe cap of
+    16, ``skip_stable``: K11) and path (e) (x 100,000 on (4, 1) under
+    auto: K14 chunks, K11's loose tails).  Each run's seconds and its
+    dispatch loop's (the MetricsReport's ``controller.dispatch_seconds``),
+    after one warm-up run of each."""
+    import tempfile
+
+    import distributed_gol_torch as gol
+    from distributed_gol_torch.engine.backend import Backend
+
+    soup = dict(image_width=BIG, image_height=BIG, soup_density=0.3, soup_seed=7,
+                ticker_period=3600)
+    runs = {"frames_x500": dict(turns=500, no_vis=False),
+            "g_4x1_cap16_x2000": dict(turns=2000, skip_stable=True, skip_tile_cap=16,
+                                      mesh_shape=(4, 1), turn_events="batch"),
+            "e_4x1_x100000": dict(turns=100_000, mesh_shape=(4, 1), turn_events="batch")}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for key, kw in runs.items():
+            seen = []
+            for rep in range(2):
+                params = gol.Params(out_dir=Path(tmp) / f"{key}_{rep}", device=dev.type, **soup,
+                                    **kw)
+                ny, nx = params.mesh_shape
+                backend = Backend(params, [dev] * (ny * nx)) if ny * nx > 1 else None
+                events = gol.EventQueue()
+                t0 = time.perf_counter()
+                engine = gol.start(params, events, None, None, backend)
+                report = None
+                done = False
+                while not done:
+                    for e in events.get_many(timeout=300):
+                        if e is None:
+                            done = True
+                            break
+                        if isinstance(e, gol.MetricsReport):
+                            report = e.snapshot
+                seconds = time.perf_counter() - t0
+                engine.join(timeout=60)
+                seen.append(dict(seconds=seconds, loop_s=report["histograms"][
+                    "controller.dispatch_seconds"]["sum"],
+                    engine=report["info"]["backend.engine"]))
+            out[key] = seen[-1]
+    return out
+
+
 def sweep(cuda_halo, halo, shards, big, boards, rule) -> dict:
     """K9 on the (4, 1) and (2, 2) shards at 32 generations, and K13 on the
     (2, 2) tile fresh and settled, at every block height the plans weigh
@@ -449,8 +665,11 @@ def main() -> int:
     ap.add_argument("--label", default="")
     ap.add_argument("--out", default="")
     ap.add_argument("--sweep", action="store_true",
-                    help="also time K9, K10, K13 and the frontier kernels at every block "
-                         "height the plans weigh, and K1 at every cluster size")
+                    help="also time K9, K10, K11, K13 and the frontier kernels at every block "
+                         "height the plans weigh, K1 at every cluster size and K6 at every "
+                         "run height")
+    ap.add_argument("--paths", action="store_true",
+                    help="also time the frames viewer, path (g) and path (e) end to end")
     ap.add_argument("--sweep-frontier", action="store_true",
                     help="also time K15, K12, K5, K14 and K8 at every block height their "
                          "plan weighs")
@@ -461,7 +680,8 @@ def main() -> int:
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
     from distributed_gol_torch.models.life import CONWAY
-    from distributed_gol_torch.ops import cuda_adaptive, cuda_build, cuda_packed, packed
+    from distributed_gol_torch.ops import (
+        cuda_adaptive, cuda_build, cuda_packed, cuda_stencil, packed)
     from distributed_gol_torch.parallel import cuda_halo, halo, mesh as mesh_lib
     from distributed_gol_torch.utils.soup import random_soup
 
@@ -469,11 +689,14 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     t0 = time.perf_counter()
-    cuda_build.build("resident", "ext", "probing", "tiled", "frontier")
+    cuda_build.build("resident", "ext", "probing", "tiled", "frontier", "stencil")
 
     def soup(h, w, seed, vertical=False):
         b = torch.from_numpy(random_soup(h, w, 0.3, seed)).to(dev)
         return b if vertical else packed.pack(b)
+
+    def byte_soup(h, w, seed):
+        return torch.from_numpy(random_soup(h, w, 0.3, seed)).to(dev)
 
     def shards(p, mesh_shape):
         m = mesh_lib.make_mesh(mesh_shape, [dev] * (mesh_shape[0] * mesh_shape[1]))
@@ -556,11 +779,23 @@ def main() -> int:
     k10 = k10_cases(halo, shards, big, boards, soup)
     out["k10"] = time_k10(cuda_halo, k10, CONWAY)
     out["resident_ext_sass"] = resident_ext_sass(cuda_build)
+    out["k6"] = time_k6(cuda_stencil, byte_soup, CONWAY)
+    out["k11"] = time_k11(cuda_halo, shards, boards, CONWAY)
+    out["k4"] = time_k4(cuda_adaptive, boards, CONWAY)
+    try:
+        out["probing_stencil_sass"] = probing_stencil_sass(cuda_build)
+    except (ValueError, subprocess.CalledProcessError) as exc:  # a loop the parser cannot find
+        out["probing_stencil_sass"] = dict(error=repr(exc))
+    if args.paths:
+        out["paths"] = time_paths(dev)
     if args.sweep:
         out["sweep"] = sweep(cuda_halo, halo, shards, big, boards, CONWAY) + sweep_frontier(
             cuda_halo, frontier)
         if hasattr(cuda_packed, "resident_reg_plan"):
             out["sweep"] += sweep_k1_k10(cuda_packed, cuda_halo, packed, soup, k10, CONWAY)
+        if hasattr(cuda_stencil, "RUN_ROWS") and hasattr(cuda_halo, "strip_reg_plan"):
+            out["sweep"] += sweep_k6_k11(cuda_stencil, cuda_halo, shards, boards, byte_soup,
+                                         CONWAY)
     elif args.sweep_frontier:
         out["sweep"] = sweep_frontier(cuda_halo, frontier)
     out["seconds"] = time.perf_counter() - t0

@@ -1,28 +1,34 @@
-"""Count the SASS instructions of the generation loops of K1, K9, K10 and K13.
+"""Count the SASS instructions of the loops of K1, K6, K9, K10, K11 and K13.
 
     python3 tools/sass_loop_count.py [--sass-dir DIR]
 
-Builds the port's ``resident``, ``ext`` and ``probing`` kernels
-(``ops/cuda_build.py``), disassembles them with ``cuobjdump -sass`` (the
-CUDA toolkit's, beside ``nvcc``) and prints one JSON object: for the
-B3/S23 instantiations of K9 (``ext_reg_kernel``), K10
-(``ext_skip_reg_kernel``) and K13 (``tile_probing_reg_kernel``), their
-generation loop (the backward branch whose body holds the generation's
-``BAR.SYNC``: one generation of a 32-row run, every chunk stepped; K10's
-first, the 6 generations before its probe); for K1
-(``resident_reg_kernel``) each B3/S23 instantiation's generation loop (one
-generation of every sub-run a warp holds: 32 rows of registers, the
-exchange included; a row is one word of each of the warp's 32 lanes, 30 of
-them centre); and for the shared-memory form of K10 that came before
-(``ext_skip_kernel``, ``window.cuh::advance``), where a build has it, its
-row loop (the innermost backward branch whose body reads and writes shared
-memory: a window row).  Each loop's static instruction count, its count per
-row, and its opcodes.  The old loop evaluates the rule at run time, each
-total's term behind a branch on the rule's masks; ``branch_blocks`` lists
-the sizes of the blocks its predicated forward branches skip (the terms a
-rule does not use, and a bounds test), so a rule's path through it is
-shorter than its static count.  ``--sass-dir`` also writes the disassembly
-there.
+Builds the port's ``resident``, ``ext``, ``probing`` and ``stencil``
+kernels (``ops/cuda_build.py``), disassembles them with ``cuobjdump
+-sass`` (the CUDA toolkit's, beside ``nvcc``) and prints one JSON object:
+for the B3/S23 instantiations of K9 (``ext_reg_kernel``), K10
+(``ext_skip_reg_kernel``), K13 (``tile_probing_reg_kernel``) and K11
+(``strip_probing_reg_kernel``), their generation loop (the backward
+branch whose body holds the generation's ``BAR.SYNC``: one generation of a 32-row
+run, every chunk stepped; K10's, K11's and K13's first, the 6 generations
+before their probe); for K1 (``resident_reg_kernel``) each B3/S23
+instantiation's generation loop (one generation of every sub-run a warp
+holds: 32 rows of registers, the exchange included; a row is one word of
+each of the warp's 32 lanes, 30 of them centre); for K6
+(``stencil_kernel``) each B3/S23 instantiation's row loop (the largest
+backward branch: ``kAhead`` rows of a thread's column of 16 or 4 cells,
+the loads, stores and the count included) and, for the first port's K6,
+the whole kernel (4 rows of 4 cells a thread, the shared-memory staging
+included); and for the shared-memory forms of K10 and K11 that came before
+(``ext_skip_kernel``, ``strip_probing_kernel``: ``window.cuh::advance``),
+where a build has them, their row loop (the innermost backward branch
+whose body reads and writes shared memory: a window row).  Each loop's
+static instruction count, its count per row (and per cell for K6), and
+its opcodes.  The old loops evaluate the rule at run time, each total's
+term behind a branch on the rule's masks; ``branch_blocks`` lists the
+sizes of the blocks their predicated forward branches skip (the terms a
+rule does not use, and a bounds test), so a rule's path through them is
+shorter than their static count.  ``--sass-dir`` also writes the
+disassembly there.
 
 Run on a machine with the CUDA toolkit (the card's).
 """
@@ -44,6 +50,7 @@ from distributed_gol_torch.ops import cuda_build  # noqa: E402
 INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]\s+)?([A-Z0-9_.]+)([^;]*);")
 CONWAY = "FixedRuleILj8ELj24E"  # FixedRule<8, 24>: B3/S23's masks
 RUN_ROWS = 32
+STENCIL_AHEAD = 4  # csrc/stencil.cu::kAhead: the rows of K6's loop body
 
 
 def functions(sass: str) -> dict:
@@ -117,8 +124,13 @@ def branch_blocks(code: list, span: tuple) -> list:
     return sizes
 
 
+def largest_loop(code: list) -> tuple:
+    """The backward branch with the largest body."""
+    return max(loops(code), key=lambda s: s[1] - s[0])
+
+
 def kernel_loops(build, libs, sass_dir: str = "") -> dict:
-    """The loops of K1, K9, K10 and K13 in the kernels ``libs`` of the
+    """The loops of K1, K6, K9, K10, K11 and K13 in the kernels ``libs`` of the
     build module ``build`` (``ops/cuda_build.py`` of a checkout, built
     already), disassembled with ``cuobjdump -sass``; ``sass_dir`` also
     keeps the disassembly."""
@@ -139,13 +151,23 @@ def kernel_loops(build, libs, sass_dir: str = "") -> dict:
                 h, ragged = re.search(r"resident_reg_kernelILi(\d+)ELb(\d)E", name).groups()
                 out[f"K1_h{h}{'_ragged' if ragged == '1' else ''}"] = summary(
                     code, generation_loop(code), RUN_ROWS)
-            elif CONWAY in name and "tile_probing_reg_kernel" in name:
-                out["K13"] = summary(code, generation_loop(code), RUN_ROWS)
-            elif "ext_skip_kernel" in name:
+            elif CONWAY in name and "probing_reg_kernel" in name:
+                out["K13" if "tile_probing" in name else "K11"] = summary(
+                    code, generation_loop(code), RUN_ROWS)
+            elif CONWAY in name and "stencil_kernel" in name:
+                words = int(re.search(r"stencil_kernelILi(\d+)E", name).group(1))
+                row = summary(code, largest_loop(code), STENCIL_AHEAD)
+                row["per_cell"] = row["per_row"] / (4 * words)
+                out[f"K6_{4 * words}_cells"] = row
+            elif "stencil_kernel" in name and "ByteRule" not in name:
+                row = summary(code, (code[0][0], code[-1][0]), 4)
+                row["per_cell"] = row["per_row"] / 4
+                out["K6"] = row
+            elif "ext_skip_kernel" in name or "strip_probing_kernel" in name:
                 span = row_loop(code)
                 row = summary(code, span, 1)
                 row["branch_blocks"] = branch_blocks(code, span)
-                out["K10"] = row
+                out["K10" if "ext_skip" in name else "K11"] = row
     return out
 
 
@@ -153,7 +175,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sass-dir", default="")
     args = ap.parse_args()
-    libs = ("resident", "ext", "probing")
+    libs = ("resident", "ext", "probing", "stencil")
     cuda_build.build(*libs)
     print(json.dumps(kernel_loops(cuda_build, libs, args.sass_dir)))
     return 0

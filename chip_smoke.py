@@ -65,7 +65,9 @@ checks that every kernel of each path launched in it, times every kernel
 against its plain version and its bound (and a viewer turn's parts at
 16384², K6 with and without its count beside a byte copy of the board,
 K7 beside 16 sequential K1
-launches, and K9 on a (4, 1) strip and a (2, 2) tile beside K2 on the
+launches (and at 3 x 1024 x 1792, with its plan's clusters and waves), K2
+with its device ms and its 16-generation remainder launch, and K9 on a
+(4, 1) strip and a (2, 2) tile beside K2 on the
 whole board and beside the halo exchange, K10-K12 on a (4, 1) strip
 and K13 and K10 on a (2, 2) tile beside their plain versions, K14 a
 launch over the (4, 1) strips and K15 a launch over the (2, 2) tiles,
@@ -74,9 +76,14 @@ K12, K13, K15 and their controls K2, K4, K5, K8, K10 and K14 as the
 median and spread of 5 event-timed batches, K13 also back to back), and
 prints one
 ``{"kernels": [...]}`` line, the card's name and power limit, and last
-``{"ok": true, "device": {...}}``.  The build fails the run if K1, K5/K8,
-K6, K9-K15 (``csrc/regwin.cuh``, K1's and K6's kernels) spills a register
-(``-Xptxas -v``).  K6 and its count are held to its plain version at 512²,
+``{"ok": true, "device": {...}}``.  The build fails the run if K1/K7, K2,
+K5/K8, K6, K9-K15 (``csrc/regwin.cuh``, K1's and K6's kernels) spills a
+register (``-Xptxas -v``).  K2 is held at every rule instantiation on
+16384², the odd board and the small and degenerate tori, there also
+against its block mirror on the card (``cuda_packed.tiled_reg_mirror``);
+K7 at four stacks (132 x 512² among them) under every instantiation,
+slot 0 against K1 and against its batched mirror at the card's plan
+(``resident_superstep_batched_mirror``).  K6 and its count are held to its plain version at 512²,
 16384² and the gate's odd shapes under three rules, and the viewer paths
 must take each turn's count from K6 (no separate sum of the board); K11
 is held to its block mirror on the card at paths (g)'s and (e)'s tail
@@ -147,12 +154,12 @@ REG_RULES = (*RULES, DAY_AND_NIGHT)
 # Event-timed batches behind the median and spread of the K9 and K13 rows
 # and of their controls (K2, K4, K5, K10).
 BATCHES = 5
-# The kernels of regwin.cuh, K1's register kernel and K6, which must build
-# without spills.
+# The kernels of regwin.cuh (K2 among them), K1's and K7's register
+# kernel and K6, which must build without spills.
 REG_KERNELS = ("ext_reg_kernel", "ext_skip_reg_kernel", "tile_probing_reg_kernel",
                "strip_probing_reg_kernel", "frontier_reg_kernel", "strip_frontier_reg_kernel",
                "strip_mega_reg_kernel", "tile_mega_reg_kernel", "resident_reg_kernel",
-               "stencil_kernel")
+               "stencil_kernel", "tiled_reg_kernel")
 # K1's boards beside the main path's 512²: (H, W) cells at the gate's
 # ragged and extreme shapes (one word row 32, 96 and 58,112 wide, three
 # word rows, 40 word rows of 32 columns, 1,816 of them, 64², a serving
@@ -168,6 +175,12 @@ FRONTIER_REG = {k: f"{len(n)}{n}" for k, n in (
     ("tile_mega", "tile_mega_reg_kernel"))}
 BIG = 16384
 TILED_ODD = (1004, 3072)  # H % 8 != 0 and W/32 % 128 != 0: refused by the TPU gate
+# K2's small and degenerate tori (cells): 1-, 2- and 3-row boards, boards
+# shorter than their halo and narrower than a warp's window.
+TILED_SMALL = ((1, 32), (3, 64), (16, 96), (2, 96), (72, 4096))
+# K7's stacks: the serving pod's 16 x 512², the gate's edge 3 x 1024 x
+# 1792, one board, and a full card's 132 x 512².
+K7_STACKS = ((16, 512, 512), (3, 1024, 1792), (1, 512, 512), (132, 512, 512))
 KERNELS = {
     "resident": dict(
         route="cuda",
@@ -501,6 +514,27 @@ def cuda_ms_spread(fn, reps: int, batches: int = BATCHES) -> dict:
     return spread(per)
 
 
+def device_ms(fn, reps: int, kernel: str) -> float:
+    """Device ms a launch of the kernel named ``kernel`` over ``reps``
+    calls of ``fn()`` under ``torch.profiler`` (its own time, without the
+    host's), after a warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us, count = 0.0, 0
+    for a in prof.key_averages():
+        if kernel in a.key:
+            t = getattr(a, "self_device_time_total", None)
+            us += t if t is not None else a.self_cuda_time_total
+            count += a.count
+    return us / count / 1e3 if count else float("nan")
+
+
 def reg_build_report(log_text: str) -> dict:
     """Registers, spill stores and loads, and shared memory of each
     ``REG_KERNELS`` instantiation, from a build's ``-Xptxas -v`` output;
@@ -593,18 +627,37 @@ def check_resident(device, errs: dict) -> None:
 
 
 def check_tiled(device, errs: dict) -> None:
-    t = cuda_packed.tiled_plan((BIG, BIG // 32), 10**6).t
-    cases = [((BIG, BIG), n) for n in (1, 6, t, t + 5, 1000)] + [(TILED_ODD, 75)]
-    for rule in RULES:
+    """K2 against its plain version, tolerance 0, under ``REG_RULES`` (each
+    launch counted in its rule's instantiation): 16384² at 1, 6, 32, 37 and
+    1,000 generations, ``TILED_ODD`` and ``TILED_SMALL`` at 45 and 75; and
+    against its block mirror on the card's blocks (``tiled_reg_mirror``)
+    at ``TILED_ODD`` and ``TILED_SMALL``."""
+    cuda_packed.tiled_superstep.rules.clear()
+    sms = cuda_adaptive.device_sms(device)
+    t = cuda_packed.tiled_reg_plan((BIG, BIG // 32), 10**6, sms).t
+    cases = [((BIG, BIG), n) for n in (1, 6, t, t + 5, 1000)] + [(TILED_ODD, 75)] + [
+        (shape, 45) for shape in TILED_SMALL]
+    for rule in REG_RULES:
         for shape, turns in cases:
             p = packed.pack(board(*shape, 13, device))
             got = cuda_packed.tiled_superstep(p, rule, turns)
             want = cuda_packed.tiled_superstep_plain(p, rule, turns)
             torch.cuda.synchronize()
-            errs["tiled"] = max(errs["tiled"], max_abs_err(got, want))
-            if not torch.equal(got, want):
-                raise AssertionError(f"K2 != plain at {shape} x {turns} under {rule.notation}")
-            log(f"K2 {shape[0]}x{shape[1]} x {turns} {rule.notation}: identical")
+            err = max_abs_err(got, want)
+            mirrored = shape[0] < BIG
+            if mirrored:
+                err = max(err, max_abs_err(got, cuda_packed.tiled_reg_mirror(p, rule, turns,
+                                                                             sms=sms)))
+            errs["tiled"] = max(errs["tiled"], err)
+            if err:
+                raise AssertionError(f"K2 != plain (or its mirror) at {shape} x {turns} under "
+                                     f"{rule.notation}")
+        log(f"K2 {[f'{s[0]}x{s[1]} x {n}' for s, n in cases]} {rule.notation}: identical to "
+            f"plain, and to the block mirror below {BIG}^2")
+    if set(cuda_packed.tiled_superstep.rules) != set(cuda_adaptive.REG_RULES):
+        raise AssertionError(f"K2 ran {dict(cuda_packed.tiled_superstep.rules)}, not every "
+                             "instantiation")
+    log(f"K2's plan at {BIG}^2: {cuda_packed.tiled_reg_plan((BIG, BIG // 32), 10**6, sms)}")
 
 
 def check_stencil(device, errs: dict) -> None:
@@ -656,25 +709,39 @@ def soup_stack(nb: int, side: int, seed: int, device) -> torch.Tensor:
 
 
 def check_resident_batched(device, errs: dict) -> None:
-    """K7 against its plain version at the serving pod's 16 x 512² and at
-    3 x 1024 x 1792 (the edge of the 227 KB gate), 1, 9 and 64
-    generations under both rules; slot 0 against K1 too."""
-    for nb, h, w in ((16, 512, 512), (3, 1024, 1792)):
+    """K7 against its plain version, tolerance 0, at ``K7_STACKS``, 1, 9 and
+    64 generations under ``REG_RULES`` (each launch counted in its rule's
+    instantiation); slot 0 against a lone K1 launch, and at 9 generations
+    against its batched mirror at the card's plan; logs each plan's
+    cluster size and the waves the stack takes."""
+    cuda_packed.resident_superstep_batched.rules.clear()
+    for nb, h, w in K7_STACKS:
         if cuda_packed.resident_shape(h, w) is None:
             raise AssertionError(f"{h}x{w} is outside K7's gate")
         v = packed.pack_vertical(torch.stack([board(h, w, 31 + i, device) for i in range(nb)]))
         v = v.contiguous()
-        for rule in RULES:
+        for rule in REG_RULES:
             for turns in (1, 9, 64):
                 got = cuda_packed.resident_superstep_batched(v, rule, turns)
                 want = cuda_packed.resident_superstep_batched_plain(v, rule, turns)
                 solo = cuda_packed.resident_superstep(v[0].contiguous(), rule, turns)
                 torch.cuda.synchronize()
-                errs["resident_batched"] = max(errs["resident_batched"], max_abs_err(got, want))
-                if not torch.equal(got, want) or not torch.equal(got[0], solo):
-                    raise AssertionError(f"K7 != plain (or K1) at {nb} x {h}x{w} x {turns} "
-                                         f"under {rule.notation}")
-            log(f"K7 {nb} x {h}x{w} x {{1, 9, 64}} {rule.notation}: identical (slot 0 = K1)")
+                err = max(max_abs_err(got, want), max_abs_err(got[0], solo))
+                if turns == 9:
+                    plan = cuda_packed.card_batched_plan(v, rule)
+                    err = max(err, max_abs_err(got, cuda_packed.resident_superstep_batched_mirror(
+                        v, rule, turns, plan)))
+                errs["resident_batched"] = max(errs["resident_batched"], err)
+                if err:
+                    raise AssertionError(f"K7 != plain (or K1, or its mirror) at {nb} x {h}x{w} "
+                                         f"x {turns} under {rule.notation}")
+            active = cuda_packed.card_active_clusters(device, rule)(plan)
+            log(f"K7 {nb} x {h}x{w} x {{1, 9, 64}} {rule.notation}: identical (slot 0 = K1, "
+                f"= the mirror at 9); plan {plan}: clusters of {plan.cluster}, {active} at once, "
+                f"{-(-nb // active)} wave(s)")
+    if set(cuda_packed.resident_superstep_batched.rules) != set(cuda_adaptive.REG_RULES):
+        raise AssertionError(f"K7 ran {dict(cuda_packed.resident_superstep_batched.rules)}, not "
+                             "every instantiation")
 
 
 def seam_stack(side: int, device) -> torch.Tensor:
@@ -2327,17 +2394,37 @@ def time_batched(k8_stacks: dict, int_rate: float) -> dict:
     v = packed.pack_vertical(soup_stack(nt, side, 61, torch.device("cuda", 0))).contiguous()
     k1_sequential = cuda_ms_spread(lambda: [cuda_packed.resident_superstep(b, CONWAY, step)
                                             for b in v], 5)
-    k7_ms = cuda_ms_spread(lambda: cuda_packed.resident_superstep_batched(v, CONWAY, step), 20)
+    def k7_launch(stack):
+        return lambda: cuda_packed.resident_superstep_batched(stack, CONWAY, step)
+
+    k7_ms = cuda_ms_spread(k7_launch(v), 20)
+    plan = cuda_packed.card_batched_plan(v, CONWAY)
+    active = cuda_packed.card_active_clusters(v.device, CONWAY)(plan)
+    edge = packed.pack_vertical(torch.stack([board(1024, 1792, 41 + i, v.device)
+                                             for i in range(3)])).contiguous()
+    edge_plan = cuda_packed.card_batched_plan(edge, CONWAY)
+    edge_ms = cuda_ms_spread(k7_launch(edge), 10)
     k7 = dict(
         ms=k7_ms["median"],
         plain_ms=cuda_ms(lambda: cuda_packed.resident_superstep_batched_plain(v, CONWAY, step), 2),
         bound=bound_ms(v.numel(), step, 1, CONWAY, int_rate),
         extra=dict(shape=[nt, side, side], gens=step, ms_spread=k7_ms,
-                   k1_sequential_ms=k1_sequential["median"], k1_sequential_spread=k1_sequential),
+                   device_ms=device_ms(k7_launch(v), 20, "resident_reg_kernel"),
+                   plan=dataclasses.asdict(plan), active_clusters=active,
+                   waves=-(-nt // active),
+                   k1_sequential_ms=k1_sequential["median"], k1_sequential_spread=k1_sequential,
+                   at_3x1024x1792=dict(ms_spread=edge_ms, plan=dataclasses.asdict(edge_plan),
+                                       device_ms=device_ms(k7_launch(edge), 10,
+                                                           "resident_reg_kernel"),
+                                       bound_ms=bound_ms(edge.numel(), step, 1, CONWAY,
+                                                         int_rate)[0])),
     )
-    log(f"K7 {nt} x {side}^2 x {step} gens: {k7['ms']:.4f} ms in one launch, {nt} x K1 "
+    log(f"K7 {nt} x {side}^2 x {step} gens: {k7['ms']:.4f} ms in one launch "
+        f"({k7_ms['min']:.4f}-{k7_ms['max']:.4f}; device {k7['extra']['device_ms']:.4f}; "
+        f"clusters of {plan.cluster}, {active} at once), {nt} x K1 "
         f"{k1_sequential['median']:.4f} ms, plain {k7['plain_ms']:.3f} ms, bound "
-        f"{k7['bound'][0]:.5f} ms by {k7['bound'][1]}")
+        f"{k7['bound'][0]:.5f} ms by {k7['bound'][1]}; 3 x 1024x1792: "
+        f"{edge_ms['median']:.4f} ms ({edge_plan})")
     nb, side = POD_K8[0], POD_K8[1]
     plan = cuda_adaptive.adaptive_plan((side, side // 32), 10**6)
     grid = plan.grid(side)
@@ -2884,15 +2971,14 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  {k}: {line.strip()}")
     reg_build = {k: reg_build_report(cuda_build.build_log(k))
-                 for k in ("ext", "probing", "frontier", "resident", "stencil")}
-    log(f"K1, K5/K8, K6 and K9-K15 build without spills: "
+                 for k in ("ext", "probing", "frontier", "resident", "stencil", "tiled")}
+    log(f"K1, K2, K5/K8, K6, K7 and K9-K15 build without spills: "
         f"{ {k: [r['registers'] for r in v.values()] for k, v in reg_build.items()} } registers")
-    plan = cuda_packed.tiled_plan((BIG, BIG // 32), 10**6)
+    plan = cuda_packed.tiled_reg_plan((BIG, BIG // 32), 10**6, cuda_adaptive.device_sms(device))
     k1_plan = cuda_packed.resident_reg_plan(16, 512)
     log(f"dynamic shared memory: resident {k1_plan.smem_bytes} B per CTA at 512^2 "
-        f"({k1_plan}); resident_batched {512 // 32 * 512 * 4} B per board; tiled "
-        f"{plan.smem_bytes} B per block at {BIG}^2 ({plan}, grid "
-        f"{plan.grid((BIG, BIG // 32))}, 64x16 threads)")
+        f"({k1_plan}), as each board's cluster of a K7 stack; tiled {plan.smem_bytes} B per "
+        f"block at {BIG}^2 ({plan}, 32x{plan.warps} threads)")
 
     # Phase 2: each kernel against its plain version, bit for bit.
     errs = {k: 0 for k in KERNELS}
@@ -2975,7 +3061,8 @@ def main() -> int:
     int_rate = sms * INT32_LANES_PER_SM * clock_mhz * 1e6
     v = packed.pack_vertical(board(512, 512, 21, device))
     p = packed.pack(board(BIG, BIG, 22, device))
-    t_big = cuda_packed.tiled_plan(tuple(p.shape), 10**6).t
+    k2_plan = cuda_packed.tiled_reg_plan(tuple(p.shape), 10**6, sms)
+    t_big = k2_plan.t
     timings = {
         "resident": dict(
             ms=(k1 := cuda_ms_spread(lambda: cuda_packed.resident_superstep(v, CONWAY, 50),
@@ -2989,7 +3076,11 @@ def main() -> int:
         "tiled": dict(
             ms=(k2 := cuda_ms_spread(lambda: cuda_packed.tiled_superstep(p, CONWAY, t_big), 10))[
                 "median"],
-            extra=dict(ms_spread=k2),
+            extra=dict(ms_spread=k2, plan=dataclasses.asdict(k2_plan), device_ms=device_ms(
+                lambda: cuda_packed.tiled_superstep(p, CONWAY, t_big), 10, "tiled_reg_kernel"),
+                remainder=dict(gens=16, ms_spread=cuda_ms_spread(
+                    lambda: cuda_packed.tiled_superstep(p, CONWAY, 16), 10), bound_ms=bound_ms(
+                    p.numel(), 16, 1, CONWAY, int_rate)[0])),
             plain_ms=cuda_ms(lambda: cuda_packed.tiled_superstep_plain(p, CONWAY, t_big), 2),
             bound=bound_ms(p.numel(), t_big, 1, CONWAY, int_rate),
         ),
@@ -3016,8 +3107,12 @@ def main() -> int:
                                counted_ms=k6[512]["counted_ms"], plain_ms=k6[512]["plain_ms"],
                                run_rows=k6[512]["run_rows"], bound_ms=k6[512]["bound"][0],
                                bound_by=k6[512]["bound"][1])))
+    k2x = timings["tiled"]["extra"]
     log(f"timed K1 at 512^2 x 50 gens (one launch), K2 at {BIG}^2 x {t_big} gens "
-        f"(one launch), K6 one generation at {BIG}^2 ({k6[BIG]['ms']:.4f} ms, "
+        f"(one launch: {k2['median']:.4f} ms, {k2['min']:.4f}-{k2['max']:.4f}, device "
+        f"{k2x['device_ms']:.4f}; {k2_plan}; the 16-generation remainder "
+        f"{k2x['remainder']['ms_spread']['median']:.4f}), K6 one generation at {BIG}^2 "
+        f"({k6[BIG]['ms']:.4f} ms, "
         f"{k6[BIG]['ms_spread']['min']:.4f}-{k6[BIG]['ms_spread']['max']:.4f}; counted "
         f"{k6[BIG]['counted_ms']['median']:.4f}; bound {k6[BIG]['bound'][0]:.4f} by "
         f"{k6[BIG]['bound'][1]}) and 512^2 ({k6[512]['ms']:.4f} ms); "
@@ -3034,6 +3129,8 @@ def main() -> int:
     timings["ext_skip"]["extra"]["build"] = {n: r for n, r in reg_build["ext"].items()
                                              if "ext_skip_reg_kernel" in n}
     timings["resident"]["extra"]["build"] = reg_build["resident"]
+    timings["resident_batched"]["extra"]["build"] = reg_build["resident"]
+    timings["tiled"]["extra"]["build"] = reg_build["tiled"]
     timings["tile_probing"]["extra"]["build"] = {
         n: r for n, r in reg_build["probing"].items() if "tile_probing_reg_kernel" in n}
     timings["strip_probing"]["extra"]["build"] = {

@@ -7,11 +7,12 @@
 // K7: the batched form.  Replaces
 // pallas_packed.py::_vmem_kernel_batched (built by
 // _build_vmem_resident_batched): a contiguous (B, H/32, W) stack of B
-// same-shape boards, one block per board (gridDim.x = B), each held in its
-// block's shared memory (resident_kernel, gol_resident_batched_launch).
-// Block b offsets its pointers by b boards, so each board is its own torus
-// (the rotates never leave it).  This is the serving plane's cohort
-// launch: 16 tenants of 512^2 occupy 16 SMs in one launch.
+// same-shape boards in one launch of K1's kernel with a board axis: the
+// grid's y index is the board, each board is one cluster of C CTAs
+// (cluster dims stay (C, 1, 1), so distributed shared memory and the
+// cluster barrier never cross boards), and its pointers are offset by b
+// boards, so each board is its own torus.  This is the serving plane's
+// cohort launch: 16 tenants of 512^2 are 16 clusters side by side.
 //
 // Layout: (H/32, W) words, bit k of word (wy, x) = cell (32*wy + k, x) —
 // the JAX package's pack_vertical layout.  Vertical neighbours are an
@@ -58,100 +59,23 @@
 //   cudaFuncAttributeNonPortableClusterSizeAllowed); all CTAs of a cluster
 //   sit on one GPC, so a 512^2 board uses C SMs, not 132.  The launch
 //   refuses a cluster the card cannot schedule (cudaOccupancyMaxActiveClusters).
+//   K7's plan (resident_batched_plan) prices K1's plan by the waves the
+//   stack takes on the card's active clusters (gol_resident_reg_clusters).
 //
 // What bounds it on an H100: a 512^2 board is 32 KB, so the bytes are
 // nothing; the operations (12 a word-generation for B3/S23, 18-20 with the
 // shuffles, the halo lanes and the exchange) spread over C SMs, and one
-// cluster barrier a generation.
-//
-// K7 keeps the first port's body: the board in shared memory, each
-// thread computing its new words into registers, then __syncthreads,
-// writing them back, and __syncthreads again.  B boards use B SMs (two
-// blocks of 1024 threads fit one SM when their boards fit its shared
-// memory together), so a stack of up to 132 boards costs about one
-// board's time.
+// cluster barrier a generation.  A stack's boards run side by side, as
+// many clusters at once as the card holds.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-#include "life_rule.cuh"
 #include "regwin.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
-
-constexpr int kThreads = 1024;
-
-// The 2-bit vertical sum of column x: the cell plus its north and south
-// neighbours, with carries across word rows.
-__device__ __forceinline__ void vertical_sum(const uint32_t* b, int row, int up, int dn,
-                                             int x, uint32_t& v0, uint32_t& v1) {
-    const uint32_t a = b[row + x];
-    const uint32_t north = (a << 1) | (b[up + x] >> 31);
-    const uint32_t south = (a >> 1) | (b[dn + x] << 31);
-    v0 = a ^ north ^ south;
-    v1 = gol_maj(a, north, south);
-}
-
-// K7.  NW = words per thread (a power of two >= ceil(H/32 * W / kThreads)).
-template <int NW>
-__global__ void __launch_bounds__(kThreads)
-resident_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out, int hw, int w,
-                int turns, uint32_t born, uint32_t surv) {
-    extern __shared__ uint32_t board[];
-    const int n = hw * w;
-    // Block b holds board b of the stack.
-    in += static_cast<size_t>(blockIdx.x) * n;
-    out += static_cast<size_t>(blockIdx.x) * n;
-    for (int i = threadIdx.x; i < n; i += kThreads) board[i] = in[i];
-    __syncthreads();
-    for (int t = 0; t < turns; ++t) {
-        uint32_t next[NW];
-#pragma unroll
-        for (int j = 0; j < NW; ++j) {
-            const int i = threadIdx.x + j * kThreads;
-            if (i >= n) break;
-            const int wy = i / w;
-            const int x = i - wy * w;
-            const int row = wy * w;
-            const int up = (wy == 0 ? hw - 1 : wy - 1) * w;
-            const int dn = (wy == hw - 1 ? 0 : wy + 1) * w;
-            const int xm = x == 0 ? w - 1 : x - 1;
-            const int xp = x == w - 1 ? 0 : x + 1;
-            uint32_t v0, v1, v0w, v1w, v0e, v1e;
-            vertical_sum(board, row, up, dn, x, v0, v1);
-            vertical_sum(board, row, up, dn, xm, v0w, v1w);
-            vertical_sum(board, row, up, dn, xp, v0e, v1e);
-            const uint32_t s0 = v0 ^ v0w ^ v0e;
-            const uint32_t c0 = gol_maj(v0, v0w, v0e);
-            const uint32_t s1 = v1 ^ v1w ^ v1e;
-            const uint32_t c1 = gol_maj(v1, v1w, v1e);
-            const uint32_t k = c0 & s1;
-            next[j] = gol_apply_rule(s0, c0 ^ s1, c1 ^ k, c1 & k, board[i], born, surv);
-        }
-        __syncthreads();
-#pragma unroll
-        for (int j = 0; j < NW; ++j) {
-            const int i = threadIdx.x + j * kThreads;
-            if (i >= n) break;
-            board[i] = next[j];
-        }
-        __syncthreads();
-    }
-    for (int i = threadIdx.x; i < n; i += kThreads) out[i] = board[i];
-}
-
-template <int NW>
-cudaError_t launch(const uint32_t* in, uint32_t* out, int nb, int hw, int w, int turns,
-                   uint32_t born, uint32_t surv, cudaStream_t stream) {
-    const int smem = hw * w * static_cast<int>(sizeof(uint32_t));
-    cudaError_t err = cudaFuncSetAttribute(resident_kernel<NW>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    resident_kernel<NW><<<nb, kThreads, smem, stream>>>(in, out, hw, w, turns, born, surv);
-    return cudaGetLastError();
-}
 
 // -- K1: the cluster-resident register kernel ---------------------------------
 
@@ -268,9 +192,10 @@ __device__ __forceinline__ const uint32_t* slot_at(uint32_t* buf, int e, bool cl
     return clustered ? cg::this_cluster().map_shared_rank(p, e >> 16) : p;
 }
 
-// K1: `turns` generations of the board `in` into `out`.  blockDim =
-// (32, wpc); the grid is one cluster of C CTAs.  Shared memory: two
-// parities of spc slots, then the spc-entry table.
+// K1 and K7: `turns` generations of each board of the stack `in` into
+// `out`.  blockDim = (32, wpc); the grid is (C, B): board b is the
+// cluster of C CTAs at grid row b.  Shared memory: two parities of spc
+// slots, then the spc-entry table.
 template <int H, bool kRagged, class Rule>
 __global__ void __launch_bounds__(kMaxWarps * kLanes, 1)
 resident_reg_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out, Geom g,
@@ -307,6 +232,9 @@ resident_reg_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
     __syncthreads();
     const int lu0 = warp * g.vs;
     const int u0 = rank * g.spc + lu0;
+    // This CTA's board (block_y: nothing of it held through the loop).
+    const size_t board = static_cast<size_t>(g.hw) * g.w;
+    in += gol::reg::block_y() * board;
     uint32_t s[kWords];
 #pragma unroll
     for (int j = 0; j < V; ++j) {
@@ -367,6 +295,7 @@ resident_reg_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
     }
     // No CTA leaves while another may still read its shared memory.
     barrier(cl);
+    out += gol::reg::block_y() * static_cast<size_t>(g.hw) * g.w;
 #pragma unroll
     for (int j = 0; j < V; ++j) {
         if (j >= g.vs || u0 + j >= g.nsub) break;
@@ -381,9 +310,19 @@ resident_reg_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
     }
 }
 
+// One request of the host: launch `turns` generations of the nb boards of
+// `in` into `out` on `stream`, or (query != nullptr) only store in *query
+// how many clusters of the plan the card holds at once.
+struct Job {
+    const uint32_t* in;
+    uint32_t* out;
+    int nb, turns;
+    int* query;
+    cudaStream_t stream;
+};
+
 template <int H, bool kRagged, class Rule>
-int launch_reg(const uint32_t* in, uint32_t* out, const Geom& g, int cluster, int turns,
-               const Rule& rule, cudaStream_t stream) {
+int launch_reg(const Geom& g, int cluster, const Job& job, const Rule& rule) {
     const auto kernel = resident_reg_kernel<H, kRagged, Rule>;
     const size_t smem = sizeof(uint32_t) * (2 * g.spc * slot_words<H>() + g.spc * kTab);
     cudaError_t err =
@@ -398,65 +337,35 @@ int launch_reg(const uint32_t* in, uint32_t* out, const Geom& g, int cluster, in
     attr[0].val.clusterDim.y = 1;
     attr[0].val.clusterDim.z = 1;
     cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(cluster);
+    cfg.gridDim = dim3(cluster, job.nb);
     cfg.blockDim = dim3(kLanes, g.wpc);
     cfg.dynamicSmemBytes = smem;
-    cfg.stream = stream;
+    cfg.stream = job.stream;
     cfg.attrs = attr;
     cfg.numAttrs = 1;
     int clusters = 0;
     err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
     if (err != cudaSuccess) return err;
+    if (job.query != nullptr) {
+        *job.query = clusters;
+        return cudaSuccess;
+    }
     if (clusters < 1) return cudaErrorLaunchOutOfResources;  // the card cannot hold it
-    err = cudaLaunchKernelEx(&cfg, kernel, in, out, g, turns, cluster > 1 ? 1 : 0, rule);
+    err = cudaLaunchKernelEx(&cfg, kernel, job.in, job.out, g, job.turns, cluster > 1 ? 1 : 0,
+                             rule);
     return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-template <int H, bool kRagged>
-int launch_rule(const uint32_t* in, uint32_t* out, const Geom& g, int cluster, int turns,
-                int variant, unsigned born, unsigned surv, cudaStream_t stream) {
-    return gol::reg::by_rule(variant, born, surv, [&](auto rule) {
-        return launch_reg<H, kRagged>(in, out, g, cluster, turns, rule, stream);
-    });
-}
-
-}  // namespace col
-
-}  // namespace
-
-// K7: a contiguous stack of nb boards of (hw, w) words, one block each.
-extern "C" int gol_resident_batched_launch(const void* in, void* out, int nb, int hw, int w,
-                                           int turns, unsigned born, unsigned surv,
-                                           void* stream) {
-    const auto* src = static_cast<const uint32_t*>(in);
-    auto* dst = static_cast<uint32_t*>(out);
-    auto s = static_cast<cudaStream_t>(stream);
-    if (nb < 1 || nb > 65535 || hw < 1 || w < 1 || turns < 1) return cudaErrorInvalidValue;
-    const int per_thread = (hw * w + kThreads - 1) / kThreads;
-    if (per_thread <= 1) return launch<1>(src, dst, nb, hw, w, turns, born, surv, s);
-    if (per_thread <= 2) return launch<2>(src, dst, nb, hw, w, turns, born, surv, s);
-    if (per_thread <= 4) return launch<4>(src, dst, nb, hw, w, turns, born, surv, s);
-    if (per_thread <= 8) return launch<8>(src, dst, nb, hw, w, turns, born, surv, s);
-    if (per_thread <= 16) return launch<16>(src, dst, nb, hw, w, turns, born, surv, s);
-    if (per_thread <= 32) return launch<32>(src, dst, nb, hw, w, turns, born, surv, s);
-    if (per_thread <= 64) return launch<64>(src, dst, nb, hw, w, turns, born, surv, s);
-    return cudaErrorInvalidValue;
-}
-
-// K1: one board of (hw, w) words on a cluster of `cluster` CTAs of `wpc`
-// warps; sub-runs of at most `h_run` (8 or 2) registers, `rh` rows of
-// the board each (`ragged`: some run has fewer than h_run rows), `vs` a
-// warp; G = ceil(w / 30) column groups.  `variant` picks the rule's
-// instantiation (regwin.cuh::by_rule).  The plan is
-// ops/cuda_packed.py::resident_reg_plan's.
-extern "C" int gol_resident_reg_launch(const void* in, void* out, int hw, int w, int turns,
-                                       int h_run, int ragged, int rh, int vs, int wpc,
-                                       int cluster, int variant, unsigned born, unsigned surv,
-                                       void* stream) {
-    using namespace col;
-    if (hw < 1 || w < kLanes || w % kLanes || turns < 1 || rh < 1 || rh > h_run || vs < 1 ||
-        vs * h_run > kWords || wpc < 1 || wpc > kMaxWarps || cluster < 1 ||
-        cluster > kMaxCluster) {
+// Check a plan, build its geometry and serve `job` in its instantiation:
+// sub-runs of at most `h_run` (8 or 2) registers, `rh` rows of the board
+// each (`ragged`: some run has fewer than h_run rows), `vs` a warp, `wpc`
+// warps a CTA, `cluster` CTAs a board; G = ceil(w / 30) column groups.
+// `variant` picks the rule's instantiation (regwin.cuh::by_rule).
+int serve(int hw, int w, int h_run, int ragged, int rh, int vs, int wpc, int cluster,
+          int variant, unsigned born, unsigned surv, const Job& job) {
+    if (job.nb < 1 || job.nb > 65535 || hw < 1 || w < kLanes || w % kLanes || rh < 1 ||
+        rh > h_run || vs < 1 || vs * h_run > kWords || wpc < 1 || wpc > kMaxWarps ||
+        cluster < 1 || cluster > kMaxCluster) {
         return cudaErrorInvalidValue;
     }
     Geom g;
@@ -475,14 +384,41 @@ extern "C" int gol_resident_reg_launch(const void* in, void* out, int hw, int w,
         (!ragged && (rh != h_run || hw % rh)) || g.nsub >= (1 << 16) * kMaxCluster) {
         return cudaErrorInvalidValue;
     }
-    const auto* src = static_cast<const uint32_t*>(in);
-    auto* dst = static_cast<uint32_t*>(out);
-    auto s = static_cast<cudaStream_t>(stream);
-    switch (h_run * 2 + (ragged ? 1 : 0)) {
-        case 16: return launch_rule<8, false>(src, dst, g, cluster, turns, variant, born, surv, s);
-        case 17: return launch_rule<8, true>(src, dst, g, cluster, turns, variant, born, surv, s);
-        case 4: return launch_rule<2, false>(src, dst, g, cluster, turns, variant, born, surv, s);
-        case 5: return launch_rule<2, true>(src, dst, g, cluster, turns, variant, born, surv, s);
-        default: return cudaErrorInvalidValue;
-    }
+    return gol::reg::by_rule(variant, born, surv, [&](auto rule) {
+        switch (h_run * 2 + (ragged ? 1 : 0)) {
+            case 16: return launch_reg<8, false>(g, cluster, job, rule);
+            case 17: return launch_reg<8, true>(g, cluster, job, rule);
+            case 4: return launch_reg<2, false>(g, cluster, job, rule);
+            case 5: return launch_reg<2, true>(g, cluster, job, rule);
+            default: return static_cast<int>(cudaErrorInvalidValue);
+        }
+    });
+}
+
+}  // namespace col
+
+}  // namespace
+
+// K1 (nb = 1) and K7: `turns` generations of each of the nb boards of
+// (hw, w) words stacked contiguously at `in`, into `out`, each board on
+// its own cluster of the plan (col::serve's arguments).  The plans are
+// ops/cuda_packed.py::resident_reg_plan's and resident_batched_plan's.
+extern "C" int gol_resident_reg_launch(const void* in, void* out, int nb, int hw, int w,
+                                       int turns, int h_run, int ragged, int rh, int vs, int wpc,
+                                       int cluster, int variant, unsigned born, unsigned surv,
+                                       void* stream) {
+    if (turns < 1) return cudaErrorInvalidValue;
+    const col::Job job{static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out), nb, turns,
+                       nullptr, static_cast<cudaStream_t>(stream)};
+    return col::serve(hw, w, h_run, ragged, rh, vs, wpc, cluster, variant, born, surv, job);
+}
+
+// How many clusters of a plan (col::serve's arguments) the card holds at
+// once (cudaOccupancyMaxActiveClusters), stored in the int at `clusters`:
+// the waves of K7's plan.
+extern "C" int gol_resident_reg_clusters(void* clusters, int hw, int w, int h_run, int ragged,
+                                         int rh, int vs, int wpc, int cluster, int variant,
+                                         unsigned born, unsigned surv) {
+    const col::Job job{nullptr, nullptr, 1, 1, static_cast<int*>(clusters), nullptr};
+    return col::serve(hw, w, h_run, ragged, rh, vs, wpc, cluster, variant, born, surv, job);
 }

@@ -3,55 +3,117 @@
 // (skip_stable=False) form, built by _build_launch and driven by
 // _run_tiled; its step is _gen.
 //
-// One launch advances T generations.  Each block owns an output tile of
-// tile_h rows x tile_w words and loads a window of (tile_h + 2T) rows x
-// (tile_w + 2*xpad) words into shared memory, xpad*32 >= T, gathered
-// modulo the board (window.cuh).  After T generations the centre is exact
-// and only it is written back.  The window ping-pongs between two buffers
-// in shared memory.
+// One launch advances a horizontally packed (h, wp) torus T generations
+// into a fresh output.  The board is read in place as the torus: there is
+// no pre-extended copy and no exchange.
 //
 // What bounds it on an H100: integer operations.  Per launch the board is
-// read once and written once (2 * H * W/8 bytes), while the generations
-// cost ~45 ops per word each; at T = 32 the operations outweigh the bytes
-// by more than an order of magnitude.  The design therefore spends shared
-// memory on depth, and computes each word's horizontal sum once per
-// generation (window.cuh::advance).
+// read once and written once (2 * h * wp * 4 bytes), while each of its T
+// generations costs ~12 instructions a word (chip_smoke.py::ops_per_word),
+// so at T = 32 the operations outweigh the bytes by an order of magnitude.
+// Its least time is the board's light cone over the SMs' int32 rate.
+//
+// The design is K9's (ext.cu, ext_reg_kernel) on regwin.cuh's register
+// window, one part for each factor between the first port's time (a
+// shared-memory window behind a barrier every generation, tiles sized by
+// shared memory) and that bound:
+// - The generation loop: a block is `warps` warps stacked over one
+//   32-word window column, each thread one column's run of 32 rows in
+//   registers; neighbour words come from the adjacent lanes by shuffle,
+//   only a run's edge rows cross warps (shared memory, one barrier a
+//   generation), and the rule is a template argument (B3/S23 and B36/S23
+//   at compile time; any other rule through AnyRule).
+// - The grid: blocks hold no window in shared memory, so several share an
+//   SM, and the plan (ops/cuda_packed.py::tiled_reg_plan) picks the block
+//   height whose grid fills the card's SMs in the fewest, fullest waves.
+// - The redundant work: a warp's 32 - 2*border middle words are centre
+//   (border = ceil(T / 32)), a block's window is its tile plus T rows a
+//   side, and each run steps only the 8-row chunks that meet generation
+//   g's light cone (the tile plus T - g rows a side).
+// - The torus: the launch's one load takes window row r from board row
+//   (y0 - T + r) mod h and lane l from word column (x0 - border + l) mod
+//   wp, so a board shorter than its halo (1- and 3-row tori included)
+//   fills the window with its periodic cover, and on a board narrower
+//   than a warp's window the lanes hold it several times over, in a
+//   period that is exactly the torus.  Either way the window is a patch
+//   of the board's cover, exact but for the warp's column edge.  Only the
+//   centre lanes whose word lies on the board (gx < wp) store, so each
+//   word is written once.
 
-#include "window.cuh"
+#include "regwin.cuh"
 
 namespace {
 
 using namespace gol;
 
-__global__ void __launch_bounds__(kThreads)
-tiled_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out, int h, int wp,
-             int turns, int tile_h, int tile_w, int xpad, uint32_t born, uint32_t surv) {
-    extern __shared__ uint32_t smem[];
-    const int y0 = blockIdx.y * tile_h;
-    const int x0 = blockIdx.x * tile_w;
-    const Window w{tile_h + 2 * turns, tile_w + 2 * xpad, y0 - turns, x0 - xpad};
-    uint32_t* a = smem;
-    load_window(in, a, h, wp, w);
-    const uint32_t* res = advance(a, a + w.rows * w.cols, w, turns, born, surv);
-    store_centre(res, out, h, wp, w, turns, xpad, y0, x0, tile_h, tile_w);
+// Where a block stands, read anew from blockIdx wherever it is needed
+// (regwin.cuh::block_x/block_y), so no value of it holds a register
+// through the generation loop.
+struct TorusBlock {
+    int tile_h, border;
+    __device__ __forceinline__ int y0() const { return reg::block_y() * tile_h; }
+    __device__ __forceinline__ int x0() const {
+        return reg::block_x() * (reg::kLanes - 2 * border);
+    }
+};
+
+// K2: one block per (row tile, column group) of the board; its window is
+// warps * 32 rows (the tile and `turns` rows a side matter) by 32 words,
+// `border` of them a side outside the group's centre.
+template <class Rule>
+__global__ void __launch_bounds__(reg::kMaxThreads, 2)
+tiled_reg_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out, int h, int wp,
+                 int turns, int tile_h, int border, Rule rule) {
+    __shared__ reg::Edges edges;
+    const TorusBlock blk{tile_h, border};
+    const reg::Run run = reg::Run::make(tile_h + 2 * turns, turns, turns, 0);
+    uint32_t s[reg::kRun];
+    {
+        // The load: rows step down the torus one at a time, wrapping at h
+        // (one modulo for the run's first row).
+        const uint32_t* col = in + wrap(blk.x0() - border + run.lane, wp);
+        int y = wrap(blk.y0() - turns + run.row(0), h);
+#pragma unroll
+        for (int i = 0; i < reg::kRun; ++i) {
+            s[i] = run.row(i) < run.rows ? col[static_cast<size_t>(y) * wp] : 0u;
+            y = y + 1 == h ? 0 : y + 1;
+        }
+    }
+    reg::advance(s, edges, run, 1, turns, rule);
+    const int y0 = blk.y0();
+    const int gx = blk.x0() + run.lane - border;
+    const bool centre = run.lane >= border && run.lane < reg::kLanes - border && gx < wp;
+#pragma unroll
+    for (int i = 0; i < reg::kRun; ++i) {
+        const int r = run.row(i) - turns;
+        if (centre && r >= 0 && r < tile_h && y0 + r < h) {
+            out[static_cast<size_t>(y0 + r) * wp + gx] = s[i];
+        }
+    }
 }
 
 }  // namespace
 
+// K2: `tile_h` board rows a block, `warps` warps of 32 rows holding its
+// window (tile_h + 2 * turns rows), columns in groups of 32 - 2 * border
+// centre words (turns <= 32 * border); `variant` picks the rule's
+// instantiation (regwin.cuh::by_rule).  The plan is
+// ops/cuda_packed.py::tiled_reg_plan's.
 extern "C" int gol_tiled_launch(const void* in, void* out, int h, int wp, int turns, int tile_h,
-                                int tile_w, int xpad, unsigned born, unsigned surv,
+                                int warps, int border, int variant, unsigned born, unsigned surv,
                                 void* stream) {
-    if (h < 1 || wp < 1 || turns < 1 || tile_h < 1 || tile_w < 1 || xpad * 32 < turns ||
-        tile_w + 2 * xpad > kCols) {
+    if (h < 1 || wp < 1 || turns < 1 || tile_h < 1 || warps < 1 || warps > reg::kMaxWarps ||
+        warps * reg::kRun < tile_h + 2 * turns || border < 1 || 32 * border < turns ||
+        2 * border >= reg::kLanes || (h + tile_h - 1) / tile_h > 65535) {
         return cudaErrorInvalidValue;
     }
-    const long long smem = window_smem(tile_h + 2 * turns, tile_w + 2 * xpad);
-    cudaError_t err = allow_smem(tiled_kernel, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((wp + tile_w - 1) / tile_w, (h + tile_h - 1) / tile_h);
-    const dim3 block(kCols, kSegs);
-    tiled_kernel<<<grid, block, static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out), h, wp, turns, tile_h,
-        tile_w, xpad, born, surv);
-    return cudaGetLastError();
+    const int centre = reg::kLanes - 2 * border;
+    const dim3 grid((wp + centre - 1) / centre, (h + tile_h - 1) / tile_h);
+    const dim3 block(reg::kLanes, warps);
+    return reg::by_rule(variant, born, surv, [&](auto rule) {
+        tiled_reg_kernel<decltype(rule)><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out), h, wp, turns, tile_h,
+            border, rule);
+        return static_cast<int>(cudaGetLastError());
+    });
 }

@@ -59,7 +59,7 @@ import torch
 from distributed_gol_torch.models.life import CONWAY, HIGHLIFE, LifeRule
 from distributed_gol_torch.ops import cuda_build, cuda_packed, packed
 from distributed_gol_torch.ops.cuda_packed import (
-    SMEM_BYTES, TILED_COLS, _check_words, _stream, rule_masks,
+    H100_SMS, SMEM_BYTES, TILED_COLS, _check_words, _stream, rule_masks,
 )
 from distributed_gol_torch.ops.packed import WORD
 
@@ -417,11 +417,6 @@ def frontier_reg_plan(shape: tuple[int, int], stripe_h: int, t: int, sms: int) -
     return _stripe_reg_plan(shape, stripe_h, t + SKIP_PERIOD, t + SKIP_PERIOD, sms, keep=True)
 
 
-#: SMs of an NVIDIA H100 SXM: the card the plans are made for where no
-#: device is at hand (the mirrors on the CPU, the tests).
-H100_SMS = 132
-
-
 @functools.lru_cache(maxsize=16)
 def device_sms(device: torch.device) -> int:
     """The SM count of a CUDA device (``multi_processor_count``)."""
@@ -472,11 +467,13 @@ def _reg_steps(win: torch.Tensor, rule: LifeRule, plan: RegPlan, gens, frozen=No
     return win
 
 
-def _reg_windows(src: torch.Tensor, plan: RegPlan, top: int, left: int, wrap_cols: bool):
+def _reg_windows(src: torch.Tensor, plan: RegPlan, top: int, left: int, wrap_cols: bool,
+                 wrap_rows: bool = False):
     """Every block's window from ``src``: block (by, bx) reads rows
     ``top`` + by·tile_h + [0, warps·32) and columns ``left`` + bx·centre +
-    [0, 32), the columns modulo the width when ``wrap_cols``; zero outside
-    ``src`` and past the window's :attr:`RegPlan.rows`."""
+    [0, 32), the columns modulo the width when ``wrap_cols`` and the rows
+    modulo the height when ``wrap_rows`` (K2: the torus in place); zero
+    outside ``src`` and past the window's :attr:`RegPlan.rows`."""
     nby, nbx = plan.grid
     rows_in, cols_in = src.shape
     dev = src.device
@@ -484,6 +481,8 @@ def _reg_windows(src: torch.Tensor, plan: RegPlan, top: int, left: int, wrap_col
     rows = top + torch.arange(nby, device=dev)[:, None] * plan.tile_h + r
     cols = (left + torch.arange(nbx, device=dev)[:, None] * plan.centre
             + torch.arange(REG_LANES, device=dev))
+    if wrap_rows:
+        rows = torch.remainder(rows, rows_in)
     if wrap_cols:
         cols = torch.remainder(cols, cols_in)
     row_ok = (rows >= 0) & (rows < rows_in) & (r < plan.rows)

@@ -14,24 +14,30 @@ wrapper, a launch counter and a plain PyTorch version:
   Plan: :func:`resident_reg_plan`; :func:`resident_superstep_mirror`
   replays its sub-runs and exchange in PyTorch.
 - **K2, tiled** (``csrc/tiled.cu``; replaces ``pallas_packed.py::_kernel``
-  in its ``skip_stable=False`` form): T generations per launch on 2-D
-  tiles with a T-row and ``xpad``-word halo gathered modulo the board, so
-  every H and every W % 32 == 0 qualifies.  Plan: :func:`tiled_plan`.
-- **K7, resident batched** (``csrc/resident.cu``,
-  ``gol_resident_batched_launch``; replaces
+  in its ``skip_stable=False`` form): T generations per launch of the
+  horizontally packed board, read in place as the torus, on
+  ``csrc/regwin.cuh``'s register-resident window (K9's), so every H and
+  every W % 32 == 0 qualifies.  Plan: :func:`tiled_reg_plan`, launches
+  :func:`tiled_reg_launches`; :func:`tiled_reg_mirror` replays its blocks,
+  runs, light cone and torus load in PyTorch.
+- **K7, resident batched** (``csrc/resident.cu``, the same
+  ``gol_resident_reg_launch`` with a board axis; replaces
   ``pallas_packed.py::_vmem_kernel_batched``): a (B, H/32, W) stack of
-  same-shape boards, one block per board, each in its block's shared
-  memory (the first port's K1 body).  Gate: :func:`resident_shape` per
-  board.  :func:`make_batched_superstep_bytes` is the
-  serving plane's batched engine over K7 and the batched frontier kernel
-  (K8, ``ops/cuda_adaptive.py``).
+  same-shape boards, one cluster a board.  Gate: :func:`resident_shape`
+  per board.  Plan: :func:`resident_batched_plan`, K1's priced by the
+  waves the stack takes on the card's active clusters;
+  :func:`resident_superstep_batched_mirror` replays it.
+  :func:`make_batched_superstep_bytes` is the serving plane's batched
+  engine over K7 and the batched frontier kernel (K8,
+  ``ops/cuda_adaptive.py``).
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor
 it launches the kernel or raises — it never falls back.  Each wrapper
-counts its launches in its ``launches`` attribute.
-:func:`tiled_superstep_mirror` replays K2's exact window decomposition
-(the same plan, halo gather and zero-filled window edges) in PyTorch, so
-the halo arithmetic the CUDA kernel cannot show on a CPU is tested there.
+counts its launches in its ``launches`` attribute, and in ``rules`` by
+the rule's instantiation.  The mirrors run only in tests, where they
+show on the CPU the decomposition the CUDA kernels cannot.
+:class:`TiledPlan` and :func:`tiled_plan`, the first port's K2 tiling,
+size K3's launches and K4's stripes (``ops/cuda_adaptive.py``).
 
 The TPU's tuning constants (``_VMEM_BUDGET``, ``_VRESIDENT_BUDGET``,
 ``_LAUNCH_COST``, ``_MAX_T``) are v5e ratios and are not carried over;
@@ -53,9 +59,13 @@ from distributed_gol_torch.ops.packed import WORD, _maj, _shr, apply_rule_planes
 
 # Dynamic shared memory one Hopper block may hold (227 KB).
 SMEM_BYTES = 232448
-# Deepest K2 launch the plan asks for: one halo word per side covers it.
+#: SMs of an NVIDIA H100 SXM: the card the plans are made for where no
+#: device is at hand (the mirrors on the CPU, the tests).
+H100_SMS = 132
+# Deepest launch of K2 and K3 (and of K4's stripes' TiledPlan): one halo
+# word per side covers it.
 TILED_MAX_T = 32
-# Widest K2 window in words: blockDim.x of csrc/tiled.cu (kCols).
+# Widest window of K3 and K4 in words: blockDim.x of csrc/window.cuh (kCols).
 TILED_COLS = 64
 
 
@@ -166,15 +176,16 @@ class ResidentPlan:
         edge columns and two ballots each) and its sub-runs' table."""
         return 4 * self.spc * (2 * (2 * self.h_run + 2) + 12)
 
-    def cost(self) -> float:
-        """SM cycles of one generation on the busiest SM: its warp-rows and
-        sub-run exchanges at the share of its 4 schedulers its warps fill,
-        then the barrier."""
-        rows = self.wpc * self.vs * self.rh
+    def cost(self, ctas: int = 1) -> float:
+        """SM cycles of one generation on the busiest SM, which holds
+        ``ctas`` CTAs of the plan at once (K7: boards side by side): their
+        warp-rows and sub-run exchanges at the share of its 4 schedulers
+        their warps fill, then the barrier."""
+        rows = self.wpc * self.vs * self.rh * ctas
         row = _ROW_CYCLES + (_RAGGED_ROW_CYCLES if self.ragged else 0.0)
-        fill = 4 / min(4, self.wpc)
+        fill = 4 / min(4, self.wpc * ctas)
         barrier = _BARRIER_CYCLES[(self.cluster > 1) + (self.cluster > 8)]
-        return (rows * row + self.spc * _SUBRUN_CYCLES) * fill + barrier
+        return (rows * row + self.spc * ctas * _SUBRUN_CYCLES) * fill + barrier
 
 
 def resident_reg_candidates(hw: int, w: int) -> list[ResidentPlan]:
@@ -208,9 +219,49 @@ def resident_reg_plan(hw: int, w: int) -> ResidentPlan:
                key=lambda p: (p.cost(), p.cluster, p.wpc * p.cluster))
 
 
+def resident_batched_cost(plan: ResidentPlan, nb: int, active: int, sms: int) -> float:
+    """SM cycles of one generation of a K7 launch of ``nb`` boards on
+    ``plan``, where the card holds ``active`` of its clusters at once on
+    ``sms`` SMs: the waves the stack takes, ceil(nb / active), each at
+    K1's :meth:`ResidentPlan.cost` with the CTAs a wave puts on the
+    busiest SM."""
+    at_once = min(nb, active)
+    return -(-nb // active) * plan.cost(-(-at_once * plan.cluster // sms))
+
+
+def resident_batched_plan(nb: int, hw: int, w: int, active=None,
+                          sms: int = H100_SMS) -> ResidentPlan:
+    """K7's plan for a stack of ``nb`` packed (hw, w) boards that
+    :func:`resident_shape` takes: of :func:`resident_reg_candidates`, the
+    least :func:`resident_batched_cost`, then the fewest CTAs, then the
+    fewest warps.  ``active(plan)`` is how many clusters of a plan the card
+    holds at once (on the card ``cudaOccupancyMaxActiveClusters``,
+    :func:`card_active_clusters`); None takes one CTA an SM, ``sms`` //
+    cluster, on ``sms`` SMs (an H100's 132 where no card is at hand, as
+    the other plans assume).  With one board it is K1's plan; with many, small
+    clusters win, since a wave of clusters costs a cluster's time.  Raises
+    for a board the gate refuses and where the card holds no cluster of
+    any plan."""
+    if resident_shape(hw * WORD, w) is None:
+        raise ValueError(f"packed board {hw}x{w} does not fit the resident kernel")
+    if nb < 1:
+        raise ValueError(f"a stack of {nb} boards")
+    active = active or (lambda p: sms // p.cluster)
+    scored = []
+    for p in resident_reg_candidates(hw, w):
+        n = active(p)
+        if n >= 1:
+            scored.append(((resident_batched_cost(p, nb, n, sms), p.cluster, p.wpc * p.cluster), p))
+    if not scored:
+        raise ValueError(f"the card holds no cluster of any resident plan for a stack of {nb} "
+                         f"{hw}x{w}-word boards")
+    return min(scored, key=lambda kp: kp[0])[1]
+
+
 @dataclasses.dataclass(frozen=True)
 class TiledPlan:
-    """One K2 launch: ``t`` generations on tiles of ``tile_h`` rows x
+    """One launch of the first port's K2 tiling, which K3's launches and
+    K4's stripes keep: ``t`` generations on tiles of ``tile_h`` rows x
     ``tile_w`` words, with a ``t``-row and ``xpad``-word halo per side."""
 
     t: int
@@ -249,7 +300,7 @@ def tile_width(wp: int, xpad: int) -> int:
 
 
 def tiled_plan(shape: tuple[int, int], turns: int) -> TiledPlan:
-    """K2's plan for a packed (H, wp) board: T = min(turns, 32), so one
+    """K3's plan for a packed (H, wp) board: T = min(turns, 32), so one
     halo word per side; the widest window that fits ``TILED_COLS`` words,
     split evenly over the board's width; then the tallest tile whose two
     window buffers fit ``SMEM_BYTES``, split evenly over the height."""
@@ -262,17 +313,39 @@ def tiled_plan(shape: tuple[int, int], turns: int) -> TiledPlan:
     return TiledPlan(t, -(-h // ny), tile_w, xpad)
 
 
-def tiled_launches(
-    shape: tuple[int, int], turns: int, plan: TiledPlan | None = None
-) -> list[TiledPlan]:
-    """The launches of a ``turns``-generation K2 superstep: full launches of
-    ``plan.t`` generations, then one remainder launch on the same tiles.
-    ``plan`` forces the tiling (tests); None takes :func:`tiled_plan`."""
-    base = plan if plan is not None else tiled_plan(shape, turns)
+@functools.lru_cache(maxsize=256)
+def tiled_reg_plan(shape: tuple[int, int], turns: int, sms: int):
+    """K2's launch of ``turns`` generations on a packed (h, wp) torus: T =
+    min(turns, 32), so one border word a side, on K9's blocks
+    (``cuda_halo.ext_reg_plan``: column groups of 30 words, row tiles with
+    T rows a side filling ``sms`` SMs).  T = 64, two border words and 128
+    halo rows, costs more a generation (``tools/regwin_ab.py
+    --sweep-k2-k7``).  Every board qualifies: the kernel takes rows modulo
+    h, so a tile's window may be taller than the torus."""
+    from distributed_gol_torch.parallel.cuda_halo import ext_reg_plan
+
+    return ext_reg_plan(shape, min(turns, TILED_MAX_T), sms)
+
+
+def tiled_reg_launches(shape: tuple[int, int], turns: int, sms: int = H100_SMS,
+                       plan=None) -> list:
+    """The launches of a ``turns``-generation K2 superstep on a packed
+    (h, wp) torus on ``sms`` SMs: full launches of :func:`tiled_reg_plan`,
+    then one remainder launch of its own depth, so the superstep's
+    generation count is exact.  ``plan`` (a ``RegPlan``) forces the full
+    launches' blocks (tests); its remainder keeps its row tiles, with the
+    border and column groups of its own depth."""
+    base = plan or tiled_reg_plan(shape, turns, sms)
     full, rem = divmod(turns, base.t)
     launches = [base] * full
     if rem:
-        launches.append(dataclasses.replace(base, t=rem, xpad=-(-rem // WORD)))
+        if plan is None:
+            launches.append(tiled_reg_plan(shape, rem, sms))
+        else:
+            border = -(-rem // WORD)
+            launches.append(dataclasses.replace(
+                plan, t=rem, halo=rem, border=border,
+                grid=(plan.grid[0], -(-shape[1] // (WORD - 2 * border)))))
     return launches
 
 
@@ -392,7 +465,7 @@ def tiled_superstep_plain(p: torch.Tensor, rule: LifeRule, turns: int) -> torch.
     return packed.superstep(p, rule, turns)
 
 
-# -- the tiling mirror of K2 --------------------------------------------------
+# -- the block mirrors of K2 and K7 ------------------------------------------
 
 
 def _shift(a: torch.Tensor, dim: int, by: int) -> torch.Tensor:
@@ -407,56 +480,42 @@ def _shift(a: torch.Tensor, dim: int, by: int) -> torch.Tensor:
     return out
 
 
-def _window_gen(a: torch.Tensor, rule: LifeRule) -> torch.Tensor:
-    """One generation of K2's windows (..., rows_w, cols_w), reading zero
-    outside each window exactly as the kernel does."""
-    west = (a << 1) | _shr(_shift(a, -1, 1), 31)
-    east = _shr(a, 1) | (_shift(a, -1, -1) << 31)
-    h0 = a ^ west ^ east
-    h1 = _maj(a, west, east)
-    n0, s0 = _shift(h0, -2, 1), _shift(h0, -2, -1)
-    n1, s1 = _shift(h1, -2, 1), _shift(h1, -2, -1)
-    t0 = h0 ^ n0 ^ s0
-    c = _maj(h0, n0, s0)
-    p1 = h1 ^ n1 ^ s1
-    q = _maj(h1, n1, s1)
-    k = p1 & c
-    return apply_rule_planes((t0, p1 ^ c, q ^ k, q & k), a, rule)
+def _tiled_reg_launch_mirror(p: torch.Tensor, rule: LifeRule, plan) -> torch.Tensor:
+    from distributed_gol_torch.ops.cuda_adaptive import _reg_stitch, _reg_steps, _reg_windows
 
-
-def _tiled_launch_mirror(p: torch.Tensor, rule: LifeRule, plan: TiledPlan) -> torch.Tensor:
     h, wp = p.shape
-    ny, nx = plan.grid((h, wp))
-    dev = p.device
-    rows = torch.remainder(
-        torch.arange(ny, device=dev)[:, None] * plan.tile_h
-        - plan.t
-        + torch.arange(plan.rows_w, device=dev),
-        h,
-    )
-    cols = torch.remainder(
-        torch.arange(nx, device=dev)[:, None] * plan.tile_w
-        - plan.xpad
-        + torch.arange(plan.cols_w, device=dev),
-        wp,
-    )
-    win = p[rows[:, None, :, None], cols[None, :, None, :]]  # (ny, nx, rows_w, cols_w)
-    for _ in range(plan.t):
-        win = _window_gen(win, rule)
-    centre = win[:, :, plan.t : plan.t + plan.tile_h, plan.xpad : plan.xpad + plan.tile_w]
-    out = centre.permute(0, 2, 1, 3).reshape(ny * plan.tile_h, nx * plan.tile_w)
-    return out[:h, :wp].contiguous()
+    if plan.halo != plan.t or plan.grid[0] * plan.tile_h < h or plan.grid[1] * plan.centre < wp:
+        raise ValueError(f"plan {plan} does not cover a {plan.t}-generation launch on {h}x{wp}")
+    win = _reg_windows(p, plan, -plan.t, -plan.border, True, wrap_rows=True)
+    win = _reg_steps(win, rule, plan, range(1, plan.t + 1))
+    return _reg_stitch(win, plan)[:h, :wp].contiguous()
 
 
-def tiled_superstep_mirror(
-    p: torch.Tensor, rule: LifeRule, turns: int, plan: TiledPlan | None = None
-) -> torch.Tensor:
-    """K2's exact window decomposition in PyTorch: the launches of
-    :func:`tiled_launches`, each gathering every tile's window modulo the
-    board and stepping it with zero-filled window edges."""
-    for launch in tiled_launches(tuple(p.shape), turns, plan):
-        p = _tiled_launch_mirror(p, rule, launch)
+def tiled_reg_mirror(p: torch.Tensor, rule: LifeRule, turns: int, plan=None,
+                     sms: int = H100_SMS) -> torch.Tensor:
+    """K2's decomposition in PyTorch: the launches of
+    :func:`tiled_reg_launches` (``plan`` forces the blocks, ``sms`` the SMs
+    the plan fills), each block's window (warps·32 rows
+    from T above its tile, 32 words from ``border`` left of its column
+    group, rows modulo h and words modulo wp: the torus in place, zero
+    past the window's rows) stepped T generations with its columns
+    wrapping within it and only the rows each run's light cone steps
+    (``RegPlan.live``), its centre stored."""
+    for launch in tiled_reg_launches(tuple(p.shape), turns, sms, plan):
+        p = _tiled_reg_launch_mirror(p, rule, launch)
     return p
+
+
+def resident_superstep_batched_mirror(v: torch.Tensor, rule: LifeRule, turns: int,
+                                      plan: ResidentPlan | None = None) -> torch.Tensor:
+    """K7's decomposition in PyTorch: each board of the (B, H/32, W) stack
+    through K1's block mirror (:func:`resident_superstep_mirror`) on the
+    batched plan (``plan``; None: :func:`resident_batched_plan` with one
+    CTA an SM of an H100), since a board's cluster reads nothing of
+    another's."""
+    nb, hw, w = v.shape
+    plan = plan or resident_batched_plan(nb, hw, w)
+    return torch.stack([resident_superstep_mirror(b, rule, turns, plan) for b in v])
 
 
 # -- the kernel wrappers ------------------------------------------------------
@@ -478,42 +537,66 @@ def _stream(t: torch.Tensor):
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def _resident_batched_launch(v: torch.Tensor, rule: LifeRule, turns: int) -> torch.Tensor:
-    """One launch of K7 on a CUDA (B, H/32, W) stack, one block per board;
-    a fresh output."""
-    nb, hw, w = v.shape
-    if resident_shape(hw * WORD, w) is None:
-        raise ValueError(f"packed board {hw}x{w} does not fit the resident kernel")
-    lib = cuda_build.load("resident")
-    fn = lib.gol_resident_batched_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4 + [
-        ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    out = torch.empty_like(v)
-    born, surv = rule_masks(rule)
-    err = fn(v.data_ptr(), out.data_ptr(), nb, hw, w, turns, born, surv, _stream(v))
-    cuda_build.check(lib, err, "resident_batched")
-    return out
-
-
-def _resident_reg_launch(v: torch.Tensor, rule: LifeRule, turns: int) -> tuple[torch.Tensor, str]:
-    """One launch of K1 on a CUDA (H/32, W) board on the cluster of
-    :func:`resident_reg_plan`; (a fresh output, the name of the rule's
-    instantiation).  A cluster the card cannot schedule raises, naming its
-    shape."""
+def _resident_launch(v: torch.Tensor, rule: LifeRule, turns: int,
+                     plan: ResidentPlan) -> tuple[torch.Tensor, str]:
+    """One launch of K1 (a (H/32, W) board) or K7 (a (B, H/32, W) stack,
+    one cluster a board) on a CUDA tensor at ``plan``; (a fresh output, the
+    name of the rule's instantiation).  A cluster the card cannot schedule
+    raises, naming its shape."""
     from distributed_gol_torch.ops.cuda_adaptive import REG_RULES, _reg_launcher, reg_rule
 
-    hw, w = v.shape
-    plan = resident_reg_plan(hw, w)
-    lib, launch = _reg_launcher("resident", "gol_resident_reg_launch", 2, 10)
+    nb, hw, w = v.shape if v.dim() == 3 else (1, *v.shape)
+    lib, launch = _reg_launcher("resident", "gol_resident_reg_launch", 2, 11)
     out = torch.empty_like(v)
     born, surv, variant = reg_rule(rule)
     with torch.cuda.device(v.device):
-        err = launch(v.data_ptr(), out.data_ptr(), hw, w, turns, plan.h_run, int(plan.ragged),
-                     plan.rh, plan.vs, plan.wpc, plan.cluster, variant, born, surv, _stream(v))
-    cuda_build.check(lib, err, f"resident (a cluster of {plan.cluster} CTAs of {plan.wpc} "
-                               f"warps on a {hw}x{w}-word board)")
+        err = launch(v.data_ptr(), out.data_ptr(), nb, hw, w, turns, plan.h_run,
+                     int(plan.ragged), plan.rh, plan.vs, plan.wpc, plan.cluster, variant, born,
+                     surv, _stream(v))
+    cuda_build.check(lib, err, f"resident (clusters of {plan.cluster} CTAs of {plan.wpc} warps "
+                               f"on {nb} {hw}x{w}-word board(s))")
     return out, REG_RULES[variant]
+
+
+@functools.lru_cache(maxsize=1024)
+def _active_clusters(device: int, plan: ResidentPlan, born: int, surv: int, variant: int) -> int:
+    from distributed_gol_torch.ops.cuda_adaptive import _launcher
+
+    P, I, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+    lib, query = _launcher("resident", "gol_resident_reg_clusters", [P] + [I] * 9 + [U, U])
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = query(ctypes.addressof(n), *plan.shape, plan.h_run, int(plan.ragged), plan.rh,
+                    plan.vs, plan.wpc, plan.cluster, variant, born, surv)
+    cuda_build.check(lib, err, f"resident occupancy ({plan})")
+    return n.value
+
+
+def card_active_clusters(device, rule: LifeRule):
+    """``active(plan)`` for :func:`resident_batched_plan` on the CUDA
+    ``device``: how many clusters of ``plan`` the card holds at once in
+    ``rule``'s instantiation (``cudaOccupancyMaxActiveClusters``, through
+    ``gol_resident_reg_clusters``), cached per plan."""
+    from distributed_gol_torch.ops.cuda_adaptive import reg_rule
+
+    index = torch.device(device).index or 0
+    born, surv, variant = reg_rule(rule)
+    return lambda plan: _active_clusters(index, plan, born, surv, variant)
+
+
+@functools.lru_cache(maxsize=256)
+def _card_batched_plan(device: int, rule: LifeRule, nb: int, hw: int, w: int) -> ResidentPlan:
+    from distributed_gol_torch.ops.cuda_adaptive import device_sms
+
+    dev = torch.device("cuda", device)
+    return resident_batched_plan(nb, hw, w, card_active_clusters(dev, rule), device_sms(dev))
+
+
+def card_batched_plan(v: torch.Tensor, rule: LifeRule) -> ResidentPlan:
+    """The plan K7 launches on the CUDA stack ``v`` under ``rule``:
+    :func:`resident_batched_plan` with the card's SMs and active clusters,
+    cached per (B, H/32, W), since a serving cohort's B varies."""
+    return _card_batched_plan(v.device.index or 0, rule, *v.shape)
 
 
 def resident_superstep(v: torch.Tensor, rule: LifeRule, turns: int) -> torch.Tensor:
@@ -526,7 +609,7 @@ def resident_superstep(v: torch.Tensor, rule: LifeRule, turns: int) -> torch.Ten
         return v
     if v.device.type == "cpu":
         return resident_superstep_plain(v, rule, turns)
-    out, instantiation = _resident_reg_launch(v, rule, turns)
+    out, instantiation = _resident_launch(v, rule, turns, resident_reg_plan(*v.shape))
     resident_superstep.launches += 1
     resident_superstep.rules[instantiation] += 1
     return out
@@ -538,63 +621,75 @@ resident_superstep.rules = collections.Counter()
 
 def resident_superstep_batched(v: torch.Tensor, rule: LifeRule, turns: int) -> torch.Tensor:
     """K7: ``turns`` generations of every board of a vertically packed
-    (B, H/32, W) stack in one launch, one block per board.  CPU tensors run
-    :func:`resident_superstep_batched_plain`.  The input is never written."""
+    (B, H/32, W) stack in one launch, one cluster a board, on
+    :func:`card_batched_plan`, in the rule's instantiation (counted in
+    ``resident_superstep_batched.rules``).  CPU tensors run
+    :func:`resident_superstep_batched_plain`.  The input is never
+    written."""
     _check_words(v, 3)
     if turns == 0:
         return v
     if v.device.type == "cpu":
         return resident_superstep_batched_plain(v, rule, turns)
-    out = _resident_batched_launch(v, rule, turns)
+    nb, hw, w = v.shape
+    if resident_shape(hw * WORD, w) is None:
+        raise ValueError(f"packed board {hw}x{w} does not fit the resident kernel")
+    out, instantiation = _resident_launch(v, rule, turns, card_batched_plan(v, rule))
     resident_superstep_batched.launches += 1
+    resident_superstep_batched.rules[instantiation] += 1
     return out
 
 
 resident_superstep_batched.launches = 0
+resident_superstep_batched.rules = collections.Counter()
 
 
-def tiled_superstep(
-    p: torch.Tensor, rule: LifeRule, turns: int, plan: TiledPlan | None = None
-) -> torch.Tensor:
+def tiled_superstep(p: torch.Tensor, rule: LifeRule, turns: int, plan=None) -> torch.Tensor:
     """K2: ``turns`` generations of a horizontally packed (H, W/32) board,
-    launched as :func:`tiled_launches` says (``plan`` forces the tiling).
-    CPU tensors run :func:`tiled_superstep_plain`.  The input is never
+    launched as :func:`tiled_reg_launches` says for its device's SMs
+    (``plan``, a ``RegPlan``, forces the full launches' blocks), each in the
+    rule's instantiation (counted in ``tiled_superstep.rules``).  CPU
+    tensors run :func:`tiled_superstep_plain`.  The input is never
     written: the launches ping-pong between two fresh buffers."""
+    from distributed_gol_torch.ops.cuda_adaptive import (
+        REG_RULES, _reg_launcher, device_sms, reg_rule)
+
     _check_words(p)
     if turns == 0:
         return p
     if p.device.type == "cpu":
         return tiled_superstep_plain(p, rule, turns)
     h, wp = p.shape
-    launches = tiled_launches((h, wp), turns, plan)
+    launches = tiled_reg_launches((h, wp), turns, device_sms(p.device), plan)
     for launch in launches:
-        if launch.cols_w > TILED_COLS or launch.smem_bytes > SMEM_BYTES:
-            raise ValueError(f"tiled plan {launch} exceeds the kernel's window")
-    lib = cuda_build.load("tiled")
-    born, surv = rule_masks(rule)
+        if (launch.halo != launch.t or launch.grid[0] * launch.tile_h < h
+                or launch.grid[1] * launch.centre < wp):
+            raise ValueError(f"tiled plan {launch} does not cover a {h}x{wp}-word board")
+    lib, fn = _reg_launcher("tiled", "gol_tiled_launch", 2, 7)
+    born, surv, variant = reg_rule(rule)
     bufs = (torch.empty_like(p), torch.empty_like(p))
     cur = p
-    for i, launch in enumerate(launches):
-        dst = bufs[i % 2]
-        err = lib.gol_tiled_launch(
-            ctypes.c_void_p(cur.data_ptr()), ctypes.c_void_p(dst.data_ptr()),
-            h, wp, launch.t, launch.tile_h, launch.tile_w, launch.xpad,
-            ctypes.c_uint(born), ctypes.c_uint(surv), _stream(p),
-        )
-        cuda_build.check(lib, err, "tiled")
-        tiled_superstep.launches += 1
-        cur = dst
+    with torch.cuda.device(p.device):
+        for i, launch in enumerate(launches):
+            dst = bufs[i % 2]
+            err = fn(cur.data_ptr(), dst.data_ptr(), h, wp, launch.t, launch.tile_h, launch.warps,
+                     launch.border, variant, born, surv, _stream(p))
+            cuda_build.check(lib, err, f"tiled ({launch} on a {h}x{wp}-word board)")
+            tiled_superstep.launches += 1
+            tiled_superstep.rules[REG_RULES[variant]] += 1
+            cur = dst
     return cur
 
 
 tiled_superstep.launches = 0
+tiled_superstep.rules = collections.Counter()
 
 
 def reset_launches() -> None:
-    """Set the three kernels' launch counters to 0."""
-    resident_superstep.launches = 0
-    tiled_superstep.launches = 0
-    resident_superstep_batched.launches = 0
+    """Set the three kernels' launch counters, and their counts by rule, to 0."""
+    for wrapper in (resident_superstep, tiled_superstep, resident_superstep_batched):
+        wrapper.launches = 0
+        wrapper.rules.clear()
 
 
 def supports(shape: tuple[int, int]) -> bool:

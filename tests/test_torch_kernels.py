@@ -1,11 +1,13 @@
 """The packed kernel tier of the port (``ops/cuda_packed.py``) against the
 JAX package's Pallas kernels.
 
-On the CPU the kernel wrappers run their plain versions, and the K2 tiling
-mirror replays the CUDA kernel's exact window decomposition; both are held
-bit for bit against ``distributed_gol_tpu.ops.pallas_packed`` run in
-interpret mode.  Tests marked ``gpu`` hold each CUDA kernel against its
-plain version on the card and skip where there is none.
+On the CPU the kernel wrappers run their plain versions, and K2's block
+mirror (``tiled_reg_mirror``) replays the CUDA kernel's decomposition:
+its register-resident blocks, runs and light cone, and its load of the
+torus in place; both are held bit for bit against
+``distributed_gol_tpu.ops.pallas_packed`` run in interpret mode.  Tests
+marked ``gpu`` hold each CUDA kernel against its plain version and its
+mirror on the card and skip where there is none.
 
 The JAX package is imported inside the tests that compare with it, so the
 ``gpu`` tests also run on a machine without JAX:
@@ -18,12 +20,15 @@ import pytest
 import torch
 
 from distributed_gol_torch.models import life as tlife
-from distributed_gol_torch.ops import cuda_packed, packed as tpacked
+from distributed_gol_torch.ops import cuda_adaptive, cuda_packed, packed as tpacked
 
 # One intra-op thread: the suite runs in parallel worker processes.
 torch.set_num_threads(1)
 
 RULES = ["conway", "highlife"]
+# Every instantiation of the register-resident kernels: B3/S23 and B36/S23
+# compiled in, Day & Night by its masks (regwin.cuh::by_rule).
+REG_RULES = ["conway", "highlife", "day-and-night"]
 
 
 def random_board(rng: np.random.Generator, h: int, w: int, p: float = 0.3) -> np.ndarray:
@@ -86,7 +91,16 @@ def test_resident_plain_matches_vmem_kernel(ref):
     np.testing.assert_array_equal(words(tv), np.asarray(jv))
 
 
-# -- the K2 tiling mirror ------------------------------------------------------
+# -- the K2 block mirror ---------------------------------------------------------
+
+
+def forced(shape, t, tile_h, warps):
+    """K2's blocks of ``tile_h`` rows and ``warps`` warps for a
+    ``t``-generation launch on a packed (h, wp) board: ceil(t / 32) border
+    words a side."""
+    border = -(-t // 32)
+    grid = (-(-shape[0] // tile_h), -(-shape[1] // (32 - 2 * border)))
+    return cuda_adaptive.RegPlan(t, t, tile_h, warps, grid, border)
 
 
 @pytest.fixture(scope="module")
@@ -112,40 +126,67 @@ def pallas_tiled_runs(ref, tiled_board):
 
 
 @pytest.mark.parametrize(
-    "t,tile_h,tile_w",
+    "t,tile_h,warps",
     [
-        (1, 8, 5), (1, 64, 128),
-        (6, 16, 7), (6, 24, 40),
-        (31, 24, 30), (31, 40, 62),
-        (33, 16, 13), (33, 48, 60),
+        (1, 8, 1), (1, 30, 1),
+        (6, 16, 1), (6, 40, 2),
+        (12, 8, 1),
+        (31, 24, 3), (32, 64, 4),
+        (33, 16, 3), (48, 30, 5),
+        (64, 40, 6),
     ],
 )
-def test_tiled_mirror_matches_pallas_forced_plans(tiled_board, pallas_tiled_runs, t, tile_h, tile_w):
-    """Multi-tile plans, ragged edge tiles, T across the one-word xpad
-    boundary (31 vs 33), windows taller than the 64-row board, and a
-    remainder launch (turns = 2T + 3)."""
+def test_tiled_mirror_matches_pallas_forced_plans(tiled_board, pallas_tiled_runs, t, tile_h, warps):
+    """Blocks of one and several warps, ragged last row tiles (64 rows in
+    tiles of 30, 40, 24 and 48), the last column group ragged (128 words in
+    groups of 30 or 28), T across the one-word border (32 vs 33) up to the
+    plan's other depth (64, two border words), and a remainder launch
+    (turns = 2T + 3) of its own border."""
     turns = 2 * t + 3
-    plan = cuda_packed.TiledPlan(t, tile_h, tile_w, -(-t // 32))
     p = tpacked.pack(torch.from_numpy(tiled_board))
-    got = cuda_packed.tiled_superstep_mirror(p, tlife.CONWAY, turns, plan)
+    plan = forced(tuple(p.shape), t, tile_h, warps)
+    got = cuda_packed.tiled_reg_mirror(p, tlife.CONWAY, turns, plan)
     np.testing.assert_array_equal(words(got), pallas_tiled_runs(turns))
 
 
-@pytest.mark.parametrize("shape", [(16, 96), (1, 32), (3, 64), (72, 4096)])
+@pytest.mark.parametrize("shape", [(16, 96), (1, 32), (3, 64), (72, 4096), (2, 96), (33, 32)])
 def test_tiled_mirror_small_and_degenerate_boards(ref, shape):
-    """Boards shorter than their halo (and the degenerate 1- and 3-row
-    tori) with the real plan: the modular gather is the torus."""
+    """Boards shorter than their halo (and the degenerate 1-, 2- and 3-row
+    tori) and narrower than a warp's window, with the real plan: the
+    torus load's periodic cover, and each word stored once."""
     b = random_board(np.random.default_rng(shape[0]), *shape)
     p = tpacked.pack(torch.from_numpy(b))
     turns = 45
-    got = cuda_packed.tiled_superstep_mirror(p, tlife.HIGHLIFE, turns)
+    got = cuda_packed.tiled_reg_mirror(p, tlife.HIGHLIFE, turns)
     want = ref.packed.superstep(ref.packed.pack(ref.jnp.asarray(b)), ref.life.HIGHLIFE, turns)
     np.testing.assert_array_equal(words(got), np.asarray(want))
+
+
+@pytest.mark.parametrize("rule", REG_RULES)
+@pytest.mark.parametrize("shape,turns", [((64, 128), 37), ((1004, 3072), 75), ((5, 96), 70),
+                                         ((40, 1024), 1)])
+def test_tiled_mirror_matches_plain_under_every_rule(rule, shape, turns):
+    """The mirror at the plan's choice equals the plain version under each
+    instantiation's rule: 32 + 5 generations on 64 x 128 cells' words
+    (4 x 128 words' tiles), 32 + 32 + 11 on the odd board, a 5-row torus
+    over two launches and a remainder, one generation."""
+    p = tpacked.pack(torch.from_numpy(random_board(np.random.default_rng(turns), *shape)))
+    r = tlife.RULES[rule]
+    assert torch.equal(cuda_packed.tiled_reg_mirror(p, r, turns),
+                       cuda_packed.tiled_superstep_plain(p, r, turns))
 
 
 def test_tiled_plan_rejects_short_halo():
     with pytest.raises(ValueError):
         cuda_packed.TiledPlan(33, 16, 16, 1)
+
+
+def test_tiled_reg_mirror_refuses_blocks_that_do_not_cover_the_board():
+    p = torch.zeros((64, 128), dtype=torch.int32)
+    with pytest.raises(ValueError, match="does not cover"):
+        cuda_packed.tiled_reg_mirror(p, tlife.CONWAY, 6, forced((32, 128), 6, 16, 2))
+    with pytest.raises(ValueError, match="invalid register plan"):
+        forced((64, 128), 33, 16, 2)  # 82 window rows in 2 warps
 
 
 # -- gates and launch plan (pure Python) ---------------------------------------
@@ -182,6 +223,7 @@ def test_every_pallas_supported_shape_has_a_kernel(ref):
 
 
 def test_tiled_plan_at_the_headline_board():
+    """The first port's K2 tiling, which K3's launches keep."""
     plan = cuda_packed.tiled_plan((16384, 512), 10_000)
     assert plan.t == cuda_packed.TILED_MAX_T == 32
     assert plan.xpad == 1 and plan.cols_w <= cuda_packed.TILED_COLS
@@ -191,11 +233,48 @@ def test_tiled_plan_at_the_headline_board():
     assert (ny - 1) * plan.tile_h < 16384 and (nx - 1) * plan.tile_w < 512
 
 
+def test_k3_and_k4_plans_are_unchanged():
+    """K3's launches and K4's stripes keep the first port's K2 tiling."""
+    assert cuda_packed.tiled_plan((16384, 512), 24) == cuda_packed.TiledPlan(24, 443, 57, 1)
+    assert cuda_packed.tiled_plan((16384, 512), 10**6) == cuda_packed.TiledPlan(32, 421, 57, 1)
+    assert cuda_packed.tile_width(512, 1) == 57 and cuda_packed.TILED_COLS == 64
+    stripes = cuda_adaptive.stripe_tiles((16384, 512), 256, 24)
+    assert stripes == cuda_packed.TiledPlan(24, 256, 57, 1)
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+def test_tiled_reg_plan_at_the_headline_board(sms):
+    """K2's full launch at 16384²: T = 32, K9's blocks of at most 16 warps
+    covering the torus once, and a grid filling ``sms`` SMs in at least
+    one full wave.  T = 64's two border words and 128 halo rows cost more
+    a generation."""
+    from distributed_gol_torch.parallel.cuda_halo import ext_reg_plan
+
+    plan = cuda_packed.tiled_reg_plan((16384, 512), 10**6, sms)
+    assert plan == ext_reg_plan((16384, 512), 32, sms)
+    assert (plan.t, plan.halo, plan.border, plan.probe) == (32, 32, 1, 0)
+    assert plan.warps <= 16 and plan.rows <= plan.warps * 32
+    ny, nx = plan.grid
+    assert ny * plan.tile_h >= 16384 and (ny - 1) * plan.tile_h < 16384
+    assert nx * plan.centre >= 512 and (nx - 1) * plan.centre < 512
+    assert plan.blocks >= sms and plan.fill(sms) > 0.9
+    t64 = ext_reg_plan((16384, 512), 64, sms)
+    assert t64.cost(sms) / 64 > plan.cost(sms) / 32
+
+
 @pytest.mark.parametrize("turns,depths", [(1, [1]), (32, [32]), (37, [32, 5]), (100, [32, 32, 32, 4])])
 def test_tiled_launch_sequence(turns, depths):
-    launches = cuda_packed.tiled_launches((16384, 512), turns)
+    launches = cuda_packed.tiled_reg_launches((16384, 512), turns)
     assert [p.t for p in launches] == depths
-    assert all(p.smem_bytes <= cuda_packed.SMEM_BYTES for p in launches)
+    assert all(p.t == p.halo and p.border == -(-p.t // 32) for p in launches)
+    assert all(p.rows <= p.warps * 32 <= 512 for p in launches)
+
+
+def test_tiled_launch_sequence_keeps_a_forced_plan_and_gives_its_remainder_its_border():
+    plan = forced((64, 128), 33, 16, 3)
+    first, second, rest = cuda_packed.tiled_reg_launches((64, 128), 69, plan=plan)
+    assert first == second == plan
+    assert (rest.t, rest.border, rest.tile_h, rest.grid) == (3, 1, 16, (4, 5))
 
 
 def test_rule_masks():
@@ -211,6 +290,7 @@ def test_cpu_wrappers_run_plain_versions_without_counting():
     np.testing.assert_array_equal(words(got), words(tpacked.superstep(p, tlife.CONWAY, 40)))
     cuda_packed.resident_superstep(tpacked.pack_vertical(torch.from_numpy(b)), tlife.CONWAY, 3)
     assert cuda_packed.resident_superstep.launches == cuda_packed.tiled_superstep.launches == 0
+    assert not cuda_packed.tiled_superstep.rules and not cuda_packed.resident_superstep.rules
 
 
 def test_wrappers_reject_bad_words():
@@ -259,27 +339,55 @@ def test_gpu_resident_kernel_matches_plain(cuda_device, rule, turns):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("rule", RULES)
+@pytest.mark.parametrize("rule", REG_RULES)
 @pytest.mark.parametrize(
     "shape,turns",
-    [((1024, 2048), 1), ((1024, 2048), 6), ((1024, 2048), 32), ((1024, 2048), 37),
-     ((1004, 3072), 70), ((40, 96), 45), ((1, 32), 9)],
+    [((16384, 16384), 1), ((16384, 16384), 6), ((16384, 16384), 32), ((16384, 16384), 37),
+     ((1024, 2048), 1000), ((1004, 3072), 70), ((40, 96), 45), ((1, 32), 9), ((3, 64), 45),
+     ((16, 96), 45), ((72, 4096), 45)],
 )
 def test_gpu_tiled_kernel_matches_plain(cuda_device, rule, shape, turns):
+    """K2 against its plain version at 16384² (1, 6, 32 and 37
+    generations), 1,000 generations, the odd board and the small and
+    degenerate tori, and against its block mirror on the card's blocks
+    where the mirror is quick; each launch counted in its rule's
+    instantiation."""
     b = random_board(np.random.default_rng(turns + shape[0]), *shape)
     p = tpacked.pack(torch.from_numpy(b)).to(cuda_device)
-    got = cuda_packed.tiled_superstep(p, tlife.RULES[rule], turns)
+    r = tlife.RULES[rule]
+    cuda_packed.reset_launches()
+    got = cuda_packed.tiled_superstep(p, r, turns)
     torch.cuda.synchronize()
-    assert torch.equal(got, tpacked.superstep(p, tlife.RULES[rule], turns))
+    n = len(cuda_packed.tiled_reg_launches(tuple(p.shape), turns,
+                                           cuda_adaptive.device_sms(cuda_device)))
+    variant = cuda_adaptive.REG_RULES[cuda_adaptive.reg_rule(r)[2]]
+    assert cuda_packed.tiled_superstep.rules == {variant: n}
+    assert torch.equal(got, tpacked.superstep(p, r, turns))
+    if shape[0] * shape[1] <= 2**22:
+        sms = cuda_adaptive.device_sms(cuda_device)
+        assert torch.equal(got, cuda_packed.tiled_reg_mirror(p, r, turns, sms=sms))
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("t,tile_h,tile_w", [(6, 16, 7), (31, 40, 62), (33, 48, 60)])
-def test_gpu_tiled_kernel_forced_plans(cuda_device, t, tile_h, tile_w):
+@pytest.mark.parametrize("t,tile_h,warps", [(6, 16, 1), (31, 40, 4), (33, 48, 4), (64, 40, 6)])
+def test_gpu_tiled_kernel_forced_plans(cuda_device, t, tile_h, warps):
     b = random_board(np.random.default_rng(t), 200, 4096)
     p = tpacked.pack(torch.from_numpy(b)).to(cuda_device)
-    plan = cuda_packed.TiledPlan(t, tile_h, tile_w, -(-t // 32))
+    plan = forced(tuple(p.shape), t, tile_h, warps)
     got = cuda_packed.tiled_superstep(p, tlife.CONWAY, 2 * t + 3, plan)
     torch.cuda.synchronize()
     assert torch.equal(got, tpacked.superstep(p, tlife.CONWAY, 2 * t + 3))
-    assert torch.equal(got, cuda_packed.tiled_superstep_mirror(p, tlife.CONWAY, 2 * t + 3, plan))
+    assert torch.equal(got, cuda_packed.tiled_reg_mirror(p, tlife.CONWAY, 2 * t + 3, plan))
+
+
+@pytest.mark.gpu
+def test_gpu_k3_and_k4_keep_their_tilings(cuda_device):
+    """K3 and K4 still launch on the first port's tiling, beside K2's new
+    blocks, and equal their plain versions."""
+    b = random_board(np.random.default_rng(3), 1024, 4096)
+    p = tpacked.pack(torch.from_numpy(b)).to(cuda_device)
+    got = cuda_adaptive.tiled_skip_superstep(p, tlife.CONWAY, 24)
+    assert torch.equal(got, cuda_adaptive.tiled_skip_superstep_plain(p, tlife.CONWAY, 24))
+    plan = cuda_adaptive.adaptive_plan(tuple(p.shape), 10**6)
+    out, skipped, act = cuda_adaptive.probing_superstep(p, tlife.CONWAY, plan, 4)
+    assert torch.equal(out, tpacked.superstep(p, tlife.CONWAY, 4 * plan.t))

@@ -1,5 +1,6 @@
 """K1, the resident kernel of the port (``ops/cuda_packed.py``,
-``csrc/resident.cu``), against the JAX package's ``_vmem_kernel``.
+``csrc/resident.cu``), against the JAX package's ``_vmem_kernel``, and
+K7, the same kernel with a board axis, against ``_vmem_kernel_batched``.
 
 On the CPU the wrapper runs its plain version, and the block mirror
 (``resident_superstep_mirror``) replays the CUDA kernel's decomposition:
@@ -7,9 +8,11 @@ the column runs with their halo lanes, the sub-runs a warp holds, the CTAs
 of the cluster and the exchange of edge columns and carries every
 generation.  Both are held bit for bit against
 ``distributed_gol_tpu.ops.pallas_packed._build_vmem_resident`` in
-interpret mode.  The plan's choice for each shape and its refusals are
-tested here too; the test marked ``gpu`` holds the kernel against its
-plain version on the card.
+interpret mode.  K7's batched mirror (each board through K1's block mirror
+on the batched plan) is held to ``_build_vmem_resident_batched`` the same
+way.  The plans' choices for each shape and stack, and their refusals,
+are tested here too; the tests marked ``gpu`` hold the kernels against
+their plain versions and mirrors on the card.
 
 The JAX package is imported inside the tests that compare with it:
 ``python -m pytest tests/test_torch_resident.py -m gpu --noconftest``
@@ -22,7 +25,7 @@ import pytest
 import torch
 
 from distributed_gol_torch.models import life as tlife
-from distributed_gol_torch.ops import cuda_packed, packed as tpacked
+from distributed_gol_torch.ops import cuda_adaptive, cuda_packed, packed as tpacked
 
 # One intra-op thread: the suite runs in parallel worker processes.
 torch.set_num_threads(1)
@@ -161,3 +164,93 @@ def test_gpu_k1_matches_plain_and_mirror(cells):
         want = cuda_packed.resident_superstep_plain(v, rule, 9)
         assert torch.equal(cuda_packed.resident_superstep(v, rule, 9), want)
         assert torch.equal(cuda_packed.resident_superstep_mirror(v, rule, 9), want)
+
+
+# -- K7: the batched form --------------------------------------------------------
+
+
+def vstack(nb, cells, seed):
+    return torch.stack([vwords(random_board(cells, seed + i)) for i in range(nb)])
+
+
+@pytest.mark.parametrize("rule", ["conway", "day-and-night"])
+@pytest.mark.parametrize("nb,cells", [(16, (512, 512)), (3, (1024, 1792)), (1, (512, 512))])
+def test_batched_mirror_matches_interpret_vmem_kernel_batched(ref, rule, nb, cells):
+    """K7's mirror at the batched plan (one CTA an SM of an H100) and its
+    plain version give the JAX batched resident kernel's words: the serving
+    pod's 16 x 512², the gate's edge 3 x 1024 x 1792, one board."""
+    v = vstack(nb, cells, nb + cells[1])
+    jv = ref.pallas._build_vmem_resident_batched(nb, tuple(v.shape[1:]), ref.life.RULES[rule], 9,
+                                                 True)(ref.jnp.asarray(v.numpy().view(np.uint32)))
+    want = np.asarray(jv)
+    r = tlife.RULES[rule]
+    plain = cuda_packed.resident_superstep_batched(v, r, 9)
+    mirror = cuda_packed.resident_superstep_batched_mirror(v, r, 9)
+    np.testing.assert_array_equal(plain.numpy().view(np.uint32), want)
+    np.testing.assert_array_equal(mirror.numpy().view(np.uint32), want)
+
+
+def test_batched_plan_takes_every_stack_at_512():
+    """Every B from 1 to 132 at 512² with a pinned active-cluster count
+    (two clusters a GPC of 16 SMs, 8 GPCs, a 128-CTA card): a valid plan
+    of the candidates, the least batched cost; one board takes K1's plan;
+    16 boards fit one wave of clusters of 8; 132 take smaller clusters."""
+    active = lambda p: 8 * (16 // p.cluster)  # noqa: E731
+    candidates = cuda_packed.resident_reg_candidates(16, 512)
+    for nb in range(1, 133):
+        plan = cuda_packed.resident_batched_plan(nb, 16, 512, active, 132)
+        assert plan in candidates and plan.shape == (16, 512)
+        best = min(cuda_packed.resident_batched_cost(p, nb, active(p), 132)
+                   for p in candidates if active(p) >= 1)
+        assert cuda_packed.resident_batched_cost(plan, nb, active(plan), 132) == best
+        if nb == 1:
+            assert plan == cuda_packed.resident_reg_plan(16, 512)
+        if nb == 16:
+            assert plan.cluster == 8 and -(-nb // active(plan)) == 1
+    assert plan.cluster < 8
+
+
+def test_batched_plan_prices_the_waves_and_refuses_what_the_card_cannot_hold():
+    plan = cuda_packed.resident_reg_plan(16, 512)
+    one = cuda_packed.resident_batched_cost(plan, 1, 16, 132)
+    assert cuda_packed.resident_batched_cost(plan, 16, 16, 132) == one
+    assert cuda_packed.resident_batched_cost(plan, 17, 16, 132) > 2 * one - 1
+    # Clusters that share SMs pay for it: 40 clusters of 8 on 132 SMs.
+    assert cuda_packed.resident_batched_cost(plan, 40, 40, 132) > 2 * one
+    with pytest.raises(ValueError, match="no cluster"):
+        cuda_packed.resident_batched_plan(4, 16, 512, lambda p: 0)
+    with pytest.raises(ValueError, match="does not fit"):
+        cuda_packed.resident_batched_plan(4, 1817, 32)
+
+
+def test_batched_mirror_takes_a_forced_plan_and_each_board_is_its_own_torus():
+    """Forced plans of several CTAs and of one, on a stack whose boards
+    differ: each slot equals K1's plain version on that board alone."""
+    v = vstack(3, (96, 1024), 4)
+    for plan in (forced((3, 1024), 8, 3, 1, 4), forced((3, 1024), 2, 1, 8, 1)):
+        got = cuda_packed.resident_superstep_batched_mirror(v, tlife.HIGHLIFE, 13, plan)
+        for i in range(3):
+            want = cuda_packed.resident_superstep_plain(v[i], tlife.HIGHLIFE, 13)
+            assert torch.equal(got[i], want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nb,cells", [(16, (512, 512)), (3, (1024, 1792)), (1, (512, 512)),
+                                      (132, (512, 512)), (2, (64, 96))])
+def test_gpu_k7_matches_plain_mirror_and_k1(nb, cells):
+    """K7 on the card's plan against its plain version, its batched mirror
+    at that plan and, slot 0, a lone K1 launch, under each instantiation's
+    rule; each launch counted in its rule's instantiation."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is False")
+    v = vstack(nb, cells, 7).cuda()
+    for rule in (tlife.CONWAY, tlife.HIGHLIFE, tlife.DAY_AND_NIGHT):
+        cuda_packed.reset_launches()
+        got = cuda_packed.resident_superstep_batched(v, rule, 9)
+        plan = cuda_packed.card_batched_plan(v, rule)
+        assert torch.equal(got, cuda_packed.resident_superstep_batched_plain(v, rule, 9))
+        assert torch.equal(got, cuda_packed.resident_superstep_batched_mirror(v, rule, 9, plan))
+        assert torch.equal(got[0], cuda_packed.resident_superstep(v[0].contiguous(), rule, 9))
+        variant = cuda_adaptive.REG_RULES[cuda_adaptive.reg_rule(rule)[2]]
+        assert cuda_packed.resident_superstep_batched.rules == {variant: 1}
+        assert cuda_packed.card_active_clusters(v.device, rule)(plan) >= 1

@@ -1,7 +1,7 @@
-"""Time K1, K6, K9-K11, K13 and the frontier kernels of a checkout of the PyTorch port on one CUDA card.
+"""Time K1, K2, K6, K7, K9-K11, K13 and the frontier kernels of a checkout of the PyTorch port on one CUDA card.
 
-    python3 tools/regwin_ab.py [--root DIR] [--label NAME] [--out FILE] [--paths]
-                               [--sweep | --sweep-frontier]
+    python3 tools/regwin_ab.py [--root DIR] [--label NAME] [--out FILE] [--paths [--path NAME ...]]
+                               [--sweep | --sweep-frontier | --sweep-k2-k7]
 
 Imports ``distributed_gol_torch`` from ``--root`` (default: the checkout
 holding this script), builds its ``resident``, ``ext``, ``probing``,
@@ -52,13 +52,23 @@ fresh and settled boards at path (g)'s plan and path (e)'s loose-tail plan,
 8 launches from a zero bitmap (``time_k11``); K4
 (``cuda_adaptive.probing_superstep``) on the 16384² boards as their
 control (``time_k4``); and the SASS of K6's, K11's and K13's loops
-(``probing_stencil_sass``).  ``--sweep-frontier`` times each frontier
+(``probing_stencil_sass``).  K2 (``cuda_packed.tiled_superstep``) one
+launch of 32 generations of the 16384² soup and its remainder depth of
+16, K3 (``cuda_adaptive.tiled_skip_superstep``, 24 generations) as its
+control (``time_k2``), K7 on the edge of its gate, 3 x 1024 x 1792 x 64
+(``time_k1``), and the SASS of K2's loop (``tiled_sass``).
+``--sweep-frontier`` times each frontier
 kernel at every row tile its plan weighs; ``--sweep`` also times K1 at
 512² at each cluster size its plan weighs (the cheapest plan of each; the
 exchange is every generation) and K10 at every block height of its plan,
 and K6 at every run height and K11 at every block height
-(``sweep_k6_k11``), on a checkout that has those plans.  ``--paths`` also
-runs the frames viewer, path (g) and path (e) end to end (``time_paths``).
+(``sweep_k6_k11``), and K2 at every block height at its plan's depth
+(32) and at 64, and K7 at every cluster size of 16 x 512², 3 x 1024 x
+1792 and 132 x 512² (``sweep_k2_k7``; ``--sweep-k2-k7`` these alone), on
+a checkout that has those plans.
+``--paths`` also runs the frames viewer, path (g), path (e), the 16384² x
+2,000 headless run and serving pod (a) end to end (``time_paths``;
+``--path`` picks some of them).
 Prints one JSON object with the card's name and power limit.
 
 To compare two commits on one card, unpack the parent into a directory
@@ -161,6 +171,7 @@ def kernels(*names: str) -> dict:
 
 
 POD_C = (4, 4096)  # serving path (c): tenants, side
+POD_RUNS = 3  # timed runs of serving pod (a) a checkout
 
 
 def pod_stack(packed_soup, seed: int) -> torch.Tensor:
@@ -259,16 +270,126 @@ def time_k1(cuda_packed, packed, soup, rule) -> dict:
     def k7():
         return cuda_packed.resident_superstep_batched(stack, rule, 64)
 
+    edge = packed.pack_vertical(torch.stack([soup(1024, 1792, 41 + i, vertical=True)
+                                             for i in range(3)])).contiguous()
+
+    def k7_edge():
+        return cuda_packed.resident_superstep_batched(edge, rule, 64)
+
+    def k1_edge():
+        return [cuda_packed.resident_superstep(b, rule, 64) for b in edge]
+
     resident = (lambda k: "resident" in k and "batched" not in k)
     out = dict(
         k1_512_x50=dict(**batches(k1, 20), device_ms=device_ms(k1, 20, resident)),
         k1_16x512_x64_sequential=dict(**batches(sixteen, 5),
                                       device_ms_per_launch=device_ms(sixteen, 5, resident)),
-        k7_16x512_x64=dict(**batches(k7, 20), device_ms=device_ms(k7, 20, resident)))
+        k7_16x512_x64=dict(**batches(k7, 20), device_ms=device_ms(k7, 20, resident)),
+        k7_3x1024x1792_x64=dict(**batches(k7_edge, 10), device_ms=device_ms(k7_edge, 10, resident)),
+        k1_3x1024x1792_x64_sequential=dict(**batches(k1_edge, 5),
+                                           device_ms_per_launch=device_ms(k1_edge, 5, resident)))
     plan = getattr(cuda_packed, "resident_reg_plan", None)
     if plan is not None:
         out["plan"] = str(plan(16, 512))
+    if hasattr(cuda_packed, "card_batched_plan"):
+        out["k7_plans"] = {"16x512": str(cuda_packed.card_batched_plan(stack, rule)),
+                           "3x1024x1792": str(cuda_packed.card_batched_plan(edge, rule))}
     return out
+
+
+def tiled_kernel(k: str) -> bool:
+    """Whether a profiler key is K2's kernel, the register form or the
+    first port's."""
+    return "tiled_reg_kernel" in k or "::tiled_kernel" in k
+
+
+def time_k2(cuda_adaptive, cuda_packed, big, rule) -> dict:
+    """K2 one launch of 32 generations of the 16384² soup and one of the
+    main path's remainder depth (2,000 = 62 x 32 + 16), and K3 (24
+    generations, the skip proof) as its control: median and spread of ``BATCHES`` batches of 10
+    launches, and device ms a launch."""
+    out = {}
+    for t in (32, 16):
+        def k2(t=t):
+            return cuda_packed.tiled_superstep(big, rule, t)
+
+        out[f"k2_x{t}"] = dict(**batches(k2, 10), device_ms=device_ms(k2, 10, tiled_kernel))
+    if hasattr(cuda_packed, "tiled_reg_plan"):
+        out["plan"] = str(cuda_packed.tiled_reg_plan(tuple(big.shape), 64, 132))
+
+    def k3():
+        return cuda_adaptive.tiled_skip_superstep(big, rule, 24)
+
+    out["k3_x24"] = dict(**batches(k3, 10), device_ms=device_ms(k3, 10,
+                                                                lambda k: "tiled_skip" in k))
+    return out
+
+
+def tiled_sass(cuda_build) -> dict:
+    """The SASS of K2's loop in this checkout's ``tiled`` build
+    (``tools/sass_loop_count.py``): the register kernel's generation loop,
+    or the first port's shared-memory row loop."""
+    sys.path.insert(1, str(Path(__file__).resolve().parent))
+    import sass_loop_count as slc
+
+    return {k: v for k, v in slc.kernel_loops(cuda_build, ("tiled",)).items()
+            if k.startswith("K2")}
+
+
+def sweep_k2_k7(cuda_adaptive, cuda_packed, packed, big, soup, rule) -> list:
+    """K2 on the 16384² soup at every block height ``tiled_reg_plan``
+    weighs, at its depth of 32 and at 64 (``ext_reg_plan``'s tallest tile
+    of 1 to 16 warps, forced through the wrapper's ``plan``; 64
+    generations a call),
+    and K7 x 64 at every cluster size of 16 x 512², 3 x 1024 x 1792 and
+    132 x 512² (the cheapest plan of each size by the batched cost on the
+    card's active clusters, forced in place of ``card_batched_plan``):
+    device ms, beside the plan's cost and pick."""
+    from distributed_gol_torch.ops.cuda_adaptive import REG_MAX_WARPS, REG_RUN, RegPlan
+
+    rows = []
+    h, wp = big.shape
+    pick = cuda_packed.tiled_reg_plan((h, wp), 64, 132)
+    for t in (32, 64):
+        border = -(-t // 32)
+        for warps in range(1, REG_MAX_WARPS + 1):
+            tallest = warps * REG_RUN - 2 * t
+            if tallest < 1:
+                continue
+            nrb = -(-h // tallest)
+            tile_h = -(-h // nrb)
+            plan = RegPlan(t, t, tile_h, -(-(tile_h + 2 * t) // REG_RUN),
+                           (nrb, -(-wp // (32 - 2 * border))), border)
+            rows.append(dict(kernel="K2", t=t, plan=str(plan), cost_per_gen=plan.cost(132) / t,
+                             chosen=plan == pick, device_ms_per_gen=device_ms(
+                                 lambda: cuda_packed.tiled_superstep(big, rule, 64, plan), 5,
+                                 tiled_kernel) / t))
+    chosen = cuda_packed.card_batched_plan
+    stacks = {"16x512": (16, 512, 512), "3x1024x1792": (3, 1024, 1792), "132x512": (132, 512, 512)}
+    try:
+        for key, (nb, hh, ww) in stacks.items():
+            v = packed.pack_vertical(torch.stack([soup(hh, ww, 61 + i, vertical=True)
+                                                  for i in range(nb)])).contiguous()
+            active = cuda_packed.card_active_clusters(v.device, rule)
+            pick = chosen(v, rule)
+            best = {}
+            for p in cuda_packed.resident_reg_candidates(hh // 32, ww):
+                n = active(p)
+                if n < 1:
+                    continue
+                cost = cuda_packed.resident_batched_cost(p, nb, n, 132)
+                if p.cluster not in best or cost < best[p.cluster][0]:
+                    best[p.cluster] = (cost, p, n)
+            for cluster, (cost, plan, n) in sorted(best.items()):
+                cuda_packed.card_batched_plan = lambda *a, _p=plan: _p
+                rows.append(dict(kernel="K7", stack=key, cluster=cluster, plan=str(plan),
+                                 cost=cost, active=n, waves=-(-nb // n), chosen=plan == pick,
+                                 device_ms=device_ms(
+                                     lambda: cuda_packed.resident_superstep_batched(v, rule, 64),
+                                     10, lambda k: "resident" in k)))
+    finally:
+        cuda_packed.card_batched_plan = chosen
+    return rows
 
 
 def k10_cases(halo, shards, big, boards, soup) -> list:
@@ -521,15 +642,53 @@ def sweep_k6_k11(cuda_stencil, cuda_halo, shards, boards, byte_soup, rule) -> li
     return rows
 
 
-def time_paths(dev) -> dict:
-    """The main paths K6 and K11 carry, each through ``gol.run`` of the
-    checkout on the card with its stream consumed as it is produced, on
-    the 16384² soup (density 0.3, seed 7): the frames viewer x 500 (K6 a
-    turn), path (g) (x 2,000 on (4, 1) virtual strips at a stripe cap of
-    16, ``skip_stable``: K11) and path (e) (x 100,000 on (4, 1) under
-    auto: K14 chunks, K11's loose tails).  Each run's seconds and its
-    dispatch loop's (the MetricsReport's ``controller.dispatch_seconds``),
-    after one warm-up run of each."""
+def time_pod(dev) -> dict:
+    """Serving pod (a) through ``ServePlane`` in process: 16 tenants of
+    512² soups (density 0.3, seeds 100..115) x 10,000 turns, batched,
+    superstep 64 (K7), ``POD_RUNS`` times after one warm-up pod: each
+    run's wall-clock, aggregate gens/s and K7 launches, and the median
+    and spread of the aggregate rate."""
+    import tempfile
+
+    import distributed_gol_torch as gol
+    from distributed_gol_torch.ops import cuda_packed
+    from distributed_gol_torch.serve import ServeConfig, ServePlane
+
+    nt, side, turns, superstep = 16, 512, 10_000, 64
+    seen = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for rep in range(POD_RUNS + 1):
+            params = [gol.Params(turns=turns, image_width=side, image_height=side,
+                                 soup_density=0.3, soup_seed=100 + i, superstep=superstep,
+                                 turn_events="batch", ticker_period=3600, device=dev.type,
+                                 out_dir=Path(tmp) / f"{rep}" / f"t{i}") for i in range(nt)]
+            config = ServeConfig(max_sessions=nt, batched=True, max_total_cells=nt * side * side)
+            before = cuda_packed.resident_superstep_batched.launches
+            t0 = time.perf_counter()
+            with ServePlane(config) as plane:
+                handles = [plane.submit(f"t{i}", p) for i, p in enumerate(params)]
+                if not plane.wait_idle(timeout=900):
+                    raise RuntimeError("pod (a): tenants still resident after 900 s")
+                wall = time.perf_counter() - t0
+            if any(h.status != "completed" for h in handles):
+                raise RuntimeError("pod (a): a tenant did not complete")
+            seen.append(dict(wall_s=wall, aggregate_gens_per_s=nt * turns / wall,
+                             k7_launches=cuda_packed.resident_superstep_batched.launches - before))
+    return dict(runs=seen[1:], aggregate_gens_per_s=spread(
+        [r["aggregate_gens_per_s"] for r in seen[1:]]))
+
+
+def time_paths(dev, names=None) -> dict:
+    """The main paths K2, K6, K7 and K11 carry, each through ``gol.run`` of
+    the checkout on the card with its stream consumed as it is produced,
+    on the 16384² soup (density 0.3, seed 7): the frames viewer x 500 (K6
+    a turn), path (g) (x 2,000 on (4, 1) virtual strips at a stripe cap of
+    16, ``skip_stable``: K11), path (e) (x 100,000 on (4, 1) under auto:
+    K14 chunks, K11's loose tails) and the headless run x 2,000 on one
+    device (K2); and serving pod (a) (K7, ``time_pod``).  Each run's
+    seconds and its dispatch loop's (the MetricsReport's
+    ``controller.dispatch_seconds``), after one warm-up run of each.
+    ``names`` picks some of them (None: all)."""
     import tempfile
 
     import distributed_gol_torch as gol
@@ -540,10 +699,13 @@ def time_paths(dev) -> dict:
     runs = {"frames_x500": dict(turns=500, no_vis=False),
             "g_4x1_cap16_x2000": dict(turns=2000, skip_stable=True, skip_tile_cap=16,
                                       mesh_shape=(4, 1), turn_events="batch"),
-            "e_4x1_x100000": dict(turns=100_000, mesh_shape=(4, 1), turn_events="batch")}
+            "e_4x1_x100000": dict(turns=100_000, mesh_shape=(4, 1), turn_events="batch"),
+            "one_device_x2000": dict(turns=2000, turn_events="batch")}
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         for key, kw in runs.items():
+            if names and key not in names:
+                continue
             seen = []
             for rep in range(2):
                 params = gol.Params(out_dir=Path(tmp) / f"{key}_{rep}", device=dev.type, **soup,
@@ -568,6 +730,10 @@ def time_paths(dev) -> dict:
                     "controller.dispatch_seconds"]["sum"],
                     engine=report["info"]["backend.engine"]))
             out[key] = seen[-1]
+            out[key]["gens_per_s"] = kw["turns"] / out[key]["seconds"]
+            out[key]["loop_gens_per_s"] = kw["turns"] / out[key]["loop_s"]
+    if not names or "pod_a" in names:
+        out["pod_a"] = time_pod(dev)
     return out
 
 
@@ -668,8 +834,15 @@ def main() -> int:
                     help="also time K9, K10, K11, K13 and the frontier kernels at every block "
                          "height the plans weigh, K1 at every cluster size and K6 at every "
                          "run height")
+    ap.add_argument("--sweep-k2-k7", action="store_true",
+                    help="also time K2 at every block height and depth its plan weighs and K7 "
+                         "at every cluster size")
     ap.add_argument("--paths", action="store_true",
-                    help="also time the frames viewer, path (g) and path (e) end to end")
+                    help="also time the frames viewer, paths (g) and (e), the 16384^2 x 2,000 "
+                         "run and pod (a) end to end")
+    ap.add_argument("--path", action="append", default=[],
+                    help="with --paths, time only this path (frames_x500, g_4x1_cap16_x2000, "
+                         "e_4x1_x100000, one_device_x2000, pod_a); may repeat")
     ap.add_argument("--sweep-frontier", action="store_true",
                     help="also time K15, K12, K5, K14 and K8 at every block height their "
                          "plan weighs")
@@ -689,7 +862,7 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     t0 = time.perf_counter()
-    cuda_build.build("resident", "ext", "probing", "tiled", "frontier", "stencil")
+    cuda_build.build("resident", "ext", "probing", "tiled", "tiled_skip", "frontier", "stencil")
 
     def soup(h, w, seed, vertical=False):
         b = torch.from_numpy(random_soup(h, w, 0.3, seed)).to(dev)
@@ -782,12 +955,14 @@ def main() -> int:
     out["k6"] = time_k6(cuda_stencil, byte_soup, CONWAY)
     out["k11"] = time_k11(cuda_halo, shards, boards, CONWAY)
     out["k4"] = time_k4(cuda_adaptive, boards, CONWAY)
+    out["k2"] = time_k2(cuda_adaptive, cuda_packed, boards["fresh"], CONWAY)
+    out["tiled_sass"] = tiled_sass(cuda_build)
     try:
         out["probing_stencil_sass"] = probing_stencil_sass(cuda_build)
     except (ValueError, subprocess.CalledProcessError) as exc:  # a loop the parser cannot find
         out["probing_stencil_sass"] = dict(error=repr(exc))
     if args.paths:
-        out["paths"] = time_paths(dev)
+        out["paths"] = time_paths(dev, args.path)
     if args.sweep:
         out["sweep"] = sweep(cuda_halo, halo, shards, big, boards, CONWAY) + sweep_frontier(
             cuda_halo, frontier)
@@ -796,8 +971,14 @@ def main() -> int:
         if hasattr(cuda_stencil, "RUN_ROWS") and hasattr(cuda_halo, "strip_reg_plan"):
             out["sweep"] += sweep_k6_k11(cuda_stencil, cuda_halo, shards, boards, byte_soup,
                                          CONWAY)
+        if hasattr(cuda_packed, "tiled_reg_plan"):
+            out["sweep"] += sweep_k2_k7(cuda_adaptive, cuda_packed, packed, boards["fresh"],
+                                        soup, CONWAY)
     elif args.sweep_frontier:
         out["sweep"] = sweep_frontier(cuda_halo, frontier)
+    elif args.sweep_k2_k7:
+        out["sweep"] = sweep_k2_k7(cuda_adaptive, cuda_packed, packed, boards["fresh"], soup,
+                                   CONWAY)
     out["seconds"] = time.perf_counter() - t0
     line = json.dumps(out)
     print(line)

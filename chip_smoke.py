@@ -76,9 +76,14 @@ K12, K13, K15 and their controls K2, K4, K5, K8, K10 and K14 as the
 median and spread of 5 event-timed batches, K13 also back to back), and
 prints one
 ``{"kernels": [...]}`` line, the card's name and power limit, and last
-``{"ok": true, "device": {...}}``.  The build fails the run if K1/K7, K2,
-K5/K8, K6, K9-K15 (``csrc/regwin.cuh``, K1's and K6's kernels) spills a
-register (``-Xptxas -v``).  K2 is held at every rule instantiation on
+``{"ok": true, "device": {...}}``.  The build fails the run if any of the
+fifteen kernels (``csrc/regwin.cuh``, K1's and K6's) spills a register
+(``-Xptxas -v``).  K3 and K4 (with their skip counts and activity) are
+held under every rule instantiation to their block mirrors on the card
+(``cuda_adaptive.tiled_skip_reg_mirror``,
+``probing_superstep_reg_mirror``) at 16384², fresh and settled, on narrow
+boards, a board of one stripe and tori shorter than K3's halo, and timed
+fresh and settled with their device ms.  K2 is held at every rule instantiation on
 16384², the odd board and the small and degenerate tori, there also
 against its block mirror on the card (``cuda_packed.tiled_reg_mirror``);
 K7 at four stacks (132 x 512² among them) under every instantiation,
@@ -154,12 +159,13 @@ REG_RULES = (*RULES, DAY_AND_NIGHT)
 # Event-timed batches behind the median and spread of the K9 and K13 rows
 # and of their controls (K2, K4, K5, K10).
 BATCHES = 5
-# The kernels of regwin.cuh (K2 among them), K1's and K7's register
+# The kernels of regwin.cuh (K2-K4 among them), K1's and K7's register
 # kernel and K6, which must build without spills.
 REG_KERNELS = ("ext_reg_kernel", "ext_skip_reg_kernel", "tile_probing_reg_kernel",
                "strip_probing_reg_kernel", "frontier_reg_kernel", "strip_frontier_reg_kernel",
                "strip_mega_reg_kernel", "tile_mega_reg_kernel", "resident_reg_kernel",
-               "stencil_kernel", "tiled_reg_kernel")
+               "stencil_kernel", "tiled_reg_kernel", "board_probing_reg_kernel",
+               "tiled_skip_reg_kernel")
 # K1's boards beside the main path's 512²: (H, W) cells at the gate's
 # ragged and extreme shapes (one word row 32, 96 and 58,112 wide, three
 # word rows, 40 word rows of 32 columns, 1,816 of them, 64², a serving
@@ -178,6 +184,15 @@ TILED_ODD = (1004, 3072)  # H % 8 != 0 and W/32 % 128 != 0: refused by the TPU g
 # K2's small and degenerate tori (cells): 1-, 2- and 3-row boards, boards
 # shorter than their halo and narrower than a warp's window.
 TILED_SMALL = ((1, 32), (3, 64), (16, 96), (2, 96), (72, 4096))
+# K4's boards beside 16384² (cells, plan): a 3-word board of one stripe
+# (narrower than a warp's window), 16-row stripes whose blocks span
+# several, and 30 stripes of 16 rows on a board with no frontier plan.
+K4_SMALL = (((64, 96), cuda_adaptive.AdaptivePlan(12, 64, True)),
+            ((128, 2112), cuda_adaptive.AdaptivePlan(6, 16, True)),
+            ((480, 4096), cuda_adaptive.AdaptivePlan(6, 16, False)))
+# K3's tori shorter than its halo or narrower than a warp's window (cells,
+# T): 8 x 96 at 18, one word at 30, one row, three rows.
+K3_SHORT = (((8, 96), 18), ((16, 32), 30), ((1, 32), 6), ((3, 64), 24))
 # K7's stacks: the serving pod's 16 x 512², the gate's edge 3 x 1024 x
 # 1792, one board, and a full card's 132 x 512².
 K7_STACKS = ((16, 512, 512), (3, 1024, 1792), (1, 512, 512), (132, 512, 512))
@@ -905,6 +920,60 @@ def check_k5_blocks(errs: dict, boards: dict, plan) -> None:
             log(f"K5 {BIG}^2 x 8 launches ({blocks}) {name} {rule.notation} "
                 f"({instantiation(rule)}): identical to the plain version and the block mirror, "
                 f"skipped {int(got[1])}")
+
+
+def check_skip_blocks(device, errs: dict, boards: dict) -> None:
+    """K4 and K3 against their block mirrors run on the card at the card's
+    blocks (``probing_superstep_reg_mirror``, ``tiled_skip_reg_mirror``)
+    and against their plain versions, tolerance 0 (K4: board, skip count
+    and activity), under ``REG_RULES`` (Day & Night takes the generic
+    instantiation), each launch counted in the rule's instantiation: K4
+    over 8 launches from a zero bitmap on each 16384² board at the port's
+    plan and on ``K4_SMALL`` (fresh, and after 300 generations), K3 at 6,
+    12, 18 and 24 generations on each 16384² board and on ``K3_SHORT``."""
+    sms = cuda_adaptive.device_sms(device)
+    plan = cuda_adaptive.adaptive_plan((BIG, BIG // 32), 10**6)
+    small = {}
+    for shape, aplan in K4_SMALL:
+        p = packed.pack(board(*shape, shape[0] + shape[1], device))
+        small[shape] = (aplan, [p, cuda_packed.tiled_superstep(p, CONWAY, 300)])
+    short = {shape: (t, packed.pack(board(*shape, 31 + shape[0], device))) for shape, t in K3_SHORT}
+    for rule in REG_RULES:
+        reset_launches()
+        k4_cases = [(f"{BIG}^2 {name}", plan, p) for name, p in boards.items()] + [
+            (f"{s[0]}x{s[1]} #{i}", ap, p) for s, (ap, ps) in small.items() for i, p in enumerate(ps)]
+        for what, aplan, p in k4_cases:
+            got = cuda_adaptive.probing_superstep(p, rule, aplan, 8)
+            torch.cuda.synchronize()
+            for how, want in (("block mirror", cuda_adaptive.probing_superstep_reg_mirror(
+                                  p, rule, aplan, 8, sms=sms)),
+                              ("plain", cuda_adaptive.probing_superstep_mirror(p, rule, aplan, 8))):
+                err = max(max_abs_err(a, b) for a, b in zip(got, want))
+                errs["probing"] = max(errs["probing"], err)
+                if err:
+                    raise AssertionError(f"K4 x 8 != its {how} on {what} under {rule.notation}")
+        k3_cases = [(f"{BIG}^2 {name}", t, p) for name, p in boards.items() for t in (6, 12, 18, 24)]
+        k3_cases += [(f"{s[0]}x{s[1]}", t, p) for s, (t, p) in short.items()]
+        for what, t, p in k3_cases:
+            got = cuda_adaptive.tiled_skip_superstep(p, rule, t)
+            torch.cuda.synchronize()
+            for how, want in (("block mirror", cuda_adaptive.tiled_skip_reg_mirror(p, rule, t,
+                                                                                   sms=sms)),
+                              ("plain", cuda_adaptive.tiled_skip_superstep_plain(p, rule, t))):
+                err = max_abs_err(got, want)
+                errs["tiled_skip"] = max(errs["tiled_skip"], err)
+                if err:
+                    raise AssertionError(f"K3 x {t} != its {how} on {what} under {rule.notation}")
+        counts = (dict(cuda_adaptive.probing_superstep.rules),
+                  dict(cuda_adaptive.tiled_skip_superstep.rules))
+        if counts != ({instantiation(rule): 8 * len(k4_cases)},
+                      {instantiation(rule): len(k3_cases)}):
+            raise AssertionError(f"K4 and K3 under {rule.notation} ran {counts}")
+        log(f"K4 x 8 launches on {[w for w, _, _ in k4_cases]} and K3 on "
+            f"{[f'{w} x {t}' for w, t, _ in k3_cases]} {rule.notation} ({instantiation(rule)}): "
+            f"identical to their block mirrors and plain versions")
+    log(f"K4's blocks at {BIG}^2: {cuda_adaptive.probing_reg_plan(plan, (BIG, BIG // 32), sms)}; "
+        f"K3's at 24: {cuda_adaptive.tiled_skip_reg_plan((BIG, BIG // 32), 24, sms)}")
 
 
 def check_ext(device, errs: dict) -> dict:
@@ -2332,15 +2401,17 @@ def work_bound_ms(words_moved: float, words_computed: float, gens: int, rule: Li
 
 
 def time_adaptive(boards: dict, int_rate: float) -> dict:
-    """Per-launch times of K3, K4 and K5 at 16384² on each board (K4's and
-    K5's the median and spread of ``BATCHES`` batches), beside K2 at the
-    same T and the plain versions, with each launch's bound from
-    its own skip telemetry: K5 over a 64-launch chunk, K4 over 8 launches
-    from a zero bitmap (both move only the stripes they compute), K3 one
-    launch (it writes the whole board; its computed stripes are those K4's
-    first launch does not prove stable).  The ``dead`` board's times are
-    the launch floor: it has no work."""
+    """Per-launch times of K3, K4 and K5 at 16384² on each board (the median
+    and spread of ``BATCHES`` batches, and K3's and K4's device ms a launch
+    from ``torch.profiler``), beside K2 at the same T and the plain
+    versions, with each launch's bound from its own skip telemetry: K5 over
+    a 64-launch chunk, K4 over 8 launches from a zero bitmap (both move
+    only the stripes they compute), K3 one launch (it writes the whole
+    board; its computed stripes are those K4's first launch does not prove
+    stable).  The ``dead`` board's times are the launch floor: it has no
+    work."""
     plan = cuda_adaptive.adaptive_plan((BIG, BIG // 32), 10**6)
+    sms = cuda_adaptive.device_sms(boards["fresh"].device)
     grid = plan.grid(BIG)
     stripe_words = plan.stripe_h * BIG // 32
     out = {}
@@ -2354,18 +2425,25 @@ def time_adaptive(boards: dict, int_rate: float) -> dict:
         row = {
             "tiled_same_t_ms": cuda_ms(lambda: cuda_packed.tiled_superstep(p, CONWAY, plan.t), 10),
             "tiled_skip": dict(
-                ms=cuda_ms(lambda: cuda_adaptive.tiled_skip_superstep(p, CONWAY, plan.t), 10),
+                ms_spread=cuda_ms_spread(
+                    lambda: cuda_adaptive.tiled_skip_superstep(p, CONWAY, plan.t), 10),
+                device_ms=device_ms(lambda: cuda_adaptive.tiled_skip_superstep(p, CONWAY, plan.t),
+                                    10, "tiled_skip_reg_kernel"),
+                blocks=str(cuda_adaptive.tiled_skip_reg_plan((BIG, BIG // 32), plan.t, sms)),
                 plain_ms=cuda_ms(lambda: cuda_adaptive.tiled_skip_superstep_plain(p, CONWAY, plan.t), 2)),
             "probing": dict(
                 ms_spread=per_launch(cuda_ms_spread(
                     lambda: cuda_adaptive.probing_superstep(p, CONWAY, plan, 8), 5), 8),
+                device_ms=device_ms(lambda: cuda_adaptive.probing_superstep(p, CONWAY, plan, 8),
+                                    1, "board_probing_reg_kernel"),
+                blocks=str(cuda_adaptive.probing_reg_plan(plan, (BIG, BIG // 32), sms)),
                 plain_ms=cuda_ms(lambda: cuda_adaptive.probing_superstep_mirror(p, CONWAY, plan, 8), 1) / 8),
             "frontier": dict(
                 ms_spread=per_launch(cuda_ms_spread(
                     lambda: cuda_adaptive.frontier_superstep(p, CONWAY, plan, 64), 3), 64),
                 plain_ms=cuda_ms(lambda: cuda_adaptive.frontier_superstep_mirror(p, CONWAY, plan, 64), 1) / 64),
         }
-        for k in ("probing", "frontier"):
+        for k in ADAPTIVE:
             row[k]["ms"] = row[k]["ms_spread"]["median"]
         for k in ADAPTIVE:
             moved = p.numel() if k == "tiled_skip" else computed[k] * stripe_words
@@ -2373,6 +2451,8 @@ def time_adaptive(boards: dict, int_rate: float) -> dict:
             row[k].update(computed_stripes_per_launch=computed[k], bound_ms=b_ms, bound_by=b_by)
         out[name] = row
         log(f"{name} board, {plan}: K2 {row['tiled_same_t_ms']:.4f} ms per {plan.t}-gen launch; "
+            f"device ms a launch: K3 {row['tiled_skip']['device_ms']:.4f}, K4 "
+            f"{row['probing']['device_ms']:.4f}; "
             + "; ".join(f"{k} {row[k]['ms']:.4f} ms (plain {row[k]['plain_ms']:.3f}, bound "
                         f"{row[k]['bound_ms']:.4f} by {row[k]['bound_by']}, "
                         f"{row[k]['computed_stripes_per_launch']:.2f} of {grid} stripes computed)"
@@ -2971,8 +3051,9 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  {k}: {line.strip()}")
     reg_build = {k: reg_build_report(cuda_build.build_log(k))
-                 for k in ("ext", "probing", "frontier", "resident", "stencil", "tiled")}
-    log(f"K1, K2, K5/K8, K6, K7 and K9-K15 build without spills: "
+                 for k in ("ext", "probing", "frontier", "resident", "stencil", "tiled",
+                           "tiled_skip")}
+    log(f"all fifteen kernels build without spills: "
         f"{ {k: [r['registers'] for r in v.values()] for k, v in reg_build.items()} } registers")
     plan = cuda_packed.tiled_reg_plan((BIG, BIG // 32), 10**6, cuda_adaptive.device_sms(device))
     k1_plan = cuda_packed.resident_reg_plan(16, 512)
@@ -2986,6 +3067,7 @@ def main() -> int:
     check_tiled(device, errs)
     boards = {"fresh": packed.pack(board(BIG, BIG, 13, device)), "settled": settled_board(device)}
     check_adaptive(errs, boards)
+    check_skip_blocks(device, errs, boards)
     check_stencil(device, errs)
     check_resident_batched(device, errs)
     k8_stacks = check_frontier_batched(device, errs)
@@ -3152,6 +3234,9 @@ def main() -> int:
                               tiled_same_t_ms={name: row["tiled_same_t_ms"]
                                                for name, row in adaptive["boards"].items()}))
 
+    timings["probing"]["extra"]["build"] = {
+        n: r for n, r in reg_build["probing"].items() if "board_probing_reg_kernel" in n}
+    timings["tiled_skip"]["extra"]["build"] = reg_build["tiled_skip"]
     for k, mangled in FRONTIER_REG.items():
         timings[k].setdefault("extra", {})["build"] = {
             n: r for n, r in reg_build["frontier"].items() if mangled in n}

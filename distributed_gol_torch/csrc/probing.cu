@@ -1,4 +1,4 @@
-// K4: the probing kernel.  Replaces
+// K4: the probing kernel (gol_probing_launch).  Replaces
 // distributed_gol_tpu/ops/pallas_packed.py::_kernel_adaptive (body
 // _route_active), the per-launch adaptive form that _run_tiled runs for
 // the tail of a dispatch below one frontier chunk, and for every launch on
@@ -12,22 +12,24 @@
 //   count) were 1 does nothing: flag 1, no read, no write.  Its rows in
 //   `out` — the buffer written two launches ago — already hold the state
 //   of two launches ago, which equals this launch's (write elision);
-// - otherwise every tile of the stripe probes as K3 does, with the JAX
-//   kernel's halo pad = round8(T), so that the inner region each tile
-//   tests is a piece of the region _probe_state tests on the stripe's
-//   window (rows [6, stripe_h + 2*pad - 6) and every cell), and their
-//   union is all of it.  A tile that fails clears the stripe's flag: the
-//   flag is the AND over the stripe's tiles, which is the JAX flag.
+// - otherwise its blocks probe with the JAX kernel's halo pad = round8(T),
+//   each on its window's inner region, and the union of a stripe's
+//   blocks' regions is the region _probe_state tests on the stripe's
+//   window (rows [6, stripe_h + 2*pad - 6) and every cell).  A block that
+//   fails clears the stripe's flag: the flag is the AND over the stripe's
+//   blocks, which is the JAX flag.
+// Launch 1 of a run gets an all-zero `prev`, so it writes every stripe
+// and both ping-pong buffers are defined before any elision.
 //
-// Tiles are 2-D (row sub-tiles of a stripe x word columns with a one-word
-// column halo), so a stripe of any height fits shared memory; every tile
-// writes its centre (the input when its own probe passed — exact by the
-// same proof).  Launch 1 of a run gets an all-zero `prev`, so it writes
-// every stripe and both ping-pong buffers are defined before any elision.
-//
-// What bounds it: integer operations on the stripes it computes (6 + T
-// generations on a failed probe, 6 on a passed one) and nothing on the
-// stripes it elides.
+// It is K11's and K13's register probing block (probe_reg_block) on a
+// third source, the board itself read in place as the torus
+// (BoardProbeSource: reg::column of a BoardSource, rows wrapping once
+// around the board since pad <= stripe_h <= h, words modulo wp): no
+// pre-extended copy.  A block divides a stripe or spans up to 32 whole
+// stripes, as K11's (ops/cuda_adaptive.py::probing_reg_plan).  A board
+// narrower than a warp's window wraps it onto itself as K11's strips do,
+// each lane but the edge ones beside its true neighbours, and a board of
+// one stripe is its own neighbour on both sides.
 //
 // K13: the probing tile launch (gol_tile_probing_launch).  Replaces
 // distributed_gol_tpu/parallel/pallas_halo.py::_ext_kernel_adaptive_2d,
@@ -67,15 +69,16 @@
 // edge flags has entries i, i + 1 and i + 2 set; the write elision writes
 // into the strip's buffer of two launches ago.
 //
-// What bounds K13 and K11 on an H100: integer operations on the stripes
-// they compute (6 + T generations where the probe fails, 6 where it
-// passes), nothing on the stripes they elide; a settled K13 launch, whose
-// stripes at the wrap still fail the probe, lasts as long as its slowest
-// block, and a settled K11 launch, whose every stripe elides, as long as
-// its grid's early returns.
+// What bounds K4, K13 and K11 on an H100: integer operations on the
+// stripes they compute (6 + T generations where the probe fails, 6 where
+// it passes), nothing on the stripes they elide; a settled K13 launch,
+// whose stripes at the wrap still fail the probe, lasts as long as its
+// slowest block, and a settled K4 or K11 launch, whose every stripe
+// elides, as long as its grid's early returns.
 //
-// Their design (regwin.cuh; K11's since it took K13's kernel), for each
-// factor between the first port's time and that bound:
+// Their design (regwin.cuh; K11's since it took K13's kernel, K4's since
+// it took K11's), for each factor between the first port's time and that
+// bound:
 // - The generation loop: a block is `warps` warps stacked over one
 //   32-word window column, each thread a run of 32 rows in registers;
 //   neighbour words by shuffle, only run edges through shared memory, one
@@ -89,7 +92,8 @@
 // - The redundant work: 30 of a warp's 32 words are centre, and after the
 //   probe (which needs the whole window at generation 6) each run steps
 //   only the chunks of 8 rows within T - g rows of the block's tile.  A
-//   K11 block may span several whole stripes (cuda_halo.strip_reg_plan),
+//   K4 or K11 block may span several whole stripes
+//   (cuda_adaptive.probing_reg_plan),
 //   each probed on its own region, so a short stripe's 2·pad rows of halo
 //   are shared by its neighbours: path (g)'s 16-row stripes with a 16-row
 //   halo take 8 a block.
@@ -97,66 +101,10 @@
 // plan tile_reg_plan makes them).
 
 #include "regwin.cuh"
-#include "window.cuh"
 
 namespace {
 
 using namespace gol;
-
-// Where a K4 tile's centre goes.  BoardSink: a board `in` of h x wp words
-// into `out` of the same shape; a proved tile copies its centre through
-// from `in` (the same words as the source there).
-struct BoardSink {
-    const uint32_t* in;
-    uint32_t* out;
-    int h, wp;
-    __device__ void copy(int y0, int x0, int tile_h, int tile_w) const {
-        copy_tile(in, out, h, wp, y0, x0, tile_h, tile_w);
-    }
-    __device__ void store(const uint32_t* win, const Window& w, int pad, int xpad, int y0, int x0,
-                          int tile_h, int tile_w) const {
-        store_centre(win, out, h, wp, w, pad, xpad, y0, x0, tile_h, tile_w);
-    }
-};
-
-// One tile of a probing launch, its stripe not elided: K3's probe on the
-// window from `src` (pad-row halo, xpad-word column halo).  A tile that
-// proves stable copies its centre through (`sink.copy`); one that fails
-// clears the stripe's flag `*st` and stores its gen-T centre.
-template <class Source, class Sink>
-__device__ void probe_tile(uint32_t* smem, const Source& src, const Sink& sink, int* st,
-                           int turns, int tile_h, int tile_w, int xpad, int pad, int y0, int x0,
-                           uint32_t born, uint32_t surv) {
-    const Window w{tile_h + 2 * pad, tile_w + 2 * xpad, y0 - pad, x0 - xpad};
-    uint32_t* a = smem;
-    uint32_t* b = smem + w.rows * w.cols;
-    load_window(src, a, w);
-    uint32_t* res = advance(a, b, w, kSkipPeriod, born, surv);
-    if (inner_stable(res, src, w)) {
-        sink.copy(y0, x0, tile_h, tile_w);
-        return;
-    }
-    if (thread_id() == 0) *st = 0;
-    res = advance(res, res == a ? b : a, w, turns - kSkipPeriod, born, surv);
-    sink.store(res, w, pad, xpad, y0, x0, tile_h, tile_w);
-}
-
-__global__ void __launch_bounds__(kThreads)
-probing_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
-               const int* __restrict__ prev, int* __restrict__ st, int h, int wp, int turns,
-               int stripe_h, int tile_h, int tile_w, int xpad, int pad, uint32_t born,
-               uint32_t surv) {
-    extern __shared__ uint32_t smem[];
-    const int grid = h / stripe_h;
-    const int y0 = blockIdx.y * tile_h;
-    const int x0 = blockIdx.x * tile_w;
-    const int i = y0 / stripe_h;
-    const int left = (i + grid - 1) % grid;
-    const int right = (i + 1) % grid;
-    if (prev[left] && prev[i] && prev[right]) return;  // elided: st[i] stays 1
-    probe_tile(smem, BoardSource{in, h, wp}, BoardSink{in, out, h, wp}, &st[i], turns, tile_h,
-               tile_w, xpad, pad, y0, x0, born, surv);
-}
 
 // K13's column: words `stride` apart, row y (the centre's row frame,
 // which starts pad rows above the pre-extended tile's centre) at
@@ -200,6 +148,27 @@ struct StripProbeSource {
     }
     __host__ __device__ __forceinline__ int width() const { return strip.wp; }
     __device__ __forceinline__ reg::Column column(int x) const { return reg::column(strip, x); }
+};
+
+// K4: the whole board, a torus of h rows read in place (rows wrap once
+// around it: pad <= stripe_h <= h), words modulo wp, and the previous
+// bitmap, whose stripes wrap around the stripe count `grid`.  `elided`
+// stays out of line: inlined at its three call sites around the
+// generation loops, it pushed the block past 64 registers (ptxas spilled
+// 12-28 bytes, whether it wrapped by modulo, by compare or read an
+// extended bitmap as K11 does); out of line no instantiation spills, and
+// it runs only outside the loops, once a stripe.
+struct BoardProbeSource {
+    BoardSource board;
+    const int* prev;
+    int grid;
+    __device__ __noinline__ bool elided(int i) const {
+        const int left = i == 0 ? grid - 1 : i - 1;
+        const int right = i + 1 == grid ? 0 : i + 1;
+        return prev[left] && prev[i] && prev[right];
+    }
+    __host__ __device__ __forceinline__ int width() const { return board.wp; }
+    __device__ __forceinline__ reg::Column column(int x) const { return reg::column(board, x); }
 };
 
 // Bit j: stripe s0 + j of a block spanning `ns` stripes computes (its
@@ -246,8 +215,8 @@ __device__ uint32_t unstable_stripes(const uint32_t (&s)[reg::kRun], const reg::
     return *flags;
 }
 
-// K13 and K11: one block per (row tile, column group) of the source; a row
-// tile is a divisor of a stripe (K13, K11) or several whole stripes (K11).
+// K13, K11 and K4: one block per (row tile, column group) of the source; a
+// row tile is a divisor of a stripe or several whole stripes (K11, K4).
 // Its window is warps * 32 rows from pad rows above its tile (the tile's
 // rows and pad rows a side matter) by the 32 columns from x0 - 1, of
 // which the middle 30 are the group's.  Each thread keeps its run at
@@ -358,10 +327,24 @@ strip_probing_reg_kernel(const StripProbeSource src, uint32_t* __restrict__ out,
                           kept, &flags);
 }
 
-// Launch `pick(rule)` (K13's or K11's kernel in the rule's instantiation,
-// `variant`: regwin.cuh::by_rule) on `src` (h centre rows, src.width()
-// columns); `warps` warps of 32 rows hold a block's window (tile_h +
-// 2 * pad rows).
+// K4: probe_reg_block on the board in place (xpad 0, wpl = wp: every
+// column is centre), blocks within a stripe or of several.
+template <class Rule>
+__global__ void __launch_bounds__(reg::kMaxThreads, 2)
+board_probing_reg_kernel(const BoardProbeSource src, uint32_t* __restrict__ out,
+                         int* __restrict__ st, int wpl, int xpad, int turns, int stripe_h,
+                         int tile_h, int pad, Rule rule) {
+    __shared__ reg::Edges edges;
+    __shared__ uint32_t flags;          // the stripes' probes (unstable_stripes)
+    extern __shared__ uint32_t kept[];  // the window at generation 0 (reg::keep)
+    probe_reg_block<true>(src, out, st, wpl, xpad, turns, stripe_h, tile_h, pad, rule, edges,
+                          kept, &flags);
+}
+
+// Launch `pick(rule)` (K13's, K11's or K4's kernel in the rule's
+// instantiation, `variant`: regwin.cuh::by_rule) on `src` (h centre rows,
+// src.width() columns); `warps` warps of 32 rows hold a block's window
+// (tile_h + 2 * pad rows).
 template <class Source, class Pick>
 int launch_probing_reg(const Source& src, const Pick& pick, void* out, void* st, int h, int wpl,
                        int xpad, int turns, int stripe_h, int tile_h, int warps, int pad,
@@ -395,32 +378,27 @@ bool bad_reg_probing_plan(int h, int width, int turns, int stripe_h, int tile_h,
            warps * reg::kRun < tile_h + 2 * pad;
 }
 
-bool bad_probing_plan(int h, int wp, int turns, int stripe_h, int tile_h, int tile_w, int xpad,
-                      int pad) {
-    return h < 1 || wp < 1 || turns < kSkipPeriod || turns % kSkipPeriod || stripe_h < 1 ||
-           h % stripe_h || tile_h < 1 || stripe_h % tile_h || tile_w < 1 || pad < turns ||
-           xpad * 32 < turns || tile_w + 2 * xpad > kCols;
-}
-
 }  // namespace
 
+// K4: `in` is the board (h x wp words, read as the torus), `out` its
+// buffer of two launches ago (an elided stripe leaves its rows as they
+// are), `prev` the previous launch's bitmap and `st` this launch's, set to
+// all ones by the caller (h / stripe_h entries each); a block is `tile_h`
+// rows, a divisor of a stripe or up to 32 whole stripes, and `warps` warps
+// of 32 rows hold its window (tile_h + 2 * pad rows); `variant` picks the
+// rule's instantiation (regwin.cuh::by_rule).
 extern "C" int gol_probing_launch(const void* in, void* out, const void* prev, void* st, int h,
-                                  int wp, int turns, int stripe_h, int tile_h, int tile_w,
-                                  int xpad, int pad, unsigned born, unsigned surv,
+                                  int wp, int turns, int stripe_h, int tile_h, int warps,
+                                  int pad, int variant, unsigned born, unsigned surv,
                                   void* stream) {
-    if (bad_probing_plan(h, wp, turns, stripe_h, tile_h, tile_w, xpad, pad)) {
+    if (bad_reg_probing_plan(h, wp, turns, stripe_h, tile_h, warps, pad)) {
         return cudaErrorInvalidValue;
     }
-    const long long smem = window_smem(tile_h + 2 * pad, tile_w + 2 * xpad);
-    cudaError_t err = allow_smem(probing_kernel, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((wp + tile_w - 1) / tile_w, h / tile_h);
-    const dim3 block(kCols, kSegs);
-    probing_kernel<<<grid, block, static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out),
-        static_cast<const int*>(prev), static_cast<int*>(st), h, wp, turns, stripe_h, tile_h,
-        tile_w, xpad, pad, born, surv);
-    return cudaGetLastError();
+    const BoardProbeSource src{BoardSource{static_cast<const uint32_t*>(in), h, wp},
+                               static_cast<const int*>(prev), h / stripe_h};
+    const auto pick = [](auto rule) { return board_probing_reg_kernel<decltype(rule)>; };
+    return launch_probing_reg(src, pick, out, st, h, wp, 0, turns, stripe_h, tile_h, warps, pad,
+                              variant, born, surv, stream);
 }
 
 // K11: `local` is the strip (h x wp words), `north` and `south` its

@@ -1,9 +1,8 @@
-// Register-resident windows: the generation loop of K9 (ext.cu,
-// ext_reg_kernel), K13 (probing.cu, tile_probing_reg_kernel) and the
-// frontier kernels K5, K8, K12, K14 and K15 (frontier.cu,
-// frontier_reg_kernel, strip_frontier_reg_kernel, strip_mega_reg_kernel
-// and tile_mega_reg_kernel), designed for Hopper.  Every other kernel
-// steps its window in shared memory with window.cuh::advance.
+// Register-resident windows: the generation loop of K2 and K3 (tiled.cu,
+// tiled_skip.cu), K4, K11 and K13 (probing.cu), K9 and K10 (ext.cu) and
+// the frontier kernels K5, K8, K12, K14 and K15 (frontier.cu), designed
+// for Hopper.  No kernel steps a window in shared memory any longer
+// (window.cuh::advance).
 //
 // Layout (window.cuh's): bit k of a packed word holds cell 32*x + k of its
 // row, so a cell's west neighbour is the next lower bit.
@@ -310,6 +309,63 @@ __device__ bool inner_stable(const uint32_t (&s)[kRun], const Run& run, const Lo
     }
     return __syncthreads_or(diff != 0u) == 0;
 }
+
+// -- The torus window (K2, K3) ------------------------------------------------
+//
+// A block of a whole board of h x wp words read in place as the torus:
+// its window starts `halo` rows above its tile of `tile_h` board rows and
+// `border` words left of its column group of kLanes - 2 * border centre
+// words, so window row r of lane l is board row (y0 - halo + r) mod h,
+// word (x0 - border + l) mod wp.  A board shorter than the window fills it
+// with its periodic cover, and on a board narrower than a warp's window
+// the lanes hold it several times over, in a period that is exactly the
+// torus: either way the window is a patch of the board's cover, exact but
+// for the warp's column edge.  Where the block stands is read anew from
+// blockIdx wherever it is needed (block_x/block_y), so no value of it
+// holds a register through the generation loop.
+struct TorusBlock {
+    const uint32_t* __restrict__ in;
+    int h, wp, tile_h, border;
+
+    __device__ __forceinline__ int y0() const { return block_y() * tile_h; }
+    __device__ __forceinline__ int x0() const { return block_x() * (kLanes - 2 * border); }
+
+    // visit(i, word): the address of this lane's word of window row
+    // run.row(i), for every register i.  Rows step down the torus one at a
+    // time, wrapping at h (one modulo for the run's first row).
+    template <class Visit>
+    __device__ __forceinline__ void rows(const Run& run, const Visit& visit) const {
+        const uint32_t* col = in + wrap(x0() - border + run.lane, wp);
+        int y = wrap(y0() - run.halo + run.row(0), h);
+#pragma unroll
+        for (int i = 0; i < kRun; ++i) {
+            visit(i, col + static_cast<size_t>(y) * wp);
+            y = y + 1 == h ? 0 : y + 1;
+        }
+    }
+
+    // Fill the registers from the board, zero past the window's rows.
+    __device__ __forceinline__ void load(uint32_t (&s)[kRun], const Run& run) const {
+        rows(run, [&](int i, const uint32_t* word) { s[i] = run.row(i) < run.rows ? *word : 0u; });
+    }
+
+    // Store the centre (window rows [halo, halo + tile_h) of the centre
+    // lanes) where it lies on the board: rows y0 + r < h (the last tile
+    // overhangs) and words gx < wp, so each word is written once.
+    __device__ __forceinline__ void store(const uint32_t (&s)[kRun], const Run& run,
+                                          uint32_t* __restrict__ out) const {
+        const int top = y0();
+        const int gx = x0() + run.lane - border;
+        const bool centre = run.lane >= border && run.lane < kLanes - border && gx < wp;
+#pragma unroll
+        for (int i = 0; i < kRun; ++i) {
+            const int r = run.row(i) - run.halo;
+            if (centre && r >= 0 && r < tile_h && top + r < h) {
+                out[static_cast<size_t>(top + r) * wp + gx] = s[i];
+            }
+        }
+    }
+};
 
 // -- The frontier window (K5/K8, K12, K14 and K15) ---------------------------------
 //

@@ -32,13 +32,12 @@
 //   g's light cone (the tile plus T - g rows a side).
 // - The torus: the launch's one load takes window row r from board row
 //   (y0 - T + r) mod h and lane l from word column (x0 - border + l) mod
-//   wp, so a board shorter than its halo (1- and 3-row tori included)
-//   fills the window with its periodic cover, and on a board narrower
-//   than a warp's window the lanes hold it several times over, in a
-//   period that is exactly the torus.  Either way the window is a patch
-//   of the board's cover, exact but for the warp's column edge.  Only the
-//   centre lanes whose word lies on the board (gx < wp) store, so each
-//   word is written once.
+//   wp (regwin.cuh's TorusBlock, which K3 shares), so a board shorter
+//   than its halo (1- and 3-row tori included) fills the window with its
+//   periodic cover, and on a board narrower than a warp's window the
+//   lanes hold it several times over, in a period that is exactly the
+//   torus.  Only the centre lanes whose word lies on the board (gx < wp)
+//   store, so each word is written once.
 
 #include "regwin.cuh"
 
@@ -46,50 +45,21 @@ namespace {
 
 using namespace gol;
 
-// Where a block stands, read anew from blockIdx wherever it is needed
-// (regwin.cuh::block_x/block_y), so no value of it holds a register
-// through the generation loop.
-struct TorusBlock {
-    int tile_h, border;
-    __device__ __forceinline__ int y0() const { return reg::block_y() * tile_h; }
-    __device__ __forceinline__ int x0() const {
-        return reg::block_x() * (reg::kLanes - 2 * border);
-    }
-};
-
 // K2: one block per (row tile, column group) of the board; its window is
 // warps * 32 rows (the tile and `turns` rows a side matter) by 32 words,
-// `border` of them a side outside the group's centre.
+// `border` of them a side outside the group's centre (regwin.cuh's
+// TorusBlock).
 template <class Rule>
 __global__ void __launch_bounds__(reg::kMaxThreads, 2)
 tiled_reg_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out, int h, int wp,
                  int turns, int tile_h, int border, Rule rule) {
     __shared__ reg::Edges edges;
-    const TorusBlock blk{tile_h, border};
+    const reg::TorusBlock blk{in, h, wp, tile_h, border};
     const reg::Run run = reg::Run::make(tile_h + 2 * turns, turns, turns, 0);
     uint32_t s[reg::kRun];
-    {
-        // The load: rows step down the torus one at a time, wrapping at h
-        // (one modulo for the run's first row).
-        const uint32_t* col = in + wrap(blk.x0() - border + run.lane, wp);
-        int y = wrap(blk.y0() - turns + run.row(0), h);
-#pragma unroll
-        for (int i = 0; i < reg::kRun; ++i) {
-            s[i] = run.row(i) < run.rows ? col[static_cast<size_t>(y) * wp] : 0u;
-            y = y + 1 == h ? 0 : y + 1;
-        }
-    }
+    blk.load(s, run);
     reg::advance(s, edges, run, 1, turns, rule);
-    const int y0 = blk.y0();
-    const int gx = blk.x0() + run.lane - border;
-    const bool centre = run.lane >= border && run.lane < reg::kLanes - border && gx < wp;
-#pragma unroll
-    for (int i = 0; i < reg::kRun; ++i) {
-        const int r = run.row(i) - turns;
-        if (centre && r >= 0 && r < tile_h && y0 + r < h) {
-            out[static_cast<size_t>(y0 + r) * wp + gx] = s[i];
-        }
-    }
+    blk.store(s, run, out);
 }
 
 }  // namespace

@@ -3,60 +3,99 @@
 // form (the probe of _advance_window / _probe_window), which _run_tiled
 // launches for the period-multiple part of a dispatch's remainder.
 //
-// K2 with the probe: each block loads K2's window (tile_h + 2T rows x
-// tile_w + 2*xpad words, T a multiple of 6), advances it 6 generations and
-// compares the inner region with the input (window.cuh::inner_stable).  If
-// they agree, the centre at generation T is the input, and it is copied
-// through; otherwise the window goes on to T and its centre is written.
-// The proof holds for any window shape, so the decision is the block's
-// own; only the board comes out.
+// One launch advances a horizontally packed (h, wp) torus T generations
+// (T a multiple of 6) into a fresh output, with the skip proof: each
+// block steps its window 6 generations and compares the window's inner
+// region with its input.  If they agree, the block's centre at generation
+// T is its input, and the rest of the generations are skipped; otherwise
+// the window goes on to T.  The proof holds for any window shape, so the
+// decision is the block's own, and no state crosses launches: only the
+// board comes out.
 //
-// What bounds it: as K2, integer operations on an active board (6 extra
-// generations when the probe fails), and the two passes over the board's
-// bytes (read, then write or copy) on a stable one.
+// What bounds it on an H100: as K2, integer operations on an active board
+// (every window row steps until the probe, so no generation more than K2
+// at the same T), and on a stable one the 6 generations of the probe, which
+// a launch that carries no state cannot skip, against one read and one
+// write of the board.
+//
+// The design is K2's (tiled.cu: regwin.cuh's register window over the
+// torus read in place, regwin.cuh's TorusBlock) with K10's probe (ext.cu,
+// ext_skip_reg_kernel):
+// - The window: window row r comes from board row (y0 - T + r) mod h by a
+//   running counter (one modulo for the run's first row) and lane l from
+//   word (x0 - border + l) mod wp, so a board shorter than its halo or
+//   narrower than a warp's window fills it with its periodic cover.
+// - The probe: at generation 6 every thread compares its rows [6,
+//   rows - 6) of the window with the board they were loaded from, re-read
+//   by the same running counter (K3 never writes `in`; `out` is fresh),
+//   leaving out the 6 cells next to the window's x edge (lanes 0 and 31),
+//   which the warp's column wrap reaches in 6 generations.  The comparand
+//   is re-read rather than kept (reg::keep) because a kept window would
+//   cost each block warps * 4 KB of shared memory, and so SM occupancy, on
+//   every launch for one read of the board on L2's side.
+// - A block that proves stable keeps its registers, whose inner region,
+//   the stored centre included, equals its input; any other steps on from
+//   generation 7 to T on the light cone.  Only centre lanes with gx < wp,
+//   and rows with y0 + r < h, store.
 
-#include "window.cuh"
+#include "regwin.cuh"
 
 namespace {
 
 using namespace gol;
 
-__global__ void __launch_bounds__(kThreads)
-tiled_skip_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out, int h, int wp,
-                  int turns, int tile_h, int tile_w, int xpad, uint32_t born, uint32_t surv) {
-    extern __shared__ uint32_t smem[];
-    const int y0 = blockIdx.y * tile_h;
-    const int x0 = blockIdx.x * tile_w;
-    const Window w{tile_h + 2 * turns, tile_w + 2 * xpad, y0 - turns, x0 - xpad};
-    uint32_t* a = smem;
-    uint32_t* b = smem + w.rows * w.cols;
-    load_window(in, a, h, wp, w);
-    uint32_t* res = advance(a, b, w, kSkipPeriod, born, surv);
-    if (inner_stable(res, in, h, wp, w)) {
-        copy_tile(in, out, h, wp, y0, x0, tile_h, tile_w);
-        return;
+// K3: one block per (row tile, column group) of the board; its window is
+// warps * 32 rows (the tile and `turns` rows a side matter) by 32 words,
+// `border` of them a side outside the group's centre.
+template <class Rule>
+__global__ void __launch_bounds__(reg::kMaxThreads, 2)
+tiled_skip_reg_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out, int h,
+                      int wp, int turns, int tile_h, int border, Rule rule) {
+    __shared__ reg::Edges edges;
+    const reg::TorusBlock blk{in, h, wp, tile_h, border};
+    const reg::Run run = reg::Run::make(tile_h + 2 * turns, turns, turns, kSkipPeriod);
+    uint32_t s[reg::kRun];
+    blk.load(s, run);
+    reg::advance(s, edges, run, 1, kSkipPeriod, rule);
+    uint32_t diff = 0u;
+    {
+        uint32_t mask = 0xffffffffu;
+        if (run.lane == 0) mask = 0xffffffc0u;                // cells 0..5 of the window row
+        if (run.lane == reg::kLanes - 1) mask = 0x03ffffffu;  // its last six cells
+        blk.rows(run, [&](int i, const uint32_t* word) {
+            const int r = run.row(i);
+            if (r >= kSkipPeriod && r < run.rows - kSkipPeriod) diff |= (s[i] ^ *word) & mask;
+        });
     }
-    res = advance(res, res == a ? b : a, w, turns - kSkipPeriod, born, surv);
-    store_centre(res, out, h, wp, w, turns, xpad, y0, x0, tile_h, tile_w);
+    if (__syncthreads_or(diff != 0u)) reg::advance(s, edges, run, kSkipPeriod + 1, turns, rule);
+    blk.store(s, run, out);
 }
 
 }  // namespace
 
+// K3: `tile_h` board rows a block (the last tile overhangs the board),
+// `warps` warps of 32 rows holding its window (tile_h + 2 * turns rows),
+// columns in groups of 32 - 2 * border centre words (turns <= 32 *
+// border); turns a multiple of 6; `variant` picks the rule's
+// instantiation (regwin.cuh::by_rule).  The plan is
+// ops/cuda_adaptive.py::tiled_skip_reg_plan's.
 extern "C" int gol_tiled_skip_launch(const void* in, void* out, int h, int wp, int turns,
-                                     int tile_h, int tile_w, int xpad, unsigned born,
-                                     unsigned surv, void* stream) {
+                                     int tile_h, int warps, int border, int variant,
+                                     unsigned born, unsigned surv, void* stream) {
     if (h < 1 || wp < 1 || turns < kSkipPeriod || turns % kSkipPeriod || tile_h < 1 ||
-        tile_w < 1 || xpad * 32 < turns || tile_w + 2 * xpad > kCols) {
+        warps < 1 || warps > reg::kMaxWarps || warps * reg::kRun < tile_h + 2 * turns ||
+        border < 1 || 32 * border < turns || 2 * border >= reg::kLanes ||
+        (h + tile_h - 1) / tile_h > 65535) {
         return cudaErrorInvalidValue;
     }
-    const long long smem = window_smem(tile_h + 2 * turns, tile_w + 2 * xpad);
-    cudaError_t err = allow_smem(tiled_skip_kernel, smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((wp + tile_w - 1) / tile_w, (h + tile_h - 1) / tile_h);
-    const dim3 block(kCols, kSegs);
-    tiled_skip_kernel<<<grid, block, static_cast<size_t>(smem),
-                        static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out), h, wp, turns, tile_h,
-        tile_w, xpad, born, surv);
-    return cudaGetLastError();
+    const int centre = reg::kLanes - 2 * border;
+    const dim3 grid((wp + centre - 1) / centre, (h + tile_h - 1) / tile_h);
+    const dim3 block(reg::kLanes, warps);
+    return reg::by_rule(variant, born, surv, [&](auto rule) {
+        tiled_skip_reg_kernel<decltype(rule)>
+            <<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+                static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out), h, wp, turns,
+                tile_h, border, rule);
+        return static_cast<int>(cudaGetLastError());
+    });
 }

@@ -6,21 +6,27 @@ JAX package splits it: the full launches of T generations go through the
 frontier kernel in canonical chunks (``_nlaunch_chunks``), the loose tail
 through the probing kernel, the period-multiple part of the remainder
 through the skip form of the tiled kernel, and the last < 6 generations
-through the plain tiled kernel (K2).  Three CUDA kernels (``csrc/``), each
-with a wrapper, a launch counter and a plain PyTorch version:
+through the plain tiled kernel (K2).  Four CUDA kernels (``csrc/``), each
+with a wrapper, a launch counter (and one by rule instantiation) and a
+plain PyTorch version, each stepping register-resident windows
+(``csrc/regwin.cuh``):
 
 - **K3, tiled_skip** (``csrc/tiled_skip.cu``; replaces ``_kernel`` in its
-  ``skip_stable=True`` form): K2 with the 6-generation probe.  Plain
-  version: :func:`tiled_skip_superstep_plain`.
+  ``skip_stable=True`` form): K2's register-resident window over the torus
+  in place with the 6-generation probe, on the blocks of
+  :func:`tiled_skip_reg_plan`.  Plain version:
+  :func:`tiled_skip_superstep_plain`; :func:`tiled_skip_reg_mirror`
+  replays its blocks.
 - **K4, probing** (``csrc/probing.cu``; replaces ``_kernel_adaptive``):
   one launch per call of the JAX per-launch form, with its stripe bitmap,
-  probe elision and write elision.  Plain version:
-  :func:`probing_launch_mirror`.
+  probe elision and write elision, on K11's register probing block over
+  the board in place (the blocks of :func:`probing_reg_plan`).  Plain
+  version: :func:`probing_launch_mirror`; :func:`probing_launch_reg_mirror`
+  replays its blocks.
 - **K5, frontier** (``csrc/frontier.cu``; replaces
   ``_kernel_frontier_mega``): the tracked-interval skip/compute/measure
   state machine, one CUDA launch per generation launch, state on the
-  device, its windows register-resident (``csrc/regwin.cuh``) on the
-  blocks of :func:`frontier_blocks`.  Plain version:
+  device, on the blocks of :func:`frontier_blocks`.  Plain version:
   :func:`frontier_launch_mirror`; :func:`frontier_launch_reg_mirror`
   replays its blocks.
 - **K8, frontier batched** (``csrc/frontier.cu``,
@@ -59,7 +65,7 @@ import torch
 from distributed_gol_torch.models.life import CONWAY, HIGHLIFE, LifeRule
 from distributed_gol_torch.ops import cuda_build, cuda_packed, packed
 from distributed_gol_torch.ops.cuda_packed import (
-    H100_SMS, SMEM_BYTES, TILED_COLS, _check_words, _stream, rule_masks,
+    H100_SMS, TILED_MAX_T, _check_words, _stream, rule_masks,
 )
 from distributed_gol_torch.ops.packed import WORD
 
@@ -211,22 +217,7 @@ def adaptive_tile_launches(
     return (turns // plan.t) * plan.grid(shape[0])
 
 
-def stripe_tiles(shape: tuple[int, int], stripe_h: int, halo: int) -> cuda_packed.TiledPlan:
-    """The CUDA blocks of K4 and K5, as a ``TiledPlan`` whose ``t`` is the
-    window's row halo: K2's tile width with an ``xpad``-word border, and
-    the tallest divisor of the stripe whose two window buffers fit
-    ``SMEM_BYTES`` (a stripe's tiles together decide for it)."""
-    xpad = -(-halo // WORD)
-    tile_w = cuda_packed.tile_width(shape[1], xpad)
-    for k in range(1, stripe_h + 1):
-        if stripe_h % k == 0:
-            tiles = cuda_packed.TiledPlan(halo, stripe_h // k, tile_w, xpad)
-            if tiles.smem_bytes <= SMEM_BYTES:
-                return tiles
-    raise ValueError(f"no stripe tiling of {shape} with a {halo}-row halo fits shared memory")
-
-
-# -- the register-resident plans of K5/K8 and K9-K15 (csrc/regwin.cuh) ------------
+# -- the register-resident plans (csrc/regwin.cuh) ---------------------------------
 
 #: Word columns of one warp's window, rows one thread holds in registers,
 #: rows of the light-cone trimming's unit, and the most warps a block
@@ -401,6 +392,55 @@ def stripe_reg_plan(shape: tuple[int, int], stripe_h: int, pad: int, t: int,
     return _stripe_reg_plan(shape, stripe_h, t, pad, sms, stripes, probe=SKIP_PERIOD)
 
 
+def probing_reg_plan(plan: AdaptivePlan, shape: tuple[int, int], sms: int) -> RegPlan:
+    """The blocks of K4 (a whole (h, wp) board) and K11 (an (h, wp) strip)
+    for a launch of ``plan``: :func:`stripe_reg_plan` over the full width
+    (no x-halo: columns wrap modulo wp), a block within one stripe or
+    spanning up to ``REG_PROBE_STRIPES`` whole ones.  At 16384² on 132 SMs,
+    1,152 blocks of one 256-row stripe and 10 warps."""
+    return stripe_reg_plan(shape, plan.stripe_h, plan.pad, plan.t, sms, REG_PROBE_STRIPES)
+
+
+def torus_reg_plans(strip: tuple[int, int], t: int, probe: int = 0) -> list[RegPlan]:
+    """The candidate blocks of a ``t``-generation launch on an (h, wp)
+    centre of K9 (``cuda_halo.ext_reg_plan``), K2 and, with ``probe`` = 6,
+    K3 (:func:`tiled_skip_reg_plan`): column groups of 32 - 2·border
+    centre words, border = ceil(T / 32); for each block height of 1 to
+    ``REG_MAX_WARPS`` warps, the tallest tile it holds (window rows = the
+    tile and T a side), evened over the centre's rows."""
+    h, wp = strip
+    border = -(-t // WORD)
+    if t < 1 or 2 * border >= REG_LANES:
+        raise ValueError(f"no register window for {t} generations")
+    cols = -(-wp // (REG_LANES - 2 * border))
+    plans = []
+    for warps in range(1, REG_MAX_WARPS + 1):
+        tallest = warps * REG_RUN - 2 * t
+        if tallest < 1:
+            continue
+        nrb = -(-h // tallest)
+        tile_h = -(-h // nrb)
+        plans.append(RegPlan(t, t, tile_h, -(-(tile_h + 2 * t) // REG_RUN), (nrb, cols), border,
+                             probe))
+    if not plans:
+        raise ValueError(f"no register window for {t} generations: {REG_MAX_WARPS} warps of "
+                         f"{REG_RUN} rows")
+    return plans
+
+
+@functools.lru_cache(maxsize=256)
+def tiled_skip_reg_plan(shape: tuple[int, int], t: int, sms: int) -> RegPlan:
+    """K3's blocks for a ``t``-generation launch (a multiple of 6) on a
+    packed (h, wp) torus: K2's (:func:`torus_reg_plans`) with the probe
+    after 6 generations, the grid of least :meth:`RegPlan.cost` on ``sms``
+    SMs.  Tiles are evened over the torus and the last one overhangs: rows
+    wrap, so no origin is shifted, and a tile's window may be taller than
+    the torus."""
+    if not _adaptive_eligible(t):
+        raise ValueError(f"no K3 window for {t} generations: a multiple of {SKIP_PERIOD}")
+    return best_reg_plan(torus_reg_plans(shape, t, SKIP_PERIOD), sms)
+
+
 @functools.lru_cache(maxsize=256)
 def frontier_reg_plan(shape: tuple[int, int], stripe_h: int, t: int, sms: int) -> RegPlan:
     """The frontier kernels' blocks (K5/K8, K12, K14, K15) for a launch of
@@ -535,6 +575,68 @@ def _check_frontier_blocks(blocks: RegPlan, plan: AdaptivePlan, shape: tuple[int
         raise ValueError(f"blocks {blocks} do not cover {plan} on {shape[0]}x{shape[1]} words")
 
 
+#: The probe's masks of a window's edge words (``reg::inner_stable``): all
+#: but cells 0..5 of lane 0 and all but the last six cells of lane 31, as
+#: int32.
+_FIRST_WORD_INNER = 0xFFFFFFC0 - (1 << 32)
+_LAST_WORD_INNER = 0x03FFFFFF
+
+
+def _inner_mask(device) -> torch.Tensor:
+    """The cells of each of a window's ``REG_LANES`` words that a probe
+    compares: all but the 6 next to the window's x edge."""
+    mask = torch.full((REG_LANES,), -1, dtype=torch.int32, device=device)
+    mask[0] &= _FIRST_WORD_INNER
+    mask[-1] &= _LAST_WORD_INNER
+    return mask
+
+
+def _probing_blocks(ext: torch.Tensor, rule: LifeRule, plan: AdaptivePlan, xpad: int,
+                    blocks: RegPlan, elide: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The register probing blocks of K13, K11 and K4 in PyTorch on ``ext``,
+    a centre of whole stripes with pad = round8(T) rows and ``xpad`` words
+    (K11, K4: 0) a side: the blocks of ``blocks`` tile its centre rows,
+    ``tile_h`` rows each (a divisor of a stripe, or whole stripes), and
+    its whole width in groups of 30 words; each window (warps·32 rows from
+    pad rows above its tile, 32 words from one left of its group, columns
+    modulo the width, zero past the window) is stepped 6 generations
+    (every row it needs) and compared with its input on each of its
+    stripes' regions (a block within a stripe: its inner region, rows and
+    cells at least 6 from its edge; a block of several stripes: each
+    stripe's rows [6, stripe_h + 2·pad - 6) of its own window, cells at
+    least 6 from the x edge); a block whose stripes that compute (not
+    ``elide``) all agree keeps its generation-6 state, any other steps on
+    to T, only the rows of its light cone (:meth:`RegPlan.live`).  Returns
+    (the blocks' centre words inside the centre columns: (h, wpl), bool
+    per stripe: the AND of its blocks' probes)."""
+    pad, sh = plan.pad, plan.stripe_h
+    h, wpl = ext.shape[0] - 2 * pad, ext.shape[1] - 2 * xpad
+    wpe = wpl + 2 * xpad
+    nby, nbx = blocks.grid
+    if ((blocks.t, blocks.halo, blocks.probe, blocks.border) != (plan.t, pad, SKIP_PERIOD, 1)
+            or (sh % blocks.tile_h and blocks.tile_h % sh)
+            or blocks.tile_h // sh > REG_PROBE_STRIPES
+            or nby * blocks.tile_h != h or nbx * blocks.centre < wpe):
+        raise ValueError(f"blocks {blocks} do not cover {plan} on an extended {h}x{wpe} tile")
+    dev = ext.device
+    win0 = _reg_windows(ext, blocks, 0, -1, True)
+    win = _reg_steps(win0, rule, blocks, range(1, SKIP_PERIOD + 1))
+    changed = ((win ^ win0) & _inner_mask(dev)).ne(0).any(dim=3)  # (nby, nbx, window rows)
+    ns, span = max(blocks.tile_h // sh, 1), min(blocks.tile_h, sh)
+    lo = torch.arange(ns, device=dev)[:, None] * span + SKIP_PERIOD
+    r = torch.arange(changed.shape[2], device=dev)
+    region = (r >= lo) & (r < lo + span + 2 * pad - 2 * SKIP_PERIOD)  # (ns, window rows)
+    unstable = (changed[:, :, None, :] & region).any(dim=3)  # (nby, nbx, ns)
+    stripe = ((torch.arange(nby, device=dev) * blocks.tile_h // sh)[:, None]
+              + torch.arange(ns, device=dev))  # (nby, ns)
+    failed = torch.zeros(plan.grid(h), dtype=torch.int32, device=dev)
+    failed.index_add_(0, stripe.flatten(), unstable.any(dim=1).flatten().to(torch.int32))
+    step = (unstable & ~elide[stripe][:, None, :]).any(dim=2)
+    win = _reg_steps(win, rule, blocks, range(SKIP_PERIOD + 1, plan.t + 1), ~step)
+    out = _reg_stitch(win, blocks)[:, xpad : xpad + wpl]
+    return out, failed == 0
+
+
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 
 
@@ -549,8 +651,7 @@ def _launcher(kernel: str, symbol: str, argtypes: list) -> tuple[ctypes.CDLL, ob
     return lib, fn
 
 
-#: The rule instantiations of the register-resident kernels (K5/K8, K9,
-#: K12-K15; ``regwin.cuh::by_rule``): B3/S23 and B36/S23 evaluated at
+#: The rule instantiations of every kernel but K6 (``regwin.cuh::by_rule``): B3/S23 and B36/S23 evaluated at
 #: compile time, every other rule by its masks at run time ("generic").
 REG_RULES = ("generic", "conway", "highlife")
 
@@ -580,30 +681,67 @@ def tiled_skip_superstep_plain(p: torch.Tensor, rule: LifeRule, turns: int) -> t
     return packed.superstep(p, rule, turns)
 
 
-def tiled_skip_superstep(p: torch.Tensor, rule: LifeRule, turns: int) -> torch.Tensor:
+def _check_skip_launch(turns: int) -> None:
+    if not _adaptive_eligible(turns) or turns > TILED_MAX_T:
+        raise ValueError(f"skip launches need a positive multiple of {SKIP_PERIOD} turns up to "
+                         f"{TILED_MAX_T}, got {turns}")
+
+
+def tiled_skip_reg_mirror(p: torch.Tensor, rule: LifeRule, turns: int,
+                          plan: RegPlan | None = None, sms: int = H100_SMS) -> torch.Tensor:
+    """K3's decomposition in PyTorch on the blocks of ``plan`` (None:
+    :func:`tiled_skip_reg_plan` on ``sms`` SMs): each block's window
+    (warps·32 rows from T above its tile, 32 words from ``border`` left of
+    its column group, rows modulo h and words modulo wp: the torus in
+    place, zero past the window's rows) stepped 6 generations and compared
+    with itself at generation 0 on its inner region (rows [6, rows - 6),
+    all but the 6 cells next to its x edge); a block that agrees keeps its
+    generation-6 state, any other steps on to T on its light cone
+    (:meth:`RegPlan.live`); each block's centre stored where it lies on the
+    board."""
+    _check_skip_launch(turns)
+    h, wp = p.shape
+    plan = plan or tiled_skip_reg_plan((h, wp), turns, sms)
+    if ((plan.t, plan.halo, plan.probe) != (turns, turns, SKIP_PERIOD)
+            or plan.grid[0] * plan.tile_h < h or plan.grid[1] * plan.centre < wp):
+        raise ValueError(f"plan {plan} does not cover a {turns}-generation skip launch on "
+                         f"{h}x{wp}")
+    win0 = _reg_windows(p, plan, -turns, -plan.border, True, wrap_rows=True)
+    win = _reg_steps(win0, rule, plan, range(1, SKIP_PERIOD + 1))
+    diff = ((win ^ win0) & _inner_mask(p.device))[:, :, SKIP_PERIOD : plan.rows - SKIP_PERIOD]
+    stable = (diff == 0).flatten(2).all(dim=2)
+    win = _reg_steps(win, rule, plan, range(SKIP_PERIOD + 1, turns + 1), frozen=stable)
+    return _reg_stitch(win, plan)[:h, :wp].contiguous()
+
+
+def tiled_skip_superstep(p: torch.Tensor, rule: LifeRule, turns: int,
+                         plan: RegPlan | None = None) -> torch.Tensor:
     """K3: one launch of ``turns`` generations (a multiple of 6, at most
-    ``cuda_packed.TILED_MAX_T``) on K2's tiles, with the skip proof.  CPU
-    tensors run :func:`tiled_skip_superstep_plain`."""
+    ``cuda_packed.TILED_MAX_T``) of the torus with the skip proof, into a
+    fresh tensor; the input is never written.  A CPU tensor runs
+    :func:`tiled_skip_superstep_plain`; a CUDA tensor launches K3 on the
+    blocks of :func:`tiled_skip_reg_plan` for its device's SMs (``plan``
+    forces them: tests), in the rule's instantiation (counted in
+    ``tiled_skip_superstep.rules``), or raises."""
     _check_words(p)
-    if not _adaptive_eligible(turns):
-        raise ValueError(f"skip launches need a positive multiple of {SKIP_PERIOD} turns")
+    _check_skip_launch(turns)
     if p.device.type == "cpu":
         return tiled_skip_superstep_plain(p, rule, turns)
     h, wp = p.shape
-    plan = cuda_packed.tiled_plan((h, wp), turns)
-    if plan.t != turns or plan.cols_w > TILED_COLS or plan.smem_bytes > SMEM_BYTES:
-        raise ValueError(f"no single skip launch of {turns} turns on {h}x{wp} words")
-    lib, launch = _launcher("tiled_skip", "gol_tiled_skip_launch", [_P, _P] + [_I] * 6 + [_U, _U, _P])
-    born, surv = rule_masks(rule)
+    plan = plan or tiled_skip_reg_plan((h, wp), turns, device_sms(p.device))
+    lib, launch = _reg_launcher("tiled_skip", "gol_tiled_skip_launch", 2, 7)
+    born, surv, variant = reg_rule(rule)
     out = torch.empty_like(p)
-    err = launch(p.data_ptr(), out.data_ptr(), h, wp, turns, plan.tile_h, plan.tile_w, plan.xpad,
-                 born, surv, _stream(p))
+    err = launch(p.data_ptr(), out.data_ptr(), h, wp, turns, plan.tile_h, plan.warps, plan.border,
+                 variant, born, surv, _stream(p))
     cuda_build.check(lib, err, "tiled_skip")
     tiled_skip_superstep.launches += 1
+    tiled_skip_superstep.rules[REG_RULES[variant]] += 1
     return out
 
 
 tiled_skip_superstep.launches = 0
+tiled_skip_superstep.rules = collections.Counter()
 
 
 # -- K4: the probing kernel ----------------------------------------------------
@@ -651,54 +789,96 @@ def _probing_stats(flags: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def probing_superstep_mirror(
-    p: torch.Tensor, rule: LifeRule, plan: AdaptivePlan, nlaunch: int
+    p: torch.Tensor, rule: LifeRule, plan: AdaptivePlan, nlaunch: int,
+    launch=probing_launch_mirror,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``nlaunch`` launches of :func:`probing_launch_mirror` on K4's buffer
-    protocol, from a zero bitmap.  Returns (board, skipped, activity)."""
+    """``nlaunch`` launches of ``launch`` (the plain version, or
+    :func:`probing_launch_reg_mirror`) on K4's buffer protocol, from a zero
+    bitmap.  Returns (board, skipped, activity)."""
     flags = torch.ones((nlaunch + 1, plan.grid(p.shape[0])), dtype=torch.int32, device=p.device)
     flags[0] = 0
     bufs = [torch.zeros_like(p), p.clone()]
     cur = p
     for k in range(nlaunch):
-        cur, flags[k + 1] = probing_launch_mirror(cur, bufs[k % 2], rule, plan, flags[k])
+        cur, flags[k + 1] = launch(cur, bufs[k % 2], rule, plan, flags[k])
         bufs[k % 2] = cur
     return (cur, *_probing_stats(flags[1:]))
 
 
+def probing_launch_reg_mirror(
+    r: torch.Tensor, w: torch.Tensor, rule: LifeRule, plan: AdaptivePlan, prev: torch.Tensor,
+    blocks: RegPlan | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4's decomposition in PyTorch, one launch: :func:`_probing_blocks` on
+    the board extended by its own last and first round8(T) rows (its
+    windows read the torus in place), no x-halo, on the blocks of
+    ``blocks`` (None: the :func:`probing_reg_plan` of an H100), with the
+    elision of :func:`probing_launch_mirror`.  Returns (written buffer,
+    this launch's bitmap)."""
+    h, wp = r.shape
+    blocks = blocks or probing_reg_plan(plan, (h, wp), H100_SMS)
+    was = prev.bool()
+    elide = was & torch.roll(was, 1) & torch.roll(was, -1)
+    rows = torch.remainder(torch.arange(h + 2 * plan.pad, device=r.device) - plan.pad, h)
+    out, stable = _probing_blocks(r[rows], rule, plan, 0, blocks, elide)
+    of = _stripe_rows(h, plan.stripe_h, r.device)
+    return torch.where(elide[of, None], w, out), (elide | stable).to(torch.int32)
+
+
+def probing_superstep_reg_mirror(
+    p: torch.Tensor, rule: LifeRule, plan: AdaptivePlan, nlaunch: int,
+    blocks: RegPlan | None = None, sms: int = H100_SMS,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4's decomposition in PyTorch over ``nlaunch`` launches:
+    :func:`probing_superstep_mirror` on :func:`probing_launch_reg_mirror` at
+    the blocks of ``blocks`` (None: :func:`probing_reg_plan` on ``sms``
+    SMs).  Returns (board, skipped, activity)."""
+    blocks = blocks or probing_reg_plan(plan, tuple(p.shape), sms)
+    return probing_superstep_mirror(
+        p, rule, plan, nlaunch, functools.partial(probing_launch_reg_mirror, blocks=blocks))
+
+
 def probing_superstep(
-    p: torch.Tensor, rule: LifeRule, plan: AdaptivePlan, nlaunch: int
+    p: torch.Tensor, rule: LifeRule, plan: AdaptivePlan, nlaunch: int,
+    blocks: RegPlan | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K4: ``nlaunch`` probing launches of ``plan.t`` generations from a
     zero bitmap; returns (board, skipped, activity), all left on the
     device.  Launch k writes the buffer of launch k - 2 (the second buffer
     starts as a copy of the input), so an elided stripe writes nothing; the
     input is never written.  CPU tensors run
-    :func:`probing_superstep_mirror`."""
+    :func:`probing_superstep_mirror`; a CUDA tensor launches K4 on the
+    blocks of :func:`probing_reg_plan` for its device's SMs (``blocks``
+    forces them: tests), in the rule's instantiation (counted in
+    ``probing_superstep.rules``), or raises."""
     _check_words(p)
     if p.device.type == "cpu":
         return probing_superstep_mirror(p, rule, plan, nlaunch)
     h, wp = p.shape
-    tiles = stripe_tiles((h, wp), plan.stripe_h, plan.pad)
-    lib, launch = _launcher("probing", "gol_probing_launch", [_P] * 4 + [_I] * 8 + [_U, _U, _P])
-    born, surv = rule_masks(rule)
+    blocks = blocks or probing_reg_plan(plan, (h, wp), device_sms(p.device))
+    lib, launch = _reg_launcher("probing", "gol_probing_launch", 4, 7)
+    born, surv, variant = reg_rule(rule)
     flags = torch.ones((nlaunch + 1, plan.grid(h)), dtype=torch.int32, device=p.device)
     flags[0] = 0
     bufs = (torch.empty_like(p), p.clone())
+    stream = _stream(p)
     cur = p
     for k in range(nlaunch):
         dst = bufs[k % 2]
         err = launch(
             cur.data_ptr(), dst.data_ptr(), flags[k].data_ptr(), flags[k + 1].data_ptr(),
-            h, wp, plan.t, plan.stripe_h, tiles.tile_h, tiles.tile_w, tiles.xpad, tiles.t,
-            born, surv, _stream(p),
+            h, wp, plan.t, plan.stripe_h, blocks.tile_h, blocks.warps, plan.pad, variant,
+            born, surv, stream,
         )
         cuda_build.check(lib, err, "probing")
         probing_superstep.launches += 1
+        probing_superstep.rules[REG_RULES[variant]] += 1
         cur = dst
     return (cur, *_probing_stats(flags[1:]))
 
 
 probing_superstep.launches = 0
+probing_superstep.rules = collections.Counter()
 
 
 # -- K5: the frontier kernel ---------------------------------------------------
@@ -964,14 +1144,12 @@ frontier_superstep_batched.rules = collections.Counter()
 
 
 def reset_launches() -> None:
-    """Set the four kernels' launch counters to 0, and the counts by rule
-    instantiation of K5 and K8."""
-    tiled_skip_superstep.launches = 0
-    probing_superstep.launches = 0
-    frontier_superstep.launches = 0
-    frontier_superstep_batched.launches = 0
-    frontier_superstep.rules.clear()
-    frontier_superstep_batched.rules.clear()
+    """Set the four kernels' launch counters, and their counts by rule
+    instantiation, to 0."""
+    for wrapper in (tiled_skip_superstep, probing_superstep, frontier_superstep,
+                    frontier_superstep_batched):
+        wrapper.launches = 0
+        wrapper.rules.clear()
 
 
 # -- the dispatch driver -------------------------------------------------------

@@ -36,8 +36,6 @@ it launches the kernel or raises — it never falls back.  Each wrapper
 counts its launches in its ``launches`` attribute, and in ``rules`` by
 the rule's instantiation.  The mirrors run only in tests, where they
 show on the CPU the decomposition the CUDA kernels cannot.
-:class:`TiledPlan` and :func:`tiled_plan`, the first port's K2 tiling,
-size K3's launches and K4's stripes (``ops/cuda_adaptive.py``).
 
 The TPU's tuning constants (``_VMEM_BUDGET``, ``_VRESIDENT_BUDGET``,
 ``_LAUNCH_COST``, ``_MAX_T``) are v5e ratios and are not carried over;
@@ -62,11 +60,8 @@ SMEM_BYTES = 232448
 #: SMs of an NVIDIA H100 SXM: the card the plans are made for where no
 #: device is at hand (the mirrors on the CPU, the tests).
 H100_SMS = 132
-# Deepest launch of K2 and K3 (and of K4's stripes' TiledPlan): one halo
-# word per side covers it.
+# Deepest launch of K2 and K3: one border word a side covers it.
 TILED_MAX_T = 32
-# Widest window of K3 and K4 in words: blockDim.x of csrc/window.cuh (kCols).
-TILED_COLS = 64
 
 
 def rule_masks(rule: LifeRule) -> tuple[int, int]:
@@ -256,61 +251,6 @@ def resident_batched_plan(nb: int, hw: int, w: int, active=None,
         raise ValueError(f"the card holds no cluster of any resident plan for a stack of {nb} "
                          f"{hw}x{w}-word boards")
     return min(scored, key=lambda kp: kp[0])[1]
-
-
-@dataclasses.dataclass(frozen=True)
-class TiledPlan:
-    """One launch of the first port's K2 tiling, which K3's launches and
-    K4's stripes keep: ``t`` generations on tiles of ``tile_h`` rows x
-    ``tile_w`` words, with a ``t``-row and ``xpad``-word halo per side."""
-
-    t: int
-    tile_h: int
-    tile_w: int
-    xpad: int
-
-    def __post_init__(self):
-        if min(self.t, self.tile_h, self.tile_w) < 1 or self.xpad * WORD < self.t:
-            raise ValueError(f"invalid tiled plan {self}: need xpad * 32 >= t >= 1")
-
-    @property
-    def rows_w(self) -> int:
-        return self.tile_h + 2 * self.t
-
-    @property
-    def cols_w(self) -> int:
-        return self.tile_w + 2 * self.xpad
-
-    @property
-    def smem_bytes(self) -> int:
-        """Shared memory of one block: two window buffers (ping-pong)."""
-        return 2 * self.rows_w * self.cols_w * 4
-
-    def grid(self, shape: tuple[int, int]) -> tuple[int, int]:
-        """(tile rows, tile columns) covering a packed (H, wp) board."""
-        h, wp = shape
-        return -(-h // self.tile_h), -(-wp // self.tile_w)
-
-
-def tile_width(wp: int, xpad: int) -> int:
-    """Words per tile: the widest window that fits ``TILED_COLS`` words with
-    an ``xpad``-word border, split evenly over a ``wp``-word board."""
-    nx = -(-wp // (TILED_COLS - 2 * xpad))
-    return -(-wp // nx)
-
-
-def tiled_plan(shape: tuple[int, int], turns: int) -> TiledPlan:
-    """K3's plan for a packed (H, wp) board: T = min(turns, 32), so one
-    halo word per side; the widest window that fits ``TILED_COLS`` words,
-    split evenly over the board's width; then the tallest tile whose two
-    window buffers fit ``SMEM_BYTES``, split evenly over the height."""
-    h, wp = shape
-    t = max(1, min(turns, TILED_MAX_T))
-    xpad = -(-t // WORD)
-    tile_w = tile_width(wp, xpad)
-    max_tile_h = SMEM_BYTES // (2 * 4 * (tile_w + 2 * xpad)) - 2 * t
-    ny = -(-h // max_tile_h)
-    return TiledPlan(t, -(-h // ny), tile_w, xpad)
 
 
 @functools.lru_cache(maxsize=256)

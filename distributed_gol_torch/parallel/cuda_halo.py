@@ -85,10 +85,11 @@ windows (``csrc/regwin.cuh``) on the blocks of
 ``cuda_adaptive.frontier_blocks``; :func:`strip_frontier_launch_mirror`,
 :func:`strip_mega_launch_mirror` and :func:`tile_mega_launch_mirror`
 replay those blocks, and K15's elision, in PyTorch.  K13 and K11 share one
-register probing block (``csrc/probing.cu::probe_reg_block``) on the
-blocks of ``cuda_adaptive.stripe_reg_plan`` (:func:`tile_reg_plan`,
+register probing block (``csrc/probing.cu::probe_reg_block``, K4's too) on
+the blocks of ``cuda_adaptive.stripe_reg_plan`` (:func:`tile_reg_plan`,
 :func:`strip_reg_plan`); :func:`tile_probing_launch_mirror` and
-:func:`strip_probing_launch_mirror` replay them (:func:`_probing_blocks`).
+:func:`strip_probing_launch_mirror` replay them
+(``cuda_adaptive._probing_blocks``).
 The peer form for shards on several devices (ROADMAP B10p) is not
 ported: those meshes take the ppermute forms.
 """
@@ -106,9 +107,9 @@ from distributed_gol_torch.models.life import CONWAY, LifeRule
 from distributed_gol_torch.ops import cuda_adaptive, cuda_build, cuda_packed, packed
 from distributed_gol_torch.ops.cuda_adaptive import (
     _EMPTY_LO, H100_SMS, REG_LANES, REG_MAX_WARPS, REG_RULES, REG_RUN, SKIP_PERIOD,
-    AdaptivePlan, RegPlan, _adaptive_eligible, _check_frontier_blocks, _frontier_blocks,
-    _reg_launcher, _reg_steps, _reg_stitch, _reg_windows, best_reg_plan, device_sms,
-    frontier_blocks, reg_rule, skip_plan)
+    _FIRST_WORD_INNER, _LAST_WORD_INNER, AdaptivePlan, RegPlan, _adaptive_eligible,
+    _check_frontier_blocks, _frontier_blocks, _probing_blocks, _reg_launcher, _reg_steps,
+    _reg_stitch, _reg_windows, best_reg_plan, device_sms, frontier_blocks, reg_rule, skip_plan)
 from distributed_gol_torch.ops.cuda_packed import TILED_MAX_T, _check_words, _stream
 from distributed_gol_torch.ops.packed import WORD
 from distributed_gol_torch.parallel.halo import ShardedBoard, edge_rows, extend, psum
@@ -133,29 +134,12 @@ def supports(pshape: tuple[int, int], mesh_shape: tuple[int, int]) -> bool:
 @functools.lru_cache(maxsize=256)
 def ext_reg_plan(strip: tuple[int, int], t: int, sms: int) -> RegPlan:
     """K9's blocks for a ``t``-generation launch on an (h_loc, wpl) centre
-    (``csrc/regwin.cuh``): column groups of 32 - 2·border centre words,
-    border = ceil(T / 32); for each block height of 1 to ``REG_MAX_WARPS``
-    warps, the tallest tile it holds (window rows = the tile and T a side),
-    evened over the centre's rows; of those, the grid of least
-    :meth:`RegPlan.cost` on ``sms`` SMs: the fewest, fullest waves of the
-    least work."""
-    h_loc, wpl = strip
-    border = -(-t // WORD)
-    if t < 1 or 2 * border >= REG_LANES:
-        raise ValueError(f"no K9 window for {t} generations")
-    cols = -(-wpl // (REG_LANES - 2 * border))
-    plans = []
-    for warps in range(1, REG_MAX_WARPS + 1):
-        tallest = warps * REG_RUN - 2 * t
-        if tallest < 1:
-            continue
-        nrb = -(-h_loc // tallest)
-        tile_h = -(-h_loc // nrb)
-        plans.append(RegPlan(t, t, tile_h, -(-(tile_h + 2 * t) // REG_RUN), (nrb, cols), border))
-    if not plans:
-        raise ValueError(f"no K9 window for {t} generations: {REG_MAX_WARPS} warps of "
-                         f"{REG_RUN} rows")
-    return best_reg_plan(plans, sms)
+    (``csrc/regwin.cuh``): of ``cuda_adaptive.torus_reg_plans``' column
+    groups of 32 - 2·border centre words and, for each block height of 1
+    to ``REG_MAX_WARPS`` warps, the tallest tile it holds evened over the
+    centre's rows, the grid of least :meth:`RegPlan.cost` on ``sms`` SMs:
+    the fewest, fullest waves of the least work."""
+    return best_reg_plan(cuda_adaptive.torus_reg_plans(strip, t), sms)
 
 
 @functools.lru_cache(maxsize=256)
@@ -450,13 +434,6 @@ ext_launch.rules = collections.Counter()
 
 # -- K10: the skip form of K9 ------------------------------------------------------
 
-# The skip proof's inner region of a window word row: all 32 cells but
-# the first six of its first word and the last six of its last word
-# (window.cuh::inner_stable's masks, as int32).
-_FIRST_WORD_INNER = 0xFFFFFFC0 - (1 << 32)
-_LAST_WORD_INNER = 0x03FFFFFF
-
-
 def _check_skip_turns(turns: int) -> None:
     if not _adaptive_eligible(turns):
         raise ValueError(f"skip launches need a positive multiple of {SKIP_PERIOD} turns, "
@@ -671,14 +648,13 @@ def strip_probing_launch_plain(
 
 def strip_reg_plan(plan: AdaptivePlan, strip: tuple[int, int], sms: int) -> RegPlan:
     """K11's blocks for a launch of ``plan`` on an (h, wp) strip:
-    :func:`cuda_adaptive.stripe_reg_plan` over the strip's width (no
-    x-halo: its columns wrap modulo wp), a block within one stripe or
-    spanning up to ``REG_PROBE_STRIPES`` whole ones: path (g)'s 16-row
+    K4's plan (:func:`cuda_adaptive.probing_reg_plan`) over the strip's
+    width (no x-halo: its columns wrap modulo wp), a block within one
+    stripe or spanning up to ``REG_PROBE_STRIPES`` whole ones: path (g)'s 16-row
     stripes with a 16-row halo take 8 a block, whose 160-row window
     steps 14 rows for each of its 128 where a stripe's own 48-row window
     steps 29 for each of its 16."""
-    return cuda_adaptive.stripe_reg_plan(strip, plan.stripe_h, plan.pad, plan.t, sms,
-                                         cuda_adaptive.REG_PROBE_STRIPES)
+    return cuda_adaptive.probing_reg_plan(plan, strip, sms)
 
 
 def strip_probing_launch_mirror(
@@ -954,55 +930,6 @@ def tile_reg_plan(plan: AdaptivePlan, tile: tuple[int, int], xpad: int, sms: int
     extended width."""
     return cuda_adaptive.stripe_reg_plan((tile[0], tile[1] + 2 * xpad), plan.stripe_h, plan.pad,
                                          plan.t, sms)
-
-
-def _probing_blocks(ext: torch.Tensor, rule: LifeRule, plan: AdaptivePlan, xpad: int,
-                    blocks: RegPlan, elide: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The register probing blocks of K13 and K11 in PyTorch on ``ext``, a
-    centre of whole stripes with pad = round8(T) rows and ``xpad`` words
-    (K11: 0) a side: the blocks of ``blocks`` tile its centre rows,
-    ``tile_h`` rows each (a divisor of a stripe, or whole stripes), and
-    its whole width in groups of 30 words; each window (warps·32 rows from
-    pad rows above its tile, 32 words from one left of its group, columns
-    modulo the width, zero past the window) is stepped 6 generations
-    (every row it needs) and compared with its input on each of its
-    stripes' regions (a block within a stripe: its inner region, rows and
-    cells at least 6 from its edge; a block of several stripes: each
-    stripe's rows [6, stripe_h + 2·pad - 6) of its own window, cells at
-    least 6 from the x edge); a block whose stripes that compute (not
-    ``elide``) all agree keeps its generation-6 state, any other steps on
-    to T, only the rows of its light cone (:meth:`RegPlan.live`).  Returns
-    (the blocks' centre words inside the centre columns: (h, wpl), bool
-    per stripe: the AND of its blocks' probes)."""
-    pad, sh = plan.pad, plan.stripe_h
-    h, wpl = ext.shape[0] - 2 * pad, ext.shape[1] - 2 * xpad
-    wpe = wpl + 2 * xpad
-    nby, nbx = blocks.grid
-    if ((blocks.t, blocks.halo, blocks.probe, blocks.border) != (plan.t, pad, SKIP_PERIOD, 1)
-            or (sh % blocks.tile_h and blocks.tile_h % sh)
-            or blocks.tile_h // sh > cuda_adaptive.REG_PROBE_STRIPES
-            or nby * blocks.tile_h != h or nbx * blocks.centre < wpe):
-        raise ValueError(f"blocks {blocks} do not cover {plan} on an extended {h}x{wpe} tile")
-    dev = ext.device
-    win0 = _reg_windows(ext, blocks, 0, -1, True)
-    win = _reg_steps(win0, rule, blocks, range(1, SKIP_PERIOD + 1))
-    mask = torch.full(win.shape[-1:], -1, dtype=torch.int32, device=dev)
-    mask[0] &= _FIRST_WORD_INNER
-    mask[-1] &= _LAST_WORD_INNER
-    changed = ((win ^ win0) & mask).ne(0).any(dim=3)  # (nby, nbx, window rows)
-    ns, span = max(blocks.tile_h // sh, 1), min(blocks.tile_h, sh)
-    lo = torch.arange(ns, device=dev)[:, None] * span + SKIP_PERIOD
-    r = torch.arange(changed.shape[2], device=dev)
-    region = (r >= lo) & (r < lo + span + 2 * pad - 2 * SKIP_PERIOD)  # (ns, window rows)
-    unstable = (changed[:, :, None, :] & region).any(dim=3)  # (nby, nbx, ns)
-    stripe = ((torch.arange(nby, device=dev) * blocks.tile_h // sh)[:, None]
-              + torch.arange(ns, device=dev))  # (nby, ns)
-    failed = torch.zeros(plan.grid(h), dtype=torch.int32, device=dev)
-    failed.index_add_(0, stripe.flatten(), unstable.any(dim=1).flatten().to(torch.int32))
-    step = (unstable & ~elide[stripe][:, None, :]).any(dim=2)
-    win = _reg_steps(win, rule, blocks, range(SKIP_PERIOD + 1, plan.t + 1), ~step)
-    out = _reg_stitch(win, blocks)[:, xpad : xpad + wpl]
-    return out, failed == 0
 
 
 def tile_probing_launch_mirror(

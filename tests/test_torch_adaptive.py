@@ -180,6 +180,31 @@ def test_block_mirror_matches_pallas_at_jax_plan(ref, jax_runs, kind, rule):
     np.testing.assert_array_equal(act.numpy(), jact)
 
 
+@pytest.mark.parametrize("rule", RULES)
+@pytest.mark.parametrize("kind", BOARDS)
+@pytest.mark.parametrize("path", list(PATHS))
+def test_skip_block_mirrors_match_pallas_at_jax_plan(ref, jax_runs, path, kind, rule):
+    """K4's and K3's block mirrors (``probing_superstep_reg_mirror``,
+    ``tiled_skip_reg_mirror``: the register probing blocks on the board in
+    place, and K2's torus window with the probe) in place of their plain
+    versions in the dispatch, at the JAX plan and on an H100's blocks:
+    board, skip count and activity of the interpret-mode Pallas tier on
+    both paths (the probing path runs K4 alone; the frontier path K5's
+    chunk, K4's tail, one K3 launch and K2), tolerance 0."""
+    (h, w), cap = PATHS[path]
+    turns, _ = path_turns(ref, path)
+    plan = jax_plan(ref, (h, w // 32), turns, cap)
+    b, jb, jsk, jact = jax_runs(path, kind, rule)
+    p = tpacked.pack(torch.from_numpy(b))
+    got, sk, act = cuda_adaptive._drive(
+        p, tlife.RULES[rule], turns, plan, cuda_adaptive.frontier_superstep_mirror,
+        cuda_adaptive.probing_superstep_reg_mirror, cuda_adaptive.tiled_skip_reg_mirror,
+        cuda_packed.tiled_superstep_plain)
+    np.testing.assert_array_equal(words(got), jb)
+    assert int(sk) == jsk
+    np.testing.assert_array_equal(act.numpy(), jact)
+
+
 def test_jax_plans_are_the_stated_ones(ref):
     frontier_turns, _ = path_turns(ref, "frontier")
     probing_turns, _ = path_turns(ref, "probing")

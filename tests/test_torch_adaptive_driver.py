@@ -159,13 +159,24 @@ def test_invalid_plans_raise(kw):
 
 
 def test_stripe_tiles_fit_shared_memory():
-    for shape, stripe_h, halo in [((16384, 512), 256, 24), ((16384, 512), 1024, 30),
-                                  ((64, 128), 16, 8), ((2048, 1), 2048, 30)]:
-        tiles = cuda_adaptive.stripe_tiles(shape, stripe_h, halo)
-        assert stripe_h % tiles.tile_h == 0 and tiles.t == halo
-        assert tiles.smem_bytes <= cuda_packed.SMEM_BYTES
-        assert tiles.cols_w <= cuda_packed.TILED_COLS
-        assert tiles.xpad * 32 >= halo
+    """K4's register blocks (``probing_reg_plan``) on each stripe height:
+    a row tile that divides a stripe or spans up to 32 whole ones and the
+    board, a window of at most 16 warps holding the tile and round8(T)
+    rows a side, column groups covering the width, and shared memory (the
+    run edges and the kept window) for at least one block an SM."""
+    for shape, plan in [((16384, 512), cuda_adaptive.AdaptivePlan(24, 256, True)),
+                        ((16384, 512), cuda_adaptive.AdaptivePlan(24, 1024, True)),
+                        ((64, 128), cuda_adaptive.AdaptivePlan(6, 16, False)),
+                        ((2048, 1), cuda_adaptive.AdaptivePlan(24, 2048, True))]:
+        for sms in (132, 114):
+            tiles = cuda_adaptive.probing_reg_plan(plan, shape, sms)
+            assert plan.stripe_h % tiles.tile_h == 0 or (
+                tiles.tile_h % plan.stripe_h == 0 and shape[0] % tiles.tile_h == 0
+                and tiles.tile_h // plan.stripe_h <= cuda_adaptive.REG_PROBE_STRIPES)
+            assert (tiles.t, tiles.halo, tiles.probe) == (plan.t, plan.pad, 6)
+            assert tiles.rows <= tiles.warps * 32 <= 512
+            assert tiles.grid == (shape[0] // tiles.tile_h, -(-shape[1] // 30))
+            assert tiles.occupancy >= 1 and tiles.smem_bytes + 1024 <= 228 * 1024
 
 
 def test_cpu_wrappers_run_plain_versions_without_counting():

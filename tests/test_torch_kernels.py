@@ -177,8 +177,12 @@ def test_tiled_mirror_matches_plain_under_every_rule(rule, shape, turns):
 
 
 def test_tiled_plan_rejects_short_halo():
+    """A register window of one border word a side holds at most 32
+    generations (K2's and K3's blocks), and K3's plan only multiples of 6."""
     with pytest.raises(ValueError):
-        cuda_packed.TiledPlan(33, 16, 16, 1)
+        cuda_adaptive.RegPlan(33, 33, 16, 4, (1, 1), 1)
+    with pytest.raises(ValueError):
+        cuda_adaptive.tiled_skip_reg_plan((16384, 512), 32, 132)
 
 
 def test_tiled_reg_mirror_refuses_blocks_that_do_not_cover_the_board():
@@ -223,23 +227,25 @@ def test_every_pallas_supported_shape_has_a_kernel(ref):
 
 
 def test_tiled_plan_at_the_headline_board():
-    """The first port's K2 tiling, which K3's launches keep."""
-    plan = cuda_packed.tiled_plan((16384, 512), 10_000)
-    assert plan.t == cuda_packed.TILED_MAX_T == 32
-    assert plan.xpad == 1 and plan.cols_w <= cuda_packed.TILED_COLS
-    assert plan.smem_bytes <= cuda_packed.SMEM_BYTES
-    ny, nx = plan.grid((16384, 512))
-    assert ny * plan.tile_h >= 16384 and nx * plan.tile_w >= 512
-    assert (ny - 1) * plan.tile_h < 16384 and (nx - 1) * plan.tile_w < 512
+    """K3's launch at 16384² (24 generations, the skip form): K2's blocks
+    with the probe, covering the torus once, one border word a side."""
+    plan = cuda_adaptive.tiled_skip_reg_plan((16384, 512), 24, cuda_packed.H100_SMS)
+    assert (plan.t, plan.halo, plan.border, plan.probe) == (24, 24, 1, 6)
+    assert plan.rows <= plan.warps * 32 <= 512
+    ny, nx = plan.grid
+    assert ny * plan.tile_h >= 16384 and nx * plan.centre >= 512
+    assert (ny - 1) * plan.tile_h < 16384 and (nx - 1) * plan.centre < 512
 
 
 def test_k3_and_k4_plans_are_unchanged():
-    """K3's launches and K4's stripes keep the first port's K2 tiling."""
-    assert cuda_packed.tiled_plan((16384, 512), 24) == cuda_packed.TiledPlan(24, 443, 57, 1)
-    assert cuda_packed.tiled_plan((16384, 512), 10**6) == cuda_packed.TiledPlan(32, 421, 57, 1)
-    assert cuda_packed.tile_width(512, 1) == 57 and cuda_packed.TILED_COLS == 64
-    stripes = cuda_adaptive.stripe_tiles((16384, 512), 256, 24)
-    assert stripes == cuda_packed.TiledPlan(24, 256, 57, 1)
+    """K3's and K4's register blocks at 16384² on an H100, pinned: K4 one
+    256-row stripe a block of 10 warps (T = 24), K3 K2's candidates with
+    the probe."""
+    plan = cuda_adaptive.adaptive_plan((16384, 512), 10**6)
+    assert cuda_adaptive.probing_reg_plan(plan, (16384, 512), 132) == cuda_adaptive.RegPlan(
+        24, 24, 256, 10, (64, 18), 1, 6)
+    assert cuda_adaptive.tiled_skip_reg_plan((16384, 512), 24, 132) == cuda_adaptive.RegPlan(
+        24, 24, 456, 16, (36, 18), 1, 6)
 
 
 @pytest.mark.parametrize("sms", [132, 114])
@@ -382,12 +388,16 @@ def test_gpu_tiled_kernel_forced_plans(cuda_device, t, tile_h, warps):
 
 @pytest.mark.gpu
 def test_gpu_k3_and_k4_keep_their_tilings(cuda_device):
-    """K3 and K4 still launch on the first port's tiling, beside K2's new
-    blocks, and equal their plain versions."""
+    """K3 and K4 launch on their register blocks for the card's SMs, beside
+    K2's, and equal their plain versions and their block mirrors."""
     b = random_board(np.random.default_rng(3), 1024, 4096)
     p = tpacked.pack(torch.from_numpy(b)).to(cuda_device)
+    sms = cuda_adaptive.device_sms(cuda_device)
     got = cuda_adaptive.tiled_skip_superstep(p, tlife.CONWAY, 24)
     assert torch.equal(got, cuda_adaptive.tiled_skip_superstep_plain(p, tlife.CONWAY, 24))
+    assert torch.equal(got, cuda_adaptive.tiled_skip_reg_mirror(p, tlife.CONWAY, 24, sms=sms))
     plan = cuda_adaptive.adaptive_plan(tuple(p.shape), 10**6)
     out, skipped, act = cuda_adaptive.probing_superstep(p, tlife.CONWAY, plan, 4)
     assert torch.equal(out, tpacked.superstep(p, tlife.CONWAY, 4 * plan.t))
+    want = cuda_adaptive.probing_superstep_reg_mirror(p, tlife.CONWAY, plan, 4, sms=sms)
+    assert all(torch.equal(a, b) for a, b in zip((out, skipped, act), want))

@@ -1,7 +1,8 @@
-"""Time K1, K2, K6, K7, K9-K11, K13 and the frontier kernels of a checkout of the PyTorch port on one CUDA card.
+"""Time K1-K4, K6, K7, K9-K11, K13 and the frontier kernels of a checkout of the PyTorch port on one CUDA card.
 
     python3 tools/regwin_ab.py [--root DIR] [--label NAME] [--out FILE] [--paths [--path NAME ...]]
-                               [--sweep | --sweep-frontier | --sweep-k2-k7]
+                               [--trace-long]
+                               [--sweep | --sweep-frontier | --sweep-k2-k7 | --sweep-k3-k4]
 
 Imports ``distributed_gol_torch`` from ``--root`` (default: the checkout
 holding this script), builds its ``resident``, ``ext``, ``probing``,
@@ -50,13 +51,20 @@ board, and with its count where the checkout's K6 counts (``time_k6``);
 K11 (``cuda_halo.strip_probing_launch``) on the (4, 1) strips of the
 fresh and settled boards at path (g)'s plan and path (e)'s loose-tail plan,
 8 launches from a zero bitmap (``time_k11``); K4
-(``cuda_adaptive.probing_superstep``) on the 16384² boards as their
-control (``time_k4``); and the SASS of K6's, K11's and K13's loops
-(``probing_stencil_sass``).  K2 (``cuda_packed.tiled_superstep``) one
-launch of 32 generations of the 16384² soup and its remainder depth of
-16, K3 (``cuda_adaptive.tiled_skip_superstep``, 24 generations) as its
-control (``time_k2``), K7 on the edge of its gate, 3 x 1024 x 1792 x 64
+(``cuda_adaptive.probing_superstep``) on the fresh and settled 16384²
+boards at the port's plan, 8 launches from a zero bitmap (``time_k4``),
+and K3 (``cuda_adaptive.tiled_skip_superstep``) on them at 24 and 18
+generations (``time_k3``); and the SASS of K6's, K11's and K13's loops
+(``probing_stencil_sass``) and of K3's and K4's (``skip_sass``).  K2
+(``cuda_packed.tiled_superstep``) one launch of 32 generations of the
+16384² soup and its remainder depth of 16, K3 at 24 generations beside
+it (``time_k2``), K7 on the edge of its gate, 3 x 1024 x 1792 x 64
 (``time_k1``), and the SASS of K2's loop (``tiled_sass``).
+``--sweep-k3-k4`` times K4 and K3 at every block height their plans
+weigh (``sweep_k3_k4``), on a checkout that has those plans;
+``--trace-long`` traces the one-device 16384² x 100,000 run
+(``chip_smoke.profile_run`` of the checkout: K5, K4, K3 and K2 launch by
+launch).
 ``--sweep-frontier`` times each frontier
 kernel at every row tile its plan weighs; ``--sweep`` also times K1 at
 512² at each cluster size its plan weighs (the cheapest plan of each; the
@@ -67,8 +75,8 @@ and K6 at every run height and K11 at every block height
 1792 and 132 x 512² (``sweep_k2_k7``; ``--sweep-k2-k7`` these alone), on
 a checkout that has those plans.
 ``--paths`` also runs the frames viewer, path (g), path (e), the 16384² x
-2,000 headless run and serving pod (a) end to end (``time_paths``;
-``--path`` picks some of them).
+2,000 and x 100,000 headless runs and serving pod (a) end to end
+(``time_paths``; ``--path`` picks some of them).
 Prints one JSON object with the card's name and power limit.
 
 To compare two commits on one card, unpack the parent into a directory
@@ -568,9 +576,16 @@ def time_k11(cuda_halo, shards, boards, rule) -> dict:
     return out
 
 
+def k4_kernel(k: str) -> bool:
+    """Whether a profiler key is K4's kernel, the register form or the
+    first port's."""
+    return "board_probing_reg_kernel" in k or "::probing_kernel" in k
+
+
 def time_k4(cuda_adaptive, boards, rule) -> dict:
-    """K4 (``cuda_adaptive.probing_superstep``, the control beside K11) on
-    the 16384² boards at the port's plan, 8 launches from a zero bitmap:
+    """K4 (``cuda_adaptive.probing_superstep``) on the 16384² boards at the
+    port's plan, 8 launches from a zero bitmap (on the settled board the
+    first probes every stripe and the other seven elide nearly all):
     median and spread of ``BATCHES`` batches, per launch, and device ms a
     launch."""
     plan = cuda_adaptive.adaptive_plan((BIG, BIG // 32), 10**6)
@@ -581,7 +596,90 @@ def time_k4(cuda_adaptive, boards, rule) -> dict:
 
         timed = batches(k4, 1)
         out[name] = dict(plan=str(plan), ms_per_launch=spread([t / 8 for t in timed["batches"]]),
-                         device_ms=device_ms(k4, 1, lambda k: "::probing_kernel" in k))
+                         device_ms=device_ms(k4, 1, k4_kernel))
+        if hasattr(cuda_adaptive, "probing_reg_plan"):
+            out[name]["blocks"] = str(cuda_adaptive.probing_reg_plan(plan, tuple(p.shape), 132))
+    return out
+
+
+def time_k3(cuda_adaptive, boards, rule) -> dict:
+    """K3 (``cuda_adaptive.tiled_skip_superstep``) one launch on the 16384²
+    boards at 24 generations (the loose depth of the port's plan) and 18
+    (the deepest remainder a dispatch gives it): median and spread of
+    ``BATCHES`` batches of 10 launches, and device ms a launch."""
+    out = {}
+    for name, p in boards.items():
+        for t in (24, 18):
+            def k3(p=p, t=t):
+                return cuda_adaptive.tiled_skip_superstep(p, rule, t)
+
+            out[f"{name}_x{t}"] = dict(**batches(k3, 10),
+                                       device_ms=device_ms(k3, 10, lambda k: "tiled_skip" in k))
+            if hasattr(cuda_adaptive, "tiled_skip_reg_plan"):
+                out[f"{name}_x{t}"]["blocks"] = str(
+                    cuda_adaptive.tiled_skip_reg_plan(tuple(p.shape), t, 132))
+    return out
+
+
+def skip_sass(cuda_build) -> dict:
+    """The SASS of K3's and K4's loops in this checkout's ``tiled_skip``
+    and ``probing`` builds (``tools/sass_loop_count.py``): the register
+    kernels' generation loops, or the first port's shared-memory row
+    loops."""
+    sys.path.insert(1, str(Path(__file__).resolve().parent))
+    import sass_loop_count as slc
+
+    return {k: v for k, v in slc.kernel_loops(cuda_build, ("tiled_skip", "probing")).items()
+            if k.startswith(("K3", "K4"))}
+
+
+def sweep_k3_k4(cuda_adaptive, boards, rule) -> list:
+    """K4 on the 16384² boards at every block height ``probing_reg_plan``
+    weighs (each divisor of the 256-row stripe of 8 rows or more, and runs
+    of 2 to 32 whole stripes whose window fits 16 warps; 8 launches from a
+    zero bitmap), and K3 at 24 generations at every block height
+    ``tiled_skip_reg_plan`` weighs (``torus_reg_plans``), each forced
+    through the wrapper: device ms a launch beside the plan's cost on 132
+    SMs and its pick."""
+    from distributed_gol_torch.ops.cuda_adaptive import REG_MAX_WARPS, REG_RUN, RegPlan
+
+    rows = []
+    shape = (BIG, BIG // 32)
+    plan = cuda_adaptive.adaptive_plan(shape, 10**6)
+    pick4 = cuda_adaptive.probing_reg_plan(plan, shape, 132)
+    heights = [d for d in range(8, plan.stripe_h + 1) if plan.stripe_h % d == 0]
+    heights += [k * plan.stripe_h for k in range(2, 33) if BIG % (k * plan.stripe_h) == 0]
+    pick3 = cuda_adaptive.tiled_skip_reg_plan(shape, 24, 132)
+    for name, p in boards.items():
+        for tile_h in heights:
+            warps = -(-(tile_h + 2 * plan.pad) // REG_RUN)
+            if warps > REG_MAX_WARPS:
+                continue
+            blocks = RegPlan(plan.t, plan.pad, tile_h, warps, (BIG // tile_h, pick4.grid[1]), 1, 6)
+            rows.append(dict(kernel="K4", board=name, plan=str(blocks), cost=blocks.cost(132),
+                             chosen=blocks == pick4, device_ms=device_ms(
+                                 lambda: cuda_adaptive.probing_superstep(p, rule, plan, 8,
+                                                                         blocks),
+                                 1, k4_kernel)))
+        for blocks in cuda_adaptive.torus_reg_plans(shape, 24, 6):
+            rows.append(dict(kernel="K3", board=name, plan=str(blocks), cost=blocks.cost(132),
+                             chosen=blocks == pick3, device_ms=device_ms(
+                                 lambda: cuda_adaptive.tiled_skip_superstep(p, rule, 24, blocks),
+                                 10, lambda k: "tiled_skip" in k)))
+    return rows
+
+
+def trace_long(root: Path) -> dict:
+    """The one-device 16384² x 100,000 run under ``torch.profiler``
+    (``chip_smoke.profile_run`` of the checkout at ``root``): device ms by
+    kernel, launch by launch, and the loop's seconds."""
+    sys.path.insert(0, str(root))
+    import chip_smoke
+
+    out = chip_smoke.profile_run(100_000)
+    keep = ("frontier_reg_kernel", "board_probing_reg_kernel", "probing_kernel",
+            "tiled_skip_reg_kernel", "tiled_skip_kernel", "tiled_reg_kernel")
+    out["port_kernels"] = {k: v for k, v in out["port_kernels"].items() if k in keep}
     return out
 
 
@@ -700,7 +798,8 @@ def time_paths(dev, names=None) -> dict:
             "g_4x1_cap16_x2000": dict(turns=2000, skip_stable=True, skip_tile_cap=16,
                                       mesh_shape=(4, 1), turn_events="batch"),
             "e_4x1_x100000": dict(turns=100_000, mesh_shape=(4, 1), turn_events="batch"),
-            "one_device_x2000": dict(turns=2000, turn_events="batch")}
+            "one_device_x2000": dict(turns=2000, turn_events="batch"),
+            "one_device_x100000": dict(turns=100_000, turn_events="batch")}
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         for key, kw in runs.items():
@@ -837,12 +936,17 @@ def main() -> int:
     ap.add_argument("--sweep-k2-k7", action="store_true",
                     help="also time K2 at every block height and depth its plan weighs and K7 "
                          "at every cluster size")
+    ap.add_argument("--sweep-k3-k4", action="store_true",
+                    help="also time K4 and K3 at every block height their plans weigh")
+    ap.add_argument("--trace-long", action="store_true",
+                    help="also trace the one-device 16384^2 x 100,000 run (K5, K4, K3, K2)")
     ap.add_argument("--paths", action="store_true",
                     help="also time the frames viewer, paths (g) and (e), the 16384^2 x 2,000 "
                          "run and pod (a) end to end")
     ap.add_argument("--path", action="append", default=[],
                     help="with --paths, time only this path (frames_x500, g_4x1_cap16_x2000, "
-                         "e_4x1_x100000, one_device_x2000, pod_a); may repeat")
+                         "e_4x1_x100000, one_device_x2000, one_device_x100000, pod_a); may "
+                         "repeat")
     ap.add_argument("--sweep-frontier", action="store_true",
                     help="also time K15, K12, K5, K14 and K8 at every block height their "
                          "plan weighs")
@@ -955,14 +1059,21 @@ def main() -> int:
     out["k6"] = time_k6(cuda_stencil, byte_soup, CONWAY)
     out["k11"] = time_k11(cuda_halo, shards, boards, CONWAY)
     out["k4"] = time_k4(cuda_adaptive, boards, CONWAY)
+    out["k3"] = time_k3(cuda_adaptive, boards, CONWAY)
     out["k2"] = time_k2(cuda_adaptive, cuda_packed, boards["fresh"], CONWAY)
     out["tiled_sass"] = tiled_sass(cuda_build)
+    try:
+        out["skip_sass"] = skip_sass(cuda_build)
+    except (ValueError, subprocess.CalledProcessError) as exc:  # a loop the parser cannot find
+        out["skip_sass"] = dict(error=repr(exc))
     try:
         out["probing_stencil_sass"] = probing_stencil_sass(cuda_build)
     except (ValueError, subprocess.CalledProcessError) as exc:  # a loop the parser cannot find
         out["probing_stencil_sass"] = dict(error=repr(exc))
     if args.paths:
         out["paths"] = time_paths(dev, args.path)
+    if args.trace_long:
+        out["trace_long"] = trace_long(root)
     if args.sweep:
         out["sweep"] = sweep(cuda_halo, halo, shards, big, boards, CONWAY) + sweep_frontier(
             cuda_halo, frontier)
@@ -976,6 +1087,8 @@ def main() -> int:
                                         soup, CONWAY)
     elif args.sweep_frontier:
         out["sweep"] = sweep_frontier(cuda_halo, frontier)
+    elif args.sweep_k3_k4:
+        out["sweep"] = sweep_k3_k4(cuda_adaptive, boards, CONWAY)
     elif args.sweep_k2_k7:
         out["sweep"] = sweep_k2_k7(cuda_adaptive, cuda_packed, packed, boards["fresh"], soup,
                                    CONWAY)

@@ -1,17 +1,18 @@
-"""Count the SASS instructions of the loops of K1/K7, K2, K6, K9, K10, K11 and K13.
+"""Count the SASS instructions of the loops of K1-K4, K6, K7, K9, K10, K11 and K13.
 
     python3 tools/sass_loop_count.py [--sass-dir DIR]
 
-Builds the port's ``resident``, ``tiled``, ``ext``, ``probing`` and ``stencil``
-kernels (``ops/cuda_build.py``), disassembles them with ``cuobjdump
--sass`` (the CUDA toolkit's, beside ``nvcc``) and prints one JSON object:
-for the B3/S23 instantiations of K9 (``ext_reg_kernel``), K2
-(``tiled_reg_kernel``, its loop K9's on the torus), K10
-(``ext_skip_reg_kernel``), K13 (``tile_probing_reg_kernel``) and K11
-(``strip_probing_reg_kernel``), their generation loop (the backward
+Builds the port's ``resident``, ``tiled``, ``tiled_skip``, ``ext``,
+``probing`` and ``stencil`` kernels (``ops/cuda_build.py``), disassembles
+them with ``cuobjdump -sass`` (the CUDA toolkit's, beside ``nvcc``) and
+prints one JSON object: for the B3/S23 instantiations of K9
+(``ext_reg_kernel``), K2 (``tiled_reg_kernel``, its loop K9's on the
+torus), K3 (``tiled_skip_reg_kernel``), K10 (``ext_skip_reg_kernel``), K13
+(``tile_probing_reg_kernel``), K11 (``strip_probing_reg_kernel``) and K4
+(``board_probing_reg_kernel``), their generation loop (the backward
 branch whose body holds the generation's ``BAR.SYNC``: one generation of a 32-row
-run, every chunk stepped; K10's, K11's and K13's first, the 6 generations
-before their probe); for K1 and K7 (``resident_reg_kernel``, one kernel
+run, every chunk stepped; K3's, K4's, K10's, K11's and K13's first, the 6
+generations before their probe); for K1 and K7 (``resident_reg_kernel``, one kernel
 with a board axis) each B3/S23
 instantiation's generation loop (one generation of every sub-run a warp
 holds: 32 rows of registers, the exchange included; a row is one word of
@@ -20,9 +21,9 @@ each of the warp's 32 lanes, 30 of them centre); for K6
 backward branch: ``kAhead`` rows of a thread's column of 16 or 4 cells,
 the loads, stores and the count included) and, for the first port's K6,
 the whole kernel (4 rows of 4 cells a thread, the shared-memory staging
-included); and for the shared-memory forms of K10 and K11 that came before
-(``ext_skip_kernel``, ``strip_probing_kernel``, and K2's ``tiled_kernel``:
-``window.cuh::advance``),
+included); and for the shared-memory forms of K2, K3, K4, K10 and K11 that
+came before (``tiled_kernel``, ``tiled_skip_kernel``, ``probing_kernel``,
+``ext_skip_kernel``, ``strip_probing_kernel``: ``window.cuh::advance``),
 where a build has them, their row loop (the innermost backward branch
 whose body reads and writes shared memory: a window row).  Each loop's
 static instruction count, its count per row (and per cell for K6), and
@@ -133,7 +134,7 @@ def largest_loop(code: list) -> tuple:
 
 
 def kernel_loops(build, libs, sass_dir: str = "") -> dict:
-    """The loops of K1/K7, K2, K6, K9, K10, K11 and K13 in the kernels ``libs`` of the
+    """The loops of K1-K4, K6, K7, K9, K10, K11 and K13 in the kernels ``libs`` of the
     build module ``build`` (``ops/cuda_build.py`` of a checkout, built
     already), disassembled with ``cuobjdump -sass``; ``sass_dir`` also
     keeps the disassembly."""
@@ -156,9 +157,11 @@ def kernel_loops(build, libs, sass_dir: str = "") -> dict:
                 h, ragged = re.search(r"resident_reg_kernelILi(\d+)ELb(\d)E", name).groups()
                 out[f"K1_h{h}{'_ragged' if ragged == '1' else ''}"] = summary(
                     code, generation_loop(code), RUN_ROWS)
+            elif CONWAY in name and "tiled_skip_reg_kernel" in name:
+                out["K3"] = summary(code, generation_loop(code), RUN_ROWS)
             elif CONWAY in name and "probing_reg_kernel" in name:
-                out["K13" if "tile_probing" in name else "K11"] = summary(
-                    code, generation_loop(code), RUN_ROWS)
+                key = "K13" if "tile_probing" in name else "K4" if "board_probing" in name else "K11"
+                out[key] = summary(code, generation_loop(code), RUN_ROWS)
             elif CONWAY in name and "stencil_kernel" in name:
                 words = int(re.search(r"stencil_kernelILi(\d+)E", name).group(1))
                 row = summary(code, largest_loop(code), STENCIL_AHEAD)
@@ -169,11 +172,14 @@ def kernel_loops(build, libs, sass_dir: str = "") -> dict:
                 row["per_cell"] = row["per_row"] / 4
                 out["K6"] = row
             elif any(k in name for k in ("ext_skip_kernel", "strip_probing_kernel",
-                                         "12tiled_kernel")):
+                                         "12tiled_kernel", "17tiled_skip_kernel",
+                                         "14probing_kernel")):
                 span = row_loop(code)
                 row = summary(code, span, 1)
                 row["branch_blocks"] = branch_blocks(code, span)
-                out["K10" if "ext_skip" in name else "K11" if "probing" in name else "K2"] = row
+                out[next(k for n, k in (("ext_skip", "K10"), ("strip_probing", "K11"),
+                                        ("14probing", "K4"), ("tiled_skip", "K3"),
+                                        ("tiled", "K2")) if n in name)] = row
     return out
 
 
@@ -181,7 +187,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sass-dir", default="")
     args = ap.parse_args()
-    libs = ("resident", "tiled", "ext", "probing", "stencil")
+    libs = ("resident", "tiled", "tiled_skip", "ext", "probing", "stencil")
     cuda_build.build(*libs)
     print(json.dumps(kernel_loops(cuda_build, libs, args.sass_dir)))
     return 0

@@ -60,7 +60,27 @@ tails, K10 and K9 for the remainders), equal to the single-device
 alone); (i) 520 x 1024 x 3,000 on (4, 2), whose tiles have no adaptive
 plan (K10 at xpad 1 on every launch), equal to a single-device rerun;
 (j) the soup x 2,000 on (2, 4) at a stripe cap of 16 (K13), equal to the
-single-device 2,000-turn PGM.  It
+single-device 2,000-turn PGM.  Then the resilience paths: (m) time
+compression (``time_compression=True``, superstep 240, a cycle probe
+every 2 dispatches) on the 16384² soup x 100,000 under auto (K5, K4,
+K3), a first run that misses the ``AshCache`` and a second that hits
+it (repeated to ``REPS`` runs), each equal to the long run's PGM, turns
+and final alive count, and two 'q'-detaches inside
+the compressed interval whose sidecars carry the cumulative
+computed-against-effective split before a last resume writes the long
+run's PGM; (n) the 16384² soup x 2,000 (K2) through ``gol.run`` with
+``restart_limit=3``, an SDC check every dispatch, periodic checkpoints
+and a ``FaultInjectionBackend`` carried across
+the attempts (a corrupt caught by the sentinel and rolled back, a hang
+past the dispatch watchdog rebuilt, an issue burst rebuilt on the elastic
+rung), equal to the unsupervised run's PGM, with the run's telemetry
+sampler holding samples and its final snapshot round-tripping through
+OpenMetrics; (o) the soup x 20,000 on (4, 1) with ``skip_stable`` and two
+issue bursts that take the ladder to its forced-ppermute rung: K14 before
+the escalation, K12 after it, equal to the single-device PGM.  Every run
+row is published as ``{reps, median, spread}`` (``utils/measure.py``; a
+run under 5 s is repeated to 3 runs) and the record is linted with
+``measure.require_headline_stats`` before it prints.  It
 checks that every kernel of each path launched in it, times every kernel
 against its plain version and its bound (and a viewer turn's parts at
 16384², K6 with and without its count beside a byte copy of the board,
@@ -120,18 +140,19 @@ from __future__ import annotations
 
 import collections
 import contextlib
-import ctypes
 import dataclasses
 import functools
 import json
 import os
 import queue
+import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
+from unittest import mock
 
 import zlib
 
@@ -139,15 +160,17 @@ import numpy as np
 import torch
 
 import distributed_gol_torch as gol
-from distributed_gol_torch.engine import frames, pgm
+from distributed_gol_torch.engine import frames, pgm, timecomp
 from distributed_gol_torch.engine.backend import Backend
 from distributed_gol_torch.engine.session import Session
-from distributed_gol_torch.obs import metrics
+from distributed_gol_torch.obs import metrics, openmetrics, timeseries
 from distributed_gol_torch.serve import ServeConfig, ServePlane
 from distributed_gol_torch.models.life import CONWAY, DAY_AND_NIGHT, HIGHLIFE, LifeRule
 from distributed_gol_torch.ops import (
     cuda_adaptive, cuda_build, cuda_packed, cuda_stencil, packed, stencil)
 from distributed_gol_torch.parallel import cuda_halo, halo, mesh as mesh_lib
+from distributed_gol_torch.testing.faults import Fault, FaultInjectionBackend, FaultPlan
+from distributed_gol_torch.utils import measure
 from distributed_gol_torch.utils.soup import random_soup
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
@@ -342,11 +365,55 @@ TILE_PLAN_LESS = (520, 1024, 3_000)
 # K15's checks: the 16384² soup split (2, 2), (2, 4) and (1, 2) (north and
 # south the tile itself, west and east one tile).
 TILE_MEGA_MESHES = (MESH_H, MESH_J, (1, 2))
+# Every run row is published as {reps, median, spread} (utils/measure.py):
+# a run shorter than REP_SECONDS is repeated to REPS runs.
+REPS, REP_SECONDS = 3, 5.0
+# The resilience paths.  (m) time compression on the 16384² soup x
+# LONG_TURNS (its last gliders die by about turn 20,000, and the whole
+# board repeats with period 6 from there).  (n) the 16384² soup x 2,000
+# supervised, superstep N_STEP, every dispatch checked by the SDC
+# sentinel, a checkpoint every N_CKPT turns, under N_FAULTS: a corrupt
+# (caught, rolled back), a hang past the watchdog's N_DEADLINE seconds
+# (rebuilt), and an issue burst (rebuilt on the elastic rung, every device
+# healthy); the run's telemetry sampler at N_SAMPLE seconds.  (o) path
+# (e)'s soup x O_TURNS on (4, 1) with skip_stable, superstep O_STEP, a
+# checkpoint every O_CKPT turns, two issue bursts that take the ladder to
+# its forced-ppermute rung: K14 before, K12 after.
+# The fast-forward polls the keys at its chunk boundaries (chunks of 6·2^k
+# turns): a 'q' at poll 12 lands 12,282 turns into the interval.
+DETACH_POLL = 12
+N_STEP, N_CKPT, N_DEADLINE, N_SAMPLE = 100, 200, 5.0, 0.25
+N_FAULTS = (Fault(2, "corrupt", cells=3), Fault(6, "hang", seconds=120.0),
+            Fault(10, "issue"), Fault(11, "issue"))
+O_TURNS, O_STEP, O_CKPT = 20_000, 2_000, 4_000
+O_FAULTS = (Fault(2, "issue"), Fault(3, "issue"), Fault(4, "issue"), Fault(5, "issue"))
 
 
 def virtual(mesh_shape: tuple, device) -> list:
     """A virtual mesh's device list: every shard on ``device``."""
     return [device] * (mesh_shape[0] * mesh_shape[1])
+
+
+def stats_row(metric: str, rates: list, unit: str = "gens/s") -> dict:
+    """One published rate row: ``measure.summarize`` of the runs' rates,
+    tagged for ``measure.require_headline_stats``."""
+    return {"metric": metric, "unit": unit, **measure.summarize(rates)}
+
+
+def repeats(name: str, first_seconds: float, first_output, rerun, rep_dir: Path) -> list:
+    """The seconds of a row's runs: the first, and ``rerun(rep_dir)``'s
+    until there are ``REPS`` when the first took under ``REP_SECONDS``.
+    ``rerun`` writes into ``rep_dir`` and returns (seconds, output); each
+    output (the run's final PGMs) must equal ``first_output``, and
+    ``rep_dir`` is removed after each."""
+    runs = [first_seconds]
+    while first_seconds < REP_SECONDS and len(runs) < REPS:
+        seconds, output = rerun(rep_dir)
+        shutil.rmtree(rep_dir, ignore_errors=True)
+        if output != first_output:
+            raise AssertionError(f"{name}: a repeated run's final PGMs differ from the first's")
+        runs.append(seconds)
+    return runs
 
 
 def log(msg: str) -> None:
@@ -1638,7 +1705,12 @@ class KeysAfter(queue.Queue):
 
     def __init__(self, schedule: dict):
         super().__init__()
+        self._initial = dict(schedule)
         self._schedule, self._polls = dict(schedule), 0
+
+    def fresh(self) -> "KeysAfter":
+        """The same schedule, not yet polled (a repeat of the run)."""
+        return KeysAfter(self._initial)
 
     def _tick(self) -> None:
         self._polls += 1
@@ -1702,15 +1774,19 @@ class Sink:
             self.final = e
 
 
-def stream_run(params: gol.Params, sink: Sink, keys=None, session=None, devices=None):
+def stream_run(params: gol.Params, sink: Sink, keys=None, session=None, devices=None,
+               events=None, backend_factory=None, backend=None):
     """One ``gol.run`` on the engine thread while this thread consumes the
     stream as it is produced, as the CLI does; returns (seconds, final PGM
     bytes or None).  ``devices`` places the board (a virtual mesh): the run
-    gets ``backend=Backend(params, devices)``."""
-    events = gol.EventQueue()
+    gets ``backend=Backend(params, devices)``; ``backend`` and
+    ``backend_factory`` are ``gol.run``'s (the first attempt's Backend, the
+    supervisor's rebuild seam); ``events`` replaces the run's
+    ``EventQueue``."""
+    events = gol.EventQueue() if events is None else events
     t0 = time.perf_counter()
-    backend = Backend(params, devices) if devices else None
-    engine = gol.start(params, events, keys, session, backend)
+    backend = Backend(params, devices) if devices else backend
+    engine = gol.start(params, events, keys, session, backend, None, backend_factory)
     done = False
     while not done:
         for e in events.get_many(timeout=300):
@@ -1736,7 +1812,10 @@ def drive(name: str, params: gol.Params, kernels: tuple, launches: dict, referen
     is the board shape of a flip run); ``devices`` places the kernel run's
     board (a virtual mesh).  Returns (the kernel run's end-to-end numbers,
     its sink); ``board_sums`` counts the kernel run's separate sums of a
-    board (``stencil.alive_count``)."""
+    board (``stencil.alive_count``).  A kernel run shorter than
+    ``REP_SECONDS`` is repeated (after its launches are read) to ``REPS``
+    runs, each writing the first run's final board, and its rates are
+    published as ``stats`` rows (``stats_row``)."""
     sink = Sink(shadow)
     reset_launches()
     with board_sums() as sums:
@@ -1751,12 +1830,30 @@ def drive(name: str, params: gol.Params, kernels: tuple, launches: dict, referen
     for k in kernels:
         if counts[k] == 0:
             raise AssertionError(f"{name}: the {k} kernel never launched")
+    loops, shown = [sink.loop_seconds()], [sink.frames]
+
+    def rerun(rep_dir: Path):
+        rep_sink = Sink(shadow)
+        rep = stream_run(dataclasses.replace(params, out_dir=rep_dir), rep_sink,
+                         keys.fresh() if keys else None, devices=devices)
+        loops.append(rep_sink.loop_seconds())
+        shown.append(rep_sink.frames)
+        return rep
+
+    runs = repeats(name, seconds, final, rerun,
+                   params.out_dir.with_name(params.out_dir.name + "_rep"))
+    stats = dict(run=stats_row("run gens/s", [params.turns / x for x in runs]),
+                 loop=stats_row("dispatch-loop gens/s", [params.turns / x for x in loops]))
+    if not params.no_vis and sink.frames:
+        stats["frames"] = stats_row("frames/s", [f / x for f, x in zip(shown, runs)], "frames/s")
+    log(f"{name}: run {stats['run']['median']:.1f} gens/s (spread {stats['run']['spread']:.3f}, "
+        f"{stats['run']['reps']} runs), loop {stats['loop']['median']:.1f} gens/s")
     if isinstance(reference, bytes):
         if final != reference:
             raise AssertionError(f"{name}: final board differs from the single-device run's")
         log(f"{name}: final board equals the single-device run's")
         out = dict(seconds=seconds, gens_per_s=params.turns / seconds, launches=counts,
-                   dispatch_loop_s=sink.loop_seconds(), board_sums=sums[0],
+                   dispatch_loop_s=sink.loop_seconds(), board_sums=sums[0], stats=stats,
                    reference="the single-device run's final PGM")
         out.update(skip_gauges(sink))
         return out, sink
@@ -1770,7 +1867,7 @@ def drive(name: str, params: gol.Params, kernels: tuple, launches: dict, referen
     loop = sink.loop_seconds()
     out = dict(seconds=seconds, gens_per_s=params.turns / seconds, dispatch_loop_s=loop,
                dispatch_loop_gens_per_s=params.turns / loop if loop else None,
-               launches=counts, board_sums=sums[0], reference=dict(
+               launches=counts, board_sums=sums[0], stats=stats, reference=dict(
                    overrides=reference, seconds=ref_seconds, gens_per_s=params.turns / ref_seconds,
                    dispatch_loop_s=ref.loop_seconds()))
     out.update(skip_gauges(sink))
@@ -1912,7 +2009,17 @@ def cli_path(tmp: Path, turns: int, alive: int) -> dict:
     print(f"viewer path CLI 512^2 x {turns} (terminal viewer): {seconds:.3f} s with process "
           f"start, {turns / seconds:.2f} gens/s, {len(stdout)} bytes of terminal output; "
           f"K6 launches {k6} in a traced {small}^2 x 1 run ({traced_seconds:.3f} s)", flush=True)
+    pgm_name = f"512x512x{turns}.pgm"
+
+    def rerun(rep_dir: Path):
+        rep_s = cli_run(tmp, 512, turns, alive, "--out-dir", str(rep_dir))[0]
+        return rep_s, (rep_dir / pgm_name).read_bytes()
+
+    runs = repeats("the CLI", seconds, (tmp / "out" / pgm_name).read_bytes(), rerun,
+                   tmp / "cli_rep")
     return dict(seconds=seconds, gens_per_s=turns / seconds, stdout_bytes=len(stdout),
+                stats=dict(run=stats_row("run gens/s with process start",
+                                         [turns / x for x in runs])),
                 last_line=stdout.splitlines()[-1], traced=dict(
                     side=small, turns=1, seconds=traced_seconds, k6_launches=k6))
 
@@ -1951,30 +2058,38 @@ def pod_path(name: str, shape: tuple, batched: bool, kernels: tuple, launches: d
     every launch count set to 0 just before and read just after.  Every
     tenant must complete with the final PGM of its solo rerun; each of
     ``kernels`` must have launched; a batched pod must show no failed
-    batched launch and no eviction.  Returns the pod's numbers."""
+    batched launch and no eviction.  A pod shorter than ``REP_SECONDS``
+    runs again to ``REPS`` pods (after its launches are read), each tenant
+    writing its first run's PGM.  Returns the pod's numbers."""
     nt, side, turns, superstep = shape
-    params = [gol.Params(turns=turns, image_width=side, image_height=side, soup_density=0.3,
-                         soup_seed=100 + i, superstep=superstep, turn_events="batch",
-                         ticker_period=3600, out_dir=tmp / name / f"t{i}") for i in range(nt)]
     config = ServeConfig(max_sessions=nt, batched=batched, max_total_cells=nt * side * side)
+
+    def run_pod(root: Path):
+        params = [gol.Params(turns=turns, image_width=side, image_height=side,
+                             soup_density=0.3, soup_seed=100 + i, superstep=superstep,
+                             turn_events="batch", ticker_period=3600, out_dir=root / f"t{i}")
+                  for i in range(nt)]
+        t0 = time.perf_counter()
+        with ServePlane(config) as plane:
+            handles = [plane.submit(f"t{i}", p) for i, p in enumerate(params)]
+            if not plane.wait_idle(timeout=900):
+                raise AssertionError(f"pod {name}: tenants still resident after 900 s")
+            wall = time.perf_counter() - t0
+            health = plane.health()
+        for h in handles:
+            if h.status != "completed":
+                raise AssertionError(f"pod {name}: tenant {h.tenant} ended {h.status} ({h.error})")
+        return params, handles, wall, health
+
     before = metrics.REGISTRY.snapshot()
     reset_launches()
-    t0 = time.perf_counter()
-    with ServePlane(config) as plane:
-        handles = [plane.submit(f"t{i}", p) for i, p in enumerate(params)]
-        if not plane.wait_idle(timeout=900):
-            raise AssertionError(f"pod {name}: tenants still resident after 900 s")
-        wall = time.perf_counter() - t0
-        health = plane.health()
+    params, handles, wall, health = run_pod(tmp / name)
     counts = launch_counts()
     counters = metrics.REGISTRY.snapshot().delta(before).to_dict()["counters"]
     for k in kernels:
         launches[k] += counts[k]
         if counts[k] == 0:
             raise AssertionError(f"pod {name}: the {k} kernel never launched")
-    for h in handles:
-        if h.status != "completed":
-            raise AssertionError(f"pod {name}: tenant {h.tenant} ended {h.status} ({h.error})")
     failures = counters.get("serve.batched_launch_failures", 0)
     evictions = counters.get("serve.cohort_evictions", 0)
     if failures or evictions:
@@ -1985,6 +2100,18 @@ def pod_path(name: str, shape: tuple, batched: bool, kernels: tuple, launches: d
         if got != solo_rerun(p, tmp / name / f"solo{i}"):
             raise AssertionError(f"pod {name}: tenant {h.tenant}'s final PGM differs from its "
                                  "solo rerun")
+    aggregate, tenant_median = [nt * turns / wall], [median_tenant(handles, turns)]
+
+    def pgms(ps) -> list:
+        return [(p.out_dir / f"{p.final_output_name}.pgm").read_bytes() for p in ps]
+
+    def rerun(root: Path):
+        rep_params, rep_handles, rep_wall, _ = run_pod(root)
+        aggregate.append(nt * turns / rep_wall)
+        tenant_median.append(median_tenant(rep_handles, turns))
+        return rep_wall, pgms(rep_params)
+
+    walls = repeats(f"pod {name}", wall, pgms(params), rerun, tmp / f"{name}_rep")
     supersteps = -(-turns // superstep)
     rates = sorted(turns / h.duration for h in handles)
     boards, rounds = counters.get("serve.batched_boards", 0), counters.get("serve.batched_launches", 0)
@@ -1998,6 +2125,9 @@ def pod_path(name: str, shape: tuple, batched: bool, kernels: tuple, launches: d
         batched_launch_failures=failures, cohort_evictions=evictions,
         batched_engine=next((k.rsplit(".", 1)[1] for k in counters
                              if k.startswith("backend.batched_dispatches.")), None),
+        stats=dict(aggregate=stats_row("pod aggregate gens/s", aggregate),
+                   median_tenant=stats_row("pod median tenant gens/s", tenant_median)),
+        walls_s=walls,
     )
     if batched and out["batched_engine"] != "pallas-packed":
         raise AssertionError(f"pod {name}: batched engine {out['batched_engine']!r}, "
@@ -2008,6 +2138,11 @@ def pod_path(name: str, shape: tuple, batched: bool, kernels: tuple, launches: d
           f"{out['launches_per_superstep']}, mean cohort size {out['mean_cohort_size']}, "
           f"launches {out['launches']}", flush=True)
     return out
+
+
+def median_tenant(handles, turns: int) -> float:
+    """The median tenant's gens/s of one pod (the upper median)."""
+    return measure.median([turns / h.duration for h in handles])
 
 
 def serve_cli_path(tmp: Path) -> dict:
@@ -2044,12 +2179,27 @@ def serve_cli_path(tmp: Path) -> dict:
         got = (tmp / "pod" / n / f"{p.final_output_name}.pgm").read_bytes()
         if got != solo_rerun(p, tmp / "rerun" / n):
             raise AssertionError(f"the serve CLI's tenant {n} differs from its solo rerun")
+    def pgms(pod: Path) -> list:
+        return [(pod / n / f"{side}x{side}x{turns}.pgm").read_bytes() for n in names]
+
+    def rerun(rep_pod: Path):
+        rep_cmd = [str(rep_pod) if a == str(tmp / "pod") else a for a in cmd]
+        t1 = time.perf_counter()
+        rr = subprocess.run(rep_cmd, cwd=tmp, env=env, capture_output=True, text=True,
+                            timeout=600)
+        if rr.returncode:
+            raise AssertionError(f"a repeated serve CLI run exited {rr.returncode}")
+        return time.perf_counter() - t1, pgms(rep_pod)
+
+    runs = repeats("the serve CLI", seconds, pgms(tmp / "pod"), rerun, tmp / "pod_rep")
     print(f"serving pod CLI {nt} x {side}^2 x {turns} --batched: {seconds:.3f} s with process "
           f"start, {health['batched_launches']} batched launches carrying "
           f"{health['batched_boards']} boards", flush=True)
     return dict(seconds=seconds, tenants=nt, side=side, turns=turns,
                 batched_launches=health["batched_launches"],
-                batched_boards=health["batched_boards"])
+                batched_boards=health["batched_boards"],
+                stats=dict(aggregate=stats_row("pod aggregate gens/s with process start",
+                                               [nt * turns / x for x in runs])))
 
 
 def sharded_paths(tmp: Path, straight: bytes, launches: dict, device) -> dict:
@@ -2255,6 +2405,309 @@ def tile_paths(tmp: Path, long_pgm: bytes, straight: bytes, launches: dict, devi
     print(f"tile path {name}: {out['seconds']:.3f} s, {out['gens_per_s']:.1f} gens/s, dispatch "
           f"loop {out['dispatch_loop_s']:.3f} s, K9 launches {out['launches']['ext']}", flush=True)
     return e2e
+
+
+# -- phase 3, the resilience paths: (m) time compression, (n) a supervised
+# run under faults with the run's telemetry sampler, (o) the ladder's
+# forced-ppermute rung on a virtual mesh.
+
+
+class _ArmingEvents(gol.EventQueue):
+    """An event queue that arms ``keys`` when ``CycleDetected`` goes by (in
+    the engine's thread, so the arming is at a fixed point of the run)."""
+
+    def __init__(self, keys):
+        super().__init__()
+        self.keys = keys
+
+    def put(self, item, block=True, timeout=None):
+        if type(item) is gol.CycleDetected:
+            self.keys.armed = True
+        super().put(item, block, timeout)
+
+
+class _QAfterCycle(queue.Queue):
+    """Keys: 'q' at the ``after``-th poll once the compressed interval has
+    begun (the fast-forward polls at its chunk boundaries)."""
+
+    def __init__(self, after: int):
+        super().__init__()
+        self.after, self.polls, self.armed = after, 0, False
+
+    def empty(self) -> bool:
+        if self.armed:
+            self.polls += 1
+            if self.polls == self.after:
+                self.put("q")
+        return super().empty()
+
+
+def counted_run(params: gol.Params, **kw) -> dict:
+    """``stream_run`` with the launch counts set to 0 just before and read
+    just after, and the run's counter deltas (``timecomp.*``,
+    ``supervisor.*``, ``faults.*``, ``sdc.*``) from the process-wide
+    registry."""
+    before = metrics.REGISTRY.snapshot()
+    sink = Sink()
+    reset_launches()
+    seconds, final = stream_run(params, sink, **kw)
+    counts = launch_counts()
+    delta = metrics.REGISTRY.snapshot().delta(before).to_dict()["counters"]
+    own = ("timecomp.", "supervisor.", "faults.", "sdc.", "backend.dispatches.")
+    return dict(seconds=seconds, final=final, sink=sink, launches=counts,
+                counters={k: v for k, v in delta.items() if k.startswith(own)})
+
+
+def timecomp_path(tmp: Path, long_pgm: bytes, launches: dict) -> dict:
+    """(m): the 16384² soup x ``LONG_TURNS`` under auto (``skip_stable``:
+    K5, K4, K3) with ``time_compression=True``, superstep 240, a probe
+    every 2 dispatches (the tier defers them while the activity bitmap
+    shows live stripes).  Each run must write the long run's PGM (the
+    dense run of the same board) with the same turns and final alive
+    count; the first must compress with an ``AshCache`` miss (a row of
+    one run), the second and its repeats (to ``REPS``) hit it (the
+    ``compressed`` row).  Then a 'q' inside the compressed interval
+    parks a sidecar whose ``computed_turns`` is far below its
+    ``effective_turns``; a resumed run detached again parks the
+    cumulative split (``TimeCompressor.restore``); a last resume writes
+    the long run's PGM."""
+    params = gol.Params(turns=LONG_TURNS, image_width=BIG, image_height=BIG, soup_density=0.3,
+                        soup_seed=7, turn_events="batch", ticker_period=3600,
+                        time_compression=True, superstep=240, cycle_check=2,
+                        out_dir=tmp / "tc")
+    alive = int((pgm.decode_pgm(long_pgm) == 255).sum())
+    timecomp.CACHE.clear()
+    runs = []
+
+    def compressed(out_dir: Path):
+        r = counted_run(dataclasses.replace(params, out_dir=out_dir))
+        final = r["sink"].final
+        if (r["sink"].turns != LONG_TURNS or final.completed_turns != LONG_TURNS
+                or len(final.alive) != alive):
+            raise AssertionError(f"(m) run {len(runs)}: turns or alive count differ from the "
+                                 "long (dense) run's")
+        runs.append(r)
+        return r["seconds"], r["final"]
+
+    # The first run misses the AshCache and captures the period; the
+    # second hits it, and is repeated as a row of its own.
+    for i in range(2):
+        if compressed(tmp / f"tc{i}")[1] != long_pgm:
+            raise AssertionError(f"(m) run {i}: the final board differs from the long run's")
+        shutil.rmtree(tmp / f"tc{i}", ignore_errors=True)
+    hit_seconds = repeats("(m)", runs[1]["seconds"], long_pgm, compressed, tmp / "tc_rep")
+    first = runs[0]["counters"]
+    if not first.get("timecomp.skips") or not first.get("timecomp.cache_misses"):
+        raise AssertionError(f"(m): the first run did not compress: {first}")
+    for r in runs[1:]:
+        if not r["counters"].get("timecomp.cache_hits") or r["counters"].get(
+                "timecomp.cache_misses"):
+            raise AssertionError(f"(m): a later run did not hit the AshCache: {r['counters']}")
+    if not runs[0]["launches"]["frontier"]:
+        raise AssertionError("(m): K5 never launched before the board settled")
+    for k in ADAPTIVE:
+        launches[k] += runs[0]["launches"][k]
+
+    def row(rs, seconds) -> dict:
+        computed = LONG_TURNS - rs[0]["counters"]["timecomp.skipped_turns"]
+        out = stats_row("run gens/s", [LONG_TURNS / x for x in seconds], "effective gens/s")
+        out.update(computed_gens_per_s=measure.median([computed / x for x in seconds]),
+                   effective_turns=LONG_TURNS, computed_turns=computed)
+        return out
+
+    stats = dict(compressed_miss=row(runs[:1], [runs[0]["seconds"]]),
+                 compressed=row(runs[1:], hit_seconds))
+    computed = stats["compressed_miss"]["computed_turns"]
+    out = dict(seconds=[r["seconds"] for r in runs], launches=[r["launches"] for r in runs],
+               counters=[r["counters"] for r in runs], computed_turns=computed,
+               effective_turns=LONG_TURNS, stats=stats)
+    print(f"time compression (m) {BIG}^2 x {LONG_TURNS}: {[round(r['seconds'], 3) for r in runs]} "
+          f"s (a miss, then hits); computed {computed} of {LONG_TURNS} turns on the miss, "
+          f"{stats['compressed']['computed_turns']} on a hit; counters "
+          f"{[r['counters'] for r in runs[:2]]}; launches "
+          f"{[r['launches'] for r in runs[:2]]}; equals the long run", flush=True)
+
+    # Detach inside the interval twice, then resume to the end.
+    ckpt, metas = tmp / "ckpt_tc", []
+    per_turn = dataclasses.replace(params, turn_events="per-turn", out_dir=tmp / "tc_resume")
+    for leg in range(3):
+        keys = _QAfterCycle(DETACH_POLL) if leg < 2 else None
+        r = counted_run(per_turn, keys=keys, session=Session(ckpt),
+                        events=_ArmingEvents(keys) if keys else None)
+        if leg < 2:
+            if r["final"] is not None:
+                raise AssertionError(f"(m) detach leg {leg}: the run did not detach")
+            metas.append(json.loads((ckpt / "checkpoint.json").read_text()))
+        elif r["final"] != long_pgm:
+            raise AssertionError("(m) the resumed run's final board differs from the long run's")
+    a, b = metas
+    if not (0 < a["turn"] < b["turn"] < LONG_TURNS and a["effective_turns"] == a["turn"]
+            and b["effective_turns"] == b["turn"] and a["computed_turns"] < b["computed_turns"]
+            < a["turn"]):
+        raise AssertionError(f"(m) the parked splits do not add up: {a}, {b}")
+    out["detach"] = {f"leg{i}": {k: m[k] for k in ("turn", "computed_turns", "effective_turns")}
+                     for i, m in enumerate(metas)}
+    print(f"time compression (m): detached at {out['detach']}, resumed to the long run's board",
+          flush=True)
+    return out
+
+
+@contextlib.contextmanager
+def recorded(module, name: str):
+    """While the block runs, ``module.name`` (a class or function) is
+    wrapped so that every object it makes or returns lands in the yielded
+    list."""
+    made, original = [], getattr(module, name)
+
+    if isinstance(original, type):
+        class Recorded(original):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                made.append(self)
+        wrapper = Recorded
+    else:
+        def wrapper(*a, **kw):
+            made.append(original(*a, **kw))
+            return made[-1]
+    setattr(module, name, wrapper)
+    try:
+        yield made
+    finally:
+        setattr(module, name, original)
+
+
+def supervised_path(tmp: Path, straight: bytes, launches: dict) -> dict:
+    """(n): the 16384² soup x 2,000 (auto: K2) through ``gol.run`` with
+    ``restart_limit=3``, an SDC check every dispatch, a checkpoint every
+    ``N_CKPT`` turns, the dispatch watchdog at ``N_DEADLINE`` s, and ``N_FAULTS`` in one
+    ``FaultInjectionBackend`` carried across the attempts (the factory
+    rebinds it): the corrupt is caught by the sentinel and rolled back,
+    the hang rebuilt after the watchdog, the issue burst rebuilt on the
+    elastic rung.  The final PGM must equal the unsupervised run's; the
+    run's telemetry sampler (``N_SAMPLE`` s) must hold samples, and the
+    final snapshot must round-trip through OpenMetrics."""
+    from distributed_gol_torch.engine import supervisor as supervisor_mod
+
+    params = gol.Params(turns=2000, image_width=BIG, image_height=BIG, soup_density=0.3,
+                        soup_seed=7, turn_events="batch", ticker_period=3600, superstep=N_STEP,
+                        restart_limit=3, checkpoint_every_turns=N_CKPT,
+                        sdc_check_every_turns=N_STEP, dispatch_deadline_seconds=N_DEADLINE,
+                        telemetry_sample_seconds=N_SAMPLE, out_dir=tmp / "supervised")
+    harness = FaultInjectionBackend(Backend(params), FaultPlan(N_FAULTS))
+
+    def factory(p, attempt):
+        return harness if attempt == 0 else harness.rebind(Backend(p))
+
+    try:
+        with recorded(supervisor_mod, "supervise") as sups, \
+                recorded(timeseries, "TelemetrySampler") as samplers:
+            run = counted_run(params, session=Session(tmp / "ckpt_n"), backend_factory=factory)
+    finally:
+        harness.release_hangs()
+    sup, sink = sups[0], run["sink"]
+    history = [{k: v for k, v in r.items() if k != "t"} for r in sup.history]
+    causes = [r["cause"] for r in history]
+    if run["final"] != straight:
+        raise AssertionError(f"(n): the supervised run's PGM differs from the unsupervised "
+                             f"run's (history {history})")
+    if causes != ["CorruptionDetected", "DispatchTimeout", "RuntimeError"]:
+        raise AssertionError(f"(n): restarts {causes}")
+    if [f.kind for f in harness.injected] != [f.kind for f in N_FAULTS]:
+        raise AssertionError(f"(n): injected {harness.injected}")
+    if not run["launches"]["tiled"]:
+        raise AssertionError("(n): K2 never launched")
+    launches["tiled"] += run["launches"]["tiled"]
+    samples = len(samplers[0].samples()) if samplers else 0
+    if not samples:
+        raise AssertionError("(n): the run's telemetry sampler holds no sample")
+    problems = openmetrics.check_roundtrip(sink.report)
+    if problems:
+        raise AssertionError(f"(n): the final snapshot does not round-trip: {problems}")
+    print(f"supervised (n) {BIG}^2 x 2000: {run['seconds']:.3f} s, history {history}, "
+          f"recovery times {sup.recovery_times()} s, counters {run['counters']}, launches "
+          f"{run['launches']}, {samples} telemetry samples; equals the unsupervised run",
+          flush=True)
+    return dict(seconds=run["seconds"], history=history, recovery_times_s=sup.recovery_times(),
+                counters=run["counters"], launches=run["launches"], telemetry_samples=samples,
+                openmetrics_lines=len(openmetrics.render(sink.report).splitlines()),
+                stats=dict(run=stats_row("run gens/s", [2000 / run["seconds"]])))
+
+
+def escalation_path(tmp: Path, launches: dict, device) -> dict:
+    """(o): path (e)'s soup x ``O_TURNS`` on ``MESH_E`` with ``skip_stable``,
+    superstep ``O_STEP``, a checkpoint every ``O_CKPT`` turns,
+    ``restart_limit=2`` and two issue bursts (``O_FAULTS``), under the
+    supervisor's own rebuild ladder: the first attempt's Backend on the
+    virtual mesh is wrapped in a ``FaultInjectionBackend``, and every
+    Backend the ladder builds (``supervisor.Backend``, patched for the
+    phase) is rebound into the same harness.  The ladder must rebuild on
+    the first attempt's placement (``Supervisor._placement``): the same
+    tier, then from ``Supervisor._ESCALATE_AT`` ``in_kernel=False``, so the
+    history's tiers read same, forced-ppermute.  K14 must have launched
+    before the escalation and K12 after it (and neither in the other
+    phase); the last Backend's tier reads ``forced-ppermute
+    (in_kernel=False)`` on the virtual mesh; the final PGM must equal the
+    single-device run's."""
+    from distributed_gol_torch.engine import supervisor as supervisor_mod
+
+    soup = dict(image_width=BIG, image_height=BIG, soup_density=0.3, soup_seed=7,
+                turn_events="batch", ticker_period=3600)
+    straight = stream_run(gol.Params(turns=O_TURNS, out_dir=tmp / "escalate_ref", **soup),
+                          Sink())[1]
+    params = gol.Params(turns=O_TURNS, mesh_shape=MESH_E, skip_stable=True, superstep=O_STEP,
+                        restart_limit=2, checkpoint_every_turns=O_CKPT,
+                        out_dir=tmp / "escalate", **soup)
+    devices = virtual(MESH_E, device)
+    harness = FaultInjectionBackend(Backend(params, devices), FaultPlan(O_FAULTS))
+    marks, built = {}, []
+
+    def rebuilt(p, devices=None, in_kernel=None):
+        if in_kernel is False and "escalated" not in marks:
+            marks["escalated"] = launch_counts()
+        built.append(Backend(p, devices, in_kernel=in_kernel))
+        return harness.rebind(built[-1])
+
+    with recorded(supervisor_mod, "supervise") as sups, \
+            mock.patch.object(supervisor_mod, "Backend", rebuilt):
+        run = counted_run(params, session=Session(tmp / "ckpt_o"), backend=harness)
+    history = [{k: v for k, v in r.items() if k != "t"} for r in sups[0].history]
+    before = marks.get("escalated")
+    if before is None or [r["tier"] for r in history] != ["same", "forced-ppermute"]:
+        raise AssertionError(f"(o): the ladder did not escalate: {history}")
+    if [b.devices for b in built] != [devices, devices]:
+        raise AssertionError(f"(o): the ladder rebuilt on {[b.devices for b in built]}, not on "
+                             f"the first attempt's virtual mesh")
+    after = {k: run["launches"][k] - before[k] for k in KERNELS}
+    info = run["sink"].report["info"]
+    policy = info.get("backend.sharded_tier_policy")
+    if run["final"] != straight:
+        raise AssertionError("(o): the final PGM differs from the single-device run's")
+    if not (before["strip_mega"] and not before["strip_frontier"] and after["strip_frontier"]
+            and not after["strip_mega"]):
+        raise AssertionError(f"(o): K14/K12 launches before {before}, after {after}")
+    if info.get("backend.sharded_tier") != "ppermute" or policy != (
+            "forced-ppermute (in_kernel=False)"):
+        raise AssertionError(f"(o): the escalated tier is {info.get('backend.sharded_tier')} "
+                             f"({policy})")
+    for k in ("ext", *STRIPS, "strip_mega"):
+        launches[k] += run["launches"][k]
+    print(f"escalation (o) {BIG}^2 x {O_TURNS} on {MESH_E}: {run['seconds']:.3f} s, history "
+          f"{history}, launches before the escalation "
+          f"{ {k: before[k] for k in ('ext', *STRIPS, 'strip_mega')} }, after "
+          f"{ {k: after[k] for k in ('ext', *STRIPS, 'strip_mega')} }, tier policy {policy!r}; "
+          f"equals the single-device run", flush=True)
+    return dict(seconds=run["seconds"], history=history, launches_before=before,
+                launches_after=after, sharded_tier_policy=policy, counters=run["counters"],
+                stats=dict(run=stats_row("run gens/s", [O_TURNS / run["seconds"]])))
+
+
+def resilience_paths(tmp: Path, long_pgm: bytes, straight: bytes, launches: dict,
+                     device) -> dict:
+    """Phase 3's resilience paths (m), (n) and (o)."""
+    return {f"timecomp_m_{BIG}x{BIG}x{LONG_TURNS}": timecomp_path(tmp, long_pgm, launches),
+            f"supervised_n_{BIG}x{BIG}x2000": supervised_path(tmp, straight, launches),
+            f"escalation_o_{BIG}x{BIG}x{O_TURNS}_{MESH_E[0]}x{MESH_E[1]}": escalation_path(
+                tmp, launches, device)}
 
 
 def serving_paths(tmp: Path, launches: dict) -> dict:
@@ -3079,6 +3532,8 @@ def main() -> int:
     tile_cases = check_tiles(device, errs, tiled)
     tile_cases["plan_less"] = check_plan_less(device, errs, TILE_PLAN_LESS, MESH_I, "i")
     tile_mega_cases = check_tile_mega(errs, tiled)
+    log(f"phase 2 (kernels against their plain versions) done at "
+        f"{time.perf_counter() - started:.1f} s")
 
     # Phase 3: the main paths, with every count set to 0 just before each run.
     launches = {k: 0 for k in KERNELS}
@@ -3136,6 +3591,9 @@ def main() -> int:
               f"dispatch loop {ll['dispatch_loop_s']:.3f} s, skip fraction "
               f"{ll.get('skip_fraction')}; strip path (e) on {MESH_E}: {e['gens_per_s']:.1f} "
               f"gens/s; single-device {run_long['gens_per_s']:.1f} gens/s", flush=True)
+        log(f"phase 3 up to the resilience paths done at {time.perf_counter() - started:.1f} s")
+        e2e.update(resilience_paths(tmp, long_pgm, straight, launches, device))
+    log(f"phase 3 (main paths) done at {time.perf_counter() - started:.1f} s")
 
     # Phase 4: time each kernel at the main path's shapes.
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -3249,6 +3707,7 @@ def main() -> int:
             ms=tm["ms"], plain_ms=tm["plain_ms"], bound_ms=b_ms, bound_by=b_by, library_ms=None,
             **tm.get("extra", {}),
         ))
+    measure.require_headline_stats(e2e)  # every run row: {reps, median, spread}
     print(json.dumps({"end_to_end": e2e, "card": card}))
     print(json.dumps({"k6_copy_witness": witness, "card": card}))
     if "--sweep" in sys.argv[1:]:

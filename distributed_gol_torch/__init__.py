@@ -9,7 +9,8 @@ JAX package's.  This package imports neither ``jax`` nor
 
 Public API (the JAX package's, for the single-device paths, headless and
 viewer): :class:`Params` (with ``device``, default "cuda"), :func:`run`,
-:func:`start`, the event types, :class:`Cell` and :class:`GracefulStop`.
+:func:`start`, :func:`supervise`, the event types, :class:`Cell` and
+:class:`GracefulStop`.
 """
 
 from distributed_gol_torch.utils.cell import Cell
@@ -39,7 +40,7 @@ from distributed_gol_torch.engine.controller import (
     DispatchTimeout,
 )
 from distributed_gol_torch.engine.gol import run, start
-from distributed_gol_torch.engine.supervisor import GracefulStop
+from distributed_gol_torch.engine.supervisor import GracefulStop, supervise
 
 __all__ = [
     "AliveCellsCount",
@@ -67,6 +68,7 @@ __all__ = [
     "TurnTiming",
     "run",
     "start",
+    "supervise",
 ]
 
 __version__ = "0.1.0"

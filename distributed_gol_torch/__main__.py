@@ -9,10 +9,12 @@ the CPU), headless, ``--skip-stable`` included; with ``--skip-stable``
 tiles share one card takes the in-kernel exchange tier (K14 on a row
 mesh, K15 on a 2-D mesh), and the
 environment variable ``DGOL_ICI=0`` forces the ppermute tier instead, as
-in the JAX package.  Flags for what the port
-does not serve yet (the supervisor, time compression, telemetry
-endpoints, multi-host runs, a viewer on a mesh) are usage errors that
-name the ROADMAP item.  The
+in the JAX package.  ``--restart-limit N`` supervises the run (rollback
+to the newest checkpoint on a terminal fault, ``engine/supervisor.py``),
+``--time-compression`` fast-forwards settled ash, and
+``--telemetry-sample-seconds S`` samples the metrics registry.  Flags for
+what the port does not serve yet (telemetry endpoints, multi-host runs, a
+viewer on a mesh) are usage errors that name the ROADMAP item.  The
 engine runs in a worker thread while the main thread runs the viewer: the
 terminal renderer by default, the pygame window with ``--window``, a
 headless drain with ``-noVis``; the keyboard listener feeds s/p/q/k (and
@@ -499,10 +501,6 @@ def _refuse_serve_unported(args) -> None:
     if args.telemetry_port is not None:
         raise NotImplementedError(
             "--telemetry-port: the telemetry endpoints are not ported yet (ROADMAP A9)"
-        )
-    if args.restart_limit > 0:
-        raise NotImplementedError(
-            "--restart-limit > 0: the supervisor is not ported yet (ROADMAP A7)"
         )
 
 

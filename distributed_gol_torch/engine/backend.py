@@ -78,7 +78,8 @@ class Backend:
     ``devices`` places the board: on one device its first entry, on a mesh
     the mesh's devices in row-major order (a device may repeat: a virtual
     mesh, all shards on one card).  None takes the device of
-    ``params.device``, or on a mesh the healthy CUDA devices
+    ``params.device`` (the first healthy one of its kind once it is
+    blacklisted), or on a mesh the healthy CUDA devices
     (``parallel.mesh.make_mesh``, which raises when there are too few) —
     or, with ``device="cpu"``, the CPU for every shard.
 
@@ -106,6 +107,19 @@ class Backend:
                     f"requested device type {params.device!r}"
                 )
             self.device = devices[0]
+        elif params.mesh_shape == (1, 1) and not mesh_lib.healthy_devices([self.device]):
+            # A blacklisted default device is sidestepped for the first
+            # healthy one of its kind, so a supervisor rebuild after
+            # condemning it genuinely moves off it; an explicit device pins
+            # regardless.
+            kind = self.device.type
+            healthy = mesh_lib.healthy_devices(mesh_lib.device_pool(kind))
+            if not healthy:
+                raise ValueError(
+                    f"every {kind} device is blacklisted "
+                    f"({sorted(mesh_lib.blacklisted(kind))}); no healthy device to build on"
+                )
+            self.device = healthy[0]
         shape = (params.image_height, params.image_width)
         ny, nx = params.mesh_shape
         if shape[0] % ny or shape[1] % nx:

@@ -5,10 +5,11 @@ device, carried over with its contracts: load (or resume) a board, drive
 generations through the Backend seam, emit the event stream, honour
 s/p/q/k keypresses, snapshot PGMs, and shut down cleanly — plus the
 pipelined headless dispatch loop, cycle fast-forward, retry/watchdog,
-periodic checkpoints, the SDC sentinel and graceful preemption, and the
-per-turn viewer loop: exact flips, device-pooled frames, and a viewport
-with delta-encoded frames and pan/zoom keys.  The serving plane's frame
-fan-out (``frame_plane``) is not ported yet.
+periodic checkpoints, the SDC sentinel and graceful preemption, the
+time-compression tier (``Params.time_compression``: ``engine/timecomp.py``),
+and the per-turn viewer loop: exact flips, device-pooled frames, and a
+viewport with delta-encoded frames and pan/zoom keys.  The serving plane's
+frame fan-out (``frame_plane``) is not ported yet.
 
 - The per-turn RPC round-trip (``gol/distributor.go:48-66``) becomes a
   device superstep: N generations per dispatch.
@@ -33,6 +34,7 @@ import numpy as np
 import torch
 
 from distributed_gol_torch.engine import pgm
+from distributed_gol_torch.engine import timecomp as timecomp_lib
 from distributed_gol_torch.engine.backend import Backend
 from distributed_gol_torch.engine.events import (
     AliveCellsCount,
@@ -415,6 +417,13 @@ class Controller:
         self._m_sdc_checks = self.metrics.counter("sdc.checks")
         self._m_sdc_mismatches = self.metrics.counter("sdc.mismatches")
         self._m_preempt = self.metrics.counter("preempt.signals")
+        # -- temporal compression --
+        # None unless Params.time_compression is on AND the rule's ash
+        # period is known — and with it None, every path below is
+        # byte-for-byte the dense controller.
+        self._timecomp = timecomp_lib.maybe_create(
+            params, self.metrics, self.flight
+        )
 
     # -- event helpers ---------------------------------------------------------
     def _emit(self, event):
@@ -483,6 +492,7 @@ class Controller:
                 world=self.backend.fetch(board),
                 turn=turn,
                 rule=self.params.rule.notation,
+                **self._ckpt_accounting(turn),
             )
             self._outcome = "detached"
         elif key == "k":
@@ -707,12 +717,26 @@ class Controller:
                 world=world,
                 turn=turn,
                 rule=self.params.rule.notation,
+                **self._ckpt_accounting(turn),
             )
 
         if guard is None:
             commit()
             return True
         return guard.commit(commit)
+
+    def _ckpt_accounting(self, turn: int) -> dict:
+        """Checkpoint-truthfulness fields: a time-compressed run's sidecars
+        split delivered turns (``effective_turns`` == ``turn``) from
+        dispatched ones (``computed_turns``).  Empty when the tier is off —
+        dense sidecars stay byte-identical."""
+        tc = self._timecomp
+        if tc is None:
+            return {}
+        return {
+            "computed_turns": turn - tc.skipped_turns,
+            "effective_turns": turn,
+        }
 
     # -- durable periodic checkpoints --------------------------------
     def _save_checkpoint(self, world, turn: int):
@@ -733,6 +757,7 @@ class Controller:
             # run's MetricsReport, flight dumps, and scrape series.
             run_id=self.run_id,
             tenant=self.params.tenant,
+            **self._ckpt_accounting(turn),
         )
 
     def _checkpoint_due(self, turn: int) -> bool:
@@ -1465,7 +1490,14 @@ class Controller:
         # calls.  Once a probe passes, periodicity holds for every later
         # turn (the dynamics are deterministic), so acting on the flag a
         # few dispatches after it was computed is still exact.
+        #
+        # Time compression rides this probe as its settledness detector,
+        # so an armed tier with cycle_check=0 would otherwise be
+        # configured to never engage — give it the default cadence instead
+        # (dense runs keep cycle_check's exact semantics).
         probe_every = p.cycle_check
+        if not probe_every and self._timecomp is not None:
+            probe_every = type(p).cycle_check
         probe_flag = None
         n_issued = 0
         next_probe = probe_every
@@ -1512,7 +1544,24 @@ class Controller:
                         if pending is not None:
                             board = resolve()
                         issued_turn = turn
-                        return self._fast_forward(board, turn, state)
+                        if self._timecomp is None:
+                            return self._fast_forward(board, turn, state)
+                        ff = self._timecomp_fast_forward(board, turn, state)
+                        if ff is not None:
+                            return ff
+                        # The exactness entry guard refused the
+                        # fast-forward (independent-stencil re-derivation
+                        # mismatched): nothing was emitted, so "dense
+                        # replay from the last verified turn" is simply
+                        # this loop continuing to dispatch from ``turn``.
+                # Rung 3: while the activity bitmap proves live frontier
+                # stripes remain, a whole-board periodicity probe cannot
+                # pass — defer its device work and let the adaptive
+                # tier's spatial skip keep grinding.
+                if self._timecomp is not None and self._timecomp.defer_probe(
+                    self.backend
+                ):
+                    continue
                 with spans.span("gol.cycle_probe.issue", turn=issued_turn):
                     probe_flag = self.backend.cycle_probe_async(board)
             if issued_turn >= p.turns:
@@ -1685,6 +1734,184 @@ class Controller:
             )
         return board, p.turns
 
+    def _tc_phase_board(self, board, turn: int, t: int, period: int):
+        """The true board for emitted turn ``t`` during a time-compressed
+        interval: the periodic board at ``turn`` advanced by the phase
+        offset (a real dispatch through the standard retry contract), or
+        ``board`` itself on a whole-period boundary."""
+        phase = (t - turn) % period
+        if not phase:
+            return board
+        return self._dispatch(
+            lambda: self.backend.run_turns(board, phase)[0], board, t
+        )
+
+    def _timecomp_fast_forward(self, board, turn: int, state: _TickerState):
+        """Rung 1 of the temporal-compression tier
+        (``Params.time_compression``): the async cycle probe
+        just proved ``board`` periodic under the production engine —
+        advance the rest of the run in doubling ``period·2^k``
+        zero-launch chunks, the alive-count stream replayed from a
+        (rung-2 memoized) one-period capture, the whole interval
+        bracketed by the roll-stencil exactness guard (the SDC probe).
+
+        The guard contract ("never silent corruption"):
+
+        - **entry**: before a single turn is emitted,
+          ``Backend.sdc_probe`` re-derives one full period on a sampled
+          stripe through the INDEPENDENT slow formulation and must
+          reproduce the board.  A mismatch (or probe failure) returns
+          None — the caller's dense loop keeps dispatching from ``turn``,
+          which IS the "dense replay from the last verified turn"
+          (nothing was emitted yet).
+        - **exit**: the terminal phase advance (the next real dispatch)
+          is re-validated the same way, its forced count cross-checked
+          against the captured phase count; one retry from the verified
+          periodic board, then :class:`CorruptionDetected` — the SDC
+          sentinel's policy exactly.
+
+        The entry probe's device-computed popcount + fingerprint double
+        as the rung-2 cache identity (``TimeCompressor.cache_key``), so
+        recurring ash is recognized without fetching the board bytes."""
+        p = self.params
+        tc = self._timecomp
+        period = self.backend.cycle_period
+        remaining = p.turns - turn
+        if remaining <= 0:
+            return board, turn
+        # -- entry guard ------------------------------------------------------
+        y0 = (turn * 2654435761) % p.image_height
+        with spans.span("gol.timecomp.guard", turn=turn, k=period):
+            try:
+                ok, pop, fp = self._watchdog.call(
+                    lambda: self.backend.sdc_probe(
+                        board, board, period, y0, stripe=True
+                    )
+                )
+            except DispatchTimeout as e:
+                # Wedged device: the watchdog abort policy, announced on
+                # the stream like every other timed-out wait.
+                self._emit(DispatchError(turn, error=str(e), checkpointed=False))
+                raise
+            except Exception as e:  # noqa: BLE001 — transient probe error
+                # The accelerator lever must not BE the failure: an
+                # interval the guard cannot prove is simply not
+                # compressed — the dense loop owns it.
+                self.flight.record(
+                    "timecomp_guard_failed", turn=turn, error=str(e)[:200]
+                )
+                tc.note_dense_replay(turn)
+                return None
+        tc.note_guard(turn, bool(ok))
+        if not ok:
+            tc.note_dense_replay(turn)
+            return None
+        # -- rung 2: the per-phase counts, memoized across runs ---------------
+        counts = tc.resolve_counts(
+            tc.cache_key(int(fp), int(pop)),
+            int(pop),
+            lambda: self._dispatch(
+                lambda: self.backend.cycle_counts(board), board, turn
+            ),
+        )
+        self._emit(CycleDetected(turn, period=period))
+        off = remaining % period
+        # Last turn deliverable with zero launches: the final ``off``
+        # turns ride the exit dispatch below, so they count as COMPUTED
+        # in the effective-vs-computed split, never as skipped.
+        skip_until = p.turns - off
+        if p.turn_events == "batch":
+            self._emit(TurnsCompleted(p.turns, first_turn=turn + 1))
+            state.set(p.turns, int(counts[(remaining - 1) % period]))
+            t, log2 = turn, 0
+            while t < skip_until:
+                chunk = period << min(log2, timecomp_lib.MAX_SKIP_LOG2)
+                end = min(t + chunk, skip_until)
+                tc.note_skip(t + 1, end)
+                t, log2 = end, log2 + 1
+        else:
+            t, log2 = turn, 0
+            while t < p.turns:
+                if self._stop_now():
+                    board_t = self._tc_phase_board(board, turn, t, period)
+                    self._preempt_exit(board_t, t)
+                    return board_t, t
+                if self.key_presses is not None and (
+                    self._paused or not self.key_presses.empty()
+                ):
+                    board_t = self._tc_phase_board(board, turn, t, period)
+                    self._poll_keys(board_t, t)
+                    if self._outcome != "completed":
+                        return board_t, t
+                    if self._stop_seen:
+                        self._preempt_exit(board_t, t)
+                        return board_t, t
+                # Per-turn mode also caps a chunk at _FF_CHUNK: the
+                # emission flood per chunk bounds key/ticker latency,
+                # exactly like the legacy fast-forward.
+                chunk = min(
+                    period << min(log2, timecomp_lib.MAX_SKIP_LOG2),
+                    self._FF_CHUNK,
+                )
+                end = min(t + chunk, p.turns)
+                skip_end = min(end, skip_until)
+                if skip_end > t:
+                    tc.note_skip(t + 1, skip_end)
+                self._emit_turns(t + 1, end)
+                t, log2 = end, log2 + 1
+                state.set(t, int(counts[(t - turn - 1) % period]))
+        if not off:
+            # The final board IS the entry-verified periodic board: zero
+            # launches, nothing new to validate.
+            return board, p.turns
+        # -- terminal phase advance + exit guard ------------------------------
+        expect = int(counts[off - 1])
+        y1 = (p.turns * 2654435761) % p.image_height
+        stripe = self.backend.sdc_stripe_affordable(off)
+        for retry in (False, True):
+            board_f = self._dispatch(
+                lambda: self.backend.run_turns(board, off)[0], board, p.turns
+            )
+            with spans.span("gol.timecomp.guard", turn=p.turns, k=off):
+                try:
+                    ok, pop, _ = self._watchdog.call(
+                        lambda: self.backend.sdc_probe(
+                            board, board_f, off, y1, stripe=stripe
+                        )
+                    )
+                except DispatchTimeout as e:
+                    self._emit(
+                        DispatchError(p.turns, error=str(e), checkpointed=False)
+                    )
+                    raise
+                except Exception as e:  # noqa: BLE001 — transient probe error
+                    # Same degradation as the SDC sentinel: the phase
+                    # advance went through the standard dispatch/retry
+                    # contract, so a transient GUARD failure documents
+                    # itself and accepts — exactly as verified as any
+                    # dense dispatch.
+                    self.flight.record(
+                        "timecomp_guard_failed",
+                        turn=p.turns,
+                        error=str(e)[:200],
+                    )
+                    return board_f, p.turns
+            good = bool(ok) and int(pop) == expect
+            tc.note_guard(p.turns, good)
+            if good:
+                return board_f, p.turns
+            # Mismatch: dense replay from the last verified state — the
+            # entry-guarded periodic board — once; a second failure is
+            # persistent corruption and must surface, never be emitted.
+            tc.note_dense_replay(p.turns)
+        err = CorruptionDetected(
+            f"time-compression exit guard: phase advance to turn {p.turns} "
+            f"fails its redundant recompute twice (stripe y0={y1} "
+            f"ok={bool(ok)}, popcount {int(pop)} vs captured {expect})"
+        )
+        self._emit(DispatchError(p.turns, error=str(err), checkpointed=False))
+        raise err
+
     def _initial_world(self) -> tuple[np.ndarray, int]:
         p = self.params
         # Resume negotiation (makeCall, gol/distributor.go:69-91): with
@@ -1696,6 +1923,13 @@ class Controller:
             )
             if ckpt is not None:
                 self._resumed = True
+                if self._timecomp is not None:
+                    # Cumulative truthfulness: adopt the parking run's
+                    # computed-vs-effective split so this run's own
+                    # sidecars keep counting from there.
+                    self._timecomp.restore(
+                        ckpt.computed_turns, ckpt.effective_turns
+                    )
                 return ckpt.world, ckpt.turn
         return self._load_input(), 0
 

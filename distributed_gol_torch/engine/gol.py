@@ -37,13 +37,21 @@ def run(
     ``requested`` flag, optional) arms preemption handling: when the flag
     is raised — typically by a SIGTERM handler — the run forces an
     emergency checkpoint at the next turn boundary and exits
-    paused-and-resumable.  ``backend`` replaces the default
-    ``Backend(params)``.
+    paused-and-resumable.  With ``params.restart_limit > 0`` the whole run
+    is supervised (``engine/supervisor.py``): terminal dispatch failures
+    roll back to the newest checkpoint and resume instead of aborting.
+    ``backend`` replaces the default ``Backend(params)`` for the first
+    attempt.
 
     ``backend_factory(params, attempt)`` is the build seam the serving
-    plane uses: the run calls it once with ``attempt=0`` (the supervisor,
-    which would call it again on each rebuild, is ROADMAP A7).  An
-    explicit ``backend`` wins.
+    plane and chaos harnesses use: supervised runs hand it to the
+    supervisor's rebuild ladder; unsupervised runs call it once with
+    ``attempt=0``.  An explicit ``backend`` wins for attempt 0.
+
+    ``params.metrics`` with ``params.telemetry_sample_seconds > 0`` arms a
+    ``obs.timeseries.TelemetrySampler`` at that cadence for the run's
+    lifetime, outside the supervisor's ladder, so it keeps sampling
+    through backend rebuilds, and stops it when the run ends.
 
     ``frame_plane`` (the spectator fan-out hub) and ``telemetry_port`` (the
     run's telemetry endpoints) are not ported yet (ROADMAP A9) and raise
@@ -56,9 +64,31 @@ def run(
         raise NotImplementedError(
             "telemetry_port: the telemetry endpoints are not ported yet (ROADMAP A9)"
         )
-    if backend is None and backend_factory is not None:
-        backend = backend_factory(params, 0)
-    Controller(params, events, key_presses, session, backend, stop=stop).run()
+    sampler = None
+    if params.metrics and params.telemetry_sample_seconds > 0:
+        from distributed_gol_torch.obs.timeseries import TelemetrySampler
+
+        sampler = TelemetrySampler(interval=params.telemetry_sample_seconds).start()
+    try:
+        if params.restart_limit > 0:
+            from distributed_gol_torch.engine.supervisor import supervise
+
+            supervise(
+                params,
+                events,
+                key_presses,
+                session,
+                backend,
+                backend_factory=backend_factory,
+                stop=stop,
+            )
+        else:
+            if backend is None and backend_factory is not None:
+                backend = backend_factory(params, 0)
+            Controller(params, events, key_presses, session, backend, stop=stop).run()
+    finally:
+        if sampler is not None:
+            sampler.stop()
 
 
 def start(

@@ -138,10 +138,12 @@ class Params:
     # Boards with travelling patterns (gliders) simply never pass the
     # probe and pay only its ~6 generations per N dispatches.
     cycle_check: int = 8
-    # Temporal-compression tier of the JAX package (its
-    # engine/timecomp.py): not ported yet — True raises
-    # NotImplementedError naming ROADMAP A7.  Kept, with its cache size,
-    # so a command line or Params of one package maps onto the other.
+    # Temporal-compression tier (engine/timecomp.py): once a board is
+    # proved periodic, advance it in p·2^k-generation chunks with no
+    # launches, bracketed by the SDC stripe guard; checkpoint sidecars
+    # then split computed_turns from effective_turns.  Off by default
+    # (dense runs are unchanged).  The cache size bounds the process-wide
+    # LRU of settled boards' per-phase counts.
     time_compression: bool = False
     timecomp_cache_slots: int = 256
     # AliveCellsCount cadence in seconds (reference: 2000 ms ticker,
@@ -219,7 +221,7 @@ class Params:
     # and resumes.  This many restarts are allowed before the run degrades
     # to today's sentinel abort (with the full restart history in the
     # flight record).  0 (default) disables the supervisor entirely:
-    # gol.run() is exactly the PR-2 terminal-but-clean controller.
+    # gol.run() is exactly the unsupervised, terminal-but-clean controller.
     restart_limit: int = 0
     # Restart-rate budget: with a window > 0, restart_limit bounds the
     # restarts within any trailing window of this many seconds (a steady
@@ -441,19 +443,6 @@ class Params:
                     "the viewer paths on a mesh are not ported yet (ROADMAP A11); "
                     "run headless or on mesh_shape=(1, 1)"
                 )
-        if self.time_compression:
-            raise NotImplementedError(
-                "time_compression=True is not ported yet (ROADMAP A7)"
-            )
-        if self.restart_limit > 0:
-            raise NotImplementedError(
-                "restart_limit > 0: the supervisor is not ported yet (ROADMAP A7)"
-            )
-        if self.telemetry_sample_seconds > 0:
-            raise NotImplementedError(
-                "telemetry_sample_seconds > 0: the telemetry sampler is not "
-                "ported yet (ROADMAP A7)"
-            )
 
     # Filename conventions are part of the reference contract:
     #   input  images/<W>x<H>.pgm            (gol/distributor.go:205)

@@ -13,8 +13,11 @@ counterpart of the JAX package's ``--xla_force_host_platform_device_count``.
 The health half: a device a supervisor condemns (:func:`condemn`) stays out
 of every later default-built mesh (:func:`healthy_devices`); the serving
 plane reads :func:`capacity_fraction` at every admission to scale its cell
-budget, and :func:`lost_device_count` for its health.  Device ids are CUDA
-device indices (one device, the CPU, where there is no CUDA GPU).
+budget, and :func:`lost_device_count` for its health.  Device ids are
+device indices; the blacklist keys a device by its type and index
+(:func:`device_key`), so a virtual CPU device and a card of the same
+index stay apart, and a raw int id names a device of the process's kind
+(:func:`default_kind`: CUDA where there is a CUDA GPU, else the CPU).
 Blacklist lifetime is the process (clear with :func:`clear_blacklist`);
 the observability contract is the ``mesh.devices_lost`` counter and the
 ``mesh.device_blacklist`` info label.  :func:`probe_devices` classifies
@@ -31,10 +34,17 @@ import torch
 
 AXES = ("y", "x")
 
-# Process-wide blacklist of condemned device ids, guarded for the rare
-# concurrent condemn (serving-plane tenants share it).
-_BLACKLIST: set[int] = set()
+# Process-wide blacklist of condemned devices, keyed (type, index), guarded
+# for the rare concurrent condemn (serving-plane tenants share it).
+_BLACKLIST: set[tuple[str, int]] = set()
 _BLACKLIST_LOCK = threading.Lock()
+
+
+def default_kind() -> str:
+    """This process's device kind: "cuda" where there is a CUDA GPU, else
+    "cpu" — the kind a raw int device id names."""
+    cuda = torch.cuda.is_available() and torch.cuda.device_count() > 0
+    return "cuda" if cuda else "cpu"
 
 
 def device_ids() -> list[int]:
@@ -44,16 +54,34 @@ def device_ids() -> list[int]:
     return list(range(n)) if n else [0]
 
 
-def _device_id(d) -> int:
+def device_id(d) -> int:
     """A device's id: the raw int, or a ``torch.device``'s index (0 for
     the CPU and an index-less "cuda")."""
     return d if isinstance(d, int) else (d.index or 0)
 
 
-def blacklisted() -> frozenset[int]:
-    """The condemned device ids (a snapshot copy)."""
+def device_key(d) -> tuple[str, int]:
+    """A device's blacklist key, (type, id): a ``torch.device``'s own type,
+    or :func:`default_kind` for a raw int id."""
+    if isinstance(d, int):
+        return default_kind(), d
+    d = torch.device(d)
+    return d.type, d.index or 0
+
+
+def blacklisted(kind: str | None = None) -> frozenset[int]:
+    """The condemned ids of ``kind`` devices (default :func:`default_kind`;
+    a snapshot copy)."""
+    kind = kind or default_kind()
     with _BLACKLIST_LOCK:
-        return frozenset(_BLACKLIST)
+        return frozenset(i for t, i in _BLACKLIST if t == kind)
+
+
+def _label() -> str:
+    """The ``mesh.device_blacklist`` label: the condemned ids, those of
+    another kind than :func:`default_kind` as "type:id"."""
+    kind = default_kind()
+    return ",".join(str(i) if t == kind else f"{t}:{i}" for t, i in sorted(_BLACKLIST))
 
 
 def condemn(devices) -> list[int]:
@@ -62,17 +90,17 @@ def condemn(devices) -> list[int]:
     Bumps the ``mesh.devices_lost`` counter by that count and republishes
     the ``mesh.device_blacklist`` info label (comma-joined ids) on the
     process-wide registry."""
-    ids = [_device_id(d) for d in devices]
+    keys = [device_key(d) for d in devices]
     with _BLACKLIST_LOCK:
-        new = [i for i in ids if i not in _BLACKLIST]
+        new = [k for k in dict.fromkeys(keys) if k not in _BLACKLIST]
         _BLACKLIST.update(new)
-        label = ",".join(str(i) for i in sorted(_BLACKLIST))
+        label = _label()
     if new:
         from distributed_gol_torch.obs import metrics as metrics_lib
 
         metrics_lib.REGISTRY.counter("mesh.devices_lost").inc(len(new))
         metrics_lib.REGISTRY.info("mesh.device_blacklist", label)
-    return new
+    return [i for _, i in new]
 
 
 def clear_blacklist() -> None:
@@ -101,6 +129,31 @@ def capacity_fraction() -> float:
     return (total - lost_device_count()) / total if total else 0.0
 
 
+#: How many virtual CPU devices :func:`cpu_devices` names by default: the
+#: pool a CPU run's device-health machinery (the supervisor's elastic
+#: rung, a one-device Backend sidestepping a condemned default) draws
+#: from — the
+#: counterpart of the JAX package's eight virtual host devices
+#: (``--xla_force_host_platform_device_count=8``).
+CPU_DEVICE_COUNT = 8
+
+
+def cpu_devices(n: int = CPU_DEVICE_COUNT) -> list:
+    """``n`` virtual CPU devices, ids 0..n-1 (``torch.device("cpu", i)``:
+    their tensors all live in host memory; the index only names the
+    device to the blacklist and to fault injection)."""
+    return [torch.device("cpu", i) for i in range(n)]
+
+
+def device_pool(kind: str) -> list:
+    """Every device of ``kind`` ("cuda" or "cpu") this process has, sick
+    or not: the CUDA devices, or :func:`cpu_devices`."""
+    if kind == "cpu":
+        return cpu_devices()
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    return [torch.device("cuda", i) for i in range(n)]
+
+
 #: Default per-device probe deadline: generous for a healthy device (the
 #: round trip is microseconds of compute), far below a wedged wait.
 PROBE_DEADLINE_SECONDS = 5.0
@@ -111,10 +164,10 @@ def healthy_devices(devices=None) -> list:
     there is no CUDA GPU) minus the blacklist — what every default-built
     mesh draws from."""
     if devices is None:
-        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
-        devices = [torch.device("cuda", i) for i in range(n)]
-    bad = blacklisted()
-    return [d for d in devices if _device_id(d) not in bad]
+        devices = device_pool("cuda")
+    with _BLACKLIST_LOCK:
+        bad = set(_BLACKLIST)
+    return [d for d in devices if device_key(d) not in bad]
 
 
 def probe_device(device, deadline_seconds: float = PROBE_DEADLINE_SECONDS) -> bool:

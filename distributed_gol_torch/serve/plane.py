@@ -35,10 +35,12 @@ Concurrency shape: an asyncio loop (one daemon thread) owns session
 lifecycle — admission hand-off, slot scheduling, completion — while the
 blocking controller runs execute on a bounded executor
 (``max_sessions`` workers).  The public API is thread-safe and
-synchronous (``submit``/``drain``/``health``).  The network gateway,
-the spectator ``frame_plane`` fan-out and the supervisor's restart
-ladder are not ported yet (ROADMAP A9, A7): ``frame_plane`` must stay
-None, and ``Params.restart_limit > 0`` is refused.
+synchronous (``submit``/``drain``/``health``).  A session with
+``Params.restart_limit > 0`` runs under the supervisor
+(``engine/supervisor.py``), which rebuilds its backend through the
+plane's ``backend_factory``.  The network gateway and the spectator
+``frame_plane`` fan-out are not ported yet (ROADMAP A9): ``frame_plane``
+must stay None.
 """
 
 from __future__ import annotations

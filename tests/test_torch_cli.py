@@ -54,3 +54,20 @@ def test_cli_mesh_pgm_matches_jax_cli(tmp_path):
     name = "64x64x100.pgm"
     assert (tmp_path / "t" / name).read_bytes() == (tmp_path / "j" / name).read_bytes()
     assert t.stdout.splitlines()[-1] == j.stdout.splitlines()[-1]
+
+
+def test_cli_resilience_flags_match_jax_cli(tmp_path):
+    """``--restart-limit`` (with the checkpoints it rolls back to),
+    ``--time-compression`` and ``--telemetry-sample-seconds`` run, as in
+    the JAX CLI: the same final PGM and last line."""
+    flags = ["--restart-limit", "2", "--checkpoint-every-turns", "20", "--time-compression",
+             "--telemetry-sample-seconds", "0.05", "--turn-events", "batch"]
+    t = cli("distributed_gol_torch", *ARGS, *flags, "--device", "cpu", "--out-dir", "t",
+            "--checkpoint-dir", "tc", cwd=tmp_path)
+    j = cli("distributed_gol_tpu", *ARGS, *flags, "--out-dir", "j", "--checkpoint-dir", "jc",
+            cwd=tmp_path)
+    assert t.returncode == 0, t.stderr
+    assert j.returncode == 0, j.stderr
+    name = "64x64x100.pgm"
+    assert (tmp_path / "t" / name).read_bytes() == (tmp_path / "j" / name).read_bytes()
+    assert t.stdout.splitlines()[-1] == j.stdout.splitlines()[-1]

@@ -505,6 +505,25 @@ def cuda_device():
 
 
 @pytest.mark.gpu
+def test_gpu_condemned_cpu_device_leaves_the_card_alone(cuda_device, tmp_path):
+    """The blacklist keys a device by type and index: a condemned virtual
+    cpu:0 leaves a CUDA Backend's default placement on cuda:0."""
+    from distributed_gol_torch import Params
+    from distributed_gol_torch.engine.backend import Backend
+
+    tmesh.clear_blacklist()
+    try:
+        assert tmesh.condemn([torch.device("cpu", 0)]) == [0]
+        assert not tmesh.blacklisted("cuda") and tmesh.blacklisted("cpu") == {0}
+        assert tmesh.lost_device_count() == 0
+        p = Params(image_width=64, image_height=64, out_dir=tmp_path, device="cuda")
+        assert tmesh.device_key(Backend(p).device) == ("cuda", 0)
+        assert tmesh.healthy_devices() == tmesh.device_pool("cuda")
+    finally:
+        tmesh.clear_blacklist()
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("rule", ["conway", "highlife", "day-and-night"])
 @pytest.mark.parametrize(
     "strip,pad,xpad,turns",

@@ -401,3 +401,20 @@ def test_gpu_k3_and_k4_keep_their_tilings(cuda_device):
     assert torch.equal(out, tpacked.superstep(p, tlife.CONWAY, 4 * plan.t))
     want = cuda_adaptive.probing_superstep_reg_mirror(p, tlife.CONWAY, plan, 4, sms=sms)
     assert all(torch.equal(a, b) for a, b in zip((out, skipped, act), want))
+
+
+@pytest.mark.gpu
+def test_gpu_device_repeat_replays_a_cuda_graph():
+    """``utils.measure.device_repeat`` on the card: K2's supersteps
+    captured as one CUDA graph (or, where capture fails, launched in a
+    loop) and replayed, equal to one superstep of all the generations."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is False")
+    from distributed_gol_torch.utils import measure
+
+    p = tpacked.pack(torch.from_numpy(random_board(np.random.default_rng(3), 2048, 4096))).cuda()
+    run = lambda x, t: cuda_packed.tiled_superstep(x, tlife.CONWAY, t)  # noqa: E731
+    repeated = measure.device_repeat(run, 24, 4)
+    want = cuda_packed.tiled_superstep_plain(p, tlife.CONWAY, 96)
+    for _ in range(2):  # the capture, then a replay
+        assert torch.equal(repeated(p), want)

@@ -200,15 +200,37 @@ def test_parked_checkpoints_are_byte_identical(tmp_path):
 @pytest.mark.parametrize(
     "kw,item",
     [
-        (dict(time_compression=True), "A7"),
-        (dict(restart_limit=1), "A7"),
-        (dict(telemetry_sample_seconds=1.0), "A7"),
         (dict(mesh_shape=(2, 2), no_vis=False), "A11"),
     ],
 )
 def test_unported_requests_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         tgol.Params(device="cpu", **kw)
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [
+        dict(time_compression=True, turns=10**6 + 5, turn_events="batch"),
+        dict(restart_limit=1, checkpoint_every_turns=40),
+        dict(telemetry_sample_seconds=1.0),
+    ],
+    ids=["time-compression", "restart-limit", "telemetry-sampler"],
+)
+def test_resilience_requests_run_and_match_jax(tmp_path, kw):
+    """The requests the port once refused (time compression, the
+    supervisor, the run's telemetry sampler) run through ``gol.run`` and
+    give the JAX package's stream and PGM."""
+    from distributed_gol_torch.engine import timecomp as ttc
+    from distributed_gol_tpu.engine import timecomp as jtc
+
+    ttc.CACHE.clear()
+    jtc.CACHE.clear()
+    base = dict(turns=200, superstep=20, image_height=64, image_width=64, engine="packed",
+                **SOUP)
+    events = assert_same_run(tmp_path, **dict(base, **kw))
+    final = [dict(f) for n, f in events if n == "FinalTurnComplete"][0]
+    assert final["completed_turns"] == dict(base, **kw)["turns"]
 
 
 def test_cuda_request_without_gpu_raises(tmp_path, monkeypatch):

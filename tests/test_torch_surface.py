@@ -26,10 +26,8 @@ torch.set_num_threads(1)
 # Names of the JAX package the port does not serve yet, by module, each
 # with its ROADMAP item (the refusals name the same items).
 NOT_YET = {
-    "": {"supervise": "A7"},
     "__main__": {"broker_main": "A9", "collector_main": "A9", "relay_main": "A9",
                  "run_multihost": "A8"},
-    "engine.supervisor": {"AllDevicesCondemned": "A7", "Supervisor": "A7", "supervise": "A7"},
     "serve": {n: "A9" for n in (
         "Broker", "BrokerConfig", "FramePlane", "FrameSubscriber", "GatewayServer", "PodClient",
         "PodHTTPError", "PodUnreachable", "RelayServer", "TelemetryServer",

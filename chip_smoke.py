@@ -77,7 +77,24 @@ rung), equal to the unsupervised run's PGM, with the run's telemetry
 sampler holding samples and its final snapshot round-tripping through
 OpenMetrics; (o) the soup x 20,000 on (4, 1) with ``skip_stable`` and two
 issue bursts that take the ladder to its forced-ppermute rung: K14 before
-the escalation, K12 after it, equal to the single-device PGM.  Every run
+the escalation, K12 after it, equal to the single-device PGM.  Then the
+viewers on a mesh, (p): the 16384² soup x 2,000 with the frames viewer
+at a frame stride of 32 under ``auto``, pooled by 24 x 24 windows that
+cross the shard seams, on one device (K2) and on (2, 2) and (4, 1) (K9
+on every shard), each mesh's stream equal to the one-device stream frame
+for frame and its PGM to the headless run's; a 1024² viewport over a
+shard seam and the torus seam on (2, 2) against one device; and the 512²
+flips on (4, 1) (roll, no kernel), whose XOR-rebuilt board equals the
+final PGM.  And one pod's wire, (q): ``serve --gateway-port 0
+--telemetry-port 0`` (the CLI's ``serve_main`` on a thread of this
+process, so its launches count) with a 16384² tenant on per-turn frames
+(K6) and a 512² tenant at a frame stride of 16 (K1), submitted over HTTP
+and watched by two wire spectators each (``Spectator``: the port's own
+``serve/ws.py`` and ``serve/wire.py``, never ``tools/gol_client.py``,
+which imports the JAX package) whose rects wrap the torus; each
+spectator's last frame must equal ``Backend.fetch_viewport`` of the final
+board, each tenant's PGM its solo rerun, and ``/metrics`` must
+round-trip through OpenMetrics.  Every run
 row is published as ``{reps, median, spread}`` (``utils/measure.py``; a
 run under 5 s is repeated to 3 runs) and the record is linted with
 ``measure.require_headline_stats`` before it prints.  It
@@ -94,7 +111,8 @@ launch over the (4, 1) strips and K15 a launch over the (2, 2) tiles,
 each beside its ppermute tier's launch and K5 on the whole board; K9,
 K12, K13, K15 and their controls K2, K4, K5, K8, K10 and K14 as the
 median and spread of 5 event-timed batches, K13 also back to back), and
-prints one
+prints the
+seconds of each step of phases 2 and 3 (``step_seconds``), one
 ``{"kernels": [...]}`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  The build fails the run if any of the
 fifteen kernels (``csrc/regwin.cuh``, K1's and K6's) spills a register
@@ -142,6 +160,7 @@ import collections
 import contextlib
 import dataclasses
 import functools
+import io
 import json
 import os
 import queue
@@ -150,9 +169,13 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 from pathlib import Path
 from unittest import mock
+from urllib.parse import urlsplit
 
 import zlib
 
@@ -164,7 +187,8 @@ from distributed_gol_torch.engine import frames, pgm, timecomp
 from distributed_gol_torch.engine.backend import Backend
 from distributed_gol_torch.engine.session import Session
 from distributed_gol_torch.obs import metrics, openmetrics, timeseries
-from distributed_gol_torch.serve import ServeConfig, ServePlane
+from distributed_gol_torch.serve import ServeConfig, ServePlane, wire
+from distributed_gol_torch.serve import ws as ws_lib
 from distributed_gol_torch.models.life import CONWAY, DAY_AND_NIGHT, HIGHLIFE, LifeRule
 from distributed_gol_torch.ops import (
     cuda_adaptive, cuda_build, cuda_packed, cuda_stencil, packed, stencil)
@@ -387,6 +411,24 @@ N_FAULTS = (Fault(2, "corrupt", cells=3), Fault(6, "hang", seconds=120.0),
             Fault(10, "issue"), Fault(11, "issue"))
 O_TURNS, O_STEP, O_CKPT = 20_000, 2_000, 4_000
 O_FAULTS = (Fault(2, "issue"), Fault(3, "issue"), Fault(4, "issue"), Fault(5, "issue"))
+# Path (p), the viewers on a mesh: the 16384² soup x 2,000 with frames at
+# stride P_STRIDE (auto: K2 on one device, K9 on every shard), pooled into
+# P_FRAME_MAX by windows of 24 x 24 cells, which 4096 and 8192 do not
+# divide, so windows cross the shard seams of every mesh in P_MESHES; the
+# viewport P_VIEWPORT (rows 16,000-17,023 wrap the torus, columns
+# 7,900-8,923 cross the (2, 2) mesh's column seam) x P_VIEW_TURNS on the
+# first mesh; and the 512² flips x P_FLIP_TURNS on P_FLIP_MESH (roll;
+# host-bound, as the one-device flips are).
+P_STRIDE, P_FRAME_MAX, P_MESHES = 32, (700, 700), ((2, 2), (4, 1))
+P_VIEWPORT, P_VIEW_TURNS = (16000, 7900, 1024, 1024), 1000
+P_FLIP_MESH, P_FLIP_TURNS = (4, 1), 1
+# Path (q), one pod's wire: (tenant, side, turns, frame stride, the two
+# spectators' rects, each wrapping the torus; the first is also the
+# session's own viewport).  Per-turn frames of the 16384² soup run K6, a
+# stride of 16 on the 512² soup runs K1.
+Q_TENANTS = (("big", BIG, 300, 1, ((16100, 16200, 512, 512), (16300, 16000, 512, 768))),
+             ("small", 512, 8_000, 16, ((400, 450, 256, 128), (480, 300, 64, 300))))
+Q_KERNELS = ("stencil", "resident")
 
 
 def virtual(mesh_shape: tuple, device) -> list:
@@ -418,6 +460,35 @@ def repeats(name: str, first_seconds: float, first_output, rerun, rep_dir: Path)
 
 def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
+
+
+def record(obj) -> str:
+    """``obj`` as one line of strict JSON: a measurement that came out
+    NaN or infinite (``device_ms`` when the profiler saw no launch of its
+    kernel) is written as null."""
+    def finite(o):
+        if isinstance(o, float):
+            return o if o == o and abs(o) != float("inf") else None
+        if isinstance(o, dict):
+            return {k: finite(v) for k, v in o.items()}
+        if isinstance(o, (list, tuple)):
+            return [finite(v) for v in o]
+        return o
+
+    return json.dumps(finite(obj), allow_nan=False)
+
+
+#: Seconds of each step of phases 2 and 3 (``step``), printed at the end.
+STEP_SECONDS: dict = {}
+
+
+def step(name: str, fn, *args):
+    """``fn(*args)``, with its seconds logged and kept in ``STEP_SECONDS``."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    STEP_SECONDS[name] = round(time.perf_counter() - t0, 1)
+    log(f"step {name}: {STEP_SECONDS[name]} s")
+    return out
 
 
 def nvidia_smi(query: str) -> str:
@@ -713,7 +784,8 @@ def check_tiled(device, errs: dict) -> None:
     launch counted in its rule's instantiation): 16384² at 1, 6, 32, 37 and
     1,000 generations, ``TILED_ODD`` and ``TILED_SMALL`` at 45 and 75; and
     against its block mirror on the card's blocks (``tiled_reg_mirror``)
-    at ``TILED_ODD`` and ``TILED_SMALL``."""
+    at ``TILED_ODD`` and ``TILED_SMALL`` under Conway (the blocks do not
+    depend on the rule)."""
     cuda_packed.tiled_superstep.rules.clear()
     sms = cuda_adaptive.device_sms(device)
     t = cuda_packed.tiled_reg_plan((BIG, BIG // 32), 10**6, sms).t
@@ -726,8 +798,7 @@ def check_tiled(device, errs: dict) -> None:
             want = cuda_packed.tiled_superstep_plain(p, rule, turns)
             torch.cuda.synchronize()
             err = max_abs_err(got, want)
-            mirrored = shape[0] < BIG
-            if mirrored:
+            if shape[0] < BIG and rule == CONWAY:
                 err = max(err, max_abs_err(got, cuda_packed.tiled_reg_mirror(p, rule, turns,
                                                                              sms=sms)))
             errs["tiled"] = max(errs["tiled"], err)
@@ -735,7 +806,7 @@ def check_tiled(device, errs: dict) -> None:
                 raise AssertionError(f"K2 != plain (or its mirror) at {shape} x {turns} under "
                                      f"{rule.notation}")
         log(f"K2 {[f'{s[0]}x{s[1]} x {n}' for s, n in cases]} {rule.notation}: identical to "
-            f"plain, and to the block mirror below {BIG}^2")
+            f"plain" + (f", and to the block mirror below {BIG}^2" if rule == CONWAY else ""))
     if set(cuda_packed.tiled_superstep.rules) != set(cuda_adaptive.REG_RULES):
         raise AssertionError(f"K2 ran {dict(cuda_packed.tiled_superstep.rules)}, not every "
                              "instantiation")
@@ -910,15 +981,16 @@ def settled_board(device) -> torch.Tensor:
 def check_adaptive(errs: dict, boards: dict) -> None:
     """K3, K4 and K5 against their plain versions at 16384²: board, skip
     count and per-stripe activity, on each board under both rules, through
-    one dispatch of t·(512 + 3) + 13 turns (a 512-launch frontier chunk, a
-    3-launch probing tail, a skip launch and a plain remainder), then K3
-    alone at every launch depth and K4 alone over 8 launches; then K5
+    one dispatch of t·(64 + 3) + 13 turns (a 64-launch frontier chunk, a
+    3-launch probing tail, a skip launch and a plain remainder); then K5
     alone over 8 launches on each board under ``REG_RULES`` (Day & Night
     takes its generic instantiation) against its plain version and its
-    block mirror on the card (``check_k5_blocks``)."""
+    block mirror on the card (``check_k5_blocks``).  K3 alone at every
+    launch depth and K4 alone over 8 launches are held to their plain
+    versions by ``check_skip_blocks``."""
     plan = cuda_adaptive.adaptive_plan((BIG, BIG // 32), 10**6)
-    turns = plan.t * (512 + 3) + 13
-    want_counts = {"frontier": 512, "probing": 3, "tiled_skip": 1}
+    turns = plan.t * (64 + 3) + 13
+    want_counts = {"frontier": 64, "probing": 3, "tiled_skip": 1}
     for rule in RULES:
         for name, p in boards.items():
             reset_launches()
@@ -938,18 +1010,6 @@ def check_adaptive(errs: dict, boards: dict) -> None:
             log(f"K5+K4+K3 {BIG}^2 x {turns} ({plan}) {name} {rule.notation}: identical, "
                 f"skipped {int(sk)} of {cuda_adaptive.adaptive_tile_launches((BIG, BIG // 32), turns, plan=plan)}, "
                 f"active stripes {int((act > 0).sum())}")
-            for t in (6, 12, 18, 24):
-                got = cuda_adaptive.tiled_skip_superstep(p, rule, t)
-                want = cuda_adaptive.tiled_skip_superstep_plain(p, rule, t)
-                errs["tiled_skip"] = max(errs["tiled_skip"], max_abs_err(got, want))
-                if not torch.equal(got, want):
-                    raise AssertionError(f"K3 != plain at {t} turns, {name}, {rule.notation}")
-            got, sk, act = cuda_adaptive.probing_superstep(p, rule, plan, 8)
-            want, wsk, wact = cuda_adaptive.probing_superstep_mirror(p, rule, plan, 8)
-            errs["probing"] = max(errs["probing"], max_abs_err(got, want))
-            if not torch.equal(got, want) or int(sk) != int(wsk) or not torch.equal(act, wact):
-                raise AssertionError(f"K4 x 8 launches != plain, {name}, {rule.notation}")
-            log(f"K3 x {{6, 12, 18, 24}} and K4 x 8 launches, {name} {rule.notation}: identical")
     check_k5_blocks(errs, boards, plan)
 
 
@@ -1428,8 +1488,10 @@ def check_strip_mega(device, errs: dict, boards: dict) -> dict:
     settled with a glider across every strip seam and the torus wrap
     (``seam_gliders``), through ``check_mega_chunks``: chunks of 8
     launches under both rules and Day & Night (K14's generic
-    instantiation, which must have run) and of 64 under Conway (and
-    HighLife on (4, 1)), then launch by launch; and the 8-launch chunk
+    instantiation, which must have run) and of 64 under Conway and
+    HighLife, then launch by launch; on (2, 1) and (1, 1) only the fresh
+    and seam strips, in chunks of 8 under Conway and Day & Night; and
+    the 8-launch chunk
     against K14's block mirror run on the card (``strip_mirror_chunk``).
     On (4, 1), a K14 chunk of 8 and of 64 must also equal one K5 chunk
     (``cuda_adaptive.frontier_superstep``) on the whole board at the strip
@@ -1445,10 +1507,13 @@ def check_strip_mega(device, errs: dict, boards: dict) -> dict:
         strip_plan = cuda_halo.adaptive_strip_plan((BIG // ny, BIG // 32), 10**6)
         if strip_plan != plan or not plan.frontier:
             raise AssertionError(f"the {mesh_shape} strips do not share the frontier plan {plan}")
-        runs = [(CONWAY, 8), (HIGHLIFE, 8), (DAY_AND_NIGHT, 8), (CONWAY, 64)]
+        runs = [(CONWAY, 8), (DAY_AND_NIGHT, 8)]
+        names = ("fresh", "seam")
         if mesh_shape == MESH_E:
-            runs.append((HIGHLIFE, 64))
-        for name, p in whole.items():
+            runs = [(CONWAY, 8), (HIGHLIFE, 8), (DAY_AND_NIGHT, 8), (CONWAY, 64), (HIGHLIFE, 64)]
+            names = tuple(whole)
+        for name in names:
+            p = whole[name]
             strips = list(p.chunk(ny))
             check_mega_chunks("strip_mega", cuda_halo.strip_mega_launches, strips, plan, runs,
                               errs, f"the {mesh_shape} {name} strips")
@@ -1660,10 +1725,11 @@ def check_tile_mega(errs: dict, boards: dict) -> dict:
     """K15 against its plain version, tolerance 0, on ``tile_boards`` split
     ``TILE_MEGA_MESHES`` on virtual meshes of the card ((2, 2); (2, 4);
     (1, 2), whose N and S neighbours are the tile itself and whose W and E
-    neighbours are one tile), through ``check_mega_chunks``: chunks of 8
-    launches under both rules and Day & Night (K15's generic
-    instantiation, which must have run), and on (2, 2) of 64 under both,
-    then launch by launch.  On (2, 2) the 8-launch chunk must also equal
+    neighbours are one tile), through ``check_mega_chunks``: on (2, 2)
+    chunks of 8 launches under both rules and Day & Night (K15's generic
+    instantiation, which must have run) and of 64 under both, on (2, 4)
+    and (1, 2) the fresh and seam tiles in chunks of 8 under Conway and
+    Day & Night; then launch by launch.  On (2, 2) the 8-launch chunk must also equal
     K15's mirror run on the card (its blocks and its elision of edge
     stripes replayed in PyTorch), whose elided stripes are logged.
     Returns the (2, 2) tiles by board (phase 4 times them)."""
@@ -1674,10 +1740,13 @@ def check_tile_mega(errs: dict, boards: dict) -> dict:
         plan = cuda_halo.adaptive_tile_plan(tile, 10**6)[0]
         if not plan.frontier:
             raise AssertionError(f"the {mesh_shape} tiles have no frontier plan ({plan})")
-        runs = [(CONWAY, 8), (HIGHLIFE, 8), (DAY_AND_NIGHT, 8)]
+        runs = [(CONWAY, 8), (DAY_AND_NIGHT, 8)]
+        names = ("fresh", "seam")
         if mesh_shape == MESH_H:
-            runs += [(CONWAY, 64), (HIGHLIFE, 64)]
-        for name, p in boards.items():
+            runs = [(CONWAY, 8), (HIGHLIFE, 8), (DAY_AND_NIGHT, 8), (CONWAY, 64), (HIGHLIFE, 64)]
+            names = tuple(boards)
+        for name in names:
+            p = boards[name]
             tiles = [[t.contiguous() for t in r.chunk(nx, dim=1)] for r in p.chunk(ny)]
             check_mega_chunks("tile_mega", cuda_halo.tile_mega_launches, tiles, plan, runs,
                               errs, f"the {mesh_shape} {name} tiles")
@@ -1734,11 +1803,15 @@ class Sink:
     from keyframes and deltas with its rect and pooling factors (frame
     runs)."""
 
-    def __init__(self, shape=None):
+    def __init__(self, shape=None, record: bool = False):
         self.shadow = None if shape is None else np.zeros(shape, np.uint8)
         self.report = self.final = self.view = self.rect = self.factors = None
         self.quit_turn = None
         self.turns = self.frames = self.deltas = self.flips = 0
+        # With ``record``, every frame event as (kind, turn, rect,
+        # factors, bytes): the keyframe's cells or the delta's packed
+        # bands, for comparing two runs' streams frame for frame.
+        self.stream = [] if record else None
 
     def loop_seconds(self) -> float:
         """Wall-clock the run spent in its dispatch loop (issue to
@@ -1760,11 +1833,18 @@ class Sink:
             self.view = np.array(e.frame, dtype=np.uint8, copy=True)
             self.rect, self.factors = e.rect, e.factors
             self.frames += 1
+            if self.stream is not None:
+                self.stream.append(("key", e.completed_turns, e.rect, e.factors,
+                                    self.view.tobytes()))
         elif kind is gol.FrameDelta:
             frames.apply_bands(self.view, e.bands)
             self.rect, self.factors = e.rect, e.factors
             self.frames += 1
             self.deltas += 1
+            if self.stream is not None:
+                meta, payload = frames.pack_bands(e.bands)
+                self.stream.append(("delta", e.completed_turns, e.rect, e.factors,
+                                    json.dumps(meta).encode() + payload))
         elif (kind is gol.StateChange and e.new_state == gol.State.QUITTING
               and self.quit_turn is None):
             self.quit_turn = e.completed_turns
@@ -2710,6 +2790,289 @@ def resilience_paths(tmp: Path, long_pgm: bytes, straight: bytes, launches: dict
                 tmp, launches, device)}
 
 
+def recorded_run(name: str, params: gol.Params, kernels: tuple, engine: str, launches: dict,
+                 devices=None, shadow=None) -> tuple:
+    """One viewer run with every launch count set to 0 just before and read
+    just after, its frame stream recorded (``Sink(record=True)``); each of
+    ``kernels`` must have launched and the run must have taken ``engine``.
+    Returns (seconds, final PGM bytes, sink, counts)."""
+    sink = Sink(shadow, record=True)
+    reset_launches()
+    seconds, final = stream_run(params, sink, devices=devices)
+    counts = launch_counts()
+    got = sink.report["info"]["backend.engine"]
+    log(f"{name}: {seconds:.3f} s, {sink.frames} frames ({sink.deltas} deltas), {sink.flips} "
+        f"flips, engine {got}, launches {counts}")
+    if got != engine:
+        raise AssertionError(f"{name}: engine_used {got!r}, not {engine}")
+    for k in kernels:
+        if counts[k] == 0:
+            raise AssertionError(f"{name}: the {k} kernel never launched")
+        launches[k] += counts[k]
+    if final is None:
+        raise AssertionError(f"{name}: no final PGM")
+    return seconds, final, sink, counts
+
+
+def mesh_viewer_paths(tmp: Path, straight: bytes, launches: dict, device) -> dict:
+    """Path (p), the viewers on a mesh: the 16384² soup x 2,000 with the
+    frames viewer at a frame stride of ``P_STRIDE`` under ``auto``, whose
+    pool windows (``P_FRAME_MAX``) cross the shard seams, on one device
+    (K2) and on the virtual meshes (2, 2) and (4, 1) (K9 on every shard);
+    each mesh's stream must equal the one-device stream frame for frame
+    and its final PGM the headless run's.  Then the ``P_VIEWPORT`` rect,
+    which crosses a shard seam and the torus seam, x ``P_VIEW_TURNS`` on
+    (2, 2) against one device, delta frames included; and the 512²
+    per-cell flips x ``P_FLIP_TURNS`` on (4, 1) (``auto`` takes roll for
+    per-turn dispatches on a mesh: no kernel), whose XOR-rebuilt board
+    must equal the final PGM."""
+    e2e = {}
+    frames_p = gol.Params(turns=2000, image_width=BIG, image_height=BIG, soup_density=0.3,
+                          soup_seed=7, no_vis=False, view_mode="frame", frame_stride=P_STRIDE,
+                          frame_max=P_FRAME_MAX, ticker_period=3600, out_dir=tmp / "p_one")
+    fy, fx = frames_p.frame_factors()
+    if any((BIG // ny) % fy == 0 or (nx > 1 and (BIG // nx) % fx == 0) for ny, nx in P_MESHES):
+        raise AssertionError(f"pool windows {fy}x{fx} do not cross the shard seams")
+    one_s, one_pgm, one, _ = recorded_run(f"(p) one device {BIG}^2 x 2000 frames", frames_p,
+                                          ("tiled",), "pallas-packed", launches)
+    if one_pgm != straight:
+        raise AssertionError("(p) the one-device frames run's PGM differs from the headless run's")
+    rows = {}
+    for mesh_shape in P_MESHES:
+        ny, nx = mesh_shape
+        params = dataclasses.replace(frames_p, mesh_shape=mesh_shape,
+                                     out_dir=tmp / f"p_{ny}x{nx}")
+        name = f"(p) {BIG}^2 x 2000 frames on {ny}x{nx}"
+        seconds, final, sink, counts = recorded_run(name, params, ("ext",), "pallas-packed",
+                                                    launches, virtual(mesh_shape, device))
+        if sink.stream != one.stream:
+            raise AssertionError(f"{name}: the frame stream differs from the one-device run's")
+        if final != one_pgm:
+            raise AssertionError(f"{name}: the final PGM differs from the one-device run's")
+        log(f"{name}: {sink.frames} frames of {fy}x{fx} pool windows equal the one-device "
+            f"stream frame for frame, final PGM equal")
+        rows[f"{ny}x{nx}"] = dict(seconds=seconds, frames=sink.frames, launches=counts,
+                                  stats=dict(frames=stats_row(
+                                      "frames/s", [sink.frames / seconds], "frames/s")))
+    e2e[f"mesh_frames_p_{BIG}^2x2000"] = dict(
+        factors=[fy, fx], stride=P_STRIDE, frames=one.frames, one_device=dict(
+            seconds=one_s, stats=dict(frames=stats_row(
+                "frames/s", [one.frames / one_s], "frames/s"))), meshes=rows)
+
+    view_p = dataclasses.replace(frames_p, turns=P_VIEW_TURNS, viewport=P_VIEWPORT,
+                                 out_dir=tmp / "p_view_one")
+    v_s, v_pgm, v_one, _ = recorded_run(f"(p) one device viewport {P_VIEWPORT}", view_p,
+                                        ("tiled",), "pallas-packed", launches)
+    ny, nx = P_MESHES[0]
+    params = dataclasses.replace(view_p, mesh_shape=(ny, nx), out_dir=tmp / "p_view_mesh")
+    name = f"(p) viewport {P_VIEWPORT} x {P_VIEW_TURNS} on {ny}x{nx}"
+    seconds, final, sink, counts = recorded_run(name, params, ("ext",), "pallas-packed",
+                                                launches, virtual((ny, nx), device))
+    if sink.stream != v_one.stream or final != v_pgm or not sink.deltas:
+        raise AssertionError(f"{name}: the stream or final PGM differs from the one-device run's "
+                             f"(or it has no deltas)")
+    crop = stencil.viewport(final_board(params, device), *P_VIEWPORT)
+    if not np.array_equal(sink.view, stencil.frame_pool(crop, *sink.factors).cpu().numpy()):
+        raise AssertionError(f"{name}: the rebuilt view differs from the final board's crop")
+    log(f"{name}: {sink.frames} frames ({sink.deltas} deltas) equal the one-device stream and "
+        f"rebuild the pooled crop of the final board")
+    e2e[f"mesh_viewport_p_{BIG}^2x{P_VIEW_TURNS}_{ny}x{nx}"] = dict(
+        seconds=seconds, frames=sink.frames, deltas=sink.deltas, launches=counts,
+        one_device_seconds=v_s, stats=dict(frames=stats_row(
+            "frames/s", [sink.frames / seconds], "frames/s")))
+
+    ny, nx = P_FLIP_MESH
+    flips = gol.Params(turns=P_FLIP_TURNS, images_dir=tmp / "images", no_vis=False,
+                       mesh_shape=P_FLIP_MESH, ticker_period=3600, out_dir=tmp / "p_flips")
+    if not flips.wants_flips():
+        raise AssertionError("a 512^2 viewer run on a mesh is not fed per-cell flips")
+    name = f"(p) flips 512^2 x {P_FLIP_TURNS} on {ny}x{nx}"
+    seconds, final, sink, counts = recorded_run(name, flips, (), "roll", launches,
+                                                virtual(P_FLIP_MESH, device), shadow=(512, 512))
+    if any(counts.values()):
+        raise AssertionError(f"{name}: a kernel launched on the roll path: {counts}")
+    # The stream opens with a CellFlipped for every live cell of the
+    # input, so the shadow board starts from nothing.
+    want = (pgm.decode_pgm(final) != 0).astype(np.uint8)
+    if not np.array_equal(sink.shadow, want):
+        raise AssertionError(f"{name}: the XOR-rebuilt board differs from the final PGM")
+    log(f"{name}: {sink.flips} CellFlipped events XOR-rebuild the final PGM")
+    e2e[f"mesh_flips_p_512^2x{P_FLIP_TURNS}_{ny}x{nx}"] = dict(
+        seconds=seconds, flips=sink.flips, launches=counts, stats=dict(flips=stats_row(
+            "CellFlipped events/s", [sink.flips / seconds], "events/s")))
+    return e2e
+
+
+def http_json(url: str, method: str = "GET", body=None, timeout: float = 60.0):
+    """(status, decoded JSON or text) of one HTTP request."""
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, method=method,
+                                 headers={"Content-Type": "application/json"} if data else {})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            status, raw = resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        status, raw = e.code, e.read()
+    try:
+        return status, json.loads(raw)
+    except ValueError:
+        return status, raw.decode()
+
+
+class Spectator(threading.Thread):
+    """A wire spectator, as ``tools/gol_client.py`` speaks it, through the
+    port's own ``serve/ws.py`` and ``serve/wire.py``: it subscribes a rect
+    of a tenant's FramePlane and folds the keyframes and deltas into a
+    buffer until the ``end`` message, noting each frame's publish stamp
+    and the time it arrived."""
+
+    def __init__(self, base: str, tenant: str, rect: tuple):
+        super().__init__(name=f"spectator-{tenant}", daemon=True)
+        split = urlsplit(base)
+        self.tenant, self.rect = tenant, tuple(rect)
+        self.ws = ws_lib.client_connect(
+            split.hostname, split.port,
+            f"/v1/sessions/{tenant}/frames?rect={','.join(map(str, rect))}&queue=64",
+            timeout=60)
+        self.buf, self.turn, self.ended, self.error = None, 0, False, None
+        self.arrivals, self.ages = [], []
+
+    def run(self) -> None:
+        try:
+            self.ws.settimeout(120)
+            while not self.ended:
+                opcode, payload = self.ws.recv()
+                now = time.time()
+                if opcode == ws_lib.OP_TEXT:
+                    self.ended = json.loads(payload).get("type") == "end"
+                    continue
+                event = wire.decode_frame_event(payload)
+                if isinstance(event, gol.FrameReady):
+                    self.buf = np.array(event.frame, dtype=np.uint8, copy=True)
+                elif self.buf is not None:
+                    frames.apply_bands(self.buf, event.bands)
+                else:
+                    continue  # an orphan delta before the first keyframe
+                self.turn = event.completed_turns
+                self.arrivals.append(now)
+                if event.ts is not None:
+                    self.ages.append(now - event.ts)
+        except Exception as e:  # noqa: BLE001 — reported by the caller
+            self.error = e
+        finally:
+            self.ws.close()
+
+
+def wire_pod_path(tmp: Path, launches: dict, device) -> dict:
+    """Path (q), one pod's wire: ``serve --gateway-port 0 --telemetry-port
+    0`` (the CLI's ``serve_main``, on a thread of this process so that its
+    launches count) with two spectated tenants submitted over HTTP: the
+    16384² soup on per-turn frames (K6) and a 512² soup at a frame stride
+    of 16 (K1).  Two wire spectators a tenant subscribe rects that wrap the
+    torus; each one's rebuilt last frame must be the final turn's and equal
+    ``Backend.fetch_viewport`` of the final board, which must equal the
+    tenant's solo rerun.  ``/metrics`` and ``/healthz`` are scraped from
+    the telemetry server and the OpenMetrics text round-trips; a drain
+    over the wire ends the pod."""
+    from distributed_gol_torch.__main__ import serve_main
+
+    root = tmp / "wire_pod"
+    labels = ("gateway.endpoint", "telemetry.endpoint")
+    before = {k: metrics.REGISTRY.snapshot().to_dict()["info"].get(k) for k in labels}
+    out, rc = io.StringIO(), []
+
+    def pod():
+        with contextlib.redirect_stdout(out):
+            rc.append(serve_main(["--gateway-port", "0", "--telemetry-port", "0",
+                                  "--checkpoint-root", str(root), "--max-sessions", "2",
+                                  "--max-cells", str(BIG * BIG), "--max-total-cells", "0",
+                                  "--telemetry-sample-seconds", "0.25"]))
+
+    reset_launches()
+    t0 = time.perf_counter()
+    thread = threading.Thread(target=pod, name="wire-pod", daemon=True)
+    thread.start()
+    urls, deadline = {}, time.monotonic() + 120
+    while len(urls) < 2 and time.monotonic() < deadline and thread.is_alive():
+        info = metrics.REGISTRY.snapshot().to_dict()["info"]
+        urls = {k: info[k] for k in labels if info.get(k) and info[k] != before[k]}
+        time.sleep(0.05)
+    if len(urls) < 2:
+        raise AssertionError(f"(q) the pod never published both endpoints: {urls}")
+    gw, tel = urls["gateway.endpoint"], urls["telemetry.endpoint"]
+    log(f"(q) pod up in {time.perf_counter() - t0:.3f} s: gateway {gw}, telemetry {tel}")
+    specs = {}
+    for tenant, side, turns, stride, rects in Q_TENANTS:
+        spec = {"tenant": tenant, "params": {"width": side, "height": side, "turns": turns},
+                "soup": {"density": 0.3, "seed": 7}, "spectate": True,
+                "viewport": list(rects[0]), "frame_stride": stride}
+        status, doc = http_json(gw + "/v1/sessions", "POST", spec)
+        if status != 201:
+            raise AssertionError(f"(q) POST /v1/sessions {tenant}: {status} {doc}")
+        specs[tenant] = (side, turns, stride, [Spectator(gw, tenant, r) for r in rects])
+        for sp in specs[tenant][3]:
+            sp.start()
+    for tenant, (_, _, _, spectators) in specs.items():
+        for sp in spectators:
+            sp.join(timeout=600)
+            if sp.is_alive() or sp.error is not None or not sp.ended:
+                raise AssertionError(f"(q) spectator {sp.rect} of {tenant}: {sp.error!r}")
+    states = {t: http_json(f"{gw}/v1/sessions/{t}/state")[1] for t in specs}
+    if any(st["status"] != "completed" for st in states.values()):
+        raise AssertionError(f"(q) tenants did not complete: {states}")
+    status, text = http_json(tel + "/metrics")
+    parsed = openmetrics.parse(text) if status == 200 else None
+    problems = ["/metrics answered " + str(status)] if parsed is None else (
+        metrics.check_metrics_snapshot(parsed) + openmetrics.check_roundtrip(parsed))
+    hz_status, health = http_json(tel + "/healthz")
+    if problems or hz_status != 200 or not health.get("ready"):
+        raise AssertionError(f"(q) telemetry: {problems[:5]}, /healthz {hz_status}")
+    status, receipt = http_json(gw + "/v1/drain", "POST")
+    thread.join(timeout=120)
+    seconds = time.perf_counter() - t0
+    if thread.is_alive() or rc != [0]:
+        raise AssertionError(f"(q) the pod did not exit 0 after the drain: {rc}")
+    counts = launch_counts()
+    for k in Q_KERNELS:
+        if counts[k] == 0:
+            raise AssertionError(f"(q) the {k} kernel never launched")
+        launches[k] += counts[k]
+    last = json.loads(out.getvalue().strip().splitlines()[-1])
+    if last["gateway"]["endpoint"] != gw:
+        raise AssertionError(f"(q) the receipt names {last['gateway']}, not {gw}")
+    rows = {}
+    for tenant, (side, turns, stride, spectators) in specs.items():
+        p = gol.Params(turns=turns, image_width=side, image_height=side, soup_density=0.3,
+                       soup_seed=7, ticker_period=3600, out_dir=tmp / "q_rerun" / tenant)
+        got = (root / tenant / f"{p.final_output_name}.pgm").read_bytes()
+        if got != solo_rerun(p, p.out_dir):
+            raise AssertionError(f"(q) tenant {tenant}'s final PGM differs from its solo rerun")
+        fetch = Backend(p)
+        final = fetch.put(pgm.decode_pgm(got))
+        for sp in spectators:
+            if sp.turn != turns or not np.array_equal(sp.buf, fetch.fetch_viewport(final, sp.rect)):
+                raise AssertionError(f"(q) {tenant} spectator {sp.rect}: the last frame (turn "
+                                     f"{sp.turn}) differs from fetch_viewport of the final board")
+        fps = [(len(sp.arrivals) - 1) / (sp.arrivals[-1] - sp.arrivals[0]) for sp in spectators]
+        ages = [a for sp in spectators for a in sp.ages]
+        rows[tenant] = dict(
+            side=side, turns=turns, stride=stride,
+            frames=[len(sp.arrivals) for sp in spectators], rects=[sp.rect for sp in spectators],
+            stats=dict(frames=stats_row("frames/s a spectator", fps, "frames/s"),
+                       age={k: v for k, v in stats_row("publish to receipt", ages, "s").items()
+                            if k != "rates"}))
+        log(f"(q) {tenant} {side}^2 x {turns}: spectators {rows[tenant]['frames']} frames, "
+            f"{rows[tenant]['stats']['frames']['median']:.1f} frames/s each, publish to receipt "
+            f"median {rows[tenant]['stats']['age']['median'] * 1e3:.3f} ms; last frames equal "
+            f"fetch_viewport of the final board")
+    print(f"wire pod (q): {seconds:.3f} s, launches {counts}, /metrics round-trips "
+          f"({len(parsed['counters'])} counters), drain receipt {sorted(receipt['sessions'])}",
+          flush=True)
+    return {"wire_pod_q": dict(seconds=seconds, launches=counts, tenants=rows,
+                               metrics_counters=len(parsed["counters"]),
+                               healthz_ready=health["ready"])}
+
+
 def serving_paths(tmp: Path, launches: dict) -> dict:
     """Phase 3's serving paths: the K7 pod batched and unbatched, the K8
     pod, and the ``serve`` CLI."""
@@ -3516,22 +3879,25 @@ def main() -> int:
 
     # Phase 2: each kernel against its plain version, bit for bit.
     errs = {k: 0 for k in KERNELS}
-    check_resident(device, errs)
-    check_tiled(device, errs)
-    boards = {"fresh": packed.pack(board(BIG, BIG, 13, device)), "settled": settled_board(device)}
-    check_adaptive(errs, boards)
-    check_skip_blocks(device, errs, boards)
-    check_stencil(device, errs)
-    check_resident_batched(device, errs)
-    k8_stacks = check_frontier_batched(device, errs)
-    ext_cases = check_ext(device, errs)
-    strip_cases = check_strips(device, errs, boards)
-    strip_cases["plan_less"] = check_plan_less(device, errs, PLAN_LESS, MESH_F, "f")
-    mega_cases = check_strip_mega(device, errs, boards)
+    step("check_resident", check_resident, device, errs)
+    step("check_tiled", check_tiled, device, errs)
+    boards = step("boards", lambda: {"fresh": packed.pack(board(BIG, BIG, 13, device)),
+                                     "settled": settled_board(device)})
+    step("check_adaptive", check_adaptive, errs, boards)
+    step("check_skip_blocks", check_skip_blocks, device, errs, boards)
+    step("check_stencil", check_stencil, device, errs)
+    step("check_resident_batched", check_resident_batched, device, errs)
+    k8_stacks = step("check_frontier_batched", check_frontier_batched, device, errs)
+    ext_cases = step("check_ext", check_ext, device, errs)
+    strip_cases = step("check_strips", check_strips, device, errs, boards)
+    strip_cases["plan_less"] = step("check_plan_less_f", check_plan_less, device, errs,
+                                    PLAN_LESS, MESH_F, "f")
+    mega_cases = step("check_strip_mega", check_strip_mega, device, errs, boards)
     tiled = tile_boards(boards)
-    tile_cases = check_tiles(device, errs, tiled)
-    tile_cases["plan_less"] = check_plan_less(device, errs, TILE_PLAN_LESS, MESH_I, "i")
-    tile_mega_cases = check_tile_mega(errs, tiled)
+    tile_cases = step("check_tiles", check_tiles, device, errs, tiled)
+    tile_cases["plan_less"] = step("check_plan_less_i", check_plan_less, device, errs,
+                                   TILE_PLAN_LESS, MESH_I, "i")
+    tile_mega_cases = step("check_tile_mega", check_tile_mega, errs, tiled)
     log(f"phase 2 (kernels against their plain versions) done at "
         f"{time.perf_counter() - started:.1f} s")
 
@@ -3544,6 +3910,7 @@ def main() -> int:
         pgm.write_pgm(images / "512x512.pgm", random_soup(512, 512, 0.3, 7))
         packed_ref = dict(engine="packed")
         default = gol.Params(images_dir=images, out_dir=tmp / "default", ticker_period=3600)
+        t_paths = time.perf_counter()
         e2e = {"default_512x512x100": drive("default 512^2 x 100", default, ("resident",),
                                             launches, packed_ref)[0]}
         big = gol.Params(turns=2000, image_width=BIG, image_height=BIG, soup_density=0.3,
@@ -3563,15 +3930,19 @@ def main() -> int:
         log(f"{BIG}^2 x {LONG_TURNS}: {run_long['gens_per_s']:.1f} gens/s run, "
             f"{run_long['dispatch_loop_gens_per_s']:.1f} gens/s dispatch loop, final skip "
             f"fraction {run_long['skip_fraction']}, launches {run_long['launches']}")
-        e2e.update(viewer_paths(images, tmp, launches, device))
-        e2e.update(serving_paths(tmp, launches))
-        e2e.update(sharded_paths(tmp, straight, launches, device))
+        STEP_SECONDS["headless_paths"] = round(time.perf_counter() - t_paths, 1)
+        e2e.update(step("viewer_paths", viewer_paths, images, tmp, launches, device))
+        e2e.update(step("serving_paths", serving_paths, tmp, launches))
+        e2e.update(step("sharded_paths", sharded_paths, tmp, straight, launches, device))
+        e2e.update(step("mesh_viewer_paths_p", mesh_viewer_paths, tmp, straight, launches,
+                        device))
+        e2e.update(step("wire_pod_path_q", wire_pod_path, tmp, launches, device))
         a = next(v for k, v in e2e.items() if k.startswith("sharded_a_"))
         log(f"sharded (a) on {MESH_A}: {a['gens_per_s']:.1f} gens/s, K9 launches "
             f"{a['launches']['ext']}; single-device {BIG}^2 x 2000: "
             f"{e2e[f'soup_{BIG}x{BIG}x2000']['gens_per_s']:.1f} gens/s")
         long_pgm = (long.out_dir / f"{long.final_output_name}.pgm").read_bytes()
-        e2e.update(strip_paths(tmp, long_pgm, straight, launches, device))
+        e2e.update(step("strip_paths", strip_paths, tmp, long_pgm, straight, launches, device))
         e = next(v for k, v in e2e.items() if k.startswith("strips_e_"))
         k = next(v for k, v in e2e.items() if k.startswith("strips_k_"))
         print(f"strip path (e) on {MESH_E}, in-kernel tier: {e['gens_per_s']:.1f} gens/s, "
@@ -3582,7 +3953,7 @@ def main() -> int:
               f"{run_long['gens_per_s']:.1f} gens/s, dispatch loop "
               f"{run_long['dispatch_loop_s']:.3f} s, skip fraction "
               f"{run_long.get('skip_fraction')}", flush=True)
-        e2e.update(tile_paths(tmp, long_pgm, straight, launches, device))
+        e2e.update(step("tile_paths", tile_paths, tmp, long_pgm, straight, launches, device))
         hh = next(v for k, v in e2e.items() if k.startswith("tiles_h_"))
         ll = next(v for k, v in e2e.items() if k.startswith("tiles_l_"))
         print(f"tile path (h) on {MESH_H}, in-kernel tier: {hh['gens_per_s']:.1f} gens/s, "
@@ -3592,7 +3963,8 @@ def main() -> int:
               f"{ll.get('skip_fraction')}; strip path (e) on {MESH_E}: {e['gens_per_s']:.1f} "
               f"gens/s; single-device {run_long['gens_per_s']:.1f} gens/s", flush=True)
         log(f"phase 3 up to the resilience paths done at {time.perf_counter() - started:.1f} s")
-        e2e.update(resilience_paths(tmp, long_pgm, straight, launches, device))
+        e2e.update(step("resilience_paths", resilience_paths, tmp, long_pgm, straight,
+                        launches, device))
     log(f"phase 3 (main paths) done at {time.perf_counter() - started:.1f} s")
 
     # Phase 4: time each kernel at the main path's shapes.
@@ -3708,27 +4080,28 @@ def main() -> int:
             **tm.get("extra", {}),
         ))
     measure.require_headline_stats(e2e)  # every run row: {reps, median, spread}
-    print(json.dumps({"end_to_end": e2e, "card": card}))
-    print(json.dumps({"k6_copy_witness": witness, "card": card}))
+    print(record({"end_to_end": e2e, "card": card}))
+    print(record({"k6_copy_witness": witness, "card": card}))
     if "--sweep" in sys.argv[1:]:
         with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent) as tmp:
-            print(json.dumps({"sweep": sweep(boards, Path(tmp)), "card": card}))
+            print(record({"sweep": sweep(boards, Path(tmp)), "card": card}))
     if "--profile" in sys.argv[1:]:
         runs = [(2000, BIG, {}), (LONG_TURNS, BIG, {}), (FLIP_TURNS, 512, dict(no_vis=False)),
                 (500, BIG, dict(no_vis=False)), (1000, BIG, dict(no_vis=False, viewport=VIEWPORT))]
         for turns, side, viewer in runs:
-            print(json.dumps({"profile": profile_run(turns, side, **viewer), "card": card}))
-        print(json.dumps({"profile": profile_run(2000, BIG, virtual(MESH_A, device),
+            print(record({"profile": profile_run(turns, side, **viewer), "card": card}))
+        print(record({"profile": profile_run(2000, BIG, virtual(MESH_A, device),
                                                  mesh_shape=MESH_A), "card": card}))
-        print(json.dumps({"profile": profile_run(LONG_TURNS, BIG, virtual(MESH_E, device),
+        print(record({"profile": profile_run(LONG_TURNS, BIG, virtual(MESH_E, device),
                                                  mesh_shape=MESH_E), "card": card}))
         with dgol_ici("0"):  # path (k): K12 with the exchange between launches
-            print(json.dumps({"profile": profile_run(LONG_TURNS, BIG, virtual(MESH_E, device),
+            print(record({"profile": profile_run(LONG_TURNS, BIG, virtual(MESH_E, device),
                                                      mesh_shape=MESH_E), "card": card}))
-        print(json.dumps({"profile": profile_run(LONG_TURNS, BIG, virtual(MESH_H, device),
+        print(record({"profile": profile_run(LONG_TURNS, BIG, virtual(MESH_H, device),
                                                  mesh_shape=MESH_H), "card": card}))
+    print(record({"step_seconds": STEP_SECONDS, "card": card}))
     log(f"chip_smoke: {time.perf_counter() - started:.1f} s in all, kernel builds included")
-    print(json.dumps({"kernels": kernels}))
+    print(record({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -12,9 +12,11 @@ environment variable ``DGOL_ICI=0`` forces the ppermute tier instead, as
 in the JAX package.  ``--restart-limit N`` supervises the run (rollback
 to the newest checkpoint on a terminal fault, ``engine/supervisor.py``),
 ``--time-compression`` fast-forwards settled ash, and
-``--telemetry-sample-seconds S`` samples the metrics registry.  Flags for
-what the port does not serve yet (telemetry endpoints, multi-host runs, a
-viewer on a mesh) are usage errors that name the ROADMAP item.  The
+``--telemetry-sample-seconds S`` samples the metrics registry and
+``--telemetry-port PORT`` serves ``/metrics`` and ``/healthz`` for the run.
+A mesh runs with a viewer too (the viewer is on by default).  Multi-host
+flags, which the port does not serve yet, are usage errors that name the
+ROADMAP item.  The
 engine runs in a worker thread while the main thread runs the viewer: the
 terminal renderer by default, the pygame window with ``--window``, a
 headless drain with ``-noVis``; the keyboard listener feeds s/p/q/k (and
@@ -23,9 +25,12 @@ the viewport's pan/zoom keys).
 ``python -m distributed_gol_torch serve ...`` runs one serving pod
 (``serve/plane.py``): scripted ``--tenant NAME:WxHxTURNS`` sessions and
 re-adopted parked ones, ``--batched`` to share launches across same-shape
-tenants, with ``--device`` as above.  The gateway, telemetry endpoints
-and the ``broker``, ``relay`` and ``collector`` subcommands are not
-ported yet (ROADMAP A9).
+tenants, with ``--device`` as above; ``--gateway-port PORT`` puts the pod
+on the wire (``serve/gateway.py``: HTTP control plane, WebSocket event and
+spectator legs; the pod then serves until drained) and
+``--telemetry-port PORT`` serves its ``/metrics``, ``/healthz`` and
+``/slo``.  The ``broker``, ``relay`` and ``collector`` subcommands are not
+ported yet (ROADMAP A9b).
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ import queue
 import signal
 import sys
 import threading
+import time
 from pathlib import Path
 
 from distributed_gol_torch.engine.events import EventQueue
@@ -340,10 +346,6 @@ def _refuse_cli_unported(args) -> None:
             "multi-host runs (--coordinator, --num-processes: process-spanning "
             "meshes) are not ported yet (ROADMAP A8, parallel/multihost.py)"
         )
-    if args.telemetry_port is not None:
-        raise NotImplementedError(
-            "--telemetry-port: the telemetry endpoints are not ported yet (ROADMAP A9)"
-        )
 
 
 def build_serve_parser() -> argparse.ArgumentParser:
@@ -411,10 +413,18 @@ def build_serve_parser() -> argparse.ArgumentParser:
                     "with an explicit --superstep so tenants share a "
                     "dispatch schedule")
     ap.add_argument("--gateway-port", type=int, default=None, metavar="PORT",
-                    help="the HTTP/WebSocket gateway (not ported yet)")
-    # The gateway's bind address and wire hardening: carried into
-    # ServeConfig as the JAX package does; they act only with
-    # --gateway-port.
+                    help="expose the HTTP/WebSocket gateway on PORT "
+                    "(0 = ephemeral; the bound URL is printed to stderr "
+                    "and published as the gateway.endpoint info label): "
+                    "POST /v1/sessions submissions through the admission "
+                    "ladder, pause/resume/quit control, controller event "
+                    "streams and spectator frame streams over WebSocket, "
+                    "drain-over-the-wire (drive with tools/gol_client.py). "
+                    "The pod then serves until drained (SIGTERM, Ctrl-C, "
+                    "or POST /v1/drain) instead of exiting when scripted "
+                    "tenants finish; wire submissions run on --device")
+    # The gateway's bind address and wire hardening (ServeConfig); they
+    # act only with --gateway-port.
     ap.add_argument("--gateway-host", default="127.0.0.1",
                     help="gateway bind address (0.0.0.0 for off-host "
                     "controllers/spectators)")
@@ -443,7 +453,10 @@ def build_serve_parser() -> argparse.ArgumentParser:
                     "declaration is a protocol error, not an allocation")
     ap.add_argument("--telemetry-port", type=int, default=None,
                     metavar="PORT",
-                    help="/metrics, /healthz and /slo endpoints (not ported yet)")
+                    help="expose /metrics (OpenMetrics), /healthz, and "
+                    "/slo on PORT (0 = ephemeral; the bound URL is "
+                    "printed to stderr) — bounded-time scrapes served "
+                    "from the pod sampler's latest sample")
     ap.add_argument("--telemetry-sample-seconds", type=float, default=1.0,
                     help="pod registry sampling cadence (the staleness "
                     "bound of health responses); 0 disables the "
@@ -493,17 +506,6 @@ def _parse_tenant_spec(spec: str) -> tuple[str, int, int, int]:
     return name, w, h, turns
 
 
-def _refuse_serve_unported(args) -> None:
-    if args.gateway_port is not None:
-        raise NotImplementedError(
-            "--gateway-port: the network gateway is not ported yet (ROADMAP A9)"
-        )
-    if args.telemetry_port is not None:
-        raise NotImplementedError(
-            "--telemetry-port: the telemetry endpoints are not ported yet (ROADMAP A9)"
-        )
-
-
 def serve_main(argv) -> int:
     import json
     import zlib
@@ -513,12 +515,14 @@ def serve_main(argv) -> int:
     ap = build_serve_parser()
     args = ap.parse_args(argv)
     try:
-        _refuse_serve_unported(args)
         specs = [_parse_tenant_spec(s) for s in args.tenant]
-    except (ValueError, NotImplementedError) as e:
+    except ValueError as e:
         ap.error(str(e))
-    if not specs and not args.readopt:
-        ap.error("nothing to serve: pass --tenant and/or --readopt")
+    if not specs and not args.readopt and args.gateway_port is None:
+        ap.error(
+            "nothing to serve: pass --tenant, --readopt, and/or "
+            "--gateway-port"
+        )
     if args.readopt and not args.checkpoint_root:
         ap.error("--readopt needs --checkpoint-root")
     try:
@@ -580,8 +584,28 @@ def serve_main(argv) -> int:
         # programmatically instead.
         def restore() -> None:
             pass
+    telemetry = gateway = None
     handles = []
     try:
+        if args.telemetry_port is not None:
+            from distributed_gol_torch.serve.telemetry import serve_plane_telemetry
+
+            telemetry = serve_plane_telemetry(plane, port=args.telemetry_port)
+            print(f"telemetry: {telemetry.url}/metrics /healthz /slo", file=sys.stderr)
+        if args.gateway_port is not None:
+            from distributed_gol_torch.serve.gateway import serve_plane_gateway
+
+            gateway = serve_plane_gateway(
+                plane, port=args.gateway_port, host=args.gateway_host, device=args.device
+            )
+            # The BOUND endpoint: an ephemeral port 0 is resolved here.
+            print(
+                f"gateway: {gateway.url}/v1/sessions "
+                f"(ws: /v1/sessions/<tenant>/events|frames; "
+                f"drive with tools/gol_client.py {gateway.url})",
+                file=sys.stderr,
+                flush=True,
+            )
         if args.readopt:
             for name, info in plane.resumable_tenants().items():
                 shape = info.get("shape")
@@ -598,21 +622,44 @@ def serve_main(argv) -> int:
                       file=sys.stderr)
         for name, w, h, turns in specs:
             try:
-                handles.append(plane.submit(name, tenant_params(name, w, h, turns)))
+                params = tenant_params(name, w, h, turns)
+                if gateway is not None:
+                    # Through the gateway's books, so scripted and
+                    # re-adopted tenants are wire-controllable too.
+                    handles.append(gateway.local_submit(name, params))
+                else:
+                    handles.append(plane.submit(name, params))
             except AdmissionRejected as e:
                 print(f"tenant {name} shed: {e}", file=sys.stderr)
         for handle in handles:
             handle.wait()
+        if gateway is not None:
+            # A gateway pod is a SERVER: scripted tenants finishing does
+            # not end it — serve until a drain lands (SIGTERM, Ctrl-C,
+            # or POST /v1/drain over the wire).
+            try:
+                while not plane.draining:
+                    time.sleep(0.25)
+            except KeyboardInterrupt:
+                pass
         summary = plane.drain()  # no-op when every session already ended
-        print(json.dumps({"health": plane.health(), "sessions": summary}))
+        receipt = {"health": plane.health(), "sessions": summary}
+        if gateway is not None:
+            receipt["gateway"] = {"endpoint": gateway.url}
+        print(json.dumps(receipt))
     finally:
         restore()
+        if telemetry is not None:
+            telemetry.close()
+        if gateway is not None:
+            gateway.close()
         plane.close()
     bad = [h for h in handles if h.status == "failed"]
     return 1 if bad else 0
 
 
-#: Subcommands of the JAX package's CLI the port does not serve yet.
+#: Subcommands of the JAX package's CLI the port does not serve yet
+#: (ROADMAP A9b).
 _UNPORTED_SUBCOMMANDS = {
     "broker": "the federation broker",
     "relay": "the spectator relay",
@@ -626,7 +673,7 @@ def main(argv=None) -> int:
         return serve_main(argv[1:])
     if argv and argv[0] in _UNPORTED_SUBCOMMANDS:
         print(f"distributed_gol_torch {argv[0]}: error: "
-              f"{_UNPORTED_SUBCOMMANDS[argv[0]]} is not ported yet (ROADMAP A9)",
+              f"{_UNPORTED_SUBCOMMANDS[argv[0]]} is not ported yet (ROADMAP A9b)",
               file=sys.stderr)
         return 2
     ap = build_parser()
@@ -642,6 +689,17 @@ def main(argv=None) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 1
     session = Session(args.checkpoint_dir) if args.checkpoint_dir else default_session()
+    if args.telemetry_port is not None:
+        if not args.metrics:
+            # gol.run gates the whole telemetry plane on the registry:
+            # say so instead of printing an endpoint that never binds.
+            print("telemetry disabled: --no-metrics", file=sys.stderr)
+        elif args.telemetry_port:
+            print(f"telemetry: /metrics + /healthz on http://127.0.0.1:{args.telemetry_port}",
+                  file=sys.stderr)
+        else:
+            print("telemetry: /metrics + /healthz on an ephemeral port "
+                  "(published as the telemetry.endpoint info label)", file=sys.stderr)
 
     events = EventQueue()
     key_presses: queue.Queue = queue.Queue()
@@ -654,7 +712,8 @@ def main(argv=None) -> int:
     restore_signals = graceful.install((signal.SIGTERM,))
     tracer = _trace(args.trace) if args.trace else contextlib.nullcontext()
     with tracer:
-        engine = start(params, events, key_presses, session, stop=graceful)
+        engine = start(params, events, key_presses, session, stop=graceful,
+                       telemetry_port=args.telemetry_port)
         try:
             if params.no_vis:
                 final = run_headless(params, events)

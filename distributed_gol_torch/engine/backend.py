@@ -65,6 +65,26 @@ def _alive_count(board) -> torch.Tensor:
     return halo.as_board(board).reduce(lambda t, y0, x0: stencil.alive_count(t))
 
 
+def _flip_bits(prev, new) -> torch.Tensor:
+    """``stencil.packbits`` of the flip mask between two boards, whole or
+    sharded on one mesh, on the (first shard's) device.  A mesh's shards
+    pack their own masks when their width is a multiple of 8, so their
+    bytes concatenate; otherwise each band of shards is put together
+    before it is packed."""
+    if not isinstance(prev, halo.ShardedBoard):
+        return stencil.packbits(stencil.flip_mask(prev, new))
+    dev = prev.shards[0][0].device
+    own = prev.shard_shape[1] % 8 == 0
+    bands = []
+    for before, after in zip(prev.shards, new.shards):
+        masks = [stencil.flip_mask(a, b) for a, b in zip(before, after)]
+        if own:
+            bands.append(torch.cat([stencil.packbits(m).to(dev) for m in masks], dim=1))
+        else:
+            bands.append(stencil.packbits(torch.cat([m.to(dev) for m in masks], dim=1)))
+    return torch.cat(bands, dim=0)
+
+
 class Backend:
     """Holds the step program of one (rule, engine, device) configuration.
 
@@ -487,59 +507,61 @@ class Backend:
         """A fetched bit-packed view as uint8 {0, 255} cells."""
         return np.unpackbits(bits, axis=-1, count=cols) * np.uint8(255)
 
-    def fetch_viewport(self, board: torch.Tensor, rect) -> np.ndarray:
+    def fetch_viewport(self, board, rect) -> np.ndarray:
         """Only the rect ``(y0, x0, vh, vw)`` of the board (toroidal wrap
         included) as a uint8 (vh, vw) array: the crop is bit-packed on the
-        device, so ``ceil(vw/8)·vh`` bytes cross to the host."""
+        device, so ``ceil(vw/8)·vh`` bytes cross to the host.  On a mesh
+        the crop is put together from the shards it covers
+        (``ShardedBoard.window``), never from a gathered board."""
         h, w = self.params.image_height, self.params.image_width
         y0, x0, vh, vw = self.normalize_rect(rect, h, w)
         self._m_viewport_fetches.inc()
-        bits = self.fetch(stencil.packbits(stencil.viewport(board, y0, x0, vh, vw)))
+        bits = self.fetch(stencil.packbits(halo.as_board(board).window(y0, x0, vh, vw)))
         return self._unpack(bits, vw)
 
-    def _counted_superstep(self, board: torch.Tensor, turns: int):
+    def _counted_superstep(self, board, turns: int):
         """(board after ``turns`` generations, its unsynced alive count):
         on the pallas engine K6 counts the board its last launch writes,
-        elsewhere the count is a separate sum of the board."""
+        elsewhere the count is a separate sum of the board (on a mesh the
+        sum of the shards' counts)."""
         if self._counted is not None:
             return self._counted(board, turns)
         new_board = self._device_superstep(board, turns)
-        return new_board, stencil.alive_count(new_board)
+        return new_board, _alive_count(new_board)
 
-    def _fetch_count(self, board: torch.Tensor) -> torch.Tensor:
+    def _fetch_count(self, board) -> torch.Tensor:
         """The device count a viewer turn fetches beside its view, without
         a turn: on the pallas engine an int64 scalar as K6's counter is
         (made and fetched, no sum of the board, which the turn no longer
         runs), elsewhere the board's alive count."""
         if self._counted is not None:
             return torch.zeros((), dtype=torch.int64, device=board.device)
-        return stencil.alive_count(board)
+        return _alive_count(board)
 
-    def run_turn_with_flips(
-        self, board: torch.Tensor
-    ) -> tuple[torch.Tensor, int, np.ndarray]:
+    def run_turn_with_flips(self, board) -> tuple[object, int, np.ndarray]:
         """One generation, returning (board, alive count, (n, 2) array of
         the flipped cells' (y, x)).  The diff is taken on the device
         (``stencil.flip_mask``) and bit-packed; the host unpacks it."""
         new_board, count = self._counted_superstep(board, 1)
-        bits = stencil.packbits(stencil.flip_mask(board, new_board))
+        bits = _flip_bits(board, new_board)
         count, bits = self.fetch_many(count, bits)
         ys, xs = np.nonzero(np.unpackbits(bits, axis=-1, count=self.params.image_width))
         return new_board, int(count), np.stack([ys, xs], axis=1)
 
     def run_turn_with_frame(
-        self, board: torch.Tensor, fy: int, fx: int, turns: int = 1
-    ) -> tuple[torch.Tensor, int, np.ndarray]:
+        self, board, fy: int, fx: int, turns: int = 1
+    ) -> tuple[object, int, np.ndarray]:
         """``turns`` generations (the frame stride), returning (board, alive
-        count, the last generation max-pooled by (fy, fx) on the device)."""
+        count, the last generation max-pooled by (fy, fx) on the device;
+        on a mesh shard by shard, ``ShardedBoard.pool``)."""
         new_board, count = self._counted_superstep(board, turns)
-        bits = stencil.packbits(stencil.frame_pool(new_board, fy, fx))
+        bits = stencil.packbits(halo.as_board(new_board).pool(fy, fx))
         count, bits = self.fetch_many(count, bits)
         return new_board, int(count), self._unpack(bits, -(-self.params.image_width // fx))
 
     def run_turn_with_viewport(
-        self, board: torch.Tensor, rect, fy: int, fx: int, turns: int = 1
-    ) -> tuple[torch.Tensor, int, np.ndarray]:
+        self, board, rect, fy: int, fx: int, turns: int = 1
+    ) -> tuple[object, int, np.ndarray]:
         """The viewport form of :meth:`run_turn_with_frame`: the pooled
         frame covers only the rect ``(y0, x0, vh, vw)``, so a frame's cost
         scales with the viewport, not the board."""
@@ -547,24 +569,25 @@ class Backend:
         y0, x0, vh, vw = self.normalize_rect(rect, h, w)
         self._m_viewport_fetches.inc()
         new_board, count = self._counted_superstep(board, turns)
-        pooled = stencil.frame_pool(stencil.viewport(new_board, y0, x0, vh, vw), fy, fx)
+        pooled = stencil.frame_pool(halo.as_board(new_board).window(y0, x0, vh, vw), fy, fx)
         count, bits = self.fetch_many(count, stencil.packbits(pooled))
         return new_board, int(count), self._unpack(bits, -(-vw // fx))
 
-    def probe_frame_fetch(self, board: torch.Tensor, fy: int, fx: int, rect=None) -> None:
+    def probe_frame_fetch(self, board, fy: int, fx: int, rect=None) -> None:
         """One frame fetch without advancing the simulation: the pool (of
         the viewport ``rect`` when given), count, bit-pack and host copy of
         :meth:`run_turn_with_frame` / :meth:`run_turn_with_viewport`, minus
         the generations (on the pallas engine, whose count comes from K6,
         minus the count's work too: ``_fetch_count``).  The controller
         times it to size the frame stride."""
-        view = board
-        if rect is not None:
+        whole = halo.as_board(board)
+        if rect is None:
+            pooled = whole.pool(fy, fx)
+        else:
             h, w = self.params.image_height, self.params.image_width
             y0, x0, vh, vw = self.normalize_rect(rect, h, w)
-            view = stencil.viewport(board, y0, x0, vh, vw)
-        self.fetch_many(self._fetch_count(board),
-                        stencil.packbits(stencil.frame_pool(view, fy, fx)))
+            pooled = stencil.frame_pool(whole.window(y0, x0, vh, vw), fy, fx)
+        self.fetch_many(self._fetch_count(board), stencil.packbits(pooled))
 
     # -- compute ---------------------------------------------------------------
     def run_turns_async(

@@ -8,8 +8,9 @@ pipelined headless dispatch loop, cycle fast-forward, retry/watchdog,
 periodic checkpoints, the SDC sentinel and graceful preemption, the
 time-compression tier (``Params.time_compression``: ``engine/timecomp.py``),
 and the per-turn viewer loop: exact flips, device-pooled frames, and a
-viewport with delta-encoded frames and pan/zoom keys.  The serving plane's
-frame fan-out (``frame_plane``) is not ported yet.
+viewport with delta-encoded frames and pan/zoom keys, and the serving
+plane's spectator fan-out (``frame_plane``: one coalesced viewport fetch a
+rendered turn, ``serve/frames.py``).
 
 - The per-turn RPC round-trip (``gol/distributor.go:48-66``) becomes a
   device superstep: N generations per dispatch.
@@ -273,6 +274,7 @@ class Controller:
         backend: Optional[Backend] = None,
         flight=None,
         stop=None,
+        frame_plane=None,
         run_id: Optional[str] = None,
     ):
         self.params = params
@@ -287,7 +289,9 @@ class Controller:
         self.backend = backend if backend is not None else Backend(params)
         # -- the viewport viewer --
         # Live viewport rect [y0, x0, vh, vw] (mutated by pan/zoom keys)
-        # or None = whole-board frames, and the delta encoder's state.
+        # or None = whole-board frames; the delta encoder's state; and
+        # the optional spectator fan-out hub (serve.frames.FramePlane)
+        # fed one coalesced publish per rendered turn.
         self._rect = (
             None
             if params.viewport is None
@@ -301,6 +305,9 @@ class Controller:
         self._last_frame = None
         self._frame_keyframe = True
         self._rect_resized = False
+        self.frame_plane = frame_plane
+        if frame_plane is not None:
+            frame_plane.bind(params.image_height, params.image_width)
         # "completed" | "detached" ('q') | "killed" ('k') | "preempted"
         # (graceful stop: SIGTERM/SIGINT → emergency checkpoint → exit
         # paused-and-resumable)
@@ -1301,6 +1308,20 @@ class Controller:
                 turn += k
                 state.set(turn, count)
                 self._emit_frame(turn, frame, (fy, fx), rect)
+                if self.frame_plane is not None:
+                    # Spectator fan-out: ONE coalesced device fetch per
+                    # rendered turn serves every subscriber, riding the
+                    # full dispatch contract (watchdog and retry policy)
+                    # like every other per-turn fetch.
+                    fetch_board = board
+                    self.frame_plane.publish(
+                        turn,
+                        lambda r: self._dispatch(
+                            lambda: self.backend.fetch_viewport(fetch_board, r),
+                            fetch_board,
+                            turn,
+                        ),
+                    )
             self._emit(TurnComplete(turn))
             # The unified per-dispatch record, shared with the pipelined
             # headless path (DispatchRecorder).

@@ -48,27 +48,29 @@ def run(
     supervisor's rebuild ladder; unsupervised runs call it once with
     ``attempt=0``.  An explicit ``backend`` wins for attempt 0.
 
-    ``params.metrics`` with ``params.telemetry_sample_seconds > 0`` arms a
-    ``obs.timeseries.TelemetrySampler`` at that cadence for the run's
+    ``frame_plane`` (a ``serve.frames.FramePlane``) attaches a spectator
+    fan-out hub: a frame-mode run publishes one coalesced viewport fetch
+    per rendered turn to it, serving every subscriber's rect and delta
+    stream off that single device fetch.
+
+    ``params.metrics`` with ``telemetry_port`` or
+    ``params.telemetry_sample_seconds > 0`` arms an
+    ``obs.timeseries.TelemetrySampler`` (cadence
+    ``params.telemetry_sample_seconds``, 1 s when unset) for the run's
     lifetime, outside the supervisor's ladder, so it keeps sampling
     through backend rebuilds, and stops it when the run ends.
-
-    ``frame_plane`` (the spectator fan-out hub) and ``telemetry_port`` (the
-    run's telemetry endpoints) are not ported yet (ROADMAP A9) and raise
-    when given."""
-    if frame_plane is not None:
-        raise NotImplementedError(
-            "frame_plane: the spectator frame fan-out is not ported yet (ROADMAP A9)"
-        )
-    if telemetry_port is not None:
-        raise NotImplementedError(
-            "telemetry_port: the telemetry endpoints are not ported yet (ROADMAP A9)"
-        )
-    sampler = None
-    if params.metrics and params.telemetry_sample_seconds > 0:
+    ``telemetry_port`` also serves ``/metrics`` and ``/healthz`` on that
+    port (0 = ephemeral) from the sampler's latest sample, and closes
+    them when the run ends."""
+    sampler = server = None
+    if params.metrics and (telemetry_port is not None or params.telemetry_sample_seconds > 0):
         from distributed_gol_torch.obs.timeseries import TelemetrySampler
 
-        sampler = TelemetrySampler(interval=params.telemetry_sample_seconds).start()
+        sampler = TelemetrySampler(interval=params.telemetry_sample_seconds or 1.0).start()
+        if telemetry_port is not None:
+            from distributed_gol_torch.serve.telemetry import run_telemetry
+
+            server = run_telemetry(sampler, port=telemetry_port)
     try:
         if params.restart_limit > 0:
             from distributed_gol_torch.engine.supervisor import supervise
@@ -81,12 +83,16 @@ def run(
                 backend,
                 backend_factory=backend_factory,
                 stop=stop,
+                frame_plane=frame_plane,
             )
         else:
             if backend is None and backend_factory is not None:
                 backend = backend_factory(params, 0)
-            Controller(params, events, key_presses, session, backend, stop=stop).run()
+            Controller(params, events, key_presses, session, backend, stop=stop,
+                       frame_plane=frame_plane).run()
     finally:
+        if server is not None:
+            server.close()
         if sampler is not None:
             sampler.stop()
 

@@ -3,8 +3,7 @@
 A copy of ``distributed_gol_tpu/engine/params.py`` — the same knobs, names
 and defaults, so a command line for one package runs on the other — plus
 ``device``: the port runs on the CUDA card unless the caller asks for the
-CPU.  Requests the port does not serve yet raise ``NotImplementedError``
-naming the ROADMAP item that brings them (see ``_refuse_unported``).
+CPU.
 """
 
 from __future__ import annotations
@@ -427,22 +426,9 @@ class Params:
                 )
         if self.device not in ("cuda", "cpu"):
             raise ValueError(f"unknown device {self.device!r}; expected 'cuda' or 'cpu'")
-        self._refuse_unported()
         # Paths may arrive as strings from CLI/config files.
         object.__setattr__(self, "images_dir", Path(self.images_dir))
         object.__setattr__(self, "out_dir", Path(self.out_dir))
-
-    def _refuse_unported(self) -> None:
-        """Raise for the requests this port does not serve yet, naming the
-        ROADMAP item that brings each."""
-        if self.mesh_shape != (1, 1):
-            # The sharded path runs headless.
-            if not self.no_vis:
-                raise NotImplementedError(
-                    f"mesh_shape {self.mesh_shape} with a viewer (no_vis=False): "
-                    "the viewer paths on a mesh are not ported yet (ROADMAP A11); "
-                    "run headless or on mesh_shape=(1, 1)"
-                )
 
     # Filename conventions are part of the reference contract:
     #   input  images/<W>x<H>.pgm            (gol/distributor.go:205)

@@ -166,11 +166,9 @@ class Supervisor:
         self._first_backend = backend
         self._backend_factory = backend_factory
         self.stop = stop
-        # The spectator fan-out hub is not ported yet (ROADMAP A9).
-        if frame_plane is not None:
-            raise NotImplementedError(
-                "frame_plane: the spectator frame fan-out is not ported yet (ROADMAP A9)"
-            )
+        # The spectator fan-out hub, handed to every attempt's
+        # controller: subscribers keep their streams across restarts.
+        self.frame_plane = frame_plane
         # The health-classification seam of the elastic rung:
         # ``device_probe(devices) -> (healthy, condemned)``.  Default is
         # the real put/fetch probe, watchdog-bounded by the dispatch
@@ -413,6 +411,7 @@ class Supervisor:
                     self._build_backend(attempt),
                     flight=self.flight,
                     stop=self.stop,
+                    frame_plane=self.frame_plane,
                     run_id=self.run_id,
                 )
             except BaseException as e:

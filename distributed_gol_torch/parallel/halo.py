@@ -98,22 +98,84 @@ class ShardedBoard:
         its height, as one (n, W) tensor on the first shard's device.  Only
         the shards that hold them are read, and only those rows are
         copied."""
-        h = self.shard_shape[0]
-        height = h * len(self.shards)
+        return self.window(start, 0, n, self.shape[1])
+
+    def window(self, y0: int, x0: int, vh: int, vw: int) -> torch.Tensor:
+        """The toroidal (vh, vw) window of the whole board anchored at
+        (y0, x0) (``ops.stencil.viewport``), as one tensor on the first
+        shard's device.  A window crossing shard seams or the torus seam
+        is put together from the pieces of the shards it covers: only
+        those shards are read, and only the window's cells are copied."""
+        h, w = self.shard_shape
+        height, width = self.shape
         dev = self.shards[0][0].device
-        parts, y = [], start % height
-        while n > 0:
-            iy, r = divmod(y, h)
-            k = min(n, h - r)
-            parts.append(torch.cat([t[r : r + k].to(dev) for t in self.shards[iy]], dim=1))
-            n, y = n - k, (y + k) % height
-        return torch.cat(parts, dim=0)
+        return torch.cat([
+            torch.cat([self.shards[iy][ix][r : r + nr, c : c + nc].to(dev)
+                       for ix, c, nc in _spans(x0, vw, w, width)], dim=1)
+            for iy, r, nr in _spans(y0, vh, h, height)
+        ], dim=0)
+
+    def pool(self, fy: int, fx: int) -> torch.Tensor:
+        """``ops.stencil.frame_pool`` of the whole board by (fy, fx), on
+        the first shard's device, without gathering the board.  Each
+        shard max-pools the windows it holds whole, and reduces the
+        partial windows at its edges (those a shard seam cuts) to one
+        row or column each; the partials of one window from neighbouring
+        shards then meet in the output under a max.  Cells are never
+        negative, so that equals the zero padding ``frame_pool`` puts past
+        the board's bottom and right edges."""
+        h, w = self.shard_shape
+        height, width = self.shape
+        dev = self.shards[0][0].device
+        out = torch.zeros((-(-height // fy), -(-width // fx)),
+                          dtype=self.shards[0][0].dtype, device=dev)
+        for iy, row in enumerate(self.shards):
+            for ix, t in enumerate(row):
+                part = _segment_max(_segment_max(t, iy * h, fy, 0), ix * w, fx, 1).to(dev)
+                r0, c0 = iy * h // fy, ix * w // fx
+                block = out[r0 : r0 + part.shape[0], c0 : c0 + part.shape[1]]
+                block.copy_(torch.maximum(block, part))
+        return out
+
+
+def _spans(start: int, n: int, size: int, total: int):
+    """The pieces of the cyclic range ``start .. start + n - 1`` (modulo
+    ``total``) over blocks of ``size``: ``(block, offset, length)``."""
+    y = start % total
+    while n > 0:
+        i, r = divmod(y, size)
+        k = min(n, size - r)
+        yield i, r, k
+        n, y = n - k, (y + k) % total
+
+
+def _segment_max(t: torch.Tensor, offset: int, f: int, dim: int) -> torch.Tensor:
+    """The max over ``dim`` of each window of ``f`` that a tensor starting
+    at ``offset`` of the whole board meets, in order: a partial window at
+    the start (when ``offset`` is not a multiple of ``f``), the whole
+    windows, and a partial window at the end."""
+    n = t.shape[dim]
+    head = min(-offset % f, n)
+    whole = (n - head) // f
+    tail = n - head - whole * f
+    parts = []
+    if head:
+        parts.append(t.narrow(dim, 0, head).amax(dim=dim, keepdim=True))
+    if whole:
+        body = t.narrow(dim, head, whole * f)
+        shape = list(body.shape)
+        shape[dim : dim + 1] = [whole, f]
+        parts.append(body.reshape(shape).amax(dim=dim + 1))
+    if tail:
+        parts.append(t.narrow(dim, n - tail, tail).amax(dim=dim, keepdim=True))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
 
 
 class WholeBoard:
     """A board on one device, behind :class:`ShardedBoard`'s ``gather``,
-    ``reduce``, ``equal`` and ``rows``, so that code serving both kinds of
-    board (``engine/backend.py``) never tests which it holds."""
+    ``reduce``, ``equal``, ``rows``, ``window`` and ``pool``, so that code
+    serving both kinds of board (``engine/backend.py``) never tests which
+    it holds."""
 
     __slots__ = ("tensor",)
 
@@ -132,6 +194,12 @@ class WholeBoard:
     def rows(self, start: int, n: int) -> torch.Tensor:
         idx = torch.arange(start, start + n, device=self.tensor.device)
         return self.tensor[torch.remainder(idx, self.tensor.shape[0])]
+
+    def window(self, y0: int, x0: int, vh: int, vw: int) -> torch.Tensor:
+        return stencil.viewport(self.tensor, y0, x0, vh, vw)
+
+    def pool(self, fy: int, fx: int) -> torch.Tensor:
+        return stencil.frame_pool(self.tensor, fy, fx)
 
 
 def as_board(board):

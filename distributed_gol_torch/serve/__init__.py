@@ -1,9 +1,12 @@
 """Multi-tenant serving plane: admission control, per-session fault
-isolation, graceful pod drain, health surface, and the batched dispatch
-cohorts that amortise one launch across N resident tenants.  See
-``serve/plane.py`` for the architecture.  The wire tier of the JAX
-package (gateway, relay, broker, telemetry endpoints, the spectator frame
-fan-out) is not ported yet (ROADMAP A9)."""
+isolation, graceful pod drain, health surface, the batched dispatch
+cohorts that amortise one launch across N resident tenants, the
+spectator frame fan-out hub that serves N viewers' viewports off one
+device fetch per turn, the telemetry endpoints, and the network gateway
+that puts the whole contract on the wire (HTTP control plane + WebSocket
+controller/spectator streaming).  See ``serve/plane.py`` for the
+architecture.  The JAX package's broker, pod client and relay are not
+ported yet (ROADMAP A9b)."""
 
 from distributed_gol_torch.serve.admission import (
     AdmissionController,
@@ -11,14 +14,23 @@ from distributed_gol_torch.serve.admission import (
     ServeConfig,
 )
 from distributed_gol_torch.serve.batcher import CohortBatcher, cohort_key
+from distributed_gol_torch.serve.frames import FramePlane, FrameSubscriber
+from distributed_gol_torch.serve.gateway import GatewayServer, serve_plane_gateway
 from distributed_gol_torch.serve.plane import ServePlane, SessionHandle
+from distributed_gol_torch.serve.telemetry import TelemetryServer, serve_plane_telemetry
 
 __all__ = [
     "AdmissionController",
     "AdmissionRejected",
     "CohortBatcher",
+    "FramePlane",
+    "FrameSubscriber",
+    "GatewayServer",
     "ServeConfig",
     "ServePlane",
     "SessionHandle",
+    "TelemetryServer",
     "cohort_key",
+    "serve_plane_gateway",
+    "serve_plane_telemetry",
 ]

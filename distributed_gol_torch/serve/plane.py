@@ -38,9 +38,10 @@ blocking controller runs execute on a bounded executor
 synchronous (``submit``/``drain``/``health``).  A session with
 ``Params.restart_limit > 0`` runs under the supervisor
 (``engine/supervisor.py``), which rebuilds its backend through the
-plane's ``backend_factory``.  The network gateway and the spectator
-``frame_plane`` fan-out are not ported yet (ROADMAP A9): ``frame_plane``
-must stay None.
+plane's ``backend_factory``.  The network gateway
+(``serve/gateway.py``) and the spectator ``frame_plane`` fan-out
+(``serve/frames.py``) drive resident sessions through ``submit``'s
+``keys`` and ``frame_plane``.
 """
 
 from __future__ import annotations
@@ -402,9 +403,8 @@ class ServePlane:
         routed into the session's controller — 'p'/'q'/'k' semantics
         exactly as the CLI viewer's listener; ``frame_plane`` attaches
         a spectator fan-out hub the run publishes every rendered turn
-        to (not ported yet, ROADMAP A9: the run raises unless it is
-        None).  Both are how the network gateway drives a resident
-        session.
+        to (frame-mode sessions only — see ``serve/frames.py``).  Both
+        are how the network gateway drives a resident session.
 
         ``trace`` is the request's ``obs.tracing.Trace`` —
         the gateway creates it from the inbound ``traceparent`` so the

@@ -508,12 +508,10 @@ def test_serve_cli_subprocess_end_to_end(tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["serve", "--device", "cpu", "--tenant", "a:16x16x8", "--gateway-port", "0"], "A9"),
-    (["serve", "--device", "cpu", "--tenant", "a:16x16x8", "--telemetry-port", "0"], "A9"),
-    (["broker", "--pod", "http://127.0.0.1:1"], "A9"),
-    (["relay"], "A9"),
-    (["collector"], "A9"),
-], ids=["gateway-port", "telemetry-port", "broker", "relay", "collector"])
+    (["broker", "--pod", "http://127.0.0.1:1"], "A9b"),
+    (["relay"], "A9b"),
+    (["collector"], "A9b"),
+], ids=["broker", "relay", "collector"])
 def test_unported_serving_requests_are_refused(argv, item, capsys):
     from distributed_gol_torch.__main__ import main
 
@@ -564,10 +562,23 @@ def test_run_takes_a_backend_factory_and_refuses_a_frame_plane(tmp_path):
     tgol.run(p, events, backend=Backend(p), backend_factory=factory)
     drain_queue(events)
     assert calls == [0]  # an explicit backend wins
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        tgol.run(p, queue.Queue(), frame_plane=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        tgol.run(p, queue.Queue(), telemetry_port=0)
+    # A frame plane and a telemetry port, refused before the wire tier
+    # was ported, are taken: the plane is bound to the board, and the
+    # run's endpoints are published while it runs.
+    from distributed_gol_torch.obs import metrics as obs_metrics
+    from distributed_gol_torch.serve import FramePlane
+
+    plane = FramePlane()
+    events = queue.Queue()
+    tgol.run(p, events, frame_plane=plane)
+    assert drain_queue(events)[-1].completed_turns == 40
+    assert plane._board_shape == (p.image_height, p.image_width)
+    before = obs_metrics.REGISTRY.snapshot().to_dict()["info"].get("telemetry.endpoint")
+    events = queue.Queue()
+    tgol.run(p, events, telemetry_port=0)
+    assert drain_queue(events)[-1].completed_turns == 40
+    after = obs_metrics.REGISTRY.snapshot().to_dict()["info"].get("telemetry.endpoint")
+    assert after and after != before
 
 
 def test_graceful_stop_latch_is_shared_by_cli_and_plane():

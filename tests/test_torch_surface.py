@@ -26,12 +26,11 @@ torch.set_num_threads(1)
 # Names of the JAX package the port does not serve yet, by module, each
 # with its ROADMAP item (the refusals name the same items).
 NOT_YET = {
-    "__main__": {"broker_main": "A9", "collector_main": "A9", "relay_main": "A9",
+    "__main__": {"broker_main": "A9b", "collector_main": "A9b", "relay_main": "A9b",
                  "run_multihost": "A8"},
-    "serve": {n: "A9" for n in (
-        "Broker", "BrokerConfig", "FramePlane", "FrameSubscriber", "GatewayServer", "PodClient",
-        "PodHTTPError", "PodUnreachable", "RelayServer", "TelemetryServer",
-        "serve_plane_gateway", "serve_plane_telemetry")},
+    "serve": {n: "A9b" for n in (
+        "Broker", "BrokerConfig", "PodClient", "PodHTTPError", "PodUnreachable",
+        "RelayServer")},
     # Dropped on purpose: a jax NamedSharding has no counterpart.
     "parallel.packed_halo": {"packed_sharding": "none"},
 }

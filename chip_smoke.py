@@ -94,7 +94,20 @@ and watched by two wire spectators each (``Spectator``: the port's own
 which imports the JAX package) whose rects wrap the torus; each
 spectator's last frame must equal ``Backend.fetch_viewport`` of the final
 board, each tenant's PGM its solo rerun, and ``/metrics`` must
-round-trip through OpenMetrics.  Every run
+round-trip through OpenMetrics.  And a federation on the one card, (r):
+pod A ``python3 -m distributed_gol_torch serve --device cuda`` in a child
+process and pod B ``serve_main`` on a thread, on one checkpoint root,
+behind the port's ``Broker`` with its collector; alice (the 16384² soup x
+2,000, a checkpoint every 400 turns, K2) is placed on A, which
+``PodChaos`` SIGKILLs once she passes turn 600, and the broker readopts
+her on B from her newest checkpoint; carol (512² x 8,000 at a frame
+stride of 16, K1) runs on B, watched directly and at depth 2 through two
+``RelayServer``s, the first behind a ``ChaosProxy`` that drops its first
+connection.  Both PGMs must equal their solo reruns, every spectator's
+last frame ``fetch_viewport`` of carol's final board, ``broker.failovers``
+rise by one, and the collector's ``/fleet/metrics``, ``/fleet/flight`` and
+``/fleet/traces/<id>`` must round-trip, read condemn before failover, and
+join the broker's and pod B's spans.  Every run
 row is published as ``{reps, median, spread}`` (``utils/measure.py``; a
 run under 5 s is repeated to 3 runs) and the record is linted with
 ``measure.require_headline_stats`` before it prints.  It
@@ -187,13 +200,17 @@ from distributed_gol_torch.engine import frames, pgm, timecomp
 from distributed_gol_torch.engine.backend import Backend
 from distributed_gol_torch.engine.session import Session
 from distributed_gol_torch.obs import metrics, openmetrics, timeseries
-from distributed_gol_torch.serve import ServeConfig, ServePlane, wire
+from distributed_gol_torch.obs.fleet import node_name
+from distributed_gol_torch.serve import Broker, BrokerConfig, RelayServer, ServeConfig, ServePlane
+from distributed_gol_torch.serve import wire
 from distributed_gol_torch.serve import ws as ws_lib
 from distributed_gol_torch.models.life import CONWAY, DAY_AND_NIGHT, HIGHLIFE, LifeRule
 from distributed_gol_torch.ops import (
     cuda_adaptive, cuda_build, cuda_packed, cuda_stencil, packed, stencil)
 from distributed_gol_torch.parallel import cuda_halo, halo, mesh as mesh_lib
-from distributed_gol_torch.testing.faults import Fault, FaultInjectionBackend, FaultPlan
+from distributed_gol_torch.testing.faults import (
+    Fault, FaultInjectionBackend, FaultPlan, PodChaos)
+from distributed_gol_torch.testing.netchaos import ChaosProxy, WireFault, WirePlan
 from distributed_gol_torch.utils import measure
 from distributed_gol_torch.utils.soup import random_soup
 
@@ -389,6 +406,11 @@ TILE_PLAN_LESS = (520, 1024, 3_000)
 # K15's checks: the 16384² soup split (2, 2), (2, 4) and (1, 2) (north and
 # south the tile itself, west and east one tile).
 TILE_MEGA_MESHES = (MESH_H, MESH_J, (1, 2))
+# K14's and K15's 64-launch chunks against their plain versions (about 4 s
+# each), by (first mesh, board): the boards whose skip state and gliders
+# carry across launches.  Every board's 64-launch K14 chunk is also held to
+# K5 on the whole board, and every board to 8-launch chunks of three rules.
+LONG_RUNS = {(True, "settled"): [(CONWAY, 64)], (True, "seam"): [(CONWAY, 64)]}
 # Every run row is published as {reps, median, spread} (utils/measure.py):
 # a run shorter than REP_SECONDS is repeated to REPS runs.
 REPS, REP_SECONDS = 3, 5.0
@@ -429,6 +451,23 @@ P_FLIP_MESH, P_FLIP_TURNS = (4, 1), 1
 Q_TENANTS = (("big", BIG, 300, 1, ((16100, 16200, 512, 512), (16300, 16000, 512, 768))),
              ("small", 512, 8_000, 16, ((400, 450, 256, 128), (480, 300, 64, 300))))
 Q_KERNELS = ("stencil", "resident")
+# Path (r), a federation on the one card: pod A a child process (``serve
+# --device cuda``), pod B ``serve_main`` on a thread of this process, on one
+# checkpoint root behind the port's broker and its collector.  Alice (side,
+# turns, checkpoint every, superstep: every checkpoint turn a superstep
+# boundary) runs K2 on A, which is SIGKILLed once she passes R_KILL_TURN;
+# the broker readopts her on B from her newest checkpoint.  Carol (side,
+# turns, frame stride, the spectators' rect, which wraps the torus) runs
+# K1 on B, watched directly and at depth 2 through a relay chain whose
+# first hop drops its first connection after R_DISCONNECT_BYTES (inside
+# the WebSocket handshake's answer).  A's cell budget is the larger, so
+# headroom places alice on A; with alice on A, B has the headroom for
+# carol, and B holds both after the failover.
+R_ALICE = (BIG, 2_000, 400, 200)
+R_CAROL = (512, 8_000, 16, (400, 450, 256, 128))
+R_KILL_TURN, R_DISCONNECT_BYTES = 600, 120
+R_TOTAL_A, R_TOTAL_B = BIG * BIG + 8 * 512 * 512, BIG * BIG + 4 * 512 * 512
+R_KERNELS = ("tiled", "resident")
 
 
 def virtual(mesh_shape: tuple, device) -> list:
@@ -781,8 +820,9 @@ def check_resident(device, errs: dict) -> None:
 
 def check_tiled(device, errs: dict) -> None:
     """K2 against its plain version, tolerance 0, under ``REG_RULES`` (each
-    launch counted in its rule's instantiation): 16384² at 1, 6, 32, 37 and
-    1,000 generations, ``TILED_ODD`` and ``TILED_SMALL`` at 45 and 75; and
+    launch counted in its rule's instantiation): 16384² at 1, 6, 32 and 37
+    generations and, under Conway, 1,000, ``TILED_ODD`` and ``TILED_SMALL``
+    at 45 and 75; and
     against its block mirror on the card's blocks (``tiled_reg_mirror``)
     at ``TILED_ODD`` and ``TILED_SMALL`` under Conway (the blocks do not
     depend on the rule)."""
@@ -791,9 +831,13 @@ def check_tiled(device, errs: dict) -> None:
     t = cuda_packed.tiled_reg_plan((BIG, BIG // 32), 10**6, sms).t
     cases = [((BIG, BIG), n) for n in (1, 6, t, t + 5, 1000)] + [(TILED_ODD, 75)] + [
         (shape, 45) for shape in TILED_SMALL]
+    # One soup a shape: a 16384² soup takes the host about 2 s to draw.
+    soups = {shape: packed.pack(board(*shape, 13, device)) for shape, _ in cases}
     for rule in REG_RULES:
-        for shape, turns in cases:
-            p = packed.pack(board(*shape, 13, device))
+        # The plain version's 1,000 generations take about 2 s: Conway only.
+        ran = [(shape, n) for shape, n in cases if n != 1000 or rule == CONWAY]
+        for shape, turns in ran:
+            p = soups[shape].clone()
             got = cuda_packed.tiled_superstep(p, rule, turns)
             want = cuda_packed.tiled_superstep_plain(p, rule, turns)
             torch.cuda.synchronize()
@@ -805,7 +849,7 @@ def check_tiled(device, errs: dict) -> None:
             if err:
                 raise AssertionError(f"K2 != plain (or its mirror) at {shape} x {turns} under "
                                      f"{rule.notation}")
-        log(f"K2 {[f'{s[0]}x{s[1]} x {n}' for s, n in cases]} {rule.notation}: identical to "
+        log(f"K2 {[f'{s[0]}x{s[1]} x {n}' for s, n in ran]} {rule.notation}: identical to "
             f"plain" + (f", and to the block mirror below {BIG}^2" if rule == CONWAY else ""))
     if set(cuda_packed.tiled_superstep.rules) != set(cuda_adaptive.REG_RULES):
         raise AssertionError(f"K2 ran {dict(cuda_packed.tiled_superstep.rules)}, not every "
@@ -1488,8 +1532,9 @@ def check_strip_mega(device, errs: dict, boards: dict) -> dict:
     settled with a glider across every strip seam and the torus wrap
     (``seam_gliders``), through ``check_mega_chunks``: chunks of 8
     launches under both rules and Day & Night (K14's generic
-    instantiation, which must have run) and of 64 under Conway and
-    HighLife, then launch by launch; on (2, 1) and (1, 1) only the fresh
+    instantiation, which must have run) and, on the settled and seam
+    strips, of 64 under Conway (``LONG_RUNS``), then launch by launch; on
+    (2, 1) and (1, 1) only the fresh
     and seam strips, in chunks of 8 under Conway and Day & Night; and
     the 8-launch chunk
     against K14's block mirror run on the card (``strip_mirror_chunk``).
@@ -1510,12 +1555,13 @@ def check_strip_mega(device, errs: dict, boards: dict) -> dict:
         runs = [(CONWAY, 8), (DAY_AND_NIGHT, 8)]
         names = ("fresh", "seam")
         if mesh_shape == MESH_E:
-            runs = [(CONWAY, 8), (HIGHLIFE, 8), (DAY_AND_NIGHT, 8), (CONWAY, 64), (HIGHLIFE, 64)]
+            runs = [(CONWAY, 8), (HIGHLIFE, 8), (DAY_AND_NIGHT, 8)]
             names = tuple(whole)
         for name in names:
             p = whole[name]
             strips = list(p.chunk(ny))
-            check_mega_chunks("strip_mega", cuda_halo.strip_mega_launches, strips, plan, runs,
+            check_mega_chunks("strip_mega", cuda_halo.strip_mega_launches, strips, plan,
+                              runs + LONG_RUNS.get((mesh_shape == MESH_E, name), []),
                               errs, f"the {mesh_shape} {name} strips")
             got = cuda_halo.strip_mega_launches(strips, CONWAY, plan, 8)
             err = mega_chunks_equal(got, strip_mirror_chunk(strips, plan, 8), 8)
@@ -1727,7 +1773,8 @@ def check_tile_mega(errs: dict, boards: dict) -> dict:
     (1, 2), whose N and S neighbours are the tile itself and whose W and E
     neighbours are one tile), through ``check_mega_chunks``: on (2, 2)
     chunks of 8 launches under both rules and Day & Night (K15's generic
-    instantiation, which must have run) and of 64 under both, on (2, 4)
+    instantiation, which must have run) and, on the settled and seam
+    tiles, of 64 under Conway (``LONG_RUNS``), on (2, 4)
     and (1, 2) the fresh and seam tiles in chunks of 8 under Conway and
     Day & Night; then launch by launch.  On (2, 2) the 8-launch chunk must also equal
     K15's mirror run on the card (its blocks and its elision of edge
@@ -1743,12 +1790,13 @@ def check_tile_mega(errs: dict, boards: dict) -> dict:
         runs = [(CONWAY, 8), (DAY_AND_NIGHT, 8)]
         names = ("fresh", "seam")
         if mesh_shape == MESH_H:
-            runs = [(CONWAY, 8), (HIGHLIFE, 8), (DAY_AND_NIGHT, 8), (CONWAY, 64), (HIGHLIFE, 64)]
+            runs = [(CONWAY, 8), (HIGHLIFE, 8), (DAY_AND_NIGHT, 8)]
             names = tuple(boards)
         for name in names:
             p = boards[name]
             tiles = [[t.contiguous() for t in r.chunk(nx, dim=1)] for r in p.chunk(ny)]
-            check_mega_chunks("tile_mega", cuda_halo.tile_mega_launches, tiles, plan, runs,
+            check_mega_chunks("tile_mega", cuda_halo.tile_mega_launches, tiles, plan,
+                              runs + LONG_RUNS.get((mesh_shape == MESH_H, name), []),
                               errs, f"the {mesh_shape} {name} tiles")
             if mesh_shape != MESH_H:
                 continue
@@ -3073,6 +3121,311 @@ def wire_pod_path(tmp: Path, launches: dict, device) -> dict:
                                healthz_ready=health["ready"])}
 
 
+def wait_until(what: str, fn, timeout: float = 120.0, interval: float = 0.05):
+    """``fn()``'s first truthy answer, polled until ``timeout`` seconds."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        got = fn()
+        if got:
+            return got
+        time.sleep(interval)
+    raise AssertionError(f"timed out after {timeout} s waiting for {what}")
+
+
+def start_pod_a(root: Path, device) -> tuple:
+    """Pod A of path (r): ``python3 -m distributed_gol_torch serve`` in a
+    child process on the script's device (``--device cuda``: with no GPU
+    it exits, it never runs on the CPU).  Returns (process, gateway URL,
+    the thread that reads its stderr) once its banner names the gateway."""
+    repo = Path(__file__).resolve().parent
+    cmd = [sys.executable, "-m", "distributed_gol_torch", "serve", "--device", device.type,
+           "--gateway-port", "0", "--telemetry-port", "0", "--checkpoint-root", str(root),
+           "--max-sessions", "4", "--max-cells", str(BIG * BIG),
+           "--max-total-cells", str(R_TOTAL_A), "--telemetry-sample-seconds", "0.25"]
+    proc = subprocess.Popen(cmd, cwd=repo, env=dict(os.environ, PYTHONPATH=str(repo)),
+                            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    lines: list = []
+    pump = threading.Thread(target=lambda: lines.extend(proc.stderr), name="pod-a-stderr",
+                            daemon=True)
+    pump.start()
+
+    def banner():
+        if proc.poll() is not None:
+            raise AssertionError(f"(r) pod A exited {proc.returncode}: {''.join(lines)[-2000:]}")
+        return next((ln.split("gateway: ", 1)[1].split("/v1/sessions", 1)[0]
+                     for ln in list(lines) if ln.startswith("gateway: ")), None)
+
+    try:
+        url = wait_until("pod A's gateway banner", banner)
+    except BaseException:
+        proc.kill()
+        proc.wait(timeout=30)
+        pump.join(timeout=30)
+        raise
+    return proc, url, pump
+
+
+def federation_path(tmp: Path, launches: dict, device, card: str) -> dict:
+    """Path (r), a federation on the one card: pods A (a child process)
+    and B (``serve_main`` on a thread here, so its launches count) on one
+    checkpoint root, behind the port's ``Broker`` with its collector.
+    Alice (the 16384² soup x 2,000, headless, a checkpoint every 400
+    turns) is placed on A by headroom and runs K2 there; ``PodChaos``
+    SIGKILLs A once she passes turn 600, and the broker condemns A and
+    readopts her on B from her newest checkpoint, where K2 runs her to the
+    end.  Carol (512² x 8,000, frames at a stride of 16) runs K1 on B,
+    watched by one spectator on B and two behind a relay chain (R1 through
+    a ``ChaosProxy`` that drops its first connection, R2 on R1).  Both
+    final PGMs must equal their solo reruns, every spectator's last frame
+    ``fetch_viewport`` of carol's final board, ``broker.failovers`` rise by
+    exactly 1, and the collector's ``/fleet/metrics`` must round-trip, its
+    ``/fleet/flight`` show A condemned before alice's failover, and its
+    ``/fleet/traces/<id>`` join the broker's and pod B's spans of that
+    failover on one id."""
+    from distributed_gol_torch.__main__ import serve_main
+
+    root = tmp / "federation"
+    a_side, a_turns, a_ckpt, a_step = R_ALICE
+    c_side, c_turns, c_stride, rect = R_CAROL
+    before = metrics.REGISTRY.snapshot().to_dict()
+    failovers0 = before["counters"].get("broker.failovers", 0)
+    t0 = time.perf_counter()
+    proc, a_url, a_pump = start_pod_a(root, device)
+    out, rc, stack = io.StringIO(), [], []
+
+    def pod_b():
+        with contextlib.redirect_stdout(out):
+            rc.append(serve_main([
+                "--device", device.type, "--gateway-port", "0", "--telemetry-port", "0",
+                "--checkpoint-root", str(root), "--max-sessions", "4",
+                "--max-cells", str(BIG * BIG), "--max-total-cells", str(R_TOTAL_B),
+                "--telemetry-sample-seconds", "0.25"]))
+
+    reset_launches()
+    b_thread = threading.Thread(target=pod_b, name="pod-b", daemon=True)
+    try:
+        b_thread.start()
+        # B shares this process's registry with the broker and every
+        # earlier path: its endpoint is the gateway label that changed.
+        b_url = wait_until("pod B's gateway", lambda: (
+            (u := metrics.REGISTRY.snapshot().to_dict()["info"].get("gateway.endpoint"))
+            and u != before["info"].get("gateway.endpoint") and u))
+        broker = Broker([a_url, b_url], BrokerConfig(
+            probe_interval_seconds=0.1, probe_miss_threshold=2, checkpoint_root=str(root),
+            collector=True, collector_interval_seconds=0.25))
+        stack.append(broker)
+        wait_until("both pods probed ready", lambda: all(
+            p["ready"] and p["status"] == "ready" for p in broker.pod_states()))
+        log(f"(r) pods up in {time.perf_counter() - t0:.3f} s: A {a_url} (pid {proc.pid}), "
+            f"B {b_url}, broker {broker.url}")
+
+        def submit(spec):
+            status, doc = http_json(broker.url + "/v1/sessions", "POST", spec)
+            if status != 201:
+                raise AssertionError(f"(r) POST /v1/sessions {spec['tenant']}: {status} {doc}")
+            return doc
+
+        def state(tenant):
+            try:
+                status, doc = http_json(f"{broker.url}/v1/sessions/{tenant}/state", timeout=10)
+            except OSError:
+                return {}
+            return doc if status == 200 and isinstance(doc, dict) else {}
+
+        t_alice = time.perf_counter()
+        alice = submit({"tenant": "alice", "params": {
+            "width": a_side, "height": a_side, "turns": a_turns, "engine": "auto",
+            "superstep": a_step, "checkpoint_every_turns": a_ckpt, "ticker_period": 3600},
+            "soup": {"density": 0.3, "seed": 7}})
+        if alice["pod"] != a_url:
+            raise AssertionError(f"(r) headroom placed alice on {alice['pod']}, not A")
+        kill: dict = {}
+
+        def alice_turn():
+            turn = state("alice").get("turn")
+            if turn is not None and turn >= R_KILL_TURN and "t" not in kill:
+                # A's own dispatches and checkpoint times, read off its
+                # /metrics just before the kill.
+                kill["a_metrics"] = openmetrics.parse(http_json(a_url + "/metrics")[1])
+                kill["t"] = time.time()
+            return turn
+
+        chaos = PodChaos([proc], FaultPlan([Fault(R_KILL_TURN, "pod_down", device=0)]),
+                         turn_fn=alice_turn)
+        watcher = chaos.watch(interval=0.05)
+        try:
+            wait_until("the probe to see alice on A", lambda: any(
+                p["endpoint"] == a_url and (p["resident_cells"] > 0 or p["condemned"])
+                for p in broker.pod_states()))
+            carol = submit({"tenant": "carol", "params": {
+                "width": c_side, "height": c_side, "turns": c_turns, "ticker_period": 3600},
+                "soup": {"density": 0.3, "seed": 7}, "spectate": True,
+                "viewport": list(rect), "frame_stride": c_stride})
+            if carol["pod"] != b_url:
+                raise AssertionError(f"(r) carol was placed on {carol['pod']}, not B")
+            # Paused at once, so that the relay chain and the spectators
+            # are in place before her frames flow.
+            status, doc = http_json(f"{broker.url}/v1/sessions/carol/pause", "POST")
+            if status != 200:
+                raise AssertionError(f"(r) pausing carol: {status} {doc}")
+            wait_until("carol paused", lambda: state("carol").get("paused"))
+            proxy = ChaosProxy(b_url, WirePlan([WireFault(0, "disconnect",
+                                                          after_bytes=R_DISCONNECT_BYTES)]),
+                               hang_seconds=1.0)
+            stack.append(proxy)
+            leg = f"/v1/sessions/carol/frames?rect={','.join(map(str, rect))}&queue=1024"
+            relay_kw = dict(cache_deltas=1024, queue_depth=1024, backoff_initial=0.05,
+                            backoff_max=0.2)
+            r1 = RelayServer(proxy.url + leg, **relay_kw)
+            stack.append(r1)
+            wait_until("R1 resubscribed past the dropped connection", lambda: (
+                proxy.connections >= 2 and proxy.fired and r1.health()["connected"]))
+            r2 = RelayServer(r1.url + "/v1/frames?queue=1024", **relay_kw)
+            stack.append(r2)
+            wait_until("R2 subscribed to R1", lambda: r2.health()["connected"])
+            spectators = {"direct": [Spectator(b_url, "carol", rect)],
+                          "depth_2": [Spectator(r2.url, "carol", rect) for _ in range(2)]}
+            for sp in (sp for group in spectators.values() for sp in group):
+                sp.start()
+            http_json(f"{broker.url}/v1/sessions/carol/resume", "POST")
+            wait_until("A's SIGKILL", lambda: chaos.done, timeout=300)
+            ends = {t: wait_until(f"{t} ended", lambda t=t: (
+                (st := state(t)).get("status") in ("completed", "failed") and st), timeout=600)
+                for t in ("alice", "carol")}
+            alice_s = time.perf_counter() - t_alice
+        finally:
+            chaos.stop()
+            watcher.join(timeout=30)
+        counts = launch_counts()
+        for t, st in ends.items():
+            if st["status"] != "completed" or st["pod"] != b_url:
+                raise AssertionError(f"(r) {t} ended {st['status']} on {st.get('pod')}")
+        for group in spectators.values():
+            for sp in group:
+                sp.join(timeout=300)
+                if sp.is_alive() or sp.error is not None or not sp.ended:
+                    raise AssertionError(f"(r) a carol spectator: {sp.error!r}")
+        proc.wait(timeout=60)
+        (fault, fired_turn), = chaos.fired
+        records = broker.flight.records()
+        condemned = next(r for r in records if r["kind"] == "pod_condemned")
+        failover = next(r for r in records if r["kind"] == "failover")
+        if (condemned["pod"] != a_url or "alice" not in condemned["stranded"]
+                or failover["tenant"] != "alice" or failover["from_pod"] != a_url
+                or failover["to_pod"] != b_url):
+            raise AssertionError(f"(r) flight: {condemned}, {failover}")
+        ckpt_turn = failover["checkpoint_turn"]
+        if ckpt_turn < a_ckpt or ckpt_turn % a_ckpt or ckpt_turn > fired_turn:
+            raise AssertionError(f"(r) alice was readopted at turn {ckpt_turn}, fired at "
+                                 f"{fired_turn}: not a checkpoint turn of hers")
+        failovers = metrics.REGISTRY.snapshot().to_dict()["counters"].get("broker.failovers", 0)
+        if failovers != failovers0 + 1:
+            raise AssertionError(f"(r) broker.failovers rose by {failovers - failovers0}")
+        for k in R_KERNELS:
+            if counts[k] == 0:
+                raise AssertionError(f"(r) the {k} kernel never launched on B")
+            launches[k] += counts[k]
+
+        # The collector, in the broker: the merged page, the merged
+        # postmortem and the stitched failover trace.
+        status, text = http_json(broker.url + "/fleet/metrics")
+        parsed = openmetrics.parse(text) if status == 200 else None
+        problems = ["/fleet/metrics answered " + str(status)] if parsed is None else (
+            openmetrics.check_roundtrip(parsed))
+        if problems:
+            raise AssertionError(f"(r) /fleet/metrics: {problems[:5]}")
+        status, merged = http_json(broker.url + "/fleet/flight")
+        kinds = [(r["kind"], r.get("pod") or r.get("tenant")) for r in merged["records"]
+                 if r["node"] == "broker"]
+        if not kinds.index(("pod_condemned", a_url)) < kinds.index(("failover", "alice")):
+            raise AssertionError(f"(r) /fleet/flight does not read condemn, then failover: {kinds}")
+        status, stitched = http_json(f"{broker.url}/fleet/traces/{failover['trace_id']}")
+        names = {sp["name"] for sp in stitched.get("spans", ())} if status == 200 else set()
+        if (status != 200 or not {"broker", node_name(b_url)} <= set(stitched["nodes"])
+                or not {"gol.broker.place", "gol.admission"} <= names):
+            raise AssertionError(f"(r) /fleet/traces/{failover['trace_id']}: {status}, "
+                                 f"nodes {stitched.get('nodes')}, spans {sorted(names)}")
+        r2_hist = r2.registry.snapshot().to_dict()["histograms"].get(
+            "relay.frame_staleness_seconds", {})
+        if not r2_hist.get("count"):
+            raise AssertionError("(r) R2 observed no frame staleness")
+        http_json(b_url + "/v1/drain", "POST")
+        b_thread.join(timeout=120)
+        seconds = time.perf_counter() - t0
+        if b_thread.is_alive() or rc != [0]:
+            raise AssertionError(f"(r) pod B did not exit 0 after the drain: {rc}")
+    finally:
+        while stack:
+            stack.pop().close()
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait(timeout=60)
+        a_pump.join(timeout=60)
+
+    # The answers: both tenants' PGMs against their solo reruns, every
+    # spectator's last frame against fetch_viewport of carol's final board.
+    finals = {}
+    for t, side, turns in (("alice", a_side, a_turns), ("carol", c_side, c_turns)):
+        p = gol.Params(turns=turns, image_width=side, image_height=side, soup_density=0.3,
+                       soup_seed=7, ticker_period=3600, device=device.type,
+                       out_dir=tmp / "r_rerun" / t)
+        finals[t] = (p, (root / t / f"{p.final_output_name}.pgm").read_bytes())
+        if finals[t][1] != solo_rerun(p, p.out_dir):
+            raise AssertionError(f"(r) {t}'s final PGM differs from its solo rerun")
+    p, got = finals["carol"]
+    fetch = Backend(p)
+    want = fetch.fetch_viewport(fetch.put(pgm.decode_pgm(got)), rect)
+    for where, group in spectators.items():
+        for sp in group:
+            if sp.turn != c_turns or not np.array_equal(sp.buf, want):
+                raise AssertionError(f"(r) a {where} spectator's last frame (turn {sp.turn}) "
+                                     f"differs from fetch_viewport of carol's final board")
+    fps = {where: [(len(sp.arrivals) - 1) / (sp.arrivals[-1] - sp.arrivals[0]) for sp in group]
+           for where, group in spectators.items()}
+    a_metrics = kill["a_metrics"]
+    a_dispatches = {k: v for k, v in a_metrics["counters"].items()
+                    if k.startswith("gol_backend_dispatches")}
+    if not any(v > 0 for v in a_dispatches.values()):
+        raise AssertionError(f"(r) pod A's /metrics shows no dispatch before the kill")
+    # Checkpoint writes, apart from the run: A's whole process (alice's
+    # alone), and B's during this path (alice's alone: carol takes none).
+    b_hist = {k: (v, before["histograms"].get(k, {})) for k, v in
+              metrics.REGISTRY.snapshot().to_dict()["histograms"].items()
+              if "checkpoint_save_seconds" in k}
+    ckpt_seconds = {
+        "pod_a": {k: {"count": v["count"], "sum": v["sum"]}
+                  for k, v in a_metrics["histograms"].items() if "checkpoint_save_seconds" in k},
+        "pod_b": {k: {"count": v["count"] - b.get("count", 0), "sum": v["sum"] - b.get("sum", 0.0)}
+                  for k, (v, b) in b_hist.items()}}
+    condemn_s, failover_s = condemned["t"] - kill["t"], failover["t"] - kill["t"]
+    rollback = fired_turn - ckpt_turn
+    staleness = {k: r2_hist.get(k) for k in ("count", "sum", "buckets", "counts")}
+    row = dict(
+        seconds=seconds, card=card, launches=counts, kill_turn=fired_turn,
+        checkpoint_turn=ckpt_turn, proxy_fired=[(f.at, f.kind) for f in proxy.fired],
+        relay_resubscribes=r1.health()["resubscribes"], pod_a_dispatches=a_dispatches,
+        checkpoint_save_seconds=ckpt_seconds, r2_frame_staleness_seconds=staleness,
+        frames={w: [len(sp.arrivals) for sp in g] for w, g in spectators.items()},
+        fleet_counters=len(parsed["counters"]), stitched_nodes=sorted(stitched["nodes"]),
+        stats=dict(
+            kill_to_condemned=stats_row("kill to condemnation", [condemn_s], "s"),
+            kill_to_failover=stats_row("kill to failover placement", [failover_s], "s"),
+            rollback_turns=dict(reps=1, median=rollback, spread=0.0),
+            alice=stats_row("alice run gens/s across the failover", [a_turns / alice_s]),
+            direct=stats_row("frames/s, direct spectator", fps["direct"], "frames/s"),
+            depth_2=stats_row("frames/s, depth-2 spectators", fps["depth_2"], "frames/s")))
+    mean_stale = staleness["sum"] / staleness["count"]
+    print(f"federation (r) on {card}: {seconds:.3f} s; A SIGKILLed at alice's turn "
+          f"{fired_turn}, condemned {condemn_s:.3f} s and alice placed on B {failover_s:.3f} s "
+          f"after the kill, from her checkpoint at turn {ckpt_turn} (rollback {rollback} "
+          f"turns); alice {a_turns / alice_s:.1f} gens/s across the failover; carol frames/s "
+          f"direct {fps['direct'][0]:.1f}, depth 2 {[round(f, 1) for f in fps['depth_2']]}; "
+          f"R2 frame staleness mean {mean_stale * 1e3:.3f} ms over {staleness['count']} "
+          f"frames; "
+          f"launches on B {counts}", flush=True)
+    return {"federation_r": row}
+
+
 def serving_paths(tmp: Path, launches: dict) -> dict:
     """Phase 3's serving paths: the K7 pod batched and unbatched, the K8
     pod, and the ``serve`` CLI."""
@@ -3937,6 +4290,7 @@ def main() -> int:
         e2e.update(step("mesh_viewer_paths_p", mesh_viewer_paths, tmp, straight, launches,
                         device))
         e2e.update(step("wire_pod_path_q", wire_pod_path, tmp, launches, device))
+        e2e.update(step("federation_path_r", federation_path, tmp, launches, device, card))
         a = next(v for k, v in e2e.items() if k.startswith("sharded_a_"))
         log(f"sharded (a) on {MESH_A}: {a['gens_per_s']:.1f} gens/s, K9 launches "
             f"{a['launches']['ext']}; single-device {BIG}^2 x 2000: "

@@ -29,8 +29,15 @@ tenants, with ``--device`` as above; ``--gateway-port PORT`` puts the pod
 on the wire (``serve/gateway.py``: HTTP control plane, WebSocket event and
 spectator legs; the pod then serves until drained) and
 ``--telemetry-port PORT`` serves its ``/metrics``, ``/healthz`` and
-``/slo``.  The ``broker``, ``relay`` and ``collector`` subcommands are not
-ported yet (ROADMAP A9b).
+``/slo``.
+
+``broker --pod URL ...`` fronts gateway pods with the health-probed
+federation tier (placement, condemnation, failover from the shared
+``--checkpoint-root``, migration; ``--collector`` rides the fleet
+collector in it), ``relay --upstream URL`` re-fans one spectator stream to
+many viewers, and ``collector --node URL ...`` serves the fleet's
+aggregated metrics, stitched traces and merged flight records.  None of
+the three touches a device.
 """
 
 from __future__ import annotations
@@ -658,24 +665,300 @@ def serve_main(argv) -> int:
     return 1 if bad else 0
 
 
-#: Subcommands of the JAX package's CLI the port does not serve yet
-#: (ROADMAP A9b).
-_UNPORTED_SUBCOMMANDS = {
-    "broker": "the federation broker",
-    "relay": "the spectator relay",
-    "collector": "the fleet collector",
-}
+def broker_main(argv) -> int:
+    """The ``broker`` subcommand: front N gateway pods with
+    the health-probed federation tier — tenant placement by live
+    capacity, pod condemnation on probe misses, checkpoint-driven
+    failover and live migration (docs/API.md "Federation").  The broker
+    process never touches a device: importable and runnable on a
+    machine with no accelerator at all."""
+    from distributed_gol_torch.serve.broker import Broker, BrokerConfig
+
+    ap = argparse.ArgumentParser(
+        prog="distributed_gol_torch broker",
+        description="pod-federation broker: health-probed placement, "
+        "failover, live migration over N serving pods",
+    )
+    ap.add_argument("--pod", action="append", default=[], metavar="URL",
+                    help="one pod gateway endpoint (repeatable), e.g. "
+                    "http://127.0.0.1:9191 — the URL a pod's serve "
+                    "--gateway-port printed")
+    ap.add_argument("--port", type=int, default=0,
+                    help="broker bind port (0 = ephemeral; the bound "
+                    "URL is printed to stderr and published as the "
+                    "broker.endpoint info label)")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--checkpoint-root", default=None, metavar="DIR",
+                    help="the SHARED checkpoint root every pod mounts — "
+                    "what failover scans for adoptable durable state")
+    ap.add_argument("--probe-interval", type=float, default=0.5,
+                    help="health-probe cadence per pod (seconds)")
+    ap.add_argument("--probe-timeout", type=float, default=2.0,
+                    help="per-probe answer budget (seconds)")
+    ap.add_argument("--probe-miss-threshold", type=int, default=3,
+                    help="consecutive misses that condemn a pod")
+    ap.add_argument("--rejoin-threshold", type=int, default=2,
+                    help="consecutive healthy probes that readmit a "
+                    "condemned pod to the placement ring")
+    ap.add_argument("--no-failover", action="store_true",
+                    help="condemn-and-route-around only: leave a dead "
+                    "pod's tenants for an operator (POST /v1/recover)")
+    ap.add_argument("--recover", action="store_true",
+                    help="at startup, sweep the shared root for orphaned "
+                    "resumable checkpoints no live pod claims and "
+                    "readopt them onto the fleet")
+    ap.add_argument("--collector", action="store_true",
+                    help="ride the fleet observability collector "
+                    "in this broker: scrape every pod's "
+                    "/metrics + /healthz and serve /fleet/* (aggregated "
+                    "metrics, stitched traces, merged postmortem) from "
+                    "the broker's port")
+    ap.add_argument("--collector-interval", type=float, default=0.5,
+                    help="fleet scrape cadence, seconds")
+    ap.add_argument("--collector-scrape-timeout", type=float, default=2.0,
+                    help="per-node scrape answer budget, seconds (a "
+                    "wedged node costs one timeout per round, never a "
+                    "wedged collector)")
+    args = ap.parse_args(argv)
+    if not args.pod:
+        ap.error("a broker needs at least one --pod URL")
+    try:
+        config = BrokerConfig(
+            probe_interval_seconds=args.probe_interval,
+            probe_timeout_seconds=args.probe_timeout,
+            probe_miss_threshold=args.probe_miss_threshold,
+            rejoin_threshold=args.rejoin_threshold,
+            checkpoint_root=args.checkpoint_root,
+            failover=not args.no_failover,
+            collector=args.collector,
+            collector_interval_seconds=args.collector_interval,
+            collector_scrape_timeout_seconds=args.collector_scrape_timeout,
+        )
+    except ValueError as e:
+        ap.error(str(e))
+    broker = Broker(args.pod, config, port=args.port, host=args.host)
+    print(
+        f"broker: {broker.url}/v1/sessions fronting {len(args.pod)} "
+        f"pod(s) (fleet: {broker.url}/v1/pods; drive with "
+        f"tools/gol_client.py {broker.url})",
+        file=sys.stderr,
+    )
+    if args.collector:
+        print(
+            f"collector: {broker.url}/fleet/metrics /fleet/healthz "
+            f"/fleet/slo /fleet/traces/<id> /fleet/flight",
+            file=sys.stderr,
+        )
+    try:
+        if args.recover:
+            broker.probe_once()  # placement needs at least one health
+            import json as json_mod
+            import urllib.request
+
+            req = urllib.request.Request(
+                broker.url + "/v1/recover", method="POST"
+            )
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                out = json_mod.loads(resp.read())
+            print(f"recover: {out}", file=sys.stderr)
+        while True:
+            time.sleep(1.0)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        broker.close()
+    return 0
+
+
+def relay_main(argv) -> int:
+    """The ``relay`` subcommand: one node of the spectator
+    broadcast tree — subscribe ONCE to an upstream frame stream (a
+    gateway pod's spectator leg, or another relay) and re-fan it to M
+    downstream WebSocket viewers off the local re-keyframe cache
+    (docs/API.md "Relay tier").  Like the broker, a relay never touches
+    a device: runnable on a machine with no accelerator at all."""
+    from distributed_gol_torch.serve.relay import (
+        BACKOFF_MAX,
+        DEFAULT_CACHE_DELTAS,
+        DEFAULT_KEEPALIVE,
+        DEFAULT_QUEUE_DEPTH,
+        RelayServer,
+    )
+
+    ap = argparse.ArgumentParser(
+        prog="distributed_gol_torch relay",
+        description="spectator relay: subscribe once upstream, fan the "
+        "frame stream to M downstream viewers (chainable to any depth)",
+    )
+    ap.add_argument("--upstream", required=True, metavar="URL",
+                    help="the spectator stream to relay: a gateway leg "
+                    "(http://pod/v1/sessions/<t>/frames?rect=...) or "
+                    "another relay (http://relay/v1/frames)")
+    ap.add_argument("--port", type=int, default=0,
+                    help="relay bind port (0 = ephemeral; the bound URL "
+                    "is printed to stderr and published as the "
+                    "relay.endpoint info label)")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--cache-deltas", type=int,
+                    default=DEFAULT_CACHE_DELTAS, metavar="N",
+                    help="deltas retained past the cached keyframe "
+                    "before compaction (the late-joiner window)")
+    ap.add_argument("--queue-depth", type=int,
+                    default=DEFAULT_QUEUE_DEPTH, metavar="N",
+                    help="per-viewer bounded queue depth (drop-oldest "
+                    "+ cache resync past it)")
+    ap.add_argument("--backoff-max", type=float, default=BACKOFF_MAX,
+                    help="resubscribe backoff cap, seconds")
+    ap.add_argument("--keepalive", type=float, default=DEFAULT_KEEPALIVE,
+                    metavar="SECONDS",
+                    help="upstream ping/pong keepalive interval: an "
+                    "upstream that answers neither frames nor "
+                    "pongs for 3 consecutive intervals is a half-open "
+                    "stall, dropped and resubscribed like a disconnect "
+                    "(0 = unbounded blocking reads)")
+    args = ap.parse_args(argv)
+    relay = RelayServer(
+        args.upstream,
+        port=args.port,
+        host=args.host,
+        cache_deltas=args.cache_deltas,
+        queue_depth=args.queue_depth,
+        backoff_max=args.backoff_max,
+        keepalive_seconds=args.keepalive,
+    )
+    print(
+        f"relay: {relay.url}/v1/frames <- {args.upstream} "
+        f"(watch with tools/gol_client.py --relay {relay.url}; "
+        f"chain with --upstream {relay.url}/v1/frames)",
+        file=sys.stderr,
+    )
+    try:
+        while True:
+            time.sleep(1.0)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        relay.close()
+    return 0
+
+
+def collector_main(argv) -> int:
+    """The ``collector`` subcommand: the standalone fleet
+    observability plane — scrape every node's ``/metrics`` +
+    ``/healthz`` on a cadence and serve ONE aggregated surface:
+    ``/fleet/metrics`` (node-labelled + fleet-aggregate OpenMetrics),
+    ``/fleet/healthz``, ``/fleet/slo`` (fleet-level per-tenant burn
+    over the aggregate — a tenant migrated mid-window keeps one
+    continuous budget), ``/fleet/traces/<id>`` (cross-process stitch)
+    and ``/fleet/flight`` (the merged postmortem).  Device-less, like
+    the broker and relay; the same surface rides in-broker via
+    ``broker --collector`` (docs/API.md "Fleet observability")."""
+    from distributed_gol_torch.obs.fleet import (
+        CollectorServer,
+        FleetCollector,
+        node_name,
+    )
+    from distributed_gol_torch.obs.slo import SLOObjectives
+
+    ap = argparse.ArgumentParser(
+        prog="distributed_gol_torch collector",
+        description="fleet observability collector: federated scrape "
+        "plane, cross-process trace stitching, one merged postmortem "
+        "timeline over N nodes (pods, brokers, relays)",
+    )
+    ap.add_argument("--node", action="append", default=[],
+                    metavar="[NAME=]URL",
+                    help="one node to scrape (repeatable): a pod "
+                    "gateway, broker, relay, or telemetry endpoint — "
+                    "optionally named (name=http://...); unnamed nodes "
+                    "are labelled by their host:port")
+    ap.add_argument("--port", type=int, default=0,
+                    help="collector bind port (0 = ephemeral; the "
+                    "bound URL is printed to stderr and published as "
+                    "the fleet.endpoint info label)")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--interval", type=float, default=0.5,
+                    help="scrape cadence, seconds")
+    ap.add_argument("--scrape-timeout", type=float, default=2.0,
+                    help="per-node scrape answer budget, seconds (a "
+                    "wedged node costs one timeout per round and a "
+                    "fleet.scrape_misses bump, never a wedged "
+                    "collector)")
+    ap.add_argument("--checkpoint-root", default=None, metavar="DIR",
+                    help="the federation's shared checkpoint root: "
+                    "on-disk flight-*.json abort dumps under it join "
+                    "the /fleet/flight merged timeline")
+    ap.add_argument("--slo-latency", type=float, default=0.0,
+                    help="fleet per-tenant dispatch-latency objective, "
+                    "seconds (0 = off)")
+    ap.add_argument("--slo-latency-percentile", type=float, default=0.99)
+    ap.add_argument("--slo-error-rate", type=float, default=0.0,
+                    help="fleet per-tenant dispatch error-rate "
+                    "objective (0 = off)")
+    ap.add_argument("--slo-fast-window", type=float, default=60.0)
+    ap.add_argument("--slo-slow-window", type=float, default=300.0)
+    ap.add_argument("--slo-burn-threshold", type=float, default=2.0)
+    args = ap.parse_args(argv)
+    if not args.node:
+        ap.error("a collector needs at least one --node URL")
+    nodes = {}
+    for spec in args.node:
+        name, eq, rest = spec.partition("=")
+        if eq and "://" not in name:
+            nodes[name] = rest
+        else:
+            nodes[node_name(spec)] = spec
+    objectives = None
+    if args.slo_latency > 0 or args.slo_error_rate > 0:
+        try:
+            objectives = SLOObjectives(
+                latency_seconds=args.slo_latency,
+                latency_percentile=args.slo_latency_percentile,
+                error_rate=args.slo_error_rate,
+                fast_window_seconds=args.slo_fast_window,
+                slow_window_seconds=args.slo_slow_window,
+                burn_threshold=args.slo_burn_threshold,
+            )
+        except ValueError as e:
+            ap.error(str(e))
+    try:
+        collector = FleetCollector(
+            nodes,
+            interval=args.interval,
+            scrape_timeout=args.scrape_timeout,
+            checkpoint_root=args.checkpoint_root,
+            objectives=objectives,
+        )
+    except ValueError as e:
+        ap.error(str(e))
+    server = CollectorServer(collector, port=args.port, host=args.host)
+    print(
+        f"collector: {server.url}/fleet/metrics /fleet/healthz "
+        f"/fleet/slo /fleet/traces/<id> /fleet/flight scraping "
+        f"{len(nodes)} node(s) every {args.interval}s "
+        f"(fleet top: tools/pod_top.py {server.url})",
+        file=sys.stderr,
+    )
+    try:
+        while True:
+            time.sleep(1.0)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.close()
+    return 0
 
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv and argv[0] == "serve":
         return serve_main(argv[1:])
-    if argv and argv[0] in _UNPORTED_SUBCOMMANDS:
-        print(f"distributed_gol_torch {argv[0]}: error: "
-              f"{_UNPORTED_SUBCOMMANDS[argv[0]]} is not ported yet (ROADMAP A9b)",
-              file=sys.stderr)
-        return 2
+    if argv and argv[0] == "broker":
+        return broker_main(argv[1:])
+    if argv and argv[0] == "relay":
+        return relay_main(argv[1:])
+    if argv and argv[0] == "collector":
+        return collector_main(argv[1:])
     ap = build_parser()
     args = ap.parse_args(argv)
     try:

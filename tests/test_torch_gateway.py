@@ -250,14 +250,31 @@ def watch(stream) -> list:
     return events
 
 
+def paused_at_once(gw, tenant, timeout=30.0):
+    """Pause ``tenant``'s session as soon as the gateway holds it: a run
+    of a few turns can end before a spectator's handshake does on a
+    loaded machine."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        session = gw._sessions.get(tenant)
+        if session is not None:
+            session.pause()
+            if session.paused:
+                return session
+        time.sleep(0.001)
+    raise AssertionError(f"could not pause {tenant}")
+
+
 def test_n_spectators_cost_one_fetch_per_frame_and_reconstruct(pod):
     plane, gw, client = pod
     reg = obs_metrics.REGISTRY
     fetches0 = reg.counter("frames.fetches").value
     publishes0 = reg.counter("frames.publishes").value
     submit_spec(client, "alice", spectate_spec())
+    session = paused_at_once(gw, "alice")
     rects = [(60, 50, 24, 24), (5, 61, 24, 24), (30, 30, 24, 24)]
     streams = [client.spectate("alice", rect=r, queue_depth=22) for r in rects]
+    session.resume()
     try:
         firsts = [watch(s)[0].completed_turns for s in streams]
     finally:
@@ -498,4 +515,6 @@ def test_port_sockets_all_carry_a_deadline(monkeypatch):
     assert lint.check() == []
     found = lint.sites()
     assert found and all(has_deadline for *_, has_deadline in found)
-    assert {rel for rel, *_ in found} == {"distributed_gol_torch/serve/ws.py"}
+    assert {rel for rel, *_ in found} == {
+        "distributed_gol_torch/__main__.py", "distributed_gol_torch/serve/podclient.py",
+        "distributed_gol_torch/serve/ws.py", "distributed_gol_torch/testing/netchaos.py"}

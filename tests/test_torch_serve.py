@@ -507,20 +507,49 @@ def test_serve_cli_subprocess_end_to_end(tmp_path):
         assert (tmp_path / t / "64x64x200.pgm").is_file()
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["broker", "--pod", "http://127.0.0.1:1"], "A9b"),
-    (["relay"], "A9b"),
-    (["collector"], "A9b"),
-], ids=["broker", "relay", "collector"])
-def test_unported_serving_requests_are_refused(argv, item, capsys):
-    from distributed_gol_torch.__main__ import main
+@pytest.mark.parametrize("argv", [
+    ["broker"],
+    ["broker", "--pod", "http://127.0.0.1:1", "--probe-miss-threshold", "0"],
+    ["broker", "--pod", "http://127.0.0.1:1", "--probe-interval", "-1"],
+    ["broker", "--pod", "http://127.0.0.1:1", "--bogus"],
+    ["relay"],
+    ["relay", "--upstream", "http://127.0.0.1:1/v1/frames", "--port", "x"],
+    ["collector"],
+    ["collector", "--node", "http://127.0.0.1:1", "--interval", "0"],
+    ["collector", "--node", "http://127.0.0.1:1", "--slo-latency", "1",
+     "--slo-latency-percentile", "2"],
+], ids=["broker-no-pod", "broker-threshold", "broker-interval", "broker-unknown-flag",
+        "relay-no-upstream", "relay-bad-port", "collector-no-node", "collector-interval",
+        "collector-slo"])
+def test_wire_subcommand_usage_errors_match_the_jax_cli(argv, capsys):
+    """Each subcommand's usage errors exit 2 with the JAX CLI's message."""
+    from distributed_gol_torch.__main__ import main as tmain
+    from distributed_gol_tpu.__main__ import main as jmain
 
-    try:
-        rc = main(argv)
-    except SystemExit as e:
-        rc = e.code
-    assert rc == 2
-    assert f"ROADMAP {item}" in capsys.readouterr().err
+    errors = []
+    for main in (jmain, tmain):
+        with pytest.raises(SystemExit) as e:
+            main(argv)
+        assert e.value.code == 2
+        errors.append(capsys.readouterr().err.strip().splitlines()[-1].split("error: ", 1)[1])
+    assert errors[0] == errors[1]
+
+
+@pytest.mark.parametrize("sub", ["broker", "relay", "collector"])
+def test_wire_subcommand_help_lists_the_jax_flags(sub, capsys):
+    """``--help`` of each subcommand lists the JAX CLI's flags, no more."""
+    import re
+
+    from distributed_gol_torch.__main__ import main as tmain
+    from distributed_gol_tpu.__main__ import main as jmain
+
+    flags = []
+    for main in (jmain, tmain):
+        with pytest.raises(SystemExit) as e:
+            main([sub, "--help"])
+        assert e.value.code == 0
+        flags.append(set(re.findall(r"(?<![\w-])--[a-z][\w-]*", capsys.readouterr().out)))
+    assert flags[0] == flags[1] and "--port" in flags[1]
 
 
 def test_tenant_spec_parse_matches_jax():

@@ -26,11 +26,7 @@ torch.set_num_threads(1)
 # Names of the JAX package the port does not serve yet, by module, each
 # with its ROADMAP item (the refusals name the same items).
 NOT_YET = {
-    "__main__": {"broker_main": "A9b", "collector_main": "A9b", "relay_main": "A9b",
-                 "run_multihost": "A8"},
-    "serve": {n: "A9b" for n in (
-        "Broker", "BrokerConfig", "PodClient", "PodHTTPError", "PodUnreachable",
-        "RelayServer")},
+    "__main__": {"run_multihost": "A8"},
     # Dropped on purpose: a jax NamedSharding has no counterpart.
     "parallel.packed_halo": {"packed_sharding": "none"},
 }

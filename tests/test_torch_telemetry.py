@@ -48,20 +48,23 @@ SUPERSTEP = 4
 TURNS = 24
 
 
-#: Each test's own time limit, in seconds.
+#: Each test's own time limit, in seconds; a module that imports the
+#: fixture may set its own ``TIME_LIMIT``.
 LIMIT = 90
 
 
 @pytest.fixture(autouse=True)
-def time_limit():
-    """Fail the test (``TimeoutError``) once it has run ``LIMIT`` seconds:
-    a socket that never answers must not hold the suite."""
+def time_limit(request):
+    """Fail the test (``TimeoutError``) once it has run ``LIMIT`` seconds
+    (its module's ``TIME_LIMIT``, where set): a socket that never answers
+    must not hold the suite."""
+    limit = getattr(request.module, "TIME_LIMIT", LIMIT)
 
     def expire(signum, frame):
-        raise TimeoutError(f"the test ran past its {LIMIT} s limit")
+        raise TimeoutError(f"the test ran past its {limit} s limit")
 
     old = signal.signal(signal.SIGALRM, expire)
-    signal.setitimer(signal.ITIMER_REAL, LIMIT)
+    signal.setitimer(signal.ITIMER_REAL, limit)
     try:
         yield
     finally:

@@ -107,7 +107,20 @@ connection.  Both PGMs must equal their solo reruns, every spectator's
 last frame ``fetch_viewport`` of carol's final board, ``broker.failovers``
 rise by one, and the collector's ``/fleet/metrics``, ``/fleet/flight`` and
 ``/fleet/traces/<id>`` must round-trip, read condemn before failover, and
-join the broker's and pod B's spans.  Every run
+join the broker's and pod B's spans.  And multi-host on the one card, (s):
+two ranks of the CLI (``--coordinator``; ``rank_main``, each in its own
+process with the card as its one device, so the mesh (2, 1) spans them,
+gloo staging the edges through host memory): (s1) the 16384² soup x
+2,000 at superstep 200 (K9 on each rank), process 0's PGM equal to path
+(a)'s; (s2) the soup x 20,000 with ``--skip-stable`` at superstep 0 (K12
+on each rank's 8192-row strip, the K10 and K9 remainders), the PGM equal
+to a one-device skip_stable run's and process 0's skip count, dispatch
+by dispatch, to the same dispatches' on one process; (s3) a 512² soup
+with a 0.2 s peer heartbeat and a checkpoint every 100 turns, rank 1
+SIGKILLed after the first checkpoint, rank 0 ending with PeerLost within
+its bound, the newest checkpoint resumed on one device to the
+never-killed run's PGM; no rank launches K14 or K15, and each leg prints
+its wall-clock, each rank's start-up, launches and exchange ms.  Every run
 row is published as ``{reps, median, spread}`` (``utils/measure.py``; a
 run under 5 s is repeated to 3 runs) and the record is linted with
 ``measure.require_headline_stats`` before it prints.  It
@@ -468,6 +481,21 @@ R_CAROL = (512, 8_000, 16, (400, 450, 256, 128))
 R_KILL_TURN, R_DISCONNECT_BYTES = 600, 120
 R_TOTAL_A, R_TOTAL_B = BIG * BIG + 8 * 512 * 512, BIG * BIG + 4 * 512 * 512
 R_KERNELS = ("tiled", "resident")
+
+# Path (s), multi-host on the one card: S_RANKS ranks of the CLI
+# (``--coordinator``), each a child process with the card as its one
+# device, so the global mesh is (S_RANKS, 1).  (s1) the 16384² soup x
+# S1_TURNS at superstep S1_STEP (K9); (s2) x S2_TURNS with skip_stable at
+# superstep 0 (K12, the K10 and K9 remainders); (s3) a S3_SIDE² soup x
+# S3_TURNS at superstep S3_STEP, a heartbeat of S3_HEARTBEAT s and a
+# checkpoint every S3_CKPT turns, rank 1 SIGKILLed once the first
+# checkpoint lands.  S_LEG_SECONDS bounds each leg's children.
+S_RANKS = 2
+S1_TURNS, S1_STEP = 2_000, 200
+S2_TURNS = 20_000
+S3_SIDE, S3_TURNS, S3_STEP, S3_HEARTBEAT, S3_CKPT = 512, 50_000, 100, 0.2, 100
+S_LEG_SECONDS = 300
+S_KERNELS = ("ext", "ext_skip", "strip_frontier")
 
 
 def virtual(mesh_shape: tuple, device) -> list:
@@ -3426,6 +3454,347 @@ def federation_path(tmp: Path, launches: dict, device, card: str) -> dict:
     return {"federation_r": row}
 
 
+# -- path (s): multi-host on the one card --------------------------------------
+
+
+def rank_main(argv: list) -> int:
+    """One rank of path (s), in its own process: the CLI's ``main(argv)``
+    (``python3 -m distributed_gol_torch ... --coordinator``), its kernels'
+    launches counted, its exchanges timed and its adaptive dispatches
+    recorded, all written as JSON to the file ``CHIP_SMOKE_RANK_REPORT``
+    names when it ends.  An exchange (``RankSpan.exchange``: device to
+    host, gloo, host to device) is timed by CUDA events around it, host
+    staging included; the spawn time comes from ``CHIP_SMOKE_SPAWNED``.
+    Exits with the CLI's code, without the interpreter's teardown."""
+    import traceback
+
+    from distributed_gol_torch.__main__ import main as cli_main
+    from distributed_gol_torch.parallel import multihost
+
+    report = dict(spawned=float(os.environ["CHIP_SMOKE_SPAWNED"]), imported=time.time(),
+                  first_exchange=None, exchange_ms=[], max_issue_s=0.0, run_start=None,
+                  run_end=None, error=None)
+    skips = []
+    exchange, issue = mesh_lib.RankSpan.exchange, Backend.run_turns_async
+    skip_superstep, run = Backend._skip_superstep, multihost.run_distributed
+
+    def timed_exchange(self, southward, northward):
+        if report["first_exchange"] is None:
+            report["first_exchange"] = time.time()
+        if not southward.is_cuda:  # a rehearsal on the CPU
+            t0 = time.perf_counter()
+            out = exchange(self, southward, northward)
+            report["exchange_ms"].append((time.perf_counter() - t0) * 1e3)
+        else:
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = exchange(self, southward, northward)
+            end.record()
+            end.synchronize()
+            report["exchange_ms"].append(start.elapsed_time(end))
+        return out
+
+    def timed_issue(self, board, turns):
+        t0 = time.perf_counter()
+        out = issue(self, board, turns)
+        report["max_issue_s"] = max(report["max_issue_s"], time.perf_counter() - t0)
+        return out
+
+    def recorded_skip(self, board, turns):
+        before = self._skip_stats[-1] if self._skip_stats else None
+        out = skip_superstep(self, board, turns)
+        last = self._skip_stats[-1] if self._skip_stats else None
+        skips.append((turns, None if last is before else last[0]))
+        return out
+
+    def timed_run(*args, **kwargs):
+        report["run_start"] = time.time()
+        try:
+            return run(*args, **kwargs)
+        except BaseException as e:
+            report["error"] = f"{type(e).__name__}: {e}"
+            raise
+        finally:
+            report["run_end"] = time.time()
+
+    code = 1
+    try:
+        with mock.patch.object(mesh_lib.RankSpan, "exchange", timed_exchange), \
+                mock.patch.object(Backend, "run_turns_async", timed_issue), \
+                mock.patch.object(Backend, "_skip_superstep", recorded_skip), \
+                mock.patch.object(multihost, "run_distributed", timed_run):
+            code = cli_main(argv)
+        report["launches"] = launch_counts()
+        report["skips"] = [(k, None if s is None else int(s)) for k, s in skips]
+        Path(os.environ["CHIP_SMOKE_RANK_REPORT"]).write_text(json.dumps(report))
+    except BaseException:  # noqa: BLE001 — printed; the exit code says it
+        traceback.print_exc()
+        code = 1
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)
+
+
+def free_port() -> int:
+    """A free TCP port on the loopback interface."""
+    import socket
+
+    with socket.socket() as s:
+        s.settimeout(5.0)
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(leg: Path, args: list, device) -> list:
+    """Start the ``S_RANKS`` ranks of one leg of path (s), each
+    ``rank_main`` in a child process with ``args`` and the rendezvous, its
+    output in ``leg/rank<i>.log``, its report in ``leg/rank<i>.json``, its
+    files in ``leg/out<i>``."""
+    repo = Path(__file__).resolve().parent
+    coordinator = f"127.0.0.1:{free_port()}"
+    procs = []
+    for i in range(S_RANKS):
+        env = dict(os.environ, PYTHONPATH=str(repo), CHIP_SMOKE_SPAWNED=repr(time.time()),
+                   CHIP_SMOKE_RANK_REPORT=str(leg / f"rank{i}.json"))
+        cmd = [sys.executable, "-c",
+               "import sys, chip_smoke; sys.exit(chip_smoke.rank_main(sys.argv[1:]))",
+               *map(str, args), "--device", device.type, "--out-dir", str(leg / f"out{i}"),
+               "--coordinator", coordinator, "--num-processes", str(S_RANKS),
+               "--process-id", str(i)]
+        with open(leg / f"rank{i}.log", "w") as out:
+            procs.append(subprocess.Popen(cmd, cwd=repo, env=env, stdin=subprocess.DEVNULL,
+                                          stdout=out, stderr=subprocess.STDOUT))
+    return procs
+
+
+def wait_ranks(name: str, procs: list, leg: Path, codes: list) -> list:
+    """Wait for one leg's ranks (at most ``S_LEG_SECONDS``, then every one
+    is killed), check their exit codes against ``codes`` and return their
+    reports (None for a rank that wrote none: a killed one)."""
+    deadline = time.monotonic() + S_LEG_SECONDS
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"({name}) the ranks ran past {S_LEG_SECONDS} s") from None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+    got = [p.returncode for p in procs]
+    if got != codes:
+        tails = "\n".join(f"rank {i}: {(leg / f'rank{i}.log').read_text()[-2500:]}"
+                          for i in range(len(procs)))
+        raise AssertionError(f"({name}) rank exit codes {got}, want {codes}:\n{tails}")
+    return [json.loads(f.read_text()) if (f := leg / f"rank{i}.json").is_file() else None
+            for i in range(len(procs))]
+
+
+def require_launches(name: str, rank: int, launched: dict, kernels: tuple) -> None:
+    """Fail unless a rank launched each of ``kernels``, and if it launched
+    K14 or K15 (a mesh that spans processes takes the ppermute tier)."""
+    for k in kernels:
+        if not launched.get(k):
+            raise AssertionError(f"({name}) rank {rank} never launched {k}: {launched}")
+    if launched.get("strip_mega") or launched.get("tile_mega"):
+        raise AssertionError(f"({name}) rank {rank} launched an in-kernel tier: {launched}")
+
+
+def rank_numbers(name: str, turns: int, seconds: float, reports: list, kernels: tuple,
+                 card: str) -> dict:
+    """One leg's numbers: its wall-clock, each rank's start-up (spawn to
+    ``run_distributed``), launches and exchange ms (the median exchange,
+    and the exchanges' sum over the row kernels' launches, which counts
+    the waits for the other rank), and process 0's run gens/s; fails
+    unless every rank launched each of ``kernels``
+    (``require_launches``)."""
+    ranks = []
+    for i, r in enumerate(reports):
+        launched = {k: v for k, v in r["launches"].items() if v}
+        require_launches(name, i, launched, kernels)
+        row_launches = sum(r["launches"][k] for k in STRIPS + ("ext",))
+        ms = r["exchange_ms"]
+        ranks.append(dict(
+            rank=i, start_up_s=r["run_start"] - r["spawned"],
+            first_exchange_s=(r["first_exchange"] or r["spawned"]) - r["spawned"],
+            launches=launched, exchanges=len(ms),
+            exchange_ms_median=statistics.median(ms) if ms else None,
+            exchange_ms_per_launch=sum(ms) / row_launches if row_launches else None,
+            run_s=r["run_end"] - r["run_start"], max_issue_s=r["max_issue_s"]))
+    lead = ranks[0]
+    row = dict(seconds=seconds, card=card, ranks=ranks,
+               stats=dict(run=stats_row("run gens/s (process 0)", [turns / lead["run_s"]])))
+    for r in ranks:
+        print(f"multi-host ({name}) on {card}: rank {r['rank']} up {r['start_up_s']:.2f} s, "
+              f"first exchange {r['first_exchange_s']:.2f} s, run {r['run_s']:.3f} s, "
+              f"launches {r['launches']}, {r['exchanges']} exchanges of median "
+              f"{r['exchange_ms_median'] or 0:.4f} ms, their sum "
+              f"{r['exchange_ms_per_launch'] or 0:.4f} ms a launch", flush=True)
+    print(f"multi-host ({name}) on {card}: {seconds:.2f} s wall-clock, process 0 "
+          f"{turns / lead['run_s']:.1f} gens/s run {row['stats']['run']}", flush=True)
+    return row
+
+
+def replay_dispatches(recorded: list, device) -> tuple:
+    """Path (s2)'s dispatches, of the sizes process 0 recorded, on one
+    process: the soup on a virtual (S_RANKS, 1) mesh of ``device`` on the
+    ppermute tier (K12, the same strips and launches as the ranks').
+    Returns (the final board, each dispatch's skip count or None)."""
+    params = gol.Params(turns=S2_TURNS, image_width=BIG, image_height=BIG, skip_stable=True,
+                        engine="pallas-packed", mesh_shape=(S_RANKS, 1), device=device.type)
+    backend = Backend(params, virtual((S_RANKS, 1), device), in_kernel=False)
+    if backend.sharded_tier != "ppermute":
+        raise AssertionError(f"(s2) replay on the {backend.sharded_tier} tier")
+    board = backend.put(random_soup(BIG, BIG, 0.3, 7))
+    skips = []
+    for k, _ in recorded:
+        before = backend._skip_stats[-1] if backend._skip_stats else None
+        board = backend.run_turns(board, k)[0]
+        last = backend._skip_stats[-1] if backend._skip_stats else None
+        skips.append(None if last is before else int(last[0]))
+    return backend.fetch(board), skips
+
+
+def follower_wrote_nothing(name: str, leg: Path) -> None:
+    for i in range(1, S_RANKS):
+        out = leg / f"out{i}"
+        if out.exists() and any(out.iterdir()):
+            raise AssertionError(f"({name}) rank {i} wrote files: {sorted(out.iterdir())}")
+
+
+def multihost_path(tmp: Path, straight: bytes, launches: dict, device, card: str) -> dict:
+    """Path (s), multi-host on the one card: ``S_RANKS`` ranks of the CLI
+    (``rank_main``), each in its own process with the card as its one
+    device, on the (S_RANKS, 1) mesh that spans them (gloo, edges staged
+    through host memory).  (s1) the 16384² soup x ``S1_TURNS`` at
+    superstep ``S1_STEP``: every rank launches K9, process 0's PGM equals
+    path (a)'s one-device PGM.  (s2) the soup x ``S2_TURNS`` with
+    skip_stable at superstep 0 (process 0 sizes the dispatches and
+    broadcasts them): every rank launches K12 on its 8192-row strip and
+    the K10 and K9 remainders, the PGM equals a one-device skip_stable
+    run's, and process 0's skip count, dispatch by dispatch, equals the
+    same dispatches' on one process (``replay_dispatches``).  (s3) a
+    ``S3_SIDE``² soup with a peer heartbeat of ``S3_HEARTBEAT`` s and a
+    checkpoint every ``S3_CKPT`` turns: rank 1 is SIGKILLed once the first
+    checkpoint lands, rank 0 must exit with PeerLost within three
+    heartbeat intervals, its longest dispatch and the watchdog's poll, and
+    the newest checkpoint, resumed on one device, must end on the
+    never-killed run's PGM.  No rank launches K14 or K15 (a mesh that
+    spans processes takes the ppermute tier).  The ranks' launches join
+    ``launches``."""
+    from distributed_gol_torch.engine.controller import _Watchdog
+    from distributed_gol_torch.parallel.multihost import HEARTBEAT_MISS_FACTOR
+
+    root = tmp / "multihost"
+    soup = ["--soup", "0.3", "--soup-seed", "7", "-noVis", "--turn-events", "batch"]
+    rows = {}
+
+    def leg(name: str, args: list, codes: list, during=None):
+        where = root / name
+        where.mkdir(parents=True)
+        t0 = time.perf_counter()
+        procs = spawn_ranks(where, args, device)
+        try:
+            extra = during(procs, where) if during else None
+            reports = wait_ranks(name, procs, where, codes)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(timeout=60)
+        seconds = time.perf_counter() - t0
+        for r in reports:
+            if r is not None:
+                for k, v in r["launches"].items():
+                    launches[k] += v
+        follower_wrote_nothing(name, where)
+        return where, reports, seconds, extra
+
+    where, reports, seconds, _ = leg("s1", ["-w", BIG, "-h", BIG, "-turns", S1_TURNS,
+                                            "--superstep", S1_STEP, *soup], [0] * S_RANKS)
+    if (where / "out0" / f"{BIG}x{BIG}x{S1_TURNS}.pgm").read_bytes() != straight:
+        raise AssertionError("(s1) process 0's PGM differs from path (a)'s one-device PGM")
+    rows["s1"] = rank_numbers("s1", S1_TURNS, seconds, reports, ("ext",), card)
+
+    where, reports, seconds, _ = leg("s2", ["-w", BIG, "-h", BIG, "-turns", S2_TURNS,
+                                            "--superstep", 0, "--skip-stable",
+                                            "--engine", "pallas-packed", *soup],
+                                     [0] * S_RANKS)
+    got = (where / "out0" / f"{BIG}x{BIG}x{S2_TURNS}.pgm").read_bytes()
+    one = gol.Params(turns=S2_TURNS, image_width=BIG, image_height=BIG, soup_density=0.3,
+                     soup_seed=7, skip_stable=True, turn_events="batch", ticker_period=3600,
+                     device=device.type, out_dir=where / "one")
+    one_s, one_pgm = stream_run(one, Sink())
+    if got != one_pgm:
+        raise AssertionError("(s2) process 0's PGM differs from the one-device skip_stable run's")
+    recorded = reports[0]["skips"]
+    t0 = time.perf_counter()
+    board, skips = replay_dispatches(recorded, device)
+    replay_s = time.perf_counter() - t0
+    if not np.array_equal(board, pgm.decode_pgm(got)):
+        raise AssertionError("(s2) the one-process replay's board differs from process 0's PGM")
+    if [s for _, s in recorded] != skips:
+        raise AssertionError(f"(s2) process 0's skip counts {recorded} differ from the "
+                             f"one-process replay's {skips}")
+    rows["s2"] = rank_numbers("s2", S2_TURNS, seconds, reports, S_KERNELS, card)
+    total = sum(s for s in skips if s)
+    rows["s2"].update(dispatches=[k for k, _ in recorded], skipped=total, one_device_s=one_s,
+                      replay_s=replay_s)
+    print(f"multi-host (s2) on {card}: {len(recorded)} dispatches {[k for k, _ in recorded]}, "
+          f"process 0's skip count {total} equals the one-process replay's "
+          f"({replay_s:.2f} s); one-device skip_stable run {one_s:.2f} s", flush=True)
+
+    def kill_after_checkpoint(procs, where):
+        ckpt = where / "ckpt"
+
+        def landed():
+            for i, p in enumerate(procs):
+                if p.poll() is not None:
+                    raise AssertionError(f"(s3) rank {i} exited {p.returncode} before the kill")
+            return any(ckpt.glob("checkpoint-*.json"))
+
+        wait_until("(s3)'s first checkpoint", landed, timeout=S_LEG_SECONDS)
+        procs[1].kill()
+        return time.time()
+
+    s3_args = ["-w", S3_SIDE, "-h", S3_SIDE, "-turns", S3_TURNS, "--superstep", S3_STEP,
+               "--peer-heartbeat", S3_HEARTBEAT, "--checkpoint-every-turns", S3_CKPT, *soup]
+    where, reports, seconds, killed = leg(
+        "s3", [*s3_args, "--checkpoint-dir", root / "s3" / "ckpt"], [1, -9],
+        kill_after_checkpoint)
+    lead = reports[0]
+    if not (lead["error"] or "").startswith("PeerLost"):
+        raise AssertionError(f"(s3) rank 0 ended with {lead['error']!r}, not PeerLost")
+    abort_s = lead["run_end"] - killed
+    bound = (HEARTBEAT_MISS_FACTOR * S3_HEARTBEAT + lead["max_issue_s"]
+             + _Watchdog.INTERRUPT_POLL_SECONDS)
+    if abort_s > bound:
+        raise AssertionError(f"(s3) rank 0 aborted {abort_s:.3f} s after the kill, past its "
+                             f"bound {bound:.3f} s")
+    params = gol.Params(turns=S3_TURNS, image_width=S3_SIDE, image_height=S3_SIDE,
+                        soup_density=0.3, soup_seed=7, superstep=S3_STEP, turn_events="batch",
+                        ticker_period=3600, device=device.type)
+    resumed = Sink()
+    _, resumed_pgm = stream_run(dataclasses.replace(params, out_dir=where / "resumed"), resumed,
+                                session=Session(where / "ckpt"))
+    _, straight3 = stream_run(dataclasses.replace(params, out_dir=where / "straight"), Sink())
+    if resumed_pgm != straight3:
+        raise AssertionError("(s3) the resumed run's PGM differs from the never-killed run's")
+    launched = {k: v for k, v in lead["launches"].items() if v}
+    require_launches("s3", 0, launched, ("ext",))
+    rows["s3"] = dict(seconds=seconds, card=card, kill_to_abort_s=abort_s, bound_s=bound,
+                      start_up_s=lead["run_start"] - lead["spawned"], launches=launched,
+                      error=lead["error"], stats=dict(
+                          kill_to_abort=stats_row("(s3) kill to PeerLost", [abort_s], "s")))
+    print(f"multi-host (s3) on {card}: rank 1 SIGKILLed after the first checkpoint, rank 0 "
+          f"exited with {lead['error'][:60]!r} {abort_s:.3f} s after the kill (bound "
+          f"{bound:.3f} s: {HEARTBEAT_MISS_FACTOR} x {S3_HEARTBEAT} s, its longest dispatch "
+          f"{lead['max_issue_s']:.3f} s, the watchdog's poll); the one-device resume equals "
+          f"the never-killed run's PGM; {seconds:.2f} s", flush=True)
+    return {f"multihost_{k}": v for k, v in rows.items()}
+
+
 def serving_paths(tmp: Path, launches: dict) -> dict:
     """Phase 3's serving paths: the K7 pod batched and unbatched, the K8
     pod, and the ``serve`` CLI."""
@@ -4291,6 +4660,8 @@ def main() -> int:
                         device))
         e2e.update(step("wire_pod_path_q", wire_pod_path, tmp, launches, device))
         e2e.update(step("federation_path_r", federation_path, tmp, launches, device, card))
+        e2e.update(step("multihost_path_s", multihost_path, tmp, straight, launches, device,
+                        card))
         a = next(v for k, v in e2e.items() if k.startswith("sharded_a_"))
         log(f"sharded (a) on {MESH_A}: {a['gens_per_s']:.1f} gens/s, K9 launches "
             f"{a['launches']['ext']}; single-device {BIG}^2 x 2000: "

@@ -14,9 +14,10 @@ to the newest checkpoint on a terminal fault, ``engine/supervisor.py``),
 ``--time-compression`` fast-forwards settled ash, and
 ``--telemetry-sample-seconds S`` samples the metrics registry and
 ``--telemetry-port PORT`` serves ``/metrics`` and ``/healthz`` for the run.
-A mesh runs with a viewer too (the viewer is on by default).  Multi-host
-flags, which the port does not serve yet, are usage errors that name the
-ROADMAP item.  The
+A mesh runs with a viewer too (the viewer is on by default).
+``--coordinator HOST:PORT --num-processes N --process-id I`` runs one rank
+of a multi-host run (``parallel/multihost.py``, headless; process 0
+drives, ``DGOL_CPU_DEVICES`` pins a CPU rank's device count).  The
 engine runs in a worker thread while the main thread runs the viewer: the
 terminal renderer by default, the pygame window with ``--window``, a
 headless drain with ``-noVis``; the keyboard listener feeds s/p/q/k (and
@@ -58,6 +59,7 @@ from distributed_gol_torch.engine.session import Session, default_session
 from distributed_gol_torch.engine.supervisor import GracefulStop
 from distributed_gol_torch.models.life import parse_rule
 from distributed_gol_torch.utils.device import resolve_device
+from distributed_gol_torch.utils.profiling import trace
 from distributed_gol_torch.viewer.keyboard import keyboard_listener
 from distributed_gol_torch.viewer.loop import run_headless, run_terminal
 
@@ -330,29 +332,6 @@ def params_from_args(args) -> Params:
         telemetry_sample_seconds=args.telemetry_sample_seconds,
         device=args.device,
     )
-
-
-@contextlib.contextmanager
-def _trace(log_dir):
-    """A ``torch.profiler`` capture of the run, written as
-    ``log_dir/trace.json``."""
-    import torch
-
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=activities) as prof:
-        yield
-    Path(log_dir).mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(Path(log_dir) / "trace.json"))
-
-
-def _refuse_cli_unported(args) -> None:
-    if args.coordinator is not None or args.num_processes != 1:
-        raise NotImplementedError(
-            "multi-host runs (--coordinator, --num-processes: process-spanning "
-            "meshes) are not ported yet (ROADMAP A8, parallel/multihost.py)"
-        )
 
 
 def build_serve_parser() -> argparse.ArgumentParser:
@@ -962,9 +941,8 @@ def main(argv=None) -> int:
     ap = build_parser()
     args = ap.parse_args(argv)
     try:
-        _refuse_cli_unported(args)
         params = params_from_args(args)
-    except (ValueError, NotImplementedError) as e:
+    except ValueError as e:
         ap.error(str(e))  # clean usage error, exit 2 — not a traceback
     try:
         resolve_device(params.device)
@@ -972,6 +950,12 @@ def main(argv=None) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 1
     session = Session(args.checkpoint_dir) if args.checkpoint_dir else default_session()
+
+    if args.coordinator is not None:
+        # The telemetry endpoints are single-host for now (the sampler
+        # samples this process's registry only).
+        return run_multihost(args, params, session)
+
     if args.telemetry_port is not None:
         if not args.metrics:
             # gol.run gates the whole telemetry plane on the registry:
@@ -983,7 +967,19 @@ def main(argv=None) -> int:
         else:
             print("telemetry: /metrics + /healthz on an ephemeral port "
                   "(published as the telemetry.endpoint info label)", file=sys.stderr)
+    return _drive(
+        args,
+        params,
+        lambda events, keys, stop: start(params, events, keys, session, stop=stop,
+                                         telemetry_port=args.telemetry_port),
+    )
 
+
+def _drive(args, params, start_engine) -> int:
+    """The controller-process tail shared by single-host and multi-host
+    entries: keyboard listener, viewer/drain loop, Ctrl-C → graceful 'q'
+    detach, SIGTERM → graceful-stop emergency checkpoint (the preemption
+    contract), optional profiler trace, final print + exit code."""
     events = EventQueue()
     key_presses: queue.Queue = queue.Queue()
     stop = threading.Event()
@@ -993,10 +989,9 @@ def main(argv=None) -> int:
     # paused-and-resumable.  Ctrl-C keeps its 'q' detach.
     graceful = GracefulStop()
     restore_signals = graceful.install((signal.SIGTERM,))
-    tracer = _trace(args.trace) if args.trace else contextlib.nullcontext()
+    tracer = trace(args.trace) if args.trace else contextlib.nullcontext()
     with tracer:
-        engine = start(params, events, key_presses, session, stop=graceful,
-                       telemetry_port=args.telemetry_port)
+        engine = start_engine(events, key_presses, graceful)
         try:
             if params.no_vis:
                 final = run_headless(params, events)
@@ -1022,6 +1017,51 @@ def main(argv=None) -> int:
         return 1
     print(f"Final turn {final.completed_turns}: {len(final.alive)} alive")
     return 0
+
+
+def run_multihost(args, params, session) -> int:
+    """Multi-host entry: same CLI on every host, ``--process-id`` 0 drives.
+
+    Headless only; --superstep 0 (adaptive) works — process 0 decides the
+    dispatch size and broadcasts it (run_distributed's contract).  Process
+    0 keeps the interactive keyboard (s/p/q/k broadcast to all)."""
+    from distributed_gol_torch.parallel import multihost
+
+    if not params.no_vis:
+        print("error: multi-host runs are headless; pass -noVis",
+              file=sys.stderr)
+        return 2
+    if params.restart_limit:
+        print("error: --restart-limit is single-host only for now "
+              "(multi-host backend rebuilds would need collective restart "
+              "coordination); use --checkpoint-every-turns + SIGTERM "
+              "preemption for multi-host resumability",
+              file=sys.stderr)
+        return 2
+    multihost.initialize(args.coordinator, args.num_processes, args.process_id)
+    if args.process_id != 0:
+        # Followers arm their own preemption latch: the stop poll is a
+        # collective, so arming must be uniform across processes (process
+        # 0 arms in _drive), and a SIGTERM landing on ANY rank drains the
+        # whole mesh together.
+        graceful = GracefulStop()
+        restore_signals = graceful.install((signal.SIGTERM,))
+        try:
+            multihost.run_distributed(params, stop=graceful)
+        finally:
+            restore_signals()
+        return 0
+
+    def start_engine(events, keys, stop):
+        t = threading.Thread(
+            target=multihost.run_distributed,
+            args=(params, events, keys, session, stop),
+            daemon=True,
+        )
+        t.start()
+        return t
+
+    return _drive(args, params, start_engine)
 
 
 if __name__ == "__main__":

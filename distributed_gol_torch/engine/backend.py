@@ -24,7 +24,11 @@ temporally blocked (``parallel/cuda_halo.py``: K9, and with
 ``skip_stable`` the adaptive kernels K10-K12 and K14 on a row mesh and K10,
 K13 and K15 on a 2-D mesh, with the same skip telemetry over the whole
 mesh) forms.  The controller
-never touches the board itself, only these methods.
+never touches the board itself, only these methods.  On a row mesh that
+spans processes (``parallel/multihost.py``'s backend) the same methods
+are collectives: ``put`` keeps this rank's band, ``fetch`` allgathers,
+and the alive count, the fingerprint, the cycle probe's verdict, the
+skip count and the activity cover every rank's strips.
 
 :class:`BatchedBackend` is the board-stack form behind the same seam: B
 same-shape boards per dispatch, the serving plane's cohort launch.
@@ -189,7 +193,7 @@ class Backend:
         mesh_shape = params.mesh_shape
         if devices is None and self.device.type == "cpu":
             devices = [self.device] * (mesh_shape[0] * mesh_shape[1])
-        self.mesh = mesh_lib.make_mesh(mesh_shape, devices)
+        self.mesh = self._make_mesh(mesh_shape, devices)
         self.devices = self.mesh.flat
         self.device = self.devices[0]
         self._sharding = halo.board_sharding(self.mesh)
@@ -236,6 +240,12 @@ class Backend:
             roll = halo.sharded_superstep(self.mesh)
             self._superstep = lambda b, k: roll(b, self.table, k)
         self._init_metrics(params)
+
+    def _make_mesh(self, mesh_shape: tuple[int, int], devices) -> mesh_lib.Mesh:
+        """The mesh a sharded board lies on: a seam, which the multi-host
+        backend (``parallel/multihost.py``) fills with its
+        process-spanning row mesh."""
+        return mesh_lib.make_mesh(mesh_shape, devices)
 
     def _init_metrics(self, params: Params):
         """A dispatch counter bumped on the seam, the engine label and, on a

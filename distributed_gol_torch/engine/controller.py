@@ -133,6 +133,11 @@ class _Watchdog:
         #: first-dispatch compile.  None (default) keeps the plain
         #: single wait.
         self.interrupt = None
+        #: Optional callable given the exception an armed wait raised,
+        #: returning the exception to raise in its place, or None to
+        #: raise it as it is: the multihost tier re-reads a collective
+        #: that failed because a peer died as the heartbeat's verdict.
+        self.on_error = None
 
     def call(self, fn):
         # Deadline 0 with no interrupt is OFF: a plain call, zero cost.
@@ -183,6 +188,8 @@ class _Watchdog:
         ok, value = box[0]
         if ok:
             return value
+        if self.on_error is not None:
+            value = self.on_error(value) or value
         raise value
 
 
@@ -605,6 +612,15 @@ class Controller:
                 return self._watchdog.call(step)
         except Exception as e:  # noqa: BLE001 — any device/runtime failure
             return self._retry_failed(step, board, turn, e)
+
+    def _issue(self, fn):
+        """Issue one asynchronous backend call (a dispatch, a cycle
+        probe).  A seam: single-host the call only enqueues device work;
+        on a multi-host run it also exchanges the strips' edges and sums
+        the count across processes, waits on the host that a one-sided
+        failure or a dead peer can wedge, so the multi-host controller
+        runs it under the dispatch watchdog (``parallel/multihost.py``)."""
+        return fn()
 
     def _force(self, count_dev) -> int:
         """Force an on-device count under the dispatch watchdog — the
@@ -1584,7 +1600,7 @@ class Controller:
                 ):
                     continue
                 with spans.span("gol.cycle_probe.issue", turn=issued_turn):
-                    probe_flag = self.backend.cycle_probe_async(board)
+                    probe_flag = self._issue(lambda: self.backend.cycle_probe_async(board))
             if issued_turn >= p.turns:
                 break
             k = min(superstep, p.turns - issued_turn)
@@ -1598,7 +1614,8 @@ class Controller:
                     k=k,
                     tier=self._tier,
                 ):
-                    new_board, count_dev = self.backend.run_turns_async(board, k)
+                    new_board, count_dev = self._issue(
+                        lambda: self.backend.run_turns_async(board, k))
                 self._h_issue_seconds.observe(time.perf_counter() - t0)
             except Exception as e:  # noqa: BLE001 — issue-time failure
                 # Settle what already ran, then apply the retry contract

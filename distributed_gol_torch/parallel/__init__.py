@@ -1,13 +1,14 @@
-"""Sharded execution over a device mesh, in one process.
+"""Sharded execution over a device mesh.
 
 Counterpart of ``distributed_gol_tpu/parallel``: the board is split 2-D
 over a ``(ny, nx)`` mesh of devices (``mesh.py``), each shard exchanges
 halos with its torus neighbours by tensor copies (``halo.py``; the packed
 word-halo engine ``packed_halo.py``; T-deep halos and the K9 kernel
 ``cuda_halo.py``), and alive counts are sums over the shards.  A mesh may
-repeat one device (a virtual mesh); process-spanning meshes
-(``parallel/multihost.py``) are ROADMAP A8.  ``mesh.py`` also keeps the
-process-wide device blacklist.
+repeat one device (a virtual mesh), and a row mesh may span processes
+(``multihost.py``: each process holds its band of strips, and the band's
+edges and the sums cross between processes over gloo).  ``mesh.py`` also
+keeps the process-wide device blacklist.
 """
 
 from distributed_gol_torch.parallel.mesh import make_mesh, mesh_shape_for

@@ -92,6 +92,13 @@ the blocks of ``cuda_adaptive.stripe_reg_plan`` (:func:`tile_reg_plan`,
 (``cuda_adaptive._probing_blocks``).
 The peer form for shards on several devices (ROADMAP B10p) is not
 ported: those meshes take the ppermute forms.
+
+A row mesh that spans processes (``parallel/multihost.py``) takes the
+ppermute forms too (:func:`tier_policy`): each process launches K9-K12 on
+its own strips, and the exchanges of :func:`edge_flags`,
+:func:`edge_intervals` and ``halo.edge_rows`` take the band's end edges
+from the neighbouring ranks; the skip count is summed and the activity
+gathered over the ranks.
 """
 
 from __future__ import annotations
@@ -112,7 +119,8 @@ from distributed_gol_torch.ops.cuda_adaptive import (
     _reg_stitch, _reg_windows, best_reg_plan, device_sms, frontier_blocks, reg_rule, skip_plan)
 from distributed_gol_torch.ops.cuda_packed import TILED_MAX_T, _check_words, _stream
 from distributed_gol_torch.ops.packed import WORD
-from distributed_gol_torch.parallel.halo import ShardedBoard, edge_rows, extend, psum
+from distributed_gol_torch.parallel.halo import (
+    ShardedBoard, edge_rows, extend, neighbour_edges, psum)
 from distributed_gol_torch.parallel.mesh import Mesh
 
 #: Deepest launch the plan asks for: one halo word per side covers it.
@@ -296,14 +304,19 @@ def adaptive_strip_launches(
     return (turns // plan.t) * ny * nx * plan.grid(h_loc)
 
 
-# The JAX package's reason for its ppermute tier on a mesh of several
-# interpret-mode devices (``ici_tier_policy``): the port's CPU shards
-# report it, so that the two packages' run records agree.
+# The JAX package's reasons for its ppermute tier on a mesh of several
+# interpret-mode devices and on a mesh that spans processes
+# (``ici_tier_policy``): the port reports them where they hold, so that
+# the two packages' run records agree.
 INTERPRET_REASON = (
     "interpret-mode multi-device: no remote-DMA emulation "
     "(hermetic coverage runs the loopback/virtual builds — "
     "make_superstep_virtual_2d emulates (ny, nx) on one device; "
     "hardware lowering is gated by tools/hw_compile_gate.py)"
+)
+MULTIHOST_REASON = (
+    "multi-host mesh: the exchange crosses DCN, remote DMA is "
+    "ICI-only (parallel/multihost.py keeps the ppermute form)"
 )
 
 
@@ -318,9 +331,12 @@ def tier_policy(mesh: Mesh, strip: tuple[int, int] | None = None, tile_cap: int 
     hosts a frontier plan (on a 2-D mesh the plan of
     :func:`adaptive_tile_plan`, the geometry the 2-D megakernel will
     ride).  A mesh of several CPU shards gives the JAX package's
-    interpret-mode reason, so the two packages' CPU records agree.  Then
-    the port's own limit: strips or tiles on several CUDA devices (B10p:
-    the peer form is not ported).  Every other mesh takes the tier: a
+    interpret-mode reason, so the two packages' CPU records agree.  A
+    mesh that spans processes gives the JAX package's multi-host reason,
+    whatever cards its strips sit on: the in-kernel tier reads neighbours
+    in place, in memory this process does not hold.  Then the port's own
+    limit: strips or tiles on several CUDA devices (B10p: the peer form
+    is not ported).  Every other mesh takes the tier: a
     (1, 1) mesh on any device (the loopback form) and a row or 2-D mesh
     whose shards share one card."""
     ny, nx = mesh.shape["y"], mesh.shape["x"]
@@ -341,6 +357,8 @@ def tier_policy(mesh: Mesh, strip: tuple[int, int] | None = None, tile_cap: int 
         return False, "forced-ppermute (DGOL_ICI=0)"
     if ny * nx > 1 and all(d.type == "cpu" for d in mesh.flat):
         return False, INTERPRET_REASON
+    if ny * nx > 1 and mesh.spans_ranks:
+        return False, MULTIHOST_REASON
     cards = {(d.type, d.index or 0) for d in mesh.flat}
     if len(cards) > 1:
         shards, form = ("tiles", "tile") if nx > 1 else ("strips", "strip")
@@ -1517,34 +1535,44 @@ def reset_launches() -> None:
 # -- the drivers ------------------------------------------------------------------
 
 
-def edge_flags(flags: list[torch.Tensor]) -> list[torch.Tensor]:
+def edge_flags(flags: list[torch.Tensor], span=None) -> list[torch.Tensor]:
     """The flag exchange of K11: each strip's bitmap (top to bottom)
     extended with its north neighbour's last flag and its south
-    neighbour's first, on its own device (int32[grid + 2])."""
-    ny = len(flags)
-    return [torch.cat([flags[(i - 1) % ny][-1:].to(f.device), f,
-                       flags[(i + 1) % ny][:1].to(f.device)]) for i, f in enumerate(flags)]
+    neighbour's first, on its own device (int32[grid + 2];
+    ``halo.neighbour_edges``, ``span`` for a process-spanning mesh)."""
+    edges = neighbour_edges(flags, lambda f: f[-1:], lambda f: f[:1], span)
+    return [torch.cat([north.to(f.device), f, south.to(f.device)])
+            for f, (north, south) in zip(flags, edges)]
 
 
-def edge_intervals(states: list[torch.Tensor], h_loc: int) -> list[torch.Tensor]:
+def edge_intervals(states: list[torch.Tensor], h_loc: int, span=None) -> list[torch.Tensor]:
     """The interval exchange of K12: each strip's row intervals (rows 0-3
     of its (5, grid) state) extended with its north neighbour's last
     stripe, shifted by -h_loc into this strip's row frame, and its south
-    neighbour's first, shifted by +h_loc (int32[4][grid + 2]).  An empty
-    interval (lo > hi) stays empty: both ends move by the same offset."""
-    ny = len(states)
-    return [torch.cat([states[(i - 1) % ny][:4, -1:].to(s.device) - h_loc, s[:4],
-                       states[(i + 1) % ny][:4, :1].to(s.device) + h_loc], dim=1)
-            for i, s in enumerate(states)]
+    neighbour's first, shifted by +h_loc (int32[4][grid + 2];
+    ``halo.neighbour_edges``, ``span`` for a process-spanning mesh).  An
+    empty interval (lo > hi) stays empty: both ends move by the same
+    offset."""
+    edges = neighbour_edges(states, lambda s: s[:4, -1:], lambda s: s[:4, :1], span)
+    return [torch.cat([north.to(s.device) - h_loc, s[:4], south.to(s.device) + h_loc], dim=1)
+            for s, (north, south) in zip(states, edges)]
 
 
-def probing_launches(strips, rule, plan, nlaunch, launch=None):
+def _gather_activity(acts: list[torch.Tensor], span) -> torch.Tensor:
+    """Per-strip activity vectors in strip order, on the first one's
+    device (every rank's, in rank order, on a process-spanning mesh)."""
+    local = torch.cat([a.to(acts[0].device) for a in acts])
+    return local if span is None else span.gather(local)
+
+
+def probing_launches(strips, rule, plan, nlaunch, launch=None, span=None):
     """``nlaunch`` K11 launches on every strip from a zero bitmap (launch
     0 probes every stripe), each strip writing its buffer of two launches
     ago (the second starts as a copy of the input, which is never
     written).  Returns (strips, skipped, activity): the stable flags after
     each launch summed, and per stripe the launches it was not proved
-    stable, in top-to-bottom order.  ``launch`` replaces the wrapper
+    stable, in top-to-bottom order (over every rank's strips with a
+    ``span``).  ``launch`` replaces the wrapper
     (:func:`strip_probing_launch_plain`: the plain dispatch on any
     device)."""
     launch = launch or strip_probing_launch
@@ -1556,16 +1584,16 @@ def probing_launches(strips, rule, plan, nlaunch, launch=None):
         flags.append(f)
     bufs = [(torch.empty_like(t), t.clone()) for t in strips]
     for k in range(nlaunch):
-        rows = edge_rows(strips, plan.pad)
-        exts = edge_flags([f[k] for f in flags])
+        rows = edge_rows(strips, plan.pad, span)
+        exts = edge_flags([f[k] for f in flags], span)
         strips = [launch(t, n, s, b[k % 2], e, f[k + 1], rule, plan)
                   for t, (n, s), b, e, f in zip(strips, rows, bufs, exts, flags)]
     stats = [cuda_adaptive._probing_stats(f[1:]) for f in flags]
-    return strips, psum(sk for sk, _ in stats), torch.cat([a.to(stats[0][1].device)
-                                                           for _, a in stats])
+    return (strips, psum((sk for sk, _ in stats), span),
+            _gather_activity([a for _, a in stats], span))
 
 
-def frontier_launches(strips, rule, plan, nlaunch, launch=None):
+def frontier_launches(strips, rule, plan, nlaunch, launch=None, span=None):
     """``nlaunch`` K12 launches on every strip, the first from full
     intervals, each strip writing its buffer of two launches ago.  Returns
     (strips, skipped, activity) as :func:`probing_launches` does;
@@ -1575,15 +1603,14 @@ def frontier_launches(strips, rule, plan, nlaunch, launch=None):
     states = [FrontierState.start(h_loc, plan, t.device) for t in strips]
     bufs = [(torch.empty_like(t), torch.empty_like(t)) for t in strips]
     for k in range(nlaunch):
-        rows = edge_rows(strips, plan.pad_f)
-        exts = edge_intervals([st.prev for st in states], h_loc)
+        rows = edge_rows(strips, plan.pad_f, span)
+        exts = edge_intervals([st.prev for st in states], h_loc, span)
         strips = [launch(t, n, s, b[k % 2], e, st, rule, plan)
                   for t, (n, s), b, e, st in zip(strips, rows, bufs, exts, states)]
         for st in states:
             st.advance()
-    dev = states[0].act.device
-    return (strips, psum(st.skipped[0] for st in states),
-            torch.cat([st.act.to(dev) for st in states]))
+    return (strips, psum((st.skipped[0] for st in states), span),
+            _gather_activity([st.act for st in states], span))
 
 
 def mega_launches(strips, rule, plan: AdaptivePlan, full: int):
@@ -1756,9 +1783,11 @@ def make_superstep(mesh: Mesh, rule: LifeRule = CONWAY, skip_stable: bool = Fals
             if plan.frontier and in_kernel_tier:
                 strips, skipped, act = mega_launches(strips, rule, plan, full)
             elif plan.frontier:
-                strips, skipped, act = frontier_launches(strips, rule, plan, full)
+                strips, skipped, act = frontier_launches(strips, rule, plan, full,
+                                                         span=mesh.span)
             else:
-                strips, skipped, act = probing_launches(strips, rule, plan, full)
+                strips, skipped, act = probing_launches(strips, rule, plan, full,
+                                                        span=mesh.span)
             board = ShardedBoard(board.mesh, [[t] for t in strips])
         rem6 = rem - rem % SKIP_PERIOD
         if rem6:

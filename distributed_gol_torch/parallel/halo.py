@@ -18,6 +18,12 @@ is single-controller SPMD: one process, a ``Mesh``, ``shard_map`` and
 - The alive count is the sum of the per-shard counts (:func:`psum`,
   :meth:`ShardedBoard.reduce`); :class:`WholeBoard` gives a one-device
   board the same methods.
+- A row mesh may span processes (``mesh.span``, ``parallel/multihost.py``):
+  a board then holds this process's strips alone.  Every row exchange
+  looks its neighbours' edges up in one place, :func:`neighbour_edges`,
+  which takes the two edges at the band's ends from the neighbouring
+  ranks; sums, gathers and windows combine the ranks' parts the same way
+  (``RankSpan``).  A mesh in one process takes none of these collectives.
 
 Nothing here writes a shard it has read: every generation or launch
 builds fresh extended blocks and fresh output shards, so shards that share
@@ -59,8 +65,10 @@ class ShardedBoard:
 
     @property
     def shape(self) -> tuple[int, int]:
+        """The whole board's shape (on a process-spanning mesh, every
+        rank's strips)."""
         h, w = self.shard_shape
-        return h * len(self.shards), w * len(self.shards[0])
+        return h * self.mesh.shape["y"], w * len(self.shards[0])
 
     @property
     def flat(self) -> list[torch.Tensor]:
@@ -73,25 +81,33 @@ class ShardedBoard:
 
     def gather(self, device=None) -> torch.Tensor:
         """The whole board as one tensor on ``device`` (default: the first
-        shard's device)."""
+        shard's device); on a process-spanning mesh every rank gets it
+        (an allgather)."""
         device = self.shards[0][0].device if device is None else torch.device(device)
         rows = [torch.cat([t.to(device) for t in row], dim=1) for row in self.shards]
-        return torch.cat(rows, dim=0)
+        band = torch.cat(rows, dim=0)
+        return band if self.mesh.span is None else self.mesh.span.gather(band)
 
     def reduce(self, fn) -> torch.Tensor:
         """The sum over the shards of ``fn(shard, y0, x0)``, each computed on
         its own device with the shard's offset in the whole board, on the
-        first shard's device (``lax.psum`` of a per-shard reduction)."""
+        first shard's device (``lax.psum`` of a per-shard reduction; on a
+        process-spanning mesh, over every rank's shards)."""
         h, w = self.shard_shape
-        return psum(fn(t, iy * h, ix * w)
-                    for iy, row in enumerate(self.shards) for ix, t in enumerate(row))
+        y0 = self.mesh.y0
+        return psum((fn(t, (y0 + iy) * h, ix * w)
+                     for iy, row in enumerate(self.shards) for ix, t in enumerate(row)),
+                    self.mesh.span)
 
     def equal(self, other: "ShardedBoard") -> torch.Tensor:
         """Unsynced 0-d bool: ``other`` (on the same mesh) holds the same
-        board."""
+        board (on a process-spanning mesh, on every rank)."""
         dev = self.shards[0][0].device
-        return torch.stack([torch.all(a == b).to(dev)
+        same = torch.stack([torch.all(a == b).to(dev)
                             for a, b in zip(self.flat, other.flat)]).all()
+        if self.mesh.span is None:
+            return same
+        return self.mesh.span.sum((~same).to(torch.int32)) == 0
 
     def rows(self, start: int, n: int) -> torch.Tensor:
         """Rows ``start .. start + n - 1`` of the whole board, taken modulo
@@ -109,11 +125,24 @@ class ShardedBoard:
         h, w = self.shard_shape
         height, width = self.shape
         dev = self.shards[0][0].device
-        return torch.cat([
-            torch.cat([self.shards[iy][ix][r : r + nr, c : c + nc].to(dev)
-                       for ix, c, nc in _spans(x0, vw, w, width)], dim=1)
-            for iy, r, nr in _spans(y0, vh, h, height)
-        ], dim=0)
+
+        def piece(iy, r, nr):
+            return torch.cat([self.shards[iy][ix][r : r + nr, c : c + nc].to(dev)
+                              for ix, c, nc in _spans(x0, vw, w, width)], dim=1)
+
+        span = self.mesh.span
+        if span is None:
+            return torch.cat([piece(iy, r, nr) for iy, r, nr in _spans(y0, vh, h, height)],
+                             dim=0)
+        # Each rank writes the window's rows it holds into zeros; every
+        # row is some one rank's, so the sum over ranks is the window.
+        out = torch.zeros((vh, vw), dtype=self.shards[0][0].dtype, device=dev)
+        at = 0
+        for iy, r, nr in _spans(y0, vh, h, height):
+            if 0 <= iy - self.mesh.y0 < len(self.shards):
+                out[at : at + nr] = piece(iy - self.mesh.y0, r, nr)
+            at += nr
+        return span.sum(out)
 
     def pool(self, fy: int, fx: int) -> torch.Tensor:
         """``ops.stencil.frame_pool`` of the whole board by (fy, fx), on
@@ -123,7 +152,10 @@ class ShardedBoard:
         row or column each; the partials of one window from neighbouring
         shards then meet in the output under a max.  Cells are never
         negative, so that equals the zero padding ``frame_pool`` puts past
-        the board's bottom and right edges."""
+        the board's bottom and right edges.  Not on a process-spanning
+        mesh: multi-host runs are headless."""
+        if self.mesh.span is not None:
+            raise NotImplementedError("multi-host runs are headless: no pooled frames")
         h, w = self.shard_shape
         height, width = self.shape
         dev = self.shards[0][0].device
@@ -217,7 +249,7 @@ class BoardSharding:
 
     def shard(self, board: torch.Tensor) -> ShardedBoard:
         """Split a whole board into its mesh shards, each moved to its
-        device."""
+        device (on a process-spanning mesh, this rank's band of them)."""
         ny, nx = self.mesh.shape["y"], self.mesh.shape["x"]
         h, w = board.shape
         if h % ny or w % nx:
@@ -226,7 +258,7 @@ class BoardSharding:
         return ShardedBoard(self.mesh, [
             [board[iy * hl : (iy + 1) * hl, ix * wl : (ix + 1) * wl].contiguous().to(dev)
              for ix, dev in enumerate(row)]
-            for iy, row in enumerate(self.mesh.devices)
+            for iy, row in enumerate(self.mesh.devices, start=self.mesh.y0)
         ])
 
 
@@ -242,15 +274,33 @@ def _shift_perm(axis_size: int, forward: bool) -> list[tuple[int, int]]:
     return [(i, (i - 1) % axis_size) for i in range(axis_size)]
 
 
-def psum(values) -> torch.Tensor:
+def psum(values, span=None) -> torch.Tensor:
     """The sum of per-shard values (0-d or 1-d tensors, possibly on
-    several devices), on the first one's device — ``lax.psum``."""
+    several devices), on the first one's device — ``lax.psum``; with a
+    ``span`` (``mesh.RankSpan``), summed over the ranks too."""
     values = list(values)
     dev = values[0].device
     total = values[0]
     for v in values[1:]:
         total = total + v.to(dev)
-    return total
+    return total if span is None else span.sum(total)
+
+
+def neighbour_edges(items: list, last, first, span=None) -> list:
+    """The one lookup of a neighbour's edge on a row mesh: for each of
+    ``items`` (one per strip, top to bottom: the strips, their skip flags
+    or their row intervals), ``(last(its north neighbour), first(its south
+    neighbour))``, each on the neighbour's device (a self-send when there
+    is one strip: the torus wrap).  On a process-spanning mesh (``span``)
+    the first item's north neighbour and the last one's south neighbour
+    are the neighbouring ranks' last and first items, whose edges cross
+    by ``span.exchange``."""
+    n = len(items)
+    if span is None:
+        return [(last(items[(i - 1) % n]), first(items[(i + 1) % n])) for i in range(n)]
+    top, bottom = span.exchange(last(items[-1]), first(items[0]))
+    return list(zip([top] + [last(t) for t in items[:-1]],
+                    [first(t) for t in items[1:]] + [bottom]))
 
 
 def extend(board: ShardedBoard, pad: int, xpad: int) -> list[list[torch.Tensor]]:
@@ -272,12 +322,12 @@ def extend(board: ShardedBoard, pad: int, xpad: int) -> list[list[torch.Tensor]]
             ext[iy][ix][pad : pad + h, cols].copy_(src[iy][ix])
     # My last rows are my south neighbour's north halo, and my first rows
     # my north neighbour's south halo.
-    for s, d in _shift_perm(ny, forward=True):
-        for ix in range(nx):
-            ext[d][ix][:pad, cols].copy_(src[s][ix][-pad:])
-    for s, d in _shift_perm(ny, forward=False):
-        for ix in range(nx):
-            ext[d][ix][pad + h :, cols].copy_(src[s][ix][:pad])
+    for ix in range(nx):
+        edges = neighbour_edges([row[ix] for row in src], lambda t: t[-pad:],
+                                lambda t: t[:pad], board.mesh.span)
+        for iy, (north, south) in enumerate(edges):
+            ext[iy][ix][:pad, cols].copy_(north)
+            ext[iy][ix][pad + h :, cols].copy_(south)
     if xpad:
         for s, d in _shift_perm(nx, forward=True):
             for iy in range(ny):
@@ -288,19 +338,20 @@ def extend(board: ShardedBoard, pad: int, xpad: int) -> list[list[torch.Tensor]]
     return ext
 
 
-def edge_rows(strips: list[torch.Tensor], n: int) -> list[tuple[torch.Tensor, torch.Tensor]]:
+def edge_rows(strips: list[torch.Tensor], n: int,
+              span=None) -> list[tuple[torch.Tensor, torch.Tensor]]:
     """The row exchange of a row mesh without the extended blocks: for
     each strip (top to bottom), ``(north, south)`` — its north
     neighbour's last ``n`` rows and its south neighbour's first ``n``,
-    on its own device (a self-send when there is one strip: the torus
-    wrap).  A neighbour on the same device gives a view, on another a
-    copy; the strips' kernels read them and write other buffers."""
-    ny = len(strips)
+    on its own device (:func:`neighbour_edges`; ``span`` for a
+    process-spanning mesh).  A neighbour on the same device gives a view,
+    on another a copy; the strips' kernels read them and write other
+    buffers."""
     h = strips[0].shape[0]
     if not 1 <= n <= h:
         raise ValueError(f"an exchange of {n} rows does not fit a strip of {h}")
-    return [(strips[(i - 1) % ny][-n:].to(t.device), strips[(i + 1) % ny][:n].to(t.device))
-            for i, t in enumerate(strips)]
+    edges = neighbour_edges(strips, lambda t: t[-n:], lambda t: t[:n], span)
+    return [(north.to(t.device), south.to(t.device)) for t, (north, south) in zip(strips, edges)]
 
 
 def _exchange_and_extend(board: ShardedBoard) -> list[list[torch.Tensor]]:
@@ -324,7 +375,7 @@ def _step(board: ShardedBoard, table: torch.Tensor) -> ShardedBoard:
 
 
 def _local_count(board: ShardedBoard) -> torch.Tensor:
-    return psum(torch.sum(t & 1, dtype=torch.int32) for t in board.flat)
+    return psum((torch.sum(t & 1, dtype=torch.int32) for t in board.flat), board.mesh.span)
 
 
 def sharded_step(mesh: Mesh):

@@ -9,6 +9,8 @@ when there are too few: it never shrinks the mesh and never moves to the
 CPU.  An explicit ``devices`` list may name one device several times: the
 virtual mesh, whose shards all live on one card (or on the CPU), the
 counterpart of the JAX package's ``--xla_force_host_platform_device_count``.
+A :class:`RankSpan` makes a row mesh span processes: each holds its own
+band of strips, and the span carries the edges and sums between them.
 
 The health half: a device a supervisor condemns (:func:`condemn`) stays out
 of every later default-built mesh (:func:`healthy_devices`); the serving
@@ -31,6 +33,7 @@ import math
 import threading
 
 import torch
+import torch.distributed as dist
 
 AXES = ("y", "x")
 
@@ -203,18 +206,102 @@ def probe_devices(
     return healthy, condemned
 
 
+#: ``torch.distributed`` tags of the two directions of a rank-crossing
+#: edge exchange: with two ranks the north and the south neighbour are
+#: the same rank, and the tag keeps its two messages apart.
+_SOUTHWARD, _NORTHWARD = 0, 1
+
+
+@dataclasses.dataclass(frozen=True)
+class RankSpan:
+    """Where a process-spanning row mesh lies: ``world`` processes
+    (``torch.distributed`` ranks) hold ``local`` consecutive strips each,
+    rank ``rank`` the strips ``y0 .. y0 + local - 1`` of ``ny``.  Its
+    methods are the transport (gloo, on CPU tensors: a CUDA value is
+    staged through host memory) and are collectives: every rank calls
+    them in the same order.  With ``world == 1`` they move nothing."""
+
+    rank: int
+    world: int
+    local: int
+
+    @property
+    def y0(self) -> int:
+        return self.rank * self.local
+
+    @property
+    def ny(self) -> int:
+        return self.world * self.local
+
+    def exchange(self, southward: torch.Tensor, northward: torch.Tensor):
+        """Send ``southward`` to the next rank and ``northward`` to the
+        previous one (the torus wraps); returns ``(from_north,
+        from_south)``, what the previous rank sent south and the next one
+        sent north, on ``southward``'s device.  Every rank sends the same
+        shapes."""
+        if self.world == 1:
+            return southward, northward
+        south, north = (self.rank + 1) % self.world, (self.rank - 1) % self.world
+        send_s, send_n = southward.cpu().contiguous(), northward.cpu().contiguous()
+        from_n, from_s = torch.empty_like(send_s), torch.empty_like(send_n)
+        works = [dist.irecv(from_n, north, tag=_SOUTHWARD),
+                 dist.irecv(from_s, south, tag=_NORTHWARD),
+                 dist.isend(send_s, south, tag=_SOUTHWARD),
+                 dist.isend(send_n, north, tag=_NORTHWARD)]
+        for w in works:
+            w.wait()
+        dev = southward.device
+        return from_n.to(dev), from_s.to(dev)
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of every rank's ``t`` (same shape everywhere), on
+        ``t``'s device."""
+        if self.world == 1:
+            return t
+        buf = t.to("cpu", copy=True)
+        dist.all_reduce(buf)
+        return buf.to(t.device)
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``t`` (same shape everywhere) concatenated along
+        dim 0 in rank order, on ``t``'s device."""
+        if self.world == 1:
+            return t
+        buf = t.cpu().contiguous()
+        parts = [torch.empty_like(buf) for _ in range(self.world)]
+        dist.all_gather(parts, buf)
+        return torch.cat(parts).to(t.device)
+
+
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """A ``(ny, nx)`` grid of devices with axes ``("y", "x")``: shard
     ``(iy, ix)`` of a board lives on ``devices[iy][ix]``.  A device may
-    appear more than once (a virtual mesh)."""
+    appear more than once (a virtual mesh).
+
+    ``span`` marks a process-spanning row mesh
+    (``parallel/multihost.py``): ``devices`` then holds this process's
+    strips alone, rows ``span.y0 ..`` of the ``span.ny`` that ``shape``
+    counts."""
 
     devices: tuple[tuple[torch.device, ...], ...]
+    span: RankSpan | None = None
 
     @property
     def shape(self) -> dict[str, int]:
         """``{"y": ny, "x": nx}``, as ``jax.sharding.Mesh.shape``."""
-        return {"y": len(self.devices), "x": len(self.devices[0])}
+        ny = self.span.ny if self.span is not None else len(self.devices)
+        return {"y": ny, "x": len(self.devices[0])}
+
+    @property
+    def y0(self) -> int:
+        """The mesh row of ``devices[0]``: 0 unless the mesh spans ranks."""
+        return 0 if self.span is None else self.span.y0
+
+    @property
+    def spans_ranks(self) -> bool:
+        """Whether the strips lie in more than one process."""
+        return self.span is not None and self.span.world > 1
 
     @property
     def flat(self) -> list[torch.device]:

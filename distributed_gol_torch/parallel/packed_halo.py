@@ -12,7 +12,9 @@ exchange as ``parallel/halo.py`` (neighbour-only copies over the
 - Corners ride along by exchanging columns of the row-extended block.
 
 Bit-identical to ``ops/packed.py`` on any mesh shape (a 1-sized axis
-copies a shard's own edge, which IS the torus wrap).  One exchange per
+copies a shard's own edge, which IS the torus wrap), and on a row mesh
+that spans processes (the row halos and the count cross ranks in
+``parallel/halo.py``).  One exchange per
 generation: the temporally blocked form is ``parallel/cuda_halo.py``.
 """
 
@@ -66,7 +68,7 @@ def _step(board: ShardedBoard, rule: LifeRule) -> ShardedBoard:
 
 
 def _local_count(board: ShardedBoard, dtype) -> torch.Tensor:
-    return psum(packed.popcount(t).sum().to(dtype) for t in board.flat)
+    return psum((packed.popcount(t).sum().to(dtype) for t in board.flat), board.mesh.span)
 
 
 def sharded_superstep(mesh: Mesh, rule: LifeRule):

@@ -38,13 +38,6 @@ def test_cli_without_gpu_names_it_and_fails(tmp_path):
     assert not (tmp_path / "t").exists()
 
 
-def test_cli_refuses_unported_flags(tmp_path):
-    r = cli("distributed_gol_torch", *ARGS, "--device", "cpu", "--num-processes", "2",
-            cwd=tmp_path)
-    assert r.returncode == 2
-    assert "ROADMAP A8" in r.stderr
-
-
 def test_cli_mesh_pgm_matches_jax_cli(tmp_path):
     t = cli("distributed_gol_torch", *ARGS, "--device", "cpu", "--mesh", "2x2",
             "--out-dir", "t", cwd=tmp_path)

@@ -516,5 +516,6 @@ def test_port_sockets_all_carry_a_deadline(monkeypatch):
     found = lint.sites()
     assert found and all(has_deadline for *_, has_deadline in found)
     assert {rel for rel, *_ in found} == {
-        "distributed_gol_torch/__main__.py", "distributed_gol_torch/serve/podclient.py",
-        "distributed_gol_torch/serve/ws.py", "distributed_gol_torch/testing/netchaos.py"}
+        "distributed_gol_torch/__main__.py", "distributed_gol_torch/parallel/multihost.py",
+        "distributed_gol_torch/serve/podclient.py", "distributed_gol_torch/serve/ws.py",
+        "distributed_gol_torch/testing/netchaos.py"}

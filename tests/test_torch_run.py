@@ -198,25 +198,6 @@ def test_parked_checkpoints_are_byte_identical(tmp_path):
 
 
 @pytest.mark.parametrize(
-    "argv,item",
-    [
-        (["--coordinator", "127.0.0.1:1234"], "A8"),
-        (["--num-processes", "2"], "A8"),
-    ],
-    ids=["coordinator", "num-processes"],
-)
-def test_unported_requests_raise(argv, item):
-    """What the port still refuses, naming its ROADMAP item: multi-host
-    runs.  (A mesh with a viewer, once refused for A11, runs:
-    ``tests/test_torch_viewer_mesh.py``.)"""
-    from distributed_gol_torch.__main__ import _refuse_cli_unported, build_parser
-
-    tgol.Params(device="cpu", mesh_shape=(2, 2), no_vis=False)
-    with pytest.raises(NotImplementedError, match=item):
-        _refuse_cli_unported(build_parser().parse_args(argv))
-
-
-@pytest.mark.parametrize(
     "kw",
     [
         dict(time_compression=True, turns=10**6 + 5, turn_events="batch"),

@@ -26,7 +26,6 @@ torch.set_num_threads(1)
 # Names of the JAX package the port does not serve yet, by module, each
 # with its ROADMAP item (the refusals name the same items).
 NOT_YET = {
-    "__main__": {"run_multihost": "A8"},
     # Dropped on purpose: a jax NamedSharding has no counterpart.
     "parallel.packed_halo": {"packed_sharding": "none"},
 }

@@ -13,8 +13,8 @@ latter), whose final boards must equal an ``engine="packed"`` rerun, and
 a 16384² soup x 100,000 turns, where ``skip_stable`` engages by itself and
 whose final board must equal a ``skip_stable=False`` rerun.  Then the
 viewer paths, where ``auto`` takes the byte kernel: per-cell flips of the
-512² board x 2, pooled full-board frames of the 16384² soup x 500, a
-1024² viewport of it x 1,000 with delta frames and pan/zoom keys, and the
+512² board x 2, pooled full-board frames of the 16384² soup x 250, a
+1024² viewport of it x 500 with delta frames and pan/zoom keys, and the
 CLI's terminal viewer in a subprocess (and, traced, one generation of a
 128² soup, for its count of K6 launches); each final board must equal a
 headless ``engine="packed"`` rerun and each stream must rebuild its final
@@ -112,7 +112,7 @@ two ranks of the CLI (``--coordinator``; ``rank_main``, each in its own
 process with the card as its one device, so the mesh (2, 1) spans them,
 gloo staging the edges through host memory): (s1) the 16384² soup x
 2,000 at superstep 200 (K9 on each rank), process 0's PGM equal to path
-(a)'s; (s2) the soup x 20,000 with ``--skip-stable`` at superstep 0 (K12
+(a)'s; (s2) the soup x 10,000 with ``--skip-stable`` at superstep 0 (K12
 on each rank's 8192-row strip, the K10 and K9 remainders), the PGM equal
 to a one-device skip_stable run's and process 0's skip count, dispatch
 by dispatch, to the same dispatches' on one process; (s3) a 512² soup
@@ -120,9 +120,31 @@ with a 0.2 s peer heartbeat and a checkpoint every 100 turns, rank 1
 SIGKILLed after the first checkpoint, rank 0 ending with PeerLost within
 its bound, the newest checkpoint resumed on one device to the
 never-killed run's PGM; no rank launches K14 or K15, and each leg prints
-its wall-clock, each rank's start-up, launches and exchange ms.  Every run
+its wall-clock, each rank's start-up, launches and exchange ms.  And the
+flagship board, (t): a seeded 65536² soup (4 GiB a board, made on the
+card and read by every leg as its input PGM) through ``gol.run``: (t1) x
+2,000 on one device (K2), its PGM checked against the run's own final
+board, and x 256 on K2 beside ``engine="packed"``; (t2) x 100,000 where
+``skip_stable`` engages by itself (K5, K4, K3) beside a K2 rerun; (t3)
+both on BASELINE config 4's (4, 1) layout as a virtual mesh (K14, K11,
+K10, K9; K9), held to (t2) and (t1); (t4) a 1024² viewport that wraps
+the torus on both axes x 200 at stride 1 (K6), every frame held to its
+light cone stepped on the roll engine; (t5) x 2,000 supervised with an
+SDC check every 500 turns, a checkpoint every 1,000 and one corrupt,
+rolled back once and equal to (t1); (t6) a 0.6 soup (past 2^31 alive) x
+10 on one device and (4, 1), its turn-0 count read from the ticker while
+paused and its final count from the PGM.  Each leg prints its run and
+dispatch-loop gens/s, launches, host passes and peak
+``max_memory_allocated``, which must stay below half the card's memory;
+the packing passes those legs run beside the kernels (``ops/packed.py``,
+the alive counts, the SDC fingerprint) are held to numpy on the card
+first (``check_packing``), and phase 4 holds K2, K5, K9 and K14 to their
+plain versions at the flagship's shapes and times them there
+(``flagship_kernels``).  ``--flagship`` runs the build, ``check_packing``,
+path (t) and ``flagship_kernels`` alone (``--profile`` adds traces of (t1)
+and of (t2)'s K2 rerun).  Every run
 row is published as ``{reps, median, spread}`` (``utils/measure.py``; a
-run under 5 s is repeated to 3 runs) and the record is linted with
+run under 5 s is repeated to 2 runs) and the record is linted with
 ``measure.require_headline_stats`` before it prints.  It
 checks that every kernel of each path launched in it, times every kernel
 against its plain version and its bound (and a viewer turn's parts at
@@ -186,6 +208,7 @@ import collections
 import contextlib
 import dataclasses
 import functools
+import gc
 import io
 import json
 import os
@@ -378,6 +401,9 @@ STENCIL_ODD = (1004, 3076)  # W % 128 != 0 and H % 8 != 0: refused by the TPU ga
 # warp's 30 centre words, and a ragged last run and column group.
 STENCIL_SHAPES = (STENCIL_ODD, (1, 4), (3, 100), (7, 20), (1, 48), (33, 132), (130, 4096))
 VIEWPORT = (8000, 8000, 1024, 1024)  # the viewport path's starting rect
+# Depth of the 16384² frames viewer and of the viewport path, whose keys
+# land at a quarter, a half and three quarters of it.
+FRAME_TURNS, VIEW_TURNS = 250, 500
 # Depth of the two per-cell flip paths (512²: the run and the CLI).  Each
 # CellFlipped event costs the host of an H100 machine about 20 µs while
 # the stream is consumed (PERF.md), and the seeded board and its first 2
@@ -419,14 +445,14 @@ TILE_PLAN_LESS = (520, 1024, 3_000)
 # K15's checks: the 16384² soup split (2, 2), (2, 4) and (1, 2) (north and
 # south the tile itself, west and east one tile).
 TILE_MEGA_MESHES = (MESH_H, MESH_J, (1, 2))
-# K14's and K15's 64-launch chunks against their plain versions (about 4 s
-# each), by (first mesh, board): the boards whose skip state and gliders
-# carry across launches.  Every board's 64-launch K14 chunk is also held to
+# K14's and K15's 32-launch chunks against their plain versions, by
+# (first mesh, board): the boards whose skip state and gliders carry
+# across launches.  Every board's 64-launch K14 chunk is also held to
 # K5 on the whole board, and every board to 8-launch chunks of three rules.
-LONG_RUNS = {(True, "settled"): [(CONWAY, 64)], (True, "seam"): [(CONWAY, 64)]}
+LONG_RUNS = {(True, "settled"): [(CONWAY, 32)], (True, "seam"): [(CONWAY, 32)]}
 # Every run row is published as {reps, median, spread} (utils/measure.py):
 # a run shorter than REP_SECONDS is repeated to REPS runs.
-REPS, REP_SECONDS = 3, 5.0
+REPS, REP_SECONDS = 2, 5.0
 # The resilience paths.  (m) time compression on the 16384² soup x
 # LONG_TURNS (its last gliders die by about turn 20,000, and the whole
 # board repeats with period 6 from there).  (n) the 16384² soup x 2,000
@@ -492,10 +518,37 @@ R_KERNELS = ("tiled", "resident")
 # checkpoint lands.  S_LEG_SECONDS bounds each leg's children.
 S_RANKS = 2
 S1_TURNS, S1_STEP = 2_000, 200
-S2_TURNS = 20_000
+S2_TURNS = 10_000
 S3_SIDE, S3_TURNS, S3_STEP, S3_HEARTBEAT, S3_CKPT = 512, 50_000, 100, 0.2, 100
 S_LEG_SECONDS = 300
 S_KERNELS = ("ext", "ext_skip", "strip_frontier")
+
+# Path (t), the flagship board (``utils/soup.py``; BASELINE config 4: a
+# 65536² board over a (4, 1) mesh) on the one card, through ``gol.run``:
+# (t1) one device x T1_TURNS (K2), and T1_PLAIN_TURNS on K2 beside the same
+# on ``engine="packed"`` (the plain engine, 25 ms a generation at this
+# size on an H100 80GB HBM3 at 700 W, PERF.md); (t2) x LONG_TURNS (auto skip_stable: K5, K4, K3) beside a
+# ``skip_stable=False`` rerun on K2; (t3) both on T_MESH, a virtual mesh of
+# the card (K14 chunks, K11, K10, K9; and K9), held to (t2)'s and (t1)'s
+# boards; (t4) the viewport T4_RECT, which wraps the torus on both axes, x
+# T4_TURNS at stride 1 (K6), each frame against the same turn's crop
+# stepped on the roll engine from the rect's light cone; (t5) x T1_TURNS
+# supervised: superstep T5_STEP, an SDC check every T5_STEP turns, a
+# checkpoint every T5_CKPT, one corrupt (T5_FAULT) rolled back; (t6) a
+# T6_DENSITY soup (past T6_PAST alive) x T6_TURNS on one device and on
+# T_MESH, paused T6_PAUSE polls at turn 0 so that the ticker (T6_TICK s)
+# reports the turn-0 count.  Each soup is made once, written as the legs'
+# input PGM and deleted after its last leg; every leg's peak device
+# memory must stay below half of the card's.
+FLAG = 65536
+T_SEED, T6_SEED = 7, 11
+T1_TURNS, T1_PLAIN_TURNS = 2_000, 256
+T_MESH = (4, 1)
+T4_RECT, T4_TURNS = (FLAG - 512, FLAG - 512, 1024, 1024), 200
+T5_STEP, T5_CKPT, T5_FAULT = 500, 1_000, Fault(2, "corrupt", cells=3)
+T6_DENSITY, T6_TURNS, T6_TICK, T6_PAUSE, T6_PAST = 0.6, 10, 0.05, 20, 2**31
+# Rows of the card's soup a block (``flagship_packed``).
+FLAG_ROWS = 2048
 
 
 def virtual(mesh_shape: tuple, device) -> list:
@@ -685,6 +738,13 @@ def stencil_bound_ms(h: int, w: int, int_rate: float):
     ``STENCIL_OPS_PER_CELL`` integer instructions per cell over the int32
     rate; the larger, and which."""
     return larger_ms(2 * h * w / HBM_BYTES_PER_S, h * w * STENCIL_OPS_PER_CELL / int_rate)
+
+
+def card_int_rate() -> float:
+    """The card's int32 instruction rate: its SMs x ``INT32_LANES_PER_SM``
+    lanes x its maximum SM clock."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * INT32_LANES_PER_SM * float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
 
 
 def build_kernels() -> None:
@@ -1561,7 +1621,7 @@ def check_strip_mega(device, errs: dict, boards: dict) -> dict:
     (``seam_gliders``), through ``check_mega_chunks``: chunks of 8
     launches under both rules and Day & Night (K14's generic
     instantiation, which must have run) and, on the settled and seam
-    strips, of 64 under Conway (``LONG_RUNS``), then launch by launch; on
+    strips, of 32 under Conway (``LONG_RUNS``), then launch by launch; on
     (2, 1) and (1, 1) only the fresh
     and seam strips, in chunks of 8 under Conway and Day & Night; and
     the 8-launch chunk
@@ -1802,7 +1862,7 @@ def check_tile_mega(errs: dict, boards: dict) -> dict:
     neighbours are one tile), through ``check_mega_chunks``: on (2, 2)
     chunks of 8 launches under both rules and Day & Night (K15's generic
     instantiation, which must have run) and, on the settled and seam
-    tiles, of 64 under Conway (``LONG_RUNS``), on (2, 4)
+    tiles, of 32 under Conway (``LONG_RUNS``), on (2, 4)
     and (1, 2) the fresh and seam tiles in chunks of 8 under Conway and
     Day & Night; then launch by launch.  On (2, 2) the 8-launch chunk must also equal
     K15's mirror run on the card (its blocks and its elision of edge
@@ -1931,10 +1991,10 @@ class Sink:
 
 
 def stream_run(params: gol.Params, sink: Sink, keys=None, session=None, devices=None,
-               events=None, backend_factory=None, backend=None):
+               events=None, backend_factory=None, backend=None, read_final: bool = True):
     """One ``gol.run`` on the engine thread while this thread consumes the
     stream as it is produced, as the CLI does; returns (seconds, final PGM
-    bytes or None).  ``devices`` places the board (a virtual mesh): the run
+    bytes or None; with ``read_final=False`` its path or None).  ``devices`` places the board (a virtual mesh): the run
     gets ``backend=Backend(params, devices)``; ``backend`` and
     ``backend_factory`` are ``gol.run``'s (the first attempt's Backend, the
     supervisor's rebuild seam); ``events`` replaces the run's
@@ -1953,7 +2013,9 @@ def stream_run(params: gol.Params, sink: Sink, keys=None, session=None, devices=
     seconds = time.perf_counter() - t0
     engine.join(timeout=60)
     final = params.out_dir / f"{params.final_output_name}.pgm"
-    return seconds, (final.read_bytes() if final.is_file() else None)
+    if not final.is_file():
+        return seconds, None
+    return seconds, (final.read_bytes() if read_final else final)
 
 
 def drive(name: str, params: gol.Params, kernels: tuple, launches: dict, reference,
@@ -2100,21 +2162,23 @@ def viewer_paths(images: Path, tmp: Path, launches: dict, device) -> dict:
     log(f"flips: the shadow board of {sink.flips} CellFlipped events equals the final alive set")
     alive_512 = len(sink.final.alive)
 
-    frame_p = gol.Params(turns=500, image_width=BIG, image_height=BIG, soup_density=0.3,
-                         soup_seed=7, no_vis=False, out_dir=tmp / "frames", ticker_period=3600)
+    frame_p = gol.Params(turns=FRAME_TURNS, image_width=BIG, image_height=BIG,
+                         soup_density=0.3, soup_seed=7, no_vis=False, out_dir=tmp / "frames",
+                         ticker_period=3600)
     if not frame_p.wants_frames():
         raise AssertionError(f"a {BIG}^2 viewer run is not fed frames")
-    e2e[f"frames_{BIG}x{BIG}x500"], sink = viewer_drive(f"frames {BIG}^2 x 500", frame_p,
-                                                        launches, headless)
+    e2e[f"frames_{BIG}x{BIG}x{FRAME_TURNS}"], sink = viewer_drive(
+        f"frames {BIG}^2 x {FRAME_TURNS}", frame_p, launches, headless)
     want = stencil.frame_pool(final_board(frame_p, device), *sink.factors).cpu().numpy()
     if not np.array_equal(sink.view, want):
         raise AssertionError("the last frame differs from frame_pool of the final board")
     log(f"frames: the last of {sink.frames} frames equals frame_pool{sink.factors} of the final board")
 
-    roi = dataclasses.replace(frame_p, turns=1000, viewport=VIEWPORT, out_dir=tmp / "viewport")
-    keys = KeysAfter({250: "d", 500: "+", 750: "-"})
-    e2e[f"viewport_{BIG}x{BIG}x1000"], sink = viewer_drive(
-        f"viewport {BIG}^2 x 1000", roi, launches, headless, keys=keys)
+    roi = dataclasses.replace(frame_p, turns=VIEW_TURNS, viewport=VIEWPORT,
+                              out_dir=tmp / "viewport")
+    keys = KeysAfter({VIEW_TURNS // 4: "d", VIEW_TURNS // 2: "+", 3 * VIEW_TURNS // 4: "-"})
+    e2e[f"viewport_{BIG}x{BIG}x{VIEW_TURNS}"], sink = viewer_drive(
+        f"viewport {BIG}^2 x {VIEW_TURNS}", roi, launches, headless, keys=keys)
     crop = stencil.viewport(final_board(roi, device), *sink.rect)
     want = stencil.frame_pool(crop, *sink.factors).cpu().numpy()
     if sink.rect == VIEWPORT or not np.array_equal(sink.view, want):
@@ -3795,6 +3859,484 @@ def multihost_path(tmp: Path, straight: bytes, launches: dict, device, card: str
     return {f"multihost_{k}": v for k, v in rows.items()}
 
 
+def pgm_raster(path: Path, h: int, w: int, mapped: bool = True) -> np.ndarray:
+    """The (h, w) cells of a P5 PGM the port wrote, after its header and
+    size are checked: mapped from the file, or (``mapped=False``) read
+    into a writable array."""
+    header = f"P5\n{w} {h}\n{pgm.MAXVAL}\n".encode()
+    with open(path, "rb") as f:
+        if f.read(len(header)) != header:
+            raise AssertionError(f"{path}: not the header {header!r}")
+    if path.stat().st_size != len(header) + h * w:
+        raise AssertionError(f"{path}: {path.stat().st_size} bytes, not {len(header) + h * w}")
+    if mapped:
+        return np.memmap(path, np.uint8, "r", offset=len(header), shape=(h, w))
+    return np.fromfile(path, np.uint8, offset=len(header)).reshape(h, w)
+
+
+class ViewSink(Sink):
+    """A ``Sink`` that keeps the rebuilt view after each frame, by turn:
+    (rect, factors, view)."""
+
+    def __init__(self):
+        super().__init__()
+        self.views = {}
+
+    def __call__(self, e) -> None:
+        super().__call__(e)
+        if type(e) in (gol.FrameReady, gol.FrameDelta):
+            self.views[e.completed_turns] = (self.rect, self.factors, self.view.copy())
+
+
+class CountSink(Sink):
+    """A ``Sink`` that keeps every ``AliveCellsCount`` as (turn, count)."""
+
+    def __init__(self):
+        super().__init__()
+        self.counts = []
+
+    def __call__(self, e) -> None:
+        super().__call__(e)
+        if type(e) is gol.AliveCellsCount:
+            self.counts.append((e.completed_turns, e.cells_count))
+
+
+@contextlib.contextmanager
+def host_phases():
+    """While the block runs, the seconds a run spends in its host-side
+    passes over the whole board: reading and writing PGMs (the input, the
+    final board, checkpoints), the board's put and fetch, and the final
+    alive cells.  Yields the {pass: seconds} dict."""
+    from distributed_gol_torch.utils.cell import AliveCells
+
+    spent = collections.defaultdict(float)
+
+    def timed(name, fn):
+        def wrapper(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[name] += time.perf_counter() - t0
+        return wrapper
+
+    saved = [(pgm, "read_pgm"), (pgm, "write_pgm"), (Backend, "put"), (Backend, "fetch")]
+    originals = [getattr(o, n) for o, n in saved]
+    from_board = AliveCells.__dict__["from_board"]
+    for (owner, name), fn in zip(saved, originals):
+        setattr(owner, name, timed(name, fn))
+    AliveCells.from_board = classmethod(timed("alive_cells", from_board.__func__))
+    try:
+        yield spent
+    finally:
+        for (owner, name), fn in zip(saved, originals):
+            setattr(owner, name, fn)
+        AliveCells.from_board = from_board
+
+
+def gib(n: int) -> float:
+    return round(n / 2**30, 3)
+
+
+def flagship_leg(name: str, params: gol.Params, kernels: tuple, launches, engine: str,
+                 sink=None, keep: bool = False, **kw) -> tuple:
+    """One run of path (t) (``stream_run``; ``kw`` its keys, devices,
+    session and backend factory), with every launch count set to 0 and the
+    card's peak allocation reset just before and both read just after:
+    the run must have taken ``engine`` and launched each of ``kernels``,
+    and its peak ``max_memory_allocated`` must stay below half of the
+    card's memory.  Its launches are added to ``launches`` (None: a
+    reference run, not counted).  The final PGM is removed unless
+    ``keep``: runs are held to each other by their final boards' alive
+    cells (``FinalTurnComplete.alive``, ``same_board``).  Returns
+    (numbers, sink)."""
+    sink = Sink() if sink is None else sink
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with host_phases() as host:
+        seconds, final = stream_run(params, sink, read_final=False, **kw)
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.mem_get_info()[1]
+    got = sink.report["info"]["backend.engine"]
+    ran = {k: n for k, n in counts.items() if n}
+    loop = sink.loop_seconds()
+    stats = dict(run=stats_row("run gens/s", [params.turns / seconds]),
+                 loop=stats_row("dispatch-loop gens/s", [params.turns / loop]))
+    print(f"flagship {name}: {seconds:.3f} s, run gens/s {stats['run']}, dispatch-loop gens/s "
+          f"{stats['loop']}, launches {ran}, engine {got}, peak max_memory_allocated "
+          f"{gib(peak)} GiB of {gib(total)} GiB (mem_get_info total); host passes "
+          f"{ {k: round(v, 2) for k, v in host.items()} } s", flush=True)
+    if got != engine:
+        raise AssertionError(f"(t) {name}: engine_used {got!r}, not {engine}")
+    missing = [k for k in kernels if not counts[k]]
+    if missing:
+        raise AssertionError(f"(t) {name}: {missing} never launched")
+    if peak >= total / 2:
+        raise AssertionError(f"(t) {name}: peak {gib(peak)} GiB, not below half of "
+                             f"{gib(total)} GiB")
+    if launches is not None:
+        for k, n in ran.items():
+            launches[k] += n
+    if final is None or sink.final is None:
+        raise AssertionError(f"(t) {name}: no final PGM or no FinalTurnComplete")
+    if not keep:
+        final.unlink()
+    return dict(seconds=seconds, dispatch_loop_s=loop, launches=ran, engine=got,
+                peak_allocated_gib=gib(peak), card_total_gib=gib(total), stats=stats,
+                host_s={k: round(v, 3) for k, v in host.items()},
+                alive=len(sink.final.alive), **skip_gauges(sink)), sink
+
+
+def same_board(a, b) -> bool:
+    """Whether two runs' final boards are equal: their
+    ``FinalTurnComplete.alive`` cells, in row-major order."""
+    return np.array_equal(a.xy, b.xy)
+
+
+def check_final_pgm(name: str, path: Path, side: int, alive) -> int:
+    """The final PGM of a flagship run against the run's own final board
+    (``FinalTurnComplete.alive``): its header, a byte of 0 or 255 a cell,
+    and its alive cells those of the event, in row-major order.  Returns
+    the int64 popcount of its cells."""
+    cells = torch.from_numpy(pgm_raster(path, side, side, mapped=False))
+    yx = torch.nonzero(cells).numpy()
+    if int(torch.count_nonzero(cells == 255)) != len(yx):
+        raise AssertionError(f"(t) {name}: a cell byte other than 0 and 255")
+    xy = alive.xy
+    if len(yx) != len(xy) or not (np.array_equal(yx[:, 1], xy[:, 0])
+                                  and np.array_equal(yx[:, 0], xy[:, 1])):
+        raise AssertionError(f"(t) {name}: the final PGM's alive cells differ from "
+                             "FinalTurnComplete.alive")
+    return len(yx)
+
+
+def check_packing(device) -> None:
+    """The whole-board passes the main path runs beside the kernels, on
+    the card, against numpy on the host (tolerance 0): ``packed.pack`` and
+    ``unpack`` (``np.packbits``/``unpackbits`` little-endian, as uint32
+    words), ``pack_vertical`` and ``unpack_vertical``, ``stencil.alive_count``
+    and ``packed.alive_count``, and the SDC fingerprint
+    (``backend._board_fingerprint``, in uint64 numpy, at a block offset;
+    it reads a nonzero byte as alive), on a board of every byte value (only the low bit is a cell) whose rows
+    no block size divides, at the default row block and at one of a few
+    rows (``stencil.BLOCK_CELLS``)."""
+    from distributed_gol_torch.engine.backend import _board_fingerprint
+
+    h, w, y0, x0 = 2000, 4096, 70001, 123
+    host = np.random.default_rng(31).integers(0, 256, (h, w), dtype=np.uint8)
+    bits = host & 1
+    words = np.packbits(bits, axis=-1, bitorder="little").view("<u4")
+    vert = np.packbits(np.ascontiguousarray(bits[:h // 32 * 32].T), axis=-1,
+                       bitorder="little").view("<u4").T
+    wy = (np.arange(h, dtype=np.uint64) + y0) * 2654435761 % 2**32
+    wx = (np.arange(w, dtype=np.uint64) + x0) * 2246822519 % 2**32
+    fp = int(((host != 0) * (wy[:, None] ^ wx[None, :])).sum() % 2**32)
+    b = torch.from_numpy(host).to(device)
+    saved = stencil.BLOCK_CELLS
+    try:
+        for cells in (saved, 7 * w + 5):
+            stencil.BLOCK_CELLS = cells
+            p = packed.pack(b)
+            v = packed.pack_vertical(b[:h // 32 * 32])
+            got = dict(
+                pack=np.array_equal(p.cpu().numpy().view("<u4"), words),
+                unpack=np.array_equal(packed.unpack(p).cpu().numpy(), bits * 255),
+                pack_vertical=np.array_equal(v.cpu().numpy().view("<u4"), vert),
+                unpack_vertical=np.array_equal(packed.unpack_vertical(v).cpu().numpy(),
+                                               bits[:h // 32 * 32] * 255),
+                counts=int(stencil.alive_count(b)) == int(packed.alive_count(p))
+                == int(bits.sum()),
+                fingerprint=int(_board_fingerprint(b, y0, x0)) == fp)
+            if not all(got.values()):
+                raise AssertionError(f"packing passes at {cells} cells a block: {got}")
+            log(f"packing passes on the card at {cells} cells a block: {got}")
+    finally:
+        stencil.BLOCK_CELLS = saved
+
+
+def card_soup_blocks(density: float, seed: int, device):
+    """(first row, block) of a seeded soup of FLAG² cells made on the card
+    ``FLAG_ROWS`` rows at a time: uint8 {0, 255} blocks."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    for y in range(0, FLAG, FLAG_ROWS):
+        alive = torch.rand((FLAG_ROWS, FLAG), generator=g, device=device) < density
+        yield y, alive.to(torch.uint8).mul_(255)
+
+
+def card_soup(density: float, seed: int, device) -> np.ndarray:
+    """``card_soup_blocks`` on the host: path (t)'s soups, made on the
+    card because ``random_soup``'s float randoms are slow on the host at
+    4 GiB."""
+    out = np.empty((FLAG, FLAG), np.uint8)
+    for y, block in card_soup_blocks(density, seed, device):
+        out[y:y + FLAG_ROWS] = block.cpu().numpy()
+    return out
+
+
+def flagship_packed(device, seed: int = 29) -> torch.Tensor:
+    """``card_soup_blocks`` at density 0.3, packed on the card: the input
+    of ``flagship_kernels``, which needs no host soup."""
+    out = torch.empty((FLAG, FLAG // 32), dtype=torch.int32, device=device)
+    for y, block in card_soup_blocks(0.3, seed, device):
+        out[y:y + FLAG_ROWS] = packed.pack(block)
+    return out
+
+
+def flagship_kernels(errs: dict, int_rate: float, device) -> dict:
+    """K2, K5, K9 and K14 at path (t)'s shapes, on ``flagship_packed``: each
+    held to its plain version, tolerance 0 (K2 one full launch on the
+    whole board, K5 a chunk of 2 launches with its skip count and
+    activity, K9 one full launch on strip 0 of the ``T_MESH`` split, K14 a
+    chunk of 2 launches over its four strips), then timed a launch from
+    the fresh soup (the median and spread of ``BATCHES`` batches; K5 and
+    K14 over chunks of 64) beside its bound (``bound_ms``; K9's over its
+    light cone, ``ext_bound_ms``; K5's and K14's over the stripes they
+    computed, ``work_bound_ms``).  CUDA events."""
+    p = flagship_packed(device)
+    sms = cuda_adaptive.device_sms(device)
+    shape = tuple(p.shape)
+    rows = {}
+
+    def hold(key: str, err: int, what: str) -> None:
+        errs[key] = max(errs[key], err)
+        if err:
+            raise AssertionError(f"{what} at {FLAG}^2 differs from its plain version")
+
+    def row(key: str, ms: dict, bound: tuple, **extra) -> None:
+        rows[key] = dict(ms=ms["median"], ms_spread=ms, bound_ms=bound[0], bound_by=bound[1],
+                         **extra)
+        log(f"{key} at {FLAG}^2: {ms['median']:.4f} ms a launch ({ms['min']:.4f}-"
+            f"{ms['max']:.4f}), bound {bound[0]:.4f} by {bound[1]}; {extra}")
+
+    k2 = cuda_packed.tiled_reg_plan(shape, 10**6, sms)
+    got = cuda_packed.tiled_superstep(p, CONWAY, k2.t)
+    hold("tiled", max_abs_err(got, cuda_packed.tiled_superstep_plain(p, CONWAY, k2.t)), "K2")
+    del got
+    row("tiled", cuda_ms_spread(lambda: cuda_packed.tiled_superstep(p, CONWAY, k2.t), 3),
+        bound_ms(p.numel(), k2.t, 1, CONWAY, int_rate), shape=list(shape), blocks=str(k2))
+
+    plan = cuda_adaptive.adaptive_plan(shape, 10**6)
+    (g, gsk, gact), (w, wsk, wact) = (
+        f(p, CONWAY, plan, 2) for f in (cuda_adaptive.frontier_superstep,
+                                        cuda_adaptive.frontier_superstep_mirror))
+    hold("frontier", max(max_abs_err(g, w), abs(int(gsk) - int(wsk)), max_abs_err(gact, wact)),
+         "K5")
+    del g, w
+    _, sk, _ = cuda_adaptive.frontier_superstep(p, CONWAY, plan, 64)
+    grid = plan.grid(FLAG)
+    computed = (64 * grid - int(sk)) / 64
+    words = computed * plan.stripe_h * shape[1]
+    row("frontier", per_launch(cuda_ms_spread(
+        lambda: cuda_adaptive.frontier_superstep(p, CONWAY, plan, 64), 1), 64),
+        work_bound_ms(words, words, plan.t + 6, CONWAY, int_rate), plan=str(plan),
+        blocks=str(cuda_adaptive.frontier_blocks(shape, plan, 1, sms)),
+        computed_stripes_per_launch=computed, stripes=grid)
+
+    m = mesh_lib.make_mesh(T_MESH, virtual(T_MESH, device))
+    sb = halo.board_sharding(m).shard(p)
+    full = cuda_halo.launch_plan(sb.shard_shape, T_MESH, 10**6)[0]
+    e0 = halo.extend(sb, full.pad, full.xpad)[0][0]
+    hold("ext", max_abs_err(cuda_halo.ext_launch(e0, CONWAY, full.t, full.pad, full.xpad),
+                            cuda_halo.ext_launch_plain(e0, CONWAY, full.t, full.pad, full.xpad)),
+         "K9")
+    row("ext", cuda_ms_spread(
+        lambda: cuda_halo.ext_launch(e0, CONWAY, full.t, full.pad, full.xpad), 5),
+        ext_bound_ms(sb.shard_shape, full.t, full.pad, full.xpad, CONWAY, int_rate),
+        shard=list(sb.shard_shape), extended=list(e0.shape),
+        blocks=str(cuda_halo.ext_reg_plan(sb.shard_shape, full.t, sms)))
+    del e0
+
+    strips = [r[0] for r in sb.shards]
+    splan = cuda_halo.adaptive_strip_plan(sb.shard_shape, 10**6)
+    got = cuda_halo.strip_mega_launches(strips, CONWAY, splan, 2)
+    want = cuda_halo.strip_mega_launches(strips, CONWAY, splan, 2, plain=True)
+    hold("strip_mega", mega_chunks_equal(got, want, 2), "K14")
+    del got, want
+    _, st = cuda_halo.strip_mega_launches(strips, CONWAY, splan, 64)
+    grid = splan.grid(sb.shard_shape[0])
+    computed = (64 * T_MESH[0] * grid - int(st.skipped.sum())) / 64
+    words = computed * splan.stripe_h * sb.shard_shape[1]
+    row("strip_mega", per_launch(cuda_ms_spread(
+        lambda: cuda_halo.strip_mega_launches(strips, CONWAY, splan, 64), 1), 64),
+        work_bound_ms(words, words, splan.t + 6, CONWAY, int_rate), plan=str(splan),
+        strips=len(strips), computed_stripes_per_launch=computed, stripes=T_MESH[0] * grid)
+    return rows
+
+
+def flagship_path(tmp: Path, launches: dict, device, profile: bool = False) -> dict:
+    """Path (t), the flagship board on the card (the comment on ``FLAG``):
+    every leg through ``gol.run`` held to a run on another tier, its run
+    and dispatch-loop gens/s, its launches, its peak device memory and its
+    host passes (``host_phases``) printed.  ``profile`` adds a
+    ``profile_run`` of (t1) and of (t2)'s K2 rerun."""
+    from distributed_gol_torch.engine import supervisor as supervisor_mod
+
+    e2e, side = {}, f"{FLAG}x{FLAG}"
+    sparse, dense = tmp / "flagship_soup", tmp / "flagship_dense"
+    t0 = time.perf_counter()
+    pgm.write_pgm(sparse / f"{side}.pgm", card_soup(0.3, T_SEED, device))
+    log(f"(t): the {side} soup made and written in {time.perf_counter() - t0:.1f} s")
+    base = gol.Params(turns=T1_TURNS, image_width=FLAG, image_height=FLAG, images_dir=sparse,
+                      skip_stable=False, turn_events="batch", ticker_period=3600,
+                      out_dir=tmp / "t1")
+
+    # (t1): K2, its PGM checked against the run's final board; then
+    # T1_PLAIN_TURNS on K2 and on the plain engine.
+    t1, sink = flagship_leg(f"(t1) {side} x {T1_TURNS}", base, ("tiled",), launches,
+                            "pallas-packed", keep=True)
+    final, board_t1 = base.out_dir / f"{base.final_output_name}.pgm", sink.final.alive
+    check_final_pgm("(t1)", final, FLAG, board_t1)
+    final.unlink()
+    short = dataclasses.replace(base, turns=T1_PLAIN_TURNS, out_dir=tmp / "t1_short")
+    t1_short, sink = flagship_leg(f"(t1) {side} x {T1_PLAIN_TURNS}", short, ("tiled",),
+                                  launches, "pallas-packed")
+    plain, ref = flagship_leg(f"(t1) {side} x {T1_PLAIN_TURNS}, engine=packed",
+                              dataclasses.replace(short, engine="packed",
+                                                  out_dir=tmp / "t1_plain"), (), None, "packed")
+    if not same_board(sink.final.alive, ref.final.alive):
+        raise AssertionError(f"(t1): {T1_PLAIN_TURNS} turns on K2 differ from the plain engine's")
+    del sink, ref
+    log(f"(t1): {T1_TURNS} turns' PGM equals the run's final board ({t1['alive']} alive); "
+        f"{T1_PLAIN_TURNS} turns on K2 equal the plain engine's")
+    e2e[f"flagship_t1_{side}x{T1_TURNS}"] = dict(
+        t1, short=t1_short, plain=dict(plain, reference=f"engine='packed' x {T1_PLAIN_TURNS}"))
+    if profile:
+        e2e["profile_t1"] = profile_run(T1_TURNS, FLAG, images_dir=sparse, skip_stable=False)
+        e2e["profile_t2_k2"] = profile_run(LONG_TURNS, FLAG, images_dir=sparse,
+                                           skip_stable=False)
+
+    # (t2): auto skip_stable at LONG_TURNS, beside skip_stable=False (K2).
+    long = dataclasses.replace(base, turns=LONG_TURNS, skip_stable=None, out_dir=tmp / "t2")
+    if not long.skip_stable_requested():
+        raise AssertionError("(t2): auto skip_stable does not engage")
+    t2, sink = flagship_leg(f"(t2) {side} x {LONG_TURNS}", long, ADAPTIVE, launches,
+                            "pallas-packed")
+    board_t2 = sink.final.alive
+    dense_ref, ref = flagship_leg(f"(t2) {side} x {LONG_TURNS}, skip_stable=False",
+                                  dataclasses.replace(long, skip_stable=False,
+                                                      out_dir=tmp / "t2_ref"),
+                                  ("tiled",), None, "pallas-packed")
+    if not same_board(board_t2, ref.final.alive):
+        raise AssertionError("(t2): the skip_stable board differs from the K2 rerun's")
+    log(f"(t2): equals the skip_stable=False rerun; skip fraction {t2.get('skip_fraction')}")
+    e2e[f"flagship_t2_{side}x{LONG_TURNS}"] = dict(t2, reference=dense_ref)
+
+    # (t3): config 4's (4, 1) layout, a virtual mesh of the card.
+    on_mesh, tag = virtual(T_MESH, device), f"{T_MESH[0]}x{T_MESH[1]}"
+    t3_long, sink = flagship_leg(
+        f"(t3) {side} x {LONG_TURNS} on {tag}",
+        dataclasses.replace(long, mesh_shape=T_MESH, out_dir=tmp / "t3_long"), ("strip_mega",),
+        launches, "pallas-packed", devices=on_mesh)
+    tier = sink.report["info"].get("backend.sharded_tier")
+    if tier != "ici-megakernel" or not same_board(sink.final.alive, board_t2):
+        raise AssertionError(f"(t3): tier {tier!r}, or the board differs from (t2)'s")
+    t3, sink = flagship_leg(f"(t3) {side} x {T1_TURNS} on {tag}",
+                            dataclasses.replace(base, mesh_shape=T_MESH, out_dir=tmp / "t3"),
+                            ("ext",), launches, "pallas-packed", devices=on_mesh)
+    if not same_board(sink.final.alive, board_t1):
+        raise AssertionError("(t3): the board differs from (t1)'s")
+    log(f"(t3): {tag} equals (t2) with skip_stable ({tier}) and (t1) without")
+    e2e[f"flagship_t3_{side}x{LONG_TURNS}_{tag}"] = dict(t3_long, sharded_tier=tier)
+    e2e[f"flagship_t3_{side}x{T1_TURNS}_{tag}"] = t3
+
+    # (t4): the viewport, each frame against its light cone on the roll
+    # engine: after t <= T4_TURNS generations the rect's cells depend only
+    # on the T4_TURNS-cell margin around it, which the window holds.
+    view = dataclasses.replace(base, turns=T4_TURNS, no_vis=False, viewport=T4_RECT,
+                               frame_stride=1, turn_events="per-turn", out_dir=tmp / "t4")
+    t4, sink = flagship_leg(f"(t4) viewport {T4_RECT} x {T4_TURNS}", view, ("stencil",),
+                            launches, "pallas", sink=ViewSink())
+    y0, x0, vh, vw = T4_RECT
+    m = T4_TURNS
+    raster = pgm_raster(sparse / f"{side}.pgm", FLAG, FLAG)
+    window = torch.from_numpy(np.ascontiguousarray(raster[np.ix_(
+        np.arange(y0 - m, y0 + vh + m) % FLAG, np.arange(x0 - m, x0 + vw + m) % FLAG)]))
+    window, table = window.to(device), stencil.rule_table(CONWAY, device)
+    del raster
+    for turn in range(m + 1):
+        if turn:
+            window = stencil.step(window, table)
+        rect, factors, got = sink.views[turn]
+        want = stencil.frame_pool(window[m:m + vh, m:m + vw], *factors).cpu().numpy()
+        if tuple(rect) != T4_RECT or not np.array_equal(got, want):
+            raise AssertionError(f"(t4): the frame of turn {turn} at {rect} differs from its "
+                                 "light cone's crop")
+    t4.update(frames=sink.frames, deltas=sink.deltas, frames_per_s=sink.frames / t4["seconds"])
+    t4["stats"]["frames"] = stats_row("frames/s", [t4["frames_per_s"]], "frames/s")
+    log(f"(t4): {sink.frames} frames ({sink.deltas} deltas) equal their light cones' crops")
+    e2e[f"flagship_t4_viewport_{side}x{T4_TURNS}"] = t4
+    del sink
+
+    # (t5): supervised, one corrupt rolled back.
+    sup = dataclasses.replace(base, superstep=T5_STEP, restart_limit=1,
+                              checkpoint_every_turns=T5_CKPT, sdc_check_every_turns=T5_STEP,
+                              out_dir=tmp / "t5")
+    harness = FaultInjectionBackend(Backend(sup), FaultPlan([T5_FAULT]))
+
+    def factory(p, attempt):
+        return harness if attempt == 0 else harness.rebind(Backend(p))
+
+    before = metrics.REGISTRY.snapshot()
+    with recorded(supervisor_mod, "supervise") as sups:
+        t5, sink = flagship_leg(f"(t5) {side} x {T1_TURNS} supervised", sup, ("tiled",), launches,
+                             "pallas-packed", session=Session(tmp / "t5_ckpt"),
+                             backend_factory=factory)
+    delta = metrics.REGISTRY.snapshot().delta(before).to_dict()["counters"]
+    history = [{k: v for k, v in r.items() if k != "t"} for r in sups[0].history]
+    if [r["cause"] for r in history] != ["CorruptionDetected"] or \
+            [f.kind for f in harness.injected] != ["corrupt"]:
+        raise AssertionError(f"(t5): history {history}, injected {harness.injected}")
+    if not same_board(sink.final.alive, board_t1):
+        raise AssertionError("(t5): the supervised board differs from (t1)'s")
+    t5.update(history=history, recovery_times_s=sups[0].recovery_times(), counters={
+        k: v for k, v in delta.items() if k.startswith(("supervisor.", "sdc.", "faults."))})
+    log(f"(t5): rolled back once ({history}), equals (t1); counters {t5['counters']}")
+    e2e[f"flagship_t5_supervised_{side}x{T1_TURNS}"] = t5
+    del harness, sups, sink, board_t1, board_t2
+    shutil.rmtree(sparse)
+    shutil.rmtree(tmp / "t5_ckpt", ignore_errors=True)
+
+    # (t6): past 2^31 alive.  The turn-0 count comes from the ticker while
+    # the run is paused at turn 0; the soup's count on the card too.
+    t0 = time.perf_counter()
+    soup = card_soup(T6_DENSITY, T6_SEED, device)
+    alive0 = int(np.count_nonzero(soup))
+    on_card = int(stencil.alive_count(torch.from_numpy(soup).to(device)))
+    pgm.write_pgm(dense / f"{side}.pgm", soup)
+    del soup
+    log(f"(t6): the {T6_DENSITY} soup ({alive0} alive) made and written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if alive0 <= T6_PAST or on_card != alive0:
+        raise AssertionError(f"(t6): {alive0} alive, counted {on_card} on the card")
+    dense_p = dataclasses.replace(base, turns=T6_TURNS, images_dir=dense, ticker_period=T6_TICK)
+    boards = []
+    for where, shape, kernels in (("one device", (1, 1), ("tiled",)), (tag, T_MESH, ("ext",))):
+        p = dataclasses.replace(dense_p, mesh_shape=shape, out_dir=tmp / f"t6_{shape[0]}")
+        out, sink = flagship_leg(f"(t6) {side} x {T6_TURNS} density {T6_DENSITY}, {where}", p,
+                                 kernels, launches, "pallas-packed", sink=CountSink(), keep=True,
+                                 keys=KeysAfter({1: "p", T6_PAUSE: "p"}),
+                                 devices=virtual(shape, device) if shape != (1, 1) else None)
+        final = p.out_dir / f"{p.final_output_name}.pgm"
+        check_final_pgm(f"(t6) {where}", final, FLAG, sink.final.alive)
+        final.unlink()
+        turn0 = sorted({c for t, c in sink.counts if t == 0})
+        if turn0 != [alive0]:
+            raise AssertionError(f"(t6) {where}: turn-0 counts {turn0}, not [{alive0}]")
+        out.update(alive_turn0=alive0, alive_turn0_on_card=on_card)
+        boards.append(sink.final.alive)
+        e2e[f"flagship_t6_{side}x{T6_TURNS}_{shape[0]}x{shape[1]}"] = out
+        del sink
+    if not same_board(*boards):
+        raise AssertionError(f"(t6): the {tag} board differs from one device's")
+    log(f"(t6): turn 0 {alive0} alive (on the card {on_card}), final "
+        f"{e2e[f'flagship_t6_{side}x{T6_TURNS}_1x1']['alive']}, each the PGM's int64 popcount")
+    shutil.rmtree(dense)
+    return e2e
+
+
 def serving_paths(tmp: Path, launches: dict) -> dict:
     """Phase 3's serving paths: the K7 pod batched and unbatched, the K8
     pod, and the ``serve`` CLI."""
@@ -3811,14 +4353,15 @@ def serving_paths(tmp: Path, launches: dict) -> dict:
     return e2e
 
 
-def profile_run(turns: int, side: int = BIG, devices=None, **viewer) -> dict:
+def profile_run(turns: int, side: int = BIG, devices=None, images_dir=None, **viewer) -> dict:
     """Where the time of a main-path run on the ``side``² soup goes: the
     seeded soup's generation on the host, then the whole run under
     ``torch.profiler`` (device time by kernel, and the device's busy share
     of the run's wall-clock), its stream consumed as it is produced.
     ``viewer`` holds the Params of a viewer path (``no_vis=False``, ...)
     or a ``mesh_shape`` (run on the virtual mesh ``devices``); a headless
-    run has batch turn events.  ``loop_idle_share_at_least`` bounds the
+    run has batch turn events; ``images_dir`` holds the input PGM in place
+    of the soup.  ``loop_idle_share_at_least`` bounds the
     device's idle share of the dispatch loop from below (all of the run's
     device time, loop or not, over the loop's seconds), and
     ``loop_busy_share_at_least`` its busy share: the device time of the
@@ -3830,15 +4373,18 @@ def profile_run(turns: int, side: int = BIG, devices=None, **viewer) -> dict:
     (``halo.extend`` copies contiguous row blocks; packing and the gather
     run as kernels or host copies)."""
     t0 = time.perf_counter()
-    random_soup(side, side, 0.3, 7)
+    if images_dir is None:
+        random_soup(side, side, 0.3, 7)
     soup_s = time.perf_counter() - t0
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent) as tmp:
         opts = dict(viewer)
         if opts.get("no_vis", True):
             opts.setdefault("turn_events", "batch")
-        params = gol.Params(turns=turns, image_width=side, image_height=side, soup_density=0.3,
-                            soup_seed=7, out_dir=Path(tmp), ticker_period=3600, **opts)
+        source = (dict(soup_density=0.3, soup_seed=7) if images_dir is None
+                  else dict(images_dir=images_dir))
+        params = gol.Params(turns=turns, image_width=side, image_height=side, out_dir=Path(tmp),
+                            ticker_period=3600, **source, **opts)
         sink = Sink((side, side) if params.wants_flips() else None)
         reset_launches()
         with torch.profiler.profile(activities=acts) as prof:
@@ -4599,8 +5145,28 @@ def main() -> int:
         f"({k1_plan}), as each board's cluster of a K7 stack; tiled {plan.smem_bytes} B per "
         f"block at {BIG}^2 ({plan}, 32x{plan.warps} threads)")
 
+    if "--flagship" in sys.argv[1:]:
+        # Path (t) alone, with the kernels just built: no check, timing or
+        # result line of the other phases.
+        launches = {k: 0 for k in KERNELS}
+        step("check_packing", check_packing, device)
+        with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent) as tmp:
+            log(f"disk at the script's tmp: {shutil.disk_usage(tmp)}")
+            flagship = step("flagship_path_t", flagship_path, Path(tmp), launches, device,
+                            "--profile" in sys.argv[1:])
+        measure.require_headline_stats(flagship)
+        print(record({"flagship": flagship, "launches": launches, "card": card}))
+        errs = {k: 0 for k in KERNELS}
+        print(record({"flagship_kernels": step("flagship_kernels", flagship_kernels, errs,
+                                               card_int_rate(), device),
+                      "max_abs_err": errs, "card": card}))
+        log(f"chip_smoke --flagship: {time.perf_counter() - started:.1f} s in all")
+        print(card)
+        return 0
+
     # Phase 2: each kernel against its plain version, bit for bit.
     errs = {k: 0 for k in KERNELS}
+    step("check_packing", check_packing, device)
     step("check_resident", check_resident, device, errs)
     step("check_tiled", check_tiled, device, errs)
     boards = step("boards", lambda: {"fresh": packed.pack(board(BIG, BIG, 13, device)),
@@ -4690,12 +5256,13 @@ def main() -> int:
         log(f"phase 3 up to the resilience paths done at {time.perf_counter() - started:.1f} s")
         e2e.update(step("resilience_paths", resilience_paths, tmp, long_pgm, straight,
                         launches, device))
+        e2e.update(step("flagship_path_t", flagship_path, tmp, launches, device))
     log(f"phase 3 (main paths) done at {time.perf_counter() - started:.1f} s")
 
     # Phase 4: time each kernel at the main path's shapes.
+    int_rate = card_int_rate()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
-    int_rate = sms * INT32_LANES_PER_SM * clock_mhz * 1e6
     v = packed.pack_vertical(board(512, 512, 21, device))
     p = packed.pack(board(BIG, BIG, 22, device))
     k2_plan = cuda_packed.tiled_reg_plan(tuple(p.shape), 10**6, sms)
@@ -4789,6 +5356,8 @@ def main() -> int:
                               tiled_same_t_ms={name: row["tiled_same_t_ms"]
                                                for name, row in adaptive["boards"].items()}))
 
+    for k, r in flagship_kernels(errs, int_rate, device).items():
+        timings[k]["extra"][f"at_{FLAG}"] = r
     timings["probing"]["extra"]["build"] = {
         n: r for n, r in reg_build["probing"].items() if "board_probing_reg_kernel" in n}
     timings["tiled_skip"]["extra"]["build"] = reg_build["tiled_skip"]
@@ -4812,7 +5381,8 @@ def main() -> int:
             print(record({"sweep": sweep(boards, Path(tmp)), "card": card}))
     if "--profile" in sys.argv[1:]:
         runs = [(2000, BIG, {}), (LONG_TURNS, BIG, {}), (FLIP_TURNS, 512, dict(no_vis=False)),
-                (500, BIG, dict(no_vis=False)), (1000, BIG, dict(no_vis=False, viewport=VIEWPORT))]
+                (FRAME_TURNS, BIG, dict(no_vis=False)),
+                (VIEW_TURNS, BIG, dict(no_vis=False, viewport=VIEWPORT))]
         for turns, side, viewer in runs:
             print(record({"profile": profile_run(turns, side, **viewer), "card": card}))
         print(record({"profile": profile_run(2000, BIG, virtual(MESH_A, device),

@@ -249,7 +249,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "checkpoints) and dump flight-<ts>.json next to the "
                          "checkpoint dir when a run dies; 0 disables")
     ap.add_argument("--telemetry-port", type=int, default=None, metavar="PORT",
-                    help="continuous telemetry endpoints for this run "
+                    help="continuous telemetry endpoints for this run: "
                          "/metrics (OpenMetrics) and /healthz "
                          "(JSON) on PORT (0 = an ephemeral port, published "
                          "as the telemetry.endpoint info label), served "
@@ -380,13 +380,14 @@ def build_serve_parser() -> argparse.ArgumentParser:
     ap.add_argument("--superstep", type=int, default=0,
                     help="generations per dispatch (0 = auto)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                    help="where the boards live and the engines run (cuda "
-                         "fails when no CUDA GPU is available)")
+                    help="where the boards live and the engines run, wire "
+                         "submissions included (cuda fails when no CUDA GPU "
+                         "is available)")
     ap.add_argument("--checkpoint-every-turns", type=int, default=0,
                     help="periodic durable checkpoint cadence per session")
     ap.add_argument("--restart-limit", type=int, default=0,
-                    help="per-session rollback-recovery supervisor budget "
-                    "(not ported yet: only 0 is accepted)")
+                    help="per-session rollback-recovery supervisor budget; "
+                    "each tenant's ladder is its own")
     ap.add_argument("--sdc-check-every-turns", type=int, default=0,
                     help="per-session SDC sentinel cadence")
     ap.add_argument("--drain-timeout", type=float, default=60.0,
@@ -408,7 +409,7 @@ def build_serve_parser() -> argparse.ArgumentParser:
                     "drain-over-the-wire (drive with tools/gol_client.py). "
                     "The pod then serves until drained (SIGTERM, Ctrl-C, "
                     "or POST /v1/drain) instead of exiting when scripted "
-                    "tenants finish; wire submissions run on --device")
+                    "tenants finish")
     # The gateway's bind address and wire hardening (ServeConfig); they
     # act only with --gateway-port.
     ap.add_argument("--gateway-host", default="127.0.0.1",
@@ -417,8 +418,8 @@ def build_serve_parser() -> argparse.ArgumentParser:
     ap.add_argument("--wire-read-timeout", type=float, default=30.0,
                     metavar="SECONDS",
                     help="per-connection read deadline on the gateway: "
-                    "a request trickling slower than this is answered "
-                    "408 and reaped (0 = off)")
+                    "a request trickling slower than this (slow-loris) "
+                    "is answered 408 and reaped (0 = off)")
     ap.add_argument("--wire-body-cap", type=int, default=1 << 26,
                     metavar="BYTES",
                     help="request-body Content-Length bound; past it "
@@ -426,13 +427,15 @@ def build_serve_parser() -> argparse.ArgumentParser:
     ap.add_argument("--wire-max-connections", type=int, default=0,
                     metavar="N",
                     help="concurrent-connection bound on the gateway; "
-                    "past it a new connection gets a raw 503 (0 = "
-                    "unbounded)")
+                    "past it a new connection gets a raw 503 on the "
+                    "accept thread (0 = unbounded)")
     ap.add_argument("--ws-keepalive", type=float, default=0.0,
                     metavar="SECONDS",
                     help="WebSocket ping/pong keepalive interval on the "
-                    "gateway's legs: a peer silent for 3 consecutive "
-                    "intervals is dropped (0 = off)")
+                    "gateway's legs: a peer that answers neither frames "
+                    "nor pongs for 3 consecutive intervals is dropped "
+                    "(0 = off; arm it only for clients that sit in "
+                    "recv and auto-pong, like gol_client.py streams)")
     ap.add_argument("--ws-max-frame", type=int, default=1 << 20,
                     metavar="BYTES",
                     help="inbound WebSocket frame cap; an over-length "
@@ -445,7 +448,7 @@ def build_serve_parser() -> argparse.ArgumentParser:
                     "from the pod sampler's latest sample")
     ap.add_argument("--telemetry-sample-seconds", type=float, default=1.0,
                     help="pod registry sampling cadence (the staleness "
-                    "bound of health responses); 0 disables the "
+                    "bound of health/scrape responses); 0 disables the "
                     "sampler and every health() takes a direct snapshot")
     ap.add_argument("--slo-latency", type=float, default=0.0,
                     metavar="SECONDS",
@@ -469,14 +472,16 @@ def build_serve_parser() -> argparse.ArgumentParser:
                     metavar="SECONDS",
                     help="queue-wait SLO (0 = off): the latency percentile "
                     "of admissions must start within this many seconds "
-                    "of submit")
+                    "of submit (judged from the sli.queue_wait_seconds "
+                    "histogram the request-tracing plane derives)")
     ap.add_argument("--trace-sample-rate", type=float, default=1.0,
                     metavar="RATE",
                     help="head-sampling rate in [0, 1]: fraction of "
-                    "request traces retained (error traces are "
-                    "tail-retained regardless)")
+                    "request traces RETAINED for /traces (error traces "
+                    "are tail-retained regardless; an inbound traceparent "
+                    "sampled flag always retains)")
     ap.add_argument("--trace-ring-depth", type=int, default=256,
-                    help="finished-trace ring depth")
+                    help="finished-trace ring depth (the /traces window)")
     return ap
 
 

@@ -54,13 +54,18 @@ def _board_fingerprint(bo: torch.Tensor, y0: int = 0, x0: int = 0) -> torch.Tens
     package's SDC fingerprint, computed in int64 and reduced mod 2^32 so
     the two packages agree on every board.  ``bo`` may be the block at
     (y0, x0) of a larger board: the hash is a sum of per-cell terms, so
-    the blocks' hashes add up to the board's."""
+    the blocks' hashes add up to the board's, which is also how it is
+    computed, a row block at a time (``stencil.row_blocks``: each cell's
+    term is an int64)."""
     hh, ww = bo.shape
     dev = bo.device
-    wy = ((torch.arange(hh, dtype=torch.int64, device=dev) + y0) * 2654435761) & 0xFFFFFFFF
     wx = ((torch.arange(ww, dtype=torch.int64, device=dev) + x0) * 2246822519) & 0xFFFFFFFF
-    bits = (bo != 0).to(torch.int64)
-    return torch.sum(bits * (wy[:, None] ^ wx[None, :])) & 0xFFFFFFFF
+    total = torch.zeros((), dtype=torch.int64, device=dev)
+    for r0, r1 in stencil.row_blocks(hh, ww):
+        wy = ((torch.arange(r0, r1, dtype=torch.int64, device=dev) + y0) * 2654435761) & 0xFFFFFFFF
+        terms = (wy[:, None] ^ wx).mul_(bo[r0:r1] != 0)
+        total = (total + terms.sum()) & 0xFFFFFFFF
+    return total
 
 
 def _alive_count(board) -> torch.Tensor:

@@ -18,7 +18,6 @@ array (the whole point of the rebuild: no per-byte hops).
 
 from __future__ import annotations
 
-import io
 import os
 from pathlib import Path
 
@@ -31,16 +30,37 @@ class PgmError(ValueError):
     pass
 
 
+#: Bytes of a file that ``read_pgm`` parses the header from; a header
+#: longer than this (comments) is read with the whole file.
+_HEADER_BYTES = 1 << 16
+
+
 def read_pgm(path: str | os.PathLike) -> np.ndarray:
-    """Read a P5 PGM into a uint8 array of shape (height, width)."""
-    data = Path(path).read_bytes()
-    return decode_pgm(data)
+    """Read a P5 PGM into a uint8 array of shape (height, width): the header
+    from the file's first bytes, then the raster straight into the array
+    (a 65536² board is 4 GiB: no second copy of it)."""
+    with open(path, "rb") as f:
+        head = f.read(_HEADER_BYTES)
+        try:
+            width, height, pos = _header(head)
+        except ValueError:
+            pos = None
+        if pos is None or pos > len(head):
+            # A header this prefix does not hold, or a bad one: decode the
+            # whole file, which raises what it must.
+            return decode_pgm(head + f.read())
+        f.seek(pos)
+        board = np.fromfile(f, dtype=np.uint8, count=width * height)
+    if board.size != width * height:
+        raise PgmError("truncated PGM raster")
+    return board.reshape(height, width)
 
 
-def decode_pgm(data: bytes) -> np.ndarray:
-    """Decode P5 bytes.  Accepts arbitrary whitespace between header tokens
-    and ``#`` comments (the standard allows them; the reference's
-    ``strings.Fields`` split accepts the former)."""
+def _header(data: bytes) -> tuple[int, int, int]:
+    """(width, height, offset of the raster) of P5 bytes.  Accepts
+    arbitrary whitespace between header tokens and ``#`` comments (the
+    standard allows them; the reference's ``strings.Fields`` split accepts
+    the former)."""
     tokens: list[bytes] = []
     pos = 0
     # Scan header tokens; after the maxval token exactly one whitespace byte
@@ -63,25 +83,34 @@ def decode_pgm(data: bytes) -> np.ndarray:
     width, height, maxval = (int(t) for t in tokens[1:4])
     if maxval != MAXVAL:
         raise PgmError(f"unsupported maxval {maxval}")  # gol/io.go:118
-    pos += 1  # the single whitespace byte after maxval
-    raster = data[pos : pos + width * height]
+    return width, height, pos + 1  # the single whitespace byte after maxval
+
+
+def decode_pgm(data: bytes) -> np.ndarray:
+    """Decode P5 bytes (the header as :func:`_header` reads it)."""
+    width, height, pos = _header(data)
+    raster = memoryview(data)[pos : pos + width * height]
     if len(raster) != width * height:
         raise PgmError("truncated PGM raster")
     return np.frombuffer(raster, dtype=np.uint8).reshape(height, width).copy()
+
+
+def _encode_parts(board: np.ndarray) -> tuple[bytes, memoryview]:
+    """(header, raster) of a uint8 board's P5 file, the raster a view of
+    the board's own bytes."""
+    board = np.ascontiguousarray(board, dtype=np.uint8)
+    if board.ndim != 2:
+        raise PgmError(f"board must be 2-D, got shape {board.shape}")
+    h, w = board.shape
+    return f"P5\n{w} {h}\n{MAXVAL}\n".encode("ascii"), memoryview(board).cast("B")
 
 
 def encode_pgm(board: np.ndarray) -> bytes:
     """Encode a uint8 board as P5 bytes, header byte-identical to the
     reference writer (``gol/io.go:53-60``: ``P5\\n``, ``{w} {h}\\n``,
     ``255\\n``)."""
-    board = np.ascontiguousarray(board, dtype=np.uint8)
-    if board.ndim != 2:
-        raise PgmError(f"board must be 2-D, got shape {board.shape}")
-    h, w = board.shape
-    buf = io.BytesIO()
-    buf.write(f"P5\n{w} {h}\n{MAXVAL}\n".encode("ascii"))
-    buf.write(board.tobytes())
-    return buf.getvalue()
+    header, raster = _encode_parts(board)
+    return header + raster.tobytes()
 
 
 def write_pgm(
@@ -99,15 +128,18 @@ def write_pgm(
     Plain snapshots keep the cheap non-durable form."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
+    parts = _encode_parts(board)  # the board's bytes written from the board itself
     if durable:
-        write_bytes_durable(path, encode_pgm(board))
+        write_bytes_durable(path, *parts)
         return
     tmp = path.with_name(path.name + ".tmp")
-    tmp.write_bytes(encode_pgm(board))
+    with open(tmp, "wb") as f:
+        for part in parts:
+            f.write(part)
     os.replace(tmp, path)
 
 
-def write_bytes_durable(path: str | os.PathLike, data: bytes) -> None:
+def write_bytes_durable(path: str | os.PathLike, *parts) -> None:
     """Machine-kill-durable atomic write: tmp + fsync(file) before the
     rename, fsync(directory) after it.  ONE home for that ordering — the
     checkpoint commit protocol (world, then sidecar as the commit record)
@@ -116,7 +148,8 @@ def write_bytes_durable(path: str | os.PathLike, data: bytes) -> None:
     path = Path(path)
     tmp = path.with_name(path.name + ".tmp")
     with open(tmp, "wb") as f:
-        f.write(data)
+        for part in parts:
+            f.write(part)
         f.flush()
         os.fsync(f.fileno())
     os.replace(tmp, path)

@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from distributed_gol_torch.models.life import CONWAY, LifeRule
+from distributed_gol_torch.ops.stencil import row_blocks
 
 WORD = 32
 _LOW31 = 0x7FFFFFFF
@@ -36,38 +37,51 @@ def _shr(a: torch.Tensor, k: int) -> torch.Tensor:
     return (a >> k) & (_LOW31 >> (k - 1))
 
 
-def _to_words(v: torch.Tensor) -> torch.Tensor:
-    """int64 values in [0, 2^32) → int32 words with the same bit pattern."""
-    return torch.where(v >= 2**31, v - 2**32, v).to(torch.int32)
-
-
-def _weights(device) -> torch.Tensor:
-    return torch.ones(WORD, dtype=torch.int64, device=device) << torch.arange(
-        WORD, device=device
-    )
-
-
 # -- packing ------------------------------------------------------------------
+#
+# Eight cells make a byte (the first cell in the least significant bit)
+# and four bytes a word: viewed as int32, a little-endian word's byte j
+# holds cells 8j..8j+7, so bit k is cell k.  Each pass runs a row block at
+# a time (``stencil.row_blocks``) into a preallocated output, its
+# transients a few bytes a cell, never a wider copy of the board.
+
+#: The low bit of each byte of an int64, and the multiplier that gathers
+#: those 8 bits into its top byte: with byte j's bit at position 8j, the
+#: product's terms at 56 + j are the bits themselves and no two terms share
+#: a position, so nothing carries into the top byte (bits past 63 wrap away).
+_BYTE_LSBS = 0x0101010101010101
+_GATHER = 0x0102040810204080
+
+
+def _bit_shifts(device) -> torch.Tensor:
+    return torch.arange(8, dtype=torch.uint8, device=device)
 
 
 def pack(board: torch.Tensor) -> torch.Tensor:
     """uint8 {0,255} board (..., H, W) → int32 words (..., H, W // 32);
-    only the LSB of each byte is read."""
+    only the LSB of each byte is read.  Each 8 cells, read as one int64,
+    become a byte by one multiply (``_GATHER``)."""
     *lead, h, w = board.shape
     if w % WORD:
         raise ValueError(f"width {w} not a multiple of {WORD}")
-    bits = (board & 1).to(torch.int64).reshape(*lead, h, w // WORD, WORD)
-    return _to_words((bits * _weights(board.device)).sum(dim=-1))
+    out = torch.empty((*lead, h, w // WORD), dtype=torch.int32, device=board.device)
+    for y0, y1 in row_blocks(h, board[..., :1, :].numel()):
+        eights = board[..., y0:y1, :].contiguous().view(torch.int64) & _BYTE_LSBS
+        octets = (eights.mul_(_GATHER) >> 56).to(torch.uint8)
+        out[..., y0:y1, :] = octets.view(torch.int32)
+    return out
 
 
 def unpack(packed: torch.Tensor) -> torch.Tensor:
     """int32 words (..., H, Wp) → uint8 {0,255} board (..., H, 32 * Wp)."""
     *lead, h, wp = packed.shape
-    shifts = torch.arange(WORD, dtype=torch.int32, device=packed.device)
-    # The arithmetic shift only smears copies of bit 31 above bit 31 - k;
-    # the & 1 reads bit k exactly.
-    bits = (packed[..., None] >> shifts) & 1
-    return (bits.to(torch.uint8) * 255).reshape(*lead, h, wp * WORD)
+    out = torch.empty((*lead, h, wp * WORD), dtype=torch.uint8, device=packed.device)
+    shifts = _bit_shifts(packed.device)
+    for y0, y1 in row_blocks(h, out[..., :1, :].numel()):
+        octets = packed[..., y0:y1, :].contiguous().view(torch.uint8)
+        bits = (octets[..., None] >> shifts) & 1
+        out[..., y0:y1, :] = bits.mul_(255).reshape(*lead, y1 - y0, wp * WORD)
+    return out
 
 
 def pack_vertical(board: torch.Tensor) -> torch.Tensor:
@@ -77,16 +91,27 @@ def pack_vertical(board: torch.Tensor) -> torch.Tensor:
     *lead, h, w = board.shape
     if h % WORD:
         raise ValueError(f"height {h} not a multiple of {WORD}")
-    bits = (board & 1).to(torch.int64).reshape(*lead, h // WORD, WORD, w)
-    return _to_words((bits * _weights(board.device)[:, None]).sum(dim=-2))
+    out = torch.empty((*lead, h // WORD, w), dtype=torch.int32, device=board.device)
+    shifts = _bit_shifts(board.device)[:, None]
+    for y0, y1 in row_blocks(h // WORD, board[..., :WORD, :].numel()):
+        n = y1 - y0
+        bits = (board[..., WORD * y0:WORD * y1, :] & 1).reshape(*lead, n, 4, 8, w)
+        octets = (bits << shifts).sum(dim=-2, dtype=torch.uint8)  # (..., n, 4, w)
+        out[..., y0:y1, :] = octets.transpose(-1, -2).contiguous().view(torch.int32)[..., 0]
+    return out
 
 
 def unpack_vertical(packed_v: torch.Tensor) -> torch.Tensor:
     """int32 words (..., H // 32, W) → uint8 {0,255} board (..., H, W)."""
     *lead, hw, w = packed_v.shape
-    shifts = torch.arange(WORD, dtype=torch.int32, device=packed_v.device)
-    bits = (packed_v[..., :, None, :] >> shifts[:, None]) & 1
-    return (bits.to(torch.uint8) * 255).reshape(*lead, hw * WORD, w)
+    out = torch.empty((*lead, hw * WORD, w), dtype=torch.uint8, device=packed_v.device)
+    shifts = _bit_shifts(packed_v.device)
+    for y0, y1 in row_blocks(hw, out[..., :WORD, :].numel()):
+        n = y1 - y0
+        octets = packed_v[..., y0:y1, :].contiguous().view(torch.uint8).reshape(*lead, n, w, 4)
+        bits = ((octets[..., None] >> shifts) & 1).movedim(-3, -1)  # (..., n, 4, 8, w)
+        out[..., WORD * y0:WORD * y1, :] = bits.reshape(*lead, WORD * n, w).mul_(255)
+    return out
 
 
 # -- the adder network --------------------------------------------------------
@@ -180,9 +205,19 @@ def popcount(a: torch.Tensor) -> torch.Tensor:
     return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
 
 
+def _popcount_sums(a: torch.Tensor) -> torch.Tensor:
+    """Set bits of each board of a packed board or stack (int64, the
+    leading shape), a row block at a time: the popcount widens each word
+    to int64."""
+    total = torch.zeros(a.shape[:-2], dtype=torch.int64, device=a.device)
+    for y0, y1 in row_blocks(a.shape[-2], a[..., :1, :].numel() * WORD):
+        total += popcount(a[..., y0:y1, :]).sum(dim=(-2, -1))
+    return total
+
+
 def alive_count(a: torch.Tensor) -> torch.Tensor:
     """Alive cells in a packed board (unsynced 0-d int64 tensor)."""
-    return popcount(a).sum()
+    return _popcount_sums(a).sum()
 
 
 def superstep(a: torch.Tensor, rule: LifeRule, turns: int) -> torch.Tensor:
@@ -255,7 +290,7 @@ def batched_alive_counts(stack: torch.Tensor) -> torch.Tensor:
     vertically packed one: the popcount does not depend on the packing),
     an unsynced length-B vector of :func:`count_dtype`."""
     ncells = stack.shape[-2] * stack.shape[-1] * WORD
-    return popcount(stack).sum(dim=(-2, -1)).to(count_dtype(ncells))
+    return _popcount_sums(stack).to(count_dtype(ncells))
 
 
 def make_batched_superstep(rule: LifeRule = CONWAY):

@@ -45,10 +45,30 @@ def step(board: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return apply_rule(alive, neighbour_counts(alive), table)
 
 
+#: Cells in one row block of the whole-board passes (the packing passes
+#: of ``ops/packed.py``, :func:`alive_count`, the SDC fingerprint): each
+#: block's transients take a few bytes a cell, so a pass holds little
+#: beside its input and output at any board size (64 blocks at 65536²).
+BLOCK_CELLS = 1 << 26
+
+
+def row_blocks(rows: int, row_cells: int) -> list[tuple[int, int]]:
+    """``(start, stop)`` ranges over ``rows`` rows of ``row_cells`` cells
+    each (a row of every board of a stack), at most :data:`BLOCK_CELLS`
+    cells a range and one row at least."""
+    step = max(1, BLOCK_CELLS // max(1, row_cells))
+    return [(r, min(rows, r + step)) for r in range(0, rows, step)]
+
+
 def alive_count(board: torch.Tensor) -> torch.Tensor:
     """Alive-cell count as an unsynced 0-d int64 tensor on the board's
-    device (``int()`` forces it)."""
-    return torch.sum(board & 1, dtype=torch.int64)
+    device (``int()`` forces it).  A sum first widens what it sums to its
+    accumulator's type, so the board is summed a row block at a time
+    (:func:`row_blocks`): int32 within a block, int64 across them."""
+    total = torch.zeros((), dtype=torch.int64, device=board.device)
+    for y0, y1 in row_blocks(board.shape[-2], board[..., :1, :].numel()):
+        total += torch.sum(board[..., y0:y1, :] & 1, dtype=torch.int32)
+    return total
 
 
 def superstep(board: torch.Tensor, table: torch.Tensor, turns: int) -> torch.Tensor:

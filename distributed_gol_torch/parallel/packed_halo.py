@@ -68,7 +68,7 @@ def _step(board: ShardedBoard, rule: LifeRule) -> ShardedBoard:
 
 
 def _local_count(board: ShardedBoard, dtype) -> torch.Tensor:
-    return psum((packed.popcount(t).sum().to(dtype) for t in board.flat), board.mesh.span)
+    return psum((packed.alive_count(t).to(dtype) for t in board.flat), board.mesh.span)
 
 
 def sharded_superstep(mesh: Mesh, rule: LifeRule):

@@ -2,9 +2,11 @@
 
 from __future__ import annotations
 
+import warnings
 from typing import NamedTuple, Sequence
 
 import numpy as np
+import torch
 
 
 class Cell(NamedTuple):
@@ -42,16 +44,15 @@ class AliveCells(Sequence):
     def from_board(cls, board: np.ndarray) -> "AliveCells":
         """Alive cells of a {0, 255} uint8 board, row-major order — the
         vectorised ``calculateAliveCells`` (``gol/distributor.go:153-166``).
-        Flat-index + int32 divmod is ~3× faster than ``np.nonzero`` at the
-        16384² finalize this exists for."""
-        board = np.asarray(board)
-        h, w = board.shape
-        flat = np.flatnonzero(board)
-        if board.size < 2**31:  # int32 flat index is exact; divmod is faster
-            flat = flat.astype(np.int32, copy=False)
-        xy = np.empty((flat.size, 2), np.int32)
-        np.remainder(flat, w, out=xy[:, 0], casting="unsafe")
-        np.floor_divide(flat, w, out=xy[:, 1], casting="unsafe")
+        ``torch.nonzero`` scans a byte board several times faster than
+        ``np.flatnonzero``, which the 65536² finalize feels."""
+        board = np.ascontiguousarray(board)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)  # a read-only board is only read
+            yx = torch.nonzero(torch.from_numpy(board)).numpy()
+        xy = np.empty((yx.shape[0], 2), np.int32)
+        xy[:, 0] = yx[:, 1]
+        xy[:, 1] = yx[:, 0]
         return cls(xy)
 
     @property

@@ -18,6 +18,7 @@ import queue
 import time
 import warnings
 
+import numpy as np
 import pytest
 
 from tests.resilience_pair import (
@@ -91,6 +92,20 @@ def plan(pk, *faults):
 
 def harness(pk, p, *faults):
     return pk.faults.FaultInjectionBackend(pk.Backend(p), plan(pk, *faults))
+
+
+def warmed(backend, p):
+    """``backend`` with its SDC probe for ``p``'s dispatch depth already
+    run once, on an all-dead board.  The JAX Backend compiles that probe
+    per instance (the adaptive tier's in interpret mode), and the probe
+    runs under the dispatch watchdog, so on a loaded worker a rebuilt
+    Backend's first probe can outlast a short deadline.  A row that
+    rebuilds under one warms each Backend before the supervisor takes
+    it, so that only an injected hang outlasts the deadline.  The probe
+    counts nothing, so both packages are warmed alike."""
+    dead = backend.put(np.zeros((p.image_height, p.image_width), np.uint8))
+    backend.sdc_probe(dead, dead, p.superstep, 0)
+    return backend
 
 
 def parked_turn(pk, session, p):
@@ -277,8 +292,8 @@ def test_every_fault_kind_through_the_ladder(tier, tmp_path, oracle):
     def scenario(pk, d):
         p = tier_params(pk, tier, d, checkpoint_every_turns=s, sdc_check_every_turns=s,
                         restart_limit=3, dispatch_deadline_seconds=1.0)
-        h = harness(pk, p, *faults)
-        factory = (lambda q, attempt: h if attempt == 0 else h.rebind(pk.Backend(q)))
+        h = pk.faults.FaultInjectionBackend(warmed(pk.Backend(p), p), plan(pk, *faults))
+        factory = (lambda q, attempt: h if attempt == 0 else h.rebind(warmed(pk.Backend(q), q)))
         session = pk.Session()
         try:
             (events, sup, error), counters = within(60, lambda: counters_during(

@@ -552,6 +552,45 @@ def test_wire_subcommand_help_lists_the_jax_flags(sub, capsys):
     assert flags[0] == flags[1] and "--port" in flags[1]
 
 
+#: The port's own flags: where the boards live.
+PORT_ONLY_FLAGS = {"--device"}
+#: Flags whose help says what the port does differently: the port's
+#: stripe cap and its default, and a torch.profiler trace.
+PORT_OWN_HELP = {"run": {"--skip-tile-cap", "--trace"}, "serve": set()}
+
+
+def _cli_help(parser) -> dict:
+    """``--flag`` -> help text of every long option of ``parser``, with
+    the JAX texts' tracking references, "(WORD n)" or "(WORD n; ...",
+    dropped."""
+    import re
+
+    out = {}
+    for action in parser._actions:
+        text = re.sub(r"\([A-Z]+ \d+; ", "(", re.sub(r"\s*\([A-Z]+ \d+\)", "", action.help or ""))
+        out.update({o: text for o in action.option_strings if o.startswith("--")})
+    return out
+
+
+@pytest.mark.parametrize("cli", ["run", "serve"])
+def test_cli_help_matches_the_jax_cli(cli):
+    """The run CLI and ``serve`` take the JAX CLI's flags, and each flag
+    both have says the same in its help, but where the port does
+    something else (``PORT_OWN_HELP``)."""
+    from distributed_gol_torch import __main__ as tmain
+    from distributed_gol_tpu import __main__ as jmain
+
+    build = "build_parser" if cli == "run" else "build_serve_parser"
+    jax_help, port_help = (_cli_help(getattr(m, build)()) for m in (jmain, tmain))
+    assert set(port_help) - set(jax_help) == PORT_ONLY_FLAGS
+    assert set(jax_help) <= set(port_help)
+    differ = {f for f in jax_help if port_help[f] != jax_help[f]}
+    assert differ == PORT_OWN_HELP[cli], {f: (port_help[f], jax_help[f]) for f in differ}
+    if cli == "serve":
+        assert port_help["--restart-limit"] == (
+            "per-session rollback-recovery supervisor budget; each tenant's ladder is its own")
+
+
 def test_tenant_spec_parse_matches_jax():
     from distributed_gol_torch.__main__ import _parse_tenant_spec
     from distributed_gol_tpu.__main__ import _parse_tenant_spec as jparse

@@ -246,6 +246,7 @@ from distributed_gol_torch.ops import (
 from distributed_gol_torch.parallel import cuda_halo, halo, mesh as mesh_lib
 from distributed_gol_torch.testing.faults import (
     Fault, FaultInjectionBackend, FaultPlan, PodChaos)
+from distributed_gol_torch.testing.boards import sparse_board
 from distributed_gol_torch.testing.netchaos import ChaosProxy, WireFault, WirePlan
 from distributed_gol_torch.utils import measure
 from distributed_gol_torch.utils.soup import random_soup
@@ -412,6 +413,10 @@ FLIP_TURNS = 2
 # The serving pods: (tenants, side, turns, superstep).
 POD_K7 = (16, 512, 10_000, 64)
 POD_K8 = (4, 4096, 10_000, 192)
+# K8's sparse stack: these slots of ``testing.boards.sparse_board`` on a
+# 4096 x 16384 board (512 words: the column window engages), beside a
+# dead one.
+K8_SPARSE = ("mid", "spark", "two_columns", "two_rows")
 CLI_POD = (4, 512, 2_000, 64)
 # The sharded runs' meshes, virtual on the one card: (a) the 16384² soup
 # on row strips, (b) on 2-D tiles, (c) the default 512² run, (d) the
@@ -445,11 +450,11 @@ TILE_PLAN_LESS = (520, 1024, 3_000)
 # K15's checks: the 16384² soup split (2, 2), (2, 4) and (1, 2) (north and
 # south the tile itself, west and east one tile).
 TILE_MEGA_MESHES = (MESH_H, MESH_J, (1, 2))
-# K14's and K15's 32-launch chunks against their plain versions, by
+# K14's and K15's 16-launch chunks against their plain versions, by
 # (first mesh, board): the boards whose skip state and gliders carry
 # across launches.  Every board's 64-launch K14 chunk is also held to
 # K5 on the whole board, and every board to 8-launch chunks of three rules.
-LONG_RUNS = {(True, "settled"): [(CONWAY, 32)], (True, "seam"): [(CONWAY, 32)]}
+LONG_RUNS = {(True, "settled"): [(CONWAY, 16)], (True, "seam"): [(CONWAY, 16)]}
 # Every run row is published as {reps, median, spread} (utils/measure.py):
 # a run shorter than REP_SECONDS is repeated to REPS runs.
 REPS, REP_SECONDS = 2, 5.0
@@ -1043,53 +1048,159 @@ def seam_stack(side: int, device) -> torch.Tensor:
     return torch.from_numpy(stack).to(device)
 
 
+def sparse_packed(h: int, w: int, device, slots=None) -> torch.Tensor:
+    """``testing.boards.sparse_board`` of h x w cells in the port's 256-row
+    stripes (all its slots, or ``slots``), packed on the card."""
+    kw = {} if slots is None else dict(slots=slots)
+    return packed.pack(torch.from_numpy(sparse_board(h, w, 256, **kw)).to(device))
+
+
+def route_names(routes: torch.Tensor) -> set:
+    """The routes a (launches, stripes) record holds, by name
+    (``cuda_adaptive.ROUTES``), and "after" where a stripe skipped right
+    after the rectangle route (K12: the column tier)."""
+    r = routes.cpu()
+    names = {cuda_adaptive.ROUTES[k] for k in r.unique().tolist()}
+    if ((r[:-1] == cuda_adaptive.ROUTE_TIER) & (r[1:] == cuda_adaptive.ROUTE_SKIP)).any():
+        names.add("after")
+    return names
+
+
+ROUTES_NEEDED = ("skip", "tier", "row", "full", "after")
+
+
+def require_routes(routes: torch.Tensor, what: str, need=ROUTES_NEEDED) -> set:
+    """Raise unless the route record holds every route of ``need``."""
+    names = route_names(routes)
+    if not set(need) <= names:
+        raise AssertionError(f"{what} took the routes {sorted(names)}, not all of {list(need)}")
+    return names
+
+
+def launch_records(run) -> tuple:
+    """``run(each)`` with ``each`` recording every launch's (board, state,
+    routes), cloned, the state as int64: (what ``run`` returns, the
+    records)."""
+    seen = []
+
+    def each(board, state, routes):
+        seen.append((board.clone(), state.to(torch.int64).clone(), routes.clone()))
+
+    return run(each), seen
+
+
+def records_err(got: list, want: list, what: str) -> int:
+    """Max abs error between two launch-by-launch records (boards, whole
+    states, routes); raises if they differ in length or anywhere."""
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} launches recorded against {len(want)}")
+    err = max(max(max_abs_err(a, b) for a, b in zip(g, w)) for g, w in zip(got, want))
+    if err:
+        bad = next(k for k, (g, w) in enumerate(zip(got, want))
+                   if any(max_abs_err(a, b) for a, b in zip(g, w)))
+        raise AssertionError(f"{what}: launch {bad} differs (board, state or routes)")
+    return err
+
+
+def route_words(routes: torch.Tensor, plan, shape: tuple) -> float:
+    """The words a frontier launch's data needs advanced, on the mean
+    launch of a (launches, stripes) route record on shards of ``shape``:
+    each stripe the cells its route writes as gen T at most, the
+    rectangle route (K12: the column tier) its window's validity region,
+    (sub_rows - 2T) x (col_window - 2 ceil((T + 6) / 32)) words, the row
+    tier its sub-window's validity rows at full width, the full window its
+    centre (stripe_h x wp); a skip none.  So no route is counted for more
+    than its kernel computes."""
+    sub_rows, cwin = cuda_adaptive.frontier_geometry(plan, shape)
+    wp = shape[1]
+    cw = (plan.t + 6 + 31) // 32
+    rows = (sub_rows or 0) - 2 * plan.t
+    words = {cuda_adaptive.ROUTE_TIER: rows * ((cwin or 0) - 2 * cw),
+             cuda_adaptive.ROUTE_ROW: rows * wp, cuda_adaptive.ROUTE_FULL: plan.stripe_h * wp}
+    r = routes.cpu()
+    return sum(int((r == k).sum()) * v for k, v in words.items()) / r.shape[0]
+
+
+def chunk_routes(run) -> torch.Tensor:
+    """The route record of ``run(record)``, whose ``record(routes)`` gets
+    each launch's routes: (launches, stripes)."""
+    seen = []
+    run(lambda routes: seen.append(routes.clone()))
+    return torch.stack(seen)
+
+
+def route_mix(routes: torch.Tensor) -> dict:
+    """The stripes a launch takes each route, on the mean launch of a
+    (launches, stripes) record, by name."""
+    r = routes.cpu()
+    return {name: int((r == k).sum()) / r.shape[0] for k, name in enumerate(cuda_adaptive.ROUTES)
+            if (r == k).any()}
+
+
 def check_frontier_batched(device, errs: dict) -> dict:
     """K8 against its plain version over one canonical chunk (8 launches)
     of 4 x 4096², fresh and settled (each soup after ``LONG_TURNS``
-    generations of K2), and on the seam stack: boards, per-board skip
-    counts and activity, under ``REG_RULES`` (Day & Night takes the
-    generic instantiation; each rule's launches counted in its own), and
-    against K8's block mirror on the card (``frontier_batched_reg_mirror``
-    at the card's blocks); and K8 with one board against K5.  Returns the
-    packed stacks (phase 4 times them)."""
+    generations of K2), on the seam stack, and on ``K8_SPARSE`` (a sparse
+    4096 x 16384 board beside a dead one, where the column window
+    engages): after every launch the stack, the whole interval and
+    rectangle state and the route record, then the per-board skip counts
+    and activity, under ``REG_RULES`` (Day & Night takes the generic
+    instantiation; each rule's launches counted in its own), and against
+    K8's block mirror on the card (``frontier_batched_reg_mirror`` at the
+    card's blocks); every route runs on the card; and K8 with one board
+    against K5.  Returns the packed stacks (phase 4 times them)."""
     side, nb = POD_K8[1], POD_K8[0]
-    plan = cuda_adaptive.adaptive_plan((side, side // 32), 10**6)
     fresh = packed.pack(soup_stack(nb, side, 51, device)).contiguous()
     settled = torch.stack([cuda_packed.tiled_superstep(b.contiguous(), CONWAY, LONG_TURNS)
                            for b in fresh])
+    sparse = sparse_packed(side, BIG, device, K8_SPARSE)
     stacks = {"fresh": fresh, "settled": settled,
-              "seam": packed.pack(seam_stack(side, device)).contiguous()}
+              "seam": packed.pack(seam_stack(side, device)).contiguous(),
+              "sparse": torch.stack([sparse, torch.zeros_like(sparse)]).contiguous()}
     sms = cuda_adaptive.device_sms(device)
+    routes = []
     for rule in REG_RULES:
         for name, st in stacks.items():
+            plan = cuda_adaptive.adaptive_plan(tuple(st.shape[1:]), 10**6)
             reset_launches()
-            got, sk, act = cuda_adaptive.frontier_superstep_batched(st, rule, plan, 8)
-            want, wsk, wact = cuda_adaptive.frontier_superstep_batched_mirror(st, rule, plan, 8)
-            blk = cuda_adaptive.frontier_batched_reg_mirror(st, rule, plan, 8, sms)
+            (got, sk, act), seen = launch_records(
+                lambda each: cuda_adaptive.frontier_superstep_batched(st, rule, plan, 8, each))
             torch.cuda.synchronize()
             if cuda_adaptive.frontier_superstep_batched.rules != {instantiation(rule): 8}:
                 raise AssertionError(f"K8 under {rule.notation} ran "
                                      f"{dict(cuda_adaptive.frontier_superstep_batched.rules)}")
-            err = max(max_abs_err(got, want), max_abs_err(got, blk[0]))
+            (want, wsk, wact), wseen = launch_records(
+                lambda each: cuda_adaptive.frontier_superstep_batched_mirror(
+                    st, rule, plan, 8, each=each))
+            blk, bseen = launch_records(lambda each: cuda_adaptive.frontier_batched_reg_mirror(
+                st, rule, plan, 8, sms, each))
+            torch.cuda.synchronize()
+            where = f"the {name} stack under {rule.notation}"
+            err = max(records_err(seen, wseen, f"K8 against its plain version on {where}"),
+                      records_err(seen, bseen, f"K8 against its block mirror on {where}"),
+                      max_abs_err(got, want), max_abs_err(got, blk[0]))
             errs["frontier_batched"] = max(errs["frontier_batched"], err)
-            if not (torch.equal(got, want) and torch.equal(sk, wsk) and torch.equal(act, wact)):
-                raise AssertionError(f"K8 != plain on the {name} stack under {rule.notation}: "
-                                     f"skipped {sk.tolist()} vs {wsk.tolist()}")
-            if err or not (torch.equal(sk, blk[1]) and torch.equal(act, blk[2])):
-                raise AssertionError(f"K8 != its block mirror on the {name} stack under "
-                                     f"{rule.notation}")
+            if not (torch.equal(sk, wsk) and torch.equal(act, wact) and torch.equal(sk, blk[1])
+                    and torch.equal(act, blk[2])):
+                raise AssertionError(f"K8 != plain on {where}: skipped {sk.tolist()} vs "
+                                     f"{wsk.tolist()}")
             if name == "seam" and not torch.equal(got, packed.superstep(st, rule, 8 * plan.t)):
                 raise AssertionError("K8's seam stack differs from the plain packed engine")
-            log(f"K8 {st.shape[0]} x {side}^2 x 8 launches ({plan}) {name} {rule.notation}: "
-                f"identical to the plain version and the block mirror, skipped {sk.tolist()}, "
-                f"active stripes {int((act > 0).sum())}")
+            if rule is CONWAY:
+                routes.append(torch.stack([r for _, _, r in seen]))
+            log(f"K8 {st.shape[0]} x {tuple(st.shape[1:])} words x 8 launches ({plan}) {name} "
+                f"{rule.notation}: identical to the plain version and the block mirror after "
+                f"every launch, skipped {sk.tolist()}, active stripes {int((act > 0).sum())}, "
+                f"routes {sorted(route_names(seen[-1][2][None]))} at the last launch")
+        plan = cuda_adaptive.adaptive_plan((side, side // 32), 10**6)
         one = cuda_adaptive.frontier_superstep_batched(fresh[:1].contiguous(), rule, plan, 8)
         k5 = cuda_adaptive.frontier_superstep(fresh[0].contiguous(), rule, plan, 8)
         if not (torch.equal(one[0][0], k5[0]) and int(one[1][0]) == int(k5[1])
                 and torch.equal(one[2], k5[2])):
             raise AssertionError(f"K8 with one board != K5 under {rule.notation}")
-    log("K8 with one board: equals K5 (board, skip count, activity)")
-    return {"fresh": fresh, "settled": settled}
+    log(f"K8 with one board: equals K5 (board, skip count, activity); K8's routes on the card "
+        f"under B3/S23: {sorted(require_routes(routes[-1], 'K8 on the sparse stack'))}")
+    return {"fresh": fresh, "settled": settled, "sparse": stacks["sparse"]}
 
 
 def reset_launches() -> None:
@@ -1110,14 +1221,15 @@ def settled_board(device) -> torch.Tensor:
     return cuda_packed.tiled_superstep(p, CONWAY, LONG_TURNS)
 
 
-def check_adaptive(errs: dict, boards: dict) -> None:
+def check_adaptive(errs: dict, boards: dict, sparse: torch.Tensor) -> None:
     """K3, K4 and K5 against their plain versions at 16384²: board, skip
     count and per-stripe activity, on each board under both rules, through
     one dispatch of t·(64 + 3) + 13 turns (a 64-launch frontier chunk, a
     3-launch probing tail, a skip launch and a plain remainder); then K5
-    alone over 8 launches on each board under ``REG_RULES`` (Day & Night
-    takes its generic instantiation) against its plain version and its
-    block mirror on the card (``check_k5_blocks``).  K3 alone at every
+    alone over 8 launches on each board and on ``sparse`` under
+    ``REG_RULES`` (Day & Night takes its generic instantiation) against its
+    plain version and its block mirror on the card, launch by launch
+    (``check_k5_blocks``).  K3 alone at every
     launch depth and K4 alone over 8 launches are held to their plain
     versions by ``check_skip_blocks``."""
     plan = cuda_adaptive.adaptive_plan((BIG, BIG // 32), 10**6)
@@ -1142,7 +1254,7 @@ def check_adaptive(errs: dict, boards: dict) -> None:
             log(f"K5+K4+K3 {BIG}^2 x {turns} ({plan}) {name} {rule.notation}: identical, "
                 f"skipped {int(sk)} of {cuda_adaptive.adaptive_tile_launches((BIG, BIG // 32), turns, plan=plan)}, "
                 f"active stripes {int((act > 0).sum())}")
-    check_k5_blocks(errs, boards, plan)
+    check_k5_blocks(errs, {**boards, "sparse": sparse}, plan)
 
 
 def instantiation(rule: LifeRule) -> str:
@@ -1151,34 +1263,48 @@ def instantiation(rule: LifeRule) -> str:
 
 
 def check_k5_blocks(errs: dict, boards: dict, plan) -> None:
-    """K5 over one chunk of 8 launches on each board under ``REG_RULES``,
-    each launch counted in the rule's instantiation, against its plain
-    version and against its block mirror run on the card at the card's
-    blocks (``cuda_adaptive.frontier_launch_reg_mirror``): board, skip
-    count and activity, tolerance 0."""
+    """K5 over one chunk of 8 launches on each board (the fresh and
+    settled soups and the sparse board) under ``REG_RULES``, each launch
+    counted in the rule's instantiation, against its plain version and
+    against its block mirror run on the card at the card's blocks
+    (``cuda_adaptive.frontier_launch_reg_mirror``): after every launch the
+    board, the whole interval and rectangle state and the route record,
+    then the skip count and activity, tolerance 0; every route (skip,
+    rectangle, row, full, and a skip right after a rectangle) runs on the
+    card on the sparse board."""
     device = boards["fresh"].device
     blocks = cuda_adaptive.frontier_blocks((BIG, BIG // 32), plan, 1,
                                            cuda_adaptive.device_sms(device))
     mirror = functools.partial(cuda_adaptive.frontier_launch_reg_mirror, blocks=blocks)
+    routes = {}
     for rule in REG_RULES:
         for name, p in boards.items():
             reset_launches()
-            got = cuda_adaptive.frontier_superstep(p, rule, plan, 8)
+            got, seen = launch_records(
+                lambda each: cuda_adaptive.frontier_superstep(p, rule, plan, 8, each))
             torch.cuda.synchronize()
             if cuda_adaptive.frontier_superstep.rules != {instantiation(rule): 8}:
                 raise AssertionError(f"K5 under {rule.notation} ran "
                                      f"{dict(cuda_adaptive.frontier_superstep.rules)}")
-            for what, want in (("plain", cuda_adaptive.frontier_superstep_mirror(p, rule, plan, 8)),
-                               ("block mirror", cuda_adaptive.frontier_superstep_mirror(
-                                   p, rule, plan, 8, mirror))):
-                err = max(max_abs_err(a, b) for a, b in zip(got, want))
+            for what, launch in (("plain version", cuda_adaptive.frontier_launch_mirror),
+                                 ("block mirror", mirror)):
+                want, wseen = launch_records(lambda each: cuda_adaptive.frontier_superstep_mirror(
+                    p, rule, plan, 8, launch, each))
+                where = f"K5 x 8 against its {what} on the {name} board under {rule.notation}"
+                err = max(records_err(seen, wseen, where),
+                          max(max_abs_err(a, b) for a, b in zip(got, want)))
                 errs["frontier"] = max(errs["frontier"], err)
                 if err:
-                    raise AssertionError(f"K5 x 8 != its {what} on the {name} board under "
-                                         f"{rule.notation}")
+                    raise AssertionError(where)
+            r = torch.stack([k for _, _, k in seen])
+            if rule is CONWAY:
+                routes[name] = r
             log(f"K5 {BIG}^2 x 8 launches ({blocks}) {name} {rule.notation} "
-                f"({instantiation(rule)}): identical to the plain version and the block mirror, "
-                f"skipped {int(got[1])}")
+                f"({instantiation(rule)}): identical to the plain version and the block mirror "
+                f"after every launch, skipped {int(got[1])}, routes {sorted(route_names(r))}")
+    log(f"K5's routes on the card under B3/S23: "
+        f"{ {n: sorted(route_names(r)) for n, r in routes.items()} }; on the sparse board "
+        f"{sorted(require_routes(routes['sparse'], 'K5 on the sparse board'))}")
 
 
 def check_skip_blocks(device, errs: dict, boards: dict) -> None:
@@ -1299,15 +1425,17 @@ def seam_gliders(p: torch.Tensor) -> torch.Tensor:
     return packed.pack(torch.from_numpy(b).to(p.device))
 
 
-def check_strip_launches(sb, rule: LifeRule, errs: dict, plans, name: str) -> None:
-    """K12 and K11 against their plain versions launch by launch: three
+def check_strip_launches(sb, rule: LifeRule, errs: dict, plans, name: str, n: int = 3):
+    """K12 and K11 against their plain versions launch by launch: ``n``
     launches of each on the four strips of ``sb`` (both parities), each
-    launch's strip and its K12 state (row intervals and computed flags) or
-    K11 bitmap recorded and compared, tolerance 0.  K12 runs at the
-    frontier plan ``plans[0]`` and at ``plans[2]`` where given (path (g)'s
-    frontier plan: T = 6 on 16-row stripes), K11 at the probing plan
-    ``plans[1]`` where given and at the frontier plan too (the in-kernel
-    tier's loose tail, path (e))."""
+    launch's strip and its K12 state (row and column intervals and
+    computed flags) and routes or K11 bitmap recorded and compared,
+    tolerance 0.  K12 runs at the frontier plan ``plans[0]`` and at
+    ``plans[2]`` where given (path (g)'s frontier plan: T = 6 on 16-row
+    stripes), K11 at the probing plan ``plans[1]`` where given and at the
+    frontier plan too (the in-kernel tier's loose tail, path (e)).
+    Returns K12's route record at ``plans[0]`` on the card, (n, 4 *
+    stripes)."""
     strips = [row[0] for row in sb.shards]
     checks = [(plans[0], "strip_frontier", cuda_halo.frontier_launches)]
     if len(plans) > 1:
@@ -1315,6 +1443,7 @@ def check_strip_launches(sb, rule: LifeRule, errs: dict, plans, name: str) -> No
                    (plans[0], "strip_probing", cuda_halo.probing_launches)]
     if len(plans) > 2:
         checks.append((plans[2], "strip_frontier", cuda_halo.frontier_launches))
+    routes = None
     for plan, kernel, seq in checks:
         runs = []
         for fn in (WRAPPERS[kernel], getattr(cuda_halo, f"{kernel}_launch_plain")):
@@ -1322,22 +1451,27 @@ def check_strip_launches(sb, rule: LifeRule, errs: dict, plans, name: str) -> No
 
             def record(*args, _fn=fn, _seen=seen):
                 out = _fn(*args)
-                flags = args[5].cur if isinstance(args[5], cuda_halo.FrontierState) else args[5]
-                _seen.append((out.clone(), flags.clone()))
+                if isinstance(args[5], cuda_halo.FrontierState):
+                    _seen.append((out.clone(), args[5].cur.clone(), args[5].route.clone()))
+                else:
+                    _seen.append((out.clone(), args[5].clone()))
                 return out
 
-            seq(strips, rule, plan, 3, record)
+            seq(strips, rule, plan, n, record)
             runs.append(seen)
         torch.cuda.synchronize()
-        for (board, flags), (want_board, want_flags) in zip(*runs):
-            err = max(max_abs_err(board, want_board), max_abs_err(flags, want_flags))
+        for got, want in zip(*runs):
+            err = max(max_abs_err(a, b) for a, b in zip(got, want))
             errs[kernel] = max(errs[kernel], err)
             if err:
                 raise AssertionError(f"{kernel} != plain launch by launch ({plan}) on the {name} "
                                      f"strips under {rule.notation}")
-    log(f"{', '.join(f'{WRAPPERS[k].__name__} at {p}' for p, k, _ in checks)} x 3 launches on "
-        f"the 4 {name} strips {rule.notation}: identical strips, intervals and bitmaps at every "
-        "launch")
+        if routes is None and kernel == "strip_frontier":
+            routes = torch.stack([r for _, _, r in runs[0]]).view(n, -1)
+    log(f"{', '.join(f'{WRAPPERS[k].__name__} at {p}' for p, k, _ in checks)} x {n} launches on "
+        f"the 4 {name} strips {rule.notation}: identical strips, intervals, routes and bitmaps "
+        f"at every launch; K12's routes {sorted(route_names(routes))}")
+    return routes
 
 
 @contextlib.contextmanager
@@ -1379,7 +1513,7 @@ def check_k10_settled(e: torch.Tensor, t: int, xpad: int, where: str) -> dict:
     return out
 
 
-def check_strips(device, errs: dict, boards: dict) -> dict:
+def check_strips(device, errs: dict, boards: dict, sparse: torch.Tensor) -> dict:
     """K10, K11, K12 and K14 against their plain versions, tolerance 0, on
     the 16384² soup split (4, 1) on a virtual mesh: fresh, settled (after
     ``LONG_TURNS`` generations) and settled with a glider crossing each
@@ -1394,8 +1528,10 @@ def check_strips(device, errs: dict, boards: dict) -> dict:
     K11 launches a strip), each against the
     same dispatch through the plain versions on the card
     (``plain_strip_kernels``): boards, skip counts and activity;
-    then K12 and K11 launch by launch (``check_strip_launches``), and K10
-    alone at depths 6 to 30 on every strip's extended block.
+    then K12 and K11 launch by launch (``check_strip_launches``), K12 also
+    on the ``sparse`` board's strips, 4 launches, where every route must
+    run on the card, and K10 alone at depths 6 to 30 on every strip's
+    extended block.
     Returns the sharded boards (phase 4 times them)."""
     m = mesh_lib.make_mesh(MESH_E, virtual(MESH_E, device))
     sharding = halo.board_sharding(m)
@@ -1460,6 +1596,10 @@ def check_strips(device, errs: dict, boards: dict) -> dict:
             if name == "settled" and rule is CONWAY:
                 e = halo.extend(sb, 18, 0)[0][0]
                 log(f"K10 on settled strip 0 at T = 18: {check_k10_settled(e, 18, 0, 'strip 0')}")
+    cases["sparse"] = sharding.shard(sparse)
+    k12 = check_strip_launches(cases["sparse"], CONWAY, errs, (fplan,), "sparse", 4)
+    log(f"K12's routes on the sparse strips: "
+        f"{sorted(require_routes(k12, 'K12 on the sparse strips'))}")
     # K12's and K11's generic instantiations (Day & Night), launch by launch.
     cuda_halo.strip_frontier_launch.rules.clear()
     cuda_halo.strip_probing_launch.rules.clear()
@@ -1568,7 +1708,7 @@ def flat(shards) -> list:
     return [t for r in shards for t in r] if isinstance(shards[0], list) else list(shards)
 
 
-def check_mega_chunks(key: str, chunk, shards, plan, runs, errs: dict, where: str) -> None:
+def check_mega_chunks(key: str, chunk, shards, plan, runs, errs: dict, where: str):
     """K14 or K15 (``key``: "strip_mega" or "tile_mega", ``chunk`` its
     chunk function) against its plain version, tolerance 0, on ``shards``
     (``where`` names them in the log): for each (rule, n) of ``runs`` the
@@ -1576,9 +1716,10 @@ def check_mega_chunks(key: str, chunk, shards, plan, runs, errs: dict, where: st
     launch, exactly n launches counted, K14's and K15's in the rule's
     instantiation)
     against the plain chunk on the card, in shards, final state, skip
-    counts and activity; then three
-    launches against the plain chunk launch by launch (shards and the
-    whole state after each, through ``each``)."""
+    counts and activity; then four
+    launches against the plain chunk launch by launch (shards, the whole
+    state and the routes after each, through ``each``).  Returns the
+    routes of those four launches on the card, (4, stripes)."""
     tag = {"strip_mega": "K14", "tile_mega": "K15"}[key]
     for rule, n in runs:
         reset_launches()
@@ -1600,19 +1741,25 @@ def check_mega_chunks(key: str, chunk, shards, plan, runs, errs: dict, where: st
     seen = {}
     for on_plain in (False, True):
         def record(out, st, _seen=seen.setdefault(on_plain, [])):
-            _seen.append(([t.clone() for t in flat(out)], st.state.clone()))
+            _seen.append(([t.clone() for t in flat(out)], st.state.clone(), st.route.clone()))
 
-        chunk(shards, CONWAY, plan, 3, on_plain, record)
-    for (a, sa), (b, sb) in zip(*seen.values()):
-        err = max([max_abs_err(x, y) for x, y in zip(a, b)] + [max_abs_err(sa, sb)])
+        chunk(shards, CONWAY, plan, 4, on_plain, record)
+    for (a, sa, ra), (b, sb, rb) in zip(*seen.values()):
+        if key == "tile_mega":
+            # The plain version forces the edge stripes K15 elides.
+            ra = torch.where(ra == cuda_adaptive.ROUTE_ELIDED, cuda_adaptive.ROUTE_FULL, ra)
+        err = max([max_abs_err(x, y) for x, y in zip(a, b)]
+                  + [max_abs_err(sa, sb), max_abs_err(ra, rb)])
         errs[key] = max(errs[key], err)
         if err:
             raise AssertionError(f"{tag} != plain launch by launch on {where}")
-    log(f"{tag} {where}: the chunk equals the plain chunk launch by launch (3 launches, "
-        "shards and state)")
+    routes = torch.stack([r for _, _, r in seen[False]])
+    log(f"{tag} {where}: the chunk equals the plain chunk launch by launch (4 launches, "
+        f"shards, state and routes; routes {sorted(route_names(routes))})")
+    return routes
 
 
-def check_strip_mega(device, errs: dict, boards: dict) -> dict:
+def check_strip_mega(device, errs: dict, boards: dict, sparse: torch.Tensor) -> dict:
     """K14 against its plain version, tolerance 0, on the 16384² soup split
     ``MEGA_MESHES`` on virtual meshes of the card ((4, 1); (2, 1), whose
     north and south neighbours are one strip; (1, 1), the strip its own
@@ -1621,11 +1768,13 @@ def check_strip_mega(device, errs: dict, boards: dict) -> dict:
     (``seam_gliders``), through ``check_mega_chunks``: chunks of 8
     launches under both rules and Day & Night (K14's generic
     instantiation, which must have run) and, on the settled and seam
-    strips, of 32 under Conway (``LONG_RUNS``), then launch by launch; on
+    strips, of 16 under Conway (``LONG_RUNS``), then launch by launch; on
     (2, 1) and (1, 1) only the fresh
     and seam strips, in chunks of 8 under Conway and Day & Night; and
     the 8-launch chunk
-    against K14's block mirror run on the card (``strip_mirror_chunk``).
+    against K14's block mirror run on the card (``strip_mirror_chunk``);
+    on (4, 1) also the ``sparse`` board's strips, where every route must
+    run on the card.
     On (4, 1), a K14 chunk of 8 and of 64 must also equal one K5 chunk
     (``cuda_adaptive.frontier_superstep``) on the whole board at the strip
     plan's stripes: on one card the two compute the same function (board,
@@ -1633,7 +1782,7 @@ def check_strip_mega(device, errs: dict, boards: dict) -> dict:
     times them)."""
     plan = cuda_halo.adaptive_strip_plan((BIG // MESH_E[0], BIG // 32), 10**6)
     whole = {"fresh": boards["fresh"], "settled": boards["settled"],
-             "seam": seam_gliders(boards["settled"])}
+             "seam": seam_gliders(boards["settled"]), "sparse": sparse}
     cases = {}
     for mesh_shape in MEGA_MESHES:
         ny = mesh_shape[0]
@@ -1648,9 +1797,15 @@ def check_strip_mega(device, errs: dict, boards: dict) -> dict:
         for name in names:
             p = whole[name]
             strips = list(p.chunk(ny))
-            check_mega_chunks("strip_mega", cuda_halo.strip_mega_launches, strips, plan,
-                              runs + LONG_RUNS.get((mesh_shape == MESH_E, name), []),
-                              errs, f"the {mesh_shape} {name} strips")
+            if name == "sparse":
+                runs = [(CONWAY, 8), (DAY_AND_NIGHT, 8)]
+            routes = check_mega_chunks(
+                "strip_mega", cuda_halo.strip_mega_launches, strips, plan,
+                runs + LONG_RUNS.get((mesh_shape == MESH_E, name), []), errs,
+                f"the {mesh_shape} {name} strips")
+            if name == "sparse":
+                log(f"K14's routes on the sparse strips: "
+                    f"{sorted(require_routes(routes, 'K14 on the sparse strips'))}")
             got = cuda_halo.strip_mega_launches(strips, CONWAY, plan, 8)
             err = mega_chunks_equal(got, strip_mirror_chunk(strips, plan, 8), 8)
             errs["strip_mega"] = max(errs["strip_mega"], err)
@@ -1862,7 +2017,7 @@ def check_tile_mega(errs: dict, boards: dict) -> dict:
     neighbours are one tile), through ``check_mega_chunks``: on (2, 2)
     chunks of 8 launches under both rules and Day & Night (K15's generic
     instantiation, which must have run) and, on the settled and seam
-    tiles, of 32 under Conway (``LONG_RUNS``), on (2, 4)
+    tiles, of 16 under Conway (``LONG_RUNS``), on (2, 4)
     and (1, 2) the fresh and seam tiles in chunks of 8 under Conway and
     Day & Night; then launch by launch.  On (2, 2) the 8-launch chunk must also equal
     K15's mirror run on the card (its blocks and its elision of edge
@@ -4093,8 +4248,9 @@ def flagship_kernels(errs: dict, int_rate: float, device) -> dict:
     chunk of 2 launches over its four strips), then timed a launch from
     the fresh soup (the median and spread of ``BATCHES`` batches; K5 and
     K14 over chunks of 64) beside its bound (``bound_ms``; K9's over its
-    light cone, ``ext_bound_ms``; K5's and K14's over the stripes they
-    computed, ``work_bound_ms``).  CUDA events."""
+    light cone, ``ext_bound_ms``; K5's and K14's over the words of the
+    routes their stripes took, ``route_words`` and ``work_bound_ms``).
+    CUDA events."""
     p = flagship_packed(device)
     sms = cuda_adaptive.device_sms(device)
     shape = tuple(p.shape)
@@ -4125,15 +4281,14 @@ def flagship_kernels(errs: dict, int_rate: float, device) -> dict:
     hold("frontier", max(max_abs_err(g, w), abs(int(gsk) - int(wsk)), max_abs_err(gact, wact)),
          "K5")
     del g, w
-    _, sk, _ = cuda_adaptive.frontier_superstep(p, CONWAY, plan, 64)
-    grid = plan.grid(FLAG)
-    computed = (64 * grid - int(sk)) / 64
-    words = computed * plan.stripe_h * shape[1]
+    routes = chunk_routes(lambda rec: cuda_adaptive.frontier_superstep(
+        p, CONWAY, plan, 64, lambda b, st, r: rec(r)))
+    words = route_words(routes, plan, shape)
     row("frontier", per_launch(cuda_ms_spread(
         lambda: cuda_adaptive.frontier_superstep(p, CONWAY, plan, 64), 1), 64),
         work_bound_ms(words, words, plan.t + 6, CONWAY, int_rate), plan=str(plan),
         blocks=str(cuda_adaptive.frontier_blocks(shape, plan, 1, sms)),
-        computed_stripes_per_launch=computed, stripes=grid)
+        routes_per_launch=route_mix(routes), stripes=plan.grid(FLAG))
 
     m = mesh_lib.make_mesh(T_MESH, virtual(T_MESH, device))
     sb = halo.board_sharding(m).shard(p)
@@ -4155,14 +4310,14 @@ def flagship_kernels(errs: dict, int_rate: float, device) -> dict:
     want = cuda_halo.strip_mega_launches(strips, CONWAY, splan, 2, plain=True)
     hold("strip_mega", mega_chunks_equal(got, want, 2), "K14")
     del got, want
-    _, st = cuda_halo.strip_mega_launches(strips, CONWAY, splan, 64)
-    grid = splan.grid(sb.shard_shape[0])
-    computed = (64 * T_MESH[0] * grid - int(st.skipped.sum())) / 64
-    words = computed * splan.stripe_h * sb.shard_shape[1]
+    routes = chunk_routes(lambda rec: cuda_halo.strip_mega_launches(
+        strips, CONWAY, splan, 64, each=lambda out, st: rec(st.route)))
+    words = route_words(routes, splan, sb.shard_shape)
     row("strip_mega", per_launch(cuda_ms_spread(
         lambda: cuda_halo.strip_mega_launches(strips, CONWAY, splan, 64), 1), 64),
         work_bound_ms(words, words, splan.t + 6, CONWAY, int_rate), plan=str(splan),
-        strips=len(strips), computed_stripes_per_launch=computed, stripes=T_MESH[0] * grid)
+        strips=len(strips), routes_per_launch=route_mix(routes),
+        stripes=T_MESH[0] * splan.grid(sb.shard_shape[0]))
     return rows
 
 
@@ -4488,9 +4643,11 @@ def time_adaptive(boards: dict, int_rate: float) -> dict:
     """Per-launch times of K3, K4 and K5 at 16384² on each board (the median
     and spread of ``BATCHES`` batches, and K3's and K4's device ms a launch
     from ``torch.profiler``), beside K2 at the same T and the plain
-    versions, with each launch's bound from its own skip telemetry: K5 over
-    a 64-launch chunk, K4 over 8 launches from a zero bitmap (both move
-    only the stripes they compute), K3 one launch (it writes the whole
+    versions (K5's over 8 launches), with each launch's bound from its own
+    telemetry: K5 over the
+    words of the routes its stripes took in a 64-launch chunk
+    (``route_words``), K4 over 8 launches from a zero bitmap (it moves
+    only the stripes it computes), K3 one launch (it writes the whole
     board; its computed stripes are those K4's first launch does not prove
     stable).  The ``dead`` board's times are the launch floor: it has no
     work."""
@@ -4500,11 +4657,12 @@ def time_adaptive(boards: dict, int_rate: float) -> dict:
     stripe_words = plan.stripe_h * BIG // 32
     out = {}
     for name, p in boards.items():
-        _, sk5, _ = cuda_adaptive.frontier_superstep(p, CONWAY, plan, 64)
+        routes = chunk_routes(lambda rec: cuda_adaptive.frontier_superstep(
+            p, CONWAY, plan, 64, lambda b, st, r: rec(r)))
         _, sk4, _ = cuda_adaptive.probing_superstep(p, CONWAY, plan, 8)
         _, sk1, _ = cuda_adaptive.probing_superstep(p, CONWAY, plan, 1)
-        computed = {"frontier": (64 * grid - int(sk5)) / 64, "probing": (8 * grid - int(sk4)) / 8,
-                    "tiled_skip": grid - int(sk1)}
+        computed = {"frontier": route_words(routes, plan, tuple(p.shape)) / stripe_words,
+                    "probing": (8 * grid - int(sk4)) / 8, "tiled_skip": grid - int(sk1)}
         gens = {"frontier": plan.t + 6, "probing": plan.t, "tiled_skip": plan.t}
         row = {
             "tiled_same_t_ms": cuda_ms(lambda: cuda_packed.tiled_superstep(p, CONWAY, plan.t), 10),
@@ -4525,7 +4683,7 @@ def time_adaptive(boards: dict, int_rate: float) -> dict:
             "frontier": dict(
                 ms_spread=per_launch(cuda_ms_spread(
                     lambda: cuda_adaptive.frontier_superstep(p, CONWAY, plan, 64), 3), 64),
-                plain_ms=cuda_ms(lambda: cuda_adaptive.frontier_superstep_mirror(p, CONWAY, plan, 64), 1) / 64),
+                plain_ms=cuda_ms(lambda: cuda_adaptive.frontier_superstep_mirror(p, CONWAY, plan, 8), 1) / 8),
         }
         for k in ADAPTIVE:
             row[k]["ms"] = row[k]["ms_spread"]["median"]
@@ -4533,6 +4691,8 @@ def time_adaptive(boards: dict, int_rate: float) -> dict:
             moved = p.numel() if k == "tiled_skip" else computed[k] * stripe_words
             b_ms, b_by = work_bound_ms(moved, computed[k] * stripe_words, gens[k], CONWAY, int_rate)
             row[k].update(computed_stripes_per_launch=computed[k], bound_ms=b_ms, bound_by=b_by)
+        # K5's "computed stripes" are its routes' words in whole stripes.
+        row["frontier"]["routes_per_launch"] = route_mix(routes)
         out[name] = row
         log(f"{name} board, {plan}: K2 {row['tiled_same_t_ms']:.4f} ms per {plan.t}-gen launch; "
             f"device ms a launch: K3 {row['tiled_skip']['device_ms']:.4f}, K4 "
@@ -4550,10 +4710,10 @@ def time_batched(k8_stacks: dict, int_rate: float) -> dict:
     launches of the same boards (what the unbatched pod b launches per
     superstep), its plain version, and its bound over all 16 boards.  K8:
     one chunk of 8 launches of 4 x 4096² (a superstep of pod c) on the
-    fresh and the settled stack, per launch (the median and spread of
-    ``BATCHES`` batches of 3 chunks), with the bound of the work that
-    chunk's data needs (the stripes it computed, T + 6 generations
-    each)."""
+    fresh and the settled stack, and of the sparse stack, per launch (the
+    median and spread of ``BATCHES`` batches of 3 chunks), with the bound
+    of the work that chunk's data needs (the words of the routes its
+    stripes took, ``route_words``, T + 6 generations each)."""
     nt, side, _, step = POD_K7
     v = packed.pack_vertical(soup_stack(nt, side, 61, torch.device("cuda", 0))).contiguous()
     k1_sequential = cuda_ms_spread(lambda: [cuda_packed.resident_superstep(b, CONWAY, step)
@@ -4590,25 +4750,24 @@ def time_batched(k8_stacks: dict, int_rate: float) -> dict:
         f"{k7['bound'][0]:.5f} ms by {k7['bound'][1]}; 3 x 1024x1792: "
         f"{edge_ms['median']:.4f} ms ({edge_plan})")
     nb, side = POD_K8[0], POD_K8[1]
-    plan = cuda_adaptive.adaptive_plan((side, side // 32), 10**6)
-    grid = plan.grid(side)
-    stripe_words = plan.stripe_h * side // 32
     rows = {}
     for name, st in k8_stacks.items():
-        _, sk, _ = cuda_adaptive.frontier_superstep_batched(st, CONWAY, plan, 8)
-        computed = (8 * nb * grid - int(sk.sum())) / 8
-        b_ms, b_by = work_bound_ms(computed * stripe_words, computed * stripe_words,
-                                   plan.t + 6, CONWAY, int_rate)
+        plan = cuda_adaptive.adaptive_plan(tuple(st.shape[1:]), 10**6)
+        routes = chunk_routes(lambda rec: cuda_adaptive.frontier_superstep_batched(
+            st, CONWAY, plan, 8, lambda b, s, r: rec(r)))
+        words = route_words(routes, plan, tuple(st.shape[1:]))
+        b_ms, b_by = work_bound_ms(words, words, plan.t + 6, CONWAY, int_rate)
         spread_ms = per_launch(cuda_ms_spread(
             lambda: cuda_adaptive.frontier_superstep_batched(st, CONWAY, plan, 8), 3), 8)
         rows[name] = dict(
-            ms=spread_ms["median"], ms_spread=spread_ms,
+            ms=spread_ms["median"], ms_spread=spread_ms, shape=list(st.shape),
             plain_ms=cuda_ms(lambda: cuda_adaptive.frontier_superstep_batched_mirror(
                 st, CONWAY, plan, 8), 1) / 8,
-            computed_stripes_per_launch=computed, bound_ms=b_ms, bound_by=b_by)
-        log(f"K8 {nb} x {side}^2, {plan}, {name}: {rows[name]['ms']:.4f} ms per launch "
-            f"(plain {rows[name]['plain_ms']:.3f}, bound {b_ms:.4f} by {b_by}, "
-            f"{computed:.2f} of {nb * grid} stripes computed)")
+            routes_per_launch=route_mix(routes), bound_ms=b_ms, bound_by=b_by)
+        log(f"K8 {tuple(st.shape)} words, {plan}, {name}: {rows[name]['ms']:.4f} ms per launch "
+            f"(plain {rows[name]['plain_ms']:.3f}, bound {b_ms:.4f} by {b_by}, routes a launch "
+            f"{route_mix(routes)})")
+    plan = cuda_adaptive.adaptive_plan((side, side // 32), 10**6)
     fresh = rows["fresh"]
     k8 = dict(ms=fresh["ms"], plain_ms=fresh["plain_ms"],
               bound=(fresh["bound_ms"], fresh["bound_by"]),
@@ -4684,13 +4843,14 @@ def span_ms(spans: list) -> float:
 
 def time_strips(cases: dict, int_rate: float) -> dict:
     """Per-launch times of K10, K11 and K12 on the (4, 1) strips of the
-    16384² soup, fresh and settled, each call between CUDA events inside
-    the strip tier's own launch sequence (so every launch sees the
-    exchange's inputs; the median and spread of ``BATCHES`` sequences),
-    beside the plain versions the same way, with each
-    launch's bound from its own skip telemetry: K12 over 64 launches a
-    strip and K11 over 8 from a zero bitmap (each moves and computes only
-    the stripes it computes, T + 6 and T generations), K11 at the probing
+    16384² soup, fresh and settled, and of the sparse board, each call
+    between CUDA events inside the strip tier's own launch sequence (so
+    every launch sees the exchange's inputs; the median and spread of
+    ``BATCHES`` sequences), beside the plain versions the same way, with
+    each launch's bound from its own telemetry: K12 over the words of the
+    routes its stripes took in 64 launches a strip (``route_words``) and
+    K11 over 8 from a zero bitmap (it moves and computes only the stripes
+    it computes), T + 6 and T generations, K11 at the probing
     plan and at the frontier plan (the in-kernel tier's loose tail on path
     (e), recorded as ``path_e_tail``); K10 one launch of
     18 generations (a remainder depth of path (e)) on strip 0's extended
@@ -4705,7 +4865,7 @@ def time_strips(cases: dict, int_rate: float) -> dict:
     ny = MESH_E[0]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = {}
-    for name in ("fresh", "settled"):
+    for name in ("fresh", "settled", "sparse"):
         sb = cases[name]
         strips = [row[0] for row in sb.shards]
         row = {}
@@ -4724,6 +4884,16 @@ def time_strips(cases: dict, int_rate: float) -> dict:
             grid = plan.grid(strip[0])
             computed = (n * ny * grid - int(sk)) / (n * ny)
             words = computed * plan.stripe_h * strip[1]
+            if kernel == "strip_frontier":
+                def launch(*a, _rec=None):
+                    out = cuda_halo.strip_frontier_launch(*a)
+                    _rec(a[5].route)
+                    return out
+
+                routes = chunk_routes(lambda rec: seq(strips, CONWAY, plan, n,
+                                                      functools.partial(launch, _rec=rec)))
+                words = route_words(routes, plan, strip)
+                computed = words / (plan.stripe_h * strip[1])
             b_ms, b_by = work_bound_ms(words, words, gens, CONWAY, int_rate)
             row[key] = dict(ms=statistics.median(per), ms_spread=spread(per),
                             plain_ms=span_ms(plain), plan=str(plan),
@@ -4773,25 +4943,27 @@ def time_strips(cases: dict, int_rate: float) -> dict:
 
 def time_strip_mega(cases: dict, int_rate: float) -> dict:
     """K14 per launch on the (4, 1) strips of the 16384² soup, fresh and
-    settled (the median and spread of ``BATCHES`` batches of 3 chunks):
+    settled, and of the sparse board (the median and spread of
+    ``BATCHES`` batches of 3 chunks):
     one 64-launch chunk on the card (its pointer tables, then one
     call a launch) between CUDA events, over 64, beside, in the same call
     and the same way, the ppermute tier's 64 launches (four K12 launches a
     mesh launch, with the row and interval exchange between launches:
     ``frontier_launches``), one K5 chunk of 64 on the whole board at the
     strip plan's stripes, and the plain chunk over 2 launches.  The bound
-    is the work of the stripes K14 computed (its own skip count): T + 6
+    is the work of the routes K14's stripes took (``route_words``): T + 6
     generations of their words, each read and written once."""
     strip = (BIG // MESH_E[0], BIG // 32)
     plan = cuda_halo.adaptive_strip_plan(strip, 10**6)
     ny, grid = MESH_E[0], plan.grid(strip[0])
     rows = {}
-    for name in ("fresh", "settled"):
+    for name in ("fresh", "settled", "sparse"):
         strips = cases[name]
         whole = torch.cat(strips)
-        _, st = cuda_halo.strip_mega_launches(strips, CONWAY, plan, 64)
-        computed = (64 * ny * grid - int(st.skipped.sum())) / 64
-        words = computed * plan.stripe_h * strip[1]
+        routes = chunk_routes(lambda rec: cuda_halo.strip_mega_launches(
+            strips, CONWAY, plan, 64, each=lambda out, st: rec(st.route)))
+        words = route_words(routes, plan, strip)
+        computed = words / (plan.stripe_h * strip[1])
         b_ms, b_by = work_bound_ms(words, words, plan.t + 6, CONWAY, int_rate)
         spread_ms = per_launch(cuda_ms_spread(
             lambda: cuda_halo.strip_mega_launches(strips, CONWAY, plan, 64), 3), 64)
@@ -4804,7 +4976,7 @@ def time_strip_mega(cases: dict, int_rate: float) -> dict:
             k5_whole_board_ms=cuda_ms(
                 lambda: cuda_adaptive.frontier_superstep(whole, CONWAY, plan, 64), 3) / 64,
             plan=str(plan), computed_stripes_per_launch=computed, stripes=ny * grid,
-            bound_ms=b_ms, bound_by=b_by)
+            routes_per_launch=route_mix(routes), bound_ms=b_ms, bound_by=b_by)
         r = rows[name]
         log(f"K14 {name} strips of {MESH_E}, {plan}: {r['ms']:.4f} ms a launch over all "
             f"{ny} strips (plain {r['plain_ms']:.3f}, bound {b_ms:.5f} by {b_by}, {computed:.2f} "
@@ -5171,16 +5343,17 @@ def main() -> int:
     step("check_tiled", check_tiled, device, errs)
     boards = step("boards", lambda: {"fresh": packed.pack(board(BIG, BIG, 13, device)),
                                      "settled": settled_board(device)})
-    step("check_adaptive", check_adaptive, errs, boards)
+    sparse = sparse_packed(BIG, BIG, device)
+    step("check_adaptive", check_adaptive, errs, boards, sparse)
     step("check_skip_blocks", check_skip_blocks, device, errs, boards)
     step("check_stencil", check_stencil, device, errs)
     step("check_resident_batched", check_resident_batched, device, errs)
     k8_stacks = step("check_frontier_batched", check_frontier_batched, device, errs)
     ext_cases = step("check_ext", check_ext, device, errs)
-    strip_cases = step("check_strips", check_strips, device, errs, boards)
+    strip_cases = step("check_strips", check_strips, device, errs, boards, sparse)
     strip_cases["plan_less"] = step("check_plan_less_f", check_plan_less, device, errs,
                                     PLAN_LESS, MESH_F, "f")
-    mega_cases = step("check_strip_mega", check_strip_mega, device, errs, boards)
+    mega_cases = step("check_strip_mega", check_strip_mega, device, errs, boards, sparse)
     tiled = tile_boards(boards)
     tile_cases = step("check_tiles", check_tiles, device, errs, tiled)
     tile_cases["plan_less"] = step("check_plan_less_i", check_plan_less, device, errs,
@@ -5344,6 +5517,7 @@ def main() -> int:
     witness = k6_copy_witness(soups[BIG])
     e2e[f"viewer_turn_{BIG}"] = time_viewer_turn(soups[BIG])
     boards["dead"] = torch.zeros_like(boards["fresh"])
+    boards["sparse"] = sparse
     adaptive = time_adaptive(boards, int_rate)
     for k in ADAPTIVE:
         # The fresh soup leads (every stripe computes, so the bound is the

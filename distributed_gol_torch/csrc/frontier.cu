@@ -3,74 +3,98 @@
 // (gol_tile_mega_launch).  Each replaces a Pallas kernel of the JAX
 // package that runs the tracked-interval skip/compute/measure state
 // machine of a skip_stable dispatch, and each steps its windows in
-// registers (regwin.cuh's frontier window, below).
+// registers (regwin.cuh's frontier window).
 //
 // K5: replaces distributed_gol_tpu/ops/pallas_packed.py::
-// _kernel_frontier_mega (its decisions _hit_union, its measure _measure2),
-// the kernel _run_tiled runs for whole chunks of launches.  The TPU kernel
-// runs a chunk of launches as one pallas_call with the per-stripe state
-// in SMEM.  Here one launch (T generations, T a multiple of 6,
-// T + 6 <= 30) is two CUDA kernels chained on the stream, and the state
-// lives in device memory, so there is no host round trip between
+// _kernel_frontier_mega (its decisions _hit_union, _frontier_placement and
+// _col_placement, its measure _measure2, its routes and change-rectangle
+// writes), the kernel _run_tiled runs for whole chunks of launches.  The
+// TPU kernel runs a chunk of launches as one pallas_call with the
+// per-stripe state in SMEM.  Here one launch (T generations, T a multiple
+// of 6, T + 6 <= 30) is two CUDA kernels chained on the stream, and the
+// state lives in device memory, so there is no host round trip between
 // launches:
 //
-//   state  int32[2][5][grid]: per launch parity, the two tracked row
-//          intervals of each stripe (lo0, hi0, lo1, hi1; empty = (2^30, -1),
-//          board rows, inside the stripe) and whether the stripe computed;
-//   rowflag int32[H]: rows whose gen-(T+6) state differs from gen T,
-//          inside each stripe's measure region — zero between launches;
+//   state   int32[2][10][grid]: per launch parity, each stripe's two
+//           tracked row intervals (lo0, hi0, lo1, hi1; empty = (2^30, -1),
+//           board rows, inside the stripe), its column interval (clo, chi,
+//           board words) and its change rectangle (r8, n8, c128, n128: the
+//           cells its launch may have changed, in chunks of 8 rows and 128
+//           words);
+//   rowflag int32[H], colspan int32[grid][2]: the measure's rows and each
+//           stripe's least and greatest word, cleared between launches;
+//   route   int32[grid]: each stripe's route this launch;
 //   skipped int32[1], act int32[grid]: the skip count and the per-stripe
-//          activity, accumulated over the chunk.
+//           activity, accumulated over the chunk.
 //
 // frontier_reg_kernel, one block per (row tile of a stripe, column group
-// of 30 words):
-// - reads the neighbour stripes' intervals from the previous parity,
-//   placed in this stripe's row frame across the torus wrap, and decides
-//   `hit` and the clamped union exactly as _hit_union does, with the JAX
-//   kernel's reach pad_f = round8(T + 6); launch 0 of a chunk forces hit
-//   and the maximal union;
-// - a stripe that does not hit counts one skip, and copies its centre from
-//   the read buffer to the write buffer if it computed last launch (the
-//   write buffer holds the state of two launches ago; a stripe that also
-//   skipped last launch has nothing to do);
-// - a stripe that hits loads its window (T + 6 rows a side, rows wrapping
-//   around the board: reg::column of a BoardSource), steps T generations,
-//   writes the gen-T centre, steps 6 more and flags the rows of its
-//   measure region (the JAX m_lo..m_hi, in the centre) where gen T + 6
-//   differs from gen T.  The TPU kernel's row, column and rectangle tiers
-//   only narrow what it computes; cells in their validity regions are the
-//   true state, so computing the whole window gives the same board and
-//   the same measure.
+// of 30 words).  One thread of each block decides for its stripe, as the
+// TPU kernel does, with the same arithmetic (its idx8 * 8 and cidx * 128
+// floors), so each stripe takes the TPU kernel's route:
+// - from the neighbour stripes' state of the previous parity (rows placed
+//   in this stripe's frame across the torus wrap), `hit` and the clamped
+//   row and column unions (_hit_union, reach pad_f = round8(T + 6));
+//   launch 0 of a chunk forces hit and the maximal union;
+// - the routes, at the plan geometry (cuda_adaptive.frontier_geometry:
+//   a sub-window of sub_rows = round8(4T + margin) rows, a column window
+//   of col_window words): skip where it does not hit; the RECTANGLE route
+//   where the measure fits the sub-window's validity rows, the column
+//   union and its reach fit the column window's validity words, and the
+//   window lies inside the board; else the ROW tier where the rows fit;
+//   else the FULL window;
+// - the writes (the change-rectangle protocol): launch l reads the board
+//   written at l - 1 and writes the buffer written at l - 2, and a stripe
+//   writes only C(l - 1) and C(l), its previous and its new change
+//   rectangle.  A skipped stripe copies C(l - 1) from its input (twice
+//   skipped, it does nothing); the rectangle route copies C(l - 1) and
+//   writes the window's rows of its centre, col_window words (gen T in
+//   the window's validity region, rows and words at least T and
+//   ceil((T + 6) / 32) words inside it, its input elsewhere), and
+//   publishes them; the row tier and the full window write the whole
+//   centre (gen T in the sub-window's validity rows, or everywhere) and
+//   publish it.
+// There is no staging: a block steps its whole window from the read
+// buffer, and only blocks whose tile meets the cells their stripe writes
+// as gen T step at all; the others copy what their stripe copies.  Cells
+// in a validity region are the true state at gen T (their light cone lies
+// in the window), so stepping the block's own window gives the TPU
+// kernel's values there; the 128-word quantum lives only in the decision
+// arithmetic.  A stepping block keeps gen T, steps 6 more, flags the rows
+// of its measure region (the JAX m_lo..m_hi; on the rectangle route only
+// the column window's validity words) where gen T + 6 differs from gen T,
+// widens its stripe's column extremes, and stores its written cells.
 // frontier_finalize, one block per stripe: turns the stripe's row flags
 // into the two intervals of _measure2 (split at the midpoint of the
-// stripe-wide span), counts the stripe active when the first is nonempty,
-// and clears the flags.
+// stripe-wide span) and its extremes into its column interval, counts the
+// stripe active when the first is nonempty, and clears both.
 //
 // K8: the same kernel on a contiguous stack of B same-shape boards, the
 // nboards > 1 form of _kernel_frontier_mega (its leading grid axis over
 // boards stacked along the row axis, driven by _run_tiled_batched),
 // blockIdx.z the board.  Every array gains the board axis, indexed
 // board-globally as the JAX kernel's gi = b * grid + i: state
-// int32[2][5][B * grid], rowflag int32[B * H], skipped int32[B] (one count
+// int32[2][10][B * grid], rowflag int32[B * H], skipped int32[B] (one count
 // per board), act int32[B * grid].  Each board is its own torus: block
 // (., ., b) reads board b's words (its column wraps within the board), its
 // neighbour stripes i +- 1 mod grid and its interval placement across the
-// wrap all stay inside board b; a dead board beside a live one is never
-// read.  K5 is this kernel with B = 1.
+// wrap all stay inside board b, and the rectangle route's window inside
+// its rows; a dead board beside a live one is never read.  Board b's rows
+// and rectangles are in its own frame.  K5 is this kernel with B = 1.
 //
 // K12: the frontier strip launch.  Replaces
 // distributed_gol_tpu/parallel/pallas_halo.py::_ext_kernel_frontier, the
 // launch a skip_stable dispatch on a row mesh runs for every full launch
 // where the strip has a frontier plan.  K5 on one strip, state in the
 // strip's row frame: stripes 0 and grid - 1 take their outer neighbours'
-// intervals from an extended array that the exchange fills from the
-// neighbour strips' edge stripes (shifted by -/+ h_loc, so nothing wraps
-// inside the strip); a window's rows outside the strip come from the
-// north and south buffers (window.cuh::StripSource); the first launch of
-// a dispatch starts from full intervals, as the JAX make_superstep does.
-// Like K5 it keeps no column interval: the JAX kernel's (cl, ch) only
-// narrows its column tier, and neither the skip decision nor the activity
-// reads it.
+// intervals (rows and columns) from an extended array that the exchange
+// fills from the neighbour strips' edge stripes (rows shifted by -/+
+// h_loc, so nothing wraps inside the strip); a window's rows outside the
+// strip come from the north and south buffers (window.cuh::StripSource);
+// the first launch of a dispatch starts from full intervals, as the JAX
+// make_superstep does.  It takes _frontier_body's three tiers (the
+// column window, the row tier, the full window) with the ps write
+// protocol: a stripe that hits writes its whole centre, one that skips
+// copies it if it computed last launch.
 //
 // K14: the strip megakernel.  Replaces
 // distributed_gol_tpu/parallel/pallas_halo.py::_kernel_frontier_mega_strip,
@@ -84,14 +108,16 @@
 // read buffer (window.cuh::StripSource, north and south the neighbours'
 // whole buffers), and an edge stripe takes its outer neighbour's
 // intervals from the neighbour strip's entries of the one shared state
-// array, shifted by -/+ h_loc into its own row frame (MeshIntervals).
+// array, rows shifted by -/+ h_loc into its own row frame (MeshIntervals).
 // Stream order between the chained launches stands in for the TPU
 // kernel's semaphores and entry barrier, the two write buffers for its
 // parity slots.  Device tables give each strip's read and write buffer;
-// every array gains the strip axis as K8's gains the board axis (state
-// int32[2][5][ny * grid], rowflag int32[ny * h_loc], skipped int32[ny],
-// act int32[ny * grid]), so K8's finalize serves unchanged.  With ny = 1
-// the strip is its own neighbour: the JAX package's loopback build.
+// every array gains the strip axis as K8's gains the board axis, so K8's
+// finalize serves unchanged.  Its routes and writes are K5's, the
+// rectangle route's window inside the strip's own rows (an edge window
+// takes the row tier, whose window reads the neighbour strips).  With
+// ny = 1 the strip is its own neighbour: the JAX package's loopback
+// build.
 //
 // K15: the 2-D megakernel.  Replaces
 // distributed_gol_tpu/parallel/pallas_halo.py::_kernel_frontier_mega_2d,
@@ -105,7 +131,10 @@
 // a stripe decides from nine tracked states in the shared state array
 // (TorusTileIntervals: its own stripes i - 1..i + 1 and those of the W and
 // E tiles).  The arrays gain the tile axis as K14's gain the strip axis,
-// so K8's finalize serves unchanged.
+// so K8's finalize serves unchanged.  K15 keeps whole windows (its
+// compute tiers are still to be ported): a stripe that computes writes
+// and publishes its whole centre and measures its column interval in the
+// tile's own words, as _frontier_body(xpad=) publishes it.
 //
 // The JAX kernel forces a tile's first and last stripes to compute every
 // launch, since its y-neighbours' interval state never crosses the wire.
@@ -118,24 +147,23 @@
 // JAX kernel's measure of it is empty: it computes nothing, writes empty
 // intervals (its rows stay unflagged) and, to keep the skip count, the
 // activity and the state the JAX kernel's, counts as computed (it copies
-// its centre as a stripe that computed last launch must).  Launch 0 of a
-// chunk still forces every stripe.  K14 never forced its edge stripes, so
-// it has no such elision.
+// its previous change rectangle, as a skipped stripe does, and publishes
+// its whole centre).  Launch 0 of a chunk still forces every stripe.  K14
+// never forced its edge stripes, so it has no such elision.
 //
 // The window (regwin.cuh): a block is `warps` warps over a tile of
 // `tile_h` rows of one stripe (a divisor of it) with T + 6 rows a side,
 // and one 32-word column group whose middle 30 words are its centre
 // (T + 6 <= 30 < 32: one border word a side holds the lanes' wrap error,
 // and a board narrower than 30 words wraps inside the group, its copies
-// past wp never stored or measured).  It steps T generations, stores its
-// gen-T centre and keeps it in shared memory, steps 6 more and flags its
-// measure rows; each run steps only the chunks of the light cone of
-// generation T + 6 on the centre.  The plan
-// (ops/cuda_adaptive.py::frontier_blocks: frontier_reg_plan on every
+// past wp never stored or measured).  It steps T generations, keeps gen T
+// in shared memory, steps 6 more, measures and stores; each run steps only
+// the chunks of the light cone of generation T + 6 on the centre.  The
+// plan (ops/cuda_adaptive.py::frontier_blocks: frontier_reg_plan on every
 // shard's rows stacked) picks the block height.  What bounds a launch:
-// integer operations on the stripes that hit (T + 6 generations of their
-// words); on a settled board, the decisions of the many blocks that do
-// not compute and the few stripes that do.
+// integer operations on the blocks that step (T + 6 generations of their
+// windows); on a settled board, the decisions of the many blocks that do
+// not and the few that do.
 
 #include "regwin.cuh"
 #include "window.cuh"
@@ -145,50 +173,57 @@ namespace {
 using namespace gol;
 
 constexpr int kEmpty = 1 << 30;  // pallas_packed._EMPTY_LO
-constexpr int kFields = 5;       // lo0, hi0, lo1, hi1, computed
+// A stripe's state (cuda_adaptive.STATE_FIELDS): lo0, hi0, lo1, hi1, its
+// column interval clo, chi, and its change rectangle r8, n8, c128, n128.
+constexpr int kFields = 10;
+constexpr int kClo = 4, kChi = 5, kR8 = 6;
+// K12's state: the six intervals, then whether the stripe computed.
+constexpr int kStripFields = 7;
+constexpr int kComputed = 6;
+// A stripe's route (cuda_adaptive.ROUTE_*).
+constexpr int kSkip = 0, kTier = 1, kRow = 2, kFull = 3, kElided = 4;
 
 // Stripe i's neighbourhood on a whole board: the previous launch's
-// intervals of stripes i - 1, i and i + 1 (modulo grid), placed in stripe
-// i's row frame across the torus wrap.
+// state of stripes i - 1, i and i + 1 (modulo grid), their rows placed in
+// stripe i's row frame across the torus wrap.
 //
-// Each neighbourhood lists kSize stripes; get(n, k, ...) gives interval k
-// (0 or 1) of its stripe n, placed in stripe i's row frame.
+// Each neighbourhood lists kSize stripes; value(n, f) gives field f of its
+// stripe n (kNeighbourFields: lo0, hi0, lo1, hi1 placed in stripe i's row
+// frame, then clo, chi in board words, unmoved).
+constexpr int kNeighbourFields = 6;
+
 struct TorusIntervals {
     static constexpr int kSize = 3;
     const int* prev;  // the previous parity's state of this board
     int total, grid, stripe_h, i;
-    __device__ void get(int n, int k, int& lo, int& hi) const {
+    __device__ int value(int n, int f) const {
         const int slot = n - 1;
         const int j = wrap(i + slot, grid);
-        const int off = (i + slot - j) * stripe_h;
-        lo = prev[(2 * k) * total + j] + off;
-        hi = prev[(2 * k + 1) * total + j] + off;
+        return prev[f * total + j] + (f < kClo ? (i + slot - j) * stripe_h : 0);
     }
 };
 
 // Stripe i's neighbourhood on a strip of a row mesh (K12): an extended
-// array of grid + 2 entries per field, the neighbour strips' edge stripes
-// at both ends, already placed in this strip's row frame by the exchange.
+// array of grid + 2 entries per field (lo0, hi0, lo1, hi1, clo, chi), the
+// neighbour strips' edge stripes at both ends, already placed in this
+// strip's row frame by the exchange.
 struct StripIntervals {
     static constexpr int kSize = 3;
-    const int* ext;  // int32[4][grid + 2]: lo0, hi0, lo1, hi1
+    const int* ext;  // int32[6][grid + 2]
     int stride, i;   // stride = grid + 2
-    __device__ void get(int n, int k, int& lo, int& hi) const {
-        lo = ext[(2 * k) * stride + i + n];
-        hi = ext[(2 * k + 1) * stride + i + n];
-    }
+    __device__ int value(int n, int f) const { return ext[f * stride + i + n]; }
 };
 
 // Stripe i of strip s of a row mesh whose strips share one state array
 // (K14): a neighbour past the strip's edge is the last stripe of strip
-// s - 1 or the first of strip s + 1 (modulo ny), whose intervals, in
+// s - 1 or the first of strip s + 1 (modulo ny), whose row intervals, in
 // that strip's row frame, move by -/+ h_loc into strip s's.  An empty
 // interval stays empty: both ends move together.
 struct MeshIntervals {
     static constexpr int kSize = 3;
     const int* prev;  // the previous parity's state of every strip
     int total, grid, ny, h_loc, s, i;
-    __device__ void get(int n, int k, int& lo, int& hi) const {
+    __device__ int value(int n, int f) const {
         int j = i + n - 1;
         int t = s;
         int off = 0;
@@ -201,8 +236,7 @@ struct MeshIntervals {
             t = wrap(s + 1, ny);
             off = h_loc;
         }
-        lo = prev[(2 * k) * total + t * grid + j] + off;
-        hi = prev[(2 * k + 1) * total + t * grid + j] + off;
+        return prev[f * total + t * grid + j] + (f < kClo ? off : 0);
     }
 };
 
@@ -213,12 +247,13 @@ struct MeshIntervals {
 // or the first of the row below (modulo ny), moved by -/+ h into this
 // tile's frame as MeshIntervals moves a strip's.  An interior stripe's
 // nine are _kernel_frontier_mega_2d's; an edge stripe's are its 3x3-tile
-// neighbourhood.
+// neighbourhood.  K15 has no tiers, so it reads no column interval.
 struct TorusTileIntervals {
     static constexpr int kSize = 9;
     const int* prev;  // the previous parity's state of every tile
     int total, grid, ny, nx, h, dy, dx, i;
-    __device__ void get(int n, int k, int& lo, int& hi) const {
+    __device__ int value(int n, int f) const {
+        if (f >= kClo) return f == kClo ? kEmpty : -1;
         const int tx = wrap(dx + n / 3 - 1, nx);  // W, own, E
         int j = i + n % 3 - 1;
         int ty = dy;
@@ -232,63 +267,267 @@ struct TorusTileIntervals {
             ty = wrap(dy + 1, ny);
             off = h;
         }
-        const int at = (ty * nx + tx) * grid + j;
-        lo = prev[(2 * k) * total + at] + off;
-        hi = prev[(2 * k + 1) * total + at] + off;
+        return prev[f * total + (ty * nx + tx) * grid + j] + off;
     }
 };
 
-// _hit_union for stripe rows [c_lo, c_hi] over the neighbourhood `iv`, by
-// one thread: `decision` gets hit and the measure rows [lo, hi]; `first`
-// forces hit and the maximal union (launch 0 of a chunk).
+// The shared memory of a stripe's decision: its neighbourhood's fields
+// (kSize x kNeighbourFields, at most nine stripes) and its previous change
+// rectangle (4).
+constexpr int kGathered = 9 * kNeighbourFields + 4;
+
+// Gather a neighbourhood's fields into `vals` (vals[n * 6 + f]) and the
+// stripe's previous change rectangle (`rect`, 4 fields `stride` ints
+// apart; null: none) after them, by the 32 lanes of one warp at once:
+// one thread's loads would follow one another, and the decision waits on
+// them in every block.
 template <class Intervals>
-__device__ void decide(int* decision, const Intervals& iv, int c_lo, int c_hi, int t6,
-                       int pad_f, int first) {
-    int hit = first;
-    int u_lo = c_lo - t6;
-    int u_hi = c_hi + t6;
-    if (!first) {
-        const int w_lo = c_lo - pad_f;
-        const int w_hi = c_hi + pad_f;
-        u_lo = kEmpty;
-        u_hi = -kEmpty;
-        for (int n = 0; n < Intervals::kSize; ++n) {
-            for (int k = 0; k < 2; ++k) {
-                int lo, hi;
-                iv.get(n, k, lo, hi);
-                if (lo > hi) continue;
-                if (lo - kSkipPeriod <= w_hi && hi + kSkipPeriod >= w_lo) hit = 1;
-                const int clo = max(lo, c_lo - t6);
-                const int chi = min(hi, c_hi + t6);
-                if (clo <= chi) {
-                    u_lo = min(u_lo, clo);
-                    u_hi = max(u_hi, chi);
-                }
-            }
+__device__ void gather(const Intervals& iv, const int* rect, int stride, int* vals) {
+    constexpr int n = Intervals::kSize * kNeighbourFields;
+    for (int k = threadIdx.x; k < n + 4; k += reg::kLanes) {
+        if (k < n) {
+            vals[k] = iv.value(k / kNeighbourFields, k % kNeighbourFields);
+        } else if (rect != nullptr) {
+            vals[k] = rect[(k - n) * stride];
         }
     }
-    decision[0] = hit;
-    decision[1] = max(u_lo - t6, c_lo);
-    decision[2] = min(u_hi + t6, c_hi);
+    __syncwarp();
 }
 
-// A frontier block on the register-resident window after its stripe's
-// decision (decision[0]: 0 skip, 1 compute, 2 an edge stripe proved
-// stable, K15: counted computed, not computed).  The leader (one thread
-// of the stripe) keeps the skip count and the computed flag `*computed`;
-// a block that does not compute copies its centre from `rd` to `wr` if
-// the stripe computed last launch.  Whether the block computes.
-__device__ bool reg_begin(const int* decision, bool leader, int* skipped, int* computed,
-                          int computed_before, const uint32_t* __restrict__ rd,
-                          uint32_t* __restrict__ wr, int wp, int y0, int x0, int tile_h) {
-    const int d = decision[0];
-    if (leader) {
-        if (d == 0) atomicAdd(skipped, 1);
-        *computed = d != 0;
+// A stripe's neighbourhood folded (_hit_union): whether a row interval and
+// its 6-row pin margin reach the stripe's window (rows c_lo - pad_f ..
+// c_hi + pad_f), the union of the row intervals each clamped to t6 rows
+// of the stripe, and the union of the nonempty column intervals; from
+// the `size` stripes' fields gathered in `vals`.
+struct Union {
+    int hit, lo, hi, clo, chi;
+};
+
+__device__ Union hit_union(const int* vals, int size, int c_lo, int c_hi, int t6, int pad_f) {
+    Union u{0, kEmpty, -kEmpty, kEmpty, -kEmpty};
+    const int w_lo = c_lo - pad_f;
+    const int w_hi = c_hi + pad_f;
+    for (int n = 0; n < size; ++n) {
+        const int* v = vals + n * kNeighbourFields;
+        for (int k = 0; k < 2; ++k) {
+            const int lo = v[2 * k];
+            const int hi = v[2 * k + 1];
+            if (lo > hi) continue;
+            if (lo - kSkipPeriod <= w_hi && hi + kSkipPeriod >= w_lo) u.hit = 1;
+            const int clo = max(lo, c_lo - t6);
+            const int chi = min(hi, c_hi + t6);
+            if (clo <= chi) {
+                u.lo = min(u.lo, clo);
+                u.hi = max(u.hi, chi);
+            }
+        }
+        if (v[kClo] <= v[kChi]) {
+            u.clo = min(u.clo, v[kClo]);
+            u.chi = max(u.chi, v[kChi]);
+        }
     }
-    if (d == 1) return true;
-    if (computed_before) reg::copy_centre(rd, wr, wp, y0, x0, tile_h);
-    return false;
+    return u;
+}
+
+// The union of launch 0 of a chunk: every stripe hits with the maximal
+// union (the stale column state is not read).
+__device__ Union forced_union(int c_lo, int c_hi, int t6) {
+    return Union{1, c_lo - t6, c_hi + t6, kEmpty, -kEmpty};
+}
+
+// The compute tiers' geometry of a launch (cuda_adaptive.frontier_geometry):
+// the row tier's sub-window rows and the column window's words, 0 = off.
+struct Geometry {
+    int turns, stripe_h, pad_f, sub_rows, col_window, wp;
+};
+
+// What one stripe does in a launch (cuda_adaptive.Routes), decided by one
+// thread of each of its blocks, in shared memory: its route, its measure
+// rows [m_lo, m_hi], the cells [v_lo, v_hi) x [vc_lo, vc_hi) where its
+// window holds the true generation T (also the measure's words), the
+// cells [w_lo, w_hi) x [wc_lo, wc_hi) it writes (gen T in the former, its
+// input elsewhere), the cells [p_lo, p_hi) x [pc_lo, pc_hi) it copies from
+// its input (its previous change rectangle), and the change rectangle it
+// publishes, in chunk units.  Rows in the frame of its board, strip or
+// tile.
+struct Decision {
+    int route;
+    int m_lo, m_hi;
+    int v_lo, v_hi, vc_lo, vc_hi;
+    int w_lo, w_hi, wc_lo, wc_hi;
+    int p_lo, p_hi, pc_lo, pc_hi;
+    int rect[4];
+};
+
+// A stripe's route from its union, as _frontier_placement and
+// _col_placement place its windows (their idx8 * 8 and cidx * 128 floors):
+// skip where it does not hit; the column window where both placements are
+// eligible and, for the rectangle route (`rect`: K5, K8, K14), the
+// window's rows lie in [0, rows); the row tier where the row placement
+// is; else the full window.  The rectangle route writes and publishes the
+// window's rows of its own centre, col_window words; the column tier of
+// K12 and every other route write the whole centre, which the classic
+// routes publish.  Copies nothing (the caller sets the p_ fields).
+__device__ void decide(Decision& d, const Union& u, int c_lo, const Geometry& g, bool rect,
+                       int rows) {
+    const int sh = g.stripe_h, pad = g.pad_f, t = g.turns, t6 = g.turns + kSkipPeriod;
+    const int sub = g.sub_rows, cwin = g.col_window;
+    const int w0 = c_lo - pad;  // the window's first row
+    const int d_lo = u.lo - w0;
+    const int d_hi = u.hi - w0;
+    const int m_lo = max(d_lo - t6, pad);
+    const int m_hi = min(d_hi + t6, pad + sh - 1);
+    int win_lo = 0;
+    bool row_ok = false;
+    if (sub) {
+        win_lo = min(max(d_lo - 2 * t - 16, 0), sh + 2 * pad - sub) / 8 * 8;
+        row_ok = win_lo + t6 <= m_lo && m_hi < win_lo + sub - t6;
+    }
+    const int g_lo = w0 + win_lo;
+    bool tier = false;
+    int win_c = 0, cw = 0;
+    if (cwin) {
+        cw = (t6 + 31) / 32;
+        const int need_lo = u.clo - cw;
+        const int need_hi = u.chi + cw;
+        win_c = min(max(need_lo - cw, 0), g.wp - cwin) / 128 * 128;
+        tier = row_ok && win_c + cw <= need_lo && need_hi < win_c + cwin - cw;
+        if (rect) tier = tier && g_lo >= 0 && g_lo + sub <= rows;
+    }
+    d.route = !u.hit ? kSkip : tier ? kTier : row_ok ? kRow : kFull;
+    d.m_lo = m_lo + w0;
+    d.m_hi = m_hi + w0;
+    const bool windowed = d.route == kTier || d.route == kRow;
+    d.v_lo = windowed ? g_lo + t : c_lo;
+    d.v_hi = windowed ? g_lo + sub - t : c_lo + sh;
+    const bool is_tier = d.route == kTier;
+    d.vc_lo = is_tier ? win_c + cw : 0;
+    d.vc_hi = is_tier ? win_c + cwin - cw : g.wp;
+    const bool r = is_tier && rect;
+    const bool skip = d.route == kSkip;
+    d.w_lo = skip ? 0 : r ? max(g_lo, c_lo) : c_lo;
+    d.w_hi = skip ? 0 : r ? min(g_lo + sub, c_lo + sh) : c_lo + sh;
+    d.wc_lo = r ? win_c : 0;
+    d.wc_hi = r ? win_c + cwin : g.wp;
+    d.rect[0] = skip ? 0 : d.w_lo / 8;
+    d.rect[1] = skip ? 0 : (d.w_hi - d.w_lo) / 8;
+    d.rect[2] = skip ? 0 : d.wc_lo / 128;
+    d.rect[3] = skip ? 0 : r ? cwin / 128 : g.wp / 128;
+    d.p_lo = d.p_hi = 0;
+    d.pc_lo = 0;
+    d.pc_hi = g.wp;
+}
+
+// Copy a published change rectangle (`rect`: r8, n8, c128, n128 at
+// `stride` ints apart) as _copy_rect's two families do: one col_window
+// words wide spans its words, any other (the classic routes' whole
+// centre) the whole width; n8 <= 0 copies nothing.
+__device__ void copy_rect(Decision& d, const int* rect, int stride, const Geometry& g) {
+    const int r8 = rect[0], n8 = rect[stride], c128 = rect[2 * stride], n128 = rect[3 * stride];
+    if (n8 <= 0) return;
+    d.p_lo = r8 * 8;
+    d.p_hi = (r8 + n8) * 8;
+    const bool windowed = g.col_window && n128 == g.col_window / 128;
+    d.pc_lo = windowed ? c128 * 128 : 0;
+    d.pc_hi = windowed ? c128 * 128 + g.col_window : g.wp;
+}
+
+// Whether a block's tile (rows [y0, y0 + tile_h), centre words [x0, x0 +
+// 30) within wp) meets the cells [lo, hi) x [clo, chi).
+__device__ __forceinline__ bool meets(int lo, int hi, int clo, int chi, int y0, int tile_h,
+                                      int x0, int wp) {
+    return max(lo, y0) < min(hi, y0 + tile_h) &&
+           max(clo, x0) < min(chi, min(x0 + reg::kLanes - 2, wp));
+}
+
+// Whether the block steps: its tile meets the cells its stripe writes as
+// gen T (they hold the measure too).
+__device__ __forceinline__ bool steps(const Decision& d, int y0, int tile_h, int x0, int wp) {
+    return meets(max(d.w_lo, d.v_lo), min(d.w_hi, d.v_hi), max(d.wc_lo, d.vc_lo),
+                 min(d.wc_hi, d.vc_hi), y0, tile_h, x0, wp);
+}
+
+// The block's copies from `rd` to `wr`, as the whole block: the cells of
+// its tile that its stripe copies and does not write and, where the block
+// does not step, the cells it writes (all outside the gen-T cells: the
+// input is their value).
+__device__ void copy_cells(const Decision& d, bool stepping, const uint32_t* __restrict__ rd,
+                           uint32_t* __restrict__ wr, int wp, int y0, int x0, int tile_h) {
+    if (!meets(d.p_lo, d.p_hi, d.pc_lo, d.pc_hi, y0, tile_h, x0, wp) &&
+        (stepping || !meets(d.w_lo, d.w_hi, d.wc_lo, d.wc_hi, y0, tile_h, x0, wp))) {
+        return;
+    }
+    const int gx = x0 - 1 + static_cast<int>(threadIdx.x);
+    if (threadIdx.x < 1 || threadIdx.x >= reg::kLanes - 1 || gx >= wp) return;
+    const bool wc = gx >= d.wc_lo && gx < d.wc_hi;
+    const bool pc = gx >= d.pc_lo && gx < d.pc_hi;
+    if (!wc && !pc) return;
+    for (int r = threadIdx.y; r < tile_h; r += blockDim.y) {
+        const int y = y0 + r;
+        const bool w = wc && y >= d.w_lo && y < d.w_hi;
+        const bool p = pc && y >= d.p_lo && y < d.p_hi;
+        if (w ? !stepping : p) {
+            const size_t at = static_cast<size_t>(y) * wp + gx;
+            wr[at] = rd[at];
+        }
+    }
+}
+
+// The measure (_measure2's cells): in the block's centre words inside
+// [vc_lo, vc_hi), set rowflag[y] for each row y of its tile in [m_lo,
+// m_hi] where the registers (gen T + 6) differ from `kept` (gen T,
+// reg::keep), and widen the stripe's column extremes `colspan` (least,
+// greatest) to those words.  Each lane gathers its own 32 rows as bits,
+// the warp ORs them and lane l reports the warp's row l; the warp's least
+// and greatest word go to `colspan` once.
+__device__ __forceinline__ void measure(const uint32_t (&s)[reg::kRun], const reg::Run& run,
+                                        const uint32_t* kept, const Decision& d,
+                                        int* __restrict__ rowflag, int* __restrict__ colspan,
+                                        int wp, int y0, int x0, int tile_h) {
+    int gx;
+    const bool centre = reg::centre_lane(run, x0, wp, gx) && gx >= d.vc_lo && gx < d.vc_hi;
+    const int lo = max(d.m_lo, y0);
+    const int hi = min(d.m_hi, y0 + tile_h - 1);
+    uint32_t bits = 0u;
+#pragma unroll
+    for (int i = 0; i < reg::kRun; ++i) {
+        const int y = y0 + run.row(i) - run.halo;
+        if (centre && y >= lo && y <= hi && s[i] != kept[run.row(i) * reg::kLanes + run.lane]) {
+            bits |= 1u << i;
+        }
+    }
+    const uint32_t rows = __reduce_or_sync(reg::kFull, bits);
+    if ((rows >> run.lane) & 1u) rowflag[y0 + run.row(run.lane) - run.halo] = 1;
+    const int cmin = __reduce_min_sync(reg::kFull, bits ? gx : kEmpty);
+    const int cmax = __reduce_max_sync(reg::kFull, bits ? gx : -kEmpty);
+    if (run.lane == 0 && cmin <= cmax) {
+        atomicMin(colspan, cmin);
+        atomicMax(colspan + 1, cmax);
+    }
+}
+
+// Store the block's written cells of its tile (its centre lanes' rows of
+// [w_lo, w_hi) x [wc_lo, wc_hi)) from `kept` (gen T) where they lie in
+// the gen-T cells, from `rd` (the input) elsewhere.
+__device__ __forceinline__ void store_kept(const reg::Run& run, const uint32_t* kept,
+                                           const Decision& d, const uint32_t* __restrict__ rd,
+                                           uint32_t* __restrict__ wr, int wp, int y0, int x0,
+                                           int tile_h) {
+    int gx;
+    const bool wc = reg::centre_lane(run, x0, wp, gx) && gx >= d.wc_lo && gx < d.wc_hi;
+    if (!wc) return;
+    const bool vc = gx >= d.vc_lo && gx < d.vc_hi;
+    const int lo = max(d.w_lo, y0);
+    const int hi = min(d.w_hi, y0 + tile_h);
+#pragma unroll
+    for (int i = 0; i < reg::kRun; ++i) {
+        const int y = y0 + run.row(i) - run.halo;
+        if (y >= lo && y < hi) {
+            const size_t at = static_cast<size_t>(y) * wp + gx;
+            wr[at] = vc && y >= d.v_lo && y < d.v_hi ? kept[run.row(i) * reg::kLanes + run.lane]
+                                                     : rd[at];
+        }
+    }
 }
 
 // The window's rows and generations: a tile of `tile_h` rows with
@@ -299,36 +538,103 @@ __device__ __forceinline__ reg::Run reg_run(int turns, int tile_h) {
     return reg::Run::make(tile_h + 2 * halo, halo, halo, 0);
 }
 
-// The block's T + 6 generations after its load: T, the gen-T centre kept
-// (reg::keep) and stored by `store(s)`, 6 more, then `measure(s)`.  The
-// two callbacks find the block's place anew (reg::block_x, ...), so that
-// nothing computed before the loops holds a register through them.
-template <class Rule, class Store, class Measure>
-__device__ __forceinline__ void reg_steps(uint32_t (&s)[reg::kRun], reg::Edges& edges,
-                                          uint32_t* kept, const reg::Run& run, int turns,
-                                          const Rule& rule, const Store& store,
-                                          const Measure& measure) {
+// A stepping block's T + 6 generations from `col` (its word column of the
+// window source), then its measure and its writes: T, gen T kept
+// (reg::keep), 6 more, measure(s), then the written cells from the kept
+// gen T.  The block's place is read anew (reg::block_x, ...) after the
+// loops, so that nothing computed before them holds a register through
+// them; `rd`, `wr`, `rowflag` and `colspan` give shard z's input, output,
+// row flags and the column extremes of its stripe at row y.
+template <class Rule, class Shard>
+__device__ __forceinline__ void step_block(reg::Edges& edges, uint32_t* kept, const Decision& d,
+                                           const reg::Column& col, int turns, int tile_h, int wp,
+                                           const Rule& rule, const Shard& shard) {
+    const reg::Run run = reg_run(turns, tile_h);
+    uint32_t s[reg::kRun];
+    const int top = reg::block_y() * tile_h - run.halo;
+    reg::load(s, run, [&](int r) { return col(top + r); });
     reg::advance(s, edges, run, 1, turns, rule);
     reg::keep(s, run, kept);
-    store(s);
     reg::advance(s, edges, run, turns + 1, turns + kSkipPeriod, rule);
-    measure(s);
+    const int z = reg::block_z();
+    const int y0 = reg::block_y() * tile_h;
+    const int x0 = reg::block_x() * (reg::kLanes - 2);
+    measure(s, run, kept, d, shard.rowflag(z), shard.colspan(z, y0), wp, y0, x0, tile_h);
+    store_kept(run, kept, d, shard.rd(z), shard.wr(z), wp, y0, x0, tile_h);
+}
+
+// Shard z of a contiguous stack of boards of h x wp words (K5/K8).
+struct StackShard {
+    const uint32_t* rd_;
+    uint32_t* wr_;
+    int* rowflag_;
+    int* colspan_;
+    int h, wp, stripe_h;
+    __device__ const uint32_t* rd(int z) const { return rd_ + static_cast<size_t>(z) * h * wp; }
+    __device__ uint32_t* wr(int z) const { return wr_ + static_cast<size_t>(z) * h * wp; }
+    __device__ int* rowflag(int z) const { return rowflag_ + static_cast<size_t>(z) * h; }
+    __device__ int* colspan(int z, int y) const {
+        return colspan_ + 2 * (z * (h / stripe_h) + y / stripe_h);
+    }
+};
+
+// Shard z of a mesh whose shards' buffers are in pointer tables (K14,
+// K15; K12 is a table of one).
+struct TableShard {
+    const uint32_t* const* rd_;
+    uint32_t* const* wr_;
+    int* rowflag_;
+    int* colspan_;
+    int h, stripe_h;
+    __device__ const uint32_t* rd(int z) const { return rd_[z]; }
+    __device__ uint32_t* wr(int z) const { return wr_[z]; }
+    __device__ int* rowflag(int z) const { return rowflag_ + static_cast<size_t>(z) * h; }
+    __device__ int* colspan(int z, int y) const {
+        return colspan_ + 2 * (z * (h / stripe_h) + y / stripe_h);
+    }
+};
+
+// One shard's buffers as a table of one (K12).
+struct SoloShard {
+    const uint32_t* rd_;
+    uint32_t* wr_;
+    int* rowflag_;
+    int* colspan_;
+    int stripe_h;
+    __device__ const uint32_t* rd(int) const { return rd_; }
+    __device__ uint32_t* wr(int) const { return wr_; }
+    __device__ int* rowflag(int) const { return rowflag_; }
+    __device__ int* colspan(int, int y) const { return colspan_ + 2 * (y / stripe_h); }
+};
+
+// The stripe's bookkeeping, by its leader (thread 0 of the block of its
+// first row tile and first column group): the published change rectangle
+// into `rect` (4 fields `stride` ints apart), a skip counted, the route
+// recorded.
+__device__ void publish(const Decision& d, int* rect, int stride, int* skipped, int* route) {
+    for (int f = 0; f < 4; ++f) rect[f * stride] = d.rect[f];
+    if (d.route == kSkip) atomicAdd(skipped, 1);
+    *route = d.route;
 }
 
 // K5 and K8: one frontier launch over a contiguous stack of boards of
 // (h, wp) words, blockIdx.z the board, blockIdx.y the row tile of a
 // stripe and blockIdx.x the column group of 30 words.  Board b's stripes
-// keep their state at b * grid + i; `first` forces every stripe to hit
-// with the maximal union (launch 0 of a chunk).  The window's rows wrap
-// around board b alone (reg::column of a BoardSource; the halo <= h).
+// keep their state at b * grid + i, in its own row frame; `first` forces
+// every stripe to hit with the maximal union (launch 0 of a chunk).  The
+// window's rows wrap around board b alone (reg::column of a BoardSource;
+// the halo <= h); the rectangle route's window stays within the board's
+// rows.
 template <class Rule>
 __global__ void __launch_bounds__(reg::kMaxThreads, reg::FrontierBlocks<Rule>::value)
 frontier_reg_kernel(const uint32_t* __restrict__ rd, uint32_t* __restrict__ wr,
-                    int* __restrict__ state, int* __restrict__ rowflag, int* __restrict__ skipped,
-                    int h, int wp, int turns, int stripe_h, int tile_h, int pad_f, int parity,
+                    int* __restrict__ state, int* __restrict__ rowflag, int* __restrict__ colspan,
+                    int* __restrict__ skipped, int* __restrict__ route, int h, int wp, int turns,
+                    int stripe_h, int tile_h, int pad_f, int sub_rows, int col_window, int parity,
                     int first, Rule rule) {
     __shared__ reg::Edges edges;
-    __shared__ int decision[3];  // 0 skip / 1 compute, measure rows lo, hi
+    __shared__ Decision dec;
+    __shared__ int nb[kGathered];
     extern __shared__ uint32_t kept[];  // the window at gen T (reg::keep)
     const int grid = h / stripe_h;
     const int board = blockIdx.z;
@@ -339,88 +645,90 @@ frontier_reg_kernel(const uint32_t* __restrict__ rd, uint32_t* __restrict__ wr,
     const int x0 = blockIdx.x * (reg::kLanes - 2);
     const int i = y0 / stripe_h;
     const int c_lo = i * stripe_h;
-    const int* prev = state + (1 - parity) * kFields * total + board * grid;
-    int* cur = state + parity * kFields * total + board * grid;
-    const bool lead = threadIdx.x == 0 && threadIdx.y == 0;
-    if (lead) {
-        decide(decision, TorusIntervals{prev, total, grid, stripe_h, i}, c_lo,
-               c_lo + stripe_h - 1, turns + kSkipPeriod, pad_f, first);
+    if (threadIdx.y == 0) {
+        const int* prev = state + (1 - parity) * kFields * total + board * grid;
+        if (!first) {
+            gather(TorusIntervals{prev, total, grid, stripe_h, i}, prev + kR8 * total + i, total,
+                   nb);
+        }
+        if (threadIdx.x == 0) {
+            const int t6 = turns + kSkipPeriod;
+            const Geometry g{turns, stripe_h, pad_f, sub_rows, col_window, wp};
+            const Union u =
+                first ? forced_union(c_lo, c_lo + stripe_h - 1, t6)
+                      : hit_union(nb, TorusIntervals::kSize, c_lo, c_lo + stripe_h - 1, t6, pad_f);
+            decide(dec, u, c_lo, g, true, h);
+            if (!first && (dec.route == kSkip || dec.route == kTier)) {
+                copy_rect(dec, nb + TorusIntervals::kSize * kNeighbourFields, 1, g);
+            }
+            if (blockIdx.x == 0 && y0 == c_lo) {
+                int* cur = state + parity * kFields * total + board * grid;
+                publish(dec, cur + kR8 * total + i, total, skipped + board,
+                        route + board * grid + i);
+            }
+        }
     }
     __syncthreads();
-    if (!reg_begin(decision, lead && blockIdx.x == 0 && y0 == c_lo, skipped + board,
-                   &cur[4 * total + i], prev[4 * total + i], b, wr + board * words, wp, y0, x0,
-                   tile_h)) {
-        return;
-    }
-    const reg::Run run = reg_run(turns, tile_h);
-    uint32_t s[reg::kRun];
-    const reg::Column col = reg::column(BoardSource{b, h, wp}, x0 - 1 + run.lane);
-    const int top = y0 - run.halo;
-    reg::load(s, run, [&](int r) { return col(top + r); });
-    const int lanes = reg::kLanes - 2;
-    reg_steps(
-        s, edges, kept, run, turns, rule,
-        [&](const uint32_t(&v)[reg::kRun]) {
-            reg::store_centre(v, run, wr + static_cast<size_t>(reg::block_z()) * h * wp, wp,
-                              reg::block_y() * tile_h, reg::block_x() * lanes, tile_h);
-        },
-        [&](const uint32_t(&v)[reg::kRun]) {
-            reg::flag_changed(v, run, kept, rowflag + static_cast<size_t>(reg::block_z()) * h, wp,
-                              reg::block_y() * tile_h, reg::block_x() * lanes, tile_h,
-                              decision[1], decision[2]);
-        });
+    const bool stepping = steps(dec, y0, tile_h, x0, wp);
+    copy_cells(dec, stepping, b, wr + board * words, wp, y0, x0, tile_h);
+    if (!stepping) return;
+    step_block(edges, kept, dec, reg::column(BoardSource{b, h, wp}, x0 - 1 + threadIdx.x), turns,
+               tile_h, wp, rule, StackShard{rd, wr, rowflag, colspan, h, wp, stripe_h});
 }
 
 // K12: one frontier launch on one strip of a row mesh, one block per
 // (row tile of a stripe, column group of 30 words).  `prev_ext` holds the
-// previous launch's row intervals of this strip's stripes with the
-// neighbour strips' edge stripes at both ends (int32[4][grid + 2], in this
-// strip's row frame), `prev_computed` its computed flags (int32[grid]);
-// `cur` (int32[5][grid]) gets this launch's.  The window's rows outside
-// the strip come from `north` and `south` (n rows each).
+// previous launch's intervals of this strip's stripes with the neighbour
+// strips' edge stripes at both ends (int32[6][grid + 2], rows in this
+// strip's frame), `prev_computed` its computed flags (int32[grid]); `cur`
+// (int32[7][grid]) gets this launch's.  The window's rows outside the
+// strip come from `north` and `south` (n rows each).  K12 keeps the ps
+// protocol: a stripe that hits writes its whole centre, one that skips
+// after a launch that computed copies it.
 template <class Rule>
 __global__ void __launch_bounds__(reg::kMaxThreads, reg::FrontierBlocks<Rule>::value)
 strip_frontier_reg_kernel(const uint32_t* __restrict__ local, const uint32_t* __restrict__ north,
                           const uint32_t* __restrict__ south, uint32_t* __restrict__ wr,
                           const int* __restrict__ prev_ext, const int* __restrict__ prev_computed,
                           int* __restrict__ cur, int* __restrict__ rowflag,
-                          int* __restrict__ skipped, int h, int wp, int n, int turns,
-                          int stripe_h, int tile_h, int pad_f, Rule rule) {
+                          int* __restrict__ colspan, int* __restrict__ skipped,
+                          int* __restrict__ route, int h, int wp, int n, int turns, int stripe_h,
+                          int tile_h, int pad_f, int sub_rows, int col_window, Rule rule) {
     __shared__ reg::Edges edges;
-    __shared__ int decision[3];  // 0 skip / 1 compute, measure rows lo, hi
+    __shared__ Decision dec;
+    __shared__ int nb[kGathered];
     extern __shared__ uint32_t kept[];  // the window at gen T (reg::keep)
     const int grid = h / stripe_h;
     const int y0 = blockIdx.y * tile_h;
     const int x0 = blockIdx.x * (reg::kLanes - 2);
     const int i = y0 / stripe_h;
     const int c_lo = i * stripe_h;
-    const bool lead = threadIdx.x == 0 && threadIdx.y == 0;
-    if (lead) {
-        decide(decision, StripIntervals{prev_ext, grid + 2, i}, c_lo, c_lo + stripe_h - 1,
-               turns + kSkipPeriod, pad_f, 0);
+    if (threadIdx.y == 0) {
+        gather(StripIntervals{prev_ext, grid + 2, i}, nullptr, 0, nb);
+        if (threadIdx.x == 0) {
+            const Geometry g{turns, stripe_h, pad_f, sub_rows, col_window, wp};
+            decide(dec,
+                   hit_union(nb, StripIntervals::kSize, c_lo, c_lo + stripe_h - 1,
+                             turns + kSkipPeriod, pad_f),
+                   c_lo, g, false, h);
+            if (dec.route == kSkip && prev_computed[i]) {
+                dec.p_lo = c_lo;
+                dec.p_hi = c_lo + stripe_h;
+            }
+            if (blockIdx.x == 0 && y0 == c_lo) {
+                cur[kComputed * grid + i] = dec.route != kSkip;
+                if (dec.route == kSkip) atomicAdd(skipped, 1);
+                route[i] = dec.route;
+            }
+        }
     }
     __syncthreads();
-    if (!reg_begin(decision, lead && blockIdx.x == 0 && y0 == c_lo, skipped, &cur[4 * grid + i],
-                   prev_computed[i], local, wr, wp, y0, x0, tile_h)) {
-        return;
-    }
-    const reg::Run run = reg_run(turns, tile_h);
-    uint32_t s[reg::kRun];
-    const reg::Column col =
-        reg::column(StripSource{local, north, south, h, wp, n}, x0 - 1 + run.lane);
-    const int top = y0 - run.halo;
-    reg::load(s, run, [&](int r) { return col(top + r); });
-    const int lanes = reg::kLanes - 2;
-    reg_steps(
-        s, edges, kept, run, turns, rule,
-        [&](const uint32_t(&v)[reg::kRun]) {
-            reg::store_centre(v, run, wr, wp, reg::block_y() * tile_h, reg::block_x() * lanes,
-                              tile_h);
-        },
-        [&](const uint32_t(&v)[reg::kRun]) {
-            reg::flag_changed(v, run, kept, rowflag, wp, reg::block_y() * tile_h,
-                              reg::block_x() * lanes, tile_h, decision[1], decision[2]);
-        });
+    const bool stepping = steps(dec, y0, tile_h, x0, wp);
+    copy_cells(dec, stepping, local, wr, wp, y0, x0, tile_h);
+    if (!stepping) return;
+    step_block(edges, kept, dec,
+               reg::column(StripSource{local, north, south, h, wp, n}, x0 - 1 + threadIdx.x),
+               turns, tile_h, wp, rule, SoloShard{local, wr, rowflag, colspan, stripe_h});
 }
 
 // K14: one launch over every strip of a row mesh, blockIdx.z the strip,
@@ -430,16 +738,19 @@ strip_frontier_reg_kernel(const uint32_t* __restrict__ local, const uint32_t* __
 // the read buffers of strips s - 1 and s + 1 (reg::column of a
 // StripSource whose north and south are those whole buffers; the halo
 // <= h).  `first` forces every stripe to hit with the maximal union
-// (launch 0 of a chunk).
+// (launch 0 of a chunk).  The rectangle route's window stays within the
+// strip's own rows.
 template <class Rule>
 __global__ void __launch_bounds__(reg::kMaxThreads, reg::FrontierBlocks<Rule>::value)
 strip_mega_reg_kernel(const uint32_t* const* __restrict__ rd_tab,
                       uint32_t* const* __restrict__ wr_tab, int* __restrict__ state,
-                      int* __restrict__ rowflag, int* __restrict__ skipped, int ny, int h, int wp,
-                      int turns, int stripe_h, int tile_h, int pad_f, int parity, int first,
-                      Rule rule) {
+                      int* __restrict__ rowflag, int* __restrict__ colspan,
+                      int* __restrict__ skipped, int* __restrict__ route, int ny, int h, int wp,
+                      int turns, int stripe_h, int tile_h, int pad_f, int sub_rows,
+                      int col_window, int parity, int first, Rule rule) {
     __shared__ reg::Edges edges;
-    __shared__ int decision[3];  // 0 skip / 1 compute, measure rows lo, hi
+    __shared__ Decision dec;
+    __shared__ int nb[kGathered];
     extern __shared__ uint32_t kept[];  // the window at gen T (reg::keep)
     const int grid = h / stripe_h;
     const int strip = blockIdx.z;
@@ -448,40 +759,38 @@ strip_mega_reg_kernel(const uint32_t* const* __restrict__ rd_tab,
     const int x0 = blockIdx.x * (reg::kLanes - 2);
     const int i = y0 / stripe_h;
     const int c_lo = i * stripe_h;
-    const int* prev = state + (1 - parity) * kFields * total;
-    int* cur = state + parity * kFields * total;
     const int gi = strip * grid + i;
-    const bool lead = threadIdx.x == 0 && threadIdx.y == 0;
-    if (lead) {
-        decide(decision, MeshIntervals{prev, total, grid, ny, h, strip, i}, c_lo,
-               c_lo + stripe_h - 1, turns + kSkipPeriod, pad_f, first);
+    if (threadIdx.y == 0) {
+        const int* prev = state + (1 - parity) * kFields * total;
+        if (!first) {
+            gather(MeshIntervals{prev, total, grid, ny, h, strip, i}, prev + kR8 * total + gi,
+                   total, nb);
+        }
+        if (threadIdx.x == 0) {
+            const int t6 = turns + kSkipPeriod;
+            const Geometry g{turns, stripe_h, pad_f, sub_rows, col_window, wp};
+            const Union u =
+                first ? forced_union(c_lo, c_lo + stripe_h - 1, t6)
+                      : hit_union(nb, MeshIntervals::kSize, c_lo, c_lo + stripe_h - 1, t6, pad_f);
+            decide(dec, u, c_lo, g, true, h);
+            if (!first && (dec.route == kSkip || dec.route == kTier)) {
+                copy_rect(dec, nb + MeshIntervals::kSize * kNeighbourFields, 1, g);
+            }
+            if (blockIdx.x == 0 && y0 == c_lo) {
+                publish(dec, state + parity * kFields * total + kR8 * total + gi, total,
+                        skipped + strip, route + gi);
+            }
+        }
     }
     __syncthreads();
-    if (!reg_begin(decision, lead && blockIdx.x == 0 && y0 == c_lo, skipped + strip,
-                   &cur[4 * total + gi], prev[4 * total + gi], rd_tab[strip], wr_tab[strip], wp,
-                   y0, x0, tile_h)) {
-        return;
-    }
-    const reg::Run run = reg_run(turns, tile_h);
-    uint32_t s[reg::kRun];
-    const reg::Column col = reg::column(
-        StripSource{rd_tab[strip], rd_tab[wrap(strip - 1, ny)], rd_tab[wrap(strip + 1, ny)], h,
-                    wp, h},
-        x0 - 1 + run.lane);
-    const int top = y0 - run.halo;
-    reg::load(s, run, [&](int r) { return col(top + r); });
-    const int lanes = reg::kLanes - 2;
-    reg_steps(
-        s, edges, kept, run, turns, rule,
-        [&](const uint32_t(&v)[reg::kRun]) {
-            reg::store_centre(v, run, wr_tab[reg::block_z()], wp, reg::block_y() * tile_h,
-                              reg::block_x() * lanes, tile_h);
-        },
-        [&](const uint32_t(&v)[reg::kRun]) {
-            reg::flag_changed(v, run, kept, rowflag + static_cast<size_t>(reg::block_z()) * h, wp,
-                              reg::block_y() * tile_h, reg::block_x() * lanes, tile_h,
-                              decision[1], decision[2]);
-        });
+    const bool stepping = steps(dec, y0, tile_h, x0, wp);
+    copy_cells(dec, stepping, rd_tab[strip], wr_tab[strip], wp, y0, x0, tile_h);
+    if (!stepping) return;
+    step_block(edges, kept, dec,
+               reg::column(StripSource{rd_tab[strip], rd_tab[wrap(strip - 1, ny)],
+                                       rd_tab[wrap(strip + 1, ny)], h, wp, h},
+                           x0 - 1 + threadIdx.x),
+               turns, tile_h, wp, rule, TableShard{rd_tab, wr_tab, rowflag, colspan, h, stripe_h});
 }
 
 // K15: one launch over every tile of a 2-D mesh, blockIdx.z = dy * nx +
@@ -491,17 +800,21 @@ strip_mega_reg_kernel(const uint32_t* const* __restrict__ rd_tab,
 // tile (dy, dx)'s edges come from the neighbour tiles' read buffers
 // (reg::column of a MeshTileSource; the halo <= h).  `first` forces every
 // stripe to hit with the maximal union (launch 0 of a chunk); otherwise
-// an edge stripe computes with the maximal union if its 3x3-tile
-// neighbourhood hits, and is elided if not.
+// an edge stripe computes with the maximal measure rows if its 3x3-tile
+// neighbourhood hits, and is elided if not.  No tiers: a stripe that
+// computes writes and publishes its whole centre, measured at its full
+// width in the tile's own words.
 template <class Rule>
 __global__ void __launch_bounds__(reg::kMaxThreads, reg::FrontierBlocks<Rule>::value)
 tile_mega_reg_kernel(const uint32_t* const* __restrict__ rd_tab,
                      uint32_t* const* __restrict__ wr_tab, int* __restrict__ state,
-                     int* __restrict__ rowflag, int* __restrict__ skipped, int ny, int nx, int h,
-                     int wp, int turns, int stripe_h, int tile_h, int pad_f, int parity, int first,
-                     Rule rule) {
+                     int* __restrict__ rowflag, int* __restrict__ colspan,
+                     int* __restrict__ skipped, int* __restrict__ route, int ny, int nx, int h,
+                     int wp, int turns, int stripe_h, int tile_h, int pad_f, int parity,
+                     int first, Rule rule) {
     __shared__ reg::Edges edges;
-    __shared__ int decision[3];  // 0 skip / 1 compute / 2 elided, measure rows lo, hi
+    __shared__ Decision dec;
+    __shared__ int nb[kGathered];
     extern __shared__ uint32_t kept[];  // the window at gen T (reg::keep)
     const int grid = h / stripe_h;
     const int v = blockIdx.z;
@@ -512,59 +825,66 @@ tile_mega_reg_kernel(const uint32_t* const* __restrict__ rd_tab,
     const int x0 = blockIdx.x * (reg::kLanes - 2);
     const int i = y0 / stripe_h;
     const int c_lo = i * stripe_h;
-    const int* prev = state + (1 - parity) * kFields * total;
-    int* cur = state + parity * kFields * total;
     const int gi = v * grid + i;
-    const bool lead = threadIdx.x == 0 && threadIdx.y == 0;
-    if (lead) {
-        const int c_hi = c_lo + stripe_h - 1;
-        decide(decision, TorusTileIntervals{prev, total, grid, ny, nx, h, dy, dx, i}, c_lo, c_hi,
-               turns + kSkipPeriod, pad_f, first);
-        if (!first && (i == 0 || i == grid - 1)) {
-            if (decision[0]) {
-                decision[1] = c_lo;
-                decision[2] = c_hi;
-            } else {
-                decision[0] = 2;
+    if (threadIdx.y == 0) {
+        const int* prev = state + (1 - parity) * kFields * total;
+        if (!first) {
+            gather(TorusTileIntervals{prev, total, grid, ny, nx, h, dy, dx, i},
+                   prev + kR8 * total + gi, total, nb);
+        }
+        if (threadIdx.x == 0) {
+            int* cur = state + parity * kFields * total;
+            const int c_hi = c_lo + stripe_h - 1;
+            const int t6 = turns + kSkipPeriod;
+            const Union u = first ? forced_union(c_lo, c_hi, t6)
+                                  : hit_union(nb, TorusTileIntervals::kSize, c_lo, c_hi, t6, pad_f);
+            const bool edge = !first && (i == 0 || i == grid - 1);
+            const bool counted = u.hit || edge;
+            const bool computes = u.hit;
+            dec.route = !counted ? kSkip : computes ? kFull : kElided;
+            dec.m_lo = first || edge ? c_lo : max(u.lo - t6, c_lo);
+            dec.m_hi = first || edge ? c_hi : min(u.hi + t6, c_hi);
+            dec.v_lo = dec.w_lo = computes ? c_lo : 0;
+            dec.v_hi = dec.w_hi = computes ? c_lo + stripe_h : 0;
+            dec.vc_lo = dec.wc_lo = dec.pc_lo = 0;
+            dec.vc_hi = dec.wc_hi = dec.pc_hi = wp;
+            dec.rect[0] = counted ? c_lo / 8 : 0;
+            dec.rect[1] = counted ? stripe_h / 8 : 0;
+            dec.rect[2] = 0;
+            dec.rect[3] = counted ? wp / 128 : 0;
+            const bool moved =
+                !first && !computes && nb[TorusTileIntervals::kSize * kNeighbourFields + 1] > 0;
+            dec.p_lo = c_lo;
+            dec.p_hi = moved ? c_lo + stripe_h : c_lo;
+            if (blockIdx.x == 0 && y0 == c_lo) {
+                publish(dec, cur + kR8 * total + gi, total, skipped + v, route + gi);
             }
         }
     }
     __syncthreads();
-    if (!reg_begin(decision, lead && blockIdx.x == 0 && y0 == c_lo, skipped + v,
-                   &cur[4 * total + gi], prev[4 * total + gi], rd_tab[v], wr_tab[v], wp, y0, x0,
-                   tile_h)) {
-        return;
-    }
-    const reg::Run run = reg_run(turns, tile_h);
-    uint32_t s[reg::kRun];
-    const reg::Column col =
-        reg::column(MeshTileSource{rd_tab, ny, nx, dy, dx, h, wp}, x0 - 1 + run.lane);
-    const int top = y0 - run.halo;
-    reg::load(s, run, [&](int r) { return col(top + r); });
-    const int lanes = reg::kLanes - 2;
-    reg_steps(
-        s, edges, kept, run, turns, rule,
-        [&](const uint32_t(&w)[reg::kRun]) {
-            reg::store_centre(w, run, wr_tab[reg::block_z()], wp, reg::block_y() * tile_h,
-                              reg::block_x() * lanes, tile_h);
-        },
-        [&](const uint32_t(&w)[reg::kRun]) {
-            reg::flag_changed(w, run, kept, rowflag + static_cast<size_t>(reg::block_z()) * h, wp,
-                              reg::block_y() * tile_h, reg::block_x() * lanes, tile_h,
-                              decision[1], decision[2]);
-        });
+    const bool stepping = steps(dec, y0, tile_h, x0, wp);
+    copy_cells(dec, stepping, rd_tab[v], wr_tab[v], wp, y0, x0, tile_h);
+    if (!stepping) return;
+    step_block(edges, kept, dec,
+               reg::column(MeshTileSource{rd_tab, ny, nx, dy, dx, h, wp}, x0 - 1 + threadIdx.x),
+               turns, tile_h, wp, rule, TableShard{rd_tab, wr_tab, rowflag, colspan, h, stripe_h});
 }
 
-// One block per stripe of every board: block gi = b * grid + i.
+// One block per stripe of every shard: block gi = s * grid + i.  The
+// stripe's rows flagged by its blocks become the two row intervals of
+// _measure2 (split at the midpoint of their span), its column extremes
+// its column interval (fields 4 and 5); the stripe counts active when the
+// first row interval is nonempty; the flags and extremes are cleared.
+// `fields` is the state's field count (K12's 7, the others' 10).
 __global__ void frontier_finalize(int* __restrict__ state, int* __restrict__ rowflag,
-                                  int* __restrict__ act, int h, int stripe_h, int grid,
-                                  int parity) {
+                                  int* __restrict__ colspan, int* __restrict__ act, int h,
+                                  int stripe_h, int grid, int parity, int fields) {
     __shared__ int lo, hi, hi0, lo1;
     const int gi = blockIdx.x;
     const int total = gridDim.x;
-    const int c_lo = (gi % grid) * stripe_h;  // board rows of board gi / grid
+    const int c_lo = (gi % grid) * stripe_h;  // rows of shard gi / grid
     rowflag += static_cast<size_t>(gi / grid) * h;
-    int* cur = state + parity * kFields * total;
+    int* cur = state + parity * fields * total;
     if (threadIdx.x == 0) {
         lo = kEmpty;
         hi = -kEmpty;
@@ -585,6 +905,10 @@ __global__ void frontier_finalize(int* __restrict__ state, int* __restrict__ row
             cur[1 * total + gi] = -1;
             cur[2 * total + gi] = kEmpty;
             cur[3 * total + gi] = -1;
+            cur[kClo * total + gi] = kEmpty;
+            cur[kChi * total + gi] = -1;
+            colspan[2 * gi] = kEmpty;
+            colspan[2 * gi + 1] = -kEmpty;
         }
         return;
     }
@@ -606,6 +930,10 @@ __global__ void frontier_finalize(int* __restrict__ state, int* __restrict__ row
         cur[1 * total + gi] = one ? hi : hi0;
         cur[2 * total + gi] = one ? kEmpty : lo1;
         cur[3 * total + gi] = one ? -1 : hi;
+        cur[kClo * total + gi] = colspan[2 * gi];
+        cur[kChi * total + gi] = colspan[2 * gi + 1];
+        colspan[2 * gi] = kEmpty;
+        colspan[2 * gi + 1] = -kEmpty;
         act[gi] += 1;
     }
 }
@@ -613,13 +941,22 @@ __global__ void frontier_finalize(int* __restrict__ state, int* __restrict__ row
 // The checks every register-resident frontier launch shares: a launch
 // of T (a multiple of 6) + 6 <= 30 generations, whole stripes of whole
 // row tiles, `warps` warps holding a tile's window (tile_h + 2 (T + 6)
-// rows), and a decision reach pad_f >= T + 6.
-bool bad_reg_frontier(int h, int wp, int turns, int stripe_h, int tile_h, int warps, int pad_f) {
+// rows), and a decision reach pad_f >= T + 6; where a row tier is given,
+// its sub-window (a multiple of 8) and 64 rows more fit a stripe's window
+// of multiple-of-8 rows, and a column window (a multiple of 128 words, at
+// most half the width) comes only with one.
+bool bad_reg_frontier(int h, int wp, int turns, int stripe_h, int tile_h, int warps, int pad_f,
+                      int sub_rows, int col_window) {
     const int halo = turns + kSkipPeriod;
+    const bool bad_tiers =
+        sub_rows < 0 || col_window < 0 ||
+        (sub_rows && (sub_rows % 8 || stripe_h % 8 || pad_f % 8 ||
+                      sub_rows + 64 > stripe_h + 2 * pad_f)) ||
+        (col_window && (!sub_rows || col_window % 128 || wp < 2 * col_window));
     return h < 1 || wp < 1 || turns < kSkipPeriod || turns % kSkipPeriod ||
            halo > reg::kLanes - 2 || stripe_h < 1 || h % stripe_h || tile_h < 1 ||
            stripe_h % tile_h || warps < 1 || warps > reg::kMaxWarps ||
-           warps * reg::kRun < tile_h + 2 * halo || pad_f < halo;
+           warps * reg::kRun < tile_h + 2 * halo || pad_f < halo || bad_tiers;
 }
 
 // The blocks of a frontier launch over n shards of (h, wp) words: column
@@ -641,12 +978,11 @@ int launch_reg(Kernel kernel, dim3 grid, int warps, cudaStream_t stream, Args...
 
 // After a frontier kernel: frontier_finalize over the `stripes` stripes
 // of every shard of h rows, on the state of parity `parity`.
-int finalize(void* state, void* rowflag, void* act, int stripes, int h, int stripe_h, int parity,
-             cudaStream_t stream) {
-    frontier_finalize<<<stripes, 256, 0, stream>>>(static_cast<int*>(state),
-                                                    static_cast<int*>(rowflag),
-                                                    static_cast<int*>(act), h, stripe_h,
-                                                    h / stripe_h, parity);
+int finalize(void* state, void* rowflag, void* colspan, void* act, int stripes, int h,
+             int stripe_h, int parity, int fields, cudaStream_t stream) {
+    frontier_finalize<<<stripes, 256, 0, stream>>>(
+        static_cast<int*>(state), static_cast<int*>(rowflag), static_cast<int*>(colspan),
+        static_cast<int*>(act), h, stripe_h, h / stripe_h, parity, fields);
     return cudaGetLastError();
 }
 
@@ -654,18 +990,23 @@ int finalize(void* state, void* rowflag, void* act, int stripes, int h, int stri
 
 // K5 and K8: a contiguous stack of nb boards of (h, wp) words, blockIdx.z
 // the board (K5 is the stack of one board); `state`
-// (int32[2][5][nb * grid]), `rowflag` (int32[nb * h], zero between
+// (int32[2][10][nb * grid]), `rowflag` (int32[nb * h], zero between
+// launches), `colspan` (int32[nb * grid][2], (2^30, -2^30) between
 // launches), `skipped` (int32[nb]) and `act` (int32[nb * grid]) persist
-// over a chunk.  The decision's reach pad_f (>= the window's row halo
-// T + 6) must fit one stripe, so a window wraps around its board once at
-// most; a block is `tile_h` rows of a stripe and `warps` warps; `variant`
-// picks the rule's instantiation (regwin.cuh::by_rule).
+// over a chunk; `route` (int32[nb * grid]) gets this launch's routes.
+// The decision's reach pad_f (>= the window's row halo T + 6) must fit
+// one stripe, so a window wraps around its board once at most; sub_rows
+// and col_window are the compute tiers' geometry (0 = off); a block is
+// `tile_h` rows of a stripe and `warps` warps; `variant` picks the rule's
+// instantiation (regwin.cuh::by_rule).
 extern "C" int gol_frontier_batched_launch(const void* rd, void* wr, void* state, void* rowflag,
-                                           void* skipped, void* act, int nb, int h, int wp,
-                                           int turns, int stripe_h, int tile_h, int warps,
-                                           int pad_f, int parity, int first, int variant,
+                                           void* colspan, void* skipped, void* act, void* route,
+                                           int nb, int h, int wp, int turns, int stripe_h,
+                                           int tile_h, int warps, int pad_f, int sub_rows,
+                                           int col_window, int parity, int first, int variant,
                                            unsigned born, unsigned surv, void* stream) {
-    if (nb < 1 || nb > 65535 || bad_reg_frontier(h, wp, turns, stripe_h, tile_h, warps, pad_f) ||
+    if (nb < 1 || nb > 65535 ||
+        bad_reg_frontier(h, wp, turns, stripe_h, tile_h, warps, pad_f, sub_rows, col_window) ||
         pad_f > stripe_h || turns + kSkipPeriod > h || (parity != 0 && parity != 1) ||
         (first != 0 && first != 1)) {
         return cudaErrorInvalidValue;
@@ -675,28 +1016,33 @@ extern "C" int gol_frontier_batched_launch(const void* rd, void* wr, void* state
         return launch_reg(frontier_reg_kernel<decltype(rule)>, reg_grid(wp, h, tile_h, nb), warps,
                           s, static_cast<const uint32_t*>(rd), static_cast<uint32_t*>(wr),
                           static_cast<int*>(state), static_cast<int*>(rowflag),
-                          static_cast<int*>(skipped), h, wp, turns, stripe_h, tile_h, pad_f,
-                          parity, first, rule);
+                          static_cast<int*>(colspan), static_cast<int*>(skipped),
+                          static_cast<int*>(route), h, wp, turns, stripe_h, tile_h, pad_f,
+                          sub_rows, col_window, parity, first, rule);
     });
     if (err != cudaSuccess) return err;
-    return finalize(state, rowflag, act, nb * (h / stripe_h), h, stripe_h, parity, s);
+    return finalize(state, rowflag, colspan, act, nb * (h / stripe_h), h, stripe_h, parity,
+                    kFields, s);
 }
 
-// K12: the caller builds `prev_ext` (the exchange) and zeroes `rowflag`
-// once; the launch's decision reach is pad_f (the JAX plan's
-// round8(T + 6)), its window halo T + 6, within the neighbour buffers
-// (T + 6 <= n).  A block is `tile_h` rows of a stripe and `warps` warps;
-// `variant` picks the rule's instantiation (regwin.cuh::by_rule).
-// `skipped` (int32[1]) and `act` (int32[grid]) accumulate over the
-// launches of a dispatch.
+// K12: the caller builds `prev_ext` (the exchange), zeroes `rowflag` and
+// sets `colspan` (int32[grid][2]) to (2^30, -2^30) once; the launch's
+// decision reach is pad_f (the JAX plan's round8(T + 6)), its window halo
+// T + 6, within the neighbour buffers (T + 6 <= n); sub_rows and
+// col_window are the compute tiers' geometry (0 = off).  A block is
+// `tile_h` rows of a stripe and `warps` warps; `variant` picks the rule's
+// instantiation (regwin.cuh::by_rule).  `skipped` (int32[1]) and `act`
+// (int32[grid]) accumulate over the launches of a dispatch; `route`
+// (int32[grid]) gets this launch's routes.
 extern "C" int gol_strip_frontier_launch(const void* local, const void* north, const void* south,
                                          void* wr, const void* prev_ext,
                                          const void* prev_computed, void* cur, void* rowflag,
-                                         void* skipped, void* act, int h, int wp, int n,
-                                         int turns, int stripe_h, int tile_h, int warps,
-                                         int pad_f, int variant, unsigned born, unsigned surv,
-                                         void* stream) {
-    if (bad_reg_frontier(h, wp, turns, stripe_h, tile_h, warps, pad_f) ||
+                                         void* colspan, void* skipped, void* act, void* route,
+                                         int h, int wp, int n, int turns, int stripe_h,
+                                         int tile_h, int warps, int pad_f, int sub_rows,
+                                         int col_window, int variant, unsigned born,
+                                         unsigned surv, void* stream) {
+    if (bad_reg_frontier(h, wp, turns, stripe_h, tile_h, warps, pad_f, sub_rows, col_window) ||
         turns + kSkipPeriod > n) {
         return cudaErrorInvalidValue;
     }
@@ -707,28 +1053,34 @@ extern "C" int gol_strip_frontier_launch(const void* local, const void* north, c
                           static_cast<const uint32_t*>(north), static_cast<const uint32_t*>(south),
                           static_cast<uint32_t*>(wr), static_cast<const int*>(prev_ext),
                           static_cast<const int*>(prev_computed), static_cast<int*>(cur),
-                          static_cast<int*>(rowflag), static_cast<int*>(skipped), h, wp, n, turns,
-                          stripe_h, tile_h, pad_f, rule);
+                          static_cast<int*>(rowflag), static_cast<int*>(colspan),
+                          static_cast<int*>(skipped), static_cast<int*>(route), h, wp, n, turns,
+                          stripe_h, tile_h, pad_f, sub_rows, col_window, rule);
     });
     if (err != cudaSuccess) return err;
-    // The state of one strip is one "board" of grid stripes at parity 0.
-    return finalize(cur, rowflag, act, h / stripe_h, h, stripe_h, 0, s);
+    // The state of one strip is one shard of grid stripes at parity 0.
+    return finalize(cur, rowflag, colspan, act, h / stripe_h, h, stripe_h, 0, kStripFields, s);
 }
 
 // K14: `rd_tab` and `wr_tab` are device arrays of ny buffer pointers (no
-// write buffer is a read buffer); `state` (int32[2][5][ny * grid]),
-// `rowflag` (int32[ny * h], zero between launches), `skipped` (int32[ny])
-// and `act` (int32[ny * grid]) persist over a chunk.  The decision's
-// reach pad_f (the JAX plan's round8(T + 6), >= the window's row halo
-// T + 6) must fit one stripe, so nothing past the adjacent strip is read;
-// a block is `tile_h` rows of a stripe and `warps` warps; `variant` picks
-// the rule's instantiation (regwin.cuh::by_rule).
+// write buffer is a read buffer); `state` (int32[2][10][ny * grid]),
+// `rowflag` (int32[ny * h], zero between launches), `colspan`
+// (int32[ny * grid][2]), `skipped` (int32[ny]) and `act`
+// (int32[ny * grid]) persist over a chunk; `route` (int32[ny * grid])
+// gets this launch's routes.  The decision's reach pad_f (the JAX plan's
+// round8(T + 6), >= the window's row halo T + 6) must fit one stripe, so
+// nothing past the adjacent strip is read; sub_rows and col_window are
+// the compute tiers' geometry (0 = off); a block is `tile_h` rows of a
+// stripe and `warps` warps; `variant` picks the rule's instantiation
+// (regwin.cuh::by_rule).
 extern "C" int gol_strip_mega_launch(const void* rd_tab, const void* wr_tab, void* state,
-                                     void* rowflag, void* skipped, void* act, int ny, int h,
-                                     int wp, int turns, int stripe_h, int tile_h, int warps,
-                                     int pad_f, int parity, int first, int variant, unsigned born,
-                                     unsigned surv, void* stream) {
-    if (ny < 1 || ny > 65535 || bad_reg_frontier(h, wp, turns, stripe_h, tile_h, warps, pad_f) ||
+                                     void* rowflag, void* colspan, void* skipped, void* act,
+                                     void* route, int ny, int h, int wp, int turns, int stripe_h,
+                                     int tile_h, int warps, int pad_f, int sub_rows,
+                                     int col_window, int parity, int first, int variant,
+                                     unsigned born, unsigned surv, void* stream) {
+    if (ny < 1 || ny > 65535 ||
+        bad_reg_frontier(h, wp, turns, stripe_h, tile_h, warps, pad_f, sub_rows, col_window) ||
         pad_f > stripe_h || (parity != 0 && parity != 1) || (first != 0 && first != 1)) {
         return cudaErrorInvalidValue;
     }
@@ -737,30 +1089,34 @@ extern "C" int gol_strip_mega_launch(const void* rd_tab, const void* wr_tab, voi
         return launch_reg(strip_mega_reg_kernel<decltype(rule)>, reg_grid(wp, h, tile_h, ny),
                           warps, s, static_cast<const uint32_t* const*>(rd_tab),
                           static_cast<uint32_t* const*>(wr_tab), static_cast<int*>(state),
-                          static_cast<int*>(rowflag), static_cast<int*>(skipped), ny, h, wp, turns,
-                          stripe_h, tile_h, pad_f, parity, first, rule);
+                          static_cast<int*>(rowflag), static_cast<int*>(colspan),
+                          static_cast<int*>(skipped), static_cast<int*>(route), ny, h, wp, turns,
+                          stripe_h, tile_h, pad_f, sub_rows, col_window, parity, first, rule);
     });
     if (err != cudaSuccess) return err;
-    return finalize(state, rowflag, act, ny * (h / stripe_h), h, stripe_h, parity, s);
+    return finalize(state, rowflag, colspan, act, ny * (h / stripe_h), h, stripe_h, parity,
+                    kFields, s);
 }
 
 // K15: `rd_tab` and `wr_tab` are device arrays of ny * nx tile buffer
 // pointers, row-major (no write buffer is a read buffer); `state`
-// (int32[2][5][ny * nx * grid]), `rowflag` (int32[ny * nx * h], zero
-// between launches), `skipped` (int32[ny * nx]) and `act`
-// (int32[ny * nx * grid]) persist over a chunk, indexed tile-major.  The
-// decision's reach pad_f (>= the window's row halo T + 6) must fit one
-// stripe, so nothing past the adjacent tiles' rows is read; a block is
-// `tile_h` rows of a stripe and `warps` warps; `variant` picks the rule's
-// instantiation (regwin.cuh::by_rule).
+// (int32[2][10][ny * nx * grid]), `rowflag` (int32[ny * nx * h], zero
+// between launches), `colspan` (int32[ny * nx * grid][2]), `skipped`
+// (int32[ny * nx]) and `act` (int32[ny * nx * grid]) persist over a
+// chunk, indexed tile-major; `route` (int32[ny * nx * grid]) gets this
+// launch's routes.  The decision's reach pad_f (>= the window's row halo
+// T + 6) must fit one stripe, so nothing past the adjacent tiles' rows is
+// read; a block is `tile_h` rows of a stripe and `warps` warps; `variant`
+// picks the rule's instantiation (regwin.cuh::by_rule).
 extern "C" int gol_tile_mega_launch(const void* rd_tab, const void* wr_tab, void* state,
-                                    void* rowflag, void* skipped, void* act, int ny, int nx,
-                                    int h, int wp, int turns, int stripe_h, int tile_h, int warps,
-                                    int pad_f, int parity, int first, int variant, unsigned born,
-                                    unsigned surv, void* stream) {
+                                    void* rowflag, void* colspan, void* skipped, void* act,
+                                    void* route, int ny, int nx, int h, int wp, int turns,
+                                    int stripe_h, int tile_h, int warps, int pad_f, int parity,
+                                    int first, int variant, unsigned born, unsigned surv,
+                                    void* stream) {
     if (ny < 1 || nx < 1 || ny * nx > 65535 ||
-        bad_reg_frontier(h, wp, turns, stripe_h, tile_h, warps, pad_f) || pad_f > stripe_h ||
-        (parity != 0 && parity != 1) || (first != 0 && first != 1)) {
+        bad_reg_frontier(h, wp, turns, stripe_h, tile_h, warps, pad_f, 0, 0) ||
+        pad_f > stripe_h || (parity != 0 && parity != 1) || (first != 0 && first != 1)) {
         return cudaErrorInvalidValue;
     }
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -768,9 +1124,11 @@ extern "C" int gol_tile_mega_launch(const void* rd_tab, const void* wr_tab, void
         return launch_reg(tile_mega_reg_kernel<decltype(rule)>, reg_grid(wp, h, tile_h, ny * nx),
                           warps, s, static_cast<const uint32_t* const*>(rd_tab),
                           static_cast<uint32_t* const*>(wr_tab), static_cast<int*>(state),
-                          static_cast<int*>(rowflag), static_cast<int*>(skipped), ny, nx, h, wp,
+                          static_cast<int*>(rowflag), static_cast<int*>(colspan),
+                          static_cast<int*>(skipped), static_cast<int*>(route), ny, nx, h, wp,
                           turns, stripe_h, tile_h, pad_f, parity, first, rule);
     });
     if (err != cudaSuccess) return err;
-    return finalize(state, rowflag, act, ny * nx * (h / stripe_h), h, stripe_h, parity, s);
+    return finalize(state, rowflag, colspan, act, ny * nx * (h / stripe_h), h, stripe_h, parity,
+                    kFields, s);
 }

@@ -372,9 +372,9 @@ struct TorusBlock {
 // A frontier block's window is its tile of `tile_h` centre rows with
 // T + 6 rows a side (a Run of T + 6 generations whose cone is every row
 // but g a side at generation g), and 32 word columns from one left of its
-// 30 centre words.  It steps T generations, stores the gen-T centre and
-// keeps gen T (reg::keep), steps 6 more and flags the centre rows where
-// gen T + 6 differs from gen T.
+// 30 centre words.  It steps T generations, keeps gen T (reg::keep), steps
+// 6 more, measures where gen T + 6 differs from gen T and stores what its
+// stripe's route writes (frontier.cu).
 
 // One word column of a window source (window.cuh's BoardSource,
 // StripSource or MeshTileSource) as a run reads it: row y's word, for y
@@ -425,56 +425,6 @@ __device__ __forceinline__ Column column(const MeshTileSource& src, int x) {
 __device__ __forceinline__ bool centre_lane(const Run& run, int x0, int wp, int& gx) {
     gx = x0 - 1 + run.lane;
     return run.lane >= 1 && run.lane < kLanes - 1 && gx < wp;
-}
-
-// Store the block's centre (window rows [halo, halo + tile_h), centre
-// lanes) at rows y0.. of `out` (wp words a row).
-__device__ __forceinline__ void store_centre(const uint32_t (&s)[kRun], const Run& run,
-                                             uint32_t* __restrict__ out, int wp, int y0, int x0,
-                                             int tile_h) {
-    int gx;
-    const bool centre = centre_lane(run, x0, wp, gx);
-#pragma unroll
-    for (int i = 0; i < kRun; ++i) {
-        const int r = run.row(i) - run.halo;
-        if (centre && r >= 0 && r < tile_h) out[static_cast<size_t>(y0 + r) * wp + gx] = s[i];
-    }
-}
-
-// Copy the block's centre words from `rd` to `wr` (tile_h rows from y0),
-// as the whole block: a stripe that does not compute.
-__device__ __forceinline__ void copy_centre(const uint32_t* __restrict__ rd,
-                                            uint32_t* __restrict__ wr, int wp, int y0, int x0,
-                                            int tile_h) {
-    const int gx = x0 - 1 + static_cast<int>(threadIdx.x);
-    if (threadIdx.x < 1 || threadIdx.x >= kLanes - 1 || gx >= wp) return;
-    for (int r = threadIdx.y; r < tile_h; r += blockDim.y) {
-        const size_t at = static_cast<size_t>(y0 + r) * wp + gx;
-        wr[at] = rd[at];
-    }
-}
-
-// The measure: set rowflag[y] for each centre row y of the block in
-// [m_lo, m_hi] where the registers (gen T + 6) differ from `kept` (gen T,
-// reg::keep) in a centre word.  Each lane gathers its own 32 rows as bits,
-// the warp ORs them, and lane l reports the warp's row l.  A row that
-// several column groups flag is stored 1 by each.
-__device__ __forceinline__ void flag_changed(const uint32_t (&s)[kRun], const Run& run,
-                                             const uint32_t* kept, int* __restrict__ rowflag,
-                                             int wp, int y0, int x0, int tile_h, int m_lo,
-                                             int m_hi) {
-    int gx;
-    const bool centre = centre_lane(run, x0, wp, gx);
-    uint32_t bits = 0u;
-#pragma unroll
-    for (int i = 0; i < kRun; ++i) {
-        if (centre && s[i] != kept[run.row(i) * kLanes + run.lane]) bits |= 1u << i;
-    }
-    bits = __reduce_or_sync(kFull, bits);
-    const int y = y0 + run.row(run.lane) - run.halo;
-    if ((bits >> run.lane) & 1u && y >= max(m_lo, y0) && y <= min(m_hi, y0 + tile_h - 1)) {
-        rowflag[y] = 1;
-    }
 }
 
 // Launch one of the three instantiations of `Kernel<Rule>` as `variant`

@@ -26,7 +26,12 @@ plain PyTorch version, each stepping register-resident windows
 - **K5, frontier** (``csrc/frontier.cu``; replaces
   ``_kernel_frontier_mega``): the tracked-interval skip/compute/measure
   state machine, one CUDA launch per generation launch, state on the
-  device, on the blocks of :func:`frontier_blocks`.  Plain version:
+  device, on the blocks of :func:`frontier_blocks`, with the JAX kernel's
+  compute routes (the rectangle route, the row tier, the full window) at
+  the plan geometry (:class:`PlanGeometry`, :func:`frontier_geometry`)
+  and its change-rectangle writes; the decisions' one Python home is
+  :func:`hit_union`, :func:`frontier_placement`, :func:`col_placement`
+  and :func:`frontier_routes`.  Plain version:
   :func:`frontier_launch_mirror`; :func:`frontier_launch_reg_mirror`
   replays its blocks.
 - **K8, frontier batched** (``csrc/frontier.cu``,
@@ -49,13 +54,15 @@ or raises.  :func:`adaptive_superstep` drives the kernels,
 The plan (:class:`AdaptivePlan`) is the port's own; the TPU's tuning
 constants (``_FRONTIER_T``, ``_SETTLED_T``, ``_SKIP_TILE_CAP*``,
 ``_LAUNCH_COST``, ``_vmem_budget``) are v5e measurements and are not
-carried over.  No state survives a dispatch (it lives in the wrappers'
-buffers), so checkpoints carry nothing new.
+carried over.  The plan geometry is the JAX package's, with its API.  No
+state survives a dispatch (it lives in the wrappers' buffers), so
+checkpoints carry nothing new.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -215,6 +222,116 @@ def adaptive_tile_launches(
     if plan is None:
         return 0
     return (turns // plan.t) * plan.grid(shape[0])
+
+
+# -- the plan geometry (a copy of pallas_packed.py's geometry API) ---------------
+
+#: The column tier's shipped width in words: two 128-word placement quanta.
+_COL_WINDOW = 256
+
+
+class PlanGeometry(tuple):
+    """The two static levers of the frontier kernels' compute tiers:
+    ``(sub_margin, col_window)``.  The row tier steps a sub-window of
+    ``round8(4·T + sub_margin)`` rows of a stripe's window at full width;
+    the column tier (K12) and the rectangle route (K5, K8, K14) step that
+    sub-window only ``col_window`` words wide (0: no column tier).  Always
+    sound: every stripe checks exactly whether its activity fits, and a
+    geometry only changes which route computes it."""
+
+    __slots__ = ()
+
+    def __new__(cls, sub_margin: int, col_window: int):
+        if sub_margin < 48 or sub_margin % 8:
+            raise ValueError(
+                f"sub_margin must be a multiple of 8 >= 48, got {sub_margin}"
+            )
+        if col_window and (col_window < 128 or col_window % 128):
+            raise ValueError(
+                f"col_window must be 0 (off) or a multiple of 128, got {col_window}"
+            )
+        return super().__new__(cls, (int(sub_margin), int(col_window)))
+
+    @property
+    def sub_margin(self) -> int:
+        return self[0]
+
+    @property
+    def col_window(self) -> int:
+        return self[1]
+
+    @property
+    def label(self) -> str:
+        return f"m{self.sub_margin}c{self.col_window or 'off'}"
+
+
+_GEOMETRY_SHIPPED = PlanGeometry(96, _COL_WINDOW)
+_plan_geometry = _GEOMETRY_SHIPPED
+
+
+def plan_geometry() -> PlanGeometry:
+    """The process-wide frontier plan geometry."""
+    return _plan_geometry
+
+
+def geometry_candidates() -> list[PlanGeometry]:
+    """The candidate geometries, the shipped one first: the row margin
+    96 or 64, the column window 256 or 128 words."""
+    return [
+        _GEOMETRY_SHIPPED,
+        PlanGeometry(64, 256),
+        PlanGeometry(96, 128),
+        PlanGeometry(64, 128),
+    ]
+
+
+def set_plan_geometry(geometry: PlanGeometry | None) -> PlanGeometry:
+    """Install ``geometry`` (None: the shipped one) process-wide and return
+    the one it replaces.  What is cached on a plan's geometry is cleared;
+    the kernels read the geometry at every launch."""
+    global _plan_geometry
+    prev = _plan_geometry
+    if geometry is None:
+        geometry = _GEOMETRY_SHIPPED
+    if not isinstance(geometry, PlanGeometry):
+        geometry = PlanGeometry(*geometry)
+    _plan_geometry = geometry
+    _frontier_geometry.cache_clear()
+    return prev
+
+
+@contextlib.contextmanager
+def plan_geometry_override(geometry: PlanGeometry | tuple):
+    """:func:`set_plan_geometry` for the block's duration."""
+    prev = set_plan_geometry(
+        geometry if isinstance(geometry, PlanGeometry) else PlanGeometry(*geometry)
+    )
+    try:
+        yield plan_geometry()
+    finally:
+        set_plan_geometry(prev)
+
+
+@functools.lru_cache(maxsize=256)
+def _frontier_geometry(plan: AdaptivePlan, shape: tuple[int, int], geometry: PlanGeometry):
+    sub_rows = _round8(4 * plan.t + geometry.sub_margin)
+    if not plan.frontier or sub_rows + 64 > plan.stripe_h + 2 * plan.pad_f:
+        return None, None
+    cw = geometry.col_window
+    return sub_rows, (cw if cw and shape[1] >= 2 * cw else None)
+
+
+def frontier_geometry(plan: AdaptivePlan, shape: tuple[int, int]) -> tuple[int | None, int | None]:
+    """(sub_rows, col_window) of the frontier kernels' compute tiers on a
+    board, strip or tile of ``shape`` = (rows, wp) words at ``plan``, by
+    ``_frontier_plan``'s rules at the active :class:`PlanGeometry`: the row
+    tier's sub-window of round8(4·T + sub_margin) rows exists only where it
+    and 64 rows more fit a stripe's window (stripe_h + 2·round8(T + 6)
+    rows), the column tier only where the board is at least two windows
+    wide.  (None, None): the tiers are off and every stripe that hits
+    computes its whole window; the port keeps its frontier plan there,
+    where the JAX package has none."""
+    return _frontier_geometry(plan, tuple(shape), _plan_geometry)
 
 
 # -- the register-resident plans (csrc/regwin.cuh) ---------------------------------
@@ -546,15 +663,18 @@ def _frontier_blocks(src: torch.Tensor, rule: LifeRule, blocks: RegPlan, t: int,
     ``csrc/regwin.cuh``'s frontier window) in PyTorch: ``src`` is the
     board, strip or tile with T + 6 rows a side and the
     words of its torus from one left of its first column group to one
-    right of its last; the window of every block of a stripe that
-    ``computes`` (bool, one a stripe) — warps·32 rows from its tile's row
-    less T + 6, 32 words from one left of its group, zero past the window —
-    steps T generations and then 6 more, each only the rows of its run's
-    light cone (:meth:`RegPlan.live`).  Returns (gen T, gen T + 6) of the
-    ``centre`` = (h, wp) words, zero on the stripes that do not compute."""
+    right of its last; the window of every block that ``computes`` (bool,
+    one a stripe, or one a block: (row blocks, column groups)) — warps·32
+    rows from its tile's row less T + 6, 32 words from one left of its
+    group, zero past the window — steps T generations and then 6 more,
+    each only the rows of its run's light cone (:meth:`RegPlan.live`).
+    Returns (gen T, gen T + 6) of the ``centre`` = (h, wp) words, zero on
+    the blocks that do not compute."""
     h, wp = centre
     win = _reg_windows(src, blocks, 0, 0, False)
-    rows = computes.repeat_interleave(win.shape[0] // computes.numel())
+    rows = computes
+    if computes.dim() == 1:
+        rows = computes.repeat_interleave(win.shape[0] // computes.numel())
     out = torch.zeros((2, *win.shape), dtype=win.dtype, device=win.device)
     if rows.any():
         part = _reg_steps(win[rows], rule, blocks, range(1, t + 1))
@@ -881,13 +1001,27 @@ probing_superstep.launches = 0
 probing_superstep.rules = collections.Counter()
 
 
-# -- K5: the frontier kernel ---------------------------------------------------
+# -- the frontier kernels' decisions (K5, K8, K12, K14, K15) ---------------------
+
+#: A stripe's route in a frontier launch, as the kernels record it: skip;
+#: the rectangle route (K5, K8, K14) or the column tier (K12); the row
+#: tier; the full window; and K15's elided edge stripe.
+ROUTE_SKIP, ROUTE_TIER, ROUTE_ROW, ROUTE_FULL, ROUTE_ELIDED = range(5)
+ROUTES = ("skip", "tier", "row", "full", "elided")
+#: A stripe's frontier state (``_kernel_frontier_mega``'s SMEM scratch):
+#: its two row intervals, its column interval in words, and its change
+#: rectangle in chunk units of 8 rows and 128 words.
+STATE_FIELDS = ("lo0", "hi0", "lo1", "hi1", "clo", "chi", "r8", "n8", "c128", "n128")
 
 
-def hit_union(ivals, c_lo: torch.Tensor, c_hi: torch.Tensor, plan: AdaptivePlan):
+def hit_union(ivals, cvals, c_lo: torch.Tensor, c_hi: torch.Tensor, plan: AdaptivePlan):
     """``_hit_union`` for every stripe at once: ``ivals`` are the (lo, hi)
-    int tensors of the intervals of each stripe's neighbourhood, placed in
-    its row frame.  Returns (hit, measure lo, measure hi) per stripe."""
+    tensors of the row intervals of each stripe's neighbourhood, placed in
+    its row frame, ``cvals`` their stripes' (clo, chi) column pairs.
+    Returns (hit, u_lo, u_hi, u_clo, u_chi): whether a row interval (and
+    the 6-row pin margin) reaches the stripe's window of round8(T + 6) rows
+    a side, the union of the row intervals clamped to T + 6 rows of the
+    stripe, and the union of the nonempty column pairs."""
     t6 = plan.t + SKIP_PERIOD
     w_lo, w_hi = c_lo - plan.pad_f, c_hi + plan.pad_f
     hit = torch.zeros(c_lo.shape, dtype=torch.bool, device=c_lo.device)
@@ -901,20 +1035,200 @@ def hit_union(ivals, c_lo: torch.Tensor, c_hi: torch.Tensor, plan: AdaptivePlan)
         keep = nonempty & (clo <= chi)
         u_lo = torch.where(keep, torch.minimum(u_lo, clo), u_lo)
         u_hi = torch.where(keep, torch.maximum(u_hi, chi), u_hi)
-    return hit, torch.maximum(u_lo - t6, c_lo), torch.minimum(u_hi + t6, c_hi)
+    u_clo = torch.full_like(c_lo, _EMPTY_LO)
+    u_chi = torch.full_like(c_lo, -_EMPTY_LO)
+    for cl, ch in cvals:
+        ne = cl <= ch
+        u_clo = torch.where(ne, torch.minimum(u_clo, cl), u_clo)
+        u_chi = torch.where(ne, torch.maximum(u_chi, ch), u_chi)
+    return hit, u_lo, u_hi, u_clo, u_chi
 
 
-def measure2(hot: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
-    """``_measure2`` per stripe: the (grid, stripe_h) ``hot`` rows (gen
-    T + 6 differs from gen T in the measure region) at their ``rows``, as
-    the two intervals (lo0, hi0, lo1, hi1), a (4, grid) tensor: the
-    stripe-wide span split at its midpoint; empty = (_EMPTY_LO, -1)."""
+def frontier_placement(u_lo: torch.Tensor, u_hi: torch.Tensor, c_lo: torch.Tensor,
+                       plan: AdaptivePlan, sub_rows: int | None):
+    """``_frontier_placement`` for every stripe: in the frame of the
+    stripe's window (its first row c_lo less round8(T + 6)), the row tier's
+    sub-window top ``win_lo`` (a multiple of 8), the measure rows [m_lo,
+    m_hi] and whether the measure lies in the sub-window's gen-(T + 6)
+    validity rows (``windowed_ok``).  ``sub_rows`` None (the tiers are
+    off): win_lo 0 and never windowed."""
+    pad, t6 = plan.pad_f, plan.t + SKIP_PERIOD
+    w_lo = c_lo - pad
+    d_lo, d_hi = u_lo - w_lo, u_hi - w_lo
+    m_lo = torch.clamp(d_lo - t6, min=pad)
+    m_hi = torch.clamp(d_hi + t6, max=pad + plan.stripe_h - 1)
+    if sub_rows is None:
+        return torch.zeros_like(m_lo), m_lo, m_hi, torch.zeros_like(m_lo, dtype=torch.bool)
+    h_ext = plan.stripe_h + 2 * pad
+    win_lo = torch.clamp(d_lo - 2 * plan.t - 16, 0, h_ext - sub_rows) // 8 * 8
+    ok = (win_lo + t6 <= m_lo) & (m_hi < win_lo + sub_rows - t6)
+    return win_lo, m_lo, m_hi, ok
+
+
+def col_placement(u_clo: torch.Tensor, u_chi: torch.Tensor, plan: AdaptivePlan,
+                  col_window: int, wp: int):
+    """``_col_placement`` for every stripe: the column window's first word
+    ``win_c`` (a multiple of 128), whether the column union and its reach
+    of cw = ceil((T + 6) / 32) words lie in the window's validity words
+    [win_c + cw, win_c + col_window - cw), and cw."""
+    cw = (plan.t + SKIP_PERIOD + 31) // 32
+    need_lo, need_hi = u_clo - cw, u_chi + cw
+    win_c = torch.clamp(need_lo - cw, 0, wp - col_window) // 128 * 128
+    ok = (win_c + cw <= need_lo) & (need_hi < win_c + col_window - cw)
+    return win_c, ok, cw
+
+
+@dataclasses.dataclass
+class Routes:
+    """What each stripe of a frontier launch does, per stripe (tensors):
+    its ``route`` (``ROUTE_*``), its measure rows [m_lo, m_hi] and words
+    [vc_lo, vc_hi), the region [v_lo, v_hi) x [vc_lo, vc_hi) where its
+    window holds the true generation T, the region [w_lo, w_hi) x [wc_lo,
+    wc_hi) it writes (gen T inside the validity region, its input
+    elsewhere), and the change rectangle it publishes, (4, n) in chunk
+    units.  Rows are in the frame of the stripe's board, strip or tile."""
+
+    route: torch.Tensor
+    m_lo: torch.Tensor
+    m_hi: torch.Tensor
+    v_lo: torch.Tensor
+    v_hi: torch.Tensor
+    vc_lo: torch.Tensor
+    vc_hi: torch.Tensor
+    w_lo: torch.Tensor
+    w_hi: torch.Tensor
+    wc_lo: torch.Tensor
+    wc_hi: torch.Tensor
+    rect: torch.Tensor
+
+    @property
+    def computes(self) -> torch.Tensor:
+        return (self.route != ROUTE_SKIP) & (self.route != ROUTE_ELIDED)
+
+    def part(self, stripes: slice) -> "Routes":
+        """The routes of ``stripes`` (one shard's)."""
+        return Routes(**{f.name: getattr(self, f.name)[..., stripes]
+                         for f in dataclasses.fields(self)})
+
+
+def frontier_routes(hit, u_lo, u_hi, u_clo, u_chi, c_lo: torch.Tensor, plan: AdaptivePlan,
+                    shape: tuple[int, int], rect_rows: tuple[int, int] | None) -> Routes:
+    """Each stripe's route from its decision (:func:`hit_union`) on a
+    board, strip or tile of ``shape`` words, at the active geometry
+    (:func:`frontier_geometry`): skip where it does not hit; else the
+    column window (rows ``sub_rows`` x ``col_window`` words) where the
+    row and column placements are both eligible, and for the rectangle
+    route of K5, K8 and K14 (``rect_rows``: the rows its window must stay
+    within) the window lies in them; else the row tier where the row
+    placement is; else the full window.  The rectangle route writes the
+    window's rows of its own centre, ``col_window`` words, and publishes
+    them; the column tier of K12 (``rect_rows`` None) and every other
+    route write the whole centre, which the classic routes publish."""
+    sh, t = plan.stripe_h, plan.t
+    wp = shape[1]
+    sub_rows, cwin = frontier_geometry(plan, shape)
+    s_rows = sub_rows or 0
+    w_lo = c_lo - plan.pad_f
+    win_lo, m_lo, m_hi, row_ok = frontier_placement(u_lo, u_hi, c_lo, plan, sub_rows)
+    g_lo = w_lo + win_lo
+    tier = torch.zeros_like(hit)
+    win_c, cw = torch.zeros_like(c_lo), 0
+    if cwin:
+        win_c, col_ok, cw = col_placement(u_clo, u_chi, plan, cwin, wp)
+        tier = row_ok & col_ok
+        if rect_rows is not None:
+            tier = tier & (g_lo >= rect_rows[0]) & (g_lo + s_rows <= rect_rows[1])
+    route = torch.where(~hit, ROUTE_SKIP, torch.where(
+        tier, ROUTE_TIER, torch.where(row_ok, ROUTE_ROW, ROUTE_FULL)))
+    windowed = (route == ROUTE_TIER) | (route == ROUTE_ROW)
+    is_tier = route == ROUTE_TIER
+    rect = is_tier & (rect_rows is not None)
+    skip = route == ROUTE_SKIP
+    zero = torch.zeros_like(c_lo)
+    r_lo = torch.where(rect, torch.maximum(g_lo, c_lo), c_lo)
+    r_hi = torch.where(rect, torch.minimum(g_lo + s_rows, c_lo + sh), c_lo + sh)
+    wc_lo = torch.where(rect, win_c, zero)
+    wc_hi = torch.where(rect, win_c + (cwin or 0), zero + wp)
+    r_lo, r_hi = torch.where(skip, zero, r_lo), torch.where(skip, zero, r_hi)
+    published = torch.stack([r_lo // 8, (r_hi - r_lo) // 8, wc_lo // 128,
+                             torch.where(rect, zero + (cwin or 0) // 128, zero + wp // 128)])
+    return Routes(
+        route=route, m_lo=m_lo + w_lo, m_hi=m_hi + w_lo,
+        v_lo=torch.where(windowed, g_lo + t, c_lo), v_hi=torch.where(windowed, g_lo + s_rows - t,
+                                                                     c_lo + sh),
+        vc_lo=torch.where(is_tier, win_c + cw, zero),
+        vc_hi=torch.where(is_tier, win_c + (cwin or 0) - cw, zero + wp),
+        w_lo=r_lo, w_hi=r_hi, wc_lo=wc_lo, wc_hi=wc_hi,
+        rect=torch.where(skip, zero, published))
+
+
+def rect_region(rect: torch.Tensor, plan: AdaptivePlan, shape: tuple[int, int]):
+    """The cells of published change rectangles ((4, n): r8, n8, c128,
+    n128) as (rows lo, rows hi, words lo, words hi), half-open, by
+    ``_copy_rect``'s two families: a rectangle ``col_window`` words wide
+    (the rectangle route's) spans its columns, any other (the classic
+    routes' whole centre) the whole width; n8 <= 0 is empty."""
+    _, cwin = frontier_geometry(plan, shape)
+    r8, n8, c128, n128 = rect
+    windowed = (n128 == cwin // 128) if cwin else torch.zeros_like(n8, dtype=torch.bool)
+    lo, hi = r8 * 8, (r8 + n8.clamp(min=0)) * 8
+    c_lo = torch.where(windowed, c128 * 128, 0)
+    return lo, hi, c_lo, torch.where(windowed, c_lo + (cwin or 0), shape[1])
+
+
+def _stripe_mask(lo: torch.Tensor, hi: torch.Tensor, h: int, sh: int) -> torch.Tensor:
+    """bool (h,): row y in [lo, hi) of its stripe (y // sh)."""
+    rows = torch.arange(h, device=lo.device)
+    of = rows // sh
+    return (rows >= lo[of]) & (rows < hi[of])
+
+
+def _word_mask(lo: torch.Tensor, hi: torch.Tensor, h: int, wp: int, sh: int) -> torch.Tensor:
+    """bool (h, wp): word x in [lo, hi) of row y's stripe."""
+    of = torch.arange(h, device=lo.device) // sh
+    cols = torch.arange(wp, device=lo.device)
+    return (cols >= lo[of, None]) & (cols < hi[of, None])
+
+
+def routed_masks(rt: Routes, copy: tuple, h: int, wp: int, sh: int):
+    """(written, valid, copied, measured): bool (h, wp) masks of one
+    board, strip or tile of ``h`` rows in stripes of ``sh``, from its
+    stripes' :class:`Routes` and ``copy``, the (rows lo, rows hi, words
+    lo, words hi) each stripe copies from its input (its previous change
+    rectangle)."""
+    written = _stripe_mask(rt.w_lo, rt.w_hi, h, sh)[:, None] & _word_mask(rt.wc_lo, rt.wc_hi, h,
+                                                                         wp, sh)
+    valid = _stripe_mask(rt.v_lo, rt.v_hi, h, sh)[:, None] & _word_mask(rt.vc_lo, rt.vc_hi, h,
+                                                                       wp, sh)
+    copied = _stripe_mask(copy[0], copy[1], h, sh)[:, None] & _word_mask(copy[2], copy[3], h, wp,
+                                                                        sh)
+    m_rows = _stripe_mask(rt.m_lo, rt.m_hi + 1, h, sh) & rt.computes[torch.arange(
+        h, device=rt.route.device) // sh]
+    measured = m_rows[:, None] & _word_mask(rt.vc_lo, rt.vc_hi, h, wp, sh)
+    return written, valid, copied, measured
+
+
+def measure2(hot: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """``_measure2`` per stripe: ``hot`` (n, r, c) the cells where gen
+    T + 6 differs from gen T in each stripe's measure region, at rows
+    ``rows`` ((n, r) or (r,)) and words ``cols`` ((n, c) or (c,)) of its
+    frame.  Returns (6, n): the rows split into two intervals at the
+    midpoint of their span (lo0, hi0, lo1, hi1) and the column interval
+    (clo, chi); empty = (_EMPTY_LO, -1)."""
+    n = hot.shape[0]
+    rows = rows.expand(n, hot.shape[1])
+    cols = cols.expand(n, hot.shape[2])
     big = torch.full_like(rows, _EMPTY_LO)
-    lo = torch.where(hot, rows, big).amin(dim=1)
-    hi = torch.where(hot, rows, -big).amax(dim=1)
+    rhot = hot.any(dim=2)
+    lo = torch.where(rhot, rows, big).amin(dim=1)
+    hi = torch.where(rhot, rows, -big).amax(dim=1)
     split = torch.div(lo + hi, 2, rounding_mode="floor")[:, None]
-    hi0 = torch.where(hot & (rows <= split), rows, -big).amax(dim=1)
-    lo1 = torch.where(hot & (rows > split), rows, big).amin(dim=1)
+    hi0 = torch.where(rhot & (rows <= split), rows, -big).amax(dim=1)
+    lo1 = torch.where(rhot & (rows > split), rows, big).amin(dim=1)
+    chot = hot.any(dim=1)
+    cbig = torch.full_like(cols, _EMPTY_LO)
+    clo = torch.where(chot, cols, cbig).amin(dim=1)
+    chi = torch.where(chot, cols, -cbig).amax(dim=1)
     empty = lo > hi
     one = empty | (lo1 > hi)
     return torch.stack([
@@ -922,45 +1236,79 @@ def measure2(hot: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
         torch.where(empty, -1, torch.where(lo1 > hi, hi, hi0)),
         torch.where(one, _EMPTY_LO, lo1),
         torch.where(one, -1, hi),
+        torch.where(empty, _EMPTY_LO, clo),
+        torch.where(empty, -1, chi),
     ])
+
+
+def routed_launch(r: torch.Tensor, w: torch.Tensor, g_t: torch.Tensor, g_t6: torch.Tensor,
+                  masks, sh: int):
+    """One shard's writes and measure in a frontier launch, from its
+    :func:`routed_masks`: the written buffer (``w`` as it was outside the
+    written and copied cells) and the measure, (6, stripes)."""
+    written, valid, copied, measured = masks
+    out = torch.where(written, torch.where(valid, g_t, r), torch.where(copied, r, w))
+    h, wp = r.shape
+    hot = ((g_t6 != g_t) & measured).view(h // sh, sh, wp)
+    rows = torch.arange(h, device=r.device).view(h // sh, sh)
+    return out, measure2(hot, rows, torch.arange(wp, device=r.device))
+
+
+def _block_mask(cells: torch.Tensor, blocks: RegPlan) -> torch.Tensor:
+    """bool (row blocks, column groups): the blocks of ``blocks`` whose
+    tile meets the cells (bool (h, wp)) of a shard."""
+    nby, nbx = blocks.grid
+    h, wp = cells.shape
+    grid = torch.zeros((nby * blocks.tile_h, nbx * blocks.centre), dtype=torch.bool,
+                       device=cells.device)
+    grid[:h, :wp] = cells
+    return grid.view(nby, blocks.tile_h, nbx, blocks.centre).any(dim=3).any(dim=1)
+
+
+# -- K5: the frontier kernel ---------------------------------------------------
 
 
 def _frontier_launch(r: torch.Tensor, w: torch.Tensor, plan: AdaptivePlan,
                      state: torch.Tensor | None, advance):
-    """One K5 launch's decision, measure and bookkeeping in PyTorch, its
-    generations from ``advance(hit)``: (gen T, gen T + 6) of the board,
-    the rows of stripes that do not ``hit`` unused.  Returns (written
-    buffer, new state, skips, per-stripe activity)."""
-    h = r.shape[0]
+    """One K5 launch's decisions, routes, writes and measure in PyTorch,
+    its generations from ``advance(cells)``: (gen T, gen T + 6) of the
+    board, exact on ``cells`` (bool (h, wp): where the launch writes gen T)
+    and on the measure region.  Returns (written buffer, new state, skips,
+    per-stripe activity, routes)."""
+    h, wp = r.shape
     sh = plan.stripe_h
     grid = plan.grid(h)
     dev = r.device
+    t6 = plan.t + SKIP_PERIOD
     idx = torch.arange(grid, device=dev)
     c_lo = idx * sh
     c_hi = c_lo + sh - 1
     if state is None:
         hit = torch.ones(grid, dtype=torch.bool, device=dev)
-        m_lo, m_hi = c_lo, c_hi
+        u_lo, u_hi = c_lo - t6, c_hi + t6
+        u_clo, u_chi = torch.full_like(c_lo, _EMPTY_LO), torch.full_like(c_lo, -_EMPTY_LO)
+        prev_rect = torch.zeros((4, grid), dtype=torch.int64, device=dev)
     else:
         # The neighbours' intervals, placed in this stripe's frame across
-        # the torus wrap.
-        ivals = []
+        # the torus wrap; their column pairs as they are.
+        ivals, cvals = [], []
         for slot in (-1, 0, 1):
             j = torch.remainder(idx + slot, grid)
             off = (idx + slot - j) * sh
             ivals += [(state[2 * k][j] + off, state[2 * k + 1][j] + off) for k in (0, 1)]
-        hit, m_lo, m_hi = hit_union(ivals, c_lo, c_hi, plan)
-
-    g_t, g_t6 = advance(hit)
-    rows = torch.arange(h, device=dev)
-    of = rows // sh
-    hot = (g_t6 != g_t).any(dim=1) & hit[of] & (rows >= m_lo[of]) & (rows <= m_hi[of])
-    new_state = torch.cat([measure2(hot.view(grid, sh), rows.view(grid, sh)),
-                           hit.to(torch.int64)[None]])
-    copy = ~hit & (state[4].bool() if state is not None else hit)
-    out = torch.where(hit[of, None], g_t, torch.where(copy[of, None], r, w))
+            cvals.append((state[4][j], state[5][j]))
+        hit, u_lo, u_hi, u_clo, u_chi = hit_union(ivals, cvals, c_lo, c_hi, plan)
+        prev_rect = state[6:10]
+    rt = frontier_routes(hit, u_lo, u_hi, u_clo, u_chi, c_lo, plan, (h, wp), (0, h))
+    copy = list(rect_region(prev_rect, plan, (h, wp)))
+    moved = (rt.route == ROUTE_SKIP) | (rt.route == ROUTE_TIER)
+    copy[1] = torch.where(moved, copy[1], copy[0])
+    masks = routed_masks(rt, copy, h, wp, sh)
+    g_t, g_t6 = advance(masks[0] & masks[1])
+    out, intervals = routed_launch(r, w, g_t, g_t6, masks, sh)
+    new_state = torch.cat([intervals, rt.rect])
     act = (new_state[0] <= new_state[1]).to(torch.int32)
-    return out, new_state, (~hit).sum().to(torch.int32), act
+    return out, new_state, (~hit).sum().to(torch.int32), act, rt.route.to(torch.int32)
 
 
 def frontier_launch_mirror(
@@ -969,15 +1317,17 @@ def frontier_launch_mirror(
     rule: LifeRule,
     plan: AdaptivePlan,
     state: torch.Tensor | None,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+):
     """Plain version of one K5 launch (one grid row of
     ``_kernel_frontier_mega``): board ``r`` in, ``w`` the buffer it writes
     (the board of two launches ago), ``state`` the previous launch's int64
-    (5, stripes) state — rows lo0, hi0, lo1, hi1, computed — or None on
-    launch 0 of a chunk, which forces every stripe to compute.  Returns
-    (written buffer, new state, skips, per-stripe activity)."""
+    (10, stripes) state (``STATE_FIELDS``) or None on launch 0 of a chunk,
+    which forces every stripe to compute.  Each stripe takes its route
+    (:func:`frontier_routes`) and writes its change rectangle and its
+    previous one: the written buffer keeps ``w`` everywhere else.  Returns
+    (written buffer, new state, skips, per-stripe activity, int32 routes)."""
 
-    def advance(_hit):
+    def advance(_cells):
         g_t = packed.superstep(r, rule, plan.t)
         return g_t, packed.superstep(g_t, rule, SKIP_PERIOD)
 
@@ -991,13 +1341,15 @@ def frontier_launch_reg_mirror(
     plan: AdaptivePlan,
     state: torch.Tensor | None,
     blocks: RegPlan | None = None,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K5's decomposition in PyTorch: the decisions and bookkeeping of
-    :func:`frontier_launch_mirror`, the generations on the blocks of
+):
+    """K5's decomposition in PyTorch: the decisions, routes and bookkeeping
+    of :func:`frontier_launch_mirror`, the generations on the blocks of
     ``blocks`` (None: the :func:`frontier_blocks` of an H100) through
-    :func:`_frontier_blocks`, each window's rows wrapping around the board
-    (``reg::column`` of a ``BoardSource``) and its words modulo its
-    width.  K8 runs it a board at a time, at its stack's blocks."""
+    :func:`_frontier_blocks`, only the blocks whose tile meets the cells
+    their stripe's route writes as gen T stepping, each window's rows
+    wrapping around the board (``reg::column`` of a ``BoardSource``) and
+    its words modulo its width.  K8 runs it a board at a time, at its
+    stack's blocks."""
     h, wp = r.shape
     blocks = blocks or frontier_blocks((h, wp), plan)
     _check_frontier_blocks(blocks, plan, (h, wp))
@@ -1005,52 +1357,61 @@ def frontier_launch_reg_mirror(
     rows = torch.remainder(torch.arange(h + 2 * halo, device=dev) - halo, h)
     cols = torch.remainder(torch.arange(blocks.grid[1] * blocks.centre + 2, device=dev) - 1, wp)
 
-    def advance(hit):
-        return _frontier_blocks(r[rows][:, cols], rule, blocks, plan.t, (h, wp), hit)
+    def advance(cells):
+        return _frontier_blocks(r[rows][:, cols], rule, blocks, plan.t, (h, wp),
+                                _block_mask(cells, blocks))
 
     return _frontier_launch(r, w, plan, state, advance)
 
 
 def frontier_superstep_mirror(
     p: torch.Tensor, rule: LifeRule, plan: AdaptivePlan, nlaunch: int,
-    launch=frontier_launch_mirror,
+    launch=frontier_launch_mirror, each=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One chunk of ``nlaunch`` launches of ``launch`` (the plain version,
     or :func:`frontier_launch_reg_mirror`) on K5's buffer protocol.
-    Returns (board, skipped, activity)."""
+    ``each(board, state, routes)`` is called after every launch.  Returns
+    (board, skipped, activity)."""
     bufs = [torch.zeros_like(p), torch.zeros_like(p)]
     skipped = torch.zeros((), dtype=torch.int32, device=p.device)
     act = torch.zeros((plan.grid(p.shape[0]),), dtype=torch.int32, device=p.device)
     state = None
     cur = p
     for k in range(nlaunch):
-        cur, state, sk, a = launch(cur, bufs[k % 2], rule, plan, state)
+        cur, state, sk, a, routes = launch(cur, bufs[k % 2], rule, plan, state)
         bufs[k % 2] = cur
         skipped, act = skipped + sk, act + a
+        if each is not None:
+            each(cur, state, routes)
     return cur, skipped, act
 
 
 def _frontier_chunk(
-    stack: torch.Tensor, rule: LifeRule, plan: AdaptivePlan, nlaunch: int, wrapper
+    stack: torch.Tensor, rule: LifeRule, plan: AdaptivePlan, nlaunch: int, wrapper, each=None
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One chunk of ``nlaunch`` frontier launches on a CUDA (B, H, wp)
     stack (K5 is the stack of one board) on the blocks of
-    :func:`frontier_blocks` for the stack and its device's SMs, in the
-    rule's instantiation, each counted on ``wrapper.launches`` and
-    ``wrapper.rules``; returns (stack, int32[B] skipped, int32[B * grid]
-    activity), all left on the device — nothing is read back between
-    launches.  The launches ping-pong between two fresh stacks; the input
-    is never written."""
+    :func:`frontier_blocks` for the stack and its device's SMs, at the
+    active geometry, in the rule's instantiation, each counted on
+    ``wrapper.launches`` and ``wrapper.rules``; returns (stack, int32[B]
+    skipped, int32[B * grid] activity), all left on the device — nothing
+    is read back between launches.  The launches ping-pong between two
+    fresh stacks; the input is never written.  ``each(stack, state,
+    routes)`` is called after every launch with the launch's int32 (10,
+    B * grid) state and routes (the launch-by-launch check)."""
     nb, h, wp = stack.shape
     grid = plan.grid(h)
     dev = stack.device
     blocks = frontier_blocks((h, wp), plan, nb, device_sms(dev))
-    lib, launch = _reg_launcher("frontier", "gol_frontier_batched_launch", 6, 11)
+    sub_rows, col_window = frontier_geometry(plan, (h, wp))
+    lib, launch = _reg_launcher("frontier", "gol_frontier_batched_launch", 8, 13)
     born, surv, variant = reg_rule(rule)
-    state = torch.empty((2, 5, nb * grid), dtype=torch.int32, device=dev)
+    state = torch.empty((2, len(STATE_FIELDS), nb * grid), dtype=torch.int32, device=dev)
     rowflag = torch.zeros((nb * h,), dtype=torch.int32, device=dev)
+    colspan = column_span(nb * grid, dev)
     skipped = torch.zeros((nb,), dtype=torch.int32, device=dev)
     act = torch.zeros((nb * grid,), dtype=torch.int32, device=dev)
+    routes = torch.empty((nlaunch, nb * grid), dtype=torch.int32, device=dev)
     bufs = (torch.empty_like(stack), torch.empty_like(stack))
     stream = _stream(stack)
     cur = stack
@@ -1058,30 +1419,44 @@ def _frontier_chunk(
         dst = bufs[k % 2]
         err = launch(
             cur.data_ptr(), dst.data_ptr(), state.data_ptr(), rowflag.data_ptr(),
-            skipped.data_ptr(), act.data_ptr(), nb, h, wp, plan.t, plan.stripe_h, blocks.tile_h,
-            blocks.warps, plan.pad_f, k % 2, int(k == 0), variant, born, surv, stream,
+            colspan.data_ptr(), skipped.data_ptr(), act.data_ptr(), routes[k].data_ptr(), nb, h,
+            wp, plan.t, plan.stripe_h, blocks.tile_h, blocks.warps, plan.pad_f, sub_rows or 0,
+            col_window or 0, k % 2, int(k == 0), variant, born, surv, stream,
         )
         cuda_build.check(lib, err, "frontier")
         wrapper.launches += 1
         wrapper.rules[REG_RULES[variant]] += 1
         cur = dst
+        if each is not None:
+            each(cur, state[k % 2], routes[k])
     return cur, skipped, act
 
 
+def column_span(stripes: int, device) -> torch.Tensor:
+    """A frontier kernel's column extremes, int32[stripes][2]: each
+    stripe's least and greatest measured word, (_EMPTY_LO, -_EMPTY_LO)
+    between launches (``frontier_finalize`` restores them)."""
+    span = torch.empty((stripes, 2), dtype=torch.int32, device=device)
+    span[:, 0], span[:, 1] = _EMPTY_LO, -_EMPTY_LO
+    return span
+
+
 def frontier_superstep(
-    p: torch.Tensor, rule: LifeRule, plan: AdaptivePlan, nlaunch: int
+    p: torch.Tensor, rule: LifeRule, plan: AdaptivePlan, nlaunch: int, each=None
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K5: one chunk of ``nlaunch`` frontier launches of ``plan.t``
     generations, launch 0 forced full; returns (board, skipped, activity),
     all left on the device.  The input is never written.  CPU tensors run
     :func:`frontier_superstep_mirror`; a CUDA tensor launches K5 (counted
-    by rule instantiation in ``frontier_superstep.rules``) or raises."""
+    by rule instantiation in ``frontier_superstep.rules``) or raises.
+    ``each(board, state, routes)`` is called after every launch."""
     _check_words(p)
     if not plan.frontier:
         raise ValueError(f"plan {plan} has no frontier form")
     if p.device.type == "cpu":
-        return frontier_superstep_mirror(p, rule, plan, nlaunch)
-    cur, skipped, act = _frontier_chunk(p[None], rule, plan, nlaunch, frontier_superstep)
+        return frontier_superstep_mirror(p, rule, plan, nlaunch, each=each)
+    solo = None if each is None else (lambda b, s, r: each(b[0], s, r))
+    cur, skipped, act = _frontier_chunk(p[None], rule, plan, nlaunch, frontier_superstep, solo)
     return cur[0], skipped.reshape(()), act
 
 
@@ -1094,33 +1469,50 @@ frontier_superstep.rules = collections.Counter()
 
 def frontier_superstep_batched_mirror(
     stack: torch.Tensor, rule: LifeRule, plan: AdaptivePlan, nlaunch: int,
-    launch=frontier_launch_mirror,
+    launch=frontier_launch_mirror, each=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of K8: one chunk of :func:`frontier_superstep_mirror`
-    on each board of a (B, H, wp) stack, each its own torus.  Returns
-    (stack, int32[B] skipped per board, int32[B * grid] activity, board b's
-    stripes at b * grid + i)."""
-    outs = [frontier_superstep_mirror(board, rule, plan, nlaunch, launch) for board in stack]
-    return (
-        torch.stack([o[0] for o in outs]),
-        torch.stack([o[1] for o in outs]),
-        torch.cat([o[2] for o in outs]),
-    )
+    on each board of a (B, H, wp) stack, each its own torus, the boards
+    launch by launch together.  ``each(stack, state, routes)`` is called
+    after every launch (state (10, B * grid), board b's stripes at b * grid
+    + i).  Returns (stack, int32[B] skipped per board, int32[B * grid]
+    activity)."""
+    nb = stack.shape[0]
+    grid = plan.grid(stack.shape[1])
+    bufs = [torch.zeros_like(stack), torch.zeros_like(stack)]
+    skipped = torch.zeros((nb,), dtype=torch.int32, device=stack.device)
+    act = torch.zeros((nb * grid,), dtype=torch.int32, device=stack.device)
+    states = [None] * nb
+    cur = stack
+    for k in range(nlaunch):
+        outs, routes = [], []
+        for b in range(nb):
+            out, states[b], sk, a, rt = launch(cur[b], bufs[k % 2][b], rule, plan, states[b])
+            outs.append(out)
+            routes.append(rt)
+            skipped[b] += sk
+            act[b * grid : (b + 1) * grid] += a
+        cur = bufs[k % 2] = torch.stack(outs)
+        if each is not None:
+            each(cur, torch.cat(states, dim=1), torch.cat(routes))
+    return cur, skipped, act
 
 
 def frontier_batched_reg_mirror(
-    stack: torch.Tensor, rule: LifeRule, plan: AdaptivePlan, nlaunch: int, sms: int = H100_SMS
+    stack: torch.Tensor, rule: LifeRule, plan: AdaptivePlan, nlaunch: int, sms: int = H100_SMS,
+    each=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K8's decomposition in PyTorch: :func:`frontier_superstep_batched_mirror`
     on :func:`frontier_launch_reg_mirror` at the blocks K8 takes for the
     whole stack on ``sms`` SMs (:func:`frontier_blocks`)."""
     blocks = frontier_blocks(tuple(stack.shape[1:]), plan, stack.shape[0], sms)
     return frontier_superstep_batched_mirror(
-        stack, rule, plan, nlaunch, functools.partial(frontier_launch_reg_mirror, blocks=blocks))
+        stack, rule, plan, nlaunch, functools.partial(frontier_launch_reg_mirror, blocks=blocks),
+        each)
 
 
 def frontier_superstep_batched(
-    stack: torch.Tensor, rule: LifeRule, plan: AdaptivePlan, nlaunch: int
+    stack: torch.Tensor, rule: LifeRule, plan: AdaptivePlan, nlaunch: int, each=None
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K8: one chunk of ``nlaunch`` frontier launches of ``plan.t``
     generations on every board of a (B, H, wp) stack, launch 0 forced full
@@ -1130,13 +1522,14 @@ def frontier_superstep_batched(
     B = 1 it computes exactly K5.  CPU tensors run
     :func:`frontier_superstep_batched_mirror`; a CUDA tensor launches K8
     (counted by rule instantiation in ``frontier_superstep_batched.rules``)
-    or raises."""
+    or raises.  ``each(stack, state, routes)`` is called after every
+    launch."""
     _check_words(stack, 3)
     if not plan.frontier:
         raise ValueError(f"plan {plan} has no frontier form")
     if stack.device.type == "cpu":
-        return frontier_superstep_batched_mirror(stack, rule, plan, nlaunch)
-    return _frontier_chunk(stack, rule, plan, nlaunch, frontier_superstep_batched)
+        return frontier_superstep_batched_mirror(stack, rule, plan, nlaunch, each=each)
+    return _frontier_chunk(stack, rule, plan, nlaunch, frontier_superstep_batched, each)
 
 
 frontier_superstep_batched.launches = 0

@@ -46,9 +46,12 @@ the counterpart of ``make_superstep(skip_stable=True)``'s ppermute form:
   < 6 generations one K9 launch.
 - Between launches the exchange (``halo.edge_rows``, :func:`edge_flags`,
   :func:`edge_intervals`) hands each strip its neighbours' boundary rows,
-  their edge stripes' skip flags (K11) or tracked row intervals shifted
-  into its row frame (K12).  Each strip keeps two buffers, and a launch
-  writes the one of two launches ago (write elision).
+  their edge stripes' skip flags (K11) or tracked intervals, the rows
+  shifted into its row frame, the column interval as it is (K12).  Each
+  strip keeps two buffers, and a launch writes the one of two launches
+  ago (write elision).  K12 takes the JAX kernel's compute tiers (the
+  column window, the row tier, the full window) at the plan geometry
+  (``cuda_adaptive.frontier_geometry``).
 
 ``skip_stable`` on a 2-D mesh (``(ny, nx)``, nx > 1) runs the adaptive
 tile tier, the counterpart of ``make_superstep``'s ``_run_2d`` on its
@@ -71,8 +74,10 @@ counterpart of ``make_superstep``'s in-kernel branch and of
 chunks (``_nlaunch_chunks``), each launch one K14 launch over every strip
 (``csrc/frontier.cu``, :func:`strip_mega_launches`), whose windows read
 the neighbour strips' rows and whose edge stripes read the neighbours'
-intervals in place, with no exchange between launches; the loose tail
-runs K11 from a zero bitmap, the remainders K10 and K9.  A 2-D mesh whose
+intervals in place, with no exchange between launches, and whose
+stripes take K5's routes and change-rectangle writes (the rectangle
+route's window inside the strip); the loose tail runs K11 from a zero
+bitmap, the remainders K10 and K9.  A 2-D mesh whose
 tiles share one device takes the same tier (the counterpart of
 ``_kernel_frontier_mega_2d``): canonical chunks of K15 launches over every
 tile (:func:`tile_mega_chunks`), whose windows read the neighbour tiles'
@@ -739,26 +744,36 @@ strip_probing_launch.rules = collections.Counter()
 @dataclasses.dataclass
 class FrontierState:
     """One strip's frontier state over a dispatch, on its device: the
-    previous and the current launch's int32 (5, grid) state (rows lo0,
-    hi0, lo1, hi1 in the strip's row frame, and whether the stripe
-    computed), the kernel's row flags, and the skip count and per-stripe
-    activity accumulated over the dispatch's launches."""
+    previous and the current launch's int32 (7, grid) state (rows lo0,
+    hi0, lo1, hi1 in the strip's row frame, clo, chi in board words, and
+    whether the stripe computed), the kernel's row flags and column
+    extremes, the current launch's routes (``cuda_adaptive.ROUTE_*``), and
+    the skip count and per-stripe activity accumulated over the dispatch's
+    launches."""
 
     prev: torch.Tensor
     cur: torch.Tensor
     rowflag: torch.Tensor
+    colspan: torch.Tensor
+    route: torch.Tensor
     skipped: torch.Tensor
     act: torch.Tensor
 
     @classmethod
-    def start(cls, h_loc: int, plan: AdaptivePlan, device) -> "FrontierState":
-        """The state before a dispatch's first launch: every stripe's own
-        rows as its interval (so every stripe computes and measures), as
-        the JAX package's make_superstep starts it."""
+    def start(cls, strip: tuple[int, int], plan: AdaptivePlan, device) -> "FrontierState":
+        """The state before a dispatch's first launch on a strip of
+        ``strip`` = (h_loc, wp) words: every stripe's own rows as its row
+        interval and the whole width [0, wp - 1] as its column interval (so
+        every stripe computes and measures), as the JAX package's
+        make_superstep starts it."""
+        h_loc, wp = strip
         lo = torch.arange(plan.grid(h_loc), dtype=torch.int32, device=device) * plan.stripe_h
         prev = torch.stack([lo, lo + plan.stripe_h - 1, torch.full_like(lo, _EMPTY_LO),
-                            torch.full_like(lo, -1), torch.ones_like(lo)])
-        return cls(prev, torch.empty_like(prev), torch.zeros(h_loc, dtype=torch.int32, device=device),
+                            torch.full_like(lo, -1), torch.zeros_like(lo),
+                            torch.full_like(lo, wp - 1), torch.ones_like(lo)])
+        return cls(prev, torch.empty_like(prev),
+                   torch.zeros(h_loc, dtype=torch.int32, device=device),
+                   cuda_adaptive.column_span(lo.numel(), device), torch.zeros_like(lo),
                    torch.zeros(1, dtype=torch.int32, device=device), torch.zeros_like(lo))
 
     def advance(self) -> None:
@@ -768,11 +783,12 @@ class FrontierState:
 
 def _strip_frontier(local, north, south, dst, prev_ext, state: FrontierState, plan: AdaptivePlan,
                     advance) -> torch.Tensor:
-    """One K12 launch's decision, measure and bookkeeping in PyTorch, its
-    generations from ``advance(e, hit)``: (gen T, gen T + 6) of the
+    """One K12 launch's decisions, routes, writes and measure in PyTorch,
+    its generations from ``advance(e, cells)``: (gen T, gen T + 6) of the
     strip's rows, from ``e``, the strip with T + 6 rows of ``north`` and
-    ``south`` a side (the rows of stripes that do not ``hit`` unused)."""
-    h = local.shape[0]
+    ``south`` a side, exact on ``cells`` (bool (h, wp): where the launch
+    writes gen T) and on the measure region."""
+    h, wp = local.shape
     sh = plan.stripe_h
     grid = plan.grid(h)
     dev = local.device
@@ -783,15 +799,20 @@ def _strip_frontier(local, north, south, dst, prev_ext, state: FrontierState, pl
     ext = prev_ext.to(torch.int64)
     ivals = [(ext[2 * k][idx + 1 + slot], ext[2 * k + 1][idx + 1 + slot])
              for slot in (-1, 0, 1) for k in (0, 1)]
-    hit, m_lo, m_hi = cuda_adaptive.hit_union(ivals, c_lo, c_hi, plan)
-    g_t, g_t6 = advance(_extended(local, north, south, halo), hit)
-    rows = torch.arange(h, device=dev)
-    of = rows // sh
-    hot = (g_t6 != g_t).any(dim=1) & hit[of] & (rows >= m_lo[of]) & (rows <= m_hi[of])
-    intervals = cuda_adaptive.measure2(hot.view(grid, sh), rows.view(grid, sh))
-    copy = ~hit & state.prev[4].bool()
-    dst.copy_(torch.where(hit[of, None], g_t, torch.where(copy[of, None], local, dst)))
+    cvals = [(ext[4][idx + 1 + slot], ext[5][idx + 1 + slot]) for slot in (-1, 0, 1)]
+    hit, *union = cuda_adaptive.hit_union(ivals, cvals, c_lo, c_hi, plan)
+    rt = cuda_adaptive.frontier_routes(hit, *union, c_lo, plan, (h, wp), None)
+    # The ps protocol: a stripe that skips after a launch that computed
+    # copies its whole centre.
+    copied = ~hit & state.prev[6].bool()
+    zero = torch.zeros_like(c_lo)
+    copy = (c_lo, torch.where(copied, c_lo + sh, c_lo), zero, zero + wp)
+    masks = cuda_adaptive.routed_masks(rt, copy, h, wp, sh)
+    g_t, g_t6 = advance(_extended(local, north, south, halo), masks[0] & masks[1])
+    out, intervals = cuda_adaptive.routed_launch(local, dst, g_t, g_t6, masks, sh)
+    dst.copy_(out)
     state.cur.copy_(torch.cat([intervals, hit[None].to(intervals.dtype)]))
+    state.route.copy_(rt.route)
     state.skipped += (~hit).sum().to(torch.int32)
     state.act += (intervals[0] <= intervals[1]).to(torch.int32)
     return dst
@@ -802,18 +823,21 @@ def strip_frontier_launch_plain(
     prev_ext: torch.Tensor, state: FrontierState, rule: LifeRule, plan: AdaptivePlan,
 ) -> torch.Tensor:
     """Plain version of K12 (``_ext_kernel_frontier``) on one strip:
-    ``_hit_union`` over ``prev_ext`` (the previous launch's row intervals
-    of the strip's stripes, int32[4][grid + 2], the neighbour strips' edge
-    stripes at both ends, in this strip's frame); a stripe that hits
-    computes T generations of its window (the strip with T + 6 rows of
-    ``north`` and ``south``) and measures gen T + 6 against gen T on its
-    measure rows (``_measure2``); one that does not skips, copying its
-    input into ``dst`` if it computed last launch.  Writes ``dst`` and
-    ``state.cur``, adds to ``state.skipped`` and ``state.act``; returns
-    ``dst``."""
+    ``_hit_union`` over ``prev_ext`` (the previous launch's interval state
+    of the strip's stripes, int32[6][grid + 2]: row intervals in this
+    strip's frame, column intervals in words, the neighbour strips' edge
+    stripes at both ends); a stripe that hits takes ``_frontier_body``'s
+    route (``cuda_adaptive.frontier_routes``: the column tier, the row
+    tier or the full window, at the active geometry), writes its whole
+    centre (gen T where the route's window holds it, its input elsewhere)
+    and measures gen T + 6 against gen T on its measure region
+    (``_measure2``: rows, and words); one that does not skips, copying its
+    input into ``dst`` if it computed last launch.  Writes ``dst``,
+    ``state.cur`` and ``state.route``, adds to ``state.skipped`` and
+    ``state.act``; returns ``dst``."""
     halo, h = plan.t + SKIP_PERIOD, local.shape[0]
 
-    def advance(e, _hit):
+    def advance(e, _cells):
         g_t = packed.superstep(e, rule, plan.t)
         return g_t[halo : halo + h], packed.superstep(g_t, rule, SKIP_PERIOD)[halo : halo + h]
 
@@ -825,18 +849,20 @@ def strip_frontier_launch_mirror(
     prev_ext: torch.Tensor, state: FrontierState, rule: LifeRule, plan: AdaptivePlan,
     blocks: RegPlan | None = None,
 ) -> torch.Tensor:
-    """K12's decomposition in PyTorch: the decision and bookkeeping of
+    """K12's decomposition in PyTorch: the decisions and bookkeeping of
     :func:`strip_frontier_launch_plain`, the generations on the blocks of
     ``blocks`` (None: the ``frontier_blocks`` of an H100) through
-    :func:`_frontier_blocks`, the strip's words wrapping modulo its
-    width."""
+    :func:`_frontier_blocks`, only the blocks whose tile meets the cells
+    their stripe's route writes as gen T stepping, the strip's words
+    wrapping modulo its width."""
     h, wp = local.shape
     blocks = blocks or frontier_blocks((h, wp), plan)
     _check_frontier_blocks(blocks, plan, (h, wp))
     cols = torch.remainder(torch.arange(blocks.grid[1] * blocks.centre + 2) - 1, wp)
 
-    def advance(e, hit):
-        return _frontier_blocks(e[:, cols.to(e.device)], rule, blocks, plan.t, (h, wp), hit)
+    def advance(e, cells):
+        return _frontier_blocks(e[:, cols.to(e.device)], rule, blocks, plan.t, (h, wp),
+                                cuda_adaptive._block_mask(cells, blocks))
 
     return _strip_frontier(local, north, south, dst, prev_ext, state, plan, advance)
 
@@ -846,31 +872,34 @@ def strip_frontier_launch(
     prev_ext: torch.Tensor, state: FrontierState, rule: LifeRule, plan: AdaptivePlan,
 ) -> torch.Tensor:
     """K12: one frontier launch of ``plan.t`` generations on a strip of a
-    row mesh, writing ``dst`` (the strip's buffer of two launches ago) and
-    ``state.cur``, accumulating ``state.skipped`` and ``state.act``;
-    returns ``dst``.  ``north``/``south`` hold at least T + 6 neighbour
-    rows.  A CPU tensor runs :func:`strip_frontier_launch_plain`; a CUDA
-    tensor launches K12 on the blocks of ``frontier_blocks`` for its
-    device's SMs, in the rule's instantiation (counted in
+    row mesh, writing ``dst`` (the strip's buffer of two launches ago),
+    ``state.cur`` and ``state.route``, accumulating ``state.skipped`` and
+    ``state.act``; returns ``dst``.  ``north``/``south`` hold at least
+    T + 6 neighbour rows.  A CPU tensor runs
+    :func:`strip_frontier_launch_plain`; a CUDA tensor launches K12 on the
+    blocks of ``frontier_blocks`` for its device's SMs, at the active
+    geometry, in the rule's instantiation (counted in
     ``strip_frontier_launch.rules``), or raises."""
     h, wp = local.shape
     grid = plan.grid(h)
     _check_strip(local, north, south, dst, plan.t + SKIP_PERIOD)
     if not plan.frontier or h % plan.stripe_h:
         raise ValueError(f"plan {plan} has no frontier form on a strip of {h} rows")
-    if prev_ext.shape != (4, grid + 2) or state.prev.shape != (5, grid):
+    if prev_ext.shape != (6, grid + 2) or state.prev.shape != (7, grid):
         raise ValueError(f"frontier state {tuple(prev_ext.shape)}, {tuple(state.prev.shape)} "
                          f"for {grid} stripes")
     if local.device.type == "cpu":
         return strip_frontier_launch_plain(local, north, south, dst, prev_ext, state, rule, plan)
     blocks = frontier_blocks((h, wp), plan, 1, device_sms(local.device))
-    lib, launch = _reg_launcher("frontier", "gol_strip_frontier_launch", 10)
+    sub_rows, col_window = cuda_adaptive.frontier_geometry(plan, (h, wp))
+    lib, launch = _reg_launcher("frontier", "gol_strip_frontier_launch", 12, 11)
     born, surv, variant = reg_rule(rule)
     err = launch(local.data_ptr(), north.data_ptr(), south.data_ptr(), dst.data_ptr(),
-                 prev_ext.data_ptr(), state.prev[4].data_ptr(), state.cur.data_ptr(),
-                 state.rowflag.data_ptr(), state.skipped.data_ptr(), state.act.data_ptr(),
-                 h, wp, north.shape[0], plan.t, plan.stripe_h, blocks.tile_h, blocks.warps,
-                 plan.pad_f, variant, born, surv, _stream(local))
+                 prev_ext.data_ptr(), state.prev[6].data_ptr(), state.cur.data_ptr(),
+                 state.rowflag.data_ptr(), state.colspan.data_ptr(), state.skipped.data_ptr(),
+                 state.act.data_ptr(), state.route.data_ptr(), h, wp, north.shape[0], plan.t,
+                 plan.stripe_h, blocks.tile_h, blocks.warps, plan.pad_f, sub_rows or 0,
+                 col_window or 0, variant, born, surv, _stream(local))
     cuda_build.check(lib, err, "strip_frontier")
     strip_frontier_launch.launches += 1
     strip_frontier_launch.rules[REG_RULES[variant]] += 1
@@ -1011,15 +1040,20 @@ tile_probing_launch.rules = collections.Counter()
 class MeshState:
     """The frontier state of every shard of a mesh (the strips of a row
     mesh, K14, or the tiles of a 2-D mesh, K15, row-major) over one chunk
-    of launches, on the shards' device: int32 (2, 5, n·grid) by launch
-    parity (rows lo0, hi0, lo1, hi1 in each shard's row frame, and whether
-    the stripe computed; stripe i of shard s at s·grid + i), the kernel's
-    row flags (int32[n·h_loc], zero between launches), and the skip count
-    of each shard (int32[n]) and the activity of each stripe
-    (int32[n·grid]) accumulated over the chunk."""
+    of launches, on the shards' device: int32 (2, 10, n·grid) by launch
+    parity (``cuda_adaptive.STATE_FIELDS``: rows lo0, hi0, lo1, hi1 in each
+    shard's row frame, clo, chi in its words, and the change rectangle
+    r8, n8, c128, n128 in chunk units; stripe i of shard s at s·grid + i),
+    the kernel's row flags (int32[n·h_loc], zero between launches) and
+    column extremes (``cuda_adaptive.column_span``), the last launch's
+    route of each stripe (int32[n·grid], ``cuda_adaptive.ROUTE_*``), and
+    the skip count of each shard (int32[n]) and the activity of each
+    stripe (int32[n·grid]) accumulated over the chunk."""
 
     state: torch.Tensor
     rowflag: torch.Tensor
+    colspan: torch.Tensor
+    route: torch.Tensor
     skipped: torch.Tensor
     act: torch.Tensor
 
@@ -1032,7 +1066,8 @@ class MeshState:
         def zeros(*shape):
             return torch.zeros(shape, dtype=torch.int32, device=device)
 
-        return cls(zeros(2, 5, total), zeros(n * h_loc), zeros(n), zeros(total))
+        return cls(zeros(2, len(cuda_adaptive.STATE_FIELDS), total), zeros(n * h_loc),
+                   cuda_adaptive.column_span(total, device), zeros(total), zeros(n), zeros(total))
 
 
 def _check_mega(reads, writes, st: MeshState, plan: AdaptivePlan) -> tuple[int, int]:
@@ -1059,7 +1094,8 @@ def _check_mega(reads, writes, st: MeshState, plan: AdaptivePlan) -> tuple[int, 
         raise ValueError(f"plan {plan} has no frontier form within one stripe of a strip of "
                          f"{h} rows: K14 reads no further than the adjacent strip")
     total = ny * plan.grid(h)
-    if (st.state.shape != (2, 5, total) or st.rowflag.shape != (ny * h,)
+    if (st.state.shape != (2, len(cuda_adaptive.STATE_FIELDS), total)
+            or st.rowflag.shape != (ny * h,)
             or st.skipped.shape != (ny,) or st.act.shape != (total,)):
         raise ValueError(f"mesh state {tuple(st.state.shape)} for {ny} strips of "
                          f"{plan.grid(h)} stripes")
@@ -1068,49 +1104,51 @@ def _check_mega(reads, writes, st: MeshState, plan: AdaptivePlan) -> tuple[int, 
 
 def _strip_mega(reads, writes, st: MeshState, plan: AdaptivePlan, parity: int, first: bool,
                 advance):
-    """One K14 launch's decisions, measure and bookkeeping in PyTorch, each
-    strip's generations from ``advance(e, hit)``: (gen T, gen T + 6) of the
-    strip's rows, from ``e``, the strip with T + 6 rows of the neighbour
-    strips' read buffers a side (the rows of its stripes that do not
-    ``hit`` unused)."""
+    """One K14 launch's decisions, routes, writes and measure in PyTorch,
+    each strip's generations from ``advance(e, cells)``: (gen T, gen T + 6)
+    of the strip's rows, from ``e``, the strip with T + 6 rows of the
+    neighbour strips' read buffers a side, exact on ``cells`` (bool (h, wp):
+    where the launch writes gen T) and on the measure region."""
     ny, h = _check_mega(reads, writes, st, plan)
     sh, grid = plan.stripe_h, plan.grid(h)
+    wp = reads[0].shape[1]
     total = ny * grid
     dev = reads[0].device
-    halo = plan.t + SKIP_PERIOD
+    halo = t6 = plan.t + SKIP_PERIOD
     g = torch.arange(total, device=dev)
     c_lo = g % grid * sh
     c_hi = c_lo + sh - 1
     prev = st.state[1 - parity].to(torch.int64)
     if first:
         hit = torch.ones(total, dtype=torch.bool, device=dev)
-        m_lo, m_hi = c_lo, c_hi
+        union = (c_lo - t6, c_hi + t6, torch.full_like(c_lo, _EMPTY_LO),
+                 torch.full_like(c_lo, -_EMPTY_LO))
     else:
-        ivals = []
+        ivals, cvals = [], []
         for slot in (-1, 0, 1):
             j = g + slot
             # The neighbour's strip less this stripe's, in rows.
             off = (torch.div(j, grid, rounding_mode="floor") - g // grid) * h
             j = torch.remainder(j, total)
             ivals += [(prev[2 * k][j] + off, prev[2 * k + 1][j] + off) for k in (0, 1)]
-        hit, m_lo, m_hi = cuda_adaptive.hit_union(ivals, c_lo, c_hi, plan)
-    copy = ~hit & prev[4].bool()
-    rows = torch.arange(h, device=dev)
-    of = rows // sh
-    outs, hots = [], []
+            cvals.append((prev[4][j], prev[5][j]))
+        hit, *union = cuda_adaptive.hit_union(ivals, cvals, c_lo, c_hi, plan)
+    rt = cuda_adaptive.frontier_routes(hit, *union, c_lo, plan, (h, wp), (0, h))
+    copy = list(cuda_adaptive.rect_region(prev[6:10], plan, (h, wp)))
+    moved = (rt.route == cuda_adaptive.ROUTE_SKIP) | (rt.route == cuda_adaptive.ROUTE_TIER)
+    copy[1] = torch.where(moved, copy[1], copy[0])
+    intervals = []
     for s, local in enumerate(reads):
         mine = slice(s * grid, (s + 1) * grid)
+        masks = cuda_adaptive.routed_masks(rt.part(mine), [c[mine] for c in copy], h, wp, sh)
         e = torch.cat([reads[(s - 1) % ny][h - halo :], local, reads[(s + 1) % ny][:halo]])
-        g_t, g_t6 = advance(e, hit[mine])
-        hit_s = hit[mine][of]
-        hots.append(((g_t6 != g_t).any(dim=1) & hit_s & (rows >= m_lo[mine][of])
-                     & (rows <= m_hi[mine][of])).view(grid, sh))
-        outs.append(torch.where(hit_s[:, None], g_t,
-                                torch.where(copy[mine][of, None], local, writes[s])))
-    intervals = cuda_adaptive.measure2(torch.cat(hots), rows.view(grid, sh).repeat(ny, 1))
-    for w, o in zip(writes, outs):
-        w.copy_(o)
-    st.state[parity].copy_(torch.cat([intervals, hit[None].to(intervals.dtype)]))
+        g_t, g_t6 = advance(e, masks[0] & masks[1])
+        out, part = cuda_adaptive.routed_launch(local, writes[s], g_t, g_t6, masks, sh)
+        writes[s].copy_(out)
+        intervals.append(part)
+    intervals = torch.cat(intervals, dim=1)
+    st.state[parity].copy_(torch.cat([intervals, rt.rect]))
+    st.route.copy_(rt.route)
     st.skipped += (~hit).view(ny, grid).sum(dim=1).to(torch.int32)
     st.act += (intervals[0] <= intervals[1]).to(torch.int32)
     return writes
@@ -1121,19 +1159,22 @@ def strip_mega_launch_plain(reads, writes, st: MeshState, rule: LifeRule, plan: 
     """Plain version of K14 (one launch of ``_kernel_frontier_mega_strip``
     over every strip of a row mesh, ``reads`` top to bottom): stripe i of
     strip s decides with ``_hit_union`` over the previous parity's row
-    intervals of stripes i - 1, i and i + 1, read straight from the shared
-    state (past the strip's edge the neighbour strip's edge stripe, moved
-    by -/+ h_loc into this strip's frame), or with ``first`` (launch 0 of a
-    chunk) hits with the maximal union; a stripe that hits computes T
-    generations of its window (the strip with T + 6 rows of the
-    neighbour strips' read buffers) and measures gen T + 6 against gen T
-    on its measure rows (``_measure2``); one that does not copies its
-    input into ``writes[s]`` if it computed last launch.  Writes
-    ``writes`` and ``st.state[parity]``, adds to ``st.skipped`` and
-    ``st.act``; returns ``writes``."""
+    and column intervals of stripes i - 1, i and i + 1, read straight from
+    the shared state (past the strip's edge the neighbour strip's edge
+    stripe, its rows moved by -/+ h_loc into this strip's frame), or with
+    ``first`` (launch 0 of a chunk) hits with the maximal union; a stripe
+    that hits takes its route (``cuda_adaptive.frontier_routes``: the
+    rectangle route where its column window lies inside the strip, else
+    the row tier or the full window, on the strip with T + 6 rows of the
+    neighbour strips' read buffers a side), writes its change rectangle
+    and its previous one as ``_kernel_frontier_mega_strip`` does, and
+    measures gen T + 6 against gen T on its measure region
+    (``_measure2``); one that does not copies its previous change
+    rectangle.  Writes ``writes``, ``st.state[parity]`` and ``st.route``,
+    adds to ``st.skipped`` and ``st.act``; returns ``writes``."""
     halo, h = plan.t + SKIP_PERIOD, reads[0].shape[0]
 
-    def advance(e, _hit):
+    def advance(e, _cells):
         g_t = packed.superstep(e, rule, plan.t)
         return g_t[halo : halo + h], packed.superstep(g_t, rule, SKIP_PERIOD)[halo : halo + h]
 
@@ -1154,8 +1195,9 @@ def strip_mega_launch_mirror(reads, writes, st: MeshState, rule: LifeRule, plan:
     _check_frontier_blocks(blocks, plan, (h, wp))
     cols = torch.remainder(torch.arange(blocks.grid[1] * blocks.centre + 2) - 1, wp)
 
-    def advance(e, hit):
-        return _frontier_blocks(e[:, cols.to(e.device)], rule, blocks, plan.t, (h, wp), hit)
+    def advance(e, cells):
+        return _frontier_blocks(e[:, cols.to(e.device)], rule, blocks, plan.t, (h, wp),
+                                cuda_adaptive._block_mask(cells, blocks))
 
     return _strip_mega(reads, writes, st, plan, parity, first, advance)
 
@@ -1176,15 +1218,18 @@ def _k14(sets, rule: LifeRule, plan: AdaptivePlan):
                         dtype=torch.int64).pin_memory().to(like.device, non_blocking=True)
     row = {tuple(t.data_ptr() for t in bufs): tab for bufs, tab in zip(sets, tabs)}
     blocks = frontier_blocks((h, wp), plan, ny, device_sms(like.device))
-    lib, launch = _reg_launcher("frontier", "gol_strip_mega_launch", 6, 11)
+    sub_rows, col_window = cuda_adaptive.frontier_geometry(plan, (h, wp))
+    lib, launch = _reg_launcher("frontier", "gol_strip_mega_launch", 8, 13)
     born, surv, variant = reg_rule(rule)
     stream = _stream(like)
 
     def k14(reads, writes, st: MeshState, parity: int, first: bool) -> None:
         rd, wr = (row[tuple(t.data_ptr() for t in bufs)].data_ptr() for bufs in (reads, writes))
-        err = launch(rd, wr, st.state.data_ptr(), st.rowflag.data_ptr(), st.skipped.data_ptr(),
-                     st.act.data_ptr(), len(reads), h, wp, plan.t, plan.stripe_h, blocks.tile_h,
-                     blocks.warps, plan.pad_f, parity, int(first), variant, born, surv, stream)
+        err = launch(rd, wr, st.state.data_ptr(), st.rowflag.data_ptr(), st.colspan.data_ptr(),
+                     st.skipped.data_ptr(), st.act.data_ptr(), st.route.data_ptr(), len(reads), h,
+                     wp, plan.t, plan.stripe_h, blocks.tile_h, blocks.warps, plan.pad_f,
+                     sub_rows or 0, col_window or 0, parity, int(first), variant, born, surv,
+                     stream)
         cuda_build.check(lib, err, "strip_mega")
         strip_mega_launch.launches += 1
         strip_mega_launch.rules[REG_RULES[variant]] += 1
@@ -1278,7 +1323,8 @@ def _check_tile_mega(reads, writes, st: MeshState, plan: AdaptivePlan) -> tuple[
         raise ValueError(f"plan {plan} has no frontier form within one stripe and one tile of "
                          f"{h}x{wpl} words: K15 reads no further than the adjacent tiles")
     total = ny * nx * plan.grid(h)
-    if (st.state.shape != (2, 5, total) or st.rowflag.shape != (ny * nx * h,)
+    if (st.state.shape != (2, len(cuda_adaptive.STATE_FIELDS), total)
+            or st.rowflag.shape != (ny * nx * h,)
             or st.skipped.shape != (ny * nx,) or st.act.shape != (total,)):
         raise ValueError(f"mesh state {tuple(st.state.shape)} for {ny}x{nx} tiles of "
                          f"{plan.grid(h)} stripes")
@@ -1312,6 +1358,7 @@ def _tile_mega(reads, writes, st: MeshState, plan: AdaptivePlan, parity: int, fi
     sh, grid = plan.stripe_h, plan.grid(h)
     total = ny * nx * grid
     dev = reads[0][0].device
+    t6 = plan.t + SKIP_PERIOD
     g = torch.arange(total, device=dev)
     v, i = g // grid, g % grid
     dy, dx = v // nx, v % nx
@@ -1326,30 +1373,41 @@ def _tile_mega(reads, writes, st: MeshState, plan: AdaptivePlan, parity: int, fi
             at = (((dy + shift) % ny) * nx + tx) * grid + torch.remainder(j, grid)
             ivals += [(prev[2 * k][at] + shift * h, prev[2 * k + 1][at] + shift * h)
                       for k in (0, 1)]
-    hit, m_lo, m_hi = cuda_adaptive.hit_union(ivals, c_lo, c_hi, plan)
+    hit, u_lo, u_hi, _, _ = cuda_adaptive.hit_union(ivals, [], c_lo, c_hi, plan)
     edge = (i == 0) | (i == grid - 1)
     elided = edge & ~hit if elide and not first else torch.zeros_like(edge)
     forced = edge | first
     counted = hit | forced
     computes = counted & ~elided
-    m_lo, m_hi = torch.where(forced, c_lo, m_lo), torch.where(forced, c_hi, m_hi)
-    copy = ~computes & prev[4].bool()
-    rows = torch.arange(h, device=dev)
-    of = rows // sh
-    outs, hots = [], []
+    m_lo = torch.where(forced, c_lo, torch.maximum(u_lo - t6, c_lo))
+    m_hi = torch.where(forced, c_hi, torch.minimum(u_hi + t6, c_hi))
+    # No tiers: a stripe that computes writes and publishes its whole
+    # centre, measured at its full width in the tile's own words.
+    zero = torch.zeros_like(c_lo)
+    route = torch.where(~counted, cuda_adaptive.ROUTE_SKIP, torch.where(
+        elided, cuda_adaptive.ROUTE_ELIDED, cuda_adaptive.ROUTE_FULL))
+    rt = cuda_adaptive.Routes(
+        route=route, m_lo=m_lo, m_hi=m_hi, v_lo=c_lo, v_hi=c_lo + sh, vc_lo=zero,
+        vc_hi=zero + wpl, w_lo=torch.where(computes, c_lo, zero),
+        w_hi=torch.where(computes, c_lo + sh, zero), wc_lo=zero, wc_hi=zero + wpl,
+        rect=torch.where(counted, torch.stack([c_lo // 8, zero + sh // 8, zero,
+                                               zero + wpl // 128]), zero))
+    moved = ~computes & (prev[7] > 0)
+    copy = (c_lo, torch.where(moved, c_lo + sh, c_lo), zero, zero + wpl)
+    intervals = []
     for ty in range(ny):
         for tx in range(nx):
             mine = slice((ty * nx + tx) * grid, (ty * nx + tx + 1) * grid)
+            masks = cuda_adaptive.routed_masks(rt.part(mine), [c[mine] for c in copy], h, wpl,
+                                               sh)
             g_t, g_t6 = advance(ty, tx, computes[mine])
-            comp = computes[mine][of]
-            hots.append(((g_t6 != g_t).any(dim=1) & comp & (rows >= m_lo[mine][of])
-                         & (rows <= m_hi[mine][of])).view(grid, sh))
-            outs.append(torch.where(comp[:, None], g_t, torch.where(
-                copy[mine][of, None], reads[ty][tx], writes[ty][tx])))
-    intervals = cuda_adaptive.measure2(torch.cat(hots), rows.view(grid, sh).repeat(ny * nx, 1))
-    for w, o in zip((t for r in writes for t in r), outs):
-        w.copy_(o)
-    st.state[parity].copy_(torch.cat([intervals, counted[None].to(intervals.dtype)]))
+            out, part = cuda_adaptive.routed_launch(reads[ty][tx], writes[ty][tx], g_t, g_t6,
+                                                    masks, sh)
+            writes[ty][tx].copy_(out)
+            intervals.append(part)
+    intervals = torch.cat(intervals, dim=1)
+    st.state[parity].copy_(torch.cat([intervals, rt.rect]))
+    st.route.copy_(rt.route)
     st.skipped += (~counted).view(ny * nx, grid).sum(dim=1).to(torch.int32)
     st.act += (intervals[0] <= intervals[1]).to(torch.int32)
     return elided
@@ -1367,11 +1425,12 @@ def tile_mega_launch_plain(reads, writes, st: MeshState, rule: LifeRule, plan: A
     with the maximal union, as the JAX kernel forces them.  A stripe that
     hits computes T generations of its window (the tile with T + 6 rows
     and ceil((T + 6) / 32) words of the neighbour tiles' read buffers,
-    corners included) and measures gen T + 6 against gen T on its measure
-    rows (``_measure2``); one that does not copies its input into
-    ``writes`` if it computed last launch.  Writes ``writes`` and
-    ``st.state[parity]``, adds to ``st.skipped`` and ``st.act``; returns
-    ``writes``."""
+    corners included), writes and publishes its whole centre (K15 has no
+    tiers) and measures gen T + 6 against gen T on its measure rows
+    (``_measure2``; the column interval in the tile's own words); one that
+    does not copies its previous change rectangle.  Writes ``writes``,
+    ``st.state[parity]`` and ``st.route``, adds to ``st.skipped`` and
+    ``st.act``; returns ``writes``."""
     halo = plan.t + SKIP_PERIOD
     xw = -(-halo // WORD)
     h, wpl = reads[0][0].shape
@@ -1439,14 +1498,15 @@ def _k15(sets, rule: LifeRule, plan: AdaptivePlan):
                         dtype=torch.int64).pin_memory().to(like.device, non_blocking=True)
     row = {key(bufs): tab for bufs, tab in zip(sets, tabs)}
     blocks = frontier_blocks((h, wpl), plan, ny * nx, device_sms(like.device))
-    lib, launch = _reg_launcher("frontier", "gol_tile_mega_launch", 6, 12)
+    lib, launch = _reg_launcher("frontier", "gol_tile_mega_launch", 8, 12)
     born, surv, variant = reg_rule(rule)
     stream = _stream(like)
 
     def k15(reads, writes, st: MeshState, parity: int, first: bool) -> None:
         rd, wr = (row[key(bufs)].data_ptr() for bufs in (reads, writes))
-        err = launch(rd, wr, st.state.data_ptr(), st.rowflag.data_ptr(), st.skipped.data_ptr(),
-                     st.act.data_ptr(), ny, nx, h, wpl, plan.t, plan.stripe_h, blocks.tile_h,
+        err = launch(rd, wr, st.state.data_ptr(), st.rowflag.data_ptr(), st.colspan.data_ptr(),
+                     st.skipped.data_ptr(), st.act.data_ptr(), st.route.data_ptr(), ny, nx, h,
+                     wpl, plan.t, plan.stripe_h, blocks.tile_h,
                      blocks.warps, plan.pad_f, parity, int(first), variant, born, surv, stream)
         cuda_build.check(lib, err, "tile_mega")
         tile_mega_launch.launches += 1
@@ -1546,15 +1606,18 @@ def edge_flags(flags: list[torch.Tensor], span=None) -> list[torch.Tensor]:
 
 
 def edge_intervals(states: list[torch.Tensor], h_loc: int, span=None) -> list[torch.Tensor]:
-    """The interval exchange of K12: each strip's row intervals (rows 0-3
-    of its (5, grid) state) extended with its north neighbour's last
-    stripe, shifted by -h_loc into this strip's row frame, and its south
-    neighbour's first, shifted by +h_loc (int32[4][grid + 2];
-    ``halo.neighbour_edges``, ``span`` for a process-spanning mesh).  An
-    empty interval (lo > hi) stays empty: both ends move by the same
-    offset."""
-    edges = neighbour_edges(states, lambda s: s[:4, -1:], lambda s: s[:4, :1], span)
-    return [torch.cat([north.to(s.device) - h_loc, s[:4], south.to(s.device) + h_loc], dim=1)
+    """The interval exchange of K12: each strip's interval state (rows 0-5
+    of its (7, grid) state: the row intervals, then the column interval)
+    extended with its north neighbour's last stripe, its rows shifted by
+    -h_loc into this strip's row frame, and its south neighbour's first,
+    its rows shifted by +h_loc (int32[6][grid + 2]; the column intervals
+    are board words and cross unshifted; ``halo.neighbour_edges``,
+    ``span`` for a process-spanning mesh).  An empty interval (lo > hi)
+    stays empty: both ends move by the same offset."""
+    edges = neighbour_edges(states, lambda s: s[:6, -1:], lambda s: s[:6, :1], span)
+    shift = torch.tensor([[1], [1], [1], [1], [0], [0]], dtype=torch.int32) * h_loc
+    return [torch.cat([north.to(s.device) - shift.to(s.device), s[:6],
+                       south.to(s.device) + shift.to(s.device)], dim=1)
             for s, (north, south) in zip(states, edges)]
 
 
@@ -1600,7 +1663,7 @@ def frontier_launches(strips, rule, plan, nlaunch, launch=None, span=None):
     ``launch`` replaces the wrapper (:func:`strip_frontier_launch_plain`)."""
     launch = launch or strip_frontier_launch
     h_loc = strips[0].shape[0]
-    states = [FrontierState.start(h_loc, plan, t.device) for t in strips]
+    states = [FrontierState.start(tuple(t.shape), plan, t.device) for t in strips]
     bufs = [(torch.empty_like(t), torch.empty_like(t)) for t in strips]
     for k in range(nlaunch):
         rows = edge_rows(strips, plan.pad_f, span)

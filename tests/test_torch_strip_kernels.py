@@ -7,10 +7,9 @@ them for its ``make_superstep``: ``_build_ext_launch(..., skip_stable=True)`` (`
 form), ``_build_ext_launch_adaptive`` (``_ext_kernel_adaptive``) and
 ``_build_ext_launch_frontier`` (``_ext_kernel_frontier``).  Both get the
 same seeded strip, neighbour rows, bitmaps or interval arrays and the
-same buffer of two launches ago; boards, bitmaps and row intervals must
-be equal, tolerance 0.  K12 keeps no column interval: its JAX counterpart
-is fed the column intervals its own previous launch measured, and the
-boards, skip flags and row intervals still agree.  The block mirrors of
+same buffer of two launches ago; boards, bitmaps and all six interval
+arrays (K12's row and column intervals) must be equal, tolerance 0.  The
+block mirrors of
 K10, K11 and K12 (``ext_skip_launch_mirror``,
 ``strip_probing_launch_mirror``, ``strip_frontier_launch_mirror``: the
 register-resident blocks, runs and light cone of the kernels) are held to
@@ -447,11 +446,10 @@ EMPTY = cuda_adaptive._EMPTY_LO
 def k12_both(ref, rule, local, north, south, dst, ps, jivals, plan, tile_cap,
              launch=cuda_halo.strip_frontier_launch):
     """One K12 launch in both packages from the JAX interval arrays
-    ``jivals`` (six int32[grid + 2]: lo0, hi0, lo1, hi1, clo, chi); the
-    port gets the four row arrays, through ``launch`` (the wrapper, whose
-    CPU path is the plain version, or the mirror).  Returns the JAX
-    outputs (board, st, six interval arrays) and the port's (board,
-    state)."""
+    ``jivals`` (six int32[grid + 2]: lo0, hi0, lo1, hi1, clo, chi), the
+    port's through ``launch`` (the wrapper, whose CPU path is the plain
+    version, or the mirror).  Returns the JAX outputs (board, st, six
+    interval arrays) and the port's (board, state)."""
     jnp = ref.jnp
     call = ref.ph._build_ext_launch_frontier(local.shape, ref.life.RULES[rule], plan.t, True,
                                              tile_cap)
@@ -459,9 +457,9 @@ def k12_both(ref, rule, local, north, south, dst, ps, jivals, plan, tile_cap,
                jnp.asarray(local), jnp.asarray(north), jnp.asarray(south), jnp.asarray(dst))
     out = [np.asarray(o) for o in out]
     grid = plan.grid(local.shape[0])
-    state = cuda_halo.FrontierState.start(local.shape[0], plan, "cpu")
-    state.prev[4] = torch.from_numpy(1 - ps.astype(np.int32))
-    prev_ext = torch.from_numpy(np.stack(jivals[:4]).astype(np.int32))
+    state = cuda_halo.FrontierState.start(local.shape, plan, "cpu")
+    state.prev[6] = torch.from_numpy(1 - ps.astype(np.int32))
+    prev_ext = torch.from_numpy(np.stack(jivals).astype(np.int32))
     got = launch(t32(local), t32(north), t32(south), t32(dst), prev_ext, state,
                  tlife.RULES[rule], plan)
     assert state.act.shape == (grid,)
@@ -479,8 +477,8 @@ def full_intervals(grid: int, stripe: int, wp: int, h_loc: int) -> list:
 def assert_k12_equal(out, tb, state):
     jb, jst = out[0], out[1]
     assert np.array_equal(tb, jb)
-    assert np.array_equal(1 - state.cur[4].numpy(), jst)
-    assert np.array_equal(state.cur[:4].numpy(), np.stack(out[2:6]))
+    assert np.array_equal(1 - state.cur[6].numpy(), jst)
+    assert np.array_equal(state.cur[:6].numpy(), np.stack(out[2:8]))
 
 
 def k12_two_launches(ref, rule, kind, strip, turns, launch=cuda_halo.strip_frontier_launch):
@@ -541,14 +539,14 @@ def k12_sequence(launch, local, north, south, plan, rule, n: int, device="cpu"):
     both neighbours' edge stripes the strip's own), from full intervals:
     each launch's (strip, state), then the skip count and activity."""
     h_loc = local.shape[0]
-    state = cuda_halo.FrontierState.start(h_loc, plan, device)
+    state = cuda_halo.FrontierState.start(tuple(local.shape), plan, device)
     bufs = [torch.zeros_like(local).to(device), torch.zeros_like(local).to(device)]
     cur, n_, s_ = local.to(device), north.to(device), south.to(device)
     seen = []
     for k in range(n):
         ext = cuda_halo.edge_intervals([state.prev], h_loc)[0]
         cur = launch(cur, n_, s_, bufs[k % 2], ext, state, rule, plan)
-        seen.append((cur.cpu().clone(), state.cur.cpu().clone()))
+        seen.append((cur.cpu().clone(), state.cur.cpu().clone(), state.route.cpu().clone()))
         state.advance()
     return seen, state.skipped.cpu(), state.act.cpu()
 
@@ -574,8 +572,8 @@ def test_k12_mirror_matches_plain_over_four_launches(rule, kind, plan):
         plain = k12_sequence(cuda_halo.strip_frontier_launch_plain, local, north, south, plan, r, 4)
         mirror = k12_sequence(cuda_halo.strip_frontier_launch_mirror, local, north, south, plan,
                               r, 4)
-        for (a, sa), (b, sb) in zip(plain[0], mirror[0]):
-            assert torch.equal(a, b) and torch.equal(sa, sb)
+        for (a, sa, ra), (b, sb, rb) in zip(plain[0], mirror[0]):
+            assert torch.equal(a, b) and torch.equal(sa, sb) and torch.equal(ra, rb)
         assert torch.equal(plain[1], mirror[1]) and torch.equal(plain[2], mirror[2])
 
 
@@ -604,12 +602,17 @@ def test_k12_empty_intervals_stay_empty(ref, case):
 @pytest.mark.parametrize("kind", ["glider_north", "soup"])
 def test_k12_without_the_column_interval_on_the_column_tier(ref, kind):
     """512 words wide: the JAX kernel's column tier (a 256-word window)
-    engages from its column intervals; the port, which keeps none, gives
-    the same board, skip flags and row intervals over two launches."""
+    engages from its column intervals, and so does the port's, which now
+    carries them: over two launches (the second from the intervals each
+    package measured in the first, the exchange's edge entries empty) the
+    board, the skip flags and all six interval arrays, the column
+    interval (clo, chi) included, equal ``_ext_kernel_frontier``'s, and
+    the second launch takes the column tier somewhere."""
     strip, turns, tile_cap = (512, 512), 18, 256
     tile_h = ref.ph._strip_plan_tile(strip, turns, tile_cap)
     assert ref.ph._frontier_plan(strip, turns, tile_cap)[2] == 256
     plan = cuda_adaptive.AdaptivePlan(turns, tile_h, True)
+    assert cuda_adaptive.frontier_geometry(plan, strip) == (168, 256)
     col = column("ash", 24, 512, 512 * 32, tile_h)
     if kind == "soup":
         _put(col, np.random.default_rng(3).random((40, 40)) < 0.35, 300, 9000)
@@ -627,6 +630,7 @@ def test_k12_without_the_column_interval_on_the_column_tier(ref, kind):
     out2, tb2, state2 = k12_both(ref, "conway", out[0], north, south, local, out[1], jivals, plan,
                                  tile_cap)
     assert_k12_equal(out2, tb2, state2)
+    assert cuda_adaptive.ROUTE_TIER in state2.route.tolist()
 
 
 # -- the exchange --------------------------------------------------------------------
@@ -634,21 +638,24 @@ def test_k12_without_the_column_interval_on_the_column_tier(ref, kind):
 
 def test_interval_exchange_shifts_into_the_strip_frame_and_keeps_empty_empty():
     """(2, 1): both neighbours are the other strip, each side its own
-    edge stripe; rows shift by -/+ h_loc, and an empty interval (lo > hi)
-    stays empty."""
-    s0 = torch.tensor([[0, 10], [5, 12], [EMPTY, EMPTY], [-1, -1], [1, 1]], dtype=torch.int32)
-    s1 = torch.tensor([[EMPTY, 3], [-1, 7], [EMPTY, EMPTY], [-1, -1], [0, 1]], dtype=torch.int32)
+    edge stripe; rows shift by -/+ h_loc, column intervals (board words)
+    cross unshifted, and an empty interval (lo > hi) stays empty."""
+    s0 = torch.tensor([[0, 10], [5, 12], [EMPTY, EMPTY], [-1, -1], [3, 40], [9, 41], [1, 1]],
+                      dtype=torch.int32)
+    s1 = torch.tensor([[EMPTY, 3], [-1, 7], [EMPTY, EMPTY], [-1, -1], [EMPTY, 0], [-1, 63],
+                       [0, 1]], dtype=torch.int32)
     ext = cuda_halo.edge_intervals([s0, s1], 16)
-    assert ext[0][:, 0].tolist() == [3 - 16, 7 - 16, EMPTY - 16, -17]
-    assert ext[0][:, -1].tolist() == [EMPTY + 16, -1 + 16, EMPTY + 16, 15]
-    assert ext[1][:, 0].tolist() == [10 - 16, 12 - 16, EMPTY - 16, -17]
-    assert ext[1][:, -1].tolist() == [16, 21, EMPTY + 16, 15]
+    assert ext[0][:, 0].tolist() == [3 - 16, 7 - 16, EMPTY - 16, -17, 0, 63]
+    assert ext[0][:, -1].tolist() == [EMPTY + 16, -1 + 16, EMPTY + 16, 15, EMPTY, -1]
+    assert ext[1][:, 0].tolist() == [10 - 16, 12 - 16, EMPTY - 16, -17, 40, 41]
+    assert ext[1][:, -1].tolist() == [16, 21, EMPTY + 16, 15, 3, 9]
     for src, e in ((s0, ext[0]), (s1, ext[1])):
-        assert torch.equal(e[:, 1:-1], src[:4])
+        assert torch.equal(e[:, 1:-1], src[:6])
     for e in ext:
-        empty = e[0::2] > e[1::2]
+        empty = e[0:4:2] > e[1:4:2]
         assert empty[1].all()  # every interval 1 above is empty
     assert bool(ext[0][0, -1] > ext[0][1, -1])  # s1's empty first stripe, shifted
+    assert bool(ext[0][4, -1] > ext[0][5, -1])  # and its empty column interval
 
 
 def test_flag_and_row_exchange_on_two_strips():
@@ -751,8 +758,8 @@ def test_gpu_k12_matches_plain_launch_by_launch(cuda_device, rule, kind, plan):
         want = k12_sequence(cuda_halo.strip_frontier_launch, local, north, south, plan, r, 4)
         got = k12_sequence(cuda_halo.strip_frontier_launch, local, north, south, plan, r, 4,
                            cuda_device)
-        for (a, sa), (b, sb) in zip(got[0], want[0]):
-            assert torch.equal(a, b) and torch.equal(sa, sb)
+        for (a, sa, ra), (b, sb, rb) in zip(got[0], want[0]):
+            assert torch.equal(a, b) and torch.equal(sa, sb) and torch.equal(ra, rb)
         assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
 
 
@@ -764,7 +771,7 @@ def test_gpu_k12_matches_plain_over_three_launches(cuda_device, kind):
     north, local, south = split(pack_words(column(kind, 32, h_loc, 2048, 64)), 32)
     results = []
     for dev in ("cpu", cuda_device):
-        state = cuda_halo.FrontierState.start(h_loc, plan, dev)
+        state = cuda_halo.FrontierState.start(tuple(local.shape), plan, dev)
         bufs = [torch.zeros_like(t32(local)).to(dev), torch.zeros_like(t32(local)).to(dev)]
         cur = t32(local).to(dev)
         n, s = t32(north).to(dev), t32(south).to(dev)

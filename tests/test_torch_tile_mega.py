@@ -349,8 +349,9 @@ MIRROR_CASES = [(rule, mesh_shape) for rule in ("conway", "highlife")
                          ids=[f"{r}-{m[0]}x{m[1]}" for r, m in MIRROR_CASES])
 def test_mirror_matches_plain_launch_by_launch(monkeypatch, rule, mesh_shape, kind, plan):
     """K15's mirror against the plain version over an 8-launch chunk of
-    128 x 4-word tiles, launch by launch: tiles, the whole state (row
-    intervals and computed flags), skip counts and activity, tolerance 0,
+    128 x 4-word tiles, launch by launch: tiles, the whole state (row and
+    column intervals and change rectangles), skip counts and activity,
+    tolerance 0,
     under both compiled-in rules and one that takes the generic
     instantiation."""
     r = tlife.RULES[rule]

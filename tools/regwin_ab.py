@@ -1,7 +1,7 @@
 """Time K1-K4, K6, K7, K9-K11, K13 and the frontier kernels of a checkout of the PyTorch port on one CUDA card.
 
     python3 tools/regwin_ab.py [--root DIR] [--label NAME] [--out FILE] [--paths [--path NAME ...]]
-                               [--trace-long]
+                               [--trace-long] [--frontier]
                                [--sweep | --sweep-frontier | --sweep-k2-k7 | --sweep-k3-k4]
 
 Imports ``distributed_gol_torch`` from ``--root`` (default: the checkout
@@ -24,7 +24,9 @@ the tile tier's own sequence of 8 launches a tile.  Where a launch is
 shorter than its wrapper's host time, back-to-back batches time the host;
 ``device_ms`` is the kernel's own time from ``torch.profiler`` (20
 launches).  The frontier kernels through the wrappers every slice
-shares, at the port's plan, fresh and settled (``frontier_cases``): K15
+shares, at the port's plan, fresh, settled and sparse (``frontier_cases``;
+the sparse boards are ``distributed_gol_torch/testing/boards.py`` of this
+script's checkout, ``sparse_boards``): K15
 (``cuda_halo.tile_mega_launches``) over the same (2, 2) tiles, K12
 (``cuda_halo.strip_frontier_launch``, driven by
 ``cuda_halo.frontier_launches`` with its exchange) and K14
@@ -33,7 +35,8 @@ shares, at the port's plan, fresh and settled (``frontier_cases``): K15
 chunk or sequence of 64 launches, and K8
 (``frontier_superstep_batched``) on serving path (c)'s stack of four
 4096² soups (seeds 51-54; settled: each after 100,000 generations of
-K2), chunks of 8: the median and spread of 5 event-timed batches per
+K2) and on the sparse stack (a 4096 x 16384 board beside a dead one),
+chunks of 8: the median and spread of 5 event-timed batches per
 launch (the host's calls and, for K12, the exchange included), each
 kernel's device ms per launch from ``torch.profiler`` (the frontier
 kernel and its finalize apart), and the SASS of their loops
@@ -65,6 +68,7 @@ weigh (``sweep_k3_k4``), on a checkout that has those plans;
 ``--trace-long`` traces the one-device 16384² x 100,000 run
 (``chip_smoke.profile_run`` of the checkout: K5, K4, K3 and K2 launch by
 launch).
+``--frontier`` times the frontier kernels and their SASS alone.
 ``--sweep-frontier`` times each frontier
 kernel at every row tile its plan weighs; ``--sweep`` also times K1 at
 512² at each cluster size its plan weighs (the cheapest plan of each; the
@@ -98,6 +102,8 @@ import torch
 
 BIG = 16384
 BATCHES = 5
+# K8's sparse stack (``sparse_boards``): these slots of ``sparse_board``.
+K8_SPARSE = ("mid", "spark", "two_columns", "two_rows")
 
 
 def spread(per: list) -> dict:
@@ -193,15 +199,14 @@ def frontier_cases(cuda_adaptive, cuda_halo, shards, boards, pods, rule):
     covers, a call of 64 launches (K8: 8), launches a call, profiler
     tests).  K15 over the (2, 2) tiles, K12 on the (4, 1) strips (a call is
     64 rounds of 4 strip launches with the exchange), K5 on the whole
-    board, K14 over the (4, 1) strips, K8 on pod (c)'s stacks."""
+    board, K14 over the (4, 1) strips, K8 on pod (c)'s stacks and on the
+    sparse stack, each at its own plan."""
     out = []
     tile = (BIG // 2, BIG // 64)
     strip = (BIG // 4, BIG // 32)
-    pod = (POD_C[1], POD_C[1] // 32)
     plan15 = cuda_halo.adaptive_tile_plan(tile, 10**6)[0]
     plan12 = plan14 = cuda_halo.adaptive_strip_plan(strip, 10**6)
     plan5 = cuda_adaptive.adaptive_plan((BIG, BIG // 32), 10**6)
-    plan8 = cuda_adaptive.adaptive_plan(pod, 10**6)
     for name, p in boards.items():
         tiles = shards(p, (2, 2)).shards
         strips = [row[0] for row in shards(p, (4, 1)).shards]
@@ -216,10 +221,32 @@ def frontier_cases(cuda_adaptive, cuda_halo, shards, boards, pods, rule):
                 strips, rule, plan14, 64), 64, kernels("strip_mega_reg_kernel", "strip_mega_kernel")),
         ]
     for name, st in pods.items():
-        out.append((f"k8_{name}", plan8, pod, POD_C[0], lambda st=st:
-                    cuda_adaptive.frontier_superstep_batched(st, rule, plan8, 8), 8,
+        plan = cuda_adaptive.adaptive_plan(tuple(st.shape[1:]), 10**6)
+        out.append((f"k8_{name}", plan, tuple(st.shape[1:]), st.shape[0], lambda st=st, plan=plan:
+                    cuda_adaptive.frontier_superstep_batched(st, rule, plan, 8), 8,
                     kernels("frontier_reg_kernel", "frontier_kernel")))
     return out
+
+
+def sparse_boards(packed, dev):
+    """``distributed_gol_torch/testing/boards.py::sparse_board`` of this
+    script's checkout (loaded by path, so a parent checkout that lacks it
+    is timed on the same boards), packed on ``dev``: the 16384² board of
+    all its slots, and K8's stack of a 4096 x 16384 board of four slots
+    beside a dead one."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parents[1] / "distributed_gol_torch" / "testing" / "boards.py"
+    spec = importlib.util.spec_from_file_location("sparse_boards", path)
+    boards = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(boards)
+
+    def pack(b):
+        return packed.pack(torch.from_numpy(b).to(dev))
+
+    stack = pack(boards.sparse_board(POD_C[1], BIG, 256, K8_SPARSE))
+    return (pack(boards.sparse_board(BIG, BIG, 256)),
+            torch.stack([stack, torch.zeros_like(stack)]).contiguous())
 
 
 def time_frontier(cases) -> dict:
@@ -947,6 +974,9 @@ def main() -> int:
                     help="with --paths, time only this path (frames_x500, g_4x1_cap16_x2000, "
                          "e_4x1_x100000, one_device_x2000, one_device_x100000, pod_a); may "
                          "repeat")
+    ap.add_argument("--frontier", action="store_true",
+                    help="time only the frontier kernels (K5, K8, K12, K14, K15), fresh, "
+                         "settled and sparse, and their SASS")
     ap.add_argument("--sweep-frontier", action="store_true",
                     help="also time K15, K12, K5, K14 and K8 at every block height their "
                          "plan weighs")
@@ -981,10 +1011,13 @@ def main() -> int:
 
     out = dict(label=args.label, root=str(root), card=card, k9={}, k13={})
     big = soup(BIG, BIG, 7)
-    cases = [("4x1", big, (4, 1), (32, 18, 5)), ("2x2", big, (2, 2), (32, 18, 5)),
-             ("c_8x1_512", soup(512, 512, 7), (8, 1), (32,)),
-             ("f_8x1_520x512", soup(520, 512, 7), (8, 1), (5,)),
-             ("i_4x2_520x1024", soup(520, 1024, 7), (4, 2), (5,))]
+    if args.frontier:
+        cases = []
+    else:
+        cases = [("4x1", big, (4, 1), (32, 18, 5)), ("2x2", big, (2, 2), (32, 18, 5)),
+                 ("c_8x1_512", soup(512, 512, 7), (8, 1), (32,)),
+                 ("f_8x1_520x512", soup(520, 512, 7), (8, 1), (5,)),
+                 ("i_4x2_520x1024", soup(520, 1024, 7), (4, 2), (5,))]
     for name, p, mesh_shape, depths in cases:
         sb = shards(p, mesh_shape)
         for t in depths:
@@ -1007,7 +1040,7 @@ def main() -> int:
         settled_path.parent.mkdir(parents=True, exist_ok=True)
         torch.save(settled.cpu(), settled_path)
     boards = {"fresh": soup(BIG, BIG, 13), "settled": settled}
-    for mesh_shape, cap in (((2, 2), 0), ((2, 4), 16)):
+    for mesh_shape, cap in (() if args.frontier else (((2, 2), 0), ((2, 4), 16))):
         tile = (BIG // mesh_shape[0], BIG // 32 // mesh_shape[1])
         plan, xpad = cuda_halo.adaptive_tile_plan(tile, 10**6, cap)
         for name, p in boards.items():
@@ -1049,9 +1082,17 @@ def main() -> int:
         pods["settled"] = torch.stack([cuda_packed.tiled_superstep(b.contiguous(), CONWAY, 100_000)
                                        for b in pods["fresh"]])
         torch.save(pods["settled"].cpu(), pod_path)
+    boards["sparse"], pods["sparse"] = sparse_boards(packed, dev)
     frontier = frontier_cases(cuda_adaptive, cuda_halo, shards, boards, pods, CONWAY)
     out["frontier"] = time_frontier(frontier)
     out["frontier_sass"] = frontier_sass(cuda_build)
+    if args.frontier:
+        out["seconds"] = time.perf_counter() - t0
+        print(json.dumps(out))
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(out) + "\n")
+        return 0
     out["k1"] = time_k1(cuda_packed, packed, soup, CONWAY)
     k10 = k10_cases(halo, shards, big, boards, soup)
     out["k10"] = time_k10(cuda_halo, k10, CONWAY)

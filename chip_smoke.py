@@ -52,7 +52,10 @@ too, and K10 and K9 on path (i)'s (4, 2) tiles at every depth that path
 launches; and the in-kernel tier's K15, held to its plain version on the
 soup split (2, 2), (2, 4) and (1, 2), fresh, settled and with the seam
 and corner gliders, in chunks of 8 and 64 launches and launch by launch,
-and in whole dispatches with a K13 tail): (h) the 16384² soup x 100,000
+and in whole dispatches with a K13 tail, and on the sparse board with
+gliders across the (2, 2) tiles' seams and a corner, at the shipped
+geometry (no rectangle route) and at (96, 128), where every route and
+the elided edge stripe must run): (h) the 16384² soup x 100,000
 on (2, 2) under auto (the in-kernel tier: K15 chunks, K13 for the loose
 tails, K10 and K9 for the remainders), equal to the single-device
 100,000-turn PGM; (l) the same with ``DGOL_ICI=0``, on the ppermute tier
@@ -448,8 +451,14 @@ PROBE_CAP = 16
 MESH_H, MESH_I, MESH_J = (2, 2), (4, 2), (2, 4)
 TILE_PLAN_LESS = (520, 1024, 3_000)
 # K15's checks: the 16384² soup split (2, 2), (2, 4) and (1, 2) (north and
-# south the tile itself, west and east one tile).
+# south the tile itself, west and east one tile); the sparse board split
+# (2, 2) at the shipped geometry and at ``TIER_GEOMETRY``, whose 128-word
+# column window the 256-word tiles host, launch by launch over
+# ``SPARSE_EACH`` launches (its stripe_bottom glider leaves its stripe, a
+# skip right after the rectangle route, at launch 8).
 TILE_MEGA_MESHES = (MESH_H, MESH_J, (1, 2))
+TIER_GEOMETRY = cuda_adaptive.PlanGeometry(96, 128)
+SPARSE_EACH = 12
 # K14's and K15's 16-launch chunks against their plain versions, by
 # (first mesh, board): the boards whose skip state and gliders carry
 # across launches.  Every board's 64-launch K14 chunk is also held to
@@ -1048,11 +1057,13 @@ def seam_stack(side: int, device) -> torch.Tensor:
     return torch.from_numpy(stack).to(device)
 
 
-def sparse_packed(h: int, w: int, device, slots=None) -> torch.Tensor:
+def sparse_packed(h: int, w: int, device, slots=None, tiles=None) -> torch.Tensor:
     """``testing.boards.sparse_board`` of h x w cells in the port's 256-row
-    stripes (all its slots, or ``slots``), packed on the card."""
+    stripes (all its slots, or ``slots``; with ``tiles``, its gliders
+    across the seams and a corner of that mesh's tiles), packed on the
+    card."""
     kw = {} if slots is None else dict(slots=slots)
-    return packed.pack(torch.from_numpy(sparse_board(h, w, 256, **kw)).to(device))
+    return packed.pack(torch.from_numpy(sparse_board(h, w, 256, tiles=tiles, **kw)).to(device))
 
 
 def route_names(routes: torch.Tensor) -> set:
@@ -1109,8 +1120,8 @@ def route_words(routes: torch.Tensor, plan, shape: tuple) -> float:
     rectangle route (K12: the column tier) its window's validity region,
     (sub_rows - 2T) x (col_window - 2 ceil((T + 6) / 32)) words, the row
     tier its sub-window's validity rows at full width, the full window its
-    centre (stripe_h x wp); a skip none.  So no route is counted for more
-    than its kernel computes."""
+    centre (stripe_h x wp); a skip none, and an edge stripe K15 elides
+    none.  So no route is counted for more than its kernel computes."""
     sub_rows, cwin = cuda_adaptive.frontier_geometry(plan, shape)
     wp = shape[1]
     cw = (plan.t + 6 + 31) // 32
@@ -1708,7 +1719,8 @@ def flat(shards) -> list:
     return [t for r in shards for t in r] if isinstance(shards[0], list) else list(shards)
 
 
-def check_mega_chunks(key: str, chunk, shards, plan, runs, errs: dict, where: str):
+def check_mega_chunks(key: str, chunk, shards, plan, runs, errs: dict, where: str,
+                      each_n: int = 4):
     """K14 or K15 (``key``: "strip_mega" or "tile_mega", ``chunk`` its
     chunk function) against its plain version, tolerance 0, on ``shards``
     (``where`` names them in the log): for each (rule, n) of ``runs`` the
@@ -1716,10 +1728,11 @@ def check_mega_chunks(key: str, chunk, shards, plan, runs, errs: dict, where: st
     launch, exactly n launches counted, K14's and K15's in the rule's
     instantiation)
     against the plain chunk on the card, in shards, final state, skip
-    counts and activity; then four
+    counts and activity; then ``each_n``
     launches against the plain chunk launch by launch (shards, the whole
-    state and the routes after each, through ``each``).  Returns the
-    routes of those four launches on the card, (4, stripes)."""
+    state, the skip counts, the activity and the routes after each,
+    through ``each``).  Returns the routes of those launches on the card,
+    (each_n, stripes)."""
     tag = {"strip_mega": "K14", "tile_mega": "K15"}[key]
     for rule, n in runs:
         reset_launches()
@@ -1741,21 +1754,26 @@ def check_mega_chunks(key: str, chunk, shards, plan, runs, errs: dict, where: st
     seen = {}
     for on_plain in (False, True):
         def record(out, st, _seen=seen.setdefault(on_plain, [])):
-            _seen.append(([t.clone() for t in flat(out)], st.state.clone(), st.route.clone()))
+            _seen.append(([t.clone() for t in flat(out)],
+                          *(x.clone() for x in (st.state, st.skipped, st.act, st.route))))
 
-        chunk(shards, CONWAY, plan, 4, on_plain, record)
-    for (a, sa, ra), (b, sb, rb) in zip(*seen.values()):
+        chunk(shards, CONWAY, plan, each_n, on_plain, record)
+    if len(seen[False]) != each_n or len(seen[True]) != each_n:
+        raise AssertionError(f"{tag} on {where}: {len(seen[False])} and {len(seen[True])} "
+                             f"launches recorded, not {each_n}")
+    for (a, *ka, ra), (b, *kb, rb) in zip(*seen.values()):
         if key == "tile_mega":
             # The plain version forces the edge stripes K15 elides.
             ra = torch.where(ra == cuda_adaptive.ROUTE_ELIDED, cuda_adaptive.ROUTE_FULL, ra)
         err = max([max_abs_err(x, y) for x, y in zip(a, b)]
-                  + [max_abs_err(sa, sb), max_abs_err(ra, rb)])
+                  + [max_abs_err(x, y) for x, y in zip(ka, kb)] + [max_abs_err(ra, rb)])
         errs[key] = max(errs[key], err)
         if err:
             raise AssertionError(f"{tag} != plain launch by launch on {where}")
-    routes = torch.stack([r for _, _, r in seen[False]])
-    log(f"{tag} {where}: the chunk equals the plain chunk launch by launch (4 launches, "
-        f"shards, state and routes; routes {sorted(route_names(routes))})")
+    routes = torch.stack([r[-1] for r in seen[False]])
+    log(f"{tag} {where}: the chunk equals the plain chunk launch by launch ({each_n} launches, "
+        f"shards, state, skip counts, activity and routes; routes "
+        f"{sorted(route_names(routes))})")
     return routes
 
 
@@ -2021,7 +2039,14 @@ def check_tile_mega(errs: dict, boards: dict) -> dict:
     and (1, 2) the fresh and seam tiles in chunks of 8 under Conway and
     Day & Night; then launch by launch.  On (2, 2) the 8-launch chunk must also equal
     K15's mirror run on the card (its blocks and its elision of edge
-    stripes replayed in PyTorch), whose elided stripes are logged.
+    stripes replayed in PyTorch), whose elided stripes are logged.  Then
+    the sparse board with its gliders across the (2, 2) tiles' seams and
+    a corner (``sparse_packed``) split (2, 2), twice: at the shipped
+    geometry, whose 256-word tiles host no column window, so the route
+    record must show no rectangle route, and under ``TIER_GEOMETRY``,
+    where every route of ``ROUTES_NEEDED`` and the elided edge stripe must
+    run on the card; each an 8-launch chunk under Conway, ``SPARSE_EACH``
+    launches launch by launch and the 8-launch chunk against the mirror.
     Returns the (2, 2) tiles by board (phase 4 times them)."""
     cases = {}
     for mesh_shape in TILE_MEGA_MESHES:
@@ -2036,23 +2061,56 @@ def check_tile_mega(errs: dict, boards: dict) -> dict:
             runs = [(CONWAY, 8), (HIGHLIFE, 8), (DAY_AND_NIGHT, 8)]
             names = tuple(boards)
         for name in names:
-            p = boards[name]
-            tiles = [[t.contiguous() for t in r.chunk(nx, dim=1)] for r in p.chunk(ny)]
+            tiles = tiles_of(boards[name], mesh_shape)
             check_mega_chunks("tile_mega", cuda_halo.tile_mega_launches, tiles, plan,
                               runs + LONG_RUNS.get((mesh_shape == MESH_H, name), []),
                               errs, f"the {mesh_shape} {name} tiles")
             if mesh_shape != MESH_H:
                 continue
             cases[name] = tiles
-            got = cuda_halo.tile_mega_launches(tiles, CONWAY, plan, 8)
-            out, st, elided = mirror_chunk(tiles, plan, 8)
-            err = mega_chunks_equal((flat(got[0]), got[1]), (flat(out), st), 8)
-            errs["tile_mega"] = max(errs["tile_mega"], err)
-            if err:
-                raise AssertionError(f"K15 != its mirror on the {mesh_shape} {name} tiles")
-            log(f"K15 {mesh_shape} {name}: the 8-launch chunk equals its mirror on the card, "
-                f"which elided {elided} edge stripes of {8 * ny * nx * 2}")
+            check_tile_mirror(errs, tiles, plan, f"the {mesh_shape} {name} tiles")
+    tile = (BIG // MESH_H[0], BIG // 32 // MESH_H[1])
+    plan = cuda_halo.adaptive_tile_plan(tile, 10**6)[0]
+    tiles = tiles_of(sparse_packed(BIG, BIG, boards["fresh"].device, tiles=MESH_H), MESH_H)
+    shipped = cuda_adaptive.geometry_candidates()[0]
+    for geometry in (shipped, TIER_GEOMETRY):
+        where = f"the {MESH_H} sparse tiles at geometry {geometry.label}"
+        with cuda_adaptive.plan_geometry_override(geometry):
+            tiers = cuda_adaptive.frontier_geometry(plan, tile)
+            routes = check_mega_chunks("tile_mega", cuda_halo.tile_mega_launches, tiles, plan,
+                                       [(CONWAY, 8)], errs, where, SPARSE_EACH)
+            if geometry == shipped:
+                names = require_routes(routes, f"K15 on {where}", ("skip", "row", "full", "elided"))
+                if tiers[1] is not None or "tier" in names:
+                    raise AssertionError(f"K15 on {where} ({tiers}) took the rectangle route")
+            else:
+                names = require_routes(routes, f"K15 on {where}", (*ROUTES_NEEDED, "elided"))
+            log(f"K15's routes on {where} (sub_rows, col_window {tiers}): {sorted(names)}; "
+                f"a launch {route_mix(routes)}")
+            check_tile_mirror(errs, tiles, plan, where)
+    cases["sparse"] = tiles
     return cases
+
+
+def tiles_of(p: torch.Tensor, mesh_shape: tuple) -> list:
+    """A board cut into the rows of tiles of ``mesh_shape``, each tile
+    contiguous."""
+    ny, nx = mesh_shape
+    return [[t.contiguous() for t in r.chunk(nx, dim=1)] for r in p.chunk(ny)]
+
+
+def check_tile_mirror(errs: dict, tiles, plan, where: str) -> None:
+    """K15's 8-launch chunk on ``tiles`` against its mirror run on the card
+    (``mirror_chunk``): tiles, final state, skip counts and activity,
+    tolerance 0; logs the edge stripes the mirror elided."""
+    got = cuda_halo.tile_mega_launches(tiles, CONWAY, plan, 8)
+    out, st, elided = mirror_chunk(tiles, plan, 8)
+    err = mega_chunks_equal((flat(got[0]), got[1]), (flat(out), st), 8)
+    errs["tile_mega"] = max(errs["tile_mega"], err)
+    if err:
+        raise AssertionError(f"K15 != its mirror on {where}")
+    log(f"K15 on {where}: the 8-launch chunk equals its mirror on the card, which elided "
+        f"{elided} edge stripes of {8 * len(flat(tiles)) * 2}")
 
 
 # -- phase 3: the main path ----------------------------------------------------
@@ -5020,50 +5078,54 @@ def mirror_chunk(tiles, plan, n: int, rule: LifeRule = CONWAY):
 
 def time_tile_mega(cases: dict, sharded: dict, int_rate: float) -> dict:
     """K15 per launch over the four (2, 2) tiles of the 16384² soup, fresh
-    and settled: one 64-launch chunk on the card (its pointer tables, then
-    one call a launch) between CUDA events, over 64, the median and spread
-    of ``BATCHES`` batches of 3 chunks, beside, in the same
-    call and the same way, the ppermute tier's 64 launches (four K13
-    launches a mesh launch from a zero bitmap, with the exchange and the
-    3x3 elision between launches: ``tile_probing_launches`` on the same
-    tiles, ``sharded``), one K5 chunk of 64 on the whole board at the tile
-    plan's stripes, and the plain chunk over 2 launches.  The bound is the
-    work of the stripes K15 computed (its own skip count less the edge
-    stripes it elided, which the mirror counts: ``mirror_chunk``): T + 6
-    generations of their words, each read and written once."""
+    and settled, and of the sparse board with its tile gliders, at the
+    shipped geometry: one 64-launch chunk on the card (its pointer tables,
+    then one call a launch) between CUDA events, over 64, the median and
+    spread of ``BATCHES`` batches of 3 chunks, beside, in the same
+    call and the same way, on the soups the ppermute tier's 64 launches
+    (four K13 launches a mesh launch from a zero bitmap, with the exchange
+    and the 3x3 elision between launches: ``tile_probing_launches`` on the
+    same tiles, ``sharded``) and one K5 chunk of 64 on the whole board at
+    the tile plan's stripes, and the plain chunk over 2 launches.  The
+    bound is the work of the routes K15's stripes took in the 64 launches
+    (``route_words``: an elided edge stripe none): T + 6 generations of
+    their words, each read and written once."""
     ny, nx = MESH_H
     tile = (BIG // ny, BIG // 32 // nx)
     plan, xpad = cuda_halo.adaptive_tile_plan(tile, 10**6)
     cells = ny * nx * plan.grid(tile[0])
     rows = {}
-    for name in ("fresh", "settled"):
-        tiles, sb = cases[name], sharded[name]
-        whole = torch.cat([torch.cat(r, dim=1) for r in tiles])
-        _, st = cuda_halo.tile_mega_launches(tiles, CONWAY, plan, 64)
-        elided = mirror_chunk(tiles, plan, 64)[2]
-        computed = (64 * cells - int(st.skipped.sum()) - elided) / 64
-        words = computed * plan.stripe_h * tile[1]
+    for name in ("fresh", "settled", "sparse"):
+        tiles = cases[name]
+        routes = chunk_routes(lambda rec: cuda_halo.tile_mega_launches(
+            tiles, CONWAY, plan, 64, each=lambda out, st: rec(st.route)))
+        words = route_words(routes, plan, tile)
+        computed = words / (plan.stripe_h * tile[1])
         b_ms, b_by = work_bound_ms(words, words, plan.t + 6, CONWAY, int_rate)
         spread_ms = per_launch(cuda_ms_spread(
             lambda: cuda_halo.tile_mega_launches(tiles, CONWAY, plan, 64), 3), 64)
-        rows[name] = dict(
+        rows[name] = r = dict(
             ms=spread_ms["median"], ms_spread=spread_ms,
-            elided_edge_stripes_per_launch=elided / 64,
+            elided_edge_stripes_per_launch=int((routes == cuda_adaptive.ROUTE_ELIDED).sum()) / 64,
             plain_ms=cuda_ms(lambda: cuda_halo.tile_mega_launches(
                 tiles, CONWAY, plan, 2, plain=True), 1) / 2,
-            k13_mesh_launch_ms=cuda_ms(
-                lambda: cuda_halo.tile_probing_launches(sb, CONWAY, plan, xpad, 64), 3) / 64,
-            k5_whole_board_ms=cuda_ms(
-                lambda: cuda_adaptive.frontier_superstep(whole, CONWAY, plan, 64), 3) / 64,
-            plan=str(plan), computed_stripes_per_launch=computed, stripes=cells,
-            bound_ms=b_ms, bound_by=b_by)
-        r = rows[name]
-        log(f"K15 {name} tiles of {MESH_H}, {plan}: {r['ms']:.4f} ms a launch over all "
-            f"{ny * nx} tiles ({spread_ms['min']:.4f}-{spread_ms['max']:.4f}; plain "
-            f"{r['plain_ms']:.3f}, bound {b_ms:.5f} by {b_by}, {computed:.2f} of {cells} "
-            f"stripes computed, {elided / 64:.2f} edge stripes elided); the ppermute tier (4 K13 "
-            f"and the exchange) {r['k13_mesh_launch_ms']:.4f} ms; K5 on the whole board "
-            f"{r['k5_whole_board_ms']:.4f} ms")
+            plan=str(plan), tiers=cuda_adaptive.frontier_geometry(plan, tile),
+            computed_stripes_per_launch=computed, stripes=cells,
+            routes_per_launch=route_mix(routes), bound_ms=b_ms, bound_by=b_by)
+        line = (f"K15 {name} tiles of {MESH_H}, {plan}: {r['ms']:.4f} ms a launch over all "
+                f"{ny * nx} tiles ({spread_ms['min']:.4f}-{spread_ms['max']:.4f}; plain "
+                f"{r['plain_ms']:.3f}, bound {b_ms:.5f} by {b_by}, {computed:.2f} of {cells} "
+                f"stripes' words computed; routes a launch {r['routes_per_launch']})")
+        if name in sharded:
+            whole = torch.cat([torch.cat(t, dim=1) for t in tiles])
+            r["k13_mesh_launch_ms"] = cuda_ms(
+                lambda: cuda_halo.tile_probing_launches(sharded[name], CONWAY, plan, xpad, 64),
+                3) / 64
+            r["k5_whole_board_ms"] = cuda_ms(
+                lambda: cuda_adaptive.frontier_superstep(whole, CONWAY, plan, 64), 3) / 64
+            line += (f"; the ppermute tier (4 K13 and the exchange) {r['k13_mesh_launch_ms']:.4f} "
+                     f"ms; K5 on the whole board {r['k5_whole_board_ms']:.4f} ms")
+        log(line)
     fresh = rows["fresh"]
     return dict(ms=fresh["ms"], plain_ms=fresh["plain_ms"],
                 bound=(fresh["bound_ms"], fresh["bound_by"]),

@@ -130,26 +130,34 @@
 // tiles' read buffers, corners included (window.cuh::MeshTileSource), and
 // a stripe decides from nine tracked states in the shared state array
 // (TorusTileIntervals: its own stripes i - 1..i + 1 and those of the W and
-// E tiles).  The arrays gain the tile axis as K14's gain the strip axis,
-// so K8's finalize serves unchanged.  K15 keeps whole windows (its
-// compute tiers are still to be ported): a stripe that computes writes
-// and publishes its whole centre and measures its column interval in the
-// tile's own words, as _frontier_body(xpad=) publishes it.
+// E tiles, whose column intervals move by -/+ wp into the tile's words).
+// The arrays gain the tile axis as K14's gain the strip axis, so K8's
+// finalize serves unchanged.  An interior stripe takes K5's routes (the
+// JAX kernel's rectangle route, whose window stays inside the tile's rows
+// and words, the row tier, the full window) and writes, copies and
+// publishes as K5 does; its column interval is measured in the tile's own
+// words, as _frontier_body(xpad=) publishes it.
 //
 // The JAX kernel forces a tile's first and last stripes to compute every
 // launch, since its y-neighbours' interval state never crosses the wire.
-// Here that state lies in the same array, so an edge stripe also decides:
-// its neighbours past the tile's edge are the N (or S) tile row's edge
+// A forced stripe always takes the full route there: its union reaches
+// T + 6 rows past the centre on both sides, and the row tier would need
+// sub_rows > stripe_h + pad_f + T + 5, which the geometry gate
+// (sub_rows + 64 <= stripe_h + 2 pad_f) rules out since pad_f =
+// round8(T + 6).  Here that state lies in the same array, so an edge
+// stripe also decides, by an explicit branch (forced_route): its
+// neighbours past the tile's edge are the N (or S) tile row's edge
 // stripes, moved into its row frame, which makes its nine the 3x3-tile
-// neighbourhood.  An edge stripe that hits computes with the maximal
-// measure region, as the JAX kernel's forced one; one that does not is
-// proved stable, so its gen-T and gen-(T + 6) rows equal its input and the
-// JAX kernel's measure of it is empty: it computes nothing, writes empty
-// intervals (its rows stay unflagged) and, to keep the skip count, the
-// activity and the state the JAX kernel's, counts as computed (it copies
-// its previous change rectangle, as a skipped stripe does, and publishes
-// its whole centre).  Launch 0 of a chunk still forces every stripe.  K14
-// never forced its edge stripes, so it has no such elision.
+// neighbourhood.  An edge
+// stripe that hits computes its full window with the maximal measure rows,
+// as the JAX kernel's forced one; one that does not is proved stable, so
+// its gen-T and gen-(T + 6) rows equal its input and the JAX kernel's
+// measure of it is empty: it computes nothing, writes empty intervals (its
+// rows stay unflagged) and, to keep the skip count, the activity and the
+// state the JAX kernel's, counts as computed (it copies its previous change
+// rectangle, as a skipped stripe does, and publishes its whole centre).
+// Launch 0 of a chunk forces every stripe to the full route.  K14 never
+// forced its edge stripes, so it has no such elision.
 //
 // The window (regwin.cuh): a block is `warps` warps over a tile of
 // `tile_h` rows of one stripe (a divisor of it) with T + 6 rows a side,
@@ -242,19 +250,23 @@ struct MeshIntervals {
 
 // Stripe i of tile (dy, dx) of a 2-D mesh whose tiles share one state
 // array (K15): its own stripes i - 1, i and i + 1 and the same three of
-// the W and E tiles (modulo nx), whose row frames are this tile's; a
-// neighbour past the tile's edge is the last stripe of the tile row above
-// or the first of the row below (modulo ny), moved by -/+ h into this
-// tile's frame as MeshIntervals moves a strip's.  An interior stripe's
-// nine are _kernel_frontier_mega_2d's; an edge stripe's are its 3x3-tile
-// neighbourhood.  K15 has no tiers, so it reads no column interval.
+// the W and E tiles (modulo nx), whose row frames are this tile's and
+// whose column intervals move by -wp (W) and +wp (E) into this tile's
+// words, by the neighbour's side and not by its tile (on a (1, 2) mesh the
+// W and E tiles are one tile, seen at both shifts); an empty interval
+// stays empty (both ends move together).  A neighbour past the tile's edge
+// is the last stripe of the tile row above or the first of the row below
+// (modulo ny), its rows moved by -/+ h into this tile's frame as
+// MeshIntervals moves a strip's.  An interior stripe's nine are
+// _kernel_frontier_mega_2d's; an edge stripe's are its 3x3-tile
+// neighbourhood.
 struct TorusTileIntervals {
     static constexpr int kSize = 9;
     const int* prev;  // the previous parity's state of every tile
-    int total, grid, ny, nx, h, dy, dx, i;
+    int total, grid, ny, nx, h, wp, dy, dx, i;
     __device__ int value(int n, int f) const {
-        if (f >= kClo) return f == kClo ? kEmpty : -1;
-        const int tx = wrap(dx + n / 3 - 1, nx);  // W, own, E
+        const int side = n / 3 - 1;  // W, own, E
+        const int tx = wrap(dx + side, nx);
         int j = i + n % 3 - 1;
         int ty = dy;
         int off = 0;
@@ -267,7 +279,7 @@ struct TorusTileIntervals {
             ty = wrap(dy + 1, ny);
             off = h;
         }
-        return prev[f * total + (ty * nx + tx) * grid + j] + off;
+        return prev[f * total + (ty * nx + tx) * grid + j] + (f < kClo ? off : side * wp);
     }
 };
 
@@ -362,7 +374,7 @@ struct Decision {
 // A stripe's route from its union, as _frontier_placement and
 // _col_placement place its windows (their idx8 * 8 and cidx * 128 floors):
 // skip where it does not hit; the column window where both placements are
-// eligible and, for the rectangle route (`rect`: K5, K8, K14), the
+// eligible and, for the rectangle route (`rect`: K5, K8, K14, K15), the
 // window's rows lie in [0, rows); the row tier where the row placement
 // is; else the full window.  The rectangle route writes and publishes the
 // window's rows of its own centre, col_window words; the column tier of
@@ -413,6 +425,35 @@ __device__ void decide(Decision& d, const Union& u, int c_lo, const Geometry& g,
     d.rect[1] = skip ? 0 : (d.w_hi - d.w_lo) / 8;
     d.rect[2] = skip ? 0 : d.wc_lo / 128;
     d.rect[3] = skip ? 0 : r ? cwin / 128 : g.wp / 128;
+    d.p_lo = d.p_hi = 0;
+    d.pc_lo = 0;
+    d.pc_hi = g.wp;
+}
+
+// A forced stripe of K15 (launch 0 of a chunk, or a tile's edge stripe),
+// by its own branch: the full route with the maximal measure rows, as the
+// JAX kernel's forced union places it (its row window never fits: see the
+// K15 notes above), where it `computes`; elided where it does not (an
+// edge stripe whose 3x3-tile neighbourhood does not hit): it writes
+// nothing and, as the full route, publishes its whole centre.  Copies
+// nothing (the caller sets the p_ fields).
+__device__ void forced_route(Decision& d, int c_lo, const Geometry& g, bool computes) {
+    const int sh = g.stripe_h;
+    d.route = computes ? kFull : kElided;
+    d.m_lo = c_lo;
+    d.m_hi = c_lo + sh - 1;
+    d.v_lo = c_lo;
+    d.v_hi = c_lo + sh;
+    d.vc_lo = 0;
+    d.vc_hi = g.wp;
+    d.w_lo = computes ? c_lo : 0;
+    d.w_hi = computes ? c_lo + sh : 0;
+    d.wc_lo = 0;
+    d.wc_hi = g.wp;
+    d.rect[0] = c_lo / 8;
+    d.rect[1] = sh / 8;
+    d.rect[2] = 0;
+    d.rect[3] = g.wp / 128;
     d.p_lo = d.p_hi = 0;
     d.pc_lo = 0;
     d.pc_hi = g.wp;
@@ -799,19 +840,19 @@ strip_mega_reg_kernel(const uint32_t* const* __restrict__ rd_tab,
 // give the tiles' read and write buffers; the window's rows and words past
 // tile (dy, dx)'s edges come from the neighbour tiles' read buffers
 // (reg::column of a MeshTileSource; the halo <= h).  `first` forces every
-// stripe to hit with the maximal union (launch 0 of a chunk); otherwise
-// an edge stripe computes with the maximal measure rows if its 3x3-tile
-// neighbourhood hits, and is elided if not.  No tiers: a stripe that
-// computes writes and publishes its whole centre, measured at its full
-// width in the tile's own words.
+// stripe to the full route (launch 0 of a chunk); otherwise an edge stripe
+// takes the full route with the maximal measure rows if its 3x3-tile
+// neighbourhood hits and is elided if not (forced_route), and an interior
+// stripe takes K5's routes (decide), the rectangle route's window inside
+// the tile's own rows and words.
 template <class Rule>
 __global__ void __launch_bounds__(reg::kMaxThreads, reg::FrontierBlocks<Rule>::value)
 tile_mega_reg_kernel(const uint32_t* const* __restrict__ rd_tab,
                      uint32_t* const* __restrict__ wr_tab, int* __restrict__ state,
                      int* __restrict__ rowflag, int* __restrict__ colspan,
                      int* __restrict__ skipped, int* __restrict__ route, int ny, int nx, int h,
-                     int wp, int turns, int stripe_h, int tile_h, int pad_f, int parity,
-                     int first, Rule rule) {
+                     int wp, int turns, int stripe_h, int tile_h, int pad_f, int sub_rows,
+                     int col_window, int parity, int first, Rule rule) {
     __shared__ reg::Edges edges;
     __shared__ Decision dec;
     __shared__ int nb[kGathered];
@@ -829,35 +870,28 @@ tile_mega_reg_kernel(const uint32_t* const* __restrict__ rd_tab,
     if (threadIdx.y == 0) {
         const int* prev = state + (1 - parity) * kFields * total;
         if (!first) {
-            gather(TorusTileIntervals{prev, total, grid, ny, nx, h, dy, dx, i},
+            gather(TorusTileIntervals{prev, total, grid, ny, nx, h, wp, dy, dx, i},
                    prev + kR8 * total + gi, total, nb);
         }
         if (threadIdx.x == 0) {
-            int* cur = state + parity * kFields * total;
-            const int c_hi = c_lo + stripe_h - 1;
-            const int t6 = turns + kSkipPeriod;
-            const Union u = first ? forced_union(c_lo, c_hi, t6)
-                                  : hit_union(nb, TorusTileIntervals::kSize, c_lo, c_hi, t6, pad_f);
-            const bool edge = !first && (i == 0 || i == grid - 1);
-            const bool counted = u.hit || edge;
-            const bool computes = u.hit;
-            dec.route = !counted ? kSkip : computes ? kFull : kElided;
-            dec.m_lo = first || edge ? c_lo : max(u.lo - t6, c_lo);
-            dec.m_hi = first || edge ? c_hi : min(u.hi + t6, c_hi);
-            dec.v_lo = dec.w_lo = computes ? c_lo : 0;
-            dec.v_hi = dec.w_hi = computes ? c_lo + stripe_h : 0;
-            dec.vc_lo = dec.wc_lo = dec.pc_lo = 0;
-            dec.vc_hi = dec.wc_hi = dec.pc_hi = wp;
-            dec.rect[0] = counted ? c_lo / 8 : 0;
-            dec.rect[1] = counted ? stripe_h / 8 : 0;
-            dec.rect[2] = 0;
-            dec.rect[3] = counted ? wp / 128 : 0;
-            const bool moved =
-                !first && !computes && nb[TorusTileIntervals::kSize * kNeighbourFields + 1] > 0;
-            dec.p_lo = c_lo;
-            dec.p_hi = moved ? c_lo + stripe_h : c_lo;
+            const Geometry g{turns, stripe_h, pad_f, sub_rows, col_window, wp};
+            if (first) {
+                forced_route(dec, c_lo, g, true);
+            } else {
+                const Union u = hit_union(nb, TorusTileIntervals::kSize, c_lo,
+                                          c_lo + stripe_h - 1, turns + kSkipPeriod, pad_f);
+                if (i == 0 || i == grid - 1) {
+                    forced_route(dec, c_lo, g, u.hit);
+                } else {
+                    decide(dec, u, c_lo, g, true, h);
+                }
+                if (dec.route == kSkip || dec.route == kTier || dec.route == kElided) {
+                    copy_rect(dec, nb + TorusTileIntervals::kSize * kNeighbourFields, 1, g);
+                }
+            }
             if (blockIdx.x == 0 && y0 == c_lo) {
-                publish(dec, cur + kR8 * total + gi, total, skipped + v, route + gi);
+                publish(dec, state + parity * kFields * total + kR8 * total + gi, total,
+                        skipped + v, route + gi);
             }
         }
     }
@@ -1106,16 +1140,18 @@ extern "C" int gol_strip_mega_launch(const void* rd_tab, const void* wr_tab, voi
 // chunk, indexed tile-major; `route` (int32[ny * nx * grid]) gets this
 // launch's routes.  The decision's reach pad_f (>= the window's row halo
 // T + 6) must fit one stripe, so nothing past the adjacent tiles' rows is
-// read; a block is `tile_h` rows of a stripe and `warps` warps; `variant`
-// picks the rule's instantiation (regwin.cuh::by_rule).
+// read; sub_rows and col_window are the compute tiers' geometry on one
+// tile of (h, wp) words (0 = off); a block is `tile_h` rows of a stripe
+// and `warps` warps; `variant` picks the rule's instantiation
+// (regwin.cuh::by_rule).
 extern "C" int gol_tile_mega_launch(const void* rd_tab, const void* wr_tab, void* state,
                                     void* rowflag, void* colspan, void* skipped, void* act,
                                     void* route, int ny, int nx, int h, int wp, int turns,
-                                    int stripe_h, int tile_h, int warps, int pad_f, int parity,
-                                    int first, int variant, unsigned born, unsigned surv,
-                                    void* stream) {
+                                    int stripe_h, int tile_h, int warps, int pad_f, int sub_rows,
+                                    int col_window, int parity, int first, int variant,
+                                    unsigned born, unsigned surv, void* stream) {
     if (ny < 1 || nx < 1 || ny * nx > 65535 ||
-        bad_reg_frontier(h, wp, turns, stripe_h, tile_h, warps, pad_f, 0, 0) ||
+        bad_reg_frontier(h, wp, turns, stripe_h, tile_h, warps, pad_f, sub_rows, col_window) ||
         pad_f > stripe_h || (parity != 0 && parity != 1) || (first != 0 && first != 1)) {
         return cudaErrorInvalidValue;
     }
@@ -1126,7 +1162,8 @@ extern "C" int gol_tile_mega_launch(const void* rd_tab, const void* wr_tab, void
                           static_cast<uint32_t* const*>(wr_tab), static_cast<int*>(state),
                           static_cast<int*>(rowflag), static_cast<int*>(colspan),
                           static_cast<int*>(skipped), static_cast<int*>(route), ny, nx, h, wp,
-                          turns, stripe_h, tile_h, pad_f, parity, first, rule);
+                          turns, stripe_h, tile_h, pad_f, sub_rows, col_window, parity, first,
+                          rule);
     });
     if (err != cudaSuccess) return err;
     return finalize(state, rowflag, colspan, act, ny * nx * (h / stripe_h), h, stripe_h, parity,

@@ -82,9 +82,11 @@ tiles share one device takes the same tier (the counterpart of
 ``_kernel_frontier_mega_2d``): canonical chunks of K15 launches over every
 tile (:func:`tile_mega_chunks`), whose windows read the neighbour tiles'
 rows, words and corners and whose stripes decide from their own and both
-x-neighbours' intervals, the edge stripes from their 3x3-tile
-neighbourhood (the JAX kernel forces them; one proved stable is elided,
-counted as computed); a K13 loose tail; :func:`make_superstep_virtual_2d`
+x-neighbours' intervals (the column intervals moved by -/+ wpl into the
+tile's words) and take K5's routes and writes (the rectangle route's
+window inside the tile), the edge stripes from their 3x3-tile
+neighbourhood (the JAX kernel forces them to the full route; one proved
+stable is elided, counted as computed); a K13 loose tail; :func:`make_superstep_virtual_2d`
 runs it on a whole board.  K12, K14 and K15 step register-resident
 windows (``csrc/regwin.cuh``) on the blocks of
 ``cuda_adaptive.frontier_blocks``; :func:`strip_frontier_launch_mirror`,
@@ -1342,65 +1344,87 @@ def _tile_window(tiles, dy: int, dx: int, halo: int, xw: int) -> torch.Tensor:
     return torch.cat([band[0][h - halo :], band[1], band[2][:halo]])
 
 
-def _tile_mega(reads, writes, st: MeshState, plan: AdaptivePlan, parity: int, first: bool,
-               advance, elide: bool):
-    """One K15 launch's decisions, measure and bookkeeping in PyTorch, each
-    tile's generations from ``advance(ty, tx, computes)``: (gen T,
-    gen T + 6) of tile (ty, tx), whose stripes that do not ``compute``
-    (bool, one a stripe) are unused.  Every stripe's nine neighbours are its own stripes
-    i - 1..i + 1 and those of the W and E tiles, past the tile's edge the
-    N or S tile row's edge stripe moved by -/+ h_loc (for an interior
-    stripe the JAX kernel's nine).  The edge stripes hit with the maximal
-    union; with ``elide``, an edge stripe whose neighbours do not hit is
-    elided instead: counted computed, not computed, its intervals empty.
-    Returns the elided stripes (bool, tile-major)."""
-    ny, nx, h, wpl = _check_tile_mega(reads, writes, st, plan)
+def tile_mega_routes(prev: torch.Tensor, mesh_shape: tuple[int, int], shape: tuple[int, int],
+                     plan: AdaptivePlan, first: bool, elide: bool = False):
+    """Every stripe's decision and route in a K15 launch from ``prev``, the
+    previous parity's (10, ny·nx·grid) state of a ``mesh_shape`` mesh of
+    tiles of ``shape`` = (h_loc, wpl) words (int64).  Stripe i of tile (dy,
+    dx) folds nine neighbours (``hit_union``): its own stripes i - 1, i
+    and i + 1 and the same stripes of the W and E tiles, whose row frames
+    are its own and whose column intervals move by -wpl (W) and +wpl (E)
+    into its words, by side and not by tile (a (1, 2) mesh sees its one
+    other tile at both shifts); past the tile's edge the N or S tile row's
+    edge stripe, its rows moved by -/+ h_loc (for an interior stripe the
+    JAX kernel's nine).  An interior stripe takes
+    ``cuda_adaptive.frontier_routes`` on the tile, the rectangle route's
+    window inside its rows; the edge stripes and, with ``first``, every
+    stripe hit with the maximal union, which takes the full route, as
+    ``_kernel_frontier_mega_2d`` forces them; with ``elide``, an edge stripe
+    whose neighbours do not hit is elided instead: counted computed, not
+    computed, writing nothing, publishing its whole centre.  Returns
+    (``Routes``, (hit, u_lo, u_hi, u_clo, u_chi) of the nine before the
+    forcing, the elided stripes: bool, tile-major)."""
+    ny, nx = mesh_shape
+    h, wpl = shape
     sh, grid = plan.stripe_h, plan.grid(h)
-    total = ny * nx * grid
-    dev = reads[0][0].device
     t6 = plan.t + SKIP_PERIOD
-    g = torch.arange(total, device=dev)
+    g = torch.arange(ny * nx * grid, device=prev.device)
     v, i = g // grid, g % grid
     dy, dx = v // nx, v % nx
     c_lo = i * sh
     c_hi = c_lo + sh - 1
-    prev = st.state[1 - parity].to(torch.int64)
-    ivals = []
-    for tx in ((dx - 1) % nx, dx, (dx + 1) % nx):
+    ivals, cvals = [], []
+    for side in (-1, 0, 1):  # the W, own and E tiles
+        tx = (dx + side) % nx
         for slot in (-1, 0, 1):
             j = i + slot
             shift = torch.div(j, grid, rounding_mode="floor")  # -1 above the tile, 1 below
             at = (((dy + shift) % ny) * nx + tx) * grid + torch.remainder(j, grid)
             ivals += [(prev[2 * k][at] + shift * h, prev[2 * k + 1][at] + shift * h)
                       for k in (0, 1)]
-    hit, u_lo, u_hi, _, _ = cuda_adaptive.hit_union(ivals, [], c_lo, c_hi, plan)
+            cvals.append((prev[4][at] + side * wpl, prev[5][at] + side * wpl))
+    union = cuda_adaptive.hit_union(ivals, cvals, c_lo, c_hi, plan)
+    hit, u_lo, u_hi, u_clo, u_chi = union
     edge = (i == 0) | (i == grid - 1)
-    elided = edge & ~hit if elide and not first else torch.zeros_like(edge)
     forced = edge | first
-    counted = hit | forced
-    computes = counted & ~elided
-    m_lo = torch.where(forced, c_lo, torch.maximum(u_lo - t6, c_lo))
-    m_hi = torch.where(forced, c_hi, torch.minimum(u_hi + t6, c_hi))
-    # No tiers: a stripe that computes writes and publishes its whole
-    # centre, measured at its full width in the tile's own words.
+    rt = cuda_adaptive.frontier_routes(hit | forced, torch.where(forced, c_lo - t6, u_lo),
+                                       torch.where(forced, c_hi + t6, u_hi), u_clo, u_chi, c_lo,
+                                       plan, shape, (0, h))
+    elided = edge & ~hit if elide and not first else torch.zeros_like(edge)
     zero = torch.zeros_like(c_lo)
-    route = torch.where(~counted, cuda_adaptive.ROUTE_SKIP, torch.where(
-        elided, cuda_adaptive.ROUTE_ELIDED, cuda_adaptive.ROUTE_FULL))
-    rt = cuda_adaptive.Routes(
-        route=route, m_lo=m_lo, m_hi=m_hi, v_lo=c_lo, v_hi=c_lo + sh, vc_lo=zero,
-        vc_hi=zero + wpl, w_lo=torch.where(computes, c_lo, zero),
-        w_hi=torch.where(computes, c_lo + sh, zero), wc_lo=zero, wc_hi=zero + wpl,
-        rect=torch.where(counted, torch.stack([c_lo // 8, zero + sh // 8, zero,
-                                               zero + wpl // 128]), zero))
-    moved = ~computes & (prev[7] > 0)
-    copy = (c_lo, torch.where(moved, c_lo + sh, c_lo), zero, zero + wpl)
+    rt.route = torch.where(elided, cuda_adaptive.ROUTE_ELIDED, rt.route)
+    rt.w_lo = torch.where(elided, zero, rt.w_lo)
+    rt.w_hi = torch.where(elided, zero, rt.w_hi)
+    return rt, union, elided
+
+
+def _tile_mega(reads, writes, st: MeshState, plan: AdaptivePlan, parity: int, first: bool,
+               advance, elide: bool):
+    """One K15 launch's decisions, routes, writes and measure in PyTorch,
+    each tile's generations from ``advance(ty, tx, cells)``: (gen T, gen
+    T + 6) of tile (ty, tx), exact on ``cells`` (bool (h_loc, wpl): where
+    the launch writes gen T) and on the measure region.  Each stripe takes
+    its route (:func:`tile_mega_routes`, with ``elide`` the kernel's
+    elision of quiet edge stripes), writes its change rectangle, copies
+    its previous one where it skips, takes the rectangle route or is
+    elided, and measures gen T + 6 against gen T on its measure region in
+    the tile's own words (``_measure2``).  Returns the elided stripes
+    (bool, tile-major)."""
+    ny, nx, h, wpl = _check_tile_mega(reads, writes, st, plan)
+    sh, grid = plan.stripe_h, plan.grid(h)
+    prev = st.state[1 - parity].to(torch.int64)
+    rt, _, elided = tile_mega_routes(prev, (ny, nx), (h, wpl), plan, first, elide)
+    copy = list(cuda_adaptive.rect_region(prev[6:10], plan, (h, wpl)))
+    moved = ((rt.route == cuda_adaptive.ROUTE_SKIP) | (rt.route == cuda_adaptive.ROUTE_TIER)
+             | elided)
+    copy[1] = torch.where(moved, copy[1], copy[0])
     intervals = []
     for ty in range(ny):
         for tx in range(nx):
             mine = slice((ty * nx + tx) * grid, (ty * nx + tx + 1) * grid)
             masks = cuda_adaptive.routed_masks(rt.part(mine), [c[mine] for c in copy], h, wpl,
                                                sh)
-            g_t, g_t6 = advance(ty, tx, computes[mine])
+            g_t, g_t6 = advance(ty, tx, masks[0] & masks[1])
             out, part = cuda_adaptive.routed_launch(reads[ty][tx], writes[ty][tx], g_t, g_t6,
                                                     masks, sh)
             writes[ty][tx].copy_(out)
@@ -1408,7 +1432,8 @@ def _tile_mega(reads, writes, st: MeshState, plan: AdaptivePlan, parity: int, fi
     intervals = torch.cat(intervals, dim=1)
     st.state[parity].copy_(torch.cat([intervals, rt.rect]))
     st.route.copy_(rt.route)
-    st.skipped += (~counted).view(ny * nx, grid).sum(dim=1).to(torch.int32)
+    st.skipped += (rt.route == cuda_adaptive.ROUTE_SKIP).view(ny * nx, grid).sum(dim=1).to(
+        torch.int32)
     st.act += (intervals[0] <= intervals[1]).to(torch.int32)
     return elided
 
@@ -1418,25 +1443,29 @@ def tile_mega_launch_plain(reads, writes, st: MeshState, rule: LifeRule, plan: A
     """Plain version of K15 (one launch of ``_kernel_frontier_mega_2d``
     over every tile of a 2-D mesh, ``reads`` as rows of tiles): stripe i
     of tile (dy, dx) decides with ``_hit_union`` over the previous
-    parity's row intervals of nine stripes, read straight from the shared
-    state: its own stripes i - 1, i and i + 1 and the same stripes of the
-    W and E tiles (whose row frames are its own); the edge stripes (i = 0,
-    grid - 1), and every stripe with ``first`` (launch 0 of a chunk), hit
-    with the maximal union, as the JAX kernel forces them.  A stripe that
-    hits computes T generations of its window (the tile with T + 6 rows
-    and ceil((T + 6) / 32) words of the neighbour tiles' read buffers,
-    corners included), writes and publishes its whole centre (K15 has no
-    tiers) and measures gen T + 6 against gen T on its measure rows
-    (``_measure2``; the column interval in the tile's own words); one that
-    does not copies its previous change rectangle.  Writes ``writes``,
-    ``st.state[parity]`` and ``st.route``, adds to ``st.skipped`` and
-    ``st.act``; returns ``writes``."""
+    parity's row and column intervals of nine stripes, read straight from
+    the shared state: its own stripes i - 1, i and i + 1 and the same
+    stripes of the W and E tiles (whose row frames are its own, whose
+    column intervals move by -/+ wpl into its words); the edge stripes (i
+    = 0, grid - 1), and every stripe with ``first`` (launch 0 of a chunk),
+    hit with the maximal union and take the full route, as the JAX kernel
+    forces them.  An interior stripe that hits takes its route
+    (``cuda_adaptive.frontier_routes`` on the tile: the rectangle route
+    where its window lies inside the tile, else the row tier or the full
+    window), each on the tile with T + 6 rows and ceil((T + 6) / 32) words
+    of the neighbour tiles' read buffers, corners included, writes its
+    change rectangle and its previous one as the JAX kernel does, and
+    measures gen T + 6 against gen T on its measure region (``_measure2``;
+    the column interval in the tile's own words); one that does not copies
+    its previous change rectangle.  Writes ``writes``, ``st.state[parity]``
+    and ``st.route``, adds to ``st.skipped`` and ``st.act``; returns
+    ``writes``."""
     halo = plan.t + SKIP_PERIOD
     xw = -(-halo // WORD)
     h, wpl = reads[0][0].shape
     centre = (slice(halo, halo + h), slice(xw, xw + wpl))
 
-    def advance(ty, tx, _computes):
+    def advance(ty, tx, _cells):
         g_t = packed.superstep(_tile_window(reads, ty, tx, halo, xw), rule, plan.t)
         return g_t[centre], packed.superstep(g_t, rule, SKIP_PERIOD)[centre]
 
@@ -1447,13 +1476,15 @@ def tile_mega_launch_plain(reads, writes, st: MeshState, rule: LifeRule, plan: A
 def tile_mega_launch_mirror(reads, writes, st: MeshState, rule: LifeRule, plan: AdaptivePlan,
                             parity: int, first: bool, blocks: RegPlan | None = None):
     """K15's decomposition in PyTorch: the blocks of ``blocks`` (one
-    tile's; None: the ``frontier_blocks`` of an H100 for all the tiles) through
-    :func:`_frontier_blocks`, each tile's window from the tiles' torus,
-    and the kernel's decisions: an edge stripe decides from its 3x3-tile
-    neighbourhood and is elided where that proves it stable (counted in
-    ``tile_mega_launch_mirror.elided``; the last launch's elided stripes,
-    tile-major, in ``.last_elided``), every other decision as
-    :func:`tile_mega_launch_plain`'s.  Writes what the plain version
+    tile's; None: the ``frontier_blocks`` of an H100 for all the tiles)
+    through :func:`_frontier_blocks`, only the blocks whose tile meets the
+    cells their stripe's route writes as gen T stepping
+    (``cuda_adaptive._block_mask``), each tile's window from the tiles'
+    torus, and the kernel's decisions: an edge stripe decides from its
+    3x3-tile neighbourhood and is elided where that proves it stable
+    (counted in ``tile_mega_launch_mirror.elided``; the last launch's
+    elided stripes, tile-major, in ``.last_elided``), every other decision
+    as :func:`tile_mega_launch_plain`'s.  Writes what the plain version
     writes; returns ``writes``."""
     ny, nx, h, wpl = _check_tile_mega(reads, writes, st, plan)
     blocks = blocks or frontier_blocks((h, wpl), plan, ny * nx)
@@ -1463,10 +1494,11 @@ def tile_mega_launch_mirror(reads, writes, st: MeshState, rule: LifeRule, plan: 
     rows = torch.arange(h + 2 * halo, device=dev) - halo
     cols = torch.arange(blocks.grid[1] * blocks.centre + 2, device=dev) - 1
 
-    def advance(ty, tx, computes):
+    def advance(ty, tx, cells):
         src = whole[torch.remainder(ty * h + rows, ny * h)][:, torch.remainder(
             tx * wpl + cols, nx * wpl)]
-        return _frontier_blocks(src, rule, blocks, plan.t, (h, wpl), computes)
+        return _frontier_blocks(src, rule, blocks, plan.t, (h, wpl),
+                                cuda_adaptive._block_mask(cells, blocks))
 
     elided = _tile_mega(reads, writes, st, plan, parity, first, advance, True)
     tile_mega_launch_mirror.elided += int(elided.sum())
@@ -1485,8 +1517,9 @@ def _k15(sets, rule: LifeRule, plan: AdaptivePlan):
     (int64[ny·nx] each, row-major) are built here once, copied without a
     wait from pinned memory, and live as long as the launcher (as
     :func:`_k14`'s); its blocks ``frontier_blocks``' for all the tiles
-    on the device's SMs, in the rule's instantiation; counted on
-    ``tile_mega_launch.launches`` and ``.rules``."""
+    on the device's SMs, at the active geometry on one tile
+    (``cuda_adaptive.frontier_geometry``), in the rule's instantiation;
+    counted on ``tile_mega_launch.launches`` and ``.rules``."""
     like = sets[0][0][0]
     ny, nx = len(sets[0]), len(sets[0][0])
     h, wpl = like.shape
@@ -1498,7 +1531,8 @@ def _k15(sets, rule: LifeRule, plan: AdaptivePlan):
                         dtype=torch.int64).pin_memory().to(like.device, non_blocking=True)
     row = {key(bufs): tab for bufs, tab in zip(sets, tabs)}
     blocks = frontier_blocks((h, wpl), plan, ny * nx, device_sms(like.device))
-    lib, launch = _reg_launcher("frontier", "gol_tile_mega_launch", 8, 12)
+    sub_rows, col_window = cuda_adaptive.frontier_geometry(plan, (h, wpl))
+    lib, launch = _reg_launcher("frontier", "gol_tile_mega_launch", 8, 14)
     born, surv, variant = reg_rule(rule)
     stream = _stream(like)
 
@@ -1506,8 +1540,9 @@ def _k15(sets, rule: LifeRule, plan: AdaptivePlan):
         rd, wr = (row[key(bufs)].data_ptr() for bufs in (reads, writes))
         err = launch(rd, wr, st.state.data_ptr(), st.rowflag.data_ptr(), st.colspan.data_ptr(),
                      st.skipped.data_ptr(), st.act.data_ptr(), st.route.data_ptr(), ny, nx, h,
-                     wpl, plan.t, plan.stripe_h, blocks.tile_h,
-                     blocks.warps, plan.pad_f, parity, int(first), variant, born, surv, stream)
+                     wpl, plan.t, plan.stripe_h, blocks.tile_h, blocks.warps, plan.pad_f,
+                     sub_rows or 0, col_window or 0, parity, int(first), variant, born, surv,
+                     stream)
         cuda_build.check(lib, err, "tile_mega")
         tile_mega_launch.launches += 1
         tile_mega_launch.rules[REG_RULES[variant]] += 1

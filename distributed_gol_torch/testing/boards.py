@@ -3,7 +3,9 @@
 :func:`sparse_board` is a dead board with gliders, a short-lived spark and
 ash placed where the compute tiers of K5, K8, K12 and K14 part ways (the
 cases of the JAX package's column-window and frontier-window tests): the
-tests, ``chip_smoke.py`` and ``tools/regwin_ab.py`` all use it.
+tests, ``chip_smoke.py`` and ``tools/regwin_ab.py`` all use it.  Given the
+tiles of a 2-D mesh, it adds gliders across the tiles' seams and a corner,
+where K15's routes part ways.
 """
 
 from __future__ import annotations
@@ -34,7 +36,8 @@ def spark() -> np.ndarray:
     return np.random.default_rng(SPARK_SEED).random((6, 6)) < 0.5
 
 
-def sparse_board(h: int, w: int, stripe_h: int, slots=SLOTS) -> np.ndarray:
+def sparse_board(h: int, w: int, stripe_h: int, slots=SLOTS,
+                 tiles: tuple[int, int] | None = None) -> np.ndarray:
     """A dead h x w board (uint8 cells, 0 or 255) of stripes of
     ``stripe_h`` rows (at least 200), w at least 8192 cells (256 words),
     with ``slots`` (``SLOTS``) spread evenly down it, slot k in stripe
@@ -47,13 +50,30 @@ def sparse_board(h: int, w: int, stripe_h: int, slots=SLOTS) -> np.ndarray:
     cells of the torus' x seam and one heading left across it; two
     clusters about 0.6 of the width apart in one stripe (300 words on a
     512-word board); the spark; two gliders 180 rows apart in one
-    stripe.  Every stripe holds a block of ash, which never changes."""
+    stripe.  Every stripe holds a block of ash, which never changes.
+
+    ``tiles`` = (ny, nx), the board cut into ny x nx tiles of whole
+    stripes (nx >= 2), adds three gliders and leaves the slots as they
+    are: one heading right across the seam of tiles (0, 0) and (0, 1) in
+    the first interior stripe of a tile (neither a tile's first nor its
+    last) that holds no slot, and in the last stripe of tile row 0 (an edge
+    stripe, which must hold no slot) one heading down across the seam of
+    tile rows 0 and 1 (on one tile row, the torus' y seam) and one heading
+    across the corner of tiles (0, 0), (0, 1), (1, 0) and (1, 1)."""
     stripes = h // stripe_h
     spacing = stripes // len(slots)
     if (h % stripe_h or spacing < (2 if len(slots) > 1 else 1) or w < 8192 or stripe_h < 200
             or not set(slots) <= set(SLOTS)):
         raise ValueError(f"no sparse board of {slots} on {h} x {w} cells in stripes of "
                          f"{stripe_h} rows")
+    taken = {k * spacing + spacing // 2 for k in range(len(slots))}
+    if tiles is not None:
+        ny, nx = tiles
+        per = stripes // ny
+        free = [s for s in range(stripes) if 0 < s % per < per - 1 and s not in taken]
+        if nx < 2 or w % nx or stripes % ny or not free or per - 1 in taken:
+            raise ValueError(f"no tile gliders on {h} x {w} cells in {tiles} tiles of "
+                             f"{stripe_h}-row stripes beside the slots' stripes {sorted(taken)}")
     b = np.zeros((h, w), dtype=np.uint8)
     for s in range(stripes):
         _put(b, BLOCK, s * stripe_h + stripe_h // 3, 7 * w // 8 + 40 * (s % 5))
@@ -83,4 +103,9 @@ def sparse_board(h: int, w: int, stripe_h: int, slots=SLOTS) -> np.ndarray:
         elif slot == "two_rows":
             _put(b, GLIDER, y + 20, 3 * w // 5)
             _put(b, GLIDER, y + 200, 3 * w // 5)
+    if tiles is not None:
+        th, tw = h // tiles[0], w // tiles[1]
+        _put(b, GLIDER, free[0] * stripe_h + mid, tw - 6)
+        _put(b, GLIDER, th - 10, tw // 3)
+        _put(b, GLIDER, th - 8, tw - 8)
     return b

@@ -457,11 +457,17 @@ def test_geometry_candidates_and_override_restore_as_jax(ref):
 
 @pytest.mark.parametrize("shape,stripe,turns", [((16384, 512), 256, 24), ((4096, 512), 256, 24),
                                                 ((1024, 256), 256, 18), ((512, 4), 64, 24),
-                                                ((2048, 128), 256, 18), ((4096, 64), 128, 12)])
+                                                ((2048, 128), 256, 18), ((4096, 64), 128, 12),
+                                                ((8192, 256), 256, 24), ((1024, 320), 256, 18),
+                                                ((1024, 128), 256, 18), ((2048, 640), 256, 12)])
 def test_frontier_geometry_follows_the_jax_plan(ref, shape, stripe, turns):
     """Where the JAX plan has a frontier plan at the same stripes, the
-    port's tiers are its (sub_rows, col_window) under every candidate;
-    where the row tier does not fit, the port's tiers are off."""
+    port's tiers are its (sub_rows, col_window) under every candidate, on
+    a board or strip (``_frontier_plan``) and on a tile of a 2-D mesh
+    (``_plan_2d``: the row tier from the x-extended tile, the column
+    window gated on the tile's own width, which K15 takes from the same
+    ``frontier_geometry`` of its tile); where the row tier does not fit,
+    the port's tiers are off."""
     plan = ca.AdaptivePlan(turns, stripe, True)
     for geom in ca.geometry_candidates():
         with both_geometries(ref, geom):
@@ -469,6 +475,9 @@ def test_frontier_geometry_follows_the_jax_plan(ref, shape, stripe, turns):
             got = ca.frontier_geometry(plan, shape)
             if want is not None and ref.pp._plan_tile(shape, turns, stripe) == stripe:
                 assert got == want[1:]
+            want_2d = ref.ph._plan_2d(shape, turns, stripe, True)
+            if want_2d is not None and want_2d[4] == stripe:
+                assert got == want_2d[2:4]
             sub = ca._round8(4 * turns + geom.sub_margin)
             if sub + 64 > stripe + 2 * plan.pad_f:
                 assert got == (None, None)

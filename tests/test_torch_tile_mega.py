@@ -775,3 +775,43 @@ def test_gpu_backend_on_a_virtual_2d_mesh(cuda_device, monkeypatch, tmp_path):
     env = Backend(params, devices)
     assert (env.sharded_tier, env.sharded_tier_policy) == (
         "ppermute", "forced-ppermute (DGOL_ICI=0)")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("geometry", [(96, 128), (96, 256)], ids=["narrow", "shipped"])
+@pytest.mark.parametrize("mesh_shape", [(2, 2), (1, 2)], ids=["2x2", "1x2"])
+def test_gpu_k15_tiers_match_plain_and_mirror(cuda_device, monkeypatch, mesh_shape, geometry):
+    """K15's compute tiers on the card: ``test_torch_tile_tiers``' sparse
+    boards with their tile gliders (320-word tiles, T = 18 on 256-row
+    stripes) under the (96, 128) geometry, where the rectangle route runs,
+    and the shipped one, against the plain version on the card launch by
+    launch (tiles, the whole state, skip counts, activity, and the routes
+    with the edge stripes K15 elides as the full route the plain version
+    forces) and against the mirror on the card (the routes exactly)."""
+    from test_torch_tile_tiers import BOARDS, STRIPE, W
+
+    from distributed_gol_torch.testing.boards import sparse_board
+
+    h, slots = BOARDS[mesh_shape]
+    p = packed_of(sparse_board(h, W, STRIPE, slots, mesh_shape), cuda_device)
+    plan = cuda_adaptive.AdaptivePlan(18, STRIPE, True)
+    seen = {}
+    with cuda_adaptive.plan_geometry_override(geometry):
+        for key in ("card", "plain", "mirror"):
+            if key == "mirror":
+                monkeypatch.setattr(cuda_halo, "tile_mega_launch_plain",
+                                    cuda_halo.tile_mega_launch_mirror)
+            seen[key] = []
+            chunk_on(tiles_of(p, mesh_shape), plan, tlife.CONWAY, 8, key != "card",
+                     lambda out, st, _s=seen[key]: _s.append(
+                         ([t.to(CPU, copy=True) for row in out for t in row],
+                          *(x.to(CPU, copy=True) for x in (st.state, st.skipped, st.act,
+                                                            st.route)))))
+    for card, plain, mirror in zip(*seen.values()):
+        assert all(torch.equal(x, y) for x, y in zip(card[0], plain[0]))
+        assert all(torch.equal(x, y) for x, y in zip(card[1:4], plain[1:4]))
+        assert torch.equal(torch.where(card[4] == cuda_adaptive.ROUTE_ELIDED,
+                                       cuda_adaptive.ROUTE_FULL, card[4]), plain[4])
+        assert torch.equal(card[4], mirror[4])
+    routes = torch.stack([r[4] for r in seen["card"]]).unique().tolist()
+    assert (cuda_adaptive.ROUTE_TIER in routes) == (geometry == (96, 128))

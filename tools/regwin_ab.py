@@ -36,7 +36,8 @@ chunk or sequence of 64 launches, and K8
 (``frontier_superstep_batched``) on serving path (c)'s stack of four
 4096² soups (seeds 51-54; settled: each after 100,000 generations of
 K2) and on the sparse stack (a 4096 x 16384 board beside a dead one),
-chunks of 8: the median and spread of 5 event-timed batches per
+chunks of 8, and K15 over the (2, 2) tiles of the sparse board with its
+tile gliders, at the shipped geometry and under (96, 128): the median and spread of 5 event-timed batches per
 launch (the host's calls and, for K12, the exchange included), each
 kernel's device ms per launch from ``torch.profiler`` (the frontier
 kernel and its finalize apart), and the SASS of their loops
@@ -104,6 +105,10 @@ BIG = 16384
 BATCHES = 5
 # K8's sparse stack (``sparse_boards``): these slots of ``sparse_board``.
 K8_SPARSE = ("mid", "spark", "two_columns", "two_rows")
+# The plan geometry (sub_margin, col_window) under which K15 is also timed
+# on the sparse board's (2, 2) tiles: their 256 words host its column
+# window.
+TIER_GEOMETRY = (96, 128)
 
 
 def spread(per: list) -> dict:
@@ -193,14 +198,27 @@ def pod_stack(packed_soup, seed: int) -> torch.Tensor:
     return torch.stack([packed_soup(POD_C[1], POD_C[1], seed + i) for i in range(POD_C[0])])
 
 
-def frontier_cases(cuda_adaptive, cuda_halo, shards, boards, pods, rule):
+def under(cuda_adaptive, geometry, fn):
+    """``fn`` run under the frontier plan geometry ``geometry``
+    (``cuda_adaptive.plan_geometry_override``)."""
+    def run():
+        with cuda_adaptive.plan_geometry_override(geometry):
+            return fn()
+
+    return run
+
+
+def frontier_cases(cuda_adaptive, cuda_halo, shards, boards, pods, rule, tile_board=None):
     """The frontier kernels at the main paths' shapes and the port's plan,
     on each board: (key, plan, one shard's shape and the shards one launch
     covers, a call of 64 launches (K8: 8), launches a call, profiler
     tests).  K15 over the (2, 2) tiles, K12 on the (4, 1) strips (a call is
     64 rounds of 4 strip launches with the exchange), K5 on the whole
     board, K14 over the (4, 1) strips, K8 on pod (c)'s stacks and on the
-    sparse stack, each at its own plan."""
+    sparse stack, each at its own plan; and K15 over the (2, 2) tiles of
+    ``tile_board`` (the sparse board with its tile gliders) at the shipped
+    geometry and under ``TIER_GEOMETRY``, whose column window the 256-word
+    tiles host."""
     out = []
     tile = (BIG // 2, BIG // 64)
     strip = (BIG // 4, BIG // 32)
@@ -220,6 +238,15 @@ def frontier_cases(cuda_adaptive, cuda_halo, shards, boards, pods, rule):
             (f"k14_{name}", plan14, strip, 4, lambda strips=strips: cuda_halo.strip_mega_launches(
                 strips, rule, plan14, 64), 64, kernels("strip_mega_reg_kernel", "strip_mega_kernel")),
         ]
+    if tile_board is not None:
+        tiles = shards(tile_board, (2, 2)).shards
+
+        def k15(tiles=tiles):
+            return cuda_halo.tile_mega_launches(tiles, rule, plan15, 64)
+
+        for key, fn in (("k15_sparse_tiles", k15),
+                        ("k15_sparse_tiles_c128", under(cuda_adaptive, TIER_GEOMETRY, k15))):
+            out.append((key, plan15, tile, 4, fn, 64, kernels("tile_mega_reg_kernel")))
     for name, st in pods.items():
         plan = cuda_adaptive.adaptive_plan(tuple(st.shape[1:]), 10**6)
         out.append((f"k8_{name}", plan, tuple(st.shape[1:]), st.shape[0], lambda st=st, plan=plan:
@@ -232,8 +259,9 @@ def sparse_boards(packed, dev):
     """``distributed_gol_torch/testing/boards.py::sparse_board`` of this
     script's checkout (loaded by path, so a parent checkout that lacks it
     is timed on the same boards), packed on ``dev``: the 16384² board of
-    all its slots, and K8's stack of a 4096 x 16384 board of four slots
-    beside a dead one."""
+    all its slots, K8's stack of a 4096 x 16384 board of four slots
+    beside a dead one, and the 16384² board with its gliders across the
+    seams and a corner of (2, 2) tiles."""
     import importlib.util
 
     path = Path(__file__).resolve().parents[1] / "distributed_gol_torch" / "testing" / "boards.py"
@@ -246,7 +274,8 @@ def sparse_boards(packed, dev):
 
     stack = pack(boards.sparse_board(POD_C[1], BIG, 256, K8_SPARSE))
     return (pack(boards.sparse_board(BIG, BIG, 256)),
-            torch.stack([stack, torch.zeros_like(stack)]).contiguous())
+            torch.stack([stack, torch.zeros_like(stack)]).contiguous(),
+            pack(boards.sparse_board(BIG, BIG, 256, tiles=(2, 2))))
 
 
 def time_frontier(cases) -> dict:
@@ -1082,8 +1111,8 @@ def main() -> int:
         pods["settled"] = torch.stack([cuda_packed.tiled_superstep(b.contiguous(), CONWAY, 100_000)
                                        for b in pods["fresh"]])
         torch.save(pods["settled"].cpu(), pod_path)
-    boards["sparse"], pods["sparse"] = sparse_boards(packed, dev)
-    frontier = frontier_cases(cuda_adaptive, cuda_halo, shards, boards, pods, CONWAY)
+    boards["sparse"], pods["sparse"], tile_board = sparse_boards(packed, dev)
+    frontier = frontier_cases(cuda_adaptive, cuda_halo, shards, boards, pods, CONWAY, tile_board)
     out["frontier"] = time_frontier(frontier)
     out["frontier_sass"] = frontier_sass(cuda_build)
     if args.frontier:

@@ -563,6 +563,27 @@ T5_STEP, T5_CKPT, T5_FAULT = 500, 1_000, Fault(2, "corrupt", cells=3)
 T6_DENSITY, T6_TURNS, T6_TICK, T6_PAUSE, T6_PAST = 0.6, 10, 0.05, 20, 2**31
 # Rows of the card's soup a block (``flagship_packed``).
 FLAG_ROWS = 2048
+# The peer form of K14 and K15 (``check_peer_mega``): the 16384² boards
+# split by mesh shape into launch groups (shard ids, row-major): (4, 1) a
+# strip a group, (8, 1) two strips a group, (2, 2) a tile a group and a
+# tile row a group.  On one card a stream a group stands in for a card;
+# on four cards (``--peer``) group g runs on card g.
+PEER_CASES = (("4x1", (4, 1), ((0,), (1,), (2,), (3,))),
+              ("8x1", (8, 1), ((0, 1), (2, 3), (4, 5), (6, 7))),
+              ("2x2", (2, 2), ((0,), (1,), (2,), (3,))),
+              ("2x2-rows", (2, 2), ((0, 1), (2, 3))))
+PEER_LAUNCHES, PEER_CHUNK = 8, 64
+# Path (u), ``--peer`` on four cards through ``gol.run``, a shard a card
+# unless a leg says otherwise: (u1) the 16384² soup x U_TURNS with
+# skip_stable on (4, 1), (u2) on (2, 2), (u3) on (8, 1), two strips a
+# card; (u4) BASELINE config 4, the 65536² soup x LONG_TURNS with
+# skip_stable on (4, 1); (u5) path (o) across the cards.  Each leg beside
+# the same run on the ppermute tier across the cards and on one card, at a
+# fixed superstep (U_STEP, U4_STEP turns): a chunk's launch 0 skips
+# nothing, so only runs cut into the same dispatches skip alike, and the
+# adaptive superstep cuts by each run's own timing.
+U_TURNS, U_STEP, U4_STEP = 20_000, 2_000, 10_000
+U_CARDS = 4
 
 
 def virtual(mesh_shape: tuple, device) -> list:
@@ -625,12 +646,17 @@ def step(name: str, fn, *args):
     return out
 
 
-def nvidia_smi(query: str) -> str:
+def all_cards_smi(query: str) -> list:
+    """``nvidia-smi``'s answer to ``query``, a line a card."""
     out = subprocess.run(
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     )
-    return out.stdout.strip().splitlines()[0]
+    return out.stdout.strip().splitlines()
+
+
+def nvidia_smi(query: str) -> str:
+    return all_cards_smi(query)[0]
 
 
 def board(h: int, w: int, seed: int, device) -> torch.Tensor:
@@ -1109,7 +1135,9 @@ def records_err(got: list, want: list, what: str) -> int:
     if err:
         bad = next(k for k, (g, w) in enumerate(zip(got, want))
                    if any(max_abs_err(a, b) for a, b in zip(g, w)))
-        raise AssertionError(f"{what}: launch {bad} differs (board, state or routes)")
+        items = [i for i, (a, b) in enumerate(zip(got[bad], want[bad])) if max_abs_err(a, b)]
+        raise AssertionError(f"{what}: launch {bad} differs (board, state or routes: items "
+                             f"{items} of {len(want[bad])})")
     return err
 
 
@@ -2113,6 +2141,318 @@ def check_tile_mirror(errs: dict, tiles, plan, where: str) -> None:
         f"{elided} edge stripes of {8 * len(flat(tiles)) * 2}")
 
 
+# -- the peer form of K14 and K15 ----------------------------------------------
+
+
+def sync_all() -> None:
+    """Wait for every CUDA device of the process."""
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def split_shards(p: torch.Tensor, mesh_shape: tuple) -> list:
+    """A board cut into ``mesh_shape``'s shards: strips on a row mesh,
+    rows of tiles on a 2-D mesh."""
+    return list(p.chunk(mesh_shape[0])) if mesh_shape[1] == 1 else tiles_of(p, mesh_shape)
+
+
+def mega_plan(mesh_shape: tuple):
+    """The port's frontier plan of a ``mesh_shape`` split of the 16384²
+    board (K14's strip plan, K15's tile plan); raises without one."""
+    ny, nx = mesh_shape
+    if nx == 1:
+        plan = cuda_halo.adaptive_strip_plan((BIG // ny, BIG // 32), 10**6)
+    else:
+        plan = (cuda_halo.adaptive_tile_plan((BIG // ny, BIG // 32 // nx), 10**6) or (None,))[0]
+    if plan is None or not plan.frontier:
+        raise AssertionError(f"the {mesh_shape} shards of {BIG}^2 have no frontier plan ({plan})")
+    return plan
+
+
+def placed(shards, groups, cards) -> list:
+    """``shards`` with group g's on ``cards[g % len(cards)]`` (None: as
+    they are), in the same layout."""
+    if cards is None:
+        return shards
+    where = {s: cards[g % len(cards)] for g, ids in enumerate(groups) for s in ids}
+    moved = [t.to(where[s]) for s, t in enumerate(flat(shards))]
+    if not isinstance(shards[0], list):
+        return moved
+    nx = len(shards[0])
+    return [moved[r * nx:(r + 1) * nx] for r in range(len(shards))]
+
+
+def peer_records(chunk, shards, plan, n: int, **kw) -> list:
+    """``chunk`` (``strip_mega_launches`` or ``tile_mega_launches``, its
+    ``kw``: plain, groups, streams) over n launches, each launch's shards,
+    whole state, routes, skip counts and activity cloned on the state's
+    device (the first card)."""
+    seen = []
+
+    def each(out, st):
+        dev = st.state.device
+        seen.append([*(t.to(dev, copy=True) for t in flat(out)), st.state.clone(),
+                     st.route.clone(), st.skipped.clone(), st.act.clone()])
+
+    chunk(shards, CONWAY, plan, n, each=each, **kw)
+    return seen
+
+
+def as_plain_routes(records: list) -> list:
+    """``peer_records`` with the routes as the plain version gives them:
+    it forces the edge stripes K15 elides."""
+    return [[*r[:-3], torch.where(r[-3] == cuda_adaptive.ROUTE_ELIDED, cuda_adaptive.ROUTE_FULL,
+                                  r[-3]), *r[-2:]] for r in records]
+
+
+def check_peer_mega(errs: dict, boards: dict, sparse: torch.Tensor, cards=None) -> dict:
+    """The peer form of K14 and K15 (the launches a card over its own
+    shards, the pointer and shard-id tables, the events between launches)
+    against the one-launch K14 or K15 and its plain version, tolerance 0,
+    launch by launch over ``PEER_LAUNCHES``: board, both state parities,
+    routes, skip count per shard and activity; then a ``PEER_CHUNK``-launch
+    chunk against the one-launch chunk (shards, final state, skip counts,
+    activity), with no read between its launches.  Each case of
+    ``PEER_CASES`` (a mesh shape and its launch groups) on the 16384²
+    soup, fresh and settled, and on ``sparse``.  ``cards`` None: one
+    stream a group on this card stands in for a card (kernels of
+    different streams overlap, so a missing wait shows as a difference);
+    else group g runs on ``cards[g % len(cards)]`` (``--peer``), its
+    shards moved there.  The launch-by-launch run must launch its kernel
+    once a group a launch.  Returns per case its launches, max abs error and groups."""
+    out = {}
+    for name, mesh_shape, groups in PEER_CASES:
+        key = "strip_mega" if mesh_shape[1] == 1 else "tile_mega"
+        chunk = {"strip_mega": cuda_halo.strip_mega_launches,
+                 "tile_mega": cuda_halo.tile_mega_launches}[key]
+        plan = mega_plan(mesh_shape)
+        err, launched = 0, 0
+        for bname, p in (("fresh", boards["fresh"]), ("settled", boards["settled"]),
+                         ("sparse", sparse)):
+            shards = split_shards(p, mesh_shape)
+            want = peer_records(chunk, shards, plan, PEER_LAUNCHES)
+            plain = peer_records(chunk, shards, plan, PEER_LAUNCHES, plain=True)
+            kw = dict(groups=groups)
+            if cards is None:
+                kw["streams"] = [torch.cuda.Stream(p.device) for _ in groups]
+            where = placed(shards, groups, cards)
+            reset_launches()
+            got = peer_records(chunk, where, plan, PEER_LAUNCHES, **kw)
+            sync_all()
+            n = WRAPPERS[key].launches
+            if n != PEER_LAUNCHES * len(groups):
+                raise AssertionError(f"the peer form on {name} {bname} launched {key} {n} times, "
+                                     f"not {PEER_LAUNCHES} x {len(groups)} groups")
+            launched += n
+            what = f"the peer form on {name} {bname}"
+            err = max(err, records_err(got, want, f"{what} against one launch"),
+                      records_err(as_plain_routes(want), plain,
+                                  f"{what}: one launch against the plain version"))
+            del want, plain, got
+            # The records join the groups after every launch; a chunk with
+            # nothing read between its launches shows a missing wait.
+            reset_launches()
+            out_p, st_p = chunk(where, CONWAY, plan, PEER_CHUNK, **kw)
+            sync_all()
+            launched += WRAPPERS[key].launches
+            one = chunk(shards, CONWAY, plan, PEER_CHUNK)
+            e = mega_chunks_equal(([t.to(p.device) for t in flat(out_p)], st_p),
+                                  (flat(one[0]), one[1]), PEER_CHUNK)
+            if e:
+                raise AssertionError(f"{what}: a {PEER_CHUNK}-launch chunk differs from one "
+                                     "launch's")
+            del out_p, st_p, one
+        errs[key] = max(errs[key], err)
+        out[name] = dict(mesh_shape=list(mesh_shape), groups=[list(g) for g in groups],
+                         launches=launched, max_abs_err=err,
+                         cards=None if cards is None else [str(c) for c in cards])
+        log(f"{key} peer form {name} ({len(groups)} groups on "
+            f"{'streams of one card' if cards is None else f'{len(cards)} cards'}): "
+            f"{PEER_LAUNCHES} launches launch by launch on the fresh, settled and sparse boards "
+            f"equal the one-launch chunk and its plain version (board, both state parities, "
+            f"routes, skip counts, activity), and a {PEER_CHUNK}-launch chunk the one-launch "
+            f"chunk; {launched} launches")
+    return out
+
+
+def union_ms(intervals: list) -> float:
+    """The ms that (start, end) intervals in us cover, overlaps once."""
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3
+
+
+def traced_cards(fn, launches: int, kernels: tuple) -> dict:
+    """``fn()`` (after a warm-up call) under ``torch.profiler``: per device,
+    the device ms a launch of the named ``kernels`` (summed), the ms a
+    launch the device was busy with any kernel or copy (overlaps once),
+    its span from the first activity's start to the last one's end, the
+    idle share of that span and the idle ms a launch inside it (the
+    card's waits on the events of the cards it reads, and the host's
+    launch gaps)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync_all()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync_all()
+    act, named = collections.defaultdict(list), collections.defaultdict(float)
+    for e in prof.events():
+        if "CUDA" not in str(e.device_type):
+            continue
+        a, b = e.time_range.start, e.time_range.end
+        act[e.device_index].append((a, b))
+        if any(k in e.name for k in kernels):
+            named[e.device_index] += (b - a) / 1e3
+    out = {}
+    for dev, spans in sorted(act.items()):
+        span = (max(b for _, b in spans) - min(a for a, _ in spans)) / 1e3
+        busy = union_ms(spans)
+        out[f"cuda:{dev}"] = dict(
+            kernel_ms_per_launch=named[dev] / launches, busy_ms_per_launch=busy / launches,
+            span_ms=span, idle_share=1 - busy / span if span else None,
+            idle_ms_per_launch=(span - busy) / launches)
+    return out
+
+
+def link_bytes(mesh_shape: tuple, groups, cards, plan, shape: tuple) -> dict:
+    """The bytes one launch of the peer form reads from and writes to
+    another card's memory at most, from its geometry (every block
+    stepping, as on a fresh board): each stepping block's window words
+    that lie in a shard on another card (``frontier_blocks``' tiles of
+    tile_h rows with T + 6 rows a side, 32-word column groups reading one
+    word past each side of their 30), and, for a card other than the
+    first, each block's gathered state (K14: 3 stripes, K15: 9, 6 fields
+    each, and its 4-field rectangle), each stripe's published rectangle
+    (4) and finalized intervals (6), all in the first card's state
+    array."""
+    ny, nx = mesh_shape
+    h, wp = shape
+    halo = plan.t + 6
+    owner = {s: cards[g % len(cards)] for g, ids in enumerate(groups) for s in ids}
+    per_card = collections.Counter()
+    for g, ids in enumerate(groups):
+        card = cards[g % len(cards)]
+        blocks = cuda_adaptive.frontier_blocks(shape, plan, len(ids))
+        rows = np.arange(blocks.grid[0] * blocks.tile_h + 2 * halo) - halo
+        cols = np.arange(blocks.grid[1] * blocks.centre + 2) - 1
+        sy = np.where(rows < 0, -1, np.where(rows >= h, 1, 0))
+        sx = np.where(cols < 0, -1, np.where(cols >= wp, 1, 0)) if nx > 1 else np.zeros_like(cols)
+        # Each block reads its own window (windows of neighbouring blocks
+        # overlap by 2 (T + 6) rows and 2 words): its rows by side of the
+        # shard (-1 north, 0 own, 1 south), its words by side (west, own,
+        # east; on a row mesh the strip spans the board's width).
+        win_rows = [collections.Counter(sy[y0:y0 + blocks.tile_h + 2 * halo].tolist())
+                    for y0 in range(0, blocks.grid[0] * blocks.tile_h, blocks.tile_h)]
+        win_cols = [collections.Counter(sx[x0:x0 + 32].tolist())
+                    for x0 in range(0, blocks.grid[1] * blocks.centre, blocks.centre)]
+        for s in ids:
+            dy, dx = divmod(s, nx)
+            for oy in (-1, 0, 1):
+                for ox in ((-1, 0, 1) if nx > 1 else (0,)):
+                    src = ((dy + oy) % ny) * nx + (dx + ox) % nx
+                    if owner[src] != card:
+                        per_card[str(card)] += 4 * (sum(r[oy] for r in win_rows)
+                                                    * sum(c[ox] for c in win_cols))
+            if card != owner[0]:
+                nb = (9 if nx > 1 else 3) * 6 + 4
+                per_card[str(card)] += 4 * (blocks.grid[0] * blocks.grid[1] * nb
+                                            + plan.grid(h) * (4 + 6))
+    return dict(per_card=dict(per_card), total=sum(per_card.values()))
+
+
+def time_peer(boards: dict, cards=None) -> dict:
+    """The peer form of K14 over the (4, 1) strips and of K15 over the
+    (2, 2) tiles of the 16384² soup, fresh and settled, four groups of one
+    shard: one 64-launch chunk between CUDA events on the first card,
+    over 64 (the chunk joins every group's stream there), the median and
+    spread of ``BATCHES`` batches of 2 chunks, and one chunk traced
+    (``traced_cards``: each card's device ms, busy and idle a launch, the
+    idle an upper bound on its waits on the events of the cards it reads);
+    beside, in the same call, the one-launch chunk on the first card (timed
+    and traced) and,
+    across ``cards``, the ppermute tier's 64 launches (four K12 or K13
+    launches a mesh launch with the exchange between launches).  ``cards``
+    None: one stream a group on this card.  Across cards it also prints,
+    on a record of its own and not in the kernels line, the bytes a launch
+    moves across cards at most: a bound from the launch's geometry
+    (``link_bytes``), not a reading of the links."""
+    rows, links = {}, {}
+    for key, mesh_shape in (("strip_mega", MESH_E), ("tile_mega", MESH_H)):
+        groups = next(g for _, m, g in PEER_CASES if m == mesh_shape and len(g) == 4)
+        plan = mega_plan(mesh_shape)
+        chunk = {"strip_mega": cuda_halo.strip_mega_launches,
+                 "tile_mega": cuda_halo.tile_mega_launches}[key]
+        kernel = {"strip_mega": "strip_mega_reg_kernel", "tile_mega": "tile_mega_reg_kernel"}[key]
+        shape = (BIG // mesh_shape[0], BIG // 32 // mesh_shape[1])
+        for bname in ("fresh", "settled"):
+            shards = split_shards(boards[bname], mesh_shape)
+            where = placed(shards, groups, cards)
+            dev = boards[bname].device
+            streams = None if cards else [torch.cuda.Stream(dev) for _ in groups]
+
+            def peer(n=64):
+                return chunk(where, CONWAY, plan, n, groups=groups, streams=streams)
+
+            spread_ms = per_launch(cuda_ms_spread(peer, 2), 64)
+            row = dict(
+                ms=spread_ms["median"], ms_spread=spread_ms,
+                one_card_ms=cuda_ms(lambda: chunk(shards, CONWAY, plan, 64), 2) / 64,
+                one_card_traced=traced_cards(lambda: chunk(shards, CONWAY, plan, 64), 64,
+                                             (kernel, "frontier_finalize")),
+                traced=traced_cards(peer, 64, (kernel, "frontier_finalize")),
+                groups=[list(g) for g in groups], plan=str(plan))
+            if cards:
+                if key == "strip_mega":
+                    def pp():
+                        return cuda_halo.frontier_launches(where, CONWAY, plan, 64)
+                    pp_kernel = "strip_frontier_reg_kernel"
+                else:
+                    xpad = cuda_halo.adaptive_tile_plan(shape, 10**6)[1]
+                    board = halo.ShardedBoard(
+                        mesh_lib.make_mesh(mesh_shape, [t.device for t in flat(where)]), where)
+
+                    def pp():
+                        return cuda_halo.tile_probing_launches(board, CONWAY, plan, xpad, 64)
+                    pp_kernel = "tile_probing_reg_kernel"
+                row["ppermute_ms"] = cuda_ms(pp, 2) / 64
+                row["ppermute_traced"] = traced_cards(pp, 64, (pp_kernel, "frontier_finalize"))
+            rows.setdefault(key, {})[bname] = row
+            log(f"{key} peer form over {mesh_shape} {bname} in {len(groups)} groups "
+                f"({'streams of one card' if cards is None else f'{len(cards)} cards'}): "
+                f"{row['ms']:.4f} ms a launch ({spread_ms['min']:.4f}-{spread_ms['max']:.4f}); "
+                f"one card, one launch {row['one_card_ms']:.4f}; ppermute tier "
+                f"{row.get('ppermute_ms')}; by card {row['traced']}")
+        if cards:
+            links[key] = link_bytes(mesh_shape, groups, cards, plan, shape)
+    if links:
+        print(record({"peer_link_bytes_geometry_bound": links}), flush=True)
+    return rows
+
+
+def peer_entries(cases: dict, times: dict) -> dict:
+    """The ``peer_*`` entries of K14's and K15's rows of the kernels line:
+    the peer form's checks (``check_peer_mega``: its launches and max abs
+    error over the cases of the kernel) and times (``time_peer``: the
+    fresh soup leads, both boards under ``peer_per_board``)."""
+    out = {}
+    for key, rows in times.items():
+        mine = {n: c for n, c in cases.items() if (c["mesh_shape"][1] == 1) == (key == "strip_mega")}
+        fresh = rows["fresh"]
+        out[key] = dict(
+            peer_form=("one stream a launch group on one card" if fresh.get("ppermute_ms") is None
+                       else "one card a launch group"),
+            peer_launches=sum(c["launches"] for c in mine.values()),
+            peer_max_abs_err=max(c["max_abs_err"] for c in mine.values()),
+            peer_cases=mine, peer_ms=fresh["ms"], peer_one_card_ms=fresh["one_card_ms"],
+            peer_ppermute_ms=fresh.get("ppermute_ms"), peer_per_board=rows)
+    return out
+
+
 # -- phase 3: the main path ----------------------------------------------------
 
 
@@ -3066,8 +3406,10 @@ def supervised_path(tmp: Path, straight: bytes, launches: dict) -> dict:
                 stats=dict(run=stats_row("run gens/s", [2000 / run["seconds"]])))
 
 
-def escalation_path(tmp: Path, launches: dict, device) -> dict:
-    """(o): path (e)'s soup x ``O_TURNS`` on ``MESH_E`` with ``skip_stable``,
+def escalation_path(tmp: Path, launches: dict, device, devices=None) -> dict:
+    """(o): path (e)'s soup x ``O_TURNS`` on ``MESH_E`` with ``skip_stable``
+    (``devices`` places it: the virtual mesh of ``device`` by default; (u5)
+    gives it four cards, where the first rung is the peer form),
     superstep ``O_STEP``, a checkpoint every ``O_CKPT`` turns,
     ``restart_limit=2`` and two issue bursts (``O_FAULTS``), under the
     supervisor's own rebuild ladder: the first attempt's Backend on the
@@ -3090,7 +3432,7 @@ def escalation_path(tmp: Path, launches: dict, device) -> dict:
     params = gol.Params(turns=O_TURNS, mesh_shape=MESH_E, skip_stable=True, superstep=O_STEP,
                         restart_limit=2, checkpoint_every_turns=O_CKPT,
                         out_dir=tmp / "escalate", **soup)
-    devices = virtual(MESH_E, device)
+    devices = devices or virtual(MESH_E, device)
     harness = FaultInjectionBackend(Backend(params, devices), FaultPlan(O_FAULTS))
     marks, built = {}, []
 
@@ -3124,7 +3466,8 @@ def escalation_path(tmp: Path, launches: dict, device) -> dict:
                              f"({policy})")
     for k in ("ext", *STRIPS, "strip_mega"):
         launches[k] += run["launches"][k]
-    print(f"escalation (o) {BIG}^2 x {O_TURNS} on {MESH_E}: {run['seconds']:.3f} s, history "
+    print(f"escalation (o) {BIG}^2 x {O_TURNS} on {MESH_E} of {sorted(set(map(str, devices)))}: "
+          f"{run['seconds']:.3f} s, history "
           f"{history}, launches before the escalation "
           f"{ {k: before[k] for k in ('ext', *STRIPS, 'strip_mega')} }, after "
           f"{ {k: after[k] for k in ('ext', *STRIPS, 'strip_mega')} }, tier policy {policy!r}; "
@@ -4550,6 +4893,234 @@ def flagship_path(tmp: Path, launches: dict, device, profile: bool = False) -> d
     return e2e
 
 
+# -- path (u): the peer form on four cards (``--peer``) ---------------------------
+
+
+def count_skips(be: Backend) -> list:
+    """Each adaptive dispatch's skip count (a device value, unread), in a
+    list that ``be``'s ``skip_listener`` fills; the cycle probes are not
+    dispatches."""
+    seen = []
+    be.skip_listener = lambda skipped, total, act: seen.append(skipped)
+    return seen
+
+
+def on_cards(mesh_shape: tuple, cards: list) -> list:
+    """A shard-per-device list putting ``mesh_shape``'s shards on
+    ``cards`` in contiguous runs (row-major): a shard a card on four
+    shards, two strips a card on (8, 1)."""
+    n = mesh_shape[0] * mesh_shape[1]
+    return [cards[s * len(cards) // n] for s in range(n)]
+
+
+def tier_forms(mesh_shape: tuple, cards: list) -> tuple:
+    """(form, devices, in_kernel) of path (u)'s three runs of a leg: the
+    peer form across ``cards``, the ppermute tier across them, and the
+    in-kernel tier on the first card (a virtual mesh)."""
+    spread_out = on_cards(mesh_shape, cards)
+    return (("peer", spread_out, None), ("ppermute", spread_out, False),
+            ("one_card", [cards[0]] * len(spread_out), None))
+
+
+def check_tier_runs(name: str, runs: dict, key: str, same) -> None:
+    """Path (u)'s checks of a leg's three runs: the peer and one-card
+    runs on the in-kernel tier (``"ici-megakernel"``, policy
+    ``"in-kernel"``) launching ``key``, the ppermute run on its forced
+    tier launching no ``key``; all three finals ``same``, and the peer
+    run's skip count the one-card run's, dispatch by dispatch (both cut
+    into the same dispatches, so the same chunks and tails)."""
+    for form, r in runs.items():
+        tier, policy = r["sharded_tier"], r["sharded_tier_policy"]
+        want = (("ppermute", "forced-ppermute (in_kernel=False)") if form == "ppermute"
+                else ("ici-megakernel", "in-kernel"))
+        if (tier, policy) != want:
+            raise AssertionError(f"{name} {form}: tier {tier!r} ({policy!r}), not {want}")
+        if bool(r["launches"].get(key)) == (form == "ppermute"):
+            raise AssertionError(f"{name} {form}: {key} launches {r['launches'].get(key)}")
+    if not (same("peer", "ppermute") and same("peer", "one_card")):
+        raise AssertionError(f"{name}: the final boards differ between the tiers")
+    a, b = runs["peer"]["dispatch_skips"], runs["one_card"]["dispatch_skips"]
+    if a != b:
+        first = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+        raise AssertionError(f"{name}: the peer form skipped {sum(a)} stripe-launches in "
+                             f"{len(a)} dispatches, one card {sum(b)} in {len(b)}; first "
+                             f"differing dispatch {first}")
+
+
+def tier_row(params: gol.Params, seconds: float, sink, counts: dict, skips: list,
+             devices: list) -> dict:
+    info = sink.report["info"]
+    loop = sink.loop_seconds()
+    return dict(seconds=seconds, gens_per_s=params.turns / seconds, dispatch_loop_s=loop,
+                stats=dict(run=stats_row("run gens/s", [params.turns / seconds]),
+                           loop=stats_row("dispatch-loop gens/s", [params.turns / loop])),
+                launches={k: n for k, n in counts.items() if n},
+                sharded_tier=info.get("backend.sharded_tier"),
+                sharded_tier_policy=info.get("backend.sharded_tier_policy"),
+                skipped=sum(int(x) for x in skips), devices=[str(d) for d in devices],
+                dispatch_skips=[int(x) for x in skips])
+
+
+def peer_leg(name: str, params: gol.Params, cards: list, launches: dict) -> dict:
+    """(u1)-(u3): ``params`` through ``gol.run`` on the peer form across
+    ``cards`` (``tier_forms``), beside the ppermute tier across them and
+    the in-kernel tier on one card; the three PGMs must be one and the
+    peer run's skip count the one-card run's (``check_tier_runs``).  The
+    peer run's launches are added to ``launches``."""
+    key = "strip_mega" if params.mesh_shape[1] == 1 else "tile_mega"
+    runs, finals = {}, {}
+    for form, devices, in_kernel in tier_forms(params.mesh_shape, cards):
+        p = dataclasses.replace(params, out_dir=params.out_dir / form)
+        be = Backend(p, devices, in_kernel=in_kernel)
+        skips, sink = count_skips(be), Sink()
+        reset_launches()
+        seconds, finals[form] = stream_run(p, sink, backend=be)
+        counts = launch_counts()
+        if finals[form] is None:
+            raise AssertionError(f"{name} {form}: no final PGM")
+        runs[form] = tier_row(p, seconds, sink, counts, skips, devices)
+        if form == "peer":
+            for k, n in counts.items():
+                launches[k] += n
+        del be
+    check_tier_runs(name, runs, key, lambda a, b: finals[a] == finals[b])
+    r = runs
+    print(f"peer {name} {params.image_height}^2 x {params.turns} on {params.mesh_shape}: peer "
+          f"form {r['peer']['gens_per_s']:.1f} gens/s (loop {r['peer']['dispatch_loop_s']:.3f} s, "
+          f"skipped {r['peer']['skipped']}, launches {r['peer']['launches']}); ppermute tier "
+          f"{r['ppermute']['gens_per_s']:.1f} gens/s (loop {r['ppermute']['dispatch_loop_s']:.3f} "
+          f"s, skipped {r['ppermute']['skipped']}); one card {r['one_card']['gens_per_s']:.1f} "
+          f"gens/s (loop {r['one_card']['dispatch_loop_s']:.3f} s); one PGM", flush=True)
+    return runs
+
+
+def peer_flagship(tmp: Path, cards: list, launches: dict) -> dict:
+    """(u4), BASELINE config 4: the flagship's seeded 65536² soup (path
+    (t)'s, made on the first card and written as the input PGM) x
+    ``LONG_TURNS`` with auto ``skip_stable`` on ``T_MESH`` at superstep
+    ``U4_STEP``: the peer form across the cards, the ppermute tier across
+    them, and path (t3)'s run, the in-kernel tier on one card (at the same
+    superstep); each through ``flagship_leg`` (its
+    peak memory on the first card below half of it), held to one another
+    by their final alive cells (``same_board``), the peer run's skip
+    count to the one-card run's."""
+    side = f"{FLAG}x{FLAG}"
+    soup = tmp / "u4_soup"
+    t0 = time.perf_counter()
+    pgm.write_pgm(soup / f"{side}.pgm", card_soup(0.3, T_SEED, cards[0]))
+    log(f"(u4): the {side} soup made and written in {time.perf_counter() - t0:.1f} s")
+    base = gol.Params(turns=LONG_TURNS, image_width=FLAG, image_height=FLAG, images_dir=soup,
+                      mesh_shape=T_MESH, turn_events="batch", ticker_period=3600,
+                      superstep=U4_STEP, out_dir=tmp / "u4")
+    if not base.skip_stable_requested():
+        raise AssertionError("(u4): auto skip_stable does not engage")
+    runs, boards = {}, {}
+    for form, devices, in_kernel in tier_forms(T_MESH, cards):
+        p = dataclasses.replace(base, out_dir=tmp / f"u4_{form}")
+        be = Backend(p, devices, in_kernel=in_kernel)
+        skips = count_skips(be)
+        kernels = ("strip_frontier",) if form == "ppermute" else ("strip_mega",)
+        row, sink = flagship_leg(f"(u4) {side} x {LONG_TURNS} on {T_MESH}, {form}", p, kernels,
+                                 launches if form == "peer" else None, "pallas-packed",
+                                 backend=be)
+        info = sink.report["info"]
+        row.update(sharded_tier=info.get("backend.sharded_tier"),
+                   sharded_tier_policy=info.get("backend.sharded_tier_policy"),
+                   skipped=sum(int(x) for x in skips), devices=[str(d) for d in devices],
+                   dispatch_skips=[int(x) for x in skips])
+        runs[form], boards[form] = row, sink.final.alive
+        del sink, be
+    check_tier_runs("(u4)", runs, "strip_mega",
+                    lambda a, b: same_board(boards[a], boards[b]))
+    shutil.rmtree(soup)
+    print(f"peer (u4) config 4, {side} x {LONG_TURNS} on {T_MESH}: peer form "
+          f"{runs['peer']['stats']['run']['median']:.2f} run gens/s, ppermute tier "
+          f"{runs['ppermute']['stats']['run']['median']:.2f}, one card (t3) "
+          f"{runs['one_card']['stats']['run']['median']:.2f}; one board "
+          f"({runs['peer']['alive']} alive), skipped {runs['peer']['skipped']}", flush=True)
+    return runs
+
+
+def path_u(tmp: Path, cards: list, launches: dict, leg) -> None:
+    """Path (u)'s legs across ``cards``, each through ``leg(name, fn,
+    *args)``: (u1)-(u3) (``peer_leg``), (u4) (``peer_flagship``) and (u5),
+    (o)'s ladder across the cards (``escalation_path``).  One card listed
+    ``U_CARDS`` times runs the same code on a virtual mesh."""
+    soup = dict(image_width=BIG, image_height=BIG, soup_density=0.3, soup_seed=7,
+                turn_events="batch", ticker_period=3600, skip_stable=True, superstep=U_STEP)
+    for tag, mesh_shape in (("u1", (4, 1)), ("u2", (2, 2)), ("u3", (8, 1))):
+        params = gol.Params(turns=U_TURNS, mesh_shape=mesh_shape, out_dir=tmp / tag, **soup)
+        leg(tag, peer_leg, f"({tag})", params, cards, launches)
+    leg("u4", peer_flagship, tmp, cards, launches)
+    leg("u5", escalation_path, tmp, launches, cards[0], on_cards(MESH_E, cards))
+
+
+def peer_main(started: float) -> int:
+    """``--peer``: the peer form on ``U_CARDS`` cards of this machine.
+    Fails with a message where there are fewer cards or two of them
+    cannot reach each other (CUDA peer access); else builds the kernels,
+    runs ``check_peer_mega`` and ``time_peer`` across the cards, then
+    path (u) (``peer_leg``, ``peer_flagship`` and (o)'s ladder across the
+    cards).  Every leg runs even if one before it failed; any failure
+    fails the run, after the record."""
+    import traceback
+
+    n = torch.cuda.device_count()
+    smi = all_cards_smi("name,power.limit")
+    log(f"cards: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    if n < U_CARDS:
+        log(f"chip_smoke --peer: needs {U_CARDS} CUDA devices, found {n}")
+        return 1
+    cards = [torch.device("cuda", i) for i in range(U_CARDS)]
+    access = {f"cuda:{a}->cuda:{b}": bool(torch.cuda.can_device_access_peer(a, b))
+              for a in range(U_CARDS) for b in range(U_CARDS) if a != b}
+    print(record({"peer_access": access, "cards": smi}))
+    if not all(access.values()):
+        log(f"chip_smoke --peer: no CUDA peer access between {[k for k, v in access.items() if not v]}:"
+            " the peer form cannot run here (its policy gives the ppermute tier)")
+        return 1
+    t0 = time.perf_counter()
+    build_kernels()
+    log(f"built {list(KERNELS)} in {time.perf_counter() - t0:.1f} s")
+    for line in cuda_build.build_log("frontier").splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            log(f"  frontier: {line.strip()}")
+    reg = reg_build_report(cuda_build.build_log("frontier"))
+    errs = {k: 0 for k in KERNELS}
+    boards = step("boards", lambda: {"fresh": packed.pack(board(BIG, BIG, 13, cards[0])),
+                                     "settled": settled_board(cards[0])})
+    sparse = sparse_packed(BIG, BIG, cards[0])
+    results, failures = {}, []
+
+    def leg(name, fn, *args):
+        try:
+            results[name] = step(name, fn, *args)
+        except Exception as e:  # every leg runs; the run fails at the end
+            failures.append(f"{name}: {type(e).__name__}: {e}")
+            log(traceback.format_exc())
+
+    leg("check_peer_mega", check_peer_mega, errs, boards, sparse, cards)
+    leg("time_peer", time_peer, boards, cards)
+    if "check_peer_mega" in results and "time_peer" in results:
+        results["kernels"] = [
+            dict(name=k, **KERNELS[k], max_abs_err=errs[k], **r)
+            for k, r in peer_entries(results["check_peer_mega"], results["time_peer"]).items()]
+    launches = {k: 0 for k in KERNELS}
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent) as tmp:
+        path_u(Path(tmp), cards, launches, leg)
+    print(record({"peer": results, "launches": launches, "max_abs_err": errs,
+                  "frontier_build": reg, "step_seconds": STEP_SECONDS, "cards": smi}))
+    log(f"chip_smoke --peer: {time.perf_counter() - started:.1f} s in all, kernel builds included")
+    if failures:
+        for f in failures:
+            log(f"FAILED {f}")
+        return 1
+    print(smi[0])
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def serving_paths(tmp: Path, launches: dict) -> dict:
     """Phase 3's serving paths: the K7 pod batched and unbatched, the K8
     pod, and the ``serve`` CLI."""
@@ -5355,6 +5926,8 @@ def main() -> int:
         log("chip_smoke: no CUDA GPU (torch.cuda.is_available() is False)")
         return 1
     started = time.perf_counter()
+    if "--peer" in sys.argv[1:]:
+        return peer_main(started)
     device = torch.device("cuda", 0)
     card = nvidia_smi("name,power.limit")
     name = torch.cuda.get_device_name(0)
@@ -5421,6 +5994,7 @@ def main() -> int:
     tile_cases["plan_less"] = step("check_plan_less_i", check_plan_less, device, errs,
                                    TILE_PLAN_LESS, MESH_I, "i")
     tile_mega_cases = step("check_tile_mega", check_tile_mega, errs, tiled)
+    peer_cases = step("check_peer_mega", check_peer_mega, errs, boards, sparse)
     log(f"phase 2 (kernels against their plain versions) done at "
         f"{time.perf_counter() - started:.1f} s")
 
@@ -5561,6 +6135,8 @@ def main() -> int:
     timings.update(time_strips(strip_cases, int_rate))
     timings["strip_mega"] = time_strip_mega(mega_cases, int_rate)
     timings["tile_mega"] = time_tile_mega(tile_mega_cases, tile_cases, int_rate)
+    for k, r in peer_entries(peer_cases, time_peer(boards)).items():
+        timings[k]["extra"].update(r)
     tiles = time_tiles(tile_cases, int_rate)
     timings["tile_probing"] = tiles["tile_probing"]
     timings["ext"]["extra"]["build"] = {n: r for n, r in reg_build["ext"].items()

@@ -101,22 +101,30 @@
 // the in-kernel exchange tier of a skip_stable dispatch on a row mesh: on
 // a TPU one pallas_call per device runs a chunk of launches, shipping
 // round8(T + 6) boundary rows and its edge stripes' intervals to both
-// y-neighbours between launches by remote DMA.  Here every strip of the
-// mesh lies on this card, so a launch is one CUDA launch over every strip
-// (blockIdx.z the strip) and the exchange happens inside it: a window's
+// y-neighbours between launches by remote DMA.  Here a launch covers the
+// strips a table of shard ids names (blockIdx.z indexes the table): on
+// one card the table names every strip, and the exchange happens inside
+// the launch; in the peer form (strips on several cards of one process,
+// its remote build) each card launches over its own strips.  A window's
 // rows past its strip's edge are read straight from the neighbour strip's
 // read buffer (window.cuh::StripSource, north and south the neighbours'
 // whole buffers), and an edge stripe takes its outer neighbour's
-// intervals from the neighbour strip's entries of the one shared state
-// array, rows shifted by -/+ h_loc into its own row frame (MeshIntervals).
-// Stream order between the chained launches stands in for the TPU
-// kernel's semaphores and entry barrier, the two write buffers for its
-// parity slots.  Device tables give each strip's read and write buffer;
-// every array gains the strip axis as K8's gains the board axis, so K8's
-// finalize serves unchanged.  Its routes and writes are K5's, the
-// rectangle route's window inside the strip's own rows (an edge window
-// takes the row tier, whose window reads the neighbour strips).  With
-// ny = 1 the strip is its own neighbour: the JAX package's loopback
+// intervals from the neighbour strip's entries of the one state array,
+// rows shifted by -/+ h_loc into its own row frame (MeshIntervals).  The
+// pointer tables hold every strip's buffers and the state array lies on
+// the mesh's first card: a neighbour's buffer on another card, or the
+// state, is read and written through CUDA peer access (with unified
+// addressing a peer pointer is a pointer), so nothing is copied between
+// launches.  Stream order between the chained launches of one card, and
+// an event from each neighbour card's previous launch (the caller's,
+// cuda_halo.py), stand in for the TPU kernel's semaphores and entry
+// barrier, the two write buffers and the two state parities for its
+// parity slots.  Every array gains the strip axis as K8's gains the board
+// axis, each card touching only its strips' entries, so K8's finalize
+// serves, over the launch's shard ids.  Its routes and writes are K5's,
+// the rectangle route's window inside the strip's own rows (an edge
+// window takes the row tier, whose window reads the neighbour strips).
+// With ny = 1 the strip is its own neighbour: the JAX package's loopback
 // build.
 //
 // K15: the 2-D megakernel.  Replaces
@@ -124,15 +132,18 @@
 // the in-kernel exchange tier of a skip_stable dispatch on an (ny, nx)
 // mesh, whose TPU form ships N/S rows, E/W word columns, four corner
 // blocks and both x-neighbours' interval state over ten remote-DMA
-// channels every launch.  Here every tile lies on this card: one CUDA
-// launch covers every tile (blockIdx.z = dy * nx + dx), a window reads
-// whatever it needs past its tile's edges straight from the neighbour
-// tiles' read buffers, corners included (window.cuh::MeshTileSource), and
-// a stripe decides from nine tracked states in the shared state array
+// channels every launch.  Here a launch covers the tiles its table of
+// shard ids names (blockIdx.z indexes the table; tile v = dy * nx + dx):
+// every tile on one card, or one card's tiles in the peer form, as for
+// K14.  A window reads whatever it needs past its tile's edges straight
+// from the neighbour tiles' read buffers, corners included
+// (window.cuh::MeshTileSource; on a mesh of cards the diagonal neighbour
+// may be a third card), and a stripe decides from nine tracked states in
+// the one state array
 // (TorusTileIntervals: its own stripes i - 1..i + 1 and those of the W and
 // E tiles, whose column intervals move by -/+ wp into the tile's words).
 // The arrays gain the tile axis as K14's gain the strip axis, so K8's
-// finalize serves unchanged.  An interior stripe takes K5's routes (the
+// finalize serves, over the launch's shard ids.  An interior stripe takes K5's routes (the
 // JAX kernel's rectangle route, whose window stays inside the tile's rows
 // and words, the row tier, the full window) and writes, copies and
 // publishes as K5 does; its column interval is measured in the tile's own
@@ -167,11 +178,13 @@
 // past wp never stored or measured).  It steps T generations, keeps gen T
 // in shared memory, steps 6 more, measures and stores; each run steps only
 // the chunks of the light cone of generation T + 6 on the centre.  The
-// plan (ops/cuda_adaptive.py::frontier_blocks: frontier_reg_plan on every
-// shard's rows stacked) picks the block height.  What bounds a launch:
+// plan (ops/cuda_adaptive.py::frontier_blocks: frontier_reg_plan on the
+// launch's shards' rows stacked) picks the block height.  What bounds a launch:
 // integer operations on the blocks that step (T + 6 generations of their
 // windows); on a settled board, the decisions of the many blocks that do
 // not and the few that do.
+
+#include <vector>
 
 #include "regwin.cuh"
 #include "window.cuh"
@@ -619,19 +632,20 @@ struct StackShard {
     }
 };
 
-// Shard z of a mesh whose shards' buffers are in pointer tables (K14,
-// K15; K12 is a table of one).
+// Shard ids[z] of a mesh whose shards' buffers are in pointer tables
+// (K14, K15), z the launch's entry of its table of shard ids.
 struct TableShard {
     const uint32_t* const* rd_;
     uint32_t* const* wr_;
+    const int* ids;
     int* rowflag_;
     int* colspan_;
     int h, stripe_h;
-    __device__ const uint32_t* rd(int z) const { return rd_[z]; }
-    __device__ uint32_t* wr(int z) const { return wr_[z]; }
-    __device__ int* rowflag(int z) const { return rowflag_ + static_cast<size_t>(z) * h; }
+    __device__ const uint32_t* rd(int z) const { return rd_[ids[z]]; }
+    __device__ uint32_t* wr(int z) const { return wr_[ids[z]]; }
+    __device__ int* rowflag(int z) const { return rowflag_ + static_cast<size_t>(ids[z]) * h; }
     __device__ int* colspan(int z, int y) const {
-        return colspan_ + 2 * (z * (h / stripe_h) + y / stripe_h);
+        return colspan_ + 2 * (ids[z] * (h / stripe_h) + y / stripe_h);
     }
 };
 
@@ -772,20 +786,22 @@ strip_frontier_reg_kernel(const uint32_t* __restrict__ local, const uint32_t* __
                turns, tile_h, wp, rule, SoloShard{local, wr, rowflag, colspan, stripe_h});
 }
 
-// K14: one launch over every strip of a row mesh, blockIdx.z the strip,
-// blockIdx.y the row tile of a stripe and blockIdx.x the column group of
-// 30 words.  `rd_tab` and `wr_tab` (ny entries each) give the strips'
-// read and write buffers; the window's rows past strip s's edge come from
-// the read buffers of strips s - 1 and s + 1 (reg::column of a
-// StripSource whose north and south are those whole buffers; the halo
-// <= h).  `first` forces every stripe to hit with the maximal union
+// K14: one launch over the strips of a row mesh that `ids` names,
+// blockIdx.z the entry of `ids` (the strip), blockIdx.y the row tile of a
+// stripe and blockIdx.x the column group of 30 words.  `rd_tab` and
+// `wr_tab` (ny entries each, every strip's, whatever card it lies on)
+// give the strips' read and write buffers; the window's rows past strip
+// s's edge come from the read buffers of strips s - 1 and s + 1
+// (reg::column of a StripSource whose north and south are those whole
+// buffers; the halo <= h).  `first` forces every stripe to hit with the maximal union
 // (launch 0 of a chunk).  The rectangle route's window stays within the
 // strip's own rows.
 template <class Rule>
 __global__ void __launch_bounds__(reg::kMaxThreads, reg::FrontierBlocks<Rule>::value)
 strip_mega_reg_kernel(const uint32_t* const* __restrict__ rd_tab,
-                      uint32_t* const* __restrict__ wr_tab, int* __restrict__ state,
-                      int* __restrict__ rowflag, int* __restrict__ colspan,
+                      uint32_t* const* __restrict__ wr_tab, const int* __restrict__ ids,
+                      int* __restrict__ state, int* __restrict__ rowflag,
+                      int* __restrict__ colspan,
                       int* __restrict__ skipped, int* __restrict__ route, int ny, int h, int wp,
                       int turns, int stripe_h, int tile_h, int pad_f, int sub_rows,
                       int col_window, int parity, int first, Rule rule) {
@@ -794,7 +810,7 @@ strip_mega_reg_kernel(const uint32_t* const* __restrict__ rd_tab,
     __shared__ int nb[kGathered];
     extern __shared__ uint32_t kept[];  // the window at gen T (reg::keep)
     const int grid = h / stripe_h;
-    const int strip = blockIdx.z;
+    const int strip = ids[blockIdx.z];
     const int total = ny * grid;
     const int y0 = blockIdx.y * tile_h;
     const int x0 = blockIdx.x * (reg::kLanes - 2);
@@ -831,12 +847,14 @@ strip_mega_reg_kernel(const uint32_t* const* __restrict__ rd_tab,
                reg::column(StripSource{rd_tab[strip], rd_tab[wrap(strip - 1, ny)],
                                        rd_tab[wrap(strip + 1, ny)], h, wp, h},
                            x0 - 1 + threadIdx.x),
-               turns, tile_h, wp, rule, TableShard{rd_tab, wr_tab, rowflag, colspan, h, stripe_h});
+               turns, tile_h, wp, rule,
+               TableShard{rd_tab, wr_tab, ids, rowflag, colspan, h, stripe_h});
 }
 
-// K15: one launch over every tile of a 2-D mesh, blockIdx.z = dy * nx +
-// dx, blockIdx.y the row tile of a stripe and blockIdx.x the column group
-// of 30 words.  `rd_tab` and `wr_tab` (ny * nx entries each, row-major)
+// K15: one launch over the tiles of a 2-D mesh that `ids` names,
+// blockIdx.z the entry of `ids` (the tile, dy * nx + dx), blockIdx.y the
+// row tile of a stripe and blockIdx.x the column group of 30 words.
+// `rd_tab` and `wr_tab` (ny * nx entries each, row-major, every tile's)
 // give the tiles' read and write buffers; the window's rows and words past
 // tile (dy, dx)'s edges come from the neighbour tiles' read buffers
 // (reg::column of a MeshTileSource; the halo <= h).  `first` forces every
@@ -848,8 +866,9 @@ strip_mega_reg_kernel(const uint32_t* const* __restrict__ rd_tab,
 template <class Rule>
 __global__ void __launch_bounds__(reg::kMaxThreads, reg::FrontierBlocks<Rule>::value)
 tile_mega_reg_kernel(const uint32_t* const* __restrict__ rd_tab,
-                     uint32_t* const* __restrict__ wr_tab, int* __restrict__ state,
-                     int* __restrict__ rowflag, int* __restrict__ colspan,
+                     uint32_t* const* __restrict__ wr_tab, const int* __restrict__ ids,
+                     int* __restrict__ state, int* __restrict__ rowflag,
+                     int* __restrict__ colspan,
                      int* __restrict__ skipped, int* __restrict__ route, int ny, int nx, int h,
                      int wp, int turns, int stripe_h, int tile_h, int pad_f, int sub_rows,
                      int col_window, int parity, int first, Rule rule) {
@@ -858,7 +877,7 @@ tile_mega_reg_kernel(const uint32_t* const* __restrict__ rd_tab,
     __shared__ int nb[kGathered];
     extern __shared__ uint32_t kept[];  // the window at gen T (reg::keep)
     const int grid = h / stripe_h;
-    const int v = blockIdx.z;
+    const int v = ids[blockIdx.z];
     const int dy = v / nx;
     const int dx = v - dy * nx;
     const int total = ny * nx * grid;
@@ -901,21 +920,25 @@ tile_mega_reg_kernel(const uint32_t* const* __restrict__ rd_tab,
     if (!stepping) return;
     step_block(edges, kept, dec,
                reg::column(MeshTileSource{rd_tab, ny, nx, dy, dx, h, wp}, x0 - 1 + threadIdx.x),
-               turns, tile_h, wp, rule, TableShard{rd_tab, wr_tab, rowflag, colspan, h, stripe_h});
+               turns, tile_h, wp, rule,
+               TableShard{rd_tab, wr_tab, ids, rowflag, colspan, h, stripe_h});
 }
 
-// One block per stripe of every shard: block gi = s * grid + i.  The
-// stripe's rows flagged by its blocks become the two row intervals of
-// _measure2 (split at the midpoint of their span), its column extremes
-// its column interval (fields 4 and 5); the stripe counts active when the
-// first row interval is nonempty; the flags and extremes are cleared.
-// `fields` is the state's field count (K12's 7, the others' 10).
+// One block per stripe of the launch's shards: block k * grid + i is
+// stripe i of shard s = ids[k] (s = k without a table), gi = s * grid + i
+// of the `total` stripes of every shard.  The stripe's rows flagged by its
+// blocks become the two row intervals of _measure2 (split at the midpoint
+// of their span), its column extremes its column interval (fields 4 and
+// 5); the stripe counts active when the first row interval is nonempty;
+// the flags and extremes are cleared.  `fields` is the state's field
+// count (K12's 7, the others' 10).
 __global__ void frontier_finalize(int* __restrict__ state, int* __restrict__ rowflag,
-                                  int* __restrict__ colspan, int* __restrict__ act, int h,
-                                  int stripe_h, int grid, int parity, int fields) {
+                                  int* __restrict__ colspan, int* __restrict__ act,
+                                  const int* __restrict__ ids, int total, int h, int stripe_h,
+                                  int grid, int parity, int fields) {
     __shared__ int lo, hi, hi0, lo1;
-    const int gi = blockIdx.x;
-    const int total = gridDim.x;
+    const int k = blockIdx.x / grid;
+    const int gi = (ids != nullptr ? ids[k] : k) * grid + blockIdx.x % grid;
     const int c_lo = (gi % grid) * stripe_h;  // rows of shard gi / grid
     rowflag += static_cast<size_t>(gi / grid) * h;
     int* cur = state + parity * fields * total;
@@ -1010,14 +1033,29 @@ int launch_reg(Kernel kernel, dim3 grid, int warps, cudaStream_t stream, Args...
     return cudaGetLastError();
 }
 
-// After a frontier kernel: frontier_finalize over the `stripes` stripes
-// of every shard of h rows, on the state of parity `parity`.
-int finalize(void* state, void* rowflag, void* colspan, void* act, int stripes, int h,
-             int stripe_h, int parity, int fields, cudaStream_t stream) {
-    frontier_finalize<<<stripes, 256, 0, stream>>>(
+// After a frontier kernel: frontier_finalize over the stripes of the n
+// shards of h rows that `ids` names (null: shards 0..n - 1) of `total`
+// stripes in all, on the state of parity `parity`.
+int finalize(void* state, void* rowflag, void* colspan, void* act, const void* ids, int n,
+             int total, int h, int stripe_h, int parity, int fields, cudaStream_t stream) {
+    const int grid = h / stripe_h;
+    frontier_finalize<<<n * grid, 256, 0, stream>>>(
         static_cast<int*>(state), static_cast<int*>(rowflag), static_cast<int*>(colspan),
-        static_cast<int*>(act), h, stripe_h, h / stripe_h, parity, fields);
+        static_cast<int*>(act), static_cast<const int*>(ids), total, h, stripe_h, grid, parity,
+        fields);
     return cudaGetLastError();
+}
+
+// Whether `ids` (n shard ids, on the host) fails to name n distinct
+// shards of `shards`.
+bool bad_ids(const int* ids, int n, int shards) {
+    if (ids == nullptr || n < 1 || n > shards || n > 65535) return true;
+    std::vector<bool> seen(shards);
+    for (int k = 0; k < n; ++k) {
+        if (ids[k] < 0 || ids[k] >= shards || seen[ids[k]]) return true;
+        seen[ids[k]] = true;
+    }
+    return false;
 }
 
 }  // namespace
@@ -1055,8 +1093,8 @@ extern "C" int gol_frontier_batched_launch(const void* rd, void* wr, void* state
                           sub_rows, col_window, parity, first, rule);
     });
     if (err != cudaSuccess) return err;
-    return finalize(state, rowflag, colspan, act, nb * (h / stripe_h), h, stripe_h, parity,
-                    kFields, s);
+    return finalize(state, rowflag, colspan, act, nullptr, nb, nb * (h / stripe_h), h, stripe_h,
+                    parity, kFields, s);
 }
 
 // K12: the caller builds `prev_ext` (the exchange), zeroes `rowflag` and
@@ -1093,79 +1131,111 @@ extern "C" int gol_strip_frontier_launch(const void* local, const void* north, c
     });
     if (err != cudaSuccess) return err;
     // The state of one strip is one shard of grid stripes at parity 0.
-    return finalize(cur, rowflag, colspan, act, h / stripe_h, h, stripe_h, 0, kStripFields, s);
+    return finalize(cur, rowflag, colspan, act, nullptr, 1, h / stripe_h, h, stripe_h, 0,
+                    kStripFields, s);
 }
 
-// K14: `rd_tab` and `wr_tab` are device arrays of ny buffer pointers (no
-// write buffer is a read buffer); `state` (int32[2][10][ny * grid]),
-// `rowflag` (int32[ny * h], zero between launches), `colspan`
-// (int32[ny * grid][2]), `skipped` (int32[ny]) and `act`
-// (int32[ny * grid]) persist over a chunk; `route` (int32[ny * grid])
-// gets this launch's routes.  The decision's reach pad_f (the JAX plan's
-// round8(T + 6), >= the window's row halo T + 6) must fit one stripe, so
-// nothing past the adjacent strip is read; sub_rows and col_window are
-// the compute tiers' geometry (0 = off); a block is `tile_h` rows of a
-// stripe and `warps` warps; `variant` picks the rule's instantiation
-// (regwin.cuh::by_rule).
-extern "C" int gol_strip_mega_launch(const void* rd_tab, const void* wr_tab, void* state,
-                                     void* rowflag, void* colspan, void* skipped, void* act,
-                                     void* route, int ny, int h, int wp, int turns, int stripe_h,
+// K14: `rd_tab` and `wr_tab` are device arrays of ny buffer pointers,
+// every strip's (no write buffer is a read buffer), `ids` a device array
+// of the nids strips this launch covers and `host_ids` the same on the
+// host, checked here (each in range, none twice): every strip on one
+// card, or one card's strips in the peer form, whose other pointers, and
+// `state`, may lie on other cards (peer access enabled by the caller);
+// `state` (int32[2][10][ny * grid]), `rowflag` (int32[ny * h], zero
+// between launches), `colspan` (int32[ny * grid][2]), `skipped`
+// (int32[ny]) and `act` (int32[ny * grid]) persist over a chunk, the
+// launch touching only its strips' entries; `route` (int32[ny * grid])
+// gets this launch's routes of its strips.  The decision's reach pad_f
+// (the JAX plan's round8(T + 6), >= the window's row halo T + 6) must fit
+// one stripe, so nothing past the adjacent strip is read; sub_rows and
+// col_window are the compute tiers' geometry (0 = off); a block is
+// `tile_h` rows of a stripe and `warps` warps; `variant` picks the rule's
+// instantiation (regwin.cuh::by_rule).  The launch runs on the current
+// device, `stream` one of its streams.
+extern "C" int gol_strip_mega_launch(const void* rd_tab, const void* wr_tab, const void* ids,
+                                     const int* host_ids, void* state, void* rowflag,
+                                     void* colspan, void* skipped, void* act, void* route,
+                                     int nids, int ny, int h, int wp, int turns, int stripe_h,
                                      int tile_h, int warps, int pad_f, int sub_rows,
                                      int col_window, int parity, int first, int variant,
                                      unsigned born, unsigned surv, void* stream) {
-    if (ny < 1 || ny > 65535 ||
+    if (ny < 1 || ny > 65535 || ids == nullptr || bad_ids(host_ids, nids, ny) ||
         bad_reg_frontier(h, wp, turns, stripe_h, tile_h, warps, pad_f, sub_rows, col_window) ||
         pad_f > stripe_h || (parity != 0 && parity != 1) || (first != 0 && first != 1)) {
         return cudaErrorInvalidValue;
     }
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int err = reg::by_rule(variant, born, surv, [&](auto rule) {
-        return launch_reg(strip_mega_reg_kernel<decltype(rule)>, reg_grid(wp, h, tile_h, ny),
+        return launch_reg(strip_mega_reg_kernel<decltype(rule)>, reg_grid(wp, h, tile_h, nids),
                           warps, s, static_cast<const uint32_t* const*>(rd_tab),
-                          static_cast<uint32_t* const*>(wr_tab), static_cast<int*>(state),
-                          static_cast<int*>(rowflag), static_cast<int*>(colspan),
-                          static_cast<int*>(skipped), static_cast<int*>(route), ny, h, wp, turns,
-                          stripe_h, tile_h, pad_f, sub_rows, col_window, parity, first, rule);
+                          static_cast<uint32_t* const*>(wr_tab), static_cast<const int*>(ids),
+                          static_cast<int*>(state), static_cast<int*>(rowflag),
+                          static_cast<int*>(colspan), static_cast<int*>(skipped),
+                          static_cast<int*>(route), ny, h, wp, turns, stripe_h, tile_h, pad_f,
+                          sub_rows, col_window, parity, first, rule);
     });
     if (err != cudaSuccess) return err;
-    return finalize(state, rowflag, colspan, act, ny * (h / stripe_h), h, stripe_h, parity,
-                    kFields, s);
+    return finalize(state, rowflag, colspan, act, ids, nids, ny * (h / stripe_h), h, stripe_h,
+                    parity, kFields, s);
 }
 
 // K15: `rd_tab` and `wr_tab` are device arrays of ny * nx tile buffer
-// pointers, row-major (no write buffer is a read buffer); `state`
-// (int32[2][10][ny * nx * grid]), `rowflag` (int32[ny * nx * h], zero
-// between launches), `colspan` (int32[ny * nx * grid][2]), `skipped`
+// pointers, row-major, every tile's (no write buffer is a read buffer),
+// `ids` and `host_ids` the nids tiles this launch covers, as K14's;
+// `state` (int32[2][10][ny * nx * grid]), `rowflag` (int32[ny * nx * h],
+// zero between launches), `colspan` (int32[ny * nx * grid][2]), `skipped`
 // (int32[ny * nx]) and `act` (int32[ny * nx * grid]) persist over a
-// chunk, indexed tile-major; `route` (int32[ny * nx * grid]) gets this
-// launch's routes.  The decision's reach pad_f (>= the window's row halo
-// T + 6) must fit one stripe, so nothing past the adjacent tiles' rows is
-// read; sub_rows and col_window are the compute tiers' geometry on one
-// tile of (h, wp) words (0 = off); a block is `tile_h` rows of a stripe
-// and `warps` warps; `variant` picks the rule's instantiation
-// (regwin.cuh::by_rule).
-extern "C" int gol_tile_mega_launch(const void* rd_tab, const void* wr_tab, void* state,
-                                    void* rowflag, void* colspan, void* skipped, void* act,
-                                    void* route, int ny, int nx, int h, int wp, int turns,
+// chunk, indexed tile-major, the launch touching only its tiles' entries;
+// `route` (int32[ny * nx * grid]) gets this launch's routes of its tiles.
+// The decision's reach pad_f (>= the window's row halo T + 6) must fit one
+// stripe, so nothing past the adjacent tiles' rows is read; sub_rows and
+// col_window are the compute tiers' geometry on one tile of (h, wp) words
+// (0 = off); a block is `tile_h` rows of a stripe and `warps` warps;
+// `variant` picks the rule's instantiation (regwin.cuh::by_rule).  The
+// launch runs on the current device, `stream` one of its streams.
+extern "C" int gol_tile_mega_launch(const void* rd_tab, const void* wr_tab, const void* ids,
+                                    const int* host_ids, void* state, void* rowflag,
+                                    void* colspan, void* skipped, void* act, void* route,
+                                    int nids, int ny, int nx, int h, int wp, int turns,
                                     int stripe_h, int tile_h, int warps, int pad_f, int sub_rows,
                                     int col_window, int parity, int first, int variant,
                                     unsigned born, unsigned surv, void* stream) {
-    if (ny < 1 || nx < 1 || ny * nx > 65535 ||
+    if (ny < 1 || nx < 1 || ny * nx > 65535 || ids == nullptr ||
+        bad_ids(host_ids, nids, ny * nx) ||
         bad_reg_frontier(h, wp, turns, stripe_h, tile_h, warps, pad_f, sub_rows, col_window) ||
         pad_f > stripe_h || (parity != 0 && parity != 1) || (first != 0 && first != 1)) {
         return cudaErrorInvalidValue;
     }
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int err = reg::by_rule(variant, born, surv, [&](auto rule) {
-        return launch_reg(tile_mega_reg_kernel<decltype(rule)>, reg_grid(wp, h, tile_h, ny * nx),
+        return launch_reg(tile_mega_reg_kernel<decltype(rule)>, reg_grid(wp, h, tile_h, nids),
                           warps, s, static_cast<const uint32_t* const*>(rd_tab),
-                          static_cast<uint32_t* const*>(wr_tab), static_cast<int*>(state),
-                          static_cast<int*>(rowflag), static_cast<int*>(colspan),
-                          static_cast<int*>(skipped), static_cast<int*>(route), ny, nx, h, wp,
-                          turns, stripe_h, tile_h, pad_f, sub_rows, col_window, parity, first,
-                          rule);
+                          static_cast<uint32_t* const*>(wr_tab), static_cast<const int*>(ids),
+                          static_cast<int*>(state), static_cast<int*>(rowflag),
+                          static_cast<int*>(colspan), static_cast<int*>(skipped),
+                          static_cast<int*>(route), ny, nx, h, wp, turns, stripe_h, tile_h, pad_f,
+                          sub_rows, col_window, parity, first, rule);
     });
     if (err != cudaSuccess) return err;
-    return finalize(state, rowflag, colspan, act, ny * nx * (h / stripe_h), h, stripe_h, parity,
-                    kFields, s);
+    return finalize(state, rowflag, colspan, act, ids, nids, ny * nx * (h / stripe_h), h,
+                    stripe_h, parity, kFields, s);
+}
+
+// Let `device` read and write `peer`'s memory (the peer form of K14 and
+// K15: a card's launches read its neighbour cards' buffers and the
+// mesh's state on its first card).  Access already enabled, by an earlier
+// call or by PyTorch's own copies between the two cards, counts as
+// success; any other error is returned (cudaErrorTooManyPeers among
+// them).  The calling thread's current device is restored.
+extern "C" int gol_enable_peer_access(int device, int peer) {
+    int saved = 0;
+    cudaError_t err = cudaGetDevice(&saved);
+    if (err != cudaSuccess) return err;
+    err = cudaSetDevice(device);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceEnablePeerAccess(peer, 0);
+    cudaGetLastError();  // the result is in err: leave nothing for a later launch check
+    if (err == cudaErrorPeerAccessAlreadyEnabled) err = cudaSuccess;
+    const cudaError_t back = cudaSetDevice(saved);
+    return err != cudaSuccess ? err : back;
 }

@@ -124,6 +124,10 @@ class Backend:
     # The pallas engine's counted superstep (K6 counts the board its last
     # launch writes; cuda_stencil.make_counted_superstep); None elsewhere.
     _counted = None
+    # Called with each adaptive dispatch's (skipped, stripe-launches,
+    # activity) as the skip telemetry keeps it, device values unread (the
+    # cycle probes are not dispatches); None: no one listens.
+    skip_listener = None
 
     def __init__(self, params: Params, devices=None, in_kernel: bool | None = None):
         self.params = params
@@ -210,8 +214,10 @@ class Backend:
             # tensor copies.  skip_stable runs the adaptive strip tier on a
             # row mesh and the adaptive tile tier on a 2-D mesh, with live
             # skip telemetry; cap 0 = the port's default stripe cap.  On a
-            # mesh whose strips or tiles share one card the policy may
-            # pick the in-kernel exchange tier (K14 or K15 chunks); when
+            # mesh whose strips or tiles share one card, or lie on cards
+            # of this process that reach each other (the peer form), the
+            # policy may pick the in-kernel exchange tier (K14 or K15
+            # chunks); when
             # it does not, the ppermute form is a policy outcome, recorded
             # here and never warned about: both tiers give the same
             # boards.  The policy is asked once, here: its answer goes
@@ -318,6 +324,8 @@ class Backend:
         if total:
             self._skip_stats.append((skipped, total, act))
             del self._skip_stats[:-3]
+            if self.skip_listener is not None:
+                self.skip_listener(skipped, total, act)
         return new_board
 
     def _device_superstep(self, board: torch.Tensor, turns: int) -> torch.Tensor:

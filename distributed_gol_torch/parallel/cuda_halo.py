@@ -97,11 +97,26 @@ the blocks of ``cuda_adaptive.stripe_reg_plan`` (:func:`tile_reg_plan`,
 :func:`strip_reg_plan`); :func:`tile_probing_launch_mirror` and
 :func:`strip_probing_launch_mirror` replay them
 (``cuda_adaptive._probing_blocks``).
-The peer form for shards on several devices (ROADMAP B10p) is not
-ported: those meshes take the ppermute forms.
+
+The same tier runs on a mesh whose shards lie on several CUDA devices of
+this process (the peer form, the counterpart of the JAX kernels' remote
+builds on a mesh of chips): :func:`peer_groups` gives each card its
+shards, and a launch of the chunk is one K14 or K15 launch a card over its
+own shards (the kernels' table of shard ids), whose windows read the
+neighbour cards' buffers and whose stripes read and write the one
+interval state array on the mesh's first card through CUDA peer access
+(:func:`enable_peer_access`); the other per-stripe arrays lie on each card
+at full size, each touching its own entries, and are summed onto the
+first card at the chunk's end (:func:`merge_states`).  Between launches
+each card's stream waits on the previous launch's event of the cards its
+shards read (:func:`peer_waits`): launch l + 1 reads what they wrote in
+launch l and overwrites the buffer and the state parity they read in it,
+the JAX kernels' slot-reuse argument with an event for the receive
+semaphore.  The loose tail and the remainders take the ppermute forms'
+launches a shard, as on any mesh.
 
 A row mesh that spans processes (``parallel/multihost.py``) takes the
-ppermute forms too (:func:`tier_policy`): each process launches K9-K12 on
+ppermute forms (:func:`tier_policy`): each process launches K9-K12 on
 its own strips, and the exchanges of :func:`edge_flags`,
 :func:`edge_intervals` and ``halo.edge_rows`` take the band's end edges
 from the neighbouring ranks; the skip count is summed and the activity
@@ -111,6 +126,7 @@ gathered over the ranks.
 from __future__ import annotations
 
 import collections
+import ctypes
 import dataclasses
 import functools
 import os
@@ -327,6 +343,64 @@ MULTIHOST_REASON = (
 )
 
 
+def _card(d) -> torch.device:
+    """A device with its index: ``cuda`` is ``cuda:0``."""
+    d = torch.device(d)
+    return torch.device(d.type, d.index or 0)
+
+
+def peer_groups(devices) -> dict[torch.device, tuple[int, ...]]:
+    """Card -> the ids of the shards that lie on it (``devices``: the
+    shards' devices in row-major shard order, ``Mesh.flat``), any number
+    of shards a card, the cards in the order of their first shard: the
+    launch groups of the in-kernel tier's peer form."""
+    groups: dict[torch.device, list[int]] = {}
+    for s, d in enumerate(devices):
+        groups.setdefault(_card(d), []).append(s)
+    return {card: tuple(ids) for card, ids in groups.items()}
+
+
+def shard_reads(s: int, mesh_shape: tuple[int, int]) -> set[int]:
+    """The other shards whose buffers and interval state shard ``s``'s
+    K14 or K15 launch reads: on a row mesh (nx = 1) its N and S strips, on
+    a 2-D mesh its eight neighbour tiles, corners included
+    (``MeshTileSource``, ``TorusTileIntervals``); modulo the mesh."""
+    ny, nx = mesh_shape
+    dy, dx = divmod(s, nx)
+    if nx == 1:
+        return {(dy - 1) % ny, (dy + 1) % ny} - {s}
+    return {((dy + a) % ny) * nx + (dx + b) % nx
+            for a in (-1, 0, 1) for b in (-1, 0, 1)} - {s}
+
+
+def peer_waits(groups: dict, mesh_shape: tuple[int, int]) -> dict:
+    """For each card of ``groups`` (card -> shard ids, :func:`peer_groups`;
+    any keys), the other cards whose shards its shards read
+    (:func:`shard_reads`), in the order of ``groups``: the cards whose
+    previous launch its next launch waits on."""
+    owner = {s: card for card, ids in groups.items() for s in ids}
+    return {card: tuple(other for other in groups if other != card and any(
+        owner[r] == other for s in ids for r in shard_reads(s, mesh_shape)))
+        for card, ids in groups.items()}
+
+
+def peer_access(card: torch.device, peer: torch.device) -> bool:
+    """Whether ``card`` can read and write ``peer``'s memory (CUDA peer
+    access, ``torch.cuda.can_device_access_peer``): the one capability
+    the peer form needs, behind one function that tests replace."""
+    return torch.cuda.can_device_access_peer(card, peer)
+
+
+def peer_pairs(groups: dict, mesh_shape: tuple[int, int], first=None) -> list[tuple]:
+    """(card, peer) for every access the peer form makes across cards:
+    each card of ``groups`` (card -> shard ids, :func:`peer_groups`) to the
+    cards its shards read (:func:`peer_waits`) and to ``first`` (None: the
+    first card of ``groups``), which holds the interval state."""
+    first = next(iter(groups)) if first is None else first
+    return [(card, peer) for card, waits in peer_waits(groups, mesh_shape).items()
+            for peer in dict.fromkeys((*waits, first)) if peer != card]
+
+
 def tier_policy(mesh: Mesh, strip: tuple[int, int] | None = None, tile_cap: int = 0,
                 in_kernel: bool | None = None) -> tuple[bool, str]:
     """Whether a ``skip_stable`` run on ``mesh`` takes the in-kernel
@@ -341,11 +415,14 @@ def tier_policy(mesh: Mesh, strip: tuple[int, int] | None = None, tile_cap: int 
     interpret-mode reason, so the two packages' CPU records agree.  A
     mesh that spans processes gives the JAX package's multi-host reason,
     whatever cards its strips sit on: the in-kernel tier reads neighbours
-    in place, in memory this process does not hold.  Then the port's own
-    limit: strips or tiles on several CUDA devices (B10p: the peer form
-    is not ported).  Every other mesh takes the tier: a
-    (1, 1) mesh on any device (the loopback form) and a row or 2-D mesh
-    whose shards share one card."""
+    in place, in memory this process does not hold.  Every other mesh
+    takes the tier, ``ici_tier_policy``'s answer on a mesh of chips: a
+    (1, 1) mesh on any device (the loopback form), a row or 2-D mesh whose
+    shards share one card, and one whose shards lie on several CUDA
+    devices of this process (the peer form), with the port's own check
+    last: a card that cannot reach a card it reads (:func:`peer_pairs`,
+    :func:`peer_access`) gives the ppermute form, the reason naming
+    both."""
     ny, nx = mesh.shape["y"], mesh.shape["x"]
     if in_kernel is False:
         return False, "forced-ppermute (in_kernel=False)"
@@ -366,15 +443,18 @@ def tier_policy(mesh: Mesh, strip: tuple[int, int] | None = None, tile_cap: int 
         return False, INTERPRET_REASON
     if ny * nx > 1 and mesh.spans_ranks:
         return False, MULTIHOST_REASON
-    cards = {(d.type, d.index or 0) for d in mesh.flat}
-    if len(cards) > 1:
-        shards, form = ("tiles", "tile") if nx > 1 else ("strips", "strip")
-        return False, (
-            "the in-kernel tier's peer form is not ported (ROADMAP B10p): "
-            f"{shards} on {len(cards)} devices need peer copies and a "
-            f"cross-device barrier between launches; the ppermute {form} form "
-            "runs, its exchange by tensor copies"
-        )
+    groups = peer_groups(mesh.flat)
+    if len(groups) > 1:
+        form = "tile" if nx > 1 else "strip"
+        if any(card.type != "cuda" for card in groups):
+            return False, (f"shards on {', '.join(map(str, groups))}: the in-kernel tier's peer "
+                           f"form takes CUDA devices alone (the ppermute {form} form runs)")
+        for card, peer in peer_pairs(groups, (ny, nx)):
+            if not peer_access(card, peer):
+                return False, (
+                    f"no CUDA peer access from {card} to {peer}: the in-kernel tier's peer "
+                    "form reads the neighbour cards' buffers and the mesh's state in place "
+                    f"(the ppermute {form} form runs, its exchange by tensor copies)")
     return True, "in-kernel"
 
 
@@ -726,10 +806,11 @@ def strip_probing_launch(
     blocks = strip_reg_plan(plan, (h, wp), device_sms(local.device))
     lib, launch = _reg_launcher("probing", "gol_strip_probing_launch", 6)
     born, surv, variant = reg_rule(rule)
-    err = launch(local.data_ptr(), north.data_ptr(), south.data_ptr(), dst.data_ptr(),
-                 prev_ext.data_ptr(), st.data_ptr(), h, wp, north.shape[0], plan.t,
-                 plan.stripe_h, blocks.tile_h, blocks.warps, plan.pad, variant, born, surv,
-                 _stream(local))
+    with torch.cuda.device(local.device):
+        err = launch(local.data_ptr(), north.data_ptr(), south.data_ptr(), dst.data_ptr(),
+                     prev_ext.data_ptr(), st.data_ptr(), h, wp, north.shape[0], plan.t,
+                     plan.stripe_h, blocks.tile_h, blocks.warps, plan.pad, variant, born, surv,
+                     _stream(local))
     cuda_build.check(lib, err, "strip_probing")
     strip_probing_launch.launches += 1
     strip_probing_launch.rules[REG_RULES[variant]] += 1
@@ -896,12 +977,14 @@ def strip_frontier_launch(
     sub_rows, col_window = cuda_adaptive.frontier_geometry(plan, (h, wp))
     lib, launch = _reg_launcher("frontier", "gol_strip_frontier_launch", 12, 11)
     born, surv, variant = reg_rule(rule)
-    err = launch(local.data_ptr(), north.data_ptr(), south.data_ptr(), dst.data_ptr(),
-                 prev_ext.data_ptr(), state.prev[6].data_ptr(), state.cur.data_ptr(),
-                 state.rowflag.data_ptr(), state.colspan.data_ptr(), state.skipped.data_ptr(),
-                 state.act.data_ptr(), state.route.data_ptr(), h, wp, north.shape[0], plan.t,
-                 plan.stripe_h, blocks.tile_h, blocks.warps, plan.pad_f, sub_rows or 0,
-                 col_window or 0, variant, born, surv, _stream(local))
+    with torch.cuda.device(local.device):
+        err = launch(local.data_ptr(), north.data_ptr(), south.data_ptr(), dst.data_ptr(),
+                     prev_ext.data_ptr(), state.prev[6].data_ptr(), state.cur.data_ptr(),
+                     state.rowflag.data_ptr(), state.colspan.data_ptr(),
+                     state.skipped.data_ptr(), state.act.data_ptr(), state.route.data_ptr(), h,
+                     wp, north.shape[0], plan.t, plan.stripe_h, blocks.tile_h, blocks.warps,
+                     plan.pad_f, sub_rows or 0, col_window or 0, variant, born, surv,
+                     _stream(local))
     cuda_build.check(lib, err, "strip_frontier")
     strip_frontier_launch.launches += 1
     strip_frontier_launch.rules[REG_RULES[variant]] += 1
@@ -1022,9 +1105,10 @@ def tile_probing_launch(
     blocks = tile_reg_plan(plan, (h_loc, wpl), xpad, device_sms(ext.device))
     lib, launch = _reg_launcher("probing", "gol_tile_probing_launch", 4)
     born, surv, variant = reg_rule(rule)
-    err = launch(ext.data_ptr(), dst.data_ptr(), elig.data_ptr(), st.data_ptr(), h_loc, wpl,
-                 xpad, plan.t, plan.stripe_h, blocks.tile_h, blocks.warps, plan.pad, variant,
-                 born, surv, _stream(ext))
+    with torch.cuda.device(ext.device):
+        err = launch(ext.data_ptr(), dst.data_ptr(), elig.data_ptr(), st.data_ptr(), h_loc, wpl,
+                     xpad, plan.t, plan.stripe_h, blocks.tile_h, blocks.warps, plan.pad, variant,
+                     born, surv, _stream(ext))
     cuda_build.check(lib, err, "tile_probing")
     tile_probing_launch.launches += 1
     tile_probing_launch.rules[REG_RULES[variant]] += 1
@@ -1072,22 +1156,85 @@ class MeshState:
                    cuda_adaptive.column_span(total, device), zeros(total), zeros(n), zeros(total))
 
 
+def peer_states(n: int, h_loc: int, plan: AdaptivePlan, devices: list) -> list[MeshState]:
+    """The state of ``n`` shards for launch groups on ``devices`` (one a
+    group; the first holds the mesh's first shard): one interval state
+    array on ``devices[0]``, which every group reads and writes (the peer
+    form: through peer access), and each group's own row flags, column
+    extremes, routes, skip counts and activity on its device, at full size
+    so the kernels' indexing is the one-card form's, each group touching
+    its own shards' entries alone.  One group is :meth:`MeshState.start`."""
+    first = MeshState.start(n, h_loc, plan, devices[0])
+    return [first] + [dataclasses.replace(MeshState.start(n, h_loc, plan, d), state=first.state)
+                      for d in devices[1:]]
+
+
+def merge_states(states: list[MeshState], stats_only: bool = False) -> MeshState:
+    """The launch groups' states as one, on the first group's device: the
+    one interval state array, and each stripe's row flags, route, skip
+    count and activity from the group that owns it (the sum: every other
+    group left its entry at 0) and its column extremes (the least and the
+    greatest: every other group left (2^30, -2^30)).  ``stats_only``: the
+    skip counts and activity alone (what a dispatch reads), the row flags,
+    column extremes and routes left the first group's."""
+    if len(states) == 1:
+        return states[0]
+    dev = states[0].state.device
+
+    def summed(field):
+        return sum(getattr(st, field).to(dev) for st in states)
+
+    if stats_only:
+        return dataclasses.replace(states[0], skipped=summed("skipped"), act=summed("act"))
+    spans = torch.stack([st.colspan.to(dev) for st in states])
+    colspan = torch.stack([spans[..., 0].amin(0), spans[..., 1].amax(0)], dim=-1)
+    return MeshState(states[0].state, summed("rowflag"), colspan.contiguous(), summed("route"),
+                     summed("skipped"), summed("act"))
+
+
+def _shard_cols(ids, grid: int, device) -> torch.Tensor:
+    """The state columns (stripes s·grid + i) of the shards ``ids``."""
+    return (torch.tensor(list(ids), device=device)[:, None] * grid
+            + torch.arange(grid, device=device)).flatten()
+
+
+def _check_shards(reads, writes, what: str) -> None:
+    """Contiguous int32 words of one shape and one device kind, each
+    shard's write buffer on its read buffer's device."""
+    shape, kind = reads[0].shape, reads[0].device.type
+    for t in (*reads, *writes):
+        _check_words(t)
+        if t.shape != shape or t.device.type != kind:
+            raise ValueError(f"a mesh launch's {what} and buffers must share one shape and "
+                             "device kind")
+    if any(r.device != w.device for r, w in zip(reads, writes)):
+        raise ValueError(f"a mesh launch writes each of its {what} on its own device")
+
+
+def _check_ids(ids, n: int, devices: list) -> tuple[int, ...]:
+    """The shard ids of one launch (None: all ``n``), after checking them:
+    each in range, none twice, all on one device."""
+    ids = tuple(range(n)) if ids is None else tuple(ids)
+    if not ids or len(set(ids)) != len(ids) or not all(0 <= s < n for s in ids):
+        raise ValueError(f"launch shard ids {ids} do not name distinct shards of {n}")
+    if len({devices[s] for s in ids}) != 1:
+        raise ValueError(f"launch shard ids {ids} lie on several devices")
+    return ids
+
+
 def _check_mega(reads, writes, st: MeshState, plan: AdaptivePlan) -> tuple[int, int]:
     """(ny, h_loc) of a K14 launch, after checking it: one write buffer a
-    strip, all contiguous int32 words of one shape on one device, no
-    buffer written twice or both read and written, a frontier plan of
-    whole stripes whose decision reach round8(T + 6) fits one stripe (so
-    no window or decision reaches past the adjacent strip), and state of
-    the mesh's size."""
+    strip, all contiguous int32 words of one shape (each strip's buffers
+    on its own device), no buffer written twice or both read and written,
+    a frontier plan of whole stripes whose decision reach round8(T + 6)
+    fits one stripe (so no window or decision reaches past the adjacent
+    strip), and state of the mesh's size."""
     ny = len(reads)
     if ny < 1 or len(writes) != ny:
         raise ValueError(f"a mesh launch needs one write buffer a strip: {ny} strips, "
                          f"{len(writes)} buffers")
-    shape, dev = reads[0].shape, reads[0].device
-    for t in (*reads, *writes):
-        _check_words(t)
-        if t.shape != shape or t.device != dev:
-            raise ValueError("a mesh launch's strips and buffers must share one shape and device")
+    shape = reads[0].shape
+    _check_shards(reads, writes, "strips")
     out = {t.data_ptr() for t in writes}
     if len(out) != ny or out & {t.data_ptr() for t in reads}:
         raise ValueError("a mesh launch writes each buffer once and no strip it reads")
@@ -1105,13 +1252,16 @@ def _check_mega(reads, writes, st: MeshState, plan: AdaptivePlan) -> tuple[int, 
 
 
 def _strip_mega(reads, writes, st: MeshState, plan: AdaptivePlan, parity: int, first: bool,
-                advance):
+                advance, ids=None):
     """One K14 launch's decisions, routes, writes and measure in PyTorch,
     each strip's generations from ``advance(e, cells)``: (gen T, gen T + 6)
     of the strip's rows, from ``e``, the strip with T + 6 rows of the
     neighbour strips' read buffers a side, exact on ``cells`` (bool (h, wp):
-    where the launch writes gen T) and on the measure region."""
+    where the launch writes gen T) and on the measure region.  ``ids``
+    (None: every strip) are the strips this launch covers, the kernel's
+    table: only they are written, and only their entries of ``st``."""
     ny, h = _check_mega(reads, writes, st, plan)
+    ids = _check_ids(ids, ny, [t.device for t in reads])
     sh, grid = plan.stripe_h, plan.grid(h)
     wp = reads[0].shape[1]
     total = ny * grid
@@ -1120,7 +1270,7 @@ def _strip_mega(reads, writes, st: MeshState, plan: AdaptivePlan, parity: int, f
     g = torch.arange(total, device=dev)
     c_lo = g % grid * sh
     c_hi = c_lo + sh - 1
-    prev = st.state[1 - parity].to(torch.int64)
+    prev = st.state[1 - parity].to(device=dev, dtype=torch.int64)
     if first:
         hit = torch.ones(total, dtype=torch.bool, device=dev)
         union = (c_lo - t6, c_hi + t6, torch.full_like(c_lo, _EMPTY_LO),
@@ -1140,24 +1290,38 @@ def _strip_mega(reads, writes, st: MeshState, plan: AdaptivePlan, parity: int, f
     moved = (rt.route == cuda_adaptive.ROUTE_SKIP) | (rt.route == cuda_adaptive.ROUTE_TIER)
     copy[1] = torch.where(moved, copy[1], copy[0])
     intervals = []
-    for s, local in enumerate(reads):
+    for s in ids:
         mine = slice(s * grid, (s + 1) * grid)
         masks = cuda_adaptive.routed_masks(rt.part(mine), [c[mine] for c in copy], h, wp, sh)
-        e = torch.cat([reads[(s - 1) % ny][h - halo :], local, reads[(s + 1) % ny][:halo]])
+        e = torch.cat([reads[(s - 1) % ny][h - halo :], reads[s], reads[(s + 1) % ny][:halo]])
         g_t, g_t6 = advance(e, masks[0] & masks[1])
-        out, part = cuda_adaptive.routed_launch(local, writes[s], g_t, g_t6, masks, sh)
+        out, part = cuda_adaptive.routed_launch(reads[s], writes[s], g_t, g_t6, masks, sh)
         writes[s].copy_(out)
         intervals.append(part)
-    intervals = torch.cat(intervals, dim=1)
-    st.state[parity].copy_(torch.cat([intervals, rt.rect]))
-    st.route.copy_(rt.route)
-    st.skipped += (~hit).view(ny, grid).sum(dim=1).to(torch.int32)
-    st.act += (intervals[0] <= intervals[1]).to(torch.int32)
+    _publish(st, parity, ids, grid, torch.cat(intervals, dim=1), rt.rect, rt.route,
+             (~hit).view(ny, grid).sum(dim=1))
     return writes
 
 
+def _publish(st: MeshState, parity: int, ids, grid: int, intervals: torch.Tensor,
+             rect: torch.Tensor, route: torch.Tensor, skips: torch.Tensor) -> None:
+    """A plain launch's bookkeeping for the shards ``ids``: their
+    ``intervals`` (6 rows, their stripes in ``ids`` order) and change
+    rectangles into ``st.state[parity]``, their routes into ``st.route``,
+    their skip counts (``skips``, one a shard of the mesh) added to
+    ``st.skipped`` and a launch of activity to each stripe whose first
+    row interval is nonempty; every other entry is left as it is."""
+    cols = _shard_cols(ids, grid, rect.device)
+    st.state[parity][:, cols.to(st.state.device)] = torch.cat([intervals, rect[:, cols]]).to(
+        st.state)
+    st.route[cols] = route[cols].to(st.route)
+    at = torch.tensor(list(ids), device=skips.device)
+    st.skipped[at] += skips[at].to(torch.int32)
+    st.act[cols] += (intervals[0] <= intervals[1]).to(torch.int32)
+
+
 def strip_mega_launch_plain(reads, writes, st: MeshState, rule: LifeRule, plan: AdaptivePlan,
-                            parity: int, first: bool):
+                            parity: int, first: bool, ids=None):
     """Plain version of K14 (one launch of ``_kernel_frontier_mega_strip``
     over every strip of a row mesh, ``reads`` top to bottom): stripe i of
     strip s decides with ``_hit_union`` over the previous parity's row
@@ -1173,27 +1337,31 @@ def strip_mega_launch_plain(reads, writes, st: MeshState, rule: LifeRule, plan: 
     measures gen T + 6 against gen T on its measure region
     (``_measure2``); one that does not copies its previous change
     rectangle.  Writes ``writes``, ``st.state[parity]`` and ``st.route``,
-    adds to ``st.skipped`` and ``st.act``; returns ``writes``."""
+    adds to ``st.skipped`` and ``st.act``; returns ``writes``.  ``ids``
+    (None: every strip) are the strips the launch covers (the peer form's
+    launch on one card): only their buffers and entries are written, and
+    running the launches of a partition of the strips gives the one
+    launch's result."""
     halo, h = plan.t + SKIP_PERIOD, reads[0].shape[0]
 
     def advance(e, _cells):
         g_t = packed.superstep(e, rule, plan.t)
         return g_t[halo : halo + h], packed.superstep(g_t, rule, SKIP_PERIOD)[halo : halo + h]
 
-    return _strip_mega(reads, writes, st, plan, parity, first, advance)
+    return _strip_mega(reads, writes, st, plan, parity, first, advance, ids)
 
 
 def strip_mega_launch_mirror(reads, writes, st: MeshState, rule: LifeRule, plan: AdaptivePlan,
-                             parity: int, first: bool, blocks: RegPlan | None = None):
+                             parity: int, first: bool, blocks: RegPlan | None = None, ids=None):
     """K14's decomposition in PyTorch: the decisions and bookkeeping of
     :func:`strip_mega_launch_plain`, each strip's generations on the blocks
     of ``blocks`` (one strip's; None: the ``frontier_blocks`` of an H100
-    for all the strips) through ``_frontier_blocks``, the strip's words
-    wrapping modulo its width.  Writes what the plain version writes;
-    returns ``writes``."""
+    for the launch's strips) through ``_frontier_blocks``, the strip's
+    words wrapping modulo its width.  Writes what the plain version
+    writes (``ids`` as there); returns ``writes``."""
     ny, h = _check_mega(reads, writes, st, plan)
     wp = reads[0].shape[1]
-    blocks = blocks or frontier_blocks((h, wp), plan, ny)
+    blocks = blocks or frontier_blocks((h, wp), plan, ny if ids is None else len(ids))
     _check_frontier_blocks(blocks, plan, (h, wp))
     cols = torch.remainder(torch.arange(blocks.grid[1] * blocks.centre + 2) - 1, wp)
 
@@ -1201,37 +1369,52 @@ def strip_mega_launch_mirror(reads, writes, st: MeshState, rule: LifeRule, plan:
         return _frontier_blocks(e[:, cols.to(e.device)], rule, blocks, plan.t, (h, wp),
                                 cuda_adaptive._block_mask(cells, blocks))
 
-    return _strip_mega(reads, writes, st, plan, parity, first, advance)
+    return _strip_mega(reads, writes, st, plan, parity, first, advance, ids)
 
 
-def _k14(sets, rule: LifeRule, plan: AdaptivePlan):
-    """``(reads, writes, st, parity, first)`` -> one K14 launch on the
-    strips' device and current stream, ``reads`` and ``writes`` two of
-    ``sets`` (lists of buffers of one shape, one a strip, top to bottom),
-    whose device pointer tables (int64[ny] each) are built here once,
-    copied without a wait from pinned memory, and live as long as the
-    launcher (freed, the allocator could hand their memory to a tensor
-    made between two launches); its blocks ``frontier_blocks``'s for all
-    the strips on the device's SMs, in the rule's instantiation; counted
-    on ``strip_mega_launch.launches`` and ``.rules``."""
-    like = sets[0][0]
-    ny, (h, wp) = len(sets[0]), like.shape
-    tabs = torch.tensor([[t.data_ptr() for t in bufs] for bufs in sets],
-                        dtype=torch.int64).pin_memory().to(like.device, non_blocking=True)
-    row = {tuple(t.data_ptr() for t in bufs): tab for bufs, tab in zip(sets, tabs)}
-    blocks = frontier_blocks((h, wp), plan, ny, device_sms(like.device))
+def _launch_tables(sets, ids, device, flatten):
+    """A group launcher's device tables, built once: a row of every shard's
+    buffer pointers for each buffer set of ``sets`` (int64, keyed by the
+    set's pointers), the launch's shard ids (int32) on ``device`` and on
+    the host; copied without a wait from pinned memory on the device's
+    current stream, and kept as long as the launcher (freed, the
+    allocator could hand their memory to a tensor made between two
+    launches)."""
+    keys = [tuple(t.data_ptr() for t in flatten(bufs)) for bufs in sets]
+    tabs = torch.tensor(keys, dtype=torch.int64).pin_memory().to(device, non_blocking=True)
+    host_ids = torch.tensor(ids, dtype=torch.int32)
+    dev_ids = host_ids.pin_memory().to(device, non_blocking=True)
+    return dict(zip(keys, tabs)), dev_ids, host_ids
+
+
+def _k14(sets, rule: LifeRule, plan: AdaptivePlan, ids=None, stream=None):
+    """``(reads, writes, st, parity, first)`` -> one K14 launch over the
+    strips ``ids`` (None: all) on their device, on ``stream`` (None: the
+    device's current stream), ``reads`` and ``writes`` two of ``sets``
+    (lists of buffers of one shape, one a strip, top to bottom, on any
+    cards) whose pointer tables, and the ids' table, are built here once
+    (:func:`_launch_tables`); its blocks ``frontier_blocks``'s for the
+    launch's strips on the device's SMs, in the rule's instantiation;
+    counted on ``strip_mega_launch.launches`` and ``.rules``."""
+    ny = len(sets[0])
+    ids = tuple(range(ny)) if ids is None else tuple(ids)
+    like = sets[0][ids[0]]
+    (h, wp), dev = like.shape, like.device
+    row, dev_ids, host_ids = _launch_tables(sets, ids, dev, list)
+    blocks = frontier_blocks((h, wp), plan, len(ids), device_sms(dev))
     sub_rows, col_window = cuda_adaptive.frontier_geometry(plan, (h, wp))
-    lib, launch = _reg_launcher("frontier", "gol_strip_mega_launch", 8, 13)
+    lib, launch = _reg_launcher("frontier", "gol_strip_mega_launch", 10, 14)
     born, surv, variant = reg_rule(rule)
-    stream = _stream(like)
+    stream = ctypes.c_void_p((stream or torch.cuda.current_stream(dev)).cuda_stream)
 
     def k14(reads, writes, st: MeshState, parity: int, first: bool) -> None:
         rd, wr = (row[tuple(t.data_ptr() for t in bufs)].data_ptr() for bufs in (reads, writes))
-        err = launch(rd, wr, st.state.data_ptr(), st.rowflag.data_ptr(), st.colspan.data_ptr(),
-                     st.skipped.data_ptr(), st.act.data_ptr(), st.route.data_ptr(), len(reads), h,
-                     wp, plan.t, plan.stripe_h, blocks.tile_h, blocks.warps, plan.pad_f,
-                     sub_rows or 0, col_window or 0, parity, int(first), variant, born, surv,
-                     stream)
+        with torch.cuda.device(dev):
+            err = launch(rd, wr, dev_ids.data_ptr(), host_ids.data_ptr(), st.state.data_ptr(),
+                         st.rowflag.data_ptr(), st.colspan.data_ptr(), st.skipped.data_ptr(),
+                         st.act.data_ptr(), st.route.data_ptr(), len(ids), ny, h, wp, plan.t,
+                         plan.stripe_h, blocks.tile_h, blocks.warps, plan.pad_f, sub_rows or 0,
+                         col_window or 0, parity, int(first), variant, born, surv, stream)
         cuda_build.check(lib, err, "strip_mega")
         strip_mega_launch.launches += 1
         strip_mega_launch.rules[REG_RULES[variant]] += 1
@@ -1247,13 +1430,15 @@ def strip_mega_launch(reads, writes, st: MeshState, rule: LifeRule, plan: Adapti
     ``st.state[parity]`` and accumulating ``st.skipped`` and ``st.act``;
     returns ``writes``.  ``first`` marks launch 0 of a chunk.  ``k14`` is a
     chunk's launcher (:func:`_k14`, its buffer sets holding ``reads`` and
-    ``writes``, the launch checked with the chunk); without it the launch
-    is checked here, CPU tensors run :func:`strip_mega_launch_plain` and
-    CUDA tensors launch K14 or raise."""
+    ``writes``, the launch checked with the chunk; in the peer form one
+    card's); without it the launch is checked here, CPU tensors run
+    :func:`strip_mega_launch_plain` and CUDA tensors launch K14 or raise
+    (strips on several cards take :func:`strip_mega_launches`)."""
     if k14 is None:
         _check_mega(reads, writes, st, plan)
         if reads[0].device.type == "cpu":
             return strip_mega_launch_plain(reads, writes, st, rule, plan, parity, first)
+        _check_ids(None, len(reads), [t.device for t in reads])
         k14 = _k14([reads, writes], rule, plan)
     k14(reads, writes, st, parity, first)
     return writes
@@ -1263,35 +1448,163 @@ strip_mega_launch.launches = 0
 strip_mega_launch.rules = collections.Counter()
 
 
-def strip_mega_launches(strips, rule: LifeRule, plan: AdaptivePlan, nlaunch: int,
-                        plain: bool = False, each=None):
-    """One chunk of the in-kernel tier: ``nlaunch`` K14 launches over
-    every strip of a row mesh whose strips share one device, from a
-    restarted state (launch 0 forces every stripe to compute), each launch
-    writing the strips' buffers of two launches ago (two fresh buffers a
-    strip; the input is never written).  Returns (strips,
-    :class:`MeshState`): the chunk's final state, its skip count per strip
-    and its activity per stripe, all left on the device.  On the card the
-    chunk is checked and its launcher (:func:`_k14`: the pointer tables)
-    built once, then each launch is one wrapper call, nothing read back
-    between launches.  ``plain`` runs :func:`strip_mega_launch_plain`
-    instead (on the CPU the wrapper runs it anyway); ``each(strips, st)``
-    is called after every launch (the launch-by-launch check)."""
-    ny, h = len(strips), strips[0].shape[0]
-    dev = strips[0].device
-    st = MeshState.start(ny, h, plan, dev)
-    bufs = [[torch.empty_like(t) for t in strips] for _ in range(2)]
-    k14 = None
-    if dev.type == "cuda" and not plain:
-        _check_mega(strips, bufs[0], st, plan)
-        k14 = _k14([strips, *bufs], rule, plan)
-    cur = strips
+# -- the chunk of K14 or K15 launches, on one card or on several ------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def enable_peer_access(card: torch.device, peer: torch.device) -> None:
+    """Let ``card`` read and write ``peer``'s memory
+    (``csrc/frontier.cu::gol_enable_peer_access``: access already enabled,
+    by PyTorch's own copies among others, counts as done); once a pair.
+    Raises where CUDA refuses (no peer path, too many peers)."""
+    lib, enable = cuda_adaptive._launcher("frontier", "gol_enable_peer_access",
+                                          [ctypes.c_int, ctypes.c_int])
+    cuda_build.check(lib, enable(card.index, peer.index),
+                     f"peer access from {card} to {peer}: the enabling")
+
+
+class _Lanes:
+    """The cross-card ordering of a chunk's launch groups, one stream a
+    group (on several cards each card's current stream; on one card the
+    streams stand in for cards): :meth:`enter` makes every group wait on
+    what every device's current stream has enqueued (the chunk's inputs,
+    buffers, state and tables: the TPU kernels' entry barrier); before
+    each launch a group waits on the previous launch's events of the
+    groups it reads (``waits``), and records its own after it;
+    :meth:`join` makes every device's current stream wait on every
+    group's last event, before anything is read, summed or freed there."""
+
+    def __init__(self, devices: list, streams: list, waits: dict):
+        self.devices, self.streams, self.waits = devices, streams, waits
+        self.done = [None] * len(streams)  # each group's newest launch
+        self.last = list(self.done)  # each group's launch before the current one
+
+    def _current(self) -> list:
+        return [torch.cuda.current_stream(d) for d in dict.fromkeys(self.devices)]
+
+    def enter(self) -> None:
+        entry = [torch.cuda.Event() for _ in self._current()]
+        for ev, cur in zip(entry, self._current()):
+            ev.record(cur)
+        for s in self.streams:
+            for ev in entry:
+                s.wait_event(ev)
+
+    def launch(self, g: int, fn) -> None:
+        """Group ``g``'s launch ``fn`` (which enqueues on its stream), after
+        the previous launch of the groups it reads."""
+        stream = self.streams[g]
+        for w in self.waits[g]:
+            if self.last[w] is not None:
+                stream.wait_event(self.last[w])
+        fn()
+        ev = torch.cuda.Event()
+        ev.record(stream)
+        self.done[g] = ev
+
+    def advance(self) -> None:
+        """After every group's launch l: launch l + 1 waits on these."""
+        self.last = list(self.done)
+
+    def join(self) -> None:
+        for cur in self._current():
+            for ev in self.done:
+                cur.wait_event(ev)
+
+
+def _mega_chunk(flat, nest, mesh_shape, rule, plan, nlaunch, plain, each, groups, streams,
+                stats_only, check, launcher, plain_launch):
+    """One chunk of ``nlaunch`` K14 or K15 launches over the shards
+    ``flat`` (row-major; ``nest`` gives them the launch's layout) of a
+    ``mesh_shape`` mesh, launch 0 forced, each launch writing the shards'
+    buffers of two launches ago (two fresh buffers a shard; the input is
+    never written).  ``groups`` (shard ids a group; None: one group a
+    device, :func:`peer_groups`) partition the shards, each group's on one
+    device; a launch is one launch a group, in group order (``launcher``:
+    :func:`_k14` or :func:`_k15` for the group's ids on ``streams[g]``,
+    None: each device's current stream), ordered across groups by
+    :class:`_Lanes` where there are several, the peer access of several
+    cards enabled first (:func:`enable_peer_access`); with ``plain``, or
+    on the CPU, ``plain_launch`` runs each group's launch in turn.  Returns
+    (shards in the launch's layout, :func:`merge_states` of the groups'
+    states, with ``stats_only``); ``each(shards, state)`` is called after
+    every launch with the groups' streams joined and their states merged
+    in full, and the groups' next launches wait on what it enqueued."""
+    n, h = len(flat), flat[0].shape[0]
+    devices = [t.device for t in flat]
+    groups = list(peer_groups(devices).values()) if groups is None else groups
+    groups = [_check_ids(g, n, devices) for g in groups]
+    if sorted(s for g in groups for s in g) != list(range(n)):
+        raise ValueError(f"launch groups {groups} do not partition the {n} shards")
+    lane_devices = [devices[g[0]] for g in groups]
+    sts = peer_states(n, h, plan, lane_devices)
+    bufs = [[torch.empty_like(t) for t in flat] for _ in range(2)]
+    whole = len(groups) == 1
+    lanes = None
+    if devices[0].type == "cuda" and not plain:
+        own_streams = streams is not None
+        check(nest(flat), nest(bufs[0]), sts[0], plan)
+        cards = peer_groups(devices)
+        if len(cards) > 1:
+            for card, peer in peer_pairs(cards, mesh_shape, _card(lane_devices[0])):
+                enable_peer_access(card, peer)
+        streams = streams or [torch.cuda.current_stream(d) for d in lane_devices]
+        if len(streams) != len(groups):
+            raise ValueError(f"{len(streams)} streams for {len(groups)} launch groups")
+        launchers = [launcher([flat, *bufs], g, s) for g, s in zip(groups, streams)]
+        if not whole or own_streams:
+            lanes = _Lanes(lane_devices, streams, peer_waits(dict(enumerate(groups)), mesh_shape))
+            lanes.enter()
+    cur = flat
     for k in range(nlaunch):
-        args = (cur, bufs[k % 2], st, rule, plan, k % 2, k == 0)
-        cur = strip_mega_launch_plain(*args) if plain else strip_mega_launch(*args, k14)
+        rd, wr = nest(cur), nest(bufs[k % 2])
+        for g, ids in enumerate(groups):
+            if devices[0].type == "cpu" or plain:
+                args = (rd, wr, sts[g], rule, plan, k % 2, k == 0)
+                plain_launch(*args) if whole else plain_launch(*args, ids=ids)
+            elif lanes is None:
+                launchers[g](rd, wr, sts[g], k % 2, k == 0)
+            else:
+                lanes.launch(g, functools.partial(launchers[g], rd, wr, sts[g], k % 2, k == 0))
+        if lanes is not None:
+            lanes.advance()
+        cur = bufs[k % 2]
         if each is not None:
-            each(cur, st)
-    return cur, st
+            if lanes is not None:
+                lanes.join()
+            each(nest(cur), merge_states(sts))
+            if lanes is not None:
+                lanes.enter()  # what each enqueued reads the buffers the next launches write
+    if lanes is not None:
+        lanes.join()
+    return nest(cur), merge_states(sts, stats_only)
+
+
+def strip_mega_launches(strips, rule: LifeRule, plan: AdaptivePlan, nlaunch: int,
+                        plain: bool = False, each=None, groups=None, streams=None,
+                        stats_only: bool = False):
+    """One chunk of the in-kernel tier: ``nlaunch`` K14 launches over
+    every strip of a row mesh, from a restarted state (launch 0 forces
+    every stripe to compute), each launch writing the strips' buffers of
+    two launches ago (two fresh buffers a strip; the input is never
+    written).  Returns (strips, :class:`MeshState`): the chunk's final
+    state, its skip count per strip and its activity per stripe, all left
+    on the first strip's device.  On the card the chunk is checked and its
+    launchers (:func:`_k14`: the pointer tables) built once, then each
+    launch is one wrapper call a group, nothing read back between
+    launches; strips on several cards run the peer form, one launch a
+    card over its own strips (:func:`_mega_chunk`; ``groups`` and
+    ``streams`` split one card's strips into groups on streams of their
+    own, standing in for cards).  ``plain`` runs
+    :func:`strip_mega_launch_plain` instead (on the CPU the wrapper runs
+    it anyway, a group at a time); ``each(strips, st)`` is called after
+    every launch (the launch-by-launch check).  ``stats_only``: of the
+    groups' states only the skip counts and activity are merged
+    (:func:`merge_states`; a dispatch reads nothing else)."""
+    return _mega_chunk(
+        list(strips), list, (len(strips), 1), rule, plan, nlaunch, plain, each, groups, streams,
+        stats_only, _check_mega, lambda sets, ids, stream: _k14(sets, rule, plan, ids, stream),
+        lambda *a, **kw: strip_mega_launch_plain(*a, **kw))
 
 
 # -- K15: the 2-D megakernel ---------------------------------------------------------
@@ -1300,7 +1613,8 @@ def strip_mega_launches(strips, rule: LifeRule, plan: AdaptivePlan, nlaunch: int
 def _check_tile_mega(reads, writes, st: MeshState, plan: AdaptivePlan) -> tuple[int, int, int, int]:
     """(ny, nx, h_loc, wpl) of a K15 launch, after checking it: ``reads``
     and ``writes`` are rows of tiles, one write buffer a tile, all
-    contiguous int32 words of one shape on one device, no buffer written
+    contiguous int32 words of one shape (each tile's buffers on its own
+    device), no buffer written
     twice or both read and written, a frontier plan of whole stripes whose
     decision reach round8(T + 6) fits one stripe (so no window or decision
     reaches past the adjacent tiles), T + 6 <= 32·wpl (the window's word
@@ -1311,11 +1625,8 @@ def _check_tile_mega(reads, writes, st: MeshState, plan: AdaptivePlan) -> tuple[
         raise ValueError("a 2-D mesh launch needs rows of tiles and one write buffer a tile")
     flat_r = [t for r in reads for t in r]
     flat_w = [t for r in writes for t in r]
-    shape, dev = flat_r[0].shape, flat_r[0].device
-    for t in (*flat_r, *flat_w):
-        _check_words(t)
-        if t.shape != shape or t.device != dev:
-            raise ValueError("a 2-D mesh launch's tiles and buffers must share one shape and device")
+    shape = flat_r[0].shape
+    _check_shards(flat_r, flat_w, "tiles")
     out = {t.data_ptr() for t in flat_w}
     if len(out) != ny * nx or out & {t.data_ptr() for t in flat_r}:
         raise ValueError("a 2-D mesh launch writes each buffer once and no tile it reads")
@@ -1399,7 +1710,7 @@ def tile_mega_routes(prev: torch.Tensor, mesh_shape: tuple[int, int], shape: tup
 
 
 def _tile_mega(reads, writes, st: MeshState, plan: AdaptivePlan, parity: int, first: bool,
-               advance, elide: bool):
+               advance, elide: bool, ids=None):
     """One K15 launch's decisions, routes, writes and measure in PyTorch,
     each tile's generations from ``advance(ty, tx, cells)``: (gen T, gen
     T + 6) of tile (ty, tx), exact on ``cells`` (bool (h_loc, wpl): where
@@ -1408,38 +1719,41 @@ def _tile_mega(reads, writes, st: MeshState, plan: AdaptivePlan, parity: int, fi
     elision of quiet edge stripes), writes its change rectangle, copies
     its previous one where it skips, takes the rectangle route or is
     elided, and measures gen T + 6 against gen T on its measure region in
-    the tile's own words (``_measure2``).  Returns the elided stripes
-    (bool, tile-major)."""
+    the tile's own words (``_measure2``).  ``ids`` (None: every tile,
+    row-major) are the tiles the launch covers: only they are written,
+    and only their entries of ``st``.  Returns the elided stripes (bool,
+    tile-major; those of the launch's tiles)."""
     ny, nx, h, wpl = _check_tile_mega(reads, writes, st, plan)
+    ids = _check_ids(ids, ny * nx, [t.device for r in reads for t in r])
     sh, grid = plan.stripe_h, plan.grid(h)
-    prev = st.state[1 - parity].to(torch.int64)
+    dev = reads[0][0].device
+    prev = st.state[1 - parity].to(device=dev, dtype=torch.int64)
     rt, _, elided = tile_mega_routes(prev, (ny, nx), (h, wpl), plan, first, elide)
+    mine = torch.zeros_like(elided)
+    mine[_shard_cols(ids, grid, dev)] = True
+    elided &= mine
     copy = list(cuda_adaptive.rect_region(prev[6:10], plan, (h, wpl)))
     moved = ((rt.route == cuda_adaptive.ROUTE_SKIP) | (rt.route == cuda_adaptive.ROUTE_TIER)
              | elided)
     copy[1] = torch.where(moved, copy[1], copy[0])
     intervals = []
-    for ty in range(ny):
-        for tx in range(nx):
-            mine = slice((ty * nx + tx) * grid, (ty * nx + tx + 1) * grid)
-            masks = cuda_adaptive.routed_masks(rt.part(mine), [c[mine] for c in copy], h, wpl,
-                                               sh)
-            g_t, g_t6 = advance(ty, tx, masks[0] & masks[1])
-            out, part = cuda_adaptive.routed_launch(reads[ty][tx], writes[ty][tx], g_t, g_t6,
-                                                    masks, sh)
-            writes[ty][tx].copy_(out)
-            intervals.append(part)
-    intervals = torch.cat(intervals, dim=1)
-    st.state[parity].copy_(torch.cat([intervals, rt.rect]))
-    st.route.copy_(rt.route)
-    st.skipped += (rt.route == cuda_adaptive.ROUTE_SKIP).view(ny * nx, grid).sum(dim=1).to(
-        torch.int32)
-    st.act += (intervals[0] <= intervals[1]).to(torch.int32)
+    for v in ids:
+        ty, tx = divmod(v, nx)
+        part_of = slice(v * grid, (v + 1) * grid)
+        masks = cuda_adaptive.routed_masks(rt.part(part_of), [c[part_of] for c in copy], h, wpl,
+                                           sh)
+        g_t, g_t6 = advance(ty, tx, masks[0] & masks[1])
+        out, part = cuda_adaptive.routed_launch(reads[ty][tx], writes[ty][tx], g_t, g_t6, masks,
+                                                sh)
+        writes[ty][tx].copy_(out)
+        intervals.append(part)
+    _publish(st, parity, ids, grid, torch.cat(intervals, dim=1), rt.rect, rt.route,
+             (rt.route == cuda_adaptive.ROUTE_SKIP).view(ny * nx, grid).sum(dim=1))
     return elided
 
 
 def tile_mega_launch_plain(reads, writes, st: MeshState, rule: LifeRule, plan: AdaptivePlan,
-                           parity: int, first: bool):
+                           parity: int, first: bool, ids=None):
     """Plain version of K15 (one launch of ``_kernel_frontier_mega_2d``
     over every tile of a 2-D mesh, ``reads`` as rows of tiles): stripe i
     of tile (dy, dx) decides with ``_hit_union`` over the previous
@@ -1459,7 +1773,9 @@ def tile_mega_launch_plain(reads, writes, st: MeshState, rule: LifeRule, plan: A
     the column interval in the tile's own words); one that does not copies
     its previous change rectangle.  Writes ``writes``, ``st.state[parity]``
     and ``st.route``, adds to ``st.skipped`` and ``st.act``; returns
-    ``writes``."""
+    ``writes``.  ``ids`` (None: every tile) are the tiles the launch
+    covers (the peer form's launch on one card), as K14's plain version
+    takes its strips."""
     halo = plan.t + SKIP_PERIOD
     xw = -(-halo // WORD)
     h, wpl = reads[0][0].shape
@@ -1469,14 +1785,15 @@ def tile_mega_launch_plain(reads, writes, st: MeshState, rule: LifeRule, plan: A
         g_t = packed.superstep(_tile_window(reads, ty, tx, halo, xw), rule, plan.t)
         return g_t[centre], packed.superstep(g_t, rule, SKIP_PERIOD)[centre]
 
-    _tile_mega(reads, writes, st, plan, parity, first, advance, False)
+    _tile_mega(reads, writes, st, plan, parity, first, advance, False, ids)
     return writes
 
 
 def tile_mega_launch_mirror(reads, writes, st: MeshState, rule: LifeRule, plan: AdaptivePlan,
-                            parity: int, first: bool, blocks: RegPlan | None = None):
+                            parity: int, first: bool, blocks: RegPlan | None = None, ids=None):
     """K15's decomposition in PyTorch: the blocks of ``blocks`` (one
-    tile's; None: the ``frontier_blocks`` of an H100 for all the tiles)
+    tile's; None: the ``frontier_blocks`` of an H100 for the launch's
+    tiles, ``ids`` as in the plain version)
     through :func:`_frontier_blocks`, only the blocks whose tile meets the
     cells their stripe's route writes as gen T stepping
     (``cuda_adaptive._block_mask``), each tile's window from the tiles'
@@ -1487,7 +1804,7 @@ def tile_mega_launch_mirror(reads, writes, st: MeshState, rule: LifeRule, plan: 
     as :func:`tile_mega_launch_plain`'s.  Writes what the plain version
     writes; returns ``writes``."""
     ny, nx, h, wpl = _check_tile_mega(reads, writes, st, plan)
-    blocks = blocks or frontier_blocks((h, wpl), plan, ny * nx)
+    blocks = blocks or frontier_blocks((h, wpl), plan, ny * nx if ids is None else len(ids))
     _check_frontier_blocks(blocks, plan, (h, wpl))
     whole = torch.cat([torch.cat(r, dim=1) for r in reads])
     halo, dev = plan.t + SKIP_PERIOD, whole.device
@@ -1500,7 +1817,7 @@ def tile_mega_launch_mirror(reads, writes, st: MeshState, rule: LifeRule, plan: 
         return _frontier_blocks(src, rule, blocks, plan.t, (h, wpl),
                                 cuda_adaptive._block_mask(cells, blocks))
 
-    elided = _tile_mega(reads, writes, st, plan, parity, first, advance, True)
+    elided = _tile_mega(reads, writes, st, plan, parity, first, advance, True, ids)
     tile_mega_launch_mirror.elided += int(elided.sum())
     tile_mega_launch_mirror.last_elided = elided
     return writes
@@ -1510,39 +1827,42 @@ tile_mega_launch_mirror.elided = 0
 tile_mega_launch_mirror.last_elided = None
 
 
-def _k15(sets, rule: LifeRule, plan: AdaptivePlan):
-    """``(reads, writes, st, parity, first)`` -> one K15 launch on the
-    tiles' device and current stream, ``reads`` and ``writes`` two of
-    ``sets`` (rows of tiles of one shape), whose device pointer tables
-    (int64[ny·nx] each, row-major) are built here once, copied without a
-    wait from pinned memory, and live as long as the launcher (as
-    :func:`_k14`'s); its blocks ``frontier_blocks``' for all the tiles
-    on the device's SMs, at the active geometry on one tile
-    (``cuda_adaptive.frontier_geometry``), in the rule's instantiation;
-    counted on ``tile_mega_launch.launches`` and ``.rules``."""
-    like = sets[0][0][0]
+def _k15(sets, rule: LifeRule, plan: AdaptivePlan, ids=None, stream=None):
+    """``(reads, writes, st, parity, first)`` -> one K15 launch over the
+    tiles ``ids`` (row-major; None: all) on their device, on ``stream``
+    (None: the device's current stream), ``reads`` and ``writes`` two of
+    ``sets`` (rows of tiles of one shape, on any cards) whose pointer
+    tables (int64[ny·nx] each, row-major), and the ids' table, are built
+    here once (:func:`_launch_tables`); its blocks ``frontier_blocks``'
+    for the launch's tiles on the device's SMs, at the active geometry on
+    one tile (``cuda_adaptive.frontier_geometry``), in the rule's
+    instantiation; counted on ``tile_mega_launch.launches`` and
+    ``.rules``."""
     ny, nx = len(sets[0]), len(sets[0][0])
-    h, wpl = like.shape
+    ids = tuple(range(ny * nx)) if ids is None else tuple(ids)
+    like = sets[0][ids[0] // nx][ids[0] % nx]
+    (h, wpl), dev = like.shape, like.device
 
-    def key(bufs):
-        return tuple(t.data_ptr() for r in bufs for t in r)
+    def flatten(bufs):
+        return [t for r in bufs for t in r]
 
-    tabs = torch.tensor([key(bufs) for bufs in sets],
-                        dtype=torch.int64).pin_memory().to(like.device, non_blocking=True)
-    row = {key(bufs): tab for bufs, tab in zip(sets, tabs)}
-    blocks = frontier_blocks((h, wpl), plan, ny * nx, device_sms(like.device))
+    row, dev_ids, host_ids = _launch_tables(sets, ids, dev, flatten)
+    blocks = frontier_blocks((h, wpl), plan, len(ids), device_sms(dev))
     sub_rows, col_window = cuda_adaptive.frontier_geometry(plan, (h, wpl))
-    lib, launch = _reg_launcher("frontier", "gol_tile_mega_launch", 8, 14)
+    lib, launch = _reg_launcher("frontier", "gol_tile_mega_launch", 10, 15)
     born, surv, variant = reg_rule(rule)
-    stream = _stream(like)
+    stream = ctypes.c_void_p((stream or torch.cuda.current_stream(dev)).cuda_stream)
 
     def k15(reads, writes, st: MeshState, parity: int, first: bool) -> None:
-        rd, wr = (row[key(bufs)].data_ptr() for bufs in (reads, writes))
-        err = launch(rd, wr, st.state.data_ptr(), st.rowflag.data_ptr(), st.colspan.data_ptr(),
-                     st.skipped.data_ptr(), st.act.data_ptr(), st.route.data_ptr(), ny, nx, h,
-                     wpl, plan.t, plan.stripe_h, blocks.tile_h, blocks.warps, plan.pad_f,
-                     sub_rows or 0, col_window or 0, parity, int(first), variant, born, surv,
-                     stream)
+        rd, wr = (row[tuple(t.data_ptr() for t in flatten(bufs))].data_ptr()
+                  for bufs in (reads, writes))
+        with torch.cuda.device(dev):
+            err = launch(rd, wr, dev_ids.data_ptr(), host_ids.data_ptr(), st.state.data_ptr(),
+                         st.rowflag.data_ptr(), st.colspan.data_ptr(), st.skipped.data_ptr(),
+                         st.act.data_ptr(), st.route.data_ptr(), len(ids), ny, nx, h, wpl,
+                         plan.t, plan.stripe_h, blocks.tile_h, blocks.warps, plan.pad_f,
+                         sub_rows or 0, col_window or 0, parity, int(first), variant, born, surv,
+                         stream)
         cuda_build.check(lib, err, "tile_mega")
         tile_mega_launch.launches += 1
         tile_mega_launch.rules[REG_RULES[variant]] += 1
@@ -1557,13 +1877,15 @@ def tile_mega_launch(reads, writes, st: MeshState, rule: LifeRule, plan: Adaptiv
     writing ``writes`` (each tile's buffer of two launches ago) and
     ``st.state[parity]`` and accumulating ``st.skipped`` and ``st.act``;
     returns ``writes``.  ``first`` marks launch 0 of a chunk.  ``k15`` is a
-    chunk's launcher (:func:`_k15`); without it the launch is checked
-    here, CPU tensors run :func:`tile_mega_launch_plain` and CUDA tensors
-    launch K15 or raise."""
+    chunk's launcher (:func:`_k15`; in the peer form one card's); without
+    it the launch is checked here, CPU tensors run
+    :func:`tile_mega_launch_plain` and CUDA tensors launch K15 or raise
+    (tiles on several cards take :func:`tile_mega_launches`)."""
     if k15 is None:
         _check_tile_mega(reads, writes, st, plan)
         if reads[0][0].device.type == "cpu":
             return tile_mega_launch_plain(reads, writes, st, rule, plan, parity, first)
+        _check_ids(None, len(reads) * len(reads[0]), [t.device for r in reads for t in r])
         k15 = _k15([reads, writes], rule, plan)
     k15(reads, writes, st, parity, first)
     return writes
@@ -1574,33 +1896,32 @@ tile_mega_launch.rules = collections.Counter()
 
 
 def tile_mega_launches(tiles, rule: LifeRule, plan: AdaptivePlan, nlaunch: int,
-                       plain: bool = False, each=None):
+                       plain: bool = False, each=None, groups=None, streams=None,
+                       stats_only: bool = False):
     """One chunk of the in-kernel tier on a 2-D mesh: ``nlaunch`` K15
-    launches over every tile (``tiles``: rows of tiles on one device),
-    from a restarted state, each launch writing the tiles' buffers of two
-    launches ago (two fresh buffers a tile; the input is never written).
-    Returns (tiles, :class:`MeshState`): the chunk's final tiles, state,
-    skip count per tile and activity per stripe (tile-major), all left on
-    the device.  On the card the chunk is checked and its launcher
-    (:func:`_k15`) built once, then each launch is one wrapper call.
-    ``plain`` runs :func:`tile_mega_launch_plain` instead (on the CPU the
-    wrapper runs it anyway); ``each(tiles, st)`` is called after every
-    launch (the launch-by-launch check)."""
+    launches over every tile (``tiles``: rows of tiles), from a restarted
+    state, each launch writing the tiles' buffers of two launches ago (two
+    fresh buffers a tile; the input is never written).  Returns (tiles,
+    :class:`MeshState`): the chunk's final tiles, state, skip count per
+    tile and activity per stripe (tile-major), all left on the first
+    tile's device.  On the card the chunk is checked and its launchers
+    (:func:`_k15`) built once, then each launch is one wrapper call a
+    group; tiles on several cards run the peer form (:func:`_mega_chunk`,
+    ``groups`` (tile ids, row-major), ``streams`` and ``stats_only`` as
+    for :func:`strip_mega_launches`).  ``plain`` runs
+    :func:`tile_mega_launch_plain` instead (on the CPU the wrapper runs it
+    anyway); ``each(tiles, st)`` is called after every launch (the
+    launch-by-launch check)."""
     ny, nx = len(tiles), len(tiles[0])
-    dev = tiles[0][0].device
-    st = MeshState.start(ny * nx, tiles[0][0].shape[0], plan, dev)
-    bufs = [[[torch.empty_like(t) for t in r] for r in tiles] for _ in range(2)]
-    k15 = None
-    if dev.type == "cuda" and not plain:
-        _check_tile_mega(tiles, bufs[0], st, plan)
-        k15 = _k15([tiles, *bufs], rule, plan)
-    cur = tiles
-    for k in range(nlaunch):
-        args = (cur, bufs[k % 2], st, rule, plan, k % 2, k == 0)
-        cur = tile_mega_launch_plain(*args) if plain else tile_mega_launch(*args, k15)
-        if each is not None:
-            each(cur, st)
-    return cur, st
+
+    def nest(flat):
+        return [flat[r * nx : (r + 1) * nx] for r in range(ny)]
+
+    return _mega_chunk(
+        [t for r in tiles for t in r], nest, (ny, nx), rule, plan, nlaunch, plain, each, groups,
+        streams, stats_only, _check_tile_mega, lambda sets, ids, stream: _k15(
+            [nest(s) for s in sets], rule, plan, ids, stream),
+        lambda *a, **kw: tile_mega_launch_plain(*a, **kw))
 
 
 def tile_activity(act: torch.Tensor, ny: int, nx: int) -> torch.Tensor:
@@ -1724,7 +2045,7 @@ def mega_launches(strips, rule, plan: AdaptivePlan, full: int):
     act = torch.zeros((len(strips) * plan.grid(strips[0].shape[0]),), dtype=torch.int32,
                       device=dev)
     for c in chunks:
-        strips, st = strip_mega_launches(strips, rule, plan, c)
+        strips, st = strip_mega_launches(strips, rule, plan, c, stats_only=True)
         skipped, act = skipped + st.skipped.sum().to(torch.int32), act + st.act
     if loose:
         strips, sk, a = probing_launches(strips, rule, plan, loose)
@@ -1801,7 +2122,7 @@ def tile_mega_chunks(board: ShardedBoard, rule, plan: AdaptivePlan, xpad: int, f
     skipped = torch.zeros((), dtype=torch.int32, device=dev)
     act = torch.zeros((ny * plan.grid(board.shard_shape[0]), nx), dtype=torch.int32, device=dev)
     for c in chunks:
-        tiles, st = tile_mega_launches(board.shards, rule, plan, c)
+        tiles, st = tile_mega_launches(board.shards, rule, plan, c, stats_only=True)
         board = ShardedBoard(board.mesh, tiles)
         skipped, act = skipped + st.skipped.sum().to(torch.int32), act + tile_activity(st.act, ny, nx)
     if loose:
@@ -1959,7 +2280,7 @@ def make_superstep_virtual_2d(mesh_shape: tuple[int, int], rule: LifeRule = CONW
         act = torch.zeros((ny * plan.grid(tile[0]), nx), dtype=torch.int32, device=p.device)
         tiles = [[t.contiguous() for t in r.chunk(nx, dim=1)] for r in p.chunk(ny)]
         for c in chunks:
-            tiles, st = tile_mega_launches(tiles, rule, plan, c)
+            tiles, st = tile_mega_launches(tiles, rule, plan, c, stats_only=True)
             skipped, act = skipped + st.skipped.sum().to(torch.int32), act + tile_activity(
                 st.act, ny, nx)
         board = torch.cat([torch.cat(r, dim=1) for r in tiles])

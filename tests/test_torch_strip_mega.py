@@ -206,33 +206,37 @@ def card(*indices):
     return [torch.device("cuda", i) for i in indices]
 
 
-@pytest.mark.parametrize("shape,devices,kw,env,want", [
-    ((4, 1), card(0, 0, 0, 0), {}, None, "in-kernel"),
-    ((1, 1), card(0), {}, None, "in-kernel"),
-    ((4, 1), card(0, 0, 0, 0), dict(in_kernel=False), None, "forced-ppermute (in_kernel=False)"),
-    ((4, 1), card(0, 0, 0, 0), {}, "off", "forced-ppermute (DGOL_ICI=0)"),
-    ((4, 1), card(0, 0, 0, 0), dict(in_kernel=True), "false", "in-kernel"),
-    ((2, 1), card(0, 1), {}, None, "ROADMAP B10p"),
-    ((4, 1), card(0, 1, 0, 1), dict(in_kernel=True), None, "strips on 2 devices"),
-    ((2, 2), card(0, 0, 0, 0), {}, None, "in-kernel"),
-    ((4, 1), card(0, 0, 0, 0), dict(strip=(64, 4), tile_cap=16), None, "no frontier plan"),
-    ((4, 1), card(0, 0, 0, 0), dict(strip=(64, 4), tile_cap=16, in_kernel=False), None,
+@pytest.mark.parametrize("shape,devices,kw,env,reach,want", [
+    ((4, 1), card(0, 0, 0, 0), {}, None, True, "in-kernel"),
+    ((1, 1), card(0), {}, None, True, "in-kernel"),
+    ((4, 1), card(0, 0, 0, 0), dict(in_kernel=False), None, True,
      "forced-ppermute (in_kernel=False)"),
-    ((4, 1), card(0, 0, 0, 0), dict(strip=(64, 4)), "0", "forced-ppermute (DGOL_ICI=0)"),
-    ((4, 1), [CPU] * 4, dict(strip=(64, 4), in_kernel=True), None, "interpret-mode"),
+    ((4, 1), card(0, 0, 0, 0), {}, "off", True, "forced-ppermute (DGOL_ICI=0)"),
+    ((4, 1), card(0, 0, 0, 0), dict(in_kernel=True), "false", True, "in-kernel"),
+    ((2, 1), card(0, 1), {}, None, True, "in-kernel"),
+    ((4, 1), card(0, 1, 0, 1), dict(in_kernel=True), None, False,
+     "no CUDA peer access from cuda:0 to cuda:1"),
+    ((2, 2), card(0, 0, 0, 0), {}, None, True, "in-kernel"),
+    ((4, 1), card(0, 0, 0, 0), dict(strip=(64, 4), tile_cap=16), None, True, "no frontier plan"),
+    ((4, 1), card(0, 0, 0, 0), dict(strip=(64, 4), tile_cap=16, in_kernel=False), None, True,
+     "forced-ppermute (in_kernel=False)"),
+    ((4, 1), card(0, 0, 0, 0), dict(strip=(64, 4)), "0", True, "forced-ppermute (DGOL_ICI=0)"),
+    ((4, 1), [CPU] * 4, dict(strip=(64, 4), in_kernel=True), None, True, "interpret-mode"),
 ], ids=["one-card", "one-card-loopback", "forced", "env", "env-overridden", "two-cards",
         "two-cards-forced-in", "two-d", "no-plan", "forced-before-plan", "plan-then-env",
         "cpu-shards"])
-def test_policy_table(monkeypatch, shape, devices, kw, env, want):
-    """The port's order of checks, on device descriptors (no card needed):
-    ``in_kernel=False``, then the shard's frontier plan, then
-    ``DGOL_ICI=0`` (which ``in_kernel=True`` outranks), then CPU shards
-    and shards on several cards (B10p); a row or 2-D mesh on one card
-    takes the tier."""
+def test_policy_table(monkeypatch, shape, devices, kw, env, reach, want):
+    """The port's order of checks, on device descriptors (no card needed;
+    ``reach`` replaces the peer-access check): ``in_kernel=False``, then
+    the shard's frontier plan, then ``DGOL_ICI=0`` (which ``in_kernel=True``
+    outranks), then CPU shards, then, for strips on several cards (the
+    peer form), cards that cannot reach each other; a row or 2-D mesh on
+    one card or on cards that reach each other takes the tier."""
     if env is None:
         monkeypatch.delenv("DGOL_ICI", raising=False)
     else:
         monkeypatch.setenv("DGOL_ICI", env)
+    monkeypatch.setattr(cuda_halo, "peer_access", lambda card, peer: reach)
     use, reason = cuda_halo.tier_policy(tmesh.make_mesh(shape, devices), **kw)
     assert use == (reason == "in-kernel")
     assert want in reason

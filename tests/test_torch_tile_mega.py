@@ -605,25 +605,29 @@ def card(*indices):
     return [torch.device("cuda", i) for i in indices]
 
 
-@pytest.mark.parametrize("shape,devices,kw,want", [
-    ((2, 2), card(0, 0, 0, 0), {}, "in-kernel"),
-    ((2, 4), card(*[0] * 8), {}, "in-kernel"),
-    ((1, 2), card(0, 0), {}, "in-kernel"),
-    ((2, 2), card(0, 0, 0, 0), dict(strip=(8192, 256)), "in-kernel"),
-    ((2, 2), card(0, 0, 0, 0), dict(in_kernel=False), "forced-ppermute (in_kernel=False)"),
-    ((2, 2), card(0, 1, 0, 1), {}, "ROADMAP B10p"),
-    ((2, 2), card(0, 1, 2, 3), dict(in_kernel=True), "tiles on 4 devices"),
-    ((2, 4), card(*[0] * 8), dict(strip=(64, 2), tile_cap=16), "no frontier plan"),
+@pytest.mark.parametrize("shape,devices,kw,reach,want", [
+    ((2, 2), card(0, 0, 0, 0), {}, True, "in-kernel"),
+    ((2, 4), card(*[0] * 8), {}, True, "in-kernel"),
+    ((1, 2), card(0, 0), {}, True, "in-kernel"),
+    ((2, 2), card(0, 0, 0, 0), dict(strip=(8192, 256)), True, "in-kernel"),
+    ((2, 2), card(0, 0, 0, 0), dict(in_kernel=False), True, "forced-ppermute (in_kernel=False)"),
+    ((2, 2), card(0, 1, 0, 1), {}, True, "in-kernel"),
+    ((2, 2), card(0, 1, 2, 3), dict(in_kernel=True), False,
+     "no CUDA peer access from cuda:0 to cuda:1"),
+    ((2, 4), card(*[0] * 8), dict(strip=(64, 2), tile_cap=16), True, "no frontier plan"),
 ], ids=["one-card", "one-card-2x4", "one-card-1x2", "one-card-plan", "forced", "two-cards",
         "four-cards-forced-in", "no-plan"])
-def test_policy_on_cards(monkeypatch, shape, devices, kw, want):
-    """On device descriptors (no card needed): a 2-D mesh whose tiles share
-    one card takes the tier, tiles on several cards name B10p, and no
-    reason names B12."""
+def test_policy_on_cards(monkeypatch, shape, devices, kw, reach, want):
+    """On device descriptors (no card needed; ``reach`` replaces the
+    peer-access check): a 2-D mesh whose tiles share one card, or lie on
+    cards that reach each other (the peer form), takes the tier; cards
+    that cannot give the reason naming both; no reason names B12 or
+    B10p."""
     monkeypatch.delenv("DGOL_ICI", raising=False)
+    monkeypatch.setattr(cuda_halo, "peer_access", lambda card, peer: reach)
     use, reason = cuda_halo.tier_policy(tmesh.make_mesh(shape, devices), **kw)
     assert use == (reason == "in-kernel")
-    assert want in reason and "B12" not in reason
+    assert want in reason and "B12" not in reason and "B10p" not in reason
 
 
 # -- the slice end to end ------------------------------------------------------------------
